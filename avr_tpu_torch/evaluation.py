@@ -1,0 +1,91 @@
+"""Novel-view rendering entry points (ports of
+``avr_tpu/training/loop.py:158 render_full_image`` and
+``avr_tpu/evaluation.py:123 generate_video``).
+
+Both run under ``torch.inference_mode()`` on the model's device; the
+device defaults to the card (:func:`~avr_tpu_torch.utils.device.resolve_device`).
+Randomness is the per-ray hash: chunk rays get seeds ``derive(k0, k1,
+scene * sl**2 + pixel)``, so an image's random numbers do not depend on the
+chunk size.  ``(k0, k1) = (0, i)`` are the key words of a threefry
+``jax.random.PRNGKey(i)``, the key the JAX video path gives frame ``i``.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from avr_tpu_torch.models.wrapper import RadFieldRenderer
+from avr_tpu_torch.ops.hashrng import derive, global_ray_ids
+from avr_tpu_torch.renderers.base import RenderOutput
+from avr_tpu_torch.utils.device import resolve_device
+from avr_tpu_torch.utils.geometry import orbit_cam2world, pixel_grid
+
+__all__ = ["render_full_image", "generate_video"]
+
+Device = Optional[Union[str, torch.device]]
+
+
+def render_full_image(model: RadFieldRenderer, cond, intrinsics: torch.Tensor,
+                      cam2world: torch.Tensor, sl: int, key: Tuple[int, int],
+                      chunk: int = 4096, device: Device = None) -> RenderOutput:
+    """Render full ``sl x sl`` images in ``chunk``-ray pieces.
+
+    ``intrinsics (SB, 3, 3)``, ``cam2world (SB, 4, 4)`` (one pose per
+    scene), ``key`` the two key words for :func:`derive`.  Returns a
+    :class:`RenderOutput` of ``(SB, sl*sl, ...)`` tensors.
+    """
+    dev = resolve_device(device)
+    SB = intrinsics.shape[0]
+    total = sl * sl
+    xy = torch.from_numpy(pixel_grid(sl, sl).reshape(1, total, 2)).to(dev).expand(SB, -1, -1)
+    intrinsics = intrinsics.to(dev, torch.float32)
+    cam2world = cam2world.to(dev, torch.float32)
+    pieces = []
+    with torch.inference_mode():
+        for start in range(0, total, chunk):
+            end = min(start + chunk, total)
+            n = end - start
+            c2w = cam2world[:, None].expand(SB, n, 4, 4)
+            seeds = derive(key[0], key[1], global_ray_ids(SB, n, start, dev, stride=total))
+            pieces.append(model.render(cond, xy[:, start:end], intrinsics, c2w, seeds))
+    return RenderOutput(*(None if parts[0] is None else torch.cat(parts, dim=1)
+                          for parts in zip(*pieces)))
+
+
+def generate_video(model: RadFieldRenderer, batch: Dict[str, np.ndarray], num_frames: int,
+                   radius: float, fine: bool = True, render_chunk: int = 4096,
+                   z_height: float = 0.4, device: Device = None) -> List[np.ndarray]:
+    """Orbit-camera render of ``num_frames`` full images of one scene.
+
+    ``batch`` is one collated scene in the dataset's layout (``images
+    (SB, NV, sl*sl, 3)`` in [-1, 1], ``cam2world (SB, NV, 4, 4)``,
+    ``focal (SB, NV)``, ``c (SB, NV, 2)``, ``intrinsics (SB, NV, 3, 3)``);
+    view 0 of scene 0 conditions the field.  Returns uint8 ``(sl, sl, 3)``
+    frames.
+    """
+    dev = resolve_device(device)
+    images = batch["images"]
+    sl = int(np.sqrt(images.shape[2]))
+    src = torch.as_tensor(images[:1, :1]).reshape(1, 1, sl, sl, 3).to(dev)
+    src_pose = torch.as_tensor(batch["cam2world"][:1, :1]).to(dev)
+    focal = float(batch["focal"][0, 0])
+    c = torch.as_tensor(batch["c"][0, 0], dtype=torch.float32)
+    intr = torch.as_tensor(batch["intrinsics"][:1, 0])
+    poses = orbit_cam2world(num_frames, radius, z_height)
+
+    frames = []
+    with torch.inference_mode():
+        cond = model.encode(src.float(), src_pose.float(), focal, c.to(dev))
+        start = time.time()
+        for i in range(num_frames):
+            out = render_full_image(model, cond, intr, poses[i][None], sl, (0, i),
+                                    render_chunk, dev)
+            rgb = out.rgb_fine if fine else out.rgb_coarse
+            img = rgb[0].reshape(sl, sl, 3).float().cpu().numpy()
+            frames.append(np.clip(img * 255.0, 0, 255).astype(np.uint8))
+    print(f"it takes {time.time() - start} seconds to render a video")
+    return frames

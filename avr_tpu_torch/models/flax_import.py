@@ -1,0 +1,89 @@
+"""Carry the JAX package's weights into the port.
+
+:func:`load_flax_variables` takes the Flax ``RadFieldRenderer`` variables
+(``{"params": ..., "batch_stats": ...}`` as nested dicts of numpy arrays —
+the caller converts the JAX tree; this module imports no JAX) and fills the
+port's modules in place.  The inverse of ``avr_tpu/models/torch_import.py``:
+
+  * ``nn.Dense`` kernels ``(in, out)`` -> ``nn.Linear`` weights ``(out, in)``,
+  * convolution kernels HWIO -> OIHW,
+  * BatchNorm ``scale``/``bias`` (params) and ``mean``/``var`` (batch_stats),
+  * LSTM ``w_ih (C, 4H)``, ``w_hh (H, 4H)``, ``b_ih``, ``b_hh`` as they are,
+  * ``out_layer`` and the decoders' ``lin_in``, ``lin_z_k``,
+    ``block_k/fc_0|fc_1``, ``lin_out`` Dense kernels and biases.
+
+A leaf missing on either side is an error, named.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+__all__ = ["load_flax_variables"]
+
+_STATS = ("mean", "var")
+
+
+def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], Any]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def _flax_path(name: str) -> Tuple[str, ...]:
+    """Port state-dict name -> Flax variables path."""
+    name = re.sub(r"(^|\.)stages\.", r"\1", name)
+    name = re.sub(r"(^|\.)lin_z\.(\d+)\.", r"\1lin_z_\2.", name)
+    name = re.sub(r"(^|\.)blocks\.(\d+)\.", r"\1block_\2.", name)
+    *mods, leaf = name.split(".")
+    if leaf in _STATS:
+        return ("batch_stats", *mods, leaf)
+    return ("params", *mods, "kernel" if leaf == "weight" else leaf)
+
+
+def _convert(value: np.ndarray, target: torch.Tensor, leaf: str) -> np.ndarray:
+    value = np.asarray(value, np.float32)
+    if leaf == "weight" and target.ndim == 4:
+        value = np.transpose(value, (3, 2, 0, 1))  # HWIO -> OIHW
+    elif leaf == "weight":
+        value = value.T  # Dense (in, out) -> Linear (out, in)
+    if tuple(value.shape) != tuple(target.shape):
+        raise ValueError(f"shape mismatch: {tuple(value.shape)} vs {tuple(target.shape)}")
+    return value
+
+
+def load_flax_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Module:
+    """Fill ``model`` (a :class:`~avr_tpu_torch.models.wrapper.RadFieldRenderer`,
+    or any of its submodules given the matching subtree) from the Flax
+    variables tree; returns the model."""
+    flat = _flatten(variables)
+    targets = dict(model.named_parameters())
+    targets.update(model.named_buffers())
+    used, missing = set(), []
+    with torch.no_grad():
+        for name, target in targets.items():
+            path = _flax_path(name)
+            if path not in flat:
+                missing.append(f"{name} (flax {'/'.join(path)})")
+                continue
+            leaf = name.rsplit(".", 1)[-1]
+            try:
+                value = _convert(flat[path], target, leaf)
+            except ValueError as e:
+                raise ValueError(f"{name}: {e}") from None
+            target.copy_(torch.from_numpy(np.ascontiguousarray(value)))
+            used.add(path)
+    extra = sorted("/".join(p) for p in set(flat) - used)
+    if missing or extra:
+        raise KeyError(f"flax variables do not match the port: missing {missing}, "
+                       f"unused {extra}")
+    return model

@@ -1,0 +1,117 @@
+"""ResNet backbone trunk for the pixel-aligned encoder (port of
+``avr_tpu/models/resnet.py``), eval mode only.
+
+NCHW inside (PyTorch's convolution layout); parameters are float32 and cast
+to the compute dtype at use.  Padding is explicit ``(1, 1)`` for 3x3,
+``(3, 3)`` for the 7x7 stem, and the stem's max-pool pads with -inf, as the
+Flax trunk does.  BatchNorm uses the running statistics.  Module and
+parameter names follow the Flax tree so weights carry across by name
+(``models/flax_import.py``).  The convolutions stay cuDNN's: the JAX
+package has no Pallas kernel here.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = ["ResNetTrunk", "RESNET_STAGES", "BatchNorm", "Conv"]
+
+# (blocks per stage, channels per stage)
+RESNET_STAGES = {
+    "resnet18": ((2, 2, 2, 2), (64, 128, 256, 512)),
+    "resnet34": ((3, 4, 6, 3), (64, 128, 256, 512)),
+}
+
+
+class Conv(nn.Module):
+    """Bias-free convolution; ``weight`` is OIHW float32, run in the input's dtype."""
+
+    def __init__(self, c_in: int, c_out: int, k: int, stride: int = 1, pad: int = 0):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(c_out, c_in, k, k))
+        self.stride, self.pad = stride, pad
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, self.weight.to(x.dtype), stride=self.stride, padding=self.pad)
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode BatchNorm, ``(x - mean) * (rsqrt(var + eps) * scale) + bias``
+    in float32 (Flax's normalization order), result in the input's dtype."""
+
+    def __init__(self, c: int, eps: float = 1e-5):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("mean", torch.zeros(c))
+        self.register_buffer("var", torch.ones(c))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        view = lambda t: t.view(1, -1, 1, 1)
+        mul = torch.rsqrt(self.var + self.eps) * self.scale
+        y = (x.float() - view(self.mean)) * view(mul) + view(self.bias)
+        return y.to(x.dtype)
+
+
+class BasicBlock(nn.Module):
+    """3x3-3x3 residual block with optional strided 1x1 projection."""
+
+    def __init__(self, c_in: int, c_out: int, stride: int):
+        super().__init__()
+        self.conv1 = Conv(c_in, c_out, 3, stride, 1)
+        self.bn1 = BatchNorm(c_out)
+        self.conv2 = Conv(c_out, c_out, 3, 1, 1)
+        self.bn2 = BatchNorm(c_out)
+        if stride != 1 or c_in != c_out:
+            self.down_conv = Conv(c_in, c_out, 1, stride, 0)
+            self.down_bn = BatchNorm(c_out)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        if hasattr(self, "down_conv"):
+            x = self.down_bn(self.down_conv(x))
+        return torch.relu(y + x)
+
+
+class ResNetTrunk(nn.Module):
+    """Stem + the first ``num_layers - 1`` residual stages; returns every
+    stage's feature map (NCHW), ``num_layers=4`` giving 64+64+128+256 = 512
+    channels in all."""
+
+    def __init__(self, backbone: str = "resnet34", num_layers: int = 4,
+                 use_first_pool: bool = True):
+        super().__init__()
+        blocks, channels = RESNET_STAGES[backbone]
+        self.num_layers, self.use_first_pool = num_layers, use_first_pool
+        self.conv1 = Conv(3, 64, 7, 2, 3)
+        self.bn1 = BatchNorm(64)
+        self.stages = nn.ModuleDict()
+        c_in = 64
+        for stage in range(num_layers - 1):
+            for blk in range(blocks[stage]):
+                stride = 2 if (stage > 0 and blk == 0) else 1
+                self.stages[f"layer{stage + 1}_block{blk}"] = BasicBlock(
+                    c_in, channels[stage], stride)
+                c_in = channels[stage]
+        self.blocks_per_stage = blocks
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        x = torch.relu(self.bn1(self.conv1(x)))
+        feats = [x]
+        for stage in range(self.num_layers - 1):
+            if stage == 0 and self.use_first_pool:
+                x = F.max_pool2d(x, 3, stride=2, padding=1)
+            for blk in range(self.blocks_per_stage[stage]):
+                x = self.stages[f"layer{stage + 1}_block{blk}"](x)
+            feats.append(x)
+        return feats
+
+    @staticmethod
+    def latent_size(backbone: str, num_layers: int) -> int:
+        return 64 + sum(RESNET_STAGES[backbone][1][: num_layers - 1])

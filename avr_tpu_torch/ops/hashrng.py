@@ -1,0 +1,127 @@
+"""Sharding-invariant per-ray RNG: counter-based hashing on global ray ids.
+
+Bit-exact port of ``avr_tpu/ops/hashrng.py``: every sampler draw is a
+murmur3-finalizer hash of ``(step key, global ray id, static salt,
+counter)``, so the same rays give the same random numbers in both packages
+and under any chunking of the ray batch.
+
+The hashes are uint32 arithmetic.  PyTorch's uint32 dtype lacks most
+operators, so the words live in int64 tensors holding values in
+``[0, 2**32)``: every shift and add is masked back to 32 bits, and the
+multiply is split into 16-bit halves so no intermediate leaves int64's
+range (a plain int64 product of two 32-bit words can overflow).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+__all__ = [
+    "RaySeeds", "derive", "split_any", "hash_uniform", "hash_normal",
+    "global_ray_ids",
+]
+
+_MASK = 0xFFFFFFFF
+_M1 = 0x85EBCA6B
+_M2 = 0xC2B2AE35
+_GOLDEN = 0x9E3779B9
+# 2*pi rounded to float32 exactly as the JAX package computes it
+_TWO_PI_F32 = float(np.float32(2.0) * np.float32(np.pi))
+
+
+def _mul32(a: torch.Tensor, m: int) -> torch.Tensor:
+    """``a * m mod 2**32`` for words ``a`` in [0, 2**32) and a constant ``m``."""
+    lo, hi = m & 0xFFFF, m >> 16
+    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _MASK
+
+
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    """murmur3 32-bit finalizer."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, _M1)
+    h = h ^ (h >> 13)
+    h = _mul32(h, _M2)
+    return h ^ (h >> 16)
+
+
+def _mix(a: torch.Tensor, b: int) -> torch.Tensor:
+    """Combine two u32 words with avalanche (order-sensitive)."""
+    t = ((b + _GOLDEN) + ((a << 6) & _MASK) + (a >> 2)) & _MASK
+    return _fmix32(a ^ t)
+
+
+@dataclass(frozen=True)
+class RaySeeds:
+    """Per-ray RNG state: ``seeds`` is ``(SB, R)`` int64 holding u32 words;
+    ``salt`` is a static stream discriminator folded by :func:`split_any`."""
+
+    seeds: torch.Tensor
+    salt: int = 0
+
+    def fold(self, s: int) -> "RaySeeds":
+        return replace(self, salt=(self.salt * 1000003 + s) & _MASK)
+
+
+def derive(k0: int, k1: int, gids: torch.Tensor) -> RaySeeds:
+    """Per-ray seeds from the two key words and ``(SB, R)`` global ray ids.
+
+    ``k0``/``k1`` are the first and last words of the JAX key data that
+    ``avr_tpu.ops.hashrng.derive`` reads: ``(0, i)`` for a threefry
+    ``jax.random.PRNGKey(i)``.
+    """
+    h = _mix(gids.to(torch.int64) & _MASK, 0)
+    h = _fmix32(h ^ (int(k0) & _MASK))
+    return RaySeeds(seeds=_fmix32(h ^ (int(k1) & _MASK)))
+
+
+def split_any(key: RaySeeds, n: int = 2) -> List[RaySeeds]:
+    """Static salt folds: ``n`` independent streams from one seed map."""
+    return [key.fold(i + 1) for i in range(n)]
+
+
+def _bits(rs: RaySeeds, n: int) -> torch.Tensor:
+    """(SB, R, n) u32 counter-hash lanes for draw ``salt``."""
+    base = _fmix32(rs.seeds ^ (rs.salt & _MASK))
+    ctr = _mul32(torch.arange(1, n + 1, dtype=torch.int64, device=rs.seeds.device),
+                 _GOLDEN)
+    return _fmix32(base[..., None] ^ ctr)
+
+
+def _check_shape(rs: RaySeeds, shape: Sequence[int]) -> int:
+    if tuple(shape[:2]) != tuple(rs.seeds.shape):
+        raise ValueError(f"shape {tuple(shape)} vs seeds {tuple(rs.seeds.shape)}")
+    return 1 if len(shape) == 2 else int(np.prod(shape[2:]))
+
+
+def hash_uniform(rs: RaySeeds, shape: Sequence[int]) -> torch.Tensor:
+    """Uniform [0, 1) float32 on a 24-bit grid; ``shape`` is ``(SB, R)`` or
+    ``(SB, R, ...)`` with ``(SB, R) == rs.seeds.shape``."""
+    n = _check_shape(rs, shape)
+    u = (_bits(rs, n) >> 8).to(torch.float32) * (2.0 ** -24)
+    return u.reshape(tuple(shape))
+
+
+def hash_normal(rs: RaySeeds, shape: Sequence[int]) -> torch.Tensor:
+    """Standard normals via Box-Muller on two independent uniform lanes."""
+    n = _check_shape(rs, shape)
+    lanes = (shape[0], shape[1], n)
+    u1 = hash_uniform(rs.fold(7919), lanes)
+    u2 = hash_uniform(rs.fold(104729), lanes)
+    r = torch.sqrt(-2.0 * torch.log1p(-u1))  # u1 in [0,1) -> 1-u1 in (0,1]
+    return (r * torch.cos(_TWO_PI_F32 * u2)).reshape(tuple(shape))
+
+
+def global_ray_ids(SB: int, R: int, offset: int = 0,
+                   device: torch.device | str = "cpu",
+                   stride: int | None = None) -> torch.Tensor:
+    """``(SB, R)`` u32 global ids ``s * stride + offset + r`` (``stride``
+    defaults to ``R``, the JAX ``global_ray_ids``); a chunk of a larger ray
+    set passes its ``offset`` and the full set's ``stride``."""
+    stride = R if stride is None else stride
+    s = torch.arange(SB, dtype=torch.int64, device=device)[:, None]
+    r = torch.arange(R, dtype=torch.int64, device=device)[None, :]
+    return (s * stride + offset + r) & _MASK

@@ -1,0 +1,37 @@
+"""LSTM ray-march (port of ``avr_tpu/renderers/raymarch.py`` ``lstm_march``).
+
+Draws the gaussian initial distance from the per-ray hash, then runs the
+whole march in the K3 kernel wrapper
+(:func:`avr_tpu_torch.ops.kernels.march.fused_lstm_march`; its plain
+version for CPU tensors).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from avr_tpu_torch.models.pixelnerf import Conditioning
+from avr_tpu_torch.ops.hashrng import RaySeeds
+from avr_tpu_torch.ops.kernels.march import fused_lstm_march, pack_projection
+from avr_tpu_torch.ops.sampling import _normal_2d
+from avr_tpu_torch.renderers.base import AdaptiveRendererConfig
+from avr_tpu_torch.renderers.lstm import MarchLSTMCell
+
+__all__ = ["lstm_march"]
+
+
+def lstm_march(cfg: AdaptiveRendererConfig, key: RaySeeds, cond: Conditioning,
+               cell: MarchLSTMCell, step_head: nn.Linear, ros: torch.Tensor,
+               rds: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    """March from ``ro + rd * N(mean, std)``; returns final world points ``(SB, R, 3)``."""
+    init = cfg.init_distance_mean + cfg.init_distance_std * _normal_2d(key, ros.shape[:2])
+    coords0 = ros + rds * init[..., None]
+    NS = cond.num_views
+    proj = pack_projection(cond.poses, cond.focal, cond.c, cond.latent_scaling,
+                           cond.image_shape).reshape(-1, NS, 16)
+    latent = cond.latent.reshape((-1, NS) + tuple(cond.latent.shape[1:]))
+    return fused_lstm_march(
+        proj, coords0, rds, latent, cell.w_ih, cell.w_hh, cell.fused_bias(),
+        step_head.weight.T, step_head.bias, steps=cfg.raymarch_steps,
+        early_stop_eps=cfg.early_stop_eps, compute_dtype=compute_dtype)

@@ -1,0 +1,94 @@
+"""Rules of the port that hold on any machine.
+
+* No module of ``avr_tpu_torch`` and no part of ``chip_smoke.py`` imports
+  JAX, Flax, Optax or the JAX package (AST scan).
+* Entry points default to the card: with no CUDA device and no explicit
+  ``device``, they raise instead of running on the CPU.
+* CPU tensors take the plain versions and never touch the kernel library.
+"""
+
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from avr_tpu_torch import evaluation
+from avr_tpu_torch.config import parse_conf_string
+from avr_tpu_torch.models.wrapper import make_model
+from avr_tpu_torch.ops.kernels import _build
+
+torch.set_num_threads(2)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "avr_tpu")
+TINY = """
+include required("default_mv.conf")
+model {
+    encoder { num_layers = 2 }
+    mlp_coarse { d_hidden = 64
+                 n_blocks = 2
+                 combine_layer = 1 }
+    mlp_fine { d_hidden = 64
+               n_blocks = 2
+               combine_layer = 1 }
+}
+adaptive_renderer { raymarch_steps = 2
+                    n_coarse = 3 }
+"""
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def _port_files():
+    return sorted((ROOT / "avr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_nothing_of_jax(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def _tiny_conf():
+    return parse_conf_string(TINY, base_dir=str(ROOT / "conf"))
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_model(_tiny_conf())
+    model = make_model(_tiny_conf(), dtype=torch.float32, device="cpu")
+    batch = dict(images=np.zeros((1, 1, 64, 3), np.float32),
+                 cam2world=np.eye(4, dtype=np.float32)[None, None],
+                 focal=np.ones((1, 1), np.float32), c=np.full((1, 1, 2), 4.0, np.float32),
+                 intrinsics=np.eye(3, dtype=np.float32)[None, None])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluation.generate_video(model, batch, 1, 1.3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluation.render_full_image(model, None, torch.eye(3)[None], torch.eye(4)[None],
+                                     8, (0, 0))
+
+
+def test_cpu_render_never_touches_the_kernel_library():
+    model = make_model(_tiny_conf(), dtype=torch.float32, seed=3, device="cpu")
+    rng = np.random.default_rng(0)
+    c2w = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
+    c2w[2, 3] = 1.3
+    K = np.asarray([[1.09375, 0, 0.5], [0, 1.09375, 0.5], [0, 0, 1]], np.float32)
+    batch = dict(images=rng.uniform(-1, 1, (1, 1, 16 * 16, 3)).astype(np.float32),
+                 cam2world=c2w[None, None], focal=np.full((1, 1), 17.5, np.float32),
+                 c=np.full((1, 1, 2), 8.0, np.float32), intrinsics=K[None, None])
+    _build.reset_launches()
+    frames = evaluation.generate_video(model, batch, 2, 1.3, render_chunk=64, device="cpu")
+    assert len(frames) == 2 and frames[0].shape == (16, 16, 3) and frames[0].dtype == np.uint8
+    assert not _build.launches
+    assert _build._lib is None, "the CPU path loaded the CUDA kernel library"
