@@ -44,6 +44,23 @@ __device__ __forceinline__ void load16(const bf16* p, float* out) {
   }
 }
 
+// 16 bytes of T from shared memory (load16 reads global memory through
+// the read-only path).
+__device__ __forceinline__ void load16_shared(const float* p, float* out) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+}
+__device__ __forceinline__ void load16_shared(const bf16* p, float* out) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
 __device__ __forceinline__ void store16(float* p, const float* in) {
   *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
 }
@@ -62,6 +79,7 @@ __device__ __forceinline__ void store16(bf16* p, const float* in) {
 struct Taps {
   int i00, i01, i10, i11;
   float w00, w01, w10, w11;
+  float wx, wy;  // fractional offsets (the backward's weight derivatives)
 };
 
 __device__ __forceinline__ Taps bilinear_taps(float gx, float gy, int H, int W) {
@@ -78,6 +96,8 @@ __device__ __forceinline__ Taps bilinear_taps(float gx, float gy, int H, int W) 
   t.i01 = y0i * W + x1i;
   t.i10 = y1i * W + x0i;
   t.i11 = y1i * W + x1i;
+  t.wx = wx;
+  t.wy = wy;
   float ux = __fsub_rn(1.f, wx), uy = __fsub_rn(1.f, wy);
   t.w00 = __fmul_rn(uy, ux);
   t.w01 = __fmul_rn(uy, wx);
@@ -94,3 +114,41 @@ __device__ __forceinline__ float blend4(float a, float b, float c, float d, cons
 }
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
+
+// Strict live mask of the border clamp's derivative: 1 only for an
+// unclamped pixel coordinate strictly inside (0, S - 1), as the TPU
+// kernels' backward (avr_tpu/ops/pallas/gather.py:142-148).
+__device__ __forceinline__ float live(float g, int S) {
+  const float u = __fmul_rn(__fmul_rn(__fadd_rn(g, 1.f), 0.5f), (float)(S - 1));
+  return (u > 0.f && u < (float)(S - 1)) ? 1.f : 0.f;
+}
+
+// Coordinate cotangent of one bilinear sample from the per-tap dots
+// <g, f_tap>: (d grid_x, d grid_y).
+__device__ __forceinline__ float2 tap_coord_grad(float gf0, float gf1, float gf2, float gf3,
+                                                 const Taps& t, float gx, float gy, int H,
+                                                 int W) {
+  const float d_wx = (gf1 - gf0) * (1.f - t.wy) + (gf3 - gf2) * t.wy;
+  const float d_wy = (gf2 - gf0) * (1.f - t.wx) + (gf3 - gf1) * t.wx;
+  return make_float2(d_wx * live(gx, W) * (0.5f * (float)(W - 1)),
+                     d_wy * live(gy, H) * (0.5f * (float)(H - 1)));
+}
+
+// p[0..n) += v[0..n) * s in float32 by global atomics (n = 4 or 8, p
+// 16-byte aligned); sm_90 adds four floats per atomic.
+__device__ __forceinline__ void atomic_add_scaled(float* p, const float* v, float s, int n) {
+  for (int i = 0; i < n; i += 4) {
+#if CUDART_VERSION >= 12030
+    atomicAdd(reinterpret_cast<float4*>(p + i),
+              make_float4(v[i] * s, v[i + 1] * s, v[i + 2] * s, v[i + 3] * s));
+#else
+    for (int j = 0; j < 4; ++j) atomicAdd(p + i + j, v[i + j] * s);
+#endif
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}

@@ -1,24 +1,52 @@
-// K3: fused LSTM ray-march (forward).
+// K3: fused LSTM ray-march, forward and backward.
 //
-// Replaces avr_tpu/ops/pallas/march.py:703 fused_lstm_march.  Per ray and
+// Replaces avr_tpu/ops/pallas/march.py:703 fused_lstm_march: the forward
+// (call :556) and its backward (call :621, kernel :381-521).  Per ray and
 // step: project into each source view (packed scalars), 4-tap bilinear
 // gather mean-pooled over views, LSTM cell (gates i, f, g, o), signed step
 // s = h . w_out + b_out along the ray, optional early-stop freeze.
 //
-// Bound on H100: neither FLOPs (~2.9 GFLOP) nor bytes (~4.3 MB) at 4,096
-// rays x 10 steps; the 10 dependent steps set the time.  Design: one warp
+// Forward.  Bound on H100: neither FLOPs (~2.9 GFLOP) nor bytes (~4.3 MB)
+// at 4,096 rays x 10 steps; the 10 dependent steps set the time.  One warp
 // per ray, WARPS rays per CTA.  W_ih (C x 4H) and W_hh sit in shared memory
 // for the CTA's rays; each step's gather reads 16-byte channel groups from
 // L2 (the latent is a few MB) and blends them in registers; the float32
-// carries (coords, h, c) stay on chip for all steps and no per-step stash
-// is written.  A ray that froze stops: its coordinates cannot change.
-
+// carries (coords, h, c) stay on chip for all steps.  Under autograd the
+// forward also writes one float32 row per ray and step (h_prev, c_prev,
+// coords, active, the four gates, tanh c, s: AUXW floats, ~79 MB at
+// 16,384 rays x 10 steps) for the backward.  A ray that froze stops: its
+// coordinates cannot change (its later rows say active = 0).
+//
+// Backward.  Bound on H100: ~2.3e10 FLOP and ~67 MB of dfeat zeroing and
+// writing, both ~0.02 ms; like the forward its time is the 10 dependent
+// steps.  One warp per ray walks the steps in reverse from the saved rows:
+// step head, the clip of the *combined* hidden cotangent to +-grad_clamp,
+// the LSTM cell backward, dv = dgates @ W_ih^T, and the gather backward
+// (float4 atomics into a zeroed float32 dfeat, per-tap dots into the
+// coordinate cotangent with the strict border mask, then the projection).
+// v_t is not saved by the forward: the backward loads the same four taps
+// anyway for the per-tap dots, so it re-blends v_t from them (the latent
+// stays in L2).  W_ih^T (4H x C) sits in shared memory for dv.  The weight
+// cotangent dW_ih = sum over ray-steps of v_t (x) dgates is not summed in
+// the walk (a first version did so by shared-memory atomics from all eight
+// warps of a CTA on the same addresses, 1,024 a ray-step a lane: 39.5 ms):
+// each ray-step writes v_t and its rounded gate cotangents (bf16, 189 MB
+// at 16,384 rays x 10 steps) and one GEMM, the decoder's wgrad kernel
+// (csrc/resnetfc.cu), sums them after.  The small weight cotangents (W_hh,
+// biases, step head) sum in shared memory of persistent CTAs (one per SM)
+// and reach global memory once per CTA.  A frozen step contributes exactly
+// zero and is skipped.
 #include "common.cuh"
 
 constexpr int WARPS = 8;  // rays per CTA
 constexpr int MAX_GATES = 128;  // 4 * hidden, hidden <= 32
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) / 16 * 16; }
+
+// Saved row per ray and step: [h_prev (H) | c_prev (H) | cx cy cz active |
+// ig fg gg og (4H) | tanh c (H) | s], padded to a multiple of 4 floats.
+__host__ __device__ inline int aux_g0(int hid) { return 2 * hid + 4; }
+__host__ __device__ inline int aux_width(int hid) { return (7 * hid + 5 + 3) / 4 * 4; }
 
 template <typename T>
 __host__ __device__ inline size_t weight_bytes(int C, int hid) {
@@ -31,8 +59,9 @@ lstm_march_kernel(const float* __restrict__ proj, const float* __restrict__ coor
                   const float* __restrict__ rds, const T* __restrict__ feat,
                   const T* __restrict__ w_ih, const T* __restrict__ w_hh,
                   const float* __restrict__ bias, const float* __restrict__ w_out,
-                  const float* __restrict__ b_out, float* __restrict__ out, int SB, int R,
-                  int NS, int H, int W, int C, int hid, int steps, float eps) {
+                  const float* __restrict__ b_out, float* __restrict__ out,
+                  float* __restrict__ aux, int SB, int R, int NS, int H, int W, int C, int hid,
+                  int steps, float eps) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int V = Vec16<T>::N;
   const int G4 = 4 * hid;
@@ -67,9 +96,17 @@ lstm_march_kernel(const float* __restrict__ proj, const float* __restrict__ coor
   const float bo = *b_out;
   const int groups = C / V;
   const float inv_ns = 1.f / (float)NS;
+  const int AW = aux_width(hid), G0 = aux_g0(hid);
   __syncwarp();
 
   for (int step = 0; step < steps; ++step) {
+    float* row = aux ? aux + ((size_t)ray * steps + step) * AW : nullptr;
+    if (row && lane == 0) {
+      row[2 * hid] = cx;
+      row[2 * hid + 1] = cy;
+      row[2 * hid + 2] = cz;
+      row[2 * hid + 3] = 1.f;
+    }
     // gather, summed over views into this warp's feature row
     for (int view = 0; view < NS; ++view) {
       const float* p = proj + ((size_t)sb * NS + view) * 16;
@@ -139,8 +176,19 @@ lstm_march_kernel(const float* __restrict__ proj, const float* __restrict__ coor
       const float fg = sigmoidf_(g_w[hid + lane]);
       const float gg = tanhf(g_w[2 * hid + lane]);
       const float og = sigmoidf_(g_w[3 * hid + lane]);
+      const float c_prev = c_state;
       c_state = fg * c_state + ig * gg;
-      const float hn = round_to<T>(og * tanhf(c_state));
+      const float tc = tanhf(c_state);
+      const float hn = round_to<T>(og * tc);
+      if (row) {
+        row[lane] = h_w[lane];
+        row[hid + lane] = c_prev;
+        row[G0 + lane] = ig;
+        row[G0 + hid + lane] = fg;
+        row[G0 + 2 * hid + lane] = gg;
+        row[G0 + 3 * hid + lane] = og;
+        row[G0 + 4 * hid + lane] = tc;
+      }
       h_w[lane] = hn;
       part = hn * wout_s[lane];
     }
@@ -151,8 +199,13 @@ lstm_march_kernel(const float* __restrict__ proj, const float* __restrict__ coor
     cx = __fadd_rn(cx, __fmul_rn(rx, s));
     cy = __fadd_rn(cy, __fmul_rn(ry, s));
     cz = __fadd_rn(cz, __fmul_rn(rz, s));
+    if (row && lane == 0) row[G0 + 5 * hid] = s;
     __syncwarp();
-    if (eps > 0.f && fabsf(s) < eps) break;  // frozen: s is 0 from now on
+    if (eps > 0.f && fabsf(s) < eps) {  // frozen: s is 0 from now on
+      if (aux && lane == 0)
+        for (int t = step + 1; t < steps; ++t) aux[((size_t)ray * steps + t) * AW + 2 * hid + 3] = 0.f;
+      break;
+    }
   }
   if (lane == 0) {
     out[ray * 3] = cx;
@@ -164,8 +217,8 @@ lstm_march_kernel(const float* __restrict__ proj, const float* __restrict__ coor
 template <typename T>
 static int launch(const void* proj, const void* coords0, const void* rds, const void* feat,
                   const void* w_ih, const void* w_hh, const void* bias, const void* w_out,
-                  const void* b_out, void* out, int SB, int R, int NS, int H, int W, int C,
-                  int hid, int steps, float eps, cudaStream_t stream) {
+                  const void* b_out, void* out, void* aux, int SB, int R, int NS, int H, int W,
+                  int C, int hid, int steps, float eps, cudaStream_t stream) {
   const size_t smem = weight_bytes<T>(C, hid) +
                       sizeof(float) * ((size_t)WARPS * (C + MAX_GATES + 32) + MAX_GATES + 32);
   cudaError_t e = cudaFuncSetAttribute(lstm_march_kernel<T>,
@@ -176,18 +229,254 @@ static int launch(const void* proj, const void* coords0, const void* rds, const 
   lstm_march_kernel<T><<<blocks, WARPS * 32, smem, stream>>>(
       (const float*)proj, (const float*)coords0, (const float*)rds, (const T*)feat,
       (const T*)w_ih, (const T*)w_hh, (const float*)bias, (const float*)w_out,
-      (const float*)b_out, (float*)out, SB, R, NS, H, W, C, hid, steps, eps);
+      (const float*)b_out, (float*)out, (float*)aux, SB, R, NS, H, W, C, hid, steps, eps);
   return (int)cudaGetLastError();
 }
 
 extern "C" int avr_lstm_march(const void* proj, const void* coords0, const void* rds,
                               const void* feat, const void* w_ih, const void* w_hh,
                               const void* bias, const void* w_out, const void* b_out, void* out,
-                              int SB, int R, int NS, int H, int W, int C, int hid, int steps,
-                              float eps, int dtype, void* stream) {
+                              void* aux, int SB, int R, int NS, int H, int W, int C, int hid,
+                              int steps, float eps, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   return dtype == 1 ? launch<bf16>(proj, coords0, rds, feat, w_ih, w_hh, bias, w_out, b_out,
-                                   out, SB, R, NS, H, W, C, hid, steps, eps, s)
+                                   out, aux, SB, R, NS, H, W, C, hid, steps, eps, s)
                     : launch<float>(proj, coords0, rds, feat, w_ih, w_hh, bias, w_out, b_out,
-                                    out, SB, R, NS, H, W, C, hid, steps, eps, s);
+                                    out, aux, SB, R, NS, H, W, C, hid, steps, eps, s);
+}
+
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+
+struct MarchBwdArgs {
+  const float* proj;     // (SB, NS, 16)
+  const float* rds;      // (SB * R, 3)
+  const void* feat;      // (SB, NS, H, W, C) T
+  const void* w_ihT;     // (4H, C) T: W_ih transposed, the dv operand
+  const void* w_hh;      // (H, 4H) T
+  const float* w_out;    // (H) rounded to T
+  const float* aux;      // (SB * R, steps, AUXW)
+  const float* gout;     // (SB * R, 3) cotangent of the final points
+  float* dcoords0;       // (SB * R, 3)
+  float* drds;           // (SB * R, 3)
+  float* dfeat;          // (SB, NS, H, W, C) float32, zeroed
+  void* vbuf;            // (SB * R, steps, C) T, zeroed: v_t, dW_ih's operand
+  void* dgbuf;           // (SB * R, steps, 4H) T, zeroed: the rounded gate cotangents
+  float* dw_hh;          // (H, 4H)
+  float* dbias;          // (4H)
+  float* dw_out;         // (H)
+  float* db_out;         // (1)
+  int SB, R, NS, H, W, C, hid, steps;
+  float eps, clamp;
+};
+
+template <typename T>
+__host__ __device__ inline size_t bwd_smem_bytes(int C, int hid) {
+  const int G4 = 4 * hid;
+  return align16((size_t)G4 * C * sizeof(T)) +
+         sizeof(float) * (2 * WARPS * C + WARPS * MAX_GATES + (size_t)hid * G4 + G4 + hid + 1);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(WARPS * 32, 1) lstm_march_bwd_kernel(MarchBwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int hid = a.hid, G4 = 4 * hid, C = a.C, NS = a.NS;
+  T* wihT_s = reinterpret_cast<T*>(smem);           // 4H x C
+  float* v_s = reinterpret_cast<float*>(smem + align16((size_t)G4 * C * sizeof(T)));  // WARPS x C
+  float* dv_s = v_s + WARPS * C;                   // WARPS x C: dv rounded, / NS
+  float* dg_s = dv_s + WARPS * C;                  // WARPS x 128: rounded dgates
+  float* dwhh_s = dg_s + WARPS * MAX_GATES;        // H x 4H
+  float* db_s = dwhh_s + hid * G4;                 // 4H
+  float* dwout_s = db_s + G4;                      // H
+  float* dbout_s = dwout_s + hid;                  // 1
+  const int n_acc = 2 * WARPS * C + WARPS * MAX_GATES + hid * G4 + G4 + hid + 1;
+  for (int i = threadIdx.x; i < n_acc; i += blockDim.x) v_s[i] = 0.f;
+  constexpr int V = Vec16<T>::N;
+  for (int i = threadIdx.x; i < G4 * C / V; i += blockDim.x)
+    reinterpret_cast<uint4*>(wihT_s)[i] = __ldg(reinterpret_cast<const uint4*>(a.w_ihT) + i);
+  __syncthreads();
+
+  const T* feat = static_cast<const T*>(a.feat);
+  const T* w_hh = static_cast<const T*>(a.w_hh);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int AW = aux_width(hid), G0 = aux_g0(hid);
+  const float inv_ns = 1.f / (float)NS;
+  float* v_w = v_s + warp * C;
+  float* dv_w = dv_s + warp * C;
+  float* dg_w = dg_s + warp * MAX_GATES;
+  const float wo = lane < hid ? a.w_out[lane] : 0.f;
+  const long long rays = (long long)a.SB * a.R;
+
+  for (long long ray = (long long)blockIdx.x * WARPS + warp; ray < rays;
+       ray += (long long)gridDim.x * WARPS) {
+    const int sb = (int)(ray / a.R);
+    float gcx = a.gout[ray * 3], gcy = a.gout[ray * 3 + 1], gcz = a.gout[ray * 3 + 2];
+    const float rx = a.rds[ray * 3], ry = a.rds[ray * 3 + 1], rz = a.rds[ray * 3 + 2];
+    float grx = 0.f, gry = 0.f, grz = 0.f;
+    float gh = 0.f, gcell = 0.f;  // lane k < hid: unit k
+    for (int t = a.steps - 1; t >= 0; --t) {
+      const float* row = a.aux + ((size_t)ray * a.steps + t) * AW;
+      if (row[2 * hid + 3] == 0.f) continue;  // frozen: contributes exactly zero
+      const float cx = row[2 * hid], cy = row[2 * hid + 1], cz = row[2 * hid + 2];
+      const float s = row[G0 + 5 * hid];
+      // coords_{t+1} = coords_t + rds * s
+      const float ds = gcx * rx + gcy * ry + gcz * rz;
+      grx += gcx * s;
+      gry += gcy * s;
+      grz += gcz * s;
+      if (lane == 0) atomicAdd(dbout_s, ds);
+      if (lane < hid) {
+        const float ig = row[G0 + lane], fg = row[G0 + hid + lane];
+        const float gg = row[G0 + 2 * hid + lane], og = row[G0 + 3 * hid + lane];
+        const float tc = row[G0 + 4 * hid + lane], c_prev = row[hid + lane];
+        atomicAdd(dwout_s + lane, round_to<T>(og * tc) * round_to<T>(ds));
+        // the clip acts on the combined hidden cotangent (step head + next step)
+        const float ghc = fminf(fmaxf(gh + ds * wo, -a.clamp), a.clamp);
+        const float gct = gcell + ghc * og * (1.f - tc * tc);
+        const float d4[4] = {gct * gg * ig * (1.f - ig), gct * c_prev * fg * (1.f - fg),
+                             gct * ig * (1.f - gg * gg), ghc * tc * og * (1.f - og)};
+        gcell = gct * fg;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          atomicAdd(db_s + k * hid + lane, d4[k]);
+          dg_w[k * hid + lane] = round_to<T>(d4[k]);
+        }
+      }
+      __syncwarp();
+      // dW_hh += h_prev (x) dgates; the h cotangent of step t-1
+      for (int k = 0; k < hid; ++k) {
+        const float hp = round_to<T>(row[k]);
+        for (int q = lane; q < G4; q += 32) atomicAdd(dwhh_s + k * G4 + q, hp * dg_w[q]);
+      }
+      if (lane < hid) {
+        float acc = 0.f;
+        for (int q = 0; q < G4; ++q) acc = fmaf(dg_w[q], to_f(w_hh[lane * G4 + q]), acc);
+        gh = acc;
+      }
+      // the rounded gate cotangents: dW_ih's other operand (a GEMM after this kernel)
+      T* dg_row = static_cast<T*>(a.dgbuf) + ((size_t)ray * a.steps + t) * G4;
+      for (int q = lane; q < G4; q += 32) dg_row[q] = from_f<T>(dg_w[q]);
+      // dv = dgates @ W_ih^T for this lane's channels (W_ih^T rows in shared
+      // memory, 16-byte reads), rounded, / NS
+      for (int ch = lane * V; ch < C; ch += 32 * V) {
+        float acc[V];
+#pragma unroll
+        for (int j = 0; j < V; ++j) acc[j] = 0.f;
+        for (int q = 0; q < G4; ++q) {
+          float w[V];
+          load16_shared(wihT_s + (size_t)q * C + ch, w);
+          const float d = dg_w[q];
+#pragma unroll
+          for (int j = 0; j < V; ++j) acc[j] = fmaf(d, w[j], acc[j]);
+        }
+#pragma unroll
+        for (int j = 0; j < V; ++j) dv_w[ch + j] = round_to<T>(NS > 1 ? acc[j] * inv_ns : acc[j]);
+      }
+      // gather backward per view; v_t re-blended from the same taps
+      for (int view = 0; view < NS; ++view) {
+        const float* p = a.proj + ((size_t)sb * NS + view) * 16;
+        const float camx = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(p[0], cx), __fmul_rn(p[1], cy)),
+                                               __fmul_rn(p[2], cz)), p[9]);
+        const float camy = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(p[3], cx), __fmul_rn(p[4], cy)),
+                                               __fmul_rn(p[5], cz)), p[10]);
+        const float camz = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(p[6], cx), __fmul_rn(p[7], cy)),
+                                               __fmul_rn(p[8], cz)), p[11]);
+        const float gx = __fadd_rn(__fmul_rn(-__fdiv_rn(camx, camz), p[12]), p[14]);
+        const float gy = __fadd_rn(__fmul_rn(-__fdiv_rn(camy, camz), p[13]), p[15]);
+        const Taps tp = bilinear_taps(gx, gy, a.H, a.W);
+        const size_t map = ((size_t)sb * NS + view) * a.H * a.W * C;
+        const T* base = feat + map;
+        float* dbase = a.dfeat + map;
+        const int idx[4] = {tp.i00, tp.i01, tp.i10, tp.i11};
+        const float w[4] = {round_to<T>(tp.w00), round_to<T>(tp.w01), round_to<T>(tp.w10),
+                            round_to<T>(tp.w11)};
+        float dot[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int ch = lane * V; ch < C; ch += 32 * V) {
+          float tap[4][V];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) load16(base + (size_t)idx[k] * C + ch, tap[k]);
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            const float val = blend4(tap[0][j], tap[1][j], tap[2][j], tap[3][j], tp);
+            v_w[ch + j] = view == 0 ? val : __fadd_rn(v_w[ch + j], val);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) dot[k] = fmaf(dv_w[ch + j], tap[k][j], dot[k]);
+          }
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (w[k] != 0.f) atomic_add_scaled(dbase + (size_t)idx[k] * C + ch, dv_w + ch, w[k], V);
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) dot[k] = __shfl_sync(0xffffffffu, warp_sum(dot[k]), 0);
+        const float2 dgrid = tap_coord_grad(dot[0], dot[1], dot[2], dot[3], tp, gx, gy, a.H, a.W);
+        // projection backward: grid -> camera -> world (R^T on the camera grads)
+        const float inv_z = 1.f / camz;
+        const float dcamx = -dgrid.x * p[12] * inv_z;
+        const float dcamy = -dgrid.y * p[13] * inv_z;
+        const float dcamz = (dgrid.x * p[12] * camx + dgrid.y * p[13] * camy) * inv_z * inv_z;
+        gcx += p[0] * dcamx + p[3] * dcamy + p[6] * dcamz;
+        gcy += p[1] * dcamx + p[4] * dcamy + p[7] * dcamz;
+        gcz += p[2] * dcamx + p[5] * dcamy + p[8] * dcamz;
+      }
+      // v_t, rounded as the forward rounded it: dW_ih's operand
+      T* v_row = static_cast<T*>(a.vbuf) + ((size_t)ray * a.steps + t) * C;
+      for (int ch = lane * V; ch < C; ch += 32 * V) {
+        float v[V];
+#pragma unroll
+        for (int j = 0; j < V; ++j) v[j] = NS > 1 ? __fmul_rn(v_w[ch + j], inv_ns) : v_w[ch + j];
+        store16(v_row + ch, v);
+      }
+      __syncwarp();  // v_w, dv_w and dg_w are rewritten by the next step
+    }
+    if (lane == 0) {
+      a.dcoords0[ray * 3] = gcx;
+      a.dcoords0[ray * 3 + 1] = gcy;
+      a.dcoords0[ray * 3 + 2] = gcz;
+      a.drds[ray * 3] = grx;
+      a.drds[ray * 3 + 1] = gry;
+      a.drds[ray * 3 + 2] = grz;
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < hid * G4; i += blockDim.x) atomicAdd(a.dw_hh + i, dwhh_s[i]);
+  for (int i = threadIdx.x; i < G4; i += blockDim.x) atomicAdd(a.dbias + i, db_s[i]);
+  for (int i = threadIdx.x; i < hid; i += blockDim.x) atomicAdd(a.dw_out + i, dwout_s[i]);
+  if (threadIdx.x == 0) atomicAdd(a.db_out, dbout_s[0]);
+}
+
+template <typename T>
+static int launch_bwd(const MarchBwdArgs& a, cudaStream_t stream) {
+  const size_t smem = bwd_smem_bytes<T>(a.C, a.hid);
+  cudaError_t e = cudaFuncSetAttribute(lstm_march_bwd_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  const long long rays = (long long)a.SB * a.R;
+  const long long need = (rays + WARPS - 1) / WARPS;
+  const unsigned blocks = (unsigned)(need < sms ? need : sms);
+  lstm_march_bwd_kernel<T><<<blocks, WARPS * 32, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int avr_lstm_march_bwd(const void* proj, const void* rds, const void* feat,
+                                  const void* w_ihT, const void* w_hh, const void* w_out,
+                                  const void* aux, const void* gout, void* dcoords0, void* drds,
+                                  void* dfeat, void* vbuf, void* dgbuf, void* dw_hh, void* dbias,
+                                  void* dw_out, void* db_out, int SB, int R, int NS, int H, int W,
+                                  int C, int hid, int steps, float eps, float clamp, int dtype,
+                                  void* stream) {
+  MarchBwdArgs a;
+  a.proj = (const float*)proj; a.rds = (const float*)rds; a.feat = feat; a.w_ihT = w_ihT;
+  a.w_hh = w_hh; a.w_out = (const float*)w_out; a.aux = (const float*)aux;
+  a.gout = (const float*)gout; a.dcoords0 = (float*)dcoords0; a.drds = (float*)drds;
+  a.dfeat = (float*)dfeat; a.vbuf = vbuf; a.dgbuf = dgbuf; a.dw_hh = (float*)dw_hh;
+  a.dbias = (float*)dbias; a.dw_out = (float*)dw_out; a.db_out = (float*)db_out;
+  a.SB = SB; a.R = R; a.NS = NS; a.H = H; a.W = W; a.C = C; a.hid = hid; a.steps = steps;
+  a.eps = eps; a.clamp = clamp;
+  cudaStream_t s = (cudaStream_t)stream;
+  return dtype == 1 ? launch_bwd<bf16>(a, s) : launch_bwd<float>(a, s);
 }

@@ -1,7 +1,9 @@
-// K2: fused FC-ResNet field decoder (forward).
+// K2: fused FC-ResNet field decoder: forward (optionally writing the
+// activation stash) and the stash backward (a dgrad and a wgrad kernel).
 //
 // Replaces avr_tpu/ops/pallas/resnetfc.py:896 fused_resnetfc (forward
-// kernel :726).  Per point: positional-encoding prologue from a per-column
+// kernel :726, stash outputs :637-653) and its stash backward
+// _bwd_stash_impl (:400-575, call :823).  Per point: positional-encoding prologue from a per-column
 // table; per source view lin_in + n_lin_z (latent injection + residual
 // block); mean over views; remaining blocks; relu -> lin_out; optional
 // sigmoid(rgb) / relu(sigma).  Trunk h in float32; matmul operands in T
@@ -26,6 +28,22 @@
 // B columns with one 16-byte load each and feeds them to two m16n8k16
 // steps; the k order inside a product is a consistent permutation of A and
 // B, so the product is unchanged.
+//
+// Stash backward.  Bound on H100: operations, twice the forward's products
+// (~4.5 ms at 327,680 points) against ~1.1 ms of stash reads.  The dgrad
+// kernel walks a 32-point tile's chain in reverse with the forward's tiling
+// (transposed weight copies as the B operand), reads each block's two
+// stashed activations for the ReLU masks, writes every product's output
+// cotangent rounded to T (what the TPU kernel feeds its wgrad), and ends in
+// dz and dx (the encoding's cos lanes summed back onto the raw lanes).  The
+// wgrad kernel sums dW = G^T A over the points for every weight in one
+// launch: 128 x 128 dW tiles, 8 warps of mma.sync, both operands copied
+// K-major into shared memory by cp.async (two stages: the next rows load
+// while the current ones multiply) and turned into fragments by
+// ldmatrix.trans; at most 8 row chunks per tile meet in float32 atomics;
+// bias gradients are column sums of the rounded cotangents.  The TPU's
+// recompute backward (:853) is not ported: its wrapper raises above the
+// 6 GiB stash budget instead.
 
 #include "common.cuh"
 
@@ -47,8 +65,57 @@ struct FcArgs {
   const int* tables;    // (2, k_in): column mode (0 raw, 1 sin, 2 zero), source lane
   const float* fph;     // (2, k_in): frequency, phase
   float* out;           // (N, d_out)
+  void* stash;          // nullptr, or (stash_slots, N, dh) T: every post-ReLU activation
   int N, ns, d_in, k_in, d_latent, d_hidden, d_out, n_blocks, n_lin_z, activate;
 };
+
+// Stash slot of block k's first (j = 0, relu(h)) or second (j = 1,
+// relu(fc_0)) activation for view v; the pre-pool slots of one (k, j) are
+// contiguous over views.  The last slot is relu(h_final), lin_out's input.
+__host__ __device__ inline int stash_slot(int k, int j, int v, int ns, int n_lin_z) {
+  return k < n_lin_z ? (2 * k + j) * ns + v : 2 * n_lin_z * ns + 2 * (k - n_lin_z) + j;
+}
+__host__ __device__ inline int stash_slots(int ns, int n_blocks, int n_lin_z) {
+  return 2 * n_lin_z * ns + 2 * (n_blocks - n_lin_z) + 1;
+}
+
+// rows [0, TM) x [0, width) of a shared T tile -> global rows r0.. (row
+// stride width), 16-byte copies, rows past N skipped.
+template <typename T>
+__device__ __forceinline__ void tile_to_global(const T* As, int lda, T* dst, int r0, int N,
+                                               int width) {
+  constexpr int V = Vec16<T>::N;
+  const int nv = width / V;
+  for (int idx = threadIdx.x; idx < TM * nv; idx += blockDim.x) {
+    const int r = idx / nv, cv = idx - r * nv;
+    if (r0 + r < N)
+      *reinterpret_cast<uint4*>(dst + (size_t)(r0 + r) * width + cv * V) =
+          *reinterpret_cast<const uint4*>(As + r * lda + cv * V);
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(smem_dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(d), "l"(gmem_src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// global rows r0.. (row stride width) -> shared tile, zeros past N.
+template <typename T>
+__device__ __forceinline__ void global_to_tile(const T* src, int r0, int N, int width, T* As,
+                                               int lda) {
+  constexpr int V = Vec16<T>::N;
+  const int nv = width / V;
+  for (int idx = threadIdx.x; idx < TM * nv; idx += blockDim.x) {
+    const int r = idx / nv, cv = idx - r * nv;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < N) val = __ldg(reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * width) + cv);
+    *reinterpret_cast<uint4*>(As + r * lda + cv * V) = val;
+  }
+}
 
 // Shared-memory row stride (elements) of a K-wide tile.  bf16: rows 64
 // bytes apart modulo 128, so the 16-byte fragment loads of 8 lanes hit 8
@@ -152,13 +219,16 @@ __device__ __forceinline__ void store_relu(T* As, int lda, int col0, const Frag&
         As[frag_row(mt, i) * lda + frag_col(col0, nt, i)] = from_f<T>(fmaxf(v[mt][nt][i], 0.f));
 }
 
-// h = h + relu(relu(h) @ W0^T + b0) @ W1^T + b1
+// h = h + relu(relu(h) @ W0^T + b0) @ W1^T + b1; with st1 / st2 (stash
+// slot bases) the two activations are also written out.
 template <typename T>
 __device__ __forceinline__ void res_block(T* As, int lda, const T* w0, const float* b0, const T* w1,
-                          const float* b1, int dh, int col0, Frag& h, Frag& acc) {
+                          const float* b1, int dh, int col0, Frag& h, Frag& acc, T* st1, T* st2,
+                          int r0, int N) {
   __syncthreads();  // every warp is done reading the operand tile
   store_relu<T>(As, lda, col0, h);
   __syncthreads();
+  if (st1) tile_to_global(As, lda, st1, r0, N, dh);
   gemm_tile(As, lda, w0, dh, col0, acc);
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
@@ -169,6 +239,7 @@ __device__ __forceinline__ void res_block(T* As, int lda, const T* w0, const flo
   __syncthreads();
   store_relu<T>(As, lda, col0, acc);
   __syncthreads();
+  if (st2) tile_to_global(As, lda, st2, r0, N, dh);
   gemm_tile(As, lda, w1, dh, col0, acc);
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
@@ -193,6 +264,11 @@ __global__ void __launch_bounds__(256, 1) resnetfc_kernel(FcArgs a) {
   const T* wz = static_cast<const T*>(a.wz);
   const T* w0 = static_cast<const T*>(a.w0);
   const T* w1 = static_cast<const T*>(a.w1);
+  T* stash = static_cast<T*>(a.stash);
+  const size_t slot = (size_t)a.N * dh;
+  auto st = [&](int k, int j, int v) -> T* {
+    return stash ? stash + stash_slot(k, j, v, a.ns, a.n_lin_z) * slot : nullptr;
+  };
   Frag h, acc;
 
   for (int v = 0; v < a.ns; ++v) {
@@ -235,7 +311,8 @@ __global__ void __launch_bounds__(256, 1) resnetfc_kernel(FcArgs a) {
           for (int i = 0; i < 4; ++i)
             h[mt][nt][i] = (h[mt][nt][i] + acc[mt][nt][i]) + bz[frag_col(col0, nt, i)];
       res_block<T>(As, lda, w0 + (size_t)k * dh * dh, a.b0 + (size_t)k * dh,
-                   w1 + (size_t)k * dh * dh, a.b1 + (size_t)k * dh, dh, col0, h, acc);
+                   w1 + (size_t)k * dh * dh, a.b1 + (size_t)k * dh, dh, col0, h, acc,
+                   st(k, 0, v), st(k, 1, v), r0, a.N);
     }
     if (a.ns > 1) {
 #pragma unroll
@@ -261,12 +338,16 @@ __global__ void __launch_bounds__(256, 1) resnetfc_kernel(FcArgs a) {
   }
   for (int k = a.n_lin_z; k < a.n_blocks; ++k)
     res_block<T>(As, lda, w0 + (size_t)k * dh * dh, a.b0 + (size_t)k * dh,
-                 w1 + (size_t)k * dh * dh, a.b1 + (size_t)k * dh, dh, col0, h, acc);
+                 w1 + (size_t)k * dh * dh, a.b1 + (size_t)k * dh, dh, col0, h, acc,
+                 st(k, 0, 0), st(k, 1, 0), r0, a.N);
 
   // epilogue: relu -> lin_out (d_out is small: one thread per output)
   __syncthreads();
   store_relu<T>(As, lda, col0, h);
   __syncthreads();
+  if (stash)
+    tile_to_global(As, lda, stash + (size_t)(stash_slots(a.ns, a.n_blocks, a.n_lin_z) - 1) * slot,
+                   r0, a.N, dh);
   const T* wo = static_cast<const T*>(a.wo);
   for (int idx = tid; idx < TM * a.d_out; idx += blockDim.x) {
     const int r = idx / a.d_out, o = idx - r * a.d_out, row = r0 + r;
@@ -298,7 +379,8 @@ static int launch(const FcArgs& a, cudaStream_t stream) {
 extern "C" int avr_resnetfc(const void* x, const void* z, const void* wi, const void* bi,
                             const void* wz, const void* bz, const void* w0, const void* b0,
                             const void* w1, const void* b1, const void* wo, const void* bo,
-                            const void* tables, const void* fph, void* out, int N, int ns,
+                            const void* tables, const void* fph, void* out, void* stash, int N,
+                            int ns,
                             int d_in, int k_in, int d_latent, int d_hidden, int d_out,
                             int n_blocks, int n_lin_z, int activate, int dtype, void* stream) {
   FcArgs a;
@@ -306,9 +388,492 @@ extern "C" int avr_resnetfc(const void* x, const void* z, const void* wi, const 
   a.wz = wz; a.bz = (const float*)bz; a.w0 = w0; a.b0 = (const float*)b0;
   a.w1 = w1; a.b1 = (const float*)b1; a.wo = wo; a.bo = (const float*)bo;
   a.tables = (const int*)tables; a.fph = (const float*)fph; a.out = (float*)out;
+  a.stash = stash;
   a.N = N; a.ns = ns; a.d_in = d_in; a.k_in = k_in; a.d_latent = d_latent;
   a.d_hidden = d_hidden; a.d_out = d_out; a.n_blocks = n_blocks; a.n_lin_z = n_lin_z;
   a.activate = activate;
   cudaStream_t s = (cudaStream_t)stream;
   return dtype == 1 ? launch<bf16>(a, s) : launch<float>(a, s);
+}
+
+// ---------------------------------------------------------------------------
+// backward, consuming the stash: a dgrad kernel walks each point tile's
+// chain in reverse and writes every product's output cotangent; a wgrad
+// kernel sums dW = G^T A over the points.
+// ---------------------------------------------------------------------------
+
+// Cotangent slot of block k's products: j = 0 is fc_0's (pairs with stash
+// slot (k, 0)), j = 1 fc_1's, which is also the trunk cotangent entering
+// block k (pairs with stash slot (k, 1)).  After them, one slot per view
+// for lin_in's output (the trunk cotangent after injection 0).
+__host__ __device__ inline int cot_slots(int ns, int n_blocks, int n_lin_z) {
+  return 2 * n_lin_z * ns + 2 * (n_blocks - n_lin_z) + ns;
+}
+__host__ __device__ inline int cot_in_slot(int v, int ns, int n_blocks, int n_lin_z) {
+  return 2 * n_lin_z * ns + 2 * (n_blocks - n_lin_z) + v;
+}
+
+constexpr int GOUT_W = 8;  // row width of the rounded output cotangent (d_out <= 8)
+
+struct FcBwdArgs {
+  const float* x;       // (ns, N, d_in) raw inputs
+  const float* g;       // (N, d_out) output cotangent
+  const void* stash;    // forward's activations
+  const void* wiT;      // (k_in, dh) T, lin_in transposed, zero rows past d_enc
+  const void* wzT;      // (n_lin_z, dl, dh) T
+  const void* w0T;      // (n_blocks, dh, dh) T
+  const void* w1T;      // (n_blocks, dh, dh) T
+  const void* wo;       // (d_out, dh) T
+  const float* bo;      // (d_out)
+  const int* tables;    // (2, k_in)
+  const float* fph;     // (2, k_in)
+  float* dx;            // (ns, N, d_in)
+  void* dz;             // (ns, N, dl) T
+  void* cot;            // (cot_slots, N, dh) T: rounded cotangents of the products
+  void* gout;           // (N, GOUT_W) T: rounded cotangent of lin_out's output
+  void* enc;            // (ns, N, k_in) T: the encoded input, lin_in's operand
+  float* pool;          // ns > 1: (N rounded up to TM, dh) pooled trunk cotangent
+  int N, ns, d_in, k_in, d_latent, d_hidden, d_out, n_blocks, n_lin_z, activate;
+};
+
+// v rounded to T into the shared operand tile at the fragment positions.
+template <typename T>
+__device__ __forceinline__ void store_frag(T* As, int lda, int col0, const Frag& v) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        As[frag_row(mt, i) * lda + frag_col(col0, nt, i)] = from_f<T>(v[mt][nt][i]);
+}
+
+// One residual block's backward: gh is the trunk cotangent entering the
+// block; on return, the one leaving it.  Gs / Ms are the operand and mask
+// tiles; cot0 / cot1 the block's cotangent slots, a1 / a2 its stash slots.
+template <typename T>
+__device__ __forceinline__ void res_block_bwd(T* Gs, T* Ms, int ld, const T* w0T, const T* w1T,
+                                              const T* a1, const T* a2, T* cot0, T* cot1,
+                                              int dh, int col0, int r0, int N, Frag& gh,
+                                              Frag& acc) {
+  __syncthreads();  // every warp is done with both tiles
+  store_frag<T>(Gs, ld, col0, gh);
+  global_to_tile(a2, r0, N, dh, Ms, ld);
+  __syncthreads();
+  tile_to_global(Gs, ld, cot1, r0, N, dh);
+  gemm_tile(Gs, ld, w1T, dh, col0, acc);  // d relu(fc_0) = gh @ W1
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (!(to_f(Ms[frag_row(mt, i) * ld + frag_col(col0, nt, i)]) > 0.f)) acc[mt][nt][i] = 0.f;
+  __syncthreads();
+  store_frag<T>(Gs, ld, col0, acc);
+  global_to_tile(a1, r0, N, dh, Ms, ld);
+  __syncthreads();
+  tile_to_global(Gs, ld, cot0, r0, N, dh);
+  gemm_tile(Gs, ld, w0T, dh, col0, acc);  // d relu(h) = gnet @ W0
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (to_f(Ms[frag_row(mt, i) * ld + frag_col(col0, nt, i)]) > 0.f)
+          gh[mt][nt][i] += acc[mt][nt][i];
+}
+
+template <typename T>
+__host__ __device__ inline size_t dgrad_smem_bytes(int dh, int dl, int k_in, int ns) {
+  return 2 * (size_t)TM * row_stride<T>(dh) * sizeof(T) +
+         sizeof(float) * ((size_t)TM * dl + (size_t)TM * k_in + TM * GOUT_W);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256, 1) resnetfc_dgrad_kernel(FcBwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int dh = a.d_hidden, dl = a.d_latent, nb = a.n_blocks, nlz = a.n_lin_z, ns = a.ns;
+  const int ld = row_stride<T>(dh);
+  T* Gs = reinterpret_cast<T*>(smem);
+  T* Ms = Gs + TM * ld;
+  float* Zs = reinterpret_cast<float*>(Ms + TM * ld);  // TM x dl: dz accumulator
+  float* Es = Zs + TM * dl;                            // TM x k_in: d encoding
+  float* gs = Es + TM * a.k_in;                        // TM x GOUT_W: rounded g
+  float* Hs = ns > 1 ? a.pool + (size_t)blockIdx.x * TM * dh : nullptr;  // pooled cotangent
+  const int tid = threadIdx.x, nw = blockDim.x >> 5, col0 = (tid >> 5) * 64;
+  const int r0 = blockIdx.x * TM, N = a.N;
+  const size_t slot = (size_t)N * dh;
+  const T* stash = static_cast<const T*>(a.stash);
+  T* cot = static_cast<T*>(a.cot);
+  const T* w0T = static_cast<const T*>(a.w0T);
+  const T* w1T = static_cast<const T*>(a.w1T);
+  const T* wzT = static_cast<const T*>(a.wzT);
+  const T* wo = static_cast<const T*>(a.wo);
+  auto st = [&](int k, int j, int v) { return stash + stash_slot(k, j, v, ns, nlz) * slot; };
+  auto ct = [&](int k, int j, int v) { return cot + stash_slot(k, j, v, ns, nlz) * slot; };
+  Frag gh, acc;
+
+  // epilogue and lin_out: g_epi = g * act'(out_pre), gh = mask(aout) * (g_epi @ Wo)
+  global_to_tile(stash + (size_t)(stash_slots(ns, nb, nlz) - 1) * slot, r0, N, dh, Ms, ld);
+  __syncthreads();
+  for (int idx = tid; idx < TM * GOUT_W; idx += blockDim.x) {
+    const int r = idx / GOUT_W, o = idx - r * GOUT_W, row = r0 + r;
+    float gv = 0.f;
+    if (row < N && o < a.d_out) {
+      gv = a.g[(size_t)row * a.d_out + o];
+      if (a.activate) {
+        const T* arow = Ms + r * ld;
+        const T* wrow = wo + (size_t)o * dh;
+        float sum = 0.f;
+        for (int k = 0; k < dh; ++k) sum = fmaf(to_f(arow[k]), to_f(wrow[k]), sum);
+        const float pre = sum + a.bo[o];
+        if (o < 3) {
+          const float sg = sigmoidf_(pre);
+          gv = gv * sg * (1.f - sg);
+        } else if (!(pre > 0.f)) {
+          gv = 0.f;
+        }
+      }
+      gv = round_to<T>(gv);
+    }
+    gs[idx] = gv;
+    if (row < N) static_cast<T*>(a.gout)[(size_t)row * GOUT_W + o] = from_f<T>(gv);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = frag_row(mt, i), c = frag_col(col0, nt, i);
+        float sum = 0.f;
+        for (int o = 0; o < a.d_out; ++o)
+          sum = fmaf(gs[r * GOUT_W + o], to_f(wo[(size_t)o * dh + c]), sum);
+        gh[mt][nt][i] = to_f(Ms[r * ld + c]) > 0.f ? sum : 0.f;
+      }
+
+  // pooled-trunk blocks
+  for (int k = nb - 1; k >= nlz; --k)
+    res_block_bwd<T>(Gs, Ms, ld, w0T + (size_t)k * dh * dh, w1T + (size_t)k * dh * dh,
+                     st(k, 0, 0), st(k, 1, 0), ct(k, 0, 0), ct(k, 1, 0), dh, col0, r0, N, gh,
+                     acc);
+  if (ns > 1) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          Hs[frag_row(mt, i) * dh + frag_col(col0, nt, i)] = gh[mt][nt][i];
+  }
+  const float inv_ns = 1.f / (float)ns;
+  for (int v = 0; v < ns; ++v) {
+    __syncthreads();  // the previous view is done with Zs and Es
+    if (ns > 1) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            gh[mt][nt][i] = Hs[frag_row(mt, i) * dh + frag_col(col0, nt, i)] * inv_ns;
+    }
+    for (int i = tid; i < TM * dl; i += blockDim.x) Zs[i] = 0.f;
+    for (int k = nlz - 1; k >= 0; --k) {
+      res_block_bwd<T>(Gs, Ms, ld, w0T + (size_t)k * dh * dh, w1T + (size_t)k * dh * dh,
+                       st(k, 0, v), st(k, 1, v), ct(k, 0, v), ct(k, 1, v), dh, col0, r0, N, gh,
+                       acc);
+      // injection k: dz += gh @ Wz_k (the trunk cotangent passes unchanged)
+      __syncthreads();
+      store_frag<T>(Gs, ld, col0, gh);
+      __syncthreads();
+      if (k == 0) tile_to_global(Gs, ld, cot + cot_in_slot(v, ns, nb, nlz) * slot, r0, N, dh);
+      for (int cb = col0; cb < dl; cb += nw * 64) {
+        gemm_tile(Gs, ld, wzT + ((size_t)k * dl + cb - col0) * dh, dh, col0, acc);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              Zs[frag_row(mt, i) * dl + frag_col(cb, nt, i)] += acc[mt][nt][i];
+      }
+    }
+    // lin_in: d encoding = gh @ Wi (Gs holds the rounded cotangent)
+    for (int cb = col0; cb < a.k_in; cb += nw * 64) {
+      gemm_tile(Gs, ld, static_cast<const T*>(a.wiT) + (size_t)(cb - col0) * dh, dh, col0, acc);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            Es[frag_row(mt, i) * a.k_in + frag_col(cb, nt, i)] = acc[mt][nt][i];
+    }
+    __syncthreads();
+    // dx through the encoding: sin lanes carry cos(t) * f, raw lanes 1
+    for (int idx = tid; idx < TM * a.d_in; idx += blockDim.x) {
+      const int r = idx / a.d_in, lane = idx - r * a.d_in, row = r0 + r;
+      if (row >= N) continue;
+      const float p = a.x[((size_t)v * N + row) * a.d_in + lane];
+      float sum = 0.f;
+      for (int j = 0; j < a.k_in; ++j) {
+        const int mode = a.tables[j];
+        if (mode == 2 || a.tables[a.k_in + j] != lane) continue;
+        float d = Es[r * a.k_in + j];
+        if (mode == 1) d = d * (cosf(__fadd_rn(__fmul_rn(p, a.fph[j]), a.fph[a.k_in + j])) *
+                                a.fph[j]);
+        sum += d;
+      }
+      a.dx[((size_t)v * N + row) * a.d_in + lane] = sum;
+    }
+    // the encoded input (lin_in's operand for the wgrad) and dz
+    T* enc = static_cast<T*>(a.enc) + (size_t)v * N * a.k_in;
+    for (int idx = tid; idx < TM * a.k_in; idx += blockDim.x) {
+      const int r = idx / a.k_in, j = idx - r * a.k_in, row = r0 + r;
+      if (row >= N) continue;
+      const int mode = a.tables[j];
+      float val = 0.f;
+      if (mode != 2) {
+        const float p = a.x[((size_t)v * N + row) * a.d_in + a.tables[a.k_in + j]];
+        val = mode == 0 ? p : sinf(__fadd_rn(__fmul_rn(p, a.fph[j]), a.fph[a.k_in + j]));
+      }
+      enc[(size_t)row * a.k_in + j] = from_f<T>(val);
+    }
+    T* dz = static_cast<T*>(a.dz) + (size_t)v * N * dl;
+    for (int idx = tid; idx < TM * dl; idx += blockDim.x) {
+      const int r = idx / dl, c = idx - r * dl, row = r0 + r;
+      if (row < N) dz[(size_t)row * dl + c] = from_f<T>(Zs[idx]);
+    }
+  }
+}
+
+template <typename T>
+static int launch_dgrad(const FcBwdArgs& a, cudaStream_t stream) {
+  const size_t smem = dgrad_smem_bytes<T>(a.d_hidden, a.d_latent, a.k_in, a.ns);
+  cudaError_t e = cudaFuncSetAttribute(resnetfc_dgrad_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned blocks = (unsigned)((a.N + TM - 1) / TM);
+  resnetfc_dgrad_kernel<T><<<blocks, a.d_hidden / 64 * 32, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int avr_resnetfc_dgrad(const void* x, const void* g, const void* stash,
+                                  const void* wiT, const void* wzT, const void* w0T,
+                                  const void* w1T, const void* wo, const void* bo,
+                                  const void* tables, const void* fph, void* dx, void* dz,
+                                  void* cot, void* gout, void* enc, void* pool, int N, int ns,
+                                  int d_in,
+                                  int k_in, int d_latent, int d_hidden, int d_out, int n_blocks,
+                                  int n_lin_z, int activate, int dtype, void* stream) {
+  FcBwdArgs a;
+  a.x = (const float*)x; a.g = (const float*)g; a.stash = stash; a.wiT = wiT; a.wzT = wzT;
+  a.w0T = w0T; a.w1T = w1T; a.wo = wo; a.bo = (const float*)bo; a.tables = (const int*)tables;
+  a.fph = (const float*)fph; a.dx = (float*)dx; a.dz = dz; a.cot = cot; a.gout = gout;
+  a.enc = enc; a.pool = (float*)pool; a.N = N; a.ns = ns; a.d_in = d_in; a.k_in = k_in; a.d_latent = d_latent;
+  a.d_hidden = d_hidden; a.d_out = d_out; a.n_blocks = n_blocks; a.n_lin_z = n_lin_z;
+  a.activate = activate;
+  cudaStream_t s = (cudaStream_t)stream;
+  return dtype == 1 ? launch_dgrad<bf16>(a, s) : launch_dgrad<float>(a, s);
+}
+
+// dW (Mg x Ka) += G^T A and db (Mg) += column sums of G over the rows of
+// one job: G (rows x ldg) and A (rows x lda) in T.
+struct WgradJob {
+  const void* G;
+  const void* A;
+  float* dW;
+  float* db;  // nullptr: no bias
+  int rows, ldg, lda, Mg, Ka, chunk, tiles_o, tiles_i, first_block;
+};
+
+constexpr int MAX_JOBS = 24;
+constexpr int WT = 128;  // dW tile edge
+constexpr int KC = 32;   // rows per shared-memory step (bf16; float32 takes 16)
+template <typename T> __host__ __device__ constexpr int kc() { return sizeof(T) == 2 ? KC : 16; }
+
+struct WgradArgs {
+  WgradJob job[MAX_JOBS];
+  int n_jobs;
+};
+
+// Row stride of the shared tiles (rows of WT values): 16-byte rows whose
+// 16-byte ldmatrix reads from 8 consecutive rows hit distinct banks.
+template <typename T> __host__ __device__ constexpr int wt_stride() {
+  return sizeof(T) == 2 ? WT + 8 : WT + 4;
+}
+
+// rows [n0, n0 + kc) x cols [c0, c0 + WT) of X (row stride ldx; rows <
+// rows and cols < ncols are valid) -> shared Xs[n - n0][c - c0], zeros
+// outside.  Whole valid 16-byte vectors go by cp.async (the caller commits
+// and waits); the rest is stored directly.
+template <typename T>
+__device__ __forceinline__ void load_tile_async(const T* X, int ldx, int rows, int ncols,
+                                                int n0, int c0, T* Xs) {
+  constexpr int V = Vec16<T>::N, L = wt_stride<T>();
+  for (int idx = threadIdx.x; idx < kc<T>() * (WT / V); idx += blockDim.x) {
+    const int n = idx / (WT / V), cv = idx - n * (WT / V), c = c0 + cv * V;
+    T* dst = Xs + n * L + cv * V;
+    const bool live = n0 + n < rows && c < ldx;
+    if (live && c + V <= ncols) {
+      cp_async16(dst, X + (size_t)(n0 + n) * ldx + c);
+      continue;
+    }
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (live) {  // a partly valid vector: zero the columns past ncols
+      val = __ldg(reinterpret_cast<const uint4*>(X + (size_t)(n0 + n) * ldx + c));
+      T* e = reinterpret_cast<T*>(&val);
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        if (c + j >= ncols) e[j] = from_f<T>(0.f);
+    }
+    *reinterpret_cast<uint4*>(dst) = val;
+  }
+}
+
+
+__device__ __forceinline__ void ldmatrix_x4_trans(const bf16* p, uint32_t& r0, uint32_t& r1,
+                                                  uint32_t& r2, uint32_t& r3) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+// acc += Gs^T As over the KC rows of the tiles: the warp's 32 (o) x 64 (i)
+// block.  Both operands are stored K-major (rows are points), so the mma
+// fragments come transposed out of shared memory with ldmatrix.trans.
+__device__ __forceinline__ void wgrad_step(const bf16* Gs, const bf16* As, int m0, int n0,
+                                           Frag& acc) {
+  constexpr int L = WT + 8;
+  const int lane = threadIdx.x & 31, mat = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int kk = 0; kk < KC; kk += 16) {
+    uint32_t a[2][4], b[8][2];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)  // matrices: (k 0-7, o 0-7), (k 0-7, o 8-15), (k 8-15, ...)
+      ldmatrix_x4_trans(Gs + (kk + r + (mat >> 1) * 8) * L + m0 + mt * 16 + (mat & 1) * 8,
+                        a[mt][0], a[mt][1], a[mt][2], a[mt][3]);
+#pragma unroll
+    for (int p = 0; p < 4; ++p)  // matrices: (k 0-7, i), (k 8-15, i), (k 0-7, i+8), (k 8-15, i+8)
+      ldmatrix_x4_trans(As + (kk + r + (mat & 1) * 8) * L + n0 + p * 16 + (mat >> 1) * 8,
+                        b[2 * p][0], b[2 * p][1], b[2 * p + 1][0], b[2 * p + 1][1]);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        mma_bf16(acc[mt][nt], a[mt][0], a[mt][1], a[mt][2], a[mt][3], b[nt][0], b[nt][1]);
+  }
+}
+
+__device__ __forceinline__ void wgrad_step(const float* Gs, const float* As, int m0, int n0,
+                                           Frag& acc) {
+  constexpr int L = WT + 4;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  for (int k = 0; k < kc<float>(); ++k)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const float gv = Gs[k * L + m0 + mt * 16 + g + 8 * hi];
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int cc = 0; cc < 2; ++cc)
+            acc[mt][nt][2 * hi + cc] = fmaf(gv, As[k * L + n0 + nt * 8 + 2 * t + cc],
+                                            acc[mt][nt][2 * hi + cc]);
+      }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256) resnetfc_wgrad_kernel(WgradArgs args) {
+  constexpr int L = wt_stride<T>(), K = kc<T>();
+  __shared__ __align__(16) T Gs[2][K * L];  // two stages: the next rows load while
+  __shared__ __align__(16) T As[2][K * L];  // the current ones multiply
+  int j = 0;
+  while (j + 1 < args.n_jobs && (int)blockIdx.x >= args.job[j + 1].first_block) ++j;
+  const WgradJob& job = args.job[j];
+  const int local = blockIdx.x - job.first_block;
+  const int tiles = job.tiles_o * job.tiles_i;
+  const int tile = local % tiles, chunk = local / tiles;
+  const int o0 = (tile / job.tiles_i) * WT, i0 = (tile % job.tiles_i) * WT;
+  const int r_begin = chunk * job.chunk;
+  const int r_end = min(job.rows, r_begin + job.chunk);
+  const int warp = threadIdx.x >> 5;
+  const int m0 = (warp & 3) * 32, n0 = (warp >> 2) * 64;
+  const bool bias = job.db != nullptr && i0 == 0;
+  const T* G = static_cast<const T*>(job.G);
+  const T* A = static_cast<const T*>(job.A);
+  Frag acc;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+  float bsum = 0.f;
+  int stage = 0;
+  load_tile_async(G, job.ldg, r_end, job.Mg, r_begin, o0, Gs[0]);
+  load_tile_async(A, job.lda, r_end, job.Ka, r_begin, i0, As[0]);
+  cp_async_commit();
+  for (int r = r_begin; r < r_end; r += K) {
+    if (r + K < r_end) {  // prefetch the next rows into the other stage
+      load_tile_async(G, job.ldg, r_end, job.Mg, r + K, o0, Gs[stage ^ 1]);
+      load_tile_async(A, job.lda, r_end, job.Ka, r + K, i0, As[stage ^ 1]);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this stage's rows have landed for every thread
+    if (bias && threadIdx.x < WT)
+      for (int k = 0; k < K; ++k) bsum += to_f(Gs[stage][k * L + threadIdx.x]);
+    wgrad_step(Gs[stage], As[stage], m0, n0, acc);
+    __syncthreads();  // done with this stage before it is refilled
+    stage ^= 1;
+  }
+  if (bias && threadIdx.x < WT && o0 + (int)threadIdx.x < job.Mg)
+    atomicAdd(job.db + o0 + threadIdx.x, bsum);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int o = o0 + m0 + frag_row(mt, i), c = i0 + frag_col(n0, nt, i);
+        if (o < job.Mg && c < job.Ka) atomicAdd(job.dW + (size_t)o * job.Ka + c, acc[mt][nt][i]);
+      }
+}
+
+extern "C" int avr_resnetfc_wgrad(const void* const* G, const void* const* A, void* const* dW,
+                                  void* const* db, const int* dims, int n_jobs, int dtype,
+                                  void* stream) {
+  // dims: per job (rows, ldg, lda, Mg, Ka)
+  if (n_jobs > MAX_JOBS || n_jobs < 1) return (int)cudaErrorInvalidValue;
+  WgradArgs args;
+  int blocks = 0;
+  for (int j = 0; j < n_jobs; ++j) {
+    WgradJob& w = args.job[j];
+    w.G = G[j]; w.A = A[j]; w.dW = (float*)dW[j]; w.db = (float*)db[j];
+    w.rows = dims[5 * j]; w.ldg = dims[5 * j + 1]; w.lda = dims[5 * j + 2];
+    w.Mg = dims[5 * j + 3]; w.Ka = dims[5 * j + 4];
+    // at most 8 row chunks per tile: bounds the float32 atomics to 8 per dW element
+    const int chunk = max(4096, (w.rows + 7) / 8);
+    w.chunk = (chunk + KC - 1) / KC * KC;  // a multiple of both row steps
+    w.tiles_o = (w.Mg + WT - 1) / WT;
+    w.tiles_i = (w.Ka + WT - 1) / WT;
+    w.first_block = blocks;
+    blocks += w.tiles_o * w.tiles_i * ((w.rows + w.chunk - 1) / w.chunk);
+  }
+  args.n_jobs = n_jobs;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1)
+    resnetfc_wgrad_kernel<bf16><<<blocks, 256, 0, s>>>(args);
+  else
+    resnetfc_wgrad_kernel<float><<<blocks, 256, 0, s>>>(args);
+  return (int)cudaGetLastError();
 }

@@ -28,8 +28,10 @@ class SpatialEncoder(nn.Module):
         self.latent_size = ResNetTrunk.latent_size(backbone, num_layers)
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor):
-        feats = self.model(x.permute(0, 3, 1, 2).to(self.dtype))
+    def forward(self, x: torch.Tensor, train: bool = False):
+        """``train`` runs BatchNorm on batch statistics and updates the
+        running ones."""
+        feats = self.model(x.permute(0, 3, 1, 2).to(self.dtype), train)
         hw = feats[0].shape[2:]
         feats = [resize_bilinear_align_corners(f.permute(0, 2, 3, 1), hw) for f in feats]
         latent = torch.cat(feats, dim=-1).to(self.dtype).contiguous()

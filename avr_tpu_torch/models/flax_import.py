@@ -1,4 +1,4 @@
-"""Carry the JAX package's weights into the port.
+"""Carry weights between the JAX package and the port, both ways.
 
 :func:`load_flax_variables` takes the Flax ``RadFieldRenderer`` variables
 (``{"params": ..., "batch_stats": ...}`` as nested dicts of numpy arrays —
@@ -12,7 +12,10 @@ port's modules in place.  The inverse of ``avr_tpu/models/torch_import.py``:
   * ``out_layer`` and the decoders' ``lin_in``, ``lin_z_k``,
     ``block_k/fc_0|fc_1``, ``lin_out`` Dense kernels and biases.
 
-A leaf missing on either side is an error, named.
+A leaf missing on either side is an error, named.  :func:`to_flax_variables`
+is the inverse: the port's parameters and BatchNorm statistics as the
+Flax-named numpy tree, and :func:`to_flax_tree` maps any tensors named like
+the port's parameters (gradients, Adam moments) the same way.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["load_flax_variables"]
+__all__ = ["load_flax_variables", "to_flax_variables", "to_flax_tree"]
 
 _STATS = ("mean", "var")
 
@@ -87,3 +90,32 @@ def load_flax_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Mo
         raise KeyError(f"flax variables do not match the port: missing {missing}, "
                        f"unused {extra}")
     return model
+
+
+def _to_flax(value: torch.Tensor, leaf: str) -> np.ndarray:
+    a = np.array(value.detach().float().cpu().numpy())  # a copy, not a view
+    if leaf == "weight" and a.ndim == 4:
+        return np.ascontiguousarray(np.transpose(a, (2, 3, 1, 0)))  # OIHW -> HWIO
+    if leaf == "weight":
+        return np.ascontiguousarray(a.T)  # Linear (out, in) -> Dense (in, out)
+    return a
+
+
+def to_flax_tree(tensors: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """Tensors keyed by the port's parameter or buffer names -> the nested
+    Flax variables tree (``{"params": ..., "batch_stats": ...}``) of numpy
+    arrays, in the Flax layouts."""
+    tree: Dict[str, Any] = {}
+    for name, value in tensors.items():
+        *mods, leaf = _flax_path(name)
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = _to_flax(value, name.rsplit(".", 1)[-1])
+    return tree
+
+
+def to_flax_variables(model: nn.Module) -> Dict[str, Any]:
+    """The model's parameters and BatchNorm statistics as the Flax
+    variables tree that :func:`load_flax_variables` reads."""
+    return to_flax_tree({**dict(model.named_parameters()), **dict(model.named_buffers())})

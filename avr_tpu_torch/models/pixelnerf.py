@@ -172,12 +172,13 @@ class PixelNeRFNet(nn.Module):
         self.mlp_fine = mlp(cfg.mlp_fine)
 
     def encode(self, images: torch.Tensor, poses: torch.Tensor, focal,
-               c=None) -> Conditioning:
+               c=None, train: bool = False) -> Conditioning:
         """``images (SB, NS, H, W, 3)`` in [-1, 1] (NHWC), ``poses (SB, NS, 4, 4)``
-        cam2world, scalar / per-view focal and principal point."""
+        cam2world, scalar / per-view focal and principal point; ``train``
+        puts the encoder's BatchNorm in train mode."""
         SB, NS, H, W, _ = images.shape
         dev = images.device
-        latent, latent_scaling = self.encoder(images.reshape(SB * NS, H, W, 3))
+        latent, latent_scaling = self.encoder(images.reshape(SB * NS, H, W, 3), train)
         flat = poses.reshape(SB * NS, 4, 4).float()
         rot = flat[:, :3, :3].transpose(1, 2)
         trans = -torch.einsum("bij,bj->bi", rot, flat[:, :3, 3])

@@ -1,10 +1,11 @@
 """ResNet backbone trunk for the pixel-aligned encoder (port of
-``avr_tpu/models/resnet.py``), eval mode only.
+``avr_tpu/models/resnet.py``).
 
 NCHW inside (PyTorch's convolution layout); parameters are float32 and cast
 to the compute dtype at use.  Padding is explicit ``(1, 1)`` for 3x3,
 ``(3, 3)`` for the 7x7 stem, and the stem's max-pool pads with -inf, as the
-Flax trunk does.  BatchNorm uses the running statistics.  Module and
+Flax trunk does.  BatchNorm uses the running statistics, or with
+``train=True`` the batch statistics (and updates the running ones).  Module and
 parameter names follow the Flax tree so weights carry across by name
 (``models/flax_import.py``).  The convolutions stay cuDNN's: the JAX
 package has no Pallas kernel here.
@@ -40,8 +41,18 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm, ``(x - mean) * (rsqrt(var + eps) * scale) + bias``
-    in float32 (Flax's normalization order), result in the input's dtype."""
+    """Flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` on NCHW:
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32 (Flax's
+    normalization order), result in the input's dtype.
+
+    ``train=True`` normalises with the batch mean and the **biased**
+    variance ``E[x^2] - E[x]^2`` over (N, H, W) (clipped at 0, Flax's
+    ``use_fast_variance``), and updates the running statistics in place:
+    ``stat <- 0.9 * stat + 0.1 * batch_stat``.  (``F.batch_norm`` would
+    store the unbiased variance.)
+    """
+
+    momentum = 0.9
 
     def __init__(self, c: int, eps: float = 1e-5):
         super().__init__()
@@ -51,10 +62,20 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(c))
         self.eps = eps
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         view = lambda t: t.view(1, -1, 1, 1)
-        mul = torch.rsqrt(self.var + self.eps) * self.scale
-        y = (x.float() - view(self.mean)) * view(mul) + view(self.bias)
+        xf = x.float()
+        if train:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+                self.var.copy_(m * self.var + (1.0 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        y = (xf - view(mean)) * view(mul) + view(self.bias)
         return y.to(x.dtype)
 
 
@@ -71,11 +92,11 @@ class BasicBlock(nn.Module):
             self.down_conv = Conv(c_in, c_out, 1, stride, 0)
             self.down_bn = BatchNorm(c_out)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = torch.relu(self.bn1(self.conv1(x), train))
+        y = self.bn2(self.conv2(y), train)
         if hasattr(self, "down_conv"):
-            x = self.down_bn(self.down_conv(x))
+            x = self.down_bn(self.down_conv(x), train)
         return torch.relu(y + x)
 
 
@@ -101,14 +122,14 @@ class ResNetTrunk(nn.Module):
                 c_in = channels[stage]
         self.blocks_per_stage = blocks
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        x = torch.relu(self.bn1(self.conv1(x)))
+    def forward(self, x: torch.Tensor, train: bool = False) -> List[torch.Tensor]:
+        x = torch.relu(self.bn1(self.conv1(x), train))
         feats = [x]
         for stage in range(self.num_layers - 1):
             if stage == 0 and self.use_first_pool:
                 x = F.max_pool2d(x, 3, stride=2, padding=1)
             for blk in range(self.blocks_per_stage[stage]):
-                x = self.stages[f"layer{stage + 1}_block{blk}"](x)
+                x = self.stages[f"layer{stage + 1}_block{blk}"](x, train)
             feats.append(x)
         return feats
 

@@ -1,5 +1,5 @@
 """Top-level model: radiance field + adaptive renderer as one ``nn.Module``
-(port of ``avr_tpu/models/wrapper.py`` ``RadFieldRenderer``, forward only).
+(port of ``avr_tpu/models/wrapper.py`` ``RadFieldRenderer``).
 
 ``encode`` produces the :class:`Conditioning` once per source view set;
 ``render`` marches and integrates a ray batch.  Parameter names follow the
@@ -39,8 +39,8 @@ class RadFieldRenderer(nn.Module):
         self.out_layer = nn.Linear(renderer_cfg.hidden_size, 1)
 
     def encode(self, images: torch.Tensor, poses: torch.Tensor, focal,
-               c=None) -> Conditioning:
-        return self.net.encode(images, poses, focal, c)
+               c=None, train: bool = False) -> Conditioning:
+        return self.net.encode(images, poses, focal, c, train)
 
     def render(self, cond: Conditioning, xy_pix: torch.Tensor, intrinsics: torch.Tensor,
                cam2world: torch.Tensor, key: RaySeeds) -> RenderOutput:

@@ -141,10 +141,9 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def check_cuda_inputs(name: str, backward: str, tensors: Dict[str, torch.Tensor],
+def check_cuda_inputs(name: str, tensors: Dict[str, torch.Tensor],
                       device: torch.device) -> None:
-    """Device and contiguity checks shared by the wrappers, plus the
-    forward-only rule: the backward kernels come with the training slice."""
+    """Device and contiguity checks shared by the wrappers."""
     if device.type != "cuda":
         raise ValueError(f"{name}: the kernel runs on CUDA tensors, got {device}")
     for arg, t in tensors.items():
@@ -152,7 +151,3 @@ def check_cuda_inputs(name: str, backward: str, tensors: Dict[str, torch.Tensor]
             raise ValueError(f"{name}: {arg} is on {t.device}, expected {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
-        if t.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                f"{name}: forward only; its backward ({backward}) is not ported "
-                f"yet (run under torch.inference_mode())")

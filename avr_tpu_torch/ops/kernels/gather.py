@@ -1,22 +1,34 @@
-"""K1: bilinear latent gather — CUDA kernel wrapper and its plain version.
+"""K1: bilinear latent gather — CUDA kernels (forward and backward), the
+autograd function that joins them, and the plain version.
 
 Replaces ``avr_tpu/ops/pallas/gather.py:395 gather_bilinear_windowed``
-(forward).  Semantics are ``avr_tpu/ops/grid_sample.py`` exactly, i.e.
+(forward, ``:415``) and its VJP ``_wbwd`` (``:447``, call ``:463``).
+Semantics are ``avr_tpu/ops/grid_sample.py`` exactly, i.e.
 ``F.grid_sample(align_corners=True, padding_mode="border")`` on NHWC maps:
 ``x = clip((gx + 1) / 2 * (W - 1), 0, W - 1)``, ``x0 = floor(x)``,
 ``x1 = min(x0 + 1, W - 1)`` (same for y), weights ``(1-wy)(1-wx), (1-wy)wx,
 wy(1-wx), wy*wx``, blended in float32, output in the map's dtype.
 
-What bounds it on Hopper: bytes.  At the band shape (N = 81,920 points,
-C = 512, bf16) the output alone is 84 MB against a 4.2 MB latent, about
-26 us at 3.35 TB/s.  The TPU kernel's one-hot MXU selectors and row windows
-work around the TPU's lack of a fast random gather; on Hopper a tap is a
-plain load, and the 4 MB latent stays in the 50 MB L2.  So the kernel is
-direct 4-tap loads, one thread per (point, 16-byte channel group), with
-neighbouring threads on neighbouring channels of the same tap.  The
-TPU path sorts rays by source-view row to make its windows coherent
-(``models/wrapper.py:160-204``); per-ray results do not depend on it and
-the port leaves it out.
+The backward is the TPU kernel's: ``dfeat = sum over taps of w * g`` with
+``w`` and ``g`` rounded to the map's dtype and float32 sums, cast to the
+map's dtype at the end; ``dcoords`` from the per-tap dots ``<g, f_tap>``,
+the weights' derivatives and a **strict** live mask ``0 < x_un < W - 1``
+on the unclamped coordinate (``gather.py:142-148``): a point on or beyond
+the border gets no coordinate gradient (``torch.clamp``'s own gradient
+would pass at the border itself).
+
+What bounds it on Hopper: bytes.  Forward at the band shape (N = 81,920,
+C = 512, bf16): 84 MB of output against a 4.2 MB latent, ~26 us at
+3.35 TB/s; the TPU kernel's one-hot MXU selectors and row windows work
+around the TPU's lack of a fast random gather, while on Hopper a tap is a
+plain load and the latent stays in the 50 MB L2.  Forward: direct 4-tap
+loads, one thread per (point, 16-byte channel group).  Backward (~425 MB
+at the band call, ~0.13 ms): one warp per point reads ``g`` and the four
+taps with 16-byte loads, reduces the four dots by shuffles and adds
+``w * g`` into a zeroed float32 map with vector atomics; the ray's band
+samples hit the same few pixels, so the atomics contend (a warp-level
+pre-sum of equal taps is the later lever).  The TPU path's ray sort
+(``models/wrapper.py:160-204``) only feeds its windows; the port has none.
 """
 
 from __future__ import annotations
@@ -27,18 +39,26 @@ import torch
 
 from avr_tpu_torch.ops.kernels import _build
 
-__all__ = ["gather_bilinear", "gather_bilinear_plain", "bilinear_f32"]
+__all__ = ["gather_bilinear", "gather_bilinear_plain", "bilinear_f32", "clamp_strict"]
 
 NAME = "gather_bilinear"
+NAME_BWD = "gather_bilinear_bwd"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def clamp_strict(u: torch.Tensor, hi: float) -> torch.Tensor:
+    """``clamp(u, 0, hi)`` whose gradient passes only strictly inside
+    ``(0, hi)``, the live mask of the TPU kernels' backward."""
+    inside = (u > 0) & (u < hi)
+    return torch.where(inside, u, u.detach().clamp(0.0, hi))
 
 
 def _taps(coords: torch.Tensor, H: int, W: int):
     """Flat tap indices and weights, ``(B, N)`` each (float32 math)."""
-    x = torch.clamp((coords[..., 0] + 1.0) * 0.5 * (W - 1), 0.0, W - 1)
-    y = torch.clamp((coords[..., 1] + 1.0) * 0.5 * (H - 1), 0.0, H - 1)
-    x0 = torch.floor(x)
-    y0 = torch.floor(y)
+    x = clamp_strict((coords[..., 0] + 1.0) * 0.5 * (W - 1), W - 1)
+    y = clamp_strict((coords[..., 1] + 1.0) * 0.5 * (H - 1), H - 1)
+    x0 = torch.floor(x.detach())
+    y0 = torch.floor(y.detach())
     wx = x - x0
     wy = y - y0
     x0i = x0.to(torch.int64)
@@ -53,31 +73,26 @@ def _taps(coords: torch.Tensor, H: int, W: int):
 def bilinear_f32(features: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """``(B, H, W, C)`` x ``(B, N, 2)`` -> ``(B, N, C)`` float32 blend
     (shared with the march's plain version, whose per-step feature stays
-    float32)."""
+    float32).  The map is read as float32, so its gradient sums in float32
+    and is cast to the map's dtype once, as the TPU kernel's is."""
     B, H, W, C = features.shape
     idx, w = _taps(coords.float(), H, W)
-    flat = features.reshape(B, H * W, C)
+    flat = features.reshape(B, H * W, C).float()
     rows = torch.arange(B, device=features.device)[:, None]
     out = None
     for i, wi in zip(idx, w):
-        term = flat[rows, i].float() * wi[..., None]
+        term = flat[rows, i] * wi[..., None]
         out = term if out is None else out + term
     return out
 
 
 def gather_bilinear_plain(features: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: output in the map's dtype."""
+    """The kernels' function in plain PyTorch (autograd gives the backward):
+    output in the map's dtype."""
     return bilinear_f32(features, coords).to(features.dtype)
 
 
-def gather_bilinear(features: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-    """Bilinear-sample ``features (B, H, W, C)`` at ``coords (B, N, 2)``
-    (``(x, y)`` in [-1, 1], border clamp) -> ``(B, N, C)`` in the map's dtype.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
-    """
-    if features.device.type == "cpu":
-        return gather_bilinear_plain(features, coords)
+def _check(features: torch.Tensor, coords: torch.Tensor) -> None:
     B, H, W, C = features.shape
     N = coords.shape[1]
     if features.dtype not in _DTYPES:
@@ -88,8 +103,12 @@ def gather_bilinear(features: torch.Tensor, coords: torch.Tensor) -> torch.Tenso
     vec = 16 // features.element_size()
     if C % vec:
         raise ValueError(f"{NAME}: channels {C} must be a multiple of {vec}")
-    _build.check_cuda_inputs(NAME, "the VJP of gather_bilinear_windowed, gather.py:447",
-                             {"features": features, "coords": coords}, features.device)
+    _build.check_cuda_inputs(NAME, {"features": features, "coords": coords}, features.device)
+
+
+def _forward(features: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    B, H, W, C = features.shape
+    N = coords.shape[1]
     out = torch.empty((B, N, C), dtype=features.dtype, device=features.device)
     if N == 0:
         return out
@@ -99,3 +118,49 @@ def gather_bilinear(features: torch.Tensor, coords: torch.Tensor) -> torch.Tenso
              _DTYPES[features.dtype], ctypes.c_void_p(_build.stream_ptr(features.device)))
     _build.check(NAME, err)
     return out
+
+
+def _backward(features: torch.Tensor, coords: torch.Tensor, g: torch.Tensor):
+    """``(dfeatures in the map's dtype, dcoords float32)`` for cotangent ``g``."""
+    B, H, W, C = features.shape
+    N = coords.shape[1]
+    g = g.to(features.dtype).contiguous()
+    _build.check_cuda_inputs(NAME_BWD, {"g": g}, features.device)
+    dfeat = torch.zeros((B, H, W, C), dtype=torch.float32, device=features.device)
+    dcoords = torch.zeros((B, N, 2), dtype=torch.float32, device=features.device)
+    if N:
+        fn = _build.kernel_fn("avr_gather_bilinear_bwd", [ctypes.c_void_p] * 5
+                              + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        err = fn(_build.ptr(features), _build.ptr(coords), _build.ptr(g), _build.ptr(dfeat),
+                 _build.ptr(dcoords), B, H, W, C, N, _DTYPES[features.dtype],
+                 ctypes.c_void_p(_build.stream_ptr(features.device)))
+        _build.check(NAME_BWD, err)
+    return dfeat.to(features.dtype), dcoords
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, features, coords):
+        ctx.save_for_backward(features, coords)
+        return _forward(features, coords)
+
+    @staticmethod
+    def backward(ctx, g):
+        features, coords = ctx.saved_tensors
+        dfeat, dcoords = _backward(features, coords, g)
+        return dfeat, dcoords
+
+
+def gather_bilinear(features: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Bilinear-sample ``features (B, H, W, C)`` at ``coords (B, N, 2)``
+    (``(x, y)`` in [-1, 1], border clamp) -> ``(B, N, C)`` in the map's dtype.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel, and
+    under autograd its backward kernel (nothing is saved without a graph).
+    """
+    if features.device.type == "cpu":
+        return gather_bilinear_plain(features, coords)
+    _check(features, coords)
+    if torch.is_grad_enabled() and (features.requires_grad or coords.requires_grad):
+        return _Gather.apply(features, coords)
+    return _forward(features, coords)

@@ -1,27 +1,38 @@
-"""K2: fused FC-ResNet field decoder (forward) — CUDA kernel wrapper and
-its plain version.
+"""K2: fused FC-ResNet field decoder — CUDA kernels (forward, forward with
+activation stash, stash backward), the autograd function that joins them,
+and the plain version.
 
-Replaces ``avr_tpu/ops/pallas/resnetfc.py:896 fused_resnetfc`` (forward,
-``:726``).  The function: an optional in-kernel positional encoding of the
-raw ``[xyz | viewdir]`` lanes (:class:`CodeSpec`); per source view,
-``lin_in`` and the first ``n_lin_z`` blocks, each preceded by a latent
-injection ``h += z @ Wz_k + bz_k``; the mean over views; the remaining
-blocks; ``relu -> lin_out``; optionally ``sigmoid(rgb) / relu(sigma)``.  A
-block is ``h + relu(relu(h) @ W0 + b0) @ W1 + b1``.  The residual trunk
-``h`` is float32; matmul operands (weights, biases, activations, the
-encoded input and the latent) are rounded to the compute dtype and
-accumulate in float32.
+Replaces ``avr_tpu/ops/pallas/resnetfc.py:896 fused_resnetfc``: the forward
+(``:726``), its stash mode (``:637-653``) and the stash backward
+``_bwd_stash_impl`` (``:400-575``, call ``:823``).  The function: an optional
+in-kernel positional encoding of the raw ``[xyz | viewdir]`` lanes
+(:class:`CodeSpec`); per source view, ``lin_in`` and the first ``n_lin_z``
+blocks, each preceded by a latent injection ``h += z @ Wz_k + bz_k``; the
+mean over views; the remaining blocks; ``relu -> lin_out``; optionally
+``sigmoid(rgb) / relu(sigma)``.  A block is ``h + relu(relu(h) @ W0 + b0) @
+W1 + b1``.  The residual trunk ``h`` and its cotangent are float32; matmul
+operands (weights, biases, activations, cotangents, the encoded input and
+the latent) are rounded to the compute dtype and accumulate in float32.
 
-What bounds it on Hopper: operations.  At the band shape (81,920 points,
-d_hidden 512, 13 hidden products) it is ~5.6e11 FLOP, ~0.57 ms at the bf16
-tensor-core peak, against ~94 MB of compulsory traffic (~28 us).  The
-kernel keeps each 32-point tile's activations on chip (trunk in
-registers, the operand tile in shared memory) so the (N, 512) activations
-and the 42-wide encoding never reach device memory, and runs the bf16
-products on the tensor cores with ``mma.sync`` m16n8k16.  The ~6.8 MB of
-bf16 weights do not fit in shared memory (the TPU kernel holds them all in
-VMEM); they stream from L2 for every tile.  float32 operands take a plain
-FMA path with the same tiling.
+What bounds it on Hopper: operations.  Forward at the band call of a train
+step (327,680 points, d_hidden 512, 13 hidden products, 6.86 MFLOP a point)
+~2.27 ms at the bf16 tensor-core peak; the backward does twice the products
+(~4.5 ms) against ~1.1 ms of stash reads.  Forward: one CTA per 32-point
+tile keeps the tile's activations on chip (trunk in registers, the operand
+tile in shared memory) and runs the products with ``mma.sync`` m16n8k16;
+the ~6.8 MB of bf16 weights stream from L2 for every tile.  Under autograd
+it also writes the 2 * n_blocks + 1 post-ReLU activations (bf16, 11.3 KB a
+point) for the backward.  Backward, two kernels: a dgrad kernel walks each
+tile's chain in reverse with the same tiling (transposed weight copies as
+the B operand), reading the stash for the ReLU masks, and writes every
+product's output cotangent (rounded, 11 rows of 512 a point), ``dx``
+through the encoding's ``cos`` lanes and ``dz``; a wgrad kernel sums
+``dW = G^T A`` over the points on 128 x 128 tiles with ``mma.sync``, at most
+8 row chunks per tile added by float32 atomics, bias gradients as column
+sums of the rounded cotangents.  The TPU's recompute backward
+(``resnetfc.py:853``), which ``stash="auto"`` takes only above 6 GiB of
+stash, is not ported: such a call raises.  float32 operands take plain FMA
+loops with the same tiling.
 """
 
 from __future__ import annotations
@@ -154,6 +165,169 @@ def resnetfc_plain(x: torch.Tensor, z: torch.Tensor, w: DecoderWeights, *,
     return out
 
 
+_STASH_BUDGET_BYTES = 6 * 1024 ** 3  # resnetfc.py:893: above it JAX recomputes instead
+GOUT_W = 8  # row width of the rounded output cotangent (csrc/resnetfc.cu)
+NAME_DGRAD = "fused_resnetfc_bwd_dgrad"
+NAME_WGRAD = "fused_resnetfc_bwd_wgrad"
+
+
+def stash_slot(k: int, j: int, v: int, ns: int, n_lin_z: int) -> int:
+    """Slot of block ``k``'s activation ``j`` (0: ``relu(h)``, 1:
+    ``relu(fc_0)``) for view ``v``, in the stash and in the cotangents."""
+    return (2 * k + j) * ns + v if k < n_lin_z else 2 * n_lin_z * ns + 2 * (k - n_lin_z) + j
+
+
+def stash_slots(ns: int, n_blocks: int, n_lin_z: int) -> int:
+    return 2 * n_lin_z * ns + 2 * (n_blocks - n_lin_z) + 1
+
+
+def _prepare(x, z, w: DecoderWeights, code, compute_dtype):
+    """The kernels' operands: detached, contiguous, in the compute dtype
+    (biases rounded to it and held in float32), lin_in zero-padded to a
+    multiple of 64 input lanes, and the encoding tables."""
+    ns, N, d_in = x.shape
+    d_hidden, d_enc = w.wi.shape
+    dev = x.device
+    k_in = (d_enc + 63) // 64 * 64
+    mode, src, f, ph = encode_tables(code, d_in, k_in)
+    cd = lambda t: t.detach().to(compute_dtype).contiguous()
+    wi = torch.zeros((d_hidden, k_in), dtype=compute_dtype, device=dev)
+    wi[:, :d_enc] = w.wi.detach()
+    biases = [t.detach().to(compute_dtype).float().contiguous()
+              for t in (w.bi, w.bz, w.b0, w.b1, w.bo)]
+    return dict(x=x.detach().float().contiguous(), z=cd(z), wi=wi, wz=cd(w.wz), w0=cd(w.w0),
+                w1=cd(w.w1), wo=cd(w.wo), bi=biases[0], bz=biases[1], b0=biases[2],
+                b1=biases[3], bo=biases[4],
+                tables=torch.from_numpy(np.stack([mode, src]).astype(np.int32)).to(dev),
+                fph=torch.from_numpy(np.stack([f, ph])).to(dev))
+
+
+_FWD_ORDER = ("x", "z", "wi", "bi", "wz", "bz", "w0", "b0", "w1", "b1", "wo", "bo", "tables",
+              "fph")
+_DIM_ORDER = ("N", "ns", "d_in", "k_in", "d_latent", "d_hidden", "d_out", "n_blocks",
+              "n_lin_z", "activate")
+
+
+def _dims(a, n_blocks, n_lin_z, activate_out):
+    ns, N, d_in = a["x"].shape
+    d_hidden, k_in = a["wi"].shape
+    return dict(N=N, ns=ns, d_in=d_in, k_in=k_in, d_latent=a["z"].shape[-1], d_hidden=d_hidden,
+                d_out=a["wo"].shape[0], n_blocks=n_blocks, n_lin_z=n_lin_z,
+                activate=int(activate_out))
+
+
+def _forward(a, d, compute_dtype, stash: bool):
+    """Launch the forward; with ``stash`` also return the activations."""
+    dev = a["x"].device
+    N, dh = d["N"], d["d_hidden"]
+    out = torch.empty((N, d["d_out"]), dtype=torch.float32, device=dev)
+    st = (torch.empty((stash_slots(d["ns"], d["n_blocks"], d["n_lin_z"]), N, dh),
+                      dtype=compute_dtype, device=dev) if stash else None)
+    if N == 0:
+        return out, st
+    fn = _build.kernel_fn("avr_resnetfc", [ctypes.c_void_p] * 16 + [ctypes.c_int] * 11
+                          + [ctypes.c_void_p])
+    err = fn(*(_build.ptr(a[k]) for k in _FWD_ORDER), _build.ptr(out),
+             _build.ptr(st) if stash else None, *(d[k] for k in _DIM_ORDER),
+             _DTYPES[compute_dtype], ctypes.c_void_p(_build.stream_ptr(dev)))
+    _build.check(NAME, err)
+    return out, st
+
+
+def _backward(a, d, st, g, compute_dtype):
+    """The stash backward: ``(dx, dz, dwi (dh, k_in), dbi, dwz, dbz, dw0,
+    db0, dw1, db1, dwo, dbo)``, weight cotangents in float32."""
+    dev = g.device
+    ns, N, dh, dl = d["ns"], d["N"], d["d_hidden"], d["d_latent"]
+    nb, nlz, k_in, d_out = d["n_blocks"], d["n_lin_z"], d["k_in"], d["d_out"]
+    cd = compute_dtype
+    g = g.float().contiguous()
+    wiT = a["wi"].t().contiguous()
+    wzT, w0T, w1T = (a[k].transpose(1, 2).contiguous() for k in ("wz", "w0", "w1"))
+    _build.check_cuda_inputs(NAME_DGRAD, {"g": g}, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.zeros((ns, N, d["d_in"]), **f32)
+    dz = torch.zeros((ns, N, dl), dtype=cd, device=dev)
+    cot = torch.empty((2 * nlz * ns + 2 * (nb - nlz) + ns, N, dh), dtype=cd, device=dev)
+    gout = torch.empty((N, GOUT_W), dtype=cd, device=dev)
+    enc = torch.empty((ns, N, k_in), dtype=cd, device=dev)
+    # ns > 1: the pooled trunk cotangent, one (32, dh) float32 tile per CTA
+    pool = torch.empty(((N + 31) // 32 * 32, dh), **f32) if ns > 1 else None
+    grads = dict(wi=torch.zeros((dh, k_in), **f32), bi=torch.zeros((dh,), **f32),
+                 wz=torch.zeros((nlz, dh, dl), **f32), bz=torch.zeros((nlz, dh), **f32),
+                 w0=torch.zeros((nb, dh, dh), **f32), b0=torch.zeros((nb, dh), **f32),
+                 w1=torch.zeros((nb, dh, dh), **f32), b1=torch.zeros((nb, dh), **f32),
+                 wo=torch.zeros((d_out, dh), **f32), bo=torch.zeros((d_out,), **f32))
+    if N:
+        fn = _build.kernel_fn("avr_resnetfc_dgrad", [ctypes.c_void_p] * 17 + [ctypes.c_int] * 11
+                              + [ctypes.c_void_p])
+        err = fn(*(_build.ptr(t) for t in (a["x"], g, st, wiT, wzT, w0T, w1T, a["wo"], a["bo"],
+                                            a["tables"], a["fph"], dx, dz, cot, gout, enc)),
+                 _build.ptr(pool) if ns > 1 else None,
+                 *(d[k] for k in _DIM_ORDER), _DTYPES[cd], ctypes.c_void_p(_build.stream_ptr(dev)))
+        _build.check(NAME_DGRAD, err)
+        _wgrad(a, d, st, cot, gout, enc, grads, cd)
+    return (dx, dz, grads["wi"], grads["bi"], grads["wz"], grads["bz"], grads["w0"],
+            grads["b0"], grads["w1"], grads["b1"], grads["wo"], grads["bo"])
+
+
+def _wgrad(a, d, st, cot, gout, enc, grads, cd):
+    """One launch for every weight: ``dW += G^T A`` and ``db += sum G``."""
+    ns, N, dh, dl = d["ns"], d["N"], d["d_hidden"], d["d_latent"]
+    nb, nlz, k_in, d_out = d["n_blocks"], d["n_lin_z"], d["k_in"], d["d_out"]
+    es = st.element_size()
+    slot = lambda t, i: t.data_ptr() + i * N * dh * es
+    jobs = []  # (G ptr, A ptr, dW, db, rows, ldg, lda, Mg, Ka)
+    for k in range(nb):
+        rows = ns * N if k < nlz else N
+        for j, (wk, bk) in enumerate((("w0", "b0"), ("w1", "b1"))):
+            s = stash_slot(k, j, 0, ns, nlz)
+            jobs.append((slot(cot, s), slot(st, s), grads[wk][k], grads[bk][k], rows, dh, dh,
+                         dh, dh))
+    cot_in = slot(cot, 2 * nlz * ns + 2 * (nb - nlz))
+    for k in range(nlz):
+        gk = cot_in if k == 0 else slot(cot, stash_slot(k - 1, 1, 0, ns, nlz))
+        jobs.append((gk, a["z"].data_ptr(), grads["wz"][k], grads["bz"][k], ns * N, dh, dl, dh,
+                     dl))
+    jobs.append((cot_in, enc.data_ptr(), grads["wi"], grads["bi"], ns * N, dh, k_in, dh, k_in))
+    jobs.append((gout.data_ptr(), slot(st, stash_slots(ns, nb, nlz) - 1), grads["wo"],
+                 grads["bo"], N, GOUT_W, dh, d_out, dh))
+    wgrad(NAME_WGRAD, jobs, cd, st.device)
+
+
+def wgrad(name: str, jobs, compute_dtype, device) -> None:
+    """Launch the wgrad kernel once over ``jobs``, each ``(G ptr, A ptr, dW,
+    db or None, rows, ldg, lda, Mg, Ka)``: ``dW (Mg, Ka) += G^T A`` over the
+    rows of ``G (rows, ldg)`` and ``A (rows, lda)`` in the compute dtype, and
+    ``db += sum G``.  Counted under the caller's ``name``."""
+    n = len(jobs)
+    arr = lambda vals: (ctypes.c_void_p * n)(*vals)
+    G, A = arr([j[0] for j in jobs]), arr([j[1] for j in jobs])
+    dW = arr([j[2].data_ptr() for j in jobs])
+    db = arr([None if j[3] is None else j[3].data_ptr() for j in jobs])
+    dims = (ctypes.c_int * (5 * n))(*(v for j in jobs for v in j[4:]))
+    fn = _build.kernel_fn("avr_resnetfc_wgrad", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                          + [ctypes.c_void_p])
+    err = fn(*(ctypes.cast(x, ctypes.c_void_p) for x in (G, A, dW, db, dims)), n,
+             _DTYPES[compute_dtype], ctypes.c_void_p(_build.stream_ptr(device)))
+    _build.check(name, err)
+
+
+class _Decoder(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, z, wi, bi, wz, bz, w0, b0, w1, b1, wo, bo, a, d, compute_dtype):
+        out, st = _forward(a, d, compute_dtype, stash=True)
+        ctx.a, ctx.d, ctx.st, ctx.cd = a, d, st, compute_dtype
+        ctx.like = [(t.dtype, t.shape) for t in (x, z, wi, bi, wz, bz, w0, b0, w1, b1, wo, bo)]
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = list(_backward(ctx.a, ctx.d, ctx.st, g, ctx.cd))
+        grads[2] = grads[2][:, :ctx.like[2][1][1]]  # lin_in's zero-padded input lanes
+        return tuple(gr.to(dt).reshape(sh) for gr, (dt, sh) in zip(grads, ctx.like)) + (None,) * 3
+
+
 def fused_resnetfc(x: torch.Tensor, z: torch.Tensor, w: DecoderWeights, *,
                    n_blocks: int, n_lin_z: int, compute_dtype: torch.dtype,
                    code: Optional[CodeSpec] = None,
@@ -161,7 +335,8 @@ def fused_resnetfc(x: torch.Tensor, z: torch.Tensor, w: DecoderWeights, *,
     """Apply the decoder: ``x (NS, N, d_in)`` raw (``code``) or encoded
     point features, ``z (NS, N, d_latent)`` latents -> ``(N, d_out)`` float32.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    CPU tensors take the plain version; CUDA tensors launch the kernel, and
+    under autograd the stash forward and the stash backward kernels.
     """
     if not 0 < n_lin_z <= n_blocks:
         raise ValueError(f"{NAME}: need 0 < n_lin_z <= n_blocks")
@@ -174,41 +349,25 @@ def fused_resnetfc(x: torch.Tensor, z: torch.Tensor, w: DecoderWeights, *,
     if compute_dtype not in _DTYPES:
         raise TypeError(f"{NAME}: compute dtype {compute_dtype} not in {list(_DTYPES)}")
     ns, N, d_in = x.shape
-    d_hidden, d_enc = w.wi.shape
+    d_hidden = w.wi.shape[0]
     d_latent, d_out = z.shape[-1], w.wo.shape[0]
     if code is not None and code.d_raw != d_in:
         raise ValueError(f"{NAME}: x width {d_in} != code.d_raw {code.d_raw}")
-    if d_hidden % 64 or not 64 <= d_hidden <= 512 or d_latent % 64:
-        raise ValueError(f"{NAME}: kernel needs d_hidden in 64..512 and d_latent "
-                         f"multiples of 64, got {d_hidden}, {d_latent}")
+    if d_hidden % 64 or not 64 <= d_hidden <= 512 or d_latent % 64 or d_out > GOUT_W:
+        raise ValueError(f"{NAME}: kernel needs d_hidden in 64..512, d_latent a multiple "
+                         f"of 64 and d_out <= {GOUT_W}, got {d_hidden}, {d_latent}, {d_out}")
     if z.shape[:2] != (ns, N) or w.wz.shape != (n_lin_z, d_hidden, d_latent):
         raise ValueError(f"{NAME}: z {tuple(z.shape)} / wz {tuple(w.wz.shape)} mismatch")
-    dev = x.device
-    k_in = (d_enc + 63) // 64 * 64
-    mode, src, f, ph = encode_tables(code, d_in, k_in)
-    tables = torch.from_numpy(np.stack([mode, src]).astype(np.int32)).to(dev)
-    fph = torch.from_numpy(np.stack([f, ph])).to(dev)
-    cd = lambda t: t.to(compute_dtype).contiguous()
-    wi = torch.zeros((d_hidden, k_in), dtype=compute_dtype, device=dev)
-    wi[:, :d_enc] = w.wi
-    biases = [t.to(compute_dtype).float().contiguous() for t in (w.bi, w.bz, w.b0, w.b1, w.bo)]
-    args = dict(x=x.float().contiguous(), z=cd(z), wi=wi, wz=cd(w.wz), w0=cd(w.w0),
-                w1=cd(w.w1), wo=cd(w.wo), bi=biases[0], bz=biases[1], b0=biases[2],
-                b1=biases[3], bo=biases[4], tables=tables, fph=fph)
-    _build.check_cuda_inputs(NAME, "the recompute / stash backward, resnetfc.py:823,853",
-                             args, dev)
-    out = torch.empty((N, d_out), dtype=torch.float32, device=dev)
-    if N == 0:
-        return out
-    fn = _build.kernel_fn("avr_resnetfc", [ctypes.c_void_p] * 15 + [ctypes.c_int] * 11
-                          + [ctypes.c_void_p])
-    a = args
-    err = fn(_build.ptr(a["x"]), _build.ptr(a["z"]), _build.ptr(a["wi"]), _build.ptr(a["bi"]),
-             _build.ptr(a["wz"]), _build.ptr(a["bz"]), _build.ptr(a["w0"]), _build.ptr(a["b0"]),
-             _build.ptr(a["w1"]), _build.ptr(a["b1"]), _build.ptr(a["wo"]), _build.ptr(a["bo"]),
-             _build.ptr(tables), _build.ptr(fph), _build.ptr(out),
-             N, ns, d_in, k_in, d_latent, d_hidden, d_out, n_blocks, n_lin_z,
-             int(activate_out), _DTYPES[compute_dtype],
-             ctypes.c_void_p(_build.stream_ptr(dev)))
-    _build.check(NAME, err)
-    return out
+    a = _prepare(x, z, w, code, compute_dtype)
+    _build.check_cuda_inputs(NAME, a, x.device)
+    d = _dims(a, n_blocks, n_lin_z, activate_out)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, z, *w)):
+        stash_bytes = (stash_slots(ns, n_blocks, n_lin_z) * N * d_hidden
+                       * a["z"].element_size())
+        if stash_bytes > _STASH_BUDGET_BYTES:
+            raise NotImplementedError(
+                f"{NAME}: {N} points need {stash_bytes / 2 ** 30:.1f} GiB of stash, above the "
+                f"6 GiB budget; the recompute backward (avr_tpu/ops/pallas/resnetfc.py:853) "
+                f"that serves such calls is not ported")
+        return _Decoder.apply(x, z, *w, a, d, compute_dtype)
+    return _forward(a, d, compute_dtype, stash=False)[0]

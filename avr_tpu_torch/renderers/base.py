@@ -28,6 +28,7 @@ class AdaptiveRendererConfig:
     n_coarse: int = 20
     white_back: bool = True
     hidden_size: int = 16
+    grad_clamp: float = 10.0
     init_distance_mean: float = 0.8
     init_distance_std: float = 5e-2
     # per-ray early termination threshold on |predicted step|; 0 = off

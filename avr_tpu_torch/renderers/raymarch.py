@@ -34,4 +34,5 @@ def lstm_march(cfg: AdaptiveRendererConfig, key: RaySeeds, cond: Conditioning,
     return fused_lstm_march(
         proj, coords0, rds, latent, cell.w_ih, cell.w_hh, cell.fused_bias(),
         step_head.weight.T, step_head.bias, steps=cfg.raymarch_steps,
-        early_stop_eps=cfg.early_stop_eps, compute_dtype=compute_dtype)
+        early_stop_eps=cfg.early_stop_eps, grad_clamp=cfg.grad_clamp,
+        compute_dtype=compute_dtype)

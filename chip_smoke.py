@@ -1,30 +1,43 @@
 #!/usr/bin/env python3
 """On-card smoke test of the avr_tpu_torch port (one NVIDIA Hopper GPU).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile] [--out=DIR]
 
 Phases (any failure raises and exits non-zero):
 
 1. The card (``nvidia-smi`` name and power limit), torch/CUDA versions, and
    the kernel library build from ``avr_tpu_torch/csrc`` (nvcc, sm_90a).
-2. Kernels: each hand-written kernel against its plain PyTorch version on
-   the same inputs at the serving path's shapes, with its tolerance; times
+2. Kernels: each hand-written forward kernel against its plain PyTorch
+   version on the same inputs at the serving path's shapes; then each
+   backward kernel's gradients against the plain version's autograd at the
+   train step's shapes (4 scenes x 4,096 rays), each with its tolerance and
+   the reason for it; the integral's adjoint with a saturated lane.  Times
    (CUDA events) of the kernel, the plain version and, where one PyTorch
    call computes the same function, that call; the least time the card
    could take (bytes over 3.35 TB/s or operations over the type's peak).
-3. Slice: the full-width ``conf/default_mv.conf`` model (bf16, seeded random
+3. Serve: the full-width ``conf/default_mv.conf`` model (bf16, seeded random
    weights) encodes one 128x128 source view and renders 3 orbit frames of
    128x128 through ``evaluation.generate_video``; the launch counters are
    reset just before and read just after, and must show every kernel ran.
-   Then a small render (2 march steps, float32) through the kernels is held
-   against the same model's plain path on the CPU.
+4. Train: the same model takes 2 warm-up and 10 timed train steps
+   (``training.make_train_step``, Adam, bf16, SB 4 x 4,096 rays on
+   ``bench.py``'s synthetic batch); the counters, reset before the timed
+   steps, must show each kernel's expected launches per step; the loss is
+   finite, no update was skipped, and every parameter and BatchNorm
+   statistic moved.  ``--profile`` traces one frame and one train step.
+5. Reference: a small float32 render and a small float32 train step's loss
+   and gradients through the kernels on the card, against the plain path on
+   the CPU (and, for the gradients, the plain versions on the card).
 
 Prints the kernel table as one JSON line, the card's name and power limit,
-and as the last line ``{"ok": true, "device": {...}}``.
+and as the last line ``{"ok": true, "device": {...}}``; every case in full
+goes to ``DIR/chip_smoke_report.json`` (default ``traces/``), with the
+profiles' chrome traces.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -39,11 +52,16 @@ import torch.nn.functional as F
 from avr_tpu_torch.evaluation import generate_video, render_full_image
 from avr_tpu_torch.models.wrapper import make_model
 from avr_tpu_torch.ops.kernels import _build
+from avr_tpu_torch.ops.kernels import resnetfc as K2
 from avr_tpu_torch.ops.kernels.gather import gather_bilinear, gather_bilinear_plain
 from avr_tpu_torch.ops.kernels.march import (fused_lstm_march, lstm_march_plain,
                                              pack_projection)
+from avr_tpu_torch.ops.integrate import volume_integral
 from avr_tpu_torch.ops.kernels.resnetfc import (CodeSpec, DecoderWeights, fused_resnetfc,
                                                 resnetfc_plain)
+from avr_tpu_torch.training import (LossParams, create_train_state, make_optimizer,
+                                    make_train_step)
+from avr_tpu_torch.training.step import loss_and_grads
 from avr_tpu_torch.utils.geometry import get_world_rays, orbit_cam2world, pixel_grid
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -171,18 +189,26 @@ def check_resnetfc(gen):
                 ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
-def march_inputs(gen, ns, dtype=torch.bfloat16):
-    """Rays of a 128x128 camera at z = 1.3 looking at the origin; the source
-    views are that camera, slightly rotated per view."""
+def march_inputs(gen, ns, dtype=torch.bfloat16, sb=1, w_out_scale=0.05):
+    """Rays of a 128x128 camera at z = 1.3 looking at the origin (the same
+    4,096 rays in each of ``sb`` scenes); the source views are that camera,
+    rotated about its axis.  The rays are jittered off the pixel centres and
+    no source view is the ray camera itself: otherwise every march point
+    projects exactly onto a latent pixel, where the bilinear taps and the
+    border mask switch, and two correct implementations round onto
+    different sides of that edge.  ``w_out_scale`` sets the step head's
+    size, and with it how far a step moves with the latent it reads."""
     c2w = torch.diag(torch.tensor([1.0, -1.0, -1.0, 1.0]))
     c2w[2, 3] = 1.3
     K = torch.tensor([[1.09375, 0, 0.5], [0, 1.09375, 0.5], [0, 0, 1]])
-    xy = torch.from_numpy(pixel_grid(64, 64).reshape(1, CHUNK, 2))
+    side = int(round(CHUNK ** 0.5))
+    jitter = torch.rand(1, CHUNK, 2, generator=torch.Generator().manual_seed(2)) - 0.5
+    xy = torch.from_numpy(pixel_grid(side, side).reshape(1, CHUNK, 2)) + 0.5 * jitter / side
     ros, rds = get_world_rays(xy, K[None], c2w.expand(1, CHUNK, 4, 4))
     d0 = 0.8 + 0.05 * torch.randn(1, CHUNK, 1, generator=torch.Generator().manual_seed(1))
     poses = []
     for v in range(ns):
-        a = 0.1 * v
+        a = 0.05 + 0.1 * v
         rot = torch.tensor([[np.cos(a), -np.sin(a), 0, 0], [np.sin(a), np.cos(a), 0, 0],
                             [0, 0, 1, 0], [0, 0, 0, 1]], dtype=torch.float32)
         src = c2w @ rot
@@ -193,11 +219,11 @@ def march_inputs(gen, ns, dtype=torch.bfloat16):
                            torch.tensor([2 * LATENT / (LATENT - 1)] * 2),
                            torch.tensor([float(SIDE)] * 2)).reshape(1, ns, 16)
     H4 = 4 * HIDDEN
-    return dict(proj=proj.to(DEV), coords0=(ros + rds * d0).to(DEV).contiguous(),
-                rds=rds.to(DEV).contiguous(),
-                feat=randn(gen, 1, ns, LATENT, LATENT, C, dtype=dtype),
+    rep = lambda t: t.expand(sb, *t.shape[1:]).to(DEV).contiguous()
+    return dict(proj=rep(proj), coords0=rep(ros + rds * d0), rds=rep(rds),
+                feat=randn(gen, sb, ns, LATENT, LATENT, C, dtype=dtype),
                 w_ih=randn(gen, C, H4, scale=C ** -0.5), w_hh=randn(gen, HIDDEN, H4, scale=0.25),
-                bias=randn(gen, H4, scale=0.1), w_out=randn(gen, HIDDEN, 1, scale=0.05),
+                bias=randn(gen, H4, scale=0.1), w_out=randn(gen, HIDDEN, 1, scale=w_out_scale),
                 b_out=randn(gen, 1, scale=0.01))
 
 
@@ -208,8 +234,8 @@ def check_march(gen):
         # 2 steps: gate sums in another order and one-ulp transcendental
         # differences, through a bf16-rounded hidden state (2^-8 relative)
         (1, 2, 0.0, 1e-3), (2, 2, 0.0, 1e-3), (1, 2, 0.02, 1e-3),
-        # 10 steps: the recurrence is chaotic; finite and a loose bound
-        (1, STEPS, 0.0, 5e-2),
+        # 10 steps: the same differences carried through 8 more steps
+        (1, STEPS, 0.0, 5e-3),
     ):
         inp = march_inputs(gen, ns)
         got = fused_lstm_march(**inp, steps=steps, early_stop_eps=eps,
@@ -231,6 +257,401 @@ def check_march(gen):
                 shape=f"R={CHUNK} x {STEPS} steps, NS=1, C={C}, hidden {HIDDEN}, bf16",
                 cases=cases, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
                 bound_by=b_by)
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: backward kernels against the plain versions' autograd, at the
+# train step's shapes (4 scenes x 4,096 rays, 20 band samples a ray)
+# ---------------------------------------------------------------------------
+
+SB_TRAIN = 4
+BAND_TRAIN = SB_TRAIN * BAND  # decoder points of the band query in one step
+
+
+def grads_of(fn, inputs, g, keep=False):
+    """Gradients of ``<fn(*inputs), g>`` w.r.t. every input; with ``keep``
+    also a closure that runs the same backward again (for timing)."""
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    grads = torch.autograd.grad(out, leaves, g, retain_graph=keep)
+    if not keep:
+        return grads
+    return grads, lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+
+def check_rel(name, got, want, rel):
+    """A gradient against the plain version's: max abs error within ``rel``
+    of the plain gradient's largest magnitude."""
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel gradient")
+    scale = float(want.float().abs().max())
+    return check(name, max_err(got, want), rel * max(scale, 1e-30))
+
+
+def check_l2(name, got, want, tol, against="plain"):
+    """A gradient against the plain version's by relative L2 error
+    ``|got - want| / |want|``.  Used where a ReLU mask or a bilinear tap can
+    flip between two correct implementations (an activation within rounding
+    of zero): one flipped element moves one point's gradient by its full
+    size, which a max-abs bound cannot tell from a fault, while the L2 error
+    stays at the rounding level.  The max abs error is reported beside it."""
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel gradient")
+    a, b = got.float(), want.float()
+    rel_l2 = float((a - b).norm() / b.norm().clamp_min(1e-30))
+    if not rel_l2 <= tol:
+        raise AssertionError(f"{name}: relative L2 error {rel_l2} > tolerance {tol}")
+    return {"case": name, "against": against, "max_abs_err": max_err(a, b), "rel_l2": rel_l2,
+            "tol": tol}
+
+
+def kernel_device_ms(fn, names, iters=5):
+    """Device ms per call of each named CUDA kernel that ``fn`` launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [e for e in prof.key_averages() if e.device_type == cuda]
+    return {n: sum(e.self_device_time_total for e in rows if n in e.key) / 1e3 / iters
+            for n in names}
+
+
+def check_gather_bwd(gen):
+    feat = randn(gen, SB_TRAIN, LATENT, LATENT, C, dtype=torch.bfloat16)
+    cases = []
+    for n in (BAND, CHUNK):  # per scene: the band query and the coarse query
+        coords = torch.rand(SB_TRAIN, n, 2, generator=gen, device=DEV) * 2.2 - 1.1
+        g = randn(gen, SB_TRAIN, n, C, dtype=torch.bfloat16)
+        got = grads_of(gather_bilinear, (feat, coords), g)
+        want = grads_of(gather_bilinear_plain, (feat, coords), g)
+        # dfeat: the kernel rounds the tap weight to bf16 before w * g (as
+        # the TPU kernel does), the plain version does not, and the float32
+        # sums run in another order; both round the sum to bf16 once: 2 bf16
+        # ulps of the largest value.  dcoords: float32 dots of 512 products
+        # in another order, times 31.5: 1e-4 of the largest value.
+        cases.append(check_rel(f"dfeat N={n} bf16", got[0], want[0], 2.0 ** -7))
+        cases.append(check_rel(f"dcoords N={n} bf16", got[1], want[1], 1e-4))
+    coords = torch.rand(SB_TRAIN, BAND, 2, generator=gen, device=DEV) * 2.2 - 1.1
+    g = randn(gen, SB_TRAIN, BAND, C, dtype=torch.bfloat16)
+    _, run = grads_of(gather_bilinear, (feat, coords), g, keep=True)
+    _, run_plain = grads_of(gather_bilinear_plain, (feat, coords), g, keep=True)
+    nchw = feat.permute(0, 3, 1, 2).float()
+    _, run_lib = grads_of(lambda f, c: F.grid_sample(f, c[:, None], mode="bilinear",
+                                                     padding_mode="border", align_corners=True),
+                          (nchw, coords), g.float().permute(0, 2, 1)[:, :, None], keep=True)
+    ms, plain_ms, library_ms = time_ms(run), time_ms(run_plain), time_ms(run_lib)
+    n_pts, hwc = SB_TRAIN * BAND, feat.numel()
+    b_ms, b_by = bound(n_pts * C * 2 + hwc * 2 + 2 * hwc * 4 + 2 * n_pts * 2 * 4,
+                       16 * n_pts * C, F32_FLOPS)
+    return dict(name="gather_bilinear_bwd", source="avr_tpu_torch/csrc/gather.cu",
+                replaces="avr_tpu/ops/pallas/gather.py:463", tpu_kernel="_wbwd",
+                shape=f"latent {SB_TRAIN}x{LATENT}x{LATENT}x{C} bf16, N={BAND} per scene",
+                cases=cases, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+MATCHED_BF16_TOL = 3e-3
+DECODER_GRADS = ("dx", "dz", "dwi", "dbi", "dwz", "dbz", "dw0", "db0", "dw1", "db1", "dwo", "dbo")
+
+
+def decoder_plain_stash(x, z, w, *, n_blocks, n_lin_z, code, compute_dtype):
+    """``resnetfc_plain``'s forward, keeping its post-ReLU activations in the
+    kernel's stash layout (float32 holding compute-dtype values)."""
+    c = lambda t: t.to(compute_dtype).float()
+    wi, bi, wz, bz, w0, b0, w1, b1, wo, bo = (c(t) for t in w)
+    ns = x.shape[0]
+    st = [None] * K2.stash_slots(ns, n_blocks, n_lin_z)
+
+    def block(h, k, v):
+        a1 = c(torch.relu(h))
+        a2 = c(torch.relu(a1 @ w0[k].T + b0[k]))
+        st[K2.stash_slot(k, 0, v, ns, n_lin_z)], st[K2.stash_slot(k, 1, v, ns, n_lin_z)] = a1, a2
+        return h + a2 @ w1[k].T + b1[k]
+
+    h_sum = 0.0
+    for v in range(ns):
+        h = c(K2._encode(x[v].float(), code)) @ wi.T + bi
+        zv = c(z[v])
+        for k in range(n_lin_z):
+            h = block(h + zv @ wz[k].T + bz[k], k, v)
+        h_sum = h_sum + h
+    h = h_sum if ns == 1 else h_sum * (1.0 / ns)
+    for k in range(n_lin_z, n_blocks):
+        h = block(h, k, 0)
+    st[-1] = c(torch.relu(h))
+    return torch.stack(st)
+
+
+@torch.no_grad()
+def decoder_bwd_matched(x, z, w, st, g, *, n_blocks, n_lin_z, code, compute_dtype):
+    """The decoder's stash backward (``activate_out`` on) in plain PyTorch
+    with the kernel's rounding points, from a given stash ``st``: each
+    product's input cotangent is rounded to the compute dtype, the trunk
+    cotangent stays float32, the ReLU masks are read from the stash.  Fed
+    the kernel's own stash, its masks are the kernel's, so only float32
+    summation order separates the two; fed ``decoder_plain_stash`` in
+    float32, it is the plain version's autograd up to that order.  Returns
+    the gradients in ``DECODER_GRADS`` order."""
+    r = lambda t: t.to(compute_dtype).float()
+    wi, bi, wz, bz, w0, b0, w1, b1, wo, bo = (r(t) for t in w)
+    ns = x.shape[0]
+    act = lambda k, j, v: st[K2.stash_slot(k, j, v, ns, n_lin_z)].float()
+    gr = {k: torch.zeros_like(t) for k, t in zip(("wz", "bz", "w0", "b0", "w1", "b1"),
+                                                  (wz, bz, w0, b0, w1, b1))}
+    gr["wi"], gr["bi"] = 0.0, 0.0
+    aout = st[-1].float()
+    pre = aout @ wo.T + bo
+    sg = torch.sigmoid(pre[:, :3])
+    ge = r(torch.cat([g[:, :3] * sg * (1.0 - sg), torch.where(pre[:, 3:] > 0, g[:, 3:], 0.0)],
+                     dim=-1))
+
+    def block(gh, k, v):
+        a1, a2 = act(k, 0, v), act(k, 1, v)
+        c1 = r(gh)
+        c0 = r(torch.where(a2 > 0, c1 @ w1[k], 0.0))
+        gr["w1"][k] += c1.T @ a2
+        gr["b1"][k] += c1.sum(0)
+        gr["w0"][k] += c0.T @ a1
+        gr["b0"][k] += c0.sum(0)
+        return gh + torch.where(a1 > 0, c0 @ w0[k], 0.0)
+
+    gh = torch.where(aout > 0, ge @ wo, 0.0)
+    for k in range(n_blocks - 1, n_lin_z - 1, -1):
+        gh = block(gh, k, 0)
+    dx, dz = [], []
+    for v in range(ns):
+        ghv, dzv, zv = gh * (1.0 / ns) if ns > 1 else gh, 0.0, r(z[v])
+        for k in range(n_lin_z - 1, -1, -1):
+            ghv = block(ghv, k, v)
+            ci = r(ghv)  # injection k's output cotangent (lin_in's for k = 0)
+            dzv = dzv + ci @ wz[k]
+            gr["wz"][k] += ci.T @ zv
+            gr["bz"][k] += ci.sum(0)
+        with torch.enable_grad():
+            p = x[v].float().requires_grad_(True)
+            enc = K2._encode(p, code)
+            dx.append(torch.autograd.grad(enc, p, ci @ wi)[0])
+        gr["wi"] = gr["wi"] + ci.T @ r(enc.detach())
+        gr["bi"] = gr["bi"] + ci.sum(0)
+        dz.append(r(dzv))
+    return (torch.stack(dx), torch.stack(dz), gr["wi"], gr["bi"], gr["wz"], gr["bz"], gr["w0"],
+            gr["b0"], gr["w1"], gr["b1"], ge.T @ aout, ge.sum(0))
+
+
+def check_resnetfc_bwd(gen):
+    w = decoder_weights(gen)
+    kw = dict(n_blocks=5, n_lin_z=3, code=CODE, activate_out=True,
+              compute_dtype=torch.bfloat16)
+    kern = lambda x, z, *ws: fused_resnetfc(x, z, DecoderWeights(*ws), **kw)
+    plain = lambda x, z, *ws: resnetfc_plain(x, z, DecoderWeights(*ws), **kw)
+    cases, timing = [], {}
+    # (points, views, operand dtype, tolerance on the relative L2 error):
+    # float32 checks the algorithm: sums in other orders, and a ReLU mask
+    # flips only where an activation is within float32 rounding of zero,
+    # a handful per million, each moving a bias gradient's sum by one
+    # point's term: 1e-2 (a fault of the algorithm is an error of order 1).
+    # bf16: both sides round the same operands to bf16 but at slightly
+    # different places (the plain version's autograd rounds each product's
+    # output cotangent, the kernel its input, as the TPU kernel does), so
+    # activations differ by a bf16 ulp here and there and a fraction of a
+    # percent of the ReLU masks flip; each flip moves one gradient element
+    # by its full size, an L2 error near the square root of the flip
+    # fraction: 8e-2.  Shapes: the coarse query of a train step, a two-view
+    # tile, and the band query.
+    # Each case is also held against decoder_bwd_matched fed the kernel's
+    # own stash: the same masks and rounding points, so what is left is
+    # float32 summation order, and a cotangent whose float32 value lands
+    # within that noise of a bf16 rounding boundary rounds the other way,
+    # which perturbs every later product: 1e-4 in float32; in bf16 the
+    # noise settles near a quarter of a bf16 ulp (9.4e-4 at all three
+    # shapes), held at MATCHED_BF16_TOL = 3e-3.  Fed the plain forward's
+    # stash, the matched reference must equal the plain version's autograd
+    # in float32 (1e-5): that checks the reference itself; in bf16 its
+    # distance from the autograd is what the rounding points alone move,
+    # with no mask flipped (reported, not bounded).
+    for n, ns, cd, tol in ((CHUNK, 1, torch.float32, 1e-2), (CHUNK, 2, torch.float32, 1e-2),
+                           (SB_TRAIN * CHUNK, 1, torch.bfloat16, 8e-2),
+                           (CHUNK, 2, torch.bfloat16, 8e-2), (BAND_TRAIN, 1, torch.bfloat16, 8e-2)):
+        x = torch.rand(ns, n, CODE.d_raw, generator=gen, device=DEV) * 2 - 1
+        z = randn(gen, ns, n, C, dtype=cd)
+        # a cotangent with a mean: with zero-mean noise the bias gradients
+        # (sums over the points) cancel to a few percent of their terms, and
+        # a bf16 rounding of any term is then a large share of the sum
+        g = randn(gen, n, 4) + 0.5
+        kw["compute_dtype"] = cd
+        label = f"N={n} NS={ns} {str(cd)[6:]}"
+        mkw = dict(n_blocks=5, n_lin_z=3, code=CODE, compute_dtype=cd)
+        # the forward kernel has no atomics: its stash is the one the
+        # wrapper's forward writes below
+        args = K2._prepare(x, z, DecoderWeights(*w), CODE, cd)
+        dims = K2._dims(args, 5, 3, True)
+        kst = K2._forward(args, dims, cd, True)[1]
+        pst = decoder_plain_stash(x, z, w, **mkw)
+        flips = float(((kst > 0) != (pst > 0)).float().mean())
+        matched = decoder_bwd_matched(x, z, w, kst, g, **mkw)
+        ref_plain = decoder_bwd_matched(x, z, w, pst, g, **mkw)
+        del kst, pst
+        keep = n == BAND_TRAIN
+        got, run = grads_of(kern, (x, z, *w), g, keep=True) if keep else (
+            grads_of(kern, (x, z, *w), g), None)
+        want, run_plain = grads_of(plain, (x, z, *w), g, keep=True) if keep else (
+            grads_of(plain, (x, z, *w), g), None)
+        mtol = 1e-4 if cd == torch.float32 else MATCHED_BF16_TOL
+        vs_plain = [check_l2(f"{nm} {label}", a, b, tol)
+                    for nm, a, b in zip(DECODER_GRADS, got, want)]
+        vs_matched = [check_l2(f"{nm} {label} vs matched rounding", a, m, mtol, against="matched")
+                      for nm, a, m in zip(DECODER_GRADS, got, matched)]
+        cases += vs_plain + vs_matched
+        worst = lambda cs: max((c["rel_l2"], c["case"].split()[0]) for c in cs)
+        if cd == torch.float32:
+            cases += [check_l2(f"{nm} {label} matched reference vs autograd", m, b, 1e-5,
+                               against="autograd")
+                      for nm, m, b in zip(DECODER_GRADS, ref_plain, want)]
+            rounding = None
+        else:
+            rounding = max((float((m.float() - b.float()).norm() / b.float().norm()), nm)
+                           for nm, m, b in zip(DECODER_GRADS, ref_plain, want))
+        cases.append({"case": f"ReLU mask flips {label}", "against": "plain forward",
+                      "flip_fraction": flips, "rounding_points_rel_l2": rounding})
+        print(f"K2 backward {label}: ReLU mask flips {flips:.3e} of the stash; worst relative "
+              f"L2 against the plain autograd {worst(vs_plain)}, against the matched rounding "
+              f"{worst(vs_matched)}; rounding points alone (plain stash) {rounding}")
+        if keep:
+            timing = dict(ms=time_ms(run, iters=5), plain_ms=time_ms(run_plain, iters=3),
+                          split=kernel_device_ms(run, ("resnetfc_dgrad_kernel",
+                                                       "resnetfc_wgrad_kernel")))
+            timing["stash_fwd_ms"] = time_ms(lambda: K2._forward(args, dims, cd, True), iters=5)
+        del got, want, matched, ref_plain, run, run_plain
+    flops = decoder_flops(BAND_TRAIN, 1)
+    act = BAND_TRAIN * 512 * 2  # one (N, 512) bf16 activation
+    wbytes = sum(t.numel() for t in w) * 2
+    io = BAND_TRAIN * (CODE.d_raw * 4 * 2 + C * 2 * 2 + 4 * 4)  # x, dx, z, dz, g
+    split = timing["split"]
+    dg_ms, dg_by = bound(11 * act + 11 * act + io + wbytes, flops, BF16_FLOPS)
+    wg_ms, wg_by = bound(11 * act + 11 * act + BAND_TRAIN * C * 2 + wbytes * 2, flops, BF16_FLOPS)
+    common = dict(source="avr_tpu_torch/csrc/resnetfc.cu",
+                  replaces="avr_tpu/ops/pallas/resnetfc.py:823", tpu_kernel="_bwd_stash_impl",
+                  shape=f"N={BAND_TRAIN}, NS=1, d_hidden 512, 5 blocks, bf16", cases=cases,
+                  plain_ms=timing["plain_ms"], library_ms=None, pair_ms=timing["ms"],
+                  stash_fwd_ms=timing["stash_fwd_ms"])
+    return [dict(name="fused_resnetfc_bwd_dgrad", ms=split["resnetfc_dgrad_kernel"],
+                 bound_ms=dg_ms, bound_by=dg_by, **common),
+            dict(name="fused_resnetfc_bwd_wgrad", ms=split["resnetfc_wgrad_kernel"],
+                 bound_ms=wg_ms, bound_by=wg_by, **common)]
+
+
+MARCH_GRADS = ("dcoords0", "drds", "dfeat", "dw_ih", "dw_hh", "dbias", "dw_out", "db_out")
+
+
+def check_march_bwd(gen):
+    cases = []
+    keys = ("coords0", "rds", "feat", "w_ih", "w_hh", "bias", "w_out", "b_out")
+
+    def run(fn, inp, g, **kw):
+        f = lambda *t: fn(inp["proj"], *t, **kw)
+        return grads_of(f, tuple(inp[k] for k in keys), g)
+
+    rel_l2 = lambda got, want: max((float((a - b).norm() / b.norm()), nm)
+                                   for nm, a, b in zip(MARCH_GRADS, got, want))
+
+    def conditioning(inp, g, got, want, label, **kw):
+        """The worst gradient's relative L2 error beside how far the plain
+        version's own gradients move when every start coordinate is nudged
+        by 1e-6: the comparison's noise floor."""
+        nudged = dict(inp, coords0=inp["coords0"] + 1e-6 * torch.sign(
+            torch.randn(inp["coords0"].shape, generator=gen, device=DEV)))
+        worst, moved = rel_l2(got, want), rel_l2(run(lstm_march_plain, nudged, g, **kw), want)
+        print(f"K3 backward {label}: worst relative L2 against the plain autograd {worst}; the "
+              f"plain version against itself with the start points nudged by 1e-6 {moved}")
+        cases.append({"case": f"conditioning {label}", "against": "plain, nudged 1e-6",
+                      "kernel_rel_l2": worst[0], "nudged_rel_l2": moved[0], "worst": moved[1]})
+
+    # (scenes, views, steps, early-stop eps, cotangent scale, step-head
+    # scale, operand dtype, tolerance on the relative L2 error).  float32:
+    # sums in other orders only (1e-3).  bf16: the two sides round the
+    # cotangents at other places and the atomics sum dfeat in another
+    # order; a few tenths of a percent (2e-2).  With the step head at 0.05
+    # every step multiplies a perturbation of the points by ~3: at 10 steps
+    # a 1e-6 nudge moves the plain version's own float32 gradients by O(1)
+    # (the conditioning line), so the bounded float32 10-step case takes a
+    # step head of 0.01, where the march is contractive; at 0.05 the
+    # float32 error is reported beside that floor (tolerance None).  The
+    # train step's own
+    # case (4 scenes, 10 steps, bf16) follows on the inputs that are then
+    # timed.
+    for sb, ns, steps, eps, scale, wo, cd, tol in (
+            (1, 1, 2, 0.0, 1.0, 0.05, torch.float32, 1e-3),
+            (1, 2, 2, 0.0, 1.0, 0.05, torch.float32, 1e-3),
+            (SB_TRAIN, 1, STEPS, 0.0, 1.0, 0.01, torch.float32, 1e-3),
+            (SB_TRAIN, 1, STEPS, 0.0, 1.0, 0.05, torch.float32, None),
+            (SB_TRAIN, 1, 2, 0.0, 1.0, 0.05, torch.bfloat16, 2e-2),
+            (1, 2, 2, 0.0, 1.0, 0.05, torch.bfloat16, 2e-2),
+            (1, 1, 2, 0.02, 1.0, 0.05, torch.bfloat16, 2e-2),
+            (1, 1, 2, 0.0, 300.0, 0.05, torch.bfloat16, 2e-2)):
+        inp = march_inputs(gen, ns, dtype=cd, sb=sb, w_out_scale=wo)
+        g = randn(gen, sb, CHUNK, 3, scale=scale)
+        kw = dict(steps=steps, early_stop_eps=eps, compute_dtype=cd)
+        got = run(fused_lstm_march, inp, g, **kw)
+        want = run(lstm_march_plain, inp, g, **kw)
+        label = f"SB={sb} NS={ns} steps={steps} eps={eps} x{scale} w_out {wo} {str(cd)[6:]}"
+        if tol is not None:
+            cases += [check_l2(f"{nm} {label}", a, b, tol)
+                      for nm, a, b in zip(MARCH_GRADS, got, want)]
+        if steps == STEPS:
+            conditioning(inp, g, got, want, label, **kw)
+        if scale > 1.0:  # the +-10 clip must bite: without it the gradients differ
+            free = run(fused_lstm_march, inp, g, grad_clamp=1e30, **kw)
+            if torch.allclose(free[3], got[3]):
+                raise AssertionError("march: the gradient clip did not bind")
+            cases.append({"case": "clip binds", "against": "no clip", "ok": True})
+    inp = march_inputs(gen, 1, sb=SB_TRAIN)
+    g = randn(gen, SB_TRAIN, CHUNK, 3)
+    f = lambda fn: (lambda *t: fn(inp["proj"], *t, steps=STEPS, compute_dtype=torch.bfloat16))
+    got, run_k = grads_of(f(fused_lstm_march), tuple(inp[k] for k in keys), g, keep=True)
+    want, run_p = grads_of(f(lstm_march_plain), tuple(inp[k] for k in keys), g, keep=True)
+    label = f"SB={SB_TRAIN} NS=1 steps={STEPS} eps=0.0 x1.0 w_out 0.05 bf16 (timed)"
+    for nm, a, b in zip(MARCH_GRADS, got, want):
+        cases.append(check_l2(f"{nm} {label}", a, b, 2e-2))
+    conditioning(inp, g, got, want, label, steps=STEPS, compute_dtype=torch.bfloat16)
+    del got, want
+    pair_ms, plain_ms = time_ms(run_k), time_ms(run_p, iters=3)
+    split = kernel_device_ms(run_k, ("lstm_march_bwd_kernel", "resnetfc_wgrad_kernel"))
+    rays = SB_TRAIN * CHUNK
+    rows = rays * STEPS
+    fmap = inp["feat"].numel()
+    # the walk: dv and the cell per ray-step, the gather's dots and dfeat
+    # adds, the recurrent and step-head weight gradients
+    walk_flops = rows * (2 * C * 4 * HIDDEN + 16 * C + 6 * HIDDEN * 4 * HIDDEN)
+    b_ms, b_by = bound(fmap * 2 + 2 * fmap * 4 + rays * 3 * 4 * 4 + C * 4 * HIDDEN * 2
+                       + rows * (C + 4 * HIDDEN) * 2, walk_flops, BF16_FLOPS)
+    wg_ms, wg_by = bound(rows * (C + 4 * HIDDEN) * 2 + C * 4 * HIDDEN * 4,
+                         2 * rows * C * 4 * HIDDEN, BF16_FLOPS)
+    shape = f"{SB_TRAIN}x{CHUNK} rays x {STEPS} steps, NS=1, C={C}, hidden {HIDDEN}, bf16"
+    common = dict(replaces="avr_tpu/ops/pallas/march.py:621", tpu_kernel="_bwd_kernel",
+                  shape=shape, cases=cases, plain_ms=plain_ms, library_ms=None, pair_ms=pair_ms)
+    return [dict(name="fused_lstm_march_bwd", source="avr_tpu_torch/csrc/march.cu",
+                 ms=split["lstm_march_bwd_kernel"], bound_ms=b_ms, bound_by=b_by, **common),
+            dict(name="fused_lstm_march_bwd_wgrad", source="avr_tpu_torch/csrc/resnetfc.cu",
+                 ms=split["resnetfc_wgrad_kernel"], bound_ms=wg_ms, bound_by=wg_by, **common)]
+
+
+def check_integral_saturated(gen):
+    """The integral's adjoint (plain PyTorch) with a saturated lane: no NaN."""
+    z = torch.sort(torch.rand(SB_TRAIN, 64, 20, generator=gen, device=DEV), dim=-1)[0] + 0.5
+    sigma = torch.rand(SB_TRAIN, 64, 20, 1, generator=gen, device=DEV) * 5
+    sigma[:, :, 5] = 1e4  # alpha == 1 in float32: 1 - alpha is exactly 0
+    rad = torch.rand(SB_TRAIN, 64, 20, 3, generator=gen, device=DEV)
+    leaves = [t.requires_grad_(True) for t in (z, sigma, rad)]
+    rgb, dist, wts = volume_integral(*leaves, white_back=True)
+    grads = torch.autograd.grad(rgb.sum() + dist.sum() + wts.sum(), leaves)
+    if not all(torch.isfinite(t).all() for t in grads):
+        raise AssertionError("integral: non-finite gradient at a saturated lane")
+    return {"case": "saturated lane", "finite": True}
 
 
 # ---------------------------------------------------------------------------
@@ -303,9 +724,10 @@ def run_slice(frames=3):
                 acc_mean=float(out.acc.mean()), rgb_mean=float(rgb.mean())), render
 
 
-def profile_frame(render, out_dir="traces"):
-    """One frame under ``torch.profiler``: device time by operation, the
-    device's busy share of the frame's wall time, and a chrome trace."""
+def profile_frame(render, label="frame", out_dir="traces"):
+    """One call of ``render`` (a frame, or a train step) under
+    ``torch.profiler``: device time by operation, the device's busy share of
+    the call's wall time, and a chrome trace."""
     from torch.profiler import ProfilerActivity, profile
 
     render(0)
@@ -320,14 +742,16 @@ def profile_frame(render, out_dir="traces"):
             if e.device_type == cuda]
     rows.sort(key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
-    ours = ("gather_bilinear_kernel", "resnetfc_kernel", "lstm_march_kernel")
+    ours = ("gather_bilinear_kernel", "gather_bilinear_bwd_kernel", "resnetfc_kernel",
+            "resnetfc_dgrad_kernel", "resnetfc_wgrad_kernel", "lstm_march_kernel",
+            "lstm_march_bwd_kernel")
     kernel_us = sum(r[1] for r in rows if any(o in r[0] for o in ours))
-    print(f"profile: frame wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
+    print(f"profile {label}: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
           f"({busy_us / wall_us:.3f} of wall), port kernels {kernel_us / 1e3:.3f} ms")
     for key, us, count in rows[:25]:
         print(f"  {us / 1e3:9.3f} ms  x{count:<5d} {key[:100]}")
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "frame_trace.json"))
+    prof.export_chrome_trace(os.path.join(out_dir, f"{label}_trace.json"))
     return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
                 busy_share=busy_us / wall_us, port_kernels_ms=kernel_us / 1e3,
                 top=[dict(op=k[:100], ms=us / 1e3, count=c) for k, us, c in rows[:25]])
@@ -354,6 +778,140 @@ def check_small_reference(sl=16):
             for name in ("rgb_coarse", "rgb_fine", "depth_coarse", "depth_fine", "acc")]
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the training step
+# ---------------------------------------------------------------------------
+
+# kernel launches of one train step: the coarse and band queries each run
+# K1 and K2 forward and backward, the march runs K3 once each way
+TRAIN_LAUNCHES = {"gather_bilinear": 2, "gather_bilinear_bwd": 2, "fused_resnetfc": 2,
+                  "fused_resnetfc_bwd_dgrad": 2, "fused_resnetfc_bwd_wgrad": 2,
+                  "fused_lstm_march": 1, "fused_lstm_march_bwd": 1,
+                  "fused_lstm_march_bwd_wgrad": 1}
+
+
+def train_batch(dev, seed=0, sb=SB_TRAIN, rays=CHUNK, side=SIDE):
+    """``bench.py``'s synthetic batch: normal images, one fixed pose,
+    uniform pixels in [0.05, 0.95], uniform ground truth."""
+    rng = np.random.default_rng(seed)
+    images = rng.normal(size=(sb, 1, side, side, 3)).astype(np.float32)
+    c2w = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
+    c2w[2, 3] = 1.3
+    xy = rng.uniform(0.05, 0.95, size=(sb, rays, 2)).astype(np.float32)
+    K = np.asarray([[1.09375, 0, 0.5], [0, 1.09375, 0.5], [0, 0, 1]], np.float32)
+    gt = rng.uniform(size=(sb, rays, 3)).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.array(a)).to(dev)
+    model_input = dict(x_pix=t(xy), cam2world=t(np.broadcast_to(c2w, (sb, rays, 4, 4))),
+                       intrinsics=t(np.broadcast_to(K, (sb, 3, 3))))
+    return (t(images), t(np.broadcast_to(c2w, (sb, 1, 4, 4))), 1.09375 * side,
+            t(np.asarray([side / 2.0, side / 2.0], np.float32)), model_input, t(gt))
+
+
+def run_train(steps=10, warmup=2):
+    """Full-width train steps (bf16, 4 scenes x 4,096 rays): warm-up, then
+    timed steps with the launch counters reset just before them."""
+    model = make_model(dtype=torch.bfloat16, seed=0, device=DEV)
+    opt = make_optimizer(1e-4)
+    state = create_train_state(model, opt)
+    step = make_train_step(model, opt, LossParams(loss_mode="both"))
+    batch = train_batch(DEV)
+    tracked = {**state.params, **state.batch_stats}
+    initial = {k: v.detach().clone() for k, v in tracked.items()}
+    for i in range(warmup):
+        state, metrics = step(state, *batch, (0, i))
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for i in range(warmup, warmup + steps):
+        t = time.perf_counter()
+        state, metrics = step(state, *batch, (0, i))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    counts = dict(_build.launches)
+    want = {k: steps * v for k, v in TRAIN_LAUNCHES.items()}
+    if counts != want:
+        raise AssertionError(f"train launch counts {counts} != expected {want}")
+    loss, notfinite = float(metrics["loss"]), int(metrics["notfinite"])
+    if not np.isfinite(loss) or notfinite != 0:
+        raise AssertionError(f"train step: loss {loss}, notfinite {notfinite}")
+    same = [k for k, v in tracked.items() if torch.equal(v, initial[k])]
+    if same:
+        raise AssertionError(f"train step left these unchanged: {same}")
+    # loss_fn reads only rgb_coarse of the coarse decoder: its sigma row
+    # gets an exactly zero gradient, so Adam leaves it where it was
+    for leaf in ("weight", "bias"):
+        name = f"net.mlp_coarse.lin_out.{leaf}"
+        if not torch.equal(tracked[name][3], initial[name][3]):
+            raise AssertionError(f"{name}[3] (coarse sigma) moved without a gradient")
+    med = float(np.median(step_ms))
+    rays = SB_TRAIN * CHUNK
+    res = dict(steps=steps, step_ms=step_ms, ms_per_step=med, rays_per_s=rays / med * 1e3,
+               max_memory_gb=torch.cuda.max_memory_allocated() / 1e9, loss=loss,
+               grad_norm=float(metrics["grad_norm"]), notfinite=notfinite, launches=counts)
+    return res, lambda i=0: step(state, *batch, (1, i))
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Inside: the model calls the kernels' plain versions on any device
+    (module attributes swapped; for comparisons only)."""
+    import avr_tpu_torch.models.mlp as mlp
+    import avr_tpu_torch.ops.grid_sample as grid_sample
+    import avr_tpu_torch.renderers.raymarch as raymarch
+
+    saved = (grid_sample.gather_bilinear, raymarch.fused_lstm_march, mlp.fused_resnetfc)
+    grid_sample.gather_bilinear = gather_bilinear_plain
+    raymarch.fused_lstm_march = lstm_march_plain
+    mlp.fused_resnetfc = resnetfc_plain
+    try:
+        yield
+    finally:
+        grid_sample.gather_bilinear, raymarch.fused_lstm_march, mlp.fused_resnetfc = saved
+
+
+def check_small_train(rays=256):
+    """One f32 step's loss and gradients (2 march steps, the full-width
+    model, one scene) from the same weights and batch: kernels on the card
+    against the plain path on the CPU, and against the plain versions on
+    the card."""
+    def grads(dev, plain=False):
+        model = make_model(dtype=torch.float32, seed=0, device=dev)
+        model.renderer_cfg = dataclasses.replace(model.renderer_cfg, raymarch_steps=2)
+        batch = train_batch(dev, seed=1, sb=1, rays=rays)
+        with plain_kernels() if plain else contextlib.nullcontext():
+            loss, g = loss_and_grads(model, dict(model.named_parameters()),
+                                     LossParams(loss_mode="both"), *batch, (0, 3))
+        stats = {k: v.detach().cpu() for k, v in model.named_buffers()}
+        return float(loss), {k: v.cpu() for k, v in g.items()}, stats
+
+    (l_k, g_k, s_k), (l_p, g_p, _), (l_c, g_c, s_c) = (
+        grads(DEV), grads(DEV, plain=True), grads(torch.device("cpu")))
+    l2 = lambda a, b: float((a - b).norm() / b.norm().clamp_min(1e-30))
+    worst = lambda ref: max((l2(g_k[k], ref[k]), k) for k in ref)
+    # card kernels vs the same plain versions on the card: float32 sums in
+    # other orders and atomics; 5e-3 relative L2 per gradient
+    vs_plain, vs_cpu = worst(g_p), worst(g_c)
+    # card vs CPU: the plain ops themselves differ between the devices in
+    # the last bits (cuDNN against the CPU's convolutions through the
+    # train-mode BatchNorm, reductions in other orders), the march points
+    # move by ~1e-5 and the gradients follow by a few percent; the plain
+    # path on the card differs from the CPU by as much as the kernels do.
+    # 1e-4 on the loss, 5e-2 relative L2 per gradient, 1e-4 on the stats
+    cases = [check("loss f32 card vs CPU", abs(l_k - l_c), 1e-4),
+             check("loss f32 kernels vs plain on the card", abs(l_k - l_p), 1e-5)]
+    for name, (err, key), tol, against in (("kernels vs plain on the card", vs_plain, 5e-3,
+                                             "plain"),
+                                            ("card vs CPU", vs_cpu, 5e-2, "cpu")):
+        if not err <= tol:
+            raise AssertionError(f"f32 gradients {name}: {key} relative L2 {err} > {tol}")
+        cases.append({"case": f"{len(g_c)} gradients f32 {name}", "against": against,
+                      "worst_rel_l2": err, "worst": key, "tol": tol})
+    stat_err = max(max_err(s_k[k], s_c[k]) for k in s_c)
+    cases.append(check("BatchNorm running stats f32 card vs CPU", stat_err, 1e-4))
+    return cases
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -370,28 +928,57 @@ def main() -> int:
     info = _build.load_library()
     print(f"kernel library: {info['path']} built={info['built']} in {info['seconds']:.1f} s")
     for line in str(info.get("log", "")).splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if any(k in line for k in ("registers", "spill", "Compiling entry")) or \
+                line.startswith("=="):
             print("  " + line.strip())
 
+    profile = "--profile" in sys.argv[1:]
+    out_dir = next((a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--out=")),
+                   "traces")
     gen = torch.Generator(device=DEV).manual_seed(0)
-    kernels = [check_gather(gen), check_resnetfc(gen), check_march(gen)]
+    kernels = [check_gather(gen), check_resnetfc(gen), check_march(gen),
+               check_gather_bwd(gen), *check_resnetfc_bwd(gen), *check_march_bwd(gen)]
+    print(f"integral: {check_integral_saturated(gen)}")
     for k in kernels:
         print(f"kernel {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, bound "
-              f"{k['bound_ms']:.4f} by {k['bound_by']}) cases {k['cases']}")
+              f"{k['bound_ms']:.4f} by {k['bound_by']}) {len(k['cases'])} cases, all within "
+              f"tolerance")
 
     slice_, render = run_slice()
     print(f"slice: {slice_}")
-    if "--profile" in sys.argv[1:]:
-        slice_["profile"] = profile_frame(render)
-    for c in check_small_reference():
+    if profile:
+        slice_["profile"] = profile_frame(render, out_dir=out_dir)
+    train, train_step = run_train()
+    print(f"train: {train}")
+    if profile:
+        train["profile"] = profile_frame(train_step, label="train_step", out_dir=out_dir)
+    launches = {"serve": slice_["launches"], "train": train["launches"]}
+    results = {"slice": slice_, "train": train,
+               "reference": check_small_reference() + check_small_train()}
+    for c in results["reference"]:
         print(f"reference: {c}")
 
     for k in kernels:
-        plain = [c for c in k["cases"] if c["against"] == "plain"]
+        plain = [c for c in k["cases"] if c.get("against") == "plain"]
         err = max(c["max_abs_err"] for c in plain)
-        k.update(route="cuda", launches=slice_["launches"][k["name"]], max_abs_err=err,
-                 max_err=err, tol=max(c["tol"] for c in plain), kernel_ms=k["ms"])
-    print(json.dumps({"kernels": kernels, "slice": slice_, "card": smi}))
+        by_path = {path: counts.get(k["name"], 0) for path, counts in launches.items()}
+        if not sum(by_path.values()):
+            raise AssertionError(f"{k['name']} was never launched on a main path")
+        k.update(route="cuda", launches=sum(by_path.values()), launches_by_path=by_path,
+                 max_abs_err=err, max_err=err, tol=max(c["tol"] for c in plain),
+                 kernel_ms=k["ms"])
+    # every case in full to a file; the printed line keeps one worst case each
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chip_smoke_report.json"), "w") as f:
+        json.dump({"kernels": kernels, **results, "card": smi}, f, indent=1)
+    for k in kernels:
+        cases = k.pop("cases")
+        k["cases"] = len(cases)
+        k["worst_case"] = max((c for c in cases if "tol" in c),
+                              key=lambda c: c.get("rel_l2", c.get("max_abs_err")) / c["tol"])
+    for key in ("slice", "train"):
+        results[key].pop("profile", None)
+    print(json.dumps({"kernels": kernels, **results, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -92,3 +92,42 @@ def test_cpu_render_never_touches_the_kernel_library():
     assert len(frames) == 2 and frames[0].shape == (16, 16, 3) and frames[0].dtype == np.uint8
     assert not _build.launches
     assert _build._lib is None, "the CPU path loaded the CUDA kernel library"
+
+
+def test_the_scan_covers_the_training_package():
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for mod in ("loss", "state", "step", "__init__"):
+        assert f"avr_tpu_torch/training/{mod}.py" in names
+
+
+def test_cpu_train_step_runs_the_plain_versions_under_autograd():
+    """Under autograd on the CPU no wrapper raises, launches or loads the
+    kernel library; every parameter gets a gradient."""
+    from avr_tpu_torch.training import (LossParams, create_train_state, make_optimizer,
+                                        make_train_step)
+    from avr_tpu_torch.training.step import loss_and_grads
+
+    model = make_model(_tiny_conf(), dtype=torch.float32, seed=2, device="cpu")
+    rng = np.random.default_rng(1)
+    SB, R, S = 2, 16, 16
+    c2w = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
+    c2w[2, 3] = 1.3
+    K = np.asarray([[1.09375, 0, 0.5], [0, 1.09375, 0.5], [0, 0, 1]], np.float32)
+    t = lambda a: torch.from_numpy(np.array(a, np.float32))
+    batch = (t(rng.uniform(-1, 1, (SB, 1, S, S, 3))), t(np.broadcast_to(c2w, (SB, 1, 4, 4))),
+             17.5, t([8.0, 8.0]),
+             dict(x_pix=t(rng.uniform(0.05, 0.95, (SB, R, 2))),
+                  cam2world=t(np.broadcast_to(c2w, (SB, R, 4, 4))),
+                  intrinsics=t(np.broadcast_to(K, (SB, 3, 3)))),
+             t(rng.uniform(size=(SB, R, 3))))
+    _build.reset_launches()
+    params = dict(model.named_parameters())
+    loss, grads = loss_and_grads(model, params, LossParams(), *batch, (0, 1))
+    assert np.isfinite(float(loss)) and grads.keys() == params.keys()
+    assert all(torch.isfinite(g).all() for g in grads.values())
+    opt = make_optimizer(1e-3)
+    state = create_train_state(model, opt)
+    state, metrics = make_train_step(model, opt, LossParams())(state, *batch, (0, 2))
+    assert int(metrics["notfinite"]) == 0 and int(state.step) == 1
+    assert not _build.launches
+    assert _build._lib is None, "the CPU step loaded the CUDA kernel library"
