@@ -41,9 +41,18 @@
 // K-major into shared memory by cp.async (two stages: the next rows load
 // while the current ones multiply) and turned into fragments by
 // ldmatrix.trans; at most 8 row chunks per tile meet in float32 atomics;
-// bias gradients are column sums of the rounded cotangents.  The TPU's
-// recompute backward (:853) is not ported: its wrapper raises above the
-// 6 GiB stash budget instead.
+// bias gradients are column sums of the rounded cotangents.
+//
+// Recompute backward (replaces the TPU's _bwd_impl, :248-390, call :853,
+// which stash="auto" takes above 6 GiB of stash).  Bound on H100:
+// operations, ~3x the forward's products (20.6 MFLOP a point).  One kernel
+// per chunk of points: each 32-point CTA runs its tile's forward through
+// the forward kernel's own device code (resnetfc_tile), so the activations
+// it writes into a fixed-size chunk workspace equal the stash forward's bit
+// for bit, then walks back through the dgrad kernel's device code
+// (resnetfc_dgrad_tile), reading those rows while they are still in L2.
+// The wgrad kernel then sums the chunk's dW = G^T A.  The host loops over
+// chunks, so the workspace does not grow with the number of points.
 
 #include "common.cuh"
 
@@ -103,7 +112,9 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
-// global rows r0.. (row stride width) -> shared tile, zeros past N.
+// global rows r0.. (row stride width) -> shared tile, zeros past N.  A
+// coherent load, not the read-only path: the recompute kernel reads rows
+// its own CTA wrote earlier in the same launch.
 template <typename T>
 __device__ __forceinline__ void global_to_tile(const T* src, int r0, int N, int width, T* As,
                                                int lda) {
@@ -112,7 +123,7 @@ __device__ __forceinline__ void global_to_tile(const T* src, int r0, int N, int 
   for (int idx = threadIdx.x; idx < TM * nv; idx += blockDim.x) {
     const int r = idx / nv, cv = idx - r * nv;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < N) val = __ldg(reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * width) + cv);
+    if (r0 + r < N) val = reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * width)[cv];
     *reinterpret_cast<uint4*>(As + r * lda + cv * V) = val;
   }
 }
@@ -251,8 +262,16 @@ __device__ __forceinline__ void res_block(T* As, int lda, const T* w0, const flo
 }
 
 template <typename T>
-__global__ void __launch_bounds__(256, 1) resnetfc_kernel(FcArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
+__host__ __device__ inline size_t fwd_smem_bytes(int k_in, int dh, int dl, int ns) {
+  return (size_t)TM * (row_stride<T>(k_in > dh ? k_in : dh) + row_stride<T>(dl)) * sizeof(T) +
+         (ns > 1 ? (size_t)TM * dh * sizeof(float) : 0);
+}
+
+// The forward of the point tile starting at row r0: the forward kernel's
+// body, shared with the recompute backward so both compute the same bits.
+// With a.out == nullptr the output (lin_out) is skipped.
+template <typename T>
+__device__ __forceinline__ void resnetfc_tile(const FcArgs& a, unsigned char* smem, int r0) {
   constexpr int V = Vec16<T>::N;
   const int dh = a.d_hidden, dl = a.d_latent;
   const int lda = row_stride<T>(max(a.k_in, dh)), ldz = row_stride<T>(dl);
@@ -260,7 +279,6 @@ __global__ void __launch_bounds__(256, 1) resnetfc_kernel(FcArgs a) {
   T* Zs = As + TM * lda;
   float* Hs = reinterpret_cast<float*>(Zs + TM * ldz);  // view sum, ns > 1 only
   const int tid = threadIdx.x, col0 = (tid >> 5) * 64;
-  const int r0 = blockIdx.x * TM;
   const T* wz = static_cast<const T*>(a.wz);
   const T* w0 = static_cast<const T*>(a.w0);
   const T* w1 = static_cast<const T*>(a.w1);
@@ -348,6 +366,7 @@ __global__ void __launch_bounds__(256, 1) resnetfc_kernel(FcArgs a) {
   if (stash)
     tile_to_global(As, lda, stash + (size_t)(stash_slots(a.ns, a.n_blocks, a.n_lin_z) - 1) * slot,
                    r0, a.N, dh);
+  if (!a.out) return;
   const T* wo = static_cast<const T*>(a.wo);
   for (int idx = tid; idx < TM * a.d_out; idx += blockDim.x) {
     const int r = idx / a.d_out, o = idx - r * a.d_out, row = r0 + r;
@@ -363,11 +382,14 @@ __global__ void __launch_bounds__(256, 1) resnetfc_kernel(FcArgs a) {
 }
 
 template <typename T>
+__global__ void __launch_bounds__(256, 1) resnetfc_kernel(FcArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  resnetfc_tile<T>(a, smem, blockIdx.x * TM);
+}
+
+template <typename T>
 static int launch(const FcArgs& a, cudaStream_t stream) {
-  const size_t smem =
-      (size_t)TM * (row_stride<T>(a.k_in > a.d_hidden ? a.k_in : a.d_hidden) +
-                    row_stride<T>(a.d_latent)) * sizeof(T) +
-      (a.ns > 1 ? (size_t)TM * a.d_hidden * sizeof(float) : 0);
+  const size_t smem = fwd_smem_bytes<T>(a.k_in, a.d_hidden, a.d_latent, a.ns);
   cudaError_t e = cudaFuncSetAttribute(resnetfc_kernel<T>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -491,9 +513,11 @@ __host__ __device__ inline size_t dgrad_smem_bytes(int dh, int dl, int k_in, int
          sizeof(float) * ((size_t)TM * dl + (size_t)TM * k_in + TM * GOUT_W);
 }
 
+// The backward of point tile `tile` from the stash: the dgrad kernel's
+// body, shared with the recompute backward.
 template <typename T>
-__global__ void __launch_bounds__(256, 1) resnetfc_dgrad_kernel(FcBwdArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
+__device__ __forceinline__ void resnetfc_dgrad_tile(const FcBwdArgs& a, unsigned char* smem,
+                                                    int tile) {
   const int dh = a.d_hidden, dl = a.d_latent, nb = a.n_blocks, nlz = a.n_lin_z, ns = a.ns;
   const int ld = row_stride<T>(dh);
   T* Gs = reinterpret_cast<T*>(smem);
@@ -501,9 +525,9 @@ __global__ void __launch_bounds__(256, 1) resnetfc_dgrad_kernel(FcBwdArgs a) {
   float* Zs = reinterpret_cast<float*>(Ms + TM * ld);  // TM x dl: dz accumulator
   float* Es = Zs + TM * dl;                            // TM x k_in: d encoding
   float* gs = Es + TM * a.k_in;                        // TM x GOUT_W: rounded g
-  float* Hs = ns > 1 ? a.pool + (size_t)blockIdx.x * TM * dh : nullptr;  // pooled cotangent
+  float* Hs = ns > 1 ? a.pool + (size_t)tile * TM * dh : nullptr;  // pooled cotangent
   const int tid = threadIdx.x, nw = blockDim.x >> 5, col0 = (tid >> 5) * 64;
-  const int r0 = blockIdx.x * TM, N = a.N;
+  const int r0 = tile * TM, N = a.N;
   const size_t slot = (size_t)N * dh;
   const T* stash = static_cast<const T*>(a.stash);
   T* cot = static_cast<T*>(a.cot);
@@ -652,6 +676,35 @@ __global__ void __launch_bounds__(256, 1) resnetfc_dgrad_kernel(FcBwdArgs a) {
 }
 
 template <typename T>
+__global__ void __launch_bounds__(256, 1) resnetfc_dgrad_kernel(FcBwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  resnetfc_dgrad_tile<T>(a, smem, blockIdx.x);
+}
+
+// Recompute backward of one chunk of points: f.stash and b.stash are the
+// chunk workspace; the forward writes it, the walk back reads it.
+template <typename T>
+__global__ void __launch_bounds__(256, 1) resnetfc_bwd_recompute_kernel(FcArgs f, FcBwdArgs b) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  resnetfc_tile<T>(f, smem, blockIdx.x * TM);
+  __syncthreads();  // the tile's workspace rows are written, the shared tiles free
+  resnetfc_dgrad_tile<T>(b, smem, blockIdx.x);
+}
+
+template <typename T>
+static int launch_recompute(const FcArgs& f, const FcBwdArgs& b, cudaStream_t stream) {
+  const size_t s_fwd = fwd_smem_bytes<T>(f.k_in, f.d_hidden, f.d_latent, f.ns);
+  const size_t s_bwd = dgrad_smem_bytes<T>(b.d_hidden, b.d_latent, b.k_in, b.ns);
+  const size_t smem = s_fwd > s_bwd ? s_fwd : s_bwd;
+  cudaError_t e = cudaFuncSetAttribute(resnetfc_bwd_recompute_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned blocks = (unsigned)((f.N + TM - 1) / TM);
+  resnetfc_bwd_recompute_kernel<T><<<blocks, f.d_hidden / 64 * 32, smem, stream>>>(f, b);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 static int launch_dgrad(const FcBwdArgs& a, cudaStream_t stream) {
   const size_t smem = dgrad_smem_bytes<T>(a.d_hidden, a.d_latent, a.k_in, a.ns);
   cudaError_t e = cudaFuncSetAttribute(resnetfc_dgrad_kernel<T>,
@@ -679,6 +732,34 @@ extern "C" int avr_resnetfc_dgrad(const void* x, const void* g, const void* stas
   a.activate = activate;
   cudaStream_t s = (cudaStream_t)stream;
   return dtype == 1 ? launch_dgrad<bf16>(a, s) : launch_dgrad<float>(a, s);
+}
+
+// One chunk of N points: the forward's operands, then the workspace
+// (stash, cot, gout, enc, pool: sized for the chunk) and the chunk's
+// g, dx, dz.
+extern "C" int avr_resnetfc_bwd_recompute(
+    const void* x, const void* z, const void* wi, const void* bi, const void* wz, const void* bz,
+    const void* w0, const void* b0, const void* w1, const void* b1, const void* wo,
+    const void* bo, const void* tables, const void* fph, const void* g, const void* wiT,
+    const void* wzT, const void* w0T, const void* w1T, void* stash, void* cot, void* gout,
+    void* enc, void* pool, void* dx, void* dz, int N, int ns, int d_in, int k_in, int d_latent,
+    int d_hidden, int d_out, int n_blocks, int n_lin_z, int activate, int dtype, void* stream) {
+  FcArgs f;
+  f.x = (const float*)x; f.z = z; f.wi = wi; f.bi = (const float*)bi;
+  f.wz = wz; f.bz = (const float*)bz; f.w0 = w0; f.b0 = (const float*)b0;
+  f.w1 = w1; f.b1 = (const float*)b1; f.wo = wo; f.bo = (const float*)bo;
+  f.tables = (const int*)tables; f.fph = (const float*)fph; f.out = nullptr; f.stash = stash;
+  FcBwdArgs b;
+  b.x = (const float*)x; b.g = (const float*)g; b.stash = stash; b.wiT = wiT; b.wzT = wzT;
+  b.w0T = w0T; b.w1T = w1T; b.wo = wo; b.bo = (const float*)bo; b.tables = (const int*)tables;
+  b.fph = (const float*)fph; b.dx = (float*)dx; b.dz = dz; b.cot = cot; b.gout = gout;
+  b.enc = enc; b.pool = (float*)pool;
+  f.N = b.N = N; f.ns = b.ns = ns; f.d_in = b.d_in = d_in; f.k_in = b.k_in = k_in;
+  f.d_latent = b.d_latent = d_latent; f.d_hidden = b.d_hidden = d_hidden;
+  f.d_out = b.d_out = d_out; f.n_blocks = b.n_blocks = n_blocks;
+  f.n_lin_z = b.n_lin_z = n_lin_z; f.activate = b.activate = activate;
+  cudaStream_t s = (cudaStream_t)stream;
+  return dtype == 1 ? launch_recompute<bf16>(f, b, s) : launch_recompute<float>(f, b, s);
 }
 
 // dW (Mg x Ka) += G^T A and db (Mg) += column sums of G over the rows of

@@ -36,7 +36,8 @@ def render_full_image(model: RadFieldRenderer, cond, intrinsics: torch.Tensor,
 
     ``intrinsics (SB, 3, 3)``, ``cam2world (SB, 4, 4)`` (one pose per
     scene), ``key`` the two key words for :func:`derive`.  Returns a
-    :class:`RenderOutput` of ``(SB, sl*sl, ...)`` tensors.
+    :class:`RenderOutput` of ``(SB, sl*sl, ...)`` tensors (``None`` where the
+    renderer gives none).
     """
     dev = resolve_device(device)
     SB = intrinsics.shape[0]
@@ -64,8 +65,9 @@ def generate_video(model: RadFieldRenderer, batch: Dict[str, np.ndarray], num_fr
     ``batch`` is one collated scene in the dataset's layout (``images
     (SB, NV, sl*sl, 3)`` in [-1, 1], ``cam2world (SB, NV, 4, 4)``,
     ``focal (SB, NV)``, ``c (SB, NV, 2)``, ``intrinsics (SB, NV, 3, 3)``);
-    view 0 of scene 0 conditions the field.  Returns uint8 ``(sl, sl, 3)``
-    frames.
+    view 0 of scene 0 conditions the field.  Frames show ``rgb_fine``, or
+    ``rgb_coarse`` with ``fine=False`` or a renderer that has no fine image
+    (the Raymarcher).  Returns uint8 ``(sl, sl, 3)`` frames.
     """
     dev = resolve_device(device)
     images = batch["images"]
@@ -84,7 +86,7 @@ def generate_video(model: RadFieldRenderer, batch: Dict[str, np.ndarray], num_fr
         for i in range(num_frames):
             out = render_full_image(model, cond, intr, poses[i][None], sl, (0, i),
                                     render_chunk, dev)
-            rgb = out.rgb_fine if fine else out.rgb_coarse
+            rgb = out.rgb_fine if fine and out.rgb_fine is not None else out.rgb_coarse
             img = rgb[0].reshape(sl, sl, 3).float().cpu().numpy()
             frames.append(np.clip(img * 255.0, 0, 255).astype(np.uint8))
     print(f"it takes {time.time() - start} seconds to render a video")

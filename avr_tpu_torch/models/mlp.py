@@ -11,7 +11,7 @@ version runs for CPU tensors.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
@@ -36,18 +36,20 @@ class ResnetFC(nn.Module):
 
     ``d_in`` is ``lin_in``'s width: the encoded width when ``code_spec`` is
     set (the module then takes the raw ``code_spec.d_raw`` lanes).
+    ``stash`` picks the kernels' backward (``fused_resnetfc``'s argument).
     """
 
     def __init__(self, d_in: int, d_out: int = 4, n_blocks: int = 5, d_latent: int = 512,
                  d_hidden: int = 128, combine_layer: int = 1000,
                  code_spec: Optional[CodeSpec] = None, activate_out: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, stash: Union[bool, str] = "auto"):
         super().__init__()
         if code_spec is not None and code_spec.d_enc != d_in:
             raise ValueError(f"code_spec encodes to {code_spec.d_enc} lanes, d_in is {d_in}")
         self.n_blocks = n_blocks
         self.n_lin_z = min(combine_layer, n_blocks)
         self.code_spec, self.activate_out, self.dtype = code_spec, activate_out, dtype
+        self.stash = stash
         self.lin_in = nn.Linear(d_in, d_hidden)
         self.lin_z = nn.ModuleList(nn.Linear(d_latent, d_hidden) for _ in range(self.n_lin_z))
         self.blocks = nn.ModuleList(ResnetBlockFC(d_hidden) for _ in range(n_blocks))
@@ -73,5 +75,6 @@ class ResnetFC(nn.Module):
         zt = z.transpose(0, 1).reshape(NS, SB * B, z.shape[-1])
         out = fused_resnetfc(xt, zt, self.weights(), n_blocks=self.n_blocks,
                              n_lin_z=self.n_lin_z, compute_dtype=self.dtype,
-                             code=self.code_spec, activate_out=self.activate_out)
+                             code=self.code_spec, activate_out=self.activate_out,
+                             stash=self.stash)
         return out.reshape(SB, B, -1)

@@ -80,6 +80,9 @@ class EncoderConfig:
         )
 
 
+FUSED_MLP_STASH = {"auto": "auto", "always": False, "stash": True, "always_stash": True}
+
+
 @dataclass(frozen=True)
 class ModelConfig:
     """The ``model`` conf subtree, with the JAX package's defaults."""
@@ -91,6 +94,9 @@ class ModelConfig:
     use_code: bool = True
     use_code_viewdirs: bool = False
     use_viewdirs: bool = True
+    # the decoder's backward, as JAX's fused_mlp values map to the kernel's
+    # stash argument (avr_tpu/models/mlp.py:218-221): FUSED_MLP_STASH
+    fused_mlp: str = "auto"
     encoder: EncoderConfig = field(default_factory=EncoderConfig)
     code: CodeConfig = field(default_factory=CodeConfig)
     mlp_coarse: MLPConfig = field(default_factory=MLPConfig)
@@ -122,6 +128,8 @@ class ModelConfig:
             if (mc.type, mc.beta > 0, mc.combine_type, mc.use_spade) != \
                     ("resnet", False, "average", False):
                 bad[name] = mc
+        if self.fused_mlp not in FUSED_MLP_STASH:
+            bad["fused_mlp"] = self.fused_mlp  # "never": a plain path on the card
         if bad:
             raise NotImplementedError(f"avr_tpu_torch does not port these settings yet: {bad}")
 
@@ -166,7 +174,8 @@ class PixelNeRFNet(nn.Module):
 
         def mlp(mc: MLPConfig) -> ResnetFC:
             return ResnetFC(self.d_in, 4, mc.n_blocks, self.latent_size, mc.d_hidden,
-                            mc.combine_layer, code_spec=code, activate_out=True, dtype=dtype)
+                            mc.combine_layer, code_spec=code, activate_out=True, dtype=dtype,
+                            stash=FUSED_MLP_STASH[cfg.fused_mlp])
 
         self.mlp_coarse = mlp(cfg.mlp_coarse)
         self.mlp_fine = mlp(cfg.mlp_fine)

@@ -1,9 +1,11 @@
-"""Top-level model: radiance field + adaptive renderer as one ``nn.Module``
-(port of ``avr_tpu/models/wrapper.py`` ``RadFieldRenderer``).
+"""Top-level model: radiance field + renderer as one ``nn.Module`` (port of
+``avr_tpu/models/wrapper.py`` ``RadFieldRenderer``).
 
 ``encode`` produces the :class:`Conditioning` once per source view set;
-``render`` marches and integrates a ray batch.  Parameter names follow the
-Flax tree (``net``, ``lstm``, ``out_layer``) so ``models/flax_import.py``
+``render`` renders a ray batch with the renderer its config's type selects:
+the classic volume renderer, the Raymarcher or the adaptive renderer.
+Parameter names follow the Flax tree (``net``, and ``lstm`` and
+``out_layer`` for the marching renderers only) so ``models/flax_import.py``
 carries weights across.
 """
 
@@ -19,9 +21,12 @@ from avr_tpu_torch.config import Conf, parse_conf
 from avr_tpu_torch.models.pixelnerf import Conditioning, ModelConfig, PixelNeRFNet
 from avr_tpu_torch.ops.hashrng import RaySeeds
 from avr_tpu_torch.renderers.adaptive import render_adaptive
-from avr_tpu_torch.renderers.base import AdaptiveRendererConfig, RenderOutput
+from avr_tpu_torch.renderers.base import (AdaptiveRendererConfig, RaymarcherConfig,
+                                          RendererConfig, RenderOutput, VolumeRendererConfig,
+                                          renderer_config_from_conf)
 from avr_tpu_torch.renderers.lstm import MarchLSTMCell
-from avr_tpu_torch.renderers.raymarch import lstm_march
+from avr_tpu_torch.renderers.raymarch import lstm_march, render_raymarcher
+from avr_tpu_torch.renderers.volume import render_volume
 from avr_tpu_torch.utils.device import resolve_device
 
 __all__ = ["RadFieldRenderer", "make_model", "init_weights"]
@@ -30,13 +35,21 @@ DEFAULT_CONF = os.path.join(os.path.dirname(__file__), "..", "..", "conf", "defa
 
 
 class RadFieldRenderer(nn.Module):
-    def __init__(self, model_cfg: ModelConfig, renderer_cfg: AdaptiveRendererConfig,
+    def __init__(self, model_cfg: ModelConfig, renderer_cfg: RendererConfig,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        if not isinstance(renderer_cfg, (VolumeRendererConfig, RaymarcherConfig,
+                                         AdaptiveRendererConfig)):
+            raise TypeError(f"unknown renderer config {type(renderer_cfg)}")
         self.renderer_cfg, self.dtype = renderer_cfg, dtype
         self.net = PixelNeRFNet(model_cfg, dtype)
-        self.lstm = MarchLSTMCell(self.net.latent_size, renderer_cfg.hidden_size)
-        self.out_layer = nn.Linear(renderer_cfg.hidden_size, 1)
+        if self.has_marcher:
+            self.lstm = MarchLSTMCell(self.net.latent_size, renderer_cfg.hidden_size)
+            self.out_layer = nn.Linear(renderer_cfg.hidden_size, 1)
+
+    @property
+    def has_marcher(self) -> bool:
+        return isinstance(self.renderer_cfg, (RaymarcherConfig, AdaptiveRendererConfig))
 
     def encode(self, images: torch.Tensor, poses: torch.Tensor, focal,
                c=None, train: bool = False) -> Conditioning:
@@ -46,15 +59,20 @@ class RadFieldRenderer(nn.Module):
                cam2world: torch.Tensor, key: RaySeeds) -> RenderOutput:
         """``xy_pix (SB, R, 2)``, ``intrinsics (SB, 3, 3)``, ``cam2world (SB, R,
         4, 4)``, per-ray seeds ``(SB, R)``."""
+        cfg = self.renderer_cfg
+
         def field(xyz, viewdirs, coarse):
             return self.net(cond, xyz, viewdirs, coarse)
 
-        def march_fn(k, ros, rds):
-            return lstm_march(self.renderer_cfg, k, cond, self.lstm, self.out_layer,
-                              ros, rds, self.dtype)
+        if isinstance(cfg, VolumeRendererConfig):
+            return render_volume(cfg, key, field, xy_pix, intrinsics, cam2world)
 
-        return render_adaptive(self.renderer_cfg, key, field, march_fn, xy_pix,
-                               intrinsics, cam2world)
+        def march_fn(k, ros, rds):
+            return lstm_march(cfg, k, cond, self.lstm, self.out_layer, ros, rds, self.dtype)
+
+        if isinstance(cfg, RaymarcherConfig):
+            return render_raymarcher(key, field, march_fn, xy_pix, intrinsics, cam2world)
+        return render_adaptive(cfg, key, field, march_fn, xy_pix, intrinsics, cam2world)
 
 
 def init_weights(model: nn.Module, seed: int) -> None:
@@ -78,16 +96,18 @@ def init_weights(model: nn.Module, seed: int) -> None:
 
 
 def make_model(conf: Union[str, Conf, None] = None, dtype: torch.dtype = torch.bfloat16,
-               seed: int = 0, device: Optional[Union[str, torch.device]] = None
-               ) -> RadFieldRenderer:
-    """The adaptive renderer at the width of ``conf`` (default
-    ``conf/default_mv.conf``) with seeded random weights, on the card unless
-    ``device`` says otherwise."""
+               seed: int = 0, device: Optional[Union[str, torch.device]] = None,
+               renderer: str = "") -> RadFieldRenderer:
+    """The model at the width of ``conf`` (default ``conf/default_mv.conf``)
+    with seeded random weights, on the card unless ``device`` says
+    otherwise.  ``renderer`` is the experiment name whose prefix picks the
+    renderer (:func:`renderer_config_from_conf`): ``"VR..."`` the volume
+    renderer, ``"...Raymarcher..."`` the Raymarcher, anything else (the
+    default) the adaptive renderer."""
     dev = resolve_device(device)
     if conf is None or isinstance(conf, str):
         conf = parse_conf(conf or DEFAULT_CONF)
     model = RadFieldRenderer(ModelConfig.from_conf(conf["model"]),
-                             AdaptiveRendererConfig.from_conf(conf["adaptive_renderer"]),
-                             dtype)
+                             renderer_config_from_conf(conf, renderer), dtype)
     init_weights(model, seed)
     return model.to(dev).eval()

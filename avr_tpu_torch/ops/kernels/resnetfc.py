@@ -1,10 +1,11 @@
 """K2: fused FC-ResNet field decoder — CUDA kernels (forward, forward with
-activation stash, stash backward), the autograd function that joins them,
-and the plain version.
+activation stash, stash backward, recompute backward), the autograd
+function that joins them, and the plain version.
 
 Replaces ``avr_tpu/ops/pallas/resnetfc.py:896 fused_resnetfc``: the forward
-(``:726``), its stash mode (``:637-653``) and the stash backward
-``_bwd_stash_impl`` (``:400-575``, call ``:823``).  The function: an optional
+(``:726``), its stash mode (``:637-653``), the stash backward
+``_bwd_stash_impl`` (``:400-575``, call ``:823``) and the recompute backward
+``_bwd_impl`` (``:248-390``, call ``:853``).  The function: an optional
 in-kernel positional encoding of the raw ``[xyz | viewdir]`` lanes
 (:class:`CodeSpec`); per source view, ``lin_in`` and the first ``n_lin_z``
 blocks, each preceded by a latent injection ``h += z @ Wz_k + bz_k``; the
@@ -29,24 +30,37 @@ product's output cotangent (rounded, 11 rows of 512 a point), ``dx``
 through the encoding's ``cos`` lanes and ``dz``; a wgrad kernel sums
 ``dW = G^T A`` over the points on 128 x 128 tiles with ``mma.sync``, at most
 8 row chunks per tile added by float32 atomics, bias gradients as column
-sums of the rounded cotangents.  The TPU's recompute backward
-(``resnetfc.py:853``), which ``stash="auto"`` takes only above 6 GiB of
-stash, is not ported: such a call raises.  float32 operands take plain FMA
-loops with the same tiling.
+sums of the rounded cotangents.  float32 operands take plain FMA loops with
+the same tiling.
+
+``stash`` picks the backward as JAX does: ``True`` the stash backward,
+``False`` the recompute backward, ``"auto"`` the stash while the call's
+stash (``stash_slots * N * d_hidden`` compute-dtype values) is at most
+6 GiB.  The recompute backward stores no O(N) activations: the host walks
+the points in chunks of ``RECOMPUTE_CHUNK = 262,144`` and launches per
+chunk one recompute kernel (each 32-point tile reruns its forward through
+the forward kernel's device code into a chunk workspace, then walks back
+through the dgrad kernel's device code) and one wgrad launch that adds the
+chunk's ``dW`` into the float32 sums.  Its workspace (stash and cotangents,
+~5.9 GB in bf16 at NS 1 and width 512) is sized by the chunk, not by
+``N``.  A VR train step at ``conf/default_mv.conf`` width (4 x 4,096 rays,
+one chunk) has 1,048,576 coarse and 1,572,864 fine points: 4 + 6
+recompute launches and 4 + 6 wgrad launches.  Bound on H100: operations,
+~20.6 MFLOP a point (recompute, dgrad and wgrad products).
 """
 
 from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
 from avr_tpu_torch.ops.kernels import _build
 
-__all__ = ["CodeSpec", "DecoderWeights", "fused_resnetfc", "resnetfc_plain",
+__all__ = ["CodeSpec", "DecoderWeights", "fused_resnetfc", "resnetfc_plain", "use_stash",
            "encode_tables"]
 
 NAME = "fused_resnetfc"
@@ -166,9 +180,12 @@ def resnetfc_plain(x: torch.Tensor, z: torch.Tensor, w: DecoderWeights, *,
 
 
 _STASH_BUDGET_BYTES = 6 * 1024 ** 3  # resnetfc.py:893: above it JAX recomputes instead
+RECOMPUTE_CHUNK = 262_144  # points per recompute launch: bounds its workspace
 GOUT_W = 8  # row width of the rounded output cotangent (csrc/resnetfc.cu)
+NAME_STASH = "fused_resnetfc_stash"
 NAME_DGRAD = "fused_resnetfc_bwd_dgrad"
 NAME_WGRAD = "fused_resnetfc_bwd_wgrad"
+NAME_RECOMPUTE = "fused_resnetfc_bwd_recompute"
 
 
 def stash_slot(k: int, j: int, v: int, ns: int, n_lin_z: int) -> int:
@@ -179,6 +196,32 @@ def stash_slot(k: int, j: int, v: int, ns: int, n_lin_z: int) -> int:
 
 def stash_slots(ns: int, n_blocks: int, n_lin_z: int) -> int:
     return 2 * n_lin_z * ns + 2 * (n_blocks - n_lin_z) + 1
+
+
+def cot_slots(ns: int, n_blocks: int, n_lin_z: int) -> int:
+    """The cotangent slots: one per stash slot but lin_out's, then lin_in's
+    output cotangent per view."""
+    return 2 * n_lin_z * ns + 2 * (n_blocks - n_lin_z) + ns
+
+
+def stash_bytes(ns: int, N: int, d_hidden: int, n_blocks: int, n_lin_z: int,
+                compute_dtype: torch.dtype) -> int:
+    """The call's stash in bytes, as ``stash="auto"`` measures it
+    (``avr_tpu/ops/pallas/resnetfc.py:945-948``)."""
+    item = torch.empty((), dtype=compute_dtype).element_size()
+    return N * d_hidden * item * stash_slots(ns, n_blocks, n_lin_z)
+
+
+def use_stash(stash, ns: int, N: int, d_hidden: int, n_blocks: int, n_lin_z: int,
+              compute_dtype: torch.dtype) -> bool:
+    """Which backward a call takes: the stash one (True) or the recompute
+    one (False); ``"auto"`` takes the stash while it fits the 6 GiB budget."""
+    if stash == "auto":
+        return stash_bytes(ns, N, d_hidden, n_blocks, n_lin_z,
+                           compute_dtype) <= _STASH_BUDGET_BYTES
+    if isinstance(stash, bool):
+        return stash
+    raise ValueError(f"{NAME}: stash must be True, False or 'auto', got {stash!r}")
 
 
 def _prepare(x, z, w: DecoderWeights, code, compute_dtype):
@@ -230,50 +273,141 @@ def _forward(a, d, compute_dtype, stash: bool):
     err = fn(*(_build.ptr(a[k]) for k in _FWD_ORDER), _build.ptr(out),
              _build.ptr(st) if stash else None, *(d[k] for k in _DIM_ORDER),
              _DTYPES[compute_dtype], ctypes.c_void_p(_build.stream_ptr(dev)))
-    _build.check(NAME, err)
+    _build.check(NAME_STASH if stash else NAME, err)
     return out, st
+
+
+def _bwd_operands(a, d, g, name):
+    """What both backwards share: ``g`` in float32, the transposed weights
+    and the zeroed float32 weight-gradient sums."""
+    dev = g.device
+    dh, dl, nb, nlz = d["d_hidden"], d["d_latent"], d["n_blocks"], d["n_lin_z"]
+    g = g.float().contiguous()
+    _build.check_cuda_inputs(name, {"g": g}, dev)
+    wT = [a["wi"].t().contiguous()] + [a[k].transpose(1, 2).contiguous()
+                                       for k in ("wz", "w0", "w1")]
+    f32 = dict(dtype=torch.float32, device=dev)
+    grads = dict(wi=torch.zeros((dh, d["k_in"]), **f32), bi=torch.zeros((dh,), **f32),
+                 wz=torch.zeros((nlz, dh, dl), **f32), bz=torch.zeros((nlz, dh), **f32),
+                 w0=torch.zeros((nb, dh, dh), **f32), b0=torch.zeros((nb, dh), **f32),
+                 w1=torch.zeros((nb, dh, dh), **f32), b1=torch.zeros((nb, dh), **f32),
+                 wo=torch.zeros((d["d_out"], dh), **f32), bo=torch.zeros((d["d_out"],), **f32))
+    return g, wT, grads
+
+
+def _grads_tuple(dx, dz, grads):
+    return (dx, dz, grads["wi"], grads["bi"], grads["wz"], grads["bz"], grads["w0"],
+            grads["b0"], grads["w1"], grads["b1"], grads["wo"], grads["bo"])
+
+
+def _dgrad(a, d, st, g, wT, compute_dtype):
+    """The stash dgrad launch: ``dx``, ``dz``, and what the wgrad reads: the
+    rounded product cotangents ``cot``, the rounded output cotangent
+    ``gout`` and the encoded input ``enc``."""
+    ns, N, dh = d["ns"], d["N"], d["d_hidden"]
+    cd = compute_dtype
+    dev = g.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.zeros((ns, N, d["d_in"]), **f32)
+    dz = torch.zeros((ns, N, d["d_latent"]), dtype=cd, device=dev)
+    cot = torch.empty((cot_slots(ns, d["n_blocks"], d["n_lin_z"]), N, dh), dtype=cd, device=dev)
+    gout = torch.empty((N, GOUT_W), dtype=cd, device=dev)
+    enc = torch.empty((ns, N, d["k_in"]), dtype=cd, device=dev)
+    # ns > 1: the pooled trunk cotangent, one (32, dh) float32 tile per CTA
+    pool = torch.empty(((N + 31) // 32 * 32, dh), **f32) if ns > 1 else None
+    if N:
+        fn = _build.kernel_fn("avr_resnetfc_dgrad", [ctypes.c_void_p] * 17 + [ctypes.c_int] * 11
+                              + [ctypes.c_void_p])
+        err = fn(*(_build.ptr(t) for t in (a["x"], g, st, *wT, a["wo"], a["bo"],
+                                            a["tables"], a["fph"], dx, dz, cot, gout, enc)),
+                 _build.ptr(pool) if ns > 1 else None,
+                 *(d[k] for k in _DIM_ORDER), _DTYPES[cd], ctypes.c_void_p(_build.stream_ptr(dev)))
+        _build.check(NAME_DGRAD, err)
+    return dx, dz, cot, gout, enc
 
 
 def _backward(a, d, st, g, compute_dtype):
     """The stash backward: ``(dx, dz, dwi (dh, k_in), dbi, dwz, dbz, dw0,
     db0, dw1, db1, dwo, dbo)``, weight cotangents in float32."""
+    g, wT, grads = _bwd_operands(a, d, g, NAME_DGRAD)
+    dx, dz, cot, gout, enc = _dgrad(a, d, st, g, wT, compute_dtype)
+    if d["N"]:
+        _wgrad(d["N"], a["z"], st, cot, gout, enc, grads, d, compute_dtype)
+    return _grads_tuple(dx, dz, grads)
+
+
+def _recompute_layout(d):
+    """(rows per point, row width) of the recompute workspace's stash,
+    cotangents, gout and encoded input."""
+    ns, nb, nlz = d["ns"], d["n_blocks"], d["n_lin_z"]
+    return ((stash_slots(ns, nb, nlz), d["d_hidden"]), (cot_slots(ns, nb, nlz), d["d_hidden"]),
+            (1, GOUT_W), (ns, d["k_in"]))
+
+
+def _recompute_workspace(d, p, compute_dtype, device):
+    """The recompute kernel's workspace for chunks of up to ``p`` points:
+    flat stash, cotangent, gout and encoded-input buffers, and (NS > 1) the
+    pooled trunk cotangent."""
+    bufs = [torch.empty(k * p * w, dtype=compute_dtype, device=device)
+            for k, w in _recompute_layout(d)]
+    pool = (torch.empty(((p + 31) // 32 * 32) * d["d_hidden"], dtype=torch.float32,
+                        device=device) if d["ns"] > 1 else None)
+    return bufs, pool
+
+
+def _recompute_chunk(a, d, g, wT, work, s, n, dx, dz, compute_dtype):
+    """One recompute launch over points ``[s, s + n)``: the tiles' forward
+    into the workspace ``work``, then the walk back, writing the points'
+    rows of ``dx`` and ``dz``.  Returns what the chunk's wgrad reads: its
+    latents and, as views of the workspace, its stash, rounded cotangents,
+    rounded output cotangent and encoded input."""
+    ns, cd, dev = d["ns"], compute_dtype, g.device
+    bufs, pool = work
+    xc, zc = (a[k][:, s:s + n].contiguous() for k in ("x", "z"))
+    # one view: the chunk's rows of dx and dz are contiguous; else a copy
+    dxc = dx[:, s:s + n] if ns == 1 else torch.empty((ns, n, d["d_in"]), dtype=dx.dtype,
+                                                     device=dev)
+    dzc = dz[:, s:s + n] if ns == 1 else torch.empty((ns, n, d["d_latent"]), dtype=cd, device=dev)
+    st, cot, gout, enc = (t[:k * n * w].view(k, n, w)
+                          for t, (k, w) in zip(bufs, _recompute_layout(d)))
+    fn = _build.kernel_fn("avr_resnetfc_bwd_recompute", [ctypes.c_void_p] * 26
+                          + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+    err = fn(_build.ptr(xc), _build.ptr(zc), *(_build.ptr(a[k]) for k in _FWD_ORDER[2:]),
+             _build.ptr(g[s:s + n]), *(_build.ptr(t) for t in wT),
+             *(_build.ptr(t) for t in (st, cot, gout, enc)),
+             _build.ptr(pool) if ns > 1 else None, _build.ptr(dxc), _build.ptr(dzc), n,
+             *(d[k] for k in _DIM_ORDER[1:]), _DTYPES[cd], ctypes.c_void_p(_build.stream_ptr(dev)))
+    _build.check(NAME_RECOMPUTE, err)
+    if ns > 1:
+        dx[:, s:s + n].copy_(dxc)
+        dz[:, s:s + n].copy_(dzc)
+    return zc, st, cot, gout[0], enc
+
+
+def _backward_recompute(a, d, g, compute_dtype):
+    """The recompute backward, in chunks of :data:`RECOMPUTE_CHUNK` points:
+    per chunk one recompute launch (forward into the workspace, then the
+    walk back) and one wgrad launch adding into the float32 sums.  Returns
+    what :func:`_backward` returns."""
+    ns, N = d["ns"], d["N"]
+    g, wT, grads = _bwd_operands(a, d, g, NAME_RECOMPUTE)
     dev = g.device
-    ns, N, dh, dl = d["ns"], d["N"], d["d_hidden"], d["d_latent"]
-    nb, nlz, k_in, d_out = d["n_blocks"], d["n_lin_z"], d["k_in"], d["d_out"]
-    cd = compute_dtype
-    g = g.float().contiguous()
-    wiT = a["wi"].t().contiguous()
-    wzT, w0T, w1T = (a[k].transpose(1, 2).contiguous() for k in ("wz", "w0", "w1"))
-    _build.check_cuda_inputs(NAME_DGRAD, {"g": g}, dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    dx = torch.zeros((ns, N, d["d_in"]), **f32)
-    dz = torch.zeros((ns, N, dl), dtype=cd, device=dev)
-    cot = torch.empty((2 * nlz * ns + 2 * (nb - nlz) + ns, N, dh), dtype=cd, device=dev)
-    gout = torch.empty((N, GOUT_W), dtype=cd, device=dev)
-    enc = torch.empty((ns, N, k_in), dtype=cd, device=dev)
-    # ns > 1: the pooled trunk cotangent, one (32, dh) float32 tile per CTA
-    pool = torch.empty(((N + 31) // 32 * 32, dh), **f32) if ns > 1 else None
-    grads = dict(wi=torch.zeros((dh, k_in), **f32), bi=torch.zeros((dh,), **f32),
-                 wz=torch.zeros((nlz, dh, dl), **f32), bz=torch.zeros((nlz, dh), **f32),
-                 w0=torch.zeros((nb, dh, dh), **f32), b0=torch.zeros((nb, dh), **f32),
-                 w1=torch.zeros((nb, dh, dh), **f32), b1=torch.zeros((nb, dh), **f32),
-                 wo=torch.zeros((d_out, dh), **f32), bo=torch.zeros((d_out,), **f32))
-    if N:
-        fn = _build.kernel_fn("avr_resnetfc_dgrad", [ctypes.c_void_p] * 17 + [ctypes.c_int] * 11
-                              + [ctypes.c_void_p])
-        err = fn(*(_build.ptr(t) for t in (a["x"], g, st, wiT, wzT, w0T, w1T, a["wo"], a["bo"],
-                                            a["tables"], a["fph"], dx, dz, cot, gout, enc)),
-                 _build.ptr(pool) if ns > 1 else None,
-                 *(d[k] for k in _DIM_ORDER), _DTYPES[cd], ctypes.c_void_p(_build.stream_ptr(dev)))
-        _build.check(NAME_DGRAD, err)
-        _wgrad(a, d, st, cot, gout, enc, grads, cd)
-    return (dx, dz, grads["wi"], grads["bi"], grads["wz"], grads["bz"], grads["w0"],
-            grads["b0"], grads["w1"], grads["b1"], grads["wo"], grads["bo"])
+    dx = torch.empty((ns, N, d["d_in"]), dtype=torch.float32, device=dev)
+    dz = torch.empty((ns, N, d["d_latent"]), dtype=compute_dtype, device=dev)
+    # the workspace, sized for one chunk and reused by every chunk
+    work = _recompute_workspace(d, min(N, RECOMPUTE_CHUNK), compute_dtype, dev)
+    for s in range(0, N, RECOMPUTE_CHUNK):
+        n = min(RECOMPUTE_CHUNK, N - s)
+        zc, st, cot, gout, enc = _recompute_chunk(a, d, g, wT, work, s, n, dx, dz, compute_dtype)
+        _wgrad(n, zc, st, cot, gout, enc, grads, d, compute_dtype)
+    return _grads_tuple(dx, dz, grads)
 
 
-def _wgrad(a, d, st, cot, gout, enc, grads, cd):
-    """One launch for every weight: ``dW += G^T A`` and ``db += sum G``."""
-    ns, N, dh, dl = d["ns"], d["N"], d["d_hidden"], d["d_latent"]
+def _wgrad(N, z, st, cot, gout, enc, grads, d, cd):
+    """One launch for every weight: ``dW += G^T A`` and ``db += sum G`` over
+    ``N`` points (``st``, ``cot`` with ``N`` rows a slot, ``z`` the
+    points' latents)."""
+    ns, dh, dl = d["ns"], d["d_hidden"], d["d_latent"]
     nb, nlz, k_in, d_out = d["n_blocks"], d["n_lin_z"], d["k_in"], d["d_out"]
     es = st.element_size()
     slot = lambda t, i: t.data_ptr() + i * N * dh * es
@@ -287,8 +421,7 @@ def _wgrad(a, d, st, cot, gout, enc, grads, cd):
     cot_in = slot(cot, 2 * nlz * ns + 2 * (nb - nlz))
     for k in range(nlz):
         gk = cot_in if k == 0 else slot(cot, stash_slot(k - 1, 1, 0, ns, nlz))
-        jobs.append((gk, a["z"].data_ptr(), grads["wz"][k], grads["bz"][k], ns * N, dh, dl, dh,
-                     dl))
+        jobs.append((gk, z.data_ptr(), grads["wz"][k], grads["bz"][k], ns * N, dh, dl, dh, dl))
     jobs.append((cot_in, enc.data_ptr(), grads["wi"], grads["bi"], ns * N, dh, k_in, dh, k_in))
     jobs.append((gout.data_ptr(), slot(st, stash_slots(ns, nb, nlz) - 1), grads["wo"],
                  grads["bo"], N, GOUT_W, dh, d_out, dh))
@@ -314,42 +447,52 @@ def wgrad(name: str, jobs, compute_dtype, device) -> None:
 
 
 class _Decoder(torch.autograd.Function):
+    """The kernels under autograd: with ``stash`` the forward writes the
+    activations and the stash backward reads them; without, the forward
+    keeps only the prepared operands and the recompute backward reruns it."""
+
     @staticmethod
-    def forward(ctx, x, z, wi, bi, wz, bz, w0, b0, w1, b1, wo, bo, a, d, compute_dtype):
-        out, st = _forward(a, d, compute_dtype, stash=True)
+    def forward(ctx, x, z, wi, bi, wz, bz, w0, b0, w1, b1, wo, bo, a, d, compute_dtype, stash):
+        out, st = _forward(a, d, compute_dtype, stash=stash)
         ctx.a, ctx.d, ctx.st, ctx.cd = a, d, st, compute_dtype
         ctx.like = [(t.dtype, t.shape) for t in (x, z, wi, bi, wz, bz, w0, b0, w1, b1, wo, bo)]
         return out
 
     @staticmethod
     def backward(ctx, g):
-        grads = list(_backward(ctx.a, ctx.d, ctx.st, g, ctx.cd))
+        if ctx.st is None:
+            grads = list(_backward_recompute(ctx.a, ctx.d, g, ctx.cd))
+        else:
+            grads = list(_backward(ctx.a, ctx.d, ctx.st, g, ctx.cd))
         grads[2] = grads[2][:, :ctx.like[2][1][1]]  # lin_in's zero-padded input lanes
-        return tuple(gr.to(dt).reshape(sh) for gr, (dt, sh) in zip(grads, ctx.like)) + (None,) * 3
+        return tuple(gr.to(dt).reshape(sh) for gr, (dt, sh) in zip(grads, ctx.like)) + (None,) * 4
 
 
 def fused_resnetfc(x: torch.Tensor, z: torch.Tensor, w: DecoderWeights, *,
                    n_blocks: int, n_lin_z: int, compute_dtype: torch.dtype,
                    code: Optional[CodeSpec] = None,
-                   activate_out: bool = False) -> torch.Tensor:
+                   activate_out: bool = False, stash: Union[bool, str] = "auto") -> torch.Tensor:
     """Apply the decoder: ``x (NS, N, d_in)`` raw (``code``) or encoded
     point features, ``z (NS, N, d_latent)`` latents -> ``(N, d_out)`` float32.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel, and
-    under autograd the stash forward and the stash backward kernels.
+    CPU tensors take the plain version (autograd gives the same gradients
+    for any ``stash``); CUDA tensors launch the kernel, and under autograd
+    the stash forward and stash backward kernels or, per ``stash``
+    (:func:`use_stash`), the forward and the recompute backward kernels.
     """
     if not 0 < n_lin_z <= n_blocks:
         raise ValueError(f"{NAME}: need 0 < n_lin_z <= n_blocks")
     if activate_out and w.wo.shape[0] != 4:
         raise ValueError(f"{NAME}: activate_out requires d_out == 4")
+    ns, N, d_in = x.shape
+    d_hidden = w.wi.shape[0]
+    keep = use_stash(stash, ns, N, d_hidden, n_blocks, n_lin_z, compute_dtype)
     if x.device.type == "cpu":
         return resnetfc_plain(x, z, w, n_blocks=n_blocks, n_lin_z=n_lin_z,
                               compute_dtype=compute_dtype, code=code,
                               activate_out=activate_out)
     if compute_dtype not in _DTYPES:
         raise TypeError(f"{NAME}: compute dtype {compute_dtype} not in {list(_DTYPES)}")
-    ns, N, d_in = x.shape
-    d_hidden = w.wi.shape[0]
     d_latent, d_out = z.shape[-1], w.wo.shape[0]
     if code is not None and code.d_raw != d_in:
         raise ValueError(f"{NAME}: x width {d_in} != code.d_raw {code.d_raw}")
@@ -362,12 +505,5 @@ def fused_resnetfc(x: torch.Tensor, z: torch.Tensor, w: DecoderWeights, *,
     _build.check_cuda_inputs(NAME, a, x.device)
     d = _dims(a, n_blocks, n_lin_z, activate_out)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, z, *w)):
-        stash_bytes = (stash_slots(ns, n_blocks, n_lin_z) * N * d_hidden
-                       * a["z"].element_size())
-        if stash_bytes > _STASH_BUDGET_BYTES:
-            raise NotImplementedError(
-                f"{NAME}: {N} points need {stash_bytes / 2 ** 30:.1f} GiB of stash, above the "
-                f"6 GiB budget; the recompute backward (avr_tpu/ops/pallas/resnetfc.py:853) "
-                f"that serves such calls is not ported")
-        return _Decoder.apply(x, z, *w, a, d, compute_dtype)
+        return _Decoder.apply(x, z, *w, a, d, compute_dtype, keep)
     return _forward(a, d, compute_dtype, stash=False)[0]

@@ -1,12 +1,16 @@
-"""LSTM ray-march (port of ``avr_tpu/renderers/raymarch.py`` ``lstm_march``).
+"""LSTM ray-march and the SRN-style Raymarcher (port of
+``avr_tpu/renderers/raymarch.py`` ``lstm_march`` and ``render_raymarcher``).
 
-Draws the gaussian initial distance from the per-ray hash, then runs the
-whole march in the K3 kernel wrapper
+:func:`lstm_march` draws the gaussian initial distance from the per-ray
+hash, then runs the whole march in the K3 kernel wrapper
 (:func:`avr_tpu_torch.ops.kernels.march.fused_lstm_march`; its plain
-version for CPU tensors).
+version for CPU tensors).  :func:`render_raymarcher` marches with the
+unsplit key, then queries the coarse decoder once at the marched point.
 """
 
 from __future__ import annotations
+
+from typing import Callable, Union
 
 import torch
 from torch import nn
@@ -15,13 +19,15 @@ from avr_tpu_torch.models.pixelnerf import Conditioning
 from avr_tpu_torch.ops.hashrng import RaySeeds
 from avr_tpu_torch.ops.kernels.march import fused_lstm_march, pack_projection
 from avr_tpu_torch.ops.sampling import _normal_2d
-from avr_tpu_torch.renderers.base import AdaptiveRendererConfig
+from avr_tpu_torch.renderers.base import (AdaptiveRendererConfig, RaymarcherConfig,
+                                          RenderOutput)
 from avr_tpu_torch.renderers.lstm import MarchLSTMCell
+from avr_tpu_torch.utils.geometry import depth_from_world, get_world_rays
 
-__all__ = ["lstm_march"]
+__all__ = ["lstm_march", "render_raymarcher"]
 
 
-def lstm_march(cfg: AdaptiveRendererConfig, key: RaySeeds, cond: Conditioning,
+def lstm_march(cfg: Union[AdaptiveRendererConfig, RaymarcherConfig], key: RaySeeds, cond: Conditioning,
                cell: MarchLSTMCell, step_head: nn.Linear, ros: torch.Tensor,
                rds: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
     """March from ``ro + rd * N(mean, std)``; returns final world points ``(SB, R, 3)``."""
@@ -36,3 +42,16 @@ def lstm_march(cfg: AdaptiveRendererConfig, key: RaySeeds, cond: Conditioning,
         step_head.weight.T, step_head.bias, steps=cfg.raymarch_steps,
         early_stop_eps=cfg.early_stop_eps, grad_clamp=cfg.grad_clamp,
         compute_dtype=compute_dtype)
+
+
+def render_raymarcher(key: RaySeeds, field: Callable, march_fn: Callable,
+                      xy_pix: torch.Tensor, intrinsics: torch.Tensor,
+                      cam2world: torch.Tensor) -> RenderOutput:
+    """``field(xyz, viewdirs, coarse) -> (SB, N, 4)``, ``march_fn(key, ros,
+    rds) -> (SB, R, 3)`` (given the key as it is: the JAX path hands the
+    fused march the unsplit key); returns ``(rgb, None, depth, depth)``."""
+    ros, rds = get_world_rays(xy_pix, intrinsics, cam2world)
+    coords = march_fn(key, ros, rds)
+    rgb = field(coords, rds, True)[..., :3]
+    depth = depth_from_world(coords, cam2world)[..., None]
+    return RenderOutput(rgb, None, depth, depth)

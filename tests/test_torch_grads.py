@@ -171,6 +171,123 @@ def test_decoder_grads_match_pallas_stash_vjp(decoder, ns):
         _close(got, want, 1e-4, "/".join(keys))
 
 
+@pytest.mark.parametrize("ns,coded", [(1, True), (2, True), (1, False), (2, False)])
+def test_decoder_grads_match_pallas_recompute_vjp(decoder, ns, coded):
+    """The recompute backward (``stash=False``), with and without the
+    in-decoder encoding (without it ``x`` holds already encoded lanes)."""
+    variables, port = decoder
+    rng = np.random.default_rng(60 + ns + 2 * coded)
+    N = 45
+    spec = FlaxCodeSpec(**SPEC)
+    d_x = spec.d_raw if coded else spec.d_enc
+    x = rng.uniform(-1.2, 1.2, size=(ns, N, d_x)).astype(np.float32)
+    z = rng.normal(size=(ns, N, D_LATENT)).astype(np.float32)
+    g = (rng.normal(size=(N, 4)) + 0.5).astype(np.float32)
+
+    fn = lambda x, z, p: pallas_resnetfc(x, z, p, n_blocks=N_BLOCKS, n_lin_z=N_LIN_Z,
+                                         compute_dtype=jnp.float32, interpret=True,
+                                         code=spec if coded else None, activate_out=True,
+                                         stash=False)
+    params = jax.tree.map(jnp.asarray, variables["params"])
+    _, vjp = jax.vjp(fn, jnp.asarray(x), jnp.asarray(z), params)
+    want_x, want_z, want_p = vjp(jnp.asarray(g))
+
+    xt, zt = _t(x), _t(z)
+    _build.reset_launches()
+    out = fused_resnetfc(xt, zt, port.weights(), n_blocks=N_BLOCKS, n_lin_z=N_LIN_Z,
+                         compute_dtype=torch.float32, code=CodeSpec(**SPEC) if coded else None,
+                         activate_out=True, stash=False)
+    names = [n for n, _ in port.named_parameters()]
+    grads = torch.autograd.grad(out, [xt, zt, *port.parameters()], _t(g, False))
+    assert not _build.launches
+    # float32; the same algorithm summed in other orders: 1e-4 of each scale
+    _close(grads[0].numpy(), want_x, 1e-4, "dx")
+    _close(grads[1].numpy(), want_z, 1e-4, "dz")
+    got_p = to_flax_tree(dict(zip(names, grads[2:])))["params"]
+    for path, want in jax.tree_util.tree_flatten_with_path(want_p)[0]:
+        keys = [p.key for p in path]
+        got = got_p
+        for k in keys:
+            got = got[k]
+        _close(got, want, 1e-4, "/".join(keys))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("ns", [1, 2])
+def test_stash_auto_choice_matches_jax(monkeypatch, dtype, ns):
+    """``stash="auto"`` takes the stash backward exactly where JAX does, on
+    both sides of the 6 GiB boundary: JAX's choice is read from the
+    argument its kernel factory receives, on abstract shapes (no arrays)."""
+    import avr_tpu.ops.pallas.resnetfc as pallas_mod
+    from avr_tpu_torch.ops.kernels.resnetfc import use_stash
+
+    nb, nlz, dh, dl = 5, 3, 512, 512
+    spec = FlaxCodeSpec(**SPEC)
+    seen = []
+
+    def factory(*args):
+        seen.append(args[11])  # the resolved stash flag
+        return lambda x, z, *p: jnp.zeros((x.shape[1], 4), jnp.float32)
+
+    monkeypatch.setattr(pallas_mod, "_make_fused", factory)
+    sds = lambda *shape: jax.ShapeDtypeStruct(shape, jnp.float32)
+    params = {"lin_in": {"kernel": sds(spec.d_enc, dh), "bias": sds(dh)},
+              "lin_out": {"kernel": sds(dh, 4), "bias": sds(4)},
+              **{f"lin_z_{k}": {"kernel": sds(dl, dh), "bias": sds(dh)} for k in range(nlz)},
+              **{f"block_{k}": {f: {"kernel": sds(dh, dh), "bias": sds(dh)}
+                                for f in ("fc_0", "fc_1")} for k in range(nb)}}
+    per_point = dh * jnp.dtype(dtype).itemsize * (2 * nlz * ns + 2 * (nb - nlz) + 1)
+    edge = 6 * 1024 ** 3 // per_point
+    for N in (edge - 1, edge, edge + 1, 2 * edge):
+        jax.eval_shape(lambda x, z, p: pallas_resnetfc(
+            x, z, p, n_blocks=nb, n_lin_z=nlz, compute_dtype=jnp.dtype(dtype), code=spec,
+            activate_out=True, stash="auto"), sds(ns, N, spec.d_raw), sds(ns, N, dl), params)
+        assert use_stash("auto", ns, N, dh, nb, nlz, getattr(torch, dtype)) == seen[-1], N
+    assert seen == [True, True, False, False]
+    assert use_stash(True, ns, 10 * edge, dh, nb, nlz, torch.float32)
+    assert not use_stash(False, ns, 1, dh, nb, nlz, torch.float32)
+    with pytest.raises(ValueError, match="stash"):
+        use_stash("always", ns, 1, dh, nb, nlz, torch.float32)
+
+
+@pytest.mark.parametrize("fused", ["auto", "always", "stash", "always_stash", "never"])
+def test_fused_mlp_maps_to_jax_stash(monkeypatch, fused):
+    """``ModelConfig.fused_mlp`` gives both decoders the ``stash`` argument
+    that JAX's ``ResnetFC`` passes to its kernel for the same value, read
+    from the call it makes on an accelerator backend (a stub kernel
+    records it); ``"never"``, JAX's plain path, is not ported."""
+    import dataclasses
+
+    import avr_tpu.ops.pallas.resnetfc as pallas_mod
+    from avr_tpu_torch.models.pixelnerf import ModelConfig, PixelNeRFNet
+
+    seen = []
+
+    def stub(x, z, params, **kw):
+        seen.append(kw["stash"])
+        return jnp.zeros((x.shape[1], 4), jnp.float32)
+
+    spec = FlaxCodeSpec(**SPEC)
+    mod = FlaxResnetFC(d_in=spec.d_enc, d_out=4, n_blocks=N_BLOCKS, d_latent=D_LATENT,
+                       d_hidden=D_HIDDEN, combine_layer=N_LIN_Z, fused=fused,
+                       code_spec=spec, activate_out=True)
+    x, z = jnp.zeros((1, 1, 2, spec.d_raw)), jnp.zeros((1, 1, 2, D_LATENT))
+    variables = mod.init(jax.random.PRNGKey(0), x, z)
+    monkeypatch.setattr(pallas_mod, "fused_resnetfc", stub)
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    mod.apply(variables, x, z)
+    monkeypatch.undo()
+
+    cfg = dataclasses.replace(ModelConfig(), fused_mlp=fused)
+    if fused == "never":
+        assert seen == []
+        with pytest.raises(NotImplementedError, match="fused_mlp"):
+            PixelNeRFNet(cfg)
+        return
+    net = PixelNeRFNet(cfg)
+    assert net.mlp_coarse.stash == net.mlp_fine.stash == seen[0]
+
+
 # ---------------------------------------------------------------------------
 # K3
 # ---------------------------------------------------------------------------

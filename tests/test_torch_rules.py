@@ -100,6 +100,12 @@ def test_the_scan_covers_the_training_package():
         assert f"avr_tpu_torch/training/{mod}.py" in names
 
 
+def test_the_scan_covers_the_renderers():
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for mod in ("base", "adaptive", "raymarch", "volume", "lstm"):
+        assert f"avr_tpu_torch/renderers/{mod}.py" in names
+
+
 def test_cpu_train_step_runs_the_plain_versions_under_autograd():
     """Under autograd on the CPU no wrapper raises, launches or loads the
     kernel library; every parameter gets a gradient."""
