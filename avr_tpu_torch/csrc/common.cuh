@@ -113,6 +113,41 @@ __device__ __forceinline__ float blend4(float a, float b, float c, float d, cons
   return __fadd_rn(s, __fmul_rn(d, t.w11));
 }
 
+// A world point in one view through its 16 packed projection scalars
+// [R (9) | t (3) | fg (2) | cg (2)] (ops/kernels/march.py pack_projection):
+// cam = R x + t, grid = -(cam_xy / cam_z) * fg + cg.  Every operation is
+// rounded on its own, in the order of the plain PyTorch version
+// (ops/kernels/gather.py project_packed), so the grids agree bit for bit.
+struct Projected {
+  float gx, gy, camx, camy, camz;
+};
+
+__device__ __forceinline__ Projected project_point(const float* p, float x, float y, float z) {
+  Projected q;
+  q.camx = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(p[0], x), __fmul_rn(p[1], y)),
+                               __fmul_rn(p[2], z)), p[9]);
+  q.camy = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(p[3], x), __fmul_rn(p[4], y)),
+                               __fmul_rn(p[5], z)), p[10]);
+  q.camz = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(p[6], x), __fmul_rn(p[7], y)),
+                               __fmul_rn(p[8], z)), p[11]);
+  q.gx = __fadd_rn(__fmul_rn(-__fdiv_rn(q.camx, q.camz), p[12]), p[14]);
+  q.gy = __fadd_rn(__fmul_rn(-__fdiv_rn(q.camy, q.camz), p[13]), p[15]);
+  return q;
+}
+
+// World-point cotangent of the grid cotangent dgrid: grid -> camera ->
+// world (R^T on the camera cotangent).
+__device__ __forceinline__ float3 project_point_bwd(const float* p, const Projected& q,
+                                                    float2 dgrid) {
+  const float inv_z = 1.f / q.camz;
+  const float dcamx = -dgrid.x * p[12] * inv_z;
+  const float dcamy = -dgrid.y * p[13] * inv_z;
+  const float dcamz = (dgrid.x * p[12] * q.camx + dgrid.y * p[13] * q.camy) * inv_z * inv_z;
+  return make_float3(p[0] * dcamx + p[3] * dcamy + p[6] * dcamz,
+                     p[1] * dcamx + p[4] * dcamy + p[7] * dcamz,
+                     p[2] * dcamx + p[5] * dcamy + p[8] * dcamz);
+}
+
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
 
 // Strict live mask of the border clamp's derivative: 1 only for an

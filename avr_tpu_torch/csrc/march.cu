@@ -109,16 +109,8 @@ lstm_march_kernel(const float* __restrict__ proj, const float* __restrict__ coor
     }
     // gather, summed over views into this warp's feature row
     for (int view = 0; view < NS; ++view) {
-      const float* p = proj + ((size_t)sb * NS + view) * 16;
-      const float camx = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(p[0], cx), __fmul_rn(p[1], cy)),
-                                             __fmul_rn(p[2], cz)), p[9]);
-      const float camy = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(p[3], cx), __fmul_rn(p[4], cy)),
-                                             __fmul_rn(p[5], cz)), p[10]);
-      const float camz = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(p[6], cx), __fmul_rn(p[7], cy)),
-                                             __fmul_rn(p[8], cz)), p[11]);
-      const float gx = __fadd_rn(__fmul_rn(-__fdiv_rn(camx, camz), p[12]), p[14]);
-      const float gy = __fadd_rn(__fmul_rn(-__fdiv_rn(camy, camz), p[13]), p[15]);
-      const Taps tp = bilinear_taps(gx, gy, H, W);
+      const Projected q = project_point(proj + ((size_t)sb * NS + view) * 16, cx, cy, cz);
+      const Taps tp = bilinear_taps(q.gx, q.gy, H, W);
       const T* base = feat + ((size_t)sb * NS + view) * H * W * C;
       for (int grp = lane; grp < groups; grp += 32) {
         float t00[V], t01[V], t10[V], t11[V];
@@ -376,15 +368,8 @@ __global__ void __launch_bounds__(WARPS * 32, 1) lstm_march_bwd_kernel(MarchBwdA
       // gather backward per view; v_t re-blended from the same taps
       for (int view = 0; view < NS; ++view) {
         const float* p = a.proj + ((size_t)sb * NS + view) * 16;
-        const float camx = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(p[0], cx), __fmul_rn(p[1], cy)),
-                                               __fmul_rn(p[2], cz)), p[9]);
-        const float camy = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(p[3], cx), __fmul_rn(p[4], cy)),
-                                               __fmul_rn(p[5], cz)), p[10]);
-        const float camz = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(p[6], cx), __fmul_rn(p[7], cy)),
-                                               __fmul_rn(p[8], cz)), p[11]);
-        const float gx = __fadd_rn(__fmul_rn(-__fdiv_rn(camx, camz), p[12]), p[14]);
-        const float gy = __fadd_rn(__fmul_rn(-__fdiv_rn(camy, camz), p[13]), p[15]);
-        const Taps tp = bilinear_taps(gx, gy, a.H, a.W);
+        const Projected q = project_point(p, cx, cy, cz);
+        const Taps tp = bilinear_taps(q.gx, q.gy, a.H, a.W);
         const size_t map = ((size_t)sb * NS + view) * a.H * a.W * C;
         const T* base = feat + map;
         float* dbase = a.dfeat + map;
@@ -409,15 +394,12 @@ __global__ void __launch_bounds__(WARPS * 32, 1) lstm_march_bwd_kernel(MarchBwdA
         }
 #pragma unroll
         for (int k = 0; k < 4; ++k) dot[k] = __shfl_sync(0xffffffffu, warp_sum(dot[k]), 0);
-        const float2 dgrid = tap_coord_grad(dot[0], dot[1], dot[2], dot[3], tp, gx, gy, a.H, a.W);
-        // projection backward: grid -> camera -> world (R^T on the camera grads)
-        const float inv_z = 1.f / camz;
-        const float dcamx = -dgrid.x * p[12] * inv_z;
-        const float dcamy = -dgrid.y * p[13] * inv_z;
-        const float dcamz = (dgrid.x * p[12] * camx + dgrid.y * p[13] * camy) * inv_z * inv_z;
-        gcx += p[0] * dcamx + p[3] * dcamy + p[6] * dcamz;
-        gcy += p[1] * dcamx + p[4] * dcamy + p[7] * dcamz;
-        gcz += p[2] * dcamx + p[5] * dcamy + p[8] * dcamz;
+        const float2 dgrid = tap_coord_grad(dot[0], dot[1], dot[2], dot[3], tp, q.gx, q.gy, a.H,
+                                            a.W);
+        const float3 dw = project_point_bwd(p, q, dgrid);
+        gcx += dw.x;
+        gcy += dw.y;
+        gcz += dw.z;
       }
       // v_t, rounded as the forward rounded it: dW_ih's operand
       T* v_row = static_cast<T*>(a.vbuf) + ((size_t)ray * a.steps + t) * C;

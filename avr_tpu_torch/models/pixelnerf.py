@@ -21,6 +21,8 @@ from avr_tpu_torch.models.encoder import SpatialEncoder
 from avr_tpu_torch.models.mlp import ResnetFC
 from avr_tpu_torch.models.resnet import ResNetTrunk
 from avr_tpu_torch.ops.grid_sample import grid_sample_2d
+from avr_tpu_torch.ops.kernels.gather import gather_bilinear_projected
+from avr_tpu_torch.ops.kernels.march import pack_projection
 from avr_tpu_torch.ops.kernels.resnetfc import CodeSpec
 
 __all__ = ["Conditioning", "ModelConfig", "MLPConfig", "EncoderConfig", "CodeConfig",
@@ -81,6 +83,9 @@ class EncoderConfig:
 
 
 FUSED_MLP_STASH = {"auto": "auto", "always": False, "stash": True, "always_stash": True}
+# the field query's gather: "auto" and "pallas" project outside and run K1
+# on the grid, "pallas_proj" runs K5 on the world points (projection inside)
+GATHER_IMPLS = ("auto", "pallas", "pallas_proj")
 
 
 @dataclass(frozen=True)
@@ -97,6 +102,9 @@ class ModelConfig:
     # the decoder's backward, as JAX's fused_mlp values map to the kernel's
     # stash argument (avr_tpu/models/mlp.py:218-221): FUSED_MLP_STASH
     fused_mlp: str = "auto"
+    # the gather, as JAX's gather_impl (avr_tpu/models/pixelnerf.py:128-131):
+    # GATHER_IMPLS
+    gather_impl: str = "auto"
     encoder: EncoderConfig = field(default_factory=EncoderConfig)
     code: CodeConfig = field(default_factory=CodeConfig)
     mlp_coarse: MLPConfig = field(default_factory=MLPConfig)
@@ -130,6 +138,8 @@ class ModelConfig:
                 bad[name] = mc
         if self.fused_mlp not in FUSED_MLP_STASH:
             bad["fused_mlp"] = self.fused_mlp  # "never": a plain path on the card
+        if self.gather_impl not in GATHER_IMPLS:
+            bad["gather_impl"] = self.gather_impl  # "xla": a plain path on the card
         if bad:
             raise NotImplementedError(f"avr_tpu_torch does not port these settings yet: {bad}")
 
@@ -197,14 +207,17 @@ class PixelNeRFNet(nn.Module):
         return Conditioning(latent, latent_scaling, torch.cat([rot, trans[..., None]], -1),
                             focal, cc, image_shape, NS)
 
-    def project(self, cond: Conditioning, xyz: torch.Tensor) -> tuple:
+    def rotate(self, cond: Conditioning, xyz: torch.Tensor) -> tuple:
         """World points ``(SB, B, 3)`` -> (rotated points ``(SB, NS, B, 3)``,
-        rotation ``(SB, NS, 3, 3)``, grid coords ``(SB * NS, B, 2)``)."""
-        SB, B, _ = xyz.shape
-        NS = cond.num_views
-        poses = cond.poses.reshape(SB, NS, 3, 4)
+        rotation ``(SB, NS, 3, 3)``, translation ``(SB, NS, 3)``)."""
+        SB = xyz.shape[0]
+        poses = cond.poses.reshape(SB, cond.num_views, 3, 4)
         R, t = poses[..., :3], poses[..., 3]
-        xyz_rot = torch.einsum("snij,sbj->snbi", R, xyz)
+        return torch.einsum("snij,sbj->snbi", R, xyz), R, t
+
+    def grid(self, cond: Conditioning, xyz_rot: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """Rotated points ``(SB, NS, B, 3)`` -> grid coords ``(SB * NS, B, 2)``."""
+        SB, NS, B, _ = xyz_rot.shape
         xyz_cam = xyz_rot + t[:, :, None, :]
         uv = -xyz_cam[..., :2] / xyz_cam[..., 2:3]
         focal, cc = cond.focal, cond.c
@@ -214,15 +227,23 @@ class PixelNeRFNet(nn.Module):
             cc = cc.reshape(SB, NS, 1, 2)
         uv = uv * focal + cc
         grid = uv * (cond.latent_scaling / cond.image_shape) - 1.0
-        return xyz_rot, R, grid.reshape(SB * NS, B, 2)
+        return grid.reshape(SB * NS, B, 2)
 
     def forward(self, cond: Conditioning, xyz: torch.Tensor, viewdirs: torch.Tensor,
                 coarse: bool = True) -> torch.Tensor:
         """``(r, g, b, sigma)`` at world points ``(SB, B, 3)`` -> ``(SB, B, 4)`` float32."""
         SB, B, _ = xyz.shape
         NS = cond.num_views
-        xyz_rot, R, grid = self.project(cond, xyz)
+        xyz_rot, R, t = self.rotate(cond, xyz)
         vd = torch.einsum("snij,sbj->snbi", R, viewdirs)
-        latent = grid_sample_2d(cond.latent, grid).reshape(SB, NS, B, -1)
+        if self.cfg.gather_impl == "pallas_proj":
+            # K5: the projection runs in the kernel, on the points broadcast
+            # over the views (avr_tpu/models/pixelnerf.py:481-490)
+            proj = pack_projection(cond.poses, cond.focal, cond.c, cond.latent_scaling,
+                                   cond.image_shape)
+            pts = xyz[:, None].expand(SB, NS, B, 3).reshape(SB * NS, B, 3)
+            latent = gather_bilinear_projected(cond.latent, pts.float().contiguous(), proj)
+        else:
+            latent = grid_sample_2d(cond.latent, self.grid(cond, xyz_rot, t))
         mlp = self.mlp_coarse if coarse else self.mlp_fine
-        return mlp(torch.cat([xyz_rot, vd], dim=-1), latent).float()
+        return mlp(torch.cat([xyz_rot, vd], dim=-1), latent.reshape(SB, NS, B, -1)).float()

@@ -11,6 +11,7 @@ carries weights across.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Optional, Union
 
@@ -20,7 +21,7 @@ from torch import nn
 from avr_tpu_torch.config import Conf, parse_conf
 from avr_tpu_torch.models.pixelnerf import Conditioning, ModelConfig, PixelNeRFNet
 from avr_tpu_torch.ops.hashrng import RaySeeds
-from avr_tpu_torch.renderers.adaptive import render_adaptive
+from avr_tpu_torch.renderers.adaptive import FUSED_INTEGRAL, render_adaptive
 from avr_tpu_torch.renderers.base import (AdaptiveRendererConfig, RaymarcherConfig,
                                           RendererConfig, RenderOutput, VolumeRendererConfig,
                                           renderer_config_from_conf)
@@ -35,13 +36,21 @@ DEFAULT_CONF = os.path.join(os.path.dirname(__file__), "..", "..", "conf", "defa
 
 
 class RadFieldRenderer(nn.Module):
+    """``fused_integral`` picks the adaptive renderer's band compositing, as
+    JAX's attribute of that name (``avr_tpu/models/wrapper.py:53-61``):
+    ``"never"`` (the default) the plain volume integral, ``"auto"`` or
+    ``"always"`` the K4 wrapper."""
+
     def __init__(self, model_cfg: ModelConfig, renderer_cfg: RendererConfig,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, fused_integral: str = "never"):
         super().__init__()
         if not isinstance(renderer_cfg, (VolumeRendererConfig, RaymarcherConfig,
                                          AdaptiveRendererConfig)):
             raise TypeError(f"unknown renderer config {type(renderer_cfg)}")
+        if fused_integral not in FUSED_INTEGRAL:
+            raise ValueError(f"fused_integral {fused_integral!r} not in {FUSED_INTEGRAL}")
         self.renderer_cfg, self.dtype = renderer_cfg, dtype
+        self.fused_integral = fused_integral
         self.net = PixelNeRFNet(model_cfg, dtype)
         if self.has_marcher:
             self.lstm = MarchLSTMCell(self.net.latent_size, renderer_cfg.hidden_size)
@@ -72,7 +81,8 @@ class RadFieldRenderer(nn.Module):
 
         if isinstance(cfg, RaymarcherConfig):
             return render_raymarcher(key, field, march_fn, xy_pix, intrinsics, cam2world)
-        return render_adaptive(cfg, key, field, march_fn, xy_pix, intrinsics, cam2world)
+        return render_adaptive(cfg, key, field, march_fn, xy_pix, intrinsics, cam2world,
+                               self.fused_integral)
 
 
 def init_weights(model: nn.Module, seed: int) -> None:
@@ -97,17 +107,24 @@ def init_weights(model: nn.Module, seed: int) -> None:
 
 def make_model(conf: Union[str, Conf, None] = None, dtype: torch.dtype = torch.bfloat16,
                seed: int = 0, device: Optional[Union[str, torch.device]] = None,
-               renderer: str = "") -> RadFieldRenderer:
+               renderer: str = "", gather_impl: str = "auto",
+               fused_integral: str = "never") -> RadFieldRenderer:
     """The model at the width of ``conf`` (default ``conf/default_mv.conf``)
     with seeded random weights, on the card unless ``device`` says
     otherwise.  ``renderer`` is the experiment name whose prefix picks the
     renderer (:func:`renderer_config_from_conf`): ``"VR..."`` the volume
     renderer, ``"...Raymarcher..."`` the Raymarcher, anything else (the
-    default) the adaptive renderer."""
+    default) the adaptive renderer.  ``gather_impl`` sets
+    ``ModelConfig.gather_impl`` (``"pallas_proj"``: the K5 gather) and
+    ``fused_integral`` the adaptive renderer's band compositing (``"auto"``
+    or ``"always"``: K4); with both the adaptive renderer runs the fused
+    path of the JAX package's ``--gather_impl pallas_proj`` and
+    ``fused_integral``."""
     dev = resolve_device(device)
     if conf is None or isinstance(conf, str):
         conf = parse_conf(conf or DEFAULT_CONF)
-    model = RadFieldRenderer(ModelConfig.from_conf(conf["model"]),
-                             renderer_config_from_conf(conf, renderer), dtype)
+    model_cfg = dataclasses.replace(ModelConfig.from_conf(conf["model"]), gather_impl=gather_impl)
+    model = RadFieldRenderer(model_cfg, renderer_config_from_conf(conf, renderer), dtype,
+                             fused_integral)
     init_weights(model, seed)
     return model.to(dev).eval()

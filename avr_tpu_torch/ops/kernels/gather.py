@@ -1,8 +1,12 @@
-"""K1: bilinear latent gather — CUDA kernels (forward and backward), the
-autograd function that joins them, and the plain version.
+"""K1: bilinear latent gather, and K5: the same gather at the projection of
+world points — CUDA kernels (forward and backward), the autograd functions
+that join them, the plain versions, and the packed projection
+(:func:`project_packed`) that K3's and K5's plain versions share.
 
-Replaces ``avr_tpu/ops/pallas/gather.py:395 gather_bilinear_windowed``
-(forward, ``:415``) and its VJP ``_wbwd`` (``:447``, call ``:463``).
+K1 replaces ``avr_tpu/ops/pallas/gather.py:395 gather_bilinear_windowed``
+(forward, ``:415``) and its VJP ``_wbwd`` (``:447``, call ``:463``), and
+with them ``gather.py:164 gather_bilinear`` (VJP ``_bwd`` ``:207``), the
+same function on the full map.
 Semantics are ``avr_tpu/ops/grid_sample.py`` exactly, i.e.
 ``F.grid_sample(align_corners=True, padding_mode="border")`` on NHWC maps:
 ``x = clip((gx + 1) / 2 * (W - 1), 0, W - 1)``, ``x0 = floor(x)``,
@@ -29,6 +33,16 @@ taps with 16-byte loads, reduces the four dots by shuffles and adds
 samples hit the same few pixels, so the atomics contend (a warp-level
 pre-sum of equal taps is the later lever).  The TPU path's ray sort
 (``models/wrapper.py:160-204``) only feeds its windows; the port has none.
+
+K5 replaces ``gather.py:642 gather_bilinear_projected`` (forward, ``:669``)
+and its VJP ``_pbwd`` (``:699``, call ``:712``): world points ``(B, N, 3)``
+and each view's packed projection ``(B, 16)`` in, the grid computed in the
+kernel in :func:`project_packed`'s order (each operation rounded on its
+own, so the grid, and with it the forward, equals the plain version's bit
+for bit), then K1's gather.  The backward is K1's, chained on through the
+projection to the points; ``proj`` gets no gradient (cameras are
+conditioning, as JAX's zero cotangent says, ``gather.py:745``).  Bound:
+K1's bytes plus 12 B a point of points (and of their cotangent).
 """
 
 from __future__ import annotations
@@ -39,10 +53,13 @@ import torch
 
 from avr_tpu_torch.ops.kernels import _build
 
-__all__ = ["gather_bilinear", "gather_bilinear_plain", "bilinear_f32", "clamp_strict"]
+__all__ = ["gather_bilinear", "gather_bilinear_plain", "bilinear_f32", "clamp_strict",
+           "project_packed", "gather_bilinear_projected", "gather_bilinear_projected_plain"]
 
 NAME = "gather_bilinear"
 NAME_BWD = "gather_bilinear_bwd"
+NAME_PROJ = "gather_bilinear_projected"
+NAME_PROJ_BWD = "gather_bilinear_projected_bwd"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -51,6 +68,21 @@ def clamp_strict(u: torch.Tensor, hi: float) -> torch.Tensor:
     ``(0, hi)``, the live mask of the TPU kernels' backward."""
     inside = (u > 0) & (u < hi)
     return torch.where(inside, u, u.detach().clamp(0.0, hi))
+
+
+def project_packed(p: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """``p (B, 16)`` packed projections (``march.pack_projection``),
+    ``points (B, N, 3)`` world points -> grid coords ``(B, N, 2)``: ``cam = R
+    x + t``, ``grid = -(cam_xy / cam_z) * fg + cg``, each operation on its own
+    in this order (the kernels' ``project_point``, ``csrc/common.cuh``)."""
+    cx, cy, cz = points.unbind(-1)
+    q = lambda k: p[:, k:k + 1]
+    camx = q(0) * cx + q(1) * cy + q(2) * cz + q(9)
+    camy = q(3) * cx + q(4) * cy + q(5) * cz + q(10)
+    camz = q(6) * cx + q(7) * cy + q(8) * cz + q(11)
+    gx = -(camx / camz) * q(12) + q(14)
+    gy = -(camy / camz) * q(13) + q(15)
+    return torch.stack([gx, gy], dim=-1)
 
 
 def _taps(coords: torch.Tensor, H: int, W: int):
@@ -164,3 +196,97 @@ def gather_bilinear(features: torch.Tensor, coords: torch.Tensor) -> torch.Tenso
     if torch.is_grad_enabled() and (features.requires_grad or coords.requires_grad):
         return _Gather.apply(features, coords)
     return _forward(features, coords)
+
+
+# ---------------------------------------------------------------------------
+# K5: the gather at the projection of world points
+# ---------------------------------------------------------------------------
+
+
+def gather_bilinear_projected_plain(features: torch.Tensor, points: torch.Tensor,
+                                    proj: torch.Tensor) -> torch.Tensor:
+    """The K5 kernels' function in plain PyTorch: :func:`project_packed`
+    (``proj`` detached: it gets no gradient) then the K1 blend, output in
+    the map's dtype."""
+    grid = project_packed(proj.detach().float(), points.float())
+    return bilinear_f32(features, grid).to(features.dtype)
+
+
+def _check_projected(features: torch.Tensor, points: torch.Tensor, proj: torch.Tensor) -> None:
+    B, H, W, C = features.shape
+    N = points.shape[1]
+    if features.dtype not in _DTYPES:
+        raise TypeError(f"{NAME_PROJ}: features dtype {features.dtype} not in {list(_DTYPES)}")
+    if points.dtype != torch.float32 or points.shape != (B, N, 3):
+        raise ValueError(f"{NAME_PROJ}: points must be float32 (B, N, 3), got "
+                         f"{points.dtype} {tuple(points.shape)}")
+    if proj.dtype != torch.float32 or proj.shape != (B, 16):
+        raise ValueError(f"{NAME_PROJ}: proj must be float32 (B, 16), got "
+                         f"{proj.dtype} {tuple(proj.shape)}")
+    vec = 16 // features.element_size()
+    if C % vec:
+        raise ValueError(f"{NAME_PROJ}: channels {C} must be a multiple of {vec}")
+    _build.check_cuda_inputs(NAME_PROJ, {"features": features, "points": points, "proj": proj},
+                             features.device)
+
+
+def _forward_projected(features, points, proj):
+    B, H, W, C = features.shape
+    N = points.shape[1]
+    out = torch.empty((B, N, C), dtype=features.dtype, device=features.device)
+    if B * N == 0:
+        return out
+    fn = _build.kernel_fn("avr_gather_projected", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                          + [ctypes.c_void_p])
+    err = fn(_build.ptr(features), _build.ptr(points), _build.ptr(proj), _build.ptr(out), B, H,
+             W, C, N, _DTYPES[features.dtype],
+             ctypes.c_void_p(_build.stream_ptr(features.device)))
+    _build.check(NAME_PROJ, err)
+    return out
+
+
+def _backward_projected(features, points, proj, g):
+    """``(dfeatures in the map's dtype, dpoints float32)`` for cotangent ``g``."""
+    B, H, W, C = features.shape
+    N = points.shape[1]
+    g = g.to(features.dtype).contiguous()
+    _build.check_cuda_inputs(NAME_PROJ_BWD, {"g": g}, features.device)
+    dfeat = torch.zeros((B, H, W, C), dtype=torch.float32, device=features.device)
+    dpoints = torch.zeros((B, N, 3), dtype=torch.float32, device=features.device)
+    if B * N:
+        fn = _build.kernel_fn("avr_gather_projected_bwd", [ctypes.c_void_p] * 6
+                              + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        err = fn(_build.ptr(features), _build.ptr(points), _build.ptr(proj), _build.ptr(g),
+                 _build.ptr(dfeat), _build.ptr(dpoints), B, H, W, C, N,
+                 _DTYPES[features.dtype], ctypes.c_void_p(_build.stream_ptr(features.device)))
+        _build.check(NAME_PROJ_BWD, err)
+    return dfeat.to(features.dtype), dpoints
+
+
+class _GatherProjected(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, features, points, proj):
+        ctx.save_for_backward(features, points, proj)
+        return _forward_projected(features, points, proj)
+
+    @staticmethod
+    def backward(ctx, g):
+        features, points, proj = ctx.saved_tensors
+        dfeat, dpoints = _backward_projected(features, points, proj, g)
+        return dfeat, dpoints, None
+
+
+def gather_bilinear_projected(features: torch.Tensor,  # (B, H, W, C) per-view maps
+                              points: torch.Tensor,  # (B, N, 3) world points
+                              proj: torch.Tensor,  # (B, 16) packed projections
+                              ) -> torch.Tensor:
+    """Bilinear-sample each view's map at the projection of its world
+    points -> ``(B, N, C)`` in the map's dtype.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel, and under autograd its backward
+    kernel (gradients for the map and the points, none for ``proj``)."""
+    if features.device.type == "cpu":
+        return gather_bilinear_projected_plain(features, points, proj)
+    _check_projected(features, points, proj)
+    if torch.is_grad_enabled() and (features.requires_grad or points.requires_grad):
+        return _GatherProjected.apply(features, points, proj)
+    return _forward_projected(features, points, proj)

@@ -42,7 +42,7 @@ import ctypes
 import torch
 
 from avr_tpu_torch.ops.kernels import _build
-from avr_tpu_torch.ops.kernels.gather import bilinear_f32
+from avr_tpu_torch.ops.kernels.gather import bilinear_f32, project_packed
 from avr_tpu_torch.ops.kernels.resnetfc import wgrad
 from avr_tpu_torch.renderers.lstm import clamp_grad
 
@@ -75,18 +75,6 @@ def pack_projection(poses_w2c: torch.Tensor, focal: torch.Tensor, c: torch.Tenso
     return torch.cat([rot, t, fg, cg], dim=-1).float()
 
 
-def _project(p: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-    """``p (SB, 16)``, ``coords (SB, R, 3)`` -> grid coords ``(SB, R, 2)``."""
-    cx, cy, cz = coords.unbind(-1)
-    q = lambda k: p[:, k:k + 1]
-    camx = q(0) * cx + q(1) * cy + q(2) * cz + q(9)
-    camy = q(3) * cx + q(4) * cy + q(5) * cz + q(10)
-    camz = q(6) * cx + q(7) * cy + q(8) * cz + q(11)
-    gx = -(camx / camz) * q(12) + q(14)
-    gy = -(camy / camz) * q(13) + q(15)
-    return torch.stack([gx, gy], dim=-1)
-
-
 def lstm_march_plain(proj, coords0, rds, feat, w_ih, w_hh, bias, w_out, b_out, *,
                      steps: int, early_stop_eps: float = 0.0, grad_clamp: float = 10.0,
                      compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
@@ -106,7 +94,7 @@ def lstm_march_plain(proj, coords0, rds, feat, w_ih, w_hh, bias, w_out, b_out, *
     for _ in range(steps):
         v = None
         for view in range(NS):
-            g = bilinear_f32(feat[:, view], _project(proj[:, view], coords))
+            g = bilinear_f32(feat[:, view], project_packed(proj[:, view], coords))
             v = g if v is None else v + g
         if NS > 1:
             v = v * (1.0 / NS)

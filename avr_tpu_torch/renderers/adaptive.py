@@ -6,6 +6,13 @@ point) -> distance along the ray ``<coords - ro, rd>`` -> stratified band
 query -> volume integral -> camera-z depth.  The TPU path's optional ray
 sort only serves its windowed gather; per-ray results do not depend on it,
 so the port has none.
+
+``fused_integral`` (``"never"``, ``"auto"``, ``"always"``, the JAX
+package's values): ``"never"`` composites the band with the plain volume
+integral; the others with the K4 wrapper on the decoder's rows as they come
+(:func:`~avr_tpu_torch.ops.kernels.integrate.fused_volume_integral`: the
+kernel on CUDA tensors, its plain version on CPU tensors), which gives no
+band opacity (``acc`` is None), as in JAX (``adaptive.py:105-125``).
 """
 
 from __future__ import annotations
@@ -16,11 +23,14 @@ import torch
 
 from avr_tpu_torch.ops.hashrng import RaySeeds, split_any
 from avr_tpu_torch.ops.integrate import volume_integral
+from avr_tpu_torch.ops.kernels.integrate import fused_volume_integral
 from avr_tpu_torch.ops.sampling import sample_coarse
 from avr_tpu_torch.renderers.base import AdaptiveRendererConfig, RenderOutput
 from avr_tpu_torch.utils.geometry import depth_from_world, get_world_rays
 
-__all__ = ["render_adaptive"]
+__all__ = ["render_adaptive", "FUSED_INTEGRAL"]
+
+FUSED_INTEGRAL = ("never", "auto", "always")
 
 # field(xyz (SB, N, 3), viewdirs (SB, N, 3), coarse) -> (SB, N, 4)
 FieldFn = Callable[[torch.Tensor, torch.Tensor, bool], torch.Tensor]
@@ -30,7 +40,7 @@ MarchFn = Callable[[RaySeeds, torch.Tensor, torch.Tensor], torch.Tensor]
 
 def render_adaptive(cfg: AdaptiveRendererConfig, key: RaySeeds, field: FieldFn,
                     march_fn: MarchFn, xy_pix: torch.Tensor, intrinsics: torch.Tensor,
-                    cam2world: torch.Tensor) -> RenderOutput:
+                    cam2world: torch.Tensor, fused_integral: str = "never") -> RenderOutput:
     ros, rds = get_world_rays(xy_pix, intrinsics, cam2world)
     k_march, k_band = split_any(key)
     coords = march_fn(k_march, ros, rds)
@@ -44,8 +54,14 @@ def render_adaptive(cfg: AdaptiveRendererConfig, key: RaySeeds, field: FieldFn,
     pts = ros[..., None, :] + rds[..., None, :] * z[..., None]
     vd = rds[..., None, :].expand(SB, R, n, 3)
     out = field(pts.reshape(SB, R * n, 3), vd.reshape(SB, R * n, 3), False)
-    out = out.reshape(SB, R, n, 4)
-    rgb, distance, weights = volume_integral(z, out[..., 3:4], out[..., :3],
-                                             white_back=cfg.white_back)
+    if fused_integral == "never":
+        out = out.reshape(SB, R, n, 4)
+        rgb, distance, weights = volume_integral(z, out[..., 3:4], out[..., :3],
+                                                 white_back=cfg.white_back)
+        acc = torch.sum(weights, dim=-2)
+    else:
+        rgb, distance = fused_volume_integral(z.contiguous(), out.contiguous(),
+                                              white_back=cfg.white_back)
+        acc = None
     depth = depth_from_world(ros + rds * distance, cam2world)[..., None]
-    return RenderOutput(rgb_coarse, rgb, depth_coarse, depth, torch.sum(weights, dim=-2))
+    return RenderOutput(rgb_coarse, rgb, depth_coarse, depth, acc)

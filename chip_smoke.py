@@ -17,28 +17,38 @@ Phases (any failure raises and exits non-zero):
    arithmetic is the same) at the band call and at the VR fine pass
    (1,572,864 points), where it is held against the plain autograd too,
    and with its host loop cut to 1,000-point chunks; the integral's
-   adjoint with a saturated lane.  Times (CUDA events) of the kernel, the
-   plain version and, where one PyTorch call computes the same function,
-   that call; the least time the card could take (bytes over 3.35 TB/s or
-   operations over the type's peak).
+   adjoint with a saturated lane; K4 (the band integral) at the train
+   step's band (4 x 4,096 rays x 20 samples) and a serving chunk, with
+   saturated samples and a ray of zero density, forward and backward; K5
+   (the projected gather) at both of its calls on the fused path, the band
+   query (81,920 points a scene) and the coarse query at the marched point
+   (4,096), in 1 scene (serving) and 4 (the train step), bf16 and float32,
+   1 and 2 views, forward and backward.  Times (CUDA events) of the kernel, the plain version
+   and, where one PyTorch call computes the same function, that call (K4
+   and K5 also the kernel's own device time, from the profiler); the least
+   time the card could take (bytes over 3.35 TB/s or operations over the
+   type's peak).
 3. Serve: the full-width ``conf/default_mv.conf`` model (bf16, seeded random
-   weights) of each renderer (adaptive, VR, Raymarcher) encodes one 128x128
-   source view and renders 3 orbit frames of 128x128 through
-   ``evaluation.generate_video``; the launch counters are reset just before
+   weights) of each renderer (adaptive, VR, Raymarcher, and the adaptive
+   renderer's fused path: ``gather_impl="pallas_proj"``,
+   ``fused_integral="always"``) encodes one 128x128 source view and
+   renders 3 orbit frames of 128x128 through ``evaluation.generate_video``; the launch counters are reset just before
    and read just after, and must show each kernel's launches per chunk.
 4. Train: 2 warm-up and 10 (adaptive) or 5 timed train steps of the same
    models (Adam, bf16, SB 4 x 4,096 rays on ``bench.py``'s synthetic
    batch): the adaptive renderer, the VR in one chunk (K2's recompute
    backward), the VR in 8 chunks (``make_chunked_call_train_step``, the
-   stash backward) and the Raymarcher (``loss_mode="coarse"``); the
+   stash backward), the Raymarcher (``loss_mode="coarse"``) and the
+   adaptive renderer's fused path; the
    counters, reset before the timed steps, must show each kernel's expected
    launches per step; the loss is finite, no update was skipped, and every
    parameter and BatchNorm statistic moved but those the loss gives no
    gradient, which must not.  The one-chunk and 8-chunk VR steps from the
    same weights give the same loss and gradients up to summation order.
-   ``--profile`` traces a frame and a train step of the adaptive renderer
-   and the VR.
-5. Reference: small float32 renders and train steps (adaptive and VR)
+   ``--profile`` traces a frame and a train step of the adaptive renderer,
+   its fused path and the VR.
+5. Reference: small float32 renders and train steps (adaptive, its fused
+   path, and VR)
    through the kernels on the card, against the plain path on the CPU
    (and, for the gradients, the plain versions on the card).
 
@@ -65,8 +75,11 @@ import torch.nn.functional as F
 from avr_tpu_torch.evaluation import generate_video, render_full_image
 from avr_tpu_torch.models.wrapper import make_model
 from avr_tpu_torch.ops.kernels import _build
+from avr_tpu_torch.ops.kernels import integrate as K4
 from avr_tpu_torch.ops.kernels import resnetfc as K2
-from avr_tpu_torch.ops.kernels.gather import gather_bilinear, gather_bilinear_plain
+from avr_tpu_torch.ops.kernels.gather import (gather_bilinear, gather_bilinear_plain,
+                                              gather_bilinear_projected,
+                                              gather_bilinear_projected_plain)
 from avr_tpu_torch.ops.kernels.march import (fused_lstm_march, lstm_march_plain,
                                              pack_projection)
 from avr_tpu_torch.ops.integrate import volume_integral
@@ -150,7 +163,9 @@ def check_gather(gen):
                                                padding_mode="border", align_corners=True))
     b_ms, b_by = bound(feat.numel() * 2 + BAND * 2 * 4 + BAND * C * 2, 8 * BAND * C, F32_FLOPS)
     return dict(name="gather_bilinear", source="avr_tpu_torch/csrc/gather.cu",
-                replaces="avr_tpu/ops/pallas/gather.py:395", tpu_kernel="gather_bilinear_windowed",
+                replaces="avr_tpu/ops/pallas/gather.py:395",
+                also_replaces="avr_tpu/ops/pallas/gather.py:164",
+                tpu_kernel="gather_bilinear_windowed (K1) and gather_bilinear (K6), one function",
                 shape=f"latent 1x{LATENT}x{LATENT}x{C} bf16, N={BAND}", cases=cases,
                 ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
 
@@ -365,7 +380,9 @@ def check_gather_bwd(gen):
     b_ms, b_by = bound(n_pts * C * 2 + hwc * 2 + 2 * hwc * 4 + 2 * n_pts * 2 * 4,
                        16 * n_pts * C, F32_FLOPS)
     return dict(name="gather_bilinear_bwd", source="avr_tpu_torch/csrc/gather.cu",
-                replaces="avr_tpu/ops/pallas/gather.py:463", tpu_kernel="_wbwd",
+                replaces="avr_tpu/ops/pallas/gather.py:463",
+                also_replaces="avr_tpu/ops/pallas/gather.py:221",
+                tpu_kernel="_wbwd (K1) and _bwd (K6), one function",
                 shape=f"latent {SB_TRAIN}x{LATENT}x{LATENT}x{C} bf16, N={BAND} per scene",
                 cases=cases, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
                 bound_by=b_by)
@@ -891,6 +908,201 @@ def check_integral_saturated(gen):
     return {"case": "saturated lane", "finite": True}
 
 
+N_BAND = 20  # the adaptive renderer's band samples a ray (conf n_coarse)
+
+
+def integral_inputs(gen, sb, n=N_BAND):
+    """K4's inputs: per ray of a chunk ``n`` stratified band samples over +-0.15
+    around a surface distance in [0.8, 1.6] (``sample_coarse``'s layout),
+    colours in [0, 1] and densities of a ReLU'd decoder (a fifth of them 0,
+    the rest up to 30); in scene 0 sample 4 of every 97th ray saturates (e
+    is exactly 0) and ray 7 has no density at all."""
+    d = 0.8 + 0.8 * torch.rand(sb, CHUNK, 1, generator=gen, device=DEV)
+    u = (torch.arange(n, device=DEV) + torch.rand(sb, CHUNK, n, generator=gen, device=DEV)) / n
+    z = (d - 0.15 + 0.3 * u).contiguous()
+    fo = torch.rand(sb, CHUNK * n, 4, generator=gen, device=DEV)
+    fo[..., 3] *= 30.0
+    fo[:, ::5, 3] = 0.0
+    fo[0, 4::97 * n, 3] = 1e6
+    fo[0, 7 * n:8 * n, 3] = 0.0
+    return z, fo
+
+
+def integral_bound(rays, n, backward):
+    """Bytes: z and the field rows read (and their cotangents written, and
+    the ray cotangents read, backward), the ray outputs written; operations
+    ~20 float32 a sample each way."""
+    io = rays * n * (4 + 16) * (2 if backward else 1) + rays * 16
+    return bound(io, rays * n * 20 * (2 if backward else 1), F32_FLOPS)
+
+
+def check_integral(gen):
+    cases = []
+    for sb in (SB_TRAIN, 1):  # the train step's band, a serving chunk
+        z, fo = integral_inputs(gen, sb)
+        got = K4.fused_volume_integral(z, fo)
+        want = K4.fused_volume_integral_plain(z, fo)
+        # float32 on both sides: the transmittance's prefix product is
+        # associated as the TPU kernel's doubling against cumprod, the sums
+        # in another order; colours and distances are O(1): 1e-5
+        for nm, a, b in zip(("rgb", "distance"), got, want):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"K4 {nm}: non-finite output")
+            cases.append(check(f"{nm} SB={sb} R={CHUNK} n={N_BAND}", max_err(a, b), 1e-5))
+        if sb == 1 and max_err(got[0][0, 7], torch.ones(3, device=DEV)) > 1e-6:
+            raise AssertionError("K4: the ray of zero density is not white background")
+    z, fo = integral_inputs(gen, SB_TRAIN)
+    run = lambda: K4.fused_volume_integral(z, fo)
+    ms = kernel_device_ms(run, ("volume_integral_kernel",), iters=20)["volume_integral_kernel"]
+    b_ms, b_by = integral_bound(SB_TRAIN * CHUNK, N_BAND, False)
+    return dict(name=K4.NAME, source="avr_tpu_torch/csrc/integrate.cu",
+                replaces="avr_tpu/ops/pallas/integrate.py:302",
+                tpu_kernel="fused_volume_integral (_run_fwd)",
+                shape=f"{SB_TRAIN}x{CHUNK} rays x {N_BAND} samples, f32", cases=cases, ms=ms,
+                call_ms=time_ms(run, iters=50),
+                plain_ms=time_ms(lambda: K4.fused_volume_integral_plain(z, fo), iters=20),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def check_integral_bwd(gen):
+    n = N_BAND
+    cases = []
+    for sb in (SB_TRAIN, 1):
+        z, fo = integral_inputs(gen, sb)
+        g = (randn(gen, sb, CHUNK, 3), randn(gen, sb, CHUNK, 1))
+        got = grads_of(K4.fused_volume_integral, (z, fo), g)
+        want = grads_of(K4.fused_volume_integral_plain, (z, fo), g)
+        # relative L2, float32 without atomics: the closed form divides by
+        # q = 1 - alpha + 1e-10 (the TPU kernel's) where the plain adjoint
+        # divides by exp(-sigma delta) + 1e-10, and the suffix sums and
+        # products associate differently: 1e-5.  The empty ray's last
+        # sample has sigma 0 under the constant 1e10 step, so its density
+        # cotangent is ~1e10 on both sides: held on its own (relative to its
+        # largest value) and masked out of the density channel's L2
+        label = f"SB={sb} R={CHUNK} n={n}"
+        keep = torch.ones_like(fo[..., 3])
+        keep[0, 7 * n:8 * n] = 0.0
+        cases += [check_l2(f"dz {label}", got[0], want[0], 1e-5),
+                  check_l2(f"dfo rgb {label}", got[1][..., :3], want[1][..., :3], 1e-5),
+                  check_l2(f"dfo sigma {label} (the empty ray apart)", got[1][..., 3] * keep,
+                           want[1][..., 3] * keep, 1e-5),
+                  check_rel(f"dfo sigma {label}, the empty ray", got[1][0, 7 * n:8 * n, 3],
+                            want[1][0, 7 * n:8 * n, 3], 1e-5)]
+    z, fo = integral_inputs(gen, SB_TRAIN)
+    g = (randn(gen, SB_TRAIN, CHUNK, 3), randn(gen, SB_TRAIN, CHUNK, 1))
+    _, run = grads_of(K4.fused_volume_integral, (z, fo), g, keep=True)
+    _, run_plain = grads_of(K4.fused_volume_integral_plain, (z, fo), g, keep=True)
+    ms = kernel_device_ms(run, ("volume_integral_bwd_kernel",),
+                          iters=20)["volume_integral_bwd_kernel"]
+    b_ms, b_by = integral_bound(SB_TRAIN * CHUNK, n, True)
+    return dict(name=K4.NAME_BWD, source="avr_tpu_torch/csrc/integrate.cu",
+                replaces="avr_tpu/ops/pallas/integrate.py:276", tpu_kernel="fused_volume_integral "
+                "VJP (bwd)", shape=f"{SB_TRAIN}x{CHUNK} rays x {n} samples, f32", cases=cases,
+                ms=ms, call_ms=time_ms(run, iters=50), plain_ms=time_ms(run_plain, iters=20),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def proj_inputs(gen, sb, ns, dtype, n):
+    """K5's inputs at a field query of ``sb`` scenes and ``ns`` views: the
+    latent, the points broadcast over the views, and each view's packed
+    projection.  The points lie on ``march_inputs``' rays, which are
+    jittered off the pixel centres and seen by source views that are not
+    the ray camera: at the band query (``n = BAND``) ``N_BAND`` a ray over
+    +-0.15 about the marched point, at the coarse query (``n = CHUNK``) the
+    marched point itself, one a ray."""
+    inp = march_inputs(gen, ns, dtype=dtype, sb=sb)
+    pts = inp["coords0"]
+    if n == BAND:
+        off = (torch.rand(sb, CHUNK, N_BAND, 1, generator=gen, device=DEV) - 0.5) * 0.3
+        pts = pts[:, :, None] + inp["rds"][:, :, None] * off
+    pts = pts.reshape(sb, 1, n, 3).expand(sb, ns, n, 3).reshape(sb * ns, n, 3)
+    return (inp["feat"].reshape(sb * ns, LATENT, LATENT, C), pts.contiguous(),
+            inp["proj"].reshape(sb * ns, 16).contiguous())
+
+
+# every field query of the fused path goes through K5: the band (BAND
+# points a scene) and the coarse query at the marched point (CHUNK)
+PROJ_CASES = [(sb, ns, cd, n) for sb in (1, SB_TRAIN) for ns in (1, 2)
+              for cd in (torch.bfloat16, torch.float32) for n in (BAND, CHUNK)]
+
+
+def proj_bound(b, n, dtype, backward):
+    """K1's bytes plus the points (12 B a point) and the 16 scalars a view;
+    backward also the points' cotangent; operations: the projection (~20 a
+    point) and 8 (forward) or 16 (backward) a channel."""
+    elt = torch.finfo(dtype).bits // 8
+    hwc, pts = b * LATENT * LATENT * C, b * n
+    io = hwc * elt + pts * C * elt + pts * 12 + b * 64
+    if backward:
+        io += 2 * hwc * 4 + pts * 12
+    return bound(io, pts * (20 + (16 if backward else 8) * C), F32_FLOPS)
+
+
+def check_gather_proj(gen):
+    cases = []
+    for sb, ns, cd, n in PROJ_CASES:
+        feat, pts, proj = proj_inputs(gen, sb, ns, cd, n)
+        got = gather_bilinear_projected(feat, pts, proj)
+        want = gather_bilinear_projected_plain(feat, pts, proj)
+        # bitwise equal by construction (the projection and K1's taps and
+        # blend, each operation rounded on its own in the plain version's
+        # order); the tolerance allows one rounding flip of a value of ~4:
+        # a bf16 ulp (2e-2), a few float32 ulps (1e-5)
+        tol = 2e-2 if cd == torch.bfloat16 else 1e-5
+        label = f"SB={sb} NS={ns} N={n} {str(cd)[6:]}"
+        cases.append(dict(check(label, max_err(got, want), tol), bitwise=same_bits(got, want)))
+        del feat, pts, proj, got, want
+    feat, pts, proj = proj_inputs(gen, 1, 1, torch.bfloat16, BAND)  # the serving band call
+    run = lambda: gather_bilinear_projected(feat, pts, proj)
+    ms = kernel_device_ms(run, ("gather_projected_kernel",), iters=20)["gather_projected_kernel"]
+    b_ms, b_by = proj_bound(1, BAND, torch.bfloat16, False)
+    bits = [c["bitwise"] for c in cases]
+    print(f"K5 forward: bitwise equal to the plain version in {sum(bits)} of {len(bits)} cases")
+    return dict(name="gather_bilinear_projected", source="avr_tpu_torch/csrc/gather.cu",
+                replaces="avr_tpu/ops/pallas/gather.py:642",
+                tpu_kernel="gather_bilinear_projected",
+                shape=f"latent 1x{LATENT}x{LATENT}x{C} bf16, N={BAND}", cases=cases, ms=ms,
+                call_ms=time_ms(run, iters=20),
+                plain_ms=time_ms(lambda: gather_bilinear_projected_plain(feat, pts, proj)),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def check_gather_proj_bwd(gen):
+    cases = []
+    for sb, ns, cd, n in PROJ_CASES:
+        feat, pts, proj = proj_inputs(gen, sb, ns, cd, n)
+        g = randn(gen, sb * ns, n, C, dtype=cd)
+        fk = lambda f, p: gather_bilinear_projected(f, p, proj)
+        fp = lambda f, p: gather_bilinear_projected_plain(f, p, proj)
+        got, want = grads_of(fk, (feat, pts), g), grads_of(fp, (feat, pts), g)
+        # relative L2: the float32 map atomics run in a changing order.
+        # dfeat: float32 1e-5 (order only); bf16 2^-7: the kernel rounds the
+        # tap weight to bf16 before w * g (as the TPU kernel does), the plain
+        # version does not, and both round the sum to bf16 once.  dpoints:
+        # float32 dots of C products in another order, times (W - 1) / 2 and
+        # the focal, chained through the projection (the kernel multiplies
+        # by 1 / cam_z where autograd divides): 1e-4
+        label = f"SB={sb} NS={ns} N={n} {str(cd)[6:]}"
+        cases += [check_l2(f"dfeat {label}", got[0], want[0],
+                           2.0 ** -7 if cd == torch.bfloat16 else 1e-5),
+                  check_l2(f"dpoints {label}", got[1], want[1], 1e-4)]
+        del feat, pts, proj, g, got, want
+    feat, pts, proj = proj_inputs(gen, SB_TRAIN, 1, torch.bfloat16, BAND)  # the train step's
+    g = randn(gen, SB_TRAIN, BAND, C, dtype=torch.bfloat16)
+    _, run = grads_of(lambda f, p: gather_bilinear_projected(f, p, proj), (feat, pts), g,
+                      keep=True)
+    _, run_plain = grads_of(lambda f, p: gather_bilinear_projected_plain(f, p, proj),
+                            (feat, pts), g, keep=True)
+    ms = kernel_device_ms(run, ("gather_projected_bwd_kernel",),
+                          iters=10)["gather_projected_bwd_kernel"]
+    b_ms, b_by = proj_bound(SB_TRAIN, BAND, torch.bfloat16, True)
+    return dict(name="gather_bilinear_projected_bwd", source="avr_tpu_torch/csrc/gather.cu",
+                replaces="avr_tpu/ops/pallas/gather.py:712", tpu_kernel="_pbwd",
+                shape=f"latent {SB_TRAIN}x{LATENT}x{LATENT}x{C} bf16, N={BAND} per scene",
+                cases=cases, ms=ms, call_ms=time_ms(run), plain_ms=time_ms(run_plain, iters=3),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the serving path
 # ---------------------------------------------------------------------------
@@ -912,22 +1124,34 @@ def encode_scene(model, batch, dev):
                         float(batch["focal"][0, 0]), torch.as_tensor(batch["c"][0, 0]).to(dev))
 
 
-# kernel launches per 4,096-ray chunk of a served frame, by renderer: the
+# the adaptive renderer's fused path: K5's gather, K4's band integral
+FUSED = dict(gather_impl="pallas_proj", fused_integral="always")
+# each path: make_model's renderer name and keywords
+PATHS = {"adaptive": ("", {}), "VR": ("VR", {}), "Raymarcher": ("Raymarcher", {}),
+         "adaptive_fused": ("", FUSED)}
+# kernel launches per 4,096-ray chunk of a served frame, by path: the
 # adaptive renderer marches and queries twice (coarse point, band), the VR
-# queries its coarse and fine samples, the Raymarcher marches and queries once
+# queries its coarse and fine samples, the Raymarcher marches and queries
+# once; the fused path queries through K5 and composites the band in K4
 SERVE_LAUNCHES = {
-    "": {"fused_lstm_march": 1, "gather_bilinear": 2, "fused_resnetfc": 2},
+    "adaptive": {"fused_lstm_march": 1, "gather_bilinear": 2, "fused_resnetfc": 2},
     "VR": {"gather_bilinear": 2, "fused_resnetfc": 2},
     "Raymarcher": {"fused_lstm_march": 1, "gather_bilinear": 1, "fused_resnetfc": 1},
+    "adaptive_fused": {"fused_lstm_march": 1, "gather_bilinear_projected": 2,
+                       "fused_resnetfc": 2, "fused_volume_integral": 1},
 }
 
 
-def run_slice(renderer="", frames=3):
+def path_model(path, dtype, dev):
+    renderer, kw = PATHS[path]
+    return make_model(dtype=dtype, seed=0, device=dev, renderer=renderer, **kw)
+
+
+def run_slice(path="adaptive", frames=3):
     """Serve ``frames`` orbit frames of 128x128 through ``generate_video``
-    with the full-width model of ``renderer`` (``make_model``'s name: ""
-    the adaptive renderer, "VR", "Raymarcher"); the launch counters are
-    reset just before and read just after."""
-    model = make_model(dtype=torch.bfloat16, seed=0, device=DEV, renderer=renderer)
+    with the full-width model of ``path`` (a key of PATHS); the launch
+    counters are reset just before and read just after."""
+    model = path_model(path, torch.bfloat16, DEV)
     batch = scene_batch()
     generate_video(model, batch, 1, 1.3, render_chunk=CHUNK, device=DEV)  # warm-up: cuDNN/cuBLAS set-up
     torch.cuda.synchronize()
@@ -938,10 +1162,9 @@ def run_slice(renderer="", frames=3):
     seconds = time.perf_counter() - t0
     counts = dict(_build.launches)
     chunks = frames * SIDE * SIDE // CHUNK
-    want = {k: v * chunks for k, v in SERVE_LAUNCHES[renderer].items()}
+    want = {k: v * chunks for k, v in SERVE_LAUNCHES[path].items()}
     if counts != want:
-        raise AssertionError(f"{renderer or 'adaptive'} serve: launch counts {counts} != "
-                             f"expected {want}")
+        raise AssertionError(f"{path} serve: launch counts {counts} != expected {want}")
     if len(video) != frames or any(f.shape != (SIDE, SIDE, 3) for f in video):
         raise AssertionError("wrong frame count or shape")
     # outside the counted run: frame 0 as floats (finite, in [0, 1], the
@@ -969,7 +1192,7 @@ def run_slice(renderer="", frames=3):
         render(i)
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t) * 1e3)
-    res = dict(renderer=renderer or "adaptive", frames=frames, video_seconds=seconds,
+    res = dict(path=path, frames=frames, video_seconds=seconds,
                frame_ms=frame_ms, ms_per_frame=float(np.median(frame_ms)),
                rays_per_s=SIDE * SIDE / float(np.median(frame_ms)) * 1e3, launches=counts,
                rgb_mean=float(rgb.mean()))
@@ -998,7 +1221,8 @@ def profile_frame(render, label="frame", out_dir="traces"):
     busy_us = sum(r[1] for r in rows)
     ours = ("gather_bilinear_kernel", "gather_bilinear_bwd_kernel", "resnetfc_kernel",
             "resnetfc_dgrad_kernel", "resnetfc_wgrad_kernel", "resnetfc_bwd_recompute_kernel",
-            "lstm_march_kernel", "lstm_march_bwd_kernel")
+            "lstm_march_kernel", "lstm_march_bwd_kernel", "gather_projected_kernel",
+            "gather_projected_bwd_kernel", "volume_integral_kernel", "volume_integral_bwd_kernel")
     kernel_us = sum(r[1] for r in rows if any(o in r[0] for o in ours))
     print(f"profile {label}: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
           f"({busy_us / wall_us:.3f} of wall), port kernels {kernel_us / 1e3:.3f} ms")
@@ -1011,28 +1235,28 @@ def profile_frame(render, label="frame", out_dir="traces"):
                 top=[dict(op=k[:100], ms=us / 1e3, count=c) for k, us, c in rows[:25]])
 
 
-def small_model(dev, renderer):
-    """The full-width model in float32; the marching renderers take 2 march
-    steps."""
-    model = make_model(dtype=torch.float32, seed=0, device=dev, renderer=renderer)
+def small_model(dev, path):
+    """The full-width model of ``path`` in float32; the marching renderers
+    take 2 march steps."""
+    model = path_model(path, torch.float32, dev)
     if model.has_marcher:
         model.renderer_cfg = dataclasses.replace(model.renderer_cfg, raymarch_steps=2)
     return model
 
 
-def check_small_reference(renderer="", sl=16):
+def check_small_reference(path="adaptive", sl=16):
     """A 16x16 render in float32: kernels on the card against the same
     weights' plain path on the CPU."""
     outs = []
     for dev in (DEV, torch.device("cpu")):
-        model = small_model(dev, renderer)
+        model = small_model(dev, path)
         batch = scene_batch()
         with torch.inference_mode():
             cond = encode_scene(model, batch, dev)
             c2w = torch.as_tensor(batch["cam2world"][:, 0])
             outs.append(render_full_image(model, cond, torch.as_tensor(batch["intrinsics"][:, 0]),
                                           c2w, sl, (0, 7), 128, dev))
-    label = f"{renderer or 'adaptive'} {sl}x{sl} f32 card vs CPU"
+    label = f"{path} {sl}x{sl} f32 card vs CPU"
     names = [k for k, v in outs[1]._asdict().items() if v is not None]
     # f32 everywhere; the encoder's convolutions (cuDNN vs CPU) and the
     # decoder's FMA order differ in the last bits, and two march steps
@@ -1040,7 +1264,7 @@ def check_small_reference(renderer="", sl=16):
     # inverse CDF from the coarse weights: a draw within those last bits of
     # a bin edge lands in the other bin on one device and moves its ray's
     # fine output, so there at most 1% of the rays may pass 2e-3
-    fine = {"rgb_fine", "depth_fine", "depth_coarse"} if renderer == "VR" else set()
+    fine = {"rgb_fine", "depth_fine", "depth_coarse"} if path == "VR" else set()
     cases = []
     for name in names:
         err = (getattr(outs[0], name).cpu() - getattr(outs[1], name)).abs().amax(-1)
@@ -1074,6 +1298,12 @@ TRAIN_LAUNCHES = {
                  "fused_resnetfc_bwd_dgrad": 2, "fused_resnetfc_bwd_wgrad": 2,
                  "fused_lstm_march": 1, "fused_lstm_march_bwd": 1,
                  "fused_lstm_march_bwd_wgrad": 1},
+    # the adaptive path's K2 and K3 launches; K5 in place of K1, and K4
+    "adaptive_fused": {"gather_bilinear_projected": 2, "gather_bilinear_projected_bwd": 2,
+                       "fused_volume_integral": 1, "fused_volume_integral_bwd": 1,
+                       "fused_resnetfc_stash": 2, "fused_resnetfc_bwd_dgrad": 2,
+                       "fused_resnetfc_bwd_wgrad": 2, "fused_lstm_march": 1,
+                       "fused_lstm_march_bwd": 1, "fused_lstm_march_bwd_wgrad": 1},
     "vr": {"gather_bilinear": 2, "gather_bilinear_bwd": 2, "fused_resnetfc": 2,
            "fused_resnetfc_bwd_recompute": _recompute_chunks(COARSE_VR)
            + _recompute_chunks(FINE_VR),
@@ -1089,7 +1319,7 @@ TRAIN_LAUNCHES = {
 # where they were: the coarse decoder's sigma row (the loss reads only its
 # rgb) for the marching renderers, and the Raymarcher's unused fine decoder
 SIGMA_ROW = [("net.mlp_coarse.lin_out.weight", 3), ("net.mlp_coarse.lin_out.bias", 3)]
-FROZEN = {"adaptive": SIGMA_ROW, "vr": [], "vr_chunked": [],
+FROZEN = {"adaptive": SIGMA_ROW, "adaptive_fused": SIGMA_ROW, "vr": [], "vr_chunked": [],
           "raymarcher": SIGMA_ROW + [("net.mlp_fine.", None)]}
 
 
@@ -1116,8 +1346,8 @@ def run_train(path="adaptive", steps=10, warmup=2):
     counters reset just before them.  The loss is finite, no update was
     skipped, every parameter and BatchNorm statistic moved but those the
     loss gives no gradient (FROZEN), which must not have moved."""
-    renderer = {"adaptive": "", "vr": "VR", "vr_chunked": "VR", "raymarcher": "Raymarcher"}[path]
-    model = make_model(dtype=torch.bfloat16, seed=0, device=DEV, renderer=renderer)
+    model = path_model({"vr": "VR", "vr_chunked": "VR", "raymarcher": "Raymarcher"}.get(path, path),
+                       torch.bfloat16, DEV)
     opt = make_optimizer(1e-4)
     state = create_train_state(model, opt)
     loss_params = LossParams(loss_mode="coarse" if path == "raymarcher" else "both")
@@ -1214,26 +1444,33 @@ def plain_kernels():
     """Inside: the model calls the kernels' plain versions on any device
     (module attributes swapped; for comparisons only)."""
     import avr_tpu_torch.models.mlp as mlp
+    import avr_tpu_torch.models.pixelnerf as pixelnerf
     import avr_tpu_torch.ops.grid_sample as grid_sample
+    import avr_tpu_torch.renderers.adaptive as adaptive
     import avr_tpu_torch.renderers.raymarch as raymarch
 
-    saved = (grid_sample.gather_bilinear, raymarch.fused_lstm_march, mlp.fused_resnetfc)
-    grid_sample.gather_bilinear = gather_bilinear_plain
-    raymarch.fused_lstm_march = lstm_march_plain
-    mlp.fused_resnetfc = lambda *a, stash=None, **kw: resnetfc_plain(*a, **kw)
+    swaps = [(grid_sample, "gather_bilinear", gather_bilinear_plain),
+             (raymarch, "fused_lstm_march", lstm_march_plain),
+             (mlp, "fused_resnetfc", lambda *a, stash=None, **kw: resnetfc_plain(*a, **kw)),
+             (pixelnerf, "gather_bilinear_projected", gather_bilinear_projected_plain),
+             (adaptive, "fused_volume_integral", K4.fused_volume_integral_plain)]
+    saved = [getattr(m, n) for m, n, _ in swaps]
+    for m, n, plain in swaps:
+        setattr(m, n, plain)
     try:
         yield
     finally:
-        grid_sample.gather_bilinear, raymarch.fused_lstm_march, mlp.fused_resnetfc = saved
+        for (m, n, _), kernel in zip(swaps, saved):
+            setattr(m, n, kernel)
 
 
-def check_small_train(renderer="", rays=256):
+def check_small_train(path="adaptive", rays=256):
     """One f32 step's loss and gradients (the full-width model, 2 march
     steps, one scene) from the same weights and batch: kernels on the card
     against the plain path on the CPU, and against the plain versions on
     the card."""
     def grads(dev, plain=False):
-        model = small_model(dev, renderer)
+        model = small_model(dev, path)
         batch = train_batch(dev, seed=1, sb=1, rays=rays)
         with plain_kernels() if plain else contextlib.nullcontext():
             loss, g = loss_and_grads(model, dict(model.named_parameters()),
@@ -1254,7 +1491,7 @@ def check_small_train(renderer="", rays=256):
     # move by ~1e-5 and the gradients follow by a few percent; the plain
     # path on the card differs from the CPU by as much as the kernels do.
     # 1e-4 on the loss, 5e-2 relative L2 per gradient, 1e-4 on the stats
-    r = renderer or "adaptive"
+    r = path
     cases = [check(f"{r} loss f32 card vs CPU", abs(l_k - l_c), 1e-4),
              check(f"{r} loss f32 kernels vs plain on the card", abs(l_k - l_p), 1e-5)]
     for name, (err, key), tol, against in (("kernels vs plain on the card", vs_plain, 5e-3,
@@ -1295,7 +1532,8 @@ def main() -> int:
     gen = torch.Generator(device=DEV).manual_seed(0)
     kernels = [check_gather(gen), check_resnetfc(gen), check_march(gen),
                check_gather_bwd(gen), *check_resnetfc_bwd(gen), check_resnetfc_recompute(gen),
-               *check_march_bwd(gen)]
+               *check_march_bwd(gen), check_integral(gen), check_integral_bwd(gen),
+               check_gather_proj(gen), check_gather_proj_bwd(gen)]
     print(f"integral: {check_integral_saturated(gen)}")
     for k in kernels:
         print(f"kernel {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, bound "
@@ -1303,24 +1541,29 @@ def main() -> int:
               f"tolerance")
 
     serve, train, renders = {}, {}, {}
-    for r in ("", "VR", "Raymarcher"):
-        serve[r or "adaptive"], renders[r] = run_slice(r)
-        print(f"serve {r or 'adaptive'}: {serve[r or 'adaptive']}")
+    for path in PATHS:
+        serve[path], renders[path] = run_slice(path)
+        print(f"serve {path}: {serve[path]}")
     if profile:
-        serve["adaptive"]["profile"] = profile_frame(renders[""], out_dir=out_dir)
-        serve["VR"]["profile"] = profile_frame(renders["VR"], label="frame_vr", out_dir=out_dir)
+        for path, label in (("adaptive", "frame"), ("adaptive_fused", "frame_fused"),
+                            ("VR", "frame_vr")):
+            serve[path]["profile"] = profile_frame(renders[path], label=label, out_dir=out_dir)
+    del renders
     # the adaptive step keeps its 10 timed steps; the others take 5
-    for path, steps in (("adaptive", 10), ("vr", 5), ("vr_chunked", 5), ("raymarcher", 5)):
+    for path, steps in (("adaptive", 10), ("adaptive_fused", 5), ("vr", 5), ("vr_chunked", 5),
+                        ("raymarcher", 5)):
         train[path], run_step = run_train(path, steps=steps)
         print(f"train {path}: {train[path]}")
-        if profile and path in ("adaptive", "vr"):
+        if profile and path in ("adaptive", "adaptive_fused", "vr"):
             train[path]["profile"] = profile_frame(run_step, label=f"train_step_{path}",
                                                    out_dir=out_dir)
         del run_step
     launches = {**{f"serve_{k}": v["launches"] for k, v in serve.items()},
                 **{f"train_{k}": v["launches"] for k, v in train.items()}}
-    results = {"serve": serve, "train": train, "vr_one_vs_8_chunks": check_vr_chunks(),
+    results = {"serve": serve, "train": train,
+               "vr_one_vs_8_chunks": check_vr_chunks(),
                "reference": check_small_reference() + check_small_train()
+               + check_small_reference("adaptive_fused") + check_small_train("adaptive_fused")
                + check_small_reference("VR") + check_small_train("VR")}
     for c in results["vr_one_vs_8_chunks"] + results["reference"]:
         print(f"reference: {c}")

@@ -4,7 +4,9 @@
   JAX, Flax, Optax or the JAX package (AST scan).
 * Entry points default to the card: with no CUDA device and no explicit
   ``device``, they raise instead of running on the CPU.
-* CPU tensors take the plain versions and never touch the kernel library.
+* CPU tensors take the plain versions and never touch the kernel library,
+  on the default adaptive path and on the fused one (K5's gather, K4's
+  band integral).
 """
 
 import ast
@@ -62,6 +64,10 @@ def _tiny_conf():
     return parse_conf_string(TINY, base_dir=str(ROOT / "conf"))
 
 
+# make_model's keywords for the adaptive renderer's two paths
+PATHS = {"default": {}, "fused": dict(gather_impl="pallas_proj", fused_integral="always")}
+
+
 def test_entry_points_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -78,8 +84,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
                                      8, (0, 0))
 
 
-def test_cpu_render_never_touches_the_kernel_library():
-    model = make_model(_tiny_conf(), dtype=torch.float32, seed=3, device="cpu")
+@pytest.mark.parametrize("path", PATHS)
+def test_cpu_render_never_touches_the_kernel_library(path):
+    model = make_model(_tiny_conf(), dtype=torch.float32, seed=3, device="cpu", **PATHS[path])
     rng = np.random.default_rng(0)
     c2w = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
     c2w[2, 3] = 1.3
@@ -106,14 +113,21 @@ def test_the_scan_covers_the_renderers():
         assert f"avr_tpu_torch/renderers/{mod}.py" in names
 
 
-def test_cpu_train_step_runs_the_plain_versions_under_autograd():
+def test_the_scan_covers_the_kernel_wrappers():
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for mod in ("_build", "gather", "resnetfc", "march", "integrate"):
+        assert f"avr_tpu_torch/ops/kernels/{mod}.py" in names
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_cpu_train_step_runs_the_plain_versions_under_autograd(path):
     """Under autograd on the CPU no wrapper raises, launches or loads the
     kernel library; every parameter gets a gradient."""
     from avr_tpu_torch.training import (LossParams, create_train_state, make_optimizer,
                                         make_train_step)
     from avr_tpu_torch.training.step import loss_and_grads
 
-    model = make_model(_tiny_conf(), dtype=torch.float32, seed=2, device="cpu")
+    model = make_model(_tiny_conf(), dtype=torch.float32, seed=2, device="cpu", **PATHS[path])
     rng = np.random.default_rng(1)
     SB, R, S = 2, 16, 16
     c2w = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
