@@ -323,8 +323,11 @@ __global__ void __launch_bounds__(WARPS * 32, 1) lstm_march_bwd_kernel(MarchBwdA
         const float gg = row[G0 + 2 * hid + lane], og = row[G0 + 3 * hid + lane];
         const float tc = row[G0 + 4 * hid + lane], c_prev = row[hid + lane];
         atomicAdd(dwout_s + lane, round_to<T>(og * tc) * round_to<T>(ds));
-        // the clip acts on the combined hidden cotangent (step head + next step)
-        const float ghc = fminf(fmaxf(gh + ds * wo, -a.clamp), a.clamp);
+        // the clip acts on the combined hidden cotangent (step head + next step);
+        // a NaN passes through it, as through jnp.clip and torch.clamp (fminf
+        // and fmaxf alone would turn it into -clamp)
+        const float gsum = gh + ds * wo;
+        const float ghc = isnan(gsum) ? gsum : fminf(fmaxf(gsum, -a.clamp), a.clamp);
         const float gct = gcell + ghc * og * (1.f - tc * tc);
         const float d4[4] = {gct * gg * ig * (1.f - ig), gct * c_prev * fg * (1.f - fg),
                              gct * ig * (1.f - gg * gg), ghc * tc * og * (1.f - og)};

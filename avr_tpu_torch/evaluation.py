@@ -4,22 +4,23 @@
 
 Both run under ``torch.inference_mode()`` on the model's device; the
 device defaults to the card (:func:`~avr_tpu_torch.utils.device.resolve_device`).
-Randomness is the per-ray hash: chunk rays get seeds ``derive(k0, k1,
-scene * sl**2 + pixel)``, so an image's random numbers do not depend on the
-chunk size.  ``(k0, k1) = (0, i)`` are the key words of a threefry
-``jax.random.PRNGKey(i)``, the key the JAX video path gives frame ``i``.
+Randomness is JAX's: every chunk of an image renders with the same threefry
+key (``avr_tpu/training/loop.py:188``), and the last chunk is edge-padded to
+the full chunk size (``:185-187``), so its draws have the full chunk's shape
+and the padded rays' outputs are cut off.  Frame ``i`` of a video renders
+with ``PRNGKey(i)``.  The samplers draw the key's stream through K7.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
 from avr_tpu_torch.models.wrapper import RadFieldRenderer
-from avr_tpu_torch.ops.hashrng import derive, global_ray_ids
+from avr_tpu_torch.ops.threefry import Key, PRNGKey
 from avr_tpu_torch.renderers.base import RenderOutput
 from avr_tpu_torch.utils.device import resolve_device
 from avr_tpu_torch.utils.geometry import orbit_cam2world, pixel_grid
@@ -30,29 +31,30 @@ Device = Optional[Union[str, torch.device]]
 
 
 def render_full_image(model: RadFieldRenderer, cond, intrinsics: torch.Tensor,
-                      cam2world: torch.Tensor, sl: int, key: Tuple[int, int],
+                      cam2world: torch.Tensor, sl: int, key: Key,
                       chunk: int = 4096, device: Device = None) -> RenderOutput:
-    """Render full ``sl x sl`` images in ``chunk``-ray pieces.
+    """Render full ``sl x sl`` images in ``chunk``-ray pieces, each with the
+    threefry ``key``; the last piece is edge-padded to ``chunk`` rays.
 
     ``intrinsics (SB, 3, 3)``, ``cam2world (SB, 4, 4)`` (one pose per
-    scene), ``key`` the two key words for :func:`derive`.  Returns a
-    :class:`RenderOutput` of ``(SB, sl*sl, ...)`` tensors (``None`` where the
-    renderer gives none).
+    scene).  Returns a :class:`RenderOutput` of ``(SB, sl*sl, ...)`` tensors
+    (``None`` where the renderer gives none).
     """
     dev = resolve_device(device)
     SB = intrinsics.shape[0]
     total = sl * sl
     xy = torch.from_numpy(pixel_grid(sl, sl).reshape(1, total, 2)).to(dev).expand(SB, -1, -1)
     intrinsics = intrinsics.to(dev, torch.float32)
-    cam2world = cam2world.to(dev, torch.float32)
+    c2w = cam2world.to(dev, torch.float32)[:, None].expand(SB, chunk, 4, 4)
     pieces = []
     with torch.inference_mode():
         for start in range(0, total, chunk):
-            end = min(start + chunk, total)
-            n = end - start
-            c2w = cam2world[:, None].expand(SB, n, 4, 4)
-            seeds = derive(key[0], key[1], global_ray_ids(SB, n, start, dev, stride=total))
-            pieces.append(model.render(cond, xy[:, start:end], intrinsics, c2w, seeds))
+            n = min(chunk, total - start)
+            xy_c = xy[:, start:start + n]
+            if n < chunk:
+                xy_c = torch.cat([xy_c, xy_c[:, -1:].expand(SB, chunk - n, 2)], dim=1)
+            out = model.render(cond, xy_c, intrinsics, c2w, key)
+            pieces.append([None if o is None else o[:, :n] for o in out])
     return RenderOutput(*(None if parts[0] is None else torch.cat(parts, dim=1)
                           for parts in zip(*pieces)))
 
@@ -84,7 +86,7 @@ def generate_video(model: RadFieldRenderer, batch: Dict[str, np.ndarray], num_fr
         cond = model.encode(src.float(), src_pose.float(), focal, c.to(dev))
         start = time.time()
         for i in range(num_frames):
-            out = render_full_image(model, cond, intr, poses[i][None], sl, (0, i),
+            out = render_full_image(model, cond, intr, poses[i][None], sl, PRNGKey(i),
                                     render_chunk, dev)
             rgb = out.rgb_fine if fine and out.rgb_fine is not None else out.rgb_coarse
             img = rgb[0].reshape(sl, sl, 3).float().cpu().numpy()

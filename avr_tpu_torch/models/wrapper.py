@@ -20,7 +20,7 @@ from torch import nn
 
 from avr_tpu_torch.config import Conf, parse_conf
 from avr_tpu_torch.models.pixelnerf import Conditioning, ModelConfig, PixelNeRFNet
-from avr_tpu_torch.ops.hashrng import RaySeeds
+from avr_tpu_torch.ops.hashrng import KeyLike
 from avr_tpu_torch.renderers.adaptive import FUSED_INTEGRAL, render_adaptive
 from avr_tpu_torch.renderers.base import (AdaptiveRendererConfig, RaymarcherConfig,
                                           RendererConfig, RenderOutput, VolumeRendererConfig,
@@ -65,9 +65,10 @@ class RadFieldRenderer(nn.Module):
         return self.net.encode(images, poses, focal, c, train)
 
     def render(self, cond: Conditioning, xy_pix: torch.Tensor, intrinsics: torch.Tensor,
-               cam2world: torch.Tensor, key: RaySeeds) -> RenderOutput:
+               cam2world: torch.Tensor, key: KeyLike) -> RenderOutput:
         """``xy_pix (SB, R, 2)``, ``intrinsics (SB, 3, 3)``, ``cam2world (SB, R,
-        4, 4)``, per-ray seeds ``(SB, R)``."""
+        4, 4)``, ``key`` per-ray seeds ``(SB, R)`` (``RaySeeds``) or a threefry
+        ``Key`` (the legacy stream)."""
         cfg = self.renderer_cfg
 
         def field(xyz, viewdirs, coarse):

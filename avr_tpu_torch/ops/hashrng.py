@@ -15,13 +15,15 @@ range (a plain int64 product of two 32-bit words can overflow).
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import List, Sequence
+from typing import Sequence, Union
 
 import numpy as np
 import torch
 
+from avr_tpu_torch.ops import threefry
+
 __all__ = [
-    "RaySeeds", "derive", "split_any", "hash_uniform", "hash_normal",
+    "RaySeeds", "KeyLike", "derive", "split_any", "hash_uniform", "hash_normal",
     "global_ray_ids",
 ]
 
@@ -78,9 +80,15 @@ def derive(k0: int, k1: int, gids: torch.Tensor) -> RaySeeds:
     return RaySeeds(seeds=_fmix32(h ^ (int(k1) & _MASK)))
 
 
-def split_any(key: RaySeeds, n: int = 2) -> List[RaySeeds]:
-    """Static salt folds: ``n`` independent streams from one seed map."""
-    return [key.fold(i + 1) for i in range(n)]
+KeyLike = Union[RaySeeds, threefry.Key]
+
+
+def split_any(key: KeyLike, n: int = 2) -> list:
+    """``n`` independent streams: static salt folds of a seed map, or
+    ``threefry.split`` of a threefry key (as JAX's ``split_any``)."""
+    if isinstance(key, RaySeeds):
+        return [key.fold(i + 1) for i in range(n)]
+    return threefry.split(key, n)
 
 
 def _bits(rs: RaySeeds, n: int) -> torch.Tensor:
@@ -115,13 +123,8 @@ def hash_normal(rs: RaySeeds, shape: Sequence[int]) -> torch.Tensor:
     return (r * torch.cos(_TWO_PI_F32 * u2)).reshape(tuple(shape))
 
 
-def global_ray_ids(SB: int, R: int, offset: int = 0,
-                   device: torch.device | str = "cpu",
-                   stride: int | None = None) -> torch.Tensor:
-    """``(SB, R)`` u32 global ids ``s * stride + offset + r`` (``stride``
-    defaults to ``R``, the JAX ``global_ray_ids``); a chunk of a larger ray
-    set passes its ``offset`` and the full set's ``stride``."""
-    stride = R if stride is None else stride
+def global_ray_ids(SB: int, R: int, device: torch.device | str = "cpu") -> torch.Tensor:
+    """``(SB, R)`` u32 global ids ``s * R + r`` (the JAX ``global_ray_ids``)."""
     s = torch.arange(SB, dtype=torch.int64, device=device)[:, None]
     r = torch.arange(R, dtype=torch.int64, device=device)[None, :]
-    return (s * stride + offset + r) & _MASK
+    return (s * R + r) & _MASK

@@ -2,30 +2,43 @@
 stratified (:func:`sample_coarse`), bucket-level inverse-CDF importance
 (:func:`sample_fine`) and depth-guided (:func:`sample_depth`).
 
-Only the per-ray hash stream (:class:`~avr_tpu_torch.ops.hashrng.RaySeeds`)
-is ported: it gives the JAX package's random numbers bit for bit.  The
-legacy ``jax.random`` key stream is not.
+Every draw takes either kind of key, as in JAX: a per-ray hash seed map
+(:class:`~avr_tpu_torch.ops.hashrng.RaySeeds`, ``rng_mode="per_ray"``) or a
+threefry key (:class:`~avr_tpu_torch.ops.threefry.Key`, the legacy stream
+that JAX's ``render_full_image`` and ``rng_mode="legacy"`` pass).  Both
+give the JAX package's random numbers bit for bit (the threefry normal up to
+``erfinv``'s last bits).  A threefry draw is made flat, ``(shape[0],
+prod(shape[1:]))``, through K7 (:mod:`avr_tpu_torch.ops.kernels.rng`): the
+kernel on a CUDA device, its plain version on the CPU.
 """
 
 from __future__ import annotations
 
 import torch
 
-from avr_tpu_torch.ops.hashrng import RaySeeds, hash_normal, hash_uniform, split_any
+from avr_tpu_torch.ops import threefry
+from avr_tpu_torch.ops.hashrng import KeyLike, RaySeeds, hash_normal, hash_uniform, split_any
 
 __all__ = ["sample_coarse", "sample_fine", "sample_depth"]
 
 
-def _uniform_2d(key: RaySeeds, shape, dtype=torch.float32) -> torch.Tensor:
-    return hash_uniform(key, shape).to(dtype)
+def _uniform_2d(key: KeyLike, shape, device, dtype=torch.float32) -> torch.Tensor:
+    """A uniform draw of ``shape`` on ``device``: the per-ray hash for a
+    :class:`RaySeeds`, K7's threefry draw for a threefry key."""
+    if isinstance(key, RaySeeds):
+        return hash_uniform(key, shape).to(dtype)
+    return threefry.uniform(key, shape, device, dtype)
 
 
-def _normal_2d(key: RaySeeds, shape, dtype=torch.float32) -> torch.Tensor:
-    return hash_normal(key, shape).to(dtype)
+def _normal_2d(key: KeyLike, shape, device, dtype=torch.float32) -> torch.Tensor:
+    """A standard normal draw of ``shape`` (see :func:`_uniform_2d`)."""
+    if isinstance(key, RaySeeds):
+        return hash_normal(key, shape).to(dtype)
+    return threefry.normal(key, shape, device, dtype)
 
 
 def sample_coarse(
-    key: RaySeeds,
+    key: KeyLike,
     near: torch.Tensor,  # (SB, R)
     far: torch.Tensor,  # (SB, R)
     num_samples: int,
@@ -38,12 +51,12 @@ def sample_coarse(
     steps = torch.arange(num_samples, dtype=torch.float32, device=near.device) / num_samples
     span = far - near
     z_vals = near[..., None] + span[..., None] * steps
-    jitter = _uniform_2d(key, z_vals.shape, z_vals.dtype)
+    jitter = _uniform_2d(key, z_vals.shape, near.device, z_vals.dtype)
     return z_vals + jitter * span[..., None] / num_samples
 
 
 def sample_fine(
-    key: RaySeeds,
+    key: KeyLike,
     near: torch.Tensor,  # (SB, R)
     far: torch.Tensor,  # (SB, R)
     num_samples: int,
@@ -63,15 +76,15 @@ def sample_fine(
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)  # (SB, R, n + 1)
     k_u, k_jitter = split_any(key)
     u_shape = tuple(weights.shape[:-1]) + (num_samples,)
-    u = _uniform_2d(k_u, u_shape)
+    u = _uniform_2d(k_u, u_shape, weights.device)
     inds = torch.searchsorted(cdf.contiguous(), u, right=True)
     inds = torch.clamp(inds.to(torch.float32) - 1.0, min=0.0)
-    z_steps = (inds + _uniform_2d(k_jitter, u_shape)) / n_coarse
+    z_steps = (inds + _uniform_2d(k_jitter, u_shape, weights.device)) / n_coarse
     return near[..., None] + (far - near)[..., None] * z_steps
 
 
 def sample_depth(
-    key: RaySeeds,
+    key: KeyLike,
     depth: torch.Tensor,  # (SB, R, 1)
     num_samples: int,
     depth_std: float,
@@ -85,7 +98,7 @@ def sample_depth(
     adds the mean.
     """
     SB, R, _ = depth.shape
-    noise = _normal_2d(key, (SB, R, num_samples)) * depth_std
+    noise = _normal_2d(key, (SB, R, num_samples), depth.device) * depth_std
     if mode == "reference":
         return noise
     if mode == "intended":

@@ -21,7 +21,7 @@ from typing import Callable
 
 import torch
 
-from avr_tpu_torch.ops.hashrng import RaySeeds, split_any
+from avr_tpu_torch.ops.hashrng import KeyLike, split_any
 from avr_tpu_torch.ops.integrate import volume_integral
 from avr_tpu_torch.ops.kernels.integrate import fused_volume_integral
 from avr_tpu_torch.ops.sampling import sample_coarse
@@ -35,10 +35,10 @@ FUSED_INTEGRAL = ("never", "auto", "always")
 # field(xyz (SB, N, 3), viewdirs (SB, N, 3), coarse) -> (SB, N, 4)
 FieldFn = Callable[[torch.Tensor, torch.Tensor, bool], torch.Tensor]
 # march_fn(key, ros, rds) -> final world points (SB, R, 3)
-MarchFn = Callable[[RaySeeds, torch.Tensor, torch.Tensor], torch.Tensor]
+MarchFn = Callable[[KeyLike, torch.Tensor, torch.Tensor], torch.Tensor]
 
 
-def render_adaptive(cfg: AdaptiveRendererConfig, key: RaySeeds, field: FieldFn,
+def render_adaptive(cfg: AdaptiveRendererConfig, key: KeyLike, field: FieldFn,
                     march_fn: MarchFn, xy_pix: torch.Tensor, intrinsics: torch.Tensor,
                     cam2world: torch.Tensor, fused_integral: str = "never") -> RenderOutput:
     ros, rds = get_world_rays(xy_pix, intrinsics, cam2world)

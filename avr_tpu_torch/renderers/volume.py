@@ -16,7 +16,7 @@ from typing import Callable
 
 import torch
 
-from avr_tpu_torch.ops.hashrng import RaySeeds, split_any
+from avr_tpu_torch.ops.hashrng import KeyLike, split_any
 from avr_tpu_torch.ops.integrate import volume_integral
 from avr_tpu_torch.ops.sampling import sample_coarse, sample_depth, sample_fine
 from avr_tpu_torch.renderers.base import RenderOutput, VolumeRendererConfig
@@ -39,11 +39,11 @@ def _query(field: FieldFn, ros, rds, z_vals, coarse: bool):
     return out[..., 3:4], out[..., :3]
 
 
-def render_volume(cfg: VolumeRendererConfig, key: RaySeeds, field: FieldFn,
+def render_volume(cfg: VolumeRendererConfig, key: KeyLike, field: FieldFn,
                   xy_pix: torch.Tensor, intrinsics: torch.Tensor,
                   cam2world: torch.Tensor) -> RenderOutput:
     """``xy_pix (SB, R, 2)``, ``intrinsics (SB, 3, 3)``, ``cam2world (SB, R,
-    4, 4)``, per-ray seeds ``(SB, R)``."""
+    4, 4)``, ``key`` per-ray seeds ``(SB, R)`` or a threefry key."""
     SB, R, _ = xy_pix.shape
     ros, rds = get_world_rays(xy_pix, intrinsics, cam2world)
     near = torch.full((SB, R), cfg.near, dtype=torch.float32, device=ros.device)

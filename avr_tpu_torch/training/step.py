@@ -1,18 +1,26 @@
 """The train step (port of ``avr_tpu/training/step.py`` ``apply_gradients``,
-``make_train_step`` and ``make_chunked_call_train_step``, ``rng_mode="per_ray"``).
+``make_train_step`` and ``make_chunked_call_train_step``).
 
 One step: encode the source views with BatchNorm in train mode (the running
-statistics update in place, once), derive per-ray seeds from the key words
-and the global ray ids (``derive(k0, k1, global_ray_ids(SB, R))``, as the
-JAX step does with its key), render, take the loss, differentiate every
-parameter (on CUDA tensors through the backward kernels of K1–K3), and
-apply the optimizer.  The parameters are the model's own tensors and are
-updated in place; the returned state is the same object, advanced.
+statistics update in place, once), render with the step's key, take the
+loss, differentiate every parameter (on CUDA tensors through the backward
+kernels of K1–K3), and apply the optimizer.  The parameters are the model's
+own tensors and are updated in place; the returned state is the same
+object, advanced.
+
+The key's two words are a threefry key (:class:`~avr_tpu_torch.ops.threefry.Key`;
+a plain ``(k0, k1)`` tuple reads the same).  ``rng_mode`` picks the
+stream, as in JAX: ``"per_ray"`` (the default) derives per-ray seeds from
+the key words and the global ray ids (``derive(k0, k1, global_ray_ids(SB,
+R))``); ``"legacy"`` renders with the threefry key itself, whose draws go
+through K7.
 
 The rays go through ``ray_chunks = C`` chunks (``C = 1``: the whole batch,
-the same code): each renders ``R / C`` contiguous rays of every scene with
-the matching slice of the one global seed map, so the random numbers equal
-the unchunked step's.  A chunk differentiates its
+the same code): each renders ``R / C`` contiguous rays of every scene.  In
+``"per_ray"`` mode chunk ``i`` takes the matching slice of the one global
+seed map, so the random numbers equal the unchunked step's; in
+``"legacy"`` mode it renders with ``split(key, C)[i]`` (the key itself at
+``C = 1``), as JAX's scan and chunked-call steps do.  A chunk differentiates its
 loss against the parameters and a detached copy of the latent, so its graph
 dies with it; the parameter gradients and the latent cotangent sum in
 float32, are scaled by ``1 / C``, and the latent cotangent is pulled back
@@ -20,29 +28,39 @@ through the encoder's kept graph once.  The NaN guard of the loss applies
 per chunk (``avr_tpu/training/step.py:100-103``).  JAX has two programs for
 this (one scan, or ``C + 2`` calls); run eagerly they are one computation,
 so :func:`make_chunked_call_train_step` is :func:`make_train_step` with
-``ray_chunks``.  Chunks bound the memory a step holds: at ``C = 8`` a VR
+``ray_chunks`` (in ``"legacy"`` mode at ``C = 1`` it renders with ``split(key,
+1)[0]``, as JAX's does).  Chunks bound the memory a step holds: at ``C = 8`` a VR
 step's decoder calls keep their activation stash under the 6 GiB budget
 (the stash backward); at ``C = 1`` its 1,048,576 coarse and 1,572,864 fine
 points take the recompute backward (``RECOMPUTE_CHUNK`` in
 :mod:`avr_tpu_torch.ops.kernels.resnetfc`).
 
-Not ported yet: the device-resident ``sampler=`` (ROADMAP P6).
+With ``sampler=`` (:func:`avr_tpu_torch.data.device.make_device_sampler`)
+the step is ``step(state)``: it draws its batch from the device-resident
+set with ``k_batch`` and renders with ``k_render``, ``(k_batch, k_render) =
+split(fold_in(sampler_key, step))`` (``avr_tpu/training/step.py:236-246``).
+The step count is a device scalar; the step reads it to the host once for
+each state it is given and counts on the host from there, so a step never
+waits on the card for its key.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Optional
 
 import torch
 
 from avr_tpu_torch.models.wrapper import RadFieldRenderer
-from avr_tpu_torch.ops.hashrng import RaySeeds, derive, global_ray_ids
+from avr_tpu_torch.ops import threefry
+from avr_tpu_torch.ops.hashrng import KeyLike, RaySeeds, derive, global_ray_ids
 from avr_tpu_torch.training.loss import LossParams, loss_fn
 from avr_tpu_torch.training.state import Optimizer, TrainState, ema_update, global_norm
 
 __all__ = ["apply_gradients", "loss_and_grads", "make_train_step",
-           "make_chunked_call_train_step"]
+           "make_chunked_call_train_step", "RNG_MODES"]
+
+RNG_MODES = ("per_ray", "legacy")
 
 
 def apply_gradients(state: TrainState, grads: Dict[str, torch.Tensor], optimizer: Optimizer,
@@ -59,19 +77,32 @@ def apply_gradients(state: TrainState, grads: Dict[str, torch.Tensor], optimizer
     return state
 
 
+def _chunk_keys(key, SB: int, R: int, C: int, rng_mode: str,
+                device: torch.device) -> List[KeyLike]:
+    """The render key of each of ``C`` chunks of ``R`` rays a scene."""
+    if rng_mode == "per_ray":
+        seeds = derive(key[0], key[1], global_ray_ids(SB, R, device=device)).seeds
+        return [RaySeeds(s) for s in seeds.reshape(SB, C, R // C).unbind(1)]
+    key = threefry.Key(*key)
+    return [key] if C == 1 else threefry.split(key, C)
+
+
 def loss_and_grads(model: RadFieldRenderer, params: Dict[str, torch.Tensor],
                    loss_params: LossParams, src_images, src_poses, focal, c, model_input, gt,
-                   key_words: Tuple[int, int], ray_chunks: int = 1):
+                   key, ray_chunks: int = 1, rng_mode: str = "per_ray"):
     """``(loss, grads by parameter name)`` of one batch over ``ray_chunks``
     chunks of its rays, the encoder's BatchNorm in train mode (its running
-    statistics update in place, once).  One chunk is the same computation:
-    its sums and the ``1 / C`` scaling are then exact."""
+    statistics update in place, once), the render keys from ``key`` by
+    ``rng_mode``.  One chunk is the same computation: its sums and the ``1 /
+    C`` scaling are then exact."""
+    if rng_mode not in RNG_MODES:
+        raise ValueError(f"unknown rng_mode {rng_mode!r}")
     names = list(params)
     SB, R = gt.shape[:2]
     C = ray_chunks
     if R % C:
         raise ValueError(f"ray batch {R} not divisible by ray_chunks {C}")
-    seeds = derive(key_words[0], key_words[1], global_ray_ids(SB, R, device=gt.device))
+    keys = _chunk_keys(key, SB, R, C, rng_mode, gt.device)
     with torch.enable_grad():
         cond = model.encode(src_images, src_poses, focal, c, train=True)
 
@@ -86,8 +117,7 @@ def loss_and_grads(model: RadFieldRenderer, params: Dict[str, torch.Tensor],
         with torch.enable_grad():
             out = model.render(dataclasses.replace(cond, latent=latent),
                                chunk(model_input["x_pix"], i), model_input["intrinsics"],
-                               chunk(model_input["cam2world"], i),
-                               RaySeeds(chunk(seeds.seeds, i)))
+                               chunk(model_input["cam2world"], i), keys[i])
             loss = loss_fn(out, chunk(gt, i), loss_params)
             raw = torch.autograd.grad(loss, [params[n] for n in names] + [latent],
                                       allow_unused=True)
@@ -109,40 +139,68 @@ def loss_and_grads(model: RadFieldRenderer, params: Dict[str, torch.Tensor],
 
 
 def make_train_step(model: RadFieldRenderer, optimizer: Optimizer, loss_params: LossParams,
-                    ray_chunks: int = 1, ema_decay: float = 0.999) -> Callable:
+                    ray_chunks: int = 1, ema_decay: float = 0.999, rng_mode: str = "per_ray",
+                    sampler: Optional[Callable] = None,
+                    sampler_key: Optional[threefry.Key] = None) -> Callable:
     """Build the train step::
 
         state, metrics = step(state, src_images, src_poses, focal, c,
-                              model_input, gt, key_words)
+                              model_input, gt, key)
 
     ``model_input = {x_pix, cam2world, intrinsics}`` holds the ray batch,
-    ``gt (SB, R, 3)`` the target colours in [0, 1] and ``key_words = (k0,
-    k1)`` the two key words :func:`~avr_tpu_torch.ops.hashrng.derive` reads.
-    Metrics (device scalars): ``loss``, ``grad_norm``, ``notfinite``.  The
-    step runs where the model and tensors are (the card unless they were
-    put on the CPU).  ``ray_chunks`` splits the rays into that many chunks
-    (``R`` must divide), summing their gradients before the update.
+    ``gt (SB, R, 3)`` the target colours in [0, 1] and ``key`` the step's
+    threefry key (or its two words), used by ``rng_mode`` (``"per_ray"`` or
+    ``"legacy"``).  Metrics (device scalars): ``loss``, ``grad_norm``,
+    ``notfinite``.  The step runs where the model and tensors are (the card
+    unless they were put on the CPU).  ``ray_chunks`` splits the rays into
+    that many chunks (``R`` must divide), summing their gradients before the
+    update.  With ``sampler`` (and ``sampler_key``, default ``PRNGKey(0)``)
+    the step is ``step(state)`` and draws its own batch (module docstring).
     """
+    return _make_step(model, optimizer, loss_params, ray_chunks, ema_decay, rng_mode, sampler,
+                      sampler_key, split_one=False)
+
+
+def _make_step(model, optimizer, loss_params, ray_chunks, ema_decay, rng_mode, sampler,
+               sampler_key, split_one: bool) -> Callable:
     if ray_chunks < 1:
         raise ValueError(f"ray_chunks must be >= 1, got {ray_chunks}")
+    if rng_mode not in RNG_MODES:
+        raise ValueError(f"unknown rng_mode {rng_mode!r}")
 
-    def step(state: TrainState, src_images, src_poses, focal, c, model_input, gt,
-             key_words: Tuple[int, int]):
+    def step(state: TrainState, src_images, src_poses, focal, c, model_input, gt, key):
+        if split_one and rng_mode == "legacy" and ray_chunks == 1:
+            key = threefry.split(threefry.Key(*key), 1)[0]
         loss, grads = loss_and_grads(model, state.params, loss_params, src_images, src_poses,
-                                     focal, c, model_input, gt, key_words, ray_chunks)
+                                     focal, c, model_input, gt, key, ray_chunks, rng_mode)
         grad_norm = global_norm(grads)
         state = apply_gradients(state, grads, optimizer, ema_decay, grad_norm)
         metrics = {"loss": loss, "grad_norm": grad_norm,
                    "notfinite": state.opt_state.total_notfinite}
         return state, metrics
 
-    return step
+    if sampler is None:
+        return step
+    base = threefry.PRNGKey(0) if sampler_key is None else threefry.Key(*sampler_key)
+    count = {"state": None, "step": 0}  # the host's copy of the last state's step
+
+    def device_data_step(state: TrainState):
+        if state is not count["state"]:
+            count["state"], count["step"] = state, int(state.step)
+        k_batch, k_render = threefry.split(threefry.fold_in(base, count["step"]))
+        state, metrics = step(state, *sampler(k_batch), k_render)
+        count["step"] += 1
+        return state, metrics
+
+    return device_data_step
 
 
 def make_chunked_call_train_step(model: RadFieldRenderer, optimizer: Optimizer,
                                  loss_params: LossParams, ray_chunks: int,
-                                 ema_decay: float = 0.999) -> Callable:
+                                 ema_decay: float = 0.999, rng_mode: str = "per_ray") -> Callable:
     """JAX's ``C + 2``-call chunked step (encode, ``C`` chunk calls, finish):
-    in eager PyTorch the same computation as ``make_train_step(...,
-    ray_chunks=ray_chunks)``, which it returns."""
-    return make_train_step(model, optimizer, loss_params, ray_chunks, ema_decay)
+    in eager PyTorch the computation of ``make_train_step(...,
+    ray_chunks=ray_chunks)``; in ``"legacy"`` mode it splits the key for
+    every ``C``, one included, as JAX's does."""
+    return _make_step(model, optimizer, loss_params, ray_chunks, ema_decay, rng_mode, None,
+                      None, split_one=True)

@@ -23,7 +23,11 @@ Phases (any failure raises and exits non-zero):
    (the projected gather) at both of its calls on the fused path, the band
    query (81,920 points a scene) and the coarse query at the marched point
    (4,096), in 1 scene (serving) and 4 (the train step), bf16 and float32,
-   1 and 2 views, forward and backward.  Times (CUDA events) of the kernel, the plain version
+   1 and 2 views, forward and backward; K7 (the threefry uniform draw) bit
+   for bit against its plain version at the serving and train draws'
+   shapes and its raw bits at the sampler's, and held to the TPU kernel's
+   contract (range, moments, determinism, key sensitivity, decorrelated
+   column blocks).  Times (CUDA events) of the kernel, the plain version
    and, where one PyTorch call computes the same function, that call (K4
    and K5 also the kernel's own device time, from the profiler); the least
    time the card could take (bytes over 3.35 TB/s or operations over the
@@ -32,25 +36,40 @@ Phases (any failure raises and exits non-zero):
    weights) of each renderer (adaptive, VR, Raymarcher, and the adaptive
    renderer's fused path: ``gather_impl="pallas_proj"``,
    ``fused_integral="always"``) encodes one 128x128 source view and
-   renders 3 orbit frames of 128x128 through ``evaluation.generate_video``; the launch counters are reset just before
-   and read just after, and must show each kernel's launches per chunk.
+   renders 3 orbit frames of 128x128 through ``evaluation.generate_video``
+   (frame i with ``PRNGKey(i)``, JAX's key stream: every draw through K7);
+   the launch counters are reset just before and read just after, and must
+   show each kernel's launches per chunk.
 4. Train: 2 warm-up and 10 (adaptive) or 5 timed train steps of the same
    models (Adam, bf16, SB 4 x 4,096 rays on ``bench.py``'s synthetic
    batch): the adaptive renderer, the VR in one chunk (K2's recompute
    backward), the VR in 8 chunks (``make_chunked_call_train_step``, the
-   stash backward), the Raymarcher (``loss_mode="coarse"``) and the
-   adaptive renderer's fused path; the
+   stash backward), the Raymarcher (``loss_mode="coarse"``), the
+   adaptive renderer's fused path, and the adaptive renderer's
+   device-data step (``make_train_step(sampler=..., rng_mode="legacy")``
+   on a 64-instance x 50-view synthetic set of 128x128 on the card: the
+   batch drawn by three ``randint``s through K7's bits, the render's
+   jitter through K7); the
    counters, reset before the timed steps, must show each kernel's expected
-   launches per step; the loss is finite, no update was skipped, and every
-   parameter and BatchNorm statistic moved but those the loss gives no
-   gradient, which must not.  The one-chunk and 8-chunk VR steps from the
-   same weights give the same loss and gradients up to summation order.
+   launches per step; the loss is finite, and every parameter and
+   BatchNorm statistic moved but those the loss gives no gradient, which
+   must not.  An update the optimizer skips (a non-finite gradient, the
+   JAX package's non-finite skip) is redone on the same weights and batch
+   through the plain versions on the card, whose loss must agree and whose
+   gradient must be non-finite too, or else, redone through the kernels,
+   the first non-finite value must appear in the backward of an op that is
+   not a kernel's: with random weights the bf16 adaptive step meets a
+   non-finite gradient now and then on ``bench.py``'s batch, where a point
+   lands at a source-view camera depth of exactly 0 (``-xy / z``), on one
+   side or on both (``train_skip_probe.py`` counts such steps).  The
+   one-chunk and 8-chunk VR steps from the same weights give the same loss
+   and gradients up to summation order.
    ``--profile`` traces a frame and a train step of the adaptive renderer,
    its fused path and the VR.
-5. Reference: small float32 renders and train steps (adaptive, its fused
-   path, and VR)
-   through the kernels on the card, against the plain path on the CPU
-   (and, for the gradients, the plain versions on the card).
+5. Reference: small float32 renders of every renderer and train steps
+   (adaptive, its fused path, and VR; the adaptive one also with the legacy
+   key stream) through the kernels on the card, against the plain path on
+   the CPU (and, for the gradients, the plain versions on the card).
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``; every case in full
@@ -72,11 +91,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from avr_tpu_torch.data.device import build_device_dataset, make_device_sampler
+from avr_tpu_torch.data.synthetic import synthetic_scene_set
 from avr_tpu_torch.evaluation import generate_video, render_full_image
 from avr_tpu_torch.models.wrapper import make_model
+from avr_tpu_torch.ops import threefry
 from avr_tpu_torch.ops.kernels import _build
 from avr_tpu_torch.ops.kernels import integrate as K4
 from avr_tpu_torch.ops.kernels import resnetfc as K2
+from avr_tpu_torch.ops.kernels import rng as K7
 from avr_tpu_torch.ops.kernels.gather import (gather_bilinear, gather_bilinear_plain,
                                               gather_bilinear_projected,
                                               gather_bilinear_projected_plain)
@@ -94,6 +117,9 @@ from avr_tpu_torch.utils.geometry import get_world_rays, orbit_cam2world, pixel_
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # dense tensor-core peak
 F32_FLOPS = 67e12  # outside the tensor cores
+# int32 operations outside the tensor cores: 132 SMs x 64 INT32 lanes x
+# 1.98 GHz, half the float32 lanes of the 67 TFLOP/s (which counts an FMA as 2)
+INT32_OPS = 132 * 64 * 1.98e9
 SIDE, LATENT, C = 128, 64, 512
 BAND, CHUNK, STEPS, HIDDEN = 81_920, 4_096, 10, 16
 FINE_CHUNK = 96 * CHUNK  # decoder points of the VR's fine pass over one 4,096-ray chunk
@@ -855,6 +881,22 @@ def check_march_bwd(gen):
             if torch.allclose(free[3], got[3]):
                 raise AssertionError("march: the gradient clip did not bind")
             cases.append({"case": "clip binds", "against": "no clip", "ok": True})
+    # a NaN in one ray's cotangent passes through the clip, as through the
+    # plain version's torch.clamp (and the TPU kernel's jnp.clip): the same
+    # gradients come out non-finite on both sides, so the optimizer skips
+    # the same steps
+    inp = march_inputs(gen, 1)
+    g = randn(gen, 1, CHUNK, 3)
+    g[0, 0, 0] = float("nan")
+    kw = dict(steps=2, compute_dtype=torch.bfloat16)
+    nonfinite = lambda grads: [nm for nm, a in zip(MARCH_GRADS, grads)
+                               if not bool(torch.isfinite(a).all())]
+    got, want = (nonfinite(run(fn, inp, g, **kw)) for fn in (fused_lstm_march, lstm_march_plain))
+    if got != want:
+        raise AssertionError(f"march: a NaN cotangent leaves {got} non-finite, the plain "
+                             f"version {want}")
+    cases.append({"case": "NaN cotangent of one ray", "against": "plain, non-finite set",
+                  "nonfinite": got})
     inp = march_inputs(gen, 1, sb=SB_TRAIN)
     g = randn(gen, SB_TRAIN, CHUNK, 3)
     f = lambda fn: (lambda *t: fn(inp["proj"], *t, steps=STEPS, compute_dtype=torch.bfloat16))
@@ -1103,6 +1145,73 @@ def check_gather_proj_bwd(gen):
                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
+# K7's draws on the main paths: a served adaptive chunk's band (1 x 81,920),
+# the train step's band (4 x 81,920), the VR's coarse draw (4 x 262,144), and
+# a ragged shape; several keys, split and folded ones among them
+RNG_SHAPES = ((1, BAND), (SB_TRAIN, BAND), (SB_TRAIN, 64 * CHUNK), (3, 1_000))
+RNG_KEYS = (threefry.PRNGKey(0), threefry.PRNGKey(7), threefry.split(threefry.PRNGKey(3))[1],
+            threefry.fold_in(threefry.PRNGKey(5), 123))
+# integer operations an element: 20 rounds of add, rotate and xor (60), the
+# 12 key-injection adds, the epilogue's xor, shift, or and subtract (4)
+THREEFRY_OPS = 76
+
+
+def check_rng():
+    """K7 against its plain version on the card at every shape and key, bit
+    for bit (integer arithmetic and one exact subtraction: tolerance 0), its
+    raw bits at the device sampler's (4, 4,096); then the TPU kernel's
+    contract (``tests/test_pallas_rng.py``): range [0, 1), mean and
+    variance, determinism, key sensitivity, decorrelated column blocks."""
+    cases = []
+
+    def bitwise(label, got, want):
+        if not same_bits(got, want):
+            raise AssertionError(f"K7 {label}: not bit for bit equal to the plain version")
+        cases.append(dict(check(label, float((got.double() - want.double()).abs().max()), 0.0),
+                          bitwise=True))
+
+    for key in RNG_KEYS:
+        for shape in RNG_SHAPES:
+            bitwise(f"uniform {shape} key {tuple(key)}", K7.uniform_2d(key, shape, DEV),
+                    K7.uniform_2d_plain(key, shape, DEV))
+        shape = (SB_TRAIN, CHUNK)
+        bitwise(f"bits {shape} key {tuple(key)}", K7.bits(key, shape, DEV),
+                K7.bits_plain(key, shape, DEV))
+    u = K7.uniform_2d(threefry.PRNGKey(0), (SB_TRAIN, BAND), DEV)
+    if not (float(u.min()) >= 0.0 and float(u.max()) < 1.0):
+        raise AssertionError(f"K7: values outside [0, 1): {float(u.min())}..{float(u.max())}")
+    cases += [check("mean (4, 81,920)", abs(float(u.double().mean()) - 0.5), 5e-3, "contract"),
+              check("variance (4, 81,920)", abs(float(u.double().var(unbiased=False)) - 1 / 12),
+                    5e-3, "contract")]
+    a, b = (K7.uniform_2d(threefry.PRNGKey(7), (2, 4096), DEV) for _ in range(2))
+    c = K7.uniform_2d(threefry.PRNGKey(8), (2, 4096), DEV)
+    if not same_bits(a, b) or not float((a - c).abs().max()) > 0.1:
+        raise AssertionError("K7: not deterministic in the key, or not sensitive to it")
+    u = K7.uniform_2d(threefry.PRNGKey(3), (2, 16_384), DEV)
+    blocks = torch.stack([u[:, :8192].reshape(-1), u[:, 8192:].reshape(-1)]).double()
+    cases.append(check("columns 0-8,191 against 8,192-16,383: |correlation|",
+                       abs(float(torch.corrcoef(blocks)[0, 1])), 0.02, "contract"))
+    u = K7.uniform_2d(threefry.PRNGKey(1), (3, 1_000), DEV)
+    if u.shape != (3, 1_000) or not (float(u.min()) >= 0.0 and float(u.max()) < 1.0):
+        raise AssertionError("K7: the ragged draw is wrong in shape or range")
+    shape, key = (SB_TRAIN, BAND), threefry.PRNGKey(1)
+    run = lambda: K7.uniform_2d(key, shape, DEV)
+    n = SB_TRAIN * BAND
+    b_ms, b_by = bound(n * 4, n * THREEFRY_OPS, INT32_OPS)
+    bits_shape = (SB_TRAIN, CHUNK)
+    return dict(name=K7.NAME, source="avr_tpu_torch/csrc/rng.cu",
+                replaces="avr_tpu/ops/pallas/rng.py:54", tpu_kernel="pallas_uniform_2d",
+                shape=f"{shape} float32 (the train band's draw)", cases=cases,
+                ms=kernel_device_ms(run, ("threefry_kernel",), iters=20)["threefry_kernel"],
+                call_ms=time_ms(run, iters=50),
+                plain_ms=time_ms(lambda: K7.uniform_2d_plain(key, shape, DEV), iters=10),
+                library_ms=time_ms(lambda: torch.rand(shape, device=DEV), iters=50),
+                library="torch.rand (another stream)", bound_ms=b_ms, bound_by=b_by,
+                bits_ms=kernel_device_ms(lambda: K7.bits(key, bits_shape, DEV),
+                                         ("threefry_kernel",), iters=20)["threefry_kernel"],
+                bits_shape=str(bits_shape))
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the serving path
 # ---------------------------------------------------------------------------
@@ -1132,13 +1241,18 @@ PATHS = {"adaptive": ("", {}), "VR": ("VR", {}), "Raymarcher": ("Raymarcher", {}
 # kernel launches per 4,096-ray chunk of a served frame, by path: the
 # adaptive renderer marches and queries twice (coarse point, band), the VR
 # queries its coarse and fine samples, the Raymarcher marches and queries
-# once; the fused path queries through K5 and composites the band in K4
+# once; the fused path queries through K5 and composites the band in K4.
+# K7 draws the chunk's jitter: the march's initial distance (a normal) and
+# the band; the VR's coarse samples, its two importance draws and its depth
+# normal; the Raymarcher's initial distance
 SERVE_LAUNCHES = {
-    "adaptive": {"fused_lstm_march": 1, "gather_bilinear": 2, "fused_resnetfc": 2},
-    "VR": {"gather_bilinear": 2, "fused_resnetfc": 2},
-    "Raymarcher": {"fused_lstm_march": 1, "gather_bilinear": 1, "fused_resnetfc": 1},
+    "adaptive": {"fused_lstm_march": 1, "gather_bilinear": 2, "fused_resnetfc": 2,
+                 K7.NAME: 2},
+    "VR": {"gather_bilinear": 2, "fused_resnetfc": 2, K7.NAME: 4},
+    "Raymarcher": {"fused_lstm_march": 1, "gather_bilinear": 1, "fused_resnetfc": 1,
+                   K7.NAME: 1},
     "adaptive_fused": {"fused_lstm_march": 1, "gather_bilinear_projected": 2,
-                       "fused_resnetfc": 2, "fused_volume_integral": 1},
+                       "fused_resnetfc": 2, "fused_volume_integral": 1, K7.NAME: 2},
 }
 
 
@@ -1173,7 +1287,8 @@ def run_slice(path="adaptive", frames=3):
     intr = torch.as_tensor(batch["intrinsics"][:, 0])
     with torch.inference_mode():
         cond = encode_scene(model, batch, DEV)
-        out = render_full_image(model, cond, intr, poses[:1], SIDE, (0, 0), CHUNK, DEV)
+        out = render_full_image(model, cond, intr, poses[:1], SIDE, threefry.PRNGKey(0), CHUNK,
+                                DEV)
     for name, value in out._asdict().items():
         if value is not None and not torch.isfinite(value).all():
             raise AssertionError(f"{name} has non-finite values")
@@ -1184,7 +1299,7 @@ def run_slice(path="adaptive", frames=3):
     if np.abs(img.astype(int) - video[0].astype(int)).max() > 1:
         raise AssertionError("video frame 0 differs from its float render")
     render = lambda i: render_full_image(model, cond, intr, poses[i % frames][None], SIDE,
-                                         (0, i), CHUNK, DEV)
+                                         threefry.PRNGKey(i), CHUNK, DEV)
     frame_ms = []
     for i in range(5):
         torch.cuda.synchronize()
@@ -1222,7 +1337,8 @@ def profile_frame(render, label="frame", out_dir="traces"):
     ours = ("gather_bilinear_kernel", "gather_bilinear_bwd_kernel", "resnetfc_kernel",
             "resnetfc_dgrad_kernel", "resnetfc_wgrad_kernel", "resnetfc_bwd_recompute_kernel",
             "lstm_march_kernel", "lstm_march_bwd_kernel", "gather_projected_kernel",
-            "gather_projected_bwd_kernel", "volume_integral_kernel", "volume_integral_bwd_kernel")
+            "gather_projected_bwd_kernel", "volume_integral_kernel", "volume_integral_bwd_kernel",
+            "threefry_kernel")
     kernel_us = sum(r[1] for r in rows if any(o in r[0] for o in ours))
     print(f"profile {label}: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
           f"({busy_us / wall_us:.3f} of wall), port kernels {kernel_us / 1e3:.3f} ms")
@@ -1245,8 +1361,9 @@ def small_model(dev, path):
 
 
 def check_small_reference(path="adaptive", sl=16):
-    """A 16x16 render in float32: kernels on the card against the same
-    weights' plain path on the CPU."""
+    """A 16x16 render in float32 with ``PRNGKey(7)``: kernels on the card
+    against the same weights' plain path on the CPU (K7's draws are bit for
+    bit the plain version's)."""
     outs = []
     for dev in (DEV, torch.device("cpu")):
         model = small_model(dev, path)
@@ -1255,7 +1372,7 @@ def check_small_reference(path="adaptive", sl=16):
             cond = encode_scene(model, batch, dev)
             c2w = torch.as_tensor(batch["cam2world"][:, 0])
             outs.append(render_full_image(model, cond, torch.as_tensor(batch["intrinsics"][:, 0]),
-                                          c2w, sl, (0, 7), 128, dev))
+                                          c2w, sl, threefry.PRNGKey(7), 128, dev))
     label = f"{path} {sl}x{sl} f32 card vs CPU"
     names = [k for k, v in outs[1]._asdict().items() if v is not None]
     # f32 everywhere; the encoder's convolutions (cuDNN vs CPU) and the
@@ -1315,12 +1432,20 @@ TRAIN_LAUNCHES = {
                    "fused_lstm_march": 1, "fused_lstm_march_bwd": 1,
                    "fused_lstm_march_bwd_wgrad": 1},
 }
+# the adaptive step on the device set: the adaptive kernels, and K7 for the
+# sampler's three randint draws (two raw-bit draws each) and the render's
+# two legacy draws (the march's initial distance, the band)
+TRAIN_LAUNCHES["adaptive_device_data"] = {**TRAIN_LAUNCHES["adaptive"], K7.NAME_BITS: 6,
+                                          K7.NAME: 2}
 # parameters the loss gives an exactly zero gradient, so Adam leaves them
 # where they were: the coarse decoder's sigma row (the loss reads only its
 # rgb) for the marching renderers, and the Raymarcher's unused fine decoder
 SIGMA_ROW = [("net.mlp_coarse.lin_out.weight", 3), ("net.mlp_coarse.lin_out.bias", 3)]
 FROZEN = {"adaptive": SIGMA_ROW, "adaptive_fused": SIGMA_ROW, "vr": [], "vr_chunked": [],
-          "raymarcher": SIGMA_ROW + [("net.mlp_fine.", None)]}
+          "raymarcher": SIGMA_ROW + [("net.mlp_fine.", None)], "adaptive_device_data": SIGMA_ROW}
+# the device set: instances x views of SIDE x SIDE synthetic scenes (629 MB
+# of float32 images on the card)
+DEVICE_SET = (64, 50)
 
 
 def train_batch(dev, seed=0, sb=SB_TRAIN, rays=CHUNK, side=SIDE):
@@ -1340,40 +1465,136 @@ def train_batch(dev, seed=0, sb=SB_TRAIN, rays=CHUNK, side=SIDE):
             t(np.asarray([side / 2.0, side / 2.0], np.float32)), model_input, t(gt))
 
 
+def device_set():
+    """The synthetic set (``data/synthetic.py``, DEVICE_SET instances x views
+    of SIDE x SIDE) uploaded to the card, and the seconds each part took."""
+    t = time.perf_counter()
+    dset = synthetic_scene_set(*DEVICE_SET, side=SIDE, seed=0)
+    made = time.perf_counter() - t
+    data = build_device_dataset(dset, DEV)
+    torch.cuda.synchronize()
+    return data, dict(generate_s=made, upload_s=time.perf_counter() - t - made,
+                      gb=data.images.numel() * 4 / 1e9)
+
+
 def run_train(path="adaptive", steps=10, warmup=2):
     """Full-width train steps (bf16, 4 scenes x 4,096 rays) of ``path``
     (a key of TRAIN_LAUNCHES): warm-up, then timed steps with the launch
-    counters reset just before them.  The loss is finite, no update was
-    skipped, every parameter and BatchNorm statistic moved but those the
-    loss gives no gradient (FROZEN), which must not have moved."""
-    model = path_model({"vr": "VR", "vr_chunked": "VR", "raymarcher": "Raymarcher"}.get(path, path),
-                       torch.bfloat16, DEV)
+    counters reset just before them.  The loss is finite, every skipped
+    update is non-finite through the plain versions too (``confirm_skip``),
+    every parameter and BatchNorm statistic moved but those the loss gives
+    no gradient (FROZEN), which must not have moved.
+    ``adaptive_device_data`` draws each step's batch on the card from the
+    synthetic device set (legacy key stream) instead of ``bench.py``'s batch."""
+    renderer = {"vr": "VR", "vr_chunked": "VR", "raymarcher": "Raymarcher",
+                "adaptive_device_data": "adaptive"}.get(path, path)
+    model = path_model(renderer, torch.bfloat16, DEV)
     opt = make_optimizer(1e-4)
     state = create_train_state(model, opt)
     loss_params = LossParams(loss_mode="coarse" if path == "raymarcher" else "both")
-    step = (make_chunked_call_train_step(model, opt, loss_params, ray_chunks=8)
-            if path == "vr_chunked" else make_train_step(model, opt, loss_params))
-    batch = train_batch(DEV)
+    chunks = 8 if path == "vr_chunked" else 1
+    extra = {}
+    replay = {}  # the batch and render key of the last step, to redo a skipped one
+    if path == "adaptive_device_data":
+        data, extra["device_set"] = device_set()
+        sampler = make_device_sampler(data, SB_TRAIN, CHUNK)
+
+        def recorded(k_batch):
+            replay["batch"] = sampler(k_batch)
+            return replay["batch"]
+
+        dd_step = make_train_step(model, opt, loss_params, rng_mode="legacy",
+                                  sampler=recorded, sampler_key=threefry.PRNGKey(0))
+        rng_mode = "legacy"
+
+        def step(state, i):  # state.step is i: the step's render key, as make_train_step's
+            replay["key"] = threefry.split(threefry.fold_in(threefry.PRNGKey(0), i))[1]
+            return dd_step(state)
+    else:
+        plain_step = (make_chunked_call_train_step(model, opt, loss_params, ray_chunks=chunks)
+                      if path == "vr_chunked" else make_train_step(model, opt, loss_params))
+        replay["batch"] = batch = train_batch(DEV)
+        rng_mode = "per_ray"
+
+        def step(state, i):
+            replay["key"] = (0, i)
+            return plain_step(state, *batch, (0, i))
+
+    skipped = []
+
+    def redo(plain, found=None):
+        """Step ``i``'s loss and gradients again on the same weights, batch
+        and key (the BatchNorm statistics restored after), through the
+        plain versions or, recording where the first non-finite value
+        appears, through the kernels (their launches not counted)."""
+        stats = {k: v.clone() for k, v in model.named_buffers()}
+        counted = dict(_build.launches)
+        with plain_kernels() if plain else first_nonfinite(found):
+            loss, g = loss_and_grads(model, state.params, loss_params, *replay["batch"],
+                                     replay["key"], ray_chunks=chunks, rng_mode=rng_mode)
+        _build.launches.clear()
+        _build.launches.update(counted)
+        with torch.no_grad():
+            for k, v in model.named_buffers():
+                v.copy_(stats[k])
+        return float(loss), [k for k, v in g.items() if not bool(torch.isfinite(v).all())]
+
+    def confirm_skip(i, metrics):
+        """The optimizer skipped step ``i`` (a non-finite gradient; the
+        weights did not move).  Redone through the plain versions on the
+        card, the loss must agree; the gradient must be non-finite too, or
+        else, redone through the kernels, the first non-finite value must
+        appear in the backward of an op that is not a kernel's, from finite
+        incoming gradients: the kernels' forward points differ from the
+        plain versions' in the last bits, so a point at a camera depth of
+        exactly 0 can come out on one side only (module docstring, phase 4).
+        Otherwise a kernel made it."""
+        if int(metrics["notfinite"]) == len(skipped):
+            return
+        loss, bad = redo(plain=True)
+        # bf16 forward through the kernels and through the plain versions:
+        # the probe's skips read up to 1.1e-5 apart
+        if not abs(loss - float(metrics["loss"])) <= 1e-4:
+            raise AssertionError(f"{path} train step {i}: loss {float(metrics['loss'])} through "
+                                 f"the kernels, {loss} through the plain versions")
+        entry = {"step": i, "plain_loss": loss, "plain_nonfinite": len(bad)}
+        if not bad:
+            found = []
+            redo(plain=False, found=found)
+            if not found or found[0]["kernel"]:
+                raise AssertionError(f"{path} train step {i}: the kernels' gradient is not "
+                                     f"finite, the plain versions' is; first non-finite at "
+                                     f"{found[0] if found else 'no node'}")
+            entry["first_nonfinite_node"] = found[0]
+        skipped.append(entry)
+        where = (f"{len(bad)} non-finite gradients" if bad else
+                 f"a finite gradient, and the kernels' first non-finite value appears in "
+                 f"{entry['first_nonfinite_node']['node']}, which is not a kernel")
+        print(f"{path} train step {i}: update skipped; on the same weights and batch the plain "
+              f"versions give {where}")
+
     tracked = {**state.params, **state.batch_stats}
     initial = {k: v.detach().clone() for k, v in tracked.items()}
     for i in range(warmup):
-        state, metrics = step(state, *batch, (0, i))
+        state, metrics = step(state, i)
+        confirm_skip(i, metrics)
     torch.cuda.synchronize()
     _build.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     step_ms = []
     for i in range(warmup, warmup + steps):
         t = time.perf_counter()
-        state, metrics = step(state, *batch, (0, i))
+        state, metrics = step(state, i)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t) * 1e3)
+        confirm_skip(i, metrics)  # its redos' launches are not counted
     counts = dict(_build.launches)
     want = {k: steps * v for k, v in TRAIN_LAUNCHES[path].items()}
     if counts != want:
         raise AssertionError(f"{path} train launch counts {counts} != expected {want}")
     loss, notfinite = float(metrics["loss"]), int(metrics["notfinite"])
-    if not np.isfinite(loss) or notfinite != 0:
-        raise AssertionError(f"{path} train step: loss {loss}, notfinite {notfinite}")
+    if not np.isfinite(loss):
+        raise AssertionError(f"{path} train step: loss {loss}")
     whole = [k for k in tracked for p, row in FROZEN[path] if row is None and k.startswith(p)]
     same = [k for k, v in tracked.items() if k not in whole and torch.equal(v, initial[k])]
     if same:
@@ -1388,8 +1609,10 @@ def run_train(path="adaptive", steps=10, warmup=2):
     res = dict(path=path, steps=steps, step_ms=step_ms, ms_per_step=med,
                rays_per_s=rays / med * 1e3,
                max_memory_gb=torch.cuda.max_memory_allocated() / 1e9, loss=loss,
-               grad_norm=float(metrics["grad_norm"]), notfinite=notfinite, launches=counts)
-    return res, lambda i=0: step(state, *batch, (1, i))
+               grad_norm=float(metrics["grad_norm"]), notfinite=notfinite, skipped=skipped,
+               launches=counts,
+               **extra)
+    return res, lambda i=0: step(state, i)
 
 
 def check_vr_chunks():
@@ -1450,6 +1673,7 @@ def plain_kernels():
     import avr_tpu_torch.renderers.raymarch as raymarch
 
     swaps = [(grid_sample, "gather_bilinear", gather_bilinear_plain),
+             (K7, "uniform_2d", K7.uniform_2d_plain), (K7, "bits", K7.bits_plain),
              (raymarch, "fused_lstm_march", lstm_march_plain),
              (mlp, "fused_resnetfc", lambda *a, stash=None, **kw: resnetfc_plain(*a, **kw)),
              (pixelnerf, "gather_bilinear_projected", gather_bilinear_projected_plain),
@@ -1464,17 +1688,72 @@ def plain_kernels():
             setattr(m, n, kernel)
 
 
-def check_small_train(path="adaptive", rays=256):
+def _finite(ts):
+    return all(bool(torch.isfinite(t).all()) for t in ts if t is not None)
+
+
+def _largest(ts):
+    return max((float(t.float().abs().nan_to_num(0.0, 0.0, 0.0).max()) for t in ts
+                if t is not None and t.numel()), default=0.0)
+
+
+@contextlib.contextmanager
+def first_nonfinite(found):
+    """Inside: every ``torch.autograd.grad`` call hooks each node of its
+    graph and appends to ``found`` (up to 4) the nodes that turn finite
+    incoming gradients into non-finite outgoing ones, in the order autograd
+    runs them: the node's name, whether it is a kernel's backward (an
+    autograd Function of ``avr_tpu_torch.ops.kernels``), the largest
+    incoming gradient and the infs and NaNs going out."""
+    grad = torch.autograd.grad
+
+    def traced(outputs, inputs, *args, **kw):
+        roots = [t.grad_fn for t in (outputs if isinstance(outputs, (list, tuple)) else [outputs])]
+        seen, handles = set(), []
+        while roots:
+            node = roots.pop()
+            if node is None or node in seen:
+                continue
+            seen.add(node)
+
+            def hook(grad_in, grad_out, node=node):
+                if len(found) < 4 and _finite(grad_out) and not _finite(grad_in):
+                    fn = getattr(node, "_forward_cls", None)
+                    found.append({
+                        "node": node.name(),
+                        "kernel": fn is not None
+                        and fn.__module__.startswith("avr_tpu_torch.ops.kernels"),
+                        "largest_incoming": _largest(grad_out),
+                        "inf": sum(int(torch.isinf(t).sum()) for t in grad_in if t is not None),
+                        "nan": sum(int(torch.isnan(t).sum()) for t in grad_in if t is not None)})
+
+            handles.append(node.register_hook(hook))
+            roots.extend(f for f, _ in node.next_functions)
+        try:
+            return grad(outputs, inputs, *args, **kw)
+        finally:
+            for h in handles:
+                h.remove()
+
+    torch.autograd.grad = traced
+    try:
+        yield
+    finally:
+        torch.autograd.grad = grad
+
+
+def check_small_train(path="adaptive", rays=256, rng_mode="per_ray"):
     """One f32 step's loss and gradients (the full-width model, 2 march
-    steps, one scene) from the same weights and batch: kernels on the card
-    against the plain path on the CPU, and against the plain versions on
-    the card."""
+    steps, one scene) from the same weights, batch and key (``rng_mode``'s
+    stream): kernels on the card against the plain path on the CPU, and
+    against the plain versions on the card."""
     def grads(dev, plain=False):
         model = small_model(dev, path)
         batch = train_batch(dev, seed=1, sb=1, rays=rays)
         with plain_kernels() if plain else contextlib.nullcontext():
             loss, g = loss_and_grads(model, dict(model.named_parameters()),
-                                     LossParams(loss_mode="both"), *batch, (0, 3))
+                                     LossParams(loss_mode="both"), *batch, threefry.PRNGKey(3),
+                                     rng_mode=rng_mode)
         stats = {k: v.detach().cpu() for k, v in model.named_buffers()}
         return float(loss), {k: v.cpu() for k, v in g.items()}, stats
 
@@ -1491,7 +1770,7 @@ def check_small_train(path="adaptive", rays=256):
     # move by ~1e-5 and the gradients follow by a few percent; the plain
     # path on the card differs from the CPU by as much as the kernels do.
     # 1e-4 on the loss, 5e-2 relative L2 per gradient, 1e-4 on the stats
-    r = path
+    r = f"{path} {rng_mode}"
     cases = [check(f"{r} loss f32 card vs CPU", abs(l_k - l_c), 1e-4),
              check(f"{r} loss f32 kernels vs plain on the card", abs(l_k - l_p), 1e-5)]
     for name, (err, key), tol, against in (("kernels vs plain on the card", vs_plain, 5e-3,
@@ -1533,7 +1812,7 @@ def main() -> int:
     kernels = [check_gather(gen), check_resnetfc(gen), check_march(gen),
                check_gather_bwd(gen), *check_resnetfc_bwd(gen), check_resnetfc_recompute(gen),
                *check_march_bwd(gen), check_integral(gen), check_integral_bwd(gen),
-               check_gather_proj(gen), check_gather_proj_bwd(gen)]
+               check_gather_proj(gen), check_gather_proj_bwd(gen), check_rng()]
     print(f"integral: {check_integral_saturated(gen)}")
     for k in kernels:
         print(f"kernel {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, bound "
@@ -1551,10 +1830,10 @@ def main() -> int:
     del renders
     # the adaptive step keeps its 10 timed steps; the others take 5
     for path, steps in (("adaptive", 10), ("adaptive_fused", 5), ("vr", 5), ("vr_chunked", 5),
-                        ("raymarcher", 5)):
+                        ("raymarcher", 5), ("adaptive_device_data", 5)):
         train[path], run_step = run_train(path, steps=steps)
         print(f"train {path}: {train[path]}")
-        if profile and path in ("adaptive", "adaptive_fused", "vr"):
+        if profile and path in ("adaptive", "adaptive_fused", "vr", "adaptive_device_data"):
             train[path]["profile"] = profile_frame(run_step, label=f"train_step_{path}",
                                                    out_dir=out_dir)
         del run_step
@@ -1563,16 +1842,19 @@ def main() -> int:
     results = {"serve": serve, "train": train,
                "vr_one_vs_8_chunks": check_vr_chunks(),
                "reference": check_small_reference() + check_small_train()
+               + check_small_train(rng_mode="legacy")
                + check_small_reference("adaptive_fused") + check_small_train("adaptive_fused")
-               + check_small_reference("VR") + check_small_train("VR")}
+               + check_small_reference("VR") + check_small_train("VR")
+               + check_small_reference("Raymarcher")}
     for c in results["vr_one_vs_8_chunks"] + results["reference"]:
         print(f"reference: {c}")
 
     for k in kernels:
         plain = [c for c in k["cases"] if c.get("against") == "plain"]
         err = max(c["max_abs_err"] for c in plain)
-        # the forward kernel counts under two names: without and with stash
-        names = [k["name"]] + ([K2.NAME_STASH] if k["name"] == K2.NAME else [])
+        # K2's forward counts under two names (without and with stash), K7
+        # under two (the uniform draw and its raw bits)
+        names = [k["name"]] + {K2.NAME: [K2.NAME_STASH], K7.NAME: [K7.NAME_BITS]}.get(k["name"], [])
         by_path = {path: sum(counts.get(n, 0) for n in names) for path, counts in launches.items()}
         if not sum(by_path.values()):
             raise AssertionError(f"{k['name']} was never launched on a main path")
@@ -1586,8 +1868,10 @@ def main() -> int:
     for k in kernels:
         cases = k.pop("cases")
         k["cases"] = len(cases)
+        # a bitwise case (tolerance 0) that passed has error 0: ratio 0
         k["worst_case"] = max((c for c in cases if "tol" in c),
-                              key=lambda c: c.get("rel_l2", c.get("max_abs_err")) / c["tol"])
+                              key=lambda c: c.get("rel_l2", c.get("max_abs_err")) / c["tol"]
+                              if c["tol"] else 0.0)
     for part in (*serve.values(), *train.values()):
         part.pop("profile", None)
     print(json.dumps({"kernels": kernels, **results, "card": smi}))

@@ -84,12 +84,16 @@ def test_hash_normal_matches():
 
 
 def test_chunked_ids_equal_global_ids():
-    """A chunk's ids (offset, full-image stride) are the slice of the whole
-    image's ids, so chunking never changes a ray's random numbers."""
-    full = np.asarray(jh.global_ray_ids(2, 64))
-    for start in (0, 16, 48):
-        got = th.global_ray_ids(2, 16, start, stride=64)
-        np.testing.assert_array_equal(_u32(got), full[:, start:start + 16])
+    """A ray chunk of the train step gets the slice of the whole batch's
+    seed map (JAX's global ids), so chunking never changes a ray's random
+    numbers."""
+    from avr_tpu_torch.training.step import _chunk_keys
+
+    key = jax.random.PRNGKey(3)
+    full = np.asarray(jh.derive(key, jh.global_ray_ids(2, 64)).seeds)
+    chunks = _chunk_keys((0, 3), 2, 64, 4, "per_ray", torch.device("cpu"))
+    for i, rs in enumerate(chunks):
+        np.testing.assert_array_equal(_u32(rs.seeds), full[:, 16 * i:16 * (i + 1)])
 
 
 def test_shape_mismatch_raises():

@@ -1,12 +1,14 @@
 """Rules of the port that hold on any machine.
 
-* No module of ``avr_tpu_torch`` and no part of ``chip_smoke.py`` imports
-  JAX, Flax, Optax or the JAX package (AST scan).
+* No module of ``avr_tpu_torch`` and no part of ``chip_smoke.py`` or
+  ``train_skip_probe.py`` imports JAX, Flax, Optax or the JAX package (AST
+  scan).
 * Entry points default to the card: with no CUDA device and no explicit
   ``device``, they raise instead of running on the CPU.
 * CPU tensors take the plain versions and never touch the kernel library,
   on the default adaptive path and on the fused one (K5's gather, K4's
-  band integral).
+  band integral), and with the legacy threefry key (K7's draws) for every
+  renderer and the device-data train step.
 """
 
 import ast
@@ -18,8 +20,11 @@ import torch
 
 from avr_tpu_torch import evaluation
 from avr_tpu_torch.config import parse_conf_string
+from avr_tpu_torch.data.device import build_device_dataset, make_device_sampler
+from avr_tpu_torch.data.synthetic import synthetic_scene_set
 from avr_tpu_torch.models.wrapper import make_model
 from avr_tpu_torch.ops.kernels import _build
+from avr_tpu_torch.ops.threefry import PRNGKey
 
 torch.set_num_threads(2)
 
@@ -51,7 +56,8 @@ def _imports(path: pathlib.Path):
 
 
 def _port_files():
-    return sorted((ROOT / "avr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted((ROOT / "avr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                              ROOT / "train_skip_probe.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -81,7 +87,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
         evaluation.generate_video(model, batch, 1, 1.3)
     with pytest.raises(RuntimeError, match="CUDA"):
         evaluation.render_full_image(model, None, torch.eye(3)[None], torch.eye(4)[None],
-                                     8, (0, 0))
+                                     8, PRNGKey(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_device_dataset(synthetic_scene_set(1, 2, 8))
 
 
 @pytest.mark.parametrize("path", PATHS)
@@ -115,8 +123,50 @@ def test_the_scan_covers_the_renderers():
 
 def test_the_scan_covers_the_kernel_wrappers():
     names = {str(p.relative_to(ROOT)) for p in _port_files()}
-    for mod in ("_build", "gather", "resnetfc", "march", "integrate"):
+    for mod in ("_build", "gather", "resnetfc", "march", "integrate", "rng"):
         assert f"avr_tpu_torch/ops/kernels/{mod}.py" in names
+    assert "avr_tpu_torch/ops/threefry.py" in names
+
+
+def test_the_scan_covers_the_data_package():
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for mod in ("__init__", "device", "synthetic"):
+        assert f"avr_tpu_torch/data/{mod}.py" in names
+
+
+@pytest.mark.parametrize("renderer", ["", "VR", "Raymarcher"])
+def test_cpu_legacy_render_never_touches_the_kernel_library(renderer):
+    """A threefry key's draws (K7) take the plain version on the CPU."""
+    model = make_model(_tiny_conf(), dtype=torch.float32, seed=4, device="cpu",
+                       renderer=renderer)
+    c2w = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
+    c2w[2, 3] = 1.3
+    K = torch.tensor([[1.09375, 0, 0.5], [0, 1.09375, 0.5], [0, 0, 1]])[None]
+    _build.reset_launches()
+    with torch.inference_mode():
+        cond = model.encode(torch.zeros(1, 1, 16, 16, 3), torch.from_numpy(c2w)[None, None],
+                            17.5)
+        out = evaluation.render_full_image(model, cond, K, torch.from_numpy(c2w)[None], 8,
+                                           PRNGKey(3), 48, device="cpu")
+    assert out.rgb_coarse.shape == (1, 64, 3) and torch.isfinite(out.rgb_coarse).all()
+    assert not _build.launches
+    assert _build._lib is None, "the CPU legacy render loaded the CUDA kernel library"
+
+
+def test_cpu_device_data_step_never_touches_the_kernel_library():
+    from avr_tpu_torch.training import LossParams, create_train_state, make_optimizer
+    from avr_tpu_torch.training import make_train_step
+
+    model = make_model(_tiny_conf(), dtype=torch.float32, seed=5, device="cpu")
+    data = build_device_dataset(synthetic_scene_set(2, 3, 16), device="cpu")
+    opt = make_optimizer(1e-3)
+    _build.reset_launches()
+    step = make_train_step(model, opt, LossParams(), rng_mode="legacy",
+                           sampler=make_device_sampler(data, 2, 16), sampler_key=PRNGKey(1))
+    state, metrics = step(create_train_state(model, opt))
+    assert int(metrics["notfinite"]) == 0 and int(state.step) == 1
+    assert not _build.launches
+    assert _build._lib is None, "the CPU device-data step loaded the CUDA kernel library"
 
 
 @pytest.mark.parametrize("path", PATHS)

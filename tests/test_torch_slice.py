@@ -29,12 +29,14 @@ from avr_tpu.models.pixelnerf import ModelConfig as JaxModelConfig
 from avr_tpu.models.wrapper import RadFieldRenderer as JaxRenderer
 from avr_tpu.ops import hashrng as jh
 from avr_tpu.renderers.base import AdaptiveRendererConfig as JaxAdaptiveConfig
+from avr_tpu.training.loop import render_full_image as jax_render_full_image
 from avr_tpu_torch.config import parse_conf_string
 from avr_tpu_torch.evaluation import render_full_image
 from avr_tpu_torch.models.flax_import import load_flax_variables
 from avr_tpu_torch.models.pixelnerf import ModelConfig
 from avr_tpu_torch.models.wrapper import RadFieldRenderer
 from avr_tpu_torch.ops import hashrng as th
+from avr_tpu_torch.ops import threefry
 from avr_tpu_torch.ops.kernels import _build
 from avr_tpu_torch.renderers.base import AdaptiveRendererConfig
 from avr_tpu_torch.utils.geometry import pixel_grid
@@ -153,25 +155,22 @@ def test_render_matches(models):
 
 
 def test_render_full_image_matches_chunked_jax(models):
-    """8x8 image in 16-ray chunks; JAX renders each chunk with the seeds of
-    the chunk's global ray ids (its own ``render_full_image`` gives every
-    chunk the same key, so it is not the reference here)."""
+    """8x8 image in 24-ray chunks, the last one ragged (16 rays, edge-padded
+    to 24), against JAX's own ``render_full_image``: every chunk renders
+    with the same threefry key, whose draws the port makes through K7's
+    plain version on the CPU."""
     c2w, K = _camera()
-    sl, chunk, frame = 8, 16, 9
-    key = jax.random.PRNGKey(frame)
-    gids = jh.global_ray_ids(1, sl * sl)
-    xy = pixel_grid(sl, sl).reshape(1, sl * sl, 2)
-    pieces = []
-    for start in range(0, sl * sl, chunk):
-        pieces.append(models["jrender"](
-            models["jvars"], models["jcond"], jnp.asarray(xy[:, start:start + chunk]),
-            jnp.asarray(K), jnp.asarray(np.broadcast_to(c2w, (1, chunk, 4, 4)).copy()),
-            jh.derive(key, gids[:, start:start + chunk])))
+    sl, chunk, frame = 8, 24, 9
+    want = jax_render_full_image(models["jrender"], models["jvars"], models["jcond"],
+                                 jnp.asarray(K), jnp.asarray(c2w)[None], sl,
+                                 jax.random.PRNGKey(frame), chunk)
     _build.reset_launches()
     got = render_full_image(models["port"], models["pcond"], torch.from_numpy(K),
-                            torch.from_numpy(c2w)[None], sl, (0, frame), chunk, device="cpu")
+                            torch.from_numpy(c2w)[None], sl, threefry.PRNGKey(frame), chunk,
+                            device="cpu")
     assert not _build.launches
     for name in OUTPUTS:
-        w = np.concatenate([np.asarray(getattr(p, name)) for p in pieces], axis=1)
+        w = np.asarray(getattr(want, name))
+        assert w.shape[1] == sl * sl
         np.testing.assert_allclose(getattr(got, name).numpy(), w, rtol=0, atol=TOL,
                                    err_msg=name)

@@ -28,12 +28,14 @@ from avr_tpu.ops import hashrng as jh
 from avr_tpu.ops.sampling import sample_depth as jax_sample_depth
 from avr_tpu.ops.sampling import sample_fine as jax_sample_fine
 from avr_tpu.renderers.base import renderer_config_from_conf as jax_renderer_config
+from avr_tpu.training.loop import render_full_image as jax_render_full_image
 from avr_tpu_torch.config import parse_conf_string
 from avr_tpu_torch.evaluation import render_full_image
 from avr_tpu_torch.models.flax_import import load_flax_variables, to_flax_variables
 from avr_tpu_torch.models.pixelnerf import ModelConfig
 from avr_tpu_torch.models.wrapper import RadFieldRenderer, make_model
 from avr_tpu_torch.ops import hashrng as th
+from avr_tpu_torch.ops import threefry
 from avr_tpu_torch.ops.kernels import _build
 from avr_tpu_torch.ops.sampling import sample_depth, sample_fine
 from avr_tpu_torch.renderers.base import (RaymarcherConfig, VolumeRendererConfig,
@@ -182,25 +184,22 @@ def test_render_matches(pair):
 
 
 def test_render_full_image_matches_chunked_jax(pair):
-    """8x8 image in 16-ray chunks; JAX renders each chunk with the seeds of
-    the chunk's global ray ids."""
+    """8x8 image in 24-ray chunks, the last one ragged (edge-padded), against
+    JAX's own ``render_full_image`` with the same threefry key."""
     _, m = pair
     c2w, K = _camera()
-    sl, chunk, frame = 8, 16, 4
-    key = jax.random.PRNGKey(frame)
-    gids = jh.global_ray_ids(1, sl * sl)
-    xy = pixel_grid(sl, sl).reshape(1, sl * sl, 2)
-    pieces = [m["jrender"](m["jvars"], m["jcond"], jnp.asarray(xy[:, s:s + chunk]),
-                           jnp.asarray(K), jnp.asarray(np.broadcast_to(c2w, (1, chunk, 4, 4)).copy()),
-                           jh.derive(key, gids[:, s:s + chunk]))
-              for s in range(0, sl * sl, chunk)]
+    sl, chunk, frame = 8, 24, 4
+    want = _outputs(jax_render_full_image(m["jrender"], m["jvars"], m["jcond"], jnp.asarray(K),
+                                          jnp.asarray(c2w)[None], sl, jax.random.PRNGKey(frame),
+                                          chunk))
+    _build.reset_launches()
     got = _outputs(render_full_image(m["port"], m["pcond"], torch.from_numpy(K),
-                                     torch.from_numpy(c2w)[None], sl, (0, frame), chunk,
-                                     device="cpu"))
-    assert got.keys() == _outputs(pieces[0]).keys()
+                                     torch.from_numpy(c2w)[None], sl, threefry.PRNGKey(frame),
+                                     chunk, device="cpu"))
+    assert not _build.launches
+    assert got.keys() == want.keys()
     for k, v in got.items():
-        w = np.concatenate([np.asarray(getattr(p, k)) for p in pieces], axis=1)
-        np.testing.assert_allclose(v.numpy(), w, rtol=0, atol=TOL, err_msg=k)
+        np.testing.assert_allclose(v.numpy(), np.asarray(want[k]), rtol=0, atol=TOL, err_msg=k)
 
 
 def test_flax_trees_round_trip(pair):
