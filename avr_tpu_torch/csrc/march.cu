@@ -26,7 +26,13 @@
 // coordinate cotangent with the strict border mask, then the projection).
 // v_t is not saved by the forward: the backward loads the same four taps
 // anyway for the per-tap dots, so it re-blends v_t from them (the latent
-// stays in L2).  W_ih^T (4H x C) sits in shared memory for dv.  The weight
+// stays in L2).  W_ih^T (4H x C) sits in shared memory for dv.
+//
+// Hidden sizes up to MAX_HIDDEN = 62, as the TPU kernel's 2H + 4 <= 128
+// allows: lane k carries units k and k + 32 (the second only past 32), the
+// gate row holds 4H <= 248 columns, and W_ih (W_ih^T in the backward) stays
+// in shared memory while it fits there (C x 4H bf16 = 64 KB at H 16; 254 KB
+// at H 62, read from L2 instead).  The weight
 // cotangent dW_ih = sum over ray-steps of v_t (x) dgates is not summed in
 // the walk (a first version did so by shared-memory atomics from all eight
 // warps of a CTA on the same addresses, 1,024 a ray-step a lane: 39.5 ms):
@@ -39,7 +45,9 @@
 #include "common.cuh"
 
 constexpr int WARPS = 8;  // rays per CTA
-constexpr int MAX_GATES = 128;  // 4 * hidden, hidden <= 32
+constexpr int MAX_HIDDEN = 62;
+constexpr int MAX_GATES = 256;  // 4 * hidden, hidden <= 62, padded
+constexpr size_t WIH_SMEM_MAX = 128 * 1024;  // W_ih in shared memory up to this size
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) / 16 * 16; }
 
@@ -48,12 +56,38 @@ __host__ __device__ inline size_t align16(size_t n) { return (n + 15) / 16 * 16;
 __host__ __device__ inline int aux_g0(int hid) { return 2 * hid + 4; }
 __host__ __device__ inline int aux_width(int hid) { return (7 * hid + 5 + 3) / 4 * 4; }
 
+template <typename T> __host__ __device__ inline size_t wih_bytes(int C, int hid) {
+  return align16((size_t)C * 4 * hid * sizeof(T));
+}
+template <typename T> __host__ __device__ inline bool wih_in_smem(int C, int hid) {
+  return wih_bytes<T>(C, hid) <= WIH_SMEM_MAX;
+}
+// W_ih (when it fits) and W_hh in shared memory
 template <typename T>
 __host__ __device__ inline size_t weight_bytes(int C, int hid) {
-  return align16((size_t)C * 4 * hid * sizeof(T)) + align16((size_t)hid * 4 * hid * sizeof(T));
+  return (wih_in_smem<T>(C, hid) ? wih_bytes<T>(C, hid) : 0) +
+         align16((size_t)hid * 4 * hid * sizeof(T));
 }
 
-template <typename T>
+// acc[gi] += sum_ch v[ch] W[ch][lane + 32 gi] over n rows of W (row stride
+// G4): the gate columns this lane owns.  Inlined with W derived from the
+// shared-memory pointer or the global one, so each loop reads its own space.
+template <typename T, int GI>
+__device__ __forceinline__ void gate_dots(const T* W, const float* v, int n, int G4, int lane,
+                                          float (&acc)[GI]) {
+  for (int ch = 0; ch < n; ++ch) {
+    const float x = v[ch];
+    const T* wrow = W + (size_t)ch * G4;
+#pragma unroll
+    for (int gi = 0; gi < GI; ++gi) {
+      const int q = lane + 32 * gi;
+      if (q < G4) acc[gi] = fmaf(x, to_f(wrow[q]), acc[gi]);
+    }
+  }
+}
+
+// GI: gate columns a lane owns (4: hidden <= 32; 8: up to MAX_HIDDEN)
+template <typename T, int GI>
 __global__ void __launch_bounds__(WARPS * 32)
 lstm_march_kernel(const float* __restrict__ proj, const float* __restrict__ coords0,
                   const float* __restrict__ rds, const T* __restrict__ feat,
@@ -65,18 +99,19 @@ lstm_march_kernel(const float* __restrict__ proj, const float* __restrict__ coor
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int V = Vec16<T>::N;
   const int G4 = 4 * hid;
-  T* wih_s = reinterpret_cast<T*>(smem);
-  T* whh_s = reinterpret_cast<T*>(smem + align16((size_t)C * G4 * sizeof(T)));
+  const bool wsm = wih_in_smem<T>(C, hid);  // else W_ih is read from L2
+  T* whh_s = reinterpret_cast<T*>(smem + (wsm ? wih_bytes<T>(C, hid) : 0));
   float* v_s = reinterpret_cast<float*>(smem + weight_bytes<T>(C, hid));  // WARPS x C
-  float* gate_s = v_s + WARPS * C;                                        // WARPS x 128
-  float* h_s = gate_s + WARPS * MAX_GATES;                                // WARPS x 32
-  float* bias_s = h_s + WARPS * 32;                                       // 128
-  float* wout_s = bias_s + MAX_GATES;                                     // 32
+  float* gate_s = v_s + WARPS * C;                                        // WARPS x 256
+  float* h_s = gate_s + WARPS * MAX_GATES;                                // WARPS x 64
+  float* bias_s = h_s + WARPS * 64;                                       // 256
+  float* wout_s = bias_s + MAX_GATES;                                     // 64
 
   const int tid = threadIdx.x;
   const int n16 = C * G4 / V;
-  for (int i = tid; i < n16; i += blockDim.x)
-    reinterpret_cast<uint4*>(wih_s)[i] = __ldg(reinterpret_cast<const uint4*>(w_ih) + i);
+  if (wsm)
+    for (int i = tid; i < n16; i += blockDim.x)
+      reinterpret_cast<uint4*>(smem)[i] = __ldg(reinterpret_cast<const uint4*>(w_ih) + i);
   for (int i = tid; i < hid * G4; i += blockDim.x) whh_s[i] = w_hh[i];
   for (int i = tid; i < G4; i += blockDim.x) bias_s[i] = bias[i];
   for (int i = tid; i < hid; i += blockDim.x) wout_s[i] = w_out[i];
@@ -90,9 +125,10 @@ lstm_march_kernel(const float* __restrict__ proj, const float* __restrict__ coor
   const float rx = rds[ray * 3], ry = rds[ray * 3 + 1], rz = rds[ray * 3 + 2];
   float* v_w = v_s + warp * C;
   float* g_w = gate_s + warp * MAX_GATES;
-  float* h_w = h_s + warp * 32;
+  float* h_w = h_s + warp * 64;
   h_w[lane] = 0.f;
-  float c_state = 0.f;  // lane k < hid carries unit k
+  h_w[lane + 32] = 0.f;
+  float c_state[2] = {0.f, 0.f};  // lane k carries units k and k + 32 (< hid)
   const float bo = *b_out;
   const int groups = C / V;
   const float inv_ns = 1.f / (float)NS;
@@ -135,54 +171,47 @@ lstm_march_kernel(const float* __restrict__ proj, const float* __restrict__ coor
     __syncwarp();
 
     // gates: lane owns gate columns lane + 32 * gi
-    float av[4] = {0.f, 0.f, 0.f, 0.f}, ah[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int ch = 0; ch < C; ++ch) {
-      const float v = v_w[ch];
-      const T* wrow = wih_s + (size_t)ch * G4;
+    float av[GI], ah[GI];
 #pragma unroll
-      for (int gi = 0; gi < 4; ++gi) {
-        const int q = lane + 32 * gi;
-        if (q < G4) av[gi] = fmaf(v, to_f(wrow[q]), av[gi]);
-      }
-    }
-    for (int k = 0; k < hid; ++k) {
-      const float hk = h_w[k];
-      const T* wrow = whh_s + k * G4;
+    for (int gi = 0; gi < GI; ++gi) av[gi] = ah[gi] = 0.f;
+    if (wsm)
+      gate_dots<T, GI>(reinterpret_cast<const T*>(smem), v_w, C, G4, lane, av);
+    else
+      gate_dots<T, GI>(w_ih, v_w, C, G4, lane, av);
+    gate_dots<T, GI>(whh_s, h_w, hid, G4, lane, ah);
 #pragma unroll
-      for (int gi = 0; gi < 4; ++gi) {
-        const int q = lane + 32 * gi;
-        if (q < G4) ah[gi] = fmaf(hk, to_f(wrow[q]), ah[gi]);
-      }
-    }
-#pragma unroll
-    for (int gi = 0; gi < 4; ++gi) {
+    for (int gi = 0; gi < GI; ++gi) {
       const int q = lane + 32 * gi;
       if (q < G4) g_w[q] = (av[gi] + ah[gi]) + bias_s[q];
     }
     __syncwarp();
 
-    // cell: lane k < hid updates unit k; step head reduced over the warp
+    // cell: lane k updates units k and k + 32 (< hid); step head reduced
+    // over the warp
     float part = 0.f;
-    if (lane < hid) {
-      const float ig = sigmoidf_(g_w[lane]);
-      const float fg = sigmoidf_(g_w[hid + lane]);
-      const float gg = tanhf(g_w[2 * hid + lane]);
-      const float og = sigmoidf_(g_w[3 * hid + lane]);
-      const float c_prev = c_state;
-      c_state = fg * c_state + ig * gg;
-      const float tc = tanhf(c_state);
+#pragma unroll
+    for (int uu = 0; uu < 2; ++uu) {
+      const int u = lane + 32 * uu;
+      if (u >= hid) continue;
+      const float ig = sigmoidf_(g_w[u]);
+      const float fg = sigmoidf_(g_w[hid + u]);
+      const float gg = tanhf(g_w[2 * hid + u]);
+      const float og = sigmoidf_(g_w[3 * hid + u]);
+      const float c_prev = c_state[uu];
+      c_state[uu] = fg * c_state[uu] + ig * gg;
+      const float tc = tanhf(c_state[uu]);
       const float hn = round_to<T>(og * tc);
       if (row) {
-        row[lane] = h_w[lane];
-        row[hid + lane] = c_prev;
-        row[G0 + lane] = ig;
-        row[G0 + hid + lane] = fg;
-        row[G0 + 2 * hid + lane] = gg;
-        row[G0 + 3 * hid + lane] = og;
-        row[G0 + 4 * hid + lane] = tc;
+        row[u] = h_w[u];
+        row[hid + u] = c_prev;
+        row[G0 + u] = ig;
+        row[G0 + hid + u] = fg;
+        row[G0 + 2 * hid + u] = gg;
+        row[G0 + 3 * hid + u] = og;
+        row[G0 + 4 * hid + u] = tc;
       }
-      h_w[lane] = hn;
-      part = hn * wout_s[lane];
+      h_w[u] = hn;
+      part = uu == 0 ? hn * wout_s[u] : part + hn * wout_s[u];
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
@@ -211,14 +240,16 @@ static int launch(const void* proj, const void* coords0, const void* rds, const 
                   const void* w_ih, const void* w_hh, const void* bias, const void* w_out,
                   const void* b_out, void* out, void* aux, int SB, int R, int NS, int H, int W,
                   int C, int hid, int steps, float eps, cudaStream_t stream) {
+  if (hid < 1 || hid > MAX_HIDDEN) return (int)cudaErrorInvalidValue;
   const size_t smem = weight_bytes<T>(C, hid) +
-                      sizeof(float) * ((size_t)WARPS * (C + MAX_GATES + 32) + MAX_GATES + 32);
-  cudaError_t e = cudaFuncSetAttribute(lstm_march_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                      sizeof(float) * ((size_t)WARPS * (C + MAX_GATES + 64) + MAX_GATES + 64);
+  auto kernel = hid <= 32 ? lstm_march_kernel<T, 4> : lstm_march_kernel<T, 8>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const long long rays = (long long)SB * R;
   const unsigned blocks = (unsigned)((rays + WARPS - 1) / WARPS);
-  lstm_march_kernel<T><<<blocks, WARPS * 32, smem, stream>>>(
+  kernel<<<blocks, WARPS * 32, smem, stream>>>(
       (const float*)proj, (const float*)coords0, (const float*)rds, (const T*)feat,
       (const T*)w_ih, (const T*)w_hh, (const float*)bias, (const float*)w_out,
       (const float*)b_out, (float*)out, (float*)aux, SB, R, NS, H, W, C, hid, steps, eps);
@@ -254,19 +285,19 @@ struct MarchBwdArgs {
   float* drds;           // (SB * R, 3)
   float* dfeat;          // (SB, NS, H, W, C) float32, zeroed
   void* vbuf;            // (SB * R, steps, C) T, zeroed: v_t, dW_ih's operand
-  void* dgbuf;           // (SB * R, steps, 4H) T, zeroed: the rounded gate cotangents
+  void* dgbuf;           // (SB * R, steps, dg_ld) T, zeroed: the rounded gate cotangents
   float* dw_hh;          // (H, 4H)
   float* dbias;          // (4H)
   float* dw_out;         // (H)
   float* db_out;         // (1)
-  int SB, R, NS, H, W, C, hid, steps;
+  int SB, R, NS, H, W, C, hid, steps, dg_ld;
   float eps, clamp;
 };
 
 template <typename T>
 __host__ __device__ inline size_t bwd_smem_bytes(int C, int hid) {
   const int G4 = 4 * hid;
-  return align16((size_t)G4 * C * sizeof(T)) +
+  return (wih_in_smem<T>(C, hid) ? wih_bytes<T>(C, hid) : 0) +
          sizeof(float) * (2 * WARPS * C + WARPS * MAX_GATES + (size_t)hid * G4 + G4 + hid + 1);
 }
 
@@ -274,10 +305,12 @@ template <typename T>
 __global__ void __launch_bounds__(WARPS * 32, 1) lstm_march_bwd_kernel(MarchBwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int hid = a.hid, G4 = 4 * hid, C = a.C, NS = a.NS;
-  T* wihT_s = reinterpret_cast<T*>(smem);           // 4H x C
-  float* v_s = reinterpret_cast<float*>(smem + align16((size_t)G4 * C * sizeof(T)));  // WARPS x C
+  const bool wsm = wih_in_smem<T>(C, hid);
+  const T* wihT_s = wsm ? reinterpret_cast<const T*>(smem)
+                        : static_cast<const T*>(a.w_ihT);  // 4H x C; else from L2
+  float* v_s = reinterpret_cast<float*>(smem + (wsm ? wih_bytes<T>(C, hid) : 0));  // WARPS x C
   float* dv_s = v_s + WARPS * C;                   // WARPS x C: dv rounded, / NS
-  float* dg_s = dv_s + WARPS * C;                  // WARPS x 128: rounded dgates
+  float* dg_s = dv_s + WARPS * C;                  // WARPS x 256: rounded dgates
   float* dwhh_s = dg_s + WARPS * MAX_GATES;        // H x 4H
   float* db_s = dwhh_s + hid * G4;                 // 4H
   float* dwout_s = db_s + G4;                      // H
@@ -285,8 +318,9 @@ __global__ void __launch_bounds__(WARPS * 32, 1) lstm_march_bwd_kernel(MarchBwdA
   const int n_acc = 2 * WARPS * C + WARPS * MAX_GATES + hid * G4 + G4 + hid + 1;
   for (int i = threadIdx.x; i < n_acc; i += blockDim.x) v_s[i] = 0.f;
   constexpr int V = Vec16<T>::N;
-  for (int i = threadIdx.x; i < G4 * C / V; i += blockDim.x)
-    reinterpret_cast<uint4*>(wihT_s)[i] = __ldg(reinterpret_cast<const uint4*>(a.w_ihT) + i);
+  if (wsm)
+    for (int i = threadIdx.x; i < G4 * C / V; i += blockDim.x)
+      reinterpret_cast<uint4*>(smem)[i] = __ldg(reinterpret_cast<const uint4*>(a.w_ihT) + i);
   __syncthreads();
 
   const T* feat = static_cast<const T*>(a.feat);
@@ -297,7 +331,8 @@ __global__ void __launch_bounds__(WARPS * 32, 1) lstm_march_bwd_kernel(MarchBwdA
   float* v_w = v_s + warp * C;
   float* dv_w = dv_s + warp * C;
   float* dg_w = dg_s + warp * MAX_GATES;
-  const float wo = lane < hid ? a.w_out[lane] : 0.f;
+  const float wo[2] = {lane < hid ? a.w_out[lane] : 0.f,
+                       lane + 32 < hid ? a.w_out[lane + 32] : 0.f};
   const long long rays = (long long)a.SB * a.R;
 
   for (long long ray = (long long)blockIdx.x * WARPS + warp; ray < rays;
@@ -306,7 +341,7 @@ __global__ void __launch_bounds__(WARPS * 32, 1) lstm_march_bwd_kernel(MarchBwdA
     float gcx = a.gout[ray * 3], gcy = a.gout[ray * 3 + 1], gcz = a.gout[ray * 3 + 2];
     const float rx = a.rds[ray * 3], ry = a.rds[ray * 3 + 1], rz = a.rds[ray * 3 + 2];
     float grx = 0.f, gry = 0.f, grz = 0.f;
-    float gh = 0.f, gcell = 0.f;  // lane k < hid: unit k
+    float gh[2] = {0.f, 0.f}, gcell[2] = {0.f, 0.f};  // lane k: units k and k + 32
     for (int t = a.steps - 1; t >= 0; --t) {
       const float* row = a.aux + ((size_t)ray * a.steps + t) * AW;
       if (row[2 * hid + 3] == 0.f) continue;  // frozen: contributes exactly zero
@@ -318,24 +353,27 @@ __global__ void __launch_bounds__(WARPS * 32, 1) lstm_march_bwd_kernel(MarchBwdA
       gry += gcy * s;
       grz += gcz * s;
       if (lane == 0) atomicAdd(dbout_s, ds);
-      if (lane < hid) {
-        const float ig = row[G0 + lane], fg = row[G0 + hid + lane];
-        const float gg = row[G0 + 2 * hid + lane], og = row[G0 + 3 * hid + lane];
-        const float tc = row[G0 + 4 * hid + lane], c_prev = row[hid + lane];
-        atomicAdd(dwout_s + lane, round_to<T>(og * tc) * round_to<T>(ds));
+#pragma unroll
+      for (int uu = 0; uu < 2; ++uu) {
+        const int u = lane + 32 * uu;
+        if (u >= hid) continue;
+        const float ig = row[G0 + u], fg = row[G0 + hid + u];
+        const float gg = row[G0 + 2 * hid + u], og = row[G0 + 3 * hid + u];
+        const float tc = row[G0 + 4 * hid + u], c_prev = row[hid + u];
+        atomicAdd(dwout_s + u, round_to<T>(og * tc) * round_to<T>(ds));
         // the clip acts on the combined hidden cotangent (step head + next step);
         // a NaN passes through it, as through jnp.clip and torch.clamp (fminf
         // and fmaxf alone would turn it into -clamp)
-        const float gsum = gh + ds * wo;
+        const float gsum = gh[uu] + ds * wo[uu];
         const float ghc = isnan(gsum) ? gsum : fminf(fmaxf(gsum, -a.clamp), a.clamp);
-        const float gct = gcell + ghc * og * (1.f - tc * tc);
+        const float gct = gcell[uu] + ghc * og * (1.f - tc * tc);
         const float d4[4] = {gct * gg * ig * (1.f - ig), gct * c_prev * fg * (1.f - fg),
                              gct * ig * (1.f - gg * gg), ghc * tc * og * (1.f - og)};
-        gcell = gct * fg;
+        gcell[uu] = gct * fg;
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
-          atomicAdd(db_s + k * hid + lane, d4[k]);
-          dg_w[k * hid + lane] = round_to<T>(d4[k]);
+          atomicAdd(db_s + k * hid + u, d4[k]);
+          dg_w[k * hid + u] = round_to<T>(d4[k]);
         }
       }
       __syncwarp();
@@ -344,13 +382,16 @@ __global__ void __launch_bounds__(WARPS * 32, 1) lstm_march_bwd_kernel(MarchBwdA
         const float hp = round_to<T>(row[k]);
         for (int q = lane; q < G4; q += 32) atomicAdd(dwhh_s + k * G4 + q, hp * dg_w[q]);
       }
-      if (lane < hid) {
+#pragma unroll
+      for (int uu = 0; uu < 2; ++uu) {
+        const int u = lane + 32 * uu;
+        if (u >= hid) continue;
         float acc = 0.f;
-        for (int q = 0; q < G4; ++q) acc = fmaf(dg_w[q], to_f(w_hh[lane * G4 + q]), acc);
-        gh = acc;
+        for (int q = 0; q < G4; ++q) acc = fmaf(dg_w[q], to_f(w_hh[u * G4 + q]), acc);
+        gh[uu] = acc;
       }
       // the rounded gate cotangents: dW_ih's other operand (a GEMM after this kernel)
-      T* dg_row = static_cast<T*>(a.dgbuf) + ((size_t)ray * a.steps + t) * G4;
+      T* dg_row = static_cast<T*>(a.dgbuf) + ((size_t)ray * a.steps + t) * a.dg_ld;
       for (int q = lane; q < G4; q += 32) dg_row[q] = from_f<T>(dg_w[q]);
       // dv = dgates @ W_ih^T for this lane's channels (W_ih^T rows in shared
       // memory, 16-byte reads), rounded, / NS
@@ -432,6 +473,7 @@ __global__ void __launch_bounds__(WARPS * 32, 1) lstm_march_bwd_kernel(MarchBwdA
 
 template <typename T>
 static int launch_bwd(const MarchBwdArgs& a, cudaStream_t stream) {
+  if (a.hid < 1 || a.hid > MAX_HIDDEN || a.dg_ld < 4 * a.hid) return (int)cudaErrorInvalidValue;
   const size_t smem = bwd_smem_bytes<T>(a.C, a.hid);
   cudaError_t e = cudaFuncSetAttribute(lstm_march_bwd_kernel<T>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -452,8 +494,8 @@ extern "C" int avr_lstm_march_bwd(const void* proj, const void* rds, const void*
                                   const void* aux, const void* gout, void* dcoords0, void* drds,
                                   void* dfeat, void* vbuf, void* dgbuf, void* dw_hh, void* dbias,
                                   void* dw_out, void* db_out, int SB, int R, int NS, int H, int W,
-                                  int C, int hid, int steps, float eps, float clamp, int dtype,
-                                  void* stream) {
+                                  int C, int hid, int steps, int dg_ld, float eps, float clamp,
+                                  int dtype, void* stream) {
   MarchBwdArgs a;
   a.proj = (const float*)proj; a.rds = (const float*)rds; a.feat = feat; a.w_ihT = w_ihT;
   a.w_hh = w_hh; a.w_out = (const float*)w_out; a.aux = (const float*)aux;
@@ -461,7 +503,7 @@ extern "C" int avr_lstm_march_bwd(const void* proj, const void* rds, const void*
   a.dfeat = (float*)dfeat; a.vbuf = vbuf; a.dgbuf = dgbuf; a.dw_hh = (float*)dw_hh;
   a.dbias = (float*)dbias; a.dw_out = (float*)dw_out; a.db_out = (float*)db_out;
   a.SB = SB; a.R = R; a.NS = NS; a.H = H; a.W = W; a.C = C; a.hid = hid; a.steps = steps;
-  a.eps = eps; a.clamp = clamp;
+  a.dg_ld = dg_ld; a.eps = eps; a.clamp = clamp;
   cudaStream_t s = (cudaStream_t)stream;
   return dtype == 1 ? launch_bwd<bf16>(a, s) : launch_bwd<float>(a, s);
 }

@@ -29,32 +29,26 @@
 // steps; the k order inside a product is a consistent permutation of A and
 // B, so the product is unchanged.
 //
-// Stash backward.  Bound on H100: operations, twice the forward's products
-// (~4.5 ms at 327,680 points) against ~1.1 ms of stash reads.  The dgrad
+// Stash backward, float32 operands (the card's float32 parity runs; the
+// bf16 backward is csrc/resnetfc_hopper.cu's, on wgmma and TMA).  The dgrad
 // kernel walks a 32-point tile's chain in reverse with the forward's tiling
 // (transposed weight copies as the B operand), reads each block's two
 // stashed activations for the ReLU masks, writes every product's output
-// cotangent rounded to T (what the TPU kernel feeds its wgrad), and ends in
-// dz and dx (the encoding's cos lanes summed back onto the raw lanes).  The
-// wgrad kernel sums dW = G^T A over the points for every weight in one
-// launch: 128 x 128 dW tiles, 8 warps of mma.sync, both operands copied
-// K-major into shared memory by cp.async (two stages: the next rows load
-// while the current ones multiply) and turned into fragments by
-// ldmatrix.trans; at most 8 row chunks per tile meet in float32 atomics;
-// bias gradients are column sums of the rounded cotangents.
+// cotangent (what the TPU kernel feeds its wgrad), and ends in dz and dx
+// (the encoding's cos lanes summed back onto the raw lanes).  The wgrad
+// kernel sums dW = G^T A over the points for every weight in one launch:
+// 128 x 128 dW tiles, 8 warps of FMA, both operands copied K-major into
+// shared memory by cp.async (two stages: the next rows load while the
+// current ones multiply); at most 8 row chunks per tile meet in float32
+// atomics; bias gradients are column sums of the cotangents.
 //
 // Recompute backward (replaces the TPU's _bwd_impl, :248-390, call :853,
-// which stash="auto" takes above 6 GiB of stash).  Bound on H100:
-// operations, ~3x the forward's products (20.6 MFLOP a point).  One kernel
-// per chunk of points: each 32-point CTA runs its tile's forward through
-// the forward kernel's own device code (resnetfc_tile), so the activations
-// it writes into a fixed-size chunk workspace equal the stash forward's bit
-// for bit, then walks back through the dgrad kernel's device code
-// (resnetfc_dgrad_tile), reading those rows while they are still in L2.
-// The wgrad kernel then sums the chunk's dW = G^T A.  The host loops over
-// chunks, so the workspace does not grow with the number of points.
+// which stash="auto" takes above 6 GiB of stash): per chunk of points the
+// host launches the stash forward into a chunk-sized workspace, the dgrad
+// on it and the wgrad (ops/kernels/resnetfc.py _backward_recompute), so its
+// results equal the stash backward's bit for bit by construction.
 
-#include "common.cuh"
+#include "resnetfc.cuh"
 
 constexpr int TM = 32;  // points per CTA
 
@@ -77,16 +71,6 @@ struct FcArgs {
   void* stash;          // nullptr, or (stash_slots, N, dh) T: every post-ReLU activation
   int N, ns, d_in, k_in, d_latent, d_hidden, d_out, n_blocks, n_lin_z, activate;
 };
-
-// Stash slot of block k's first (j = 0, relu(h)) or second (j = 1,
-// relu(fc_0)) activation for view v; the pre-pool slots of one (k, j) are
-// contiguous over views.  The last slot is relu(h_final), lin_out's input.
-__host__ __device__ inline int stash_slot(int k, int j, int v, int ns, int n_lin_z) {
-  return k < n_lin_z ? (2 * k + j) * ns + v : 2 * n_lin_z * ns + 2 * (k - n_lin_z) + j;
-}
-__host__ __device__ inline int stash_slots(int ns, int n_blocks, int n_lin_z) {
-  return 2 * n_lin_z * ns + 2 * (n_blocks - n_lin_z) + 1;
-}
 
 // rows [0, TM) x [0, width) of a shared T tile -> global rows r0.. (row
 // stride width), 16-byte copies, rows past N skipped.
@@ -112,9 +96,7 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
-// global rows r0.. (row stride width) -> shared tile, zeros past N.  A
-// coherent load, not the read-only path: the recompute kernel reads rows
-// its own CTA wrote earlier in the same launch.
+// global rows r0.. (row stride width) -> shared tile, zeros past N.
 template <typename T>
 __device__ __forceinline__ void global_to_tile(const T* src, int r0, int N, int width, T* As,
                                                int lda) {
@@ -267,9 +249,8 @@ __host__ __device__ inline size_t fwd_smem_bytes(int k_in, int dh, int dl, int n
          (ns > 1 ? (size_t)TM * dh * sizeof(float) : 0);
 }
 
-// The forward of the point tile starting at row r0: the forward kernel's
-// body, shared with the recompute backward so both compute the same bits.
-// With a.out == nullptr the output (lin_out) is skipped.
+// The forward of the point tile starting at row r0 (with a.out == nullptr
+// the output, lin_out, is skipped).
 template <typename T>
 __device__ __forceinline__ void resnetfc_tile(const FcArgs& a, unsigned char* smem, int r0) {
   constexpr int V = Vec16<T>::N;
@@ -424,40 +405,6 @@ extern "C" int avr_resnetfc(const void* x, const void* z, const void* wi, const 
 // kernel sums dW = G^T A over the points.
 // ---------------------------------------------------------------------------
 
-// Cotangent slot of block k's products: j = 0 is fc_0's (pairs with stash
-// slot (k, 0)), j = 1 fc_1's, which is also the trunk cotangent entering
-// block k (pairs with stash slot (k, 1)).  After them, one slot per view
-// for lin_in's output (the trunk cotangent after injection 0).
-__host__ __device__ inline int cot_slots(int ns, int n_blocks, int n_lin_z) {
-  return 2 * n_lin_z * ns + 2 * (n_blocks - n_lin_z) + ns;
-}
-__host__ __device__ inline int cot_in_slot(int v, int ns, int n_blocks, int n_lin_z) {
-  return 2 * n_lin_z * ns + 2 * (n_blocks - n_lin_z) + v;
-}
-
-constexpr int GOUT_W = 8;  // row width of the rounded output cotangent (d_out <= 8)
-
-struct FcBwdArgs {
-  const float* x;       // (ns, N, d_in) raw inputs
-  const float* g;       // (N, d_out) output cotangent
-  const void* stash;    // forward's activations
-  const void* wiT;      // (k_in, dh) T, lin_in transposed, zero rows past d_enc
-  const void* wzT;      // (n_lin_z, dl, dh) T
-  const void* w0T;      // (n_blocks, dh, dh) T
-  const void* w1T;      // (n_blocks, dh, dh) T
-  const void* wo;       // (d_out, dh) T
-  const float* bo;      // (d_out)
-  const int* tables;    // (2, k_in)
-  const float* fph;     // (2, k_in)
-  float* dx;            // (ns, N, d_in)
-  void* dz;             // (ns, N, dl) T
-  void* cot;            // (cot_slots, N, dh) T: rounded cotangents of the products
-  void* gout;           // (N, GOUT_W) T: rounded cotangent of lin_out's output
-  void* enc;            // (ns, N, k_in) T: the encoded input, lin_in's operand
-  float* pool;          // ns > 1: (N rounded up to TM, dh) pooled trunk cotangent
-  int N, ns, d_in, k_in, d_latent, d_hidden, d_out, n_blocks, n_lin_z, activate;
-};
-
 // v rounded to T into the shared operand tile at the fragment positions.
 template <typename T>
 __device__ __forceinline__ void store_frag(T* As, int lda, int col0, const Frag& v) {
@@ -513,8 +460,8 @@ __host__ __device__ inline size_t dgrad_smem_bytes(int dh, int dl, int k_in, int
          sizeof(float) * ((size_t)TM * dl + (size_t)TM * k_in + TM * GOUT_W);
 }
 
-// The backward of point tile `tile` from the stash: the dgrad kernel's
-// body, shared with the recompute backward.
+// The backward of point tile `tile` from the stash: the float32 dgrad
+// kernel's body.
 template <typename T>
 __device__ __forceinline__ void resnetfc_dgrad_tile(const FcBwdArgs& a, unsigned char* smem,
                                                     int tile) {
@@ -681,29 +628,6 @@ __global__ void __launch_bounds__(256, 1) resnetfc_dgrad_kernel(FcBwdArgs a) {
   resnetfc_dgrad_tile<T>(a, smem, blockIdx.x);
 }
 
-// Recompute backward of one chunk of points: f.stash and b.stash are the
-// chunk workspace; the forward writes it, the walk back reads it.
-template <typename T>
-__global__ void __launch_bounds__(256, 1) resnetfc_bwd_recompute_kernel(FcArgs f, FcBwdArgs b) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  resnetfc_tile<T>(f, smem, blockIdx.x * TM);
-  __syncthreads();  // the tile's workspace rows are written, the shared tiles free
-  resnetfc_dgrad_tile<T>(b, smem, blockIdx.x);
-}
-
-template <typename T>
-static int launch_recompute(const FcArgs& f, const FcBwdArgs& b, cudaStream_t stream) {
-  const size_t s_fwd = fwd_smem_bytes<T>(f.k_in, f.d_hidden, f.d_latent, f.ns);
-  const size_t s_bwd = dgrad_smem_bytes<T>(b.d_hidden, b.d_latent, b.k_in, b.ns);
-  const size_t smem = s_fwd > s_bwd ? s_fwd : s_bwd;
-  cudaError_t e = cudaFuncSetAttribute(resnetfc_bwd_recompute_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const unsigned blocks = (unsigned)((f.N + TM - 1) / TM);
-  resnetfc_bwd_recompute_kernel<T><<<blocks, f.d_hidden / 64 * 32, smem, stream>>>(f, b);
-  return (int)cudaGetLastError();
-}
-
 template <typename T>
 static int launch_dgrad(const FcBwdArgs& a, cudaStream_t stream) {
   const size_t smem = dgrad_smem_bytes<T>(a.d_hidden, a.d_latent, a.k_in, a.ns);
@@ -730,36 +654,8 @@ extern "C" int avr_resnetfc_dgrad(const void* x, const void* g, const void* stas
   a.enc = enc; a.pool = (float*)pool; a.N = N; a.ns = ns; a.d_in = d_in; a.k_in = k_in; a.d_latent = d_latent;
   a.d_hidden = d_hidden; a.d_out = d_out; a.n_blocks = n_blocks; a.n_lin_z = n_lin_z;
   a.activate = activate;
-  cudaStream_t s = (cudaStream_t)stream;
-  return dtype == 1 ? launch_dgrad<bf16>(a, s) : launch_dgrad<float>(a, s);
-}
-
-// One chunk of N points: the forward's operands, then the workspace
-// (stash, cot, gout, enc, pool: sized for the chunk) and the chunk's
-// g, dx, dz.
-extern "C" int avr_resnetfc_bwd_recompute(
-    const void* x, const void* z, const void* wi, const void* bi, const void* wz, const void* bz,
-    const void* w0, const void* b0, const void* w1, const void* b1, const void* wo,
-    const void* bo, const void* tables, const void* fph, const void* g, const void* wiT,
-    const void* wzT, const void* w0T, const void* w1T, void* stash, void* cot, void* gout,
-    void* enc, void* pool, void* dx, void* dz, int N, int ns, int d_in, int k_in, int d_latent,
-    int d_hidden, int d_out, int n_blocks, int n_lin_z, int activate, int dtype, void* stream) {
-  FcArgs f;
-  f.x = (const float*)x; f.z = z; f.wi = wi; f.bi = (const float*)bi;
-  f.wz = wz; f.bz = (const float*)bz; f.w0 = w0; f.b0 = (const float*)b0;
-  f.w1 = w1; f.b1 = (const float*)b1; f.wo = wo; f.bo = (const float*)bo;
-  f.tables = (const int*)tables; f.fph = (const float*)fph; f.out = nullptr; f.stash = stash;
-  FcBwdArgs b;
-  b.x = (const float*)x; b.g = (const float*)g; b.stash = stash; b.wiT = wiT; b.wzT = wzT;
-  b.w0T = w0T; b.w1T = w1T; b.wo = wo; b.bo = (const float*)bo; b.tables = (const int*)tables;
-  b.fph = (const float*)fph; b.dx = (float*)dx; b.dz = dz; b.cot = cot; b.gout = gout;
-  b.enc = enc; b.pool = (float*)pool;
-  f.N = b.N = N; f.ns = b.ns = ns; f.d_in = b.d_in = d_in; f.k_in = b.k_in = k_in;
-  f.d_latent = b.d_latent = d_latent; f.d_hidden = b.d_hidden = d_hidden;
-  f.d_out = b.d_out = d_out; f.n_blocks = b.n_blocks = n_blocks;
-  f.n_lin_z = b.n_lin_z = n_lin_z; f.activate = b.activate = activate;
-  cudaStream_t s = (cudaStream_t)stream;
-  return dtype == 1 ? launch_recompute<bf16>(f, b, s) : launch_recompute<float>(f, b, s);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;  // bf16: csrc/resnetfc_hopper.cu
+  return launch_dgrad<float>(a, (cudaStream_t)stream);
 }
 
 // dW (Mg x Ka) += G^T A and db (Mg) += column sums of G over the rows of
@@ -816,40 +712,6 @@ __device__ __forceinline__ void load_tile_async(const T* X, int ldx, int rows, i
   }
 }
 
-
-__device__ __forceinline__ void ldmatrix_x4_trans(const bf16* p, uint32_t& r0, uint32_t& r1,
-                                                  uint32_t& r2, uint32_t& r3) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
-}
-
-// acc += Gs^T As over the KC rows of the tiles: the warp's 32 (o) x 64 (i)
-// block.  Both operands are stored K-major (rows are points), so the mma
-// fragments come transposed out of shared memory with ldmatrix.trans.
-__device__ __forceinline__ void wgrad_step(const bf16* Gs, const bf16* As, int m0, int n0,
-                                           Frag& acc) {
-  constexpr int L = WT + 8;
-  const int lane = threadIdx.x & 31, mat = lane >> 3, r = lane & 7;
-#pragma unroll
-  for (int kk = 0; kk < KC; kk += 16) {
-    uint32_t a[2][4], b[8][2];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)  // matrices: (k 0-7, o 0-7), (k 0-7, o 8-15), (k 8-15, ...)
-      ldmatrix_x4_trans(Gs + (kk + r + (mat >> 1) * 8) * L + m0 + mt * 16 + (mat & 1) * 8,
-                        a[mt][0], a[mt][1], a[mt][2], a[mt][3]);
-#pragma unroll
-    for (int p = 0; p < 4; ++p)  // matrices: (k 0-7, i), (k 8-15, i), (k 0-7, i+8), (k 8-15, i+8)
-      ldmatrix_x4_trans(As + (kk + r + (mat & 1) * 8) * L + n0 + p * 16 + (mat >> 1) * 8,
-                        b[2 * p][0], b[2 * p][1], b[2 * p + 1][0], b[2 * p + 1][1]);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        mma_bf16(acc[mt][nt], a[mt][0], a[mt][1], a[mt][2], a[mt][3], b[nt][0], b[nt][1]);
-  }
-}
 
 __device__ __forceinline__ void wgrad_step(const float* Gs, const float* As, int m0, int n0,
                                            Frag& acc) {
@@ -951,10 +813,7 @@ extern "C" int avr_resnetfc_wgrad(const void* const* G, const void* const* A, vo
     blocks += w.tiles_o * w.tiles_i * ((w.rows + w.chunk - 1) / w.chunk);
   }
   args.n_jobs = n_jobs;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1)
-    resnetfc_wgrad_kernel<bf16><<<blocks, 256, 0, s>>>(args);
-  else
-    resnetfc_wgrad_kernel<float><<<blocks, 256, 0, s>>>(args);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;  // bf16: csrc/resnetfc_hopper.cu
+  resnetfc_wgrad_kernel<float><<<blocks, 256, 0, (cudaStream_t)stream>>>(args);
   return (int)cudaGetLastError();
 }

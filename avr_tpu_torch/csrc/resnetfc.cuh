@@ -1,0 +1,52 @@
+// K2 definitions shared by the decoder's kernels (csrc/resnetfc.cu: the
+// forward and the float32 backward; csrc/resnetfc_hopper.cu: the bf16
+// backward on wgmma and TMA): the stash and cotangent slot layouts and the
+// backward's arguments.
+#pragma once
+
+#include "common.cuh"
+
+// Stash slot of block k's first (j = 0, relu(h)) or second (j = 1,
+// relu(fc_0)) activation for view v; the pre-pool slots of one (k, j) are
+// contiguous over views.  The last slot is relu(h_final), lin_out's input.
+__host__ __device__ inline int stash_slot(int k, int j, int v, int ns, int n_lin_z) {
+  return k < n_lin_z ? (2 * k + j) * ns + v : 2 * n_lin_z * ns + 2 * (k - n_lin_z) + j;
+}
+__host__ __device__ inline int stash_slots(int ns, int n_blocks, int n_lin_z) {
+  return 2 * n_lin_z * ns + 2 * (n_blocks - n_lin_z) + 1;
+}
+
+// Cotangent slot of block k's products: j = 0 is fc_0's (pairs with stash
+// slot (k, 0)), j = 1 fc_1's, which is also the trunk cotangent entering
+// block k (pairs with stash slot (k, 1)).  After them, one slot per view
+// for lin_in's output (the trunk cotangent after injection 0).
+__host__ __device__ inline int cot_slots(int ns, int n_blocks, int n_lin_z) {
+  return 2 * n_lin_z * ns + 2 * (n_blocks - n_lin_z) + ns;
+}
+__host__ __device__ inline int cot_in_slot(int v, int ns, int n_blocks, int n_lin_z) {
+  return 2 * n_lin_z * ns + 2 * (n_blocks - n_lin_z) + v;
+}
+
+constexpr int GOUT_W = 8;  // row width of the rounded output cotangent (d_out <= 8)
+
+struct FcBwdArgs {
+  const float* x;       // (ns, N, d_in) raw inputs
+  const float* g;       // (N, d_out) output cotangent
+  const void* stash;    // forward's activations
+  const void* wiT;      // (k_in, dh) T, lin_in transposed, zero rows past d_enc
+  const void* wzT;      // (n_lin_z, dl, dh) T
+  const void* w0T;      // (n_blocks, dh, dh) T
+  const void* w1T;      // (n_blocks, dh, dh) T
+  const void* wo;       // (d_out, dh) T
+  const float* bo;      // (d_out)
+  const int* tables;    // (2, k_in)
+  const float* fph;     // (2, k_in)
+  float* dx;            // (ns, N, d_in)
+  void* dz;             // (ns, N, dl) T
+  void* cot;            // (cot_slots, N, dh) T: rounded cotangents of the products
+  void* gout;           // (N, GOUT_W) T: rounded cotangent of lin_out's output
+  void* enc;            // (ns, N, k_in) T: the encoded input, lin_in's operand
+  float* pool;          // ns > 1: (N rounded up to the tile, dh) pooled trunk cotangent
+  int N, ns, d_in, k_in, d_latent, d_hidden, d_out, n_blocks, n_lin_z, activate;
+};
+

@@ -30,7 +30,7 @@ from avr_tpu_torch.renderers.raymarch import lstm_march, render_raymarcher
 from avr_tpu_torch.renderers.volume import render_volume
 from avr_tpu_torch.utils.device import resolve_device
 
-__all__ = ["RadFieldRenderer", "make_model", "init_weights"]
+__all__ = ["RadFieldRenderer", "make_model", "init_weights", "bench_weights"]
 
 DEFAULT_CONF = os.path.join(os.path.dirname(__file__), "..", "..", "conf", "default_mv.conf")
 
@@ -38,8 +38,9 @@ DEFAULT_CONF = os.path.join(os.path.dirname(__file__), "..", "..", "conf", "defa
 class RadFieldRenderer(nn.Module):
     """``fused_integral`` picks the adaptive renderer's band compositing, as
     JAX's attribute of that name (``avr_tpu/models/wrapper.py:53-61``):
-    ``"never"`` (the default) the plain volume integral, ``"auto"`` or
-    ``"always"`` the K4 wrapper."""
+    ``"never"`` (the default) the plain volume integral, ``"always"`` the K4
+    wrapper, ``"auto"`` the K4 wrapper on the card and the plain integral on
+    the CPU, as JAX fuses on the TPU only."""
 
     def __init__(self, model_cfg: ModelConfig, renderer_cfg: RendererConfig,
                  dtype: torch.dtype = torch.float32, fused_integral: str = "never"):
@@ -86,9 +87,70 @@ class RadFieldRenderer(nn.Module):
                                self.fused_integral)
 
 
+def _normal(shape, std, gen):
+    return torch.randn(shape, generator=gen) * std
+
+
+def _truncated_normal(shape, std, gen):
+    """``jax.nn.initializers.truncated_normal`` as ``lecun_normal`` draws it:
+    a standard normal cut at +-2, scaled so the variance is ``std**2``."""
+    t = torch.randn(shape, generator=gen)
+    out = t.abs() > 2.0
+    while bool(out.any()):
+        t[out] = torch.randn(int(out.sum()), generator=gen)
+        out = t.abs() > 2.0
+    return t * (std / 0.87962566103423978)
+
+
+def _orthogonal_rows(shape, gen):
+    """``nn.initializers.orthogonal(column_axis=0)`` on ``(H, 4H)``: the rows
+    orthonormal."""
+    a = torch.randn(shape[1], shape[0], generator=gen)
+    q, r = torch.linalg.qr(a)
+    return (q * torch.sign(torch.diagonal(r))).T.contiguous()
+
+
 def init_weights(model: nn.Module, seed: int) -> None:
-    """Seeded random weights: matrices ``N(0, 1/fan_in)``, biases and
-    BatchNorm at their identity values, the LSTM forget-gate biases 1."""
+    """Seeded weights by the JAX package's scheme (``init_all``):
+
+    * the decoders' ``lin_in``, ``lin_z``, ``fc_0`` and ``lin_out``: Kaiming
+      normal, variance 2 / fan_in (``avr_tpu/models/mlp.py:33``); ``fc_1``
+      zero, so a fresh block is the identity (``:77-88``);
+    * the LSTM's ``w_ih``: Kaiming normal; ``w_hh``: orthogonal rows
+      (``column_axis=0``); both biases zero but the forget quarter, 1
+      (``avr_tpu/renderers/lstm.py:48-52,70-78``);
+    * the encoder's convolutions and the march's ``out_layer``: Flax's
+      default LeCun normal (truncated, variance 1 / fan_in), zero bias;
+    * BatchNorm scale 1, bias 0.
+
+    The draws are not JAX's (another generator); the scheme is."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "w_hh":
+                p.copy_(_orthogonal_rows(p.shape, gen))
+            elif leaf == "w_ih":  # (in, 4H)
+                p.copy_(_normal(p.shape, (2.0 / p.shape[0]) ** 0.5, gen))
+            elif ".fc_1." in name:
+                p.zero_()
+            elif p.ndim >= 2 and ".mlp_" in name:
+                p.copy_(_normal(p.shape, (2.0 / p[0].numel()) ** 0.5, gen))
+            elif p.ndim >= 2:  # convolutions (out, in, kh, kw), out_layer (out, in)
+                p.copy_(_truncated_normal(p.shape, (1.0 / p[0].numel()) ** 0.5, gen))
+            elif leaf == "scale":
+                p.fill_(1.0)
+            else:
+                p.zero_()
+        _forget_bias(model)
+
+
+def bench_weights(model: nn.Module, seed: int) -> None:
+    """Seeded benchmark weights: every matrix ``N(0, 1/fan_in)`` (``fc_1``
+    too), biases and BatchNorm at their identity values, the LSTM
+    forget-gate biases 1.  The card's checks run on these: with JAX's
+    zero ``fc_1`` every ``fc_0`` cotangent of the decoder's backward would
+    be exactly zero, and its kernels would be held to zeros."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -100,10 +162,14 @@ def init_weights(model: nn.Module, seed: int) -> None:
                 p.fill_(1.0)
             else:
                 p.zero_()
-        for cell in (m for m in model.modules() if isinstance(m, MarchLSTMCell)):
-            H = cell.hidden_size
-            cell.b_ih[H:2 * H] = 1.0
-            cell.b_hh[H:2 * H] = 1.0
+        _forget_bias(model)
+
+
+def _forget_bias(model: nn.Module) -> None:
+    for cell in (m for m in model.modules() if isinstance(m, MarchLSTMCell)):
+        H = cell.hidden_size
+        cell.b_ih[H:2 * H] = 1.0
+        cell.b_hh[H:2 * H] = 1.0
 
 
 def make_model(conf: Union[str, Conf, None] = None, dtype: torch.dtype = torch.bfloat16,
@@ -111,8 +177,8 @@ def make_model(conf: Union[str, Conf, None] = None, dtype: torch.dtype = torch.b
                renderer: str = "", gather_impl: str = "auto",
                fused_integral: str = "never") -> RadFieldRenderer:
     """The model at the width of ``conf`` (default ``conf/default_mv.conf``)
-    with seeded random weights, on the card unless ``device`` says
-    otherwise.  ``renderer`` is the experiment name whose prefix picks the
+    with seeded weights by JAX's scheme (:func:`init_weights`), on the card
+    unless ``device`` says otherwise.  ``renderer`` is the experiment name whose prefix picks the
     renderer (:func:`renderer_config_from_conf`): ``"VR..."`` the volume
     renderer, ``"...Raymarcher..."`` the Raymarcher, anything else (the
     default) the adaptive renderer.  ``gather_impl`` sets

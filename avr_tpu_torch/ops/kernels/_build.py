@@ -32,7 +32,7 @@ __all__ = ["launches", "reset_launches", "load_library", "kernel_fn", "check",
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("gather.cu", "resnetfc.cu", "march.cu", "integrate.cu", "rng.cu")
+SOURCES = ("gather.cu", "resnetfc.cu", "resnetfc_hopper.cu", "march.cu", "integrate.cu", "rng.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

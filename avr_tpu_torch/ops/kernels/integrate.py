@@ -12,11 +12,13 @@ kernel's does.
 
 What bounds it on Hopper: bytes, and at these sizes launch latency (train
 step's band call, 4 x 4,096 rays x 20 samples: ~6.8 MB forward, ~2.0 us at
-3.35 TB/s; ~13.4 MB backward, ~4.0 us).  One warp per ray, lane ``k``
-holding sample ``k``, so a ray takes at most 32 samples and the wrapper
-raises beyond that (the adaptive renderer's band has 20); the shifts,
-the transmittance's prefix product and the sums are warp shuffles
-(``csrc/integrate.cu``).
+3.35 TB/s; ~13.4 MB backward, ~4.0 us).  One warp per ray, walking the
+band in groups of 32 samples (lane ``k`` of group ``j`` holding sample ``32 j
++ k``), so a ray takes any number of samples (the adaptive renderer's band
+has 20, the quality series' 2x epsilon sweep 40); the shifts, the
+transmittance's prefix product and the sums are warp shuffles, the
+transmittance and the sums carried from group to group, forward and
+backward (``csrc/integrate.cu``).
 """
 
 from __future__ import annotations
@@ -32,7 +34,6 @@ __all__ = ["fused_volume_integral", "fused_volume_integral_plain"]
 
 NAME = "fused_volume_integral"
 NAME_BWD = "fused_volume_integral_bwd"
-MAX_SAMPLES = 32  # one warp per ray, one lane per sample
 
 
 def fused_volume_integral_plain(z_vals: torch.Tensor, field_out: torch.Tensor,
@@ -50,9 +51,8 @@ def _check(z_vals: torch.Tensor, field_out: torch.Tensor) -> None:
     if z_vals.ndim != 3:
         raise ValueError(f"{NAME}: z_vals must be (SB, R, n), got {tuple(z_vals.shape)}")
     SB, R, n = z_vals.shape
-    if not 0 < n <= MAX_SAMPLES:
-        raise ValueError(f"{NAME}: the kernel takes 1 to {MAX_SAMPLES} samples a ray (one warp "
-                         f"lane each), got {n}")
+    if n < 1:
+        raise ValueError(f"{NAME}: the kernel takes at least one sample a ray, got {n}")
     if field_out.shape != (SB, R * n, 4):
         raise ValueError(f"{NAME}: field_out must be (SB, R * n, 4) = {(SB, R * n, 4)}, got "
                          f"{tuple(field_out.shape)}")
@@ -112,7 +112,7 @@ def fused_volume_integral(z_vals: torch.Tensor,  # (SB, R, n) ascending band dep
                           white_back: bool = True, infinity: float = 1.8):
     """Composite each ray's band -> ``(rgb (SB, R, 3), distance (SB, R, 1))``
     float32.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel (``n <= 32``, float32, contiguous, or it raises), and under
+    kernel (float32, contiguous, or it raises), and under
     autograd its backward kernel."""
     if field_out.device.type == "cpu":
         return fused_volume_integral_plain(z_vals, field_out, white_back, infinity)

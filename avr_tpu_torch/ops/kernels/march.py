@@ -21,16 +21,19 @@ rays x 10 steps, C = 512) the forward is ~2.9 GFLOP per 4,096 rays (~3 us
 at the bf16 peak) and a few MB of compulsory traffic; the backward ~2.3e10
 FLOP and 67 MB of dfeat zeroing and writing (~0.02 ms).  Both take the
 time of 10 dependent steps.  Forward: one warp per ray, eight rays per CTA,
-``W_ih`` (512 x 64) in shared memory, each step's 4-tap gather read from L2
-and blended in registers, the carries in registers for all steps; under
+``W_ih`` (512 x 64) in shared memory (read from L2 where it takes more than
+128 KB; lane ``k`` carries units ``k`` and ``k + 32``, so hidden goes up to
+62, the TPU kernel's ``2 H + 4 <= 128``), each step's 4-tap gather read
+from L2 and blended in registers, the carries in registers for all steps; under
 autograd it also writes one float32 row per ray and step (h_prev, c_prev,
 coordinates, active, gates, tanh c, s).  Backward: one warp per ray walks
 the steps in reverse from those rows, re-blends ``v_t`` from the four taps
 it loads anyway for the coordinate cotangent, computes ``dv`` from
 ``W_ih^T`` in shared memory, adds ``dfeat`` by float4 atomics, and writes
 ``v_t`` and the rounded gate cotangents per ray-step; ``dW_ih`` is then one
-GEMM through the decoder's wgrad kernel (counted as
-``fused_lstm_march_bwd_wgrad``).  The TPU kernel's ray sort
+GEMM through the decoder's bf16 wgrad (``wgmma``, its rows split over the
+card; counted as ``fused_lstm_march_bwd_wgrad``), the gate cotangents'
+rows padded to 8 values (16-byte TMA rows).  The TPU kernel's ray sort
 (``models/wrapper.py:256-280``) only feeds its windowed gather; the port
 leaves it out.
 """
@@ -52,7 +55,7 @@ NAME = "fused_lstm_march"
 NAME_BWD = "fused_lstm_march_bwd"
 NAME_WGRAD = "fused_lstm_march_bwd_wgrad"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HIDDEN = 32
+MAX_HIDDEN = 62  # the TPU kernel's 2 H + 4 <= 128 (avr_tpu/models/wrapper.py:219)
 
 
 def aux_width(hid: int) -> int:
@@ -112,8 +115,14 @@ def lstm_march_plain(proj, coords0, rds, feat, w_ih, w_hh, bias, w_out, b_out, *
 
 _FWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
                                                             ctypes.c_void_p]
-_BWD_ARGS = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2 + [
+_BWD_ARGS = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 + [
     ctypes.c_int, ctypes.c_void_p]
+
+
+def gate_row_width(hid: int) -> int:
+    """Row width of the saved gate cotangents: 4 H rounded up to 8 values,
+    so every row starts 16-byte aligned (the wgrad's TMA rows)."""
+    return -(-4 * hid // 8) * 8
 
 
 def _forward(a: dict, steps: int, eps: float, cd: torch.dtype, save: bool):
@@ -164,7 +173,8 @@ class _March(torch.autograd.Function):
         # per ray and step: v_t and the rounded gate cotangents, zero where a
         # ray was frozen; dW_ih = sum of v_t (x) dgates is one GEMM after
         vbuf = torch.zeros((SB * R, steps, C), dtype=cd, device=dev)
-        dgbuf = torch.zeros((SB * R, steps, 4 * hid), dtype=cd, device=dev)
+        dg_ld = gate_row_width(hid)
+        dgbuf = torch.zeros((SB * R, steps, dg_ld), dtype=cd, device=dev)
         dw_hh = torch.zeros((hid, 4 * hid), **f32)
         dbias = torch.zeros((4 * hid,), **f32)
         dw_out = torch.zeros((hid,), **f32)
@@ -175,12 +185,12 @@ class _March(torch.autograd.Function):
                 a["proj"], a["rds"], a["feat"], a["w_ih"].t().contiguous(), a["w_hh"],
                 a["w_out"], aux, g, dcoords0, drds, dfeat, vbuf, dgbuf, dw_hh, dbias, dw_out,
                 db_out)),
-                SB, R, NS, H, W, C, hid, steps, float(eps), float(grad_clamp), _DTYPES[cd],
+                SB, R, NS, H, W, C, hid, steps, dg_ld, float(eps), float(grad_clamp), _DTYPES[cd],
                 ctypes.c_void_p(_build.stream_ptr(dev)))
             _build.check(NAME_BWD, err)
             rows = SB * R * steps
             wgrad(NAME_WGRAD, [(vbuf.data_ptr(), dgbuf.data_ptr(), dw_ih, None, rows, C,
-                                4 * hid, C, 4 * hid)], cd, dev)
+                                dg_ld, C, 4 * hid)], cd, dev)
         grads = (dcoords0, drds, dfeat, dw_ih, dw_hh, dbias, dw_out.reshape(ctx.shapes[0]),
                  db_out.reshape(ctx.shapes[1]))
         return tuple(gr.to(dt) for gr, dt in zip(grads, ctx.dtypes)) + (None,) * 5

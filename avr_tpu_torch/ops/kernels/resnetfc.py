@@ -18,35 +18,41 @@ the latent) are rounded to the compute dtype and accumulate in float32.
 What bounds it on Hopper: operations.  Forward at the band call of a train
 step (327,680 points, d_hidden 512, 13 hidden products, 6.86 MFLOP a point)
 ~2.27 ms at the bf16 tensor-core peak; the backward does twice the products
-(~4.5 ms) against ~1.1 ms of stash reads.  Forward: one CTA per 32-point
-tile keeps the tile's activations on chip (trunk in registers, the operand
-tile in shared memory) and runs the products with ``mma.sync`` m16n8k16;
-the ~6.8 MB of bf16 weights stream from L2 for every tile.  Under autograd
-it also writes the 2 * n_blocks + 1 post-ReLU activations (bf16, 11.3 KB a
-point) for the backward.  Backward, two kernels: a dgrad kernel walks each
-tile's chain in reverse with the same tiling (transposed weight copies as
-the B operand), reading the stash for the ReLU masks, and writes every
-product's output cotangent (rounded, 11 rows of 512 a point), ``dx``
-through the encoding's ``cos`` lanes and ``dz``; a wgrad kernel sums
-``dW = G^T A`` over the points on 128 x 128 tiles with ``mma.sync``, at most
-8 row chunks per tile added by float32 atomics, bias gradients as column
-sums of the rounded cotangents.  float32 operands take plain FMA loops with
-the same tiling.
+(~4.5 ms) against ~2.4 ms of stash reads and cotangent writes.  Forward
+(``csrc/resnetfc.cu``): one CTA per 32-point tile keeps the tile's
+activations on chip (trunk in registers, the operand tile in shared memory)
+and runs the products with ``mma.sync`` m16n8k16; the ~6.8 MB of bf16
+weights stream from L2 for every tile.  Under autograd it also writes the
+2 * n_blocks + 1 post-ReLU activations (bf16, 11.3 KB a point) for the
+backward.  bf16 backward (``csrc/resnetfc_hopper.cu``), on ``wgmma`` with
+TMA-fed tiles: the dgrad walks each 64-point tile's chain in reverse (the
+float32 trunk cotangent in two consumer warpgroups' registers, the
+transposed weights' k-slabs streamed through a shared-memory ring by a
+producer thread, the ReLU masks' stash rows loaded ahead of each product),
+writes every product's rounded output cotangent by TMA store (11 rows of
+512 a point), then a tail kernel forms ``dz`` as one K = n_lin_z x 512
+product over the injections' stored cotangents, the encoding's gradient
+and ``dx``; the wgrad sums ``dW = G^T A`` over the points in 128 x 128
+tiles with both operands MN-major in shared memory, rows split by
+:func:`wgrad_plan` into at least two waves of CTAs per job, the float32
+partial tiles added by a second kernel in split order (deterministic), the
+bias gradients column sums of the same rounded cotangents.  float32
+operands take ``csrc/resnetfc.cu``'s FMA backward with the forward's
+32-point tiling.
 
 ``stash`` picks the backward as JAX does: ``True`` the stash backward,
 ``False`` the recompute backward, ``"auto"`` the stash while the call's
 stash (``stash_slots * N * d_hidden`` compute-dtype values) is at most
 6 GiB.  The recompute backward stores no O(N) activations: the host walks
-the points in chunks of ``RECOMPUTE_CHUNK = 262,144`` and launches per
-chunk one recompute kernel (each 32-point tile reruns its forward through
-the forward kernel's device code into a chunk workspace, then walks back
-through the dgrad kernel's device code) and one wgrad launch that adds the
-chunk's ``dW`` into the float32 sums.  Its workspace (stash and cotangents,
-~5.9 GB in bf16 at NS 1 and width 512) is sized by the chunk, not by
-``N``.  A VR train step at ``conf/default_mv.conf`` width (4 x 4,096 rays,
-one chunk) has 1,048,576 coarse and 1,572,864 fine points: 4 + 6
-recompute launches and 4 + 6 wgrad launches.  Bound on H100: operations,
-~20.6 MFLOP a point (recompute, dgrad and wgrad products).
+the points in chunks of ``RECOMPUTE_CHUNK = 262,144`` and per chunk
+launches the stash forward into a chunk-sized workspace, the dgrad on it
+(counted as the recompute) and the wgrad, which adds the chunk's ``dW``
+into the float32 sums; so it equals the stash backward bit for bit by
+construction.  Its workspace (stash and cotangents, ~5.9 GB in bf16 at NS
+1 and width 512) is sized by the chunk, not by ``N``.  A VR train step at
+``conf/default_mv.conf`` width (4 x 4,096 rays, one chunk) has 1,048,576
+coarse and 1,572,864 fine points: 4 + 6 chunks.  Bound on H100:
+operations, ~20.6 MFLOP a point (recompute, dgrad and wgrad products).
 """
 
 from __future__ import annotations
@@ -224,6 +230,11 @@ def use_stash(stash, ns: int, N: int, d_hidden: int, n_blocks: int, n_lin_z: int
     raise ValueError(f"{NAME}: stash must be True, False or 'auto', got {stash!r}")
 
 
+def d_enc_padded(d_enc: int) -> int:
+    """lin_in's input lanes as the kernels take them: a multiple of 64."""
+    return (d_enc + 63) // 64 * 64
+
+
 def _prepare(x, z, w: DecoderWeights, code, compute_dtype):
     """The kernels' operands: detached, contiguous, in the compute dtype
     (biases rounded to it and held in float32), lin_in zero-padded to a
@@ -231,7 +242,7 @@ def _prepare(x, z, w: DecoderWeights, code, compute_dtype):
     ns, N, d_in = x.shape
     d_hidden, d_enc = w.wi.shape
     dev = x.device
-    k_in = (d_enc + 63) // 64 * 64
+    k_in = d_enc_padded(d_enc)
     mode, src, f, ph = encode_tables(code, d_in, k_in)
     cd = lambda t: t.detach().to(compute_dtype).contiguous()
     wi = torch.zeros((d_hidden, k_in), dtype=compute_dtype, device=dev)
@@ -259,13 +270,15 @@ def _dims(a, n_blocks, n_lin_z, activate_out):
                 activate=int(activate_out))
 
 
-def _forward(a, d, compute_dtype, stash: bool):
-    """Launch the forward; with ``stash`` also return the activations."""
+def _forward(a, d, compute_dtype, stash: bool, st=None):
+    """Launch the forward; with ``stash`` also return the activations
+    (written into ``st`` where given)."""
     dev = a["x"].device
     N, dh = d["N"], d["d_hidden"]
     out = torch.empty((N, d["d_out"]), dtype=torch.float32, device=dev)
-    st = (torch.empty((stash_slots(d["ns"], d["n_blocks"], d["n_lin_z"]), N, dh),
-                      dtype=compute_dtype, device=dev) if stash else None)
+    if stash and st is None:
+        st = torch.empty((stash_slots(d["ns"], d["n_blocks"], d["n_lin_z"]), N, dh),
+                         dtype=compute_dtype, device=dev)
     if N == 0:
         return out, st
     fn = _build.kernel_fn("avr_resnetfc", [ctypes.c_void_p] * 16 + [ctypes.c_int] * 11
@@ -300,30 +313,47 @@ def _grads_tuple(dx, dz, grads):
             grads["b0"], grads["w1"], grads["b1"], grads["wo"], grads["bo"])
 
 
-def _dgrad(a, d, st, g, wT, compute_dtype):
-    """The stash dgrad launch: ``dx``, ``dz``, and what the wgrad reads: the
-    rounded product cotangents ``cot``, the rounded output cotangent
-    ``gout`` and the encoded input ``enc``."""
+def dgrad_tile(compute_dtype) -> int:
+    """Points a dgrad CTA walks: 64 on the bf16 wgmma walk
+    (``csrc/resnetfc_hopper.cu``), 32 on the float32 one."""
+    return 64 if compute_dtype == torch.bfloat16 else 32
+
+
+def _dgrad(a, d, st, g, wT, compute_dtype, out=None, pool=None, name=NAME_DGRAD):
+    """The dgrad launch on the stash ``st``: ``dx``, ``dz``, and what the
+    wgrad reads: the rounded product cotangents ``cot``, the rounded output
+    cotangent ``gout`` and the encoded input ``enc``; into ``out`` (those
+    five, by name) where given, with ``pool`` the NS > 1 scratch."""
     ns, N, dh = d["ns"], d["N"], d["d_hidden"]
     cd = compute_dtype
     dev = g.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    dx = torch.zeros((ns, N, d["d_in"]), **f32)
-    dz = torch.zeros((ns, N, d["d_latent"]), dtype=cd, device=dev)
-    cot = torch.empty((cot_slots(ns, d["n_blocks"], d["n_lin_z"]), N, dh), dtype=cd, device=dev)
-    gout = torch.empty((N, GOUT_W), dtype=cd, device=dev)
-    enc = torch.empty((ns, N, d["k_in"]), dtype=cd, device=dev)
-    # ns > 1: the pooled trunk cotangent, one (32, dh) float32 tile per CTA
-    pool = torch.empty(((N + 31) // 32 * 32, dh), **f32) if ns > 1 else None
+    if out is None:
+        out = dict(dx=torch.zeros((ns, N, d["d_in"]), dtype=torch.float32, device=dev),
+                   dz=torch.zeros((ns, N, d["d_latent"]), dtype=cd, device=dev),
+                   cot=torch.empty((cot_slots(ns, d["n_blocks"], d["n_lin_z"]), N, dh),
+                                   dtype=cd, device=dev),
+                   gout=torch.empty((N, GOUT_W), dtype=cd, device=dev),
+                   enc=torch.empty((ns, N, d["k_in"]), dtype=cd, device=dev))
+    if ns > 1 and pool is None:  # the pooled trunk cotangent, one tile of rows per CTA
+        tile = dgrad_tile(cd)
+        pool = torch.empty(((N + tile - 1) // tile * tile, dh), dtype=torch.float32, device=dev)
     if N:
-        fn = _build.kernel_fn("avr_resnetfc_dgrad", [ctypes.c_void_p] * 17 + [ctypes.c_int] * 11
-                              + [ctypes.c_void_p])
-        err = fn(*(_build.ptr(t) for t in (a["x"], g, st, *wT, a["wo"], a["bo"],
-                                            a["tables"], a["fph"], dx, dz, cot, gout, enc)),
-                 _build.ptr(pool) if ns > 1 else None,
-                 *(d[k] for k in _DIM_ORDER), _DTYPES[cd], ctypes.c_void_p(_build.stream_ptr(dev)))
-        _build.check(NAME_DGRAD, err)
-    return dx, dz, cot, gout, enc
+        ptrs = [_build.ptr(t) for t in (a["x"], g, st, *wT, a["wo"], a["bo"], a["tables"],
+                                        a["fph"], *(out[k] for k in ("dx", "dz", "cot", "gout",
+                                                                      "enc")))]
+        ptrs.append(_build.ptr(pool) if ns > 1 else None)
+        dims = [d[k] for k in _DIM_ORDER]
+        stream = ctypes.c_void_p(_build.stream_ptr(dev))
+        if cd == torch.bfloat16:
+            fn = _build.kernel_fn("avr_resnetfc_dgrad_bf16", [ctypes.c_void_p] * 17
+                                  + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+            err = fn(*ptrs, *dims, stream)
+        else:
+            fn = _build.kernel_fn("avr_resnetfc_dgrad", [ctypes.c_void_p] * 17
+                                  + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+            err = fn(*ptrs, *dims, _DTYPES[cd], stream)
+        _build.check(name, err)
+    return out["dx"], out["dz"], out["cot"], out["gout"], out["enc"]
 
 
 def _backward(a, d, st, g, compute_dtype):
@@ -345,50 +375,47 @@ def _recompute_layout(d):
 
 
 def _recompute_workspace(d, p, compute_dtype, device):
-    """The recompute kernel's workspace for chunks of up to ``p`` points:
+    """The recompute backward's workspace for chunks of up to ``p`` points:
     flat stash, cotangent, gout and encoded-input buffers, and (NS > 1) the
     pooled trunk cotangent."""
     bufs = [torch.empty(k * p * w, dtype=compute_dtype, device=device)
             for k, w in _recompute_layout(d)]
-    pool = (torch.empty(((p + 31) // 32 * 32) * d["d_hidden"], dtype=torch.float32,
+    tile = dgrad_tile(compute_dtype)
+    pool = (torch.empty(((p + tile - 1) // tile * tile, d["d_hidden"]), dtype=torch.float32,
                         device=device) if d["ns"] > 1 else None)
     return bufs, pool
 
 
 def _recompute_chunk(a, d, g, wT, work, s, n, dx, dz, compute_dtype):
-    """One recompute launch over points ``[s, s + n)``: the tiles' forward
-    into the workspace ``work``, then the walk back, writing the points'
+    """The recompute backward over points ``[s, s + n)``: the stash forward
+    into the workspace ``work``, then the dgrad on it, writing the points'
     rows of ``dx`` and ``dz``.  Returns what the chunk's wgrad reads: its
     latents and, as views of the workspace, its stash, rounded cotangents,
     rounded output cotangent and encoded input."""
     ns, cd, dev = d["ns"], compute_dtype, g.device
     bufs, pool = work
-    xc, zc = (a[k][:, s:s + n].contiguous() for k in ("x", "z"))
+    ac = dict(a, x=a["x"][:, s:s + n].contiguous(), z=a["z"][:, s:s + n].contiguous())
+    dc = dict(d, N=n)
+    st, cot, gout, enc = (t[:k * n * w].view(k, n, w)
+                          for t, (k, w) in zip(bufs, _recompute_layout(d)))
     # one view: the chunk's rows of dx and dz are contiguous; else a copy
     dxc = dx[:, s:s + n] if ns == 1 else torch.empty((ns, n, d["d_in"]), dtype=dx.dtype,
                                                      device=dev)
     dzc = dz[:, s:s + n] if ns == 1 else torch.empty((ns, n, d["d_latent"]), dtype=cd, device=dev)
-    st, cot, gout, enc = (t[:k * n * w].view(k, n, w)
-                          for t, (k, w) in zip(bufs, _recompute_layout(d)))
-    fn = _build.kernel_fn("avr_resnetfc_bwd_recompute", [ctypes.c_void_p] * 26
-                          + [ctypes.c_int] * 11 + [ctypes.c_void_p])
-    err = fn(_build.ptr(xc), _build.ptr(zc), *(_build.ptr(a[k]) for k in _FWD_ORDER[2:]),
-             _build.ptr(g[s:s + n]), *(_build.ptr(t) for t in wT),
-             *(_build.ptr(t) for t in (st, cot, gout, enc)),
-             _build.ptr(pool) if ns > 1 else None, _build.ptr(dxc), _build.ptr(dzc), n,
-             *(d[k] for k in _DIM_ORDER[1:]), _DTYPES[cd], ctypes.c_void_p(_build.stream_ptr(dev)))
-    _build.check(NAME_RECOMPUTE, err)
+    _forward(ac, dc, cd, stash=True, st=st)
+    _dgrad(ac, dc, st, g[s:s + n], wT, cd, out=dict(dx=dxc, dz=dzc, cot=cot, gout=gout[0], enc=enc),
+           pool=pool, name=NAME_RECOMPUTE)
     if ns > 1:
         dx[:, s:s + n].copy_(dxc)
         dz[:, s:s + n].copy_(dzc)
-    return zc, st, cot, gout[0], enc
+    return ac["z"], st, cot, gout[0], enc
 
 
 def _backward_recompute(a, d, g, compute_dtype):
     """The recompute backward, in chunks of :data:`RECOMPUTE_CHUNK` points:
-    per chunk one recompute launch (forward into the workspace, then the
-    walk back) and one wgrad launch adding into the float32 sums.  Returns
-    what :func:`_backward` returns."""
+    per chunk the stash forward into a chunk-sized workspace, the dgrad on
+    it and one wgrad launch adding into the float32 sums.  Returns what
+    :func:`_backward` returns."""
     ns, N = d["ns"], d["N"]
     g, wT, grads = _bwd_operands(a, d, g, NAME_RECOMPUTE)
     dev = g.device
@@ -428,21 +455,92 @@ def _wgrad(N, z, st, cot, gout, enc, grads, d, cd):
     wgrad(NAME_WGRAD, jobs, cd, st.device)
 
 
+# The bf16 wgrad (csrc/resnetfc_hopper.cu): dW tiles of WGRAD_TILE x
+# WGRAD_TILE, WGRAD_ROWS rows a pipeline stage, at most WGRAD_GROUP jobs a
+# launch (their tensor maps are kernel parameters).
+WGRAD_TILE, WGRAD_ROWS, WGRAD_GROUP = 128, 64, 8
+# The row split: each job gets at least WGRAD_WAVES waves of one CTA per SM
+# on the card's WGRAD_SMS SMs, in chunks of at least WGRAD_MIN_CHUNK rows
+# (a CTA's float32 partial tile, 64 KB, is then at most ~3% of the operand
+# bytes it reads).
+WGRAD_SMS, WGRAD_WAVES, WGRAD_MIN_CHUNK = 132, 2, 2048
+
+
+class WgradJobPlan(NamedTuple):
+    tiles_o: int
+    tiles_i: int
+    splits: int
+    chunk: int        # rows a split (a multiple of WGRAD_ROWS)
+    group: int        # the launch that runs the job
+    first_block: int  # its first CTA in that launch
+    part: int         # float offset of its partial tiles [split][Mg][Ka]
+    bpart: int        # float offset of its bias partials [split][tiles_i][Mg]; -1: none
+
+
+class WgradPlan(NamedTuple):
+    jobs: tuple       # WgradJobPlan per job
+    blocks: tuple     # CTAs per launch
+    floats: int       # size of the partials buffer
+
+
+def wgrad_plan(shapes) -> WgradPlan:
+    """The bf16 wgrad's host plan for jobs of ``shapes``, each ``(rows, Mg,
+    Ka, bias)``: per job 128 x 128 tiles times row splits of at least
+    ``WGRAD_WAVES * WGRAD_SMS`` CTAs where the rows allow ``WGRAD_MIN_CHUNK`` a
+    split; jobs in launches of ``WGRAD_GROUP``, CTAs ordered by job, then
+    split, then tile (the tiles of one row range run together)."""
+    jobs, blocks, part = [], [], 0
+    plans = []
+    for rows, mg, ka, bias in shapes:
+        to, ti = -(-mg // WGRAD_TILE), -(-ka // WGRAD_TILE)
+        splits = max(1, min(-(-WGRAD_WAVES * WGRAD_SMS // (to * ti)), rows // WGRAD_MIN_CHUNK))
+        chunk = -(-(-(-rows // splits)) // WGRAD_ROWS) * WGRAD_ROWS
+        plans.append((to, ti, max(1, -(-rows // chunk)), chunk))
+    bpart = sum(p[2] * mg * ka for p, (_, mg, ka, _) in zip(plans, shapes))
+    for j, ((to, ti, sp, chunk), (rows, mg, ka, bias)) in enumerate(zip(plans, shapes)):
+        if j % WGRAD_GROUP == 0:
+            blocks.append(0)
+        jobs.append(WgradJobPlan(to, ti, sp, chunk, len(blocks) - 1, blocks[-1], part,
+                                 bpart if bias else -1))
+        blocks[-1] += to * ti * sp
+        part += sp * mg * ka
+        bpart += sp * ti * mg if bias else 0
+    return WgradPlan(tuple(jobs), tuple(blocks), bpart)
+
+
 def wgrad(name: str, jobs, compute_dtype, device) -> None:
-    """Launch the wgrad kernel once over ``jobs``, each ``(G ptr, A ptr, dW,
-    db or None, rows, ldg, lda, Mg, Ka)``: ``dW (Mg, Ka) += G^T A`` over the
-    rows of ``G (rows, ldg)`` and ``A (rows, lda)`` in the compute dtype, and
-    ``db += sum G``.  Counted under the caller's ``name``."""
+    """Launch the wgrad over ``jobs``, each ``(G ptr, A ptr, dW, db or None,
+    rows, ldg, lda, Mg, Ka)``: ``dW (Mg, Ka) += G^T A`` over the rows of ``G
+    (rows, ldg)`` and ``A (rows, lda)`` in the compute dtype, and ``db +=
+    sum G``.  Counted under the caller's ``name``.  bf16 runs the wgmma
+    kernel on :func:`wgrad_plan` and its reduction; float32 the FMA kernel."""
     n = len(jobs)
     arr = lambda vals: (ctypes.c_void_p * n)(*vals)
     G, A = arr([j[0] for j in jobs]), arr([j[1] for j in jobs])
     dW = arr([j[2].data_ptr() for j in jobs])
     db = arr([None if j[3] is None else j[3].data_ptr() for j in jobs])
-    dims = (ctypes.c_int * (5 * n))(*(v for j in jobs for v in j[4:]))
-    fn = _build.kernel_fn("avr_resnetfc_wgrad", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
-                          + [ctypes.c_void_p])
-    err = fn(*(ctypes.cast(x, ctypes.c_void_p) for x in (G, A, dW, db, dims)), n,
-             _DTYPES[compute_dtype], ctypes.c_void_p(_build.stream_ptr(device)))
+    stream = ctypes.c_void_p(_build.stream_ptr(device))
+    if compute_dtype == torch.bfloat16:
+        for j in jobs:
+            if j[5] % 8 or j[6] % 8 or j[0] % 16 or j[1] % 16:
+                raise ValueError(f"{name}: wgrad rows must be 16-byte aligned, got job {j[4:]}")
+        shapes = [(j[4], j[7], j[8], j[3] is not None) for j in jobs]
+        plan = wgrad_plan(shapes)
+        rows = [(j[4], j[5], j[6], j[7], j[8], jp.tiles_i, jp.tiles_o * jp.tiles_i, jp.splits,
+                 jp.chunk, jp.group, jp.first_block, jp.part, jp.bpart)
+                for j, jp in zip(jobs, plan.jobs)]
+        flat = (ctypes.c_longlong * (13 * n))(*(v for r in rows for v in r))
+        part = torch.empty((plan.floats,), dtype=torch.float32, device=device)
+        fn = _build.kernel_fn("avr_resnetfc_wgrad_bf16", [ctypes.c_void_p] * 5 + [
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+        err = fn(*(ctypes.cast(x, ctypes.c_void_p) for x in (G, A, dW, db, flat)), n,
+                 _build.ptr(part), stream)
+    else:
+        dims = (ctypes.c_int * (5 * n))(*(v for j in jobs for v in j[4:]))
+        fn = _build.kernel_fn("avr_resnetfc_wgrad", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                              + [ctypes.c_void_p])
+        err = fn(*(ctypes.cast(x, ctypes.c_void_p) for x in (G, A, dW, db, dims)), n,
+                 _DTYPES[compute_dtype], stream)
     _build.check(name, err)
 
 
@@ -496,6 +594,8 @@ def fused_resnetfc(x: torch.Tensor, z: torch.Tensor, w: DecoderWeights, *,
     d_latent, d_out = z.shape[-1], w.wo.shape[0]
     if code is not None and code.d_raw != d_in:
         raise ValueError(f"{NAME}: x width {d_in} != code.d_raw {code.d_raw}")
+    # d_hidden <= 512: the forward keeps its trunk in registers (and so does
+    # the bf16 dgrad walk)
     if d_hidden % 64 or not 64 <= d_hidden <= 512 or d_latent % 64 or d_out > GOUT_W:
         raise ValueError(f"{NAME}: kernel needs d_hidden in 64..512, d_latent a multiple "
                          f"of 64 and d_out <= {GOUT_W}, got {d_hidden}, {d_latent}, {d_out}")
@@ -505,5 +605,9 @@ def fused_resnetfc(x: torch.Tensor, z: torch.Tensor, w: DecoderWeights, *,
     _build.check_cuda_inputs(NAME, a, x.device)
     d = _dims(a, n_blocks, n_lin_z, activate_out)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, z, *w)):
+        # the bf16 backward's tail holds d_latent <= 512 and k_in <= 128
+        if compute_dtype == torch.bfloat16 and (d_latent > 512 or d["k_in"] > 128):
+            raise ValueError(f"{NAME}: the bf16 backward needs d_latent <= 512 and at most 128 "
+                             f"encoded input lanes, got {d_latent}, {w.wi.shape[1]}")
         return _Decoder.apply(x, z, *w, a, d, compute_dtype, keep)
     return _forward(a, d, compute_dtype, stash=False)[0]

@@ -8,11 +8,14 @@ sort only serves its windowed gather; per-ray results do not depend on it,
 so the port has none.
 
 ``fused_integral`` (``"never"``, ``"auto"``, ``"always"``, the JAX
-package's values): ``"never"`` composites the band with the plain volume
-integral; the others with the K4 wrapper on the decoder's rows as they come
-(:func:`~avr_tpu_torch.ops.kernels.integrate.fused_volume_integral`: the
-kernel on CUDA tensors, its plain version on CPU tensors), which gives no
-band opacity (``acc`` is None), as in JAX (``adaptive.py:105-125``).
+package's values, ``avr_tpu/renderers/adaptive.py:105-131``): ``"never"``
+composites the band with the plain volume integral and returns the band
+opacity ``acc``; ``"always"`` with the K4 wrapper on the decoder's rows as
+they come (:func:`~avr_tpu_torch.ops.kernels.integrate.fused_volume_integral`:
+the kernel on CUDA tensors, its plain version on CPU tensors), which gives
+no band opacity (``acc`` is None); ``"auto"`` fuses where JAX does, on the
+accelerator (the card here, the TPU there), and composites plainly, with
+``acc``, on the CPU.
 """
 
 from __future__ import annotations
@@ -54,7 +57,9 @@ def render_adaptive(cfg: AdaptiveRendererConfig, key: KeyLike, field: FieldFn,
     pts = ros[..., None, :] + rds[..., None, :] * z[..., None]
     vd = rds[..., None, :].expand(SB, R, n, 3)
     out = field(pts.reshape(SB, R * n, 3), vd.reshape(SB, R * n, 3), False)
-    if fused_integral == "never":
+    fused = fused_integral == "always" or (fused_integral == "auto"
+                                           and out.device.type != "cpu")
+    if not fused:
         out = out.reshape(SB, R, n, 4)
         rgb, distance, weights = volume_integral(z, out[..., 3:4], out[..., :3],
                                                  white_back=cfg.white_back)

@@ -22,7 +22,7 @@ __all__ = [
 def _unproject_dirs(xy_pix: torch.Tensor, intrinsics: torch.Tensor) -> torch.Tensor:
     """Unit camera-space ray directions: unproject at ``z = -1``, normalize."""
     xy_hom = torch.cat([xy_pix, torch.ones_like(xy_pix[..., :1])], dim=-1)
-    k_inv = torch.linalg.inv(intrinsics)
+    k_inv = torch.linalg.inv_ex(intrinsics).inverse  # inv_ex: no error check, no host sync
     xyz = torch.einsum("...ij,...kj->...ki", k_inv, xy_hom)
     xyz = torch.cat([-xyz[..., :1], xyz[..., 1:]], dim=-1) * -1.0
     return xyz / torch.linalg.norm(xyz, dim=-1, keepdim=True)
@@ -43,7 +43,7 @@ def get_world_rays(
 def depth_from_world(world: torch.Tensor, cam2world: torch.Tensor) -> torch.Tensor:
     """Camera-space depth (``-z``) of world points under per-ray poses."""
     hom = torch.cat([world, torch.ones_like(world[..., :1])], dim=-1)
-    cam = torch.einsum("...ij,...j->...i", torch.linalg.inv(cam2world), hom)
+    cam = torch.einsum("...ij,...j->...i", torch.linalg.inv_ex(cam2world).inverse, hom)
     return -cam[..., 2]
 
 

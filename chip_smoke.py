@@ -12,14 +12,18 @@ Phases (any failure raises and exits non-zero):
    backward kernel's gradients against the plain version's autograd at the
    train step's shapes (4 scenes x 4,096 rays), each with its tolerance and
    the reason for it; K1 and K2 forward and K1 backward also at the VR
-   fine pass's shapes (96 x 4,096 points a scene); K2's recompute backward
+   fine pass's shapes (96 x 4,096 points a scene); K2's bf16 wgrad (the
+   wgmma kernel and its reduction) per job against torch.matmul and a
+   column sum on the same rounded operands; K2's recompute backward
    also against the stash backward kernels (bit for bit where the
    arithmetic is the same) at the band call and at the VR fine pass
    (1,572,864 points), where it is held against the plain autograd too,
    and with its host loop cut to 1,000-point chunks; the integral's
    adjoint with a saturated lane; K4 (the band integral) at the train
-   step's band (4 x 4,096 rays x 20 samples) and a serving chunk, with
-   saturated samples and a ray of zero density, forward and backward; K5
+   step's band (4 x 4,096 rays x 20 samples, and 40: two warp groups a
+   ray) and a serving chunk, with saturated samples and a ray of zero
+   density, forward and backward; K3 also at hidden 62 (two units a lane),
+   forward and backward; K5
    (the projected gather) at both of its calls on the fused path, the band
    query (81,920 points a scene) and the coarse query at the marched point
    (4,096), in 1 scene (serving) and 4 (the train step), bf16 and float32,
@@ -32,8 +36,10 @@ Phases (any failure raises and exits non-zero):
    and K5 also the kernel's own device time, from the profiler); the least
    time the card could take (bytes over 3.35 TB/s or operations over the
    type's peak).
-3. Serve: the full-width ``conf/default_mv.conf`` model (bf16, seeded random
-   weights) of each renderer (adaptive, VR, Raymarcher, and the adaptive
+3. Serve: the full-width ``conf/default_mv.conf`` model (bf16, seeded
+   benchmark weights, ``bench_weights``: every matrix N(0, 1/fan_in),
+   ``fc_1`` too, so the backward kernels meet nonzero cotangents) of each
+   renderer (adaptive, VR, Raymarcher, and the adaptive
    renderer's fused path: ``gather_impl="pallas_proj"``,
    ``fused_integral="always"``) encodes one 128x128 source view and
    renders 3 orbit frames of 128x128 through ``evaluation.generate_video``
@@ -64,8 +70,8 @@ Phases (any failure raises and exits non-zero):
    side or on both (``train_skip_probe.py`` counts such steps).  The
    one-chunk and 8-chunk VR steps from the same weights give the same loss
    and gradients up to summation order.
-   ``--profile`` traces a frame and a train step of the adaptive renderer,
-   its fused path and the VR.
+   ``--profile`` traces a frame of every renderer and a train step of
+   every path.
 5. Reference: small float32 renders of every renderer and train steps
    (adaptive, its fused path, and VR; the adaptive one also with the legacy
    key stream) through the kernels on the card, against the plain path on
@@ -94,7 +100,7 @@ import torch.nn.functional as F
 from avr_tpu_torch.data.device import build_device_dataset, make_device_sampler
 from avr_tpu_torch.data.synthetic import synthetic_scene_set
 from avr_tpu_torch.evaluation import generate_video, render_full_image
-from avr_tpu_torch.models.wrapper import make_model
+from avr_tpu_torch.models.wrapper import bench_weights, make_model
 from avr_tpu_torch.ops import threefry
 from avr_tpu_torch.ops.kernels import _build
 from avr_tpu_torch.ops.kernels import integrate as K4
@@ -103,6 +109,7 @@ from avr_tpu_torch.ops.kernels import rng as K7
 from avr_tpu_torch.ops.kernels.gather import (gather_bilinear, gather_bilinear_plain,
                                               gather_bilinear_projected,
                                               gather_bilinear_projected_plain)
+from avr_tpu_torch.ops.kernels.march import NAME_WGRAD as K3_NAME_WGRAD
 from avr_tpu_torch.ops.kernels.march import (fused_lstm_march, lstm_march_plain,
                                              pack_projection)
 from avr_tpu_torch.ops.integrate import volume_integral
@@ -138,6 +145,29 @@ def time_ms(fn, iters=10, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters=20):
+    """Host ms of one call of ``fn``: the median wall time until it returns,
+    each call on an idle card (its kernels are launched asynchronously, so
+    this is the wrapper's Python, its ctypes call and the launches)."""
+    fn()
+    ts = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(ts))
+
+
+def call_timing(fn, device_ms, iters=10):
+    """A wrapper's host cost beside its kernels' device time: ``host_ms``
+    (:func:`host_ms`), ``call_ms`` (back-to-back calls, CUDA events) and
+    ``call_ms - device_ms``."""
+    call = time_ms(fn, iters=iters)
+    return dict(host_ms=host_ms(fn), call_ms=call, call_minus_device_ms=call - device_ms)
 
 
 def max_err(a, b):
@@ -246,7 +276,7 @@ def check_resnetfc(gen):
                 ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
-def march_inputs(gen, ns, dtype=torch.bfloat16, sb=1, w_out_scale=0.05):
+def march_inputs(gen, ns, dtype=torch.bfloat16, sb=1, w_out_scale=0.05, hidden=HIDDEN):
     """Rays of a 128x128 camera at z = 1.3 looking at the origin (the same
     4,096 rays in each of ``sb`` scenes); the source views are that camera,
     rotated about its axis.  The rays are jittered off the pixel centres and
@@ -254,7 +284,9 @@ def march_inputs(gen, ns, dtype=torch.bfloat16, sb=1, w_out_scale=0.05):
     projects exactly onto a latent pixel, where the bilinear taps and the
     border mask switch, and two correct implementations round onto
     different sides of that edge.  ``w_out_scale`` sets the step head's
-    size, and with it how far a step moves with the latent it reads."""
+    size, and with it how far a step moves with the latent it reads;
+    ``hidden`` the LSTM's width (the step head scaled by 1/sqrt(hidden / 16)
+    so the step keeps its size)."""
     c2w = torch.diag(torch.tensor([1.0, -1.0, -1.0, 1.0]))
     c2w[2, 3] = 1.3
     K = torch.tensor([[1.09375, 0, 0.5], [0, 1.09375, 0.5], [0, 0, 1]])
@@ -275,33 +307,39 @@ def march_inputs(gen, ns, dtype=torch.bfloat16, sb=1, w_out_scale=0.05):
     proj = pack_projection(torch.stack(poses), focal, torch.tensor([[SIDE / 2, SIDE / 2]]),
                            torch.tensor([2 * LATENT / (LATENT - 1)] * 2),
                            torch.tensor([float(SIDE)] * 2)).reshape(1, ns, 16)
-    H4 = 4 * HIDDEN
+    H4 = 4 * hidden
     rep = lambda t: t.expand(sb, *t.shape[1:]).to(DEV).contiguous()
     return dict(proj=rep(proj), coords0=rep(ros + rds * d0), rds=rep(rds),
                 feat=randn(gen, sb, ns, LATENT, LATENT, C, dtype=dtype),
-                w_ih=randn(gen, C, H4, scale=C ** -0.5), w_hh=randn(gen, HIDDEN, H4, scale=0.25),
-                bias=randn(gen, H4, scale=0.1), w_out=randn(gen, HIDDEN, 1, scale=w_out_scale),
+                w_ih=randn(gen, C, H4, scale=C ** -0.5),
+                w_hh=randn(gen, hidden, H4, scale=0.25 * (16 / hidden) ** 0.5),
+                bias=randn(gen, H4, scale=0.1),
+                w_out=randn(gen, hidden, 1, scale=w_out_scale * (16 / hidden) ** 0.5),
                 b_out=randn(gen, 1, scale=0.01))
 
 
 def check_march(gen):
     cases = []
-    # (views, steps, early-stop eps, tolerance and why)
-    for ns, steps, eps, tol in (
+    # (views, steps, early-stop eps, hidden, tolerance and why)
+    for ns, steps, eps, hid, tol in (
         # 2 steps: gate sums in another order and one-ulp transcendental
         # differences, through a bf16-rounded hidden state (2^-8 relative)
-        (1, 2, 0.0, 1e-3), (2, 2, 0.0, 1e-3), (1, 2, 0.02, 1e-3),
+        (1, 2, 0.0, HIDDEN, 1e-3), (2, 2, 0.0, HIDDEN, 1e-3), (1, 2, 0.02, HIDDEN, 1e-3),
+        # hidden 62 (the widest the TPU kernel takes): each lane carries two
+        # units and W_ih is read from L2; the same differences
+        (1, 2, 0.0, 62, 1e-3),
         # 10 steps: the same differences carried through 8 more steps
-        (1, STEPS, 0.0, 5e-3),
+        (1, STEPS, 0.0, HIDDEN, 5e-3),
     ):
-        inp = march_inputs(gen, ns)
+        inp = march_inputs(gen, ns, hidden=hid)
         got = fused_lstm_march(**inp, steps=steps, early_stop_eps=eps,
                                compute_dtype=torch.bfloat16)
         want = lstm_march_plain(**inp, steps=steps, early_stop_eps=eps,
                                 compute_dtype=torch.bfloat16)
         if not torch.isfinite(got).all():
             raise AssertionError(f"march NS={ns} steps={steps}: non-finite output")
-        cases.append(check(f"R={CHUNK} NS={ns} steps={steps} eps={eps}", max_err(got, want), tol))
+        cases.append(check(f"R={CHUNK} NS={ns} steps={steps} eps={eps} hidden {hid}",
+                           max_err(got, want), tol))
     inp = march_inputs(gen, 1)
     kw = dict(steps=STEPS, compute_dtype=torch.bfloat16)
     ms = time_ms(lambda: fused_lstm_march(**inp, **kw))
@@ -360,6 +398,13 @@ def check_l2(name, got, want, tol, against="plain"):
         raise AssertionError(f"{name}: relative L2 error {rel_l2} > tolerance {tol}")
     return {"case": name, "against": against, "max_abs_err": max_err(a, b), "rel_l2": rel_l2,
             "tol": tol}
+
+
+# K2's bf16 backward kernels (csrc/resnetfc_hopper.cu): the dgrad's walk and
+# tail, the wgrad's wgmma kernel and its reduction
+DGRAD_KERNELS = ("resnetfc_dgrad_walk_kernel", "resnetfc_dgrad_tail_kernel")
+WGRAD_KERNELS = ("resnetfc_wgrad_wgmma_kernel", "resnetfc_wgrad_reduce_kernel")
+K2_BWD_KERNELS = DGRAD_KERNELS + WGRAD_KERNELS
 
 
 def kernel_device_ms(fn, names, iters=5):
@@ -582,18 +627,30 @@ def check_resnetfc_bwd(gen):
               f"{worst(vs_matched)}; rounding points alone (plain stash) {rounding}")
         if keep:
             timing = dict(ms=time_ms(run, iters=5), plain_ms=time_ms(run_plain, iters=3),
-                          split=kernel_device_ms(run, ("resnetfc_dgrad_kernel",
-                                                       "resnetfc_wgrad_kernel")))
+                          split=kernel_device_ms(run, K2_BWD_KERNELS))
             timing["stash_fwd_ms"] = time_ms(lambda: K2._forward(args, dims, cd, True), iters=5)
             # the yardstick: torch.matmul over the wgrad's 15 dW = G^T A jobs,
             # on the stash, cotangents and encoded input of this call
             kst = K2._forward(args, dims, cd, True)[1]
-            gs, wT, _ = K2._bwd_operands(args, dims, g, K2.NAME_DGRAD)
+            gs, wT, grads = K2._bwd_operands(args, dims, g, K2.NAME_DGRAD)
             _, _, cot, gout, enc = K2._dgrad(args, dims, kst, gs, wT, cd)
             jobs = wgrad_matmul_jobs(kst, cot, gout, enc, args["z"], 5, 3)
             timing["library_ms"] = time_ms(lambda: [torch.matmul(a.t(), b) for a, b in jobs],
                                            iters=5)
-            del jobs, kst, cot, gout, enc
+            cases += check_wgrad_jobs(kst, cot, gout, enc, args, dims, jobs)
+            # each wrapper's host cost (the wgrad's: its plan, 30 tensor
+            # maps, two launches; the dgrad's: 6 tensor maps, two launches)
+            split = timing["split"]
+            timing["dgrad_host"] = call_timing(
+                lambda: K2._dgrad(args, dims, kst, gs, wT, cd),
+                sum(split[k] for k in DGRAD_KERNELS))
+            timing["wgrad_host"] = call_timing(
+                lambda: K2._wgrad(BAND_TRAIN, args["z"], kst, cot, gout, enc, grads, dims, cd),
+                sum(split[k] for k in WGRAD_KERNELS))
+            shapes = [(BAND_TRAIN, 512, 512, True)] * 13 + [(BAND_TRAIN, 512, dims["k_in"], True),
+                                                             (BAND_TRAIN, 4, 512, True)]
+            timing["wgrad_host"]["plan_ms"] = host_ms(lambda: K2.wgrad_plan(shapes))
+            del jobs, kst, cot, gout, enc, grads
         del got, want, matched, ref_plain, run, run_plain
     flops = decoder_flops(BAND_TRAIN, 1)
     act = BAND_TRAIN * 512 * 2  # one (N, 512) bf16 activation
@@ -602,16 +659,19 @@ def check_resnetfc_bwd(gen):
     split = timing["split"]
     dg_ms, dg_by = bound(11 * act + 11 * act + io + wbytes, flops, BF16_FLOPS)
     wg_ms, wg_by = bound(11 * act + 11 * act + BAND_TRAIN * C * 2 + wbytes * 2, flops, BF16_FLOPS)
-    common = dict(source="avr_tpu_torch/csrc/resnetfc.cu",
-                  replaces="avr_tpu/ops/pallas/resnetfc.py:823", tpu_kernel="_bwd_stash_impl",
+    common = dict(replaces="avr_tpu/ops/pallas/resnetfc.py:823", tpu_kernel="_bwd_stash_impl",
                   shape=f"N={BAND_TRAIN}, NS=1, d_hidden 512, 5 blocks, bf16", cases=cases,
                   plain_ms=timing["plain_ms"], pair_ms=timing["ms"],
                   stash_fwd_ms=timing["stash_fwd_ms"])
-    return [dict(name="fused_resnetfc_bwd_dgrad", ms=split["resnetfc_dgrad_kernel"],
-                 bound_ms=dg_ms, bound_by=dg_by, library_ms=None, **common),
-            dict(name="fused_resnetfc_bwd_wgrad", ms=split["resnetfc_wgrad_kernel"],
-                 bound_ms=wg_ms, bound_by=wg_by, library_ms=timing["library_ms"],
-                 library="torch.matmul over the 15 G^T A jobs", **common)]
+    dg_split = {k: split[k] for k in DGRAD_KERNELS}
+    wg_split = {k: split[k] for k in WGRAD_KERNELS}
+    return [dict(name="fused_resnetfc_bwd_dgrad", ms=sum(dg_split.values()), split=dg_split,
+                 source="avr_tpu_torch/csrc/resnetfc_hopper.cu", bound_ms=dg_ms, bound_by=dg_by,
+                 library_ms=None, **timing["dgrad_host"], **common),
+            dict(name="fused_resnetfc_bwd_wgrad", ms=sum(wg_split.values()), split=wg_split,
+                 source="avr_tpu_torch/csrc/resnetfc_hopper.cu", bound_ms=wg_ms, bound_by=wg_by,
+                 library_ms=timing["library_ms"], library="torch.matmul over the 15 G^T A jobs",
+                 **timing["wgrad_host"], **common)]
 
 
 def wgrad_matmul_jobs(st, cot, gout, enc, z, nb, nlz):
@@ -624,6 +684,45 @@ def wgrad_matmul_jobs(st, cot, gout, enc, z, nb, nlz):
     jobs += [(cot_in if k == 0 else cot[K2.stash_slot(k - 1, 1, 0, 1, nlz)], z[0])
              for k in range(nlz)]
     return jobs + [(cot_in, enc[0]), (gout, st[-1])]
+
+
+# The wgrad against torch.matmul on the same rounded operands, per job:
+# both sum exact float32 products of bf16 values over 327,680 rows in other
+# orders (the kernel in 64-row wgmma steps, row splits and a reduction;
+# cuBLAS in its own), a relative error near 2^-24 sqrt(rows) = 3.4e-5 of
+# the sum of |terms| at worst: 1e-4 of each job's L2 norm.
+WGRAD_JOB_TOL = 1e-4
+
+
+def check_wgrad_jobs(st, cot, gout, enc, args, dims, jobs):
+    """The wgrad launch of the stash backward (``K2._wgrad``, the 15 jobs of
+    an NS = 1 call) into fresh sums, each job's dW and db held against
+    torch.matmul and a column sum of the same rounded operands."""
+    f32 = dict(dtype=torch.float32, device=DEV)
+    dh, nb, nlz = dims["d_hidden"], dims["n_blocks"], dims["n_lin_z"]
+    grads = dict(wi=torch.zeros((dh, dims["k_in"]), **f32), bi=torch.zeros((dh,), **f32),
+                 wz=torch.zeros((nlz, dh, dims["d_latent"]), **f32),
+                 bz=torch.zeros((nlz, dh), **f32), w0=torch.zeros((nb, dh, dh), **f32),
+                 b0=torch.zeros((nb, dh), **f32), w1=torch.zeros((nb, dh, dh), **f32),
+                 b1=torch.zeros((nb, dh), **f32), wo=torch.zeros((dims["d_out"], dh), **f32),
+                 bo=torch.zeros((dims["d_out"],), **f32))
+    K2._wgrad(dims["N"], args["z"], st, cot, gout, enc, grads, dims, torch.bfloat16)
+    # the same order as K2._wgrad's jobs
+    outs = [(f"{w}[{k}]", grads[w][k], grads[b][k]) for k in range(nb)
+            for w, b in (("w0", "b0"), ("w1", "b1"))]
+    outs += [(f"wz[{k}]", grads["wz"][k], grads["bz"][k]) for k in range(nlz)]
+    outs += [("wi", grads["wi"], grads["bi"]), ("wo", grads["wo"], grads["bo"])]
+    cases = []
+    for (label, dW, db), (G, A) in zip(outs, jobs):
+        mg = dW.shape[0]
+        want = torch.matmul(G[:, :mg].float().t(), A.float())
+        cases.append(check_l2(f"wgrad {label} vs torch.matmul", dW, want, WGRAD_JOB_TOL,
+                              against="torch.matmul"))
+        cases.append(check_l2(f"wgrad {label} bias vs column sum", db, G[:, :mg].float().sum(0),
+                              WGRAD_JOB_TOL, against="torch.sum"))
+    print(f"K2 wgrad per job: worst relative L2 against torch.matmul "
+          f"{max(c['rel_l2'] for c in cases):.3e} over {len(jobs)} jobs")
+    return cases
 
 
 # decoder points of a VR train step (4 x 4,096 rays in one chunk): the
@@ -787,8 +886,7 @@ def check_resnetfc_recompute(gen):
 
     run = lambda: K2._backward_recompute(args, dims, g, cd)
     call_ms = time_ms(run, iters=3, warmup=1)
-    split = kernel_device_ms(run, ("resnetfc_bwd_recompute_kernel", "resnetfc_wgrad_kernel"),
-                             iters=2)
+    split = kernel_device_ms(run, ("resnetfc_kernel",) + K2_BWD_KERNELS, iters=2)
     xc, zc, gc = inputs(COARSE_VR, 1, cd)
     ca, cdims = operands(xc, zc, cd)
     coarse_ms = time_ms(lambda: K2._backward_recompute(ca, cdims, gc, cd), iters=3, warmup=1)
@@ -807,12 +905,12 @@ def check_resnetfc_recompute(gen):
     # stash and 11 cotangent rows a point that the wgrad reads
     b_ms, b_by = bound(io + wbytes + 22 * act, 2 * decoder_flops(FINE_VR, 1), BF16_FLOPS)
     call_b_ms, call_b_by = bound(io + wbytes * 3, 3 * decoder_flops(FINE_VR, 1), BF16_FLOPS)
-    return dict(name=K2.NAME_RECOMPUTE, source="avr_tpu_torch/csrc/resnetfc.cu",
+    return dict(name=K2.NAME_RECOMPUTE, source="avr_tpu_torch/csrc/resnetfc_hopper.cu",
                 replaces="avr_tpu/ops/pallas/resnetfc.py:853", tpu_kernel="_bwd_impl",
                 shape=f"N={FINE_VR} (VR fine pass), NS=1, d_hidden 512, 5 blocks, bf16, "
                       f"{K2.RECOMPUTE_CHUNK}-point chunks",
-                cases=cases, ms=split["resnetfc_bwd_recompute_kernel"],
-                wgrad_ms=split["resnetfc_wgrad_kernel"], call_ms=call_ms,
+                cases=cases, ms=split["resnetfc_kernel"] + sum(split[k] for k in DGRAD_KERNELS),
+                split=split, wgrad_ms=sum(split[k] for k in WGRAD_KERNELS), call_ms=call_ms,
                 coarse_call_ms=coarse_ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
                 bound_by=b_by, call_bound_ms=call_b_ms, call_bound_by=call_b_by)
 
@@ -855,22 +953,26 @@ def check_march_bwd(gen):
     # float32 error is reported beside that floor (tolerance None).  The
     # train step's own
     # case (4 scenes, 10 steps, bf16) follows on the inputs that are then
-    # timed.
-    for sb, ns, steps, eps, scale, wo, cd, tol in (
-            (1, 1, 2, 0.0, 1.0, 0.05, torch.float32, 1e-3),
-            (1, 2, 2, 0.0, 1.0, 0.05, torch.float32, 1e-3),
-            (SB_TRAIN, 1, STEPS, 0.0, 1.0, 0.01, torch.float32, 1e-3),
-            (SB_TRAIN, 1, STEPS, 0.0, 1.0, 0.05, torch.float32, None),
-            (SB_TRAIN, 1, 2, 0.0, 1.0, 0.05, torch.bfloat16, 2e-2),
-            (1, 2, 2, 0.0, 1.0, 0.05, torch.bfloat16, 2e-2),
-            (1, 1, 2, 0.02, 1.0, 0.05, torch.bfloat16, 2e-2),
-            (1, 1, 2, 0.0, 300.0, 0.05, torch.bfloat16, 2e-2)):
-        inp = march_inputs(gen, ns, dtype=cd, sb=sb, w_out_scale=wo)
+    # timed.  Hidden 62, the widest the TPU kernel takes (two units a
+    # lane, W_ih^T from L2), at the same tolerances.
+    for sb, ns, steps, eps, scale, wo, cd, tol, hid in (
+            (1, 1, 2, 0.0, 1.0, 0.05, torch.float32, 1e-3, 62),
+            (1, 1, 2, 0.0, 1.0, 0.05, torch.bfloat16, 2e-2, 62),
+            (1, 1, 2, 0.0, 1.0, 0.05, torch.float32, 1e-3, HIDDEN),
+            (1, 2, 2, 0.0, 1.0, 0.05, torch.float32, 1e-3, HIDDEN),
+            (SB_TRAIN, 1, STEPS, 0.0, 1.0, 0.01, torch.float32, 1e-3, HIDDEN),
+            (SB_TRAIN, 1, STEPS, 0.0, 1.0, 0.05, torch.float32, None, HIDDEN),
+            (SB_TRAIN, 1, 2, 0.0, 1.0, 0.05, torch.bfloat16, 2e-2, HIDDEN),
+            (1, 2, 2, 0.0, 1.0, 0.05, torch.bfloat16, 2e-2, HIDDEN),
+            (1, 1, 2, 0.02, 1.0, 0.05, torch.bfloat16, 2e-2, HIDDEN),
+            (1, 1, 2, 0.0, 300.0, 0.05, torch.bfloat16, 2e-2, HIDDEN)):
+        inp = march_inputs(gen, ns, dtype=cd, sb=sb, w_out_scale=wo, hidden=hid)
         g = randn(gen, sb, CHUNK, 3, scale=scale)
         kw = dict(steps=steps, early_stop_eps=eps, compute_dtype=cd)
         got = run(fused_lstm_march, inp, g, **kw)
         want = run(lstm_march_plain, inp, g, **kw)
-        label = f"SB={sb} NS={ns} steps={steps} eps={eps} x{scale} w_out {wo} {str(cd)[6:]}"
+        label = (f"SB={sb} NS={ns} steps={steps} eps={eps} x{scale} w_out {wo} {str(cd)[6:]} "
+                 f"hidden {hid}")
         if tol is not None:
             cases += [check_l2(f"{nm} {label}", a, b, tol)
                       for nm, a, b in zip(MARCH_GRADS, got, want)]
@@ -908,7 +1010,7 @@ def check_march_bwd(gen):
     conditioning(inp, g, got, want, label, steps=STEPS, compute_dtype=torch.bfloat16)
     del got, want
     pair_ms, plain_ms = time_ms(run_k), time_ms(run_p, iters=3)
-    split = kernel_device_ms(run_k, ("lstm_march_bwd_kernel", "resnetfc_wgrad_kernel"))
+    split = kernel_device_ms(run_k, ("lstm_march_bwd_kernel",) + WGRAD_KERNELS)
     rays = SB_TRAIN * CHUNK
     rows = rays * STEPS
     # the dW_ih GEMM's yardstick: torch.matmul of v^T (rows x C) and the gate
@@ -916,7 +1018,12 @@ def check_march_bwd(gen):
     v = randn(gen, rows, C, dtype=torch.bfloat16)
     dg = randn(gen, rows, 4 * HIDDEN, dtype=torch.bfloat16)
     gemm_library_ms = time_ms(lambda: torch.matmul(v.t(), dg))
-    del v, dg
+    dw_ih = torch.zeros((C, 4 * HIDDEN), dtype=torch.float32, device=DEV)
+    wgrad_host = call_timing(
+        lambda: K2.wgrad(K3_NAME_WGRAD, [(v.data_ptr(), dg.data_ptr(), dw_ih, None, rows, C,
+                                          4 * HIDDEN, C, 4 * HIDDEN)], torch.bfloat16, DEV),
+        sum(split[k] for k in WGRAD_KERNELS))
+    del v, dg, dw_ih
     fmap = inp["feat"].numel()
     # the walk: dv and the cell per ray-step, the gather's dots and dfeat
     # adds, the recurrent and step-head weight gradients
@@ -931,9 +1038,10 @@ def check_march_bwd(gen):
     return [dict(name="fused_lstm_march_bwd", source="avr_tpu_torch/csrc/march.cu",
                  ms=split["lstm_march_bwd_kernel"], bound_ms=b_ms, bound_by=b_by,
                  library_ms=None, **common),
-            dict(name="fused_lstm_march_bwd_wgrad", source="avr_tpu_torch/csrc/resnetfc.cu",
-                 ms=split["resnetfc_wgrad_kernel"], bound_ms=wg_ms, bound_by=wg_by,
-                 library_ms=gemm_library_ms, library="torch.matmul(v^T, dgates)", **common)]
+            dict(name="fused_lstm_march_bwd_wgrad", source="avr_tpu_torch/csrc/resnetfc_hopper.cu",
+                 ms=sum(split[k] for k in WGRAD_KERNELS), bound_ms=wg_ms, bound_by=wg_by,
+                 library_ms=gemm_library_ms, library="torch.matmul(v^T, dgates)", **wgrad_host,
+                 **common)]
 
 
 def check_integral_saturated(gen):
@@ -978,10 +1086,16 @@ def integral_bound(rays, n, backward):
     return bound(io, rays * n * 20 * (2 if backward else 1), F32_FLOPS)
 
 
+# band samples a ray beside the renderer's 20: the quality series' 2x
+# epsilon sweep's 40, two groups of 32 for the kernel's warp
+N_BAND_WIDE = 40
+
+
 def check_integral(gen):
     cases = []
-    for sb in (SB_TRAIN, 1):  # the train step's band, a serving chunk
-        z, fo = integral_inputs(gen, sb)
+    # the train step's band and a serving chunk; at 20 and 40 samples a ray
+    for sb, n in ((SB_TRAIN, N_BAND), (1, N_BAND), (SB_TRAIN, N_BAND_WIDE), (1, N_BAND_WIDE)):
+        z, fo = integral_inputs(gen, sb, n)
         got = K4.fused_volume_integral(z, fo)
         want = K4.fused_volume_integral_plain(z, fo)
         # float32 on both sides: the transmittance's prefix product is
@@ -990,7 +1104,7 @@ def check_integral(gen):
         for nm, a, b in zip(("rgb", "distance"), got, want):
             if not torch.isfinite(a).all():
                 raise AssertionError(f"K4 {nm}: non-finite output")
-            cases.append(check(f"{nm} SB={sb} R={CHUNK} n={N_BAND}", max_err(a, b), 1e-5))
+            cases.append(check(f"{nm} SB={sb} R={CHUNK} n={n}", max_err(a, b), 1e-5))
         if sb == 1 and max_err(got[0][0, 7], torch.ones(3, device=DEV)) > 1e-6:
             raise AssertionError("K4: the ray of zero density is not white background")
     z, fo = integral_inputs(gen, SB_TRAIN)
@@ -1007,10 +1121,9 @@ def check_integral(gen):
 
 
 def check_integral_bwd(gen):
-    n = N_BAND
     cases = []
-    for sb in (SB_TRAIN, 1):
-        z, fo = integral_inputs(gen, sb)
+    for sb, n in ((SB_TRAIN, N_BAND), (1, N_BAND), (SB_TRAIN, N_BAND_WIDE), (1, N_BAND_WIDE)):
+        z, fo = integral_inputs(gen, sb, n)
         g = (randn(gen, sb, CHUNK, 3), randn(gen, sb, CHUNK, 1))
         got = grads_of(K4.fused_volume_integral, (z, fo), g)
         want = grads_of(K4.fused_volume_integral_plain, (z, fo), g)
@@ -1030,6 +1143,7 @@ def check_integral_bwd(gen):
                            want[1][..., 3] * keep, 1e-5),
                   check_rel(f"dfo sigma {label}, the empty ray", got[1][0, 7 * n:8 * n, 3],
                             want[1][0, 7 * n:8 * n, 3], 1e-5)]
+    n = N_BAND
     z, fo = integral_inputs(gen, SB_TRAIN)
     g = (randn(gen, SB_TRAIN, CHUNK, 3), randn(gen, SB_TRAIN, CHUNK, 1))
     _, run = grads_of(K4.fused_volume_integral, (z, fo), g, keep=True)
@@ -1257,8 +1371,13 @@ SERVE_LAUNCHES = {
 
 
 def path_model(path, dtype, dev):
+    """The full-width model of ``path`` with the benchmark weights
+    (``bench_weights``: every matrix live, fc_1 too, so the decoder's
+    backward kernels are held to nonzero cotangents)."""
     renderer, kw = PATHS[path]
-    return make_model(dtype=dtype, seed=0, device=dev, renderer=renderer, **kw)
+    model = make_model(dtype=dtype, seed=0, device=dev, renderer=renderer, **kw)
+    bench_weights(model, 0)
+    return model
 
 
 def run_slice(path="adaptive", frames=3):
@@ -1335,7 +1454,7 @@ def profile_frame(render, label="frame", out_dir="traces"):
     rows.sort(key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
     ours = ("gather_bilinear_kernel", "gather_bilinear_bwd_kernel", "resnetfc_kernel",
-            "resnetfc_dgrad_kernel", "resnetfc_wgrad_kernel", "resnetfc_bwd_recompute_kernel",
+            *K2_BWD_KERNELS, "resnetfc_dgrad_kernel", "resnetfc_wgrad_kernel",
             "lstm_march_kernel", "lstm_march_bwd_kernel", "gather_projected_kernel",
             "gather_projected_bwd_kernel", "volume_integral_kernel", "volume_integral_bwd_kernel",
             "threefry_kernel")
@@ -1422,6 +1541,7 @@ TRAIN_LAUNCHES = {
                        "fused_resnetfc_bwd_wgrad": 2, "fused_lstm_march": 1,
                        "fused_lstm_march_bwd": 1, "fused_lstm_march_bwd_wgrad": 1},
     "vr": {"gather_bilinear": 2, "gather_bilinear_bwd": 2, "fused_resnetfc": 2,
+           "fused_resnetfc_stash": _recompute_chunks(COARSE_VR) + _recompute_chunks(FINE_VR),
            "fused_resnetfc_bwd_recompute": _recompute_chunks(COARSE_VR)
            + _recompute_chunks(FINE_VR),
            "fused_resnetfc_bwd_wgrad": _recompute_chunks(COARSE_VR) + _recompute_chunks(FINE_VR)},
@@ -1627,7 +1747,7 @@ def check_vr_chunks():
     cotangents, the 8-chunk step sums sixteen such in float32 and rounds
     once, so the encoder's gradients differ by bf16 roundings of their
     input cotangent."""
-    model = make_model(dtype=torch.bfloat16, seed=0, device=DEV, renderer="VR")
+    model = path_model("VR", torch.bfloat16, DEV)
     params = dict(model.named_parameters())
     batch = train_batch(DEV)
     (l1, g1), (l8, g8), (_, g8b) = (
@@ -1815,9 +1935,11 @@ def main() -> int:
                check_gather_proj(gen), check_gather_proj_bwd(gen), check_rng()]
     print(f"integral: {check_integral_saturated(gen)}")
     for k in kernels:
+        host = (f", host {k['host_ms']:.4f} ms, call {k['call_ms']:.4f} ms" if "host_ms" in k
+                else "")
         print(f"kernel {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, bound "
-              f"{k['bound_ms']:.4f} by {k['bound_by']}) {len(k['cases'])} cases, all within "
-              f"tolerance")
+              f"{k['bound_ms']:.4f} by {k['bound_by']}{host}) {len(k['cases'])} cases, all "
+              f"within tolerance")
 
     serve, train, renders = {}, {}, {}
     for path in PATHS:
@@ -1825,7 +1947,7 @@ def main() -> int:
         print(f"serve {path}: {serve[path]}")
     if profile:
         for path, label in (("adaptive", "frame"), ("adaptive_fused", "frame_fused"),
-                            ("VR", "frame_vr")):
+                            ("VR", "frame_vr"), ("Raymarcher", "frame_raymarcher")):
             serve[path]["profile"] = profile_frame(renders[path], label=label, out_dir=out_dir)
     del renders
     # the adaptive step keeps its 10 timed steps; the others take 5
@@ -1833,7 +1955,7 @@ def main() -> int:
                         ("raymarcher", 5), ("adaptive_device_data", 5)):
         train[path], run_step = run_train(path, steps=steps)
         print(f"train {path}: {train[path]}")
-        if profile and path in ("adaptive", "adaptive_fused", "vr", "adaptive_device_data"):
+        if profile:
             train[path]["profile"] = profile_frame(run_step, label=f"train_step_{path}",
                                                    out_dir=out_dir)
         del run_step

@@ -71,6 +71,7 @@ def _port(z, fo, g_rgb, g_dist, white_back):
     (2, True, dict(R=70, n=7)),
     (3, False, dict(SB=1, R=5, n=20)),  # below one Pallas block
     (4, True, dict(R=64, n=20, saturate=False)),
+    (7, True, dict(R=70, n=40)),  # the 2x epsilon sweep's band: two groups of 32 on the card
 ])
 def test_forward_and_vjp_match_pallas(seed, white_back, shape):
     z, fo, g_rgb, g_dist = _case(seed, **shape)
@@ -101,10 +102,14 @@ def test_saturated_lane_and_empty_ray():
 
 
 def test_the_wrapper_check_refuses_what_the_kernel_does_not_take():
-    """n > 32 (one warp lane a sample), a wrong dtype and a CPU tensor all
-    raise in the wrapper's own check, which runs before any CUDA launch."""
-    with pytest.raises(ValueError, match="32"):
-        K4._check(torch.zeros(1, 2, 33), torch.zeros(1, 66, 4))
+    """An empty band, a wrong dtype and a CPU tensor all raise in the
+    wrapper's own check, which runs before any CUDA launch; any number of
+    samples a ray passes the shape check (the kernel walks the band in
+    groups of 32), so 40 gets as far as the device check."""
+    with pytest.raises(ValueError, match="at least one"):
+        K4._check(torch.zeros(1, 2, 0), torch.zeros(1, 0, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        K4._check(torch.zeros(1, 2, 40), torch.zeros(1, 80, 4))
     with pytest.raises(ValueError, match="R \\* n"):
         K4._check(torch.zeros(1, 2, 20), torch.zeros(1, 41, 4))
     with pytest.raises(TypeError, match="float32"):
