@@ -9,9 +9,14 @@
 // sigmoid(rgb) / relu(sigma).  Trunk h in float32; matmul operands in T
 // (bf16 or float32) with float32 accumulation.
 //
-// Bound on H100: operations (~6.9 MFLOP per point; ~0.57 ms per 81,920-point
-// band chunk at the bf16 tensor-core peak, against ~28 us of compulsory
-// bytes).  Design (first version, simple): one CTA per TM = 32 points,
+// This forward serves float32 operands, and bf16 shapes outside the wgmma
+// forward's envelope (csrc/resnetfc_hopper.cu resnetfc_fwd_wgmma_kernel:
+// d_latent or the encoded input lanes above 512), as ops/kernels/resnetfc.py
+// forward_route decides; its bf16 instantiation is also the in-run timing
+// reference of that kernel.  Bound on H100: operations (~6.9 MFLOP per
+// point; ~0.57 ms per 81,920-point band chunk at the bf16 tensor-core peak,
+// against ~28 us of compulsory bytes).  Design (first version, simple): one
+// CTA per TM = 32 points,
 // d_hidden / 64 warps, each warp owning 64 output columns of every
 // product.  The trunk lives in registers in the mma accumulator layout; the
 // current operand tile (encoding, activation) and the latent tile live in
@@ -51,26 +56,6 @@
 #include "resnetfc.cuh"
 
 constexpr int TM = 32;  // points per CTA
-
-struct FcArgs {
-  const float* x;       // (ns, N, d_in) float32 raw (or already encoded) inputs
-  const void* z;        // (ns, N, d_latent) T
-  const void* wi;       // (dh, k_in) T, zero-padded columns
-  const float* bi;      // (dh)
-  const void* wz;       // (n_lin_z, dh, d_latent) T
-  const float* bz;      // (n_lin_z, dh)
-  const void* w0;       // (n_blocks, dh, dh) T
-  const float* b0;      // (n_blocks, dh)
-  const void* w1;       // (n_blocks, dh, dh) T
-  const float* b1;      // (n_blocks, dh)
-  const void* wo;       // (d_out, dh) T
-  const float* bo;      // (d_out)
-  const int* tables;    // (2, k_in): column mode (0 raw, 1 sin, 2 zero), source lane
-  const float* fph;     // (2, k_in): frequency, phase
-  float* out;           // (N, d_out)
-  void* stash;          // nullptr, or (stash_slots, N, dh) T: every post-ReLU activation
-  int N, ns, d_in, k_in, d_latent, d_hidden, d_out, n_blocks, n_lin_z, activate;
-};
 
 // rows [0, TM) x [0, width) of a shared T tile -> global rows r0.. (row
 // stride width), 16-byte copies, rows past N skipped.
@@ -249,8 +234,7 @@ __host__ __device__ inline size_t fwd_smem_bytes(int k_in, int dh, int dl, int n
          (ns > 1 ? (size_t)TM * dh * sizeof(float) : 0);
 }
 
-// The forward of the point tile starting at row r0 (with a.out == nullptr
-// the output, lin_out, is skipped).
+// The forward of the point tile starting at row r0.
 template <typename T>
 __device__ __forceinline__ void resnetfc_tile(const FcArgs& a, unsigned char* smem, int r0) {
   constexpr int V = Vec16<T>::N;
@@ -347,7 +331,6 @@ __device__ __forceinline__ void resnetfc_tile(const FcArgs& a, unsigned char* sm
   if (stash)
     tile_to_global(As, lda, stash + (size_t)(stash_slots(a.ns, a.n_blocks, a.n_lin_z) - 1) * slot,
                    r0, a.N, dh);
-  if (!a.out) return;
   const T* wo = static_cast<const T*>(a.wo);
   for (int idx = tid; idx < TM * a.d_out; idx += blockDim.x) {
     const int r = idx / a.d_out, o = idx - r * a.d_out, row = r0 + r;
@@ -391,7 +374,7 @@ extern "C" int avr_resnetfc(const void* x, const void* z, const void* wi, const 
   a.wz = wz; a.bz = (const float*)bz; a.w0 = w0; a.b0 = (const float*)b0;
   a.w1 = w1; a.b1 = (const float*)b1; a.wo = wo; a.bo = (const float*)bo;
   a.tables = (const int*)tables; a.fph = (const float*)fph; a.out = (float*)out;
-  a.stash = stash;
+  a.stash = stash; a.pool = nullptr;
   a.N = N; a.ns = ns; a.d_in = d_in; a.k_in = k_in; a.d_latent = d_latent;
   a.d_hidden = d_hidden; a.d_out = d_out; a.n_blocks = n_blocks; a.n_lin_z = n_lin_z;
   a.activate = activate;

@@ -1,7 +1,8 @@
 // K2 definitions shared by the decoder's kernels (csrc/resnetfc.cu: the
-// forward and the float32 backward; csrc/resnetfc_hopper.cu: the bf16
-// backward on wgmma and TMA): the stash and cotangent slot layouts and the
-// backward's arguments.
+// float32 forward and backward, and the bf16 forward outside the wgmma
+// kernel's envelope; csrc/resnetfc_hopper.cu: the bf16
+// forward and backward on wgmma and TMA): the stash and cotangent slot
+// layouts and the forward's and the backward's arguments.
 #pragma once
 
 #include "common.cuh"
@@ -26,6 +27,29 @@ __host__ __device__ inline int cot_slots(int ns, int n_blocks, int n_lin_z) {
 __host__ __device__ inline int cot_in_slot(int v, int ns, int n_blocks, int n_lin_z) {
   return 2 * n_lin_z * ns + 2 * (n_blocks - n_lin_z) + v;
 }
+
+// The forward's arguments (csrc/resnetfc.cu: float32, and bf16 outside the
+// wgmma kernel's envelope; csrc/resnetfc_hopper.cu: the bf16 wgmma forward).
+struct FcArgs {
+  const float* x;       // (ns, N, d_in) float32 raw (or already encoded) inputs
+  const void* z;        // (ns, N, d_latent) T
+  const void* wi;       // (dh, k_in) T, zero-padded columns
+  const float* bi;      // (dh)
+  const void* wz;       // (n_lin_z, dh, d_latent) T
+  const float* bz;      // (n_lin_z, dh)
+  const void* w0;       // (n_blocks, dh, dh) T
+  const float* b0;      // (n_blocks, dh)
+  const void* w1;       // (n_blocks, dh, dh) T
+  const float* b1;      // (n_blocks, dh)
+  const void* wo;       // (d_out, dh) T
+  const float* bo;      // (d_out)
+  const int* tables;    // (2, k_in): column mode (0 raw, 1 sin, 2 zero), source lane
+  const float* fph;     // (2, k_in): frequency, phase
+  float* out;           // (N, d_out)
+  void* stash;          // nullptr, or (stash_slots, N, dh) T: every post-ReLU activation
+  float* pool;          // bf16 wgmma forward, ns > 1: view sums, 64 x 256 H floats a tile
+  int N, ns, d_in, k_in, d_latent, d_hidden, d_out, n_blocks, n_lin_z, activate;
+};
 
 constexpr int GOUT_W = 8;  // row width of the rounded output cotangent (d_out <= 8)
 

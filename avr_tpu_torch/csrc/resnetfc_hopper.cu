@@ -1,11 +1,28 @@
-// K2's bf16 backward on Hopper: the dgrad walk and its tail, and the wgrad,
-// on wgmma with TMA-fed tiles.
+// K2's bf16 kernels on Hopper: the forward, the dgrad walk and its tail,
+// and the wgrad, on wgmma with TMA-fed tiles.
 //
-// Replaces, with csrc/resnetfc.cu's forward, avr_tpu/ops/pallas/resnetfc.py's
-// stash backward _bwd_stash_impl (:400-575, call :823) and, run per chunk
-// after a forward into the chunk's workspace, the recompute backward
-// _bwd_impl (:248-390, call :853).  The float32 instantiations keep
-// csrc/resnetfc.cu's FMA kernels (the card's float32 parity runs).
+// Replaces avr_tpu/ops/pallas/resnetfc.py's forward fused_resnetfc (:896,
+// kernel call :726, stash outputs :637-653), its stash backward
+// _bwd_stash_impl (:400-575, call :823) and, run per chunk as the stash
+// forward into the chunk's workspace, the dgrad and the wgrad, the
+// recompute backward _bwd_impl (:248-390, call :853).  The float32
+// instantiations, and bf16 forwards outside this forward's envelope
+// (ops/kernels/resnetfc.py forward_route), keep csrc/resnetfc.cu's kernels.
+//
+// Forward (resnetfc_fwd_wgmma_kernel).  Bound on H100: operations (13
+// products of up to 512 x 512 a point, 6.86 MFLOP; 0.57 ms at 81,920 points
+// at the bf16 peak) and, with the stash, its bytes (11 rows of 512 bf16 a
+// point: 3.7 GB, 1.1 ms at 327,680).  It is the walk's machinery run
+// forward: a 64-point tile per CTA, two consumer warpgroups each owning
+// d_hidden / 2 trunk columns (the float32 trunk h in registers, one m64n128
+// accumulator), a producer thread streaming every product's weight k-slabs
+// (nn.Linear (out, in) rows: K-major B operands as they lie) through the
+// 3-stage ring ahead of use across product boundaries, so the weights cross
+// L2 once per 64 points instead of once per 32 (csrc/resnetfc.cu's
+// mma.sync design read them from L2 with synchronous loads).  Each product's
+// rounded activation is written once into the A tile, and the ones the
+// stash keeps are stored from there by TMA (rows past N clipped by the
+// tensor map).  Details at the kernel.
 //
 // Dgrad walk (resnetfc_dgrad_walk_kernel).  Bound on H100: operations and
 // the stash/cotangent bytes (2 x 512 x 512 products a block a point; 11
@@ -154,8 +171,6 @@ __device__ __forceinline__ uint64_t* walk_bar(int i) {
 }
 // the barriers: wfull[DG_WSTAGES], wempty[DG_WSTAGES], mfull[4], mempty[4]
 // (indexed wg * 2 + half), afull, idone
-__device__ __forceinline__ uint64_t* walk_wfull(int s) { return walk_bar(s); }
-__device__ __forceinline__ uint64_t* walk_wempty(int s) { return walk_bar(DG_WSTAGES + s); }
 __device__ __forceinline__ uint64_t* walk_mfull(int m) { return walk_bar(2 * DG_WSTAGES + m); }
 __device__ __forceinline__ uint64_t* walk_mempty(int m) { return walk_bar(2 * DG_WSTAGES + 4 + m); }
 __device__ __forceinline__ unsigned char* walk_mask(const WalkCtx& c, int h) {
@@ -220,12 +235,14 @@ __device__ __forceinline__ void walk_write_gh(const WalkCtx& c, const float (&gh
         stsm_x4(walk_A() + frag_row_off(c, c.wg * c.HW + h * 128, q), r);
       }
 }
-// acc = A @ W for the next half of this warpgroup's columns: the ring's
-// next kch stages, one wgmma group in flight.
-__device__ __forceinline__ void walk_kloop(WalkCtx& c, float (&acc)[64]) {
-  for (int kc = 0; kc < c.kch; ++kc) {
-    const int st = c.ws % DG_WSTAGES;
-    mbar_wait(walk_wfull(st), (c.ws / DG_WSTAGES) & 1);
+// acc = A @ W for the next half of this warpgroup's columns: the next kch
+// stages of an S-stage ring (A's first kch boxes), one wgmma group in
+// flight.  The ring's barriers: full[S] then empty[S].
+template <int S = DG_WSTAGES>
+__device__ __forceinline__ void walk_kloop(WalkCtx& c, float (&acc)[64], int kch) {
+  for (int kc = 0; kc < kch; ++kc) {
+    const int st = c.ws % S;
+    mbar_wait(walk_bar(st), (c.ws / S) & 1);
     const unsigned char* wb = walk_W() + st * 2 * DG_SLAB + c.wg * DG_SLAB;
     wgmma_fence();
 #pragma unroll
@@ -235,12 +252,12 @@ __device__ __forceinline__ void walk_kloop(WalkCtx& c, float (&acc)[64]) {
     wgmma_commit();
     if (kc > 0) {
       wgmma_wait<1>();
-      mbar_arrive(walk_wempty((c.ws - 1) % DG_WSTAGES));
+      mbar_arrive(walk_bar(S + (c.ws - 1) % S));
     }
     ++c.ws;
   }
   wgmma_wait<0>();
-  mbar_arrive(walk_wempty((c.ws - 1) % DG_WSTAGES));
+  mbar_arrive(walk_bar(S + (c.ws - 1) % S));
 }
 // fc_1's backward: gnet = mask(relu(fc_0) > 0) * (round(gh) @ W1), rounded,
 // into A and stored to slot.  The first half's output waits in its mask
@@ -249,7 +266,7 @@ __device__ __forceinline__ void walk_fc1(WalkCtx& c, float (&acc)[64], int slot)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (h >= c.halves) break;
-    walk_kloop(c, acc);
+    walk_kloop(c, acc, c.kch);
     unsigned char* mb = walk_mask(c, h);
     mbar_wait(walk_mfull(c.wg * 2 + h), c.p & 1);
 #pragma unroll
@@ -295,7 +312,7 @@ __device__ __forceinline__ void walk_fc0(WalkCtx& c, float (&acc)[64], float (&g
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (h >= c.halves) break;
-    walk_kloop(c, acc);
+    walk_kloop(c, acc, c.kch);
     const unsigned char* mb = walk_mask(c, h);
     mbar_wait(walk_mfull(c.wg * 2 + h), c.p & 1);
 #pragma unroll
@@ -523,6 +540,361 @@ resnetfc_dgrad_walk_kernel(const __grid_constant__ DgradMaps maps, const FcBwdAr
     }
   }
   if (tid == 0) tma_store_wait_read();  // the tile stays until the last store has read it
+}
+
+// ---------------------------------------------------------------------------
+// forward (bf16): the chain of products the walk runs in reverse, run forward
+// ---------------------------------------------------------------------------
+
+struct __align__(64) FwdMaps {
+  CUtensorMap wi;      // (dh n, k_in k), boxes {64 k, 128 n}
+  CUtensorMap wz;      // (n_lin_z, dh n, dl k), boxes {64 k, 128 n, 1}
+  CUtensorMap w0, w1;  // (n_blocks, dh n, dh k), boxes {64 k, 128 n, 1}
+  CUtensorMap z;       // (ns, N, dl), boxes {64, 64, 1}
+  CUtensorMap stash;   // (stash_slots, N, dh), boxes {64, 64, 1}
+};
+// The forward's envelope: the A tile holds every operand (k_in, d_latent
+// and d_hidden at most its 8 boxes); d_hidden <= 512 keeps the trunk in
+// the two consumer warpgroups' registers.
+constexpr int FWD_K_MAX = 8 * 64;
+// Its shared memory: the walk's A tile and barrier offsets, a 4-stage
+// weight ring from DG_W, then one park tile (64 x 128 bf16) per consumer
+// warpgroup.  Barriers: full[4], empty[4], then the latent tile's.
+constexpr int FW_STAGES = 4;
+constexpr uint32_t FW_PARK = DG_W + FW_STAGES * 2 * DG_SLAB;
+static_assert(FW_PARK + 2 * 2 * DG_BOX <= DG_BAR, "the forward's park tiles overlap its barriers");
+
+// b at the columns of accumulator registers 4 j .. 4 j + 3 of half h (two
+// columns, 2 (t % 4) and + 1 past 8 j), zeros past the warpgroup's columns
+// (HW is a multiple of 32: both or neither).
+__device__ __forceinline__ float2 fwd_bias2(const WalkCtx& c, const float* b, int h, int j) {
+  const int cl = h * 128 + 8 * j + 2 * (c.t & 3);
+  return cl < c.HW ? *reinterpret_cast<const float2*>(b + c.wg * c.HW + cl)
+                   : make_float2(0.f, 0.f);
+}
+// The epilogues read their biases 16 columns at a time, each group after a
+// warp barrier (which orders the warp's memory accesses, so the compiler
+// keeps the group's coherent loads below it): the 64 loaded at once, even
+// above the wgmma wait, held 32 registers beside the trunk and the
+// accumulator, and the trunk spilled to local memory.
+__device__ __forceinline__ void fwd_bias_fence() { __syncwarp(); }
+__device__ __forceinline__ unsigned char* fwd_park(const WalkCtx& c) {
+  return g_smem + FW_PARK + (uint32_t)c.wg * 2 * DG_BOX;
+}
+// A is complete: make it visible to wgmma (and the TMA) and, for slot >= 0,
+// store it to that stash slot.
+__device__ __forceinline__ void fwd_end_write(const WalkCtx& c, int slot) {
+  if (slot >= 0) {
+    walk_end_write_store(c, slot);
+  } else {
+    fence_async_shared();
+    named_sync(1, 256);
+  }
+}
+// A := round(relu(h)) at this thread's positions.
+template <int H>
+__device__ __forceinline__ void fwd_write_relu(const WalkCtx& c, const float (&h)[H][64]) {
+#pragma unroll
+  for (int hh = 0; hh < H; ++hh)
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      if (walk_cols_live(c, hh, q)) {
+        uint32_t r[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          r[k] = bf2(fmaxf(h[hh][8 * q + 2 * k], 0.f), fmaxf(h[hh][8 * q + 2 * k + 1], 0.f));
+        stsm_x4(walk_A() + frag_row_off(c, c.wg * c.HW + hh * 128, q), r);
+      }
+}
+// The trunk's products: h = A @ W^T + b (lin_in, add = false) or h = (h +
+// A @ W^T) + b (an injection, fc_1), over kch k-chunks of A.
+template <int H>
+__device__ __forceinline__ void fwd_trunk(WalkCtx& c, float (&acc)[64], float (&h)[H][64],
+                                          int kch, const float* b, bool add) {
+#pragma unroll
+  for (int hh = 0; hh < H; ++hh) {
+    walk_kloop<FW_STAGES>(c, acc, kch);
+    // (h + acc) + b in two passes: the accumulator is free before the
+    // biases load
+#pragma unroll
+    for (int i = 0; i < 64; ++i) h[hh][i] = add ? h[hh][i] + acc[i] : acc[i];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      fwd_bias_fence();
+      float2 bb[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bb[j] = fwd_bias2(c, b, hh, 4 * g + j);
+#pragma unroll
+      for (int i = 16 * g; i < 16 * g + 16; ++i)
+        h[hh][i] = h[hh][i] + (i & 1 ? bb[(i >> 2) & 3].y : bb[(i >> 2) & 3].x);
+    }
+  }
+}
+// fc_0: A := round(relu(A @ W0^T + b0)), stored to stash slot `slot` (< 0:
+// not stored).  The first half's output waits in this warpgroup's park
+// tile until every product reading A has finished.
+template <int H>
+__device__ __forceinline__ void fwd_fc0(WalkCtx& c, float (&acc)[64], const float* b, int slot) {
+#pragma unroll
+  for (int hh = 0; hh < H; ++hh) {
+    walk_kloop<FW_STAGES>(c, acc, c.kch);
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      fwd_bias_fence();
+      float2 bb[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bb[j] = fwd_bias2(c, b, hh, 4 * g + j);
+#pragma unroll
+      for (int i = 16 * g; i < 16 * g + 16; ++i)
+        acc[i] = fmaxf(acc[i] + (i & 1 ? bb[(i >> 2) & 3].y : bb[(i >> 2) & 3].x), 0.f);
+    }
+    if (hh < H - 1) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        uint32_t r[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) r[k] = bf2(acc[8 * q + 2 * k], acc[8 * q + 2 * k + 1]);
+        stsm_x4(fwd_park(c) + frag_row_off(c, 0, q), r);  // parked
+      }
+    }
+  }
+  walk_begin_write(c);
+#pragma unroll
+  for (int hh = 0; hh < H; ++hh) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      if (walk_cols_live(c, hh, q)) {
+        uint32_t r[4];
+        if (hh == H - 1) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) r[k] = bf2(acc[8 * q + 2 * k], acc[8 * q + 2 * k + 1]);
+        } else {
+          ldsm_x4(fwd_park(c) + frag_row_off(c, 0, q), r);
+        }
+        stsm_x4(walk_A() + frag_row_off(c, c.wg * c.HW + hh * 128, q), r);
+      }
+  }
+  fwd_end_write(c, slot);
+}
+// Block k: A := round(relu(h)) (stash slot (k, 0, v)), fc_0 (slot (k, 1,
+// v)), h = (h + A @ W1^T) + b1.
+template <int H>
+__device__ __forceinline__ void fwd_block(WalkCtx& c, float (&acc)[64], float (&h)[H][64],
+                                          const FcArgs& a, int k, int v) {
+  const bool st = a.stash != nullptr;
+  const size_t off = (size_t)k * a.d_hidden;
+  walk_begin_write(c);
+  fwd_write_relu(c, h);
+  fwd_end_write(c, st ? stash_slot(k, 0, v, a.ns, a.n_lin_z) : -1);
+  fwd_fc0<H>(c, acc, a.b0 + off, st ? stash_slot(k, 1, v, a.ns, a.n_lin_z) : -1);
+  fwd_trunk(c, acc, h, c.kch, a.b1 + off, true);
+}
+
+// The forward of one 64-point tile per CTA (bf16 operands, float32 trunk),
+// with exactly csrc/resnetfc.cu resnetfc_tile's rounding points and order:
+// h = acc + bi; per injection h = (h + acc) + bz; a block's activations
+// round(relu(h)) and round(relu(acc + b0)), then h = (h + acc) + b1; the
+// view sum s = s + h, times 1 / ns; lin_out by sequential FMAs.  Each row's
+// arithmetic is independent of its place in the tile, so a call over any
+// range of points writes the same bits for them (the recompute backward's
+// chunks equal the stash backward's forward).
+//
+// Budget: the walk's DG_SMEM (224 KB): the A tile (8 boxes), a 4-stage
+// weight ring (128 KB), and a park tile per warpgroup (16 KB each), where
+// it keeps its first half of fc_0's output until the other warpgroup has
+// finished reading A.  The latent tile is not resident: before each
+// injection a consumer thread loads it into A by TMA (A holds one operand
+// at a time: the encoding, z, relu(h), relu(fc_0)); the reloads read 64 KB
+// a tile per injection from L2.  NS > 1 sums the views in a float32 scratch
+// (a.pool: 64 H floats a consumer thread, its own accumulator positions,
+// contiguous, so one base address serves them): no atomics, no
+// synchronisation.
+// H: the halves (128-column slabs) of a warpgroup's d_hidden / 2 columns,
+// a compile-time count so that the trunk's registers are all live or absent.
+template <int H>
+__global__ void __launch_bounds__(DG_THREADS, 1)
+resnetfc_fwd_wgmma_kernel(const __grid_constant__ FwdMaps maps, const FcArgs a) {
+  unsigned char* smem = g_smem;
+  unsigned char* A = smem + DG_A;
+  unsigned char* W = smem + DG_W;
+  uint64_t* wfull = walk_bar(0);                // [FW_STAGES]
+  uint64_t* wempty = walk_bar(FW_STAGES);       // [FW_STAGES]
+  uint64_t* zfull = walk_bar(2 * FW_STAGES);    // the latent tile has landed in A
+  const int dh = a.d_hidden, dl = a.d_latent, nb = a.n_blocks, nlz = a.n_lin_z, ns = a.ns;
+  const int HW = dh / 2, kdh = dh / 64;
+  const int tid = threadIdx.x, wg = tid >> 7, r0 = blockIdx.x * DG_M;
+  if (tid == 0) {
+    if (smem_u32(smem) & 1023) __trap();  // the swizzled tiles need 1024-byte alignment
+    for (int s = 0; s < FW_STAGES; ++s) {
+      mbar_init(&wfull[s], 1);
+      mbar_init(&wempty[s], 256);
+    }
+    mbar_init(zfull, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer: one thread streams every product's weight k-slabs through
+    // the ring, ahead of use and across product boundaries
+    setmaxnreg_dec<40>();
+    if (tid != 256) return;
+    int ws = 0;
+    auto stream = [&](const CUtensorMap* m, int blk, int kch) {  // blk < 0: the 2-d map
+      for (int h = 0; h < H; ++h)
+        for (int kc = 0; kc < kch; ++kc) {
+          const int st = ws % FW_STAGES;
+          if (ws >= FW_STAGES) mbar_wait(&wempty[st], (ws / FW_STAGES - 1) & 1);
+          unsigned char* dst = W + st * 2 * DG_SLAB;
+          mbar_expect_tx(&wfull[st], 2 * DG_SLAB);
+          for (int g = 0; g < 2; ++g) {  // each consumer warpgroup's 128 columns
+            const int n0 = g * HW + h * 128;
+            if (blk < 0)
+              tma_load_2d(dst + g * DG_SLAB, m, &wfull[st], kc * 64, n0);
+            else
+              tma_load_3d(dst + g * DG_SLAB, m, &wfull[st], kc * 64, n0, blk);
+          }
+          ++ws;
+        }
+    };
+    for (int v = 0; v < ns; ++v) {
+      stream(&maps.wi, -1, a.k_in / 64);
+      for (int k = 0; k < nlz; ++k) {
+        stream(&maps.wz, k, dl / 64);
+        stream(&maps.w0, k, kdh);
+        stream(&maps.w1, k, kdh);
+      }
+    }
+    for (int k = nlz; k < nb; ++k) {
+      stream(&maps.w0, k, kdh);
+      stream(&maps.w1, k, kdh);
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns columns [wg HW, (wg + 1) HW)
+  setmaxnreg_inc<232>();
+  const int t = tid & 127;
+  float h[H][64];
+  float acc[64];
+  WalkCtx c{&maps.stash, tid, t, wg, HW, H, kdh, r0, 0, 0};
+  // this thread's view sums: 64 H floats of its own, contiguous
+  float4* pool = ns > 1 ? reinterpret_cast<float4*>(a.pool) +
+                               ((size_t)blockIdx.x * 256 + tid) * 16 * H
+                         : nullptr;
+  const float inv_ns = 1.f / (float)ns;
+  for (int v = 0; v < ns; ++v) {
+    // the encoded input into A: one thread an element, a compact loop
+    walk_begin_write(c);
+    for (int idx = tid; idx < DG_M * a.k_in; idx += 256) {
+      const int r = idx / a.k_in, j = idx - r * a.k_in, row = r0 + r;
+      const int mode = a.tables[j];
+      float val = 0.f;
+      if (row < a.N && mode != 2) {
+        const float p = a.x[((size_t)v * a.N + row) * a.d_in + a.tables[a.k_in + j]];
+        val = mode == 0 ? p : sinf(__fadd_rn(__fmul_rn(p, a.fph[j]), a.fph[a.k_in + j]));
+      }
+      *reinterpret_cast<bf16*>(A + swz_off(r, j, DG_BOX)) = from_f<bf16>(val);
+    }
+    fwd_end_write(c, -1);
+    fwd_trunk(c, acc, h, a.k_in / 64, a.bi, false);
+    for (int k = 0; k < nlz; ++k) {
+      // the latent tile into A by TMA (rows past N read as zeros)
+      walk_begin_write(c);
+      if (tid == 0) {
+        mbar_expect_tx(zfull, dl / 64 * DG_BOX);
+        for (int b = 0; b < dl / 64; ++b)
+          tma_load_3d(A + b * DG_BOX, &maps.z, zfull, b * 64, r0, v);
+      }
+      mbar_wait(zfull, (v * nlz + k) & 1);
+      fwd_trunk(c, acc, h, dl / 64, a.bz + (size_t)k * dh, true);
+      fwd_block(c, acc, h, a, k, v);
+    }
+    if (ns > 1) {  // the view sum s = s + h, then s / ns
+#pragma unroll
+      for (int hh = 0; hh < H; ++hh)
+#pragma unroll
+        for (int i = 0; i < 64; i += 4) {
+          float* hv = &h[hh][i];
+          float4 sv = make_float4(hv[0], hv[1], hv[2], hv[3]);
+          if (v > 0) {
+            const float4 p = pool[hh * 16 + i / 4];
+            sv = make_float4(p.x + hv[0], p.y + hv[1], p.z + hv[2], p.w + hv[3]);
+          }
+          if (v == ns - 1) {
+            hv[0] = sv.x * inv_ns;
+            hv[1] = sv.y * inv_ns;
+            hv[2] = sv.z * inv_ns;
+            hv[3] = sv.w * inv_ns;
+          } else {
+            pool[hh * 16 + i / 4] = sv;
+          }
+        }
+    }
+  }
+  for (int k = nlz; k < nb; ++k) fwd_block(c, acc, h, a, k, 0);
+
+  // relu(h) (the stash's last slot) -> lin_out: one thread a (point,
+  // output) pair, sequential FMAs over A's row and Wo's
+  walk_begin_write(c);
+  fwd_write_relu(c, h);
+  fwd_end_write(c, a.stash ? stash_slots(ns, nb, nlz) - 1 : -1);
+  const bf16* wo = static_cast<const bf16*>(a.wo);
+  for (int idx = tid; idx < DG_M * a.d_out; idx += 256) {
+    const int r = idx / a.d_out, o = idx - r * a.d_out, row = r0 + r;
+    if (row >= a.N) continue;
+    float s = 0.f;
+    for (int k = 0; k < dh; k += 8) {
+      float av[8], wv[8];
+      load16_shared(reinterpret_cast<const bf16*>(A + swz_off(r, k, DG_BOX)), av);
+      load16(wo + (size_t)o * dh + k, wv);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s = fmaf(av[j], wv[j], s);
+    }
+    s = s + a.bo[o];
+    if (a.activate) s = o < 3 ? sigmoidf_(s) : fmaxf(s, 0.f);
+    a.out[(size_t)row * a.d_out + o] = s;
+  }
+  if (tid == 0) tma_store_wait_read();  // the tile stays until the last store has read it
+}
+
+extern "C" int avr_resnetfc_fwd_bf16(const void* x, const void* z, const void* wi, const void* bi,
+                                     const void* wz, const void* bz, const void* w0,
+                                     const void* b0, const void* w1, const void* b1,
+                                     const void* wo, const void* bo, const void* tables,
+                                     const void* fph, void* out, void* stash, void* pool, int N,
+                                     int ns, int d_in, int k_in, int d_latent, int d_hidden,
+                                     int d_out, int n_blocks, int n_lin_z, int activate,
+                                     void* stream) {
+  if (N < 1 || ns < 1 || d_hidden % 64 || d_hidden < 64 || d_hidden > 512 || d_latent % 64 ||
+      d_latent < 64 || d_latent > FWD_K_MAX || k_in % 64 || k_in < 64 || k_in > FWD_K_MAX ||
+      d_out > GOUT_W || n_lin_z < 1 || n_lin_z > n_blocks || (ns > 1 && !pool))
+    return (int)cudaErrorInvalidValue;
+  FcArgs a;
+  a.x = (const float*)x; a.z = z; a.wi = wi; a.bi = (const float*)bi;
+  a.wz = wz; a.bz = (const float*)bz; a.w0 = w0; a.b0 = (const float*)b0;
+  a.w1 = w1; a.b1 = (const float*)b1; a.wo = wo; a.bo = (const float*)bo;
+  a.tables = (const int*)tables; a.fph = (const float*)fph; a.out = (float*)out;
+  a.stash = stash; a.pool = (float*)pool;
+  a.N = N; a.ns = ns; a.d_in = d_in; a.k_in = k_in; a.d_latent = d_latent;
+  a.d_hidden = d_hidden; a.d_out = d_out; a.n_blocks = n_blocks; a.n_lin_z = n_lin_z;
+  a.activate = activate;
+  const int dh = d_hidden, dl = d_latent;
+  FwdMaps m{};  // the stash's map stays zero without a stash
+  int e;
+  if ((e = map_2d(&m.wi, wi, dh, k_in, k_in, 128)) ||
+      (e = map_3d(&m.wz, wz, n_lin_z, dh, dl, 128)) ||
+      (e = map_3d(&m.w0, w0, n_blocks, dh, dh, 128)) ||
+      (e = map_3d(&m.w1, w1, n_blocks, dh, dh, 128)) ||
+      (e = map_3d(&m.z, z, ns, N, dl, 64)) ||
+      (stash && (e = map_3d(&m.stash, stash, stash_slots(ns, n_blocks, n_lin_z), N, dh, 64))))
+    return e;
+  auto kernel = d_hidden > 256 ? resnetfc_fwd_wgmma_kernel<2> : resnetfc_fwd_wgmma_kernel<1>;
+  cudaError_t c = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)DG_SMEM);
+  if (c != cudaSuccess) return (int)c;
+  kernel<<<(unsigned)((N + DG_M - 1) / DG_M), DG_THREADS, DG_SMEM, (cudaStream_t)stream>>>(m, a);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------

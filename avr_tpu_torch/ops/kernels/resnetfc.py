@@ -18,13 +18,20 @@ the latent) are rounded to the compute dtype and accumulate in float32.
 What bounds it on Hopper: operations.  Forward at the band call of a train
 step (327,680 points, d_hidden 512, 13 hidden products, 6.86 MFLOP a point)
 ~2.27 ms at the bf16 tensor-core peak; the backward does twice the products
-(~4.5 ms) against ~2.4 ms of stash reads and cotangent writes.  Forward
-(``csrc/resnetfc.cu``): one CTA per 32-point tile keeps the tile's
-activations on chip (trunk in registers, the operand tile in shared memory)
-and runs the products with ``mma.sync`` m16n8k16; the ~6.8 MB of bf16
-weights stream from L2 for every tile.  Under autograd it also writes the
-2 * n_blocks + 1 post-ReLU activations (bf16, 11.3 KB a point) for the
-backward.  bf16 backward (``csrc/resnetfc_hopper.cu``), on ``wgmma`` with
+(~4.5 ms) against ~2.4 ms of stash reads and cotangent writes.  Which
+forward kernel a call launches is :func:`forward_route`'s choice, by dtype
+and shape: bf16 inside the wgmma kernel's envelope (``d_latent`` and the
+encoded input lanes at most 512: every shipped config) takes
+``csrc/resnetfc_hopper.cu``'s ``resnetfc_fwd_wgmma_kernel``: one CTA per
+64-point tile, the float32 trunk in two consumer warpgroups' registers, a
+producer thread streaming every product's weight k-slabs through a
+shared-memory ring by TMA, ``wgmma`` on the swizzled operand tile, the
+stash stored from that tile by TMA.  float32, and bf16 outside that
+envelope, take ``csrc/resnetfc.cu``'s 32-point ``mma.sync`` (bf16) or FMA
+(float32) kernel, whose ~6.8 MB of weights stream from L2 for every tile.
+Under autograd the forward also writes the 2 * n_blocks + 1 post-ReLU
+activations (bf16, 11.3 KB a point) for the backward.  bf16 backward
+(``csrc/resnetfc_hopper.cu``), on ``wgmma`` with
 TMA-fed tiles: the dgrad walks each 64-point tile's chain in reverse (the
 float32 trunk cotangent in two consumer warpgroups' registers, the
 transposed weights' k-slabs streamed through a shared-memory ring by a
@@ -66,8 +73,8 @@ import torch
 
 from avr_tpu_torch.ops.kernels import _build
 
-__all__ = ["CodeSpec", "DecoderWeights", "fused_resnetfc", "resnetfc_plain", "use_stash",
-           "encode_tables"]
+__all__ = ["CodeSpec", "DecoderWeights", "forward_route", "fused_resnetfc", "resnetfc_plain",
+           "use_stash", "encode_tables"]
 
 NAME = "fused_resnetfc"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -189,6 +196,7 @@ _STASH_BUDGET_BYTES = 6 * 1024 ** 3  # resnetfc.py:893: above it JAX recomputes 
 RECOMPUTE_CHUNK = 262_144  # points per recompute launch: bounds its workspace
 GOUT_W = 8  # row width of the rounded output cotangent (csrc/resnetfc.cu)
 NAME_STASH = "fused_resnetfc_stash"
+NAME_WGMMA = "fused_resnetfc_wgmma"  # forwards (stash or not) on the wgmma route
 NAME_DGRAD = "fused_resnetfc_bwd_dgrad"
 NAME_WGRAD = "fused_resnetfc_bwd_wgrad"
 NAME_RECOMPUTE = "fused_resnetfc_bwd_recompute"
@@ -270,23 +278,64 @@ def _dims(a, n_blocks, n_lin_z, activate_out):
                 activate=int(activate_out))
 
 
+# The bf16 wgmma forward's envelope (csrc/resnetfc_hopper.cu FWD_K_MAX):
+# its operand tile holds at most 512 encoded input lanes, latent lanes and
+# trunk columns; its points come in tiles of FWD_TILE.
+FWD_K_MAX, FWD_TILE = 512, 64
+
+
+def forward_route(compute_dtype: torch.dtype, d_latent: int, k_in: int) -> str:
+    """The forward kernel that a call with these operands launches on the
+    card, for every shape :func:`fused_resnetfc` takes (``d_latent`` a
+    multiple of 64, ``k_in`` encoded input lanes padded to a multiple of 64;
+    every ``d_hidden`` it takes, 64..512, and every number of views take the
+    same route): ``"wgmma"`` (bf16 with ``d_latent`` and ``k_in`` at most
+    512, ``csrc/resnetfc_hopper.cu``), ``"mma_sync"`` (other bf16) or
+    ``"fma"`` (float32), both ``csrc/resnetfc.cu``.  A route's build or
+    launch failure raises: no call changes kernel."""
+    if compute_dtype == torch.float32:
+        return "fma"
+    return "wgmma" if d_latent <= FWD_K_MAX and k_in <= FWD_K_MAX else "mma_sync"
+
+
+# the forward's C entry points: the operands in _FWD_ORDER, out, stash (and
+# the wgmma kernel's view-sum scratch), the dims in _DIM_ORDER, the stream
+FWD_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+FWD_WGMMA_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+
+
 def _forward(a, d, compute_dtype, stash: bool, st=None):
-    """Launch the forward; with ``stash`` also return the activations
-    (written into ``st`` where given)."""
+    """Launch the forward on :func:`forward_route`'s kernel; with ``stash``
+    also return the activations (written into ``st`` where given).  Counted
+    under ``NAME`` or ``NAME_STASH``, and the wgmma route also under
+    ``NAME_WGMMA``."""
     dev = a["x"].device
-    N, dh = d["N"], d["d_hidden"]
+    N, ns, dh = d["N"], d["ns"], d["d_hidden"]
     out = torch.empty((N, d["d_out"]), dtype=torch.float32, device=dev)
     if stash and st is None:
-        st = torch.empty((stash_slots(d["ns"], d["n_blocks"], d["n_lin_z"]), N, dh),
+        st = torch.empty((stash_slots(ns, d["n_blocks"], d["n_lin_z"]), N, dh),
                          dtype=compute_dtype, device=dev)
     if N == 0:
         return out, st
-    fn = _build.kernel_fn("avr_resnetfc", [ctypes.c_void_p] * 16 + [ctypes.c_int] * 11
-                          + [ctypes.c_void_p])
-    err = fn(*(_build.ptr(a[k]) for k in _FWD_ORDER), _build.ptr(out),
-             _build.ptr(st) if stash else None, *(d[k] for k in _DIM_ORDER),
-             _DTYPES[compute_dtype], ctypes.c_void_p(_build.stream_ptr(dev)))
+    route = forward_route(compute_dtype, d["d_latent"], d["k_in"])
+    ptrs = [_build.ptr(a[k]) for k in _FWD_ORDER] + [_build.ptr(out),
+                                                     _build.ptr(st) if stash else None]
+    dims = [d[k] for k in _DIM_ORDER]
+    stream = ctypes.c_void_p(_build.stream_ptr(dev))
+    if route == "wgmma":
+        # the view sums of NS > 1: per 64-point tile, 64 x 128 floats for each
+        # 128-column half of each consumer warpgroup's d_hidden / 2 columns
+        halves = 2 if dh > 256 else 1
+        pool = (torch.empty(((N + FWD_TILE - 1) // FWD_TILE * FWD_TILE, 256 * halves),
+                            dtype=torch.float32, device=dev) if ns > 1 else None)
+        fn = _build.kernel_fn("avr_resnetfc_fwd_bf16", FWD_WGMMA_ARGTYPES)
+        err = fn(*ptrs, _build.ptr(pool) if ns > 1 else None, *dims, stream)
+    else:
+        fn = _build.kernel_fn("avr_resnetfc", FWD_ARGTYPES)
+        err = fn(*ptrs, *dims, _DTYPES[compute_dtype], stream)
     _build.check(NAME_STASH if stash else NAME, err)
+    if route == "wgmma":
+        _build.launches[NAME_WGMMA] += 1
     return out, st
 
 
@@ -594,8 +643,8 @@ def fused_resnetfc(x: torch.Tensor, z: torch.Tensor, w: DecoderWeights, *,
     d_latent, d_out = z.shape[-1], w.wo.shape[0]
     if code is not None and code.d_raw != d_in:
         raise ValueError(f"{NAME}: x width {d_in} != code.d_raw {code.d_raw}")
-    # d_hidden <= 512: the forward keeps its trunk in registers (and so does
-    # the bf16 dgrad walk)
+    # d_hidden <= 512: every forward kernel keeps its trunk in registers (and
+    # so does the bf16 dgrad walk); which kernel runs is forward_route's choice
     if d_hidden % 64 or not 64 <= d_hidden <= 512 or d_latent % 64 or d_out > GOUT_W:
         raise ValueError(f"{NAME}: kernel needs d_hidden in 64..512, d_latent a multiple "
                          f"of 64 and d_out <= {GOUT_W}, got {d_hidden}, {d_latent}, {d_out}")

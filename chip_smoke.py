@@ -12,7 +12,17 @@ Phases (any failure raises and exits non-zero):
    backward kernel's gradients against the plain version's autograd at the
    train step's shapes (4 scenes x 4,096 rays), each with its tolerance and
    the reason for it; K1 and K2 forward and K1 backward also at the VR
-   fine pass's shapes (96 x 4,096 points a scene); K2's bf16 wgrad (the
+   fine pass's shapes (96 x 4,096 points a scene); K2's bf16 forward (the
+   wgmma kernel, ``csrc/resnetfc_hopper.cu``) also at a point count off its
+   64-point tile, its stash slot by slot against the plain forward's
+   activations (NS 1 and 2), the ``mma.sync`` forward that
+   ``forward_route`` keeps for bf16 beyond 512 latent or encoded lanes at
+   a latent of 1,024 and at 576 encoded lanes, and the wgmma forward timed
+   in turns against the parent's
+   ``mma.sync`` forward (``csrc/resnetfc.cu``, its C entry point called
+   directly) at the band chunk (serving) and at the train step's band call
+   with the stash, each loop beside the SM clock and power that
+   ``nvidia-smi`` read; K2's bf16 wgrad (the
    wgmma kernel and its reduction) per job against torch.matmul and a
    column sum on the same rounded operands; K2's recompute backward
    also against the stash backward kernels (bit for bit where the
@@ -45,7 +55,9 @@ Phases (any failure raises and exits non-zero):
    renders 3 orbit frames of 128x128 through ``evaluation.generate_video``
    (frame i with ``PRNGKey(i)``, JAX's key stream: every draw through K7);
    the launch counters are reset just before and read just after, and must
-   show each kernel's launches per chunk.
+   show each kernel's launches per chunk, every bf16 K2 forward on the wgmma
+   route (``fused_resnetfc_wgmma``; so too in phase 4, the stash forwards
+   and the recompute's reruns included).
 4. Train: 2 warm-up and 10 (adaptive) or 5 timed train steps of the same
    models (Adam, bf16, SB 4 x 4,096 rays on ``bench.py``'s synthetic
    batch): the adaptive renderer, the VR in one chunk (K2's recompute
@@ -81,12 +93,19 @@ Prints the kernel table as one JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``; every case in full
 goes to ``DIR/chip_smoke_report.json`` (default ``traces/``), with the
 profiles' chrome traces.
+
+    python3 chip_smoke.py --march-draws=N
+
+runs only K3's bf16 10-step backward over N input draws at two step heads
+(``march_draws``: how the comparison depends on its draw) and prints one
+JSON line per draw and head.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -115,6 +134,7 @@ from avr_tpu_torch.ops.kernels.march import (fused_lstm_march, lstm_march_plain,
 from avr_tpu_torch.ops.integrate import volume_integral
 from avr_tpu_torch.ops.kernels.resnetfc import (CodeSpec, DecoderWeights, fused_resnetfc,
                                                 resnetfc_plain)
+from avr_tpu_torch.profiling.wgrad_timing import SMI_FIELDS, reasons_field, sustained
 from avr_tpu_torch.training import (LossParams, create_train_state, make_optimizer,
                                     make_train_step)
 from avr_tpu_torch.training.step import make_chunked_call_train_step
@@ -226,11 +246,11 @@ def check_gather(gen):
                 ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
 
 
-def decoder_weights(gen, dtype=torch.float32, dh=512, nb=5, nlz=3):
+def decoder_weights(gen, dtype=torch.float32, dh=512, nb=5, nlz=3, code=CODE, dl=C):
     lin = lambda o, i: randn(gen, o, i, scale=i ** -0.5)
     return DecoderWeights(
-        lin(dh, CODE.d_enc), randn(gen, dh, scale=0.1),
-        torch.stack([lin(dh, C) for _ in range(nlz)]), randn(gen, nlz, dh, scale=0.1),
+        lin(dh, code.d_enc), randn(gen, dh, scale=0.1),
+        torch.stack([lin(dh, dl) for _ in range(nlz)]), randn(gen, nlz, dh, scale=0.1),
         torch.stack([lin(dh, dh) for _ in range(nb)]), randn(gen, nb, dh, scale=0.1),
         torch.stack([lin(dh, dh) for _ in range(nb)]), randn(gen, nb, dh, scale=0.1),
         lin(4, dh), randn(gen, 4, scale=0.1))
@@ -241,7 +261,47 @@ def decoder_flops(n, ns, dh=512, nb=5, nlz=3):
                     + 2 * (nb - nlz) * dh * dh + dh * 4)
 
 
-def check_resnetfc(gen):
+def mma_sync_forward(args, dims, stash):
+    """The parent's bf16 forward (``csrc/resnetfc.cu``'s 32-point
+    ``mma.sync`` kernel, which forward_route keeps for bf16 shapes outside
+    the wgmma kernel's envelope) through its C entry point: the wgmma
+    forward's in-run timing reference, not counted as a launch."""
+    n = dims["N"]
+    out = torch.empty((n, dims["d_out"]), dtype=torch.float32, device=DEV)
+    st = (torch.empty((K2.stash_slots(dims["ns"], dims["n_blocks"], dims["n_lin_z"]), n,
+                       dims["d_hidden"]), dtype=torch.bfloat16, device=DEV) if stash else None)
+    fn = _build.kernel_fn("avr_resnetfc", K2.FWD_ARGTYPES)
+    err = fn(*(_build.ptr(args[k]) for k in K2._FWD_ORDER), _build.ptr(out),
+             _build.ptr(st) if stash else None, *(dims[k] for k in K2._DIM_ORDER), 1,
+             _build.stream_ptr(DEV))
+    if err:
+        raise RuntimeError(f"avr_resnetfc (mma.sync reference): cudaError {err}")
+    return out, st
+
+
+def alternate(calls, seconds=1.0):
+    """Each of ``calls`` (label -> function) in loops of about ``seconds``,
+    in turns (a b b a a b): per reading ms a call (CUDA events) with the SM
+    clock, power draw and clock-event reasons that ``nvidia-smi`` sampled
+    meanwhile (``profiling/wgrad_timing.py sustained``), and per label the
+    median ms and clock.  Two kernels compare only within one such run: the
+    700 W cap moves the SM clock between runs (PERF.md §6)."""
+    reasons = reasons_field()
+    fields = SMI_FIELDS + (f",{reasons}" if reasons else "")
+    a, b = list(calls)
+    readings = []
+    for label in (a, b, b, a, a, b):
+        readings.append(dict(label=label, **sustained(calls[label], seconds, fields)))
+    med = {lab: {k: float(np.median([r[k] for r in readings
+                                     if r["label"] == lab and r[k] is not None]))
+                 for k in ("ms", "clocks.sm", "power.draw")} for lab in calls}
+    return dict(readings=readings, median=med)
+
+
+def check_resnetfc(gen, gen_new):
+    """K2's forward; ``gen_new`` draws the inputs of the cases added with the
+    wgmma forward, so that ``gen`` gives every other check the inputs it
+    had before them."""
     w = decoder_weights(gen)
     kw = dict(n_blocks=5, n_lin_z=3, code=CODE, activate_out=True)
     cases = []
@@ -256,24 +316,133 @@ def check_resnetfc(gen):
         (CHUNK, 2, torch.bfloat16, 2.0 ** -7),
         # f32 operands: FMA order against cuBLAS over 13 chained products
         (CHUNK, 1, torch.float32, 1e-4),
+        # off the 64-point tile: the last CTA's rows past N
+        (CHUNK + 37, 1, torch.bfloat16, 2.0 ** -7),
+        (CHUNK + 37, 2, torch.bfloat16, 2.0 ** -7),
     ):
-        x = (torch.rand(ns, n, CODE.d_raw, generator=gen, device=DEV) * 2 - 1).contiguous()
-        z = randn(gen, ns, n, C, dtype=cd)
+        gn = gen if n % 64 == 0 else gen_new
+        x = (torch.rand(ns, n, CODE.d_raw, generator=gn, device=DEV) * 2 - 1).contiguous()
+        z = randn(gn, ns, n, C, dtype=cd)
         got = fused_resnetfc(x, z, w, compute_dtype=cd, **kw)
         want = resnetfc_plain(x, z, w, compute_dtype=cd, **kw)
         tol = rel * max(1.0, float(want.abs().max()))
         cases.append(check(f"N={n} NS={ns} {str(cd)[6:]}", max_err(got, want), tol))
+    cases += check_resnetfc_mma_sync(gen_new)
+    bf = torch.bfloat16
     x = (torch.rand(1, BAND, CODE.d_raw, generator=gen, device=DEV) * 2 - 1).contiguous()
-    z = randn(gen, 1, BAND, C, dtype=torch.bfloat16)
-    run = lambda f: f(x, z, w, compute_dtype=torch.bfloat16, **kw)
+    z = randn(gen, 1, BAND, C, dtype=bf)
+    run = lambda f: f(x, z, w, compute_dtype=bf, **kw)
     ms, plain_ms = time_ms(lambda: run(fused_resnetfc)), time_ms(lambda: run(resnetfc_plain))
     wbytes = sum(t.numel() for t in w) * 2
     b_ms, b_by = bound(x.numel() * 4 + z.numel() * 2 + wbytes + BAND * 4 * 4,
                        decoder_flops(BAND, 1), BF16_FLOPS)
-    return dict(name="fused_resnetfc", source="avr_tpu_torch/csrc/resnetfc.cu",
+    # the wgmma forward against the parent's mma.sync forward, in turns in
+    # this run: serving at the band chunk, and the stash forward at the band
+    # call of a train step
+    args = K2._prepare(x, z, w, CODE, bf)
+    dims = K2._dims(args, 5, 3, True)
+    vs_parent = {"serve N=81920": alternate({
+        "wgmma": lambda: K2._forward(args, dims, bf, False),
+        "mma_sync": lambda: mma_sync_forward(args, dims, False)})}
+    xs = torch.rand(1, BAND_TRAIN, CODE.d_raw, generator=gen_new, device=DEV) * 2 - 1
+    sargs = K2._prepare(xs, randn(gen_new, 1, BAND_TRAIN, C, dtype=bf), w, CODE, bf)
+    sdims = K2._dims(sargs, 5, 3, True)
+    vs_parent["stash N=327680"] = alternate({
+        "wgmma": lambda: K2._forward(sargs, sdims, bf, True),
+        "mma_sync": lambda: mma_sync_forward(sargs, sdims, True)})
+    stash_ms = kernel_device_ms(lambda: K2._forward(sargs, sdims, bf, True), (FWD_KERNEL,))
+    del sargs
+    # the stash forward's least time: its products, or its 11 stash rows of
+    # 512 bf16 a point written with the inputs read
+    act = BAND_TRAIN * 512 * 2
+    sb_ms, sb_by = bound(xs.numel() * 4 + BAND_TRAIN * C * 2 + wbytes + BAND_TRAIN * 4 * 4
+                         + K2.stash_slots(1, 5, 3) * act, decoder_flops(BAND_TRAIN, 1), BF16_FLOPS)
+    for label, r in vs_parent.items():
+        m = r["median"]
+        print(f"K2 forward {label}: wgmma {m['wgmma']['ms']:.4f} ms, mma.sync "
+              f"{m['mma_sync']['ms']:.4f} ms (medians of 3 loops each, in turns; SM clock "
+              f"{m['wgmma']['clocks.sm']:.0f} / {m['mma_sync']['clocks.sm']:.0f} MHz, power "
+              f"{m['wgmma']['power.draw']:.0f} / {m['mma_sync']['power.draw']:.0f} W)")
+    return dict(name="fused_resnetfc", source="avr_tpu_torch/csrc/resnetfc_hopper.cu",
                 replaces="avr_tpu/ops/pallas/resnetfc.py:896", tpu_kernel="fused_resnetfc",
                 shape=f"N={BAND}, NS=1, d_hidden 512, 5 blocks, bf16", cases=cases,
-                ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
+                ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                stash_ms=stash_ms[FWD_KERNEL], stash_bound_ms=sb_ms, stash_bound_by=sb_by,
+                vs_mma_sync=vs_parent)
+
+
+# bf16 beyond the wgmma forward's 512 latent or encoded input lanes:
+# forward_route keeps these on csrc/resnetfc.cu's mma.sync kernel.  A latent
+# of 1,024 (an encoder of 5 stages: 64 + 64 + 128 + 256 + 512), and 547
+# encoded lanes (8 frequencies of 32 coded lanes with the input, 3 passed
+# through: padded to 576).
+WIDE_CODE = CodeSpec(num_freqs=8, freq_factor=1.5, include_input=True, d_coded=32, d_pass=3)
+MMA_SYNC_CASES = ((CODE, 1024, 2), (WIDE_CODE, C, 1))
+
+
+def check_resnetfc_mma_sync(gen):
+    """K2's bf16 mma.sync forward through fused_resnetfc at the shapes
+    forward_route sends it, against the plain version at the bf16 cases'
+    2^-7 of the largest output; the wgmma forward must not have run."""
+    bf, kw, cases = torch.bfloat16, dict(n_blocks=5, n_lin_z=3, activate_out=True), []
+    for code, dl, ns in MMA_SYNC_CASES:
+        k_in = K2.d_enc_padded(code.d_enc)
+        route = K2.forward_route(bf, dl, k_in)
+        if route != "mma_sync":
+            raise AssertionError(f"K2 d_latent {dl}, {k_in} encoded lanes: routed to {route}")
+        w = decoder_weights(gen, code=code, dl=dl)
+        x = (torch.rand(ns, CHUNK + 37, code.d_raw, generator=gen, device=DEV) * 2 - 1)
+        z = randn(gen, ns, CHUNK + 37, dl, dtype=bf)
+        before = dict(_build.launches)
+        got = fused_resnetfc(x.contiguous(), z, w, compute_dtype=bf, code=code, **kw)
+        ran = {k: _build.launches[k] - before.get(k, 0) for k in (K2.NAME, K2.NAME_WGMMA)}
+        if ran != {K2.NAME: 1, K2.NAME_WGMMA: 0}:
+            raise AssertionError(f"K2 d_latent {dl}, {k_in} encoded lanes: launches {ran}, "
+                                 f"not the mma.sync forward once")
+        want = resnetfc_plain(x, z, w, compute_dtype=bf, code=code, **kw)
+        tol = 2.0 ** -7 * max(1.0, float(want.abs().max()))
+        cases.append(check(f"mma.sync route d_latent {dl} k_in {k_in} N={CHUNK + 37} NS={ns} "
+                           f"bf16", max_err(got, want), tol))
+    return cases
+
+
+# The stash of the wgmma forward against the plain forward's post-ReLU
+# activations (decoder_plain_stash), slot by slot.  Each slot is a bf16
+# rounding of an activation whose inputs both sides round at the same
+# points but sum in other orders, so an element moves by a bf16 ulp or two
+# of its slot's scale, as the output does: 2^-7 of the slot's largest value.
+# A ReLU mask flips only where a pre-activation lies within that rounding
+# noise of zero: "a fraction of a percent" (check_resnetfc_bwd): bounded at
+# 1%.  A slot written to the wrong place, or rows written to the wrong
+# points, moves whole rows by their full size.  N is off the 64-point tile.
+STASH_REL, STASH_FLIPS = 2.0 ** -7, 1e-2
+
+
+def check_resnetfc_stash(gen):
+    w = decoder_weights(gen)
+    cd, kw, cases = torch.bfloat16, dict(n_blocks=5, n_lin_z=3, code=CODE), []
+    for n, ns in ((SB_TRAIN * CHUNK + 37, 1), (CHUNK + 37, 2)):
+        x = (torch.rand(ns, n, CODE.d_raw, generator=gen, device=DEV) * 2 - 1).contiguous()
+        z = randn(gen, ns, n, C, dtype=cd)
+        args = K2._prepare(x, z, w, CODE, cd)
+        st = K2._forward(args, K2._dims(args, 5, 3, True), cd, True)[1]
+        pst = decoder_plain_stash(x, z, w, compute_dtype=cd, **kw)
+        for i in range(len(pst)):
+            scale = float(pst[i].abs().max())
+            cases.append(check(f"stash slot {i} N={n} NS={ns}", max_err(st[i], pst[i]),
+                               STASH_REL * max(scale, 1e-30), against="plain stash"))
+        flips = float(((st > 0) != (pst > 0)).float().mean())
+        if not flips <= STASH_FLIPS:
+            raise AssertionError(f"K2 stash N={n} NS={ns}: {flips} of the ReLU masks flipped "
+                                 f"> {STASH_FLIPS}")
+        cases.append({"case": f"stash ReLU mask flips N={n} NS={ns}", "against": "plain forward",
+                      "flip_fraction": flips, "bound": STASH_FLIPS})
+        worst = max(c["max_abs_err"] / c["tol"] for c in cases if c["case"].endswith(f"NS={ns}")
+                    and "slot" in c["case"])
+        print(f"K2 stash N={n} NS={ns}: worst slot at {worst:.3f} of its bound, ReLU mask flips "
+              f"{flips:.3e}")
+        del st, pst
+    return cases
 
 
 def march_inputs(gen, ns, dtype=torch.bfloat16, sb=1, w_out_scale=0.05, hidden=HIDDEN):
@@ -400,8 +569,9 @@ def check_l2(name, got, want, tol, against="plain"):
             "tol": tol}
 
 
-# K2's bf16 backward kernels (csrc/resnetfc_hopper.cu): the dgrad's walk and
-# tail, the wgrad's wgmma kernel and its reduction
+# K2's bf16 forward, and its backward kernels (csrc/resnetfc_hopper.cu): the
+# dgrad's walk and tail, the wgrad's wgmma kernel and its reduction
+FWD_KERNEL = "resnetfc_fwd_wgmma_kernel"  # K2's bf16 forward (csrc/resnetfc_hopper.cu)
 DGRAD_KERNELS = ("resnetfc_dgrad_walk_kernel", "resnetfc_dgrad_tail_kernel")
 WGRAD_KERNELS = ("resnetfc_wgrad_wgmma_kernel", "resnetfc_wgrad_reduce_kernel")
 K2_BWD_KERNELS = DGRAD_KERNELS + WGRAD_KERNELS
@@ -821,8 +991,9 @@ def check_resnetfc_recompute(gen):
     # 8e-2 (both sides round to bf16 at other places: mask flips), and bf16
     # against the matched reference fed the stash forward's activations
     # (bitwise the recomputed ones, part a): MATCHED_BF16_TOL.  RECUT is
-    # not a multiple of the 32-point tile, so every chunk ends in a partial
-    # tile and starts off the tile grid of the whole call.
+    # not a multiple of the 64-point tile (nor of float32's 32), so every
+    # chunk ends in a partial tile and starts off the tile grid of the
+    # whole call.
     RECUT = 1_000
     for n, ns, cd, tol, chunk in (
             (CHUNK, 1, torch.float32, 1e-2, K2.RECOMPUTE_CHUNK),
@@ -886,7 +1057,7 @@ def check_resnetfc_recompute(gen):
 
     run = lambda: K2._backward_recompute(args, dims, g, cd)
     call_ms = time_ms(run, iters=3, warmup=1)
-    split = kernel_device_ms(run, ("resnetfc_kernel",) + K2_BWD_KERNELS, iters=2)
+    split = kernel_device_ms(run, (FWD_KERNEL,) + K2_BWD_KERNELS, iters=2)
     xc, zc, gc = inputs(COARSE_VR, 1, cd)
     ca, cdims = operands(xc, zc, cd)
     coarse_ms = time_ms(lambda: K2._backward_recompute(ca, cdims, gc, cd), iters=3, warmup=1)
@@ -909,18 +1080,46 @@ def check_resnetfc_recompute(gen):
                 replaces="avr_tpu/ops/pallas/resnetfc.py:853", tpu_kernel="_bwd_impl",
                 shape=f"N={FINE_VR} (VR fine pass), NS=1, d_hidden 512, 5 blocks, bf16, "
                       f"{K2.RECOMPUTE_CHUNK}-point chunks",
-                cases=cases, ms=split["resnetfc_kernel"] + sum(split[k] for k in DGRAD_KERNELS),
+                cases=cases, ms=split[FWD_KERNEL] + sum(split[k] for k in DGRAD_KERNELS),
                 split=split, wgrad_ms=sum(split[k] for k in WGRAD_KERNELS), call_ms=call_ms,
                 coarse_call_ms=coarse_ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
                 bound_by=b_by, call_bound_ms=call_b_ms, call_bound_by=call_b_by)
 
 
 MARCH_GRADS = ("dcoords0", "drds", "dfeat", "dw_ih", "dw_hh", "dbias", "dw_out", "db_out")
+MARCH_KEYS = ("coords0", "rds", "feat", "w_ih", "w_hh", "bias", "w_out", "b_out")
+TIMED_HEAD = 0.01  # the timed K3 backward's step head: contractive over 10 steps
+
+
+def march_draws(draws):
+    """K3's bf16 10-step backward at the train step's shape (4 scenes x
+    4,096 rays) over ``draws`` draws of its inputs, each from its own seeded
+    generator, at the timed case's step head and at 0.05: one JSON line per
+    draw and head, the worst relative L2 error of the kernel's gradients
+    against the plain autograd beside how far the plain version's own
+    gradients move when every start coordinate is nudged by 1e-6."""
+    rel = lambda a, b: float((a - b).norm() / b.norm().clamp_min(1e-30))
+    for seed, head in itertools.product(range(draws), (TIMED_HEAD, 0.05)):
+        gen = torch.Generator(device=DEV).manual_seed(seed)
+        inp = march_inputs(gen, 1, sb=SB_TRAIN, w_out_scale=head)
+        g = randn(gen, SB_TRAIN, CHUNK, 3)
+        nudge = 1e-6 * torch.sign(torch.randn(inp["coords0"].shape, generator=gen, device=DEV))
+        grads = lambda fn, coords0: dict(zip(MARCH_GRADS, grads_of(
+            lambda *t: fn(inp["proj"], *t, steps=STEPS, compute_dtype=torch.bfloat16),
+            (coords0,) + tuple(inp[k] for k in MARCH_KEYS[1:]), g)))
+        want = grads(lstm_march_plain, inp["coords0"])
+        err = {k: rel(v, want[k]) for k, v in grads(fused_lstm_march, inp["coords0"]).items()}
+        moved = {k: rel(v, want[k]) for k, v in
+                 grads(lstm_march_plain, inp["coords0"] + nudge).items()}
+        worst = max(err, key=err.get)
+        print(json.dumps({"draw": seed, "w_out": head, "kernel_worst_rel_l2": err[worst],
+                          "worst": worst, "tol": 2e-2, "plain_nudged_worst": max(moved.values()),
+                          "plain_nudged_dcoords0": moved["dcoords0"]}))
 
 
 def check_march_bwd(gen):
     cases = []
-    keys = ("coords0", "rds", "feat", "w_ih", "w_hh", "bias", "w_out", "b_out")
+    keys = MARCH_KEYS
 
     def run(fn, inp, g, **kw):
         f = lambda *t: fn(inp["proj"], *t, **kw)
@@ -951,10 +1150,12 @@ def check_march_bwd(gen):
     # (the conditioning line), so the bounded float32 10-step case takes a
     # step head of 0.01, where the march is contractive; at 0.05 the
     # float32 error is reported beside that floor (tolerance None).  The
-    # train step's own
-    # case (4 scenes, 10 steps, bf16) follows on the inputs that are then
-    # timed.  Hidden 62, the widest the TPU kernel takes (two units a
-    # lane, W_ih^T from L2), at the same tolerances.
+    # train step's own case (4 scenes, 10 steps, bf16) follows on the inputs
+    # that are then timed, at the contractive step head of 0.01 too: at
+    # 0.05 the bf16 roundings alone move the plain version's gradients past
+    # 2e-2 on some draws (python3 chip_smoke.py --march-draws=8).  Hidden
+    # 62, the widest the TPU kernel takes (two units a lane, W_ih^T from
+    # L2), at the same tolerances.
     for sb, ns, steps, eps, scale, wo, cd, tol, hid in (
             (1, 1, 2, 0.0, 1.0, 0.05, torch.float32, 1e-3, 62),
             (1, 1, 2, 0.0, 1.0, 0.05, torch.bfloat16, 2e-2, 62),
@@ -999,12 +1200,12 @@ def check_march_bwd(gen):
                              f"version {want}")
     cases.append({"case": "NaN cotangent of one ray", "against": "plain, non-finite set",
                   "nonfinite": got})
-    inp = march_inputs(gen, 1, sb=SB_TRAIN)
+    inp = march_inputs(gen, 1, sb=SB_TRAIN, w_out_scale=TIMED_HEAD)
     g = randn(gen, SB_TRAIN, CHUNK, 3)
     f = lambda fn: (lambda *t: fn(inp["proj"], *t, steps=STEPS, compute_dtype=torch.bfloat16))
     got, run_k = grads_of(f(fused_lstm_march), tuple(inp[k] for k in keys), g, keep=True)
     want, run_p = grads_of(f(lstm_march_plain), tuple(inp[k] for k in keys), g, keep=True)
-    label = f"SB={SB_TRAIN} NS=1 steps={STEPS} eps=0.0 x1.0 w_out 0.05 bf16 (timed)"
+    label = f"SB={SB_TRAIN} NS=1 steps={STEPS} eps=0.0 x1.0 w_out {TIMED_HEAD} bf16 (timed)"
     for nm, a, b in zip(MARCH_GRADS, got, want):
         cases.append(check_l2(f"{nm} {label}", a, b, 2e-2))
     conditioning(inp, g, got, want, label, steps=STEPS, compute_dtype=torch.bfloat16)
@@ -1454,7 +1655,7 @@ def profile_frame(render, label="frame", out_dir="traces"):
     rows.sort(key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
     ours = ("gather_bilinear_kernel", "gather_bilinear_bwd_kernel", "resnetfc_kernel",
-            *K2_BWD_KERNELS, "resnetfc_dgrad_kernel", "resnetfc_wgrad_kernel",
+            FWD_KERNEL, *K2_BWD_KERNELS, "resnetfc_dgrad_kernel", "resnetfc_wgrad_kernel",
             "lstm_march_kernel", "lstm_march_bwd_kernel", "gather_projected_kernel",
             "gather_projected_bwd_kernel", "volume_integral_kernel", "volume_integral_bwd_kernel",
             "threefry_kernel")
@@ -1557,6 +1758,12 @@ TRAIN_LAUNCHES = {
 # two legacy draws (the march's initial distance, the band)
 TRAIN_LAUNCHES["adaptive_device_data"] = {**TRAIN_LAUNCHES["adaptive"], K7.NAME_BITS: 6,
                                           K7.NAME: 2}
+# every bf16 K2 forward of these paths (the serving forwards, the stash
+# forwards, the recompute's reruns) takes forward_route's wgmma kernel: its
+# counter must equal theirs
+for _table in (SERVE_LAUNCHES, TRAIN_LAUNCHES):
+    for _want in _table.values():
+        _want[K2.NAME_WGMMA] = _want.get(K2.NAME, 0) + _want.get(K2.NAME_STASH, 0)
 # parameters the loss gives an exactly zero gradient, so Adam leaves them
 # where they were: the coarse decoder's sigma row (the loss reads only its
 # rgb) for the marching renderers, and the Raymarcher's unused fine decoder
@@ -1925,11 +2132,21 @@ def main() -> int:
                 line.startswith("=="):
             print("  " + line.strip())
 
+    draws = next((int(a.split("=", 1)[1]) for a in sys.argv[1:]
+                  if a.startswith("--march-draws=")), 0)
+    if draws:
+        march_draws(draws)
+        return 0
     profile = "--profile" in sys.argv[1:]
     out_dir = next((a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--out=")),
                    "traces")
     gen = torch.Generator(device=DEV).manual_seed(0)
-    kernels = [check_gather(gen), check_resnetfc(gen), check_march(gen),
+    # the wgmma forward's added cases draw from a generator of their own
+    gen_new = torch.Generator(device=DEV).manual_seed(1)
+    k1 = check_gather(gen)
+    k2 = check_resnetfc(gen, gen_new)
+    k2["cases"] += check_resnetfc_stash(gen_new)
+    kernels = [k1, k2, check_march(gen),
                check_gather_bwd(gen), *check_resnetfc_bwd(gen), check_resnetfc_recompute(gen),
                *check_march_bwd(gen), check_integral(gen), check_integral_bwd(gen),
                check_gather_proj(gen), check_gather_proj_bwd(gen), check_rng()]
