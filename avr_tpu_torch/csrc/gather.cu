@@ -15,31 +15,82 @@
 // accesses.  The TPU kernel's one-hot MXU selectors and row windows are
 // not needed: a tap is a plain load.
 //
-// Backward.  Bound on H100: bytes (band call ~425 MB: g, the taps, the
-// zeroed and written float32 map, coords; ~0.13 ms).  One warp per point:
-// 16-byte loads of g and of the four taps, float32 dots <g, f_tap> reduced
-// by shuffles into the coordinate cotangent (strict border mask), and
-// dfeat += w_tap * g (both rounded to the map's dtype, as the TPU kernel's
-// operands are) by float4 atomics into a zeroed float32 map.  A ray's band
-// samples share pixels, so those atomics contend.
-//
 // K5 replaces gather.py:642 gather_bilinear_projected (forward, call :669)
 // and its VJP _pbwd (:699, call :712): world points (B, N, 3) and each
 // view's 16 packed projection scalars in, the grid computed in the kernel
-// (project_point, common.cuh) and K1's gather at it.  Bound: K1's bytes
-// plus 12 B a point of world points (and 12 B of their cotangent
-// backward).  A block serves one view (blockIdx.y) and holds its 16
-// scalars in shared memory.  Forward: the block's first threads project its
-// points once each into shared-memory taps, then K1's one thread per
-// (point, channel group).  Backward: K1's one warp per point, then the grid
-// cotangent is chained through the projection to the world point
-// (project_point_bwd); the projection scalars get no cotangent (cameras are
-// conditioning, as in the TPU kernel).  The TPU kernel's in-kernel row
-// windows only feed its one-hot selectors; there are none here.
+// (project_point, common.cuh) and K1's gather at it.  A block serves one
+// view (blockIdx.y) and holds its 16 scalars in shared memory.  The
+// projection scalars get no cotangent (cameras are conditioning, as in the
+// TPU kernel).
+//
+// Backward (K1 and K5, one design).  Bound on H100: bytes, the function's
+// own: g, the map and the coords or points in, dfeat in the map's dtype and
+// the coordinate cotangent out (~0.11 ms at 4 x 81,920 points, bf16).  The
+// semantics are the TPU kernel's: dfeat = sum over (point, tap) of
+// round(w) * round(g) (w and g rounded to the map's dtype), float32 sums
+// cast to the map's dtype once; the coordinate cotangent from the per-tap
+// dots <g, f_tap> with the strict live mask on the unclamped coordinate.
+// The TPU kernel adds a one-hot product per point block into a VMEM-resident
+// map; here a scatter of w * g into device memory would need float atomics,
+// which contend where a ray's samples share pixels and sum in an order that
+// changes from run to run.  Instead the map is cut into TILE x TILE pixel
+// tiles and each tile's sums are owned by one CTA:
+//
+//   1. front (one warp per point): the taps, the four dots, the coordinate
+//      cotangent (K5: chained through the projection to the world point).
+//   2. a stable counting sort of (point, tile) entries into bins, one bin a
+//      (view, tile); a point is listed in every tile its four taps touch
+//      (one, or two or four at a tile edge):
+//      count   (one thread a point, SEG points a CTA): each CTA's histogram
+//              over the view's tiles;
+//      scan    (one CTA a bin): each CTA's offset within the bin, and the
+//              bin's size;
+//      plan    (one CTA): bin starts, and each bin's chunks (below);
+//      scatter (as count): each entry's place, ranked by point within its
+//              CTA, so every bin lists its points in ascending order.
+//   3. accumulate (one CTA a (bin chunk, channel slice of SLICE channels)):
+//      the chunk's entries in bin order, each adding round(w) * g to those
+//      of its taps that lie in the tile; the tile's sums stay on the chip
+//      (registers or shared memory), owned by fixed threads, so no two
+//      threads add to one address and every pixel-channel sum runs in one
+//      fixed order.  bf16 maps (the main path): the sum is a one-hot
+//      product, as on the TPU, on the tensor cores: S (64 pixels x 16
+//      entries, the rounded weights) times G (16 entries x SLICE, g) by
+//      mma.sync, warp w owning pixels 16 w .. 16 w + 15 of the tile in
+//      float32 registers; bf16 operands make each product exact.  float32
+//      maps: a float32 tile in shared memory, one thread a channel (float32
+//      operands on the tensor cores would round to TF32).  A bin in one
+//      chunk writes its tile once, in the map's dtype; a longer bin's chunks
+//      write float32 partial tiles, which
+//   4. reduce adds in chunk order and writes once.  No float atomics: dfeat
+//      and the coordinate cotangent are bit for bit the same launch to
+//      launch.
+//
+// Choices.  TILE 8: a 64 x 64 latent has 64 tiles a view, and a point
+// straddles a tile edge with odds ~1/8 per axis (~1.27 entries a point at
+// uniform coordinates).  SLICE 128: 4 accumulate CTAs a bin of a 512-wide
+// latent, 64 x 128 float32 sums a CTA (32 KB: 64 registers a thread of the
+// mma kernel's 128, or the float32 kernel's shared tile).  The mma kernel
+// stages 128 entries at once (their g rows by cp.async, 8 products: the
+// latency of the loads is paid once per 128 entries).  SEG 256 points a
+// sort CTA: the in-CTA rank is a 32-step shuffle loop per warp plus a walk
+// over the CTA's 8 warps.  Chunks: a bin of more than CHUNK_MIN entries
+// wants ceil(n / CHUNK_MIN) chunks; the chunks of all split bins share a
+// budget of PARTIAL_CHUNKS partial tiles (16.8 MB of float32 scratch at
+// C = 512), cut pro rata when exceeded (then many bins are long and the
+// card is full anyway).  The accumulate grid is fixed by the shapes, (bins
+// + PARTIAL_CHUNKS) x slices, and CTAs past the plan's chunk count exit.
+// The bin sizes never leave the device.
 
 #include "common.cuh"
 
 constexpr int THREADS = 256;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int TILE = 8;                // map tile side, pixels
+constexpr int SLICE = 128;             // channels of one accumulate CTA
+constexpr int SEG = 256;               // points of one count / scatter CTA
+constexpr int CHUNK_MIN = 2048;        // a bin longer than this is split
+constexpr int PARTIAL_CHUNKS = 128;    // partial tiles of split bins, at most
 
 // One point's 16-byte channel group: blend the four taps of the map `base`
 // (already offset to the group) into `out`.
@@ -56,17 +107,14 @@ __device__ __forceinline__ void gather_group(const T* base, const Taps& tp, int 
   store16(out, r);
 }
 
-// One point's backward by a whole warp: dfeat += w_tap * g over the point's
-// C channels (float atomics into the float32 map `db`), and the grid
-// cotangent from the per-tap dots <g, f_tap>, returned to every lane.
+// One point's coordinate cotangent by a whole warp, from the per-tap dots
+// <g, f_tap> over its C channels; returned to every lane.
 template <typename T>
-__device__ __forceinline__ float2 gather_point_bwd(const T* fb, float* db, const T* gp,
-                                                   const Taps& tp, float gx, float gy, int H,
-                                                   int W, int C, int lane) {
+__device__ __forceinline__ float2 gather_point_dgrid(const T* fb, const T* gp, const Taps& tp,
+                                                     float gx, float gy, int H, int W, int C,
+                                                     int lane) {
   constexpr int V = Vec16<T>::N;
   const int idx[4] = {tp.i00, tp.i01, tp.i10, tp.i11};
-  const float w[4] = {round_to<T>(tp.w00), round_to<T>(tp.w01), round_to<T>(tp.w10),
-                      round_to<T>(tp.w11)};
   float dot[4] = {0.f, 0.f, 0.f, 0.f};
   for (int ch = lane * V; ch < C; ch += 32 * V) {
     float gv[V], f[V];
@@ -76,12 +124,567 @@ __device__ __forceinline__ float2 gather_point_bwd(const T* fb, float* db, const
       load16(fb + (size_t)idx[k] * C + ch, f);
 #pragma unroll
       for (int j = 0; j < V; ++j) dot[k] = fmaf(gv[j], f[j], dot[k]);
-      if (w[k] != 0.f) atomic_add_scaled(db + (size_t)idx[k] * C + ch, gv, w[k], V);
     }
   }
 #pragma unroll
   for (int k = 0; k < 4; ++k) dot[k] = warp_sum(dot[k]);
   return tap_coord_grad(dot[0], dot[1], dot[2], dot[3], tp, gx, gy, H, W);
+}
+
+// ---------------------------------------------------------------------------
+// The binned accumulation of dfeat, shared by K1's and K5's backward
+// ---------------------------------------------------------------------------
+
+// The taps of point `pt` (flat over views): K1 reads its grid coordinate,
+// K5 projects its world point through the view's scalars `p_s`.
+template <bool PROJ>
+__device__ __forceinline__ Taps point_taps(const float* src, const float* p_s, size_t pt, int H,
+                                           int W) {
+  if (PROJ) {
+    const float* x = src + pt * 3;
+    const Projected q = project_point(p_s, x[0], x[1], x[2]);
+    return bilinear_taps(q.gx, q.gy, H, W);
+  }
+  const float2 c = reinterpret_cast<const float2*>(src)[pt];
+  return bilinear_taps(c.x, c.y, H, W);
+}
+
+// A point's tiles as one code: the tile of its top-left tap (ty0 * TX +
+// tx0) << 2, bit 1 if its lower taps lie one tile row down, bit 0 if its
+// right taps lie one tile column right.  Its entries, in slot order: the
+// tile, the one right (bit 0), the one down (bit 1), the one down-right
+// (both).
+__device__ __forceinline__ int tile_code(const Taps& tp, int W, int TX) {
+  const int y0 = tp.i00 / W, x0 = tp.i00 - y0 * W;
+  const int x1 = tp.i01 - y0 * W, y1 = tp.i10 / W;
+  const int tx0 = x0 / TILE, ty0 = y0 / TILE;
+  const int sx = x1 / TILE != tx0, sy = y1 / TILE != ty0;
+  return ((ty0 * TX + tx0) << 2) | (sy << 1) | sx;
+}
+
+// Tile of entry slot k of `code` (-1 if the point has no such entry).
+__device__ __forceinline__ int code_tile(int code, int k, int TX) {
+  const int t = code >> 2, sx = code & 1, sy = (code >> 1) & 1;
+  switch (k) {
+    case 0: return t;
+    case 1: return sx ? t + 1 : -1;
+    case 2: return sy ? t + TX : -1;
+    default: return sx && sy ? t + TX + 1 : -1;
+  }
+}
+
+// Whether a point of `code` (-1: none) has an entry in tile x.
+__device__ __forceinline__ bool code_has(int code, int x, int TX) {
+  if (code < 0) return false;
+  const int d = x - (code >> 2), sx = code & 1, sy = (code >> 1) & 1;
+  return d == 0 || (sx && d == 1) || (sy && d == TX) || (sx && sy && d == TX + 1);
+}
+
+// Exclusive prefix sum of v over the block (blockDim.x a multiple of 32);
+// *total gets the block's sum.  `sh` holds 32 ints.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* sh, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) sh[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int s = lane < nw ? sh[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL, s, o);
+      if (lane >= o) s += y;
+    }
+    sh[lane] = s;
+  }
+  __syncthreads();
+  const int before = warp ? sh[warp - 1] : 0;
+  *total = sh[nw - 1];
+  __syncthreads();  // sh is reused by the next call
+  return before + x - v;
+}
+
+// Sort layout (ints): hist [NB][nseg] (counts, then offsets within the
+// bin), totals [NB], the plan (start [NB], chunks [NB], wstart [NB + 1],
+// pslot [NB]), entries [4 B N].  NB = B * tiles a view, bin = view * tiles
+// + tile.
+struct BinPlan {
+  const int* start;   // first entry of each bin
+  const int* chunks;  // chunks of each bin (1: written directly)
+  const int* wstart;  // first work item of each bin; wstart[NB] = items
+  const int* pslot;   // first partial tile of a split bin
+  __device__ BinPlan(const int* plan, int NB)
+      : start(plan), chunks(plan + NB), wstart(plan + 2 * NB), pslot(plan + 3 * NB + 1) {}
+};
+
+// count: block (seg, view) histograms its SEG points' entries over the
+// view's tiles.  Integer shared-memory atomics: a count has no order.
+template <bool PROJ>
+__global__ void __launch_bounds__(SEG)
+gather_bin_count_kernel(const float* __restrict__ src, const float* __restrict__ proj,
+                        int* __restrict__ hist, int H, int W, int N, int TX, int T, int nseg) {
+  extern __shared__ int cnt[];  // [T]
+  __shared__ float p_s[16];
+  const int b = blockIdx.y, seg = blockIdx.x, tid = threadIdx.x;
+  if (PROJ && tid < 16) p_s[tid] = proj[(size_t)b * 16 + tid];
+  for (int t = tid; t < T; t += SEG) cnt[t] = 0;
+  __syncthreads();
+  const int n = seg * SEG + tid;
+  if (n < N) {
+    const int code = tile_code(point_taps<PROJ>(src, p_s, (size_t)b * N + n, H, W), W, TX);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int x = code_tile(code, k, TX);
+      if (x >= 0) atomicAdd(&cnt[x], 1);
+    }
+  }
+  __syncthreads();
+  for (int t = tid; t < T; t += SEG) hist[((size_t)b * T + t) * nseg + seg] = cnt[t];
+}
+
+// scan: block `bin` turns its nseg counts into offsets within the bin, and
+// writes the bin's size.
+__global__ void __launch_bounds__(THREADS)
+gather_bin_scan_kernel(int* __restrict__ hist, int* __restrict__ totals, int nseg) {
+  __shared__ int sh[32];
+  const int bin = blockIdx.x;
+  int* h = hist + (size_t)bin * nseg;
+  int carry = 0;
+  for (int base = 0; base < nseg; base += THREADS) {
+    const int i = base + threadIdx.x;
+    const int v = i < nseg ? h[i] : 0;
+    int tot;
+    const int ex = block_exclusive_scan(v, sh, &tot);
+    if (i < nseg) h[i] = carry + ex;
+    carry += tot;
+  }
+  if (threadIdx.x == 0) totals[bin] = carry;
+}
+
+__device__ __forceinline__ int wanted_chunks(int n) {
+  return n > CHUNK_MIN ? (n + CHUNK_MIN - 1) / CHUNK_MIN : 1;
+}
+
+// plan (one block): each bin's first entry; its chunks (wanted_chunks, and
+// when the split bins want more than PARTIAL_CHUNKS in all, each split
+// bin's share of them, floor(wanted * PARTIAL_CHUNKS / all wanted), at least
+// 1); its first work item, and a split bin's first partial tile.
+__global__ void __launch_bounds__(1024)
+gather_bin_plan_kernel(const int* __restrict__ totals, int* __restrict__ plan, int NB) {
+  __shared__ int sh[32];
+  int* start = plan;
+  int* chunks = plan + NB;
+  int* wstart = plan + 2 * NB;
+  int* pslot = plan + 3 * NB + 1;
+  int carry = 0, wanted = 0;
+  for (int base = 0; base < NB; base += blockDim.x) {
+    const int i = base + threadIdx.x;
+    const int n = i < NB ? totals[i] : 0;
+    int tot;
+    const int ex = block_exclusive_scan(n, sh, &tot);
+    if (i < NB) start[i] = carry + ex;
+    carry += tot;
+    const int d = i < NB ? wanted_chunks(n) : 1;
+    block_exclusive_scan(d > 1 ? d : 0, sh, &tot);
+    wanted += tot;
+  }
+  int witems = 0, pslots = 0;
+  for (int base = 0; base < NB; base += blockDim.x) {
+    const int i = base + threadIdx.x;
+    const int d = i < NB ? wanted_chunks(totals[i]) : 1;
+    const int k = d == 1 || wanted <= PARTIAL_CHUNKS
+                      ? d : max(1, (int)((long long)d * PARTIAL_CHUNKS / wanted));
+    int tot;
+    const int wex = block_exclusive_scan(i < NB ? k : 0, sh, &tot);
+    if (i < NB) {
+      chunks[i] = k;
+      wstart[i] = witems + wex;
+    }
+    witems += tot;
+    const int pex = block_exclusive_scan(i < NB && k > 1 ? k : 0, sh, &tot);
+    if (i < NB) pslot[i] = pslots + pex;
+    pslots += tot;
+  }
+  if (threadIdx.x == 0) wstart[NB] = witems;
+}
+
+// scatter: block (seg, view) places its SEG points' entries.  A point's
+// rank in a bin counts the earlier points of its block with an entry there:
+// those of its warp by a shuffle loop over the warp's codes, those of the
+// earlier warps from each warp's per-tile counts in shared memory.
+template <bool PROJ>
+__global__ void __launch_bounds__(SEG)
+gather_bin_scatter_kernel(const float* __restrict__ src, const float* __restrict__ proj,
+                          const int* __restrict__ hist, const int* __restrict__ plan,
+                          int* __restrict__ entries, int H, int W, int N, int TX, int T, int nseg,
+                          int NB) {
+  extern __shared__ int wcount[];  // [SEG / 32][T]
+  __shared__ float p_s[16];
+  const int b = blockIdx.y, seg = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  if (PROJ && tid < 16) p_s[tid] = proj[(size_t)b * 16 + tid];
+  for (int i = tid; i < (SEG / 32) * T; i += SEG) wcount[i] = 0;
+  __syncthreads();
+  const int n = seg * SEG + tid;
+  const int code =
+      n < N ? tile_code(point_taps<PROJ>(src, p_s, (size_t)b * N + n, H, W), W, TX) : -1;
+  int tile[4], lower[4] = {0, 0, 0, 0}, upper[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) tile[k] = code < 0 ? -1 : code_tile(code, k, TX);
+  for (int s = 0; s < 32; ++s) {
+    const int cs = __shfl_sync(FULL, code, s);
+    if (s == lane) continue;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (tile[k] >= 0 && code_has(cs, tile[k], TX)) {
+        if (s < lane) ++lower[k];
+        else ++upper[k];
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (tile[k] >= 0 && upper[k] == 0) wcount[warp * T + tile[k]] = lower[k] + 1;
+  __syncthreads();
+  const BinPlan pl(plan, NB);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (tile[k] < 0) continue;
+    int r = lower[k];
+    for (int w = 0; w < warp; ++w) r += wcount[w * T + tile[k]];
+    const int bin = b * T + tile[k];
+    entries[pl.start[bin] + hist[(size_t)bin * nseg + seg] + r] = n;
+  }
+}
+
+// One 32-bit word of T at p: 2 bf16 or 1 float32 channels.
+template <typename T> struct Word;
+template <> struct Word<bf16> {
+  static constexpr int N = 2;
+  __device__ static void store(bf16* p, const float* v) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
+  }
+};
+template <> struct Word<float> {
+  static constexpr int N = 1;
+  __device__ static void store(float* p, const float* v) { *p = v[0]; }
+};
+
+template <typename T> __host__ __device__ constexpr int reduce_threads() {
+  return SLICE / Word<T>::N;
+}
+
+// The (item, slice) of an accumulate block: the item is a chunk of a bin
+// (the last bin whose first item is at or below it).
+struct AccItem {
+  int bin, b, y_org, x_org, chunks, chunk, e0, e1;
+  __device__ AccItem(const BinPlan& pl, const int* totals, int item, int NB, int TX, int T_) {
+    int lo = 0, hi = NB - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (pl.wstart[mid] <= item) lo = mid;
+      else hi = mid - 1;
+    }
+    bin = lo;
+    b = bin / T_;
+    const int t = bin - b * T_;
+    y_org = t / TX * TILE;
+    x_org = t % TX * TILE;
+    const int n = totals[bin];
+    chunks = pl.chunks[bin];
+    chunk = item - pl.wstart[bin];
+    const int len = (n + chunks - 1) / chunks;
+    e0 = pl.start[bin] + chunk * len;
+    e1 = min(pl.start[bin] + n, e0 + len);
+  }
+};
+
+// Tile pixel (0 .. TILE^2 - 1 in the tile at y_org, x_org) of flat pixel
+// i, or -1 if it lies outside or its rounded weight w is 0.
+__device__ __forceinline__ int tile_pixel(int i, float w, int W, int y_org, int x_org) {
+  const int y = i / W, dy = y - y_org, dx = i - y * W - x_org;
+  return w != 0.f && dy >= 0 && dy < TILE && dx >= 0 && dx < TILE ? dy * TILE + dx : -1;
+}
+
+// --- bf16 maps: the accumulation as a one-hot product on the tensor cores
+
+static __device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool valid) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+static __device__ __forceinline__ void cp_async_commit_group() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> static __device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+static __device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p, bool trans) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  if (trans)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+// d (m16 n8, float32) += a (m16 k16, bf16, row) * b (k16 n8, bf16, col)
+static __device__ __forceinline__ void mma_m16n8k16(float* d, const uint32_t* a, uint32_t b0,
+                                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int N> static __device__ __forceinline__ void cp_async_wait_upto(int n) {
+  if constexpr (N > 0) {
+    if (n >= N) return cp_async_wait_group<N>();
+    return cp_async_wait_upto<N - 1>(n);
+  } else {
+    cp_async_wait_group<0>();
+  }
+}
+
+constexpr int MMA_THREADS = 128;  // 4 warps: 16 tile pixels x SLICE channels each
+constexpr int KSTEP = 16;         // entries a product
+constexpr int MMA_BATCH = 128;    // entries staged at once: 8 products
+// row pitches (bf16) that keep ldmatrix free of bank conflicts: 272 bytes
+constexpr int S_LD = MMA_BATCH + 8;
+constexpr int G_LD = SLICE + 8;
+constexpr int MMA_SMEM = (TILE * TILE * S_LD + MMA_BATCH * G_LD) * 2 + MMA_BATCH * 4;
+
+// mma accumulate (bf16): block (item, slice).  Per batch of MMA_BATCH
+// entries: cp.async brings their g rows (the slice's channels) into shared
+// memory, one commit group per KSTEP entries, while each thread builds one
+// entry's column of the one-hot weight matrix S (64 pixels x MMA_BATCH
+// entries, the rounded weights at its taps in the tile, zero elsewhere);
+// then warp w adds S[16 w .. 16 w + 15] x G into its float32 accumulators
+// (16 pixels x SLICE channels) by mma.sync, KSTEP entries a product, in bin
+// order.  w and g are bf16 values, so each product is exact and the sums
+// are float32, in an order the instruction fixes.  A non-finite g reaches
+// every pixel of the tile (0 * inf), as in the TPU kernel's one-hot product.
+template <bool PROJ>
+__global__ void __launch_bounds__(MMA_THREADS)
+gather_bin_mma_kernel(const float* __restrict__ src, const float* __restrict__ proj,
+                      const bf16* __restrict__ g, const int* __restrict__ entries,
+                      const int* __restrict__ totals, const int* __restrict__ plan,
+                      bf16* __restrict__ dfeat, float* __restrict__ partials, int H, int W, int C,
+                      int N, int TX, int T_, int NB) {
+  constexpr int STEPS = MMA_BATCH / KSTEP, PIECES = SLICE / 8;  // 16-byte pieces a g row
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  bf16(*S)[S_LD] = reinterpret_cast<bf16(*)[S_LD]>(mma_smem);
+  bf16(*G)[G_LD] = reinterpret_cast<bf16(*)[G_LD]>(mma_smem + TILE * TILE * S_LD * 2);
+  int* st_pt = reinterpret_cast<int*>(mma_smem + (TILE * TILE * S_LD + MMA_BATCH * G_LD) * 2);
+  __shared__ float p_s[16];
+  const BinPlan pl(plan, NB);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if ((int)blockIdx.x >= pl.wstart[NB]) return;
+  const AccItem it(pl, totals, blockIdx.x, NB, TX, T_);
+  const int c0 = blockIdx.y * SLICE;
+  if (PROJ && tid < 16) p_s[tid] = proj[(size_t)it.b * 16 + tid];
+  const bf16* gb = g + (size_t)it.b * N * C;
+  float d[SLICE / 8][4];
+#pragma unroll
+  for (int j = 0; j < SLICE / 8; ++j) d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.f;
+  for (int base = it.e0; base < it.e1; base += MMA_BATCH) {
+    __syncthreads();  // p_s is loaded; the last batch's S and G are consumed
+    const int cnt = min(MMA_BATCH, it.e1 - base);
+    for (int i = tid; i < TILE * TILE * MMA_BATCH / 8; i += MMA_THREADS)
+      *reinterpret_cast<uint4*>(&S[i / (MMA_BATCH / 8)][i % (MMA_BATCH / 8) * 8]) =
+          make_uint4(0u, 0u, 0u, 0u);
+    const int n = tid < cnt ? entries[base + tid] : 0;
+    st_pt[tid] = n;
+    __syncthreads();
+    for (int s = 0; s < STEPS; ++s) {
+      for (int i = tid; i < KSTEP * PIECES; i += MMA_THREADS) {
+        const int r = s * KSTEP + i / PIECES, ch = c0 + i % PIECES * 8;
+        const bool ok = r < cnt && ch < C;
+        cp_async16_zfill(&G[r][i % PIECES * 8], ok ? gb + (size_t)st_pt[r] * C + ch : g, ok);
+      }
+      cp_async_commit_group();
+    }
+    if (tid < cnt) {
+      const Taps tp = point_taps<PROJ>(src, p_s, (size_t)it.b * N + n, H, W);
+      const int idx[4] = {tp.i00, tp.i01, tp.i10, tp.i11};
+      const float w[4] = {tp.w00, tp.w01, tp.w10, tp.w11};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bf16 wr = __float2bfloat16_rn(w[j]);
+        const int px = tile_pixel(idx[j], __bfloat162float(wr), W, it.y_org, it.x_org);
+        if (px >= 0) S[px][tid] = wr;
+      }
+    }
+    const int steps = (cnt + KSTEP - 1) / KSTEP;
+    for (int s = 0; s < steps; ++s) {
+      cp_async_wait_upto<STEPS - 1>(STEPS - 1 - s);
+      __syncthreads();  // this product's G rows and every column of S are in
+      uint32_t a[4];
+      ldsm_x4(a, &S[16 * warp + (lane & 7) + (lane >> 3 & 1) * 8][s * KSTEP + (lane >> 4) * 8],
+              false);
+#pragma unroll
+      for (int j = 0; j < SLICE / 16; ++j) {
+        uint32_t bb[4];
+        ldsm_x4(bb, &G[s * KSTEP + (lane & 7) + (lane >> 3 & 1) * 8][j * 16 + (lane >> 4) * 8],
+                true);
+        mma_m16n8k16(d[2 * j], a, bb[0], bb[1]);
+        mma_m16n8k16(d[2 * j + 1], a, bb[2], bb[3]);
+      }
+    }
+    cp_async_wait_group<0>();  // the zero-filled groups past the batch's products
+  }
+#pragma unroll
+  for (int j = 0; j < SLICE / 8; ++j) {
+    const int ch = c0 + j * 8 + (lane & 3) * 2;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int lp = 16 * warp + (lane >> 2) + 8 * h;
+      const int y = it.y_org + lp / TILE, x = it.x_org + lp % TILE;
+      if (y >= H || x >= W || ch >= C) continue;
+      if (it.chunks == 1)
+        Word<bf16>::store(dfeat + (((size_t)it.b * H + y) * W + x) * C + ch, &d[j][2 * h]);
+      else
+        *reinterpret_cast<float2*>(
+            partials + ((size_t)(pl.pslot[it.bin] + it.chunk) * TILE * TILE + lp) * C + ch) =
+            make_float2(d[j][2 * h], d[j][2 * h + 1]);
+    }
+  }
+}
+
+// --- float32 maps: the accumulation in shared memory (float32 operands on
+// the tensor cores would be rounded to TF32)
+
+// accumulate (float32): block (item, slice), one thread a channel.  Per
+// batch of SLICE entries the threads first compute the taps (tile pixels
+// and weights) into shared memory, then every thread walks the batch in
+// order over its channel of the shared tile.  The branches depend on the
+// entry only, so a warp never diverges.
+template <bool PROJ>
+__global__ void __launch_bounds__(SLICE)
+gather_bin_accum_kernel(const float* __restrict__ src, const float* __restrict__ proj,
+                        const float* __restrict__ g, const int* __restrict__ entries,
+                        const int* __restrict__ totals, const int* __restrict__ plan,
+                        float* __restrict__ dfeat, float* __restrict__ partials, int H, int W,
+                        int C, int N, int TX, int T_, int NB) {
+  __shared__ float acc[TILE * TILE * SLICE];
+  __shared__ int st_pt[SLICE];
+  __shared__ int4 st_px[SLICE];
+  __shared__ float4 st_w[SLICE];
+  __shared__ float p_s[16];
+  const BinPlan pl(plan, NB);
+  const int tid = threadIdx.x;
+  if ((int)blockIdx.x >= pl.wstart[NB]) return;
+  const AccItem it(pl, totals, blockIdx.x, NB, TX, T_);
+  const int ch = blockIdx.y * SLICE + tid;
+  const bool live_ch = ch < C;
+  if (PROJ && tid < 16) p_s[tid] = proj[(size_t)it.b * 16 + tid];
+  const float* gb = g + (size_t)it.b * N * C + ch;
+  float* own = acc + tid;  // a thread reads and writes its own channel only
+  for (int lp = 0; lp < TILE * TILE; ++lp) own[lp * SLICE] = 0.f;
+  for (int base = it.e0; base < it.e1; base += SLICE) {
+    __syncthreads();  // p_s is loaded; the last batch is done
+    if (base + tid < it.e1) {
+      const int n = entries[base + tid];
+      const Taps tp = point_taps<PROJ>(src, p_s, (size_t)it.b * N + n, H, W);
+      st_pt[tid] = n;
+      st_px[tid] = make_int4(tile_pixel(tp.i00, tp.w00, W, it.y_org, it.x_org),
+                             tile_pixel(tp.i01, tp.w01, W, it.y_org, it.x_org),
+                             tile_pixel(tp.i10, tp.w10, W, it.y_org, it.x_org),
+                             tile_pixel(tp.i11, tp.w11, W, it.y_org, it.x_org));
+      st_w[tid] = make_float4(tp.w00, tp.w01, tp.w10, tp.w11);
+    }
+    __syncthreads();
+    const int cnt = min(SLICE, it.e1 - base);
+    for (int q = 0; q < cnt && live_ch; ++q) {
+      const float gv = __ldg(gb + (size_t)st_pt[q] * C);
+      const int4 px = st_px[q];
+      const float4 w = st_w[q];
+      if (px.x >= 0) own[px.x * SLICE] = __fmaf_rn(w.x, gv, own[px.x * SLICE]);
+      if (px.y >= 0) own[px.y * SLICE] = __fmaf_rn(w.y, gv, own[px.y * SLICE]);
+      if (px.z >= 0) own[px.z * SLICE] = __fmaf_rn(w.z, gv, own[px.z * SLICE]);
+      if (px.w >= 0) own[px.w * SLICE] = __fmaf_rn(w.w, gv, own[px.w * SLICE]);
+    }
+  }
+  if (!live_ch) return;
+  for (int lp = 0; lp < TILE * TILE; ++lp) {
+    const int y = it.y_org + lp / TILE, x = it.x_org + lp % TILE;
+    if (y >= H || x >= W) continue;
+    float* out = it.chunks == 1 ? dfeat + (((size_t)it.b * H + y) * W + x) * C + ch
+                                : partials + ((size_t)(pl.pslot[it.bin] + it.chunk) * TILE *
+                                              TILE + lp) * C + ch;
+    *out = own[lp * SLICE];
+  }
+}
+
+// reduce: block (bin, slice) of a split bin adds its partial tiles in chunk
+// order and writes the tile once, in the map's dtype; a thread per (pixel
+// group, channel word), REDUCE_ROWS pixels apart.
+constexpr int REDUCE_ROWS = 4;
+template <typename T>
+__global__ void __launch_bounds__(reduce_threads<T>() * REDUCE_ROWS)
+gather_bin_reduce_kernel(const int* __restrict__ plan, const float* __restrict__ partials,
+                         T* __restrict__ dfeat, int H, int W, int C, int TX, int T_, int NB) {
+  constexpr int VC = Word<T>::N;
+  const BinPlan pl(plan, NB);
+  const int bin = blockIdx.x, k = pl.chunks[bin];
+  const int ch = blockIdx.y * SLICE + threadIdx.x * VC;
+  if (k == 1 || ch >= C) return;
+  const int b = bin / T_, t = bin - b * T_;
+  const int y_org = t / TX * TILE, x_org = t % TX * TILE;
+  const float* p0 = partials + (size_t)pl.pslot[bin] * TILE * TILE * C + ch;
+#pragma unroll 4
+  for (int lp = threadIdx.y; lp < TILE * TILE; lp += REDUCE_ROWS) {
+    const int y = y_org + lp / TILE, x = x_org + lp % TILE;
+    if (y >= H || x >= W) continue;
+    float s[VC];
+    for (int v = 0; v < VC; ++v) s[v] = p0[(size_t)lp * C + v];
+    for (int j = 1; j < k; ++j)
+      for (int v = 0; v < VC; ++v) s[v] += p0[((size_t)j * TILE * TILE + lp) * C + v];
+    Word<T>::store(dfeat + (((size_t)b * H + y) * W + x) * C + ch, s);
+  }
+}
+
+// Steps 2-4 of the backward: dfeat (B, H, W, C) in T from the cotangent g
+// (B, N, C) at K1's coords (B, N, 2) or K5's points (B, N, 3) with proj
+// (B, 16).  `ints` and `partials` are the wrapper's scratch
+// (ops/kernels/gather.py bin_workspace).
+template <typename T, bool PROJ>
+static void launch_bins(const void* src, const void* proj, const void* g, void* dfeat,
+                        void* ints, void* partials, int B, int H, int W, int C, int N,
+                        cudaStream_t s) {
+  const int TX = (W + TILE - 1) / TILE, T_ = TX * ((H + TILE - 1) / TILE), NB = B * T_;
+  const int nseg = (N + SEG - 1) / SEG, slices = (C + SLICE - 1) / SLICE;
+  int* hist = (int*)ints;
+  int* totals = hist + (size_t)NB * nseg;
+  int* plan = totals + NB;
+  int* entries = plan + 4 * NB + 1;
+  const dim3 sort_grid((unsigned)nseg, (unsigned)B);
+  gather_bin_count_kernel<PROJ><<<sort_grid, SEG, T_ * sizeof(int), s>>>(
+      (const float*)src, (const float*)proj, hist, H, W, N, TX, T_, nseg);
+  gather_bin_scan_kernel<<<NB, THREADS, 0, s>>>(hist, totals, nseg);
+  gather_bin_plan_kernel<<<1, 1024, 0, s>>>(totals, plan, NB);
+  gather_bin_scatter_kernel<PROJ><<<sort_grid, SEG, (SEG / 32) * T_ * sizeof(int), s>>>(
+      (const float*)src, (const float*)proj, hist, plan, entries, H, W, N, TX, T_, nseg, NB);
+  const dim3 acc_grid((unsigned)(NB + PARTIAL_CHUNKS), (unsigned)slices);
+  if constexpr (sizeof(T) == 2) {
+    cudaFuncSetAttribute(gather_bin_mma_kernel<PROJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         MMA_SMEM);  // above 48 KB
+    gather_bin_mma_kernel<PROJ><<<acc_grid, MMA_THREADS, MMA_SMEM, s>>>(
+        (const float*)src, (const float*)proj, (const bf16*)g, entries, totals, plan,
+        (bf16*)dfeat, (float*)partials, H, W, C, N, TX, T_, NB);
+  } else {
+    gather_bin_accum_kernel<PROJ><<<acc_grid, SLICE, 0, s>>>(
+        (const float*)src, (const float*)proj, (const float*)g, entries, totals, plan,
+        (float*)dfeat, (float*)partials, H, W, C, N, TX, T_, NB);
+  }
+  gather_bin_reduce_kernel<T><<<dim3((unsigned)NB, (unsigned)slices),
+                                dim3(reduce_threads<T>(), REDUCE_ROWS), 0, s>>>(
+      plan, (const float*)partials, (T*)dfeat, H, W, C, TX, T_, NB);
 }
 
 // ---------------------------------------------------------------------------
@@ -114,40 +717,43 @@ static int launch(const void* feat, const void* coords, void* out, int B, int H,
   return (int)cudaGetLastError();
 }
 
+// Backward front: one warp per point writes its coordinate cotangent.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 gather_bilinear_bwd_kernel(const T* __restrict__ feat, const float* __restrict__ coords,
-                           const T* __restrict__ g, float* __restrict__ dfeat,
-                           float* __restrict__ dcoords, int H, int W, int C, int N,
-                           long long points) {
+                           const T* __restrict__ g, float* __restrict__ dcoords, int H, int W,
+                           int C, int N, long long points) {
   const int lane = threadIdx.x & 31;
   const long long pt = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   if (pt >= points) return;  // whole warps leave together
   const int b = (int)(pt / N);
   const float2 gc = reinterpret_cast<const float2*>(coords)[pt];
-  const size_t map = (size_t)b * H * W * C;
-  const float2 d = gather_point_bwd(feat + map, dfeat + map, g + (size_t)pt * C,
-                                    bilinear_taps(gc.x, gc.y, H, W), gc.x, gc.y, H, W, C, lane);
+  const float2 d = gather_point_dgrid(feat + (size_t)b * H * W * C, g + (size_t)pt * C,
+                                      bilinear_taps(gc.x, gc.y, H, W), gc.x, gc.y, H, W, C, lane);
   if (lane == 0) reinterpret_cast<float2*>(dcoords)[pt] = d;
 }
 
 template <typename T>
 static int launch_bwd(const void* feat, const void* coords, const void* g, void* dfeat,
-                      void* dcoords, int B, int H, int W, int C, int N, cudaStream_t stream) {
+                      void* dcoords, void* ints, void* partials, int B, int H, int W, int C,
+                      int N, cudaStream_t stream) {
   const long long points = (long long)B * N;
   const long long blocks = (points * 32 + THREADS - 1) / THREADS;
   gather_bilinear_bwd_kernel<T><<<(unsigned)blocks, THREADS, 0, stream>>>(
-      (const T*)feat, (const float*)coords, (const T*)g, (float*)dfeat, (float*)dcoords, H, W,
-      C, N, points);
+      (const T*)feat, (const float*)coords, (const T*)g, (float*)dcoords, H, W, C, N, points);
+  launch_bins<T, false>(coords, nullptr, g, dfeat, ints, partials, B, H, W, C, N, stream);
   return (int)cudaGetLastError();
 }
 
 extern "C" int avr_gather_bilinear_bwd(const void* feat, const void* coords, const void* g,
-                                       void* dfeat, void* dcoords, int B, int H, int W, int C,
-                                       int N, int dtype, void* stream) {
+                                       void* dfeat, void* dcoords, void* ints, void* partials,
+                                       int B, int H, int W, int C, int N, int dtype,
+                                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  return dtype == 1 ? launch_bwd<bf16>(feat, coords, g, dfeat, dcoords, B, H, W, C, N, s)
-                    : launch_bwd<float>(feat, coords, g, dfeat, dcoords, B, H, W, C, N, s);
+  return dtype == 1
+             ? launch_bwd<bf16>(feat, coords, g, dfeat, dcoords, ints, partials, B, H, W, C, N, s)
+             : launch_bwd<float>(feat, coords, g, dfeat, dcoords, ints, partials, B, H, W, C, N,
+                                 s);
 }
 
 extern "C" int avr_gather_bilinear(const void* feat, const void* coords, void* out, int B,
@@ -202,14 +808,14 @@ static int launch_projected(const void* feat, const void* points, const void* pr
   return (int)cudaGetLastError();
 }
 
-// Backward: block (x, b) serves points [x * 8, x * 8 + 8) of view b, one
-// warp each.
+// Backward front: block (x, b) serves points [x * 8, x * 8 + 8) of view b,
+// one warp each; the grid cotangent is chained through the projection to
+// the world point (project_point_bwd).
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 gather_projected_bwd_kernel(const T* __restrict__ feat, const float* __restrict__ points,
                             const float* __restrict__ proj, const T* __restrict__ g,
-                            float* __restrict__ dfeat, float* __restrict__ dpoints, int H, int W,
-                            int C, int N) {
+                            float* __restrict__ dpoints, int H, int W, int C, int N) {
   __shared__ float p_s[16];
   const int b = blockIdx.y;
   if (threadIdx.x < 16) p_s[threadIdx.x] = proj[(size_t)b * 16 + threadIdx.x];
@@ -220,10 +826,9 @@ gather_projected_bwd_kernel(const T* __restrict__ feat, const float* __restrict_
   const size_t pt = (size_t)b * N + n;
   const float* x = points + pt * 3;
   const Projected q = project_point(p_s, x[0], x[1], x[2]);
-  const size_t map = (size_t)b * H * W * C;
-  const float2 dgrid = gather_point_bwd(feat + map, dfeat + map, g + pt * C,
-                                        bilinear_taps(q.gx, q.gy, H, W), q.gx, q.gy, H, W, C,
-                                        lane);
+  const float2 dgrid = gather_point_dgrid(feat + (size_t)b * H * W * C, g + pt * C,
+                                          bilinear_taps(q.gx, q.gy, H, W), q.gx, q.gy, H, W, C,
+                                          lane);
   if (lane == 0) {
     const float3 d = project_point_bwd(p_s, q, dgrid);
     dpoints[pt * 3] = d.x;
@@ -234,13 +839,15 @@ gather_projected_bwd_kernel(const T* __restrict__ feat, const float* __restrict_
 
 template <typename T>
 static int launch_projected_bwd(const void* feat, const void* points, const void* proj,
-                                const void* g, void* dfeat, void* dpoints, int B, int H, int W,
-                                int C, int N, cudaStream_t stream) {
+                                const void* g, void* dfeat, void* dpoints, void* ints,
+                                void* partials, int B, int H, int W, int C, int N,
+                                cudaStream_t stream) {
   constexpr int warps = THREADS / 32;
   const dim3 grid((unsigned)((N + warps - 1) / warps), (unsigned)B);
   gather_projected_bwd_kernel<T><<<grid, THREADS, 0, stream>>>(
-      (const T*)feat, (const float*)points, (const float*)proj, (const T*)g, (float*)dfeat,
-      (float*)dpoints, H, W, C, N);
+      (const T*)feat, (const float*)points, (const float*)proj, (const T*)g, (float*)dpoints, H,
+      W, C, N);
+  launch_bins<T, true>(points, proj, g, dfeat, ints, partials, B, H, W, C, N, stream);
   return (int)cudaGetLastError();
 }
 
@@ -253,11 +860,12 @@ extern "C" int avr_gather_projected(const void* feat, const void* points, const 
 }
 
 extern "C" int avr_gather_projected_bwd(const void* feat, const void* points, const void* proj,
-                                        const void* g, void* dfeat, void* dpoints, int B, int H,
-                                        int W, int C, int N, int dtype, void* stream) {
+                                        const void* g, void* dfeat, void* dpoints, void* ints,
+                                        void* partials, int B, int H, int W, int C, int N,
+                                        int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  return dtype == 1
-             ? launch_projected_bwd<bf16>(feat, points, proj, g, dfeat, dpoints, B, H, W, C, N, s)
-             : launch_projected_bwd<float>(feat, points, proj, g, dfeat, dpoints, B, H, W, C, N,
-                                           s);
+  return dtype == 1 ? launch_projected_bwd<bf16>(feat, points, proj, g, dfeat, dpoints, ints,
+                                                 partials, B, H, W, C, N, s)
+                    : launch_projected_bwd<float>(feat, points, proj, g, dfeat, dpoints, ints,
+                                                  partials, B, H, W, C, N, s);
 }

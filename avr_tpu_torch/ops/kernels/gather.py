@@ -26,13 +26,19 @@ C = 512, bf16): 84 MB of output against a 4.2 MB latent, ~26 us at
 3.35 TB/s; the TPU kernel's one-hot MXU selectors and row windows work
 around the TPU's lack of a fast random gather, while on Hopper a tap is a
 plain load and the latent stays in the 50 MB L2.  Forward: direct 4-tap
-loads, one thread per (point, 16-byte channel group).  Backward (~425 MB
-at the band call, ~0.13 ms): one warp per point reads ``g`` and the four
-taps with 16-byte loads, reduces the four dots by shuffles and adds
-``w * g`` into a zeroed float32 map with vector atomics; the ray's band
-samples hit the same few pixels, so the atomics contend (a warp-level
-pre-sum of equal taps is the later lever).  The TPU path's ray sort
-(``models/wrapper.py:160-204``) only feeds its windows; the port has none.
+loads, one thread per (point, 16-byte channel group).  Backward (the
+function's own bytes, ~0.11 ms at 4 x 81,920 points in bf16): one warp per
+point computes the coordinate cotangent from the four dots; ``dfeat`` is
+binned and owner-computed (``csrc/gather.cu``'s source note): a stable
+counting sort lists each point in the 8 x 8 map tiles its taps touch, and
+one CTA per (tile, 128 channels, chunk of its bin) sums ``w * g`` on the
+chip in bin order (bf16: a one-hot product on the tensor cores; float32:
+a shared-memory tile), so no float atomic touches the map and ``dfeat``
+is bit for bit the same launch to launch.  The wrapper allocates
+``dfeat`` in the map's dtype and the sort's scratch (:func:`bin_workspace`)
+with ``torch.empty``; nothing is copied to the host.  The TPU path's ray
+sort (``models/wrapper.py:160-204``) only feeds its windows; the port has
+none.
 
 K5 replaces ``gather.py:642 gather_bilinear_projected`` (forward, ``:669``)
 and its VJP ``_pbwd`` (``:699``, call ``:712``): world points ``(B, N, 3)``
@@ -54,13 +60,19 @@ import torch
 from avr_tpu_torch.ops.kernels import _build
 
 __all__ = ["gather_bilinear", "gather_bilinear_plain", "bilinear_f32", "clamp_strict",
-           "project_packed", "gather_bilinear_projected", "gather_bilinear_projected_plain"]
+           "project_packed", "gather_bilinear_projected", "gather_bilinear_projected_plain",
+           "bin_workspace"]
 
 NAME = "gather_bilinear"
 NAME_BWD = "gather_bilinear_bwd"
 NAME_PROJ = "gather_bilinear_projected"
 NAME_PROJ_BWD = "gather_bilinear_projected_bwd"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the binned backward's constants (csrc/gather.cu): map tile side, points a
+# sort block, partial tiles of split bins; the sort keeps a per-warp count
+# of every tile of a view in 48 KB of shared memory, hence MAX_TILES
+TILE, SEG, PARTIAL_CHUNKS = 8, 256, 128
+MAX_TILES = 1024
 
 
 def clamp_strict(u: torch.Tensor, hi: float) -> torch.Tensor:
@@ -152,22 +164,45 @@ def _forward(features: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def bin_workspace(B: int, H: int, W: int, C: int, N: int) -> tuple:
+    """``(ints, floats)``: the binned backward's scratch (``csrc/gather.cu``
+    ``launch_bins``): the per-(bin, sort block) counts, the bin sizes, the
+    plan (4 ints a bin and one), at most 4 entries a point; and
+    ``PARTIAL_CHUNKS`` float32 partial tiles of ``TILE^2 x C``."""
+    bins = B * -(-H // TILE) * -(-W // TILE)
+    return (bins * -(-N // SEG) + 5 * bins + 1 + 4 * B * N,
+            PARTIAL_CHUNKS * TILE * TILE * C)
+
+
+def _bin_scratch(name: str, features: torch.Tensor, N: int):
+    B, H, W, C = features.shape
+    if -(-H // TILE) * -(-W // TILE) > MAX_TILES or 4 * B * N >= 2 ** 31:
+        raise ValueError(f"{name}: the binned backward takes at most {MAX_TILES} "
+                         f"{TILE}x{TILE} tiles a map and 4 * B * N < 2^31, got map "
+                         f"{H}x{W}, B * N = {B * N}")
+    ints, floats = bin_workspace(B, H, W, C, N)
+    return (torch.empty(ints, dtype=torch.int32, device=features.device),
+            torch.empty(floats, dtype=torch.float32, device=features.device))
+
+
 def _backward(features: torch.Tensor, coords: torch.Tensor, g: torch.Tensor):
     """``(dfeatures in the map's dtype, dcoords float32)`` for cotangent ``g``."""
     B, H, W, C = features.shape
     N = coords.shape[1]
     g = g.to(features.dtype).contiguous()
     _build.check_cuda_inputs(NAME_BWD, {"g": g}, features.device)
-    dfeat = torch.zeros((B, H, W, C), dtype=torch.float32, device=features.device)
-    dcoords = torch.zeros((B, N, 2), dtype=torch.float32, device=features.device)
-    if N:
-        fn = _build.kernel_fn("avr_gather_bilinear_bwd", [ctypes.c_void_p] * 5
-                              + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-        err = fn(_build.ptr(features), _build.ptr(coords), _build.ptr(g), _build.ptr(dfeat),
-                 _build.ptr(dcoords), B, H, W, C, N, _DTYPES[features.dtype],
-                 ctypes.c_void_p(_build.stream_ptr(features.device)))
-        _build.check(NAME_BWD, err)
-    return dfeat.to(features.dtype), dcoords
+    dcoords = torch.empty((B, N, 2), dtype=torch.float32, device=features.device)
+    if not N:  # no point: nothing to launch
+        return torch.zeros_like(features), dcoords
+    ints, partials = _bin_scratch(NAME_BWD, features, N)
+    dfeat = torch.empty_like(features)
+    fn = _build.kernel_fn("avr_gather_bilinear_bwd", [ctypes.c_void_p] * 7
+                          + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    err = fn(_build.ptr(features), _build.ptr(coords), _build.ptr(g), _build.ptr(dfeat),
+             _build.ptr(dcoords), _build.ptr(ints), _build.ptr(partials), B, H, W, C, N,
+             _DTYPES[features.dtype], ctypes.c_void_p(_build.stream_ptr(features.device)))
+    _build.check(NAME_BWD, err)
+    return dfeat, dcoords
 
 
 class _Gather(torch.autograd.Function):
@@ -251,16 +286,19 @@ def _backward_projected(features, points, proj, g):
     N = points.shape[1]
     g = g.to(features.dtype).contiguous()
     _build.check_cuda_inputs(NAME_PROJ_BWD, {"g": g}, features.device)
-    dfeat = torch.zeros((B, H, W, C), dtype=torch.float32, device=features.device)
-    dpoints = torch.zeros((B, N, 3), dtype=torch.float32, device=features.device)
-    if B * N:
-        fn = _build.kernel_fn("avr_gather_projected_bwd", [ctypes.c_void_p] * 6
-                              + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-        err = fn(_build.ptr(features), _build.ptr(points), _build.ptr(proj), _build.ptr(g),
-                 _build.ptr(dfeat), _build.ptr(dpoints), B, H, W, C, N,
-                 _DTYPES[features.dtype], ctypes.c_void_p(_build.stream_ptr(features.device)))
-        _build.check(NAME_PROJ_BWD, err)
-    return dfeat.to(features.dtype), dpoints
+    dpoints = torch.empty((B, N, 3), dtype=torch.float32, device=features.device)
+    if not B * N:  # no point: nothing to launch
+        return torch.zeros_like(features), dpoints
+    ints, partials = _bin_scratch(NAME_PROJ_BWD, features, N)
+    dfeat = torch.empty_like(features)
+    fn = _build.kernel_fn("avr_gather_projected_bwd", [ctypes.c_void_p] * 8
+                          + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    err = fn(_build.ptr(features), _build.ptr(points), _build.ptr(proj), _build.ptr(g),
+             _build.ptr(dfeat), _build.ptr(dpoints), _build.ptr(ints), _build.ptr(partials), B,
+             H, W, C, N, _DTYPES[features.dtype],
+             ctypes.c_void_p(_build.stream_ptr(features.device)))
+    _build.check(NAME_PROJ_BWD, err)
+    return dfeat, dpoints
 
 
 class _GatherProjected(torch.autograd.Function):

@@ -37,7 +37,13 @@ Phases (any failure raises and exits non-zero):
    (the projected gather) at both of its calls on the fused path, the band
    query (81,920 points a scene) and the coarse query at the marched point
    (4,096), in 1 scene (serving) and 4 (the train step), bf16 and float32,
-   1 and 2 views, forward and backward; K7 (the threefry uniform draw) bit
+   1 and 2 views, forward and backward; K1's and K5's backward (binned,
+   no float atomics) also at the band's and the VR coarse pass's
+   coordinates (K1, timed beside the uniform case), with every point in one
+   map tile, on tile edges and the map border, N off any multiple and N =
+   0, each case run twice and held bit for bit equal, and one backward of
+   each under ``torch.cuda.set_sync_debug_mode("error")`` (no copy to the
+   host); K7 (the threefry uniform draw) bit
    for bit against its plain version at the serving and train draws'
    shapes and its raw bits at the sampler's, and held to the TPU kernel's
    contract (range, moments, determinism, key sensitivity, decorrelated
@@ -127,7 +133,7 @@ from avr_tpu_torch.ops.kernels import resnetfc as K2
 from avr_tpu_torch.ops.kernels import rng as K7
 from avr_tpu_torch.ops.kernels.gather import (gather_bilinear, gather_bilinear_plain,
                                               gather_bilinear_projected,
-                                              gather_bilinear_projected_plain)
+                                              gather_bilinear_projected_plain, project_packed)
 from avr_tpu_torch.ops.kernels.march import NAME_WGRAD as K3_NAME_WGRAD
 from avr_tpu_torch.ops.kernels.march import (fused_lstm_march, lstm_march_plain,
                                              pack_projection)
@@ -593,6 +599,51 @@ def kernel_device_ms(fn, names, iters=5):
             for n in names}
 
 
+# K1's and K5's backward (csrc/gather.cu): the front pass (the coordinate
+# cotangent) and the binned accumulation of dfeat: the sort's count, scan,
+# plan and scatter, the accumulate (bf16: mma; float32: shared memory) and
+# the reduce
+GATHER_BIN_KERNELS = ("gather_bin_count_kernel", "gather_bin_scan_kernel",
+                      "gather_bin_plan_kernel", "gather_bin_scatter_kernel",
+                      "gather_bin_mma_kernel", "gather_bin_accum_kernel",
+                      "gather_bin_reduce_kernel")
+K1_BWD_KERNELS = ("gather_bilinear_bwd_kernel",) + GATHER_BIN_KERNELS
+K5_BWD_KERNELS = ("gather_projected_bwd_kernel",) + GATHER_BIN_KERNELS
+
+
+def gather_bwd_bytes(pts, hwc, elt, pt_bytes):
+    """The gather backward's own bytes: g and the map in, dfeat out in the
+    map's dtype (``elt`` bytes), and ``pt_bytes`` a point of coordinates in
+    and their cotangent out."""
+    return pts * C * elt + 2 * hwc * elt + pts * pt_bytes
+
+
+def bwd_device_ms(run, names):
+    """Device ms per call of a backward, in all and by kernel."""
+    by = kernel_device_ms(run, names)
+    return sum(by.values()), by
+
+
+def check_rerun(name, first, again):
+    """A backward run twice on the same inputs: bit for bit equal outputs."""
+    for a, b in zip(first, again):
+        if not same_bits(a, b):
+            raise AssertionError(f"{name}: a second backward differs (max abs "
+                                 f"{max_err(a, b)})")
+    return {"case": name, "against": "rerun", "max_abs_err": 0.0, "tol": 0.0}
+
+
+def no_host_sync(fn):
+    """``fn()`` with a copy to the host made an error."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
 def check_gather_bwd(gen):
     feat = randn(gen, SB_TRAIN, LATENT, LATENT, C, dtype=torch.bfloat16)
     cases = []
@@ -608,6 +659,8 @@ def check_gather_bwd(gen):
         # in another order, times 31.5: 1e-4 of the largest value.
         cases.append(check_rel(f"dfeat N={n} bf16", got[0], want[0], 2.0 ** -7))
         cases.append(check_rel(f"dcoords N={n} bf16", got[1], want[1], 1e-4))
+        cases.append(check_rerun(f"rerun N={n} bf16", got,
+                                 grads_of(gather_bilinear, (feat, coords), g)))
     coords = torch.rand(SB_TRAIN, BAND, 2, generator=gen, device=DEV) * 2.2 - 1.1
     g = randn(gen, SB_TRAIN, BAND, C, dtype=torch.bfloat16)
     _, run = grads_of(gather_bilinear, (feat, coords), g, keep=True)
@@ -617,16 +670,113 @@ def check_gather_bwd(gen):
                                                      padding_mode="border", align_corners=True),
                           (nchw, coords), g.float().permute(0, 2, 1)[:, :, None], keep=True)
     ms, plain_ms, library_ms = time_ms(run), time_ms(run_plain), time_ms(run_lib)
+    device_ms, by_kernel = bwd_device_ms(run, K1_BWD_KERNELS)
+    smi = sustained(run, 1.0, SMI_FIELDS)  # the SM clock and power beside the time
     n_pts, hwc = SB_TRAIN * BAND, feat.numel()
-    b_ms, b_by = bound(n_pts * C * 2 + hwc * 2 + 2 * hwc * 4 + 2 * n_pts * 2 * 4,
-                       16 * n_pts * C, F32_FLOPS)
+    # the function's own bytes: dfeat written once in bf16 (the parent's
+    # kernel also zeroed and wrote a float32 map: 2 * hwc * 4 more)
+    b_ms, b_by = bound(gather_bwd_bytes(n_pts, hwc, 2, 16), 16 * n_pts * C, F32_FLOPS)
     return dict(name="gather_bilinear_bwd", source="avr_tpu_torch/csrc/gather.cu",
                 replaces="avr_tpu/ops/pallas/gather.py:463",
                 also_replaces="avr_tpu/ops/pallas/gather.py:221",
                 tpu_kernel="_wbwd (K1) and _bwd (K6), one function",
                 shape=f"latent {SB_TRAIN}x{LATENT}x{LATENT}x{C} bf16, N={BAND} per scene",
-                cases=cases, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                cases=cases, ms=ms, device_ms=device_ms, device_ms_by_kernel=by_kernel,
+                sustained=smi, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
                 bound_by=b_by)
+
+
+def edge_grid(gen, b, n):
+    """Grid points over and beyond the map, the first ones on tile edges (a
+    pixel coordinate of 7, 7.5, 8, 15.5, 31.5), on the border and its
+    corners, and beyond it."""
+    grid = torch.rand(b, n, 2, generator=gen, device=DEV) * 2.2 - 1.1
+    px = [(7.0, 3.0), (7.5, 3.2), (8.0, 7.5), (7.5, 7.5), (15.5, 8.0), (31.5, 31.5), (0.0, 5.0),
+          (LATENT - 1, 4.0), (3.0, LATENT - 1), (LATENT - 1, LATENT - 1), (0.0, 0.0),
+          (LATENT - 1.5, LATENT - 1.5), (-3.0, 9.5), (70.0, 70.0)]
+    px = torch.tensor(px, device=DEV)[:n]
+    grid[:, :len(px)] = px / (LATENT - 1) * 2 - 1
+    return grid.contiguous()
+
+
+def one_tile_grid(gen, b, n):
+    """Every point inside one tile (pixels 8 to 15 of each axis): one bin a
+    view, longer than one CTA's share."""
+    u = torch.rand(b, n, 2, generator=gen, device=DEV) * 6.9 + 8.05
+    return (u / (LATENT - 1) * 2 - 1).contiguous()
+
+
+def band_grid(gen):
+    """K1's grid at the band layout: ``proj_inputs``' band points (the train
+    step's 4 x 81,920) projected into their source view."""
+    feat, pts, proj = proj_inputs(gen, SB_TRAIN, 1, torch.bfloat16, BAND)
+    return feat, project_packed(proj, pts).contiguous()
+
+
+def vr_coarse_grid(gen):
+    """K1's grid at the VR coarse pass's layout: 64 stratified samples a ray
+    over the near-far range (0.8 to 1.8, from the marched depth ~0.8) on
+    ``march_inputs``' 4,096 rays, 4 scenes, projected into the source view."""
+    inp = march_inputs(gen, 1, sb=SB_TRAIN)
+    s = (torch.arange(64, device=DEV)
+         + torch.rand(SB_TRAIN, CHUNK, 64, generator=gen, device=DEV)) / 64
+    pts = inp["coords0"][:, :, None] + inp["rds"][:, :, None] * s[..., None]
+    grid = project_packed(inp["proj"].reshape(SB_TRAIN, 16), pts.reshape(SB_TRAIN, -1, 3))
+    return inp["feat"].reshape(SB_TRAIN, LATENT, LATENT, C), grid.contiguous()
+
+
+def check_gather_bwd_bins(gen, k1):
+    """K1's binned backward at the layouts the paths give it and at the
+    sort's hard cases, each run twice (bit for bit equal); added to ``k1``
+    (its cases, and the band's and VR coarse pass's times beside the
+    uniform case's).  Draws from a generator of its own."""
+    bf, f32 = torch.bfloat16, torch.float32
+    cases, times = [], {}
+
+    def case(label, feat, coords, g):
+        dt = feat.dtype
+        got = grads_of(gather_bilinear, (feat, coords), g)
+        cases.append(check_rerun(f"rerun {label}", got,
+                                 grads_of(gather_bilinear, (feat, coords), g)))
+        if coords.shape[1] == 0:
+            cases.append(check(f"dfeat {label}", max_err(got[0], torch.zeros_like(feat)), 0.0))
+            return
+        want = grads_of(gather_bilinear_plain, (feat, coords), g)
+        # as check_gather_bwd; float32: the same sums in another order
+        cases.append(check_rel(f"dfeat {label}", got[0], want[0],
+                               2.0 ** -7 if dt == bf else 1e-5))
+        cases.append(check_rel(f"dcoords {label}", got[1], want[1], 1e-4))
+
+    for label, grid_of in (("band", band_grid), ("VR coarse", vr_coarse_grid)):
+        feat, coords = grid_of(gen)
+        g = randn(gen, *coords.shape[:2], C, dtype=bf)
+        case(f"{label} N={coords.shape[1]} bf16", feat, coords, g)
+        _, run = grads_of(gather_bilinear, (feat, coords), g, keep=True)
+        times[label] = dict(ms=time_ms(run), device_ms=bwd_device_ms(run, K1_BWD_KERNELS)[0],
+                            sustained=sustained(run, 1.0, SMI_FIELDS))
+        if label == "band":
+            no_host_sync(run)
+        del feat, coords, g, run
+    for label, b, n, dt, grid_of in (
+            ("one tile", SB_TRAIN, BAND, bf, one_tile_grid),
+            ("one tile", 1, BAND, f32, one_tile_grid),
+            ("edges", SB_TRAIN, 1_037, bf, edge_grid), ("edges", 1, 1_037, f32, edge_grid),
+            ("edges", 1, BAND + 37, bf, edge_grid),
+            ("empty", SB_TRAIN, 0, bf, edge_grid), ("empty", 1, 0, f32, edge_grid)):
+        feat = randn(gen, b, LATENT, LATENT, C, dtype=dt)
+        case(f"{label} B={b} N={n} {str(dt)[6:]}", feat, grid_of(gen, b, n),
+             randn(gen, b, n, C, dtype=dt))
+    k1["cases"] += cases
+    k1.update(band=times["band"], vr_coarse=times["VR coarse"])
+    clock = lambda t: (f"{t['sustained']['ms']:.4f} ms at {t['sustained']['clocks.sm']} MHz, "
+                       f"{t['sustained']['power.draw']} W")
+    print(f"K1 backward: {sum(c['against'] == 'rerun' for c in k1['cases'])} cases bit for "
+          f"bit equal on a rerun; uniform {k1['ms']:.4f} ms (device {k1['device_ms']:.4f}; "
+          f"1 s loop {clock(k1)}), band {times['band']['ms']:.4f} (device "
+          f"{times['band']['device_ms']:.4f}; {clock(times['band'])}), VR coarse "
+          f"{times['VR coarse']['ms']:.4f} (device {times['VR coarse']['device_ms']:.4f}; "
+          f"{clock(times['VR coarse'])}); device ms by kernel at uniform "
+          f"{k1['device_ms_by_kernel']}")
 
 
 MATCHED_BF16_TOL = 3e-3
@@ -1385,13 +1535,15 @@ PROJ_CASES = [(sb, ns, cd, n) for sb in (1, SB_TRAIN) for ns in (1, 2)
 
 def proj_bound(b, n, dtype, backward):
     """K1's bytes plus the points (12 B a point) and the 16 scalars a view;
-    backward also the points' cotangent; operations: the projection (~20 a
-    point) and 8 (forward) or 16 (backward) a channel."""
+    backward (``gather_bwd_bytes``) dfeat once in the map's dtype and the
+    points' cotangent; operations: the projection (~20 a point) and 8
+    (forward) or 16 (backward) a channel."""
     elt = torch.finfo(dtype).bits // 8
     hwc, pts = b * LATENT * LATENT * C, b * n
-    io = hwc * elt + pts * C * elt + pts * 12 + b * 64
     if backward:
-        io += 2 * hwc * 4 + pts * 12
+        io = gather_bwd_bytes(pts, hwc, elt, 24) + b * 64
+    else:
+        io = hwc * elt + pts * C * elt + pts * 12 + b * 64
     return bound(io, pts * (20 + (16 if backward else 8) * C), F32_FLOPS)
 
 
@@ -1432,17 +1584,18 @@ def check_gather_proj_bwd(gen):
         fk = lambda f, p: gather_bilinear_projected(f, p, proj)
         fp = lambda f, p: gather_bilinear_projected_plain(f, p, proj)
         got, want = grads_of(fk, (feat, pts), g), grads_of(fp, (feat, pts), g)
-        # relative L2: the float32 map atomics run in a changing order.
-        # dfeat: float32 1e-5 (order only); bf16 2^-7: the kernel rounds the
-        # tap weight to bf16 before w * g (as the TPU kernel does), the plain
-        # version does not, and both round the sum to bf16 once.  dpoints:
-        # float32 dots of C products in another order, times (W - 1) / 2 and
-        # the focal, chained through the projection (the kernel multiplies
-        # by 1 / cam_z where autograd divides): 1e-4
+        # relative L2 (the plain version's float32 sums run in another
+        # order).  dfeat: float32 1e-5 (order only); bf16 2^-7: the kernel
+        # rounds the tap weight to bf16 before w * g (as the TPU kernel
+        # does), the plain version does not, and both round the sum to bf16
+        # once.  dpoints: float32 dots of C products in another order, times
+        # (W - 1) / 2 and the focal, chained through the projection (the
+        # kernel multiplies by 1 / cam_z where autograd divides): 1e-4
         label = f"SB={sb} NS={ns} N={n} {str(cd)[6:]}"
         cases += [check_l2(f"dfeat {label}", got[0], want[0],
                            2.0 ** -7 if cd == torch.bfloat16 else 1e-5),
-                  check_l2(f"dpoints {label}", got[1], want[1], 1e-4)]
+                  check_l2(f"dpoints {label}", got[1], want[1], 1e-4),
+                  check_rerun(f"rerun {label}", got, grads_of(fk, (feat, pts), g))]
         del feat, pts, proj, g, got, want
     feat, pts, proj = proj_inputs(gen, SB_TRAIN, 1, torch.bfloat16, BAND)  # the train step's
     g = randn(gen, SB_TRAIN, BAND, C, dtype=torch.bfloat16)
@@ -1450,14 +1603,65 @@ def check_gather_proj_bwd(gen):
                       keep=True)
     _, run_plain = grads_of(lambda f, p: gather_bilinear_projected_plain(f, p, proj),
                             (feat, pts), g, keep=True)
-    ms = kernel_device_ms(run, ("gather_projected_bwd_kernel",),
-                          iters=10)["gather_projected_bwd_kernel"]
+    ms, by_kernel = bwd_device_ms(run, K5_BWD_KERNELS)
+    smi = sustained(run, 1.0, SMI_FIELDS)
+    no_host_sync(run)
     b_ms, b_by = proj_bound(SB_TRAIN, BAND, torch.bfloat16, True)
     return dict(name="gather_bilinear_projected_bwd", source="avr_tpu_torch/csrc/gather.cu",
                 replaces="avr_tpu/ops/pallas/gather.py:712", tpu_kernel="_pbwd",
                 shape=f"latent {SB_TRAIN}x{LATENT}x{LATENT}x{C} bf16, N={BAND} per scene",
-                cases=cases, ms=ms, call_ms=time_ms(run), plain_ms=time_ms(run_plain, iters=3),
-                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+                cases=cases, ms=ms, device_ms_by_kernel=by_kernel, sustained=smi,
+                call_ms=time_ms(run),
+                plain_ms=time_ms(run_plain, iters=3), library_ms=None, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def unproject(proj, grid, depth):
+    """World points that ``proj`` (B, 16) projects to ``grid`` (B, N, 2) at
+    camera depth ``depth`` (B, N): cam_xy = (cg - grid) / fg * z, x = R^T
+    (cam - t)."""
+    R, t = proj[:, :9].reshape(-1, 3, 3), proj[:, 9:12]
+    fg, cg = proj[:, None, 12:14], proj[:, None, 14:16]
+    cam = torch.cat([(cg - grid) / fg * depth[..., None], depth[..., None]], -1)
+    return torch.einsum("bij,bni->bnj", R, cam - t[:, None]).contiguous()
+
+
+def check_gather_proj_bwd_bins(gen, k5):
+    """K5's binned backward at the sort's hard cases, each run twice (bit
+    for bit equal), added to ``k5``'s cases: every point projecting into
+    one tile of its view, points on tile edges and the map border (from
+    ``edge_grid``, unprojected at depths 0.8 to 1.8 through each view's
+    camera), a point count off any multiple, none; bf16 and float32, 1 and
+    4 scenes, NS 2.  Draws from a generator of its own."""
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = []
+    for label, sb, ns, n, dt in (("one tile", SB_TRAIN, 1, BAND, bf),
+                                 ("one tile", 1, 2, BAND, f32),
+                                 ("edges", SB_TRAIN, 2, 1_037, bf), ("edges", 1, 1, 1_037, f32),
+                                 ("empty", SB_TRAIN, 2, 0, bf), ("empty", 1, 1, 0, f32)):
+        feat, _, proj = proj_inputs(gen, sb, ns, dt, CHUNK)
+        b = sb * ns
+        grid = one_tile_grid(gen, b, n) if label == "one tile" else edge_grid(gen, b, n)
+        # camera depth 0.8 to 1.8 in front (the cameras look down -z)
+        depth = -0.8 - torch.rand(b, n, generator=gen, device=DEV)
+        pts = unproject(proj, grid, depth)
+        g = randn(gen, b, n, C, dtype=dt)
+        fk = lambda f, p: gather_bilinear_projected(f, p, proj)
+        got = grads_of(fk, (feat, pts), g)
+        name = f"{label} SB={sb} NS={ns} N={n} {str(dt)[6:]}"
+        cases.append(check_rerun(f"rerun {name}", got, grads_of(fk, (feat, pts), g)))
+        if n == 0:
+            cases.append(check(f"dfeat {name}", max_err(got[0], torch.zeros_like(feat)), 0.0))
+            continue
+        want = grads_of(lambda f, p: gather_bilinear_projected_plain(f, p, proj), (feat, pts), g)
+        # as check_gather_proj_bwd
+        cases += [check_l2(f"dfeat {name}", got[0], want[0], 2.0 ** -7 if dt == bf else 1e-5),
+                  check_l2(f"dpoints {name}", got[1], want[1], 1e-4)]
+    k5["cases"] += cases
+    t = k5["sustained"]
+    print(f"K5 backward: {sum(c['against'] == 'rerun' for c in k5['cases'])} cases bit for "
+          f"bit equal on a rerun; device {k5['ms']:.4f} ms (1 s loop {t['ms']:.4f} ms at "
+          f"{t['clocks.sm']} MHz, {t['power.draw']} W), by kernel {k5['device_ms_by_kernel']}")
 
 
 # K7's draws on the main paths: a served adaptive chunk's band (1 x 81,920),
@@ -1657,17 +1861,22 @@ def profile_frame(render, label="frame", out_dir="traces"):
     ours = ("gather_bilinear_kernel", "gather_bilinear_bwd_kernel", "resnetfc_kernel",
             FWD_KERNEL, *K2_BWD_KERNELS, "resnetfc_dgrad_kernel", "resnetfc_wgrad_kernel",
             "lstm_march_kernel", "lstm_march_bwd_kernel", "gather_projected_kernel",
-            "gather_projected_bwd_kernel", "volume_integral_kernel", "volume_integral_bwd_kernel",
-            "threefry_kernel")
+            "gather_projected_bwd_kernel", *GATHER_BIN_KERNELS, "volume_integral_kernel",
+            "volume_integral_bwd_kernel", "threefry_kernel")
     kernel_us = sum(r[1] for r in rows if any(o in r[0] for o in ours))
+    # K1's or K5's backward: its front pass and the binned accumulation
+    gather_bwd_us = sum(r[1] for r in rows if any(o in r[0] for o in K1_BWD_KERNELS
+                                                  + K5_BWD_KERNELS[:1]))
     print(f"profile {label}: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
-          f"({busy_us / wall_us:.3f} of wall), port kernels {kernel_us / 1e3:.3f} ms")
+          f"({busy_us / wall_us:.3f} of wall), port kernels {kernel_us / 1e3:.3f} ms, gather "
+          f"backward {gather_bwd_us / 1e3:.3f} ms")
     for key, us, count in rows[:25]:
         print(f"  {us / 1e3:9.3f} ms  x{count:<5d} {key[:100]}")
     os.makedirs(out_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out_dir, f"{label}_trace.json"))
     return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
                 busy_share=busy_us / wall_us, port_kernels_ms=kernel_us / 1e3,
+                gather_bwd_ms=gather_bwd_us / 1e3,
                 top=[dict(op=k[:100], ms=us / 1e3, count=c) for k, us, c in rows[:25]])
 
 
@@ -1948,12 +2157,14 @@ def check_vr_chunks():
     gradient.  Per point the two run the same arithmetic (the decoder's
     rows do not depend on their tile), and C = 8 is a power of two, so the
     1/C loss scaling is exact and the rounded bf16 cotangents are 8x each
-    other exactly; what is left is summation order: the wgrad's and K1's
-    float32 atomics, the loss means.  The latent's cotangent is bf16: the
-    one-chunk step rounds the sum of its coarse and fine gathers' bf16
-    cotangents, the 8-chunk step sums sixteen such in float32 and rounds
-    once, so the encoder's gradients differ by bf16 roundings of their
-    input cotangent."""
+    other exactly; what is left is summation order: the wgrad's split, the
+    loss means.  The latent's cotangent is bf16: the one-chunk step rounds
+    the sum of its coarse and fine gathers' bf16 cotangents, the 8-chunk
+    step sums sixteen such in float32 and rounds once, so the encoder's
+    gradients differ by bf16 roundings of their input cotangent.  K1's
+    backward sums in a fixed order (no atomics), so the 8-chunk step
+    against itself (the floor printed) moves only with cuDNN's encoder
+    backward."""
     model = path_model("VR", torch.bfloat16, DEV)
     params = dict(model.named_parameters())
     batch = train_batch(DEV)
@@ -1967,15 +2178,15 @@ def check_vr_chunks():
                    for k in gb if k.startswith(prefix))
 
     dec, enc = worst(g1, g8, "net.mlp_"), worst(g1, g8, "net.encoder")
-    floor = worst(g8b, g8, "net.encoder")  # the same step again: atomics only
+    floor = worst(g8b, g8, "net.encoder")  # the same step again: cuDNN only
     print(f"VR one chunk vs 8 chunks: loss {float(l1)} vs {float(l8)}; worst relative L2: "
           f"decoder {dec}, encoder {enc}; the 8-chunk step against itself, encoder {floor}")
     # loss: float32 means of 49,152 terms in two orders; decoder gradients:
     # float32 summation order (SUM_ORDER_TOL's reason, by relative L2);
     # encoder gradients: bf16 roundings of the latent cotangent (one bf16
-    # ulp is 2^-8 relative), carried through the encoder's bf16 backward,
-    # which with K1's atomics alone moves them run to run (the floor
-    # printed: the 8-chunk step against itself): 5e-2
+    # ulp is 2^-8 relative), carried through the encoder's bf16 backward
+    # (the floor printed, the 8-chunk step against itself, is what cuDNN's
+    # backward alone moves them run to run): 5e-2
     cases = [check("VR loss one chunk vs 8 chunks", abs(float(l1) - float(l8)),
                    1e-6 * abs(float(l8)), against="8 chunks"),
              {"case": "VR encoder gradients, 8 chunks against itself", "against": "8 chunks",
@@ -2150,6 +2361,11 @@ def main() -> int:
                check_gather_bwd(gen), *check_resnetfc_bwd(gen), check_resnetfc_recompute(gen),
                *check_march_bwd(gen), check_integral(gen), check_integral_bwd(gen),
                check_gather_proj(gen), check_gather_proj_bwd(gen), check_rng()]
+    # the binned gather backward's added cases draw from a generator of their own
+    gen_bins = torch.Generator(device=DEV).manual_seed(2)
+    by_name = {k["name"]: k for k in kernels}
+    check_gather_bwd_bins(gen_bins, by_name["gather_bilinear_bwd"])
+    check_gather_proj_bwd_bins(gen_bins, by_name["gather_bilinear_projected_bwd"])
     print(f"integral: {check_integral_saturated(gen)}")
     for k in kernels:
         host = (f", host {k['host_ms']:.4f} ms, call {k['call_ms']:.4f} ms" if "host_ms" in k
