@@ -187,3 +187,26 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
+
+// --- tensor-core building blocks (mma.sync, sm_80 and later)
+
+// Four 8 x 8 b16 matrices from shared memory (lane i gives row i % 8 of
+// matrix i / 8); `trans` transposes each.
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p, bool trans) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  if (trans)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+// d (m16 n8, float32) += a (m16 k16, bf16, row) * b (k16 n8, bf16, col)
+__device__ __forceinline__ void mma_m16n8k16(float* d, const uint32_t* a, uint32_t b0,
+                                             uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}

@@ -82,7 +82,7 @@
 // + PARTIAL_CHUNKS) x slices, and CTAs past the plan's chunk count exit.
 // The bin sizes never leave the device.
 
-#include "common.cuh"
+#include "bins.cuh"
 
 constexpr int THREADS = 256;
 constexpr unsigned FULL = 0xffffffffu;
@@ -136,7 +136,7 @@ __device__ __forceinline__ float2 gather_point_dgrid(const T* fb, const T* gp, c
 // ---------------------------------------------------------------------------
 
 // The taps of point `pt` (flat over views): K1 reads its grid coordinate,
-// K5 projects its world point through the view's scalars `p_s`.
+// K5 and K3 project their world point through the view's scalars `p_s`.
 template <bool PROJ>
 __device__ __forceinline__ Taps point_taps(const float* src, const float* p_s, size_t pt, int H,
                                            int W) {
@@ -221,12 +221,19 @@ struct BinPlan {
       : start(plan), chunks(plan + NB), wstart(plan + 2 * NB), pslot(plan + 3 * NB + 1) {}
 };
 
+// The point set (and cotangent rows) of map b: K1 and K5 have one a map;
+// K3's SHARED maps come `views` to a scene, all reading the scene's ray-steps.
+template <bool SHARED> __device__ __forceinline__ size_t point_set(int b, int views) {
+  return (size_t)(SHARED ? b / views : b);
+}
+
 // count: block (seg, view) histograms its SEG points' entries over the
 // view's tiles.  Integer shared-memory atomics: a count has no order.
-template <bool PROJ>
+template <bool PROJ, bool SHARED>
 __global__ void __launch_bounds__(SEG)
 gather_bin_count_kernel(const float* __restrict__ src, const float* __restrict__ proj,
-                        int* __restrict__ hist, int H, int W, int N, int TX, int T, int nseg) {
+                        int* __restrict__ hist, int H, int W, int N, int TX, int T, int nseg,
+                        int views) {
   extern __shared__ int cnt[];  // [T]
   __shared__ float p_s[16];
   const int b = blockIdx.y, seg = blockIdx.x, tid = threadIdx.x;
@@ -235,7 +242,8 @@ gather_bin_count_kernel(const float* __restrict__ src, const float* __restrict__
   __syncthreads();
   const int n = seg * SEG + tid;
   if (n < N) {
-    const int code = tile_code(point_taps<PROJ>(src, p_s, (size_t)b * N + n, H, W), W, TX);
+    const int code =
+        tile_code(point_taps<PROJ>(src, p_s, point_set<SHARED>(b, views) * N + n, H, W), W, TX);
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const int x = code_tile(code, k, TX);
@@ -316,12 +324,12 @@ gather_bin_plan_kernel(const int* __restrict__ totals, int* __restrict__ plan, i
 // rank in a bin counts the earlier points of its block with an entry there:
 // those of its warp by a shuffle loop over the warp's codes, those of the
 // earlier warps from each warp's per-tile counts in shared memory.
-template <bool PROJ>
+template <bool PROJ, bool SHARED>
 __global__ void __launch_bounds__(SEG)
 gather_bin_scatter_kernel(const float* __restrict__ src, const float* __restrict__ proj,
                           const int* __restrict__ hist, const int* __restrict__ plan,
                           int* __restrict__ entries, int H, int W, int N, int TX, int T, int nseg,
-                          int NB) {
+                          int NB, int views) {
   extern __shared__ int wcount[];  // [SEG / 32][T]
   __shared__ float p_s[16];
   const int b = blockIdx.y, seg = blockIdx.x, tid = threadIdx.x;
@@ -331,7 +339,9 @@ gather_bin_scatter_kernel(const float* __restrict__ src, const float* __restrict
   __syncthreads();
   const int n = seg * SEG + tid;
   const int code =
-      n < N ? tile_code(point_taps<PROJ>(src, p_s, (size_t)b * N + n, H, W), W, TX) : -1;
+      n < N ? tile_code(point_taps<PROJ>(src, p_s, point_set<SHARED>(b, views) * N + n, H, W),
+                        W, TX)
+            : -1;
   int tile[4], lower[4] = {0, 0, 0, 0}, upper[4] = {0, 0, 0, 0};
 #pragma unroll
   for (int k = 0; k < 4; ++k) tile[k] = code < 0 ? -1 : code_tile(code, k, TX);
@@ -423,24 +433,6 @@ static __device__ __forceinline__ void cp_async_commit_group() {
 template <int N> static __device__ __forceinline__ void cp_async_wait_group() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
-static __device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p, bool trans) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  if (trans)
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-  else
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-// d (m16 n8, float32) += a (m16 k16, bf16, row) * b (k16 n8, bf16, col)
-static __device__ __forceinline__ void mma_m16n8k16(float* d, const uint32_t* a, uint32_t b0,
-                                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 template <int N> static __device__ __forceinline__ void cp_async_wait_upto(int n) {
   if constexpr (N > 0) {
@@ -469,13 +461,13 @@ constexpr int MMA_SMEM = (TILE * TILE * S_LD + MMA_BATCH * G_LD) * 2 + MMA_BATCH
 // order.  w and g are bf16 values, so each product is exact and the sums
 // are float32, in an order the instruction fixes.  A non-finite g reaches
 // every pixel of the tile (0 * inf), as in the TPU kernel's one-hot product.
-template <bool PROJ>
+template <bool PROJ, bool SHARED>
 __global__ void __launch_bounds__(MMA_THREADS)
 gather_bin_mma_kernel(const float* __restrict__ src, const float* __restrict__ proj,
                       const bf16* __restrict__ g, const int* __restrict__ entries,
                       const int* __restrict__ totals, const int* __restrict__ plan,
                       bf16* __restrict__ dfeat, float* __restrict__ partials, int H, int W, int C,
-                      int N, int TX, int T_, int NB) {
+                      int N, int TX, int T_, int NB, int views) {
   constexpr int STEPS = MMA_BATCH / KSTEP, PIECES = SLICE / 8;  // 16-byte pieces a g row
   extern __shared__ __align__(16) unsigned char mma_smem[];
   bf16(*S)[S_LD] = reinterpret_cast<bf16(*)[S_LD]>(mma_smem);
@@ -488,7 +480,8 @@ gather_bin_mma_kernel(const float* __restrict__ src, const float* __restrict__ p
   const AccItem it(pl, totals, blockIdx.x, NB, TX, T_);
   const int c0 = blockIdx.y * SLICE;
   if (PROJ && tid < 16) p_s[tid] = proj[(size_t)it.b * 16 + tid];
-  const bf16* gb = g + (size_t)it.b * N * C;
+  const size_t ps = point_set<SHARED>(it.b, views);
+  const bf16* gb = g + ps * N * C;
   float d[SLICE / 8][4];
 #pragma unroll
   for (int j = 0; j < SLICE / 8; ++j) d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.f;
@@ -510,7 +503,7 @@ gather_bin_mma_kernel(const float* __restrict__ src, const float* __restrict__ p
       cp_async_commit_group();
     }
     if (tid < cnt) {
-      const Taps tp = point_taps<PROJ>(src, p_s, (size_t)it.b * N + n, H, W);
+      const Taps tp = point_taps<PROJ>(src, p_s, ps * N + n, H, W);
       const int idx[4] = {tp.i00, tp.i01, tp.i10, tp.i11};
       const float w[4] = {tp.w00, tp.w01, tp.w10, tp.w11};
 #pragma unroll
@@ -564,13 +557,13 @@ gather_bin_mma_kernel(const float* __restrict__ src, const float* __restrict__ p
 // and weights) into shared memory, then every thread walks the batch in
 // order over its channel of the shared tile.  The branches depend on the
 // entry only, so a warp never diverges.
-template <bool PROJ>
+template <bool PROJ, bool SHARED>
 __global__ void __launch_bounds__(SLICE)
 gather_bin_accum_kernel(const float* __restrict__ src, const float* __restrict__ proj,
                         const float* __restrict__ g, const int* __restrict__ entries,
                         const int* __restrict__ totals, const int* __restrict__ plan,
                         float* __restrict__ dfeat, float* __restrict__ partials, int H, int W,
-                        int C, int N, int TX, int T_, int NB) {
+                        int C, int N, int TX, int T_, int NB, int views) {
   __shared__ float acc[TILE * TILE * SLICE];
   __shared__ int st_pt[SLICE];
   __shared__ int4 st_px[SLICE];
@@ -583,14 +576,15 @@ gather_bin_accum_kernel(const float* __restrict__ src, const float* __restrict__
   const int ch = blockIdx.y * SLICE + tid;
   const bool live_ch = ch < C;
   if (PROJ && tid < 16) p_s[tid] = proj[(size_t)it.b * 16 + tid];
-  const float* gb = g + (size_t)it.b * N * C + ch;
+  const size_t ps = point_set<SHARED>(it.b, views);
+  const float* gb = g + ps * N * C + ch;
   float* own = acc + tid;  // a thread reads and writes its own channel only
   for (int lp = 0; lp < TILE * TILE; ++lp) own[lp * SLICE] = 0.f;
   for (int base = it.e0; base < it.e1; base += SLICE) {
     __syncthreads();  // p_s is loaded; the last batch is done
     if (base + tid < it.e1) {
       const int n = entries[base + tid];
-      const Taps tp = point_taps<PROJ>(src, p_s, (size_t)it.b * N + n, H, W);
+      const Taps tp = point_taps<PROJ>(src, p_s, ps * N + n, H, W);
       st_pt[tid] = n;
       st_px[tid] = make_int4(tile_pixel(tp.i00, tp.w00, W, it.y_org, it.x_org),
                              tile_pixel(tp.i01, tp.w01, W, it.y_org, it.x_org),
@@ -651,12 +645,13 @@ gather_bin_reduce_kernel(const int* __restrict__ plan, const float* __restrict__
 
 // Steps 2-4 of the backward: dfeat (B, H, W, C) in T from the cotangent g
 // (B, N, C) at K1's coords (B, N, 2) or K5's points (B, N, 3) with proj
-// (B, 16).  `ints` and `partials` are the wrapper's scratch
-// (ops/kernels/gather.py bin_workspace).
-template <typename T, bool PROJ>
+// (B, 16); SHARED (K3): points (B / views, N, 3) and g (B / views, N, C),
+// each shared by `views` consecutive maps.  `ints` and `partials` are the
+// wrapper's scratch (ops/kernels/gather.py bin_workspace).
+template <typename T, bool PROJ, bool SHARED = false>
 static void launch_bins(const void* src, const void* proj, const void* g, void* dfeat,
                         void* ints, void* partials, int B, int H, int W, int C, int N,
-                        cudaStream_t s) {
+                        cudaStream_t s, int views = 1) {
   const int TX = (W + TILE - 1) / TILE, T_ = TX * ((H + TILE - 1) / TILE), NB = B * T_;
   const int nseg = (N + SEG - 1) / SEG, slices = (C + SLICE - 1) / SLICE;
   int* hist = (int*)ints;
@@ -664,27 +659,37 @@ static void launch_bins(const void* src, const void* proj, const void* g, void* 
   int* plan = totals + NB;
   int* entries = plan + 4 * NB + 1;
   const dim3 sort_grid((unsigned)nseg, (unsigned)B);
-  gather_bin_count_kernel<PROJ><<<sort_grid, SEG, T_ * sizeof(int), s>>>(
-      (const float*)src, (const float*)proj, hist, H, W, N, TX, T_, nseg);
+  gather_bin_count_kernel<PROJ, SHARED><<<sort_grid, SEG, T_ * sizeof(int), s>>>(
+      (const float*)src, (const float*)proj, hist, H, W, N, TX, T_, nseg, views);
   gather_bin_scan_kernel<<<NB, THREADS, 0, s>>>(hist, totals, nseg);
   gather_bin_plan_kernel<<<1, 1024, 0, s>>>(totals, plan, NB);
-  gather_bin_scatter_kernel<PROJ><<<sort_grid, SEG, (SEG / 32) * T_ * sizeof(int), s>>>(
-      (const float*)src, (const float*)proj, hist, plan, entries, H, W, N, TX, T_, nseg, NB);
+  gather_bin_scatter_kernel<PROJ, SHARED><<<sort_grid, SEG, (SEG / 32) * T_ * sizeof(int), s>>>(
+      (const float*)src, (const float*)proj, hist, plan, entries, H, W, N, TX, T_, nseg, NB,
+      views);
   const dim3 acc_grid((unsigned)(NB + PARTIAL_CHUNKS), (unsigned)slices);
   if constexpr (sizeof(T) == 2) {
-    cudaFuncSetAttribute(gather_bin_mma_kernel<PROJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         MMA_SMEM);  // above 48 KB
-    gather_bin_mma_kernel<PROJ><<<acc_grid, MMA_THREADS, MMA_SMEM, s>>>(
+    cudaFuncSetAttribute(gather_bin_mma_kernel<PROJ, SHARED>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM);  // above 48 KB
+    gather_bin_mma_kernel<PROJ, SHARED><<<acc_grid, MMA_THREADS, MMA_SMEM, s>>>(
         (const float*)src, (const float*)proj, (const bf16*)g, entries, totals, plan,
-        (bf16*)dfeat, (float*)partials, H, W, C, N, TX, T_, NB);
+        (bf16*)dfeat, (float*)partials, H, W, C, N, TX, T_, NB, views);
   } else {
-    gather_bin_accum_kernel<PROJ><<<acc_grid, SLICE, 0, s>>>(
+    gather_bin_accum_kernel<PROJ, SHARED><<<acc_grid, SLICE, 0, s>>>(
         (const float*)src, (const float*)proj, (const float*)g, entries, totals, plan,
-        (float*)dfeat, (float*)partials, H, W, C, N, TX, T_, NB);
+        (float*)dfeat, (float*)partials, H, W, C, N, TX, T_, NB, views);
   }
   gather_bin_reduce_kernel<T><<<dim3((unsigned)NB, (unsigned)slices),
                                 dim3(reduce_threads<T>(), REDUCE_ROWS), 0, s>>>(
       plan, (const float*)partials, (T*)dfeat, H, W, C, TX, T_, NB);
+}
+
+// K3's latent cotangent (csrc/bins.cuh): the march's ray-steps as SHARED
+// projected points, bf16.
+void march_bins_bf16(const float* points, const float* proj, const bf16* g, bf16* dfeat,
+                     void* ints, void* partials, int maps, int views, int H, int W, int C, int N,
+                     cudaStream_t s) {
+  launch_bins<bf16, true, true>(points, proj, g, dfeat, ints, partials, maps, H, W, C, N, s,
+                                views);
 }
 
 // ---------------------------------------------------------------------------

@@ -32,8 +32,12 @@ Phases (any failure raises and exits non-zero):
    adjoint with a saturated lane; K4 (the band integral) at the train
    step's band (4 x 4,096 rays x 20 samples, and 40: two warp groups a
    ray) and a serving chunk, with saturated samples and a ray of zero
-   density, forward and backward; K3 also at hidden 62 (two units a lane),
-   forward and backward; K5
+   density, forward and backward; K3 (``march_route``: bf16 on 16-ray
+   tiles, float32 a warp a ray, each case's route counters checked) also
+   at hidden 62, forward and backward, its forward and the timed
+   backward's eight gradients bit for bit equal on a rerun, its forward
+   also timed at the train step's call with the saved rows and its kept
+   float32 kernels timed beside; K5
    (the projected gather) at both of its calls on the fused path, the band
    query (81,920 points a scene) and the coarse query at the marched point
    (4,096), in 1 scene (serving) and 4 (the train step), bf16 and float32,
@@ -87,7 +91,9 @@ Phases (any failure raises and exits non-zero):
    lands at a source-view camera depth of exactly 0 (``-xy / z``), on one
    side or on both (``train_skip_probe.py`` counts such steps).  The
    one-chunk and 8-chunk VR steps from the same weights give the same loss
-   and gradients up to summation order.
+   and gradients up to summation order; the bf16 adaptive step run twice on
+   one batch is reported (the worst relative L2 of the encoder's, the
+   decoders' and the march's gradients).
    ``--profile`` traces a frame of every renderer and a train step of
    every path.
 5. Reference: small float32 renders of every renderer and train steps
@@ -134,7 +140,7 @@ from avr_tpu_torch.ops.kernels import rng as K7
 from avr_tpu_torch.ops.kernels.gather import (gather_bilinear, gather_bilinear_plain,
                                               gather_bilinear_projected,
                                               gather_bilinear_projected_plain, project_packed)
-from avr_tpu_torch.ops.kernels.march import NAME_WGRAD as K3_NAME_WGRAD
+from avr_tpu_torch.ops.kernels import march as K3
 from avr_tpu_torch.ops.kernels.march import (fused_lstm_march, lstm_march_plain,
                                              pack_projection)
 from avr_tpu_torch.ops.integrate import volume_integral
@@ -493,6 +499,43 @@ def march_inputs(gen, ns, dtype=torch.bfloat16, sb=1, w_out_scale=0.05, hidden=H
                 b_out=randn(gen, 1, scale=0.01))
 
 
+# K3's kernels by route (csrc/march.cu): bf16 marches 16-ray tiles on the
+# tensor cores, its backward's latent cotangent through K5's bins (the
+# march's own instantiation, <true, true>: projected points shared by the
+# views); float32 keeps the warp-per-ray kernels
+K3_FWD_KERNELS = ("lstm_march_tile_kernel",)
+K3_BWD_KERNELS = ("lstm_march_tile_bwd_kernel", "lstm_march_partials_kernel",
+                  "gather_bin_count_kernel<true, true>", "gather_bin_scan_kernel",
+                  "gather_bin_plan_kernel", "gather_bin_scatter_kernel<true, true>",
+                  "gather_bin_mma_kernel<true, true>", "gather_bin_reduce_kernel")
+K3_F32_KERNELS = ("lstm_march_kernel", "lstm_march_bwd_kernel")
+
+
+@contextlib.contextmanager
+def march_routed(cd, backward=False):
+    """Runs one K3 call (and, with ``backward``, its backward) and fails
+    unless the route's counters moved: bf16 the tile kernels'
+    (``NAME_TILES``, ``NAME_BWD_TILES``) with the wrapper's, float32 the
+    wrapper's alone."""
+    names = (K3.NAME, K3.NAME_TILES) + ((K3.NAME_BWD, K3.NAME_BWD_TILES) if backward else ())
+    before = {n: _build.launches.get(n, 0) for n in names}
+    yield
+    ran = {n: _build.launches.get(n, 0) - before[n] for n in names}
+    tiles = int(cd == torch.bfloat16)
+    want = {K3.NAME: 1, K3.NAME_TILES: tiles}
+    if backward:
+        want.update({K3.NAME_BWD: 1, K3.NAME_BWD_TILES: tiles})
+    if ran != want:
+        raise AssertionError(f"K3 {str(cd)[6:]}: launches {ran}, expected {want}")
+
+
+def march_fwd_bytes(rays, steps, hid, feat_bytes, save):
+    """The forward's own bytes: the latent, the rays' points and directions
+    in, the final points out, the weights; with ``save`` the saved rows."""
+    rows = rays * steps * K3.aux_width(hid) * 4 if save else 0
+    return feat_bytes + rays * 3 * 4 * 3 + C * 4 * hid * 2 + rows
+
+
 def check_march(gen):
     cases = []
     # (views, steps, early-stop eps, hidden, tolerance and why)
@@ -500,15 +543,16 @@ def check_march(gen):
         # 2 steps: gate sums in another order and one-ulp transcendental
         # differences, through a bf16-rounded hidden state (2^-8 relative)
         (1, 2, 0.0, HIDDEN, 1e-3), (2, 2, 0.0, HIDDEN, 1e-3), (1, 2, 0.02, HIDDEN, 1e-3),
-        # hidden 62 (the widest the TPU kernel takes): each lane carries two
-        # units and W_ih is read from L2; the same differences
+        # hidden 62 (the widest the TPU kernel takes): four 16-unit groups,
+        # W_ih's fragments read from L2; the same differences
         (1, 2, 0.0, 62, 1e-3),
         # 10 steps: the same differences carried through 8 more steps
         (1, STEPS, 0.0, HIDDEN, 5e-3),
     ):
         inp = march_inputs(gen, ns, hidden=hid)
-        got = fused_lstm_march(**inp, steps=steps, early_stop_eps=eps,
-                               compute_dtype=torch.bfloat16)
+        with march_routed(torch.bfloat16):
+            got = fused_lstm_march(**inp, steps=steps, early_stop_eps=eps,
+                                   compute_dtype=torch.bfloat16)
         want = lstm_march_plain(**inp, steps=steps, early_stop_eps=eps,
                                 compute_dtype=torch.bfloat16)
         if not torch.isfinite(got).all():
@@ -517,16 +561,65 @@ def check_march(gen):
                            max_err(got, want), tol))
     inp = march_inputs(gen, 1)
     kw = dict(steps=STEPS, compute_dtype=torch.bfloat16)
-    ms = time_ms(lambda: fused_lstm_march(**inp, **kw))
+    run = lambda: fused_lstm_march(**inp, **kw)
+    cases.append(check_rerun("rerun forward", [run()], [run()]))
+    ms = time_ms(run)
     plain_ms = time_ms(lambda: lstm_march_plain(**inp, **kw))
+    device = kernel_device_ms(run, K3_FWD_KERNELS)
+    host = host_ms(run)  # the wrapper's host time, its weight fragments kept
+    # the wrapper keeps W_ih's and W_hh's fragments per weight: a weight
+    # changed in place after a call reaches the next (its own generator, so
+    # the later checks keep their inputs)
+    ch = march_inputs(torch.Generator(device=DEV).manual_seed(5), 1)
+    kw2 = dict(steps=2, compute_dtype=torch.bfloat16)
+    fused_lstm_march(**ch, **kw2)
+    for k in ("w_ih", "w_hh"):
+        ch[k].neg_()
+        cases.append(check(f"{k} changed in place after a call",
+                           max_err(fused_lstm_march(**ch, **kw2), lstm_march_plain(**ch, **kw2)),
+                           1e-3))
+    smi = sustained(run, 1.0, SMI_FIELDS)  # the SM clock and power beside the time
     flops = CHUNK * STEPS * (8 * C + 2 * C * 4 * HIDDEN + 2 * HIDDEN * 4 * HIDDEN + 2 * HIDDEN)
-    b_ms, b_by = bound(inp["feat"].numel() * 2 + CHUNK * 3 * 4 * 3 + C * 4 * HIDDEN * 2,
+    b_ms, b_by = bound(march_fwd_bytes(CHUNK, STEPS, HIDDEN, inp["feat"].numel() * 2, False),
                        flops, BF16_FLOPS)
+    # the train step's call: 4 scenes, under autograd (the saved rows); drawn
+    # from a generator of its own, so the later checks keep their inputs
+    tr = march_inputs(torch.Generator(device=DEV).manual_seed(3), 1, sb=SB_TRAIN,
+                      w_out_scale=TIMED_HEAD)
+    leaves = {k: v.requires_grad_(True) if k != "proj" else v for k, v in tr.items()}
+    run_saved = lambda: fused_lstm_march(**leaves, **kw)
+    cases.append(check_rerun("rerun forward with the saved rows", [run_saved().detach()],
+                             [run_saved().detach()]))
+    saved = kernel_device_ms(run_saved, K3_FWD_KERNELS)
+    saved_smi = sustained(run_saved, 1.0, SMI_FIELDS)
+    saved_b = bound(march_fwd_bytes(SB_TRAIN * CHUNK, STEPS, HIDDEN, tr["feat"].numel() * 2,
+                                    True), SB_TRAIN * flops, BF16_FLOPS)
+    # the kept float32 route (warp per ray) at the serving shape
+    f32 = {k: (v.float() if v.is_floating_point() else v) for k, v in inp.items()}
+    kw32 = dict(steps=STEPS, compute_dtype=torch.float32)
+    with march_routed(torch.float32):
+        fused_lstm_march(**f32, **kw32)
+    run32 = lambda: fused_lstm_march(**f32, **kw32)
+    kept = dict(kernel=K3_F32_KERNELS[0], ms=time_ms(run32),
+                device_ms=kernel_device_ms(run32, K3_F32_KERNELS[:1])[K3_F32_KERNELS[0]],
+                plain_ms=time_ms(lambda: lstm_march_plain(**f32, **kw32)),
+                bound_ms=bound(march_fwd_bytes(CHUNK, STEPS, HIDDEN, inp["feat"].numel() * 4,
+                                               False), flops, F32_FLOPS)[0], library_ms=None)
+    print(f"K3 forward: serve R={CHUNK} {device[K3_FWD_KERNELS[0]]:.4f} device ms (call {ms:.4f}, "
+          f"host {host:.4f}, "
+          f"SM {smi['clocks.sm']} MHz, {smi['power.draw']} W); train {SB_TRAIN}x{CHUNK} with "
+          f"the saved rows {saved[K3_FWD_KERNELS[0]]:.4f} device ms (SM "
+          f"{saved_smi['clocks.sm']} MHz); float32 warp kernel {kept['device_ms']:.4f}")
     return dict(name="fused_lstm_march", source="avr_tpu_torch/csrc/march.cu",
                 replaces="avr_tpu/ops/pallas/march.py:703", tpu_kernel="fused_lstm_march",
+                kernel=K3_FWD_KERNELS[0],
                 shape=f"R={CHUNK} x {STEPS} steps, NS=1, C={C}, hidden {HIDDEN}, bf16",
-                cases=cases, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-                bound_by=b_by)
+                cases=cases, ms=device[K3_FWD_KERNELS[0]], call_ms=ms, host_ms=host, sustained=smi,
+                plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                saved_rows=dict(shape=f"{SB_TRAIN}x{CHUNK} rays, under autograd",
+                                device_ms=saved[K3_FWD_KERNELS[0]], sustained=saved_smi,
+                                bound_ms=saved_b[0], bound_by=saved_b[1]),
+                kept_f32=kept)
 
 
 # ---------------------------------------------------------------------------
@@ -1293,8 +1386,8 @@ def check_march_bwd(gen):
     # (scenes, views, steps, early-stop eps, cotangent scale, step-head
     # scale, operand dtype, tolerance on the relative L2 error).  float32:
     # sums in other orders only (1e-3).  bf16: the two sides round the
-    # cotangents at other places and the atomics sum dfeat in another
-    # order; a few tenths of a percent (2e-2).  With the step head at 0.05
+    # cotangents at other places and the bins sum dfeat in another order; a
+    # few tenths of a percent (2e-2).  With the step head at 0.05
     # every step multiplies a perturbation of the points by ~3: at 10 steps
     # a 1e-6 nudge moves the plain version's own float32 gradients by O(1)
     # (the conditioning line), so the bounded float32 10-step case takes a
@@ -1320,7 +1413,8 @@ def check_march_bwd(gen):
         inp = march_inputs(gen, ns, dtype=cd, sb=sb, w_out_scale=wo, hidden=hid)
         g = randn(gen, sb, CHUNK, 3, scale=scale)
         kw = dict(steps=steps, early_stop_eps=eps, compute_dtype=cd)
-        got = run(fused_lstm_march, inp, g, **kw)
+        with march_routed(cd, backward=True):
+            got = run(fused_lstm_march, inp, g, **kw)
         want = run(lstm_march_plain, inp, g, **kw)
         label = (f"SB={sb} NS={ns} steps={steps} eps={eps} x{scale} w_out {wo} {str(cd)[6:]} "
                  f"hidden {hid}")
@@ -1358,39 +1452,78 @@ def check_march_bwd(gen):
     label = f"SB={SB_TRAIN} NS=1 steps={STEPS} eps=0.0 x1.0 w_out {TIMED_HEAD} bf16 (timed)"
     for nm, a, b in zip(MARCH_GRADS, got, want):
         cases.append(check_l2(f"{nm} {label}", a, b, 2e-2))
+    # no float atomics: all eight gradients bit for bit the same on a rerun
+    cases.append(check_rerun(f"rerun all eight gradients {label}", got,
+                             grads_of(f(fused_lstm_march), tuple(inp[k] for k in keys), g)))
     conditioning(inp, g, got, want, label, steps=STEPS, compute_dtype=torch.bfloat16)
     del got, want
     pair_ms, plain_ms = time_ms(run_k), time_ms(run_p, iters=3)
-    split = kernel_device_ms(run_k, ("lstm_march_bwd_kernel",) + WGRAD_KERNELS)
+    split = kernel_device_ms(run_k, K3_BWD_KERNELS + WGRAD_KERNELS)
+    bwd_ms = sum(split[k] for k in K3_BWD_KERNELS)  # the walk, the bins, the reduce
+    wg_dev = sum(split[k] for k in WGRAD_KERNELS)
+    smi = sustained(run_k, 1.0, SMI_FIELDS)  # the SM clock and power beside the time
     rays = SB_TRAIN * CHUNK
     rows = rays * STEPS
-    # the dW_ih GEMM's yardstick: torch.matmul of v^T (rows x C) and the gate
-    # cotangents (rows x 4H), bf16 operands of the walk's shapes
-    v = randn(gen, rows, C, dtype=torch.bfloat16)
-    dg = randn(gen, rows, 4 * HIDDEN, dtype=torch.bfloat16)
+    hp = K3.padded_hidden(HIDDEN)
+    # dW_ih's and dW_hh's GEMM as the wrapper launches it (two jobs over the
+    # walk's rows, v_t | round(h_prev) and the permuted gate cotangents);
+    # its yardstick torch.matmul of the same bf16 operands
+    v = randn(gen, rows, C + hp, dtype=torch.bfloat16)
+    dg = randn(gen, rows, 4 * hp, dtype=torch.bfloat16)
     gemm_library_ms = time_ms(lambda: torch.matmul(v.t(), dg))
-    dw_ih = torch.zeros((C, 4 * HIDDEN), dtype=torch.float32, device=DEV)
+    dw_ih = torch.zeros((C, 4 * hp), dtype=torch.float32, device=DEV)
+    dw_hh = torch.zeros((hp, 4 * hp), dtype=torch.float32, device=DEV)
     wgrad_host = call_timing(
-        lambda: K2.wgrad(K3_NAME_WGRAD, [(v.data_ptr(), dg.data_ptr(), dw_ih, None, rows, C,
-                                          4 * HIDDEN, C, 4 * HIDDEN)], torch.bfloat16, DEV),
-        sum(split[k] for k in WGRAD_KERNELS))
-    del v, dg, dw_ih
+        lambda: K2.wgrad(K3.NAME_WGRAD, [
+            (v.data_ptr(), dg.data_ptr(), dw_ih, None, rows, C + hp, 4 * hp, C, 4 * hp),
+            (v.data_ptr() + 2 * C, dg.data_ptr(), dw_hh, None, rows, C + hp, 4 * hp, hp, 4 * hp)],
+            torch.bfloat16, DEV), wg_dev)
+    del v, dg, dw_ih, dw_hh
     fmap = inp["feat"].numel()
-    # the walk: dv and the cell per ray-step, the gather's dots and dfeat
-    # adds, the recurrent and step-head weight gradients
-    walk_flops = rows * (2 * C * 4 * HIDDEN + 16 * C + 6 * HIDDEN * 4 * HIDDEN)
-    b_ms, b_by = bound(fmap * 2 + 2 * fmap * 4 + rays * 3 * 4 * 4 + C * 4 * HIDDEN * 2
-                       + rows * (C + 4 * HIDDEN) * 2, walk_flops, BF16_FLOPS)
-    wg_ms, wg_by = bound(rows * (C + 4 * HIDDEN) * 2 + C * 4 * HIDDEN * 4,
-                         2 * rows * C * 4 * HIDDEN, BF16_FLOPS)
+    aw = K3.aux_width(HIDDEN)
+    # the function's own operations: dv and gh, the gather's blend and
+    # dots; the bins: a product per (ray-step, tap, channel)
+    walk_flops = rows * (2 * 4 * HIDDEN * (C + HIDDEN) + 16 * C + 8 * C)
+    # the function's own bytes: the latent and the saved rows read once,
+    # dfeat written once in bf16, the rays' points, directions and
+    # cotangents, the weights; the rows the walk writes for the wgrad are
+    # the design's, counted in the wgrad's bound
+    b_ms, b_by = bound(fmap * 2 + rows * aw * 4 + fmap * 2 + rays * 3 * 4 * 4
+                       + (C + HIDDEN) * 4 * HIDDEN * 2, walk_flops, BF16_FLOPS)
+    # the parent's figure: a zeroed float32 dfeat written and the rows, no saved rows
+    old_b = bound(fmap * 2 + 2 * fmap * 4 + rays * 3 * 4 * 4 + C * 4 * HIDDEN * 2
+                  + rows * (C + 4 * HIDDEN) * 2,
+                  rows * (2 * C * 4 * HIDDEN + 16 * C + 6 * HIDDEN * 4 * HIDDEN), BF16_FLOPS)
+    wg_ms, wg_by = bound(rows * (C + hp + 4 * hp) * 2 + (C + hp) * 4 * hp * 4,
+                         2 * rows * (C + hp) * 4 * hp, BF16_FLOPS)
+    # the kept float32 route (warp per ray, float atomics) at the same shape
+    f32 = {k: (v.float() if v.is_floating_point() else v) for k, v in inp.items()}
+    f32_fn = lambda *t: fused_lstm_march(f32["proj"], *t, steps=STEPS, compute_dtype=torch.float32)
+    _, run32 = grads_of(f32_fn, tuple(f32[k] for k in keys), g, keep=True)
+    _, plain32 = grads_of(lambda *t: lstm_march_plain(f32["proj"], *t, steps=STEPS,
+                                                      compute_dtype=torch.float32),
+                          tuple(f32[k] for k in keys), g, keep=True)
+    # its own bytes: a float32 latent read and a zeroed float32 dfeat written
+    # (its atomics add into it), the saved rows, the rays, the dW_ih rows
+    kept = dict(kernel=K3_F32_KERNELS[1], ms=time_ms(run32, iters=3),
+                device_ms=kernel_device_ms(run32, K3_F32_KERNELS[1:], iters=2)[K3_F32_KERNELS[1]],
+                plain_ms=time_ms(plain32, iters=2), library_ms=None,
+                bound_ms=bound(fmap * 4 * 3 + rows * aw * 4 + rays * 3 * 4 * 4
+                               + rows * (C + 4 * HIDDEN) * 4, walk_flops, F32_FLOPS)[0])
+    del run32, plain32
+    print(f"K3 backward timed: walk + bins + reduce {bwd_ms:.4f} device ms ({split}), bound "
+          f"{b_ms:.4f} by {b_by} (the parent's figure {old_b[0]:.4f} by {old_b[1]}); SM "
+          f"{smi['clocks.sm']} MHz, {smi['power.draw']} W; float32 warp kernel "
+          f"{kept['device_ms']:.4f}")
     shape = f"{SB_TRAIN}x{CHUNK} rays x {STEPS} steps, NS=1, C={C}, hidden {HIDDEN}, bf16"
     common = dict(replaces="avr_tpu/ops/pallas/march.py:621", tpu_kernel="_bwd_kernel",
                   shape=shape, cases=cases, plain_ms=plain_ms, pair_ms=pair_ms)
     return [dict(name="fused_lstm_march_bwd", source="avr_tpu_torch/csrc/march.cu",
-                 ms=split["lstm_march_bwd_kernel"], bound_ms=b_ms, bound_by=b_by,
-                 library_ms=None, **common),
+                 kernel=K3_BWD_KERNELS[0], ms=bwd_ms, device_ms_by_kernel=split, sustained=smi,
+                 bound_ms=b_ms, bound_by=b_by, parent_bound_ms=old_b[0], library_ms=None,
+                 kept_f32=kept, **common),
             dict(name="fused_lstm_march_bwd_wgrad", source="avr_tpu_torch/csrc/resnetfc_hopper.cu",
-                 ms=sum(split[k] for k in WGRAD_KERNELS), bound_ms=wg_ms, bound_by=wg_by,
+                 ms=wg_dev, bound_ms=wg_ms, bound_by=wg_by,
                  library_ms=gemm_library_ms, library="torch.matmul(v^T, dgates)", **wgrad_host,
                  **common)]
 
@@ -1840,6 +1973,25 @@ def run_slice(path="adaptive", frames=3):
     return res, render
 
 
+def march_bins_us(events):
+    """Device us of the bin kernels K3's bf16 backward launches.  They share
+    the scan's, plan's and reduce's names with K1's and K5's bins; one C
+    call launches them on one stream after its walk and before its partials
+    kernel, so they are the bin kernels that run between those two."""
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = sorted((e for e in events if e.device_type == cuda),
+                     key=lambda e: e.time_range.start)
+    us, inside = 0.0, False
+    for e in kernels:
+        if K3_BWD_KERNELS[0] in e.name:
+            inside = True
+        elif K3_BWD_KERNELS[1] in e.name:
+            inside = False
+        elif inside and any(k in e.name for k in GATHER_BIN_KERNELS):
+            us += e.time_range.elapsed_us()
+    return us
+
+
 def profile_frame(render, label="frame", out_dir="traces"):
     """One call of ``render`` (a frame, or a train step) under
     ``torch.profiler``: device time by operation, the device's busy share of
@@ -1860,23 +2012,27 @@ def profile_frame(render, label="frame", out_dir="traces"):
     busy_us = sum(r[1] for r in rows)
     ours = ("gather_bilinear_kernel", "gather_bilinear_bwd_kernel", "resnetfc_kernel",
             FWD_KERNEL, *K2_BWD_KERNELS, "resnetfc_dgrad_kernel", "resnetfc_wgrad_kernel",
-            "lstm_march_kernel", "lstm_march_bwd_kernel", "gather_projected_kernel",
+            *K3_FWD_KERNELS, *K3_BWD_KERNELS, *K3_F32_KERNELS, "gather_projected_kernel",
             "gather_projected_bwd_kernel", *GATHER_BIN_KERNELS, "volume_integral_kernel",
             "volume_integral_bwd_kernel", "threefry_kernel")
     kernel_us = sum(r[1] for r in rows if any(o in r[0] for o in ours))
-    # K1's or K5's backward: its front pass and the binned accumulation
+    # K3: its kernels and the bins its backward launches; K1's or K5's
+    # backward: its front pass and the other bin launches
+    k3_bins_us = march_bins_us(prof.events())
+    k3_us = k3_bins_us + sum(r[1] for r in rows if any(
+        o in r[0] for o in K3_FWD_KERNELS + K3_F32_KERNELS + K3_BWD_KERNELS[:2]))
     gather_bwd_us = sum(r[1] for r in rows if any(o in r[0] for o in K1_BWD_KERNELS
-                                                  + K5_BWD_KERNELS[:1]))
+                                                  + K5_BWD_KERNELS[:1])) - k3_bins_us
     print(f"profile {label}: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
           f"({busy_us / wall_us:.3f} of wall), port kernels {kernel_us / 1e3:.3f} ms, gather "
-          f"backward {gather_bwd_us / 1e3:.3f} ms")
+          f"backward {gather_bwd_us / 1e3:.3f} ms, K3 {k3_us / 1e3:.3f} ms")
     for key, us, count in rows[:25]:
         print(f"  {us / 1e3:9.3f} ms  x{count:<5d} {key[:100]}")
     os.makedirs(out_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out_dir, f"{label}_trace.json"))
     return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
                 busy_share=busy_us / wall_us, port_kernels_ms=kernel_us / 1e3,
-                gather_bwd_ms=gather_bwd_us / 1e3,
+                gather_bwd_ms=gather_bwd_us / 1e3, k3_ms=k3_us / 1e3,
                 top=[dict(op=k[:100], ms=us / 1e3, count=c) for k, us, c in rows[:25]])
 
 
@@ -1973,6 +2129,10 @@ TRAIN_LAUNCHES["adaptive_device_data"] = {**TRAIN_LAUNCHES["adaptive"], K7.NAME_
 for _table in (SERVE_LAUNCHES, TRAIN_LAUNCHES):
     for _want in _table.values():
         _want[K2.NAME_WGMMA] = _want.get(K2.NAME, 0) + _want.get(K2.NAME_STASH, 0)
+        # and every bf16 march runs K3's tile kernels, forward and backward
+        for _name, _tiles in ((K3.NAME, K3.NAME_TILES), (K3.NAME_BWD, K3.NAME_BWD_TILES)):
+            if _name in _want:
+                _want[_tiles] = _want[_name]
 # parameters the loss gives an exactly zero gradient, so Adam leaves them
 # where they were: the coarse decoder's sigma row (the loss reads only its
 # rgb) for the marching renderers, and the Raymarcher's unused fine decoder
@@ -2200,6 +2360,32 @@ def check_vr_chunks():
     return cases
 
 
+def check_adaptive_rerun():
+    """The bf16 adaptive train step's loss and gradients, twice on the same
+    weights and batch: with K1's, K5's and K3's backward free of float
+    atomics, only cuDNN's encoder backward may move them (reported, not
+    bounded)."""
+    model = path_model("adaptive", torch.bfloat16, DEV)
+    params = dict(model.named_parameters())
+    batch = train_batch(DEV)
+    (l1, g1), (l2, g2) = (loss_and_grads(model, params, LossParams(loss_mode="both"), *batch,
+                                         (0, 5)) for _ in range(2))
+
+    def worst(prefix):
+        return max((float((g1[k].float() - g2[k].float()).norm()
+                          / g2[k].float().norm().clamp_min(1e-30)), k)
+                   for k in g2 if k.startswith(prefix))
+
+    enc, rest = worst("net.encoder"), worst("net.mlp_")
+    march = max(worst("lstm."), worst("out_layer."))  # the LSTM and its step head
+    print(f"adaptive step twice on one batch: loss {float(l1)} vs {float(l2)}; worst relative "
+          f"L2: encoder {enc}, decoders {rest}, march {march}")
+    return [{"case": "bf16 adaptive step twice on one batch", "against": "rerun",
+             "loss_diff": abs(float(l1) - float(l2)), "encoder_worst_rel_l2": enc[0],
+             "encoder_worst": enc[1], "decoder_worst_rel_l2": rest[0],
+             "march_worst_rel_l2": march[0]}]
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """Inside: the model calls the kernels' plain versions on any device
@@ -2396,12 +2582,13 @@ def main() -> int:
                 **{f"train_{k}": v["launches"] for k, v in train.items()}}
     results = {"serve": serve, "train": train,
                "vr_one_vs_8_chunks": check_vr_chunks(),
+               "adaptive_rerun": check_adaptive_rerun(),
                "reference": check_small_reference() + check_small_train()
                + check_small_train(rng_mode="legacy")
                + check_small_reference("adaptive_fused") + check_small_train("adaptive_fused")
                + check_small_reference("VR") + check_small_train("VR")
                + check_small_reference("Raymarcher")}
-    for c in results["vr_one_vs_8_chunks"] + results["reference"]:
+    for c in results["vr_one_vs_8_chunks"] + results["adaptive_rerun"] + results["reference"]:
         print(f"reference: {c}")
 
     for k in kernels:

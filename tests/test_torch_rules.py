@@ -1,8 +1,8 @@
 """Rules of the port that hold on any machine.
 
-* No module of ``avr_tpu_torch`` and no part of ``chip_smoke.py`` or
-  ``train_skip_probe.py`` imports JAX, Flax, Optax or the JAX package (AST
-  scan).
+* No module of ``avr_tpu_torch`` and no part of ``chip_smoke.py``,
+  ``train_skip_probe.py`` or ``march_turns.py`` imports JAX, Flax, Optax or
+  the JAX package (AST scan).
 * Entry points default to the card: with no CUDA device and no explicit
   ``device``, they raise instead of running on the CPU.
 * CPU tensors take the plain versions and never touch the kernel library,
@@ -56,8 +56,8 @@ def _imports(path: pathlib.Path):
 
 
 def _port_files():
-    return sorted((ROOT / "avr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                              ROOT / "train_skip_probe.py"]
+    return sorted((ROOT / "avr_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "train_skip_probe.py", ROOT / "march_turns.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
