@@ -8,20 +8,45 @@
 // padding_mode="border") on an NHWC map, float32 blend, output in the map's
 // dtype.
 //
-// Forward.  Bound on H100: bytes (band shape: ~84 MB written vs a 4.2 MB
-// latent that stays in L2).  One thread per (point, 16-byte channel group);
-// the 32 threads of a warp read neighbouring channel groups of the same
-// taps, so every tap read and the output write are coalesced 16-byte
-// accesses.  The TPU kernel's one-hot MXU selectors and row windows are
-// not needed: a tap is a plain load.
-//
 // K5 replaces gather.py:642 gather_bilinear_projected (forward, call :669)
 // and its VJP _pbwd (:699, call :712): world points (B, N, 3) and each
 // view's 16 packed projection scalars in, the grid computed in the kernel
-// (project_point, common.cuh) and K1's gather at it.  A block serves one
-// view (blockIdx.y) and holds its 16 scalars in shared memory.  The
-// projection scalars get no cotangent (cameras are conditioning, as in the
-// TPU kernel).
+// (project_point, common.cuh) and K1's gather at it.  The projection
+// scalars get no cotangent (cameras are conditioning, as in the TPU
+// kernel).
+//
+// Forward (K1 and K5, one kernel: gather_fwd_tile_kernel<PROJ, T>).  Bound
+// on H100: bytes, the output's (band: 84 MB written against a 4.2 MB
+// latent that stays in L2; 0.0265 ms at 3.35 TB/s, which a store-only
+// kernel on an H100 80GB HBM3 at 700 W also takes).  The TPU kernel's
+// one-hot MXU selectors and row windows are not needed: a tap is a plain
+// load.  One thread a 16-byte channel group (every thread computing its
+// point's taps, or, for K5, 4 points a CTA projected by 4 threads while
+// 252 wait) took as long at single-pixel points, every tap in L1, as at
+// ray-shaped and uniform ones (~0.051 ms; gather_turns.py at the repo's
+// root): instructions and latency held it, not the taps' L2 traffic.  So:
+//   - one CTA a tile of P consecutive points of one view (P = 64 at C =
+//     512 bf16: 4,096 16-byte groups, 16 a thread; fewer, down to 16, where
+//     the launch would give an SM less than two CTAs: ops/kernels/gather.py
+//     fwd_plan).  Thread p computes point p's taps once (K5: projects it
+//     first), into shared memory; one barrier a tile.  The loop's index
+//     math is 32-bit, stepped by adding; a tile's base offsets are formed
+//     once as size_t.
+//   - lanes own consecutive channel groups of a point, so every tap load
+//     and store is a coalesced 16-byte access; each thread has two items'
+//     eight tap loads in flight, through the read-only path so that a
+//     ray's samples, which share taps, hit L1.
+//   - four CTAs an SM (64 registers a thread): one CTA's taps are computed
+//     while the others stream.  CTAs that walked several tiles (the next
+//     tile's taps prepared as the current streamed) were slower in
+//     development builds at every grid tried: the block scheduler balances
+//     one-tile CTAs over the SMs, a fixed grid leaves some SMs one CTA more.
+//   - the output goes out by streaming 16-byte stores (st.global.cs),
+//     which were faster in development builds than plain stores and than
+//     staging the tile in shared memory for one cp.async.bulk store.
+// Its float32 blend rounds each operation on its own (bilinear_taps,
+// blend4, project_point), so the output equals the plain version's bit for
+// bit in both dtypes.
 //
 // Backward (K1 and K5, one design).  Bound on H100: bytes, the function's
 // own: g, the map and the coords or points in, dfeat in the map's dtype and
@@ -91,21 +116,6 @@ constexpr int SLICE = 128;             // channels of one accumulate CTA
 constexpr int SEG = 256;               // points of one count / scatter CTA
 constexpr int CHUNK_MIN = 2048;        // a bin longer than this is split
 constexpr int PARTIAL_CHUNKS = 128;    // partial tiles of split bins, at most
-
-// One point's 16-byte channel group: blend the four taps of the map `base`
-// (already offset to the group) into `out`.
-template <typename T>
-__device__ __forceinline__ void gather_group(const T* base, const Taps& tp, int C, T* out) {
-  constexpr int V = Vec16<T>::N;
-  float t00[V], t01[V], t10[V], t11[V], r[V];
-  load16(base + (size_t)tp.i00 * C, t00);
-  load16(base + (size_t)tp.i01 * C, t01);
-  load16(base + (size_t)tp.i10 * C, t10);
-  load16(base + (size_t)tp.i11 * C, t11);
-#pragma unroll
-  for (int j = 0; j < V; ++j) r[j] = blend4(t00[j], t01[j], t10[j], t11[j], tp);
-  store16(out, r);
-}
 
 // One point's coordinate cotangent by a whole warp, from the per-tap dots
 // <g, f_tap> over its C channels; returned to every lane.
@@ -693,34 +703,155 @@ void march_bins_bf16(const float* points, const float* proj, const bf16* g, bf16
 }
 
 // ---------------------------------------------------------------------------
-// K1
+// Forward, K1 and K5: one tiled kernel (PROJ: K5's world points)
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-gather_bilinear_kernel(const T* __restrict__ feat, const float* __restrict__ coords,
-                       T* __restrict__ out, int H, int W, int C, int N, long long total) {
-  constexpr int V = Vec16<T>::N;
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int groups = C / V;
-  const int grp = (int)(i % groups);
-  const long long pt = i / groups;  // over B * N
-  const int b = (int)(pt / N);
-  const float2 g = reinterpret_cast<const float2*>(coords)[pt];
-  gather_group(feat + (size_t)b * H * W * C + (size_t)grp * V, bilinear_taps(g.x, g.y, H, W), C,
-               out + (size_t)pt * C + (size_t)grp * V);
+constexpr int FWD_THREADS = 256;
+constexpr int FWD_CTAS_PER_SM = 4;   // the launch bound: 64 registers a thread
+constexpr int FWD_MAX_POINTS = 256;  // points of a tile, at most: one a thread
+constexpr int FWD_UNROLL = 2;        // channel groups a thread has in flight
+
+// A point's four taps as the tile reads them: flat pixels and weights.
+struct __align__(16) TapSlot {
+  int4 idx;
+  float4 w;
+};
+
+// 16 bytes through the read-only, L1-cached path, kept raw until the blend.
+__device__ __forceinline__ uint4 ldg16(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+template <typename T> __device__ __forceinline__ void unpack16(const uint4& v, float* out);
+template <> __device__ __forceinline__ void unpack16<float>(const uint4& v, float* out) {
+  out[0] = __uint_as_float(v.x);
+  out[1] = __uint_as_float(v.y);
+  out[2] = __uint_as_float(v.z);
+  out[3] = __uint_as_float(v.w);
+}
+template <> __device__ __forceinline__ void unpack16<bf16>(const uint4& v, float* out) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
 }
 
-template <typename T>
-static int launch(const void* feat, const void* coords, void* out, int B, int H, int W,
-                  int C, int N, cudaStream_t stream) {
-  const long long total = (long long)B * N * (C / Vec16<T>::N);
-  const long long blocks = (total + THREADS - 1) / THREADS;
-  gather_bilinear_kernel<T><<<(unsigned)blocks, THREADS, 0, stream>>>(
-      (const T*)feat, (const float*)coords, (T*)out, H, W, C, N, total);
+// Point pt's taps: K1 at its grid coordinate, K5 at the projection of its
+// world point through view b's 16 scalars (project_point), then
+// bilinear_taps, as the plain version computes them.
+template <bool PROJ>
+__device__ __forceinline__ TapSlot tap_slot(const float* src, const float* proj, size_t pt,
+                                            int b, int H, int W) {
+  Taps t;
+  if (PROJ) {
+    float p[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) p[k] = __ldg(proj + (size_t)b * 16 + k);
+    const Projected q =
+        project_point(p, __ldg(src + pt * 3), __ldg(src + pt * 3 + 1), __ldg(src + pt * 3 + 2));
+    t = bilinear_taps(q.gx, q.gy, H, W);
+  } else {
+    const float2 c = __ldg(reinterpret_cast<const float2*>(src) + pt);
+    t = bilinear_taps(c.x, c.y, H, W);
+  }
+  TapSlot slot;
+  slot.idx = make_int4(t.i00, t.i01, t.i10, t.i11);
+  slot.w = make_float4(t.w00, t.w01, t.w10, t.w11);
+  return slot;
+}
+
+// CTA t writes tile j = t % tpv of view b = t / tpv: points [j P, j P + P)
+// of the view, the last tile short (tpv = ceil(N / P)).  Thread p < np
+// computes point p's taps into shared memory; after the one barrier, item
+// i of the tile is channel group i % G of point i / G (G = C / V), and
+// thread tid takes items tid, tid + 256, ..., stepping its (point, group)
+// by adding, FWD_UNROLL items' 4 tap loads at a time.
+template <bool PROJ, typename T>
+__global__ void __launch_bounds__(FWD_THREADS, FWD_CTAS_PER_SM)
+gather_fwd_tile_kernel(const T* __restrict__ feat, const float* __restrict__ src,
+                       const float* __restrict__ proj, T* __restrict__ out, int H, int W, int C,
+                       int N, int P, int tpv) {
+  constexpr int V = Vec16<T>::N, U = FWD_UNROLL;
+  __shared__ TapSlot slots[FWD_MAX_POINTS];
+  const int tid = threadIdx.x, G = C / V, t = blockIdx.x;
+  const int b = t / tpv;
+  const unsigned n0 = (unsigned)(t - b * tpv) * (unsigned)P;
+  const int np = min(P, (int)((unsigned)N - n0));
+  const size_t pt0 = (size_t)b * N + n0;
+  if (tid < np) slots[tid] = tap_slot<PROJ>(src, proj, pt0 + tid, b, H, W);
+  __syncthreads();
+  const T* map = feat + (size_t)b * H * W * C;
+  T* ob = out + pt0 * C;
+  const int p_step = FWD_THREADS / G, g_step = FWD_THREADS - p_step * G;
+  int p = tid / G, g = tid - p * G;
+  while (p < np) {
+    int pu[U], gu[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      pu[u] = p;
+      gu[u] = g;
+      p += p_step;
+      g += g_step;
+      if (g >= G) {
+        g -= G;
+        ++p;
+      }
+    }
+    uint4 raw[U][4];
+    float4 w[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (pu[u] < np) {
+        const TapSlot ts = slots[pu[u]];
+        const T* base = map + gu[u] * V;
+        raw[u][0] = ldg16(base + (size_t)(unsigned)ts.idx.x * C);
+        raw[u][1] = ldg16(base + (size_t)(unsigned)ts.idx.y * C);
+        raw[u][2] = ldg16(base + (size_t)(unsigned)ts.idx.z * C);
+        raw[u][3] = ldg16(base + (size_t)(unsigned)ts.idx.w * C);
+        w[u] = ts.w;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (pu[u] < np) {
+        Taps tp;
+        tp.w00 = w[u].x;
+        tp.w01 = w[u].y;
+        tp.w10 = w[u].z;
+        tp.w11 = w[u].w;
+        float t00[V], t01[V], t10[V], t11[V], r[V];
+        unpack16<T>(raw[u][0], t00);
+        unpack16<T>(raw[u][1], t01);
+        unpack16<T>(raw[u][2], t10);
+        unpack16<T>(raw[u][3], t11);
+#pragma unroll
+        for (int k = 0; k < V; ++k) r[k] = blend4(t00[k], t01[k], t10[k], t11[k], tp);
+        // streaming store: the output is read by the next kernel, not this one
+        uint4 v;
+        store16(reinterpret_cast<T*>(&v), r);
+        __stcs(reinterpret_cast<uint4*>(ob + (size_t)pu[u] * C + gu[u] * V), v);
+      }
+    }
+  }
+}
+
+template <bool PROJ, typename T>
+static int launch_fwd(const void* feat, const void* src, const void* proj, void* out, int B,
+                      int H, int W, int C, int N, int P, cudaStream_t stream) {
+  // a tile's taps live in slots[FWD_MAX_POINTS], one a thread
+  if (P < 1 || P > FWD_MAX_POINTS) return (int)cudaErrorInvalidValue;
+  if (B == 0 || N == 0) return 0;  // no point: nothing to launch
+  const int tpv = (N + P - 1) / P;
+  gather_fwd_tile_kernel<PROJ, T><<<(unsigned)B * tpv, FWD_THREADS, 0, stream>>>(
+      (const T*)feat, (const float*)src, (const float*)proj, (T*)out, H, W, C, N, P, tpv);
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// K1
+// ---------------------------------------------------------------------------
 
 // Backward front: one warp per point writes its coordinate cotangent.
 template <typename T>
@@ -762,56 +893,15 @@ extern "C" int avr_gather_bilinear_bwd(const void* feat, const void* coords, con
 }
 
 extern "C" int avr_gather_bilinear(const void* feat, const void* coords, void* out, int B,
-                                   int H, int W, int C, int N, int dtype, void* stream) {
+                                   int H, int W, int C, int N, int P, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  return dtype == 1 ? launch<bf16>(feat, coords, out, B, H, W, C, N, s)
-                    : launch<float>(feat, coords, out, B, H, W, C, N, s);
+  return dtype == 1 ? launch_fwd<false, bf16>(feat, coords, nullptr, out, B, H, W, C, N, P, s)
+                    : launch_fwd<false, float>(feat, coords, nullptr, out, B, H, W, C, N, P, s);
 }
 
 // ---------------------------------------------------------------------------
 // K5
 // ---------------------------------------------------------------------------
-
-// Forward: block (x, b) serves points [x * pts, x * pts + pts) of view b,
-// pts = max(1, THREADS / channel groups).
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-gather_projected_kernel(const T* __restrict__ feat, const float* __restrict__ points,
-                        const float* __restrict__ proj, T* __restrict__ out, int H, int W,
-                        int C, int N, int pts) {
-  constexpr int V = Vec16<T>::N;
-  __shared__ float p_s[16];
-  __shared__ Taps taps_s[THREADS];
-  const int b = blockIdx.y, tid = threadIdx.x;
-  if (tid < 16) p_s[tid] = proj[(size_t)b * 16 + tid];
-  __syncthreads();
-  const long long p0 = (long long)blockIdx.x * pts;
-  const int np = (int)min((long long)pts, (long long)N - p0);
-  if (tid < np) {
-    const float* x = points + ((size_t)b * N + p0 + tid) * 3;
-    const Projected q = project_point(p_s, x[0], x[1], x[2]);
-    taps_s[tid] = bilinear_taps(q.gx, q.gy, H, W);
-  }
-  __syncthreads();
-  const int groups = C / V;
-  const T* map = feat + (size_t)b * H * W * C;
-  T* ob = out + ((size_t)b * N + p0) * C;
-  for (int item = tid; item < np * groups; item += THREADS) {
-    const int pt = item / groups, grp = item % groups;
-    gather_group(map + (size_t)grp * V, taps_s[pt], C, ob + (size_t)pt * C + (size_t)grp * V);
-  }
-}
-
-template <typename T>
-static int launch_projected(const void* feat, const void* points, const void* proj, void* out,
-                            int B, int H, int W, int C, int N, cudaStream_t stream) {
-  const int groups = C / Vec16<T>::N;
-  const int pts = groups >= THREADS ? 1 : THREADS / groups;
-  const dim3 grid((unsigned)((N + pts - 1) / pts), (unsigned)B);
-  gather_projected_kernel<T><<<grid, THREADS, 0, stream>>>(
-      (const T*)feat, (const float*)points, (const float*)proj, (T*)out, H, W, C, N, pts);
-  return (int)cudaGetLastError();
-}
 
 // Backward front: block (x, b) serves points [x * 8, x * 8 + 8) of view b,
 // one warp each; the grid cotangent is chained through the projection to
@@ -857,11 +947,11 @@ static int launch_projected_bwd(const void* feat, const void* points, const void
 }
 
 extern "C" int avr_gather_projected(const void* feat, const void* points, const void* proj,
-                                    void* out, int B, int H, int W, int C, int N, int dtype,
-                                    void* stream) {
+                                    void* out, int B, int H, int W, int C, int N, int P,
+                                    int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  return dtype == 1 ? launch_projected<bf16>(feat, points, proj, out, B, H, W, C, N, s)
-                    : launch_projected<float>(feat, points, proj, out, B, H, W, C, N, s);
+  return dtype == 1 ? launch_fwd<true, bf16>(feat, points, proj, out, B, H, W, C, N, P, s)
+                    : launch_fwd<true, float>(feat, points, proj, out, B, H, W, C, N, P, s);
 }
 
 extern "C" int avr_gather_projected_bwd(const void* feat, const void* points, const void* proj,

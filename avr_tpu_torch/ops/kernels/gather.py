@@ -25,8 +25,12 @@ What bounds it on Hopper: bytes.  Forward at the band shape (N = 81,920,
 C = 512, bf16): 84 MB of output against a 4.2 MB latent, ~26 us at
 3.35 TB/s; the TPU kernel's one-hot MXU selectors and row windows work
 around the TPU's lack of a fast random gather, while on Hopper a tap is a
-plain load and the latent stays in the 50 MB L2.  Forward: direct 4-tap
-loads, one thread per (point, 16-byte channel group).  Backward (the
+plain load and the latent stays in the 50 MB L2.  Forward (K1 and K5, one
+kernel): one CTA a tile of consecutive points of one view
+(:func:`fwd_plan`), each point's taps computed once into shared memory (K5:
+after its projection), then lanes stream the tile's 16-byte channel groups
+through L1, where a ray's samples share taps (``csrc/gather.cu``'s source
+note).  Backward (the
 function's own bytes, ~0.11 ms at 4 x 81,920 points in bf16): one warp per
 point computes the coordinate cotangent from the four dots; ``dfeat`` is
 binned and owner-computed (``csrc/gather.cu``'s source note): a stable
@@ -54,6 +58,8 @@ K1's bytes plus 12 B a point of points (and of their cotangent).
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Optional
 
 import torch
 
@@ -73,6 +79,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # of every tile of a view in 48 KB of shared memory, hence MAX_TILES
 TILE, SEG, PARTIAL_CHUNKS = 8, 256, 128
 MAX_TILES = 1024
+# the forward's constants (csrc/gather.cu): threads a CTA, points of a tile
+# at most (one a thread); a tile aims at FWD_TILE_ITEMS 16-byte channel
+# groups (16 a thread), and has FWD_MIN_POINTS points at least
+FWD_THREADS, FWD_MAX_POINTS = 256, 256
+FWD_TILE_ITEMS, FWD_MIN_POINTS = 4096, 16
 
 
 def clamp_strict(u: torch.Tensor, hi: float) -> torch.Tensor:
@@ -150,18 +161,48 @@ def _check(features: torch.Tensor, coords: torch.Tensor) -> None:
     _build.check_cuda_inputs(NAME, {"features": features, "coords": coords}, features.device)
 
 
-def _forward(features: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+def fwd_plan(B: int, N: int, C: int, elt: int, sms: int) -> tuple:
+    """The forward's tiles ``(P, tpv)`` (``csrc/gather.cu
+    gather_fwd_tile_kernel``): ``P`` consecutive points of one view a
+    tile, ``tpv`` tiles a view (the last one short), one CTA a tile.  ``P``
+    gives a tile about ``FWD_TILE_ITEMS`` 16-byte channel groups (``C *
+    elt / 16`` a point), at most ``FWD_MAX_POINTS``, halved down to
+    ``FWD_MIN_POINTS`` while the launch would give the card's ``sms`` SMs
+    fewer than two CTAs each (a served chunk's coarse query of 4,096
+    points: 16-point tiles)."""
+    P = max(FWD_MIN_POINTS, min(FWD_MAX_POINTS, FWD_TILE_ITEMS // (C * elt // 16)))
+    while P > FWD_MIN_POINTS and B * -(-N // P) < 2 * sms:
+        P = max(FWD_MIN_POINTS, P // 2)
+    return P, -(-N // P)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch_fwd(entry: str, name: str, features: torch.Tensor, src: torch.Tensor,
+                proj: Optional[torch.Tensor]) -> torch.Tensor:
+    """K1's (``proj`` None) or K5's forward: one launch of the tiled kernel."""
     B, H, W, C = features.shape
-    N = coords.shape[1]
+    N = src.shape[1]
     out = torch.empty((B, N, C), dtype=features.dtype, device=features.device)
-    if N == 0:
+    if B * N == 0:  # no point: nothing to launch
         return out
-    fn = _build.kernel_fn("avr_gather_bilinear", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+    P, tpv = fwd_plan(B, N, C, features.element_size(), _sms(features.device.index))
+    if B * tpv >= 2 ** 31:
+        raise ValueError(f"{name}: {B} maps of {tpv} tiles exceed a launch's 2^31 - 1 CTAs")
+    ptrs = [features, src] + ([proj] if proj is not None else []) + [out]
+    fn = _build.kernel_fn(entry, [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 7
                           + [ctypes.c_void_p])
-    err = fn(_build.ptr(features), _build.ptr(coords), _build.ptr(out), B, H, W, C, N,
-             _DTYPES[features.dtype], ctypes.c_void_p(_build.stream_ptr(features.device)))
-    _build.check(NAME, err)
+    err = fn(*(_build.ptr(t) for t in ptrs), B, H, W, C, N, P, _DTYPES[features.dtype],
+             ctypes.c_void_p(_build.stream_ptr(features.device)))
+    _build.check(name, err)
     return out
+
+
+def _forward(features: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    return _launch_fwd("avr_gather_bilinear", NAME, features, coords, None)
 
 
 def bin_workspace(B: int, H: int, W: int, C: int, N: int) -> tuple:
@@ -266,18 +307,7 @@ def _check_projected(features: torch.Tensor, points: torch.Tensor, proj: torch.T
 
 
 def _forward_projected(features, points, proj):
-    B, H, W, C = features.shape
-    N = points.shape[1]
-    out = torch.empty((B, N, C), dtype=features.dtype, device=features.device)
-    if B * N == 0:
-        return out
-    fn = _build.kernel_fn("avr_gather_projected", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                          + [ctypes.c_void_p])
-    err = fn(_build.ptr(features), _build.ptr(points), _build.ptr(proj), _build.ptr(out), B, H,
-             W, C, N, _DTYPES[features.dtype],
-             ctypes.c_void_p(_build.stream_ptr(features.device)))
-    _build.check(NAME_PROJ, err)
-    return out
+    return _launch_fwd("avr_gather_projected", NAME_PROJ, features, points, proj)
 
 
 def _backward_projected(features, points, proj, g):

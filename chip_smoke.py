@@ -41,7 +41,11 @@ Phases (any failure raises and exits non-zero):
    (the projected gather) at both of its calls on the fused path, the band
    query (81,920 points a scene) and the coarse query at the marched point
    (4,096), in 1 scene (serving) and 4 (the train step), bf16 and float32,
-   1 and 2 views, forward and backward; K1's and K5's backward (binned,
+   1 and 2 views, forward and backward; K1's and K5's forward (one tiled
+   kernel) also bit for bit in bf16 and float32 at 1, 3 and 8 maps, N = 0,
+   1 and off the tile, C 512 and the smallest, points beyond the border,
+   and timed at the band at ray-shaped and uniform coordinates; K1's and
+   K5's backward (binned,
    no float atomics) also at the band's and the VR coarse pass's
    coordinates (K1, timed beside the uniform case), with every point in one
    map tile, on tile edges and the map border, N off any multiple and N =
@@ -236,10 +240,15 @@ def check_gather(gen):
         coords = (torch.rand(1, n, 2, generator=gen, device=DEV) * 2.2 - 1.1).contiguous()
         # bitwise equal by construction (same rounded ops in the same order);
         # the tolerance allows one bf16 rounding flip of a value of ~4
-        cases.append(check(f"N={n} bf16", max_err(gather_bilinear(feat, coords),
-                                                  gather_bilinear_plain(feat, coords)), 2e-2))
+        got, want = gather_bilinear(feat, coords), gather_bilinear_plain(feat, coords)
+        cases.append(dict(check(f"N={n} bf16", max_err(got, want), 2e-2),
+                          bitwise=same_bits(got, want)))
     coords_band = (torch.rand(1, BAND, 2, generator=gen, device=DEV) * 2.2 - 1.1).contiguous()
-    ms = time_ms(lambda: gather_bilinear(feat, coords_band))
+    # ms: back-to-back calls (CUDA events), as every earlier slice timed K1;
+    # device_ms beside it: the kernel's device time (torch.profiler)
+    run = lambda: gather_bilinear(feat, coords_band)
+    ms = time_ms(run)
+    device_ms = kernel_device_ms(run, (K1_FWD_KERNEL,), iters=20)[K1_FWD_KERNEL]
     plain_ms = time_ms(lambda: gather_bilinear_plain(feat, coords_band))
     # grid_sample wants the map and grid in one dtype: the same bf16 values in f32
     nchw, grid = feat.permute(0, 3, 1, 2).float(), coords_band[:, None]
@@ -255,7 +264,8 @@ def check_gather(gen):
                 also_replaces="avr_tpu/ops/pallas/gather.py:164",
                 tpu_kernel="gather_bilinear_windowed (K1) and gather_bilinear (K6), one function",
                 shape=f"latent 1x{LATENT}x{LATENT}x{C} bf16, N={BAND}", cases=cases,
-                ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+                ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def decoder_weights(gen, dtype=torch.float32, dh=512, nb=5, nlz=3, code=CODE, dl=C):
@@ -700,6 +710,10 @@ GATHER_BIN_KERNELS = ("gather_bin_count_kernel", "gather_bin_scan_kernel",
                       "gather_bin_plan_kernel", "gather_bin_scatter_kernel",
                       "gather_bin_mma_kernel", "gather_bin_accum_kernel",
                       "gather_bin_reduce_kernel")
+# K1's and K5's forward (csrc/gather.cu): one tiled kernel, K1's
+# instantiation <false, ...>, K5's <true, ...>
+GATHER_FWD_KERNEL = "gather_fwd_tile_kernel"
+K1_FWD_KERNEL, K5_FWD_KERNEL = GATHER_FWD_KERNEL + "<false", GATHER_FWD_KERNEL + "<true"
 K1_BWD_KERNELS = ("gather_bilinear_bwd_kernel",) + GATHER_BIN_KERNELS
 K5_BWD_KERNELS = ("gather_projected_bwd_kernel",) + GATHER_BIN_KERNELS
 
@@ -1696,7 +1710,7 @@ def check_gather_proj(gen):
         del feat, pts, proj, got, want
     feat, pts, proj = proj_inputs(gen, 1, 1, torch.bfloat16, BAND)  # the serving band call
     run = lambda: gather_bilinear_projected(feat, pts, proj)
-    ms = kernel_device_ms(run, ("gather_projected_kernel",), iters=20)["gather_projected_kernel"]
+    ms = kernel_device_ms(run, (K5_FWD_KERNEL,), iters=20)[K5_FWD_KERNEL]
     b_ms, b_by = proj_bound(1, BAND, torch.bfloat16, False)
     bits = [c["bitwise"] for c in cases]
     print(f"K5 forward: bitwise equal to the plain version in {sum(bits)} of {len(bits)} cases")
@@ -1795,6 +1809,74 @@ def check_gather_proj_bwd_bins(gen, k5):
     print(f"K5 backward: {sum(c['against'] == 'rerun' for c in k5['cases'])} cases bit for "
           f"bit equal on a rerun; device {k5['ms']:.4f} ms (1 s loop {t['ms']:.4f} ms at "
           f"{t['clocks.sm']} MHz, {t['power.draw']} W), by kernel {k5['device_ms_by_kernel']}")
+
+
+def fwd_timed(run, kernel):
+    """A forward's device ms (``torch.profiler``), its back-to-back call
+    ms (CUDA events) and a 1 s loop with the SM clock and power."""
+    return dict(device_ms=kernel_device_ms(run, (kernel,), iters=20)[kernel],
+                call_ms=time_ms(run, iters=20), sustained=sustained(run, 1.0, SMI_FIELDS))
+
+
+def check_gather_fwd_cases(gen, k1, k5):
+    """K1's and K5's tiled forward at the edges of their envelope, each held
+    bit for bit to its plain version (the same rounded operations in the
+    same order), added to ``k1``'s and ``k5``'s cases: bf16 and float32; 1,
+    3 and 8 maps (8: SB 4 x NS 2); N = 0, 1, a partial last tile, the band;
+    C 512 and the smallest (16 bf16, 4 float32); points on and beyond the
+    map border (``edge_grid``; K5's unprojected through each view's camera
+    at depths 0.8 to 1.8).  Then both timed at the serving band (1 x 81,920
+    points, bf16) at the same points twice: ray-shaped (``proj_inputs``'
+    band points; K1 at their projection) and uniform grid coordinates in
+    [-1.1, 1.1] (K5 at their unprojection).  Draws from a generator of its
+    own."""
+    bf, f32 = torch.bfloat16, torch.float32
+    bits = {"K1": [], "K5": []}
+    for dt in (bf, f32):
+        small = 16 // (torch.finfo(dt).bits // 8)
+        for b, n, c in ((1, BAND, C), (2 * SB_TRAIN, CHUNK, C), (2 * SB_TRAIN, 1, C),
+                        (2 * SB_TRAIN, 0, C), (3, 1_037, C), (2, 333, small),
+                        (2 * SB_TRAIN, 4_097, small)):
+            feat = randn(gen, b, LATENT, LATENT, c, dtype=dt)
+            grid = edge_grid(gen, b, n)
+            sb, ns = (SB_TRAIN, 2) if b == 2 * SB_TRAIN else (b, 1)
+            proj = march_inputs(gen, ns, sb=sb)["proj"].reshape(b, 16)
+            pts = unproject(proj, grid, -0.8 - torch.rand(b, n, generator=gen, device=DEV))
+            label = f"B={b} N={n} C={c} {str(dt)[6:]}"
+            for k, kd, got, want in (
+                    ("K1", k1, gather_bilinear(feat, grid), gather_bilinear_plain(feat, grid)),
+                    ("K5", k5, gather_bilinear_projected(feat, pts, proj),
+                     gather_bilinear_projected_plain(feat, pts, proj))):
+                if got.shape != (b, n, c) or got.dtype != dt:
+                    raise AssertionError(f"{k} forward {label}: {got.dtype} {tuple(got.shape)}")
+                err = max_err(got, want) if n else 0.0
+                kd["cases"].append(dict(check(f"edges {label}", err, 0.0),
+                                        bitwise=same_bits(got, want)))
+                bits[k].append(kd["cases"][-1]["bitwise"])
+            del feat, grid, proj, pts
+    feat, pts, proj = proj_inputs(gen, 1, 1, bf, BAND)
+    grid = project_packed(proj, pts).contiguous()
+    grid_u = (torch.rand(1, BAND, 2, generator=gen, device=DEV) * 2.2 - 1.1).contiguous()
+    pts_u = unproject(proj, grid_u, -0.8 - torch.rand(1, BAND, generator=gen, device=DEV))
+    if not same_bits(gather_bilinear(feat, grid), gather_bilinear_projected(feat, pts, proj)):
+        raise AssertionError("K1 at the projected band points differs from K5 at the points")
+    for kd, kernel, ray, uniform in (
+            (k1, K1_FWD_KERNEL, lambda: gather_bilinear(feat, grid),
+             lambda: gather_bilinear(feat, grid_u)),
+            (k5, K5_FWD_KERNEL, lambda: gather_bilinear_projected(feat, pts, proj),
+             lambda: gather_bilinear_projected(feat, pts_u, proj))):
+        kd["band"] = dict(ray=fwd_timed(ray, kernel), uniform=fwd_timed(uniform, kernel))
+    for k, kd in (("K1", k1), ("K5", k5)):
+        b, t = [c.get("bitwise") for c in kd["cases"] if "bitwise" in c], kd["band"]
+        clock = lambda r: f"{r['sustained']['clocks.sm']} MHz, {r['sustained']['power.draw']} W"
+        print(f"{k} forward: bitwise equal to the plain version in {sum(b)} of {len(b)} cases "
+              f"({sum(bits[k])} of {len(bits[k])} at the envelope's edges); band N={BAND} bf16 "
+              f"device ms: ray-shaped {t['ray']['device_ms']:.4f} (call "
+              f"{t['ray']['call_ms']:.4f}; 1 s loop {t['ray']['sustained']['ms']:.4f} at "
+              f"{clock(t['ray'])}), uniform {t['uniform']['device_ms']:.4f} (call "
+              f"{t['uniform']['call_ms']:.4f}; {t['uniform']['sustained']['ms']:.4f} at "
+              f"{clock(t['uniform'])}); bound {kd['bound_ms']:.4f} by {kd['bound_by']}, plain "
+              f"{kd['plain_ms']:.4f}, library {kd['library_ms']}")
 
 
 # K7's draws on the main paths: a served adaptive chunk's band (1 x 81,920),
@@ -2010,9 +2092,9 @@ def profile_frame(render, label="frame", out_dir="traces"):
             if e.device_type == cuda]
     rows.sort(key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
-    ours = ("gather_bilinear_kernel", "gather_bilinear_bwd_kernel", "resnetfc_kernel",
+    ours = (GATHER_FWD_KERNEL, "gather_bilinear_bwd_kernel", "resnetfc_kernel",
             FWD_KERNEL, *K2_BWD_KERNELS, "resnetfc_dgrad_kernel", "resnetfc_wgrad_kernel",
-            *K3_FWD_KERNELS, *K3_BWD_KERNELS, *K3_F32_KERNELS, "gather_projected_kernel",
+            *K3_FWD_KERNELS, *K3_BWD_KERNELS, *K3_F32_KERNELS,
             "gather_projected_bwd_kernel", *GATHER_BIN_KERNELS, "volume_integral_kernel",
             "volume_integral_bwd_kernel", "threefry_kernel")
     kernel_us = sum(r[1] for r in rows if any(o in r[0] for o in ours))
@@ -2023,16 +2105,19 @@ def profile_frame(render, label="frame", out_dir="traces"):
         o in r[0] for o in K3_FWD_KERNELS + K3_F32_KERNELS + K3_BWD_KERNELS[:2]))
     gather_bwd_us = sum(r[1] for r in rows if any(o in r[0] for o in K1_BWD_KERNELS
                                                   + K5_BWD_KERNELS[:1])) - k3_bins_us
+    gather_fwd_us = sum(r[1] for r in rows if GATHER_FWD_KERNEL in r[0])
     print(f"profile {label}: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
           f"({busy_us / wall_us:.3f} of wall), port kernels {kernel_us / 1e3:.3f} ms, gather "
-          f"backward {gather_bwd_us / 1e3:.3f} ms, K3 {k3_us / 1e3:.3f} ms")
+          f"forward {gather_fwd_us / 1e3:.3f} ms, gather backward {gather_bwd_us / 1e3:.3f} ms, "
+          f"K3 {k3_us / 1e3:.3f} ms")
     for key, us, count in rows[:25]:
         print(f"  {us / 1e3:9.3f} ms  x{count:<5d} {key[:100]}")
     os.makedirs(out_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out_dir, f"{label}_trace.json"))
     return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
                 busy_share=busy_us / wall_us, port_kernels_ms=kernel_us / 1e3,
-                gather_bwd_ms=gather_bwd_us / 1e3, k3_ms=k3_us / 1e3,
+                gather_fwd_ms=gather_fwd_us / 1e3, gather_bwd_ms=gather_bwd_us / 1e3,
+                k3_ms=k3_us / 1e3,
                 top=[dict(op=k[:100], ms=us / 1e3, count=c) for k, us, c in rows[:25]])
 
 
@@ -2552,10 +2637,15 @@ def main() -> int:
     by_name = {k["name"]: k for k in kernels}
     check_gather_bwd_bins(gen_bins, by_name["gather_bilinear_bwd"])
     check_gather_proj_bwd_bins(gen_bins, by_name["gather_bilinear_projected_bwd"])
+    # the tiled forward's added cases draw from a generator of their own
+    check_gather_fwd_cases(torch.Generator(device=DEV).manual_seed(3), k1,
+                           by_name["gather_bilinear_projected"])
     print(f"integral: {check_integral_saturated(gen)}")
     for k in kernels:
         host = (f", host {k['host_ms']:.4f} ms, call {k['call_ms']:.4f} ms" if "host_ms" in k
                 else "")
+        if k["name"] == "gather_bilinear":  # ms back to back, the kernel's device time beside
+            host += f", device {k['device_ms']:.4f} ms"
         print(f"kernel {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, bound "
               f"{k['bound_ms']:.4f} by {k['bound_by']}{host}) {len(k['cases'])} cases, all "
               f"within tolerance")

@@ -11,7 +11,11 @@ times K3's forward at ``chip_smoke.py``'s serving inputs (4,096 rays x 10
 steps, bf16): the device time of its march kernels (``torch.profiler``),
 the call back to back (CUDA events) and its host time (wall time until it
 returns, on an idle card).  Host-bound paths drift between runs, so trees
-compare only within one such call.  Prints one JSON object a reading.
+compare only within one such call.  Prints the card's name and power
+limit, then one JSON object a reading.
+
+``main(turn, usage)`` is the runner that ``gather_turns.py`` shares: it runs
+the snippet ``turn`` in each checkout in turns.
 """
 
 from __future__ import annotations
@@ -40,13 +44,19 @@ print(json.dumps(res), flush=True)
 """
 
 
-def main() -> int:
+def main(turn: str = _TURN, usage: str = __doc__) -> int:
+    """Runs ``turn`` (Python source, given the checkout as ``sys.argv[1]``)
+    in a process of its own in each checkout of the command line, in the
+    order given and then in reverse, and prints each run's last line."""
     checkouts = [os.path.abspath(a) for a in sys.argv[1:]]
     if not checkouts:
-        print(__doc__, file=sys.stderr)
+        print(usage, file=sys.stderr)
         return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    print(f"card: {card}", flush=True)
     for path in checkouts + checkouts[::-1]:
-        r = subprocess.run([sys.executable, "-c", _TURN, path], cwd=path, capture_output=True,
+        r = subprocess.run([sys.executable, "-c", turn, path], cwd=path, capture_output=True,
                            text=True)
         if r.returncode:
             print(f"{path}: exit {r.returncode}\n{r.stderr[-4000:]}", file=sys.stderr)

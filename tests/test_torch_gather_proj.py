@@ -38,7 +38,29 @@ from tests.test_torch_gather import _case as k1_case
 torch.set_num_threads(2)
 
 
-def _proj_case(seed=0, B=2, H=16, W=16, C=64, N=300):
+def _ray_points(rng, rays_side, samples, band):
+    """World points along a camera's rays, ray after ray as the renderers
+    give them, the camera not a source view: ``band`` samples 20 depths over
+    +-0.15 about each ray's crossing of the z = 0 plane (the adaptive band),
+    else 64 stratified depths over that crossing +-0.6 (the VR coarse
+    pass)."""
+    origin = np.array([0.35, -0.25, -1.6])
+    u = np.linspace(-0.35, 0.35, rays_side)
+    target = np.stack(np.meshgrid(u, u, indexing="xy"), -1).reshape(-1, 2)
+    target = target + rng.uniform(-0.02, 0.02, target.shape)
+    target = np.concatenate([target, np.zeros((len(target), 1))], 1)
+    d = target - origin
+    dist = np.linalg.norm(d, axis=1, keepdims=True)
+    d = d / dist
+    half = 0.15 if band else 0.6
+    s = (np.arange(samples) + rng.uniform(0, 1, (len(d), samples))) / samples
+    t = dist + (2 * s - 1) * half
+    return (origin + t[..., None] * d[:, None]).reshape(-1, 3)
+
+
+def _proj_case(seed=0, B=2, H=16, W=16, C=64, N=300, rays=None):
+    """``rays=(band, samples)``: the points are ``_ray_points`` of 6 x 6
+    rays a view (N = 36 x samples), not normal draws."""
     rng = np.random.default_rng(seed)
     feats = rng.normal(size=(B, H, W, C)).astype(np.float32)
     poses = []
@@ -51,7 +73,12 @@ def _proj_case(seed=0, B=2, H=16, W=16, C=64, N=300):
     c = np.asarray([[8.0, 8.0]] * B, np.float32)
     scale = np.asarray([2.0 * W / (W - 1), 2.0 * H / (H - 1)], np.float32)
     img = np.asarray([float(W), float(H)], np.float32)
-    pts = (0.4 * rng.normal(size=(B, N, 3))).astype(np.float32)
+    if rays is None:
+        pts = (0.4 * rng.normal(size=(B, N, 3))).astype(np.float32)
+    else:
+        pts = np.stack([_ray_points(rng, 6, rays[1], rays[0]) for _ in range(B)])
+        pts = pts.astype(np.float32)
+        N = pts.shape[1]
     g = rng.normal(size=(B, N, C)).astype(np.float32)
     return feats, poses, focal, c, scale, img, pts, g
 
@@ -60,11 +87,23 @@ def _t(a):
     return torch.from_numpy(np.asarray(a))
 
 
-@pytest.mark.parametrize("seed,shape", [(0, dict()), (1, dict(B=1, N=7)),
-                                        (2, dict(B=3, H=20, W=12, C=16, N=500))])
+@pytest.mark.parametrize("seed,shape", [
+    (0, dict()), (1, dict(B=1, N=7)), (2, dict(B=3, H=20, W=12, C=16, N=500)),
+    # ray-ordered points, as the tiled forward is timed: the adaptive band
+    # and the VR coarse pass's stratified samples
+    (20, dict(C=16, rays=(True, 20))), (21, dict(C=16, rays=(False, 64)))])
 def test_projected_gather_matches_pallas(seed, shape):
     feats, poses, focal, c, scale, img, pts, g = _proj_case(seed, **shape)
     jproj = jax_pack_projection(*(jnp.asarray(a) for a in (poses, focal, c, scale, img)))
+    if "rays" in shape:
+        grid = np.asarray(project_packed(pack_projection(
+            *(_t(a) for a in (poses, focal, c, scale, img))), _t(pts)))
+        inside = (np.abs(grid) < 1).all(-1).mean()
+        assert inside > 0.8, f"the rays should project onto the map ({inside:.2f} inside)"
+        # ray order: a ray's consecutive samples project to neighbouring pixels
+        samples = shape["rays"][1]
+        step = np.abs(np.diff(grid.reshape(len(grid), -1, samples, 2), axis=2)).max() * 7.5
+        assert step < 1.0, f"consecutive samples move {step:.2f} pixels"
     f = lambda ff, pp: pallas_projected(ff, pp, jproj, True)
     want, vjp = jax.vjp(f, jnp.asarray(feats), jnp.asarray(pts))
     want_df, want_dp = (np.asarray(a) for a in vjp(jnp.asarray(g)))

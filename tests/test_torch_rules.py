@@ -1,8 +1,9 @@
 """Rules of the port that hold on any machine.
 
 * No module of ``avr_tpu_torch`` and no part of ``chip_smoke.py``,
-  ``train_skip_probe.py`` or ``march_turns.py`` imports JAX, Flax, Optax or
-  the JAX package (AST scan).
+  ``train_skip_probe.py``, ``march_turns.py`` or ``gather_turns.py`` imports
+  JAX, Flax, Optax or the JAX package (AST scan, the turns scripts' ``_TURN``
+  snippets included: they run as ``python -c`` in each checkout).
 * Entry points default to the card: with no CUDA device and no explicit
   ``device``, they raise instead of running on the CPU.
 * CPU tensors take the plain versions and never touch the kernel library,
@@ -46,18 +47,27 @@ adaptive_renderer { raymarch_steps = 2
 """
 
 
-def _imports(path: pathlib.Path):
-    tree = ast.parse(path.read_text(), filename=str(path))
+def _imports(path: pathlib.Path, source=None):
+    tree = ast.parse(path.read_text() if source is None else source, filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module
+        elif (isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "_TURN"
+                                                   for t in node.targets)):
+            yield from _imports(path, node.value.value)  # a snippet run as ``python -c``
 
 
 def _port_files():
     return sorted((ROOT / "avr_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "train_skip_probe.py", ROOT / "march_turns.py"]
+        ROOT / "chip_smoke.py", ROOT / "train_skip_probe.py", ROOT / "march_turns.py",
+        ROOT / "gather_turns.py"]
+
+
+def test_the_scan_reads_the_turns_snippets():
+    for name in ("march_turns.py", "gather_turns.py"):
+        assert "chip_smoke" in set(_imports(ROOT / name)), name
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
