@@ -694,12 +694,18 @@ static void launch_bins(const void* src, const void* proj, const void* g, void* 
 }
 
 // K3's latent cotangent (csrc/bins.cuh): the march's ray-steps as SHARED
-// projected points, bf16.
+// projected points, bf16 and float32.
 void march_bins_bf16(const float* points, const float* proj, const bf16* g, bf16* dfeat,
                      void* ints, void* partials, int maps, int views, int H, int W, int C, int N,
                      cudaStream_t s) {
   launch_bins<bf16, true, true>(points, proj, g, dfeat, ints, partials, maps, H, W, C, N, s,
                                 views);
+}
+void march_bins_f32(const float* points, const float* proj, const float* g, float* dfeat,
+                    void* ints, void* partials, int maps, int views, int H, int W, int C, int N,
+                    cudaStream_t s) {
+  launch_bins<float, true, true>(points, proj, g, dfeat, ints, partials, maps, H, W, C, N, s,
+                                 views);
 }
 
 // ---------------------------------------------------------------------------

@@ -73,10 +73,18 @@
 // float32: the warp-per-ray kernels (float32 operands on the tensor cores
 // would round to TF32).  One warp marches one ray, WARPS rays a CTA, W_ih
 // in the CTA's shared memory (read from L2 above 128 KB).  Their backward
-// adds dfeat by float4 atomics into a zeroed float32 map and the small
-// weight cotangents by atomics: its sums change order from run to run
-// (values within float32 rounding; ROADMAP Queue 3).  dW_ih is the float32
-// wgrad after it.
+// (lstm_march_bwd_kernel, persistent: at most a CTA an SM) has no float
+// atomics, as the tile backward: each ray-step writes dv / NS as a float32
+// row and its point (a frozen step a zero row at the point the forward
+// saved), and K5's bins sum the rows into dfeat through their float32
+// accumulate (march_bins_f32; the rows are ~335 MB at the train step's 4 x
+// 4,096 rays x 10 steps x 512 channels, written once and read once);
+// v_t | h_prev and the gate cotangents are dW_ih's and dW_hh's rows, one
+// float32 wgrad of two jobs after the walk (csrc/resnetfc.cu: split
+// partials added in split order); the bias and step-head sums are each
+// lane's own over its warp's ray-steps, summed in warp order per CTA and
+// added in CTA order by lstm_march_partials_kernel.  Every output is bit for
+// bit the same on a rerun.
 //
 // Hidden sizes 1 .. MAX_HIDDEN = 62, the TPU kernel's 2 H + 4 <= 128.
 #include "bins.cuh"
@@ -265,8 +273,14 @@ lstm_march_kernel(const float* __restrict__ proj, const float* __restrict__ coor
     if (row && lane == 0) row[G0 + 5 * hid] = s;
     __syncwarp();
     if (eps > 0.f && fabsf(s) < eps) {  // frozen: s is 0 from now on
-      if (aux && lane == 0)
-        for (int t = step + 1; t < steps; ++t) aux[((size_t)ray * steps + t) * AW + 2 * hid + 3] = 0.f;
+      if (aux && lane == 0)  // the frozen rows: their point (the bins' taps) and active = 0
+        for (int t = step + 1; t < steps; ++t) {
+          float* fr = aux + ((size_t)ray * steps + t) * AW + 2 * hid;
+          fr[0] = cx;
+          fr[1] = cy;
+          fr[2] = cz;
+          fr[3] = 0.f;
+        }
       break;
     }
   }
@@ -309,21 +323,23 @@ struct MarchBwdArgs {
   const float* gout;     // (SB * R, 3) cotangent of the final points
   float* dcoords0;       // (SB * R, 3)
   float* drds;           // (SB * R, 3)
-  float* dfeat;          // (SB, NS, H, W, C), zeroed
-  float* vbuf;           // (SB * R, steps, C), zeroed: v_t, dW_ih's operand
-  float* dgbuf;          // (SB * R, steps, dg_ld), zeroed: the gate cotangents
-  float* dw_hh;          // (H, 4H)
-  float* dbias;          // (4H)
-  float* dw_out;         // (H)
-  float* db_out;         // (1)
-  int SB, R, NS, H, W, C, hid, steps, dg_ld;
+  float* vbuf;           // (SB * R * steps, vld): v_t | h_prev, dW_ih's and dW_hh's rows
+  float* dgbuf;          // (SB * R * steps, dg_ld): the gate cotangents
+  float* dvbuf;          // (SB * R * steps, C): dv / NS, the bins' cotangent rows
+  float* pts;            // (SB * R * steps, 3): the ray-step's point
+  float* part;           // (CTAs, 5 H + 1): dbias | dw_out | db_out of each CTA
+  int SB, R, NS, H, W, C, hid, steps, vld, dg_ld;
   float clamp;
 };
 
+// lane-owned partial sums a warp, [slot][lane]: dbias of gate k and unit
+// lane + 32 uu at slot 2 k + uu, dw_out of unit lane + 32 uu at 8 + uu,
+// db_out at 10 (lane 0)
+constexpr int F32_OWN_SLOTS = 11;
+
 __host__ __device__ inline size_t bwd_smem_bytes(int C, int hid) {
-  const int G4 = 4 * hid;
   return (wih_in_smem(C, hid) ? wih_bytes(C, hid) : 0) +
-         sizeof(float) * (2 * WARPS * C + WARPS * MAX_GATES + (size_t)hid * G4 + G4 + hid + 1);
+         sizeof(float) * ((size_t)WARPS * (2 * C + MAX_GATES + F32_OWN_SLOTS * 32));
 }
 
 __global__ void __launch_bounds__(WARPS * 32, 1) lstm_march_bwd_kernel(MarchBwdArgs a) {
@@ -334,12 +350,7 @@ __global__ void __launch_bounds__(WARPS * 32, 1) lstm_march_bwd_kernel(MarchBwdA
   float* v_s = reinterpret_cast<float*>(smem + (wsm ? wih_bytes(C, hid) : 0));  // WARPS x C
   float* dv_s = v_s + WARPS * C;                   // WARPS x C: dv / NS
   float* dg_s = dv_s + WARPS * C;                  // WARPS x 256: dgates
-  float* dwhh_s = dg_s + WARPS * MAX_GATES;        // H x 4H
-  float* db_s = dwhh_s + hid * G4;                 // 4H
-  float* dwout_s = db_s + G4;                      // H
-  float* dbout_s = dwout_s + hid;                  // 1
-  const int n_acc = 2 * WARPS * C + WARPS * MAX_GATES + hid * G4 + G4 + hid + 1;
-  for (int i = threadIdx.x; i < n_acc; i += blockDim.x) v_s[i] = 0.f;
+  float* own_s = dg_s + WARPS * MAX_GATES;         // WARPS x F32_OWN_SLOTS x 32
   if (wsm)
     for (int i = threadIdx.x; i < G4 * C / 4; i += blockDim.x)
       reinterpret_cast<float4*>(smem)[i] = __ldg(reinterpret_cast<const float4*>(a.w_ihT) + i);
@@ -354,6 +365,9 @@ __global__ void __launch_bounds__(WARPS * 32, 1) lstm_march_bwd_kernel(MarchBwdA
   const float wo[2] = {lane < hid ? a.w_out[lane] : 0.f,
                        lane + 32 < hid ? a.w_out[lane + 32] : 0.f};
   const long long rays = (long long)a.SB * a.R;
+  // this lane's partial sums over its warp's ray-steps, in walk order
+  float db_own[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+  float dwo_own[2] = {0.f, 0.f}, dbo_own = 0.f;
 
   for (long long ray = (long long)blockIdx.x * WARPS + warp; ray < rays;
        ray += (long long)gridDim.x * WARPS) {
@@ -363,16 +377,31 @@ __global__ void __launch_bounds__(WARPS * 32, 1) lstm_march_bwd_kernel(MarchBwdA
     float grx = 0.f, gry = 0.f, grz = 0.f;
     float gh[2] = {0.f, 0.f}, gcell[2] = {0.f, 0.f};  // lane k: units k and k + 32
     for (int t = a.steps - 1; t >= 0; --t) {
-      const float* row = a.aux + ((size_t)ray * a.steps + t) * AW;
-      if (row[2 * hid + 3] == 0.f) continue;  // frozen: contributes exactly zero
+      const size_t rsp = (size_t)ray * a.steps + t;  // the ray-step's row
+      const float* row = a.aux + rsp * AW;
       const float cx = row[2 * hid], cy = row[2 * hid + 1], cz = row[2 * hid + 2];
+      if (lane == 0) {
+        a.pts[rsp * 3] = cx;
+        a.pts[rsp * 3 + 1] = cy;
+        a.pts[rsp * 3 + 2] = cz;
+      }
+      float* v_row = a.vbuf + rsp * a.vld;
+      float* dg_row = a.dgbuf + rsp * a.dg_ld;
+      float* dv_row = a.dvbuf + rsp * C;
+      if (row[2 * hid + 3] == 0.f) {  // frozen: contributes exactly zero
+        const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int ch = lane * 4; ch < a.vld; ch += 32 * 4) store16(v_row + ch, zero);
+        for (int ch = lane * 4; ch < C; ch += 32 * 4) store16(dv_row + ch, zero);
+        for (int q = lane; q < G4; q += 32) dg_row[q] = 0.f;
+        continue;
+      }
       const float s = row[G0 + 5 * hid];
       // coords_{t+1} = coords_t + rds * s
       const float ds = gcx * rx + gcy * ry + gcz * rz;
       grx += gcx * s;
       gry += gcy * s;
       grz += gcz * s;
-      if (lane == 0) atomicAdd(dbout_s, ds);
+      if (lane == 0) dbo_own += ds;
 #pragma unroll
       for (int uu = 0; uu < 2; ++uu) {
         const int u = lane + 32 * uu;
@@ -380,7 +409,7 @@ __global__ void __launch_bounds__(WARPS * 32, 1) lstm_march_bwd_kernel(MarchBwdA
         const float ig = row[G0 + u], fg = row[G0 + hid + u];
         const float gg = row[G0 + 2 * hid + u], og = row[G0 + 3 * hid + u];
         const float tc = row[G0 + 4 * hid + u], c_prev = row[hid + u];
-        atomicAdd(dwout_s + u, og * tc * ds);
+        dwo_own[uu] += og * tc * ds;
         // the clip acts on the combined hidden cotangent (step head + next step);
         // a NaN passes through it, as through jnp.clip and torch.clamp (fminf
         // and fmaxf alone would turn it into -clamp)
@@ -392,16 +421,13 @@ __global__ void __launch_bounds__(WARPS * 32, 1) lstm_march_bwd_kernel(MarchBwdA
         gcell[uu] = gct * fg;
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
-          atomicAdd(db_s + k * hid + u, d4[k]);
+          db_own[uu][k] += d4[k];
           dg_w[k * hid + u] = d4[k];
         }
+        v_row[C + u] = row[u];  // h_prev: dW_hh's operand
       }
       __syncwarp();
-      // dW_hh += h_prev (x) dgates; the h cotangent of step t-1
-      for (int k = 0; k < hid; ++k) {
-        const float hp = row[k];
-        for (int q = lane; q < G4; q += 32) atomicAdd(dwhh_s + k * G4 + q, hp * dg_w[q]);
-      }
+      // the h cotangent of step t-1
 #pragma unroll
       for (int uu = 0; uu < 2; ++uu) {
         const int u = lane + 32 * uu;
@@ -410,11 +436,11 @@ __global__ void __launch_bounds__(WARPS * 32, 1) lstm_march_bwd_kernel(MarchBwdA
         for (int q = 0; q < G4; ++q) acc = fmaf(dg_w[q], a.w_hh[u * G4 + q], acc);
         gh[uu] = acc;
       }
-      // the gate cotangents: dW_ih's other operand (a GEMM after this kernel)
-      float* dg_row = a.dgbuf + ((size_t)ray * a.steps + t) * a.dg_ld;
+      // the gate cotangents: dW_ih's and dW_hh's other operand (a GEMM after
+      // this kernel)
       for (int q = lane; q < G4; q += 32) dg_row[q] = dg_w[q];
       // dv = dgates @ W_ih^T for this lane's channels (W_ih^T rows in shared
-      // memory, 16-byte reads), / NS
+      // memory, 16-byte reads), / NS: the bins' row
       for (int ch = lane * 4; ch < C; ch += 32 * 4) {
         float acc[4] = {0.f, 0.f, 0.f, 0.f};
         for (int q = 0; q < G4; ++q) {
@@ -426,17 +452,16 @@ __global__ void __launch_bounds__(WARPS * 32, 1) lstm_march_bwd_kernel(MarchBwdA
         }
 #pragma unroll
         for (int j = 0; j < 4; ++j) dv_w[ch + j] = NS > 1 ? acc[j] * inv_ns : acc[j];
+        store16(dv_row + ch, dv_w + ch);
       }
-      // gather backward per view; v_t re-blended from the same taps
+      // the per-tap dots of the gather backward per view; v_t re-blended
+      // from the same taps
       for (int view = 0; view < NS; ++view) {
         const float* p = a.proj + ((size_t)sb * NS + view) * 16;
         const Projected q = project_point(p, cx, cy, cz);
         const Taps tp = bilinear_taps(q.gx, q.gy, a.H, a.W);
-        const size_t map = ((size_t)sb * NS + view) * a.H * a.W * C;
-        const float* base = a.feat + map;
-        float* dbase = a.dfeat + map;
+        const float* base = a.feat + ((size_t)sb * NS + view) * a.H * a.W * C;
         const int idx[4] = {tp.i00, tp.i01, tp.i10, tp.i11};
-        const float w[4] = {tp.w00, tp.w01, tp.w10, tp.w11};
         float dot[4] = {0.f, 0.f, 0.f, 0.f};
         for (int ch = lane * 4; ch < C; ch += 32 * 4) {
           float tap[4][4];
@@ -449,9 +474,6 @@ __global__ void __launch_bounds__(WARPS * 32, 1) lstm_march_bwd_kernel(MarchBwdA
 #pragma unroll
             for (int k = 0; k < 4; ++k) dot[k] = fmaf(dv_w[ch + j], tap[k][j], dot[k]);
           }
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            if (w[k] != 0.f) atomic_add_scaled(dbase + (size_t)idx[k] * C + ch, dv_w + ch, w[k], 4);
         }
 #pragma unroll
         for (int k = 0; k < 4; ++k) dot[k] = __shfl_sync(FULL, warp_sum(dot[k]), 0);
@@ -463,7 +485,6 @@ __global__ void __launch_bounds__(WARPS * 32, 1) lstm_march_bwd_kernel(MarchBwdA
         gcz += dw.z;
       }
       // v_t as the forward computed it: dW_ih's operand
-      float* v_row = a.vbuf + ((size_t)ray * a.steps + t) * C;
       for (int ch = lane * 4; ch < C; ch += 32 * 4) {
         float v[4];
 #pragma unroll
@@ -481,43 +502,85 @@ __global__ void __launch_bounds__(WARPS * 32, 1) lstm_march_bwd_kernel(MarchBwdA
       a.drds[ray * 3 + 2] = grz;
     }
   }
+  // the CTA's partial sums: each output's owning lane, warps in order
+  float* own_w = own_s + warp * F32_OWN_SLOTS * 32;
+#pragma unroll
+  for (int uu = 0; uu < 2; ++uu) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) own_w[(2 * k + uu) * 32 + lane] = db_own[uu][k];
+    own_w[(8 + uu) * 32 + lane] = dwo_own[uu];
+  }
+  own_w[10 * 32 + lane] = dbo_own;
   __syncthreads();
-  for (int i = threadIdx.x; i < hid * G4; i += blockDim.x) atomicAdd(a.dw_hh + i, dwhh_s[i]);
-  for (int i = threadIdx.x; i < G4; i += blockDim.x) atomicAdd(a.dbias + i, db_s[i]);
-  for (int i = threadIdx.x; i < hid; i += blockDim.x) atomicAdd(a.dw_out + i, dwout_s[i]);
-  if (threadIdx.x == 0) atomicAdd(a.db_out, dbout_s[0]);
+  const int nout = 5 * hid + 1;
+  for (int o = threadIdx.x; o < nout; o += blockDim.x) {
+    int slot, l;
+    if (o < G4) {  // dbias: gate o / hid of unit o % hid
+      const int u = o % hid;
+      slot = 2 * (o / hid) + u / 32, l = u % 32;
+    } else if (o < 5 * hid) {
+      const int u = o - G4;
+      slot = 8 + u / 32, l = u % 32;
+    } else {
+      slot = 10, l = 0;
+    }
+    float sum = 0.f;
+    for (int w = 0; w < WARPS; ++w) sum += own_s[(w * F32_OWN_SLOTS + slot) * 32 + l];
+    a.part[(size_t)blockIdx.x * nout + o] = sum;
+  }
 }
 
+// dbias (permuted), dw_out and db_out: the CTAs' partial sums in CTA order
+// (the float32 walk's, with HP = hid and the gates unpermuted, and the bf16
+// tile walk's)
+__global__ void __launch_bounds__(128)
+lstm_march_partials_kernel(const float* __restrict__ part, int ctas, int HP,
+                           float* __restrict__ dbias, float* __restrict__ dw_out,
+                           float* __restrict__ db_out) {
+  const int nout = 5 * HP + 1, o = blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= nout) return;
+  float s = 0.f;
+  for (int c = 0; c < ctas; ++c) s += part[(size_t)c * nout + o];
+  if (o < 4 * HP) dbias[o] = s;
+  else if (o < 5 * HP) dw_out[o - 4 * HP] = s;
+  else *db_out = s;
+}
+
+// The float32 backward: the walk, the latent cotangent through the bins'
+// float32 accumulate, the partial sums' reduction.  dW_ih and dW_hh follow
+// as the wrapper's float32 wgrad over vbuf and dgbuf.  No float atomics.
+// `ctas` (ops/kernels/march.py walk_ctas_f32): at most one CTA an SM, the
+// walk persistent over its warps' rays; `part` holds `ctas` rows.
 extern "C" int avr_lstm_march_bwd_f32(const void* proj, const void* rds, const void* feat,
                                       const void* w_ihT, const void* w_hh, const void* w_out,
                                       const void* aux, const void* gout, void* dcoords0,
-                                      void* drds, void* dfeat, void* vbuf, void* dgbuf,
-                                      void* dw_hh, void* dbias, void* dw_out, void* db_out,
-                                      int SB, int R, int NS, int H, int W, int C, int hid,
-                                      int steps, int dg_ld, float clamp, void* stream) {
-  if (hid < 1 || hid > MAX_HIDDEN || dg_ld < 4 * hid) return (int)cudaErrorInvalidValue;
+                                      void* drds, void* vbuf, void* dgbuf, void* dvbuf, void* pts,
+                                      void* part, void* dfeat, void* ints, void* partials,
+                                      void* dbias, void* dw_out, void* db_out, int SB, int R,
+                                      int NS, int H, int W, int C, int hid, int steps, int vld,
+                                      int dg_ld, int ctas, float clamp, void* stream) {
+  if (hid < 1 || hid > MAX_HIDDEN || dg_ld < 4 * hid || vld < C + hid || vld % 4 || C % 4 ||
+      ctas < 1)
+    return (int)cudaErrorInvalidValue;
   MarchBwdArgs a;
   a.proj = (const float*)proj; a.rds = (const float*)rds; a.feat = (const float*)feat;
   a.w_ihT = (const float*)w_ihT; a.w_hh = (const float*)w_hh; a.w_out = (const float*)w_out;
   a.aux = (const float*)aux; a.gout = (const float*)gout; a.dcoords0 = (float*)dcoords0;
-  a.drds = (float*)drds; a.dfeat = (float*)dfeat; a.vbuf = (float*)vbuf;
-  a.dgbuf = (float*)dgbuf; a.dw_hh = (float*)dw_hh; a.dbias = (float*)dbias;
-  a.dw_out = (float*)dw_out; a.db_out = (float*)db_out;
+  a.drds = (float*)drds; a.vbuf = (float*)vbuf; a.dgbuf = (float*)dgbuf;
+  a.dvbuf = (float*)dvbuf; a.pts = (float*)pts; a.part = (float*)part;
   a.SB = SB; a.R = R; a.NS = NS; a.H = H; a.W = W; a.C = C; a.hid = hid; a.steps = steps;
-  a.dg_ld = dg_ld; a.clamp = clamp;
+  a.vld = vld; a.dg_ld = dg_ld; a.clamp = clamp;
   cudaStream_t s = (cudaStream_t)stream;
   const size_t smem = bwd_smem_bytes(C, hid);
   cudaError_t e = cudaFuncSetAttribute(lstm_march_bwd_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  int dev = 0, sms = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)e;
-  const long long rays = (long long)SB * R;
-  const long long need = (rays + WARPS - 1) / WARPS;
-  const unsigned blocks = (unsigned)(need < sms ? need : sms);
-  lstm_march_bwd_kernel<<<blocks, WARPS * 32, smem, s>>>(a);
+  lstm_march_bwd_kernel<<<(unsigned)ctas, WARPS * 32, smem, s>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  march_bins_f32((const float*)pts, (const float*)proj, (const float*)dvbuf, (float*)dfeat, ints,
+                 partials, SB * NS, NS, H, W, C, R * steps, s);
+  lstm_march_partials_kernel<<<(5 * hid + 1 + 127) / 128, 128, 0, s>>>(
+      (const float*)part, ctas, hid, (float*)dbias, (float*)dw_out, (float*)db_out);
   return (int)cudaGetLastError();
 }
 
@@ -1290,20 +1353,6 @@ __global__ void __launch_bounds__(TILE_WARPS_MAX * 32) lstm_march_tile_bwd_kerne
     }
     a.part[(size_t)blockIdx.x * nout + o] = sum;
   }
-}
-
-// dbias (permuted), dw_out and db_out: the CTAs' partial sums in CTA order
-__global__ void __launch_bounds__(128)
-lstm_march_partials_kernel(const float* __restrict__ part, int ctas, int HP,
-                           float* __restrict__ dbias, float* __restrict__ dw_out,
-                           float* __restrict__ db_out) {
-  const int nout = 5 * HP + 1, o = blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= nout) return;
-  float s = 0.f;
-  for (int c = 0; c < ctas; ++c) s += part[(size_t)c * nout + o];
-  if (o < 4 * HP) dbias[o] = s;
-  else if (o < 5 * HP) dw_out[o - 4 * HP] = s;
-  else *db_out = s;
 }
 
 template <int NG>

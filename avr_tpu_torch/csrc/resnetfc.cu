@@ -44,8 +44,16 @@
 // kernel sums dW = G^T A over the points for every weight in one launch:
 // 128 x 128 dW tiles, 8 warps of FMA, both operands copied K-major into
 // shared memory by cp.async (two stages: the next rows load while the
-// current ones multiply); at most 8 row chunks per tile meet in float32
-// atomics; bias gradients are column sums of the cotangents.
+// current ones multiply); the rows split into at most 8 chunks of at least
+// 4,096 (ops/kernels/resnetfc.py wgrad_plan).  No float atomics: each
+// (chunk, tile) CTA writes its float32 partial tile, and its share of the
+// bias gradients (column sums of the cotangents; the row range's column
+// tiles take turns by stage), to a partials buffer, and the bf16 wgrad's
+// reduction (csrc/resnetfc_hopper.cu resnetfc_wgrad_reduce_kernel) adds the
+// chunks in chunk order into dW and db: the same bits on every run.  The
+// partials are 4 bytes a dW element and chunk, written once and read once
+// (~110 MB at K2's 15 jobs of 327,680 points in 8 chunks: ~0.07 ms of
+// bytes beside the products' ~2.2 TFLOP).
 //
 // Recompute backward (replaces the TPU's _bwd_impl, :248-390, call :853,
 // which stash="auto" takes above 6 GiB of stash): per chunk of points the
@@ -642,13 +650,15 @@ extern "C" int avr_resnetfc_dgrad(const void* x, const void* g, const void* stas
 }
 
 // dW (Mg x Ka) += G^T A and db (Mg) += column sums of G over the rows of
-// one job: G (rows x ldg) and A (rows x lda) in T.
+// one job: G (rows x ldg) and A (rows x lda) in T.  The partial tiles and
+// bias sums of its (split, tile) CTAs go to part (ops/kernels/resnetfc.py
+// wgrad_plan's layout, the bf16 wgrad's); wgrad_reduce adds them.
 struct WgradJob {
   const void* G;
   const void* A;
-  float* dW;
-  float* db;  // nullptr: no bias
-  int rows, ldg, lda, Mg, Ka, chunk, tiles_o, tiles_i, first_block;
+  int rows, ldg, lda, Mg, Ka, chunk, tiles, tiles_i, first_block;
+  long long part;   // float offset of the job's partial tiles [split][Mg][Ka]
+  long long bpart;  // float offset of its bias partials [split][tiles_i][Mg]; -1: no bias
 };
 
 constexpr int MAX_JOBS = 24;
@@ -678,7 +688,7 @@ __device__ __forceinline__ void load_tile_async(const T* X, int ldx, int rows, i
   for (int idx = threadIdx.x; idx < kc<T>() * (WT / V); idx += blockDim.x) {
     const int n = idx / (WT / V), cv = idx - n * (WT / V), c = c0 + cv * V;
     T* dst = Xs + n * L + cv * V;
-    const bool live = n0 + n < rows && c < ldx;
+    const bool live = n0 + n < rows && c < ncols;
     if (live && c + V <= ncols) {
       cp_async16(dst, X + (size_t)(n0 + n) * ldx + c);
       continue;
@@ -716,22 +726,26 @@ __device__ __forceinline__ void wgrad_step(const float* Gs, const float* As, int
 }
 
 template <typename T>
-__global__ void __launch_bounds__(256) resnetfc_wgrad_kernel(WgradArgs args) {
+__global__ void __launch_bounds__(256)
+resnetfc_wgrad_kernel(const __grid_constant__ WgradArgs args, float* __restrict__ part) {
   constexpr int L = wt_stride<T>(), K = kc<T>();
   __shared__ __align__(16) T Gs[2][K * L];  // two stages: the next rows load while
   __shared__ __align__(16) T As[2][K * L];  // the current ones multiply
   int j = 0;
   while (j + 1 < args.n_jobs && (int)blockIdx.x >= args.job[j + 1].first_block) ++j;
   const WgradJob& job = args.job[j];
+  // block -> (split, tile), the tiles of one row range adjacent
   const int local = blockIdx.x - job.first_block;
-  const int tiles = job.tiles_o * job.tiles_i;
-  const int tile = local % tiles, chunk = local / tiles;
-  const int o0 = (tile / job.tiles_i) * WT, i0 = (tile % job.tiles_i) * WT;
-  const int r_begin = chunk * job.chunk;
+  const int split = local / job.tiles, tile = local % job.tiles;
+  const int ti = tile % job.tiles_i;
+  const int o0 = (tile / job.tiles_i) * WT, i0 = ti * WT;
+  const int r_begin = split * job.chunk;
   const int r_end = min(job.rows, r_begin + job.chunk);
   const int warp = threadIdx.x >> 5;
   const int m0 = (warp & 3) * 32, n0 = (warp >> 2) * 64;
-  const bool bias = job.db != nullptr && i0 == 0;
+  // the bias sums are shared by the row range's column tiles: tile ti sums
+  // the stages s with s % tiles_i == ti
+  const bool bias = job.bpart >= 0;
   const T* G = static_cast<const T*>(job.G);
   const T* A = static_cast<const T*>(job.A);
   Frag acc;
@@ -746,7 +760,7 @@ __global__ void __launch_bounds__(256) resnetfc_wgrad_kernel(WgradArgs args) {
   load_tile_async(G, job.ldg, r_end, job.Mg, r_begin, o0, Gs[0]);
   load_tile_async(A, job.lda, r_end, job.Ka, r_begin, i0, As[0]);
   cp_async_commit();
-  for (int r = r_begin; r < r_end; r += K) {
+  for (int r = r_begin, s = 0; r < r_end; r += K, ++s) {
     if (r + K < r_end) {  // prefetch the next rows into the other stage
       load_tile_async(G, job.ldg, r_end, job.Mg, r + K, o0, Gs[stage ^ 1]);
       load_tile_async(A, job.lda, r_end, job.Ka, r + K, i0, As[stage ^ 1]);
@@ -756,14 +770,14 @@ __global__ void __launch_bounds__(256) resnetfc_wgrad_kernel(WgradArgs args) {
       cp_async_wait<0>();
     }
     __syncthreads();  // this stage's rows have landed for every thread
-    if (bias && threadIdx.x < WT)
+    if (bias && threadIdx.x < WT && s % job.tiles_i == ti)
       for (int k = 0; k < K; ++k) bsum += to_f(Gs[stage][k * L + threadIdx.x]);
     wgrad_step(Gs[stage], As[stage], m0, n0, acc);
     __syncthreads();  // done with this stage before it is refilled
     stage ^= 1;
   }
-  if (bias && threadIdx.x < WT && o0 + (int)threadIdx.x < job.Mg)
-    atomicAdd(job.db + o0 + threadIdx.x, bsum);
+  // the partial tile (every element of it: rows past the range added zeros)
+  float* dst = part + job.part + (size_t)split * job.Mg * job.Ka;
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -771,32 +785,46 @@ __global__ void __launch_bounds__(256) resnetfc_wgrad_kernel(WgradArgs args) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int o = o0 + m0 + frag_row(mt, i), c = i0 + frag_col(n0, nt, i);
-        if (o < job.Mg && c < job.Ka) atomicAdd(job.dW + (size_t)o * job.Ka + c, acc[mt][nt][i]);
+        if (o < job.Mg && c < job.Ka) dst[(size_t)o * job.Ka + c] = acc[mt][nt][i];
       }
+  if (bias && threadIdx.x < WT && o0 + (int)threadIdx.x < job.Mg)
+    part[job.bpart + ((size_t)split * job.tiles_i + ti) * job.Mg + o0 + threadIdx.x] = bsum;
 }
 
+// plan: per job (rows, ldg, lda, Mg, Ka, tiles_i, tiles, splits, chunk,
+// group, first_block, part, bpart) as ops/kernels/resnetfc.py wgrad_plan
+// makes it for float32: one launch (group 0) of at most MAX_JOBS jobs, then
+// wgrad_reduce over every job.
 extern "C" int avr_resnetfc_wgrad(const void* const* G, const void* const* A, void* const* dW,
-                                  void* const* db, const int* dims, int n_jobs, int dtype,
+                                  void* const* db, const long long* plan, int n_jobs, void* part,
                                   void* stream) {
-  // dims: per job (rows, ldg, lda, Mg, Ka)
   if (n_jobs > MAX_JOBS || n_jobs < 1) return (int)cudaErrorInvalidValue;
   WgradArgs args;
+  ReduceArgs r;
   int blocks = 0;
+  long long total = 0;
   for (int j = 0; j < n_jobs; ++j) {
+    const long long* q = plan + j * WGRAD_PLAN_W;
     WgradJob& w = args.job[j];
-    w.G = G[j]; w.A = A[j]; w.dW = (float*)dW[j]; w.db = (float*)db[j];
-    w.rows = dims[5 * j]; w.ldg = dims[5 * j + 1]; w.lda = dims[5 * j + 2];
-    w.Mg = dims[5 * j + 3]; w.Ka = dims[5 * j + 4];
-    // at most 8 row chunks per tile: bounds the float32 atomics to 8 per dW element
-    const int chunk = max(4096, (w.rows + 7) / 8);
-    w.chunk = (chunk + KC - 1) / KC * KC;  // a multiple of both row steps
-    w.tiles_o = (w.Mg + WT - 1) / WT;
-    w.tiles_i = (w.Ka + WT - 1) / WT;
-    w.first_block = blocks;
-    blocks += w.tiles_o * w.tiles_i * ((w.rows + w.chunk - 1) / w.chunk);
+    w.G = G[j]; w.A = A[j];
+    w.rows = (int)q[0]; w.ldg = (int)q[1]; w.lda = (int)q[2]; w.Mg = (int)q[3];
+    w.Ka = (int)q[4]; w.tiles_i = (int)q[5]; w.tiles = (int)q[6]; w.chunk = (int)q[8];
+    w.first_block = (int)q[10]; w.part = q[11]; w.bpart = db[j] ? q[12] : -1;
+    if (q[9] != 0 || w.chunk % KC || w.first_block != blocks) return (int)cudaErrorInvalidValue;
+    blocks += w.tiles * (int)q[7];
+    ReduceJob& rj = r.job[j];
+    rj.dW = (float*)dW[j]; rj.db = (float*)db[j]; rj.part = w.part; rj.bpart = w.bpart;
+    rj.first = total; rj.Mg = w.Mg; rj.Ka = w.Ka; rj.splits = (int)q[7];
+    rj.bsplits = (int)q[7] * w.tiles_i;
+    if ((long long)w.Mg * w.Ka % 4 || w.part % 4) return (int)cudaErrorInvalidValue;
+    total += (long long)w.Mg * w.Ka / 4 + (db[j] ? w.Mg : 0);
   }
   args.n_jobs = n_jobs;
-  if (dtype != 0) return (int)cudaErrorInvalidValue;  // bf16: csrc/resnetfc_hopper.cu
-  resnetfc_wgrad_kernel<float><<<blocks, 256, 0, (cudaStream_t)stream>>>(args);
-  return (int)cudaGetLastError();
+  r.n_jobs = n_jobs;
+  r.total = total;
+  cudaStream_t s = (cudaStream_t)stream;
+  resnetfc_wgrad_kernel<float><<<blocks, 256, 0, s>>>(args, (float*)part);
+  cudaError_t c = cudaGetLastError();
+  if (c != cudaSuccess) return (int)c;
+  return wgrad_reduce(r, (const float*)part, s);
 }

@@ -74,3 +74,23 @@ struct FcBwdArgs {
   int N, ns, d_in, k_in, d_latent, d_hidden, d_out, n_blocks, n_lin_z, activate;
 };
 
+
+// The wgrad's reduction (csrc/resnetfc_hopper.cu resnetfc_wgrad_reduce_kernel),
+// shared by the bf16 wgrad and the float32 one (csrc/resnetfc.cu): dW += the
+// splits' partial tiles in split order and db += the bias partials, each
+// job's partials at its offsets in `part` (ops/kernels/resnetfc.py
+// wgrad_plan, WGRAD_PLAN_W values a job).
+constexpr int WGRAD_PLAN_W = 13;
+constexpr int MAX_RJOBS = 24;
+struct ReduceJob {
+  float* dW;
+  float* db;
+  long long part, bpart, first;  // first: the job's first element of the flat index
+  int Mg, Ka, splits, bsplits;      // bias partials: splits x column tiles
+};
+struct ReduceArgs {
+  ReduceJob job[MAX_RJOBS];
+  int n_jobs;
+  long long total;
+};
+int wgrad_reduce(const ReduceArgs& r, const float* part, cudaStream_t s);

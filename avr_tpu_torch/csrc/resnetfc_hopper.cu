@@ -1210,19 +1210,6 @@ resnetfc_wgrad_wgmma_kernel(const __grid_constant__ WgmmaGroup p, float* __restr
   }
 }
 
-constexpr int MAX_RJOBS = 24;
-struct ReduceJob {
-  float* dW;
-  float* db;
-  long long part, bpart, first;  // first: the job's first element of the flat index
-  int Mg, Ka, splits, bsplits;      // bias partials: splits x column tiles
-};
-struct ReduceArgs {
-  ReduceJob job[MAX_RJOBS];
-  int n_jobs;
-  long long total;
-};
-
 // dW += the splits' partial tiles in split order (4 floats a thread), and
 // db += the bias partials.
 __global__ void __launch_bounds__(256) resnetfc_wgrad_reduce_kernel(const __grid_constant__ ReduceArgs r,
@@ -1253,11 +1240,17 @@ __global__ void __launch_bounds__(256) resnetfc_wgrad_reduce_kernel(const __grid
   }
 }
 
+int wgrad_reduce(const ReduceArgs& r, const float* part, cudaStream_t s) {
+  long long grid = (r.total + 255) / 256;
+  if (grid > 132 * 16) grid = 132 * 16;
+  resnetfc_wgrad_reduce_kernel<<<(unsigned)grid, 256, 0, s>>>(r, part);
+  return (int)cudaGetLastError();
+}
+
 // plan: per job (rows, ldg, lda, Mg, Ka, tiles_i, tiles, splits, chunk,
 // group, first_block, part, bpart) as ops/kernels/resnetfc.py wgrad_plan
 // makes it; groups of at most WG_GROUP jobs, one launch each, then one
 // reduction over every job.
-constexpr int PLAN_W = 13;
 
 extern "C" int avr_resnetfc_wgrad_bf16(const void* const* G, const void* const* A,
                                        void* const* dW, void* const* db, const long long* plan,
@@ -1272,11 +1265,11 @@ extern "C" int avr_resnetfc_wgrad_bf16(const void* const* G, const void* const* 
   long long total = 0;
   for (int j0 = 0; j0 < n_jobs;) {
     WgmmaGroup grp;
-    const long long group = plan[j0 * PLAN_W + 9];
+    const long long group = plan[j0 * WGRAD_PLAN_W + 9];
     int n = 0, blocks = 0;
-    while (j0 + n < n_jobs && plan[(j0 + n) * PLAN_W + 9] == group) {
+    while (j0 + n < n_jobs && plan[(j0 + n) * WGRAD_PLAN_W + 9] == group) {
       const int j = j0 + n;
-      const long long* q = plan + j * PLAN_W;
+      const long long* q = plan + j * WGRAD_PLAN_W;
       if (n == WG_GROUP) return (int)cudaErrorInvalidValue;
       WgmmaJob& w = grp.job[n];
       w.rows = (int)q[0]; w.Mg = (int)q[3]; w.Ka = (int)q[4]; w.tiles_i = (int)q[5];
@@ -1301,8 +1294,5 @@ extern "C" int avr_resnetfc_wgrad_bf16(const void* const* G, const void* const* 
     j0 += n;
   }
   r.total = total;
-  long long grid = (total + 255) / 256;
-  if (grid > 132 * 16) grid = 132 * 16;
-  resnetfc_wgrad_reduce_kernel<<<(unsigned)grid, 256, 0, s>>>(r, (const float*)part);
-  return (int)cudaGetLastError();
+  return wgrad_reduce(r, (const float*)part, s);
 }

@@ -10,15 +10,23 @@ sample ``k`` of ray ``r`` at row ``r * n + k`` of ``field_out (SB, R * n,
 and ``field_out``; the backward kernel recomputes the rest, as the TPU
 kernel's does.
 
-What bounds it on Hopper: bytes, and at these sizes launch latency (train
-step's band call, 4 x 4,096 rays x 20 samples: ~6.8 MB forward, ~2.0 us at
-3.35 TB/s; ~13.4 MB backward, ~4.0 us).  One warp per ray, walking the
-band in groups of 32 samples (lane ``k`` of group ``j`` holding sample ``32 j
-+ k``), so a ray takes any number of samples (the adaptive renderer's band
-has 20, the quality series' 2x epsilon sweep 40); the shifts, the
-transmittance's prefix product and the sums are warp shuffles, the
-transmittance and the sums carried from group to group, forward and
-backward (``csrc/integrate.cu``).
+What bounds it on Hopper: bytes, and at these sizes the launch and the
+latency of one load and one ray's arithmetic (train step's band call, 4 x
+4,096 rays x 20 samples: ~6.8 MB forward, ~2.0 us at 3.35 TB/s; ~13.4 MB
+backward, ~4.0 us).  The forward (``csrc/integrate.cu
+volume_integral_kernel``) takes four lanes a ray, eight rays a warp: each
+warp stages its rays' contiguous rows of ``z`` and the field in shared
+memory (``cp.async``, all in flight at once, no barrier across warps),
+then each ray's lanes composite it in registers (sample ``p`` of a group on
+lane ``p % 4``, slot ``p / 4``): the transmittance's prefix product in the
+TPU kernel's doubling association (its steps 1 and 2 across the lanes, 4,
+8 and 16 within a lane), the sums in slot order, then across the lanes.
+Rays go in groups of 32 samples, so a ray takes any number (the adaptive
+renderer's band has 20, the quality series' 2x epsilon sweep 40).  The
+backward is the first port's, unchanged: one warp a ray, walking the band
+in groups of 32 samples (lane ``k`` of group ``j`` holding sample ``32 j +
+k``), its shifts, prefix product and suffix sums warp shuffles carried
+from group to group.
 """
 
 from __future__ import annotations

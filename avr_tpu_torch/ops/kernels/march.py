@@ -44,9 +44,13 @@ kernels by dtype and hidden size:
   ``fused_lstm_march_bwd_tiles``.
 * ``"warp"`` (float32; ``lstm_march_kernel``, ``lstm_march_bwd_kernel``):
   one warp a ray, eight rays a CTA, float32 FMA (float32 operands on the
-  tensor cores would round to TF32); the backward adds ``dfeat`` and the
-  small weight cotangents by float atomics (sums in an order that changes
-  from run to run) and ``dW_ih`` is the float32 wgrad.
+  tensor cores would round to TF32).  The backward writes the same rows as
+  the tile walk, in float32 (``dv / NS`` and the point of every ray-step,
+  ``v_t | h_prev`` and the gate cotangents), the latent cotangent goes
+  through the bins' float32 accumulate, ``dW_ih`` and ``dW_hh`` are one
+  float32 wgrad of two jobs, and the bias and step-head sums are lane-owned
+  partials added per CTA and then in CTA order (:func:`walk_ctas_f32`): no
+  float atomics, every output bit for bit the same on a rerun.
 
 The TPU kernel's ray sort (``models/wrapper.py:256-280``) only feeds its
 windowed gather; the port leaves it out.
@@ -206,7 +210,7 @@ def lstm_march_plain(proj, coords0, rds, feat, w_ih, w_hh, bias, w_out, b_out, *
 
 
 _F32_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
-_F32_BWD_ARGS = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+_F32_BWD_ARGS = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p]
 _TILES_BWD_ARGS = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
 
 
@@ -331,36 +335,56 @@ def _backward_tiles(a: dict, aux: torch.Tensor, g: torch.Tensor, steps: int, gra
             unpermute_gates(dbias, hid), dw_out[:hid], db_out)
 
 
+WARPS_F32 = 8  # rays a CTA of the float32 walk (csrc/march.cu WARPS)
+
+
+def walk_ctas_f32(rays: int, sms: int) -> int:
+    """CTAs of the float32 walk over ``rays`` rays on a card of ``sms`` SMs:
+    one a ``WARPS_F32`` rays, at most one an SM (the walk is persistent
+    over its warps' rays).  Fixed by the shapes and the card, so the lanes'
+    partial sums, and their order, are the same on every run."""
+    return max(1, min(-(-rays // WARPS_F32), sms))
+
+
 def _backward_f32(a: dict, aux: torch.Tensor, g: torch.Tensor, steps: int, grad_clamp: float):
-    """The float32 backward: the warp-per-ray walk (float atomics), then
-    ``dW_ih`` as the float32 wgrad over its rows."""
+    """The float32 backward: the warp-per-ray walk, the binned latent
+    cotangent and the partial sums' reduction (one C call), then ``dW_ih``
+    and ``dW_hh`` as one float32 wgrad of two jobs over the walk's rows.  No
+    float atomics."""
     SB, NS, H, W, C = a["feat"].shape
     R = a["coords0"].shape[1]
     hid = a["w_hh"].shape[0]
     dev = g.device
+    rows = SB * R * steps
     f32 = dict(dtype=torch.float32, device=dev)
-    dcoords0 = torch.zeros((SB, R, 3), **f32)
-    drds = torch.zeros((SB, R, 3), **f32)
-    dfeat = torch.zeros((SB, NS, H, W, C), **f32)
-    dw_ih = torch.zeros((C, 4 * hid), **f32)
-    # per ray and step: v_t and the gate cotangents, zero where a ray was
-    # frozen; dW_ih = sum of v_t (x) dgates is one GEMM after
-    vbuf = torch.zeros((SB * R, steps, C), **f32)
+    dcoords0, drds = torch.empty((SB, R, 3), **f32), torch.empty((SB, R, 3), **f32)
+    # per ray-step: v_t | h_prev (the width a multiple of 4: 16-byte rows),
+    # the gate cotangents, dv / NS and the point; zero rows where a ray was
+    # frozen
+    vld = C + -(-hid // 4) * 4
     dg_ld = gate_row_width(hid)
-    dgbuf = torch.zeros((SB * R, steps, dg_ld), **f32)
-    dw_hh = torch.zeros((hid, 4 * hid), **f32)
-    dbias = torch.zeros((4 * hid,), **f32)
-    dw_out = torch.zeros((hid,), **f32)
-    db_out = torch.zeros((1,), **f32)
+    vbuf = torch.empty((rows, vld), **f32)
+    dgbuf = torch.empty((rows, dg_ld), **f32)
+    dvbuf = torch.empty((rows, C), **f32)
+    pts = torch.empty((rows, 3), **f32)
+    ctas = walk_ctas_f32(SB * R, torch.cuda.get_device_properties(dev).multi_processor_count)
+    part = torch.empty((ctas, 5 * hid + 1), **f32)
+    dfeat = torch.empty((SB, NS, H, W, C), **f32)
+    ints, partials = _bin_scratch(NAME_BWD, dfeat.view(SB * NS, H, W, C), R * steps)
+    dbias, dw_out, db_out = (torch.empty(n, **f32) for n in (4 * hid, hid, 1))
     err = _build.kernel_fn("avr_lstm_march_bwd_f32", _F32_BWD_ARGS)(
         *(_build.ptr(t) for t in (
             a["proj"], a["rds"], a["feat"], a["w_ih"].t().contiguous(), a["w_hh"], a["w_out"],
-            aux, g, dcoords0, drds, dfeat, vbuf, dgbuf, dw_hh, dbias, dw_out, db_out)),
-        SB, R, NS, H, W, C, hid, steps, dg_ld, float(grad_clamp),
+            aux, g, dcoords0, drds, vbuf, dgbuf, dvbuf, pts, part, dfeat, ints, partials, dbias,
+            dw_out, db_out)),
+        SB, R, NS, H, W, C, hid, steps, vld, dg_ld, ctas, float(grad_clamp),
         ctypes.c_void_p(_build.stream_ptr(dev)))
     _build.check(NAME_BWD, err)
-    wgrad(NAME_WGRAD, [(vbuf.data_ptr(), dgbuf.data_ptr(), dw_ih, None, SB * R * steps, C,
-                        dg_ld, C, 4 * hid)], torch.float32, dev)
+    dw_ih, dw_hh = torch.zeros((C, 4 * hid), **f32), torch.zeros((hid, 4 * hid), **f32)
+    wgrad(NAME_WGRAD, [(vbuf.data_ptr(), dgbuf.data_ptr(), dw_ih, None, rows, vld, dg_ld, C,
+                        4 * hid),
+                       (vbuf.data_ptr() + 4 * C, dgbuf.data_ptr(), dw_hh, None, rows, vld,
+                        dg_ld, hid, 4 * hid)], torch.float32, dev)
     return dcoords0, drds, dfeat, dw_ih, dw_hh, dbias, dw_out, db_out
 
 

@@ -45,7 +45,9 @@ tiles with both operands MN-major in shared memory, rows split by
 partial tiles added by a second kernel in split order (deterministic), the
 bias gradients column sums of the same rounded cotangents.  float32
 operands take ``csrc/resnetfc.cu``'s FMA backward with the forward's
-32-point tiling.
+32-point tiling; its wgrad splits the rows into at most 8 chunks
+(:func:`wgrad_plan`'s float32 rule) and adds the chunks' partial tiles
+with the bf16 wgrad's reduction, so float32 too is the same run to run.
 
 ``stash`` picks the backward as JAX does: ``True`` the stash backward,
 ``False`` the recompute backward, ``"auto"`` the stash while the call's
@@ -504,22 +506,28 @@ def _wgrad(N, z, st, cot, gout, enc, grads, d, cd):
     wgrad(NAME_WGRAD, jobs, cd, st.device)
 
 
-# The bf16 wgrad (csrc/resnetfc_hopper.cu): dW tiles of WGRAD_TILE x
-# WGRAD_TILE, WGRAD_ROWS rows a pipeline stage, at most WGRAD_GROUP jobs a
-# launch (their tensor maps are kernel parameters).
+# The wgrad (bf16: csrc/resnetfc_hopper.cu; float32: csrc/resnetfc.cu): dW
+# tiles of WGRAD_TILE x WGRAD_TILE, rows in steps of WGRAD_ROWS (bf16: a
+# pipeline stage; float32: WGRAD_ROWS_F32, two of its shared-memory steps),
+# at most WGRAD_GROUP jobs a launch (bf16: their tensor maps are kernel
+# parameters; float32 takes WGRAD_GROUP_F32 in one launch).
 WGRAD_TILE, WGRAD_ROWS, WGRAD_GROUP = 128, 64, 8
-# The row split: each job gets at least WGRAD_WAVES waves of one CTA per SM
-# on the card's WGRAD_SMS SMs, in chunks of at least WGRAD_MIN_CHUNK rows
-# (a CTA's float32 partial tile, 64 KB, is then at most ~3% of the operand
-# bytes it reads).
+WGRAD_ROWS_F32, WGRAD_GROUP_F32 = 32, 24
+# The bf16 row split: each job gets at least WGRAD_WAVES waves of one CTA
+# per SM on the card's WGRAD_SMS SMs, in chunks of at least
+# WGRAD_MIN_CHUNK rows (a CTA's float32 partial tile, 64 KB, is then at
+# most ~3% of the operand bytes it reads).  The float32 split: at most
+# WGRAD_SPLITS_F32 chunks of at least WGRAD_MIN_CHUNK_F32 rows (the FMA
+# kernel reads each row once a tile, so fewer, longer chunks).
 WGRAD_SMS, WGRAD_WAVES, WGRAD_MIN_CHUNK = 132, 2, 2048
+WGRAD_SPLITS_F32, WGRAD_MIN_CHUNK_F32 = 8, 4096
 
 
 class WgradJobPlan(NamedTuple):
     tiles_o: int
     tiles_i: int
     splits: int
-    chunk: int        # rows a split (a multiple of WGRAD_ROWS)
+    chunk: int        # rows a split (a multiple of the dtype's row step)
     group: int        # the launch that runs the job
     first_block: int  # its first CTA in that launch
     part: int         # float offset of its partial tiles [split][Mg][Ka]
@@ -532,22 +540,34 @@ class WgradPlan(NamedTuple):
     floats: int       # size of the partials buffer
 
 
-def wgrad_plan(shapes) -> WgradPlan:
-    """The bf16 wgrad's host plan for jobs of ``shapes``, each ``(rows, Mg,
-    Ka, bias)``: per job 128 x 128 tiles times row splits of at least
-    ``WGRAD_WAVES * WGRAD_SMS`` CTAs where the rows allow ``WGRAD_MIN_CHUNK`` a
-    split; jobs in launches of ``WGRAD_GROUP``, CTAs ordered by job, then
-    split, then tile (the tiles of one row range run together)."""
+def _split(rows: int, to: int, ti: int, compute_dtype) -> int:
+    """Rows a split of a job of ``rows`` rows and ``to x ti`` tiles."""
+    if compute_dtype == torch.bfloat16:
+        splits = max(1, min(-(-WGRAD_WAVES * WGRAD_SMS // (to * ti)), rows // WGRAD_MIN_CHUNK))
+        return -(-(-(-rows // splits)) // WGRAD_ROWS) * WGRAD_ROWS
+    chunk = max(WGRAD_MIN_CHUNK_F32, -(-rows // WGRAD_SPLITS_F32))
+    return -(-chunk // WGRAD_ROWS_F32) * WGRAD_ROWS_F32
+
+
+def wgrad_plan(shapes, compute_dtype=torch.bfloat16) -> WgradPlan:
+    """The wgrad's host plan for jobs of ``shapes``, each ``(rows, Mg, Ka,
+    bias)``: per job 128 x 128 tiles times row splits (bf16: at least
+    ``WGRAD_WAVES * WGRAD_SMS`` CTAs where the rows allow
+    ``WGRAD_MIN_CHUNK`` a split; float32: at most ``WGRAD_SPLITS_F32``
+    splits); jobs in launches of ``WGRAD_GROUP`` (float32
+    ``WGRAD_GROUP_F32``), CTAs ordered by job, then split, then tile (the
+    tiles of one row range run together).  Each (split, tile) CTA owns a
+    region of the partials buffer; the reduction adds the splits in order."""
+    group = WGRAD_GROUP if compute_dtype == torch.bfloat16 else WGRAD_GROUP_F32
     jobs, blocks, part = [], [], 0
     plans = []
     for rows, mg, ka, bias in shapes:
         to, ti = -(-mg // WGRAD_TILE), -(-ka // WGRAD_TILE)
-        splits = max(1, min(-(-WGRAD_WAVES * WGRAD_SMS // (to * ti)), rows // WGRAD_MIN_CHUNK))
-        chunk = -(-(-(-rows // splits)) // WGRAD_ROWS) * WGRAD_ROWS
+        chunk = _split(rows, to, ti, compute_dtype)
         plans.append((to, ti, max(1, -(-rows // chunk)), chunk))
     bpart = sum(p[2] * mg * ka for p, (_, mg, ka, _) in zip(plans, shapes))
     for j, ((to, ti, sp, chunk), (rows, mg, ka, bias)) in enumerate(zip(plans, shapes)):
-        if j % WGRAD_GROUP == 0:
+        if j % group == 0:
             blocks.append(0)
         jobs.append(WgradJobPlan(to, ti, sp, chunk, len(blocks) - 1, blocks[-1], part,
                                  bpart if bias else -1))
@@ -562,34 +582,30 @@ def wgrad(name: str, jobs, compute_dtype, device) -> None:
     rows, ldg, lda, Mg, Ka)``: ``dW (Mg, Ka) += G^T A`` over the rows of ``G
     (rows, ldg)`` and ``A (rows, lda)`` in the compute dtype, and ``db +=
     sum G``.  Counted under the caller's ``name``.  bf16 runs the wgmma
-    kernel on :func:`wgrad_plan` and its reduction; float32 the FMA kernel."""
+    kernel, float32 the FMA kernel, each on :func:`wgrad_plan` and then the
+    reduction of the splits' partial tiles in split order: no float
+    atomics, the same bits on every run."""
     n = len(jobs)
     arr = lambda vals: (ctypes.c_void_p * n)(*vals)
     G, A = arr([j[0] for j in jobs]), arr([j[1] for j in jobs])
     dW = arr([j[2].data_ptr() for j in jobs])
     db = arr([None if j[3] is None else j[3].data_ptr() for j in jobs])
     stream = ctypes.c_void_p(_build.stream_ptr(device))
-    if compute_dtype == torch.bfloat16:
-        for j in jobs:
-            if j[5] % 8 or j[6] % 8 or j[0] % 16 or j[1] % 16:
-                raise ValueError(f"{name}: wgrad rows must be 16-byte aligned, got job {j[4:]}")
-        shapes = [(j[4], j[7], j[8], j[3] is not None) for j in jobs]
-        plan = wgrad_plan(shapes)
-        rows = [(j[4], j[5], j[6], j[7], j[8], jp.tiles_i, jp.tiles_o * jp.tiles_i, jp.splits,
-                 jp.chunk, jp.group, jp.first_block, jp.part, jp.bpart)
-                for j, jp in zip(jobs, plan.jobs)]
-        flat = (ctypes.c_longlong * (13 * n))(*(v for r in rows for v in r))
-        part = torch.empty((plan.floats,), dtype=torch.float32, device=device)
-        fn = _build.kernel_fn("avr_resnetfc_wgrad_bf16", [ctypes.c_void_p] * 5 + [
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
-        err = fn(*(ctypes.cast(x, ctypes.c_void_p) for x in (G, A, dW, db, flat)), n,
-                 _build.ptr(part), stream)
-    else:
-        dims = (ctypes.c_int * (5 * n))(*(v for j in jobs for v in j[4:]))
-        fn = _build.kernel_fn("avr_resnetfc_wgrad", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
-                              + [ctypes.c_void_p])
-        err = fn(*(ctypes.cast(x, ctypes.c_void_p) for x in (G, A, dW, db, dims)), n,
-                 _DTYPES[compute_dtype], stream)
+    vec = 8 if compute_dtype == torch.bfloat16 else 4  # values in 16 bytes (TMA, cp.async)
+    for j in jobs:
+        if j[5] % vec or j[6] % vec or j[0] % 16 or j[1] % 16:
+            raise ValueError(f"{name}: wgrad rows must be 16-byte aligned, got job {j[4:]}")
+    plan = wgrad_plan([(j[4], j[7], j[8], j[3] is not None) for j in jobs], compute_dtype)
+    rows = [(j[4], j[5], j[6], j[7], j[8], jp.tiles_i, jp.tiles_o * jp.tiles_i, jp.splits,
+             jp.chunk, jp.group, jp.first_block, jp.part, jp.bpart)
+            for j, jp in zip(jobs, plan.jobs)]
+    flat = (ctypes.c_longlong * (13 * n))(*(v for r in rows for v in r))
+    part = torch.empty((plan.floats,), dtype=torch.float32, device=device)
+    entry = "avr_resnetfc_wgrad_bf16" if compute_dtype == torch.bfloat16 else "avr_resnetfc_wgrad"
+    fn = _build.kernel_fn(entry, [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p,
+                                                         ctypes.c_void_p])
+    err = fn(*(ctypes.cast(x, ctypes.c_void_p) for x in (G, A, dW, db, flat)), n,
+             _build.ptr(part), stream)
     _build.check(name, err)
 
 

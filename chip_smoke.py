@@ -30,14 +30,17 @@ Phases (any failure raises and exits non-zero):
    (1,572,864 points), where it is held against the plain autograd too,
    and with its host loop cut to 1,000-point chunks; the integral's
    adjoint with a saturated lane; K4 (the band integral) at the train
-   step's band (4 x 4,096 rays x 20 samples, and 40: two warp groups a
-   ray) and a serving chunk, with saturated samples and a ray of zero
-   density, forward and backward; K3 (``march_route``: bf16 on 16-ray
+   step's band (4 x 4,096 rays x 20 samples, and 40: two groups of 32
+   samples a ray) and a serving chunk, with saturated samples and a ray of
+   zero density, forward and backward, the forward also at 1, 32 and 33
+   samples, at 1 and 1,000 rays (off its CTA's 32) and at none, and timed
+   at the band and at a served chunk; K3 (``march_route``: bf16 on 16-ray
    tiles, float32 a warp a ray, each case's route counters checked) also
    at hidden 62, forward and backward, its forward and the timed
-   backward's eight gradients bit for bit equal on a rerun, its forward
-   also timed at the train step's call with the saved rows and its kept
-   float32 kernels timed beside; K5
+   backward's eight gradients bit for bit equal on a rerun (every float32
+   case's too, early stop with frozen rays included), its forward also
+   timed at the train step's call with the saved rows and its float32
+   kernels timed beside; K5
    (the projected gather) at both of its calls on the fused path, the band
    query (81,920 points a scene) and the coarse query at the marched point
    (4,096), in 1 scene (serving) and 4 (the train step), bf16 and float32,
@@ -55,7 +58,12 @@ Phases (any failure raises and exits non-zero):
    for bit against its plain version at the serving and train draws'
    shapes and its raw bits at the sampler's, and held to the TPU kernel's
    contract (range, moments, determinism, key sensitivity, decorrelated
-   column blocks).  Times (CUDA events) of the kernel, the plain version
+   column blocks).  float32 (the JAX CLI's default dtype): K2's stash and
+   recompute backward, K3's backward and the float32 wgrad (K2's 15 jobs,
+   K3's dW_ih and dW_hh) bit for bit on a rerun, the wgrad's jobs against
+   torch.matmul; K2's float32 forward, dgrad and wgrad, K3's dW_ih and
+   dW_hh and a served float32 frame timed (the ``float32`` rows, beside
+   their float32 bounds).  Times (CUDA events) of the kernel, the plain version
    and, where one PyTorch call computes the same function, that call (K4
    and K5 also the kernel's own device time, from the profiler); the least
    time the card could take (bytes over 3.35 TB/s or operations over the
@@ -97,7 +105,9 @@ Phases (any failure raises and exits non-zero):
    one-chunk and 8-chunk VR steps from the same weights give the same loss
    and gradients up to summation order; the bf16 adaptive step run twice on
    one batch is reported (the worst relative L2 of the encoder's, the
-   decoders' and the march's gradients).
+   decoders' and the march's gradients), and the float32 one held to it:
+   its decoders' and march's gradients bit for bit (cuDNN's encoder
+   backward reported), with its kernel launches.
    ``--profile`` traces a frame of every renderer and a train step of
    every path.
 5. Reference: small float32 renders of every renderer and train steps
@@ -512,13 +522,19 @@ def march_inputs(gen, ns, dtype=torch.bfloat16, sb=1, w_out_scale=0.05, hidden=H
 # K3's kernels by route (csrc/march.cu): bf16 marches 16-ray tiles on the
 # tensor cores, its backward's latent cotangent through K5's bins (the
 # march's own instantiation, <true, true>: projected points shared by the
-# views); float32 keeps the warp-per-ray kernels
+# views); float32 keeps the warp-per-ray kernels, its backward's latent
+# cotangent through the same bins' float32 accumulate
 K3_FWD_KERNELS = ("lstm_march_tile_kernel",)
+K3_BINS = ("gather_bin_count_kernel<true, true>", "gather_bin_scan_kernel",
+           "gather_bin_plan_kernel", "gather_bin_scatter_kernel<true, true>",
+           "gather_bin_reduce_kernel")
 K3_BWD_KERNELS = ("lstm_march_tile_bwd_kernel", "lstm_march_partials_kernel",
-                  "gather_bin_count_kernel<true, true>", "gather_bin_scan_kernel",
-                  "gather_bin_plan_kernel", "gather_bin_scatter_kernel<true, true>",
-                  "gather_bin_mma_kernel<true, true>", "gather_bin_reduce_kernel")
+                  "gather_bin_mma_kernel<true, true>") + K3_BINS
 K3_F32_KERNELS = ("lstm_march_kernel", "lstm_march_bwd_kernel")
+K3_F32_BWD_KERNELS = ("lstm_march_bwd_kernel", "lstm_march_partials_kernel",
+                      "gather_bin_accum_kernel<true, true>") + K3_BINS
+# the float32 wgrad (csrc/resnetfc.cu) and its reduction (the bf16 wgrad's)
+WGRAD_F32_KERNELS = ("resnetfc_wgrad_kernel", "resnetfc_wgrad_reduce_kernel")
 
 
 @contextlib.contextmanager
@@ -1039,7 +1055,9 @@ def check_resnetfc_bwd(gen):
                       for nm, a, m in zip(DECODER_GRADS, got, matched)]
         cases += vs_plain + vs_matched
         worst = lambda cs: max((c["rel_l2"], c["case"].split()[0]) for c in cs)
-        if cd == torch.float32:
+        if cd == torch.float32:  # no float atomics: every gradient bit for bit on a rerun
+            cases.append(check_rerun(f"rerun every gradient {label}", got,
+                                     grads_of(kern, (x, z, *w), g)))
             cases += [check_l2(f"{nm} {label} matched reference vs autograd", m, b, 1e-5,
                                against="autograd")
                       for nm, m, b in zip(DECODER_GRADS, ref_plain, want)]
@@ -1117,14 +1135,17 @@ def wgrad_matmul_jobs(st, cot, gout, enc, z, nb, nlz):
 # both sum exact float32 products of bf16 values over 327,680 rows in other
 # orders (the kernel in 64-row wgmma steps, row splits and a reduction;
 # cuBLAS in its own), a relative error near 2^-24 sqrt(rows) = 3.4e-5 of
-# the sum of |terms| at worst: 1e-4 of each job's L2 norm.
+# the sum of |terms| at worst: 1e-4 of each job's L2 norm.  float32
+# operands (the float32 wgrad, check_float32) add one rounding of 2^-24 a
+# product: the same order.
 WGRAD_JOB_TOL = 1e-4
 
 
-def check_wgrad_jobs(st, cot, gout, enc, args, dims, jobs):
+def check_wgrad_jobs(st, cot, gout, enc, args, dims, jobs, cd=torch.bfloat16):
     """The wgrad launch of the stash backward (``K2._wgrad``, the 15 jobs of
     an NS = 1 call) into fresh sums, each job's dW and db held against
-    torch.matmul and a column sum of the same rounded operands."""
+    torch.matmul and a column sum of the same rounded operands (``cd``:
+    the operands' dtype)."""
     f32 = dict(dtype=torch.float32, device=DEV)
     dh, nb, nlz = dims["d_hidden"], dims["n_blocks"], dims["n_lin_z"]
     grads = dict(wi=torch.zeros((dh, dims["k_in"]), **f32), bi=torch.zeros((dh,), **f32),
@@ -1133,7 +1154,7 @@ def check_wgrad_jobs(st, cot, gout, enc, args, dims, jobs):
                  b0=torch.zeros((nb, dh), **f32), w1=torch.zeros((nb, dh, dh), **f32),
                  b1=torch.zeros((nb, dh), **f32), wo=torch.zeros((dims["d_out"], dh), **f32),
                  bo=torch.zeros((dims["d_out"],), **f32))
-    K2._wgrad(dims["N"], args["z"], st, cot, gout, enc, grads, dims, torch.bfloat16)
+    K2._wgrad(dims["N"], args["z"], st, cot, gout, enc, grads, dims, cd)
     # the same order as K2._wgrad's jobs
     outs = [(f"{w}[{k}]", grads[w][k], grads[b][k]) for k in range(nb)
             for w, b in (("w0", "b0"), ("w1", "b1"))]
@@ -1147,9 +1168,109 @@ def check_wgrad_jobs(st, cot, gout, enc, args, dims, jobs):
                               against="torch.matmul"))
         cases.append(check_l2(f"wgrad {label} bias vs column sum", db, G[:, :mg].float().sum(0),
                               WGRAD_JOB_TOL, against="torch.sum"))
-    print(f"K2 wgrad per job: worst relative L2 against torch.matmul "
+    print(f"K2 wgrad per job ({str(cd)[6:]}): worst relative L2 against torch.matmul "
           f"{max(c['rel_l2'] for c in cases):.3e} over {len(jobs)} jobs")
     return cases
+
+
+# float32, the JAX CLI's default dtype (avr_tpu/cli/train.py --dtype f32):
+# its kernels keep the first port's designs (csrc/resnetfc.cu's FMA forward, dgrad and
+# wgrad; K3's warp-per-ray kernels)
+F32_FWD_KERNEL = "resnetfc_kernel"
+F32_DGRAD_KERNEL = "resnetfc_dgrad_kernel"
+K3_F32_JOB_ROWS = SB_TRAIN * CHUNK * STEPS  # K3's float32 dW_ih / dW_hh rows a train step
+
+
+def check_float32(gen):
+    """K2's float32 kernels at the main path's shapes (the forward at the
+    band chunk, the stash backward's dgrad and wgrad at the train step's
+    band call) and the float32 wgrad at K3's two jobs: times beside the
+    float32 bounds and the plain versions (the wgrad also beside
+    torch.matmul in float32, TF32 off), the wgrad's jobs against
+    torch.matmul, and every wgrad output bit for bit on a rerun."""
+    f32 = torch.float32
+    w = decoder_weights(gen)
+    kw = dict(n_blocks=5, n_lin_z=3, code=CODE, activate_out=True, compute_dtype=f32)
+    rows, cases = {}, []
+    x = (torch.rand(1, BAND, CODE.d_raw, generator=gen, device=DEV) * 2 - 1).contiguous()
+    z = randn(gen, 1, BAND, C)
+    fwd = lambda: fused_resnetfc(x, z, w, **kw)
+    wbytes = sum(t.numel() for t in w) * 4
+    rows["K2 forward"] = dict(
+        shape=f"N={BAND}, NS=1, f32", ms=kernel_device_ms(fwd, (F32_FWD_KERNEL,))[F32_FWD_KERNEL],
+        call_ms=time_ms(fwd, iters=5), plain_ms=time_ms(lambda: resnetfc_plain(x, z, w, **kw),
+                                                        iters=3), library_ms=None,
+        bound_ms=bound(x.numel() * 4 + z.numel() * 4 + wbytes + BAND * 4 * 4,
+                       decoder_flops(BAND, 1), F32_FLOPS)[0])
+    del x, z
+    # the stash backward at the train step's band call
+    x = (torch.rand(1, BAND_TRAIN, CODE.d_raw, generator=gen, device=DEV) * 2 - 1).contiguous()
+    z = randn(gen, 1, BAND_TRAIN, C)
+    g = randn(gen, BAND_TRAIN, 4) + 0.5
+    args = K2._prepare(x, z, w, CODE, f32)
+    dims = K2._dims(args, 5, 3, True)
+    st = K2._forward(args, dims, f32, True)[1]
+    run = lambda: K2._backward(args, dims, st, g, f32)
+    split = kernel_device_ms(run, (F32_DGRAD_KERNEL,) + WGRAD_F32_KERNELS, iters=2)
+    gs, wT, grads = K2._bwd_operands(args, dims, g, K2.NAME_DGRAD)
+    _, _, cot, gout, enc = K2._dgrad(args, dims, st, gs, wT, f32)
+    jobs = wgrad_matmul_jobs(st, cot, gout, enc, args["z"], 5, 3)
+    library_ms = time_ms(lambda: [torch.matmul(a.t(), b) for a, b in jobs], iters=3)
+    cases += check_wgrad_jobs(st, cot, gout, enc, args, dims, jobs, f32)
+    wg = lambda: K2._wgrad(BAND_TRAIN, args["z"], st, cot, gout, enc, grads, dims, f32)
+    again = {k: torch.zeros_like(v) for k, v in grads.items()}
+    for sums in (grads, again):  # into zeroed sums, twice: bit for bit
+        for v in sums.values():
+            v.zero_()
+        K2._wgrad(BAND_TRAIN, args["z"], st, cot, gout, enc, sums, dims, f32)
+    cases.append(check_rerun(f"rerun K2 float32 wgrad N={BAND_TRAIN}", list(grads.values()),
+                             list(again.values())))
+    act = BAND_TRAIN * 512 * 4  # one (N, 512) float32 activation
+    io = BAND_TRAIN * (CODE.d_raw * 4 * 2 + C * 4 * 2 + 4 * 4)  # x, dx, z, dz, g
+    flops = decoder_flops(BAND_TRAIN, 1)
+    common = dict(shape=f"N={BAND_TRAIN}, NS=1, f32 (the train step's band call)")
+    rows["K2 dgrad"] = dict(ms=split[F32_DGRAD_KERNEL], plain_ms=None, library_ms=None,
+                            bound_ms=bound(22 * act + io + wbytes, flops, F32_FLOPS)[0], **common)
+    rows["K2 wgrad"] = dict(ms=sum(split[k] for k in WGRAD_F32_KERNELS), split=split,
+                            call_ms=time_ms(wg, iters=3), library_ms=library_ms,
+                            library="torch.matmul over the 15 G^T A jobs, float32, TF32 off",
+                            plain_ms=None, bound_ms=bound(22 * act + BAND_TRAIN * C * 4
+                                                          + wbytes * 2, flops, F32_FLOPS)[0],
+                            **common)
+    rows["K2 stash backward"] = dict(ms=time_ms(run, iters=2), plain_ms=time_ms(
+        lambda: grads_of(lambda x_, z_: resnetfc_plain(x_, z_, w, **kw), (x, z), g), iters=2),
+        **common)
+    del x, z, g, args, st, gs, wT, grads, again, cot, gout, enc, jobs
+    # K3's dW_ih and dW_hh: one wgrad of two jobs over the walk's rows
+    # (v_t | h_prev, the gate cotangents), as ops/kernels/march.py launches it
+    vld, dgl = C + -(-HIDDEN // 4) * 4, K3.gate_row_width(HIDDEN)
+    v = randn(gen, K3_F32_JOB_ROWS, vld)
+    dg = randn(gen, K3_F32_JOB_ROWS, dgl)
+    outs = [[torch.zeros((C, 4 * HIDDEN), device=DEV), torch.zeros((HIDDEN, 4 * HIDDEN),
+                                                                   device=DEV)] for _ in range(2)]
+    k3 = lambda o: K2.wgrad(K3.NAME_WGRAD, [
+        (v.data_ptr(), dg.data_ptr(), o[0], None, K3_F32_JOB_ROWS, vld, dgl, C, 4 * HIDDEN),
+        (v.data_ptr() + 4 * C, dg.data_ptr(), o[1], None, K3_F32_JOB_ROWS, vld, dgl, HIDDEN,
+         4 * HIDDEN)], f32, DEV)
+    for o in outs:
+        k3(o)
+    cases.append(check_rerun("rerun K3 float32 dW_ih and dW_hh", outs[0], outs[1]))
+    for name, got, want in (("dW_ih", outs[0][0], v[:, :C].t() @ dg[:, :4 * HIDDEN]),
+                            ("dW_hh", outs[0][1], v[:, C:C + HIDDEN].t() @ dg[:, :4 * HIDDEN])):
+        cases.append(check_l2(f"K3 float32 {name} vs torch.matmul", got, want, WGRAD_JOB_TOL,
+                              against="torch.matmul"))
+    k3_ms = sum(kernel_device_ms(lambda: k3(outs[1]), WGRAD_F32_KERNELS).values())
+    rows["K3 dW_ih + dW_hh"] = dict(
+        shape=f"{K3_F32_JOB_ROWS} ray-steps, C={C}, hidden {HIDDEN}, f32", ms=k3_ms,
+        library_ms=time_ms(lambda: torch.matmul(v.t(), dg), iters=5),
+        library="torch.matmul(v^T, dgates), float32, TF32 off", plain_ms=None,
+        bound_ms=bound(K3_F32_JOB_ROWS * (vld + dgl) * 4 + (C + HIDDEN) * 4 * HIDDEN * 4,
+                       2 * K3_F32_JOB_ROWS * (C + HIDDEN) * 4 * HIDDEN, F32_FLOPS)[0])
+    del v, dg, outs
+    for name, r in rows.items():
+        print(f"float32 {name} ({r['shape']}): {r['ms']:.4f} ms (bound {r.get('bound_ms')}, "
+              f"plain {r.get('plain_ms')}, library {r.get('library_ms')})")
+    return dict(rows=rows, cases=cases)
 
 
 # decoder points of a VR train step (4 x 4,096 rays in one chunk): the
@@ -1201,6 +1322,11 @@ def check_resnetfc_recompute(gen):
         st = K2._forward(args, dims, cd, True)[1]
         want = K2._backward(args, dims, st, g, cd)
         got = K2._backward_recompute(args, dims, g, cd)
+        if cd == torch.float32:  # no float atomics: both backwards bit for bit on a rerun
+            cases.append(check_rerun(f"rerun stash backward {label}", want,
+                                     K2._backward(args, dims, st, g, cd)))
+            cases.append(check_rerun(f"rerun recompute backward {label}", got,
+                                     K2._backward_recompute(args, dims, g, cd)))
         # the stash dgrad's rounded cotangents and encoded input, and the
         # recompute kernel's workspace after the call's second chunk
         gs, wT, _ = K2._bwd_operands(args, dims, g, K2.NAME_DGRAD)
@@ -1435,6 +1561,9 @@ def check_march_bwd(gen):
         if tol is not None:
             cases += [check_l2(f"{nm} {label}", a, b, tol)
                       for nm, a, b in zip(MARCH_GRADS, got, want)]
+        if cd == torch.float32:  # no float atomics: every gradient bit for bit on a rerun
+            cases.append(check_rerun(f"rerun all eight gradients {label}", got,
+                                     run(fused_lstm_march, inp, g, **kw)))
         if steps == STEPS:
             conditioning(inp, g, got, want, label, **kw)
         if scale > 1.0:  # the +-10 clip must bite: without it the gradients differ
@@ -1458,6 +1587,25 @@ def check_march_bwd(gen):
                              f"version {want}")
     cases.append({"case": "NaN cotangent of one ray", "against": "plain, non-finite set",
                   "nonfinite": got})
+    # float32 with early stop (a generator of its own): a frozen ray-step
+    # writes zero rows at the point the forward saved, which the bins read;
+    # the rays that froze are those whose end point moves without it
+    fgen = torch.Generator(device=DEV).manual_seed(8)
+    for ns in (1, 2):
+        inp = march_inputs(fgen, ns, dtype=torch.float32)
+        g = randn(fgen, 1, CHUNK, 3)
+        kw = dict(steps=2, early_stop_eps=0.02, compute_dtype=torch.float32)
+        with march_routed(torch.float32, backward=True):
+            got = run(fused_lstm_march, inp, g, **kw)
+        want = run(lstm_march_plain, inp, g, **kw)
+        frozen = int((lstm_march_plain(**inp, **kw) != lstm_march_plain(
+            **inp, **dict(kw, early_stop_eps=0.0))).any(-1).sum())
+        if not frozen:
+            raise AssertionError("march: no ray froze in the float32 early-stop case")
+        label = f"SB=1 NS={ns} steps=2 eps=0.02 w_out 0.05 float32 ({frozen} rays froze)"
+        cases += [check_l2(f"{nm} {label}", a, b, 1e-3) for nm, a, b in zip(MARCH_GRADS, got, want)]
+        cases.append(check_rerun(f"rerun all eight gradients {label}", got,
+                                 run(fused_lstm_march, inp, g, **kw)))
     inp = march_inputs(gen, 1, sb=SB_TRAIN, w_out_scale=TIMED_HEAD)
     g = randn(gen, SB_TRAIN, CHUNK, 3)
     f = lambda fn: (lambda *t: fn(inp["proj"], *t, steps=STEPS, compute_dtype=torch.bfloat16))
@@ -1510,25 +1658,33 @@ def check_march_bwd(gen):
                   rows * (2 * C * 4 * HIDDEN + 16 * C + 6 * HIDDEN * 4 * HIDDEN), BF16_FLOPS)
     wg_ms, wg_by = bound(rows * (C + hp + 4 * hp) * 2 + (C + hp) * 4 * hp * 4,
                          2 * rows * (C + hp) * 4 * hp, BF16_FLOPS)
-    # the kept float32 route (warp per ray, float atomics) at the same shape
+    # the float32 route (warp per ray, the bins' float32 accumulate, the
+    # float32 wgrad) at the same shape: its eight gradients bit for bit on a
+    # rerun, and its time
     f32 = {k: (v.float() if v.is_floating_point() else v) for k, v in inp.items()}
     f32_fn = lambda *t: fused_lstm_march(f32["proj"], *t, steps=STEPS, compute_dtype=torch.float32)
-    _, run32 = grads_of(f32_fn, tuple(f32[k] for k in keys), g, keep=True)
+    got32, run32 = grads_of(f32_fn, tuple(f32[k] for k in keys), g, keep=True)
+    cases.append(check_rerun(f"rerun all eight gradients {label[:-len('bf16 (timed)')]}float32",
+                             got32, run32()))
+    del got32
     _, plain32 = grads_of(lambda *t: lstm_march_plain(f32["proj"], *t, steps=STEPS,
                                                       compute_dtype=torch.float32),
                           tuple(f32[k] for k in keys), g, keep=True)
-    # its own bytes: a float32 latent read and a zeroed float32 dfeat written
-    # (its atomics add into it), the saved rows, the rays, the dW_ih rows
+    split32 = kernel_device_ms(run32, K3_F32_BWD_KERNELS + WGRAD_F32_KERNELS, iters=2)
+    # its own bytes: a float32 latent read and dfeat written once, the saved
+    # rows, the rays, the weights (the rows it writes for the bins and the
+    # wgrad are the design's, as in the bf16 bound)
     kept = dict(kernel=K3_F32_KERNELS[1], ms=time_ms(run32, iters=3),
-                device_ms=kernel_device_ms(run32, K3_F32_KERNELS[1:], iters=2)[K3_F32_KERNELS[1]],
-                plain_ms=time_ms(plain32, iters=2), library_ms=None,
-                bound_ms=bound(fmap * 4 * 3 + rows * aw * 4 + rays * 3 * 4 * 4
-                               + rows * (C + 4 * HIDDEN) * 4, walk_flops, F32_FLOPS)[0])
+                device_ms=sum(split32[k] for k in K3_F32_BWD_KERNELS),
+                wgrad_device_ms=sum(split32[k] for k in WGRAD_F32_KERNELS),
+                device_ms_by_kernel=split32, plain_ms=time_ms(plain32, iters=2), library_ms=None,
+                bound_ms=bound(fmap * 4 * 2 + rows * aw * 4 + rays * 3 * 4 * 4
+                               + (C + HIDDEN) * 4 * HIDDEN * 4, walk_flops, F32_FLOPS)[0])
     del run32, plain32
     print(f"K3 backward timed: walk + bins + reduce {bwd_ms:.4f} device ms ({split}), bound "
           f"{b_ms:.4f} by {b_by} (the parent's figure {old_b[0]:.4f} by {old_b[1]}); SM "
-          f"{smi['clocks.sm']} MHz, {smi['power.draw']} W; float32 warp kernel "
-          f"{kept['device_ms']:.4f}")
+          f"{smi['clocks.sm']} MHz, {smi['power.draw']} W; float32 walk + bins + reduce "
+          f"{kept['device_ms']:.4f}, its dW_ih + dW_hh {kept['wgrad_device_ms']:.4f}")
     shape = f"{SB_TRAIN}x{CHUNK} rays x {STEPS} steps, NS=1, C={C}, hidden {HIDDEN}, bf16"
     common = dict(replaces="avr_tpu/ops/pallas/march.py:621", tpu_kernel="_bwd_kernel",
                   shape=shape, cases=cases, plain_ms=plain_ms, pair_ms=pair_ms)
@@ -1559,16 +1715,16 @@ def check_integral_saturated(gen):
 N_BAND = 20  # the adaptive renderer's band samples a ray (conf n_coarse)
 
 
-def integral_inputs(gen, sb, n=N_BAND):
+def integral_inputs(gen, sb, n=N_BAND, rays=CHUNK):
     """K4's inputs: per ray of a chunk ``n`` stratified band samples over +-0.15
     around a surface distance in [0.8, 1.6] (``sample_coarse``'s layout),
     colours in [0, 1] and densities of a ReLU'd decoder (a fifth of them 0,
     the rest up to 30); in scene 0 sample 4 of every 97th ray saturates (e
     is exactly 0) and ray 7 has no density at all."""
-    d = 0.8 + 0.8 * torch.rand(sb, CHUNK, 1, generator=gen, device=DEV)
-    u = (torch.arange(n, device=DEV) + torch.rand(sb, CHUNK, n, generator=gen, device=DEV)) / n
+    d = 0.8 + 0.8 * torch.rand(sb, rays, 1, generator=gen, device=DEV)
+    u = (torch.arange(n, device=DEV) + torch.rand(sb, rays, n, generator=gen, device=DEV)) / n
     z = (d - 0.15 + 0.3 * u).contiguous()
-    fo = torch.rand(sb, CHUNK * n, 4, generator=gen, device=DEV)
+    fo = torch.rand(sb, rays * n, 4, generator=gen, device=DEV)
     fo[..., 3] *= 30.0
     fo[:, ::5, 3] = 0.0
     fo[0, 4::97 * n, 3] = 1e6
@@ -1589,33 +1745,55 @@ def integral_bound(rays, n, backward):
 N_BAND_WIDE = 40
 
 
-def check_integral(gen):
+# K4's forward at the envelope's edges (a generator of their own): one
+# sample a ray, a full group of 32 and one past it, ray counts off the CTA's
+# 32 rays (one ray, and 1,000 in 2 scenes) and no ray at all
+INTEGRAL_EDGES = ((1, 1, CHUNK), (1, 32, CHUNK), (SB_TRAIN, 33, CHUNK), (1, N_BAND, 1),
+                  (2, N_BAND, 1_000), (1, 33, 1_000), (1, N_BAND, 0))
+
+
+def check_integral(gen, gen_edges):
     cases = []
-    # the train step's band and a serving chunk; at 20 and 40 samples a ray
-    for sb, n in ((SB_TRAIN, N_BAND), (1, N_BAND), (SB_TRAIN, N_BAND_WIDE), (1, N_BAND_WIDE)):
-        z, fo = integral_inputs(gen, sb, n)
+    # the train step's band and a serving chunk; at 20 and 40 samples a ray;
+    # then the envelope's edges
+    for i, (sb, n, rays) in enumerate(((SB_TRAIN, N_BAND, CHUNK), (1, N_BAND, CHUNK),
+                                       (SB_TRAIN, N_BAND_WIDE, CHUNK), (1, N_BAND_WIDE, CHUNK))
+                                      + INTEGRAL_EDGES):
+        z, fo = integral_inputs(gen if i < 4 else gen_edges, sb, n, rays)
         got = K4.fused_volume_integral(z, fo)
         want = K4.fused_volume_integral_plain(z, fo)
         # float32 on both sides: the transmittance's prefix product is
         # associated as the TPU kernel's doubling against cumprod, the sums
         # in another order; colours and distances are O(1): 1e-5
         for nm, a, b in zip(("rgb", "distance"), got, want):
-            if not torch.isfinite(a).all():
-                raise AssertionError(f"K4 {nm}: non-finite output")
-            cases.append(check(f"{nm} SB={sb} R={CHUNK} n={n}", max_err(a, b), 1e-5))
-        if sb == 1 and max_err(got[0][0, 7], torch.ones(3, device=DEV)) > 1e-6:
+            if not torch.isfinite(a).all() or a.shape != b.shape:
+                raise AssertionError(f"K4 {nm}: non-finite output or shape {tuple(a.shape)}")
+            cases.append(check(f"{nm} SB={sb} R={rays} n={n}", max_err(a, b) if rays else 0.0,
+                               1e-5))
+        if sb == 1 and rays == CHUNK and max_err(got[0][0, 7], torch.ones(3, device=DEV)) > 1e-6:
             raise AssertionError("K4: the ray of zero density is not white background")
     z, fo = integral_inputs(gen, SB_TRAIN)
     run = lambda: K4.fused_volume_integral(z, fo)
     ms = kernel_device_ms(run, ("volume_integral_kernel",), iters=20)["volume_integral_kernel"]
+    zs, fs = integral_inputs(gen_edges, 1)  # a served chunk: 1 x 4,096 rays
+    serve = lambda: K4.fused_volume_integral(zs, fs)
+    serve_ms = kernel_device_ms(serve, ("volume_integral_kernel",),
+                                iters=20)["volume_integral_kernel"]
     b_ms, b_by = integral_bound(SB_TRAIN * CHUNK, N_BAND, False)
+    call_ms, serve_call_ms = time_ms(run, iters=50), time_ms(serve, iters=50)
+    print(f"K4 forward: band {SB_TRAIN}x{CHUNK}x{N_BAND} {ms:.4f} device ms (call {call_ms:.4f}), "
+          f"served chunk 1x{CHUNK}x{N_BAND} {serve_ms:.4f} (call {serve_call_ms:.4f}); "
+          f"{len(cases)} cases within 1e-5")
     return dict(name=K4.NAME, source="avr_tpu_torch/csrc/integrate.cu",
                 replaces="avr_tpu/ops/pallas/integrate.py:302",
                 tpu_kernel="fused_volume_integral (_run_fwd)",
                 shape=f"{SB_TRAIN}x{CHUNK} rays x {N_BAND} samples, f32", cases=cases, ms=ms,
-                call_ms=time_ms(run, iters=50),
+                call_ms=call_ms,
                 plain_ms=time_ms(lambda: K4.fused_volume_integral_plain(z, fo), iters=20),
-                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                serve=dict(shape=f"1x{CHUNK} rays x {N_BAND} samples", device_ms=serve_ms,
+                           call_ms=serve_call_ms,
+                           bound_ms=integral_bound(CHUNK, N_BAND, False)[0]))
 
 
 def check_integral_bwd(gen):
@@ -2000,11 +2178,11 @@ def path_model(path, dtype, dev):
     return model
 
 
-def run_slice(path="adaptive", frames=3):
+def run_slice(path="adaptive", frames=3, dtype=torch.bfloat16):
     """Serve ``frames`` orbit frames of 128x128 through ``generate_video``
-    with the full-width model of ``path`` (a key of PATHS); the launch
-    counters are reset just before and read just after."""
-    model = path_model(path, torch.bfloat16, DEV)
+    with the full-width model of ``path`` (a key of PATHS) in ``dtype``; the
+    launch counters are reset just before and read just after."""
+    model = path_model(path, dtype, DEV)
     batch = scene_batch()
     generate_video(model, batch, 1, 1.3, render_chunk=CHUNK, device=DEV)  # warm-up: cuDNN/cuBLAS set-up
     torch.cuda.synchronize()
@@ -2015,7 +2193,8 @@ def run_slice(path="adaptive", frames=3):
     seconds = time.perf_counter() - t0
     counts = dict(_build.launches)
     chunks = frames * SIDE * SIDE // CHUNK
-    want = {k: v * chunks for k, v in SERVE_LAUNCHES[path].items()}
+    want = {k: v * chunks for k, v in SERVE_LAUNCHES[path].items()
+            if dtype == torch.bfloat16 or k not in BF16_ROUTES}
     if counts != want:
         raise AssertionError(f"{path} serve: launch counts {counts} != expected {want}")
     if len(video) != frames or any(f.shape != (SIDE, SIDE, 3) for f in video):
@@ -2218,6 +2397,9 @@ for _table in (SERVE_LAUNCHES, TRAIN_LAUNCHES):
         for _name, _tiles in ((K3.NAME, K3.NAME_TILES), (K3.NAME_BWD, K3.NAME_BWD_TILES)):
             if _name in _want:
                 _want[_tiles] = _want[_name]
+# the counters only bf16 moves (float32 takes csrc/resnetfc.cu's forward and
+# K3's warp-per-ray kernels)
+BF16_ROUTES = (K2.NAME_WGMMA, K3.NAME_TILES, K3.NAME_BWD_TILES)
 # parameters the loss gives an exactly zero gradient, so Adam leaves them
 # where they were: the coarse decoder's sigma row (the loss reads only its
 # rgb) for the marching renderers, and the Raymarcher's unused fine decoder
@@ -2445,16 +2627,23 @@ def check_vr_chunks():
     return cases
 
 
-def check_adaptive_rerun():
-    """The bf16 adaptive train step's loss and gradients, twice on the same
-    weights and batch: with K1's, K5's and K3's backward free of float
-    atomics, only cuDNN's encoder backward may move them (reported, not
-    bounded)."""
-    model = path_model("adaptive", torch.bfloat16, DEV)
+def check_adaptive_rerun(dtype=torch.bfloat16):
+    """The adaptive train step's loss and gradients in ``dtype``, twice on
+    the same weights and batch: with K1's, K5's, K2's and K3's backward
+    free of float atomics, only cuDNN's encoder backward may move them
+    (reported, not bounded).  float32 (the JAX CLI's default dtype) is held
+    to it: the decoders' and the march's gradients bit for bit.  Also
+    returns the second step's kernel launches."""
+    model = path_model("adaptive", dtype, DEV)
     params = dict(model.named_parameters())
     batch = train_batch(DEV)
-    (l1, g1), (l2, g2) = (loss_and_grads(model, params, LossParams(loss_mode="both"), *batch,
-                                         (0, 5)) for _ in range(2))
+    step = lambda: loss_and_grads(model, params, LossParams(loss_mode="both"), *batch, (0, 5))
+    l1, g1 = step()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    l2, g2 = step()
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
 
     def worst(prefix):
         return max((float((g1[k].float() - g2[k].float()).norm()
@@ -2463,12 +2652,20 @@ def check_adaptive_rerun():
 
     enc, rest = worst("net.encoder"), worst("net.mlp_")
     march = max(worst("lstm."), worst("out_layer."))  # the LSTM and its step head
-    print(f"adaptive step twice on one batch: loss {float(l1)} vs {float(l2)}; worst relative "
-          f"L2: encoder {enc}, decoders {rest}, march {march}")
-    return [{"case": "bf16 adaptive step twice on one batch", "against": "rerun",
-             "loss_diff": abs(float(l1) - float(l2)), "encoder_worst_rel_l2": enc[0],
-             "encoder_worst": enc[1], "decoder_worst_rel_l2": rest[0],
-             "march_worst_rel_l2": march[0]}]
+    kind = str(dtype)[6:]
+    print(f"adaptive step twice on one batch ({kind}): loss {float(l1)} vs {float(l2)}; worst "
+          f"relative L2: encoder {enc}, decoders {rest}, march {march}")
+    case = {"case": f"{kind} adaptive step twice on one batch", "against": "rerun",
+            "loss_diff": abs(float(l1) - float(l2)), "encoder_worst_rel_l2": enc[0],
+            "encoder_worst": enc[1], "decoder_worst_rel_l2": rest[0],
+            "march_worst_rel_l2": march[0], "launches": launches}
+    if dtype == torch.float32:
+        moved = [k for k in g2 if k.startswith(("net.mlp_", "lstm.", "out_layer."))
+                 and not same_bits(g1[k], g2[k])]
+        if moved:
+            raise AssertionError(f"float32 adaptive step twice on one batch: {moved} differ")
+        case.update(tol=0.0, bitwise=True)
+    return [case]
 
 
 @contextlib.contextmanager
@@ -2630,11 +2827,20 @@ def main() -> int:
     k2["cases"] += check_resnetfc_stash(gen_new)
     kernels = [k1, k2, check_march(gen),
                check_gather_bwd(gen), *check_resnetfc_bwd(gen), check_resnetfc_recompute(gen),
-               *check_march_bwd(gen), check_integral(gen), check_integral_bwd(gen),
+               *check_march_bwd(gen),
+               check_integral(gen, torch.Generator(device=DEV).manual_seed(4)),
+               check_integral_bwd(gen),
                check_gather_proj(gen), check_gather_proj_bwd(gen), check_rng()]
     # the binned gather backward's added cases draw from a generator of their own
     gen_bins = torch.Generator(device=DEV).manual_seed(2)
     by_name = {k["name"]: k for k in kernels}
+    # float32, the JAX CLI's default dtype: its kernels' rows (a generator of
+    # their own), K3's from its checks above, and a served float32 frame
+    float32 = check_float32(torch.Generator(device=DEV).manual_seed(6))
+    float32["rows"]["K3 forward"] = by_name["fused_lstm_march"]["kept_f32"]
+    float32["rows"]["K3 walk + bins + reduce"] = by_name["fused_lstm_march_bwd"]["kept_f32"]
+    float32["serve_adaptive"] = run_slice("adaptive", dtype=torch.float32)[0]
+    print(f"serve adaptive float32: {float32['serve_adaptive']}")
     check_gather_bwd_bins(gen_bins, by_name["gather_bilinear_bwd"])
     check_gather_proj_bwd_bins(gen_bins, by_name["gather_bilinear_projected_bwd"])
     # the tiled forward's added cases draw from a generator of their own
@@ -2670,9 +2876,9 @@ def main() -> int:
         del run_step
     launches = {**{f"serve_{k}": v["launches"] for k, v in serve.items()},
                 **{f"train_{k}": v["launches"] for k, v in train.items()}}
-    results = {"serve": serve, "train": train,
+    results = {"serve": serve, "train": train, "float32": float32,
                "vr_one_vs_8_chunks": check_vr_chunks(),
-               "adaptive_rerun": check_adaptive_rerun(),
+               "adaptive_rerun": check_adaptive_rerun() + check_adaptive_rerun(torch.float32),
                "reference": check_small_reference() + check_small_train()
                + check_small_train(rng_mode="legacy")
                + check_small_reference("adaptive_fused") + check_small_train("adaptive_fused")
@@ -2706,6 +2912,7 @@ def main() -> int:
                               if c["tol"] else 0.0)
     for part in (*serve.values(), *train.values()):
         part.pop("profile", None)
+    float32["cases"] = len(float32["cases"])
     print(json.dumps({"kernels": kernels, **results, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,10 @@
 """Rules of the port that hold on any machine.
 
 * No module of ``avr_tpu_torch`` and no part of ``chip_smoke.py``,
-  ``train_skip_probe.py``, ``march_turns.py`` or ``gather_turns.py`` imports
-  JAX, Flax, Optax or the JAX package (AST scan, the turns scripts' ``_TURN``
-  snippets included: they run as ``python -c`` in each checkout).
+  ``train_skip_probe.py``, ``march_turns.py``, ``gather_turns.py`` or
+  ``integral_turns.py`` imports JAX, Flax, Optax or the JAX package (AST
+  scan, the turns scripts' ``_TURN`` and ``_PROBE`` snippets included: they
+  run as ``python -c`` in each checkout).
 * Entry points default to the card: with no CUDA device and no explicit
   ``device``, they raise instead of running on the CPU.
 * CPU tensors take the plain versions and never touch the kernel library,
@@ -31,6 +32,7 @@ torch.set_num_threads(2)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "avr_tpu")
+SNIPPETS = ("_TURN", "_PROBE")  # the turns scripts' sources run in each checkout
 TINY = """
 include required("default_mv.conf")
 model {
@@ -54,7 +56,7 @@ def _imports(path: pathlib.Path, source=None):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module
-        elif (isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "_TURN"
+        elif (isinstance(node, ast.Assign) and any(getattr(t, "id", None) in SNIPPETS
                                                    for t in node.targets)):
             yield from _imports(path, node.value.value)  # a snippet run as ``python -c``
 
@@ -62,12 +64,13 @@ def _imports(path: pathlib.Path, source=None):
 def _port_files():
     return sorted((ROOT / "avr_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "train_skip_probe.py", ROOT / "march_turns.py",
-        ROOT / "gather_turns.py"]
+        ROOT / "gather_turns.py", ROOT / "integral_turns.py"]
 
 
 def test_the_scan_reads_the_turns_snippets():
-    for name in ("march_turns.py", "gather_turns.py"):
+    for name in ("march_turns.py", "gather_turns.py", "integral_turns.py"):
         assert "chip_smoke" in set(_imports(ROOT / name)), name
+    assert "ctypes" in set(_imports(ROOT / "integral_turns.py"))  # its _PROBE snippet
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))

@@ -1,4 +1,5 @@
-"""The bf16 wgrad's host plan (``ops/kernels/resnetfc.py wgrad_plan``).
+"""The wgrad's host plan (``ops/kernels/resnetfc.py wgrad_plan``), bf16 and
+float32.
 
 ``_blocks`` decodes each CTA's block index as the kernel does
 (``csrc/resnetfc_hopper.cu``, ``resnetfc_wgrad_wgmma_kernel``'s first
@@ -13,6 +14,7 @@ launch of jobs).
 """
 
 import pytest
+import torch
 
 from avr_tpu_torch.ops.kernels import resnetfc as K2
 
@@ -102,3 +104,72 @@ def test_each_large_job_fills_the_card(shapes):
     for jp, (rows, mg, ka, _) in zip(plan.jobs, shapes):
         if mg >= 512:
             assert jp.tiles_o * jp.tiles_i * jp.splits >= 2 * K2.WGRAD_SMS
+
+
+# The float32 wgrad (csrc/resnetfc.cu resnetfc_wgrad_kernel): the same
+# block decode and partials layout, its own row split (at most 8 chunks of
+# at least 4,096 rows, a multiple of its 32-row step) and one launch.  K2's
+# float32 jobs at the train step's band call and at chip_smoke.py's float32
+# check shapes (4,096 points, NS 1 and 2), K3's dW_ih and dW_hh over a train
+# step's 163,840 ray-steps (v_t | h_prev: 512 and 16 columns), ragged shapes.
+F32_K2 = [(N, 512, 512, True)] * 13 + [(N, 512, 64, True), (N, 4, 512, True)]
+F32_K2_SMALL = [(4_096 * ns, 512, 512, True) for ns in (1, 2)] + [(4_096, 4, 512, True)]
+F32_K3 = [(163_840, 512, 64, False), (163_840, 16, 64, False)]
+F32_RAGGED = [(1_000, 520, 200, True), (70_001, 4, 512, True), (3, 512, 64, False),
+              (131_071, 64, 248, True), (0, 16, 64, False)] * 2
+F32_CASES = [F32_K2, F32_K2_SMALL, F32_K3, F32_RAGGED]
+F32_IDS = ["K2", "K2 check shapes", "K3", "ragged"]
+
+
+@pytest.mark.parametrize("shapes", F32_CASES, ids=F32_IDS)
+def test_float32_plan_covers_every_tile_and_row_once(shapes):
+    plan = K2.wgrad_plan(shapes, torch.float32)
+    cover = {}
+    for j, o0, i0, rb, re in _blocks(shapes, plan):
+        cover.setdefault((j, o0, i0), []).append((rb, re))
+    for j, (rows, mg, ka, _) in enumerate(shapes):
+        tiles = {(o0, i0) for o0 in range(0, mg, K2.WGRAD_TILE)
+                 for i0 in range(0, ka, K2.WGRAD_TILE)}
+        assert {(o0, i0) for (jj, o0, i0) in cover if jj == j} == tiles
+        jp = plan.jobs[j]
+        assert jp.chunk % K2.WGRAD_ROWS_F32 == 0
+        assert jp.splits <= K2.WGRAD_SPLITS_F32
+        assert jp.chunk >= min(K2.WGRAD_MIN_CHUNK_F32, rows)
+        for o0, i0 in tiles:
+            spans = sorted(cover[(j, o0, i0)])
+            assert spans[0][0] == 0 and spans[-1][1] == rows
+            assert all(a[1] == b[0] for a, b in zip(spans, spans[1:])), "a gap or an overlap"
+            assert len(spans) == jp.splits  # every split a CTA: its partial tile is written
+    assert sum(plan.blocks) == sum(1 for _ in _blocks(shapes, plan))
+
+
+@pytest.mark.parametrize("shapes", F32_CASES, ids=F32_IDS)
+def test_float32_partials_are_disjoint(shapes):
+    """Each (split, tile) CTA writes its own partial tile and its own bias
+    partial (its column tile's share of the row range's stages), all in one
+    launch, so the reduction adds every element's splits in one order."""
+    plan = K2.wgrad_plan(shapes, torch.float32)
+    assert len(plan.blocks) == 1 and {jp.group for jp in plan.jobs} == {0}  # one launch
+    written = {}
+    for j, o0, i0, rb, _ in _blocks(shapes, plan):
+        jp, (_, mg, ka, bias) = plan.jobs[j], shapes[j]
+        split = rb // jp.chunk
+        for o in range(o0, min(mg, o0 + K2.WGRAD_TILE)):
+            for c in (i0, min(ka, i0 + K2.WGRAD_TILE) - 1):  # the tile's first and last column
+                written.setdefault(jp.part + (split * mg + o) * ka + c, []).append(j)
+            if bias:
+                ti = i0 // K2.WGRAD_TILE
+                written.setdefault(jp.bpart + (split * jp.tiles_i + ti) * mg + o, []).append(j)
+    assert all(len(v) == 1 for v in written.values()), "two CTAs write one partial"
+    assert max(written) < plan.floats
+    for jp, (_, mg, ka, bias) in zip(plan.jobs, shapes):
+        assert jp.part % 4 == 0 and (mg * ka) % 4 == 0  # the reduction reads float4s
+
+
+def test_float32_plan_keeps_the_parent_row_split():
+    """The split the float32 kernel had before its partials: at most 8
+    chunks of at least 4,096 rows, rounded up to its 32-row step."""
+    for rows in (1, 4_095, 4_096, 8_192, 32_769, 163_840, 327_680, 1_572_864):
+        jp = K2.wgrad_plan([(rows, 512, 512, True)], torch.float32).jobs[0]
+        chunk = -(-max(4_096, -(-rows // 8)) // 32) * 32
+        assert (jp.chunk, jp.splits) == (chunk, -(-rows // chunk))
