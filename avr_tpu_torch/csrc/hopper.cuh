@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks shared by the redesigned K2 backward
-// kernels: TMA tensor maps (encoded on the host by cuTensorMapEncodeTiled,
-// whose address the CUDA runtime hands out, so the library needs no -lcuda),
-// mbarrier rings, TMA loads and stores, and the warpgroup matrix multiply
-// (wgmma) with shared-memory descriptors for 128-byte-swizzled tiles.
+// Hopper (sm_90a) building blocks shared by the redesigned K2 kernels (the
+// bf16 forward and backward; the float32 forward's bulk copies): TMA tensor
+// maps (encoded on the host by cuTensorMapEncodeTiled, whose address the
+// CUDA runtime hands out, so the library needs no -lcuda), mbarrier rings,
+// TMA loads and stores, and the warpgroup matrix multiply (wgmma) with
+// shared-memory descriptors for 128-byte-swizzled tiles.
 //
 // Tile layout.  Every tile here is what a TMA box of {64 bf16 (128 bytes),
 // rows} writes with CU_TENSOR_MAP_SWIZZLE_128B: rows 128 bytes apart, the
@@ -130,6 +131,14 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5}], [%2];\n"
       :: "r"(smem_u32(dst)), "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+// bytes (a multiple of 16, both addresses 16-byte aligned) from global to
+// shared memory by one bulk copy, completing on the barrier's tx count.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
 }
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
                                              int c1, int c2) {

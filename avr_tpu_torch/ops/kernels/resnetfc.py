@@ -26,9 +26,14 @@ encoded input lanes at most 512: every shipped config) takes
 64-point tile, the float32 trunk in two consumer warpgroups' registers, a
 producer thread streaming every product's weight k-slabs through a
 shared-memory ring by TMA, ``wgmma`` on the swizzled operand tile, the
-stash stored from that tile by TMA.  float32, and bf16 outside that
-envelope, take ``csrc/resnetfc.cu``'s 32-point ``mma.sync`` (bf16) or FMA
-(float32) kernel, whose ~6.8 MB of weights stream from L2 for every tile.
+stash stored from that tile by TMA.  bf16 outside that envelope
+takes ``csrc/resnetfc.cu``'s 32-point ``mma.sync`` kernel, whose ~6.8 MB of
+weights stream from L2 for every tile.  float32 takes
+``csrc/resnetfc.cu``'s ``resnetfc_fwd_f32_kernel`` (:func:`f32_forward_plan`):
+a CTA a 32-point tile, register-tiled FMA products (8 points x 8 columns a
+thread, the trunk in registers), the transposed weights' 16-row slabs
+streamed through a shared-memory ring by copies the warps take turns to
+issue.
 Under autograd the forward also writes the 2 * n_blocks + 1 post-ReLU
 activations (bf16, 11.3 KB a point) for the backward.  bf16 backward
 (``csrc/resnetfc_hopper.cu``), on ``wgmma`` with
@@ -44,10 +49,13 @@ tiles with both operands MN-major in shared memory, rows split by
 :func:`wgrad_plan` into at least two waves of CTAs per job, the float32
 partial tiles added by a second kernel in split order (deterministic), the
 bias gradients column sums of the same rounded cotangents.  float32
-operands take ``csrc/resnetfc.cu``'s FMA backward with the forward's
-32-point tiling; its wgrad splits the rows into at most 8 chunks
-(:func:`wgrad_plan`'s float32 rule) and adds the chunks' partial tiles
-with the bf16 wgrad's reduction, so float32 too is the same run to run.
+operands take ``csrc/resnetfc.cu``'s FMA dgrad with the ``mma.sync``
+forward's 32-point tiling, and its register-tiled wgrad
+(``resnetfc_wgrad_f32_kernel``: 8 x 8 outputs a thread from staged K-major
+tiles), whose rows split as the bf16 wgrad's do (:func:`wgrad_plan`'s
+float32 rule: at least ``WGRAD_WAVES_F32`` waves of CTAs a job) and whose
+splits' partial tiles the bf16 wgrad's reduction adds in split order, so
+float32 too is the same run to run.
 
 ``stash`` picks the backward as JAX does: ``True`` the stash backward,
 ``False`` the recompute backward, ``"auto"`` the stash while the call's
@@ -75,8 +83,8 @@ import torch
 
 from avr_tpu_torch.ops.kernels import _build
 
-__all__ = ["CodeSpec", "DecoderWeights", "forward_route", "fused_resnetfc", "resnetfc_plain",
-           "use_stash", "encode_tables"]
+__all__ = ["CodeSpec", "DecoderWeights", "f32_forward_plan", "forward_route", "fused_resnetfc",
+           "resnetfc_plain", "use_stash", "encode_tables", "wgrad_plan"]
 
 NAME = "fused_resnetfc"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -201,6 +209,7 @@ NAME_STASH = "fused_resnetfc_stash"
 NAME_WGMMA = "fused_resnetfc_wgmma"  # forwards (stash or not) on the wgmma route
 NAME_DGRAD = "fused_resnetfc_bwd_dgrad"
 NAME_WGRAD = "fused_resnetfc_bwd_wgrad"
+NAME_WGRAD_F32 = "resnetfc_wgrad_f32"  # every float32 wgrad launch (K2's and K3's)
 NAME_RECOMPUTE = "fused_resnetfc_bwd_recompute"
 
 
@@ -259,11 +268,29 @@ def _prepare(x, z, w: DecoderWeights, code, compute_dtype):
     wi[:, :d_enc] = w.wi.detach()
     biases = [t.detach().to(compute_dtype).float().contiguous()
               for t in (w.bi, w.bz, w.b0, w.b1, w.bo)]
-    return dict(x=x.detach().float().contiguous(), z=cd(z), wi=wi, wz=cd(w.wz), w0=cd(w.w0),
-                w1=cd(w.w1), wo=cd(w.wo), bi=biases[0], bz=biases[1], b0=biases[2],
-                b1=biases[3], bo=biases[4],
-                tables=torch.from_numpy(np.stack([mode, src]).astype(np.int32)).to(dev),
-                fph=torch.from_numpy(np.stack([f, ph])).to(dev))
+    a = dict(x=x.detach().float().contiguous(), z=cd(z), wi=wi, wz=cd(w.wz), w0=cd(w.w0),
+             w1=cd(w.w1), wo=cd(w.wo), bi=biases[0], bz=biases[1], b0=biases[2],
+             b1=biases[3], bo=biases[4],
+             tables=torch.from_numpy(np.stack([mode, src]).astype(np.int32)).to(dev),
+             fph=torch.from_numpy(np.stack([f, ph])).to(dev))
+    if compute_dtype == torch.float32:
+        # the float32 forward streams k-row slabs of the transposed weights,
+        # which the float32 dgrad reads too; its latent rows go by bulk
+        # copies, 16-byte aligned
+        a.update(zip(_T_KEYS, _transposed(a)))
+        if a["z"].data_ptr() % 16:
+            a["z"] = a["z"].clone()
+    return a
+
+
+_T_KEYS = ("wiT", "wzT", "w0T", "w1T")
+
+
+def _transposed(a):
+    """lin_in, the injections and the blocks' weights transposed: ``(k_in,
+    dh)``, ``(n_lin_z, dl, dh)``, ``(n_blocks, dh, dh)`` twice."""
+    return [a["wi"].t().contiguous()] + [a[k].transpose(1, 2).contiguous()
+                                         for k in ("wz", "w0", "w1")]
 
 
 _FWD_ORDER = ("x", "z", "wi", "bi", "wz", "bz", "w0", "b0", "w1", "b1", "wo", "bo", "tables",
@@ -293,24 +320,73 @@ def forward_route(compute_dtype: torch.dtype, d_latent: int, k_in: int) -> str:
     every ``d_hidden`` it takes, 64..512, and every number of views take the
     same route): ``"wgmma"`` (bf16 with ``d_latent`` and ``k_in`` at most
     512, ``csrc/resnetfc_hopper.cu``), ``"mma_sync"`` (other bf16) or
-    ``"fma"`` (float32), both ``csrc/resnetfc.cu``.  A route's build or
-    launch failure raises: no call changes kernel."""
+    ``"fma"`` (float32: ``resnetfc_fwd_f32_kernel``), both
+    ``csrc/resnetfc.cu``.  A route's build or launch failure raises: no call
+    changes kernel."""
     if compute_dtype == torch.float32:
         return "fma"
     return "wgmma" if d_latent <= FWD_K_MAX and k_in <= FWD_K_MAX else "mma_sync"
 
 
+# The float32 forward (csrc/resnetfc.cu resnetfc_fwd_f32_kernel): a CTA a
+# tile of F32_FWD_TILE points and d_hidden / 2 threads (the warps take
+# turns to issue the slabs), a ring of F32_FWD_STAGES slabs of F32_FWD_SLAB
+# k rows of the transposed weights (each stage also holding a latent slab's
+# 32 rows of F32_FWD_SLAB + 4 floats) and an A tile of 32 rows of d_hidden
+# + 4 floats; the source's F32_TM, F32_KS, F32_STAGES and F32_ZLD.
+F32_FWD_TILE, F32_FWD_SLAB, F32_FWD_STAGES = 32, 16, 4
+
+
+class F32FwdPlan(NamedTuple):
+    tile: int         # points a CTA
+    blocks: int       # CTAs: every point in one tile
+    threads: int      # d_hidden / 2
+    cluster: int      # CTAs a cluster (1: none)
+    smem: int         # bytes of dynamic shared memory
+    slabs: int        # weight slabs a tile streams through the ring
+    products: tuple   # (weight, block, view, slabs, stash slot of its A operand or None)
+
+
+def f32_forward_plan(N: int, ns: int, d_hidden: int, d_latent: int, k_in: int, n_blocks: int,
+                     n_lin_z: int) -> F32FwdPlan:
+    """The float32 forward's launch for a shape: tile, threads, shared bytes
+    and the products in the order the kernel streams their slabs (per
+    view lin_in, then each injection's latent product and its block's two
+    products, then the pooled blocks, then lin_out, which reads its weights
+    directly).  Each block's two products' A operands (relu(h) and
+    relu(fc_0)) are the stash slots the kernel writes, and lin_out's the
+    last one."""
+    s = F32_FWD_SLAB
+    stage = s * d_hidden + F32_FWD_TILE * (s + 4)
+    smem = 4 * (F32_FWD_STAGES * stage + F32_FWD_TILE * (d_hidden + 4)) + 16 * F32_FWD_STAGES
+    products = []
+    for v in range(ns):
+        products.append(("wi", None, v, k_in // s, None))
+        for k in range(n_lin_z):
+            products += [("wz", k, v, d_latent // s, None),
+                         ("w0", k, v, d_hidden // s, stash_slot(k, 0, v, ns, n_lin_z)),
+                         ("w1", k, v, d_hidden // s, stash_slot(k, 1, v, ns, n_lin_z))]
+    for k in range(n_lin_z, n_blocks):
+        products += [("w0", k, 0, d_hidden // s, stash_slot(k, 0, 0, ns, n_lin_z)),
+                     ("w1", k, 0, d_hidden // s, stash_slot(k, 1, 0, ns, n_lin_z))]
+    products.append(("wo", None, 0, 0, stash_slots(ns, n_blocks, n_lin_z) - 1))
+    return F32FwdPlan(F32_FWD_TILE, -(-N // F32_FWD_TILE), d_hidden // 2, 1, smem,
+                      sum(p[3] for p in products), tuple(products))
+
+
 # the forward's C entry points: the operands in _FWD_ORDER, out, stash (and
-# the wgmma kernel's view-sum scratch), the dims in _DIM_ORDER, the stream
+# the wgmma and float32 kernels' view-sum scratch), the dims in _DIM_ORDER,
+# the stream
 FWD_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 FWD_WGMMA_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+NAME_F32 = "fused_resnetfc_f32"  # forwards (stash or not) on the float32 kernel
 
 
 def _forward(a, d, compute_dtype, stash: bool, st=None):
     """Launch the forward on :func:`forward_route`'s kernel; with ``stash``
     also return the activations (written into ``st`` where given).  Counted
     under ``NAME`` or ``NAME_STASH``, and the wgmma route also under
-    ``NAME_WGMMA``."""
+    ``NAME_WGMMA``, the float32 one under ``NAME_F32``."""
     dev = a["x"].device
     N, ns, dh = d["N"], d["ns"], d["d_hidden"]
     out = torch.empty((N, d["d_out"]), dtype=torch.float32, device=dev)
@@ -332,12 +408,21 @@ def _forward(a, d, compute_dtype, stash: bool, st=None):
                             dtype=torch.float32, device=dev) if ns > 1 else None)
         fn = _build.kernel_fn("avr_resnetfc_fwd_bf16", FWD_WGMMA_ARGTYPES)
         err = fn(*ptrs, _build.ptr(pool) if ns > 1 else None, *dims, stream)
+    elif route == "fma":
+        # the transposed weights in place of wi, wz, w0, w1; the view sums of
+        # NS > 1: 32 x d_hidden floats a tile
+        ptrs = [_build.ptr(a.get(k + "T", a[k])) for k in _FWD_ORDER] + ptrs[len(_FWD_ORDER):]
+        plan = f32_forward_plan(N, ns, dh, d["d_latent"], d["k_in"], d["n_blocks"], d["n_lin_z"])
+        pool = (torch.empty((plan.blocks * plan.tile, dh), dtype=torch.float32, device=dev)
+                if ns > 1 else None)
+        fn = _build.kernel_fn("avr_resnetfc_fwd_f32", FWD_WGMMA_ARGTYPES)  # the same signature
+        err = fn(*ptrs, _build.ptr(pool) if ns > 1 else None, *dims, stream)
     else:
         fn = _build.kernel_fn("avr_resnetfc", FWD_ARGTYPES)
         err = fn(*ptrs, *dims, _DTYPES[compute_dtype], stream)
     _build.check(NAME_STASH if stash else NAME, err)
-    if route == "wgmma":
-        _build.launches[NAME_WGMMA] += 1
+    if route != "mma_sync":
+        _build.launches[NAME_WGMMA if route == "wgmma" else NAME_F32] += 1
     return out, st
 
 
@@ -348,8 +433,7 @@ def _bwd_operands(a, d, g, name):
     dh, dl, nb, nlz = d["d_hidden"], d["d_latent"], d["n_blocks"], d["n_lin_z"]
     g = g.float().contiguous()
     _build.check_cuda_inputs(name, {"g": g}, dev)
-    wT = [a["wi"].t().contiguous()] + [a[k].transpose(1, 2).contiguous()
-                                       for k in ("wz", "w0", "w1")]
+    wT = [a[k] for k in _T_KEYS] if "wiT" in a else _transposed(a)
     f32 = dict(dtype=torch.float32, device=dev)
     grads = dict(wi=torch.zeros((dh, d["k_in"]), **f32), bi=torch.zeros((dh,), **f32),
                  wz=torch.zeros((nlz, dh, dl), **f32), bz=torch.zeros((nlz, dh), **f32),
@@ -508,19 +592,19 @@ def _wgrad(N, z, st, cot, gout, enc, grads, d, cd):
 
 # The wgrad (bf16: csrc/resnetfc_hopper.cu; float32: csrc/resnetfc.cu): dW
 # tiles of WGRAD_TILE x WGRAD_TILE, rows in steps of WGRAD_ROWS (bf16: a
-# pipeline stage; float32: WGRAD_ROWS_F32, two of its shared-memory steps),
-# at most WGRAD_GROUP jobs a launch (bf16: their tensor maps are kernel
+# pipeline stage; float32: WGRAD_ROWS_F32, one of its stages), at most
+# WGRAD_GROUP jobs a launch (bf16: their tensor maps are kernel
 # parameters; float32 takes WGRAD_GROUP_F32 in one launch).
 WGRAD_TILE, WGRAD_ROWS, WGRAD_GROUP = 128, 64, 8
 WGRAD_ROWS_F32, WGRAD_GROUP_F32 = 32, 24
-# The bf16 row split: each job gets at least WGRAD_WAVES waves of one CTA
-# per SM on the card's WGRAD_SMS SMs, in chunks of at least
-# WGRAD_MIN_CHUNK rows (a CTA's float32 partial tile, 64 KB, is then at
-# most ~3% of the operand bytes it reads).  The float32 split: at most
-# WGRAD_SPLITS_F32 chunks of at least WGRAD_MIN_CHUNK_F32 rows (the FMA
-# kernel reads each row once a tile, so fewer, longer chunks).
+# The row split: each job gets at least WGRAD_WAVES (float32:
+# WGRAD_WAVES_F32) waves of one CTA per SM on the card's WGRAD_SMS SMs, in
+# chunks of at least WGRAD_MIN_CHUNK (WGRAD_MIN_CHUNK_F32) rows.  bf16: a
+# CTA's float32 partial tile, 64 KB, is then at most ~3% of the operand
+# bytes it reads.  float32: a chunk of 1,024 rows reads 1 MB of operands
+# for its 64 KB partial tile (two float32 CTAs share an SM).
 WGRAD_SMS, WGRAD_WAVES, WGRAD_MIN_CHUNK = 132, 2, 2048
-WGRAD_SPLITS_F32, WGRAD_MIN_CHUNK_F32 = 8, 4096
+WGRAD_WAVES_F32, WGRAD_MIN_CHUNK_F32 = 2, 1024
 
 
 class WgradJobPlan(NamedTuple):
@@ -542,19 +626,19 @@ class WgradPlan(NamedTuple):
 
 def _split(rows: int, to: int, ti: int, compute_dtype) -> int:
     """Rows a split of a job of ``rows`` rows and ``to x ti`` tiles."""
-    if compute_dtype == torch.bfloat16:
-        splits = max(1, min(-(-WGRAD_WAVES * WGRAD_SMS // (to * ti)), rows // WGRAD_MIN_CHUNK))
-        return -(-(-(-rows // splits)) // WGRAD_ROWS) * WGRAD_ROWS
-    chunk = max(WGRAD_MIN_CHUNK_F32, -(-rows // WGRAD_SPLITS_F32))
-    return -(-chunk // WGRAD_ROWS_F32) * WGRAD_ROWS_F32
+    bf16 = compute_dtype == torch.bfloat16
+    waves, least, step = ((WGRAD_WAVES, WGRAD_MIN_CHUNK, WGRAD_ROWS) if bf16 else
+                          (WGRAD_WAVES_F32, WGRAD_MIN_CHUNK_F32, WGRAD_ROWS_F32))
+    splits = max(1, min(-(-waves * WGRAD_SMS // (to * ti)), rows // least))
+    return max(1, -(-(-(-rows // splits)) // step)) * step
 
 
 def wgrad_plan(shapes, compute_dtype=torch.bfloat16) -> WgradPlan:
     """The wgrad's host plan for jobs of ``shapes``, each ``(rows, Mg, Ka,
-    bias)``: per job 128 x 128 tiles times row splits (bf16: at least
-    ``WGRAD_WAVES * WGRAD_SMS`` CTAs where the rows allow
-    ``WGRAD_MIN_CHUNK`` a split; float32: at most ``WGRAD_SPLITS_F32``
-    splits); jobs in launches of ``WGRAD_GROUP`` (float32
+    bias)``: per job 128 x 128 tiles times row splits (at least
+    ``WGRAD_WAVES * WGRAD_SMS`` CTAs, float32 ``WGRAD_WAVES_F32 *
+    WGRAD_SMS``, where the rows allow ``WGRAD_MIN_CHUNK`` a split, float32
+    ``WGRAD_MIN_CHUNK_F32``); jobs in launches of ``WGRAD_GROUP`` (float32
     ``WGRAD_GROUP_F32``), CTAs ordered by job, then split, then tile (the
     tiles of one row range run together).  Each (split, tile) CTA owns a
     region of the partials buffer; the reduction adds the splits in order."""
@@ -581,8 +665,9 @@ def wgrad(name: str, jobs, compute_dtype, device) -> None:
     """Launch the wgrad over ``jobs``, each ``(G ptr, A ptr, dW, db or None,
     rows, ldg, lda, Mg, Ka)``: ``dW (Mg, Ka) += G^T A`` over the rows of ``G
     (rows, ldg)`` and ``A (rows, lda)`` in the compute dtype, and ``db +=
-    sum G``.  Counted under the caller's ``name``.  bf16 runs the wgmma
-    kernel, float32 the FMA kernel, each on :func:`wgrad_plan` and then the
+    sum G``.  Counted under the caller's ``name``, and float32 also under
+    ``NAME_WGRAD_F32``.  bf16 runs the wgmma kernel, float32 the
+    register-tiled FMA kernel, each on :func:`wgrad_plan` and then the
     reduction of the splits' partial tiles in split order: no float
     atomics, the same bits on every run."""
     n = len(jobs)
@@ -607,6 +692,8 @@ def wgrad(name: str, jobs, compute_dtype, device) -> None:
     err = fn(*(ctypes.cast(x, ctypes.c_void_p) for x in (G, A, dW, db, flat)), n,
              _build.ptr(part), stream)
     _build.check(name, err)
+    if compute_dtype == torch.float32:
+        _build.launches[NAME_WGRAD_F32] += 1
 
 
 class _Decoder(torch.autograd.Function):

@@ -61,10 +61,18 @@ Phases (any failure raises and exits non-zero):
    column blocks).  float32 (the JAX CLI's default dtype): K2's stash and
    recompute backward, K3's backward and the float32 wgrad (K2's 15 jobs,
    K3's dW_ih and dW_hh) bit for bit on a rerun, the wgrad's jobs against
-   torch.matmul; K2's float32 forward, dgrad and wgrad, K3's dW_ih and
-   dW_hh and a served float32 frame timed (the ``float32`` rows, beside
-   their float32 bounds).  Times (CUDA events) of the kernel, the plain version
-   and, where one PyTorch call computes the same function, that call (K4
+   torch.matmul; K2's float32 forward (``resnetfc_fwd_f32_kernel``) held
+   to the plain version at d_hidden 64, 256 and 512, NS 1 and 2, 576
+   encoded lanes and a latent of 1,024, on and off its 32-point tile, with
+   and without the stash (``check_f32_forward``); K2's float32 forward (at
+   the band and a served chunk's coarse query), dgrad and wgrad, K3's
+   dW_ih and dW_hh and a served float32 frame timed (the ``float32`` rows,
+   beside their float32 bounds); the served float32 frames and a float32
+   adaptive step launch every float32 K2 forward on the float32 kernel
+   (``fused_resnetfc_f32``) and every float32 wgrad on
+   ``resnetfc_wgrad_f32``, the two kernels' rows in the kernel table.
+   Times (CUDA events) of the kernel, the plain version and, where one
+   PyTorch call computes the same function, that call (K4
    and K5 also the kernel's own device time, from the profiler); the least
    time the card could take (bytes over 3.35 TB/s or operations over the
    type's peak).
@@ -534,7 +542,7 @@ K3_F32_KERNELS = ("lstm_march_kernel", "lstm_march_bwd_kernel")
 K3_F32_BWD_KERNELS = ("lstm_march_bwd_kernel", "lstm_march_partials_kernel",
                       "gather_bin_accum_kernel<true, true>") + K3_BINS
 # the float32 wgrad (csrc/resnetfc.cu) and its reduction (the bf16 wgrad's)
-WGRAD_F32_KERNELS = ("resnetfc_wgrad_kernel", "resnetfc_wgrad_reduce_kernel")
+WGRAD_F32_KERNELS = ("resnetfc_wgrad_f32_kernel", "resnetfc_wgrad_reduce_kernel")
 
 
 @contextlib.contextmanager
@@ -1174,20 +1182,75 @@ def check_wgrad_jobs(st, cot, gout, enc, args, dims, jobs, cd=torch.bfloat16):
 
 
 # float32, the JAX CLI's default dtype (avr_tpu/cli/train.py --dtype f32):
-# its kernels keep the first port's designs (csrc/resnetfc.cu's FMA forward, dgrad and
-# wgrad; K3's warp-per-ray kernels)
-F32_FWD_KERNEL = "resnetfc_kernel"
+# K2's forward and the float32 wgrad are register-tiled FMA kernels
+# (csrc/resnetfc.cu resnetfc_fwd_f32_kernel, resnetfc_wgrad_f32_kernel);
+# K2's float32 dgrad and K3's float32 kernels keep the first port's designs
+F32_FWD_KERNEL = "resnetfc_fwd_f32_kernel"
 F32_DGRAD_KERNEL = "resnetfc_dgrad_kernel"
 K3_F32_JOB_ROWS = SB_TRAIN * CHUNK * STEPS  # K3's float32 dW_ih / dW_hh rows a train step
+# the float32 forward's cases (d_hidden, code, d_latent, views): the widths
+# of its thread layout, 576 encoded lanes (lin_in in two chunks of the A
+# tile) and a latent of 1,024 at two views (beyond the parent kernel's
+# shared memory); each at a point count on and off the 32-point tile, with
+# and without the stash
+F32_FWD_CASES = [(dh, CODE, C, ns) for dh in (64, 256, 512) for ns in (1, 2)] + [
+    (512, WIDE_CODE, 1024, 2), (64, WIDE_CODE, 64, 1)]
+# float32 operands: FMA order against cuBLAS over 13 chained products
+F32_FWD_TOL = 1e-4
+
+
+def f32_ran(before, names):
+    """The launches of ``names`` since the counters read ``before``."""
+    return {n: _build.launches.get(n, 0) - before.get(n, 0) for n in names}
+
+
+def check_f32_forward(gen):
+    """K2's float32 forward against the plain version at F32_FWD_CASES: the
+    output within F32_FWD_TOL of its largest value, the stash slot by slot
+    within F32_FWD_TOL of each slot's, each call on the float32 kernel
+    (``fused_resnetfc_f32``) and never the wgmma one."""
+    cases = []
+    kw = dict(n_blocks=5, n_lin_z=3, activate_out=True)
+    for dh, code, dl, ns in F32_FWD_CASES:
+        w = decoder_weights(gen, dh=dh, code=code, dl=dl)
+        for n in (CHUNK, CHUNK + 37):
+            x = (torch.rand(ns, n, code.d_raw, generator=gen, device=DEV) * 2 - 1).contiguous()
+            z = randn(gen, ns, n, dl)
+            label = f"d_hidden {dh} k_in {K2.d_enc_padded(code.d_enc)} d_latent {dl} N={n} NS={ns}"
+            want = resnetfc_plain(x, z, w, compute_dtype=torch.float32, code=code, **kw)
+            tol = F32_FWD_TOL * max(1.0, float(want.abs().max()))
+            before = dict(_build.launches)
+            got = fused_resnetfc(x, z, w, compute_dtype=torch.float32, code=code, **kw)
+            args = K2._prepare(x, z, w, code, torch.float32)
+            out, st = K2._forward(args, K2._dims(args, 5, 3, True), torch.float32, True)
+            ran = f32_ran(before, (K2.NAME, K2.NAME_STASH, K2.NAME_F32, K2.NAME_WGMMA))
+            if ran != {K2.NAME: 1, K2.NAME_STASH: 1, K2.NAME_F32: 2, K2.NAME_WGMMA: 0}:
+                raise AssertionError(f"K2 float32 forward {label}: launches {ran}")
+            cases.append(check(f"float32 {label}", max_err(got, want), tol))
+            cases.append(check(f"float32 {label} with the stash", max_err(out, want), tol))
+            pst = decoder_plain_stash(x, z, w, n_blocks=5, n_lin_z=3, code=code,
+                                      compute_dtype=torch.float32)
+            worst = max(max_err(st[i], pst[i]) / max(float(pst[i].abs().max()), 1e-30)
+                        for i in range(len(pst)))
+            cases.append(check(f"float32 stash {label} (worst slot, relative)", worst,
+                               F32_FWD_TOL, against="plain stash"))
+            del x, z, got, want, args, out, st, pst
+    worst = max(c["max_abs_err"] / c["tol"] for c in cases)
+    print(f"K2 float32 forward: {len(cases)} cases within {F32_FWD_TOL} of the plain version "
+          f"(worst at {worst:.3f} of its bound), every call on {K2.NAME_F32}")
+    return cases
 
 
 def check_float32(gen):
     """K2's float32 kernels at the main path's shapes (the forward at the
-    band chunk, the stash backward's dgrad and wgrad at the train step's
-    band call) and the float32 wgrad at K3's two jobs: times beside the
-    float32 bounds and the plain versions (the wgrad also beside
-    torch.matmul in float32, TF32 off), the wgrad's jobs against
-    torch.matmul, and every wgrad output bit for bit on a rerun."""
+    band chunk and at a served chunk's coarse query, the stash backward's
+    dgrad and wgrad at the train step's band call) and the float32 wgrad at
+    K3's two jobs: times beside the float32 bounds and the plain versions
+    (the wgrad also beside torch.matmul in float32, TF32 off), the
+    forward's cases (check_f32_forward, a generator of their own), the
+    wgrad's jobs against torch.matmul and K3's against the plain product in
+    float64, and every wgrad output bit for bit on a rerun.  Returns the
+    rows and the kernels-line entries of the float32 forward and wgrad."""
     f32 = torch.float32
     w = decoder_weights(gen)
     kw = dict(n_blocks=5, n_lin_z=3, code=CODE, activate_out=True, compute_dtype=f32)
@@ -1202,7 +1265,21 @@ def check_float32(gen):
                                                         iters=3), library_ms=None,
         bound_ms=bound(x.numel() * 4 + z.numel() * 4 + wbytes + BAND * 4 * 4,
                        decoder_flops(BAND, 1), F32_FLOPS)[0])
+    rows["K2 forward"]["max_abs_err"] = max_err(fwd(), resnetfc_plain(x, z, w, **kw))
     del x, z
+    # a served chunk's coarse query (its own generator: the draws above keep their inputs)
+    sgen = torch.Generator(device=DEV).manual_seed(21)
+    xs = (torch.rand(1, CHUNK, CODE.d_raw, generator=sgen, device=DEV) * 2 - 1).contiguous()
+    zs = randn(sgen, 1, CHUNK, C)
+    sfwd = lambda: fused_resnetfc(xs, zs, w, **kw)
+    rows["K2 forward serve"] = dict(
+        shape=f"N={CHUNK}, NS=1, f32 (a served chunk's coarse query)",
+        ms=kernel_device_ms(sfwd, (F32_FWD_KERNEL,), iters=20)[F32_FWD_KERNEL],
+        call_ms=time_ms(sfwd, iters=20),
+        plain_ms=time_ms(lambda: resnetfc_plain(xs, zs, w, **kw), iters=5), library_ms=None,
+        bound_ms=bound(xs.numel() * 4 + zs.numel() * 4 + wbytes + CHUNK * 4 * 4,
+                       decoder_flops(CHUNK, 1), F32_FLOPS)[0])
+    del xs, zs
     # the stash backward at the train step's band call
     x = (torch.rand(1, BAND_TRAIN, CODE.d_raw, generator=gen, device=DEV) * 2 - 1).contiguous()
     z = randn(gen, 1, BAND_TRAIN, C)
@@ -1216,15 +1293,18 @@ def check_float32(gen):
     _, _, cot, gout, enc = K2._dgrad(args, dims, st, gs, wT, f32)
     jobs = wgrad_matmul_jobs(st, cot, gout, enc, args["z"], 5, 3)
     library_ms = time_ms(lambda: [torch.matmul(a.t(), b) for a, b in jobs], iters=3)
-    cases += check_wgrad_jobs(st, cot, gout, enc, args, dims, jobs, f32)
+    before = dict(_build.launches)
+    wcases = check_wgrad_jobs(st, cot, gout, enc, args, dims, jobs, f32)
     wg = lambda: K2._wgrad(BAND_TRAIN, args["z"], st, cot, gout, enc, grads, dims, f32)
     again = {k: torch.zeros_like(v) for k, v in grads.items()}
     for sums in (grads, again):  # into zeroed sums, twice: bit for bit
         for v in sums.values():
             v.zero_()
         K2._wgrad(BAND_TRAIN, args["z"], st, cot, gout, enc, sums, dims, f32)
-    cases.append(check_rerun(f"rerun K2 float32 wgrad N={BAND_TRAIN}", list(grads.values()),
-                             list(again.values())))
+    wcases.append(check_rerun(f"rerun K2 float32 wgrad N={BAND_TRAIN}", list(grads.values()),
+                              list(again.values())))
+    if f32_ran(before, (K2.NAME_WGRAD_F32,))[K2.NAME_WGRAD_F32] != 3:
+        raise AssertionError("K2's float32 wgrad did not run on the float32 wgrad kernel")
     act = BAND_TRAIN * 512 * 4  # one (N, 512) float32 activation
     io = BAND_TRAIN * (CODE.d_raw * 4 * 2 + C * 4 * 2 + 4 * 4)  # x, dx, z, dz, g
     flops = decoder_flops(BAND_TRAIN, 1)
@@ -1254,23 +1334,46 @@ def check_float32(gen):
          4 * HIDDEN)], f32, DEV)
     for o in outs:
         k3(o)
-    cases.append(check_rerun("rerun K3 float32 dW_ih and dW_hh", outs[0], outs[1]))
-    for name, got, want in (("dW_ih", outs[0][0], v[:, :C].t() @ dg[:, :4 * HIDDEN]),
-                            ("dW_hh", outs[0][1], v[:, C:C + HIDDEN].t() @ dg[:, :4 * HIDDEN])):
-        cases.append(check_l2(f"K3 float32 {name} vs torch.matmul", got, want, WGRAD_JOB_TOL,
-                              against="torch.matmul"))
-    k3_ms = sum(kernel_device_ms(lambda: k3(outs[1]), WGRAD_F32_KERNELS).values())
+    wcases.append(check_rerun("rerun K3 float32 dW_ih and dW_hh", outs[0], outs[1]))
+    for name, got, a, b in (("dW_ih", outs[0][0], v[:, :C], dg[:, :4 * HIDDEN]),
+                            ("dW_hh", outs[0][1], v[:, C:C + HIDDEN], dg[:, :4 * HIDDEN])):
+        wcases.append(check_l2(f"K3 float32 {name} vs torch.matmul", got, a.t() @ b,
+                               WGRAD_JOB_TOL, against="torch.matmul"))
+        # the plain version: the same product in float64
+        wcases.append(check_l2(f"K3 float32 {name} vs the plain product (float64)", got,
+                               (a.double().t() @ b.double()).float(), WGRAD_JOB_TOL))
+    k3_ms = sum(kernel_device_ms(lambda: k3(outs[1]), WGRAD_F32_KERNELS, iters=20).values())
     rows["K3 dW_ih + dW_hh"] = dict(
         shape=f"{K3_F32_JOB_ROWS} ray-steps, C={C}, hidden {HIDDEN}, f32", ms=k3_ms,
-        library_ms=time_ms(lambda: torch.matmul(v.t(), dg), iters=5),
-        library="torch.matmul(v^T, dgates), float32, TF32 off", plain_ms=None,
+        library_ms=time_ms(lambda: torch.matmul(v.t(), dg), iters=20),
+        library="torch.matmul(v^T, dgates), float32, TF32 off",
+        plain_ms=time_ms(lambda: v.double().t() @ dg.double(), iters=3),
         bound_ms=bound(K3_F32_JOB_ROWS * (vld + dgl) * 4 + (C + HIDDEN) * 4 * HIDDEN * 4,
                        2 * K3_F32_JOB_ROWS * (C + HIDDEN) * 4 * HIDDEN, F32_FLOPS)[0])
     del v, dg, outs
     for name, r in rows.items():
         print(f"float32 {name} ({r['shape']}): {r['ms']:.4f} ms (bound {r.get('bound_ms')}, "
               f"plain {r.get('plain_ms')}, library {r.get('library_ms')})")
-    return dict(rows=rows, cases=cases)
+    fcases = check_f32_forward(torch.Generator(device=DEV).manual_seed(20))
+    fwd_row, wg_row = rows["K2 forward"], rows["K2 wgrad"]
+    src = "avr_tpu_torch/csrc/resnetfc.cu"
+    kernels = [
+        dict(name=K2.NAME_F32, source=src, replaces="avr_tpu/ops/pallas/resnetfc.py:896",
+             tpu_kernel="fused_resnetfc (call :726), float32",
+             shape=f"N={BAND}, NS=1, d_hidden 512, 5 blocks, f32", cases=fcases,
+             ms=fwd_row["ms"], plain_ms=fwd_row["plain_ms"], library_ms=None,
+             bound_ms=fwd_row["bound_ms"], bound_by="operations",
+             serve_ms=rows["K2 forward serve"]["ms"],
+             serve_bound_ms=rows["K2 forward serve"]["bound_ms"]),
+        dict(name=K2.NAME_WGRAD_F32, source=src, replaces="avr_tpu/ops/pallas/resnetfc.py:823",
+             tpu_kernel="_bwd_stash_impl's weight gradients, float32",
+             shape=f"N={BAND_TRAIN}, 15 jobs, f32", cases=wcases, ms=wg_row["ms"],
+             plain_ms=rows["K3 dW_ih + dW_hh"]["plain_ms"], plain="K3's two jobs in float64",
+             library_ms=wg_row["library_ms"], bound_ms=wg_row["bound_ms"],
+             bound_by="operations", k3_ms=rows["K3 dW_ih + dW_hh"]["ms"],
+             k3_library_ms=rows["K3 dW_ih + dW_hh"]["library_ms"],
+             k3_bound_ms=rows["K3 dW_ih + dW_hh"]["bound_ms"])]
+    return dict(rows=rows, cases=cases + fcases + wcases, kernels=kernels)
 
 
 # decoder points of a VR train step (4 x 4,096 rays in one chunk): the
@@ -2195,6 +2298,8 @@ def run_slice(path="adaptive", frames=3, dtype=torch.bfloat16):
     chunks = frames * SIDE * SIDE // CHUNK
     want = {k: v * chunks for k, v in SERVE_LAUNCHES[path].items()
             if dtype == torch.bfloat16 or k not in BF16_ROUTES}
+    if dtype == torch.float32:  # every float32 K2 forward on the float32 kernel
+        want[K2.NAME_F32] = want.get(K2.NAME, 0) + want.get(K2.NAME_STASH, 0)
     if counts != want:
         raise AssertionError(f"{path} serve: launch counts {counts} != expected {want}")
     if len(video) != frames or any(f.shape != (SIDE, SIDE, 3) for f in video):
@@ -2272,7 +2377,7 @@ def profile_frame(render, label="frame", out_dir="traces"):
     rows.sort(key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
     ours = (GATHER_FWD_KERNEL, "gather_bilinear_bwd_kernel", "resnetfc_kernel",
-            FWD_KERNEL, *K2_BWD_KERNELS, "resnetfc_dgrad_kernel", "resnetfc_wgrad_kernel",
+            FWD_KERNEL, *K2_BWD_KERNELS, F32_FWD_KERNEL, F32_DGRAD_KERNEL, *WGRAD_F32_KERNELS,
             *K3_FWD_KERNELS, *K3_BWD_KERNELS, *K3_F32_KERNELS,
             "gather_projected_bwd_kernel", *GATHER_BIN_KERNELS, "volume_integral_kernel",
             "volume_integral_bwd_kernel", "threefry_kernel")
@@ -2660,6 +2765,13 @@ def check_adaptive_rerun(dtype=torch.bfloat16):
             "encoder_worst": enc[1], "decoder_worst_rel_l2": rest[0],
             "march_worst_rel_l2": march[0], "launches": launches}
     if dtype == torch.float32:
+        # every float32 K2 forward and every float32 wgrad (K2's, K3's) on
+        # the float32 kernels
+        f32 = {K2.NAME_F32: launches.get(K2.NAME, 0) + launches.get(K2.NAME_STASH, 0),
+               K2.NAME_WGRAD_F32: launches.get(K2.NAME_WGRAD, 0) + launches.get(K3.NAME_WGRAD, 0)}
+        if any(launches.get(k, 0) != v or not v for k, v in f32.items()) or \
+                K2.NAME_WGMMA in launches:
+            raise AssertionError(f"float32 adaptive step: launches {launches}, expected {f32}")
         moved = [k for k in g2 if k.startswith(("net.mlp_", "lstm.", "out_layer."))
                  and not same_bits(g1[k], g2[k])]
         if moved:
@@ -2841,6 +2953,7 @@ def main() -> int:
     float32["rows"]["K3 walk + bins + reduce"] = by_name["fused_lstm_march_bwd"]["kept_f32"]
     float32["serve_adaptive"] = run_slice("adaptive", dtype=torch.float32)[0]
     print(f"serve adaptive float32: {float32['serve_adaptive']}")
+    kernels += float32.pop("kernels")
     check_gather_bwd_bins(gen_bins, by_name["gather_bilinear_bwd"])
     check_gather_proj_bwd_bins(gen_bins, by_name["gather_bilinear_projected_bwd"])
     # the tiled forward's added cases draw from a generator of their own
@@ -2874,8 +2987,6 @@ def main() -> int:
             train[path]["profile"] = profile_frame(run_step, label=f"train_step_{path}",
                                                    out_dir=out_dir)
         del run_step
-    launches = {**{f"serve_{k}": v["launches"] for k, v in serve.items()},
-                **{f"train_{k}": v["launches"] for k, v in train.items()}}
     results = {"serve": serve, "train": train, "float32": float32,
                "vr_one_vs_8_chunks": check_vr_chunks(),
                "adaptive_rerun": check_adaptive_rerun() + check_adaptive_rerun(torch.float32),
@@ -2886,6 +2997,13 @@ def main() -> int:
                + check_small_reference("Raymarcher")}
     for c in results["vr_one_vs_8_chunks"] + results["adaptive_rerun"] + results["reference"]:
         print(f"reference: {c}")
+    # the main paths' launches: every serve and train path (bf16); the
+    # float32 kernels' own: the served float32 frames and the float32
+    # adaptive step
+    launches = {**{f"serve_{k}": v["launches"] for k, v in serve.items()},
+                **{f"train_{k}": v["launches"] for k, v in train.items()}}
+    launches_f32 = {"serve_adaptive_float32": float32["serve_adaptive"]["launches"],
+                    "train_adaptive_float32_step": results["adaptive_rerun"][1]["launches"]}
 
     for k in kernels:
         plain = [c for c in k["cases"] if c.get("against") == "plain"]
@@ -2893,7 +3011,8 @@ def main() -> int:
         # K2's forward counts under two names (without and with stash), K7
         # under two (the uniform draw and its raw bits)
         names = [k["name"]] + {K2.NAME: [K2.NAME_STASH], K7.NAME: [K7.NAME_BITS]}.get(k["name"], [])
-        by_path = {path: sum(counts.get(n, 0) for n in names) for path, counts in launches.items()}
+        paths = launches_f32 if k["name"] in (K2.NAME_F32, K2.NAME_WGRAD_F32) else launches
+        by_path = {path: sum(counts.get(n, 0) for n in names) for path, counts in paths.items()}
         if not sum(by_path.values()):
             raise AssertionError(f"{k['name']} was never launched on a main path")
         k.update(route="cuda", launches=sum(by_path.values()), launches_by_path=by_path,

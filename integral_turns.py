@@ -44,8 +44,6 @@ JSON object a reading.
 
 from __future__ import annotations
 
-import os
-import subprocess
 import sys
 
 import march_turns
@@ -222,22 +220,7 @@ print(json.dumps(res), flush=True)
 """
 
 
-def probe(checkouts) -> int:
-    """Runs ``_PROBE`` once in each checkout (its own process)."""
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True).stdout.strip()
-    print(f"card: {card}", flush=True)
-    for path in map(os.path.abspath, checkouts):
-        r = subprocess.run([sys.executable, "-c", _PROBE, path], cwd=path, capture_output=True,
-                           text=True)
-        if r.returncode:
-            print(f"{path}: exit {r.returncode}\n{r.stderr[-4000:]}", file=sys.stderr)
-            return 1
-        print(r.stdout.strip().splitlines()[-1], flush=True)
-    return 0
-
-
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--probe"]:
-        sys.exit(probe(sys.argv[2:]))
+        sys.exit(march_turns.run(_PROBE, sys.argv[2:], both_orders=False))
     sys.exit(march_turns.main(_TURN, __doc__))

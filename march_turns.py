@@ -15,7 +15,8 @@ compare only within one such call.  Prints the card's name and power
 limit, then one JSON object a reading.
 
 ``main(turn, usage)`` is the runner that ``gather_turns.py`` shares: it runs
-the snippet ``turn`` in each checkout in turns.
+the snippet ``turn`` in each checkout in turns (``run``, which the turns
+scripts' ``--probe`` also takes, once a checkout).
 """
 
 from __future__ import annotations
@@ -44,25 +45,32 @@ print(json.dumps(res), flush=True)
 """
 
 
-def main(turn: str = _TURN, usage: str = __doc__) -> int:
-    """Runs ``turn`` (Python source, given the checkout as ``sys.argv[1]``)
-    in a process of its own in each checkout of the command line, in the
-    order given and then in reverse, and prints each run's last line."""
-    checkouts = [os.path.abspath(a) for a in sys.argv[1:]]
-    if not checkouts:
-        print(usage, file=sys.stderr)
-        return 2
+def run(snippet: str, checkouts, both_orders: bool = True) -> int:
+    """Runs ``snippet`` (Python source, given the checkout as ``sys.argv[1]``)
+    in a process of its own in each checkout, in the order given and, with
+    ``both_orders``, then in reverse; prints the card's name and power limit
+    and each run's last line."""
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(f"card: {card}", flush=True)
-    for path in checkouts + checkouts[::-1]:
-        r = subprocess.run([sys.executable, "-c", turn, path], cwd=path, capture_output=True,
+    paths = [os.path.abspath(c) for c in checkouts]
+    for path in paths + (paths[::-1] if both_orders else []):
+        r = subprocess.run([sys.executable, "-c", snippet, path], cwd=path, capture_output=True,
                            text=True)
         if r.returncode:
             print(f"{path}: exit {r.returncode}\n{r.stderr[-4000:]}", file=sys.stderr)
             return 1
         print(r.stdout.strip().splitlines()[-1], flush=True)
     return 0
+
+
+def main(turn: str = _TURN, usage: str = __doc__) -> int:
+    """Runs ``turn`` in each checkout of the command line in turns
+    (:func:`run`)."""
+    if not sys.argv[1:]:
+        print(usage, file=sys.stderr)
+        return 2
+    return run(turn, sys.argv[1:])
 
 
 if __name__ == "__main__":

@@ -1,10 +1,10 @@
 """Rules of the port that hold on any machine.
 
 * No module of ``avr_tpu_torch`` and no part of ``chip_smoke.py``,
-  ``train_skip_probe.py``, ``march_turns.py``, ``gather_turns.py`` or
-  ``integral_turns.py`` imports JAX, Flax, Optax or the JAX package (AST
-  scan, the turns scripts' ``_TURN`` and ``_PROBE`` snippets included: they
-  run as ``python -c`` in each checkout).
+  ``train_skip_probe.py``, ``march_turns.py``, ``gather_turns.py``,
+  ``integral_turns.py`` or ``f32_turns.py`` imports JAX, Flax, Optax or the
+  JAX package (AST scan, the turns scripts' ``_TURN`` and ``_PROBE``
+  snippets included: they run as ``python -c`` in each checkout).
 * Entry points default to the card: with no CUDA device and no explicit
   ``device``, they raise instead of running on the CPU.
 * CPU tensors take the plain versions and never touch the kernel library,
@@ -64,13 +64,14 @@ def _imports(path: pathlib.Path, source=None):
 def _port_files():
     return sorted((ROOT / "avr_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "train_skip_probe.py", ROOT / "march_turns.py",
-        ROOT / "gather_turns.py", ROOT / "integral_turns.py"]
+        ROOT / "gather_turns.py", ROOT / "integral_turns.py", ROOT / "f32_turns.py"]
 
 
 def test_the_scan_reads_the_turns_snippets():
-    for name in ("march_turns.py", "gather_turns.py", "integral_turns.py"):
+    for name in ("march_turns.py", "gather_turns.py", "integral_turns.py", "f32_turns.py"):
         assert "chip_smoke" in set(_imports(ROOT / name)), name
-    assert "ctypes" in set(_imports(ROOT / "integral_turns.py"))  # its _PROBE snippet
+    for name in ("integral_turns.py", "f32_turns.py"):  # their _PROBE snippets
+        assert "ctypes" in set(_imports(ROOT / name)), name
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))

@@ -106,9 +106,10 @@ def test_each_large_job_fills_the_card(shapes):
             assert jp.tiles_o * jp.tiles_i * jp.splits >= 2 * K2.WGRAD_SMS
 
 
-# The float32 wgrad (csrc/resnetfc.cu resnetfc_wgrad_kernel): the same
-# block decode and partials layout, its own row split (at most 8 chunks of
-# at least 4,096 rows, a multiple of its 32-row step) and one launch.  K2's
+# The float32 wgrad (csrc/resnetfc.cu resnetfc_wgrad_f32_kernel): the same
+# block decode and partials layout, its own row split (at least
+# WGRAD_WAVES_F32 waves of CTAs a job where its rows allow chunks of
+# WGRAD_MIN_CHUNK_F32, a multiple of its 32-row step) and one launch.  K2's
 # float32 jobs at the train step's band call and at chip_smoke.py's float32
 # check shapes (4,096 points, NS 1 and 2), K3's dW_ih and dW_hh over a train
 # step's 163,840 ray-steps (v_t | h_prev: 512 and 16 columns), ragged shapes.
@@ -133,7 +134,7 @@ def test_float32_plan_covers_every_tile_and_row_once(shapes):
         assert {(o0, i0) for (jj, o0, i0) in cover if jj == j} == tiles
         jp = plan.jobs[j]
         assert jp.chunk % K2.WGRAD_ROWS_F32 == 0
-        assert jp.splits <= K2.WGRAD_SPLITS_F32
+        assert jp.splits <= max(1, rows // K2.WGRAD_MIN_CHUNK_F32)
         assert jp.chunk >= min(K2.WGRAD_MIN_CHUNK_F32, rows)
         for o0, i0 in tiles:
             spans = sorted(cover[(j, o0, i0)])
@@ -166,10 +167,19 @@ def test_float32_partials_are_disjoint(shapes):
         assert jp.part % 4 == 0 and (mg * ka) % 4 == 0  # the reduction reads float4s
 
 
-def test_float32_plan_keeps_the_parent_row_split():
-    """The split the float32 kernel had before its partials: at most 8
-    chunks of at least 4,096 rows, rounded up to its 32-row step."""
-    for rows in (1, 4_095, 4_096, 8_192, 32_769, 163_840, 327_680, 1_572_864):
-        jp = K2.wgrad_plan([(rows, 512, 512, True)], torch.float32).jobs[0]
-        chunk = -(-max(4_096, -(-rows // 8)) // 32) * 32
-        assert (jp.chunk, jp.splits) == (chunk, -(-rows // chunk))
+@pytest.mark.parametrize("shapes", [F32_K2, F32_K3], ids=["K2", "K3"])
+def test_float32_plan_fills_the_card(shapes):
+    """Each float32 job at K2's band call and K3's train step runs on at
+    least WGRAD_WAVES_F32 waves of CTAs on the card's SMs, or as many splits
+    as its rows allow at WGRAD_MIN_CHUNK_F32 rows a chunk (K3's 16 x 64
+    dW_hh), and every chunk but a job's last holds at least that many rows
+    (the plan this replaces gave K3's two jobs 40 CTAs on 132 SMs)."""
+    plan = K2.wgrad_plan(shapes, torch.float32)
+    for jp, (rows, mg, ka, _) in zip(plan.jobs, shapes):
+        ctas = jp.tiles_o * jp.tiles_i * jp.splits
+        assert ctas >= K2.WGRAD_WAVES_F32 * K2.WGRAD_SMS or \
+            jp.splits == rows // K2.WGRAD_MIN_CHUNK_F32
+        assert jp.chunk >= K2.WGRAD_MIN_CHUNK_F32
+        assert rows - (jp.splits - 1) * jp.chunk > 0  # the last split is not empty
+    if shapes is F32_K3:
+        assert sum(plan.blocks) >= K2.WGRAD_WAVES_F32 * K2.WGRAD_SMS > 40
