@@ -140,6 +140,11 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
 }
+// bytes (a multiple of 16, 16-byte aligned) of global memory into L2 by
+// one bulk prefetch, waited on by nothing.
+__device__ __forceinline__ void bulk_prefetch_l2(const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" :: "l"(src), "r"(bytes) : "memory");
+}
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
                                              int c1, int c2) {
   asm volatile(

@@ -34,14 +34,17 @@
 // steps; the k order inside a product is a consistent permutation of A and
 // B, so the product is unchanged.
 //
-// Stash backward, float32 operands (the card's float32 parity runs; the
-// bf16 backward is csrc/resnetfc_hopper.cu's, on wgmma and TMA).  The dgrad
-// kernel walks a 32-point tile's chain in reverse with the bf16 forward's
-// tiling and a plain FMA loop in its fragment ownership (transposed weight
-// copies as the B operand), reads each block's two stashed activations for
-// the ReLU masks, writes every product's output cotangent (what the TPU
-// kernel feeds its wgrad), and ends in dz and dx (the encoding's cos lanes
-// summed back onto the raw lanes).  The wgrad kernel
+// Stash backward, float32 operands (the JAX CLI's default dtype; the bf16
+// backward is csrc/resnetfc_hopper.cu's, on wgmma and TMA).  The dgrad
+// kernel (resnetfc_dgrad_f32_kernel, below the forward) walks a 32-point
+// tile's chain in reverse with the float32 forward's design: register-tiled
+// FMA products over the untransposed weights' 16-row slabs, streamed
+// through a shared ring by bulk copies; a block product's ReLU mask (its
+// stash slot's tile rows) is prefetched into L2 with the product's first
+// slab and read by each thread when the product ends; it writes every
+// product's output cotangent (what the TPU
+// kernel feeds its wgrad) from registers, and ends in dz and dx (the
+// encoding's cos lanes summed back onto the raw lanes).  The wgrad kernel
 // (resnetfc_wgrad_f32_kernel) sums dW = G^T A over the points for every
 // weight in one launch: 128 x 128 dW tiles, 8 x 8 outputs a thread read
 // from K-major shared tiles by 16-byte loads (4 for 64 FMAs, the next row's
@@ -94,26 +97,11 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
-// global rows r0.. (row stride width) -> shared tile, zeros past N.
-template <typename T>
-__device__ __forceinline__ void global_to_tile(const T* src, int r0, int N, int width, T* As,
-                                               int lda) {
-  constexpr int V = Vec16<T>::N;
-  const int nv = width / V;
-  for (int idx = threadIdx.x; idx < TM * nv; idx += blockDim.x) {
-    const int r = idx / nv, cv = idx - r * nv;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < N) val = reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * width)[cv];
-    *reinterpret_cast<uint4*>(As + r * lda + cv * V) = val;
-  }
-}
-
 // Shared-memory row stride (elements) of a K-wide tile.  bf16: rows 64
 // bytes apart modulo 128, so the 16-byte fragment loads of 8 lanes hit 8
 // distinct bank groups.
 template <typename T> __host__ __device__ inline int row_stride(int k);
 template <> __host__ __device__ inline int row_stride<bf16>(int k) { return (k + 63) / 64 * 64 + 32; }
-template <> __host__ __device__ inline int row_stride<float>(int k) { return k + 4; }
 
 __device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1, uint32_t a2,
                                          uint32_t a3, uint32_t b0, uint32_t b1) {
@@ -152,41 +140,6 @@ __device__ __forceinline__ void gemm_tile(const bf16* As, int lda, const bf16* _
       for (int mt = 0; mt < 2; ++mt) {
         mma_bf16(acc[mt][nt], a[mt][0].x, a[mt][1].x, a[mt][0].y, a[mt][1].y, b[nt].x, b[nt].y);
         mma_bf16(acc[mt][nt], a[mt][0].z, a[mt][1].z, a[mt][0].w, a[mt][1].w, b[nt].z, b[nt].w);
-      }
-  }
-}
-
-__device__ __forceinline__ void gemm_tile(const float* As, int lda, const float* __restrict__ W,
-                                          int K, int col0, Frag& acc) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += 4) {
-    float4 a[4];  // rows g, g + 8, 16 + g, 24 + g
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      a[r] = *reinterpret_cast<const float4*>(As + ((r >> 1) * 16 + g + 8 * (r & 1)) * lda + k0);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int cc = 0; cc < 2; ++cc) {
-        const float4 w = __ldg(reinterpret_cast<const float4*>(
-            W + (size_t)(col0 + nt * 8 + 2 * t + cc) * K + k0));
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int hi = 0; hi < 2; ++hi) {
-            const float4 av = a[2 * mt + hi];
-            float& d = acc[mt][nt][2 * hi + cc];
-            d = fmaf(av.x, w.x, d);
-            d = fmaf(av.y, w.y, d);
-            d = fmaf(av.z, w.z, d);
-            d = fmaf(av.w, w.w, d);
-          }
       }
   }
 }
@@ -797,105 +750,433 @@ extern "C" int avr_resnetfc_fwd_f32(const void* x, const void* z, const void* wi
 }
 
 // ---------------------------------------------------------------------------
-// backward, consuming the stash: a dgrad kernel walks each point tile's
-// chain in reverse and writes every product's output cotangent; a wgrad
-// kernel sums dW = G^T A over the points.
+// float32 dgrad (resnetfc_dgrad_f32_kernel): each 32-point tile's chain
+// walked in reverse with the float32 forward's design.
+//
+// Per tile: lin_out's cotangent g_epi = g * act'(out_pre) (written to
+// gout) and the trunk cotangent gh = mask(relu(h_final)) * (g_epi @ Wo);
+// the pooled blocks; then per view (gh the pooled cotangent / NS) its
+// blocks, each injection's latent cotangent dz += G_k @ Wz_k (G_k the trunk
+// cotangent after block k), and lin_in's, the encoding's cotangent G_0 @
+// Wi, summed back onto the raw lanes (dx: the sin lanes carry cos(t) f).  A
+// block's backward: cot1 = gh; c0 = mask(relu(fc_0)) * (gh @ W1); gh +=
+// mask(relu(h)) * (c0 @ W0).  Every product's A operand (its output
+// cotangent) goes to cot, the encoded input to enc: what the wgrad reads.
+//
+// Every product has K = d_hidden: the rows of an nn.Linear weight as it is
+// (out, in), so a slab of F32_KS rows is one contiguous block (a latent or
+// lin_in column chunk: one bulk copy a row).  The tile's slabs stream, in
+// the order the reverse chain takes them (dg_product), through the
+// forward's ring: F32_STAGES stages, a full and an empty mbarrier each, the
+// warps taking turns to issue slab j F32_AHEAD ahead of the one being
+// multiplied.  d_hidden / 2 threads own 8 points x 8 columns of a
+// d_hidden-wide product (the forward's layout), so gh and the accumulators
+// stay in registers; the A operand (gh, or the masked c0) is a shared tile
+// of 32 rows of d_hidden + 4 floats.  The ReLU masks: a block product's
+// first slab also prefetches the tile's 32 rows of its stash slot into L2
+// (one bulk prefetch, waited on by nothing), and when the product ends each
+// thread reads its own 8 x 8 values from there (L2 hits, once a product:
+// folding rows into bit masks inside the slab loop slows every slab).
+// Cotangents go to cot from registers (16-byte stores, waited on by
+// nothing).  The tile's start (g_epi and gh) loops over the tile rather
+// than unrolling: code run once a tile, unrolled, spends its time fetching
+// instructions.  Narrow products (lin_in in F32_IN_W-column
+// chunks, a latent chunk narrower than d_hidden) take fewer points a thread
+// (dg_mode), so every warp still works.  dz: each injection's product
+// read-modify-writes the thread's own dz rows, k descending from 0.f, and dx
+// its own (point, lane) sums, chunk by chunk in j order.  Each output is
+// then the same float32 FMA chain, in k order, as in the first port's
+// dgrad, and dx, dz, cot, gout and enc are its bits.  No float atomics.
+// Bound on H100: operations (6.88 MFLOP a point at d_hidden 512, 5 blocks,
+// 3 injections, a latent of 512: 2.25 TFLOP at 327,680 points, 33.6 ms at
+// 67 TFLOP/s); its stash reads and cotangent writes, 45 KB a point, take
+// 4.4 ms at 3.35 TB/s and run under the products.
 // ---------------------------------------------------------------------------
 
-// v rounded to T into the shared operand tile at the fragment positions.
-template <typename T>
-__device__ __forceinline__ void store_frag(T* As, int lda, int col0, const Frag& v) {
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        As[frag_row(mt, i) * lda + frag_col(col0, nt, i)] = from_f<T>(v[mt][nt][i]);
+constexpr int F32_IN_W = 64;           // columns of a lin_in chunk
+constexpr int F32_ELD = F32_IN_W + 4;  // row stride (floats) of its shared output
+
+// shared memory: the ring (each stage a slab of at most d_hidden columns),
+// the A tile, lin_in's output chunk, g_epi, the barriers
+__host__ __device__ inline int dg_stage_floats(int dh) { return F32_KS * dh; }
+__host__ __device__ inline size_t dg_smem_bytes(int dh) {
+  return 4 * ((size_t)F32_STAGES * dg_stage_floats(dh) + (size_t)F32_TM * (dh + 4) +
+              F32_TM * F32_ELD + F32_TM * GOUT_W) +
+         16 * F32_STAGES;
+}
+// Points a thread takes in a product cw columns wide (8, 4, 2 or 1): the
+// most that still keeps the d_hidden / 2 threads' 8-column groups within
+// its 32 x cw outputs.
+__host__ __device__ inline int dg_mode(int cw, int dh) {
+  int p = 1;
+  while (p < 8 && p * dh < 8 * cw) p *= 2;
+  return p;
 }
 
-// One residual block's backward: gh is the trunk cotangent entering the
-// block; on return, the one leaving it.  Gs / Ms are the operand and mask
-// tiles; cot0 / cot1 the block's cotangent slots, a1 / a2 its stash slots.
-template <typename T>
-__device__ __forceinline__ void res_block_bwd(T* Gs, T* Ms, int ld, const T* w0T, const T* w1T,
-                                              const T* a1, const T* a2, T* cot0, T* cot1,
-                                              int dh, int col0, int r0, int N, Frag& gh,
-                                              Frag& acc) {
-  __syncthreads();  // every warp is done with both tiles
-  store_frag<T>(Gs, ld, col0, gh);
-  global_to_tile(a2, r0, N, dh, Ms, ld);
-  __syncthreads();
-  tile_to_global(Gs, ld, cot1, r0, N, dh);
-  gemm_tile(Gs, ld, w1T, dh, col0, acc);  // d relu(fc_0) = gh @ W1
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (!(to_f(Ms[frag_row(mt, i) * ld + frag_col(col0, nt, i)]) > 0.f)) acc[mt][nt][i] = 0.f;
-  __syncthreads();
-  store_frag<T>(Gs, ld, col0, acc);
-  global_to_tile(a1, r0, N, dh, Ms, ld);
-  __syncthreads();
-  tile_to_global(Gs, ld, cot0, r0, N, dh);
-  gemm_tile(Gs, ld, w0T, dh, col0, acc);  // d relu(h) = gnet @ W0
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (to_f(Ms[frag_row(mt, i) * ld + frag_col(col0, nt, i)]) > 0.f)
-          gh[mt][nt][i] += acc[mt][nt][i];
+enum { DG_W1, DG_W0, DG_WZ, DG_WI };
+
+struct DgProduct {
+  int kind, k, v, cb, cw;  // weight, block, view, first column, columns
+};
+
+__device__ __forceinline__ int dg_latent_chunks(const FcBwdArgs& a) {
+  return (a.d_latent + a.d_hidden - 1) / a.d_hidden;
+}
+__device__ __forceinline__ int dg_products(const FcBwdArgs& a) {
+  return 2 * (a.n_blocks - a.n_lin_z) +
+         a.ns * (a.n_lin_z * (2 + dg_latent_chunks(a)) + a.k_in / F32_IN_W);
 }
 
-template <typename T>
-__host__ __device__ inline size_t dgrad_smem_bytes(int dh, int dl, int k_in, int ns) {
-  return 2 * (size_t)TM * row_stride<T>(dh) * sizeof(T) +
-         sizeof(float) * ((size_t)TM * dl + (size_t)TM * k_in + TM * GOUT_W);
+// Product p of the tile's reverse chain: the pooled blocks (k = n_blocks -
+// 1 down to n_lin_z, W1 then W0), then per view, for k = n_lin_z - 1 down
+// to 0, block k's W1 and W0 and injection k's latent product in column
+// chunks of at most d_hidden, then lin_in in chunks of F32_IN_W columns.
+__device__ __forceinline__ DgProduct dg_product(const FcBwdArgs& a, int p) {
+  const int dh = a.d_hidden, nlz = a.n_lin_z, pooled = 2 * (a.n_blocks - nlz);
+  const int per_block = 2 + dg_latent_chunks(a), per_view = nlz * per_block + a.k_in / F32_IN_W;
+  DgProduct q;
+  if (p < pooled) {
+    q.kind = p & 1 ? DG_W0 : DG_W1;
+    q.k = a.n_blocks - 1 - p / 2;
+    q.v = 0;
+    q.cb = 0;
+    q.cw = dh;
+    return q;
+  }
+  p -= pooled;
+  q.v = p / per_view;
+  const int r = p - q.v * per_view;
+  if (r < nlz * per_block) {
+    const int t = r % per_block;
+    q.k = nlz - 1 - r / per_block;
+    q.kind = t == 0 ? DG_W1 : t == 1 ? DG_W0 : DG_WZ;
+    q.cb = t < 2 ? 0 : (t - 2) * dh;
+    q.cw = t < 2 ? dh : min(dh, a.d_latent - q.cb);
+  } else {
+    q.kind = DG_WI;
+    q.k = 0;
+    q.cb = (r - nlz * per_block) * F32_IN_W;
+    q.cw = F32_IN_W;
+  }
+  return q;
 }
 
-// The backward of point tile `tile` from the stash: the float32 dgrad
-// kernel's body.
-template <typename T>
-__device__ __forceinline__ void resnetfc_dgrad_tile(const FcBwdArgs& a, unsigned char* smem,
-                                                    int tile) {
-  const int dh = a.d_hidden, dl = a.d_latent, nb = a.n_blocks, nlz = a.n_lin_z, ns = a.ns;
-  const int ld = row_stride<T>(dh);
-  T* Gs = reinterpret_cast<T*>(smem);
-  T* Ms = Gs + TM * ld;
-  float* Zs = reinterpret_cast<float*>(Ms + TM * ld);  // TM x dl: dz accumulator
-  float* Es = Zs + TM * dl;                            // TM x k_in: d encoding
-  float* gs = Es + TM * a.k_in;                        // TM x GOUT_W: rounded g
-  float* Hs = ns > 1 ? a.pool + (size_t)tile * TM * dh : nullptr;  // pooled cotangent
-  const int tid = threadIdx.x, nw = blockDim.x >> 5, col0 = (tid >> 5) * 64;
-  const int r0 = tile * TM, N = a.N;
+struct DgPipe {
+  float* base;       // stage s at base + s * stage
+  int stage;         // floats a stage
+  uint64_t* full;    // arrival of a stage's slab
+  uint64_t* empty;   // its release by every warp
+  int i;             // the next slab to multiply
+  int total;         // slabs of the tile
+  int r0;            // the tile's first point
+  int warps;         // the CTA's warps: slab j is issued by warp j % warps
+  int qp;            // the product this thread last issued a slab of, decoded in q
+  DgProduct q;
+};
+
+// Slab j into its stage, by its warp, once every warp has released the
+// stage's previous slab (j - F32_STAGES): the weight rows (one bulk copy,
+// or one a row of a column chunk), completing on the stage's full barrier.
+// With a block product's first slab, the tile's rows of its stash slot
+// (the product's ReLU mask, read when it ends) are prefetched into L2.
+__device__ __forceinline__ void dg_issue(const FcBwdArgs& a, DgPipe& p, int j) {
+  const int lane = threadIdx.x & 31, dh = a.d_hidden, spp = dh / F32_KS;
+  const int prod = j / spp, st = j % F32_STAGES, s = j - prod * spp;
+  if (prod != p.qp) {  // a warp issues every warps-th slab: it decodes each product once
+    p.q = dg_product(a, prod);
+    p.qp = prod;
+  }
+  const DgProduct& q = p.q;
+  const float* w;
+  int ld = dh;
+  switch (q.kind) {
+    case DG_W1: w = static_cast<const float*>(a.w1) + (size_t)q.k * dh * dh; break;
+    case DG_W0: w = static_cast<const float*>(a.w0) + (size_t)q.k * dh * dh; break;
+    case DG_WZ:
+      ld = a.d_latent;
+      w = static_cast<const float*>(a.wz) + (size_t)q.k * dh * ld;
+      break;
+    default:
+      ld = a.k_in;
+      w = static_cast<const float*>(a.wi);
+      break;
+  }
+  w += (size_t)s * F32_KS * ld + q.cb;
+  if (j >= F32_STAGES) mbar_wait(&p.empty[st], (uint32_t)(j / F32_STAGES - 1) & 1u);
+  float* dst = p.base + (size_t)st * p.stage;
+  const uint32_t wbytes = (uint32_t)(F32_KS * q.cw * 4);
+  if (lane == 0) mbar_expect_tx(&p.full[st], wbytes);
+  __syncwarp();
+  if (q.cw == ld) {
+    if (lane == 0) bulk_load(dst, w, wbytes, &p.full[st]);
+  } else if (lane < F32_KS) {
+    bulk_load(dst + lane * q.cw, w + (size_t)lane * ld, (uint32_t)(q.cw * 4), &p.full[st]);
+  }
+  if (lane == F32_KS && s == 0 && q.kind <= DG_W0) {
+    const size_t slot = stash_slot(q.k, q.kind == DG_W1 ? 1 : 0, q.v, a.ns, a.n_lin_z);
+    bulk_prefetch_l2(static_cast<const float*>(a.stash) + (slot * a.N + p.r0) * dh,
+                     (uint32_t)(min(F32_TM, a.N - p.r0) * dh * 4));
+  }
+}
+
+// A thread's role in a product cw columns wide at P points a thread
+// (dg_mode): points tp + (32 / P) i (i < P), columns c0 = 4 tc + {0..3}
+// and c1 = cw / 2 + 4 tc + {0..3}.  A warp is 4 (tp) x 8 (tc): its 16-byte
+// reads of the A tile hit 4 rows (4 bank groups), of a slab row 128
+// contiguous bytes.  At P = 8 and cw = d_hidden: the forward's layout.
+// Returns whether the thread has outputs.
+template <int P>
+__device__ __forceinline__ bool dg_role(int cw, int& tp, int& c0, int& c1) {
+  constexpr int WR = 8 / P;  // warps along the points
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tc = 8 * (warp / WR) + (lane & 7);
+  tp = (lane >> 3) + 4 * (warp % WR);
+  c0 = 4 * tc;
+  c1 = cw / 2 + 4 * tc;
+  return warp < WR * (cw / 64);
+}
+
+// acc += A (32 points x F32_KS k) W (F32_KS x cw) for this thread's P x 8
+// outputs; A rows lda floats apart, W rows ldw.
+template <int P>
+__device__ __forceinline__ void dg_fma_slab(const float* A, int lda, const float* W, int ldw,
+                                            int tp, int c0, int c1, float (&acc)[8][8]) {
+  constexpr int R = 32 / P;
+#pragma unroll
+  for (int k4 = 0; k4 < F32_KS; k4 += 4) {
+    float4 av[P];
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+      av[i] = *reinterpret_cast<const float4*>(A + (tp + R * i) * lda + k4);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 b0 = *reinterpret_cast<const float4*>(W + (k4 + kk) * ldw + c0);
+      const float4 b1 = *reinterpret_cast<const float4*>(W + (k4 + kk) * ldw + c1);
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        const float x = kk == 0 ? av[i].x : kk == 1 ? av[i].y : kk == 2 ? av[i].z : av[i].w;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(x, bv[j], acc[i][j]);
+      }
+    }
+  }
+}
+
+// acc = the next product (its d_hidden / F32_KS slabs of the pipe, cw
+// columns, A from the shared tile As) at P points a thread; threads with no
+// outputs only keep the pipe's turns.  The slab F32_AHEAD ahead is issued
+// first, by its warp.
+template <int P>
+__device__ __forceinline__ void dg_consume(const FcBwdArgs& a, DgPipe& p, const float* As, int lda,
+                                           int cw, float (&acc)[8][8]) {
+  const int dh = a.d_hidden, spp = dh / F32_KS, warp = threadIdx.x >> 5;
+  int tp, c0, c1;
+  const bool on = dg_role<P>(cw, tp, c0, c1);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  for (int s = 0; s < spp; ++s, ++p.i) {
+    const int j = p.i + F32_AHEAD;
+    if (j < p.total && j % p.warps == warp) dg_issue(a, p, j);
+    const int st = p.i % F32_STAGES;
+    mbar_wait(&p.full[st], (uint32_t)(p.i / F32_STAGES) & 1u);
+    const float* W = p.base + (size_t)st * p.stage;
+    if (on) dg_fma_slab<P>(As + s * F32_KS, lda, W, cw, tp, c0, c1, acc);
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&p.empty[st]);
+  }
+}
+
+// The ReLU mask of a block product's output: m[i][j] = the stash slot's
+// value at this thread's point tp + 4 i and column j of c0..c0 + 3, c1..c1
+// + 3 (0 past N); the slot's tile rows are L2-hot (dg_issue prefetched them
+// with the product's first slab).
+__device__ __forceinline__ void dg_mask(const float* slot, int tp, int c0, int c1, int r0, int N,
+                                        int dh, float (&m)[8][8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = r0 + tp + 4 * i;
+    float4 u = make_float4(0.f, 0.f, 0.f, 0.f), t = u;
+    if (row < N) {
+      u = __ldg(reinterpret_cast<const float4*>(slot + (size_t)row * dh + c0));
+      t = __ldg(reinterpret_cast<const float4*>(slot + (size_t)row * dh + c1));
+    }
+    m[i][0] = u.x; m[i][1] = u.y; m[i][2] = u.z; m[i][3] = u.w;
+    m[i][4] = t.x; m[i][5] = t.y; m[i][6] = t.z; m[i][7] = t.w;
+  }
+}
+
+// v (a d_hidden-wide product's P = 8 outputs) into the A tile and to the
+// cotangent slot dst (rows below N)
+__device__ __forceinline__ void dg_store(float* As, int lda, int tp, int c0, int c1,
+                                         const float (&v)[8][8], float* dst, int r0, int N,
+                                         int dh) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = tp + 4 * i;
+    const float4 x = make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
+    const float4 y = make_float4(v[i][4], v[i][5], v[i][6], v[i][7]);
+    *reinterpret_cast<float4*>(As + r * lda + c0) = x;
+    *reinterpret_cast<float4*>(As + r * lda + c1) = y;
+    if (r0 + r < N) {
+      float* row = dst + (size_t)(r0 + r) * dh;
+      *reinterpret_cast<float4*>(row + c0) = x;
+      *reinterpret_cast<float4*>(row + c1) = y;
+    }
+  }
+}
+
+// The epilogue of a latent or lin_in product (P points a thread, cw
+// columns from cb), after it: a latent chunk read-modify-writes the
+// thread's own dz rows (from 0.f for the first injection, k = n_lin_z - 1,
+// so dz sums the injections k descending); a lin_in chunk goes through the
+// shared Es onto dx, each (point, raw lane) sum read back from dx after the
+// first chunk and adding the chunk's columns in order, and after the last
+// chunk the encoded input goes to enc.
+template <int P>
+__device__ __forceinline__ void dg_narrow(const FcBwdArgs& a, DgPipe& p, const float* As, int lda,
+                                          float* Es, const DgProduct& q, float (&acc)[8][8]) {
+  dg_consume<P>(a, p, As, lda, q.cw, acc);
+  constexpr int R = 32 / P;
+  int tp, c0, c1;
+  const bool on = dg_role<P>(q.cw, tp, c0, c1);
+  const int N = a.N, r0 = p.r0;
+  if (q.kind == DG_WZ) {
+    if (!on) return;
+    const bool first = q.k == a.n_lin_z - 1;
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      const int row = r0 + tp + R * i;
+      if (row >= N) continue;
+      float* d = static_cast<float*>(a.dz) + ((size_t)q.v * N + row) * a.d_latent + q.cb;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float4* o = reinterpret_cast<float4*>(d + (h ? c1 : c0));
+        float4 x = first ? make_float4(0.f, 0.f, 0.f, 0.f) : *o;
+        x.x = x.x + acc[i][4 * h];
+        x.y = x.y + acc[i][4 * h + 1];
+        x.z = x.z + acc[i][4 * h + 2];
+        x.w = x.w + acc[i][4 * h + 3];
+        *o = x;
+      }
+    }
+    return;
+  }
+  __syncthreads();  // the previous chunk's sums are done with Es
+  if (on) {
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      float* e = Es + (tp + R * i) * F32_ELD;
+      *reinterpret_cast<float4*>(e + c0) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      *reinterpret_cast<float4*>(e + c1) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+    }
+  }
+  __syncthreads();
+  const int d_in = a.d_in, k_in = a.k_in;
+  for (int idx = threadIdx.x; idx < F32_TM * d_in; idx += blockDim.x) {
+    const int r = idx / d_in, lane = idx - r * d_in, row = r0 + r;
+    if (row >= N) continue;
+    const size_t at = ((size_t)q.v * N + row) * d_in + lane;
+    const float x = a.x[at];
+    float sum = q.cb == 0 ? 0.f : a.dx[at];
+    for (int jj = 0; jj < F32_IN_W; ++jj) {
+      const int j = q.cb + jj, mode = a.tables[j];
+      if (mode == 2 || a.tables[k_in + j] != lane) continue;
+      float d = Es[r * F32_ELD + jj];
+      if (mode == 1) d = d * (cosf(__fadd_rn(__fmul_rn(x, a.fph[j]), a.fph[k_in + j])) * a.fph[j]);
+      sum += d;
+    }
+    a.dx[at] = sum;
+  }
+  if (q.cb + F32_IN_W < k_in) return;
+  float* enc = static_cast<float*>(a.enc) + (size_t)q.v * N * k_in;
+  for (int idx = threadIdx.x; idx < F32_TM * k_in; idx += blockDim.x) {
+    const int r = idx / k_in, j = idx - r * k_in, row = r0 + r;
+    if (row >= N) continue;
+    const int mode = a.tables[j];
+    float val = 0.f;
+    if (mode != 2) {
+      const float x = a.x[((size_t)q.v * N + row) * d_in + a.tables[k_in + j]];
+      val = mode == 0 ? x : sinf(__fadd_rn(__fmul_rn(x, a.fph[j]), a.fph[k_in + j]));
+    }
+    enc[(size_t)row * k_in + j] = val;
+  }
+}
+
+// gh (this thread's 8 x 8) into the A tile and to cotangent slot cs, between
+// barriers
+__device__ __forceinline__ void dg_entry(float* As, int lda, int tp, int c0, int c1,
+                                         const float (&gh)[8][8], float* cot, int cs, int r0,
+                                         int N, int dh) {
+  __syncthreads();  // every thread is done reading the A tile
+  dg_store(As, lda, tp, c0, c1, gh, cot + (size_t)cs * N * dh, r0, N, dh);
+  __syncthreads();
+}
+
+// a.wi, wz, w0, w1: nn.Linear layout, (dh, k_in), (n_lin_z, dh, dl) and
+// (n_blocks, dh, dh) twice; a.pool: NS > 1, 32 x dh floats a tile.
+// d_hidden / 2 threads (at 512, eight warps: one CTA an SM, up to 255
+// registers a thread).
+__global__ void __launch_bounds__(256, 1)
+resnetfc_dgrad_f32_kernel(const __grid_constant__ FcBwdArgs a) {
+  extern __shared__ __align__(128) float dg_smem[];
+  const int dh = a.d_hidden, nc = blockDim.x, N = a.N, ns = a.ns, nb = a.n_blocks;
+  const int nlz = a.n_lin_z, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  DgPipe p;
+  p.stage = dg_stage_floats(dh);
+  p.base = dg_smem;
+  float* As = dg_smem + (size_t)F32_STAGES * p.stage;
+  const int lda = dh + 4;
+  float* Es = As + F32_TM * lda;      // lin_in's output chunk
+  float* gs = Es + F32_TM * F32_ELD;  // g_epi
+  p.full = reinterpret_cast<uint64_t*>(gs + F32_TM * GOUT_W);
+  p.empty = p.full + F32_STAGES;
+  p.i = 0;
+  const int products = dg_products(a);
+  p.total = products * (dh / F32_KS);
+  p.r0 = blockIdx.x * F32_TM;
+  p.warps = nc / 32;
+  p.qp = -1;
+  if (tid == 0) {
+    for (int s = 0; s < F32_STAGES; ++s) {
+      mbar_init(&p.full[s], 1);
+      mbar_init(&p.empty[s], nc / 32);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  for (int j = 0; j < F32_AHEAD && j < p.total; ++j)
+    if (j % p.warps == warp) dg_issue(a, p, j);
+  // this thread's points tp + 4 i and columns of a d_hidden-wide product
+  const int r0 = p.r0, tp = lane >> 3, tc = warp * 8 + (lane & 7), c0 = 4 * tc, c1 = nc + 4 * tc;
   const size_t slot = (size_t)N * dh;
-  const T* stash = static_cast<const T*>(a.stash);
-  T* cot = static_cast<T*>(a.cot);
-  const T* w0T = static_cast<const T*>(a.w0T);
-  const T* w1T = static_cast<const T*>(a.w1T);
-  const T* wzT = static_cast<const T*>(a.wzT);
-  const T* wo = static_cast<const T*>(a.wo);
-  auto st = [&](int k, int j, int v) { return stash + stash_slot(k, j, v, ns, nlz) * slot; };
-  auto ct = [&](int k, int j, int v) { return cot + stash_slot(k, j, v, ns, nlz) * slot; };
-  Frag gh, acc;
+  float* cot = static_cast<float*>(a.cot);
+  const float* wo = static_cast<const float*>(a.wo);
+  float gh[8][8], acc[8][8];
 
-  // epilogue and lin_out: g_epi = g * act'(out_pre), gh = mask(aout) * (g_epi @ Wo)
-  global_to_tile(stash + (size_t)(stash_slots(ns, nb, nlz) - 1) * slot, r0, N, dh, Ms, ld);
+  // lin_out: relu(h_final) into the A tile; g_epi = g * act'(out_pre); gh =
+  // mask(relu(h_final)) * (g_epi @ Wo)
+  const float* aout = static_cast<const float*>(a.stash) +
+                      (size_t)(stash_slots(ns, nb, nlz) - 1) * slot;
+  for (int idx = tid; idx < F32_TM * (dh / 4); idx += nc) {
+    const int r = idx / (dh / 4), cv = idx - r * (dh / 4);
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < N) val = __ldg(reinterpret_cast<const float4*>(aout + (size_t)(r0 + r) * dh) + cv);
+    *reinterpret_cast<float4*>(As + r * lda + 4 * cv) = val;
+  }
   __syncthreads();
-  for (int idx = tid; idx < TM * GOUT_W; idx += blockDim.x) {
+  for (int idx = tid; idx < F32_TM * GOUT_W; idx += nc) {
     const int r = idx / GOUT_W, o = idx - r * GOUT_W, row = r0 + r;
     float gv = 0.f;
     if (row < N && o < a.d_out) {
       gv = a.g[(size_t)row * a.d_out + o];
       if (a.activate) {
-        const T* arow = Ms + r * ld;
-        const T* wrow = wo + (size_t)o * dh;
+        const float* arow = As + r * lda;
+        const float* wrow = wo + (size_t)o * dh;
         float sum = 0.f;
-        for (int k = 0; k < dh; ++k) sum = fmaf(to_f(arow[k]), to_f(wrow[k]), sum);
+        for (int k = 0; k < dh; ++k) sum = fmaf(arow[k], wrow[k], sum);
         const float pre = sum + a.bo[o];
         if (o < 3) {
           const float sg = sigmoidf_(pre);
@@ -904,155 +1185,116 @@ __device__ __forceinline__ void resnetfc_dgrad_tile(const FcBwdArgs& a, unsigned
           gv = 0.f;
         }
       }
-      gv = round_to<T>(gv);
     }
     gs[idx] = gv;
-    if (row < N) static_cast<T*>(a.gout)[(size_t)row * GOUT_W + o] = from_f<T>(gv);
+    if (row < N) static_cast<float*>(a.gout)[(size_t)row * GOUT_W + o] = gv;
+  }
+  __syncthreads();
+  // gh in place of relu(h_final) in the A tile, by a loop over the tile
+  // (once a tile: unrolled, it would spend its time on instruction fetch),
+  // then each thread's own 8 x 8 into registers
+  for (int idx = tid; idx < F32_TM * dh; idx += nc) {
+    const int r = idx / dh, c = idx - r * dh;
+    float sum = 0.f;
+    for (int o = 0; o < a.d_out; ++o) sum = fmaf(gs[r * GOUT_W + o], wo[(size_t)o * dh + c], sum);
+    float& h = As[r * lda + c];
+    h = h > 0.f ? sum : 0.f;
   }
   __syncthreads();
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = frag_row(mt, i), c = frag_col(col0, nt, i);
-        float sum = 0.f;
-        for (int o = 0; o < a.d_out; ++o)
-          sum = fmaf(gs[r * GOUT_W + o], to_f(wo[(size_t)o * dh + c]), sum);
-        gh[mt][nt][i] = to_f(Ms[r * ld + c]) > 0.f ? sum : 0.f;
-      }
-
-  // pooled-trunk blocks
-  for (int k = nb - 1; k >= nlz; --k)
-    res_block_bwd<T>(Gs, Ms, ld, w0T + (size_t)k * dh * dh, w1T + (size_t)k * dh * dh,
-                     st(k, 0, 0), st(k, 1, 0), ct(k, 0, 0), ct(k, 1, 0), dh, col0, r0, N, gh,
-                     acc);
-  if (ns > 1) {
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          Hs[frag_row(mt, i) * dh + frag_col(col0, nt, i)] = gh[mt][nt][i];
+  for (int i = 0; i < 8; ++i) {
+    const float4 u = *reinterpret_cast<const float4*>(As + (tp + 4 * i) * lda + c0);
+    const float4 t = *reinterpret_cast<const float4*>(As + (tp + 4 * i) * lda + c1);
+    gh[i][0] = u.x; gh[i][1] = u.y; gh[i][2] = u.z; gh[i][3] = u.w;
+    gh[i][4] = t.x; gh[i][5] = t.y; gh[i][6] = t.z; gh[i][7] = t.w;
   }
+
+  // the products in dg_product's order, each with what comes before and after it
+  float* pool = a.pool + (size_t)blockIdx.x * 64 * nc + tid;  // NS > 1: the pooled cotangent
   const float inv_ns = 1.f / (float)ns;
-  for (int v = 0; v < ns; ++v) {
-    __syncthreads();  // the previous view is done with Zs and Es
-    if (ns > 1) {
+  for (int prod = 0; prod < products; ++prod) {
+    const DgProduct q = dg_product(a, prod);
+    if (q.kind == DG_W1 && q.k >= nlz) {  // a pooled block: its cot1 is gh
+      dg_entry(As, lda, tp, c0, c1, gh, cot, stash_slot(q.k, 1, 0, ns, nlz), r0, N, dh);
+    } else if (q.kind == DG_W1 && q.k == nlz - 1) {  // a view's first block
+      if (ns > 1) {  // this thread's 64 values, coalesced over the threads
+        if (q.v == 0) {
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+          for (int e = 0; e < 64; ++e) pool[(size_t)e * nc] = gh[e >> 3][e & 7];
+        }
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            gh[mt][nt][i] = Hs[frag_row(mt, i) * dh + frag_col(col0, nt, i)] * inv_ns;
-    }
-    for (int i = tid; i < TM * dl; i += blockDim.x) Zs[i] = 0.f;
-    for (int k = nlz - 1; k >= 0; --k) {
-      res_block_bwd<T>(Gs, Ms, ld, w0T + (size_t)k * dh * dh, w1T + (size_t)k * dh * dh,
-                       st(k, 0, v), st(k, 1, v), ct(k, 0, v), ct(k, 1, v), dh, col0, r0, N, gh,
-                       acc);
-      // injection k: dz += gh @ Wz_k (the trunk cotangent passes unchanged)
-      __syncthreads();
-      store_frag<T>(Gs, ld, col0, gh);
-      __syncthreads();
-      if (k == 0) tile_to_global(Gs, ld, cot + cot_in_slot(v, ns, nb, nlz) * slot, r0, N, dh);
-      for (int cb = col0; cb < dl; cb += nw * 64) {
-        gemm_tile(Gs, ld, wzT + ((size_t)k * dl + cb - col0) * dh, dh, col0, acc);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              Zs[frag_row(mt, i) * dl + frag_col(cb, nt, i)] += acc[mt][nt][i];
+        for (int e = 0; e < 64; ++e) gh[e >> 3][e & 7] = pool[(size_t)e * nc] * inv_ns;
       }
+      dg_entry(As, lda, tp, c0, c1, gh, cot, stash_slot(q.k, 1, q.v, ns, nlz), r0, N, dh);
+    } else if (q.kind == DG_WZ && q.cb == 0) {
+      // injection k: its output cotangent G_k is gh (block k - 1's cot1, or
+      // lin_in's output cotangent), the A operand of its latent product and
+      // of block k - 1's (or lin_in's)
+      dg_entry(As, lda, tp, c0, c1, gh, cot,
+               q.k > 0 ? stash_slot(q.k - 1, 1, q.v, ns, nlz) : cot_in_slot(q.v, ns, nb, nlz),
+               r0, N, dh);
     }
-    // lin_in: d encoding = gh @ Wi (Gs holds the rounded cotangent)
-    for (int cb = col0; cb < a.k_in; cb += nw * 64) {
-      gemm_tile(Gs, ld, static_cast<const T*>(a.wiT) + (size_t)(cb - col0) * dh, dh, col0, acc);
+    if (q.kind <= DG_W0) {
+      dg_consume<8>(a, p, As, lda, dh, acc);
+      const bool w1 = q.kind == DG_W1;
+      float m[8][8];
+      dg_mask(static_cast<const float*>(a.stash) +
+                  stash_slot(q.k, w1 ? 1 : 0, q.v, ns, nlz) * slot,
+              tp, c0, c1, r0, N, dh, m);
+      if (w1) {  // c0 = mask(relu(fc_0)) * (gh @ W1)
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+        for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
+          for (int j = 0; j < 8; ++j)
+            if (!(m[i][j] > 0.f)) acc[i][j] = 0.f;
+        dg_entry(As, lda, tp, c0, c1, acc, cot, stash_slot(q.k, 0, q.v, ns, nlz), r0, N, dh);
+      } else {  // gh += mask(relu(h)) * (c0 @ W0)
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-            Es[frag_row(mt, i) * a.k_in + frag_col(cb, nt, i)] = acc[mt][nt][i];
-    }
-    __syncthreads();
-    // dx through the encoding: sin lanes carry cos(t) * f, raw lanes 1
-    for (int idx = tid; idx < TM * a.d_in; idx += blockDim.x) {
-      const int r = idx / a.d_in, lane = idx - r * a.d_in, row = r0 + r;
-      if (row >= N) continue;
-      const float p = a.x[((size_t)v * N + row) * a.d_in + lane];
-      float sum = 0.f;
-      for (int j = 0; j < a.k_in; ++j) {
-        const int mode = a.tables[j];
-        if (mode == 2 || a.tables[a.k_in + j] != lane) continue;
-        float d = Es[r * a.k_in + j];
-        if (mode == 1) d = d * (cosf(__fadd_rn(__fmul_rn(p, a.fph[j]), a.fph[a.k_in + j])) *
-                                a.fph[j]);
-        sum += d;
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (m[i][j] > 0.f) gh[i][j] += acc[i][j];
       }
-      a.dx[((size_t)v * N + row) * a.d_in + lane] = sum;
-    }
-    // the encoded input (lin_in's operand for the wgrad) and dz
-    T* enc = static_cast<T*>(a.enc) + (size_t)v * N * a.k_in;
-    for (int idx = tid; idx < TM * a.k_in; idx += blockDim.x) {
-      const int r = idx / a.k_in, j = idx - r * a.k_in, row = r0 + r;
-      if (row >= N) continue;
-      const int mode = a.tables[j];
-      float val = 0.f;
-      if (mode != 2) {
-        const float p = a.x[((size_t)v * N + row) * a.d_in + a.tables[a.k_in + j]];
-        val = mode == 0 ? p : sinf(__fadd_rn(__fmul_rn(p, a.fph[j]), a.fph[a.k_in + j]));
+    } else {
+      switch (dg_mode(q.cw, dh)) {
+        case 8: dg_narrow<8>(a, p, As, lda, Es, q, acc); break;
+        case 4: dg_narrow<4>(a, p, As, lda, Es, q, acc); break;
+        case 2: dg_narrow<2>(a, p, As, lda, Es, q, acc); break;
+        default: dg_narrow<1>(a, p, As, lda, Es, q, acc); break;
       }
-      enc[(size_t)row * a.k_in + j] = from_f<T>(val);
-    }
-    T* dz = static_cast<T*>(a.dz) + (size_t)v * N * dl;
-    for (int idx = tid; idx < TM * dl; idx += blockDim.x) {
-      const int r = idx / dl, c = idx - r * dl, row = r0 + r;
-      if (row < N) dz[(size_t)row * dl + c] = from_f<T>(Zs[idx]);
     }
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(256, 1) resnetfc_dgrad_kernel(FcBwdArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  resnetfc_dgrad_tile<T>(a, smem, blockIdx.x);
-}
-
-template <typename T>
-static int launch_dgrad(const FcBwdArgs& a, cudaStream_t stream) {
-  const size_t smem = dgrad_smem_bytes<T>(a.d_hidden, a.d_latent, a.k_in, a.ns);
-  cudaError_t e = cudaFuncSetAttribute(resnetfc_dgrad_kernel<T>,
+// float32 only: the bf16 dgrad is csrc/resnetfc_hopper.cu's
+// (avr_resnetfc_dgrad_bf16).  wi, wz, w0, w1 as nn.Linear keeps them.
+extern "C" int avr_resnetfc_dgrad(const void* x, const void* g, const void* stash,
+                                  const void* wi, const void* wz, const void* w0, const void* w1,
+                                  const void* wo, const void* bo, const void* tables,
+                                  const void* fph, void* dx, void* dz, void* cot, void* gout,
+                                  void* enc, void* pool, int N, int ns, int d_in, int k_in,
+                                  int d_latent, int d_hidden, int d_out, int n_blocks,
+                                  int n_lin_z, int activate, int dtype, void* stream) {
+  const uintptr_t aligned = (uintptr_t)stash | (uintptr_t)wi | (uintptr_t)wz | (uintptr_t)w0 |
+                            (uintptr_t)w1 | (uintptr_t)dz | (uintptr_t)cot;
+  if (dtype != 0 || N < 1 || ns < 1 || d_hidden % 64 || d_hidden < 64 || d_hidden > 512 ||
+      d_latent % 64 || d_latent < 64 || k_in % F32_IN_W || k_in < F32_IN_W || d_out > GOUT_W ||
+      n_lin_z < 1 || n_lin_z > n_blocks || (ns > 1 && !pool) || (aligned & 15))
+    return (int)cudaErrorInvalidValue;
+  FcBwdArgs a;
+  a.x = (const float*)x; a.g = (const float*)g; a.stash = stash; a.wi = wi; a.wz = wz;
+  a.w0 = w0; a.w1 = w1; a.wo = wo; a.bo = (const float*)bo; a.tables = (const int*)tables;
+  a.fph = (const float*)fph; a.dx = (float*)dx; a.dz = dz; a.cot = cot; a.gout = gout;
+  a.enc = enc; a.pool = (float*)pool; a.N = N; a.ns = ns; a.d_in = d_in; a.k_in = k_in;
+  a.d_latent = d_latent; a.d_hidden = d_hidden; a.d_out = d_out; a.n_blocks = n_blocks;
+  a.n_lin_z = n_lin_z; a.activate = activate;
+  const size_t smem = dg_smem_bytes(d_hidden);
+  cudaError_t e = cudaFuncSetAttribute(resnetfc_dgrad_f32_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const unsigned blocks = (unsigned)((a.N + TM - 1) / TM);
-  resnetfc_dgrad_kernel<T><<<blocks, a.d_hidden / 64 * 32, smem, stream>>>(a);
+  const unsigned blocks = (unsigned)((N + F32_TM - 1) / F32_TM);
+  resnetfc_dgrad_f32_kernel<<<blocks, d_hidden / 2, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
-}
-
-extern "C" int avr_resnetfc_dgrad(const void* x, const void* g, const void* stash,
-                                  const void* wiT, const void* wzT, const void* w0T,
-                                  const void* w1T, const void* wo, const void* bo,
-                                  const void* tables, const void* fph, void* dx, void* dz,
-                                  void* cot, void* gout, void* enc, void* pool, int N, int ns,
-                                  int d_in,
-                                  int k_in, int d_latent, int d_hidden, int d_out, int n_blocks,
-                                  int n_lin_z, int activate, int dtype, void* stream) {
-  FcBwdArgs a;
-  a.x = (const float*)x; a.g = (const float*)g; a.stash = stash; a.wiT = wiT; a.wzT = wzT;
-  a.w0T = w0T; a.w1T = w1T; a.wo = wo; a.bo = (const float*)bo; a.tables = (const int*)tables;
-  a.fph = (const float*)fph; a.dx = (float*)dx; a.dz = dz; a.cot = cot; a.gout = gout;
-  a.enc = enc; a.pool = (float*)pool; a.N = N; a.ns = ns; a.d_in = d_in; a.k_in = k_in; a.d_latent = d_latent;
-  a.d_hidden = d_hidden; a.d_out = d_out; a.n_blocks = n_blocks; a.n_lin_z = n_lin_z;
-  a.activate = activate;
-  if (dtype != 0) return (int)cudaErrorInvalidValue;  // bf16: csrc/resnetfc_hopper.cu
-  return launch_dgrad<float>(a, (cudaStream_t)stream);
 }
 
 // dW (Mg x Ka) += G^T A and db (Mg) += column sums of G over the rows of

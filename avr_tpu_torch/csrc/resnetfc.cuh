@@ -57,10 +57,12 @@ struct FcBwdArgs {
   const float* x;       // (ns, N, d_in) raw inputs
   const float* g;       // (N, d_out) output cotangent
   const void* stash;    // forward's activations
-  const void* wiT;      // (k_in, dh) T, lin_in transposed, zero rows past d_enc
-  const void* wzT;      // (n_lin_z, dl, dh) T
-  const void* w0T;      // (n_blocks, dh, dh) T
-  const void* w1T;      // (n_blocks, dh, dh) T
+  // the float32 dgrad's weights, nn.Linear layout (the bf16 dgrad reads its
+  // transposed copies through tensor maps)
+  const void* wi;       // (dh, k_in), zero columns past d_enc
+  const void* wz;       // (n_lin_z, dh, dl)
+  const void* w0;       // (n_blocks, dh, dh)
+  const void* w1;       // (n_blocks, dh, dh)
   const void* wo;       // (d_out, dh) T
   const float* bo;      // (d_out)
   const int* tables;    // (2, k_in)

@@ -28,7 +28,8 @@
 // the stash/cotangent bytes (2 x 512 x 512 products a block a point; 11
 // stash rows read and 11 cotangent rows written, bf16).  Per CTA a tile of
 // DG_M = 64 points walks the chain in reverse with exactly the rounding and
-// mask order of csrc/resnetfc.cu res_block_bwd: the rounded trunk
+// mask order of chip_smoke.py decoder_bwd_matched's block (and of the
+// float32 dgrad's, csrc/resnetfc.cu resnetfc_dgrad_f32_kernel): the rounded trunk
 // cotangent round(gh) is the A operand of the fc_1 product; its output,
 // masked by relu(fc_0) > 0 and rounded, is the A operand of the fc_0
 // product; that output, masked by relu(h) > 0, adds into gh.  Budget (227
@@ -1058,8 +1059,8 @@ extern "C" int avr_resnetfc_dgrad_bf16(const void* x, const void* g, const void*
                                        int d_in, int k_in, int d_latent, int d_hidden, int d_out,
                                        int n_blocks, int n_lin_z, int activate, void* stream) {
   FcBwdArgs a;
-  a.x = (const float*)x; a.g = (const float*)g; a.stash = stash; a.wiT = wiT; a.wzT = wzT;
-  a.w0T = w0T; a.w1T = w1T; a.wo = wo; a.bo = (const float*)bo; a.tables = (const int*)tables;
+  a.x = (const float*)x; a.g = (const float*)g; a.stash = stash;  // weights: tensor maps
+  a.wo = wo; a.bo = (const float*)bo; a.tables = (const int*)tables;
   a.fph = (const float*)fph; a.dx = (float*)dx; a.dz = dz; a.cot = cot; a.gout = gout;
   a.enc = enc; a.pool = (float*)pool; a.N = N; a.ns = ns; a.d_in = d_in; a.k_in = k_in;
   a.d_latent = d_latent; a.d_hidden = d_hidden; a.d_out = d_out; a.n_blocks = n_blocks;

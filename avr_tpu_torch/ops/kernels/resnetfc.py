@@ -49,8 +49,12 @@ tiles with both operands MN-major in shared memory, rows split by
 :func:`wgrad_plan` into at least two waves of CTAs per job, the float32
 partial tiles added by a second kernel in split order (deterministic), the
 bias gradients column sums of the same rounded cotangents.  float32
-operands take ``csrc/resnetfc.cu``'s FMA dgrad with the ``mma.sync``
-forward's 32-point tiling, and its register-tiled wgrad
+operands take ``csrc/resnetfc.cu``'s dgrad (``resnetfc_dgrad_f32_kernel``,
+:func:`f32_dgrad_plan`): the float32 forward's design walked in reverse
+(32-point tiles, register-tiled FMA products over the untransposed
+weights' 16-row slabs streamed through a shared ring, the ReLU masks'
+stash rows prefetched into L2 and read when a product ends, the
+cotangents written from registers), and its register-tiled wgrad
 (``resnetfc_wgrad_f32_kernel``: 8 x 8 outputs a thread from staged K-major
 tiles), whose rows split as the bf16 wgrad's do (:func:`wgrad_plan`'s
 float32 rule: at least ``WGRAD_WAVES_F32`` waves of CTAs a job) and whose
@@ -83,8 +87,8 @@ import torch
 
 from avr_tpu_torch.ops.kernels import _build
 
-__all__ = ["CodeSpec", "DecoderWeights", "f32_forward_plan", "forward_route", "fused_resnetfc",
-           "resnetfc_plain", "use_stash", "encode_tables", "wgrad_plan"]
+__all__ = ["CodeSpec", "DecoderWeights", "f32_dgrad_plan", "f32_forward_plan", "forward_route",
+           "fused_resnetfc", "resnetfc_plain", "use_stash", "encode_tables", "wgrad_plan"]
 
 NAME = "fused_resnetfc"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -211,6 +215,7 @@ NAME_DGRAD = "fused_resnetfc_bwd_dgrad"
 NAME_WGRAD = "fused_resnetfc_bwd_wgrad"
 NAME_WGRAD_F32 = "resnetfc_wgrad_f32"  # every float32 wgrad launch (K2's and K3's)
 NAME_RECOMPUTE = "fused_resnetfc_bwd_recompute"
+NAME_DGRAD_F32 = "resnetfc_dgrad_f32"  # every float32 dgrad launch (stash and recompute)
 
 
 def stash_slot(k: int, j: int, v: int, ns: int, n_lin_z: int) -> int:
@@ -275,11 +280,12 @@ def _prepare(x, z, w: DecoderWeights, code, compute_dtype):
              fph=torch.from_numpy(np.stack([f, ph])).to(dev))
     if compute_dtype == torch.float32:
         # the float32 forward streams k-row slabs of the transposed weights,
-        # which the float32 dgrad reads too; its latent rows go by bulk
-        # copies, 16-byte aligned
+        # the float32 dgrad those of the weights as they are; both go by
+        # bulk copies, 16-byte aligned, as do the forward's latent rows
         a.update(zip(_T_KEYS, _transposed(a)))
-        if a["z"].data_ptr() % 16:
-            a["z"] = a["z"].clone()
+        for k in ("z", "wi", "wz", "w0", "w1"):
+            if a[k].data_ptr() % 16:
+                a[k] = a[k].clone()
     return a
 
 
@@ -374,6 +380,80 @@ def f32_forward_plan(N: int, ns: int, d_hidden: int, d_latent: int, k_in: int, n
                       sum(p[3] for p in products), tuple(products))
 
 
+# The float32 dgrad (csrc/resnetfc.cu resnetfc_dgrad_f32_kernel): the
+# forward's tile, threads and ring (each stage a slab of at most d_hidden
+# columns); lin_in in chunks of F32_DGRAD_IN_W columns (the source's
+# F32_IN_W), whose output chunk (32 rows of F32_DGRAD_IN_W + 4 floats) and
+# g_epi (32 x GOUT_W) follow the A tile.
+F32_DGRAD_IN_W = 64
+
+
+def f32_dgrad_mode(cols: int, d_hidden: int) -> int:
+    """Points a thread takes in a product ``cols`` wide (``dg_mode``): 8, 4,
+    2 or 1, the most that keeps the threads' 8-column groups inside it."""
+    p = 1
+    while p < 8 and p * d_hidden < 8 * cols:
+        p *= 2
+    return p
+
+
+class F32DgradPlan(NamedTuple):
+    tile: int         # points a CTA
+    blocks: int       # CTAs: every point in one tile
+    threads: int      # d_hidden / 2
+    smem: int         # bytes of dynamic shared memory
+    slabs: int        # weight slabs a tile streams through the ring
+    # (weight, block, view, first column, columns, points a thread, slabs,
+    # stash slot of its ReLU mask or None, cotangent slot written just
+    # before it or None)
+    products: tuple
+
+
+def f32_dgrad_plan(N: int, ns: int, d_hidden: int, d_latent: int, k_in: int, n_blocks: int,
+                   n_lin_z: int) -> F32DgradPlan:
+    """The float32 dgrad's launch for a shape: tile, threads, shared bytes
+    and the products in the order the kernel streams their slabs (first
+    lin_out's cotangent, which reads the last stash slot's mask and no
+    slab; the pooled blocks, W1 then W0, k descending; per view, k
+    descending, block k's W1 and W0 and injection k's latent product in
+    column chunks of at most ``d_hidden``, then lin_in in chunks of
+    ``F32_DGRAD_IN_W``).  Every weight product has K = ``d_hidden``: its
+    ``d_hidden / 16`` slabs.  A block's W1 reads the mask of stash slot (k,
+    1), its W0 of (k, 0) (the tile's rows, prefetched into L2 with the
+    product's first slab); the cotangent slots are written by the trunk
+    cotangent's stores (a pooled block's and a view's first block's cot1,
+    each injection's G_k) and by W1's masked output (cot0)."""
+    s, dh = F32_FWD_SLAB, d_hidden
+    stage = s * dh
+    smem = 4 * (F32_FWD_STAGES * stage + F32_FWD_TILE * (dh + 4)
+                + F32_FWD_TILE * (F32_DGRAD_IN_W + 4) + F32_FWD_TILE * GOUT_W) \
+        + 16 * F32_FWD_STAGES
+    sl = dh // s
+    products = [("wo", None, 0, 0, dh, 8, 0, stash_slots(ns, n_blocks, n_lin_z) - 1, None)]
+
+    def block(k, v, entry):
+        products.append(("w1", k, v, 0, dh, 8, sl, stash_slot(k, 1, v, ns, n_lin_z), entry))
+        c0 = stash_slot(k, 0, v, ns, n_lin_z)
+        products.append(("w0", k, v, 0, dh, 8, sl, c0, c0))
+
+    for k in range(n_blocks - 1, n_lin_z - 1, -1):
+        block(k, 0, stash_slot(k, 1, 0, ns, n_lin_z))
+    for v in range(ns):
+        for k in range(n_lin_z - 1, -1, -1):
+            block(k, v, stash_slot(k, 1, v, ns, n_lin_z) if k == n_lin_z - 1 else None)
+            g_k = (stash_slot(k - 1, 1, v, ns, n_lin_z) if k else
+                   cot_slots(ns, n_blocks, n_lin_z) - ns + v)
+            for cb in range(0, d_latent, dh):
+                cw = min(dh, d_latent - cb)
+                products.append(("wz", k, v, cb, cw, f32_dgrad_mode(cw, dh), sl, None,
+                                 g_k if cb == 0 else None))
+        for cb in range(0, k_in, F32_DGRAD_IN_W):
+            products.append(("wi", None, v, cb, F32_DGRAD_IN_W,
+                             f32_dgrad_mode(F32_DGRAD_IN_W, dh), sl, None, None))
+    return F32DgradPlan(F32_FWD_TILE, -(-N // F32_FWD_TILE), dh // 2, smem,
+                        sum(p[6] for p in products), tuple(products))
+
+
 # the forward's C entry points: the operands in _FWD_ORDER, out, stash (and
 # the wgmma and float32 kernels' view-sum scratch), the dims in _DIM_ORDER,
 # the stream
@@ -427,20 +507,22 @@ def _forward(a, d, compute_dtype, stash: bool, st=None):
 
 
 def _bwd_operands(a, d, g, name):
-    """What both backwards share: ``g`` in float32, the transposed weights
-    and the zeroed float32 weight-gradient sums."""
+    """What both backwards share: ``g`` in float32, the dgrad's weights
+    (bf16: transposed copies; float32: as they are, lin_in zero-padded) and
+    the zeroed float32 weight-gradient sums."""
     dev = g.device
     dh, dl, nb, nlz = d["d_hidden"], d["d_latent"], d["n_blocks"], d["n_lin_z"]
     g = g.float().contiguous()
     _build.check_cuda_inputs(name, {"g": g}, dev)
-    wT = [a[k] for k in _T_KEYS] if "wiT" in a else _transposed(a)
+    f32_walk = a["wi"].dtype == torch.float32
+    wd = [a[k] for k in ("wi", "wz", "w0", "w1")] if f32_walk else _transposed(a)
     f32 = dict(dtype=torch.float32, device=dev)
     grads = dict(wi=torch.zeros((dh, d["k_in"]), **f32), bi=torch.zeros((dh,), **f32),
                  wz=torch.zeros((nlz, dh, dl), **f32), bz=torch.zeros((nlz, dh), **f32),
                  w0=torch.zeros((nb, dh, dh), **f32), b0=torch.zeros((nb, dh), **f32),
                  w1=torch.zeros((nb, dh, dh), **f32), b1=torch.zeros((nb, dh), **f32),
                  wo=torch.zeros((d["d_out"], dh), **f32), bo=torch.zeros((d["d_out"],), **f32))
-    return g, wT, grads
+    return g, wd, grads
 
 
 def _grads_tuple(dx, dz, grads):
@@ -450,15 +532,19 @@ def _grads_tuple(dx, dz, grads):
 
 def dgrad_tile(compute_dtype) -> int:
     """Points a dgrad CTA walks: 64 on the bf16 wgmma walk
-    (``csrc/resnetfc_hopper.cu``), 32 on the float32 one."""
-    return 64 if compute_dtype == torch.bfloat16 else 32
+    (``csrc/resnetfc_hopper.cu``), :func:`f32_dgrad_plan`'s tile (32) on the
+    float32 one."""
+    return 64 if compute_dtype == torch.bfloat16 else F32_FWD_TILE
 
 
-def _dgrad(a, d, st, g, wT, compute_dtype, out=None, pool=None, name=NAME_DGRAD):
-    """The dgrad launch on the stash ``st``: ``dx``, ``dz``, and what the
-    wgrad reads: the rounded product cotangents ``cot``, the rounded output
+def _dgrad(a, d, st, g, wd, compute_dtype, out=None, pool=None, name=NAME_DGRAD):
+    """The dgrad launch on the stash ``st`` with the weights ``wd`` (what
+    :func:`_bwd_operands` returns): ``dx``, ``dz``, and what the wgrad
+    reads: the rounded product cotangents ``cot``, the rounded output
     cotangent ``gout`` and the encoded input ``enc``; into ``out`` (those
-    five, by name) where given, with ``pool`` the NS > 1 scratch."""
+    five, by name) where given, with ``pool`` the NS > 1 scratch.  float32
+    takes ``resnetfc_dgrad_f32_kernel``, counted also under
+    ``NAME_DGRAD_F32``."""
     ns, N, dh = d["ns"], d["N"], d["d_hidden"]
     cd = compute_dtype
     dev = g.device
@@ -469,11 +555,20 @@ def _dgrad(a, d, st, g, wT, compute_dtype, out=None, pool=None, name=NAME_DGRAD)
                                    dtype=cd, device=dev),
                    gout=torch.empty((N, GOUT_W), dtype=cd, device=dev),
                    enc=torch.empty((ns, N, d["k_in"]), dtype=cd, device=dev))
-    if ns > 1 and pool is None:  # the pooled trunk cotangent, one tile of rows per CTA
-        tile = dgrad_tile(cd)
-        pool = torch.empty(((N + tile - 1) // tile * tile, dh), dtype=torch.float32, device=dev)
+    # the pooled trunk cotangent of NS > 1: a tile of rows a CTA (float32:
+    # f32_dgrad_plan's CTAs)
+    if cd == torch.float32:
+        plan = f32_dgrad_plan(N, ns, dh, d["d_latent"], d["k_in"], d["n_blocks"], d["n_lin_z"])
+        rows = plan.blocks * plan.tile
+    else:
+        rows = -(-N // dgrad_tile(cd)) * dgrad_tile(cd)
+    if ns > 1 and pool is None:
+        pool = torch.empty((rows, dh), dtype=torch.float32, device=dev)
+    if ns > 1 and (pool.dtype != torch.float32 or pool.numel() < rows * dh):
+        raise ValueError(f"{name}: the pool holds {pool.numel()} {pool.dtype} values; the "
+                         f"dgrad's CTAs need {rows} x {dh} float32")
     if N:
-        ptrs = [_build.ptr(t) for t in (a["x"], g, st, *wT, a["wo"], a["bo"], a["tables"],
+        ptrs = [_build.ptr(t) for t in (a["x"], g, st, *wd, a["wo"], a["bo"], a["tables"],
                                         a["fph"], *(out[k] for k in ("dx", "dz", "cot", "gout",
                                                                       "enc")))]
         ptrs.append(_build.ptr(pool) if ns > 1 else None)
@@ -488,14 +583,16 @@ def _dgrad(a, d, st, g, wT, compute_dtype, out=None, pool=None, name=NAME_DGRAD)
                                   + [ctypes.c_int] * 11 + [ctypes.c_void_p])
             err = fn(*ptrs, *dims, _DTYPES[cd], stream)
         _build.check(name, err)
+        if cd == torch.float32:
+            _build.launches[NAME_DGRAD_F32] += 1
     return out["dx"], out["dz"], out["cot"], out["gout"], out["enc"]
 
 
 def _backward(a, d, st, g, compute_dtype):
     """The stash backward: ``(dx, dz, dwi (dh, k_in), dbi, dwz, dbz, dw0,
     db0, dw1, db1, dwo, dbo)``, weight cotangents in float32."""
-    g, wT, grads = _bwd_operands(a, d, g, NAME_DGRAD)
-    dx, dz, cot, gout, enc = _dgrad(a, d, st, g, wT, compute_dtype)
+    g, wd, grads = _bwd_operands(a, d, g, NAME_DGRAD)
+    dx, dz, cot, gout, enc = _dgrad(a, d, st, g, wd, compute_dtype)
     if d["N"]:
         _wgrad(d["N"], a["z"], st, cot, gout, enc, grads, d, compute_dtype)
     return _grads_tuple(dx, dz, grads)
@@ -521,7 +618,7 @@ def _recompute_workspace(d, p, compute_dtype, device):
     return bufs, pool
 
 
-def _recompute_chunk(a, d, g, wT, work, s, n, dx, dz, compute_dtype):
+def _recompute_chunk(a, d, g, wd, work, s, n, dx, dz, compute_dtype):
     """The recompute backward over points ``[s, s + n)``: the stash forward
     into the workspace ``work``, then the dgrad on it, writing the points'
     rows of ``dx`` and ``dz``.  Returns what the chunk's wgrad reads: its
@@ -538,7 +635,7 @@ def _recompute_chunk(a, d, g, wT, work, s, n, dx, dz, compute_dtype):
                                                      device=dev)
     dzc = dz[:, s:s + n] if ns == 1 else torch.empty((ns, n, d["d_latent"]), dtype=cd, device=dev)
     _forward(ac, dc, cd, stash=True, st=st)
-    _dgrad(ac, dc, st, g[s:s + n], wT, cd, out=dict(dx=dxc, dz=dzc, cot=cot, gout=gout[0], enc=enc),
+    _dgrad(ac, dc, st, g[s:s + n], wd, cd, out=dict(dx=dxc, dz=dzc, cot=cot, gout=gout[0], enc=enc),
            pool=pool, name=NAME_RECOMPUTE)
     if ns > 1:
         dx[:, s:s + n].copy_(dxc)
@@ -552,7 +649,7 @@ def _backward_recompute(a, d, g, compute_dtype):
     it and one wgrad launch adding into the float32 sums.  Returns what
     :func:`_backward` returns."""
     ns, N = d["ns"], d["N"]
-    g, wT, grads = _bwd_operands(a, d, g, NAME_RECOMPUTE)
+    g, wd, grads = _bwd_operands(a, d, g, NAME_RECOMPUTE)
     dev = g.device
     dx = torch.empty((ns, N, d["d_in"]), dtype=torch.float32, device=dev)
     dz = torch.empty((ns, N, d["d_latent"]), dtype=compute_dtype, device=dev)
@@ -560,7 +657,7 @@ def _backward_recompute(a, d, g, compute_dtype):
     work = _recompute_workspace(d, min(N, RECOMPUTE_CHUNK), compute_dtype, dev)
     for s in range(0, N, RECOMPUTE_CHUNK):
         n = min(RECOMPUTE_CHUNK, N - s)
-        zc, st, cot, gout, enc = _recompute_chunk(a, d, g, wT, work, s, n, dx, dz, compute_dtype)
+        zc, st, cot, gout, enc = _recompute_chunk(a, d, g, wd, work, s, n, dx, dz, compute_dtype)
         _wgrad(n, zc, st, cot, gout, enc, grads, d, compute_dtype)
     return _grads_tuple(dx, dz, grads)
 

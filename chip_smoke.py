@@ -943,7 +943,8 @@ def decoder_plain_stash(x, z, w, *, n_blocks, n_lin_z, code, compute_dtype):
 
 
 @torch.no_grad()
-def decoder_bwd_matched(x, z, w, st, g, *, n_blocks, n_lin_z, code, compute_dtype):
+def decoder_bwd_matched(x, z, w, st, g, *, n_blocks, n_lin_z, code, compute_dtype, cot=None,
+                        wgrads=True):
     """The decoder's stash backward (``activate_out`` on) in plain PyTorch
     with the kernel's rounding points, from a given stash ``st``: each
     product's input cotangent is rounded to the compute dtype, the trunk
@@ -951,7 +952,11 @@ def decoder_bwd_matched(x, z, w, st, g, *, n_blocks, n_lin_z, code, compute_dtyp
     the kernel's own stash, its masks are the kernel's, so only float32
     summation order separates the two; fed ``decoder_plain_stash`` in
     float32, it is the plain version's autograd up to that order.  Returns
-    the gradients in ``DECODER_GRADS`` order."""
+    the gradients in ``DECODER_GRADS`` order.  With ``cot`` (a dict) it also
+    keeps the rounded cotangents it forms by the kernels' cotangent slot
+    (each block's ``c1`` and ``c0``, lin_in's ``ci``) and ``g_epi`` under
+    ``"gout"``; ``wgrads=False`` forms no weight gradient (those stay zero):
+    the dgrad's chain of products alone, the plain version of the dgrad."""
     r = lambda t: t.to(compute_dtype).float()
     wi, bi, wz, bz, w0, b0, w1, b1, wo, bo = (r(t) for t in w)
     ns = x.shape[0]
@@ -964,15 +969,21 @@ def decoder_bwd_matched(x, z, w, st, g, *, n_blocks, n_lin_z, code, compute_dtyp
     sg = torch.sigmoid(pre[:, :3])
     ge = r(torch.cat([g[:, :3] * sg * (1.0 - sg), torch.where(pre[:, 3:] > 0, g[:, 3:], 0.0)],
                      dim=-1))
+    if cot is not None:
+        cot["gout"] = ge
 
     def block(gh, k, v):
         a1, a2 = act(k, 0, v), act(k, 1, v)
         c1 = r(gh)
         c0 = r(torch.where(a2 > 0, c1 @ w1[k], 0.0))
-        gr["w1"][k] += c1.T @ a2
-        gr["b1"][k] += c1.sum(0)
-        gr["w0"][k] += c0.T @ a1
-        gr["b0"][k] += c0.sum(0)
+        if cot is not None:
+            cot[K2.stash_slot(k, 1, v, ns, n_lin_z)] = c1
+            cot[K2.stash_slot(k, 0, v, ns, n_lin_z)] = c0
+        if wgrads:
+            gr["w1"][k] += c1.T @ a2
+            gr["b1"][k] += c1.sum(0)
+            gr["w0"][k] += c0.T @ a1
+            gr["b0"][k] += c0.sum(0)
         return gh + torch.where(a1 > 0, c0 @ w0[k], 0.0)
 
     gh = torch.where(aout > 0, ge @ wo, 0.0)
@@ -985,14 +996,18 @@ def decoder_bwd_matched(x, z, w, st, g, *, n_blocks, n_lin_z, code, compute_dtyp
             ghv = block(ghv, k, v)
             ci = r(ghv)  # injection k's output cotangent (lin_in's for k = 0)
             dzv = dzv + ci @ wz[k]
-            gr["wz"][k] += ci.T @ zv
-            gr["bz"][k] += ci.sum(0)
+            if wgrads:
+                gr["wz"][k] += ci.T @ zv
+                gr["bz"][k] += ci.sum(0)
+        if cot is not None:
+            cot[K2.cot_slots(ns, n_blocks, n_lin_z) - ns + v] = ci
         with torch.enable_grad():
             p = x[v].float().requires_grad_(True)
             enc = K2._encode(p, code)
             dx.append(torch.autograd.grad(enc, p, ci @ wi)[0])
-        gr["wi"] = gr["wi"] + ci.T @ r(enc.detach())
-        gr["bi"] = gr["bi"] + ci.sum(0)
+        if wgrads:
+            gr["wi"] = gr["wi"] + ci.T @ r(enc.detach())
+            gr["bi"] = gr["bi"] + ci.sum(0)
         dz.append(r(dzv))
     return (torch.stack(dx), torch.stack(dz), gr["wi"], gr["bi"], gr["wz"], gr["bz"], gr["w0"],
             gr["b0"], gr["w1"], gr["b1"], ge.T @ aout, ge.sum(0))
@@ -1085,8 +1100,8 @@ def check_resnetfc_bwd(gen):
             # the yardstick: torch.matmul over the wgrad's 15 dW = G^T A jobs,
             # on the stash, cotangents and encoded input of this call
             kst = K2._forward(args, dims, cd, True)[1]
-            gs, wT, grads = K2._bwd_operands(args, dims, g, K2.NAME_DGRAD)
-            _, _, cot, gout, enc = K2._dgrad(args, dims, kst, gs, wT, cd)
+            gs, wd, grads = K2._bwd_operands(args, dims, g, K2.NAME_DGRAD)
+            _, _, cot, gout, enc = K2._dgrad(args, dims, kst, gs, wd, cd)
             jobs = wgrad_matmul_jobs(kst, cot, gout, enc, args["z"], 5, 3)
             timing["library_ms"] = time_ms(lambda: [torch.matmul(a.t(), b) for a, b in jobs],
                                            iters=5)
@@ -1095,7 +1110,7 @@ def check_resnetfc_bwd(gen):
             # maps, two launches; the dgrad's: 6 tensor maps, two launches)
             split = timing["split"]
             timing["dgrad_host"] = call_timing(
-                lambda: K2._dgrad(args, dims, kst, gs, wT, cd),
+                lambda: K2._dgrad(args, dims, kst, gs, wd, cd),
                 sum(split[k] for k in DGRAD_KERNELS))
             timing["wgrad_host"] = call_timing(
                 lambda: K2._wgrad(BAND_TRAIN, args["z"], kst, cot, gout, enc, grads, dims, cd),
@@ -1182,11 +1197,12 @@ def check_wgrad_jobs(st, cot, gout, enc, args, dims, jobs, cd=torch.bfloat16):
 
 
 # float32, the JAX CLI's default dtype (avr_tpu/cli/train.py --dtype f32):
-# K2's forward and the float32 wgrad are register-tiled FMA kernels
-# (csrc/resnetfc.cu resnetfc_fwd_f32_kernel, resnetfc_wgrad_f32_kernel);
-# K2's float32 dgrad and K3's float32 kernels keep the first port's designs
+# K2's forward, dgrad and the float32 wgrad are register-tiled FMA kernels
+# (csrc/resnetfc.cu resnetfc_fwd_f32_kernel, resnetfc_dgrad_f32_kernel,
+# resnetfc_wgrad_f32_kernel); K3's float32 kernels keep the first port's
+# designs
 F32_FWD_KERNEL = "resnetfc_fwd_f32_kernel"
-F32_DGRAD_KERNEL = "resnetfc_dgrad_kernel"
+F32_DGRAD_KERNEL = "resnetfc_dgrad_f32_kernel"
 K3_F32_JOB_ROWS = SB_TRAIN * CHUNK * STEPS  # K3's float32 dW_ih / dW_hh rows a train step
 # the float32 forward's cases (d_hidden, code, d_latent, views): the widths
 # of its thread layout, 576 encoded lanes (lin_in in two chunks of the A
@@ -1241,6 +1257,92 @@ def check_f32_forward(gen):
     return cases
 
 
+# K2's float32 dgrad across its envelope: d_hidden 64, 256 and 512 (its
+# thread layout's widths), d_latent 64, 512 and 1,024 (latent chunks
+# narrower than, as wide as and twice d_hidden), NS 1 to 3, each at a
+# partial last tile of F32_DGRAD_N points; lin_in in nine chunks (576
+# encoded lanes) at two widths; and N = 0
+F32_DGRAD_CASES = [(dh, CODE, dl, ns) for dh in (64, 256, 512) for dl in (64, 512, 1024)
+                   for ns in (1, 2, 3)] + [(512, WIDE_CODE, 512, 2), (64, WIDE_CODE, 64, 1)]
+F32_DGRAD_N = 1_037
+# float32 FMA order against the cuBLAS chain over up to 13 chained products,
+# on the same stash (so the same ReLU masks): summation order alone
+F32_DGRAD_TOL = 1e-4
+# the float32 dgrad's plain version
+F32_DGRAD_CHAIN = ("the cuBLAS chain of the dgrad's products (decoder_bwd_matched without weight "
+                   "gradients), float32, TF32 off: a chain of calls, not one")
+
+
+def hold_f32_dgrad(label, got, x, z, w, st, g, code, k_in):
+    """``K2._dgrad``'s five outputs ``got`` (float32, 5 blocks, 3
+    injections) against ``decoder_bwd_matched`` on the same stash ``st``:
+    dx, dz, the worst cotangent slot (the reference's rounded c1, c0 and
+    ci) and gout within F32_DGRAD_TOL by relative L2, enc within it of the
+    encoding.  Returns the cases."""
+    ns, ref = x.shape[0], {}
+    want = decoder_bwd_matched(x, z, w, st, g, n_blocks=5, n_lin_z=3, code=code,
+                               compute_dtype=torch.float32, cot=ref, wgrads=False)
+    dx, dz, cot, gout, enc = got
+    cases = [check_l2(f"float32 dgrad dx {label}", dx, want[0], F32_DGRAD_TOL),
+             check_l2(f"float32 dgrad dz {label}", dz, want[1], F32_DGRAD_TOL)]
+    del want
+    ge = ref.pop("gout")
+    if sorted(ref) != list(range(K2.cot_slots(ns, 5, 3))):
+        raise AssertionError(f"K2 float32 dgrad {label}: reference slots {sorted(ref)}")
+    cases.append(max((check_l2(f"float32 dgrad cot slot {i} {label}", cot[i], c, F32_DGRAD_TOL)
+                      for i, c in ref.items()), key=lambda c: c["rel_l2"]))
+    del ref
+    cases.append(check_l2(f"float32 dgrad gout {label}", gout,
+                          torch.cat([ge, torch.zeros_like(gout[:, 4:])], dim=-1), F32_DGRAD_TOL))
+    want_enc = torch.stack([torch.nn.functional.pad(K2._encode(x[v], code), (0, k_in - code.d_enc))
+                            for v in range(ns)])
+    cases.append(check_l2(f"float32 dgrad enc {label}", enc, want_enc, F32_DGRAD_TOL))
+    return cases
+
+
+def check_f32_dgrad(gen):
+    """K2's float32 dgrad (``K2._dgrad``) at F32_DGRAD_CASES against
+    ``decoder_bwd_matched`` fed the kernel's own stash: dx, dz, every
+    cotangent slot (the reference's rounded c1, c0 and ci) and gout within
+    F32_DGRAD_TOL by relative L2, enc within it of the encoding; each call
+    one launch of the float32 dgrad kernel, a rerun bit for bit; at N = 0
+    empty outputs and no launch."""
+    f32, cases = torch.float32, []
+    for dh, code, dl, ns in F32_DGRAD_CASES:
+        w = decoder_weights(gen, dh=dh, code=code, dl=dl)
+        for n in (F32_DGRAD_N, 0):
+            if n == 0 and (code, ns) != (CODE, 1):
+                continue
+            x = (torch.rand(ns, n, code.d_raw, generator=gen, device=DEV) * 2 - 1).contiguous()
+            z = randn(gen, ns, n, dl)
+            g = randn(gen, n, 4) + 0.5
+            label = f"d_hidden {dh} k_in {K2.d_enc_padded(code.d_enc)} d_latent {dl} N={n} NS={ns}"
+            args = K2._prepare(x, z, w, code, f32)
+            dims = K2._dims(args, 5, 3, True)
+            st = K2._forward(args, dims, f32, True)[1]
+            gs, wd, _ = K2._bwd_operands(args, dims, g, K2.NAME_DGRAD)
+            before = dict(_build.launches)
+            got = K2._dgrad(args, dims, st, gs, wd, f32)
+            again = K2._dgrad(args, dims, st, gs, wd, f32)
+            ran = f32_ran(before, (K2.NAME_DGRAD_F32,))[K2.NAME_DGRAD_F32]
+            if ran != (2 if n else 0):
+                raise AssertionError(f"K2 float32 dgrad {label}: {ran} launches of the kernel")
+            if n == 0:
+                if any(t.numel() for t in got[:2] + got[3:]) or got[2].shape[1]:
+                    raise AssertionError(f"K2 float32 dgrad {label}: non-empty outputs")
+                cases.append({"case": f"float32 dgrad {label}", "against": "shape",
+                              "max_abs_err": 0.0, "tol": 0.0})
+                continue
+            cases.append(check_rerun(f"float32 dgrad rerun {label}", got, again))
+            cases += hold_f32_dgrad(label, got, x, z, w, st, g, code, dims["k_in"])
+            del x, z, g, args, st, got, again
+    worst = max(c.get("rel_l2", 0.0) for c in cases)
+    print(f"K2 float32 dgrad: {len(cases)} cases within {F32_DGRAD_TOL} of decoder_bwd_matched "
+          f"on its own stash (worst relative L2 {worst:.3e}), every rerun bit for bit, every "
+          f"call on {F32_DGRAD_KERNEL}")
+    return cases
+
+
 def check_float32(gen):
     """K2's float32 kernels at the main path's shapes (the forward at the
     band chunk and at a served chunk's coarse query, the stash backward's
@@ -1248,9 +1350,13 @@ def check_float32(gen):
     K3's two jobs: times beside the float32 bounds and the plain versions
     (the wgrad also beside torch.matmul in float32, TF32 off), the
     forward's cases (check_f32_forward, a generator of their own), the
-    wgrad's jobs against torch.matmul and K3's against the plain product in
-    float64, and every wgrad output bit for bit on a rerun.  Returns the
-    rows and the kernels-line entries of the float32 forward and wgrad."""
+    dgrad held to its plain version (hold_f32_dgrad) at the band call and at
+    the coarse query, the recompute's dx and dz at the band call (its
+    chunks of 262,144 and 65,536 points) bitwise the stash dgrad's, the
+    dgrad's envelope (check_f32_dgrad), the wgrad's jobs against
+    torch.matmul and K3's against the plain product in float64, and every
+    wgrad output bit for bit on a rerun.  Returns the rows and the
+    kernels-line entries of the float32 forward, dgrad and wgrad."""
     f32 = torch.float32
     w = decoder_weights(gen)
     kw = dict(n_blocks=5, n_lin_z=3, code=CODE, activate_out=True, compute_dtype=f32)
@@ -1289,8 +1395,21 @@ def check_float32(gen):
     st = K2._forward(args, dims, f32, True)[1]
     run = lambda: K2._backward(args, dims, st, g, f32)
     split = kernel_device_ms(run, (F32_DGRAD_KERNEL,) + WGRAD_F32_KERNELS, iters=2)
-    gs, wT, grads = K2._bwd_operands(args, dims, g, K2.NAME_DGRAD)
-    _, _, cot, gout, enc = K2._dgrad(args, dims, st, gs, wT, f32)
+    gs, wd, grads = K2._bwd_operands(args, dims, g, K2.NAME_DGRAD)
+    got = K2._dgrad(args, dims, st, gs, wd, f32)
+    # the dgrad at the band call against its plain version, and the
+    # recompute's (its chunks of 262,144 and 65,536 points): dx and dz the
+    # stash backward's bit for bit
+    dcases = hold_f32_dgrad(f"N={BAND_TRAIN} NS=1 (the train step's band call)", got, x, z, w,
+                            st, g, CODE, dims["k_in"])
+    rec = K2._backward_recompute(args, dims, g, f32)
+    if not all(same_bits(a, b) for a, b in zip(got[:2], rec[:2])):
+        raise AssertionError(f"K2 float32 recompute N={BAND_TRAIN}: dx, dz not bitwise the stash "
+                             f"dgrad's")
+    dcases.append({"case": f"float32 recompute dx, dz N={BAND_TRAIN}", "against": "stash dgrad",
+                   "max_abs_err": 0.0, "tol": 0.0})
+    del rec
+    cot, gout, enc = got[2:]
     jobs = wgrad_matmul_jobs(st, cot, gout, enc, args["z"], 5, 3)
     library_ms = time_ms(lambda: [torch.matmul(a.t(), b) for a, b in jobs], iters=3)
     before = dict(_build.launches)
@@ -1309,8 +1428,12 @@ def check_float32(gen):
     io = BAND_TRAIN * (CODE.d_raw * 4 * 2 + C * 4 * 2 + 4 * 4)  # x, dx, z, dz, g
     flops = decoder_flops(BAND_TRAIN, 1)
     common = dict(shape=f"N={BAND_TRAIN}, NS=1, f32 (the train step's band call)")
-    rows["K2 dgrad"] = dict(ms=split[F32_DGRAD_KERNEL], plain_ms=None, library_ms=None,
-                            bound_ms=bound(22 * act + io + wbytes, flops, F32_FLOPS)[0], **common)
+    # the plain version of the dgrad: the cuBLAS chain of its products
+    # (decoder_bwd_matched without the weight gradients), float32, TF32 off
+    chain = lambda: decoder_bwd_matched(x, z, w, st, g, n_blocks=5, n_lin_z=3, code=CODE,
+                                        compute_dtype=f32, wgrads=False)
+    rows["K2 dgrad"] = dict(ms=split[F32_DGRAD_KERNEL], plain_ms=time_ms(chain, iters=2),
+                            plain=F32_DGRAD_CHAIN, library_ms=None, bound_ms=bound(22 * act + io + wbytes, flops, F32_FLOPS)[0], **common)
     rows["K2 wgrad"] = dict(ms=sum(split[k] for k in WGRAD_F32_KERNELS), split=split,
                             call_ms=time_ms(wg, iters=3), library_ms=library_ms,
                             library="torch.matmul over the 15 G^T A jobs, float32, TF32 off",
@@ -1320,7 +1443,30 @@ def check_float32(gen):
     rows["K2 stash backward"] = dict(ms=time_ms(run, iters=2), plain_ms=time_ms(
         lambda: grads_of(lambda x_, z_: resnetfc_plain(x_, z_, w, **kw), (x, z), g), iters=2),
         **common)
-    del x, z, g, args, st, gs, wT, grads, again, cot, gout, enc, jobs
+    del x, z, g, args, st, gs, wd, grads, again, got, cot, gout, enc, jobs
+    # the dgrad at the step's coarse query (the stash backward's other call:
+    # 4 x 4,096 points; its own generator, so the draws above keep their inputs)
+    cgen = torch.Generator(device=DEV).manual_seed(22)
+    n = SB_TRAIN * CHUNK
+    x = (torch.rand(1, n, CODE.d_raw, generator=cgen, device=DEV) * 2 - 1).contiguous()
+    z = randn(cgen, 1, n, C)
+    g = randn(cgen, n, 4) + 0.5
+    args = K2._prepare(x, z, w, CODE, f32)
+    dims = K2._dims(args, 5, 3, True)
+    st = K2._forward(args, dims, f32, True)[1]
+    gs, wd, _ = K2._bwd_operands(args, dims, g, K2.NAME_DGRAD)
+    dg = lambda: K2._dgrad(args, dims, st, gs, wd, f32)
+    dcases += hold_f32_dgrad(f"N={n} NS=1 (the train step's coarse query)", dg(), x, z, w, st,
+                             g, CODE, dims["k_in"])
+    chain = lambda: decoder_bwd_matched(x, z, w, st, g, n_blocks=5, n_lin_z=3, code=CODE,
+                                        compute_dtype=f32, wgrads=False)
+    rows["K2 dgrad coarse"] = dict(
+        shape=f"N={n}, NS=1, f32 (the train step's coarse query)",
+        ms=kernel_device_ms(dg, (F32_DGRAD_KERNEL,), iters=10)[F32_DGRAD_KERNEL],
+        plain_ms=time_ms(chain, iters=5), plain=F32_DGRAD_CHAIN, library_ms=None,
+        bound_ms=bound(22 * n * 512 * 4 + n * (CODE.d_raw * 8 + C * 8 + 16) + wbytes,
+                       decoder_flops(n, 1), F32_FLOPS)[0])
+    del x, z, g, args, st, gs, wd
     # K3's dW_ih and dW_hh: one wgrad of two jobs over the walk's rows
     # (v_t | h_prev, the gate cotangents), as ops/kernels/march.py launches it
     vld, dgl = C + -(-HIDDEN // 4) * 4, K3.gate_row_width(HIDDEN)
@@ -1352,10 +1498,12 @@ def check_float32(gen):
                        2 * K3_F32_JOB_ROWS * (C + HIDDEN) * 4 * HIDDEN, F32_FLOPS)[0])
     del v, dg, outs
     for name, r in rows.items():
+        chain = " (a cuBLAS chain)" if r.get("plain") == F32_DGRAD_CHAIN else ""
         print(f"float32 {name} ({r['shape']}): {r['ms']:.4f} ms (bound {r.get('bound_ms')}, "
-              f"plain {r.get('plain_ms')}, library {r.get('library_ms')})")
+              f"plain{chain} {r.get('plain_ms')}, library {r.get('library_ms')})")
     fcases = check_f32_forward(torch.Generator(device=DEV).manual_seed(20))
-    fwd_row, wg_row = rows["K2 forward"], rows["K2 wgrad"]
+    dcases += check_f32_dgrad(torch.Generator(device=DEV).manual_seed(23))
+    fwd_row, wg_row, dg_row = rows["K2 forward"], rows["K2 wgrad"], rows["K2 dgrad"]
     src = "avr_tpu_torch/csrc/resnetfc.cu"
     kernels = [
         dict(name=K2.NAME_F32, source=src, replaces="avr_tpu/ops/pallas/resnetfc.py:896",
@@ -1365,6 +1513,14 @@ def check_float32(gen):
              bound_ms=fwd_row["bound_ms"], bound_by="operations",
              serve_ms=rows["K2 forward serve"]["ms"],
              serve_bound_ms=rows["K2 forward serve"]["bound_ms"]),
+        dict(name=K2.NAME_DGRAD_F32, source=src, replaces="avr_tpu/ops/pallas/resnetfc.py:823",
+             tpu_kernel="_bwd_stash_impl's dgrad (and _bwd_impl's, call :853), float32",
+             shape=f"N={BAND_TRAIN}, NS=1, d_hidden 512, 5 blocks, f32", cases=dcases,
+             ms=dg_row["ms"], plain_ms=dg_row["plain_ms"], plain=dg_row["plain"],
+             library_ms=None, bound_ms=dg_row["bound_ms"],
+             bound_by="operations", coarse_ms=rows["K2 dgrad coarse"]["ms"],
+             coarse_plain_ms=rows["K2 dgrad coarse"]["plain_ms"],
+             coarse_bound_ms=rows["K2 dgrad coarse"]["bound_ms"]),
         dict(name=K2.NAME_WGRAD_F32, source=src, replaces="avr_tpu/ops/pallas/resnetfc.py:823",
              tpu_kernel="_bwd_stash_impl's weight gradients, float32",
              shape=f"N={BAND_TRAIN}, 15 jobs, f32", cases=wcases, ms=wg_row["ms"],
@@ -1373,7 +1529,7 @@ def check_float32(gen):
              bound_by="operations", k3_ms=rows["K3 dW_ih + dW_hh"]["ms"],
              k3_library_ms=rows["K3 dW_ih + dW_hh"]["library_ms"],
              k3_bound_ms=rows["K3 dW_ih + dW_hh"]["bound_ms"])]
-    return dict(rows=rows, cases=cases + fcases + wcases, kernels=kernels)
+    return dict(rows=rows, cases=cases + fcases + dcases + wcases, kernels=kernels)
 
 
 # decoder points of a VR train step (4 x 4,096 rays in one chunk): the
@@ -1432,13 +1588,13 @@ def check_resnetfc_recompute(gen):
                                      K2._backward_recompute(args, dims, g, cd)))
         # the stash dgrad's rounded cotangents and encoded input, and the
         # recompute kernel's workspace after the call's second chunk
-        gs, wT, _ = K2._bwd_operands(args, dims, g, K2.NAME_DGRAD)
-        _, _, cot, gout, enc = K2._dgrad(args, dims, st, gs, wT, cd)
+        gs, wd, _ = K2._bwd_operands(args, dims, g, K2.NAME_DGRAD)
+        _, _, cot, gout, enc = K2._dgrad(args, dims, st, gs, wd, cd)
         s0 = K2.RECOMPUTE_CHUNK
         n0 = BAND_TRAIN - s0
         work = K2._recompute_workspace(dims, n0, cd, DEV)
         _, rst, rcot, rgout, renc = K2._recompute_chunk(
-            args, dims, gs, wT, work, s0, n0, torch.empty_like(got[0]), torch.empty_like(got[1]),
+            args, dims, gs, wd, work, s0, n0, torch.empty_like(got[0]), torch.empty_like(got[1]),
             cd)
         # the same device code on the same inputs, tile by tile: bitwise
         bits = {"dx": same_bits(got[0], want[0]), "dz": same_bits(got[1], want[1]),
@@ -1450,7 +1606,7 @@ def check_resnetfc_recompute(gen):
         cases.append({"case": f"bitwise {label}", "against": "stash kernels", **bits})
         cases += [check_rel(f"{nm} {label} vs stash", a, b, SUM_ORDER_TOL, "stash kernels")
                   for nm, a, b in zip(DECODER_GRADS[2:], got[2:], want[2:])]
-        del x, z, g, args, st, want, got, gs, wT, cot, gout, enc, work, rst, rcot, rgout, renc
+        del x, z, g, args, st, want, got, gs, wd, cot, gout, enc, work, rst, rcot, rgout, renc
 
     kern = lambda cd: (lambda x, z, *ws: fused_resnetfc(
         x, z, DecoderWeights(*ws), compute_dtype=cd, activate_out=True, stash=False, **mkw))
@@ -2765,9 +2921,11 @@ def check_adaptive_rerun(dtype=torch.bfloat16):
             "encoder_worst": enc[1], "decoder_worst_rel_l2": rest[0],
             "march_worst_rel_l2": march[0], "launches": launches}
     if dtype == torch.float32:
-        # every float32 K2 forward and every float32 wgrad (K2's, K3's) on
-        # the float32 kernels
+        # every float32 K2 forward, dgrad (the stash backward's and the
+        # recompute's) and wgrad (K2's, K3's) on the float32 kernels
         f32 = {K2.NAME_F32: launches.get(K2.NAME, 0) + launches.get(K2.NAME_STASH, 0),
+               K2.NAME_DGRAD_F32: launches.get(K2.NAME_DGRAD, 0)
+               + launches.get(K2.NAME_RECOMPUTE, 0),
                K2.NAME_WGRAD_F32: launches.get(K2.NAME_WGRAD, 0) + launches.get(K3.NAME_WGRAD, 0)}
         if any(launches.get(k, 0) != v or not v for k, v in f32.items()) or \
                 K2.NAME_WGMMA in launches:
@@ -3011,7 +3169,8 @@ def main() -> int:
         # K2's forward counts under two names (without and with stash), K7
         # under two (the uniform draw and its raw bits)
         names = [k["name"]] + {K2.NAME: [K2.NAME_STASH], K7.NAME: [K7.NAME_BITS]}.get(k["name"], [])
-        paths = launches_f32 if k["name"] in (K2.NAME_F32, K2.NAME_WGRAD_F32) else launches
+        paths = (launches_f32 if k["name"] in (K2.NAME_F32, K2.NAME_DGRAD_F32, K2.NAME_WGRAD_F32)
+                 else launches)
         by_path = {path: sum(counts.get(n, 0) for n in names) for path, counts in paths.items()}
         if not sum(by_path.values()):
             raise AssertionError(f"{k['name']} was never launched on a main path")

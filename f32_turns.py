@@ -1,5 +1,5 @@
-"""K2's float32 forward and the float32 wgrad, in checkouts of the repo, in
-turns, and with ``--probe`` what bounds them.
+"""K2's float32 forward, dgrad and the float32 wgrad, in checkouts of the
+repo, in turns, and with ``--probe`` what bounds them.
 
     python3 f32_turns.py CHECKOUT [CHECKOUT ...]
     python3 f32_turns.py --probe CHECKOUT [CHECKOUT ...]
@@ -17,6 +17,12 @@ share) builds that tree's kernels and, from that tree's ``chip_smoke``:
   largest difference from the plain version; at the band also the plain
   version (the cuBLAS chain) and a loop of about a second with the SM
   clock and power that ``nvidia-smi`` read;
+- times K2's float32 dgrad (``resnetfc._dgrad`` on the stash the float32
+  forward wrote) at the train step's band call (327,680 points, NS 1) and
+  at its coarse query (16,384 points): the device time of its kernel, a
+  digest of its five outputs (dx, dz, the cotangents, gout, enc: exact
+  integer sums of their bits, taken on the card) and, at the band, a loop
+  of about a second with the SM clock;
 - times the float32 wgrad (``resnetfc._wgrad``) at K2's 15 jobs of the
   train step's band call (327,680 points, NS 1) and at K3's two jobs
   (dW_ih and dW_hh over 163,840 ray-steps, as ``chip_smoke.check_float32``
@@ -24,7 +30,11 @@ share) builds that tree's kernels and, from that tree's ``chip_smoke``:
   ``torch.matmul`` over the same jobs in float32 (TF32 off) in the same
   process, and for each a loop of about a second with the SM clock;
 - serves three float32 frames of the adaptive renderer
-  (``chip_smoke.run_slice``): ms a frame.
+  (``chip_smoke.run_slice``): ms a frame;
+- runs a float32 adaptive train step (loss and gradients, as
+  ``chip_smoke.check_adaptive_rerun`` runs it): ms wall (median of 5 after 2
+  of warm-up, host clock around a synchronized step) and the device time of
+  one step (``torch.profiler``: every CUDA kernel, and the dgrad's).
 
 ``--probe`` runs once in each checkout, not in turns: the tree's float32
 forward and wgrad beside probe kernels compiled from this file into a
@@ -41,8 +51,20 @@ CTAs) and K2's 15 (1,728), and a register-tiled loop (8 x 8 outputs a
 thread read with 4 vector shared loads for every 64 FMAs) at the same
 grids and at K3's work over 264 CTAs; (d) a register-tiled forward loop
 (8 points x 8 columns a thread, a 32-point tile's FMAs for 420 slabs) from
-shared memory; and (e) the SASS counts (``cuobjdump``) of the tree's
-float32 forward and wgrad kernels.
+shared memory; (e) the SASS counts (``cuobjdump``) of the tree's float32
+forward, dgrad and wgrad kernels; and (f) beside the tree's float32 dgrad
+at the band call, an empty kernel at the new dgrad's launch geometry
+(10,240 CTAs of 256 threads, its 206,912 bytes of shared memory) and the
+same register-tiled loop alone from shared memory for the dgrad's 448
+slabs a tile (its 14 products of 32); and (g) the new dgrad's cycles by
+phase: a copy of the checkout's port, its ``resnetfc.cu`` stamped
+(``STAMPS``: ``clock64()`` sums a warp, kept by one CTA of a later wave,
+2,000 of the band call's 10,240), built and run in a directory of its own;
+the phases are a slab's issue turn (its warp waiting for the stage's
+release included), a slab's arrival, its FMA loop, its release, the
+tile's start (g_epi and gh), the trunk cotangent's and c0's stores with
+their barriers, the latent and lin_in epilogues (dz, dx, enc) and the
+masks' reads; the stamps cost a few percent of the kernel's time.
 
 Every tree gets the same inputs (the generators are seeded here).  The SM
 clock moves under the card's power cap between runs, so trees compare only
@@ -52,13 +74,15 @@ JSON object a reading.
 
 from __future__ import annotations
 
+import json
+import os
 import sys
 
 import march_turns
 
 # run inside a checkout: its own chip_smoke and kernels, whatever its commit
 _TURN = r"""
-import hashlib, json, sys
+import hashlib, json, sys, time
 sys.path.insert(0, ".")
 import torch
 import chip_smoke as cs
@@ -71,6 +95,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 # the float32 forward and wgrad kernels of either tree (the parent's, this PR's)
 FWD = ("resnetfc_kernel", "resnetfc_fwd_f32_kernel")
+DGRAD = ("resnetfc_dgrad_kernel", "resnetfc_dgrad_f32_kernel")
 WGRAD = ("resnetfc_wgrad_kernel", "resnetfc_wgrad_f32_kernel", "resnetfc_wgrad_reduce_kernel")
 f32 = torch.float32
 
@@ -79,6 +104,22 @@ def digest(ts):
     h = hashlib.sha256()
     for t in ts:
         h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+# two exact integer sums of each float32 tensor's bits (plain and weighted by
+# position), taken on the card in chunks, hashed
+def digest_dev(ts, chunk=1 << 26):
+    h = hashlib.sha256()
+    for t in ts:
+        bits = t.detach().contiguous().view(-1).view(torch.int32)
+        s1 = s2 = 0
+        for i in range(0, bits.numel(), chunk):
+            b = bits[i:i + chunk].to(torch.int64)
+            w = torch.arange(i, i + b.numel(), device=b.device, dtype=torch.int64) % 65521
+            s1 += int(b.sum())
+            s2 += int((b * w).sum())
+        h.update(f"{t.shape} {s1} {s2}".encode())
     return h.hexdigest()[:16]
 
 
@@ -112,6 +153,23 @@ for label, xx, zz in (("fwd band", x, z), ("fwd serve", xs, zs)):
         res[label].update(plain_ms=cs.time_ms(plain, iters=3), **loop(run))
         res[label]["plain_loop"] = loop(plain)
 del x, z, xs, zs, got, want
+# K2's float32 dgrad at the train step's band call and at its coarse query
+dgen = torch.Generator(device=cs.DEV).manual_seed(24)
+for label, n in (("dgrad band", cs.BAND_TRAIN), ("dgrad coarse", cs.SB_TRAIN * cs.CHUNK)):
+    x = (torch.rand(1, n, cs.CODE.d_raw, generator=dgen, device=cs.DEV) * 2 - 1).contiguous()
+    z = cs.randn(dgen, 1, n, cs.C)
+    g = cs.randn(dgen, n, 4) + 0.5
+    args = K2._prepare(x, z, w, cs.CODE, f32)
+    dims = K2._dims(args, 5, 3, True)
+    st = K2._forward(args, dims, f32, True)[1]
+    gs, wd, _ = K2._bwd_operands(args, dims, g, K2.NAME_DGRAD)
+    run = lambda: K2._dgrad(args, dims, st, gs, wd, f32)
+    res[label] = dict(device_ms=device_ms(run, DGRAD, iters=3 if n > 100_000 else 10),
+                      digest=digest_dev(run()))
+    if label == "dgrad band":
+        res[label].update(**loop(run))
+    del x, z, g, args, st, gs, wd
+    torch.cuda.empty_cache()
 # the float32 wgrad at K2's 15 jobs of the train step's band call
 wg = torch.Generator(device=cs.DEV).manual_seed(17)
 x = (torch.rand(1, cs.BAND_TRAIN, cs.CODE.d_raw, generator=wg, device=cs.DEV) * 2 - 1).contiguous()
@@ -156,6 +214,30 @@ del v, dg, outs
 r, _ = cs.run_slice("adaptive", dtype=f32)
 res["serve adaptive f32"] = dict(frame_ms=[r["ms_per_frame"], min(r["frame_ms"]),
                                            max(r["frame_ms"])])
+# a float32 adaptive train step: loss and gradients, as check_adaptive_rerun runs it
+model = cs.path_model("adaptive", f32, cs.DEV)
+params = dict(model.named_parameters())
+batch = cs.train_batch(cs.DEV)
+step = lambda: cs.loss_and_grads(model, params, cs.LossParams(loss_mode="both"), *batch, (0, 5))
+for _ in range(2):
+    step()
+torch.cuda.synchronize()
+walls = []
+for _ in range(5):
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    walls.append((time.perf_counter() - t0) * 1e3)
+from torch.profiler import ProfilerActivity, profile
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    step()
+    torch.cuda.synchronize()
+rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+res["train adaptive f32 step"] = dict(
+    wall_ms=sorted(walls)[2], wall_range=[min(walls), max(walls)],
+    device_ms=sum(e.self_device_time_total for e in rows) / 1e3,
+    dgrad_device_ms=sum(e.self_device_time_total for e in rows
+                        if any(n in e.key for n in DGRAD)) / 1e3)
 print(json.dumps(res), flush=True)
 """
 
@@ -541,7 +623,30 @@ for label, blocks, steps in (("K3 parent grid", 40, 1280), ("K2 parent grid", 17
         ms = dev(lambda: call(fn, blocks, steps), (names,), 3)
         res[f"wgrad {kind}, {label}"] = dict(device_ms=ms,
                                              tflops=loop_flops(blocks, steps) / ms / 1e9)
-# (e) SASS counts of the tree's float32 forward and wgrad kernels
+# (f): the tree's float32 dgrad at the band call beside an empty kernel at the
+# new dgrad's geometry and the register-tiled loop alone for its 448 slabs a tile
+pg = torch.Generator(device=cs.DEV).manual_seed(24)
+x = (torch.rand(1, cs.BAND_TRAIN, cs.CODE.d_raw, generator=pg, device=cs.DEV) * 2 - 1).contiguous()
+z = cs.randn(pg, 1, cs.BAND_TRAIN, cs.C)
+g = cs.randn(pg, cs.BAND_TRAIN, 4) + 0.5
+args = K2._prepare(x, z, w, cs.CODE, f32)
+dims = K2._dims(args, 5, 3, True)
+st = K2._forward(args, dims, f32, True)[1]
+gs, wd, _ = K2._bwd_operands(args, dims, g, K2.NAME_DGRAD)
+dtiles, dslabs, dsmem = cs.BAND_TRAIN // 32, 448, 206_912
+ms = dev(lambda: K2._dgrad(args, dims, st, gs, wd, f32),
+         ("resnetfc_dgrad_kernel", "resnetfc_dgrad_f32_kernel"), 3)
+dflops = cs.decoder_flops(cs.BAND_TRAIN, 1)
+res["dgrad"] = {
+    "kernel": dict(device_ms=ms, tflops=dflops / ms / 1e9),
+    "empty, new geometry": dict(device_ms=dev(
+        lambda: call(lib.probe_empty, dtiles, 256, dsmem), ("probe_empty_kernel",), 20)),
+    "FMA loop from shared, 448 slabs a tile": dict(device_ms=dev(
+        lambda: call(lib.probe_fwd_loop, dtiles, dslabs), ("probe_fwd_loop_kernel",), 3))}
+r = res["dgrad"]["FMA loop from shared, 448 slabs a tile"]
+r["tflops"] = loop_flops(dtiles, dslabs) / r["device_ms"] / 1e9
+del x, z, g, args, st, gs, wd
+# (e) SASS counts of the tree's float32 forward, dgrad and wgrad kernels
 tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
 if os.path.exists(tool):
     sass = subprocess.run([tool, "-sass", info["path"]], capture_output=True, text=True).stdout
@@ -550,7 +655,8 @@ if os.path.exists(tool):
             continue
         fname = f.split()[2]
         if not any(n in fname for n in ("resnetfc_kernelIf", "resnetfc_wgrad_kernelIf",
-                                        "resnetfc_fwd_f32", "resnetfc_wgrad_f32")):
+                                        "resnetfc_fwd_f32", "resnetfc_wgrad_f32",
+                                        "resnetfc_dgrad_kernelIf", "resnetfc_dgrad_f32")):
             continue
         ins = [l for l in f.splitlines() if re.search(r"/\*[0-9a-f]{4,}\*/", l)]
         count = lambda op: sum(bool(re.search(r"\b" + op + r"\b", l)) for l in ins)
@@ -564,7 +670,180 @@ print(json.dumps(res), flush=True)
 """
 
 
+# (g): exact edits of csrc/resnetfc.cu that stamp resnetfc_dgrad_f32_kernel
+# (the probe's copy only; a source they do not match is refused)
+STAMPS = [
+    ("struct DgPipe {", """__shared__ unsigned long long dg_t[8][8];
+__device__ long long dg_stamps[8 * 16];
+#define DG_T(k, t0) if ((threadIdx.x & 31) == 0) dg_t[threadIdx.x >> 5][k] += clock64() - (t0)
+struct DgPipe {"""),
+    ("""    const int j = p.i + F32_AHEAD;
+    if (j < p.total && j % p.warps == warp) dg_issue(a, p, j);
+    const int st = p.i % F32_STAGES;
+    mbar_wait(&p.full[st], (uint32_t)(p.i / F32_STAGES) & 1u);
+    const float* W = p.base + (size_t)st * p.stage;
+    if (on) dg_fma_slab<P>(As + s * F32_KS, lda, W, cw, tp, c0, c1, acc);
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&p.empty[st]);""",
+     """    const int j = p.i + F32_AHEAD;
+    long long t0 = clock64();
+    if (j < p.total && j % p.warps == warp) dg_issue(a, p, j);
+    DG_T(0, t0); t0 = clock64();
+    const int st = p.i % F32_STAGES;
+    mbar_wait(&p.full[st], (uint32_t)(p.i / F32_STAGES) & 1u);
+    DG_T(1, t0); t0 = clock64();
+    const float* W = p.base + (size_t)st * p.stage;
+    if (on) dg_fma_slab<P>(As + s * F32_KS, lda, W, cw, tp, c0, c1, acc);
+    DG_T(2, t0); t0 = clock64();
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&p.empty[st]);
+    DG_T(3, t0);"""),
+    ("""  dg_consume<P>(a, p, As, lda, q.cw, acc);
+  constexpr int R = 32 / P;""", """  dg_consume<P>(a, p, As, lda, q.cw, acc);
+  const long long t_ep = clock64();
+  constexpr int R = 32 / P;"""),
+    ("    if (!on) return;\n", "    if (!on) { DG_T(6, t_ep); return; }\n"),
+    ("""        *o = x;
+      }
+    }
+    return;""", """        *o = x;
+      }
+    }
+    DG_T(6, t_ep);
+    return;"""),
+    ("  if (q.cb + F32_IN_W < k_in) return;",
+     "  if (q.cb + F32_IN_W < k_in) { DG_T(6, t_ep); return; }"),
+    ("""    enc[(size_t)row * k_in + j] = val;
+  }
+}""", """    enc[(size_t)row * k_in + j] = val;
+  }
+  DG_T(6, t_ep);
+}"""),
+    ("""  p.r0 = blockIdx.x * F32_TM;
+  p.warps = nc / 32;
+  p.qp = -1;""", """  p.r0 = blockIdx.x * F32_TM;
+  p.warps = nc / 32;
+  p.qp = -1;
+  const long long t_start = clock64();
+  if (tid < 64) dg_t[tid >> 3][tid & 7] = 0;"""),
+    ("  // the products in dg_product's order, each with what comes before and after it",
+     "  DG_T(4, t_start);\n  // the products in dg_product's order"),
+    ("""    const DgProduct q = dg_product(a, prod);
+""", """    const DgProduct q = dg_product(a, prod);
+    const long long te = clock64();
+"""),
+    ("""    if (q.kind <= DG_W0) {
+      dg_consume<8>(a, p, As, lda, dh, acc);""", """    DG_T(5, te);
+    if (q.kind <= DG_W0) {
+      dg_consume<8>(a, p, As, lda, dh, acc);
+      long long tm = clock64();"""),
+    ("""        dg_entry(As, lda, tp, c0, c1, acc, cot, stash_slot(q.k, 0, q.v, ns, nlz), r0, N, dh);""",
+     """        DG_T(7, tm);
+        tm = clock64();
+        dg_entry(As, lda, tp, c0, c1, acc, cot, stash_slot(q.k, 0, q.v, ns, nlz), r0, N, dh);
+        DG_T(5, tm);"""),
+    ("""            if (m[i][j] > 0.f) gh[i][j] += acc[i][j];
+      }""", """            if (m[i][j] > 0.f) gh[i][j] += acc[i][j];
+        DG_T(7, tm);
+      }"""),
+    ("""        default: dg_narrow<1>(a, p, As, lda, Es, q, acc); break;
+      }
+    }
+  }
+}""", """        default: dg_narrow<1>(a, p, As, lda, Es, q, acc); break;
+      }
+    }
+  }
+  if (blockIdx.x == 2000 && lane == 0) {
+    long long* o = dg_stamps + warp * 16;
+    o[0] = clock64() - t_start;
+    for (int k = 0; k < 8; ++k) o[k + 1] = dg_t[warp][k];
+  }
+}
+extern "C" int avr_dg_stamps(void* out) {
+  return (int)cudaMemcpyFromSymbol(out, dg_stamps, sizeof(dg_stamps));
+}"""),
+]
+STAMP_PHASES = ("issue turn", "arrival wait", "FMA loop", "release", "tile start",
+                "stores and barriers", "latent and lin_in epilogues", "masks")
+
+# run in the stamped copy: the band call's dgrad, its cycles by phase
+_STAMPED = r"""
+import ctypes, json, sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from avr_tpu_torch.ops.kernels import _build
+from avr_tpu_torch.ops.kernels import resnetfc as K2
+info = _build.load_library()
+log = str(info.get("log", "")).splitlines()
+build = [" ".join(log[i:i + 3]) for i, l in enumerate(log)
+         if "resnetfc_dgrad_f32_kernel" in l and "Function properties" in l]
+f32 = torch.float32
+g_ = torch.Generator(device=cs.DEV).manual_seed(24)
+w = cs.decoder_weights(g_)
+x = (torch.rand(1, cs.BAND_TRAIN, cs.CODE.d_raw, generator=g_, device=cs.DEV) * 2 - 1).contiguous()
+z = cs.randn(g_, 1, cs.BAND_TRAIN, cs.C)
+g = cs.randn(g_, cs.BAND_TRAIN, 4) + 0.5
+args = K2._prepare(x, z, w, cs.CODE, f32)
+dims = K2._dims(args, 5, 3, True)
+st = K2._forward(args, dims, f32, True)[1]
+gs, wd, _ = K2._bwd_operands(args, dims, g, K2.NAME_DGRAD)
+run = lambda: K2._dgrad(args, dims, st, gs, wd, f32)
+ms = cs.kernel_device_ms(run, ("resnetfc_dgrad_f32_kernel",), 3)["resnetfc_dgrad_f32_kernel"]
+run()
+torch.cuda.synchronize()
+buf = (ctypes.c_longlong * 128)()
+err = _build.kernel_fn("avr_dg_stamps", [ctypes.c_void_p])(ctypes.cast(buf, ctypes.c_void_p))
+print(json.dumps(dict(device_ms=ms, build=build, err=err,
+                      warps=[list(buf[16 * k:16 * k + 9]) for k in range(8)])), flush=True)
+"""
+
+
+def stamped(checkout):
+    """The checkout's port copied, its dgrad stamped (``STAMPS``), built and
+    run at the band call in a directory of its own: device ms and each
+    phase's share of a warp's cycles (mean over the eight warps).  A tree
+    whose dgrad lacks a stamp site (a parent's, or a later edit) is reported
+    as such and not run."""
+    import json
+    import shutil
+    import subprocess
+    import tempfile
+
+    src = os.path.join(checkout, "avr_tpu_torch", "csrc", "resnetfc.cu")
+    text = open(src).read()
+    if any(text.count(old) != 1 for old, _ in STAMPS):
+        return {"stamps": "source does not match"}
+    for old, new in STAMPS:
+        text = text.replace(old, new)
+    tmp = tempfile.mkdtemp()
+    try:
+        shutil.copytree(os.path.join(checkout, "avr_tpu_torch"), os.path.join(tmp, "avr_tpu_torch"),
+                        ignore=shutil.ignore_patterns("_build"))
+        shutil.copy(os.path.join(checkout, "chip_smoke.py"), tmp)
+        open(os.path.join(tmp, "avr_tpu_torch", "csrc", "resnetfc.cu"), "w").write(text)
+        r = subprocess.run([sys.executable, "-c", _STAMPED], cwd=tmp, capture_output=True,
+                           text=True)
+        if r.returncode:
+            raise SystemExit(f"stamps: exit {r.returncode}\n{r.stderr[-3000:]}")
+        out = json.loads(r.stdout.strip().splitlines()[-1])
+    finally:
+        shutil.rmtree(tmp)
+    warps = out.pop("warps")
+    total = sum(w[0] for w in warps) / len(warps)
+    out["cycles_a_tile"] = total
+    out["share"] = {name: sum(w[k + 1] for w in warps) / len(warps) / total
+                    for k, name in enumerate(STAMP_PHASES)}
+    out["share"]["other"] = 1 - sum(out["share"].values())
+    return out
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--probe"]:
-        sys.exit(march_turns.run(_PROBE, sys.argv[2:], both_orders=False))
+        rc = march_turns.run(_PROBE, sys.argv[2:], both_orders=False)
+        for c in sys.argv[2:]:
+            print(json.dumps({"checkout": c, "dgrad stamps": stamped(os.path.abspath(c))}),
+                  flush=True)
+        sys.exit(rc)
     sys.exit(march_turns.main(_TURN, __doc__))

@@ -15,6 +15,7 @@
 
 import ast
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -32,7 +33,7 @@ torch.set_num_threads(2)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "avr_tpu")
-SNIPPETS = ("_TURN", "_PROBE")  # the turns scripts' sources run in each checkout
+SNIPPETS = ("_TURN", "_PROBE", "_STAMPED")  # the turns scripts' sources run as python -c
 TINY = """
 include required("default_mv.conf")
 model {
@@ -72,6 +73,18 @@ def test_the_scan_reads_the_turns_snippets():
         assert "chip_smoke" in set(_imports(ROOT / name)), name
     for name in ("integral_turns.py", "f32_turns.py"):  # their _PROBE snippets
         assert "ctypes" in set(_imports(ROOT / name)), name
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_the_scan_knows_every_snippet(path):
+    """A module-level source string that imports (a snippet run as
+    ``python -c``) is one of SNIPPETS, so the JAX-import scan reads it."""
+    for node in ast.parse(path.read_text()).body:
+        if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Constant)
+                and isinstance(node.value.value, str)
+                and re.search(r"^\s*(import|from) \w", node.value.value, re.M)):
+            names = [getattr(t, "id", None) for t in node.targets]
+            assert any(n in SNIPPETS for n in names), (path.name, names)
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
