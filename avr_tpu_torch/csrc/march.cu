@@ -70,24 +70,27 @@
 // CTA order by lstm_march_partials_kernel.  Every output is bit for bit
 // the same on a rerun.
 //
-// float32: the warp-per-ray kernels (float32 operands on the tensor cores
-// would round to TF32).  One warp marches one ray, WARPS rays a CTA, W_ih
-// in the CTA's shared memory (read from L2 above 128 KB).  Their backward
-// (lstm_march_bwd_kernel, persistent: at most a CTA an SM) has no float
-// atomics, as the tile backward: each ray-step writes dv / NS as a float32
-// row and its point (a frozen step a zero row at the point the forward
-// saved), and K5's bins sum the rows into dfeat through their float32
-// accumulate (march_bins_f32; the rows are ~335 MB at the train step's 4 x
-// 4,096 rays x 10 steps x 512 channels, written once and read once);
-// v_t | h_prev and the gate cotangents are dW_ih's and dW_hh's rows, one
-// float32 wgrad of two jobs after the walk (csrc/resnetfc.cu: split
-// partials added in split order); the bias and step-head sums are each
-// lane's own over its warp's ray-steps, summed in warp order per CTA and
-// added in CTA order by lstm_march_partials_kernel.  Every output is bit for
-// bit the same on a rerun.
+// float32: ray tiles on FMA (float32 operands on the tensor cores would
+// round to TF32): lstm_march_f32_tile_kernel and lstm_march_f32_walk_kernel,
+// below.  A warp carries 8 rays in lockstep, the CTA's warps share the
+// weights, and the gate products (the walk's dv and gh) are register-tiled
+// FMA chains in the order of the warp-per-ray kernels they replace, so their
+// outputs are those kernels' bits.  The walk has no float atomics, as the
+// tile backward: each ray-step writes dv / NS as a float32 row and its point
+// (a frozen step a zero row at the point the forward saved), and K5's bins
+// sum the rows into dfeat through their float32 accumulate (march_bins_f32;
+// the rows are ~335 MB at the train step's 4 x 4,096 rays x 10 steps x 512
+// channels, written once and read once); v_t | h_prev and the gate
+// cotangents are dW_ih's and dW_hh's rows, one float32 wgrad of two jobs
+// after the walk (csrc/resnetfc.cu: split partials added in split order);
+// the bias and step-head sums are each lane's own over its warp's
+// ray-steps, summed in warp order per CTA and added in CTA order by
+// lstm_march_partials_kernel.  Every output is bit for bit the same on a
+// rerun.
 //
 // Hidden sizes 1 .. MAX_HIDDEN = 62, the TPU kernel's 2 H + 4 <= 128.
 #include "bins.cuh"
+#include "hopper.cuh"
 
 #include <climits>
 #include <mutex>
@@ -103,216 +106,598 @@ __host__ __device__ inline int aux_width(int hid) { return (7 * hid + 5 + 3) / 4
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) / 16 * 16; }
 
+// dbias (permuted), dw_out and db_out: the CTAs' partial sums in CTA order
+// (the float32 walk's, with HP = hid and the gates unpermuted, and the bf16
+// tile walk's)
+__global__ void __launch_bounds__(128)
+lstm_march_partials_kernel(const float* __restrict__ part, int ctas, int HP,
+                           float* __restrict__ dbias, float* __restrict__ dw_out,
+                           float* __restrict__ db_out) {
+  const int nout = 5 * HP + 1, o = blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= nout) return;
+  float s = 0.f;
+  for (int c = 0; c < ctas; ++c) s += part[(size_t)c * nout + o];
+  if (o < 4 * HP) dbias[o] = s;
+  else if (o < 5 * HP) dw_out[o - 4 * HP] = s;
+  else *db_out = s;
+}
+
+
 // ---------------------------------------------------------------------------
-// float32: one warp a ray
+// float32: ray tiles on FMA
 // ---------------------------------------------------------------------------
+//
+// float32 operands stay off the tensor cores (they would round to TF32), so
+// the products are FMA, register-tiled.  A warp carries a tile of F32_TILE
+// rays in lockstep over the steps, and the CTA's warps share one copy of the
+// weights in shared memory (W_ih, or W_ih^T for the walk, by bulk copies that
+// overlap the first step while it fits in WIH_SMEM_MAX, as at C 512 and
+// hidden 16; else read through L2 by 16-byte loads).  In a product a lane
+// holds 4 rays x 4 columns of each 64-column block: rays rg + 2 i (rg = lane
+// & 1), columns 64 b + 4 cg + j (cg = lane >> 1).  One 16-byte shared read
+// of a ray's operands feeds 16 FMAs, and one of the weights 16 more (the
+// other ray group's lanes read the same words); the warp-per-ray kernels
+// this replaces fed one FMA a weight read.  Every output's chain still runs
+// k ascending from 0.f, so the products, and with them the forward's points
+// and rows and the walk's rows, are bit for bit the warp-per-ray kernels'.
+// The gathers, the cells and the step head keep those kernels' arithmetic
+// and lane layout: each ray's channel loads are spread over the 32 lanes as
+// before (the forward's 16-byte groups, the walk's 4 channels of each
+// 128-channel block a lane), the cell's lane k takes units k and k + 32
+// (at hidden <= 16 two rays at a time, a half-warp each, with the same
+// reduction tree), s is lane k's sum of units k and k + 32 and then the
+// warp's xor tree, and the dots of the gather backward are each lane's
+// chain and the same warp sum.
+//
+// Forward, per step: each ray's taps; h W_hh into the gate tile; v_t W_ih a
+// 64-channel chunk at a time, the chunk gathered into the A tile while the
+// next chunk's loads are in flight; the cell.  Walk, per step in reverse:
+// the tile's saved rows (fetched a step ahead by cp.async); the cell
+// backward; gh = dgates W_hh^T; dv / NS from the product's registers into
+// its rows; then a ray at a time its taps and dv rows for 4 blocks of 128
+// channels in flight, v_t re-blended into its row, the per-tap dots into
+// the coordinate cotangent.
+//
+// What bounds them on H100: the FMA rate, while enough tiles are in flight.
+// At 4,096 rays x 10 steps (a served chunk) the gate products are 2.7 GFLOP,
+// 0.040 ms at the 67 TFLOP/s float32 peak; the walk's dv and gh products at
+// the train step's 16,384 rays 11 GFLOP, 0.17 ms; the walk also rereads
+// ~1.3 GB of latent taps.  The host plan (ops/kernels/march.py f32_plan)
+// picks the warps a CTA so that the tiles spread over every SM in the
+// fewest waves: 512 tiles at a served chunk are 128 CTAs of 4 warps, a warp
+// on every scheduler.
 
-constexpr int WARPS = 8;  // rays a CTA
-constexpr int MAX_GATES = 256;  // 4 * hidden, hidden <= 62, padded
-constexpr size_t WIH_SMEM_MAX = 128 * 1024;  // W_ih in shared memory up to this size
+constexpr int F32_TILE = 8;         // rays a warp carries in lockstep
+constexpr int F32_BLOCK = 64;       // columns of a product's register block (16 column groups)
+constexpr int F32_CHUNK = 64;       // channels of the forward's gather chunk
+constexpr int F32_GATHER = 4;       // rays a lane gathers a 16-byte channel group of, a chunk
+constexpr int F32_DOTS = 128;       // channels of the walk's dv block: 4 a lane
+constexpr int F32_DOT_BLOCKS = 4;   // dv blocks of one ray whose taps a lane has in flight
+constexpr int F32_WARPS_MAX = 8;    // warps (tiles) a CTA: up to 255 registers a lane
+// W_ih (W_ih^T; bf16: their fragments) in shared memory up to this
+constexpr size_t WIH_SMEM_MAX = 128 * 1024;
+constexpr size_t SMEM_MAX = 232448;  // shared memory a Hopper block can use
+// the forward's gather: lane l takes channel group l % 16 of a chunk (16
+// groups) for rays l / 16 + 2 k, k < F32_GATHER
+static_assert(F32_CHUNK == 64 && 2 * F32_GATHER == F32_TILE, "the gather's lane layout");
 
-__host__ __device__ inline size_t wih_bytes(int C, int hid) {
-  return align16((size_t)C * 4 * hid * sizeof(float));
+// a tile's row pitch in floats: k rounded up to 8, plus 4, so rows r and
+// r + 1 (the two ray groups' 16-byte reads) fall in different bank groups
+__host__ __device__ inline int f32_pitch(int k) { return (k + 7) / 8 * 8 + 4; }
+__host__ __device__ inline int round4(int k) { return (k + 3) / 4 * 4; }
+// gate columns padded to whole register blocks (zero weights)
+__host__ __device__ inline int f32_gate_cols(int hid) {
+  return (4 * hid + F32_BLOCK - 1) / F32_BLOCK * F32_BLOCK;
 }
-__host__ __device__ inline bool wih_in_smem(int C, int hid) {
-  return wih_bytes(C, hid) <= WIH_SMEM_MAX;
+// the walk's W_ih^T channels padded to whole dv blocks; W_hh^T's units to 16
+__host__ __device__ inline int f32_dot_cols(int C) {
+  return (C + F32_DOTS - 1) / F32_DOTS * F32_DOTS;
 }
-// W_ih (when it fits) and W_hh in shared memory
-__host__ __device__ inline size_t weight_bytes(int C, int hid) {
-  return (wih_in_smem(C, hid) ? wih_bytes(C, hid) : 0) +
-         align16((size_t)hid * 4 * hid * sizeof(float));
+__host__ __device__ inline int f32_units(int hid) { return (hid + 15) / 16 * 16; }
+
+__host__ __device__ inline bool f32_fwd_wih_smem(int C, int hid) {
+  return (size_t)C * f32_gate_cols(hid) * 4 <= WIH_SMEM_MAX;
+}
+__host__ __device__ inline bool f32_walk_wih_smem(int C, int hid) {
+  return (size_t)4 * hid * f32_dot_cols(C) * 4 <= WIH_SMEM_MAX;
+}
+// the forward's CTA copy: a barrier slot, W_ih (when it fits), W_hh (rows
+// padded to 4), the bias, w_out
+__host__ __device__ inline size_t f32_fwd_shared(int C, int hid) {
+  const size_t gp = f32_gate_cols(hid);
+  return 16 + (f32_fwd_wih_smem(C, hid) ? (size_t)C * gp * 4 : 0) +
+         (size_t)round4(hid) * gp * 4 + gp * 4 + 64 * 4;
+}
+// per warp: the A chunk (v_t), the gate tile, h, the (ray, view) taps
+__host__ __device__ inline size_t f32_fwd_warp(int hid, int NS) {
+  return (size_t)F32_TILE * 4 *
+             (f32_pitch(F32_CHUNK) + f32_pitch(f32_gate_cols(hid)) + f32_pitch(hid)) +
+         (size_t)F32_TILE * NS * sizeof(Taps);
+}
+// the walk's CTA copy: a barrier slot, W_ih^T (when it fits), W_hh^T, w_out
+__host__ __device__ inline size_t f32_walk_shared(int C, int hid) {
+  return 16 + (f32_walk_wih_smem(C, hid) ? (size_t)4 * hid * f32_dot_cols(C) * 4 : 0) +
+         (size_t)4 * hid * f32_units(hid) * 4 + 64 * 4;
+}
+// per warp: the gate cotangents, gh, the c cotangent, two steps' saved
+// rows (this step's and the next one's, in flight), the (ray, view) taps
+__host__ __device__ inline size_t f32_walk_warp(int hid, int NS) {
+  return (size_t)F32_TILE * 4 *
+             (f32_pitch(4 * hid) + f32_pitch(f32_units(hid)) + f32_units(hid) +
+              2 * aux_width(hid)) +
+         (size_t)F32_TILE * NS * sizeof(Taps);
 }
 
-// acc[gi] += sum_ch v[ch] W[ch][lane + 32 gi] over n rows of W (row stride
-// G4): the gate columns this lane owns.  Inlined with W derived from the
+// acc[b][i][j] += sum over k < K, ascending (K a multiple of 4), of
+// A[rg + 2 i][k] B[k][64 b + 4 cg + j]: A's rows at pitch lda in shared
+// memory, B's at pitch ldb in shared memory or (GB) in global memory, where
+// columns at or past ncols read as zero.  Inlined with B derived from the
 // shared-memory pointer or the global one, so each loop reads its own space.
-template <int GI>
-__device__ __forceinline__ void gate_dots(const float* W, const float* v, int n, int G4, int lane,
-                                          float (&acc)[GI]) {
-  for (int ch = 0; ch < n; ++ch) {
-    const float x = v[ch];
-    const float* wrow = W + (size_t)ch * G4;
+template <int NB, bool GB, int UNROLL = 2>
+__device__ __forceinline__ void f32_tile_fma(const float* A, int lda, const float* B, int ldb,
+                                             int K, int ncols, int rg, int cg,
+                                             float (&acc)[NB][4][4]) {
+  const float* ar = A + rg * lda;
+  const float* br = B + 4 * cg;
+#pragma unroll UNROLL
+  for (int k = 0; k < K; k += 4) {
+    float4 av[4];
 #pragma unroll
-    for (int gi = 0; gi < GI; ++gi) {
-      const int q = lane + 32 * gi;
-      if (q < G4) acc[gi] = fmaf(x, wrow[q], acc[gi]);
+    for (int i = 0; i < 4; ++i) av[i] = *reinterpret_cast<const float4*>(ar + 2 * i * lda + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        const float* bp = br + (size_t)(k + kk) * ldb + F32_BLOCK * b;
+        float4 w;
+        if (GB)
+          w = F32_BLOCK * b + 4 * cg < ncols ? __ldg(reinterpret_cast<const float4*>(bp))
+                                             : make_float4(0.f, 0.f, 0.f, 0.f);
+        else
+          w = *reinterpret_cast<const float4*>(bp);
+        const float wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float x = kk == 0 ? av[i].x : kk == 1 ? av[i].y : kk == 2 ? av[i].z : av[i].w;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[b][i][j] = fmaf(x, wv[j], acc[b][i][j]);
+        }
+      }
     }
   }
 }
 
-// GI: gate columns a lane owns (4: hidden <= 32; 8: up to MAX_HIDDEN)
-template <int GI>
-__global__ void __launch_bounds__(WARPS * 32)
-lstm_march_kernel(const float* __restrict__ proj, const float* __restrict__ coords0,
-                  const float* __restrict__ rds, const float* __restrict__ feat,
-                  const float* __restrict__ w_ih, const float* __restrict__ w_hh,
-                  const float* __restrict__ bias, const float* __restrict__ w_out,
-                  const float* __restrict__ b_out, float* __restrict__ out,
-                  float* __restrict__ aux, int SB, int R, int NS, int H, int W, int C, int hid,
-                  int steps, float eps) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int G4 = 4 * hid;
-  const bool wsm = wih_in_smem(C, hid);  // else W_ih is read from L2
-  float* whh_s = reinterpret_cast<float*>(smem + (wsm ? wih_bytes(C, hid) : 0));
-  float* v_s = reinterpret_cast<float*>(smem + weight_bytes(C, hid));  // WARPS x C
-  float* gate_s = v_s + WARPS * C;                                     // WARPS x 256
-  float* h_s = gate_s + WARPS * MAX_GATES;                             // WARPS x 64
-  float* bias_s = h_s + WARPS * 64;                                    // 256
-  float* wout_s = bias_s + MAX_GATES;                                  // 64
+template <int NB>
+__device__ __forceinline__ void zero_acc(float (&acc)[NB][4][4]) {
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[b][i][j] = 0.f;
+}
 
-  const int tid = threadIdx.x;
-  const int n16 = C * G4 / 4;
-  if (wsm)
-    for (int i = tid; i < n16; i += blockDim.x)
-      reinterpret_cast<float4*>(smem)[i] = __ldg(reinterpret_cast<const float4*>(w_ih) + i);
-  for (int i = tid; i < hid * G4; i += blockDim.x) whh_s[i] = w_hh[i];
-  for (int i = tid; i < G4; i += blockDim.x) bias_s[i] = bias[i];
-  for (int i = tid; i < hid; i += blockDim.x) wout_s[i] = w_out[i];
+// 16 bytes global -> shared by cp.async (L2 only); commit a group; wait for
+// every group but the last committed
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// A CTA's copy of `bytes` contiguous bytes of weights into shared memory by
+// bulk copies on the barrier `bar`, issued by thread 0 (waited on with
+// mbar_wait(bar, 0) before the first read), while the CTA stages the rest
+__device__ __forceinline__ void f32_bulk_stage(void* dst, const void* src, uint32_t bytes,
+                                               uint64_t* bar) {
+  if (threadIdx.x != 0) return;
+  mbar_init(bar, 1);
+  mbar_fence_init();
+  mbar_expect_tx(bar, bytes);
+  for (uint32_t off = 0; off < bytes; off += 16384)
+    bulk_load(static_cast<char*>(dst) + off, static_cast<const char*>(src) + off,
+              min(16384u, bytes - off), bar);
+}
+
+// --- forward
+
+// The forward's gather of one (chunk, view): lane (rp = lane >> 4, g = lane &
+// 15) loads channel group g (channels c0 + 4 g ..) of rays rp + 2 k at their 4
+// taps (maps mk[k] + view), the loads issued together; gather_blend then
+// blends them in float32 and adds the view to v (view 0 starts it), each
+// step rounded as the plain version's.
+__device__ __forceinline__ void gather_issue(const float* feat, const Taps* taps_s,
+                                             const int (&mk)[F32_GATHER], int rp, int g, int c0,
+                                             int view, int gpr, int NS, int C, size_t map,
+                                             float4 (&t)[F32_GATHER][4]) {
+  if (g >= gpr) return;
+#pragma unroll
+  for (int k = 0; k < F32_GATHER; ++k) {
+    const Taps& tp = taps_s[(rp + 2 * k) * NS + view];
+    const float* base = feat + (size_t)(mk[k] + view) * map + c0 + 4 * g;
+    t[k][0] = __ldg(reinterpret_cast<const float4*>(base + (size_t)tp.i00 * C));
+    t[k][1] = __ldg(reinterpret_cast<const float4*>(base + (size_t)tp.i01 * C));
+    t[k][2] = __ldg(reinterpret_cast<const float4*>(base + (size_t)tp.i10 * C));
+    t[k][3] = __ldg(reinterpret_cast<const float4*>(base + (size_t)tp.i11 * C));
+  }
+}
+__device__ __forceinline__ void gather_blend(const Taps* taps_s, int rp, int view, int NS,
+                                             const float4 (&t)[F32_GATHER][4],
+                                             float (&v)[F32_GATHER][4]) {
+#pragma unroll
+  for (int k = 0; k < F32_GATHER; ++k) {
+    const Taps& tp = taps_s[(rp + 2 * k) * NS + view];
+    const float f0[4] = {t[k][0].x, t[k][0].y, t[k][0].z, t[k][0].w};
+    const float f1[4] = {t[k][1].x, t[k][1].y, t[k][1].z, t[k][1].w};
+    const float f2[4] = {t[k][2].x, t[k][2].y, t[k][2].z, t[k][2].w};
+    const float f3[4] = {t[k][3].x, t[k][3].y, t[k][3].z, t[k][3].w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float val = blend4(f0[j], f1[j], f2[j], f3[j], tp);
+      v[k][j] = view == 0 ? val : __fadd_rn(v[k][j], val);
+    }
+  }
+}
+
+struct F32FwdArgs {
+  const float* proj;     // (SB, NS, 16)
+  const float* coords0;  // (SB * R, 3)
+  const float* rds;      // (SB * R, 3)
+  const float* feat;     // (SB, NS, H, W, C)
+  const float* w_ih;     // (C, 4 hid)
+  const float* w_hh;     // (hid, 4 hid)
+  const float* bias;     // (4 hid) [i | f | g | o]
+  const float* w_out;    // (hid)
+  const float* b_out;    // (1)
+  float* out;            // (SB * R, 3)
+  float* aux;            // (SB * R, steps, aux_width) or null
+  int SB, R, NS, H, W, C, hid, steps;
+  float eps;
+};
+
+// NB: 64-column blocks of the 4 hid gate columns; WSM: W_ih in shared memory
+template <int NB, bool WSM>
+__global__ void __launch_bounds__(F32_WARPS_MAX * 32, 1) lstm_march_f32_tile_kernel(F32FwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int T = F32_TILE, GP = NB * F32_BLOCK;
+  const int C = a.C, hid = a.hid, NS = a.NS, G4 = 4 * hid, HK = round4(hid);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, rg = lane & 1, cg = lane >> 1;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  float* p = reinterpret_cast<float*>(smem + 16);
+  const float* wih = a.w_ih;
+  int ldw = G4;
+  const bool bulk = WSM && G4 == GP;  // W_ih as it is: bulk copies, waited on before its product
+  if (bulk) {
+    f32_bulk_stage(p, a.w_ih, (uint32_t)C * GP * 4, bar);
+  } else if (WSM) {  // W_ih with its gate columns padded to GP (zeros)
+#pragma unroll 8
+    for (int i = threadIdx.x; i < C * (GP / 4); i += blockDim.x) {
+      const int ch = i / (GP / 4), c4 = (i - ch * (GP / 4)) * 4;
+      reinterpret_cast<float4*>(p)[i] =
+          c4 < G4 ? __ldg(reinterpret_cast<const float4*>(a.w_ih + (size_t)ch * G4 + c4))
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  if (WSM) {
+    wih = p;
+    ldw = GP;
+    p += (size_t)C * GP;
+  }
+  float* whh_s = p;  // W_hh, rows padded to HK and columns to GP (zeros)
+  p += (size_t)HK * GP;
+  float* bias_s = p;
+  p += GP;
+  float* wout_s = p;
+  p += 64;
+  for (int i = threadIdx.x; i < HK * GP; i += blockDim.x) {
+    const int u = i / GP, q = i - u * GP;
+    whh_s[i] = u < hid && q < G4 ? a.w_hh[u * G4 + q] : 0.f;
+  }
+  for (int i = threadIdx.x; i < GP; i += blockDim.x) bias_s[i] = i < G4 ? a.bias[i] : 0.f;
+  for (int i = threadIdx.x; i < 64; i += blockDim.x) wout_s[i] = i < hid ? a.w_out[i] : 0.f;
+  const int AP = f32_pitch(F32_CHUNK), GTP = f32_pitch(GP), HP = f32_pitch(hid);
+  p += (size_t)warp * (f32_fwd_warp(hid, NS) / 4);
+  float* a_s = p;                  // T rays x AP: a chunk of v_t
+  float* gt_s = a_s + T * AP;      // T x GTP: h W_hh, then the gates
+  float* h_s = gt_s + T * GTP;     // T x HP: h (units past hid stay 0)
+  Taps* taps_s = reinterpret_cast<Taps*>(h_s + T * HP);  // [ray][view]
+  for (int i = lane; i < T * HP; i += 32) h_s[i] = 0.f;
+  for (int i = lane; i < T * NS; i += 32)  // every tap a valid pixel
+    taps_s[i] = bilinear_taps(0.f, 0.f, a.H, a.W);
   __syncthreads();
 
-  const int warp = tid >> 5, lane = tid & 31;
-  const long long ray = (long long)blockIdx.x * WARPS + warp;
-  if (ray >= (long long)SB * R) return;  // no block-wide barrier follows
-  const int sb = (int)(ray / R);
-  float cx = coords0[ray * 3], cy = coords0[ray * 3 + 1], cz = coords0[ray * 3 + 2];
-  const float rx = rds[ray * 3], ry = rds[ray * 3 + 1], rz = rds[ray * 3 + 2];
-  float* v_w = v_s + warp * C;
-  float* g_w = gate_s + warp * MAX_GATES;
-  float* h_w = h_s + warp * 64;
-  h_w[lane] = 0.f;
-  h_w[lane + 32] = 0.f;
-  float c_state[2] = {0.f, 0.f};  // lane k carries units k and k + 32 (< hid)
-  const float bo = *b_out;
-  const int groups = C / 4;
+  const long long rays = (long long)a.SB * a.R;
+  const long long tile0 = ((long long)blockIdx.x * (blockDim.x >> 5) + warp) * T;
+  if (tile0 >= rays) return;  // no block-wide barrier follows
+  // lane r < T carries ray tile0 + r: its point, direction and flag
+  const long long my = tile0 + (lane < T ? lane : 0);
+  const bool valid = lane < T && my < rays;
+  bool act = valid;
+  const int sb = valid ? (int)(my / a.R) : 0;
+  const int mapv = sb * NS;  // the ray's first map
+  float cx = 0.f, cy = 0.f, cz = 0.f, rx = 0.f, ry = 0.f, rz = 0.f;
+  if (valid) {
+    cx = a.coords0[my * 3], cy = a.coords0[my * 3 + 1], cz = a.coords0[my * 3 + 2];
+    rx = a.rds[my * 3], ry = a.rds[my * 3 + 1], rz = a.rds[my * 3 + 2];
+  }
+  float c_state[T][2];  // the cell's c: lane k's units k and k + 32 of each ray (at
+                        // hidden <= 16 unit k % 16 of rays 2 m + k / 16, in [m][0])
+#pragma unroll
+  for (int r = 0; r < T; ++r) c_state[r][0] = c_state[r][1] = 0.f;
+  const float bo = *a.b_out;
   const float inv_ns = 1.f / (float)NS;
   const int AW = aux_width(hid), G0 = aux_g0(hid);
-  __syncwarp();
+  const size_t map = (size_t)a.H * a.W * C;
 
-  for (int step = 0; step < steps; ++step) {
-    float* row = aux ? aux + ((size_t)ray * steps + step) * AW : nullptr;
-    if (row && lane == 0) {
-      row[2 * hid] = cx;
-      row[2 * hid + 1] = cy;
-      row[2 * hid + 2] = cz;
-      row[2 * hid + 3] = 1.f;
-    }
-    // gather, summed over views into this warp's feature row
-    for (int view = 0; view < NS; ++view) {
-      const Projected q = project_point(proj + ((size_t)sb * NS + view) * 16, cx, cy, cz);
-      const Taps tp = bilinear_taps(q.gx, q.gy, H, W);
-      const float* base = feat + ((size_t)sb * NS + view) * H * W * C;
-      for (int grp = lane; grp < groups; grp += 32) {
-        float t00[4], t01[4], t10[4], t11[4];
-        load16(base + (size_t)tp.i00 * C + grp * 4, t00);
-        load16(base + (size_t)tp.i01 * C + grp * 4, t01);
-        load16(base + (size_t)tp.i10 * C + grp * 4, t10);
-        load16(base + (size_t)tp.i11 * C + grp * 4, t11);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float val = blend4(t00[j], t01[j], t10[j], t11[j], tp);
-          const int ch = grp * 4 + j;
-          v_w[ch] = view == 0 ? val : __fadd_rn(v_w[ch], val);
-        }
+  for (int step = 0; step < a.steps; ++step) {
+    const unsigned live = __ballot_sync(FULL, act);  // bit r: ray r marches this step
+    if (!live) break;
+    if (act) {
+      if (a.aux) {
+        float* row = a.aux + ((size_t)my * a.steps + step) * AW;
+        row[2 * hid] = cx;
+        row[2 * hid + 1] = cy;
+        row[2 * hid + 2] = cz;
+        row[2 * hid + 3] = 1.f;
+      }
+      for (int view = 0; view < NS; ++view) {
+        const Projected q = project_point(a.proj + ((size_t)mapv + view) * 16, cx, cy, cz);
+        taps_s[lane * NS + view] = bilinear_taps(q.gx, q.gy, a.H, a.W);
       }
     }
-    __syncwarp();  // the mean below reads channels another lane wrote
-    if (NS > 1)
-      for (int ch = lane; ch < C; ch += 32) v_w[ch] = __fmul_rn(v_w[ch], inv_ns);
     __syncwarp();
 
-    // gates: lane owns gate columns lane + 32 * gi
-    float av[GI], ah[GI];
+    // h W_hh into the gate tile
+    {
+      float acc[NB][4][4];
+      zero_acc<NB>(acc);
+      f32_tile_fma<NB, false>(h_s, HP, whh_s, GP, HK, GP, rg, cg, acc);
 #pragma unroll
-    for (int gi = 0; gi < GI; ++gi) av[gi] = ah[gi] = 0.f;
-    if (wsm)
-      gate_dots<GI>(reinterpret_cast<const float*>(smem), v_w, C, G4, lane, av);
-    else
-      gate_dots<GI>(w_ih, v_w, C, G4, lane, av);
-    gate_dots<GI>(whh_s, h_w, hid, G4, lane, ah);
+      for (int b = 0; b < NB; ++b)
 #pragma unroll
-    for (int gi = 0; gi < GI; ++gi) {
-      const int q = lane + 32 * gi;
-      if (q < G4) g_w[q] = (av[gi] + ah[gi]) + bias_s[q];
+        for (int i = 0; i < 4; ++i)
+          *reinterpret_cast<float4*>(gt_s + (rg + 2 * i) * GTP + F32_BLOCK * b + 4 * cg) =
+              make_float4(acc[b][i][0], acc[b][i][1], acc[b][i][2], acc[b][i][3]);
     }
-    __syncwarp();
-
-    // cell: lane k updates units k and k + 32 (< hid); step head reduced
-    // over the warp
-    float part = 0.f;
+    // v_t W_ih, chunk by chunk: each chunk of v_t gathered into the A tile,
+    // then its part of every chain.  Lane l gathers channel group l % 16 of
+    // rays l / 16 + 2 k; the loads of the next chunk's first view are in
+    // flight during this chunk's product.  They go out for every ray (a
+    // frozen ray's taps are an earlier step's, or pixel 0): its row of the A
+    // tile is not used.
+    const int g = lane & 15, rp = lane >> 4;
+    int mk[F32_GATHER];
 #pragma unroll
-    for (int uu = 0; uu < 2; ++uu) {
-      const int u = lane + 32 * uu;
-      if (u >= hid) continue;
-      const float ig = sigmoidf_(g_w[u]);
-      const float fg = sigmoidf_(g_w[hid + u]);
-      const float gg = tanhf(g_w[2 * hid + u]);
-      const float og = sigmoidf_(g_w[3 * hid + u]);
-      const float c_prev = c_state[uu];
-      c_state[uu] = fg * c_state[uu] + ig * gg;
-      const float tc = tanhf(c_state[uu]);
-      const float hn = og * tc;
-      if (row) {
-        row[u] = h_w[u];
-        row[hid + u] = c_prev;
-        row[G0 + u] = ig;
-        row[G0 + hid + u] = fg;
-        row[G0 + 2 * hid + u] = gg;
-        row[G0 + 3 * hid + u] = og;
-        row[G0 + 4 * hid + u] = tc;
+    for (int k = 0; k < F32_GATHER; ++k) mk[k] = __shfl_sync(FULL, mapv, rp + 2 * k);
+    float4 t[F32_GATHER][4];
+    gather_issue(a.feat, taps_s, mk, rp, g, 0, 0, min(F32_CHUNK, C) / 4, NS, C, map, t);
+    float acc[NB][4][4];
+    zero_acc<NB>(acc);
+    if (bulk && step == 0) mbar_wait(bar, 0);
+    for (int c0 = 0; c0 < C; c0 += F32_CHUNK) {
+      const int gpr = min(F32_CHUNK, C - c0) / 4;
+      float v[F32_GATHER][4];
+      gather_blend(taps_s, rp, 0, NS, t, v);
+      for (int view = 1; view < NS; ++view) {
+        gather_issue(a.feat, taps_s, mk, rp, g, c0, view, gpr, NS, C, map, t);
+        gather_blend(taps_s, rp, view, NS, t, v);
       }
-      h_w[u] = hn;
-      part = uu == 0 ? hn * wout_s[u] : part + hn * wout_s[u];
-    }
+      if (g < gpr)
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(FULL, part, off);
-    // one value for the whole warp (xor sums may differ in the last bit)
-    const float s = __shfl_sync(FULL, part, 0) + bo;
-    cx = __fadd_rn(cx, __fmul_rn(rx, s));
-    cy = __fadd_rn(cy, __fmul_rn(ry, s));
-    cz = __fadd_rn(cz, __fmul_rn(rz, s));
-    if (row && lane == 0) row[G0 + 5 * hid] = s;
-    __syncwarp();
-    if (eps > 0.f && fabsf(s) < eps) {  // frozen: s is 0 from now on
-      if (aux && lane == 0)  // the frozen rows: their point (the bins' taps) and active = 0
-        for (int t = step + 1; t < steps; ++t) {
-          float* fr = aux + ((size_t)ray * steps + t) * AW + 2 * hid;
-          fr[0] = cx;
-          fr[1] = cy;
-          fr[2] = cz;
-          fr[3] = 0.f;
+        for (int k = 0; k < F32_GATHER; ++k) {
+          if (NS > 1)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) v[k][j] = __fmul_rn(v[k][j], inv_ns);
+          store16(a_s + (rp + 2 * k) * AP + 4 * g, v[k]);
         }
-      break;
+      __syncwarp();
+      if (c0 + F32_CHUNK < C)
+        gather_issue(a.feat, taps_s, mk, rp, g, c0 + F32_CHUNK, 0,
+                     min(F32_CHUNK, C - c0 - F32_CHUNK) / 4, NS, C, map, t);
+      f32_tile_fma<NB, !WSM, NB <= 2 ? 4 : 2>(a_s, AP, wih + (size_t)c0 * ldw, ldw, 4 * gpr, G4,
+                                              rg, cg, acc);
+      __syncwarp();  // the A tile is rewritten by the next chunk
     }
+    // gates = (v_t W_ih + h W_hh) + b
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float* gq = gt_s + (rg + 2 * i) * GTP + F32_BLOCK * b + 4 * cg;
+        const float4 h4 = *reinterpret_cast<const float4*>(gq);
+        const float4 b4 = *reinterpret_cast<const float4*>(bias_s + F32_BLOCK * b + 4 * cg);
+        *reinterpret_cast<float4*>(gq) =
+            make_float4((acc[b][i][0] + h4.x) + b4.x, (acc[b][i][1] + h4.y) + b4.y,
+                        (acc[b][i][2] + h4.z) + b4.z, (acc[b][i][3] + h4.w) + b4.w);
+      }
+    __syncwarp();
+
+    // the cell: lane k updates units k and k + 32 (< hid) of a ray; the step
+    // head reduced over the warp.  Straight-line over the tile's rays (a ray
+    // that does not march computes and keeps nothing), so the rays'
+    // transcendental chains overlap.
+    float s_mine = 0.f;  // lane r: its ray's step
+    if constexpr (NB == 1) {
+      // hidden <= 16: two rays at a time, one a half-warp (lane 16 h + k:
+      // unit k of ray 2 m + h).  The reduction is the one-ray tree's: there
+      // lane k + 16 holds no unit and adds +0, then xor 8 .. 1 within the half.
+      const int k = lane & 15, h = lane >> 4;
+#pragma unroll
+      for (int m = 0; m < T / 2; ++m) {
+        const int r = 2 * m + h;
+        const bool lv = (live >> r) & 1u;
+        const float* gr = gt_s + r * GTP;
+        float* hr = h_s + r * HP;
+        float* row = a.aux + ((size_t)(tile0 + r) * a.steps + step) * AW;
+        float part = 0.f;
+        if (k < hid) {
+          const float ig = sigmoidf_(gr[k]);
+          const float fg = sigmoidf_(gr[hid + k]);
+          const float gg = tanhf(gr[2 * hid + k]);
+          const float og = sigmoidf_(gr[3 * hid + k]);
+          const float c_prev = c_state[m][0];
+          const float c_new = fg * c_state[m][0] + ig * gg;
+          const float tc = tanhf(c_new);
+          const float hn = og * tc;
+          if (lv) {
+            c_state[m][0] = c_new;
+            if (a.aux) {
+              row[k] = hr[k];
+              row[hid + k] = c_prev;
+              row[G0 + k] = ig;
+              row[G0 + hid + k] = fg;
+              row[G0 + 2 * hid + k] = gg;
+              row[G0 + 3 * hid + k] = og;
+              row[G0 + 4 * hid + k] = tc;
+            }
+            hr[k] = hn;
+          }
+          part = hn * wout_s[k];
+        }
+        part = __fadd_rn(part, 0.f);
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1) part += __shfl_xor_sync(FULL, part, off);
+        const float s0 = __shfl_sync(FULL, part, 0) + bo, s1 = __shfl_sync(FULL, part, 16) + bo;
+        if (lane == 2 * m) s_mine = s0;
+        if (lane == 2 * m + 1) s_mine = s1;
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < T; ++r) {
+        const bool lv = (live >> r) & 1u;
+        const float* gr = gt_s + r * GTP;
+        float* hr = h_s + r * HP;
+        float* row = a.aux + ((size_t)(tile0 + r) * a.steps + step) * AW;
+        float part = 0.f;
+#pragma unroll
+        for (int uu = 0; uu < 2; ++uu) {
+          const int u = lane + 32 * uu;
+          if (u >= hid) continue;
+          const float ig = sigmoidf_(gr[u]);
+          const float fg = sigmoidf_(gr[hid + u]);
+          const float gg = tanhf(gr[2 * hid + u]);
+          const float og = sigmoidf_(gr[3 * hid + u]);
+          const float c_prev = c_state[r][uu];
+          const float c_new = fg * c_state[r][uu] + ig * gg;
+          const float tc = tanhf(c_new);
+          const float hn = og * tc;
+          if (lv) {
+            c_state[r][uu] = c_new;
+            if (a.aux) {
+              row[u] = hr[u];
+              row[hid + u] = c_prev;
+              row[G0 + u] = ig;
+              row[G0 + hid + u] = fg;
+              row[G0 + 2 * hid + u] = gg;
+              row[G0 + 3 * hid + u] = og;
+              row[G0 + 4 * hid + u] = tc;
+            }
+            hr[u] = hn;
+          }
+          part = uu == 0 ? hn * wout_s[u] : part + hn * wout_s[u];
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(FULL, part, off);
+        // one value for the whole warp (xor sums may differ in the last bit)
+        const float s = __shfl_sync(FULL, part, 0) + bo;
+        if (lane == r) s_mine = s;
+      }
+    }
+    if (act) {
+      cx = __fadd_rn(cx, __fmul_rn(rx, s_mine));
+      cy = __fadd_rn(cy, __fmul_rn(ry, s_mine));
+      cz = __fadd_rn(cz, __fmul_rn(rz, s_mine));
+      if (a.aux) a.aux[((size_t)my * a.steps + step) * AW + G0 + 5 * hid] = s_mine;
+      if (a.eps > 0.f && fabsf(s_mine) < a.eps) {  // frozen: s is 0 from now on
+        act = false;
+        if (a.aux)  // the frozen rows: their point (the bins' taps) and active = 0
+          for (int t = step + 1; t < a.steps; ++t) {
+            float* fr = a.aux + ((size_t)my * a.steps + t) * AW + 2 * hid;
+            fr[0] = cx;
+            fr[1] = cy;
+            fr[2] = cz;
+            fr[3] = 0.f;
+          }
+      }
+    }
+    __syncwarp();  // the taps, the A and gate tiles and h are rewritten by the next step
   }
-  if (lane == 0) {
-    out[ray * 3] = cx;
-    out[ray * 3 + 1] = cy;
-    out[ray * 3 + 2] = cz;
+  if (valid) {
+    a.out[my * 3] = cx;
+    a.out[my * 3 + 1] = cy;
+    a.out[my * 3 + 2] = cz;
   }
 }
 
+template <int NB>
+static int launch_f32_fwd(const F32FwdArgs& a, int warps, int ctas, size_t smem, cudaStream_t s) {
+  const bool wsm = f32_fwd_wih_smem(a.C, a.hid);
+  auto kernel = wsm ? lstm_march_f32_tile_kernel<NB, true> : lstm_march_f32_tile_kernel<NB, false>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(unsigned)ctas, warps * 32, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// `warps` a CTA and `ctas`: ops/kernels/march.py f32_plan("forward", ...)
 extern "C" int avr_lstm_march_f32(const void* proj, const void* coords0, const void* rds,
                                   const void* feat, const void* w_ih, const void* w_hh,
                                   const void* bias, const void* w_out, const void* b_out,
                                   void* out, void* aux, int SB, int R, int NS, int H, int W,
-                                  int C, int hid, int steps, float eps, void* stream) {
-  if (hid < 1 || hid > MAX_HIDDEN) return (int)cudaErrorInvalidValue;
-  const size_t smem = weight_bytes(C, hid) +
-                      sizeof(float) * ((size_t)WARPS * (C + MAX_GATES + 64) + MAX_GATES + 64);
-  auto kernel = hid <= 32 ? lstm_march_kernel<4> : lstm_march_kernel<8>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const long long rays = (long long)SB * R;
-  const unsigned blocks = (unsigned)((rays + WARPS - 1) / WARPS);
-  kernel<<<blocks, WARPS * 32, smem, (cudaStream_t)stream>>>(
-      (const float*)proj, (const float*)coords0, (const float*)rds, (const float*)feat,
-      (const float*)w_ih, (const float*)w_hh, (const float*)bias, (const float*)w_out,
-      (const float*)b_out, (float*)out, (float*)aux, SB, R, NS, H, W, C, hid, steps, eps);
-  return (int)cudaGetLastError();
+                                  int C, int hid, int steps, float eps, int warps, int ctas,
+                                  void* stream) {
+  const size_t smem = f32_fwd_shared(C, hid) + (size_t)warps * f32_fwd_warp(hid, NS);
+  if (hid < 1 || hid > MAX_HIDDEN || C % 4 || NS < 1 || warps < 1 || warps > F32_WARPS_MAX ||
+      (long long)ctas * warps * F32_TILE < (long long)SB * R || smem > SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  F32FwdArgs a;
+  a.proj = (const float*)proj; a.coords0 = (const float*)coords0; a.rds = (const float*)rds;
+  a.feat = (const float*)feat; a.w_ih = (const float*)w_ih; a.w_hh = (const float*)w_hh;
+  a.bias = (const float*)bias; a.w_out = (const float*)w_out; a.b_out = (const float*)b_out;
+  a.out = (float*)out; a.aux = (float*)aux;
+  a.SB = SB; a.R = R; a.NS = NS; a.H = H; a.W = W; a.C = C; a.hid = hid; a.steps = steps;
+  a.eps = eps;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (f32_gate_cols(hid) / F32_BLOCK) {
+    case 1: return launch_f32_fwd<1>(a, warps, ctas, smem, s);
+    case 2: return launch_f32_fwd<2>(a, warps, ctas, smem, s);
+    case 3: return launch_f32_fwd<3>(a, warps, ctas, smem, s);
+    default: return launch_f32_fwd<4>(a, warps, ctas, smem, s);
+  }
 }
 
-struct MarchBwdArgs {
+// --- backward walk
+
+// The coordinate cotangent of a ray-step's view from its per-tap dots
+// (tap_coord_grad, then project_point_bwd), each product and sum rounded
+// as the warp-per-ray walk's build rounded it, so the walk keeps its bits
+// (the compiler is otherwise free to fuse a different product of each sum)
+__device__ __forceinline__ float3 walk_coord_grad(const float (&d)[4], const Taps& t,
+                                                  const Projected& q, const float* p, int H,
+                                                  int W) {
+  const float d_wx = __fmaf_rn(__fsub_rn(d[1], d[0]), __fsub_rn(1.f, t.wy),
+                               __fmul_rn(__fsub_rn(d[3], d[2]), t.wy));
+  const float d_wy = __fmaf_rn(__fsub_rn(d[2], d[0]), __fsub_rn(1.f, t.wx),
+                               __fmul_rn(__fsub_rn(d[3], d[1]), t.wx));
+  const float gx = __fmul_rn(__fmul_rn(d_wx, live(q.gx, W)), 0.5f * (float)(W - 1));
+  const float gy = __fmul_rn(__fmul_rn(d_wy, live(q.gy, H)), 0.5f * (float)(H - 1));
+  const float inv_z = 1.f / q.camz;
+  const float ax = __fmul_rn(gx, p[12]), ay = __fmul_rn(gy, p[13]);
+  const float dcamx = -__fmul_rn(ax, inv_z), dcamy = -__fmul_rn(ay, inv_z);
+  const float dcamz =
+      __fmul_rn(__fmul_rn(__fmaf_rn(ax, q.camx, __fmul_rn(ay, q.camy)), inv_z), inv_z);
+  return make_float3(__fmaf_rn(p[6], dcamz, __fmaf_rn(p[0], dcamx, __fmul_rn(p[3], dcamy))),
+                     __fmaf_rn(p[7], dcamz, __fmaf_rn(p[1], dcamx, __fmul_rn(p[4], dcamy))),
+                     __fmaf_rn(p[8], dcamz, __fmaf_rn(p[2], dcamx, __fmul_rn(p[5], dcamy))));
+}
+
+struct F32WalkArgs {
   const float* proj;     // (SB, NS, 16)
   const float* rds;      // (SB * R, 3)
   const float* feat;     // (SB, NS, H, W, C)
@@ -334,176 +719,349 @@ struct MarchBwdArgs {
 
 // lane-owned partial sums a warp, [slot][lane]: dbias of gate k and unit
 // lane + 32 uu at slot 2 k + uu, dw_out of unit lane + 32 uu at 8 + uu,
-// db_out at 10 (lane 0)
+// db_out at 10 (lane 0); at hidden <= 16 lane 16 + k holds unit k's sums
+// over the odd rays of the tiles, lane k over the even ones
 constexpr int F32_OWN_SLOTS = 11;
 
-__host__ __device__ inline size_t bwd_smem_bytes(int C, int hid) {
-  return (wih_in_smem(C, hid) ? wih_bytes(C, hid) : 0) +
-         sizeof(float) * ((size_t)WARPS * (2 * C + MAX_GATES + F32_OWN_SLOTS * 32));
-}
+// The cell backward of ray r's unit u (this lane's slot uu of the partial
+// sums) from the step's saved row, in the walk kernel: the clip on the
+// combined hidden cotangent, the gate cotangents into dg_s (0 where the
+// ray-step is not live), the c cotangent carried in gc_s.
+#define WALK_CELL(r, u, uu)                                                              \
+  {                                                                                      \
+    const float* row = rows_s + (r) * AW;                                                \
+    const float ig = row[G0 + (u)], fg = row[G0 + hid + (u)];                            \
+    const float gg = row[G0 + 2 * hid + (u)], og = row[G0 + 3 * hid + (u)];              \
+    const float tc = row[G0 + 4 * hid + (u)], c_prev = row[hid + (u)];                   \
+    /* the clip acts on the combined hidden cotangent (step head + next step); a NaN   \
+       passes through it, as through jnp.clip and torch.clamp (fminf and fmaxf alone    \
+       would turn it into -clamp) */                                                    \
+    const float gsum = gh_s[(r) * GHP + (u)] + dsr * wout_s[u];                          \
+    const float ghc = isnan(gsum) ? gsum : fminf(fmaxf(gsum, -a.clamp), a.clamp);        \
+    const float gct = gc_s[(r) * UP + (u)] + ghc * og * (1.f - tc * tc);                 \
+    const float d4[4] = {gct * gg * ig * (1.f - ig), gct * c_prev * fg * (1.f - fg),     \
+                         gct * ig * (1.f - gg * gg), ghc * tc * og * (1.f - og)};        \
+    if (lv) {                                                                            \
+      dwo_own[uu] += og * tc * dsr;                                                      \
+      gc_s[(r) * UP + (u)] = gct * fg;                                                   \
+      _Pragma("unroll") for (int q = 0; q < 4; ++q) db_own[uu][q] += d4[q];              \
+    }                                                                                    \
+    _Pragma("unroll") for (int q = 0; q < 4; ++q)                                        \
+        dg_s[(r) * DGP + q * hid + (u)] = lv ? d4[q] : 0.f;                               \
+  }
 
-__global__ void __launch_bounds__(WARPS * 32, 1) lstm_march_bwd_kernel(MarchBwdArgs a) {
+// NU: W_hh^T's units in 16-unit groups; WSM: W_ih^T in shared memory
+template <int NU, bool WSM>
+__global__ void __launch_bounds__(F32_WARPS_MAX * 32, 1) lstm_march_f32_walk_kernel(F32WalkArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int hid = a.hid, G4 = 4 * hid, C = a.C, NS = a.NS;
-  const bool wsm = wih_in_smem(C, hid);
-  const float* wihT_s = wsm ? reinterpret_cast<const float*>(smem) : a.w_ihT;  // else from L2
-  float* v_s = reinterpret_cast<float*>(smem + (wsm ? wih_bytes(C, hid) : 0));  // WARPS x C
-  float* dv_s = v_s + WARPS * C;                   // WARPS x C: dv / NS
-  float* dg_s = dv_s + WARPS * C;                  // WARPS x 256: dgates
-  float* own_s = dg_s + WARPS * MAX_GATES;         // WARPS x F32_OWN_SLOTS x 32
-  if (wsm)
-    for (int i = threadIdx.x; i < G4 * C / 4; i += blockDim.x)
-      reinterpret_cast<float4*>(smem)[i] = __ldg(reinterpret_cast<const float4*>(a.w_ihT) + i);
+  constexpr int T = F32_TILE, UP = 16 * NU;
+  const int C = a.C, hid = a.hid, NS = a.NS, G4 = 4 * hid, CP = f32_dot_cols(C);
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = lane & 1, cg = lane >> 1;       // the dv product's rays and channel groups
+  const int hr_ = lane & 7, hu = lane >> 3;      // the gh product's ray and unit group
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  float* p = reinterpret_cast<float*>(smem + 16);
+  const float* wihT = a.w_ihT;
+  int ldw = C;
+  const bool bulk = WSM && C == CP;  // W_ih^T as it is: bulk copies, waited on before dv
+  if (bulk) {
+    f32_bulk_stage(p, a.w_ihT, (uint32_t)G4 * CP * 4, bar);
+  } else if (WSM) {  // W_ih^T with its channels padded to CP (zeros)
+#pragma unroll 8
+    for (int i = threadIdx.x; i < G4 * (CP / 4); i += blockDim.x) {
+      const int q = i / (CP / 4), c4 = (i - q * (CP / 4)) * 4;
+      reinterpret_cast<float4*>(p)[i] =
+          c4 < C ? __ldg(reinterpret_cast<const float4*>(a.w_ihT + (size_t)q * C + c4))
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  if (WSM) {
+    wihT = p;
+    ldw = CP;
+    p += (size_t)G4 * CP;
+  }
+  float* whhT_s = p;  // W_hh^T [q][u], units padded to UP (zeros)
+  p += (size_t)G4 * UP;
+  float* wout_s = p;
+  p += 64;
+  for (int i = threadIdx.x; i < G4 * UP; i += blockDim.x) {
+    const int q = i / UP, u = i - q * UP;
+    whhT_s[i] = u < hid ? a.w_hh[u * G4 + q] : 0.f;
+  }
+  for (int i = threadIdx.x; i < 64; i += blockDim.x) wout_s[i] = i < hid ? a.w_out[i] : 0.f;
+  const int DGP = f32_pitch(G4), GHP = f32_pitch(UP);
+  float* const warp0 = p;
+  const size_t wfloats = f32_walk_warp(hid, NS) / 4;
+  p += warp * wfloats;
+  float* dg_s = p;                 // T rays x DGP: the gate cotangents
+  float* gh_s = dg_s + T * DGP;    // T x GHP: the h cotangent from the step after
+  float* gc_s = gh_s + T * GHP;    // T x UP: the c cotangent
+  float* rows2_s = gc_s + T * UP;  // 2 x T x AW: the saved rows of steps t and t - 1
+  Taps* taps_s = reinterpret_cast<Taps*>(rows2_s + 2 * T * aux_width(hid));  // [ray][view]
+  for (int i = lane; i < T * GHP; i += 32) gh_s[i] = 0.f;
+  for (int i = lane; i < T * UP; i += 32) gc_s[i] = 0.f;
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int AW = aux_width(hid), G0 = aux_g0(hid);
-  const float inv_ns = 1.f / (float)NS;
-  float* v_w = v_s + warp * C;
-  float* dv_w = dv_s + warp * C;
-  float* dg_w = dg_s + warp * MAX_GATES;
-  const float wo[2] = {lane < hid ? a.w_out[lane] : 0.f,
-                       lane + 32 < hid ? a.w_out[lane + 32] : 0.f};
   const long long rays = (long long)a.SB * a.R;
+  const long long tile0 = ((long long)blockIdx.x * warps + warp) * T;
   // this lane's partial sums over its warp's ray-steps, in walk order
   float db_own[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
   float dwo_own[2] = {0.f, 0.f}, dbo_own = 0.f;
-
-  for (long long ray = (long long)blockIdx.x * WARPS + warp; ray < rays;
-       ray += (long long)gridDim.x * WARPS) {
-    const int sb = (int)(ray / a.R);
-    float gcx = a.gout[ray * 3], gcy = a.gout[ray * 3 + 1], gcz = a.gout[ray * 3 + 2];
-    const float rx = a.rds[ray * 3], ry = a.rds[ray * 3 + 1], rz = a.rds[ray * 3 + 2];
+  if (tile0 < rays) {  // warps past the last tile only join the barrier below
+    // lane r < T carries ray tile0 + r: its cotangents and direction
+    const long long my = tile0 + (lane < T ? lane : 0);
+    const bool valid = lane < T && my < rays;
+    const unsigned vmask = __ballot_sync(FULL, valid);
+    const int mapv = valid ? (int)(my / a.R) * NS : 0;
+    float gcx = 0.f, gcy = 0.f, gcz = 0.f, rx = 0.f, ry = 0.f, rz = 0.f;
+    if (valid) {
+      gcx = a.gout[my * 3], gcy = a.gout[my * 3 + 1], gcz = a.gout[my * 3 + 2];
+      rx = a.rds[my * 3], ry = a.rds[my * 3 + 1], rz = a.rds[my * 3 + 2];
+    }
     float grx = 0.f, gry = 0.f, grz = 0.f;
-    float gh[2] = {0.f, 0.f}, gcell[2] = {0.f, 0.f};  // lane k: units k and k + 32
+    const int AW = aux_width(hid), G0 = aux_g0(hid);
+    const float inv_ns = 1.f / (float)NS;
+    const size_t map = (size_t)a.H * a.W * C;
+
+    // the tile's saved rows of a step into a shared buffer by cp.async, a
+    // step ahead of their use (a ray past the last reads the tile's first)
+    auto fetch_rows = [&](int step) {
+      float* dst = rows2_s + (step & 1) * T * AW;
+      for (int i = lane; i < T * (AW / 4); i += 32) {
+        const int r = i / (AW / 4);
+        const long long rr = (vmask >> r) & 1u ? tile0 + r : tile0;
+        cp_async16(dst + 4 * i,
+                   a.aux + ((size_t)rr * a.steps + step) * AW + 4 * (i - r * (AW / 4)));
+      }
+      cp_async_commit();
+    };
+    fetch_rows(a.steps - 1);
     for (int t = a.steps - 1; t >= 0; --t) {
-      const size_t rsp = (size_t)ray * a.steps + t;  // the ray-step's row
-      const float* row = a.aux + rsp * AW;
-      const float cx = row[2 * hid], cy = row[2 * hid + 1], cz = row[2 * hid + 2];
-      if (lane == 0) {
+      if (t > 0) fetch_rows(t - 1);
+      else cp_async_commit();  // an empty group: the wait below covers step t's
+      cp_async_wait_prior();
+      __syncwarp();
+      const float* rows_s = rows2_s + (t & 1) * T * AW;
+      // lane r: its ray-step's point, flag and step; the step head's cotangent
+      const size_t rsp = (size_t)my * a.steps + t;  // the ray-step's row
+      float cx = 0.f, cy = 0.f, cz = 0.f, ds = 0.f;
+      bool act = false;
+      if (valid) {
+        const float* row = rows_s + lane * AW;
+        cx = row[2 * hid], cy = row[2 * hid + 1], cz = row[2 * hid + 2];
+        act = row[2 * hid + 3] != 0.f;
         a.pts[rsp * 3] = cx;
         a.pts[rsp * 3 + 1] = cy;
         a.pts[rsp * 3 + 2] = cz;
-      }
-      float* v_row = a.vbuf + rsp * a.vld;
-      float* dg_row = a.dgbuf + rsp * a.dg_ld;
-      float* dv_row = a.dvbuf + rsp * C;
-      if (row[2 * hid + 3] == 0.f) {  // frozen: contributes exactly zero
-        const float zero[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int ch = lane * 4; ch < a.vld; ch += 32 * 4) store16(v_row + ch, zero);
-        for (int ch = lane * 4; ch < C; ch += 32 * 4) store16(dv_row + ch, zero);
-        for (int q = lane; q < G4; q += 32) dg_row[q] = 0.f;
-        continue;
-      }
-      const float s = row[G0 + 5 * hid];
-      // coords_{t+1} = coords_t + rds * s
-      const float ds = gcx * rx + gcy * ry + gcz * rz;
-      grx += gcx * s;
-      gry += gcy * s;
-      grz += gcz * s;
-      if (lane == 0) dbo_own += ds;
-#pragma unroll
-      for (int uu = 0; uu < 2; ++uu) {
-        const int u = lane + 32 * uu;
-        if (u >= hid) continue;
-        const float ig = row[G0 + u], fg = row[G0 + hid + u];
-        const float gg = row[G0 + 2 * hid + u], og = row[G0 + 3 * hid + u];
-        const float tc = row[G0 + 4 * hid + u], c_prev = row[hid + u];
-        dwo_own[uu] += og * tc * ds;
-        // the clip acts on the combined hidden cotangent (step head + next step);
-        // a NaN passes through it, as through jnp.clip and torch.clamp (fminf
-        // and fmaxf alone would turn it into -clamp)
-        const float gsum = gh[uu] + ds * wo[uu];
-        const float ghc = isnan(gsum) ? gsum : fminf(fmaxf(gsum, -a.clamp), a.clamp);
-        const float gct = gcell[uu] + ghc * og * (1.f - tc * tc);
-        const float d4[4] = {gct * gg * ig * (1.f - ig), gct * c_prev * fg * (1.f - fg),
-                             gct * ig * (1.f - gg * gg), ghc * tc * og * (1.f - og)};
-        gcell[uu] = gct * fg;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          db_own[uu][k] += d4[k];
-          dg_w[k * hid + u] = d4[k];
-        }
-        v_row[C + u] = row[u];  // h_prev: dW_hh's operand
-      }
-      __syncwarp();
-      // the h cotangent of step t-1
-#pragma unroll
-      for (int uu = 0; uu < 2; ++uu) {
-        const int u = lane + 32 * uu;
-        if (u >= hid) continue;
-        float acc = 0.f;
-        for (int q = 0; q < G4; ++q) acc = fmaf(dg_w[q], a.w_hh[u * G4 + q], acc);
-        gh[uu] = acc;
-      }
-      // the gate cotangents: dW_ih's and dW_hh's other operand (a GEMM after
-      // this kernel)
-      for (int q = lane; q < G4; q += 32) dg_row[q] = dg_w[q];
-      // dv = dgates @ W_ih^T for this lane's channels (W_ih^T rows in shared
-      // memory, 16-byte reads), / NS: the bins' row
-      for (int ch = lane * 4; ch < C; ch += 32 * 4) {
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int q = 0; q < G4; ++q) {
-          float w[4];
-          load16_shared(wihT_s + (size_t)q * C + ch, w);
-          const float d = dg_w[q];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[j] = fmaf(d, w[j], acc[j]);
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) dv_w[ch + j] = NS > 1 ? acc[j] * inv_ns : acc[j];
-        store16(dv_row + ch, dv_w + ch);
-      }
-      // the per-tap dots of the gather backward per view; v_t re-blended
-      // from the same taps
-      for (int view = 0; view < NS; ++view) {
-        const float* p = a.proj + ((size_t)sb * NS + view) * 16;
-        const Projected q = project_point(p, cx, cy, cz);
-        const Taps tp = bilinear_taps(q.gx, q.gy, a.H, a.W);
-        const float* base = a.feat + ((size_t)sb * NS + view) * a.H * a.W * C;
-        const int idx[4] = {tp.i00, tp.i01, tp.i10, tp.i11};
-        float dot[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int ch = lane * 4; ch < C; ch += 32 * 4) {
-          float tap[4][4];
-#pragma unroll
-          for (int k = 0; k < 4; ++k) load16(base + (size_t)idx[k] * C + ch, tap[k]);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float val = blend4(tap[0][j], tap[1][j], tap[2][j], tap[3][j], tp);
-            v_w[ch + j] = view == 0 ? val : __fadd_rn(v_w[ch + j], val);
-#pragma unroll
-            for (int k = 0; k < 4; ++k) dot[k] = fmaf(dv_w[ch + j], tap[k][j], dot[k]);
+        if (act) {
+          const float s = row[G0 + 5 * hid];
+          // coords_{t+1} = coords_t + rds * s (ds rounded as the warp-per-ray
+          // walk's build rounded it)
+          ds = __fmaf_rn(gcz, rz, __fmaf_rn(gcy, ry, __fmul_rn(gcx, rx)));
+          grx += gcx * s;
+          gry += gcy * s;
+          grz += gcz * s;
+          for (int view = 0; view < NS; ++view) {
+            const Projected q = project_point(a.proj + ((size_t)mapv + view) * 16, cx, cy, cz);
+            taps_s[lane * NS + view] = bilinear_taps(q.gx, q.gy, a.H, a.W);
           }
         }
-#pragma unroll
-        for (int k = 0; k < 4; ++k) dot[k] = __shfl_sync(FULL, warp_sum(dot[k]), 0);
-        const float2 dgrid = tap_coord_grad(dot[0], dot[1], dot[2], dot[3], tp, q.gx, q.gy, a.H,
-                                            a.W);
-        const float3 dw = project_point_bwd(p, q, dgrid);
-        gcx += dw.x;
-        gcy += dw.y;
-        gcz += dw.z;
       }
-      // v_t as the forward computed it: dW_ih's operand
-      for (int ch = lane * 4; ch < C; ch += 32 * 4) {
-        float v[4];
+      const unsigned live = __ballot_sync(FULL, act);  // bit r: ray r's step is active
+
+      // the cell backward: lane k takes units k and k + 32 of a ray (at
+      // hidden <= 16 two rays at a time, one a half-warp: lane 16 h + k
+      // takes unit k of ray 2 m + h).  A ray-step that is frozen or past the
+      // last ray keeps nothing and its gate cotangents are 0.
+      if constexpr (NU == 1) {
+        const int k = lane & 15, h = lane >> 4;
+#pragma unroll 1
+        for (int m = 0; m < T / 2; ++m) {
+          const int r = 2 * m + h;
+          const bool lv = (live >> r) & 1u;
+          const float dsr = __shfl_sync(FULL, ds, r);
+          const float ds0 = __shfl_sync(FULL, ds, 2 * m), ds1 = __shfl_sync(FULL, ds, 2 * m + 1);
+          if (lane == 0) {  // the rays in order
+            if ((live >> (2 * m)) & 1u) dbo_own += ds0;
+            if ((live >> (2 * m + 1)) & 1u) dbo_own += ds1;
+          }
+          if (k < hid) WALK_CELL(r, k, 0)
+        }
+      } else {
+#pragma unroll 1
+        for (int r = 0; r < T; ++r) {
+          const bool lv = (live >> r) & 1u;
+          const float dsr = __shfl_sync(FULL, ds, r);
+          if (lane == 0 && lv) dbo_own += dsr;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) v[j] = NS > 1 ? __fmul_rn(v_w[ch + j], inv_ns) : v_w[ch + j];
-        store16(v_row + ch, v);
+          for (int uu = 0; uu < 2; ++uu) {
+            const int u = lane + 32 * uu;
+            if (u < hid) WALK_CELL(r, u, uu)
+          }
+        }
       }
-      __syncwarp();  // v_w, dv_w and dg_w are rewritten by the next step
+      // h_prev after v_t (dW_hh's operand); a frozen step's rows all zero, at
+      // the point the forward saved
+#pragma unroll
+      for (int r = 0; r < T; ++r) {
+        if (!((vmask >> r) & 1u)) continue;
+        const size_t rs = (size_t)(tile0 + r) * a.steps + t;
+        if ((live >> r) & 1u) {
+          for (int u = lane; u < hid; u += 32) a.vbuf[rs * a.vld + C + u] = rows_s[r * AW + u];
+        } else {
+          const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+          for (int ch = lane * 4; ch < a.vld; ch += 32 * 4) store16(a.vbuf + rs * a.vld + ch, zero);
+          for (int ch = lane * 4; ch < C; ch += 32 * 4) store16(a.dvbuf + rs * C + ch, zero);
+          for (int q = lane; q < G4; q += 32) a.dgbuf[rs * a.dg_ld + q] = 0.f;
+        }
+      }
+      __syncwarp();
+      // the gate cotangents: dW_ih's and dW_hh's other operand (a GEMM after
+      // this kernel)
+#pragma unroll
+      for (int r = 0; r < T; ++r)
+        if ((live >> r) & 1u) {
+          float* dg_row = a.dgbuf + ((size_t)(tile0 + r) * a.steps + t) * a.dg_ld;
+          for (int q = lane; q < G4; q += 32) dg_row[q] = dg_s[r * DGP + q];
+        }
+      // gh = dgates W_hh^T, the h cotangent of step t - 1: lane (ray lane & 7,
+      // units 4 (lane >> 3) + 16 n + j), q ascending from 0.f
+      {
+        float acc[NU][4];
+#pragma unroll
+        for (int n = 0; n < NU; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+        const float* dgr = dg_s + hr_ * DGP;
+        for (int q = 0; q < G4; q += 4) {
+          const float4 d4 = *reinterpret_cast<const float4*>(dgr + q);
+          const float dq[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int n = 0; n < NU; ++n) {
+              const float4 w = *reinterpret_cast<const float4*>(whhT_s + (size_t)(q + kk) * UP +
+                                                                16 * n + 4 * hu);
+              acc[n][0] = fmaf(dq[kk], w.x, acc[n][0]);
+              acc[n][1] = fmaf(dq[kk], w.y, acc[n][1]);
+              acc[n][2] = fmaf(dq[kk], w.z, acc[n][2]);
+              acc[n][3] = fmaf(dq[kk], w.w, acc[n][3]);
+            }
+        }
+        __syncwarp();  // every lane has read this step's gh (the cell above)
+#pragma unroll
+        for (int n = 0; n < NU; ++n)
+          *reinterpret_cast<float4*>(gh_s + hr_ * GHP + 16 * n + 4 * hu) =
+              make_float4(acc[n][0], acc[n][1], acc[n][2], acc[n][3]);
+      }
+
+      // dv = dgates W_ih^T / NS, F32_DOTS channels at a time, into the
+      // ray-steps' dv rows (the bins' cotangent) from the product's registers
+      if (bulk && t == a.steps - 1) mbar_wait(bar, 0);
+      for (int c0 = 0; c0 < C; c0 += F32_DOTS) {
+        float acc[2][4][4];
+        zero_acc<2>(acc);
+        f32_tile_fma<2, !WSM>(dg_s, DGP, wihT + c0, ldw, G4, C - c0, rg, cg, acc);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = rg + 2 * i;
+          if (!((live >> r) & 1u)) continue;
+          float* dv_row = a.dvbuf + ((size_t)(tile0 + r) * a.steps + t) * C + c0 + 4 * cg;
+#pragma unroll
+          for (int b = 0; b < 2; ++b) {
+            if (c0 + F32_BLOCK * b + 4 * cg >= C) continue;
+            float x[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) x[j] = NS > 1 ? acc[b][i][j] * inv_ns : acc[b][i][j];
+            __stcg(reinterpret_cast<float4*>(dv_row + F32_BLOCK * b),
+                   make_float4(x[0], x[1], x[2], x[3]));
+          }
+        }
+      }
+      __syncwarp();  // the dv rows are read back by other lanes below
+      // the gather backward per view, a ray at a time: its taps reloaded by
+      // its 32 lanes (lane l: channels 4 l + F32_DOTS m, the loads of
+      // F32_DOT_BLOCKS blocks in flight together with the ray's dv there),
+      // v_t re-blended, the per-tap dots chained over the lane's channels
+      // and summed over the warp into the ray's coordinate cotangent
+      for (int view = 0; view < NS; ++view) {
+#pragma unroll 1
+        for (int r = 0; r < T; ++r) {
+          if (!((live >> r) & 1u)) continue;
+          const Taps tp = taps_s[r * NS + view];
+          const size_t rs = (size_t)(tile0 + r) * a.steps + t;
+          const int mr = __shfl_sync(FULL, mapv, r);
+          const float* base = a.feat + (size_t)(mr + view) * map + 4 * lane;
+          float dot[4] = {0.f, 0.f, 0.f, 0.f};
+          for (int c0 = 0; c0 < C; c0 += F32_DOTS * F32_DOT_BLOCKS) {
+            float4 tv[F32_DOT_BLOCKS][4], dv4[F32_DOT_BLOCKS];
+#pragma unroll
+            for (int m = 0; m < F32_DOT_BLOCKS; ++m) {
+              const int ch = c0 + F32_DOTS * m + 4 * lane;
+              if (ch >= C) continue;
+              const float* bm = base + c0 + F32_DOTS * m;
+              tv[m][0] = __ldg(reinterpret_cast<const float4*>(bm + (size_t)tp.i00 * C));
+              tv[m][1] = __ldg(reinterpret_cast<const float4*>(bm + (size_t)tp.i01 * C));
+              tv[m][2] = __ldg(reinterpret_cast<const float4*>(bm + (size_t)tp.i10 * C));
+              tv[m][3] = __ldg(reinterpret_cast<const float4*>(bm + (size_t)tp.i11 * C));
+              dv4[m] = __ldcg(reinterpret_cast<const float4*>(a.dvbuf + rs * C + ch));
+            }
+#pragma unroll
+            for (int m = 0; m < F32_DOT_BLOCKS; ++m) {
+              const int ch = c0 + F32_DOTS * m + 4 * lane;
+              if (ch >= C) continue;
+              float* v_row = a.vbuf + rs * a.vld + ch;
+              float vo[4], val[4];
+              if (view > 0) {  // v_t's view sum so far, this lane's own
+                const float4 o = __ldcg(reinterpret_cast<const float4*>(v_row));
+                vo[0] = o.x, vo[1] = o.y, vo[2] = o.z, vo[3] = o.w;
+              }
+              const float dvv[4] = {dv4[m].x, dv4[m].y, dv4[m].z, dv4[m].w};
+              const float f[4][4] = {{tv[m][0].x, tv[m][0].y, tv[m][0].z, tv[m][0].w},
+                                     {tv[m][1].x, tv[m][1].y, tv[m][1].z, tv[m][1].w},
+                                     {tv[m][2].x, tv[m][2].y, tv[m][2].z, tv[m][2].w},
+                                     {tv[m][3].x, tv[m][3].y, tv[m][3].z, tv[m][3].w}};
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                val[j] = blend4(f[0][j], f[1][j], f[2][j], f[3][j], tp);
+                if (view > 0) val[j] = __fadd_rn(vo[j], val[j]);
+                if (NS > 1 && view == NS - 1) val[j] = __fmul_rn(val[j], inv_ns);
+#pragma unroll
+                for (int k = 0; k < 4; ++k) dot[k] = fmaf(dvv[j], f[k][j], dot[k]);
+              }
+              // v_t as the forward computed it (dW_ih's operand); with NS > 1
+              // the views' sum so far until the last view
+              __stcs(reinterpret_cast<float4*>(v_row), make_float4(val[0], val[1], val[2], val[3]));
+            }
+          }
+          float d[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) d[k] = __shfl_sync(FULL, warp_sum(dot[k]), 0);
+          const float px = __shfl_sync(FULL, cx, r), py = __shfl_sync(FULL, cy, r);
+          const float pz = __shfl_sync(FULL, cz, r);
+          // every lane alike (no divergence), lane r keeps it
+          const float* pj = a.proj + ((size_t)mr + view) * 16;
+          const float3 dw = walk_coord_grad(d, tp, project_point(pj, px, py, pz), pj, a.H, a.W);
+          if (lane == r) {
+            gcx += dw.x;
+            gcy += dw.y;
+            gcz += dw.z;
+          }
+        }
+      }
+      __syncwarp();  // the taps, dg_s and gh_s are rewritten by the next step
     }
-    if (lane == 0) {
-      a.dcoords0[ray * 3] = gcx;
-      a.dcoords0[ray * 3 + 1] = gcy;
-      a.dcoords0[ray * 3 + 2] = gcz;
-      a.drds[ray * 3] = grx;
-      a.drds[ray * 3 + 1] = gry;
-      a.drds[ray * 3 + 2] = grz;
+    if (valid) {
+      a.dcoords0[my * 3] = gcx;
+      a.dcoords0[my * 3 + 1] = gcy;
+      a.dcoords0[my * 3 + 2] = gcz;
+      a.drds[my * 3] = grx;
+      a.drds[my * 3 + 1] = gry;
+      a.drds[my * 3 + 2] = grz;
     }
   }
-  // the CTA's partial sums: each output's owning lane, warps in order
-  float* own_w = own_s + warp * F32_OWN_SLOTS * 32;
+  // the CTA's partial sums: each output's owning lane, warps in order (the
+  // slots over the warp's gh, c cotangent and rows)
+  __syncwarp();
+  float* own_w = warp0 + warp * wfloats + T * f32_pitch(4 * hid);
 #pragma unroll
   for (int uu = 0; uu < 2; ++uu) {
 #pragma unroll
@@ -525,32 +1083,32 @@ __global__ void __launch_bounds__(WARPS * 32, 1) lstm_march_bwd_kernel(MarchBwdA
       slot = 10, l = 0;
     }
     float sum = 0.f;
-    for (int w = 0; w < WARPS; ++w) sum += own_s[(w * F32_OWN_SLOTS + slot) * 32 + l];
+    for (int w = 0; w < warps; ++w) {
+      const float* ow = warp0 + w * wfloats + T * f32_pitch(4 * hid) + slot * 32;
+      sum += ow[l];
+      if (NU == 1 && o < 5 * hid) sum += ow[l + 16];  // the odd rays' half-warp
+    }
     a.part[(size_t)blockIdx.x * nout + o] = sum;
   }
 }
 
-// dbias (permuted), dw_out and db_out: the CTAs' partial sums in CTA order
-// (the float32 walk's, with HP = hid and the gates unpermuted, and the bf16
-// tile walk's)
-__global__ void __launch_bounds__(128)
-lstm_march_partials_kernel(const float* __restrict__ part, int ctas, int HP,
-                           float* __restrict__ dbias, float* __restrict__ dw_out,
-                           float* __restrict__ db_out) {
-  const int nout = 5 * HP + 1, o = blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= nout) return;
-  float s = 0.f;
-  for (int c = 0; c < ctas; ++c) s += part[(size_t)c * nout + o];
-  if (o < 4 * HP) dbias[o] = s;
-  else if (o < 5 * HP) dw_out[o - 4 * HP] = s;
-  else *db_out = s;
+template <int NU>
+static int launch_f32_walk(const F32WalkArgs& a, int warps, int ctas, size_t smem,
+                           cudaStream_t s) {
+  const bool wsm = f32_walk_wih_smem(a.C, a.hid);
+  auto kernel = wsm ? lstm_march_f32_walk_kernel<NU, true> : lstm_march_f32_walk_kernel<NU, false>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(unsigned)ctas, warps * 32, smem, s>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // The float32 backward: the walk, the latent cotangent through the bins'
 // float32 accumulate, the partial sums' reduction.  dW_ih and dW_hh follow
 // as the wrapper's float32 wgrad over vbuf and dgbuf.  No float atomics.
-// `ctas` (ops/kernels/march.py walk_ctas_f32): at most one CTA an SM, the
-// walk persistent over its warps' rays; `part` holds `ctas` rows.
+// `warps` a CTA and `ctas`: ops/kernels/march.py f32_plan("walk", ...), fixed
+// by the shapes and the SM count; `part` holds `ctas` rows.
 extern "C" int avr_lstm_march_bwd_f32(const void* proj, const void* rds, const void* feat,
                                       const void* w_ihT, const void* w_hh, const void* w_out,
                                       const void* aux, const void* gout, void* dcoords0,
@@ -558,11 +1116,13 @@ extern "C" int avr_lstm_march_bwd_f32(const void* proj, const void* rds, const v
                                       void* part, void* dfeat, void* ints, void* partials,
                                       void* dbias, void* dw_out, void* db_out, int SB, int R,
                                       int NS, int H, int W, int C, int hid, int steps, int vld,
-                                      int dg_ld, int ctas, float clamp, void* stream) {
+                                      int dg_ld, int warps, int ctas, float clamp, void* stream) {
+  const size_t smem = f32_walk_shared(C, hid) + (size_t)warps * f32_walk_warp(hid, NS);
   if (hid < 1 || hid > MAX_HIDDEN || dg_ld < 4 * hid || vld < C + hid || vld % 4 || C % 4 ||
-      ctas < 1)
+      NS < 1 || warps < 1 || warps > F32_WARPS_MAX ||
+      (long long)ctas * warps * F32_TILE < (long long)SB * R || smem > SMEM_MAX)
     return (int)cudaErrorInvalidValue;
-  MarchBwdArgs a;
+  F32WalkArgs a;
   a.proj = (const float*)proj; a.rds = (const float*)rds; a.feat = (const float*)feat;
   a.w_ihT = (const float*)w_ihT; a.w_hh = (const float*)w_hh; a.w_out = (const float*)w_out;
   a.aux = (const float*)aux; a.gout = (const float*)gout; a.dcoords0 = (float*)dcoords0;
@@ -571,12 +1131,14 @@ extern "C" int avr_lstm_march_bwd_f32(const void* proj, const void* rds, const v
   a.SB = SB; a.R = R; a.NS = NS; a.H = H; a.W = W; a.C = C; a.hid = hid; a.steps = steps;
   a.vld = vld; a.dg_ld = dg_ld; a.clamp = clamp;
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = bwd_smem_bytes(C, hid);
-  cudaError_t e = cudaFuncSetAttribute(lstm_march_bwd_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  lstm_march_bwd_kernel<<<(unsigned)ctas, WARPS * 32, smem, s>>>(a);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  int e;
+  switch (f32_units(hid) / 16) {
+    case 1: e = launch_f32_walk<1>(a, warps, ctas, smem, s); break;
+    case 2: e = launch_f32_walk<2>(a, warps, ctas, smem, s); break;
+    case 3: e = launch_f32_walk<3>(a, warps, ctas, smem, s); break;
+    default: e = launch_f32_walk<4>(a, warps, ctas, smem, s); break;
+  }
+  if (e) return e;
   march_bins_f32((const float*)pts, (const float*)proj, (const float*)dvbuf, (float*)dfeat, ints,
                  partials, SB * NS, NS, H, W, C, R * steps, s);
   lstm_march_partials_kernel<<<(5 * hid + 1 + 127) / 128, 128, 0, s>>>(
@@ -593,8 +1155,6 @@ constexpr int UNIT_BLOCK = 8;       // units of one n8 tile of the permuted gate
 constexpr int TILE_WARPS_MAX = 8;   // warps (tiles) a CTA
 constexpr int GATHER_ITEMS = 4;     // 16-byte channel groups a lane has in flight
 constexpr int DV_CHUNK = 64;        // channels of one dv product
-constexpr size_t TILE_SMEM_MAX = 232448;          // shared memory a Hopper block can use
-constexpr size_t TILE_WIH_SMEM_MAX = 128 * 1024;  // W_ih fragments in shared memory up to this
 
 // hidden padded to a multiple of 16 (two n8 tiles of units: one k16 chunk)
 __host__ __device__ inline int padded_hidden(int hid) { return (hid + 15) / 16 * 16; }
@@ -671,14 +1231,14 @@ static int tile_warps(K kernel, long long tiles, size_t shared, size_t per_warp,
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)e;
   if ((e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)TILE_SMEM_MAX)) != cudaSuccess)
+                                (int)SMEM_MAX)) != cudaSuccess)
     return (int)e;
   long long best = LLONG_MAX;
   bool best_spread = false;
   *warps = 0;
   for (int w = TILE_WARPS_MAX; w >= 1; w >>= 1) {
     const size_t sm = shared + (size_t)w * per_warp;
-    if (sm > TILE_SMEM_MAX) continue;
+    if (sm > SMEM_MAX) continue;
     int per_sm = 0;
     if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, w * 32, sm)) !=
         cudaSuccess)
@@ -980,7 +1540,7 @@ template <int NG> static int launch_tile_fwd(TileFwdArgs a, cudaStream_t s) {
   size_t smem = 0;
   // W_ih's fragments in shared memory where they fit beside one warp, else from L2
   for (int wsm = 1; wsm >= 0 && !warps; --wsm) {
-    a.wih_smem = wsm && (size_t)padded_channels(a.C) * 4 * HP * 2 <= TILE_WIH_SMEM_MAX;
+    a.wih_smem = wsm && (size_t)padded_channels(a.C) * 4 * HP * 2 <= WIH_SMEM_MAX;
     if (wsm && !a.wih_smem) continue;
     if ((e = tile_warps(lstm_march_tile_kernel<NG>, tiles, tile_fwd_shared(a.C, HP, a.wih_smem),
                         tile_fwd_warp(a.C, a.NS), &warps, &smem)))
@@ -1362,7 +1922,7 @@ static int launch_tile_bwd(TileBwdArgs a, cudaStream_t s, int* ctas) {
   int warps = 0, e;
   size_t smem = 0;
   for (int wsm = 1; wsm >= 0 && !warps; --wsm) {
-    a.wih_smem = wsm && (size_t)4 * HP * padded_channels(a.C) * 2 <= TILE_WIH_SMEM_MAX;
+    a.wih_smem = wsm && (size_t)4 * HP * padded_channels(a.C) * 2 <= WIH_SMEM_MAX;
     if (wsm && !a.wih_smem) continue;
     if ((e = tile_warps(lstm_march_tile_bwd_kernel<NG>, tiles,
                         tile_bwd_shared(a.C, HP, a.wih_smem), tile_bwd_warp(a.C, a.NS, HP),

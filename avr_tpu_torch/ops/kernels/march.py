@@ -42,15 +42,20 @@ kernels by dtype and hidden size:
   ``fused_lstm_march_bwd_wgrad``).  Every output is bit for bit the same
   on a rerun.  Counted also under ``fused_lstm_march_tiles`` and
   ``fused_lstm_march_bwd_tiles``.
-* ``"warp"`` (float32; ``lstm_march_kernel``, ``lstm_march_bwd_kernel``):
-  one warp a ray, eight rays a CTA, float32 FMA (float32 operands on the
-  tensor cores would round to TF32).  The backward writes the same rows as
-  the tile walk, in float32 (``dv / NS`` and the point of every ray-step,
-  ``v_t | h_prev`` and the gate cotangents), the latent cotangent goes
-  through the bins' float32 accumulate, ``dW_ih`` and ``dW_hh`` are one
-  float32 wgrad of two jobs, and the bias and step-head sums are lane-owned
-  partials added per CTA and then in CTA order (:func:`walk_ctas_f32`): no
-  float atomics, every output bit for bit the same on a rerun.
+* ``"f32_tiles"`` (float32; ``lstm_march_f32_tile_kernel``,
+  ``lstm_march_f32_walk_kernel``): a warp carries 8 rays in lockstep, the
+  CTA's warps sharing the weights in shared memory, the gate products (the
+  walk's dv and gh) register-tiled FMA (float32 operands on the tensor
+  cores would round to TF32), each chain in the order of the warp-per-ray
+  kernels they replace, so the outputs are those kernels' bits;
+  :func:`f32_plan` picks the warps a CTA.  The backward writes the same
+  rows as the tile walk, in float32 (``dv / NS`` and the point of every
+  ray-step, ``v_t | h_prev`` and the gate cotangents), the latent cotangent
+  goes through the bins' float32 accumulate, ``dW_ih`` and ``dW_hh`` are
+  one float32 wgrad of two jobs, and the bias and step-head sums are
+  lane-owned partials added per CTA and then in CTA order: no float
+  atomics, every output bit for bit the same on a rerun.  Counted also
+  under ``fused_lstm_march_f32`` and ``fused_lstm_march_bwd_f32``.
 
 The TPU kernel's ray sort (``models/wrapper.py:256-280``) only feeds its
 windowed gather; the port leaves it out.
@@ -65,7 +70,7 @@ import weakref
 import torch
 
 from avr_tpu_torch.ops.kernels import _build
-from avr_tpu_torch.ops.kernels.gather import _bin_scratch, bilinear_f32, project_packed
+from avr_tpu_torch.ops.kernels.gather import _bin_scratch, _sms, bilinear_f32, project_packed
 from avr_tpu_torch.ops.kernels.resnetfc import wgrad
 from avr_tpu_torch.renderers.lstm import clamp_grad
 
@@ -74,9 +79,11 @@ __all__ = ["pack_projection", "fused_lstm_march", "lstm_march_plain", "march_rou
 NAME = "fused_lstm_march"
 NAME_BWD = "fused_lstm_march_bwd"
 NAME_WGRAD = "fused_lstm_march_bwd_wgrad"
-# the bf16 route's launches, counted also under NAME and NAME_BWD
+# each route's launches, counted also under NAME and NAME_BWD
 NAME_TILES = "fused_lstm_march_tiles"
 NAME_BWD_TILES = "fused_lstm_march_bwd_tiles"
+NAME_F32 = "fused_lstm_march_f32"
+NAME_BWD_F32 = "fused_lstm_march_bwd_f32"
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HIDDEN = 62  # the TPU kernel's 2 H + 4 <= 128 (avr_tpu/models/wrapper.py:219)
 UNIT_BLOCK = 8  # units of one n8 tile of the permuted gates (csrc/march.cu UNIT_BLOCK)
@@ -85,15 +92,15 @@ TILE_RAYS = 16  # rays a warp of the tile kernels marches (csrc/march.cu TILE_RA
 
 def march_route(dtype: torch.dtype, hidden: int) -> str:
     """The kernels a card call of ``dtype`` and ``hidden`` runs: ``"tiles"``
-    (bf16: 16-ray tiles on the tensor cores) or ``"warp"`` (float32: a warp
-    a ray).  Raises for a hidden size outside 1 .. ``MAX_HIDDEN`` or another
-    dtype."""
+    (bf16: 16-ray tiles on the tensor cores) or ``"f32_tiles"`` (float32:
+    8-ray tiles, register-tiled FMA).  Raises for a hidden size outside 1 ..
+    ``MAX_HIDDEN`` or another dtype."""
     if not 0 < hidden <= MAX_HIDDEN:
         raise ValueError(f"{NAME}: hidden {hidden} outside 1 .. {MAX_HIDDEN} (the TPU "
                          f"kernel's 2 H + 4 <= 128)")
     if dtype not in _DTYPES:
         raise TypeError(f"{NAME}: compute dtype {dtype} is not one of {list(_DTYPES)}")
-    return "tiles" if dtype == torch.bfloat16 else "warp"
+    return "tiles" if dtype == torch.bfloat16 else "f32_tiles"
 
 
 def padded_hidden(hid: int) -> int:
@@ -209,8 +216,9 @@ def lstm_march_plain(proj, coords0, rds, feat, w_ih, w_hh, bias, w_out, b_out, *
     return coords
 
 
-_F32_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
-_F32_BWD_ARGS = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p]
+_TILES_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+_F32_ARGS = _TILES_ARGS[:-1] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+_F32_BWD_ARGS = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p]
 _TILES_BWD_ARGS = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
 
 
@@ -282,18 +290,20 @@ def _forward(a: dict, steps: int, eps: float, cd: torch.dtype, save: bool):
         return out, aux
     stream = ctypes.c_void_p(_build.stream_ptr(dev))
     tail = (_build.ptr(out), _build.ptr(aux) if save else None, SB, R, NS, H, W, C, hid, steps,
-            float(eps), stream)
+            float(eps))
     if march_route(cd, hid) == "tiles":
-        err = _build.kernel_fn("avr_lstm_march_tiles", _F32_ARGS)(
+        err = _build.kernel_fn("avr_lstm_march_tiles", _TILES_ARGS)(
             *(_build.ptr(a[k]) for k in ("proj", "coords0", "rds", "feat", "wih", "whh", "bias",
-                                         "w_out", "b_out")), *tail)
+                                         "w_out", "b_out")), *tail, stream)
         _build.check(NAME, err)
         _build.launches[NAME_TILES] += 1
     else:
+        warps, ctas = f32_plan("forward", SB * R, _sms(dev.index), C, hid, NS)
         err = _build.kernel_fn("avr_lstm_march_f32", _F32_ARGS)(
             *(_build.ptr(a[k]) for k in ("proj", "coords0", "rds", "feat", "w_ih", "w_hh",
-                                         "bias", "w_out", "b_out")), *tail)
+                                         "bias", "w_out", "b_out")), *tail, warps, ctas, stream)
         _build.check(NAME, err)
+        _build.launches[NAME_F32] += 1
     return out, aux
 
 
@@ -335,22 +345,63 @@ def _backward_tiles(a: dict, aux: torch.Tensor, g: torch.Tensor, steps: int, gra
             unpermute_gates(dbias, hid), dw_out[:hid], db_out)
 
 
-WARPS_F32 = 8  # rays a CTA of the float32 walk (csrc/march.cu WARPS)
+# the float32 kernels' plan (csrc/march.cu, constants of the same names)
+F32_TILE = 8  # rays a warp carries in lockstep
+F32_BLOCK = 64  # columns of a product's register block
+F32_CHUNK = 64  # channels of the forward's gather chunk
+F32_DOTS = 128  # channels of the walk's dv block: 4 a lane
+F32_WARPS_MAX = 8  # warps a CTA (up to 255 registers a lane)
+WIH_SMEM_MAX = 128 * 1024  # W_ih (the walk's W_ih^T) in shared memory up to this
+SMEM_MAX = 232_448  # shared memory a Hopper block can use
+TAPS_BYTES = 40  # sizeof(Taps), csrc/common.cuh
 
 
-def walk_ctas_f32(rays: int, sms: int) -> int:
-    """CTAs of the float32 walk over ``rays`` rays on a card of ``sms`` SMs:
-    one a ``WARPS_F32`` rays, at most one an SM (the walk is persistent
-    over its warps' rays).  Fixed by the shapes and the card, so the lanes'
-    partial sums, and their order, are the same on every run."""
-    return max(1, min(-(-rays // WARPS_F32), sms))
+def f32_pitch(k: int) -> int:
+    """A float32 tile's row pitch in floats (``csrc/march.cu f32_pitch``):
+    ``k`` rounded up to 8, plus 4."""
+    return -(-k // 8) * 8 + 4
+
+
+def f32_smem(kind: str, C: int, hid: int, NS: int, warps: int) -> int:
+    """Shared bytes of a CTA of ``warps`` warps of the float32 ``kind``
+    (``"forward"`` or ``"walk"``; ``csrc/march.cu f32_fwd_shared`` +
+    ``f32_fwd_warp``, ``f32_walk_shared`` + ``f32_walk_warp``)."""
+    taps = F32_TILE * NS * TAPS_BYTES
+    if kind == "forward":
+        gp = -(-4 * hid // F32_BLOCK) * F32_BLOCK
+        wih = C * gp * 4
+        shared = 16 + (wih if wih <= WIH_SMEM_MAX else 0) + -(-hid // 4) * 4 * gp * 4 + gp * 4 + 256
+        warp = F32_TILE * 4 * (f32_pitch(F32_CHUNK) + f32_pitch(gp) + f32_pitch(hid)) + taps
+    else:
+        up = -(-hid // 16) * 16
+        wih = 4 * hid * -(-C // F32_DOTS) * F32_DOTS * 4
+        shared = 16 + (wih if wih <= WIH_SMEM_MAX else 0) + 4 * hid * up * 4 + 256
+        warp = F32_TILE * 4 * (f32_pitch(4 * hid) + f32_pitch(up) + up + 2 * aux_width(hid)) + taps
+    return shared + warps * warp
+
+
+def f32_plan(kind: str, rays: int, sms: int, C: int, hid: int, NS: int) -> tuple:
+    """``(warps, ctas)`` of the float32 ``kind`` over ``rays`` rays on a card
+    of ``sms`` SMs: tiles of ``F32_TILE`` rays, a warp each, in the fewest
+    waves of CTAs that fit the shared memory, spread over every SM (so a
+    served chunk's 512 tiles are 128 CTAs of 4 warps: a warp on each of an
+    SM's four schedulers).  CTA ``b``'s warp ``w`` takes tile ``b * warps +
+    w``.  Fixed by the shapes and the card, so the walk's lane-owned partial
+    sums, and their order, are the same on every run."""
+    fits = [w for w in range(1, F32_WARPS_MAX + 1) if f32_smem(kind, C, hid, NS, w) <= SMEM_MAX]
+    if not fits:
+        raise ValueError(f"{NAME}: no float32 {kind} CTA fits {SMEM_MAX} bytes of shared memory "
+                         f"at C {C}, hidden {hid}, {NS} views")
+    tiles = max(1, -(-rays // F32_TILE))
+    waves = -(-tiles // (sms * fits[-1]))
+    warps = -(-tiles // (waves * sms))
+    return warps, -(-tiles // warps)
 
 
 def _backward_f32(a: dict, aux: torch.Tensor, g: torch.Tensor, steps: int, grad_clamp: float):
-    """The float32 backward: the warp-per-ray walk, the binned latent
-    cotangent and the partial sums' reduction (one C call), then ``dW_ih``
-    and ``dW_hh`` as one float32 wgrad of two jobs over the walk's rows.  No
-    float atomics."""
+    """The float32 backward: the tile walk, the binned latent cotangent and
+    the partial sums' reduction (one C call), then ``dW_ih`` and ``dW_hh`` as
+    one float32 wgrad of two jobs over the walk's rows.  No float atomics."""
     SB, NS, H, W, C = a["feat"].shape
     R = a["coords0"].shape[1]
     hid = a["w_hh"].shape[0]
@@ -367,7 +418,7 @@ def _backward_f32(a: dict, aux: torch.Tensor, g: torch.Tensor, steps: int, grad_
     dgbuf = torch.empty((rows, dg_ld), **f32)
     dvbuf = torch.empty((rows, C), **f32)
     pts = torch.empty((rows, 3), **f32)
-    ctas = walk_ctas_f32(SB * R, torch.cuda.get_device_properties(dev).multi_processor_count)
+    warps, ctas = f32_plan("walk", SB * R, _sms(dev.index), C, hid, NS)
     part = torch.empty((ctas, 5 * hid + 1), **f32)
     dfeat = torch.empty((SB, NS, H, W, C), **f32)
     ints, partials = _bin_scratch(NAME_BWD, dfeat.view(SB * NS, H, W, C), R * steps)
@@ -377,9 +428,10 @@ def _backward_f32(a: dict, aux: torch.Tensor, g: torch.Tensor, steps: int, grad_
             a["proj"], a["rds"], a["feat"], a["w_ih"].t().contiguous(), a["w_hh"], a["w_out"],
             aux, g, dcoords0, drds, vbuf, dgbuf, dvbuf, pts, part, dfeat, ints, partials, dbias,
             dw_out, db_out)),
-        SB, R, NS, H, W, C, hid, steps, vld, dg_ld, ctas, float(grad_clamp),
+        SB, R, NS, H, W, C, hid, steps, vld, dg_ld, warps, ctas, float(grad_clamp),
         ctypes.c_void_p(_build.stream_ptr(dev)))
     _build.check(NAME_BWD, err)
+    _build.launches[NAME_BWD_F32] += 1
     dw_ih, dw_hh = torch.zeros((C, 4 * hid), **f32), torch.zeros((hid, 4 * hid), **f32)
     wgrad(NAME_WGRAD, [(vbuf.data_ptr(), dgbuf.data_ptr(), dw_ih, None, rows, vld, dg_ld, C,
                         4 * hid),

@@ -35,12 +35,14 @@ Phases (any failure raises and exits non-zero):
    zero density, forward and backward, the forward also at 1, 32 and 33
    samples, at 1 and 1,000 rays (off its CTA's 32) and at none, and timed
    at the band and at a served chunk; K3 (``march_route``: bf16 on 16-ray
-   tiles, float32 a warp a ray, each case's route counters checked) also
+   tiles, float32 on 8-ray FMA tiles, each case's route counters checked) also
    at hidden 62, forward and backward, its forward and the timed
    backward's eight gradients bit for bit equal on a rerun (every float32
    case's too, early stop with frozen rays included), its forward also
-   timed at the train step's call with the saved rows and its float32
-   kernels timed beside; K5
+   timed at the train step's call with the saved rows, its float32 kernels
+   held to the plain version (the forward at 2 and 10 steps, NS 1 and 2,
+   early stop, hidden 62, the serving and train shapes; the timed
+   backward's eight gradients) and timed beside; K5
    (the projected gather) at both of its calls on the fused path, the band
    query (81,920 points a scene) and the coarse query at the marched point
    (4,096), in 1 scene (serving) and 4 (the train step), bf16 and float32,
@@ -530,16 +532,16 @@ def march_inputs(gen, ns, dtype=torch.bfloat16, sb=1, w_out_scale=0.05, hidden=H
 # K3's kernels by route (csrc/march.cu): bf16 marches 16-ray tiles on the
 # tensor cores, its backward's latent cotangent through K5's bins (the
 # march's own instantiation, <true, true>: projected points shared by the
-# views); float32 keeps the warp-per-ray kernels, its backward's latent
-# cotangent through the same bins' float32 accumulate
+# views); float32 marches 8-ray tiles by register-tiled FMA, its backward's
+# latent cotangent through the same bins' float32 accumulate
 K3_FWD_KERNELS = ("lstm_march_tile_kernel",)
 K3_BINS = ("gather_bin_count_kernel<true, true>", "gather_bin_scan_kernel",
            "gather_bin_plan_kernel", "gather_bin_scatter_kernel<true, true>",
            "gather_bin_reduce_kernel")
 K3_BWD_KERNELS = ("lstm_march_tile_bwd_kernel", "lstm_march_partials_kernel",
                   "gather_bin_mma_kernel<true, true>") + K3_BINS
-K3_F32_KERNELS = ("lstm_march_kernel", "lstm_march_bwd_kernel")
-K3_F32_BWD_KERNELS = ("lstm_march_bwd_kernel", "lstm_march_partials_kernel",
+K3_F32_KERNELS = ("lstm_march_f32_tile_kernel", "lstm_march_f32_walk_kernel")
+K3_F32_BWD_KERNELS = ("lstm_march_f32_walk_kernel", "lstm_march_partials_kernel",
                       "gather_bin_accum_kernel<true, true>") + K3_BINS
 # the float32 wgrad (csrc/resnetfc.cu) and its reduction (the bf16 wgrad's)
 WGRAD_F32_KERNELS = ("resnetfc_wgrad_f32_kernel", "resnetfc_wgrad_reduce_kernel")
@@ -548,17 +550,18 @@ WGRAD_F32_KERNELS = ("resnetfc_wgrad_f32_kernel", "resnetfc_wgrad_reduce_kernel"
 @contextlib.contextmanager
 def march_routed(cd, backward=False):
     """Runs one K3 call (and, with ``backward``, its backward) and fails
-    unless the route's counters moved: bf16 the tile kernels'
-    (``NAME_TILES``, ``NAME_BWD_TILES``) with the wrapper's, float32 the
-    wrapper's alone."""
-    names = (K3.NAME, K3.NAME_TILES) + ((K3.NAME_BWD, K3.NAME_BWD_TILES) if backward else ())
+    unless the route's counters moved with the wrapper's: bf16 the tile
+    kernels' (``NAME_TILES``, ``NAME_BWD_TILES``), float32 the float32 tile
+    kernels' (``NAME_F32``, ``NAME_BWD_F32``)."""
+    names = (K3.NAME, K3.NAME_TILES, K3.NAME_F32) + (
+        (K3.NAME_BWD, K3.NAME_BWD_TILES, K3.NAME_BWD_F32) if backward else ())
     before = {n: _build.launches.get(n, 0) for n in names}
     yield
     ran = {n: _build.launches.get(n, 0) - before[n] for n in names}
     tiles = int(cd == torch.bfloat16)
-    want = {K3.NAME: 1, K3.NAME_TILES: tiles}
+    want = {K3.NAME: 1, K3.NAME_TILES: tiles, K3.NAME_F32: 1 - tiles}
     if backward:
-        want.update({K3.NAME_BWD: 1, K3.NAME_BWD_TILES: tiles})
+        want.update({K3.NAME_BWD: 1, K3.NAME_BWD_TILES: tiles, K3.NAME_BWD_F32: 1 - tiles})
     if ran != want:
         raise AssertionError(f"K3 {str(cd)[6:]}: launches {ran}, expected {want}")
 
@@ -568,6 +571,40 @@ def march_fwd_bytes(rays, steps, hid, feat_bytes, save):
     in, the final points out, the weights; with ``save`` the saved rows."""
     rows = rays * steps * K3.aux_width(hid) * 4 if save else 0
     return feat_bytes + rays * 3 * 4 * 3 + C * 4 * hid * 2 + rows
+
+
+def check_march_f32(gen):
+    """K3's float32 forward (8-ray tiles, register-tiled FMA) against its
+    plain version: the bf16 list's cases (NS 1 and 2 at 2 steps, early stop
+    at 0.02, hidden 62 with W_ih read through L2) and the main path's two
+    shapes at 10 steps, a served chunk and the train step's 4 x 4,096 rays
+    under autograd (the saved rows), at the step head TIMED_HEAD (at 0.05 a
+    10-step march is ill-conditioned: check_march_bwd's conditioning line).
+    Tolerance 1e-4 abs on points of unit size: float32 on both sides, the
+    gate sums in another order (the plain version's cuBLAS products) and
+    one-ulp transcendental differences, carried through the steps."""
+    cases = []
+    # (scenes, views, steps, early-stop eps, hidden, step head, under autograd)
+    for sb, ns, steps, eps, hid, head, grad in (
+            (1, 1, 2, 0.0, HIDDEN, 0.05, False), (1, 2, 2, 0.0, HIDDEN, 0.05, False),
+            (1, 1, 2, 0.02, HIDDEN, 0.05, False), (1, 1, 2, 0.0, 62, 0.05, False),
+            (1, 1, STEPS, 0.0, HIDDEN, TIMED_HEAD, False),
+            (SB_TRAIN, 1, STEPS, 0.0, HIDDEN, TIMED_HEAD, True)):
+        inp = march_inputs(gen, ns, dtype=torch.float32, sb=sb, w_out_scale=head, hidden=hid)
+        if grad:
+            inp = {k: v.requires_grad_(True) if k != "proj" else v for k, v in inp.items()}
+        kw = dict(steps=steps, early_stop_eps=eps, compute_dtype=torch.float32)
+        with march_routed(torch.float32):
+            got = fused_lstm_march(**inp, **kw).detach()
+        want = lstm_march_plain(**inp, **kw).detach()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"float32 march NS={ns} steps={steps}: non-finite output")
+        cases.append(check(f"float32 R={sb}x{CHUNK} NS={ns} steps={steps} eps={eps} hidden {hid} "
+                           f"w_out {head}" + (" with the saved rows" if grad else ""),
+                           max_err(got, want), 1e-4))
+    print(f"K3 float32 forward: {len(cases)} cases, worst max abs error "
+          f"{max(c['max_abs_err'] for c in cases):.3e} (tolerance 1e-4)")
+    return cases
 
 
 def check_march(gen):
@@ -628,22 +665,46 @@ def check_march(gen):
     saved_smi = sustained(run_saved, 1.0, SMI_FIELDS)
     saved_b = bound(march_fwd_bytes(SB_TRAIN * CHUNK, STEPS, HIDDEN, tr["feat"].numel() * 2,
                                     True), SB_TRAIN * flops, BF16_FLOPS)
-    # the kept float32 route (warp per ray) at the serving shape
+    # the float32 route (8-ray tiles, register-tiled FMA) at the serving
+    # shape and at the train step's call with the saved rows, its cases
+    # against the plain version (a generator of their own) and its reruns
     f32 = {k: (v.float() if v.is_floating_point() else v) for k, v in inp.items()}
     kw32 = dict(steps=STEPS, compute_dtype=torch.float32)
     with march_routed(torch.float32):
         fused_lstm_march(**f32, **kw32)
     run32 = lambda: fused_lstm_march(**f32, **kw32)
-    kept = dict(kernel=K3_F32_KERNELS[0], ms=time_ms(run32),
-                device_ms=kernel_device_ms(run32, K3_F32_KERNELS[:1])[K3_F32_KERNELS[0]],
-                plain_ms=time_ms(lambda: lstm_march_plain(**f32, **kw32)),
+    cases.append(check_rerun("rerun float32 forward", [run32()], [run32()]))
+    tr32 = {k: (v.detach().float().requires_grad_(True) if k != "proj" else v.float())
+            for k, v in tr.items()}
+    run32_saved = lambda: fused_lstm_march(**tr32, **kw32)
+    cases.append(check_rerun("rerun float32 forward with the saved rows",
+                             [run32_saved().detach()], [run32_saved().detach()]))
+    f32_cases = check_march_f32(torch.Generator(device=DEV).manual_seed(9))
+    cases += f32_cases
+    kept = dict(kernel=K3_F32_KERNELS[0], ms=kernel_device_ms(run32, K3_F32_KERNELS[:1],
+                                                              iters=20)[K3_F32_KERNELS[0]],
+                call_ms=time_ms(run32), plain_ms=time_ms(lambda: lstm_march_plain(**f32, **kw32)),
                 bound_ms=bound(march_fwd_bytes(CHUNK, STEPS, HIDDEN, inp["feat"].numel() * 4,
-                                               False), flops, F32_FLOPS)[0], library_ms=None)
+                                               False), flops, F32_FLOPS)[0],
+                bound_by=bound(march_fwd_bytes(CHUNK, STEPS, HIDDEN, inp["feat"].numel() * 4,
+                                               False), flops, F32_FLOPS)[1], library_ms=None,
+                max_abs_err=max(c["max_abs_err"] for c in f32_cases),
+                shape=f"R={CHUNK} x {STEPS} steps, NS=1, C={C}, hidden {HIDDEN}, float32")
+    saved32 = bound(march_fwd_bytes(SB_TRAIN * CHUNK, STEPS, HIDDEN, tr["feat"].numel() * 4, True),
+                    SB_TRAIN * flops, F32_FLOPS)
+    kept["saved_rows"] = dict(
+        shape=f"{SB_TRAIN}x{CHUNK} rays, under autograd",
+        ms=kernel_device_ms(run32_saved, K3_F32_KERNELS[:1], iters=10)[K3_F32_KERNELS[0]],
+        plain_ms=time_ms(lambda: lstm_march_plain(**tr32, **kw32), iters=3), bound_ms=saved32[0],
+        bound_by=saved32[1])
+    del tr32
     print(f"K3 forward: serve R={CHUNK} {device[K3_FWD_KERNELS[0]]:.4f} device ms (call {ms:.4f}, "
           f"host {host:.4f}, "
           f"SM {smi['clocks.sm']} MHz, {smi['power.draw']} W); train {SB_TRAIN}x{CHUNK} with "
           f"the saved rows {saved[K3_FWD_KERNELS[0]]:.4f} device ms (SM "
-          f"{saved_smi['clocks.sm']} MHz); float32 warp kernel {kept['device_ms']:.4f}")
+          f"{saved_smi['clocks.sm']} MHz); float32 tiles {kept['ms']:.4f}, with the saved rows "
+          f"{kept['saved_rows']['ms']:.4f} (bounds {kept['bound_ms']:.4f}, "
+          f"{kept['saved_rows']['bound_ms']:.4f})")
     return dict(name="fused_lstm_march", source="avr_tpu_torch/csrc/march.cu",
                 replaces="avr_tpu/ops/pallas/march.py:703", tpu_kernel="fused_lstm_march",
                 kernel=K3_FWD_KERNELS[0],
@@ -1199,8 +1260,8 @@ def check_wgrad_jobs(st, cot, gout, enc, args, dims, jobs, cd=torch.bfloat16):
 # float32, the JAX CLI's default dtype (avr_tpu/cli/train.py --dtype f32):
 # K2's forward, dgrad and the float32 wgrad are register-tiled FMA kernels
 # (csrc/resnetfc.cu resnetfc_fwd_f32_kernel, resnetfc_dgrad_f32_kernel,
-# resnetfc_wgrad_f32_kernel); K3's float32 kernels keep the first port's
-# designs
+# resnetfc_wgrad_f32_kernel), and so are K3's (csrc/march.cu
+# lstm_march_f32_tile_kernel, lstm_march_f32_walk_kernel: 8-ray tiles)
 F32_FWD_KERNEL = "resnetfc_fwd_f32_kernel"
 F32_DGRAD_KERNEL = "resnetfc_dgrad_f32_kernel"
 K3_F32_JOB_ROWS = SB_TRAIN * CHUNK * STEPS  # K3's float32 dW_ih / dW_hh rows a train step
@@ -1917,33 +1978,45 @@ def check_march_bwd(gen):
                   rows * (2 * C * 4 * HIDDEN + 16 * C + 6 * HIDDEN * 4 * HIDDEN), BF16_FLOPS)
     wg_ms, wg_by = bound(rows * (C + hp + 4 * hp) * 2 + (C + hp) * 4 * hp * 4,
                          2 * rows * (C + hp) * 4 * hp, BF16_FLOPS)
-    # the float32 route (warp per ray, the bins' float32 accumulate, the
-    # float32 wgrad) at the same shape: its eight gradients bit for bit on a
-    # rerun, and its time
+    # the float32 route (8-ray tiles, the bins' float32 accumulate, the
+    # float32 wgrad) at the same shape: its eight gradients against the plain
+    # autograd and bit for bit on a rerun, and its time
     f32 = {k: (v.float() if v.is_floating_point() else v) for k, v in inp.items()}
     f32_fn = lambda *t: fused_lstm_march(f32["proj"], *t, steps=STEPS, compute_dtype=torch.float32)
     got32, run32 = grads_of(f32_fn, tuple(f32[k] for k in keys), g, keep=True)
     cases.append(check_rerun(f"rerun all eight gradients {label[:-len('bf16 (timed)')]}float32",
                              got32, run32()))
-    del got32
-    _, plain32 = grads_of(lambda *t: lstm_march_plain(f32["proj"], *t, steps=STEPS,
-                                                      compute_dtype=torch.float32),
-                          tuple(f32[k] for k in keys), g, keep=True)
+    # held to the plain autograd at 1e-3 relative L2, as the float32 10-step
+    # case above: sums in other orders only, at the contractive step head
+    want32, plain32 = grads_of(lambda *t: lstm_march_plain(f32["proj"], *t, steps=STEPS,
+                                                           compute_dtype=torch.float32),
+                               tuple(f32[k] for k in keys), g, keep=True)
+    label32 = f"{label[:-len('bf16 (timed)')]}float32 (timed)"
+    f32_cases = [check_l2(f"{nm} {label32}", a, b, 1e-3)
+                 for nm, a, b in zip(MARCH_GRADS, got32, want32)]
+    cases += f32_cases
+    del want32
     split32 = kernel_device_ms(run32, K3_F32_BWD_KERNELS + WGRAD_F32_KERNELS, iters=2)
     # its own bytes: a float32 latent read and dfeat written once, the saved
     # rows, the rays, the weights (the rows it writes for the bins and the
     # wgrad are the design's, as in the bf16 bound)
-    kept = dict(kernel=K3_F32_KERNELS[1], ms=time_ms(run32, iters=3),
-                device_ms=sum(split32[k] for k in K3_F32_BWD_KERNELS),
+    b32 = bound(fmap * 4 * 2 + rows * aw * 4 + rays * 3 * 4 * 4 + (C + HIDDEN) * 4 * HIDDEN * 4,
+                walk_flops, F32_FLOPS)
+    kept = dict(kernel=K3_F32_KERNELS[1], ms=sum(split32[k] for k in K3_F32_BWD_KERNELS),
+                walk_ms=split32[K3_F32_BWD_KERNELS[0]], call_ms=time_ms(run32, iters=3),
                 wgrad_device_ms=sum(split32[k] for k in WGRAD_F32_KERNELS),
                 device_ms_by_kernel=split32, plain_ms=time_ms(plain32, iters=2), library_ms=None,
-                bound_ms=bound(fmap * 4 * 2 + rows * aw * 4 + rays * 3 * 4 * 4
-                               + (C + HIDDEN) * 4 * HIDDEN * 4, walk_flops, F32_FLOPS)[0])
+                bound_ms=b32[0], bound_by=b32[1],
+                max_abs_err=max(c["max_abs_err"] for c in f32_cases),
+                shape=f"{SB_TRAIN}x{CHUNK} rays x {STEPS} steps, NS=1, C={C}, hidden {HIDDEN}, "
+                      f"float32")
     del run32, plain32
     print(f"K3 backward timed: walk + bins + reduce {bwd_ms:.4f} device ms ({split}), bound "
           f"{b_ms:.4f} by {b_by} (the parent's figure {old_b[0]:.4f} by {old_b[1]}); SM "
           f"{smi['clocks.sm']} MHz, {smi['power.draw']} W; float32 walk + bins + reduce "
-          f"{kept['device_ms']:.4f}, its dW_ih + dW_hh {kept['wgrad_device_ms']:.4f}")
+          f"{kept['ms']:.4f} (the walk {kept['walk_ms']:.4f}), its dW_ih + dW_hh "
+          f"{kept['wgrad_device_ms']:.4f}; float32 worst relative L2 against the plain autograd "
+          f"{max(c['rel_l2'] for c in f32_cases):.3e}")
     shape = f"{SB_TRAIN}x{CHUNK} rays x {STEPS} steps, NS=1, C={C}, hidden {HIDDEN}, bf16"
     common = dict(replaces="avr_tpu/ops/pallas/march.py:621", tpu_kernel="_bwd_kernel",
                   shape=shape, cases=cases, plain_ms=plain_ms, pair_ms=pair_ms)
@@ -2454,8 +2527,10 @@ def run_slice(path="adaptive", frames=3, dtype=torch.bfloat16):
     chunks = frames * SIDE * SIDE // CHUNK
     want = {k: v * chunks for k, v in SERVE_LAUNCHES[path].items()
             if dtype == torch.bfloat16 or k not in BF16_ROUTES}
-    if dtype == torch.float32:  # every float32 K2 forward on the float32 kernel
+    if dtype == torch.float32:  # every float32 K2 forward and K3 march on the float32 kernels
         want[K2.NAME_F32] = want.get(K2.NAME, 0) + want.get(K2.NAME_STASH, 0)
+        if K3.NAME in want:
+            want[K3.NAME_F32] = want[K3.NAME]
     if counts != want:
         raise AssertionError(f"{path} serve: launch counts {counts} != expected {want}")
     if len(video) != frames or any(f.shape != (SIDE, SIDE, 3) for f in video):
@@ -2659,7 +2734,7 @@ for _table in (SERVE_LAUNCHES, TRAIN_LAUNCHES):
             if _name in _want:
                 _want[_tiles] = _want[_name]
 # the counters only bf16 moves (float32 takes csrc/resnetfc.cu's forward and
-# K3's warp-per-ray kernels)
+# K3's float32 tile kernels)
 BF16_ROUTES = (K2.NAME_WGMMA, K3.NAME_TILES, K3.NAME_BWD_TILES)
 # parameters the loss gives an exactly zero gradient, so Adam leaves them
 # where they were: the coarse decoder's sigma row (the loss reads only its
@@ -2926,7 +3001,8 @@ def check_adaptive_rerun(dtype=torch.bfloat16):
         f32 = {K2.NAME_F32: launches.get(K2.NAME, 0) + launches.get(K2.NAME_STASH, 0),
                K2.NAME_DGRAD_F32: launches.get(K2.NAME_DGRAD, 0)
                + launches.get(K2.NAME_RECOMPUTE, 0),
-               K2.NAME_WGRAD_F32: launches.get(K2.NAME_WGRAD, 0) + launches.get(K3.NAME_WGRAD, 0)}
+               K2.NAME_WGRAD_F32: launches.get(K2.NAME_WGRAD, 0) + launches.get(K3.NAME_WGRAD, 0),
+               K3.NAME_F32: launches.get(K3.NAME, 0), K3.NAME_BWD_F32: launches.get(K3.NAME_BWD, 0)}
         if any(launches.get(k, 0) != v or not v for k, v in f32.items()) or \
                 K2.NAME_WGMMA in launches:
             raise AssertionError(f"float32 adaptive step: launches {launches}, expected {f32}")
@@ -3112,6 +3188,11 @@ def main() -> int:
     float32["serve_adaptive"] = run_slice("adaptive", dtype=torch.float32)[0]
     print(f"serve adaptive float32: {float32['serve_adaptive']}")
     kernels += float32.pop("kernels")
+    # K3's float32 rows: the forward runs on the float32 frames and step, the
+    # walk on the step
+    k3_f32 = {"K3 forward": (K3.NAME_F32, ("serve_adaptive_float32",
+                                           "train_adaptive_float32_step")),
+              "K3 walk + bins + reduce": (K3.NAME_BWD_F32, ("train_adaptive_float32_step",))}
     check_gather_bwd_bins(gen_bins, by_name["gather_bilinear_bwd"])
     check_gather_proj_bwd_bins(gen_bins, by_name["gather_bilinear_projected_bwd"])
     # the tiled forward's added cases draw from a generator of their own
@@ -3162,6 +3243,14 @@ def main() -> int:
                 **{f"train_{k}": v["launches"] for k, v in train.items()}}
     launches_f32 = {"serve_adaptive_float32": float32["serve_adaptive"]["launches"],
                     "train_adaptive_float32_step": results["adaptive_rerun"][1]["launches"]}
+    # K3's float32 kernels (the kernels line's kept_f32 rows): launched on
+    # their float32 paths
+    for row, (name, paths) in k3_f32.items():
+        by_path = {path: launches_f32[path].get(name, 0) for path in paths}
+        if not all(by_path.values()):
+            raise AssertionError(f"{name} was not launched on every float32 path: {by_path}")
+        float32["rows"][row].update(launches=sum(by_path.values()), launches_by_path=by_path,
+                                    route="cuda", source="avr_tpu_torch/csrc/march.cu")
 
     for k in kernels:
         plain = [c for c in k["cases"] if c.get("against") == "plain"]

@@ -45,18 +45,18 @@ print(json.dumps(res), flush=True)
 """
 
 
-def run(snippet: str, checkouts, both_orders: bool = True) -> int:
-    """Runs ``snippet`` (Python source, given the checkout as ``sys.argv[1]``)
-    in a process of its own in each checkout, in the order given and, with
-    ``both_orders``, then in reverse; prints the card's name and power limit
-    and each run's last line."""
+def run(snippet: str, checkouts, both_orders: bool = True, extra=()) -> int:
+    """Runs ``snippet`` (Python source, given the checkout as ``sys.argv[1]``
+    and ``extra`` after it) in a process of its own in each checkout, in the
+    order given and, with ``both_orders``, then in reverse; prints the card's
+    name and power limit and each run's last line."""
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(f"card: {card}", flush=True)
     paths = [os.path.abspath(c) for c in checkouts]
     for path in paths + (paths[::-1] if both_orders else []):
-        r = subprocess.run([sys.executable, "-c", snippet, path], cwd=path, capture_output=True,
-                           text=True)
+        r = subprocess.run([sys.executable, "-c", snippet, path, *extra], cwd=path,
+                           capture_output=True, text=True)
         if r.returncode:
             print(f"{path}: exit {r.returncode}\n{r.stderr[-4000:]}", file=sys.stderr)
             return 1

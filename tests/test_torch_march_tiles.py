@@ -2,10 +2,11 @@
 
 ``avr_tpu_torch/csrc/march.cu`` marches bf16 rays in tiles of ``TILE_RAYS``
 on the tensor cores (``lstm_march_tile_kernel``, ``lstm_march_tile_bwd_kernel``);
-float32 keeps the warp-per-ray kernels.  This file holds, on the CPU:
+float32 takes its own 8-ray tiles on FMA (``tests/test_torch_march_f32_plan.py``).
+This file holds, on the CPU:
 
 * ``march_route`` (``ops/kernels/march.py``): bf16 to the tiles, float32 to
-  the warp-per-ray kernels, hidden outside 1 .. 62 raised;
+  the float32 tiles, hidden outside 1 .. 62 raised;
 * the gate permutation and its inverse, and ``b_fragments``' lane order,
   against the plain gates: through ``mma.sync.m16n8k16``'s A, B and
   accumulator layouts as the PTX ISA gives them (one index map,
@@ -55,7 +56,7 @@ def test_constants_match_the_kernel_source():
 @pytest.mark.parametrize("hidden", [1, 8, 16, 17, 32, 48, 62])
 def test_bf16_takes_the_tiles_and_float32_the_warp_kernels(hidden):
     assert K3.march_route(torch.bfloat16, hidden) == "tiles"
-    assert K3.march_route(torch.float32, hidden) == "warp"
+    assert K3.march_route(torch.float32, hidden) == "f32_tiles"
 
 
 @pytest.mark.parametrize("hidden", [0, 63, 64, 1024])

@@ -2,9 +2,10 @@
 
 * No module of ``avr_tpu_torch`` and no part of ``chip_smoke.py``,
   ``train_skip_probe.py``, ``march_turns.py``, ``gather_turns.py``,
-  ``integral_turns.py`` or ``f32_turns.py`` imports JAX, Flax, Optax or the
-  JAX package (AST scan, the turns scripts' ``_TURN`` and ``_PROBE``
-  snippets included: they run as ``python -c`` in each checkout).
+  ``integral_turns.py``, ``f32_turns.py`` or ``march_f32_turns.py`` imports
+  JAX, Flax, Optax or the JAX package (AST scan, the turns scripts' ``_TURN``
+  and ``_PROBE`` snippets included: they run as ``python -c`` in each
+  checkout).
 * Entry points default to the card: with no CUDA device and no explicit
   ``device``, they raise instead of running on the CPU.
 * CPU tensors take the plain versions and never touch the kernel library,
@@ -33,7 +34,8 @@ torch.set_num_threads(2)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "avr_tpu")
-SNIPPETS = ("_TURN", "_PROBE", "_STAMPED")  # the turns scripts' sources run as python -c
+# the turns scripts' sources run as python -c
+SNIPPETS = ("_TURN", "_PROBE", "_STAMPED", "_CAPTURE", "_COMMON")
 TINY = """
 include required("default_mv.conf")
 model {
@@ -65,13 +67,15 @@ def _imports(path: pathlib.Path, source=None):
 def _port_files():
     return sorted((ROOT / "avr_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "train_skip_probe.py", ROOT / "march_turns.py",
-        ROOT / "gather_turns.py", ROOT / "integral_turns.py", ROOT / "f32_turns.py"]
+        ROOT / "gather_turns.py", ROOT / "integral_turns.py", ROOT / "f32_turns.py",
+        ROOT / "march_f32_turns.py"]
 
 
 def test_the_scan_reads_the_turns_snippets():
-    for name in ("march_turns.py", "gather_turns.py", "integral_turns.py", "f32_turns.py"):
+    for name in ("march_turns.py", "gather_turns.py", "integral_turns.py", "f32_turns.py",
+                 "march_f32_turns.py"):
         assert "chip_smoke" in set(_imports(ROOT / name)), name
-    for name in ("integral_turns.py", "f32_turns.py"):  # their _PROBE snippets
+    for name in ("integral_turns.py", "f32_turns.py", "march_f32_turns.py"):  # their _PROBE snippets
         assert "ctypes" in set(_imports(ROOT / name)), name
 
 
