@@ -3,7 +3,9 @@
 :func:`orbit_pose` and :func:`render_sphere_view` render shaded spheres
 analytically on an orbit ring of cameras, white background.
 :func:`write_synthetic_hdf5` writes such a set in the SRN HDF5 schema (it
-needs ``h5py``, an optional import as in JAX); :func:`synthetic_scene_set`
+needs ``h5py``, an optional import as in JAX); :func:`synthetic_scene_mapping`
+returns the same arrays in a mapping with the file's layout, which
+``data/dataset.py`` reads without ``h5py``; :func:`synthetic_scene_set`
 builds the same set in memory, each view as the observation dict JAX's
 ``SceneInstanceDataset`` reads back from that file (``images`` in [-1, 1],
 the pose flipped to OpenCV, normalized intrinsics, pixel-unit focal and
@@ -24,7 +26,8 @@ try:
 except ImportError:  # pragma: no cover
     h5py = None
 
-__all__ = ["orbit_pose", "render_sphere_view", "write_synthetic_hdf5", "synthetic_scene_set"]
+__all__ = ["orbit_pose", "render_sphere_view", "write_synthetic_hdf5", "synthetic_scene_mapping",
+           "synthetic_scene_set"]
 
 _POSE_FLIP = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
 
@@ -107,6 +110,21 @@ def write_synthetic_hdf5(path: str, num_instances: int = 2, num_views: int = 8,
             rgb_grp.create_dataset(f"{v:06d}", data=img)
             pose_grp.create_dataset(f"{v:06d}", data=pose_gl.astype(np.float64))
     return path
+
+
+def synthetic_scene_mapping(num_instances: int = 2, num_views: int = 8, side: int = 64,
+                            seed: int = 0) -> Dict[str, Dict]:
+    """The arrays :func:`write_synthetic_hdf5` writes, in a mapping with the
+    file's layout: ``{instance_key: {"rgb": {view_key: uint8}, "pose":
+    {view_key: float64}, "intrinsics": float64 (5,)}}``."""
+    out: Dict[str, Dict] = {}
+    for i, v, img, pose_gl in _views(num_instances, num_views, side, seed):
+        if v == 0:
+            grp = out[f"instance_{i:04d}"] = {"intrinsics": _intrinsics_record(side),
+                                               "rgb": {}, "pose": {}}
+        grp["rgb"][f"{v:06d}"] = img
+        grp["pose"][f"{v:06d}"] = pose_gl.astype(np.float64)
+    return out
 
 
 def synthetic_scene_set(num_instances: int = 2, num_views: int = 8, side: int = 64,

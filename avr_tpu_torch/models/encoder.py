@@ -22,15 +22,16 @@ class SpatialEncoder(nn.Module):
     """
 
     def __init__(self, backbone: str = "resnet34", num_layers: int = 4,
-                 use_first_pool: bool = True, dtype: torch.dtype = torch.float32):
+                 use_first_pool: bool = True, dtype: torch.dtype = torch.float32,
+                 norm_type: str = "batch"):
         super().__init__()
-        self.model = ResNetTrunk(backbone, num_layers, use_first_pool)
+        self.model = ResNetTrunk(backbone, num_layers, use_first_pool, norm_type)
         self.latent_size = ResNetTrunk.latent_size(backbone, num_layers)
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor, train: bool = False):
         """``train`` runs BatchNorm on batch statistics and updates the
-        running ones."""
+        running ones (the other norms use the input's statistics always)."""
         feats = self.model(x.permute(0, 3, 1, 2).to(self.dtype), train)
         hw = feats[0].shape[2:]
         feats = [resize_bilinear_align_corners(f.permute(0, 2, 3, 1), hw) for f in feats]

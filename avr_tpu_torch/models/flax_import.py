@@ -15,7 +15,11 @@ port's modules in place.  The inverse of ``avr_tpu/models/torch_import.py``:
 A leaf missing on either side is an error, named.  :func:`to_flax_variables`
 is the inverse: the port's parameters and BatchNorm statistics as the
 Flax-named numpy tree, and :func:`to_flax_tree` maps any tensors named like
-the port's parameters (gradients, Adam moments) the same way.
+the port's parameters (gradients, Adam moments) the same way;
+:func:`from_flax_tree` maps such a Flax tree back to tensors keyed by the
+port's names.  GroupNorm's ``scale`` and ``bias`` are parameters like
+BatchNorm's; the "group", "instance" and "none" norms have no
+``batch_stats``.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["load_flax_variables", "to_flax_variables", "to_flax_tree"]
+__all__ = ["load_flax_variables", "to_flax_variables", "to_flax_tree", "from_flax_tree"]
 
 _STATS = ("mean", "var")
 
@@ -54,7 +58,7 @@ def _flax_path(name: str) -> Tuple[str, ...]:
 
 
 def _convert(value: np.ndarray, target: torch.Tensor, leaf: str) -> np.ndarray:
-    value = np.asarray(value, np.float32)
+    value = np.array(value, np.float32)
     if leaf == "weight" and target.ndim == 4:
         value = np.transpose(value, (3, 2, 0, 1))  # HWIO -> OIHW
     elif leaf == "weight":
@@ -90,6 +94,25 @@ def load_flax_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Mo
         raise KeyError(f"flax variables do not match the port: missing {missing}, "
                        f"unused {extra}")
     return model
+
+
+def from_flax_tree(model: nn.Module, tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A Flax-named tree of arrays (``{"params": ...}``, e.g. a gradient or
+    an Adam moment; ``"batch_stats"`` too where given) -> float32 tensors
+    keyed by ``model``'s parameter (and buffer) names, in the port's
+    layouts, on the model's device."""
+    flat = _flatten(tree)
+    targets = dict(model.named_parameters())
+    if "batch_stats" in tree:
+        targets.update(model.named_buffers())
+    out = {}
+    for name, target in targets.items():
+        path = _flax_path(name)
+        if path not in flat:
+            raise KeyError(f"{name} (flax {'/'.join(path)}) is not in the tree")
+        value = _convert(flat[path], target, name.rsplit(".", 1)[-1])
+        out[name] = torch.from_numpy(np.ascontiguousarray(value)).to(target.device)
+    return out
 
 
 def _to_flax(value: torch.Tensor, leaf: str) -> np.ndarray:

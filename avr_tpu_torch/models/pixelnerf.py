@@ -72,6 +72,9 @@ class EncoderConfig:
     backbone: str = "resnet34"
     num_layers: int = 4
     use_first_pool: bool = True
+    # the trunk's norm (models/resnet.py make_norm); as in JAX the conf
+    # does not set it, the caller does (the JAX CLI's --norm_type)
+    norm_type: str = "batch"
 
     @classmethod
     def from_conf(cls, conf):
@@ -99,6 +102,10 @@ class ModelConfig:
     use_code: bool = True
     use_code_viewdirs: bool = False
     use_viewdirs: bool = True
+    # no gradient reaches the encoder through the gathered latent
+    # (avr_tpu/models/pixelnerf.py:529, wrapper.py:235): its parameters get
+    # zero gradients; train-mode BatchNorm still updates its statistics
+    stop_encoder_grad: bool = False
     # the decoder's backward, as JAX's fused_mlp values map to the kernel's
     # stash argument (avr_tpu/models/mlp.py:218-221): FUSED_MLP_STASH
     fused_mlp: str = "auto"
@@ -175,7 +182,7 @@ class PixelNeRFNet(nn.Module):
         cfg.check_supported()
         self.cfg, self.dtype = cfg, dtype
         self.encoder = SpatialEncoder(cfg.encoder.backbone, cfg.encoder.num_layers,
-                                      cfg.encoder.use_first_pool, dtype)
+                                      cfg.encoder.use_first_pool, dtype, cfg.encoder.norm_type)
         self.latent_size = ResNetTrunk.latent_size(cfg.encoder.backbone,
                                                    cfg.encoder.num_layers)
         code = CodeSpec(num_freqs=cfg.code.num_freqs, freq_factor=cfg.code.freq_factor,
@@ -194,10 +201,13 @@ class PixelNeRFNet(nn.Module):
                c=None, train: bool = False) -> Conditioning:
         """``images (SB, NS, H, W, 3)`` in [-1, 1] (NHWC), ``poses (SB, NS, 4, 4)``
         cam2world, scalar / per-view focal and principal point; ``train``
-        puts the encoder's BatchNorm in train mode."""
+        puts the encoder's BatchNorm in train mode.  With
+        ``stop_encoder_grad`` the encoder runs without autograd: the latent
+        has no graph, and the encoder's parameters get no gradient."""
         SB, NS, H, W, _ = images.shape
         dev = images.device
-        latent, latent_scaling = self.encoder(images.reshape(SB * NS, H, W, 3), train)
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not self.cfg.stop_encoder_grad):
+            latent, latent_scaling = self.encoder(images.reshape(SB * NS, H, W, 3), train)
         flat = poses.reshape(SB * NS, 4, 4).float()
         rot = flat[:, :3, :3].transpose(1, 2)
         trans = -torch.einsum("bij,bj->bi", rot, flat[:, :3, 3])

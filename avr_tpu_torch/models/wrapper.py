@@ -30,7 +30,7 @@ from avr_tpu_torch.renderers.raymarch import lstm_march, render_raymarcher
 from avr_tpu_torch.renderers.volume import render_volume
 from avr_tpu_torch.utils.device import resolve_device
 
-__all__ = ["RadFieldRenderer", "make_model", "init_weights", "bench_weights"]
+__all__ = ["RadFieldRenderer", "make_model", "init_weights", "bench_weights", "add_sigma_bias"]
 
 DEFAULT_CONF = os.path.join(os.path.dirname(__file__), "..", "..", "conf", "default_mv.conf")
 
@@ -172,10 +172,21 @@ def _forget_bias(model: nn.Module) -> None:
         cell.b_hh[H:2 * H] = 1.0
 
 
+def add_sigma_bias(model: RadFieldRenderer, value: float) -> None:
+    """Add ``value`` to the raw-sigma bias (channel 3 of ``lin_out``) of
+    both decoders, so the density starts positive: the JAX CLI's
+    ``--sigma_bias_init`` (``avr_tpu/cli/train.py:276-284``)."""
+    with torch.no_grad():
+        for head in (model.net.mlp_coarse, model.net.mlp_fine):
+            if head.lin_out.bias.shape[-1] == 4:  # rgb + raw sigma
+                head.lin_out.bias[3] += value
+
+
 def make_model(conf: Union[str, Conf, None] = None, dtype: torch.dtype = torch.bfloat16,
                seed: int = 0, device: Optional[Union[str, torch.device]] = None,
                renderer: str = "", gather_impl: str = "auto",
-               fused_integral: str = "never") -> RadFieldRenderer:
+               fused_integral: str = "never", norm_type: str = "batch",
+               stop_encoder_grad: bool = False) -> RadFieldRenderer:
     """The model at the width of ``conf`` (default ``conf/default_mv.conf``)
     with seeded weights by JAX's scheme (:func:`init_weights`), on the card
     unless ``device`` says otherwise.  ``renderer`` is the experiment name whose prefix picks the
@@ -186,11 +197,16 @@ def make_model(conf: Union[str, Conf, None] = None, dtype: torch.dtype = torch.b
     ``fused_integral`` the adaptive renderer's band compositing (``"auto"``
     or ``"always"``: K4); with both the adaptive renderer runs the fused
     path of the JAX package's ``--gather_impl pallas_proj`` and
-    ``fused_integral``."""
+    ``fused_integral``.  ``norm_type`` is the encoder's norm (JAX's
+    ``--norm_type``: ``"batch"``, ``"group"``, ``"instance"``, ``"none"``)
+    and ``stop_encoder_grad`` keeps gradients out of the encoder."""
     dev = resolve_device(device)
     if conf is None or isinstance(conf, str):
         conf = parse_conf(conf or DEFAULT_CONF)
-    model_cfg = dataclasses.replace(ModelConfig.from_conf(conf["model"]), gather_impl=gather_impl)
+    model_cfg = ModelConfig.from_conf(conf["model"])
+    model_cfg = dataclasses.replace(
+        model_cfg, gather_impl=gather_impl, stop_encoder_grad=stop_encoder_grad,
+        encoder=dataclasses.replace(model_cfg.encoder, norm_type=norm_type))
     model = RadFieldRenderer(model_cfg, renderer_config_from_conf(conf, renderer), dtype,
                              fused_integral)
     init_weights(model, seed)

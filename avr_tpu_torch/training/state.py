@@ -19,9 +19,10 @@ plain PyTorch, as the JAX package leaves it to XLA.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Iterator, Optional
 
 import torch
 from torch import nn
@@ -131,6 +132,37 @@ class TrainState:
     batch_stats: Tensors  # the model's BatchNorm running statistics, updated in place
     opt_state: AdamState
     ema_params: Optional[Tensors] = field(default=None)
+
+    @contextlib.contextmanager
+    def eval_variables(self) -> Iterator["TrainState"]:
+        """Evaluate with the EMA parameters when the state keeps them, else
+        the raw ones (JAX's ``TrainState.eval_variables``,
+        ``avr_tpu/training/state.py:150-161``)::
+
+            with state.eval_variables():
+                out = render_full_image(model, ...)
+
+        The EMA values are copied into the model's own parameter tensors
+        and the raw values copied back on exit.  The copies are in place,
+        so every parameter's version counter moves both ways: a kernel
+        wrapper that keeps data derived from a weight by its version (K3's
+        bf16 forward keeps its weight fragments so) rebuilds it for the EMA
+        weights and again after."""
+        if self.ema_params is None:
+            yield self
+            return
+        names = list(self.params)
+        live = [self.params[k] for k in names]
+        with torch.no_grad():
+            saved = [p.detach().clone() for p in live]
+            for p, k in zip(live, names):
+                p.copy_(self.ema_params[k])
+        try:
+            yield self
+        finally:
+            with torch.no_grad():
+                for p, v in zip(live, saved):
+                    p.copy_(v)
 
 
 def create_train_state(model: nn.Module, optimizer: Optimizer, ema: bool = False) -> TrainState:

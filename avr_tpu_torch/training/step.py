@@ -39,9 +39,10 @@ With ``sampler=`` (:func:`avr_tpu_torch.data.device.make_device_sampler`)
 the step is ``step(state)``: it draws its batch from the device-resident
 set with ``k_batch`` and renders with ``k_render``, ``(k_batch, k_render) =
 split(fold_in(sampler_key, step))`` (``avr_tpu/training/step.py:236-246``).
-The step count is a device scalar; the step reads it to the host once for
-each state it is given and counts on the host from there, so a step never
-waits on the card for its key.
+The step count is a device scalar; the step reads it to the host only when
+the state's step tensor is not the one it produced last (a fresh or
+restored state, or a count set or changed in place) and counts on the host
+from there, so a step never waits on the card for its key.
 """
 
 from __future__ import annotations
@@ -58,7 +59,7 @@ from avr_tpu_torch.training.loss import LossParams, loss_fn
 from avr_tpu_torch.training.state import Optimizer, TrainState, ema_update, global_norm
 
 __all__ = ["apply_gradients", "loss_and_grads", "make_train_step",
-           "make_chunked_call_train_step", "RNG_MODES"]
+           "make_chunked_call_train_step", "make_eval_step", "RNG_MODES"]
 
 RNG_MODES = ("per_ray", "legacy")
 
@@ -105,6 +106,9 @@ def loss_and_grads(model: RadFieldRenderer, params: Dict[str, torch.Tensor],
     keys = _chunk_keys(key, SB, R, C, rng_mode, gt.device)
     with torch.enable_grad():
         cond = model.encode(src_images, src_poses, focal, c, train=True)
+    # stop_encoder_grad: the latent has no graph (BatchNorm's statistics
+    # still update), and the encoder's gradients stay zero
+    pull = cond.latent.requires_grad
 
     def chunk(a, i):  # (SB, R, ...) -> chunk i, (SB, R / C, ...)
         return a.reshape(SB, C, R // C, *a.shape[2:])[:, i]
@@ -113,28 +117,29 @@ def loss_and_grads(model: RadFieldRenderer, params: Dict[str, torch.Tensor],
     gc = torch.zeros_like(cond.latent, dtype=torch.float32)
     lsum = torch.zeros((), dtype=torch.float32, device=gt.device)
     for i in range(C):
-        latent = cond.latent.detach().requires_grad_(True)
+        latent = cond.latent.detach().requires_grad_(pull)
         with torch.enable_grad():
             out = model.render(dataclasses.replace(cond, latent=latent),
                                chunk(model_input["x_pix"], i), model_input["intrinsics"],
                                chunk(model_input["cam2world"], i), keys[i])
             loss = loss_fn(out, chunk(gt, i), loss_params)
-            raw = torch.autograd.grad(loss, [params[n] for n in names] + [latent],
+            raw = torch.autograd.grad(loss, [params[n] for n in names] + [latent] * pull,
                                       allow_unused=True)
-        for n, g in zip(names, raw[:-1]):
+        for n, g in zip(names, raw[:len(names)]):
             if g is not None:
                 gp[n] += g
-        if raw[-1] is not None:
+        if pull and raw[-1] is not None:
             gc += raw[-1]
         lsum += loss.detach()
     scale = 1.0 / C
-    # the encoder's parameters get their gradient here, the rest none
-    raw = torch.autograd.grad(cond.latent, [params[n] for n in names],
-                              (gc * scale).to(cond.latent.dtype), allow_unused=True)
     grads = {n: gp[n] * scale for n in names}
-    for n, g in zip(names, raw):
-        if g is not None:
-            grads[n] += g
+    if pull:
+        # the encoder's parameters get their gradient here, the rest none
+        raw = torch.autograd.grad(cond.latent, [params[n] for n in names],
+                                  (gc * scale).to(cond.latent.dtype), allow_unused=True)
+        for n, g in zip(names, raw):
+            if g is not None:
+                grads[n] += g
     return lsum * scale, {n: g.to(params[n].dtype) for n, g in grads.items()}
 
 
@@ -182,14 +187,20 @@ def _make_step(model, optimizer, loss_params, ray_chunks, ema_decay, rng_mode, s
     if sampler is None:
         return step
     base = threefry.PRNGKey(0) if sampler_key is None else threefry.Key(*sampler_key)
-    count = {"state": None, "step": 0}  # the host's copy of the last state's step
+    # the host's copy of the step count, and the step tensor (and its
+    # version) this step produced last
+    count = {"tensor": None, "version": None, "step": 0}
 
     def device_data_step(state: TrainState):
-        if state is not count["state"]:
-            count["state"], count["step"] = state, int(state.step)
+        t = state.step
+        if t is not count["tensor"] or t._version != count["version"]:
+            # a state this step did not produce (a fresh or restored state,
+            # or a step count set or changed in place): read its count
+            count["step"] = int(t)
         k_batch, k_render = threefry.split(threefry.fold_in(base, count["step"]))
         state, metrics = step(state, *sampler(k_batch), k_render)
         count["step"] += 1
+        count["tensor"], count["version"] = state.step, state.step._version
         return state, metrics
 
     return device_data_step
@@ -204,3 +215,23 @@ def make_chunked_call_train_step(model: RadFieldRenderer, optimizer: Optimizer,
     every ``C``, one included, as JAX's does."""
     return _make_step(model, optimizer, loss_params, ray_chunks, ema_decay, rng_mode, None,
                       None, split_one=True)
+
+
+def make_eval_step(model: RadFieldRenderer, loss_params: LossParams) -> Callable:
+    """The eval step (JAX's ``make_eval_step``): encode with the BatchNorm
+    running statistics, render, loss; no gradients::
+
+        out, loss = eval_step(src_images, src_poses, focal, c, model_input, gt, key)
+
+    It renders with the model's current parameters; under ``with
+    state.eval_variables():`` those are the EMA ones when the state keeps
+    them (JAX passes ``state.eval_variables()`` as its first argument)."""
+
+    def eval_step(src_images, src_poses, focal, c, model_input, gt, key):
+        with torch.inference_mode():
+            cond = model.encode(src_images, src_poses, focal, c, train=False)
+            out = model.render(cond, model_input["x_pix"], model_input["intrinsics"],
+                               model_input["cam2world"], key)
+            return out, loss_fn(out, gt, loss_params)
+
+    return eval_step

@@ -124,6 +124,34 @@ Phases (any failure raises and exits non-zero):
    (adaptive, its fused path, and VR; the adaptive one also with the legacy
    key stream) through the kernels on the card, against the plain path on
    the CPU (and, for the gradients, the plain versions on the card).
+6. Fit: the training loop the way JAX's CLI trains, through the port's
+   entry points: the full-width model from scratch (JAX's initialisation)
+   with ``norm_type="group"``, bf16, EMA 0.999, ``rng_mode="legacy"``, on an
+   in-memory synthetic set of 16 instances x 50 views of 128x128 (the SRN
+   layout as a mapping, no ``h5py``) with 4 val instances x 6 views.
+   ``fit(device_data=True)`` for 2 epochs of 4 steps (SB 4 x 4,096 rays),
+   validation every 4 steps over the 4 val scenes: the launch counters are
+   reset before and read after (``train_fit``: K1, K2 and K3 forward and
+   backward and K7 must each launch), the JSONL log has JAX's events and
+   keys, ``{run}_best`` and ``{run}_epoch2`` exist at JAX's paths.  One
+   val view rendered with the EMA weights through ``eval_variables``,
+   after K3 kept the raw weights' fragments, is bit for bit the kernels'
+   render of a model that holds the EMA weights, in bf16 and (after the
+   float32 epoch) in float32; in float32 it is within 2e-3 of the plain
+   versions' render of the same weights on every ray (bf16 reported: the
+   two round at other places through the 10-step march).  ``_epoch2``
+   restored into a fresh template and trained one more epoch equals an
+   uninterrupted 3-epoch run bit for bit (the step, the sampler's keys and
+   batches, the losses, the parameters; cuDNN set deterministic for the
+   phase).  The prefetched host batches equal the synchronous stream's bit
+   for bit, and one epoch runs on the host path; one float32 epoch runs on
+   the device-data path; ``test_approximate`` with the EMA and the
+   random-VGG LPIPS archive scores the val set.  Printed: ms a ``fit`` step
+   (between loss lines with no val or checkpoint between them) against the
+   bare device-data step's (the loop's own host cost), the device's busy
+   ms a step (the bare step's profile) over the fit step, the group-norm
+   against the batch-norm step, the val PSNR/SSIM, ``test_approximate``'s
+   result, a checkpoint's bytes and save and restore seconds.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``; every case in full
@@ -135,6 +163,10 @@ profiles' chrome traces.
 runs only K3's bf16 10-step backward over N input draws at two step heads
 (``march_draws``: how the comparison depends on its draw) and prints one
 JSON line per draw and head.
+
+    python3 chip_smoke.py --fit
+
+runs only phase 6 and prints its report as one JSON line.
 """
 
 from __future__ import annotations
@@ -152,9 +184,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from avr_tpu_torch.data.dataset import SceneClassDataset
 from avr_tpu_torch.data.device import build_device_dataset, make_device_sampler
-from avr_tpu_torch.data.synthetic import synthetic_scene_set
-from avr_tpu_torch.evaluation import generate_video, render_full_image
+from avr_tpu_torch.data.synthetic import synthetic_scene_mapping, synthetic_scene_set
+from avr_tpu_torch.evaluation import generate_video, render_full_image, test_approximate
 from avr_tpu_torch.models.wrapper import bench_weights, make_model
 from avr_tpu_torch.ops import threefry
 from avr_tpu_torch.ops.kernels import _build
@@ -171,11 +204,16 @@ from avr_tpu_torch.ops.integrate import volume_integral
 from avr_tpu_torch.ops.kernels.resnetfc import (CodeSpec, DecoderWeights, fused_resnetfc,
                                                 resnetfc_plain)
 from avr_tpu_torch.profiling.wgrad_timing import SMI_FIELDS, reasons_field, sustained
-from avr_tpu_torch.training import (LossParams, create_train_state, make_optimizer,
-                                    make_train_step)
+from avr_tpu_torch.training import (FitConfig, LossParams, create_train_state, fit,
+                                    make_optimizer, make_train_step, restore_checkpoint,
+                                    save_checkpoint)
+from avr_tpu_torch.training.checkpoint import checkpoint_path
+from avr_tpu_torch.training.loop import select_source_views
 from avr_tpu_torch.training.step import make_chunked_call_train_step
 from avr_tpu_torch.training.step import loss_and_grads
 from avr_tpu_torch.utils.geometry import get_world_rays, orbit_cam2world, pixel_grid
+from avr_tpu_torch.utils.logging import MetricsLogger
+from avr_tpu_torch.utils.lpips import random_state as lpips_random_state
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # dense tensor-core peak
@@ -3137,6 +3175,402 @@ def check_small_train(path="adaptive", rays=256, rng_mode="per_ray"):
     return cases
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the training loop
+# ---------------------------------------------------------------------------
+
+# the fit phase's sets: train 16 instances x 50 views (an epoch of 4 steps at
+# SB 4), val 4 instances x 6 views, SIDE x SIDE synthetic scenes
+FIT_TRAIN, FIT_VAL = (16, 50), (4, 6)
+FIT_CFG = dict(epochs=2, batch_size=SB_TRAIN, ray_batch_size=CHUNK, device_data=True,
+               rng_mode="legacy", ema_decay=0.999, steps_print=2, steps_val=4, val_scenes=4,
+               render_chunk=CHUNK)
+# JAX's log records (avr_tpu/training/loop.py): each event's keys
+FIT_LOG_KEYS = {"train": [{"event", "t", "epoch", "step", "loss", "grad_norm", "rays_per_s"}],
+                "val": [{"event", "t", "epoch", "step", "loss", "psnr", "ssim"}],
+                "checkpoint": [{"event", "t", "epoch", "step", "path", "best_psnr"},
+                               {"event", "t", "epoch", "path"}]}
+# the kernels a fit run's steps and val renders must launch: K1, K2 and K3
+# forward and backward, K7's draws and raw bits
+FIT_KERNELS = ("gather_bilinear", "gather_bilinear_bwd", K2.NAME, K2.NAME_STASH,
+               K2.NAME_DGRAD, K2.NAME_WGRAD, K3.NAME, K3.NAME_BWD, K3.NAME_WGRAD, K7.NAME,
+               K7.NAME_BITS)
+
+
+class _TimedLogger(MetricsLogger):
+    """The JSONL logger, each record's host clock kept beside it."""
+
+    def __init__(self, log_dir):
+        super().__init__(log_dir, stdout=False)
+        self.records = []
+
+    def log(self, event, **scalars):
+        super().log(event, **scalars)
+        self.records.append(dict(event=event, clock=time.perf_counter(), **{
+            k: (float(v) if isinstance(v, (float, torch.Tensor)) else v)
+            for k, v in scalars.items()}))
+
+
+def fit_model(dtype=torch.bfloat16, norm_type="group"):
+    """The full-width model from scratch (JAX's initialisation scheme) and
+    its EMA train state."""
+    model = make_model(dtype=dtype, seed=0, device=DEV, norm_type=norm_type)
+    opt = make_optimizer(1e-4)
+    return model, opt, create_train_state(model, opt, ema=True)
+
+
+def fit_run(sets, root, name, epochs, state_of=None, val=True, **kw):
+    """One ``fit`` call on the phase's sets (``val=False``: no validation);
+    ``state_of(model, opt, state)`` may replace the fresh state (a
+    restore).  Returns the model, the state, the epoch losses, the log
+    records and the call's seconds."""
+    model, opt, state = fit_model(kw.pop("dtype", torch.bfloat16))
+    if state_of is not None:
+        state = state_of(model, opt, state)
+    logger = _TimedLogger(os.path.join(root, name, "logs"))
+    cfg = FitConfig(**{**FIT_CFG, "epochs": epochs, "save_root": os.path.join(root, name),
+                       **kw})
+    t = time.perf_counter()
+    state, losses = fit(model, state, opt, sets["train"], sets["val"] if val else None,
+                        LossParams(), cfg, logger=logger, device=DEV)
+    torch.cuda.synchronize()
+    logger.close()
+    return dict(model=model, opt=opt, state=state, losses=losses, log=logger.records,
+                seconds=time.perf_counter() - t)
+
+
+def clean_ms_per_step(log, warm=1):
+    """Wall ms a step between consecutive train records with no val or
+    checkpoint between them (the first ``warm`` such intervals dropped)."""
+    out, prev = [], None
+    for r in log:
+        if r["event"] == "train":
+            if prev is not None and prev[1]:
+                out.append((r["clock"] - prev[0]["clock"]) * 1e3
+                           / (r["step"] - prev[0]["step"]))
+            prev = (r, True)
+        elif prev is not None:
+            prev = (prev[0], False)
+    return out[warm:]
+
+
+def bare_step_ms(sets, norm_type, pairs=12, warm=2):
+    """The bare device-data step (``make_train_step(sampler=...)``, no loop
+    around it) on the phase's train set: ms a step over ``pairs`` pairs of
+    steps, each pair ended by a synchronize (as the loop's loss line ends
+    every ``steps_print`` = 2 steps), and the step itself."""
+    model, opt, state = fit_model(norm_type=norm_type)
+    data = build_device_dataset(sets["train"], DEV)
+    step = make_train_step(model, opt, LossParams(), ema_decay=FIT_CFG["ema_decay"],
+                           rng_mode="legacy",
+                           sampler=make_device_sampler(data, SB_TRAIN, CHUNK),
+                           sampler_key=threefry.PRNGKey(0))
+    box = [state]
+
+    def run(_=0):
+        box[0], metrics = step(box[0])
+        return metrics
+
+    for _ in range(warm):
+        run()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(pairs):
+        t = time.perf_counter()
+        run()
+        metrics = run()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3 / 2)
+    if not np.isfinite(float(metrics["loss"])):
+        raise AssertionError(f"bare {norm_type} device-data step: loss {float(metrics['loss'])}")
+    return ms, run
+
+
+def ema_render_check(run, sets):
+    """One val view rendered with the EMA weights through ``eval_variables``
+    after the kernels rendered it with the raw weights (K3's bf16 forward
+    keeps the raw weights' fragments then).
+
+    * Bit for bit the kernels' render of a model that holds the EMA weights
+      as its own: a stale fragment cache would give the raw weights' image.
+    * Against the plain versions' render of the same EMA weights on the
+      card.  At the model's 10 march steps these weights make the march
+      ill-conditioned: the plain versions' own render moves by more than
+      2e-3 on a share of the rays when the camera moves by 1e-6 (the floor,
+      measured here), so the share of rays beyond 2e-3 between the kernels
+      and the plain versions may not pass the floor's.  In float32 also at
+      ``check_small_reference``'s 2 march steps, where every ray is held to
+      its 2e-3."""
+    model, state = run["model"], run["state"]
+    dtype = model.dtype
+    batch = next(sets["val"].batches(1, shuffle=True, epoch_seed=0, drop_last=False))
+    src = select_source_views(np.random.default_rng(0), batch, 1, fixed_idx=[0], device=DEV)
+    intr = torch.as_tensor(batch["intrinsics"][:, 1])
+    c2w = torch.as_tensor(np.array(batch["cam2world"][:, 1]))
+    nudged_c2w = c2w.clone()
+    nudged_c2w[:, :3, 3] += 1e-6
+
+    def render(m, cam=c2w):
+        with torch.inference_mode():
+            cond = m.encode(*src, train=False)
+            return render_full_image(m, cond, intr, cam, SIDE, threefry.PRNGKey(0), CHUNK, DEV)
+
+    def rays_beyond(a, b, names):
+        err = {k: (getattr(a, k).float() - getattr(b, k).float()).abs().amax(-1) for k in names}
+        return ({k: float((e > 2e-3).float().mean()) for k, e in err.items()},
+                {k: float(e.max()) for k, e in err.items()})
+
+    raw = render(model)  # the kernels' caches now hold the raw weights'
+    with state.eval_variables():
+        ema = render(model)
+        with plain_kernels():
+            plain, nudged = render(model), render(model, nudged_c2w)
+        if dtype == torch.float32:
+            cfg = model.renderer_cfg
+            model.renderer_cfg = dataclasses.replace(cfg, raymarch_steps=2)
+            try:
+                short = render(model)
+                with plain_kernels():
+                    short_plain = render(model)
+            finally:
+                model.renderer_cfg = cfg
+    holder, _, _ = fit_model(dtype)
+    with torch.no_grad():
+        for k, p in holder.named_parameters():
+            p.copy_(state.ema_params[k])
+    ref = render(holder)
+    names = [k for k, v in ema._asdict().items() if v is not None]
+    kind = str(dtype)[6:]
+    for k in names:
+        if not same_bits(getattr(ema, k), getattr(ref, k)):
+            raise AssertionError(f"{kind} EMA render through eval_variables: {k} is not the "
+                                 f"render of a model holding the EMA weights (a stale cache?)")
+    share, worst = rays_beyond(ema, plain, names)
+    floor, floor_worst = rays_beyond(nudged, plain, names)
+    over = {k: (share[k], floor[k]) for k in names if share[k] > floor[k]}
+    if over:
+        raise AssertionError(f"{kind} EMA render: rays beyond 2e-3 of the plain versions "
+                             f"(kernels, floor) {over}")
+    res = dict(dtype=kind, bitwise_vs_holder=True, rays_beyond_2e_3=share,
+               max_abs_err_vs_plain=worst, floor_rays_beyond_2e_3=floor,
+               floor_max_abs=floor_worst, raw_vs_ema=rays_beyond(raw, ema, names)[1])
+    if dtype == torch.float32:
+        _, short_worst = rays_beyond(short, short_plain, names)
+        if not max(short_worst.values()) <= 2e-3:
+            raise AssertionError(f"float32 EMA render at 2 march steps vs the plain versions: "
+                                 f"{short_worst} > 2e-3")
+        res.update(steps2_max_abs_err_vs_plain=short_worst, steps2_tol=2e-3)
+    return res
+
+
+def check_fit_log(log, name):
+    for r in log:
+        keys = set(r) - {"clock"} | {"t"}
+        if keys not in FIT_LOG_KEYS[r["event"]]:
+            raise AssertionError(f"{name} log: {r['event']} record has keys {sorted(keys)}, "
+                                 f"JAX's {FIT_LOG_KEYS[r['event']]}")
+    events = {r["event"] for r in log}
+    if events != set(FIT_LOG_KEYS):
+        raise AssertionError(f"{name} log: events {events}")
+
+
+def run_fit():
+    """The training loop the way JAX's CLI trains (module docstring, phase
+    6).  Returns the phase's report and its launch counts."""
+    import shutil
+    import tempfile
+
+    from avr_tpu_torch.data import device as device_data
+    from avr_tpu_torch.data.prefetch import PrefetchPipeline
+    from avr_tpu_torch.training.loop import _epoch_inputs
+
+    t0 = time.perf_counter()
+    sets = dict(train=SceneClassDataset(synthetic_scene_mapping(*FIT_TRAIN, side=SIDE, seed=0)),
+                val=SceneClassDataset(synthetic_scene_mapping(*FIT_VAL, side=SIDE, seed=1),
+                                      samples_per_instance=FIT_VAL[1]))
+    made_s = time.perf_counter() - t0
+    root = tempfile.mkdtemp(prefix="fit_")
+    # cuDNN's deterministic algorithms: the resumed run must equal the
+    # uninterrupted one bit for bit (the port's kernels have no float atomics)
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    # the device sampler's draws of each run: (key, the drawn batch)
+    draws = {}
+    real_sampler = device_data.make_device_sampler
+
+    def recording_sampler(*a, **kw):
+        sample = real_sampler(*a, **kw)
+        sink = draws.setdefault(current[0], [])
+
+        def record(key):
+            out = sample(key)
+            sink.append((tuple(key), [t.clone() for t in
+                                      (out[0], out[1], *out[4].values(), out[5])]))
+            return out
+
+        return record
+
+    current = [None]
+    device_data.make_device_sampler = recording_sampler
+    try:
+        # the first fit: 2 epochs, its launches counted
+        current[0] = "first"
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        first = fit_run(sets, root, "first", 2)
+        launches = dict(_build.launches)
+        missing = [n for n in FIT_KERNELS if not launches.get(n)]
+        if missing:
+            raise AssertionError(f"fit launched no {missing}: {launches}")
+        check_fit_log(first["log"], "first fit")
+        files = sorted(os.listdir(os.path.join(root, "first", "checkpoints", "experiments")))
+        want_files = ["run_best", "run_epoch2"]
+        if files != want_files or not all(
+                os.path.isfile(checkpoint_path(os.path.join(root, "first"), "run", e))
+                for e in ("best", 2)):
+            raise AssertionError(f"fit checkpoints {files}, expected {want_files}")
+        ckpt = checkpoint_path(os.path.join(root, "first"), "run", 2)
+        t = time.perf_counter()
+        save_checkpoint(os.path.join(root, "save"), "run", 2, first["state"])
+        torch.cuda.synchronize()
+        save_s = time.perf_counter() - t
+        ema = [ema_render_check(first, sets)]
+
+        # resume from _epoch2 for one epoch, beside an uninterrupted 3-epoch run
+        restored_step = []
+
+        def restore(model, opt, state):
+            t = time.perf_counter()
+            state = restore_checkpoint(os.path.join(root, "first"), "run", 2, state,
+                                       strict=True)
+            torch.cuda.synchronize()
+            restored_step.append((int(state.step), time.perf_counter() - t))
+            return state
+
+        current[0] = "resumed"
+        resumed = fit_run(sets, root, "resumed", 1, state_of=restore)
+        current[0] = "full"
+        full = fit_run(sets, root, "full", 3)
+        step0, restore_s = restored_step[0]
+        if step0 != 8 or int(resumed["state"].step) != 12 or int(full["state"].step) != 12:
+            raise AssertionError(f"restored step {step0}, resumed to "
+                                 f"{int(resumed['state'].step)}, full {int(full['state'].step)}")
+        got, want = draws["resumed"], draws["full"][8:]
+        if len(got) != 4 or len(want) != 4 or any(
+                a[0] != b[0] or not all(same_bits(x, y) for x, y in zip(a[1], b[1]))
+                for a, b in zip(got, want)):
+            raise AssertionError("the resumed run's sampler drew other batches than the "
+                                 "uninterrupted run's")
+        losses = lambda run: {r["step"]: r["loss"] for r in run["log"] if r["event"] == "train"}
+        lr, lf = losses(resumed), losses(full)
+        moved = [k for k, p in full["state"].params.items()
+                 if not same_bits(p, resumed["state"].params[k])]
+        if any(lr[s] != lf[s] for s in lr) or moved:
+            raise AssertionError(f"resumed run: losses {lr} vs the uninterrupted {lf}; "
+                                 f"parameters not bit for bit: {moved[:5]}")
+        check_fit_log(full["log"], "3-epoch fit")
+    finally:
+        device_data.make_device_sampler = real_sampler
+
+    # the host path: one more epoch from the resumed state, prefetched; the
+    # prefetched batches against the synchronous stream's
+    cfg = FitConfig(**{**FIT_CFG, "device_data": False, "prefetch": 2})
+    pre = list(PrefetchPipeline(sets["train"], SB_TRAIN, CHUNK, depth=2, device=DEV)
+               .epoch(epoch_seed=3, start_step=12))
+    sync = list(_epoch_inputs(sets["train"], cfg, 3, 12, 0, DEV))
+    flat = lambda x: [x[0], x[1], x[2], x[3], *x[4].values(), x[5]]
+    steps = list(range(12, 16))
+    if [g for g, _ in pre] != steps or [g for g, _ in sync] != steps or not all(
+            same_bits(a, b) for (_, p), (_, s) in zip(pre, sync)
+            for a, b in zip(flat(p), flat(s))):
+        raise AssertionError("the prefetched batches differ from the synchronous stream's")
+    host = fit_run(sets, root, "host", 1, device_data=False, prefetch=2,
+                   state_of=lambda m, o, s: restore_checkpoint(
+                       os.path.join(root, "resumed"), "run", 3, s, strict=True))
+    if int(host["state"].step) != 16 or not all(np.isfinite(host["losses"])):
+        raise AssertionError(f"host-path epoch: step {int(host['state'].step)}, losses "
+                             f"{host['losses']}")
+    # float32 (the JAX CLI's default dtype): one device-data epoch
+    f32 = fit_run(sets, root, "float32", 1, dtype=torch.float32)
+    if not all(np.isfinite(f32["losses"])):
+        raise AssertionError(f"float32 fit: losses {f32['losses']}")
+    ema.append(ema_render_check(f32, sets))
+
+    # the loop's own cost, in turns, cuDNN as in the runs above: fit's steps
+    # (8 epochs, no val and no checkpoint, a loss line every 2 steps; the
+    # first 2 intervals dropped) against the bare step's pairs, and the
+    # group-norm against the batch-norm bare step
+    bare_group, run_step = bare_step_ms(sets, "group")
+    timed = fit_run(sets, root, "timed", 8, val=False, save_root=None)
+    bare_batch, _ = bare_step_ms(sets, "batch")
+    bare_group2, _ = bare_step_ms(sets, "group")
+    fit_ms = clean_ms_per_step(timed["log"], warm=2)
+    prof = profile_frame(run_step, label="train_step_fit_group", out_dir=root)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+    # test_approximate on the val set with the EMA, and the random LPIPS archive
+    lp = os.path.join(root, "lpips_rand.npz")
+    np.savez(lp, **lpips_random_state(0))
+    ev = test_approximate(full["model"], full["state"], sets["val"], LossParams(),
+                          lpips_weights=lp, render_chunk=CHUNK, use_ema=True, device=DEV)
+    if set(ev) != {"psnr", "ssim", "loss", "count", "lpips_rand"} or ev["count"] != 4 or \
+            not all(np.isfinite(ev[k]) for k in ("psnr", "ssim", "loss", "lpips_rand")):
+        raise AssertionError(f"test_approximate: {ev}")
+
+    fit_med = float(np.median(fit_ms))
+    group_med = float(np.median(bare_group + bare_group2))
+    res = dict(
+        sets=dict(train=FIT_TRAIN, val=FIT_VAL, side=SIDE, generate_s=made_s),
+        first=dict(losses=first["losses"], seconds=first["seconds"],
+                   val=[{k: r[k] for k in ("step", "psnr", "ssim", "loss")}
+                        for r in first["log"] if r["event"] == "val"]),
+        checkpoint=dict(files=files, bytes=os.path.getsize(ckpt), save_s=save_s,
+                        restore_s=restore_s),
+        resume=dict(restored_step=step0, losses=lr, bitwise=True, sampler_draws_equal=True),
+        prefetch=dict(batches=len(pre), bitwise=True),
+        host=dict(losses=host["losses"], seconds=host["seconds"]),
+        float32=dict(losses=f32["losses"], seconds=f32["seconds"],
+                     ms_per_step=clean_ms_per_step(f32["log"], warm=0)),
+        ema_render=ema, test_approximate=ev,
+        fit_ms_per_step=fit_med, fit_step_ms=fit_ms,
+        rays_per_s=SB_TRAIN * CHUNK / fit_med * 1e3,
+        bare_ms_per_step=dict(group=group_med, batch=float(np.median(bare_batch))),
+        bare_step_ms=dict(group=bare_group, batch=bare_batch, group_again=bare_group2),
+        loop_ms_per_step=fit_med - group_med,
+        device_busy_ms=prof["device_busy_ms"],
+        device_busy_share_of_fit_step=prof["device_busy_ms"] / fit_med,
+        seconds=time.perf_counter() - t0)
+    shutil.rmtree(root, ignore_errors=True)
+    return res, launches
+
+
+def print_fit(res, launches):
+    print(f"fit: {res['fit_ms_per_step']:.2f} ms a step ({res['rays_per_s']:.0f} rays/s; "
+          f"steps {', '.join(f'{x:.2f}' for x in res['fit_step_ms'])}) against the bare "
+          f"device-data step's {res['bare_ms_per_step']['group']:.2f} ms: the loop's own "
+          f"{res['loop_ms_per_step']:.2f} ms a step; device busy {res['device_busy_ms']:.2f} ms a "
+          f"step ({res['device_busy_share_of_fit_step']:.3f} of the fit step)")
+    b = res["bare_step_ms"]
+    fmt = lambda xs: ", ".join(f"{x:.2f}" for x in xs)
+    print(f"fit: bare step (medians of pairs) group norm {res['bare_ms_per_step']['group']:.2f} "
+          f"ms ({fmt(b['group'])}; again {fmt(b['group_again'])}), batch norm "
+          f"{res['bare_ms_per_step']['batch']:.2f} ms ({fmt(b['batch'])})")
+    print("fit val: " + "; ".join(f"step {v['step']} psnr {v['psnr']:.4f} ssim {v['ssim']:.4f} "
+                                  f"loss {v['loss']:.5f}" for v in res["first"]["val"]))
+    print(f"fit test_approximate (EMA, random LPIPS): {res['test_approximate']}")
+    c = res["checkpoint"]
+    print(f"fit checkpoint: {c['files']}, {c['bytes']} bytes, save {c['save_s']:.3f} s, "
+          f"restore {c['restore_s']:.3f} s")
+    print(f"fit resume: restored step {res['resume']['restored_step']}, losses "
+          f"{res['resume']['losses']} bit for bit the uninterrupted run's, the sampler's draws "
+          f"too; prefetch: {res['prefetch']['batches']} batches bit for bit the synchronous "
+          f"stream's; host path losses {res['host']['losses']}; float32 losses "
+          f"{res['float32']['losses']} ({res['float32']['ms_per_step']} ms a step)")
+    print(f"fit EMA render: {res['ema_render']}")
+    print(f"fit launches (train_fit): {launches}; phase {res['seconds']:.1f} s "
+          f"(sets made in {res['sets']['generate_s']:.1f} s)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3161,6 +3595,11 @@ def main() -> int:
                   if a.startswith("--march-draws=")), 0)
     if draws:
         march_draws(draws)
+        return 0
+    if "--fit" in sys.argv[1:]:
+        res, launches = run_fit()
+        print_fit(res, launches)
+        print(json.dumps({"fit": res, "launches": launches}))
         return 0
     profile = "--profile" in sys.argv[1:]
     out_dir = next((a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--out=")),
@@ -3226,7 +3665,10 @@ def main() -> int:
             train[path]["profile"] = profile_frame(run_step, label=f"train_step_{path}",
                                                    out_dir=out_dir)
         del run_step
-    results = {"serve": serve, "train": train, "float32": float32,
+    fit_res, fit_launches = run_fit()
+    print_fit(fit_res, fit_launches)
+    train["fit"] = {"launches": fit_launches}
+    results = {"serve": serve, "train": train, "float32": float32, "fit": fit_res,
                "vr_one_vs_8_chunks": check_vr_chunks(),
                "adaptive_rerun": check_adaptive_rerun() + check_adaptive_rerun(torch.float32),
                "reference": check_small_reference() + check_small_train()

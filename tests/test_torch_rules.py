@@ -11,7 +11,10 @@
 * CPU tensors take the plain versions and never touch the kernel library,
   on the default adaptive path and on the fused one (K5's gather, K4's
   band integral), and with the legacy threefry key (K7's draws) for every
-  renderer and the device-data train step.
+  renderer and the device-data train step, and in a CPU ``fit`` (both data
+  paths, validation and checkpoints included).
+* ``fit`` (device-data path and host path), ``test_approximate``,
+  ``LPIPS`` and the step-input assembly default to the card too.
 """
 
 import ast
@@ -161,8 +164,87 @@ def test_the_scan_covers_the_kernel_wrappers():
 
 def test_the_scan_covers_the_data_package():
     names = {str(p.relative_to(ROOT)) for p in _port_files()}
-    for mod in ("__init__", "device", "synthetic"):
+    for mod in ("__init__", "device", "synthetic", "dataset", "sampling", "prefetch"):
         assert f"avr_tpu_torch/data/{mod}.py" in names
+
+
+def test_the_scan_covers_the_training_loop_and_utils():
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for mod in ("training/loop", "training/checkpoint", "utils/metrics", "utils/logging",
+                "utils/lpips", "evaluation"):
+        assert f"avr_tpu_torch/{mod}.py" in names
+
+
+def _fit_args(tmp_path, device_data, **kw):
+    from avr_tpu_torch.data.dataset import SceneClassDataset
+    from avr_tpu_torch.data.synthetic import synthetic_scene_mapping
+    from avr_tpu_torch.training import FitConfig, LossParams, create_train_state, make_optimizer
+
+    model = make_model(_tiny_conf(), dtype=torch.float32, seed=6, device="cpu",
+                       norm_type="group")
+    opt = make_optimizer(1e-3)
+    cfg = FitConfig(epochs=1, batch_size=2, ray_batch_size=16, steps_print=1, steps_val=2,
+                    val_scenes=1, render_chunk=64, rng_mode="legacy",
+                    device_data=device_data, save_root=str(tmp_path), **kw)
+    return (model, create_train_state(model, opt, ema=True), opt,
+            SceneClassDataset(synthetic_scene_mapping(4, 3, 16)),
+            SceneClassDataset(synthetic_scene_mapping(1, 2, 16, seed=1)), LossParams(), cfg)
+
+
+@pytest.mark.parametrize("device_data", [True, False])
+def test_fit_defaults_to_the_card(monkeypatch, tmp_path, device_data):
+    from avr_tpu_torch.training import fit
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = _fit_args(tmp_path, device_data)
+    _build.reset_launches()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fit(*args)
+    assert int(args[1].step) == 0 and not _build.launches
+    assert not (tmp_path / "checkpoints").exists()
+
+
+def test_evaluation_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    from avr_tpu_torch.data.dataset import SceneClassDataset
+    from avr_tpu_torch.data.synthetic import synthetic_scene_mapping
+    from avr_tpu_torch.training import LossParams, create_train_state, make_optimizer
+    from avr_tpu_torch.training.loop import assemble_step_inputs
+    from avr_tpu_torch.utils.lpips import LPIPS, random_state
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = make_model(_tiny_conf(), dtype=torch.float32, device="cpu")
+    dset = SceneClassDataset(synthetic_scene_mapping(1, 2, 8))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluation.test_approximate(model, create_train_state(model, make_optimizer(1e-3)),
+                                    dset, LossParams())
+    path = str(tmp_path / "lpips.npz")
+    np.savez(path, **random_state(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LPIPS(path)
+    batch = next(dset.batches(1, epoch_seed=0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        assemble_step_inputs(np.random.default_rng(0), batch, 8)
+
+
+@pytest.mark.parametrize("device_data", [True, False])
+def test_cpu_fit_never_touches_the_kernel_library(tmp_path, device_data):
+    from avr_tpu_torch.training import fit
+
+    args = _fit_args(tmp_path, device_data, prefetch=2)
+    _build.reset_launches()
+    state, losses = fit(*args, device="cpu")
+    assert int(state.step) == 2 and len(losses) == 1 and np.isfinite(losses[0])
+    assert sorted(p.name for p in (tmp_path / "checkpoints" / "experiments").iterdir()) == [
+        "run_best", "run_epoch1"]
+    assert not _build.launches
+    assert _build._lib is None, "the CPU fit loaded the CUDA kernel library"
+
+
+def test_fit_mesh_waits_for_the_parallel_port(tmp_path):
+    from avr_tpu_torch.training import fit
+
+    with pytest.raises(NotImplementedError, match="P9"):
+        fit(*_fit_args(tmp_path, False), mesh=object(), device="cpu")
 
 
 @pytest.mark.parametrize("renderer", ["", "VR", "Raymarcher"])
