@@ -69,9 +69,11 @@ def gather_rays(
     Mirrors reference train.py:71-85: flat ray indices over ``NV * sl^2``
     pixels, gathered x_pix / per-ray cam2world / gt colours.
 
-    ``impl``: "auto" and "numpy" take the numpy gather.  "native" (JAX's
-    C++ gather, ``csrc/ray_gather.cpp``, bit for bit the numpy one) raises:
-    the port has no ``data/native.py`` yet.
+    ``impl``: "auto" and "native" take the C++ gather
+    (``avr_tpu_torch/csrc/ray_gather.cpp``, on the calling thread, built at
+    first use by :mod:`avr_tpu_torch.data.native`; a failed build raises);
+    "numpy" the numpy gather, its plain twin.  The indices are sampled in
+    numpy either way, so both give the same arrays bit for bit.
 
     Returns:
       (model_input dict with x_pix (SB,R,2), cam2world (SB,R,4,4),
@@ -82,10 +84,11 @@ def gather_rays(
 
     rays_idx = sample_ray_indices(rng, batch, ray_batch_size, with_bbox)
 
-    if impl == "native":
-        raise NotImplementedError("the native ray gather (data/native.py) is not ported; "
-                                  "impl='numpy' gives the same arrays")
-    if impl not in ("auto", "numpy"):
+    if impl in ("auto", "native"):
+        from avr_tpu_torch.data.native import gather_rays_native
+
+        return gather_rays_native(batch, rays_idx.astype(np.int64))
+    if impl != "numpy":
         raise ValueError(f"unknown gather impl {impl!r}")
 
     def take(flat: np.ndarray) -> np.ndarray:

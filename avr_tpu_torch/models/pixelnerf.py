@@ -106,6 +106,9 @@ class ModelConfig:
     # (avr_tpu/models/pixelnerf.py:529, wrapper.py:235): its parameters get
     # zero gradients; train-mode BatchNorm still updates its statistics
     stop_encoder_grad: bool = False
+    # BatchNorm in the decoder (JAX's --bn, avr_tpu/models/pixelnerf.py:127):
+    # not ported, check_supported refuses it
+    bn: bool = False
     # the decoder's backward, as JAX's fused_mlp values map to the kernel's
     # stash argument (avr_tpu/models/mlp.py:218-221): FUSED_MLP_STASH
     fused_mlp: str = "auto"
@@ -118,7 +121,7 @@ class ModelConfig:
     mlp_fine: MLPConfig = field(default_factory=MLPConfig)
 
     @classmethod
-    def from_conf(cls, conf):
+    def from_conf(cls, conf, stop_encoder_grad: bool = False, bn: bool = False):
         return cls(
             use_encoder=conf.get_bool("use_encoder", True),
             use_global_encoder=conf.get_bool("use_global_encoder", False),
@@ -127,6 +130,8 @@ class ModelConfig:
             use_code=conf.get_bool("use_code", False),
             use_code_viewdirs=conf.get_bool("use_code_viewdirs", True),
             use_viewdirs=conf.get_bool("use_viewdirs", False),
+            stop_encoder_grad=stop_encoder_grad,
+            bn=bn,
             encoder=EncoderConfig.from_conf(conf["encoder"]),
             code=CodeConfig.from_conf(conf["code"]) if "code" in conf else CodeConfig(),
             mlp_coarse=MLPConfig.from_conf(conf["mlp_coarse"]),
@@ -134,7 +139,8 @@ class ModelConfig:
         )
 
     def check_supported(self) -> None:
-        """The port covers the serving configuration of ``conf/default*.conf``."""
+        """The port covers the serving configuration of ``conf/default*.conf``;
+        the rest waits for ROADMAP Queue 1, P10."""
         want = dict(use_encoder=True, use_global_encoder=False, use_xyz=True,
                     normalize_z=True, use_code=True, use_code_viewdirs=False,
                     use_viewdirs=True)
@@ -147,8 +153,11 @@ class ModelConfig:
             bad["fused_mlp"] = self.fused_mlp  # "never": a plain path on the card
         if self.gather_impl not in GATHER_IMPLS:
             bad["gather_impl"] = self.gather_impl  # "xla": a plain path on the card
+        if self.bn:
+            bad["bn"] = True  # BatchNorm in the decoder
         if bad:
-            raise NotImplementedError(f"avr_tpu_torch does not port these settings yet: {bad}")
+            raise NotImplementedError(f"avr_tpu_torch does not port these settings yet "
+                                      f"(ROADMAP Queue 1, P10): {bad}")
 
 
 @dataclass

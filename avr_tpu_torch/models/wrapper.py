@@ -30,7 +30,8 @@ from avr_tpu_torch.renderers.raymarch import lstm_march, render_raymarcher
 from avr_tpu_torch.renderers.volume import render_volume
 from avr_tpu_torch.utils.device import resolve_device
 
-__all__ = ["RadFieldRenderer", "make_model", "init_weights", "bench_weights", "add_sigma_bias"]
+__all__ = ["RadFieldRenderer", "make_model", "init_weights", "bench_weights", "add_sigma_bias",
+           "FUSED_MARCH"]
 
 DEFAULT_CONF = os.path.join(os.path.dirname(__file__), "..", "..", "conf", "default_mv.conf")
 
@@ -182,11 +183,19 @@ def add_sigma_bias(model: RadFieldRenderer, value: float) -> None:
                 head.lin_out.bias[3] += value
 
 
+# JAX's fused_march values (avr_tpu/models/wrapper.py:48-52): "auto" and
+# "always" run K3 (its plain version on CPU tensors); "never" is JAX's
+# lax.scan march, a plain path on the card, which waits for ROADMAP Queue 1, P10
+FUSED_MARCH = ("auto", "always")
+
+
 def make_model(conf: Union[str, Conf, None] = None, dtype: torch.dtype = torch.bfloat16,
                seed: int = 0, device: Optional[Union[str, torch.device]] = None,
                renderer: str = "", gather_impl: str = "auto",
                fused_integral: str = "never", norm_type: str = "batch",
-               stop_encoder_grad: bool = False) -> RadFieldRenderer:
+               stop_encoder_grad: bool = False, raymarch_steps: int = 10,
+               fused_mlp: str = "auto", fused_march: str = "auto",
+               bn: bool = False) -> RadFieldRenderer:
     """The model at the width of ``conf`` (default ``conf/default_mv.conf``)
     with seeded weights by JAX's scheme (:func:`init_weights`), on the card
     unless ``device`` says otherwise.  ``renderer`` is the experiment name whose prefix picks the
@@ -199,15 +208,25 @@ def make_model(conf: Union[str, Conf, None] = None, dtype: torch.dtype = torch.b
     path of the JAX package's ``--gather_impl pallas_proj`` and
     ``fused_integral``.  ``norm_type`` is the encoder's norm (JAX's
     ``--norm_type``: ``"batch"``, ``"group"``, ``"instance"``, ``"none"``)
-    and ``stop_encoder_grad`` keeps gradients out of the encoder."""
+    and ``stop_encoder_grad`` keeps gradients out of the encoder.
+
+    The JAX CLI's other model flags: ``raymarch_steps`` the Raymarcher's
+    march steps (``renderer_config_from_conf``'s argument; the adaptive
+    renderer reads its conf), ``fused_mlp`` the decoder's backward
+    (``FUSED_MLP_STASH``), ``fused_march`` in :data:`FUSED_MARCH`, ``bn``
+    (refused: ``ModelConfig.check_supported``)."""
+    if fused_march not in FUSED_MARCH:
+        raise NotImplementedError(
+            f"fused_march={fused_march!r} is JAX's lax.scan march, a plain path on the card; "
+            f"the port runs {FUSED_MARCH} (the rest waits for ROADMAP Queue 1, P10)")
     dev = resolve_device(device)
     if conf is None or isinstance(conf, str):
         conf = parse_conf(conf or DEFAULT_CONF)
-    model_cfg = ModelConfig.from_conf(conf["model"])
+    model_cfg = ModelConfig.from_conf(conf["model"], stop_encoder_grad=stop_encoder_grad, bn=bn)
     model_cfg = dataclasses.replace(
-        model_cfg, gather_impl=gather_impl, stop_encoder_grad=stop_encoder_grad,
+        model_cfg, gather_impl=gather_impl, fused_mlp=fused_mlp,
         encoder=dataclasses.replace(model_cfg.encoder, norm_type=norm_type))
-    model = RadFieldRenderer(model_cfg, renderer_config_from_conf(conf, renderer), dtype,
-                             fused_integral)
+    model = RadFieldRenderer(model_cfg, renderer_config_from_conf(conf, renderer, raymarch_steps),
+                             dtype, fused_integral)
     init_weights(model, seed)
     return model.to(dev).eval()

@@ -26,12 +26,11 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
+from avr_tpu_torch._paths import BUILD_DIR, CSRC
+
 __all__ = ["launches", "reset_launches", "load_library", "kernel_fn", "check",
            "check_cuda_inputs", "ptr", "stream_ptr", "build_info"]
 
-_PKG = Path(__file__).resolve().parents[2]
-CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
 SOURCES = ("gather.cu", "resnetfc.cu", "resnetfc_hopper.cu", "march.cu", "integrate.cu", "rng.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -57,8 +56,9 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
+    # the kernels' sources and headers; the host's ray_gather.cpp is not built here
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for name in sorted(os.listdir(CSRC)):
+    for name in sorted({*SOURCES, *(n for n in os.listdir(CSRC) if n.endswith(".cuh"))}):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

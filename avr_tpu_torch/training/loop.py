@@ -63,9 +63,9 @@ Device = Optional[Union[str, torch.device]]
 @dataclasses.dataclass
 class FitConfig:
     """JAX's ``FitConfig``: the same fields and defaults, but two that
-    ``fit`` does not read (``starting_epoch``, which JAX's CLI reads, and
-    ``step_impl``, the sharded step's flavour); they come with the CLI and
-    ``parallel/``."""
+    ``fit`` does not read (``starting_epoch``, which the CLI reads for its
+    restore and its losses file, and ``step_impl``, the sharded step's
+    flavour, which the CLI refuses until ``parallel/``, P9)."""
 
     epochs: int = 50
     batch_size: int = 4

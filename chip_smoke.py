@@ -153,6 +153,27 @@ Phases (any failure raises and exits non-zero):
    against the batch-norm step, the val PSNR/SSIM, ``test_approximate``'s
    result, a checkpoint's bytes and save and restore seconds.
 
+7. The CLIs (``avr_tpu_torch/cli``), the way a user starts the system, at
+   full ``conf/default_mv.conf`` width on phase 6's in-memory sets (the SRN
+   layout as mappings, through ``cli.train.run``'s sources), each case with
+   the launch counters reset before and read after: ``cli.train`` at JAX's
+   defaults (float32, ``per_ray``, the host path with prefetch and the
+   native ray gather, batch norm; SB 4 x 1,024 rays, 2 epochs of 4 steps,
+   validation every 4 steps) under ``--profile_dir``; the quality runs'
+   recipe in bf16 (``--device_data --rng_mode legacy --norm_type group
+   --ema_decay 0.999 --lr_schedule cosine --ray_batch_size 4096``), which
+   saves ``_best`` and ``_epoch2``, then resumes one epoch from ``_epoch2``
+   with ``--schedule_total_epochs``; one epoch with ``--gather_impl
+   pallas_proj`` (K5); one epoch of the VR; an ``--encoder_weights`` warm
+   start from a torchvision-layout archive of seeded draws (the trunk
+   holds the archive's tensors when ``fit`` starts); ``cli.test`` on
+   ``_best`` with ``--use_ema`` and the random-VGG LPIPS archive;
+   ``cli.video`` of 4 frames; ``profiling.analyze`` on the first run's
+   trace (device-busy share, top kernels).  K1, K2 and K3 must launch
+   forward and backward in float32 (the first run) and bf16 (the recipe),
+   K7 in the recipe, K5 in the K5 run.  The kernels line carries each
+   kernel's launches in these cases (``cli``, ``cli_by_case``).
+
 Prints the kernel table as one JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``; every case in full
 goes to ``DIR/chip_smoke_report.json`` (default ``traces/``), with the
@@ -167,6 +188,10 @@ JSON line per draw and head.
     python3 chip_smoke.py --fit
 
 runs only phase 6 and prints its report as one JSON line.
+
+    python3 chip_smoke.py --cli
+
+runs only phase 7 and prints its report as one JSON line.
 """
 
 from __future__ import annotations
@@ -3571,6 +3596,253 @@ def print_fit(res, launches):
           f"(sets made in {res['sets']['generate_s']:.1f} s)")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the CLIs
+# ---------------------------------------------------------------------------
+
+# the kernels each dtype's train cases must launch, forward and backward:
+# K1, K2 and K3 (by the counters of the dtype's own routes)
+CLI_F32_KERNELS = ("gather_bilinear", "gather_bilinear_bwd", K2.NAME_F32, K2.NAME_DGRAD_F32,
+                   K2.NAME_WGRAD_F32, K3.NAME_F32, K3.NAME_BWD_F32)
+CLI_BF16_KERNELS = ("gather_bilinear", "gather_bilinear_bwd", K2.NAME_WGMMA, K2.NAME_STASH,
+                    K2.NAME_DGRAD, K2.NAME_WGRAD, K3.NAME_TILES, K3.NAME_BWD_TILES)
+# (case, kernels it must launch)
+CLI_REQUIRED = {"default": CLI_F32_KERNELS, "bf16_recipe": CLI_BF16_KERNELS + (K7.NAME,
+                                                                                K7.NAME_BITS),
+                "proj": ("gather_bilinear_projected", "gather_bilinear_projected_bwd")}
+CLI_BATCH, CLI_RAYS = "4", "1024"
+
+
+def torchvision_npz(path, seed=0, backbone="resnet34"):
+    """A torchvision ResNet state dict's layout (``np.savez``) of seeded
+    numpy draws: the stem and the three stages the encoder's trunk keeps
+    (``num_layers = 4``)."""
+    from avr_tpu_torch.models.resnet import RESNET_STAGES
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def bn(name, c):
+        sd[f"{name}.weight"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+        sd[f"{name}.bias"] = (0.1 * rng.standard_normal(c)).astype(np.float32)
+        sd[f"{name}.running_mean"] = (0.1 * rng.standard_normal(c)).astype(np.float32)
+        sd[f"{name}.running_var"] = rng.uniform(0.5, 2.0, c).astype(np.float32)
+
+    def conv(name, o, i, k):
+        sd[name] = (rng.standard_normal((o, i, k, k)) / np.sqrt(i * k * k)).astype(np.float32)
+
+    conv("conv1.weight", 64, 3, 7)
+    bn("bn1", 64)
+    blocks, chans = RESNET_STAGES[backbone]
+    c_in = 64
+    for s in range(3):
+        for b in range(blocks[s]):
+            t = f"layer{s + 1}.{b}"
+            conv(f"{t}.conv1.weight", chans[s], c_in, 3)
+            bn(f"{t}.bn1", chans[s])
+            conv(f"{t}.conv2.weight", chans[s], chans[s], 3)
+            bn(f"{t}.bn2", chans[s])
+            if b == 0 and s > 0:
+                conv(f"{t}.downsample.0.weight", chans[s], c_in, 1)
+                bn(f"{t}.downsample.1", chans[s])
+            c_in = chans[s]
+    np.savez(path, **sd)
+    return sd
+
+
+def cli_log(root, name):
+    with open(os.path.join(root, "logs", f"{name}.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def cli_ms_per_step(log):
+    """ms a step between consecutive loss lines with no val or checkpoint
+    between them (the log's own clock, ms resolution)."""
+    out, prev = [], None
+    for r in log:
+        if r["event"] == "train":
+            if prev is not None and prev[1]:
+                out.append((r["t"] - prev[0]["t"]) * 1e3 / (r["step"] - prev[0]["step"]))
+            prev = (r, True)
+        elif prev is not None:
+            prev = (prev[0], False)
+    return out
+
+
+def run_cli():
+    """Phase 7: the port's CLIs at full ``conf/default_mv.conf`` width on
+    in-memory synthetic sets (phase 6's), each case with the launch
+    counters reset before and read after.  Returns the report and each
+    case's launches."""
+    import shutil
+    import tempfile
+
+    from avr_tpu_torch.cli import test as cli_test
+    from avr_tpu_torch.cli import train as cli_train
+    from avr_tpu_torch.cli import video as cli_video
+    from avr_tpu_torch.profiling import analyze
+
+    t0 = time.perf_counter()
+    sets = dict(train=synthetic_scene_mapping(*FIT_TRAIN, side=SIDE, seed=0),
+                val=synthetic_scene_mapping(*FIT_VAL, side=SIDE, seed=1))
+    made_s = time.perf_counter() - t0
+    root = tempfile.mkdtemp(prefix="cli_")
+    launches, res = {}, dict(sets=dict(train=FIT_TRAIN, val=FIT_VAL, side=SIDE, generate_s=made_s))
+
+    def case(name, fn):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = dict(_build.launches)
+        res.setdefault(name, {})["seconds"] = time.perf_counter() - t
+        missing = [k for k in CLI_REQUIRED.get(name, ()) if not launches[name].get(k)]
+        if missing:
+            raise AssertionError(f"cli {name}: no launch of {missing}: {launches[name]}")
+        return out
+
+    def train(name, run_name, *flags, start=0, epochs=2):
+        run_root = os.path.join(root, run_name)
+        argv = ["--root_dir", run_root, "--loss_mode", "both", "--renderer", run_name,
+                "--starting_epoch", str(start), "--epochs", str(epochs), "--sl", str(SIDE),
+                "--batch_size", CLI_BATCH, "--steps_print", "2", "--steps_val", "4", *flags]
+        opt = cli_train.build_parser().parse_args(argv)
+        # a resumed run appends to its first run's log: keep its own records
+        seen = len(cli_log(run_root, run_name)) if start else 0
+        state = case(name, lambda: cli_train.run(opt, device=DEV, train_source=sets["train"],
+                                                 val_source=sets["val"]))
+        log = cli_log(run_root, run_name)[seen:]
+        losses = [r["loss"] for r in log if r["event"] == "train"]
+        if not losses or not all(np.isfinite(losses)):
+            raise AssertionError(f"cli {name}: losses {losses}")
+        ms = cli_ms_per_step(log)
+        res[name].update(step=int(state.step), losses=losses, ms_per_step=ms,
+                         ms_per_step_median=float(np.median(ms)) if ms else None,
+                         val=[{k: r[k] for k in ("step", "psnr", "ssim", "loss")}
+                              for r in log if r["event"] == "val"],
+                         checkpoints=sorted(os.listdir(os.path.join(
+                             run_root, "checkpoints", "experiments"))))
+        return state
+
+    # 1. JAX's defaults: float32, per_ray, the host path (prefetch 2, the
+    #    native gather), batch norm; traced by --profile_dir
+    prof_dir = os.path.join(root, "prof")
+    train("default", "AVR_cli", "--ray_batch_size", CLI_RAYS, "--profile_dir", prof_dir)
+    # 2. the quality runs' recipe in bf16, then a resume from _epoch2
+    recipe = ("--dtype", "bf16", "--device_data", "--rng_mode", "legacy", "--norm_type", "group",
+              "--ema_decay", "0.999", "--lr_schedule", "cosine", "--ray_batch_size", "4096",
+              "--schedule_total_epochs", "3")
+    train("bf16_recipe", "AVR_bf16", *recipe)
+    if res["bf16_recipe"]["checkpoints"] != ["AVR_bf16_best", "AVR_bf16_epoch2"]:
+        raise AssertionError(f"cli bf16_recipe: checkpoints {res['bf16_recipe']['checkpoints']}")
+    state = train("bf16_resume", "AVR_bf16", *recipe, start=2, epochs=1)
+    spe = FIT_TRAIN[0] // int(CLI_BATCH)  # steps an epoch
+    if int(state.step) != 3 * spe or "AVR_bf16_epoch3" not in res["bf16_resume"]["checkpoints"]:
+        raise AssertionError(f"cli bf16_resume: step {int(state.step)}, "
+                             f"{res['bf16_resume']['checkpoints']}")
+    del state
+    # 3. the adaptive renderer with K5's projected gather
+    train("proj", "AVR_proj", "--gather_impl", "pallas_proj", "--ray_batch_size", CLI_RAYS,
+          epochs=1)
+    # 4. the volume renderer
+    train("vr", "VR_cli", "--ray_batch_size", CLI_RAYS, epochs=1)
+    # 5. an encoder warm start from a torchvision-layout archive: the trunk
+    #    holds the archive's tensors when fit starts
+    npz = os.path.join(root, "resnet34.npz")
+    sd = torchvision_npz(npz)
+    start = {}
+    real_fit = cli_train.fit
+
+    def fit_snapshot(model, st, *a, **kw):
+        trunk = model.net.encoder.model
+        start.update({k: v.detach().cpu().clone() for k, v in trunk.state_dict().items()})
+        return real_fit(model, st, *a, **kw)
+
+    cli_train.fit = fit_snapshot
+    try:
+        train("encoder_weights", "AVR_warm", "--encoder_weights", npz, "--dtype", "bf16",
+              "--device_data", "--ray_batch_size", CLI_RAYS, epochs=1)
+    finally:
+        cli_train.fit = real_fit
+    tv = {"conv1.weight": "conv1.weight", "bn1.scale": "bn1.weight", "bn1.mean":
+          "bn1.running_mean", "bn1.var": "bn1.running_var"}
+    for s, blocks in enumerate((3, 4, 6)):
+        for b in range(blocks):
+            for part in ("conv1", "conv2"):
+                tv[f"stages.layer{s + 1}_block{b}.{part}.weight"] = f"layer{s + 1}.{b}.{part}.weight"
+    off = [k for k, v in tv.items() if not np.array_equal(start[k].numpy(), sd[v])]
+    if len(start) != 5 + 10 * 13 + 2 * 5 or off:
+        raise AssertionError(f"cli encoder_weights: {len(start)} trunk tensors, not the "
+                             f"archive's: {off[:5]}")
+    res["encoder_weights"].update(trunk_tensors=len(start), equal_to_archive=True)
+
+    # 6. cli.test on _best with the EMA and the random-VGG LPIPS archive
+    lp = os.path.join(root, "lpips_rand.npz")
+    np.savez(lp, **lpips_random_state(0))
+    bf16_root = os.path.join(root, "AVR_bf16")
+    common = ["--root_dir", bf16_root, "--renderer", "AVR_bf16", "--norm_type", "group",
+              "--sl", str(SIDE), "--data", "<in memory>"]
+    opt = cli_test.build_parser().parse_args(common + ["--epoch", "best", "--use_ema",
+                                                       "--lpips_weights", lp])
+    ev = case("test", lambda: cli_test.run(opt, device=DEV, data_source=sets["val"]))
+    if set(ev) != {"psnr", "ssim", "loss", "count", "lpips_rand"} or ev["count"] != FIT_VAL[0] \
+            or not all(np.isfinite(ev[k]) for k in ("psnr", "ssim", "loss", "lpips_rand")):
+        raise AssertionError(f"cli test: {ev}")
+    res["test"]["metrics"] = ev
+    # 7. cli.video: 4 orbit frames of _epoch2
+    out = os.path.join(root, "orbit.mp4")
+    opt = cli_video.build_parser().parse_args(common + ["--epoch", "2", "--num_frames", "4",
+                                                        "--out", out])
+    frames = case("video", lambda: cli_video.run(opt, device=DEV, data_source=sets["val"]))
+    written = [p for p in (out, os.path.splitext(out)[0] + ".npz") if os.path.exists(p)]
+    if len(frames) != 4 or any(f.shape != (SIDE, SIDE, 3) or f.dtype != np.uint8
+                               for f in frames) or len(written) != 1:
+        raise AssertionError(f"cli video: {len(frames)} frames, written {written}")
+    res["video"].update(path=os.path.basename(written[0]), frame_shape=list(frames[0].shape),
+                        frame_dtype=str(frames[0].dtype),
+                        frame_means=[float(f.mean()) for f in frames])
+    # 8. the analyzer on run 1's trace
+    t = time.perf_counter()
+    rows = analyze.op_breakdown(prof_dir)
+    busy = analyze.busy_share(prof_dir)
+    if not rows or (DEV.type == "cuda" and busy["busy_us"] is None):
+        raise AssertionError(f"cli analyze: no device lane in {prof_dir}: {busy}")
+    res["analyze"] = dict(busy, trace_bytes=sum(os.path.getsize(os.path.join(prof_dir, f))
+                                                for f in os.listdir(prof_dir)),
+                          top=[dict(op=n[:100], ms=us / 1e3, count=c) for n, us, c in rows[:12]],
+                          seconds=time.perf_counter() - t)
+    res["seconds"] = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    return res, launches
+
+
+def print_cli(res, launches):
+    for name in ("default", "bf16_recipe", "bf16_resume", "proj", "vr", "encoder_weights"):
+        r = res[name]
+        ms = ", ".join(f"{x:.1f}" for x in r["ms_per_step"])
+        med = r["ms_per_step_median"]
+        print(f"cli {name}: {r['seconds']:.1f} s, step {r['step']}, "
+              f"{'%.1f' % med if med is not None else '-'} ms a step between loss lines "
+              f"({ms}); losses {[round(x, 5) for x in r['losses']]}; val "
+              f"{[(v['step'], round(v['psnr'], 4), round(v['ssim'], 4)) for v in r['val']]}; "
+              f"checkpoints {r['checkpoints']}")
+    print(f"cli encoder_weights: {res['encoder_weights']['trunk_tensors']} trunk tensors equal "
+          f"to the archive's when fit starts")
+    print(f"cli test: {res['test']['seconds']:.1f} s, {res['test']['metrics']}")
+    v = res["video"]
+    print(f"cli video: {v['seconds']:.1f} s, {v['path']}, frames {v['frame_shape']} "
+          f"{v['frame_dtype']}, means {[round(x, 2) for x in v['frame_means']]}")
+    a = res["analyze"]
+    busy = ("no device lane" if a["busy_us"] is None else
+            f"device busy {a['busy_us'] / 1e3:.1f} ms ({a['share']:.4f})")
+    print(f"cli analyze (run 1's trace, {a['trace_bytes']} bytes): window "
+          f"{a['window_us'] / 1e3:.1f} ms, {busy}, {a['device_events']} device events; top: "
+          + "; ".join(f"{t['op'][:48]} {t['ms']:.1f} ms x{t['count']}" for t in a["top"][:6]))
+    print(f"cli launches: {launches}; phase {res['seconds']:.1f} s (sets made in "
+          f"{res['sets']['generate_s']:.1f} s)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3600,6 +3872,12 @@ def main() -> int:
         res, launches = run_fit()
         print_fit(res, launches)
         print(json.dumps({"fit": res, "launches": launches}))
+        return 0
+    if "--cli" in sys.argv[1:]:
+        res, launches = run_cli()
+        print_cli(res, launches)
+        print(json.dumps({"cli": res, "launches": launches, "card": smi}))
+        print(smi)
         return 0
     profile = "--profile" in sys.argv[1:]
     out_dir = next((a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--out=")),
@@ -3668,7 +3946,10 @@ def main() -> int:
     fit_res, fit_launches = run_fit()
     print_fit(fit_res, fit_launches)
     train["fit"] = {"launches": fit_launches}
+    cli_res, cli_launches = run_cli()
+    print_cli(cli_res, cli_launches)
     results = {"serve": serve, "train": train, "float32": float32, "fit": fit_res,
+               "cli": dict(cli_res, launches=cli_launches),
                "vr_one_vs_8_chunks": check_vr_chunks(),
                "adaptive_rerun": check_adaptive_rerun() + check_adaptive_rerun(torch.float32),
                "reference": check_small_reference() + check_small_train()
@@ -3705,9 +3986,12 @@ def main() -> int:
         by_path = {path: sum(counts.get(n, 0) for n in names) for path, counts in paths.items()}
         if not sum(by_path.values()):
             raise AssertionError(f"{k['name']} was never launched on a main path")
+        # phase 7's cases (each dtype's own), under the row's names
+        cli_counts = {case: sum(counts.get(n, 0) for n in names)
+                      for case, counts in cli_launches.items()}
         k.update(route="cuda", launches=sum(by_path.values()), launches_by_path=by_path,
                  max_abs_err=err, max_err=err, tol=max(c["tol"] for c in plain),
-                 kernel_ms=k["ms"])
+                 kernel_ms=k["ms"], cli=sum(cli_counts.values()), cli_by_case=cli_counts)
     # every case in full to a file; the printed line keeps one worst case each
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke_report.json"), "w") as f:

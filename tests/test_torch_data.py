@@ -205,12 +205,12 @@ def test_sampling_equals_jax(batch, with_bbox):
     _same(tsamp.bbox_sample(np.random.default_rng(6), batch["bbox"][0], 30),
           jsamp.bbox_sample(np.random.default_rng(6), batch["bbox"][0], 30))
     want = jsamp.gather_rays(np.random.default_rng(7), batch, 40, with_bbox, impl="numpy")
-    for impl in ("numpy", "auto"):
+    for impl in ("numpy", "auto", "native"):
         got = tsamp.gather_rays(np.random.default_rng(7), batch, 40, with_bbox, impl=impl)
         _same(got[0], want[0])
         _same(got[1], want[1])
-    with pytest.raises(NotImplementedError, match="native"):
-        tsamp.gather_rays(np.random.default_rng(7), batch, 40, impl="native")
+    with pytest.raises(ValueError, match="impl"):
+        tsamp.gather_rays(np.random.default_rng(7), batch, 40, impl="xla")
 
 
 @pytest.mark.parametrize("ns, fixed", [(1, None), (2, None), (2, [1, 3])])

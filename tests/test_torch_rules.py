@@ -14,7 +14,8 @@
   renderer and the device-data train step, and in a CPU ``fit`` (both data
   paths, validation and checkpoints included).
 * ``fit`` (device-data path and host path), ``test_approximate``,
-  ``LPIPS`` and the step-input assembly default to the card too.
+  ``LPIPS`` and the step-input assembly default to the card too, as do the
+  CLIs' ``main`` (train, test, video) and the demo's.
 """
 
 import ast
@@ -124,6 +125,21 @@ def test_entry_points_default_to_the_card(monkeypatch):
                                      8, PRNGKey(0))
     with pytest.raises(RuntimeError, match="CUDA"):
         build_device_dataset(synthetic_scene_set(1, 2, 8))
+    from avr_tpu_torch.cli import test as cli_test
+    from avr_tpu_torch.cli import train as cli_train
+    from avr_tpu_torch.cli import video as cli_video
+    from avr_tpu_torch.examples import train_synthetic
+
+    mains = {cli_train.main: ["--root_dir", "r", "--loss_mode", "both", "--renderer", "AVR",
+                              "--starting_epoch", "0"],
+             cli_test.main: ["--root_dir", "r", "--renderer", "AVR", "--epoch", "1",
+                             "--data", "d.h5"],
+             cli_video.main: ["--root_dir", "r", "--renderer", "AVR", "--epoch", "1",
+                              "--data", "d.h5"],
+             train_synthetic.main: ["--workdir", "w"]}
+    for main, argv in mains.items():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(argv)
 
 
 @pytest.mark.parametrize("path", PATHS)
@@ -166,6 +182,14 @@ def test_the_scan_covers_the_data_package():
     names = {str(p.relative_to(ROOT)) for p in _port_files()}
     for mod in ("__init__", "device", "synthetic", "dataset", "sampling", "prefetch"):
         assert f"avr_tpu_torch/data/{mod}.py" in names
+
+
+def test_the_scan_covers_the_clis_and_tools():
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for mod in ("cli/__init__", "cli/train", "cli/test", "cli/video", "examples/__init__",
+                "examples/train_synthetic", "profiling/analyze", "data/native",
+                "models/torch_import", "utils/debug", "utils/viz", "utils/device"):
+        assert f"avr_tpu_torch/{mod}.py" in names
 
 
 def test_the_scan_covers_the_training_loop_and_utils():
