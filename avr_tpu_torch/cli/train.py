@@ -6,16 +6,26 @@ options, choices and defaults.  Runs on the card; ``main(argv,
 device="cpu")`` runs the plain versions of the kernels on the host.
 
 Flags the port cannot run yet raise, naming the ROADMAP item that brings
-them: ``--mesh``, ``--multihost`` and ``--step_impl gspmd`` (Queue 1, P9:
-``parallel/``); ``--bn``, ``--fused_mlp never``, ``--fused_march never`` and
+them: ``--bn``, ``--fused_mlp never``, ``--fused_march never`` and
 ``--gather_impl xla`` (Queue 1, P10: a BatchNorm decoder, and JAX's XLA
 paths, which would be plain PyTorch on the card).
+
+Several processes, one a device (``parallel/``): a launcher's environment
+or ``--multihost`` joins the process group (NCCL on the cards, gloo on the
+CPU), each process reads its own shard of the instances, and ``--mesh
+D,R`` trains one model over a ``(data, rays)`` mesh of the ranks with the
+``--step_impl`` flavour.  ``--multihost`` without a launcher runs one
+process.
 
 Example::
 
     python -m avr_tpu_torch.cli.train --root_dir ./runs --loss_mode both \\
         --renderer AVR_run1 --starting_epoch 0 --data ./data/cars_train.hdf5 \\
         --val_data ./data/cars_val.hdf5
+
+    python -m torch.distributed.run --nproc_per_node 4 -m avr_tpu_torch.cli.train \\
+        --mesh 2,2 --root_dir ./runs --loss_mode both --renderer AVR_run1 \\
+        --starting_epoch 0 --data ./data/cars_train.hdf5
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ import torch
 from avr_tpu_torch.data.dataset import SceneClassDataset
 from avr_tpu_torch.models.resnet import RESNET_STAGES
 from avr_tpu_torch.models.wrapper import DEFAULT_CONF, add_sigma_bias, make_model
+from avr_tpu_torch.parallel import make_mesh, multihost
 from avr_tpu_torch.training import (FitConfig, LossParams, create_train_state, fit,
                                     make_optimizer, restore_checkpoint)
 from avr_tpu_torch.utils.device import resolve_device
@@ -109,12 +120,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Config file (default conf/default_mv.conf)")
     # the JAX package's additions
     p.add_argument("--mesh", type=str, default=None,
-                   help="Mesh shape 'data,rays' (not ported: raises, ROADMAP P9)")
+                   help="Mesh shape 'data,rays' over the ranks, e.g. '2,4'; default "
+                        "one process, one device")
     p.add_argument("--step_impl", type=str, default="shardmap",
                    choices=["shardmap", "gspmd"],
-                   help="Mesh step flavour ('gspmd' not ported: raises, ROADMAP P9)")
+                   help="Mesh step flavour: each rank's own batch statistics and "
+                        "decorrelated legacy draws (shardmap, default), or the "
+                        "single-device step partitioned (gspmd)")
     p.add_argument("--multihost", action="store_true",
-                   help="Multi-host runtime (not ported: raises, ROADMAP P9)")
+                   help="Join the process group (torch.distributed; also done when a "
+                        "launcher's environment is present) and shard instances per "
+                        "process")
     p.add_argument("--device_data", action="store_true",
                    help="upload the whole scene set to the card once and draw batches "
                         "inside the train step (uniform sampling)")
@@ -156,15 +172,6 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "never", "always"],
                    help="LSTM ray-march kernel ('never' not ported: raises, ROADMAP P10)")
     return p
-
-
-def _refuse(opt: argparse.Namespace) -> None:
-    """The flags that wait for ``parallel/`` (ROADMAP Queue 1, P9)."""
-    for flag, on in (("--mesh", opt.mesh), ("--multihost", opt.multihost),
-                     ("--step_impl gspmd", opt.step_impl == "gspmd")):
-        if on:
-            raise NotImplementedError(f"{flag} needs parallel/, which is not ported yet "
-                                      "(ROADMAP Queue 1, P9)")
 
 
 def warm_start_encoder(model, path: str) -> None:
@@ -214,7 +221,17 @@ def run(opt: argparse.Namespace, *, device: Device = None,
     mapping in the SRN layout (``data/dataset.py``), for a machine without
     ``h5py``."""
     dev = resolve_device(device)
-    _refuse(opt)
+    mesh_shape = None
+    if opt.mesh:
+        mesh_shape = tuple(int(x) for x in opt.mesh.split(","))
+        if len(mesh_shape) != 2:
+            raise SystemExit(f"--mesh wants 'data,rays', got {opt.mesh!r}")
+    if opt.multihost or multihost.launched():
+        multihost.initialize(device=dev)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(mesh_shape) if mesh_shape else None
+    primary = multihost.is_primary()
     model = make_model(opt.conf or DEFAULT_CONF,
                        dtype=torch.bfloat16 if opt.dtype == "bf16" else torch.float32,
                        seed=opt.seed, device=dev, renderer=opt.renderer,
@@ -229,7 +246,8 @@ def run(opt: argparse.Namespace, *, device: Device = None,
         val_source = opt.val_data or os.path.join(opt.root_dir, "data", "cars_val.hdf5")
     train_dset = SceneClassDataset(
         train_source, img_sidelength=opt.sl, max_num_instances=opt.max_num_instances,
-        samples_per_instance=opt.samples_per_instance, seed=opt.seed)
+        samples_per_instance=opt.samples_per_instance, seed=opt.seed,
+        shard_index=multihost.process_index(), num_shards=multihost.process_count())
     val_dset = None
     if not isinstance(val_source, str) or os.path.exists(val_source):
         val_dset = SceneClassDataset(
@@ -242,7 +260,8 @@ def run(opt: argparse.Namespace, *, device: Device = None,
             raise SystemExit("--encoder_weights carries BatchNorm statistics; run with "
                              "--norm_type batch (the reference's pretrained configuration)")
         warm_start_encoder(model, opt.encoder_weights)
-        print(f"[train] encoder warm-started from {opt.encoder_weights}")
+        if primary:
+            print(f"[train] encoder warm-started from {opt.encoder_weights}")
     if opt.sigma_bias_init:
         add_sigma_bias(model, opt.sigma_bias_init)
 
@@ -261,18 +280,21 @@ def run(opt: argparse.Namespace, *, device: Device = None,
         epochs_save=opt.epochs_save, num_source_views=opt.num_source_views,
         save_root=opt.root_dir, run_name=opt.renderer, seed=opt.seed, prefetch=opt.prefetch,
         ema_decay=opt.ema_decay, save_best=not opt.no_save_best, rng_mode=opt.rng_mode,
-        device_data=opt.device_data)
+        device_data=opt.device_data, step_impl=opt.step_impl)
     loss_params = LossParams(loss_mode=opt.loss_mode,
                              depth_regularization=opt.depth_regularization,
                              depth_consistency=opt.depth_consistency)
 
     trace = contextlib.nullcontext()
-    if opt.profile_dir:
+    profile = opt.profile_dir and primary
+    if profile:
         from torch.profiler import ProfilerActivity, profile
 
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
         trace = profile(activities=acts)
-    logger = MetricsLogger(os.path.join(opt.root_dir, "logs"), name=opt.renderer)
+    # the primary process logs; the others keep quiet
+    logger = MetricsLogger(os.path.join(opt.root_dir, "logs") if primary else None,
+                           name=opt.renderer, stdout=primary)
     anomaly = torch.is_anomaly_enabled()
     try:
         if opt.anomaly_detection:
@@ -281,19 +303,20 @@ def run(opt: argparse.Namespace, *, device: Device = None,
             enable_nan_debugging(True)
         with trace as prof:
             state, mean_losses = fit(model, state, tx, train_dset, val_dset, loss_params,
-                                     fit_cfg, logger, device=dev)
+                                     fit_cfg, logger, mesh=mesh, device=dev)
     finally:
         torch.autograd.set_detect_anomaly(anomaly)
         logger.close()
-    if opt.profile_dir:
+    if profile:
         os.makedirs(opt.profile_dir, exist_ok=True)
         path = os.path.join(opt.profile_dir, f"{opt.renderer}.pt.trace.json")
         prof.export_chrome_trace(path)
         print(f"[train] torch.profiler trace: {path}")
-    os.makedirs(os.path.join(opt.root_dir, "logs"), exist_ok=True)
-    _losses_file(mean_losses, opt.starting_epoch,
-                 os.path.join(opt.root_dir, "logs",
-                              f"losses_{opt.renderer}_epoch{opt.starting_epoch}.png"))
+    if primary:
+        os.makedirs(os.path.join(opt.root_dir, "logs"), exist_ok=True)
+        _losses_file(mean_losses, opt.starting_epoch,
+                     os.path.join(opt.root_dir, "logs",
+                                  f"losses_{opt.renderer}_epoch{opt.starting_epoch}.png"))
     return state
 
 

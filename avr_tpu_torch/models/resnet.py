@@ -12,17 +12,44 @@ group, no scale and no bias) and ``"none"`` (the identity).  Module and
 parameter names follow the Flax tree so weights carry across by name
 (``models/flax_import.py``).  The convolutions stay cuDNN's: the JAX
 package has no Pallas kernel here.
+
+Inside :func:`batch_moments` train-mode BatchNorm reduces its batch moments
+with other ranks' (the partitioned step of ``parallel/sharded_step.py``,
+whose statistics are the global batch's, as XLA's partitioning of JAX's
+step makes them).
 """
 
 from __future__ import annotations
 
-from typing import List
+import contextlib
+from typing import Callable, Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["ResNetTrunk", "RESNET_STAGES", "BatchNorm", "GroupNorm", "Conv", "make_norm"]
+__all__ = ["ResNetTrunk", "RESNET_STAGES", "BatchNorm", "GroupNorm", "Conv", "make_norm",
+           "batch_moments"]
+
+Moments = Tuple[torch.Tensor, torch.Tensor]
+# reduces train-mode BatchNorm's (mean, E[x^2]) over other batches; None:
+# this batch's own
+_reduce_moments: Optional[Callable[[Moments], Moments]] = None
+
+
+@contextlib.contextmanager
+def batch_moments(reduce: Callable[[Moments], Moments]) -> Iterator[None]:
+    """Within the block, every train-mode :class:`BatchNorm` normalises with
+    ``reduce((mean, mean_sq))`` of its batch's float32 per-channel moments
+    (a differentiable mean over ranks: the global batch's moments when the
+    ranks' batches are equal in size), and updates its running statistics
+    with them."""
+    global _reduce_moments
+    prev, _reduce_moments = _reduce_moments, reduce
+    try:
+        yield
+    finally:
+        _reduce_moments = prev
 
 # (blocks per stage, channels per stage)
 RESNET_STAGES = {
@@ -69,8 +96,10 @@ class BatchNorm(nn.Module):
         view = lambda t: t.view(1, -1, 1, 1)
         xf = x.float()
         if train:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            mean, sq = xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))
+            if _reduce_moments is not None:
+                mean, sq = _reduce_moments((mean, sq))
+            var = torch.clamp(sq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1.0 - m) * mean)

@@ -23,8 +23,8 @@ import torch
 from avr_tpu_torch.ops import threefry
 
 __all__ = [
-    "RaySeeds", "KeyLike", "derive", "split_any", "hash_uniform", "hash_normal",
-    "global_ray_ids",
+    "RaySeeds", "KeyBlock", "KeyLike", "derive", "split_any", "hash_uniform", "hash_normal",
+    "global_ray_ids", "shard_ray_ids",
 ]
 
 _MASK = 0xFFFFFFFF
@@ -80,14 +80,36 @@ def derive(k0: int, k1: int, gids: torch.Tensor) -> RaySeeds:
     return RaySeeds(seeds=_fmix32(h ^ (int(k1) & _MASK)))
 
 
-KeyLike = Union[RaySeeds, threefry.Key]
+@dataclass(frozen=True)
+class KeyBlock:
+    """A threefry key whose draws are a block of the global batch's: a draw
+    of shape ``(SB, R, ...)`` is the draw of ``(SB_global, R_global, ...)``
+    with this key, sliced at ``(sb0, r0)``.  This is what a step that
+    partitions the single-device program (JAX's GSPMD step) draws with the
+    legacy key: every rank draws the global stream and keeps its block."""
+
+    key: threefry.Key
+    global_shape: tuple  # (SB_global, R_global)
+    offset: tuple  # (sb0, r0)
+
+    def take(self, draw, shape: Sequence[int], device) -> torch.Tensor:
+        """``draw(key, global shape, device)`` sliced to this block's ``shape``."""
+        (SB, R), (s0, r0) = self.global_shape, self.offset
+        full = draw(self.key, (SB, R, *shape[2:]), device)
+        return full[s0:s0 + shape[0], r0:r0 + shape[1]]
+
+
+KeyLike = Union[RaySeeds, threefry.Key, KeyBlock]
 
 
 def split_any(key: KeyLike, n: int = 2) -> list:
     """``n`` independent streams: static salt folds of a seed map, or
-    ``threefry.split`` of a threefry key (as JAX's ``split_any``)."""
+    ``threefry.split`` of a threefry key (as JAX's ``split_any``); a
+    :class:`KeyBlock`'s keys split and keep the block."""
     if isinstance(key, RaySeeds):
         return [key.fold(i + 1) for i in range(n)]
+    if isinstance(key, KeyBlock):
+        return [replace(key, key=k) for k in threefry.split(key.key, n)]
     return threefry.split(key, n)
 
 
@@ -128,3 +150,16 @@ def global_ray_ids(SB: int, R: int, device: torch.device | str = "cpu") -> torch
     s = torch.arange(SB, dtype=torch.int64, device=device)[:, None]
     r = torch.arange(R, dtype=torch.int64, device=device)[None, :]
     return (s * R + r) & _MASK
+
+
+def shard_ray_ids(SB_local: int, R_local: int, data_index: int, rays_index: int,
+                  rays_size: int, device: torch.device | str = "cpu") -> torch.Tensor:
+    """``(SB_local, R_local)`` global ids of the block at mesh coordinates
+    ``(data_index, rays_index)`` of a ``(data, rays)`` mesh whose rays axis
+    has ``rays_size`` ranks: the matching block of ``global_ray_ids(SB_local
+    * data_size, R_local * rays_size)`` (JAX's ``shard_ray_ids``, with the
+    axis indices given)."""
+    R_global = R_local * rays_size
+    s = data_index * SB_local + torch.arange(SB_local, dtype=torch.int64, device=device)
+    r = rays_index * R_local + torch.arange(R_local, dtype=torch.int64, device=device)
+    return (s[:, None] * R_global + r[None, :]) & _MASK

@@ -17,16 +17,20 @@ from __future__ import annotations
 import torch
 
 from avr_tpu_torch.ops import threefry
-from avr_tpu_torch.ops.hashrng import KeyLike, RaySeeds, hash_normal, hash_uniform, split_any
+from avr_tpu_torch.ops.hashrng import (KeyBlock, KeyLike, RaySeeds, hash_normal, hash_uniform,
+                                       split_any)
 
 __all__ = ["sample_coarse", "sample_fine", "sample_depth"]
 
 
 def _uniform_2d(key: KeyLike, shape, device, dtype=torch.float32) -> torch.Tensor:
     """A uniform draw of ``shape`` on ``device``: the per-ray hash for a
-    :class:`RaySeeds`, K7's threefry draw for a threefry key."""
+    :class:`RaySeeds`, K7's threefry draw for a threefry key (for a
+    :class:`KeyBlock`, the global draw's block)."""
     if isinstance(key, RaySeeds):
         return hash_uniform(key, shape).to(dtype)
+    if isinstance(key, KeyBlock):
+        return key.take(lambda k, s, d: threefry.uniform(k, s, d, dtype), shape, device)
     return threefry.uniform(key, shape, device, dtype)
 
 
@@ -34,6 +38,8 @@ def _normal_2d(key: KeyLike, shape, device, dtype=torch.float32) -> torch.Tensor
     """A standard normal draw of ``shape`` (see :func:`_uniform_2d`)."""
     if isinstance(key, RaySeeds):
         return hash_normal(key, shape).to(dtype)
+    if isinstance(key, KeyBlock):
+        return key.take(lambda k, s, d: threefry.normal(k, s, d, dtype), shape, device)
     return threefry.normal(key, shape, device, dtype)
 
 

@@ -16,9 +16,14 @@ them), best-val and epoch-tagged checkpoints.
   global step)`` and each epoch's data order from ``(seed, epoch index)``;
   a restored checkpoint carries its step, and ``fit`` skips to it inside
   its epoch, so a resumed run reproduces the uninterrupted one.
-* **Single process.** JAX's ``mesh=`` (the sharded step) waits for the
-  port of ``parallel/`` (ROADMAP Queue 1, P9) and raises here; the three
-  multi-host calls of JAX's loop are single-process helpers below.
+* **A mesh of ranks.** With ``mesh`` (``parallel/mesh.py``) the loop runs
+  the sharded step that ``cfg.step_impl`` picks (``"shardmap"`` or
+  ``"gspmd"``, ``parallel/sharded_step.py``): the state is replicated from
+  rank 0 once, every process assembles the global-batch-shaped step from
+  its own dataset shard and keeps its block (``shard_train_inputs``), and
+  the gradients are averaged over the ranks.  Logs come from the primary
+  process only; a checkpoint is written by the primary, and every rank
+  waits for it (a barrier) before it goes on.
 
 The loop runs on the card unless ``device`` says otherwise; the model must
 be on that device.
@@ -38,6 +43,7 @@ from avr_tpu_torch.data.dataset import SceneClassDataset
 from avr_tpu_torch.data.sampling import gather_rays
 from avr_tpu_torch.evaluation import render_full_image
 from avr_tpu_torch.ops import threefry
+from avr_tpu_torch.parallel import multihost
 from avr_tpu_torch.training.checkpoint import save_checkpoint
 from avr_tpu_torch.training.loss import LossParams, loss_fn
 from avr_tpu_torch.training.state import Optimizer, TrainState
@@ -62,10 +68,9 @@ Device = Optional[Union[str, torch.device]]
 
 @dataclasses.dataclass
 class FitConfig:
-    """JAX's ``FitConfig``: the same fields and defaults, but two that
+    """JAX's ``FitConfig``: the same fields and defaults, but one that
     ``fit`` does not read (``starting_epoch``, which the CLI reads for its
-    restore and its losses file, and ``step_impl``, the sharded step's
-    flavour, which the CLI refuses until ``parallel/``, P9)."""
+    restore and its losses file)."""
 
     epochs: int = 50
     batch_size: int = 4
@@ -97,19 +102,8 @@ class FitConfig:
     # the whole training set on the card, each step drawing its batch there
     # (data/device.py); uniform ray sampling only (no bbox)
     device_data: bool = False
-
-
-# single-process stand-ins for JAX's parallel/multihost.py (P9)
-def _is_primary() -> bool:
-    return True
-
-
-def _process_count() -> int:
-    return 1
-
-
-def _gather_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
-    return {k: float(v) for k, v in metrics.items()}
+    # the sharded step's flavour under a mesh: 'shardmap' or 'gspmd'
+    step_impl: str = "shardmap"
 
 
 def step_rng(seed: int, step: int) -> np.random.Generator:
@@ -174,17 +168,39 @@ def fit(model, state: TrainState, optimizer: Optimizer, train_dset: SceneClassDa
         device: Device = None) -> Tuple[TrainState, List[float]]:
     """Train; returns ``(state, mean epoch losses)``.  The state's
     parameters are the model's own and train in place; the returned state
-    is the last step's."""
+    is the last step's.  With ``mesh`` (a ``(data, rays)`` mesh of ranks,
+    ``parallel/mesh.py``) the loop runs the sharded step on every rank
+    (module docstring); ``cfg.batch_size`` and ``cfg.ray_batch_size`` are
+    the global batch's."""
     from avr_tpu_torch.data.prefetch import PrefetchPipeline
 
-    if mesh is not None:
-        raise NotImplementedError("fit(mesh=...) needs the sharded train step: parallel/ "
-                                  "is not ported yet (ROADMAP Queue 1, P9)")
     dev = resolve_device(device)
     logger = logger or MetricsLogger()
     base_key = threefry.PRNGKey(cfg.seed)
 
-    if cfg.device_data:
+    if mesh is not None:
+        from avr_tpu_torch.parallel.mesh import shard_train_inputs
+        from avr_tpu_torch.parallel.sharded_step import (make_sharded_train_step,
+                                                         make_shardmap_train_step,
+                                                         replicate_state)
+
+        if cfg.device_data:
+            raise ValueError("device_data is single-device only for now (the sharded step "
+                             "samples per-shard batches host-side)")
+        data_dim, rays_dim = (mesh.shape[a] for a in mesh.axis_names)
+        if cfg.batch_size % data_dim:
+            raise ValueError(f"batch_size {cfg.batch_size} not divisible by the mesh data "
+                             f"axis ({data_dim})")
+        if cfg.ray_batch_size % rays_dim:
+            raise ValueError(f"ray_batch_size {cfg.ray_batch_size} not divisible by the mesh "
+                             f"rays axis ({rays_dim})")
+        if cfg.step_impl not in ("shardmap", "gspmd"):
+            raise ValueError(f"unknown step_impl {cfg.step_impl!r}")
+        maker = make_sharded_train_step if cfg.step_impl == "gspmd" else make_shardmap_train_step
+        train_step = maker(model, optimizer, loss_params, mesh, ema_decay=cfg.ema_decay,
+                           rng_mode=cfg.rng_mode)
+        state = replicate_state(state, mesh)
+    elif cfg.device_data:
         if cfg.with_bbox:
             raise ValueError("device_data supports uniform ray sampling only (bbox sampling "
                              "is host-side)")
@@ -203,7 +219,7 @@ def fit(model, state: TrainState, optimizer: Optimizer, train_dset: SceneClassDa
     spe = max(train_dset.num_instances // cfg.batch_size, 1)  # steps/epoch
     start_step = int(state.step)
     epoch_idx0 = start_step // spe
-    primary = _is_primary()
+    primary = multihost.is_primary()
 
     mean_losses = []
     step = start_step
@@ -240,19 +256,21 @@ def fit(model, state: TrainState, optimizer: Optimizer, train_dset: SceneClassDa
                 rays_done += cfg.batch_size * cfg.ray_batch_size
             else:
                 sub = threefry.fold_in(base_key, gstep)
-                state, metrics = train_step(state, *inputs, sub)
+                args = inputs if mesh is None else shard_train_inputs(mesh, *inputs)
+                state, metrics = train_step(state, *args, sub)
                 gt = inputs[-1]
                 rays_done += int(gt.shape[0]) * int(gt.shape[1])
             step = gstep + 1
 
             if step % cfg.steps_print == 0:
-                scal = _gather_metrics({"loss": metrics["loss"],
-                                        "grad_norm": metrics["grad_norm"]})
+                scal = multihost.gather_metrics({"loss": metrics["loss"],
+                                                 "grad_norm": metrics["grad_norm"]})
                 dt = time.time() - t_last
                 if primary:
                     logger.log("train", epoch=epoch, step=step, loss=scal["loss"],
                                grad_norm=scal["grad_norm"],
-                               rays_per_s=rays_done * _process_count() / max(dt, 1e-9))
+                               rays_per_s=rays_done * multihost.process_count()
+                               / max(dt, 1e-9))
                 t_last = time.time()
                 rays_done = 0
                 losses.append(scal["loss"])
@@ -282,20 +300,21 @@ def fit(model, state: TrainState, optimizer: Optimizer, train_dset: SceneClassDa
                                ssim=ssim_v)
                 if psnr_v > best_psnr + cfg.best_margin:
                     best_psnr = psnr_v
-                    if cfg.save_root is not None and cfg.save_best:
+                    if cfg.save_root is not None and cfg.save_best and primary:
                         path = save_checkpoint(cfg.save_root, cfg.run_name, "best", state)
-                        if primary:
-                            logger.log("checkpoint", epoch=epoch, step=step, path=path,
-                                       best_psnr=psnr_v)
+                        logger.log("checkpoint", epoch=epoch, step=step, path=path,
+                                   best_psnr=psnr_v)
+                multihost.barrier()  # the primary's checkpoint is in place
 
         if losses:
             mean_losses.append(float(np.mean(losses)))
         # the run's last epoch always checkpoints, whatever the cadence
         last = epoch == epoch_idx0 + cfg.epochs
         if cfg.save_root is not None and (epoch % cfg.epochs_save == 0 or last):
-            path = save_checkpoint(cfg.save_root, cfg.run_name, epoch, state)
             if primary:
+                path = save_checkpoint(cfg.save_root, cfg.run_name, epoch, state)
                 logger.log("checkpoint", epoch=epoch, path=path)
+            multihost.barrier()
 
     return state, mean_losses
 

@@ -35,6 +35,12 @@ step's decoder calls keep their activation stash under the 6 GiB budget
 points take the recompute backward (``RECOMPUTE_CHUNK`` in
 :mod:`avr_tpu_torch.ops.kernels.resnetfc`).
 
+A batch that is one rank's block of a global batch (the sharded steps of
+:mod:`avr_tpu_torch.parallel.sharded_step`) passes ``block=((SB_global,
+R_global), (sb0, r0))`` to :func:`loss_and_grads`: ``"per_ray"`` seeds then
+hash the block's global ray ids, and a ``"legacy"`` key draws the global
+batch's stream and keeps the block (:class:`~avr_tpu_torch.ops.hashrng.KeyBlock`).
+
 With ``sampler=`` (:func:`avr_tpu_torch.data.device.make_device_sampler`)
 the step is ``step(state)``: it draws its batch from the device-resident
 set with ``k_batch`` and renders with ``k_render``, ``(k_batch, k_render) =
@@ -54,7 +60,8 @@ import torch
 
 from avr_tpu_torch.models.wrapper import RadFieldRenderer
 from avr_tpu_torch.ops import threefry
-from avr_tpu_torch.ops.hashrng import KeyLike, RaySeeds, derive, global_ray_ids
+from avr_tpu_torch.ops.hashrng import (KeyBlock, KeyLike, RaySeeds, derive, global_ray_ids,
+                                       shard_ray_ids)
 from avr_tpu_torch.training.loss import LossParams, loss_fn
 from avr_tpu_torch.training.state import Optimizer, TrainState, ema_update, global_norm
 
@@ -78,24 +85,35 @@ def apply_gradients(state: TrainState, grads: Dict[str, torch.Tensor], optimizer
     return state
 
 
-def _chunk_keys(key, SB: int, R: int, C: int, rng_mode: str,
-                device: torch.device) -> List[KeyLike]:
-    """The render key of each of ``C`` chunks of ``R`` rays a scene."""
+def _chunk_keys(key, SB: int, R: int, C: int, rng_mode: str, device: torch.device,
+                block=None) -> List[KeyLike]:
+    """The render key of each of ``C`` chunks of ``R`` rays a scene; with
+    ``block``, of the block of a global batch (module docstring)."""
     if rng_mode == "per_ray":
-        seeds = derive(key[0], key[1], global_ray_ids(SB, R, device=device)).seeds
+        if block is None:
+            ids = global_ray_ids(SB, R, device=device)
+        else:
+            (_, Rg), (s0, r0) = block
+            ids = shard_ray_ids(SB, R, s0 // SB, r0 // R, Rg // R, device=device)
+        seeds = derive(key[0], key[1], ids).seeds
         return [RaySeeds(s) for s in seeds.reshape(SB, C, R // C).unbind(1)]
     key = threefry.Key(*key)
+    if block is not None:
+        if C != 1:
+            raise ValueError("a legacy key's block of a global batch renders in one chunk")
+        return [KeyBlock(key, *block)]
     return [key] if C == 1 else threefry.split(key, C)
 
 
 def loss_and_grads(model: RadFieldRenderer, params: Dict[str, torch.Tensor],
                    loss_params: LossParams, src_images, src_poses, focal, c, model_input, gt,
-                   key, ray_chunks: int = 1, rng_mode: str = "per_ray"):
+                   key, ray_chunks: int = 1, rng_mode: str = "per_ray", block=None):
     """``(loss, grads by parameter name)`` of one batch over ``ray_chunks``
     chunks of its rays, the encoder's BatchNorm in train mode (its running
     statistics update in place, once), the render keys from ``key`` by
-    ``rng_mode``.  One chunk is the same computation: its sums and the ``1 /
-    C`` scaling are then exact."""
+    ``rng_mode`` (and ``block``, a global batch's block: module docstring).
+    One chunk is the same computation: its sums and the ``1 / C`` scaling
+    are then exact."""
     if rng_mode not in RNG_MODES:
         raise ValueError(f"unknown rng_mode {rng_mode!r}")
     names = list(params)
@@ -103,7 +121,7 @@ def loss_and_grads(model: RadFieldRenderer, params: Dict[str, torch.Tensor],
     C = ray_chunks
     if R % C:
         raise ValueError(f"ray batch {R} not divisible by ray_chunks {C}")
-    keys = _chunk_keys(key, SB, R, C, rng_mode, gt.device)
+    keys = _chunk_keys(key, SB, R, C, rng_mode, gt.device, block)
     with torch.enable_grad():
         cond = model.encode(src_images, src_poses, focal, c, train=True)
     # stop_encoder_grad: the latent has no graph (BatchNorm's statistics

@@ -174,6 +174,27 @@ Phases (any failure raises and exits non-zero):
    K7 in the recipe, K5 in the K5 run.  The kernels line carries each
    kernel's launches in these cases (``cli``, ``cli_by_case``).
 
+8. The sharded train step (``avr_tpu_torch/parallel``) at full width on
+   ``bench_weights``, cuDNN deterministic, the launch counters reset before
+   each case and read after.  In an NCCL world of one made in-process (a
+   ``HashStore``, no launcher), mesh (1, 1): both flavours (``shardmap``,
+   ``gspmd``), bf16 and float32, each ``rng_mode``, 2 steps of SB 4 x 4,096
+   rays, every step's loss and whole train state (parameters, Adam's
+   moments, BatchNorm statistics, step) bit for bit ``make_train_step``'s,
+   K1, K2 and K3 forward and backward launched, K7 under ``legacy``; the
+   sharded step's ms against ``make_train_step``'s in turns, the gradient
+   bucket's bytes and its all-reduce alone.  Two processes on the one card
+   (gloo: NCCL refuses two ranks on one device), meshes (1, 2) and (2, 1),
+   ``shardmap``, ``per_ray``, group norm, 2 steps: the ranks' losses and
+   whole states equal after each step, float32 losses within 1e-5 relative
+   of the one-rank step's on the same global batch (bf16 reported), each
+   rank's kernels launched, their ms a step (two ranks sharing one card:
+   information only), gloo's ``all_gather`` of CUDA tensors and its
+   all-reduce of the bucket.  ``cli.train --mesh 1,1`` with each
+   ``--step_impl``: one epoch of 4 steps on phase 6's sets, JAX's
+   checkpoint names and log keys.  The kernels line carries each kernel's
+   launches in these cases (``parallel``, ``parallel_by_case``).
+
 Prints the kernel table as one JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``; every case in full
 goes to ``DIR/chip_smoke_report.json`` (default ``traces/``), with the
@@ -192,6 +213,10 @@ runs only phase 6 and prints its report as one JSON line.
     python3 chip_smoke.py --cli
 
 runs only phase 7 and prints its report as one JSON line.
+
+    python3 chip_smoke.py --parallel
+
+runs only phase 8 and prints its report as one JSON line.
 """
 
 from __future__ import annotations
@@ -3843,6 +3868,372 @@ def print_cli(res, launches):
           f"{res['sets']['generate_s']:.1f} s)")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the sharded train step over a mesh of ranks
+# ---------------------------------------------------------------------------
+
+PAR_STEPS = 2
+PAR_IMPLS = ("shardmap", "gspmd")
+# the two-rank cases: meshes of the two processes sharing the one card
+PAR_MESHES = ((1, 2), (2, 1))
+PAR_JOIN_S = 300
+PAR_TURNS, PAR_TURN_STEPS = 4, 5
+
+
+def par_required(dtype, rng_mode):
+    """The kernels a sharded step must launch: K1, K2 and K3 forward and
+    backward on the dtype's routes, K7 under ``legacy``."""
+    base = CLI_BF16_KERNELS if dtype == torch.bfloat16 else CLI_F32_KERNELS
+    return base + ((K7.NAME,) if rng_mode == "legacy" else ())
+
+
+def par_digest(state):
+    """The bits of a whole train state (parameters, BatchNorm statistics,
+    Adam's count, moments and skip count, the EMA, the step)."""
+    import hashlib
+
+    from avr_tpu_torch.parallel.sharded_step import state_tensors
+
+    h = hashlib.sha256()
+    for t in state_tensors(state):
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def par_model(dtype, norm_type):
+    """The full-width adaptive model on ``bench_weights`` (phase 3's) with
+    ``norm_type``, and its Adam train state."""
+    model = make_model(dtype=dtype, seed=0, device=DEV, norm_type=norm_type)
+    bench_weights(model, 0)
+    opt = make_optimizer(1e-4)
+    return model, opt, create_train_state(model, opt)
+
+
+def par_run(step, state, batch, keys, case=None, launches=None):
+    """``len(keys)`` steps; each loss and the state's digest after each."""
+    if launches is not None:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+    losses, digests = [], []
+    for key in keys:
+        state, m = step(state, *batch, key)
+        losses.append(float(m["loss"]))
+        digests.append(par_digest(state))
+    if launches is not None:
+        torch.cuda.synchronize()
+        launches[case] = dict(_build.launches)
+    return state, losses, digests
+
+
+def par_one_rank(launches):
+    """Case 1: a world of one NCCL rank, mesh (1, 1), both flavours, bf16 and
+    float32, both ``rng_mode``s: every step's loss and whole state bit for
+    bit ``make_train_step``'s (``shardmap``'s legacy key is ``fold_in(key,
+    0)``, the rank's key, as in JAX)."""
+    from avr_tpu_torch.parallel import (make_mesh, make_sharded_train_step,
+                                        make_shardmap_train_step)
+
+    mesh = make_mesh((1, 1))
+    batch = train_batch(DEV)
+    out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for rng_mode in ("per_ray", "legacy"):
+            for impl in PAR_IMPLS:
+                name = f"one_rank_{impl}_{rng_mode}_{str(dtype)[6:]}"
+                keys = [threefry.PRNGKey(i) for i in range(PAR_STEPS)]
+                model, opt, state = par_model(dtype, "batch")
+                maker = make_sharded_train_step if impl == "gspmd" else make_shardmap_train_step
+                step = maker(model, opt, LossParams(), mesh, rng_mode=rng_mode)
+                _, losses, digests = par_run(step, state, batch, keys, name, launches)
+                del model, opt, state, step
+                model, opt, state = par_model(dtype, "batch")
+                plain_keys = ([threefry.fold_in(k, 0) for k in keys]
+                              if impl == "shardmap" and rng_mode == "legacy" else keys)
+                step = make_train_step(model, opt, LossParams(), rng_mode=rng_mode)
+                _, p_losses, p_digests = par_run(step, state, batch, plain_keys)
+                del model, opt, state, step
+                if losses != p_losses or digests != p_digests:
+                    raise AssertionError(f"parallel {name}: losses {losses} vs make_train_step "
+                                         f"{p_losses}; states equal {[a == b for a, b in zip(digests, p_digests)]}")
+                missing = [k for k in par_required(dtype, rng_mode) if not launches[name].get(k)]
+                if missing:
+                    raise AssertionError(f"parallel {name}: no launch of {missing}: "
+                                         f"{launches[name]}")
+                out.append(dict(case=name, losses=losses, bitwise=True))
+    torch.cuda.empty_cache()
+    return out
+
+
+def par_timing(smi):
+    """ms a step of the sharded step at (1, 1) and of ``make_train_step``,
+    bf16 ``per_ray``, in turns (plain, sharded, sharded, plain, ...); and the
+    gradient bucket's all-reduce alone (the NCCL world of one)."""
+    import torch.distributed as dist
+
+    from avr_tpu_torch.parallel import make_mesh, make_shardmap_train_step
+
+    mesh = make_mesh((1, 1))
+    batch = train_batch(DEV)
+    runs = {}
+    for label in ("plain", "sharded"):
+        model, opt, state = par_model(torch.bfloat16, "batch")
+        step = (make_train_step(model, opt, LossParams()) if label == "plain" else
+                make_shardmap_train_step(model, opt, LossParams(), mesh))
+        runs[label] = [step, state, model]
+    ms = {"plain": [], "sharded": []}
+    order = [("plain", "sharded"), ("sharded", "plain")] * (PAR_TURNS // 2)
+    for i, (a, b) in enumerate([("plain", "sharded")] + order):
+        for label in (a, b):
+            step, state = runs[label][:2]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for j in range(PAR_TURN_STEPS):
+                state, m = step(state, *batch, threefry.PRNGKey(j))
+            torch.cuda.synchronize()
+            runs[label][1] = state
+            if i:  # the first pair warms up
+                ms[label].append((time.perf_counter() - t) * 1e3 / PAR_TURN_STEPS)
+    n_bucket = 1 + sum(p.numel() for p in runs["sharded"][2].parameters()) + sum(
+        b.numel() for b in runs["sharded"][2].buffers())
+    flat = torch.zeros(n_bucket, dtype=torch.float32, device=DEV)
+    for _ in range(3):
+        dist.all_reduce(flat)
+    ar = time_ms(lambda: dist.all_reduce(flat), iters=20)
+    del runs, flat
+    torch.cuda.empty_cache()
+    return dict(card=smi, plain_ms=ms["plain"], sharded_ms=ms["sharded"],
+                plain_median=float(np.median(ms["plain"])),
+                sharded_median=float(np.median(ms["sharded"])),
+                bucket_bytes=4 * n_bucket, allreduce_ms=ar, backend="nccl", world=1,
+                steps_a_turn=PAR_TURN_STEPS, turns=PAR_TURNS)
+
+
+def _par_rank(rank, store, out_dir, shapes, dtypes):
+    """Case 2, one of two processes on the one card: a gloo world of two,
+    each ``shape``'s ``shardmap`` step, ``per_ray``, group norm, on the
+    rank's block of the global batch; its losses, state digests, launches
+    and ms a step to ``out_dir``."""
+    import torch.distributed as dist
+
+    from avr_tpu_torch.parallel import make_mesh, make_shardmap_train_step, shard_train_inputs
+    from avr_tpu_torch.parallel import multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    multihost.initialize(init_method=f"file://{store}", world_size=2, rank=rank, backend="gloo",
+                         timeout_s=PAR_JOIN_S / 2)
+    res, n_bucket = {}, 0
+    try:
+        for dtype in dtypes:
+            for shape in shapes:
+                name = f"two_ranks_{shape[0]}x{shape[1]}_{str(dtype)[6:]}"
+                mesh = make_mesh(shape)
+                model, opt, state = par_model(dtype, "group")
+                n_bucket = 1 + sum(t.numel() for t in (*model.parameters(), *model.buffers()))
+                step = make_shardmap_train_step(model, opt, LossParams(), mesh)
+                local = shard_train_inputs(mesh, *train_batch(DEV))
+                launches, ms = {}, []
+                keys = [threefry.PRNGKey(i) for i in range(PAR_STEPS)]
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, losses, digests = par_run(step, state, local, keys, name, launches)
+                ms.append((time.perf_counter() - t) * 1e3 / PAR_STEPS)
+                # two steps more, timed (information: two ranks share one card)
+                dist.barrier()
+                t = time.perf_counter()
+                for i in range(2):
+                    state, _ = step(state, *local, threefry.PRNGKey(10 + i))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3 / 2)
+                res[name] = dict(losses=losses, digests=digests, launches=launches[name],
+                                 ms=ms, block=[list(t.shape) for t in (local[0], local[5])])
+                del model, opt, state, step, local
+                torch.cuda.empty_cache()
+        # gloo's all-reduce and broadcast took CUDA tensors above (the bucket,
+        # the state); its all_gather takes them too (multihost's host-bound
+        # collectives gather on the host under gloo all the same)
+        t = torch.full((4,), float(rank), device=DEV)
+        parts = [torch.empty_like(t) for _ in range(2)]
+        dist.all_gather(parts, t)
+        if [float(p[0]) for p in parts] != [0.0, 1.0]:
+            raise AssertionError(f"gloo all_gather of CUDA tensors: {parts}")
+        res["gloo_all_gather_cuda"] = "accepted"
+        flat = torch.zeros(n_bucket, device=DEV)  # the group-norm model's loss and gradients
+        dist.barrier()
+        res["gloo_allreduce_ms"] = time_ms(lambda: dist.all_reduce(flat), iters=5, warmup=1)
+        res["gloo_bucket_bytes"] = flat.numel() * 4
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"par_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def par_two_ranks(launches, shapes=PAR_MESHES, dtypes=(torch.float32, torch.bfloat16)):
+    """Case 2: two processes on the one card (gloo: NCCL refuses two ranks
+    on one device), meshes (1, 2) and (2, 1), ``shardmap``, ``per_ray``,
+    group norm: the ranks' losses and whole states equal after each step,
+    float32 losses within 1e-5 relative of the one-rank step's on the same
+    global batch (bf16 reported), each rank's kernels launched."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix="par_")
+    ctx = mp.start_processes(_par_rank, args=(os.path.join(tmp, "store"), tmp, shapes, dtypes),
+                             nprocs=2, join=False, start_method="spawn")
+    # the one-rank reference while the ranks start: make_train_step on the
+    # global batch
+    ref = {}
+    for dtype in dtypes:
+        model, opt, state = par_model(dtype, "group")
+        _, ref[str(dtype)[6:]], _ = par_run(make_train_step(model, opt, LossParams()), state,
+                                            train_batch(DEV),
+                                            [threefry.PRNGKey(i) for i in range(PAR_STEPS)])
+        del model, opt, state
+    torch.cuda.empty_cache()
+    deadline = time.monotonic() + PAR_JOIN_S
+    try:
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0)):
+            if time.monotonic() >= deadline:
+                raise AssertionError(f"parallel: two ranks still running after {PAR_JOIN_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"par_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(tmp, ignore_errors=True)
+    out = dict(cases=[], gloo_all_gather_cuda=ranks[0]["gloo_all_gather_cuda"],
+               gloo_allreduce_ms=ranks[0]["gloo_allreduce_ms"],
+               gloo_bucket_bytes=ranks[0]["gloo_bucket_bytes"], reference_losses=ref)
+    for name in (k for k in ranks[0] if k.startswith("two_ranks_")):
+        a, b = ranks[0][name], ranks[1][name]
+        if a["losses"] != b["losses"] or a["digests"] != b["digests"]:
+            raise AssertionError(f"parallel {name}: the ranks differ: losses {a['losses']} vs "
+                                 f"{b['losses']}, states equal "
+                                 f"{[x == y for x, y in zip(a['digests'], b['digests'])]}")
+        dt = name.rsplit("_", 1)[1]
+        rel = [abs(x - y) / abs(y) for x, y in zip(a["losses"], ref[dt])]
+        if dt == "float32" and max(rel) > 1e-5:
+            raise AssertionError(f"parallel {name}: losses {a['losses']} vs the one-rank "
+                                 f"step's {ref[dt]}: relative {rel}")
+        dtype = torch.float32 if dt == "float32" else torch.bfloat16
+        for r, rk in enumerate((a, b)):
+            missing = [k for k in par_required(dtype, "per_ray") if not rk["launches"].get(k)]
+            if missing:
+                raise AssertionError(f"parallel {name} rank {r}: no launch of {missing}")
+            launches[f"{name}_rank{r}"] = rk["launches"]
+        out["cases"].append(dict(case=name, losses=a["losses"], one_rank_losses=ref[dt],
+                                 rel_to_one_rank=rel, held=dt == "float32",
+                                 ms_a_step=[a["ms"], b["ms"]], block=a["block"],
+                                 ranks_bitwise=True))
+    return out
+
+
+def par_cli(sets, launches):
+    """Case 3: ``cli.train --mesh 1,1`` with each ``--step_impl``, one epoch
+    of 4 steps (JAX's defaults: float32, the host path) on phase 6's sets
+    in the NCCL world of one: JAX's checkpoint names and log keys."""
+    import shutil
+    import tempfile
+
+    from avr_tpu_torch.cli import train as cli_train
+
+    root = tempfile.mkdtemp(prefix="par_cli_")
+    out = {}
+    for impl in PAR_IMPLS:
+        name = f"cli_{impl}"
+        run_root = os.path.join(root, name)
+        argv = ["--root_dir", run_root, "--loss_mode", "both", "--renderer", "AVR_mesh",
+                "--starting_epoch", "0", "--epochs", "1", "--sl", str(SIDE), "--batch_size",
+                CLI_BATCH, "--ray_batch_size", CLI_RAYS, "--steps_print", "2", "--steps_val",
+                "4", "--mesh", "1,1", "--step_impl", impl]
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t = time.perf_counter()
+        state = cli_train.run(cli_train.build_parser().parse_args(argv), device=DEV,
+                              train_source=sets["train"], val_source=sets["val"])
+        torch.cuda.synchronize()
+        launches[name] = dict(_build.launches)
+        log = cli_log(run_root, "AVR_mesh")
+        ckpts = sorted(os.listdir(os.path.join(run_root, "checkpoints", "experiments")))
+        losses = [r["loss"] for r in log if r["event"] == "train"]
+        bad = [r for r in log if set(r) not in FIT_LOG_KEYS[r["event"]]]
+        missing = [k for k in CLI_F32_KERNELS if not launches[name].get(k)]
+        if (int(state.step) != FIT_TRAIN[0] // int(CLI_BATCH) or bad or missing
+                or ckpts != ["AVR_mesh_best", "AVR_mesh_epoch1"]
+                or not losses or not all(np.isfinite(losses))):
+            raise AssertionError(f"parallel {name}: step {int(state.step)}, checkpoints {ckpts}, "
+                                 f"losses {losses}, records off JAX's keys {bad[:2]}, "
+                                 f"no launch of {missing}")
+        out[name] = dict(seconds=time.perf_counter() - t, step=int(state.step), losses=losses,
+                         checkpoints=ckpts, ms_per_step=cli_ms_per_step(log))
+        del state
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_parallel(smi):
+    """Phase 8: the sharded train step (``avr_tpu_torch/parallel``) at full
+    ``conf/default_mv.conf`` width, each case's launch counters reset
+    before and read after.  Returns the report and each case's launches."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    launches = {}
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    # cuDNN's deterministic algorithms: the sharded step is held to
+    # make_train_step bit for bit (the port's kernels have no float atomics)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        res = dict(card=smi, one_rank=par_one_rank(launches))
+        res["timing"] = par_timing(smi)
+        sets = dict(train=synthetic_scene_mapping(*FIT_TRAIN, side=SIDE, seed=0),
+                    val=synthetic_scene_mapping(*FIT_VAL, side=SIDE, seed=1))
+        res["cli"] = par_cli(sets, launches)
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    res["two_ranks"] = par_two_ranks(launches)
+    res["seconds"] = time.perf_counter() - t0
+    return res, launches
+
+
+def print_parallel(res, launches):
+    smi = res["card"]
+    one = res["one_rank"]
+    print(f"parallel one rank (NCCL world of one, mesh (1, 1)): {len(one)} cases, every step's "
+          f"loss and whole state bit for bit make_train_step's: "
+          + "; ".join(f"{c['case']} {[round(x, 6) for x in c['losses']]}" for c in one))
+    t = res["timing"]
+    print(f"parallel timing ({smi}): sharded step at (1, 1) {t['sharded_median']:.2f} ms a step "
+          f"({', '.join(f'{x:.2f}' for x in t['sharded_ms'])}) against make_train_step "
+          f"{t['plain_median']:.2f} ms ({', '.join(f'{x:.2f}' for x in t['plain_ms'])}), bf16 "
+          f"adaptive SB 4 x 4,096, in turns; the bucket {t['bucket_bytes']} bytes, its NCCL "
+          f"all-reduce over one rank {t['allreduce_ms']:.4f} ms")
+    two = res["two_ranks"]
+    for c in two["cases"]:
+        print(f"parallel {c['case']} (gloo, two processes on one card; {smi}): losses "
+              f"{c['losses']} on both ranks, states bitwise equal; one-rank step's "
+              f"{c['one_rank_losses']}, relative {[f'{x:.2e}' for x in c['rel_to_one_rank']]}"
+              f" ({'held to 1e-5' if c['held'] else 'reported'}); blocks {c['block']}; ms a step "
+              f"by rank [first 2, next 2] {[[round(x, 1) for x in r] for r in c['ms_a_step']]}")
+    print(f"parallel gloo ({smi}): all_gather of CUDA tensors {two['gloo_all_gather_cuda']}; "
+          f"all-reduce of the {two['gloo_bucket_bytes']}-byte float32 bucket on the card "
+          f"{two['gloo_allreduce_ms']:.2f} ms between two processes on one card")
+    for name, c in res["cli"].items():
+        print(f"parallel {name}: {c['seconds']:.1f} s, step {c['step']}, losses "
+              f"{[round(x, 5) for x in c['losses']]}, checkpoints {c['checkpoints']}")
+    print(f"parallel launches: {launches}; phase {res['seconds']:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3877,6 +4268,12 @@ def main() -> int:
         res, launches = run_cli()
         print_cli(res, launches)
         print(json.dumps({"cli": res, "launches": launches, "card": smi}))
+        print(smi)
+        return 0
+    if "--parallel" in sys.argv[1:]:
+        res, launches = run_parallel(smi)
+        print_parallel(res, launches)
+        print(json.dumps({"parallel": res, "launches": launches, "card": smi}))
         print(smi)
         return 0
     profile = "--profile" in sys.argv[1:]
@@ -3948,8 +4345,11 @@ def main() -> int:
     train["fit"] = {"launches": fit_launches}
     cli_res, cli_launches = run_cli()
     print_cli(cli_res, cli_launches)
+    par_res, par_launches = run_parallel(smi)
+    print_parallel(par_res, par_launches)
     results = {"serve": serve, "train": train, "float32": float32, "fit": fit_res,
                "cli": dict(cli_res, launches=cli_launches),
+               "parallel": dict(par_res, launches=par_launches),
                "vr_one_vs_8_chunks": check_vr_chunks(),
                "adaptive_rerun": check_adaptive_rerun() + check_adaptive_rerun(torch.float32),
                "reference": check_small_reference() + check_small_train()
@@ -3989,9 +4389,13 @@ def main() -> int:
         # phase 7's cases (each dtype's own), under the row's names
         cli_counts = {case: sum(counts.get(n, 0) for n in names)
                       for case, counts in cli_launches.items()}
+        # phase 8's cases (the sharded steps, each rank's own)
+        par_counts = {case: sum(counts.get(n, 0) for n in names)
+                      for case, counts in par_launches.items()}
         k.update(route="cuda", launches=sum(by_path.values()), launches_by_path=by_path,
                  max_abs_err=err, max_err=err, tol=max(c["tol"] for c in plain),
-                 kernel_ms=k["ms"], cli=sum(cli_counts.values()), cli_by_case=cli_counts)
+                 kernel_ms=k["ms"], cli=sum(cli_counts.values()), cli_by_case=cli_counts,
+                 parallel=sum(par_counts.values()), parallel_by_case=par_counts)
     # every case in full to a file; the printed line keeps one worst case each
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke_report.json"), "w") as f:

@@ -7,10 +7,15 @@ against ``avr_tpu/cli``.
   catching the parser at ``parse_args``) too, and each CLI's ``--help`` lists
   the same options.
 * Refusals: every flag value the port cannot run raises, naming the ROADMAP
-  item that brings it (``--mesh``, ``--multihost``, ``--step_impl gspmd``:
-  P9; ``--bn``, ``--fused_mlp never``, ``--fused_march never``,
-  ``--gather_impl xla``: P10); ``main()`` of each CLI without a CUDA device
-  raises instead of running on the CPU.
+  item that brings it (``--bn``, ``--fused_mlp never``, ``--fused_march
+  never``, ``--gather_impl xla``: P10); ``main()`` of each CLI without a
+  CUDA device raises instead of running on the CPU.
+* The parallel flags: ``--mesh 1,1``, ``--step_impl gspmd``, both, and
+  ``--multihost`` without a launcher run one process, bit for bit the run
+  without them; a mesh the ranks do not fill raises, as JAX's does; two gloo
+  ranks (spawned from this file) of ``--multihost --mesh 1,2`` end with the
+  same parameters, the primary's log and JAX's checkpoint names (as JAX's
+  ``tests/test_fit_mesh_resume.py`` drives ``--mesh``).
 * An adaptive run on the CPU (the JAX CLI test's settings, plus
   ``--profile_dir`` and ``--ema_decay``) writes JAX's checkpoint names, log
   events with JAX's keys, the losses plot (or, without matplotlib, the
@@ -155,9 +160,6 @@ def test_train_defaults_are_jax_defaults():
 # ---------------------------------------------------------------------------
 
 REFUSED = {
-    "mesh": (["--mesh", "2,4"], "P9"),
-    "multihost": (["--multihost"], "P9"),
-    "step_impl_gspmd": (["--step_impl", "gspmd"], "P9"),
     "bn": (["--bn"], "P10"),
     "fused_mlp_never": (["--fused_mlp", "never"], "P10"),
     "fused_march_never": (["--fused_march", "never"], "P10"),
@@ -383,3 +385,84 @@ def test_model_and_optimizer_flags(tmp_path, conf_path, sets, monkeypatch):
     # the cosine horizon: --schedule_total_epochs x steps a epoch (2 scenes / SB 2)
     assert made == [((1e-4,), dict(schedule="cosine", total_steps=30))]
     assert box["anomaly"] and not torch.is_anomaly_enabled()
+
+
+# ---------------------------------------------------------------------------
+# the parallel flags
+# ---------------------------------------------------------------------------
+
+
+def _digest(state):
+    from tests.test_torch_parallel import digest
+
+    return digest(state)
+
+
+@pytest.fixture(scope="module")
+def one_process_baseline(tmp_path_factory, conf_path, sets):
+    root = tmp_path_factory.mktemp("baseline")
+    return _digest(run_train(train_args(root, conf_path, epochs=1), sets))
+
+
+PARALLEL_FLAGS = {"mesh": ["--mesh", "1,1"], "gspmd": ["--step_impl", "gspmd"],
+                  "mesh_gspmd": ["--mesh", "1,1", "--step_impl", "gspmd"],
+                  "multihost": ["--multihost"]}
+
+
+@pytest.mark.parametrize("case", PARALLEL_FLAGS)
+def test_parallel_flags_run_one_process(case, tmp_path, conf_path, sets, one_process_baseline):
+    """One process, no launcher: a (1, 1) mesh's step is the single-device
+    step bit for bit (either flavour, ``per_ray``), ``--step_impl`` alone
+    leaves the single-device step, and ``--multihost`` stays single-process
+    (JAX's contract)."""
+    import torch.distributed as dist
+
+    state = run_train(train_args(tmp_path, conf_path, *PARALLEL_FLAGS[case], epochs=1), sets)
+    assert not dist.is_initialized()
+    assert int(state.step) == 1
+    assert _digest(state) == one_process_baseline
+    assert sorted(os.listdir(tmp_path / "checkpoints" / "experiments")) == [f"{NAME}_epoch1"]
+    with open(tmp_path / "logs" / f"{NAME}.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    assert [r["step"] for r in records if r["event"] == "train"] == [1]
+
+
+def test_mesh_the_ranks_do_not_fill_raises(tmp_path, conf_path, sets):
+    with pytest.raises(ValueError, match="ranks 1"):
+        run_train(train_args(tmp_path, conf_path, "--mesh", "2,4"), sets)
+    with pytest.raises(SystemExit, match="data,rays"):
+        run_train(train_args(tmp_path, conf_path, "--mesh", "2"), sets)
+    assert not (tmp_path / "checkpoints").exists()
+
+
+def _cli_ranks(rank, world, tmp, conf):
+    from tests.test_torch_parallel import digest
+
+    sets = dict(train=synthetic_scene_mapping(4, 4, SIDE), val=synthetic_scene_mapping(1, 4, SIDE, seed=7))
+    state = run_train(train_args(os.path.join(tmp, "run"), conf, "--multihost", "--mesh", "1,2",
+                                 "--steps_val", "1"), sets)
+    with open(os.path.join(tmp, f"cli_{rank}.json"), "w") as f:
+        json.dump(dict(step=int(state.step), digest=digest(state)), f)
+
+
+def test_two_rank_mesh_run(tmp_path, conf_path):
+    """``--multihost --mesh 1,2`` on two gloo ranks (2 instances a rank's
+    shard, a global batch of 2: a step an epoch)."""
+    from tests.test_torch_parallel import spawn_ranks
+
+    spawn_ranks(_cli_ranks, 2, (str(tmp_path), conf_path))
+    got = []
+    for r in range(2):
+        with open(tmp_path / f"cli_{r}.json") as f:
+            got.append(json.load(f))
+    assert got[0] == got[1] and got[0]["step"] == 2
+    root = tmp_path / "run"
+    assert sorted(os.listdir(root / "checkpoints" / "experiments")) == [
+        f"{NAME}_best", f"{NAME}_epoch1", f"{NAME}_epoch2"]
+    with open(root / "logs" / f"{NAME}.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    for r in records:
+        assert set(r) in LOG_KEYS[r["event"]], r
+    # one process logged: each step once
+    assert [r["step"] for r in records if r["event"] == "train"] == [1, 2]
+    assert [r["step"] for r in records if r["event"] == "val"] == [1, 2]

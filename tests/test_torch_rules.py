@@ -192,6 +192,12 @@ def test_the_scan_covers_the_clis_and_tools():
         assert f"avr_tpu_torch/{mod}.py" in names
 
 
+def test_the_scan_covers_the_parallel_package():
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for mod in ("__init__", "mesh", "sharded_step", "multihost"):
+        assert f"avr_tpu_torch/parallel/{mod}.py" in names
+
+
 def test_the_scan_covers_the_training_loop_and_utils():
     names = {str(p.relative_to(ROOT)) for p in _port_files()}
     for mod in ("training/loop", "training/checkpoint", "utils/metrics", "utils/logging",
@@ -265,10 +271,21 @@ def test_cpu_fit_never_touches_the_kernel_library(tmp_path, device_data):
 
 
 def test_fit_mesh_waits_for_the_parallel_port(tmp_path):
+    """``parallel/`` is ported: a CPU ``fit`` over a mesh of one rank (no
+    process group, no launcher) runs the sharded step's plain path and never
+    touches the kernel library; the device-data path over a mesh raises, as
+    JAX's does."""
+    from avr_tpu_torch.parallel import make_mesh
     from avr_tpu_torch.training import fit
 
-    with pytest.raises(NotImplementedError, match="P9"):
-        fit(*_fit_args(tmp_path, False), mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="single-device"):
+        fit(*_fit_args(tmp_path, True), mesh=make_mesh(), device="cpu")
+    _build.reset_launches()
+    state, losses = fit(*_fit_args(tmp_path, False, step_impl="gspmd"), mesh=make_mesh(),
+                        device="cpu")
+    assert int(state.step) == 2 and len(losses) == 1 and np.isfinite(losses[0])
+    assert not _build.launches
+    assert _build._lib is None, "the CPU fit loaded the CUDA kernel library"
 
 
 @pytest.mark.parametrize("renderer", ["", "VR", "Raymarcher"])
