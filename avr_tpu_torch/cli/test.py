@@ -87,8 +87,10 @@ def run(opt: argparse.Namespace, *, device: Device = None,
                             device=dev)
 
 
-def main(argv=None, *, device: Device = None):
-    return run(build_parser().parse_args(argv), device=device)
+def main(argv=None, *, device: Device = None, data_source: Optional[Source] = None):
+    """Parse ``argv`` (default ``sys.argv[1:]``) and :func:`run` on
+    ``data_source`` where given."""
+    return run(build_parser().parse_args(argv), device=device, data_source=data_source)
 
 
 if __name__ == "__main__":

@@ -5,10 +5,14 @@ the reference training script (its ``train.py:175-320``): the same
 options, choices and defaults.  Runs on the card; ``main(argv,
 device="cpu")`` runs the plain versions of the kernels on the host.
 
-Flags the port cannot run yet raise, naming the ROADMAP item that brings
-them: ``--bn``, ``--fused_mlp never``, ``--fused_march never`` and
-``--gather_impl xla`` (Queue 1, P10: a BatchNorm decoder, and JAX's XLA
-paths, which would be plain PyTorch on the card).
+The model options come from ``--conf`` (JAX's ``model`` subtree: the
+global and custom encoders, ``feature_scale``, the point-feature and
+encoding variants, SPADE, softplus ``beta``, ``combine_type``, ``type =
+mlp``, ``mlp_fine { type = empty }``) and ``--bn``.  Three values select
+JAX's XLA path beside a kernel that computes the same function, and the
+port runs one implementation on the card, so they raise (one table,
+``models/pixelnerf.py XLA_ONLY``): ``--fused_mlp never``, ``--fused_march
+never`` and ``--gather_impl xla``.
 
 Several processes, one a device (``parallel/``): a launcher's environment
 or ``--multihost`` joins the process group (NCCL on the cards, gloo on the
@@ -106,7 +110,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Enable autograd's anomaly detection for the run "
                         "(torch.autograd.set_detect_anomaly)")
     p.add_argument("--bn", action="store_true",
-                   help="BatchNorm in the decoder MLP (not ported: raises, ROADMAP P10)")
+                   help="BatchNorm in the decoder MLP")
     p.add_argument("--no_visualization", action="store_true", default=True)
     p.add_argument("--steps_print", type=int, default=5)
     p.add_argument("--steps_val", type=int, default=50)
@@ -162,15 +166,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gather_impl", type=str, default="auto",
                    choices=["auto", "pallas", "pallas_proj", "xla"],
                    help="Pixel-aligned feature gather: 'auto'/'pallas' the K1 kernel, "
-                        "'pallas_proj' the K5 kernel (projection in-kernel); 'xla' not "
-                        "ported (raises, ROADMAP P10)")
+                        "'pallas_proj' the K5 kernel (projection in-kernel); 'xla' "
+                        "(JAX's XLA gather) raises: one implementation on the card")
     p.add_argument("--fused_mlp", type=str, default="auto",
                    choices=["auto", "never", "always", "stash", "always_stash"],
                    help="Decoder kernel backward: 'stash' keeps the forward's "
-                        "activations; 'never' not ported (raises, ROADMAP P10)")
+                        "activations; 'never' (JAX's XLA decoder) raises: one "
+                        "implementation on the card")
     p.add_argument("--fused_march", type=str, default="auto",
                    choices=["auto", "never", "always"],
-                   help="LSTM ray-march kernel ('never' not ported: raises, ROADMAP P10)")
+                   help="LSTM ray-march kernel ('never', JAX's lax.scan march, raises: one "
+                        "implementation on the card)")
     return p
 
 
@@ -320,9 +326,12 @@ def run(opt: argparse.Namespace, *, device: Device = None,
     return state
 
 
-def main(argv=None, *, device: Device = None):
-    """Parse ``argv`` (default ``sys.argv[1:]``) and :func:`run`."""
-    return run(build_parser().parse_args(argv), device=device)
+def main(argv=None, *, device: Device = None, train_source: Optional[Source] = None,
+         val_source: Optional[Source] = None):
+    """Parse ``argv`` (default ``sys.argv[1:]``) and :func:`run` with the
+    given sources."""
+    return run(build_parser().parse_args(argv), device=device, train_source=train_source,
+               val_source=val_source)
 
 
 if __name__ == "__main__":

@@ -6,11 +6,15 @@ the caller converts the JAX tree; this module imports no JAX) and fills the
 port's modules in place.  The inverse of ``avr_tpu/models/torch_import.py``:
 
   * ``nn.Dense`` kernels ``(in, out)`` -> ``nn.Linear`` weights ``(out, in)``,
-  * convolution kernels HWIO -> OIHW,
+  * convolution kernels HWIO -> OIHW; the custom encoder's transposed
+    convolutions (``deconv*``) HWIO -> ``nn.ConvTranspose2d``'s ``(in, out,
+    kh, kw)`` flipped spatially (Flax's ``ConvTranspose`` does not flip its
+    kernel, PyTorch's does),
   * BatchNorm ``scale``/``bias`` (params) and ``mean``/``var`` (batch_stats),
   * LSTM ``w_ih (C, 4H)``, ``w_hh (H, 4H)``, ``b_ih``, ``b_hh`` as they are,
-  * ``out_layer`` and the decoders' ``lin_in``, ``lin_z_k``,
-    ``block_k/fc_0|fc_1``, ``lin_out`` Dense kernels and biases.
+  * ``out_layer`` and the decoders' ``lin_in``, ``lin_z_k``, ``scale_z_k``,
+    ``block_k/fc_0|fc_1``, ``block_k/bn_0``, ``lin_out`` (ImplicitNet's
+    ``lin_k``), and the global encoder's ``fc``, Dense kernels and biases.
 
 A leaf missing on either side is an error, named.  :func:`to_flax_variables`
 is the inverse: the port's parameters and BatchNorm statistics as the
@@ -49,7 +53,7 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Dict[Tupl
 def _flax_path(name: str) -> Tuple[str, ...]:
     """Port state-dict name -> Flax variables path."""
     name = re.sub(r"(^|\.)stages\.", r"\1", name)
-    name = re.sub(r"(^|\.)lin_z\.(\d+)\.", r"\1lin_z_\2.", name)
+    name = re.sub(r"(^|\.)(lin_z|scale_z)\.(\d+)\.", r"\1\2_\3.", name)
     name = re.sub(r"(^|\.)blocks\.(\d+)\.", r"\1block_\2.", name)
     *mods, leaf = name.split(".")
     if leaf in _STATS:
@@ -57,9 +61,17 @@ def _flax_path(name: str) -> Tuple[str, ...]:
     return ("params", *mods, "kernel" if leaf == "weight" else leaf)
 
 
-def _convert(value: np.ndarray, target: torch.Tensor, leaf: str) -> np.ndarray:
+def _deconv(name: str) -> bool:
+    """A transposed convolution's weight (``models/encoder.py ConvTranspose``)."""
+    return re.search(r"(^|\.)deconv[^.]*\.weight$", name) is not None
+
+
+def _convert(value: np.ndarray, target: torch.Tensor, name: str) -> np.ndarray:
     value = np.array(value, np.float32)
-    if leaf == "weight" and target.ndim == 4:
+    leaf = name.rsplit(".", 1)[-1]
+    if _deconv(name):
+        value = np.transpose(value, (2, 3, 0, 1))[:, :, ::-1, ::-1]  # HWIO -> IOHW, flipped
+    elif leaf == "weight" and target.ndim == 4:
         value = np.transpose(value, (3, 2, 0, 1))  # HWIO -> OIHW
     elif leaf == "weight":
         value = value.T  # Dense (in, out) -> Linear (out, in)
@@ -82,9 +94,8 @@ def load_flax_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Mo
             if path not in flat:
                 missing.append(f"{name} (flax {'/'.join(path)})")
                 continue
-            leaf = name.rsplit(".", 1)[-1]
             try:
-                value = _convert(flat[path], target, leaf)
+                value = _convert(flat[path], target, name)
             except ValueError as e:
                 raise ValueError(f"{name}: {e}") from None
             target.copy_(torch.from_numpy(np.ascontiguousarray(value)))
@@ -110,13 +121,16 @@ def from_flax_tree(model: nn.Module, tree: Mapping[str, Any]) -> Dict[str, torch
         path = _flax_path(name)
         if path not in flat:
             raise KeyError(f"{name} (flax {'/'.join(path)}) is not in the tree")
-        value = _convert(flat[path], target, name.rsplit(".", 1)[-1])
+        value = _convert(flat[path], target, name)
         out[name] = torch.from_numpy(np.ascontiguousarray(value)).to(target.device)
     return out
 
 
-def _to_flax(value: torch.Tensor, leaf: str) -> np.ndarray:
+def _to_flax(value: torch.Tensor, name: str) -> np.ndarray:
     a = np.array(value.detach().float().cpu().numpy())  # a copy, not a view
+    leaf = name.rsplit(".", 1)[-1]
+    if _deconv(name):
+        return np.ascontiguousarray(np.transpose(a[:, :, ::-1, ::-1], (2, 3, 0, 1)))
     if leaf == "weight" and a.ndim == 4:
         return np.ascontiguousarray(np.transpose(a, (2, 3, 1, 0)))  # OIHW -> HWIO
     if leaf == "weight":
@@ -134,7 +148,7 @@ def to_flax_tree(tensors: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         node = tree
         for m in mods:
             node = node.setdefault(m, {})
-        node[leaf] = _to_flax(value, name.rsplit(".", 1)[-1])
+        node[leaf] = _to_flax(value, name)
     return tree
 
 

@@ -16,13 +16,15 @@ package has no Pallas kernel here.
 Inside :func:`batch_moments` train-mode BatchNorm reduces its batch moments
 with other ranks' (the partitioned step of ``parallel/sharded_step.py``,
 whose statistics are the global batch's, as XLA's partitioning of JAX's
-step makes them).
+step makes them): the encoder's over the ranks that share the images, the
+decoder's (``models/mlp.py PointBatchNorm``) over those that share the
+points.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,20 +34,24 @@ __all__ = ["ResNetTrunk", "RESNET_STAGES", "BatchNorm", "GroupNorm", "Conv", "ma
            "batch_moments"]
 
 Moments = Tuple[torch.Tensor, torch.Tensor]
-# reduces train-mode BatchNorm's (mean, E[x^2]) over other batches; None:
-# this batch's own
-_reduce_moments: Optional[Callable[[Moments], Moments]] = None
+Reduce = Callable[[Moments], Moments]
+# reduces train-mode BatchNorm's (mean, E[x^2]) over other batches, by what
+# the norm normalises ("images" or "points"); absent: this batch's own
+_reduce_moments: Dict[str, Reduce] = {}
 
 
 @contextlib.contextmanager
-def batch_moments(reduce: Callable[[Moments], Moments]) -> Iterator[None]:
+def batch_moments(reduce: Optional[Reduce],
+                  points: Optional[Reduce] = None) -> Iterator[None]:
     """Within the block, every train-mode :class:`BatchNorm` normalises with
     ``reduce((mean, mean_sq))`` of its batch's float32 per-channel moments
     (a differentiable mean over ranks: the global batch's moments when the
     ranks' batches are equal in size), and updates its running statistics
-    with them."""
+    with them; a BatchNorm over points (``over = "points"``) with
+    ``points``.  ``None`` keeps a batch's own moments."""
     global _reduce_moments
-    prev, _reduce_moments = _reduce_moments, reduce
+    prev = _reduce_moments
+    _reduce_moments = {k: r for k, r in (("images", reduce), ("points", points)) if r}
     try:
         yield
     finally:
@@ -83,6 +89,8 @@ class BatchNorm(nn.Module):
     """
 
     momentum = 0.9
+    # what a batch holds: "images", or "points" (the decoder's)
+    over = "images"
 
     def __init__(self, c: int, eps: float = 1e-5):
         super().__init__()
@@ -97,8 +105,9 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if train:
             mean, sq = xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))
-            if _reduce_moments is not None:
-                mean, sq = _reduce_moments((mean, sq))
+            reduce = _reduce_moments.get(self.over)
+            if reduce is not None:
+                mean, sq = reduce((mean, sq))
             var = torch.clamp(sq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum

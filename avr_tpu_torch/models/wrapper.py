@@ -30,8 +30,7 @@ from avr_tpu_torch.renderers.raymarch import lstm_march, render_raymarcher
 from avr_tpu_torch.renderers.volume import render_volume
 from avr_tpu_torch.utils.device import resolve_device
 
-__all__ = ["RadFieldRenderer", "make_model", "init_weights", "bench_weights", "add_sigma_bias",
-           "FUSED_MARCH"]
+__all__ = ["RadFieldRenderer", "make_model", "init_weights", "bench_weights", "add_sigma_bias"]
 
 DEFAULT_CONF = os.path.join(os.path.dirname(__file__), "..", "..", "conf", "default_mv.conf")
 
@@ -67,14 +66,15 @@ class RadFieldRenderer(nn.Module):
         return self.net.encode(images, poses, focal, c, train)
 
     def render(self, cond: Conditioning, xy_pix: torch.Tensor, intrinsics: torch.Tensor,
-               cam2world: torch.Tensor, key: KeyLike) -> RenderOutput:
+               cam2world: torch.Tensor, key: KeyLike, train: bool = False) -> RenderOutput:
         """``xy_pix (SB, R, 2)``, ``intrinsics (SB, 3, 3)``, ``cam2world (SB, R,
         4, 4)``, ``key`` per-ray seeds ``(SB, R)`` (``RaySeeds``) or a threefry
-        ``Key`` (the legacy stream)."""
+        ``Key`` (the legacy stream); ``train`` puts the decoders' BatchNorm
+        (``--bn``) in train mode, as JAX's ``render(train=True)``."""
         cfg = self.renderer_cfg
 
         def field(xyz, viewdirs, coarse):
-            return self.net(cond, xyz, viewdirs, coarse)
+            return self.net(cond, xyz, viewdirs, coarse, train)
 
         if isinstance(cfg, VolumeRendererConfig):
             return render_volume(cfg, key, field, xy_pix, intrinsics, cam2world)
@@ -114,14 +114,17 @@ def _orthogonal_rows(shape, gen):
 def init_weights(model: nn.Module, seed: int) -> None:
     """Seeded weights by the JAX package's scheme (``init_all``):
 
-    * the decoders' ``lin_in``, ``lin_z``, ``fc_0`` and ``lin_out``: Kaiming
-      normal, variance 2 / fan_in (``avr_tpu/models/mlp.py:33``); ``fc_1``
+    * the decoders' ``lin_in``, ``lin_z``, ``scale_z``, ``fc_0``, ``lin_out``
+      and ImplicitNet's ``lin_k``: Kaiming normal, variance 2 / fan_in
+      (``avr_tpu/models/mlp.py:33``); ``fc_1``
       zero, so a fresh block is the identity (``:77-88``);
     * the LSTM's ``w_ih``: Kaiming normal; ``w_hh``: orthogonal rows
       (``column_axis=0``); both biases zero but the forget quarter, 1
       (``avr_tpu/renderers/lstm.py:48-52,70-78``);
-    * the encoder's convolutions and the march's ``out_layer``: Flax's
-      default LeCun normal (truncated, variance 1 / fan_in), zero bias;
+    * the encoders' convolutions (a transposed one's fan-in is its input
+      channels times its taps), the global encoder's ``fc`` and the march's
+      ``out_layer``: Flax's default LeCun normal (truncated, variance 1 /
+      fan_in), zero bias;
     * BatchNorm scale 1, bias 0.
 
     The draws are not JAX's (another generator); the scheme is."""
@@ -137,6 +140,9 @@ def init_weights(model: nn.Module, seed: int) -> None:
                 p.zero_()
             elif p.ndim >= 2 and ".mlp_" in name:
                 p.copy_(_normal(p.shape, (2.0 / p[0].numel()) ** 0.5, gen))
+            elif ".deconv" in name and p.ndim == 4:  # transposed (in, out, kh, kw)
+                fan_in = p.shape[0] * p[0, 0].numel()
+                p.copy_(_truncated_normal(p.shape, (1.0 / fan_in) ** 0.5, gen))
             elif p.ndim >= 2:  # convolutions (out, in, kh, kw), out_layer (out, in)
                 p.copy_(_truncated_normal(p.shape, (1.0 / p[0].numel()) ** 0.5, gen))
             elif leaf == "scale":
@@ -179,14 +185,9 @@ def add_sigma_bias(model: RadFieldRenderer, value: float) -> None:
     ``--sigma_bias_init`` (``avr_tpu/cli/train.py:276-284``)."""
     with torch.no_grad():
         for head in (model.net.mlp_coarse, model.net.mlp_fine):
-            if head.lin_out.bias.shape[-1] == 4:  # rgb + raw sigma
+            # a ResnetFC's rgb + raw sigma (no fine decoder, or ImplicitNet: none)
+            if hasattr(head, "lin_out") and head.lin_out.bias.shape[-1] == 4:
                 head.lin_out.bias[3] += value
-
-
-# JAX's fused_march values (avr_tpu/models/wrapper.py:48-52): "auto" and
-# "always" run K3 (its plain version on CPU tensors); "never" is JAX's
-# lax.scan march, a plain path on the card, which waits for ROADMAP Queue 1, P10
-FUSED_MARCH = ("auto", "always")
 
 
 def make_model(conf: Union[str, Conf, None] = None, dtype: torch.dtype = torch.bfloat16,
@@ -213,12 +214,11 @@ def make_model(conf: Union[str, Conf, None] = None, dtype: torch.dtype = torch.b
     The JAX CLI's other model flags: ``raymarch_steps`` the Raymarcher's
     march steps (``renderer_config_from_conf``'s argument; the adaptive
     renderer reads its conf), ``fused_mlp`` the decoder's backward
-    (``FUSED_MLP_STASH``), ``fused_march`` in :data:`FUSED_MARCH`, ``bn``
-    (refused: ``ModelConfig.check_supported``)."""
-    if fused_march not in FUSED_MARCH:
-        raise NotImplementedError(
-            f"fused_march={fused_march!r} is JAX's lax.scan march, a plain path on the card; "
-            f"the port runs {FUSED_MARCH} (the rest waits for ROADMAP Queue 1, P10)")
+    (``FUSED_MLP_STASH``), ``fused_march`` and ``bn`` (BatchNorm in the
+    decoders' blocks).  The model options of ``conf``'s ``model`` subtree
+    are JAX's (``ModelConfig``); ``ModelConfig.check_supported`` refuses
+    JAX's XLA-only values (``models/pixelnerf.py XLA_ONLY``) before a module
+    is built."""
     dev = resolve_device(device)
     if conf is None or isinstance(conf, str):
         conf = parse_conf(conf or DEFAULT_CONF)
@@ -226,6 +226,7 @@ def make_model(conf: Union[str, Conf, None] = None, dtype: torch.dtype = torch.b
     model_cfg = dataclasses.replace(
         model_cfg, gather_impl=gather_impl, fused_mlp=fused_mlp,
         encoder=dataclasses.replace(model_cfg.encoder, norm_type=norm_type))
+    model_cfg.check_supported(fused_march)
     model = RadFieldRenderer(model_cfg, renderer_config_from_conf(conf, renderer, raymarch_steps),
                              dtype, fused_integral)
     init_weights(model, seed)

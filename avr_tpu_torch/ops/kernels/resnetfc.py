@@ -172,6 +172,13 @@ def _encode(p: torch.Tensor, code: CodeSpec) -> torch.Tensor:
     return torch.where(mode == _SIN, torch.sin(lanes * f + ph), lanes)
 
 
+def encode_features(x: torch.Tensor, code: CodeSpec) -> torch.Tensor:
+    """The positional encoding of raw features ``(..., d_raw)`` float32 ->
+    ``(..., d_enc)``: the prologue the kernel runs, as JAX's XLA path
+    (``ResnetFC._apply_code``) runs it."""
+    return _encode(x.reshape(-1, x.shape[-1]), code).reshape(*x.shape[:-1], code.d_enc)
+
+
 def resnetfc_plain(x: torch.Tensor, z: torch.Tensor, w: DecoderWeights, *,
                    n_blocks: int, n_lin_z: int, compute_dtype: torch.dtype,
                    code: Optional[CodeSpec] = None,
@@ -857,6 +864,8 @@ def fused_resnetfc(x: torch.Tensor, z: torch.Tensor, w: DecoderWeights, *,
         # the bf16 backward's tail holds d_latent <= 512 and k_in <= 128
         if compute_dtype == torch.bfloat16 and (d_latent > 512 or d["k_in"] > 128):
             raise ValueError(f"{NAME}: the bf16 backward needs d_latent <= 512 and at most 128 "
-                             f"encoded input lanes, got {d_latent}, {w.wi.shape[1]}")
+                             f"encoded input lanes, got {d_latent}, {w.wi.shape[1]} (ROADMAP "
+                             f"Queue 3: the bf16 backward's latent envelope; the global "
+                             f"encoder's 640 latent lanes train in float32)")
         return _Decoder.apply(x, z, *w, a, d, compute_dtype, keep)
     return _forward(a, d, compute_dtype, stash=False)[0]

@@ -23,8 +23,9 @@ non-finite skip sees the reduced gradients, so every rank skips together.
   program partitioned): ``"per_ray"`` as above, a ``"legacy"`` key draws the
   global batch's stream and keeps the block, so both streams are the
   single-device step's; and BatchNorm normalises with the global batch's
-  moments (a differentiable mean over the ``data`` axis, forward and
-  backward), as XLA's partitioning of JAX's step does.  Up to summation
+  moments (a differentiable mean, forward and backward: over the ``data``
+  axis for the encoder's, over the whole mesh for the decoder's
+  ``--bn``), as XLA's partitioning of JAX's step does.  Up to summation
   order it is the single-device step.
 
 The running statistics are averaged over the mesh after the step: under
@@ -121,33 +122,37 @@ class _MeanOverGroup(torch.autograd.Function):
         return g / ctx.n, None, None
 
 
-def _data_moments(mesh: Mesh):
-    """BatchNorm's moment reduction over the ``data`` axis (the ranks that
-    hold the global batch's scenes between them), or ``None`` where the
-    axis has one rank."""
-    if mesh.data_group is None:
-        return None
-    n = mesh.shape[mesh.axis_names[0]]
-
+def _mean_moments(group, n: int):
     def reduce(moments):
-        both = _MeanOverGroup.apply(torch.stack(moments), mesh.data_group, n)
+        both = _MeanOverGroup.apply(torch.stack(moments), group, n)
         return both[0], both[1]
 
     return reduce
+
+
+def _partitioned_moments(mesh: Mesh):
+    """BatchNorm's moment reductions, or ``None`` where there is nothing to
+    reduce: the encoder's over the ``data`` axis (the ranks that hold the
+    global batch's scenes between them), the decoder's over the whole mesh
+    (every rank holds a block of the global batch's points)."""
+    if not mesh.grouped or mesh.size == 1:
+        return None
+    images = (_mean_moments(mesh.data_group, mesh.shape[mesh.axis_names[0]])
+              if mesh.data_group is not None else None)
+    return batch_moments(images, points=_mean_moments(dist.group.WORLD, mesh.size))
 
 
 def _make(model: RadFieldRenderer, optimizer: Optimizer, loss_params: LossParams, mesh: Mesh,
           ema_decay: float, rng_mode: str, partitioned: bool) -> Callable:
     if rng_mode not in RNG_MODES:
         raise ValueError(f"unknown rng_mode {rng_mode!r}")
-    moments = _data_moments(mesh) if partitioned else None
 
     def step(state: TrainState, src_images, src_poses, focal, c, model_input, gt, key):
         block = mesh.block(*gt.shape[:2])
         if rng_mode == "legacy" and not partitioned:
             key, block = threefry.fold_in(threefry.Key(*key), mesh.rank), None
-        sync = batch_moments(moments) if moments is not None else contextlib.nullcontext()
-        with sync:
+        sync = _partitioned_moments(mesh) if partitioned else None
+        with sync or contextlib.nullcontext():
             loss, grads = loss_and_grads(model, state.params, loss_params, src_images,
                                          src_poses, focal, c, model_input, gt, key,
                                          rng_mode=rng_mode, block=block)

@@ -109,8 +109,9 @@ def loss_and_grads(model: RadFieldRenderer, params: Dict[str, torch.Tensor],
                    loss_params: LossParams, src_images, src_poses, focal, c, model_input, gt,
                    key, ray_chunks: int = 1, rng_mode: str = "per_ray", block=None):
     """``(loss, grads by parameter name)`` of one batch over ``ray_chunks``
-    chunks of its rays, the encoder's BatchNorm in train mode (its running
-    statistics update in place, once), the render keys from ``key`` by
+    chunks of its rays, the encoders' BatchNorm in train mode (their running
+    statistics update in place, once) and the decoders' (``--bn``, at each
+    of a chunk's queries), the render keys from ``key`` by
     ``rng_mode`` (and ``block``, a global batch's block: module docstring).
     One chunk is the same computation: its sums and the ``1 / C`` scaling
     are then exact."""
@@ -124,37 +125,43 @@ def loss_and_grads(model: RadFieldRenderer, params: Dict[str, torch.Tensor],
     keys = _chunk_keys(key, SB, R, C, rng_mode, gt.device, block)
     with torch.enable_grad():
         cond = model.encode(src_images, src_poses, focal, c, train=True)
-    # stop_encoder_grad: the latent has no graph (BatchNorm's statistics
-    # still update), and the encoder's gradients stay zero
-    pull = cond.latent.requires_grad
+    # the encoders' outputs, detached for each chunk's render and pulled
+    # back through the encoders once; stop_encoder_grad: the latent has no
+    # graph (BatchNorm's statistics still update), the encoder's gradients
+    # stay zero
+    pulled = [f for f in ("latent", "global_latent")
+              if getattr(cond, f) is not None and getattr(cond, f).requires_grad]
 
     def chunk(a, i):  # (SB, R, ...) -> chunk i, (SB, R / C, ...)
         return a.reshape(SB, C, R // C, *a.shape[2:])[:, i]
 
     gp = {n: torch.zeros_like(params[n], dtype=torch.float32) for n in names}
-    gc = torch.zeros_like(cond.latent, dtype=torch.float32)
+    gc = {f: torch.zeros_like(getattr(cond, f), dtype=torch.float32) for f in pulled}
     lsum = torch.zeros((), dtype=torch.float32, device=gt.device)
     for i in range(C):
-        latent = cond.latent.detach().requires_grad_(pull)
+        leaves = {f: getattr(cond, f).detach().requires_grad_() for f in pulled}
         with torch.enable_grad():
-            out = model.render(dataclasses.replace(cond, latent=latent),
+            out = model.render(dataclasses.replace(cond, **leaves),
                                chunk(model_input["x_pix"], i), model_input["intrinsics"],
-                               chunk(model_input["cam2world"], i), keys[i])
+                               chunk(model_input["cam2world"], i), keys[i], train=True)
             loss = loss_fn(out, chunk(gt, i), loss_params)
-            raw = torch.autograd.grad(loss, [params[n] for n in names] + [latent] * pull,
+            raw = torch.autograd.grad(loss, [params[n] for n in names] + list(leaves.values()),
                                       allow_unused=True)
         for n, g in zip(names, raw[:len(names)]):
             if g is not None:
                 gp[n] += g
-        if pull and raw[-1] is not None:
-            gc += raw[-1]
+        for f, g in zip(pulled, raw[len(names):]):
+            if g is not None:
+                gc[f] += g
         lsum += loss.detach()
     scale = 1.0 / C
     grads = {n: gp[n] * scale for n in names}
-    if pull:
-        # the encoder's parameters get their gradient here, the rest none
-        raw = torch.autograd.grad(cond.latent, [params[n] for n in names],
-                                  (gc * scale).to(cond.latent.dtype), allow_unused=True)
+    if pulled:
+        # the encoders' parameters get their gradient here, the rest none
+        outs = [getattr(cond, f) for f in pulled]
+        raw = torch.autograd.grad(outs, [params[n] for n in names],
+                                  [(gc[f] * scale).to(o.dtype) for f, o in zip(pulled, outs)],
+                                  allow_unused=True)
         for n, g in zip(names, raw):
             if g is not None:
                 grads[n] += g

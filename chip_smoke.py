@@ -195,6 +195,38 @@ Phases (any failure raises and exits non-zero):
    checkpoint names and log keys.  The kernels line carries each kernel's
    launches in these cases (``parallel``, ``parallel_by_case``).
 
+9. The model options (``OPTION_CASES``: the decoder BatchNorm ``--bn``;
+   SPADE, softplus ``beta`` and ``combine_type = max``; ``type = mlp``
+   (``ImplicitNet``); the global encoder with ``mlp_fine { type = empty }``;
+   the custom encoder; ``feature_scale``; ``use_xyz = False`` with coded view
+   directions; ``use_code = False``; ``normalize_z = False`` without view
+   directions; ``use_encoder = False`` with the global latent, on the VR) at
+   full ``conf/default_mv.conf`` width on ``bench_weights``, each case's
+   launch counters reset before and read after: one bf16 train step (SB 4 x
+   4,096 rays; the global latent's 640 lanes are past the bf16 backward's
+   envelope, so that case records the refusal and trains in float32) and
+   one served 128x128 bf16 frame; the float32 field (one encoded view, 4,096
+   points, coarse and fine) held to the CPU's on the same weights (1e-3 of
+   max(1, |output|)); the bf16 field through the kernels held to the same
+   field through their plain versions on the card (``option_kernel_check``:
+   the query at K2's bf16 forward tolerance, the gradients of a loss of it
+   by relative L2 at K2's backward tolerance, float32 where the bf16
+   backward refuses, and K1 forward and backward on the case's own map).  A
+   skipped update goes through phase 4's protocol (``diagnose_skip``): it
+   fails unless the plain versions skip too or the first non-finite value
+   appears outside a kernel.  K2 launches where JAX fuses (``supports``) and
+   never where JAX runs XLA; K1 forward and backward on the custom
+   encoder's 128x128x128 map.  The kernels line carries each kernel's launches by
+   case (``options``, ``options_by_case``).
+
+10. The quality script (``python -m avr_tpu_torch.scripts.quality_ab``):
+    an adaptive and a VR arm at 64x64 (8 instances, 4 x 1,024 rays, device
+    data), stopped at epoch 2 and resumed to epoch 4 by a second call, each
+    call's launches counted (``quality``, ``quality_by_case``): K1, K2, K3
+    and K7 launch; every evaluation (final and best, raw and EMA, the
+    band-widening sweep) finite.  The long quality runs are runs of their
+    own (``python -m avr_tpu_torch.scripts.quality_ab``, README).
+
 Prints the kernel table as one JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``; every case in full
 goes to ``DIR/chip_smoke_report.json`` (default ``traces/``), with the
@@ -217,6 +249,11 @@ runs only phase 7 and prints its report as one JSON line.
     python3 chip_smoke.py --parallel
 
 runs only phase 8 and prints its report as one JSON line.
+
+    python3 chip_smoke.py --options [--quality]
+
+runs only phase 9 (and with ``--quality`` phase 10; ``--quality`` alone
+runs only phase 10) and prints the report as one JSON line.
 """
 
 from __future__ import annotations
@@ -2909,56 +2946,13 @@ def run_train(path="adaptive", steps=10, warmup=2):
 
     skipped = []
 
-    def redo(plain, found=None):
-        """Step ``i``'s loss and gradients again on the same weights, batch
-        and key (the BatchNorm statistics restored after), through the
-        plain versions or, recording where the first non-finite value
-        appears, through the kernels (their launches not counted)."""
-        stats = {k: v.clone() for k, v in model.named_buffers()}
-        counted = dict(_build.launches)
-        with plain_kernels() if plain else first_nonfinite(found):
-            loss, g = loss_and_grads(model, state.params, loss_params, *replay["batch"],
-                                     replay["key"], ray_chunks=chunks, rng_mode=rng_mode)
-        _build.launches.clear()
-        _build.launches.update(counted)
-        with torch.no_grad():
-            for k, v in model.named_buffers():
-                v.copy_(stats[k])
-        return float(loss), [k for k, v in g.items() if not bool(torch.isfinite(v).all())]
-
     def confirm_skip(i, metrics):
-        """The optimizer skipped step ``i`` (a non-finite gradient; the
-        weights did not move).  Redone through the plain versions on the
-        card, the loss must agree; the gradient must be non-finite too, or
-        else, redone through the kernels, the first non-finite value must
-        appear in the backward of an op that is not a kernel's, from finite
-        incoming gradients: the kernels' forward points differ from the
-        plain versions' in the last bits, so a point at a camera depth of
-        exactly 0 can come out on one side only (module docstring, phase 4).
-        Otherwise a kernel made it."""
+        """The optimizer skipped step ``i``: ``diagnose_skip``."""
         if int(metrics["notfinite"]) == len(skipped):
             return
-        loss, bad = redo(plain=True)
-        # bf16 forward through the kernels and through the plain versions:
-        # the probe's skips read up to 1.1e-5 apart
-        if not abs(loss - float(metrics["loss"])) <= 1e-4:
-            raise AssertionError(f"{path} train step {i}: loss {float(metrics['loss'])} through "
-                                 f"the kernels, {loss} through the plain versions")
-        entry = {"step": i, "plain_loss": loss, "plain_nonfinite": len(bad)}
-        if not bad:
-            found = []
-            redo(plain=False, found=found)
-            if not found or found[0]["kernel"]:
-                raise AssertionError(f"{path} train step {i}: the kernels' gradient is not "
-                                     f"finite, the plain versions' is; first non-finite at "
-                                     f"{found[0] if found else 'no node'}")
-            entry["first_nonfinite_node"] = found[0]
-        skipped.append(entry)
-        where = (f"{len(bad)} non-finite gradients" if bad else
-                 f"a finite gradient, and the kernels' first non-finite value appears in "
-                 f"{entry['first_nonfinite_node']['node']}, which is not a kernel")
-        print(f"{path} train step {i}: update skipped; on the same weights and batch the plain "
-              f"versions give {where}")
+        skipped.append(dict(step=i, **diagnose_skip(
+            model, state.params, loss_params, replay["batch"], replay["key"],
+            float(metrics["loss"]), f"{path} train step {i}", chunks, rng_mode)))
 
     tracked = {**state.params, **state.batch_stats}
     initial = {k: v.detach().clone() for k, v in tracked.items()}
@@ -3000,6 +2994,56 @@ def run_train(path="adaptive", steps=10, warmup=2):
                launches=counts,
                **extra)
     return res, lambda i=0: step(state, i)
+
+
+def diagnose_skip(model, params, loss_params, batch, key, loss, label, ray_chunks=1,
+                  rng_mode="per_ray"):
+    """A train step's optimizer skipped its update (a non-finite gradient;
+    the weights did not move).  Redone on the same weights, batch and key
+    (the BatchNorm statistics restored after) through the plain versions on
+    the card, the loss must agree; the gradient must be non-finite too, or
+    else, redone through the kernels, the first non-finite value must
+    appear in the backward of an op that is not a kernel's, from finite
+    incoming gradients: the kernels' forward points differ from the plain
+    versions' in the last bits, so a point at a camera depth of exactly 0
+    can come out on one side only (module docstring, phase 4).  Otherwise a
+    kernel made it, and this raises.  The redos' launches are not counted.
+    Returns what was found."""
+    def redo(plain, found=None):
+        stats = {k: v.clone() for k, v in model.named_buffers()}
+        counted = dict(_build.launches)
+        with plain_kernels() if plain else first_nonfinite(found):
+            loss, g = loss_and_grads(model, params, loss_params, *batch, key,
+                                     ray_chunks=ray_chunks, rng_mode=rng_mode)
+        _build.launches.clear()
+        _build.launches.update(counted)
+        with torch.no_grad():
+            for k, v in model.named_buffers():
+                v.copy_(stats[k])
+        return float(loss), [k for k, v in g.items() if not bool(torch.isfinite(v).all())]
+
+    plain_loss, bad = redo(plain=True)
+    # bf16 forward through the kernels and through the plain versions:
+    # the probe's skips read up to 1.1e-5 apart
+    if not abs(plain_loss - loss) <= 1e-4:
+        raise AssertionError(f"{label}: loss {loss} through the kernels, {plain_loss} through "
+                             f"the plain versions")
+    entry = {"plain_loss": plain_loss, "plain_nonfinite": len(bad),
+             "plain_nonfinite_grads": bad}
+    if not bad:
+        found = []
+        redo(plain=False, found=found)
+        if not found or found[0]["kernel"]:
+            raise AssertionError(f"{label}: the kernels' gradient is not finite, the plain "
+                                 f"versions' is; first non-finite at "
+                                 f"{found[0] if found else 'no node'}")
+        entry["first_nonfinite_node"] = found[0]
+    where = (f"{len(bad)} non-finite gradients" if bad else
+             f"a finite gradient, and the kernels' first non-finite value appears in "
+             f"{entry['first_nonfinite_node']['node']}, which is not a kernel")
+    print(f"{label}: update skipped; on the same weights and batch the plain versions give "
+          f"{where}")
+    return entry
 
 
 def check_vr_chunks():
@@ -4234,6 +4278,373 @@ def print_parallel(res, launches):
     print(f"parallel launches: {launches}; phase {res['seconds']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the model options
+# ---------------------------------------------------------------------------
+
+# K2's counters (its float32 wgrad's counter is shared with K3's: left out)
+K2_NAMES = (K2.NAME, K2.NAME_STASH, K2.NAME_WGMMA, K2.NAME_DGRAD, K2.NAME_WGRAD,
+            K2.NAME_RECOMPUTE, K2.NAME_F32, K2.NAME_DGRAD_F32)
+# each option group of the model conf's ``model`` subtree (added to
+# conf/default_mv.conf at full width): (model block, make_model keywords,
+# JAX fuses the decoders); the adaptive renderer unless the keywords say
+OPTION_CASES = {
+    "bn": ("", dict(bn=True), False),
+    "spade_beta_max": ("mlp_coarse { use_spade = True\n beta = 1.0\n combine_type = max }\n"
+                       "mlp_fine { use_spade = True\n beta = 1.0\n combine_type = max }", {},
+                       False),
+    "type_mlp": ("mlp_coarse { type = mlp\n n_blocks = 8\n d_hidden = 256 }\n"
+                 "mlp_fine { type = mlp\n n_blocks = 8\n d_hidden = 256 }", {}, False),
+    "global_coarse_only": ("use_global_encoder = True\n"
+                           "global_encoder { backbone = resnet34\n latent_size = 128 }\n"
+                           "mlp_fine { type = empty }", {}, True),
+    "custom_encoder": ("encoder { backbone = custom }", {}, True),
+    "feature_scale": ("encoder { feature_scale = 0.5 }", {}, True),
+    "xyz_off_viewdirs_coded": ("use_xyz = False\nuse_code_viewdirs = True", {}, True),
+    "code_off": ("use_code = False", {}, True),
+    "normalize_z_off_viewdirs_off": ("normalize_z = False\nuse_viewdirs = False", {}, True),
+    "no_encoder_vr": ("use_encoder = False\nuse_global_encoder = True", dict(renderer="VR"),
+                      True),
+}
+OPTION_POINTS = 4096  # the float32 field query held against the CPU
+OPTION_TOL = 1e-3  # of max(1, |CPU output|): float32, cuDNN's and the K2 kernels' sums
+
+
+def option_model(case, dtype, dev):
+    from avr_tpu_torch.config import parse_conf_string
+
+    block, kw, _ = OPTION_CASES[case]
+    conf = parse_conf_string(f'include required("default_mv.conf")\nmodel {{\n{block}\n}}\n',
+                             base_dir=os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                                   "conf"))
+    model = make_model(conf, dtype=dtype, seed=0, device=dev, **kw)
+    bench_weights(model, 0)
+    return model
+
+
+def option_field_check(case):
+    """The float32 field (encode one 128x128 view, query OPTION_POINTS points,
+    coarse and fine) on the card against the same weights on the CPU."""
+    cpu = option_model(case, torch.float32, "cpu")
+    gpu = option_model(case, torch.float32, DEV)
+    rng = np.random.default_rng(9)
+    batch = scene_batch(3)
+    xyz = torch.from_numpy(rng.normal(scale=0.3, size=(1, OPTION_POINTS, 3)).astype(np.float32))
+    vd = torch.nn.functional.normalize(torch.from_numpy(
+        rng.normal(size=(1, OPTION_POINTS, 3)).astype(np.float32)), dim=-1)
+    errs = {}
+    with torch.inference_mode():
+        want_c = encode_scene(cpu, batch, "cpu")
+        got_c = encode_scene(gpu, batch, DEV)
+        for coarse in (True, False):
+            want = cpu.net(want_c, xyz, vd, coarse)
+            got = gpu.net(got_c, xyz.to(DEV), vd.to(DEV), coarse).cpu()
+            errs["coarse" if coarse else "fine"] = float((got - want).abs().max()) / max(
+                1.0, float(want.abs().max()))
+    worst = max(errs.values())
+    if not worst <= OPTION_TOL:
+        raise AssertionError(f"options {case}: float32 field on the card against the CPU "
+                             f"{errs} > {OPTION_TOL}")
+    return errs
+
+
+# the field through the kernels against the same field through their plain
+# versions on the card.  The bf16 query: at least K2's bf16 forward tolerance
+# (check_resnetfc: 2 bf16 ulps of max(1, |plain|), set for random weights
+# whose trunk is of the output's scale); bench_weights' trunk may be larger
+# than the output, and an activation rounded one bf16 ulp apart moves the
+# output by the trunk's ulp, so the tolerance is also twice the plain
+# version's own distance from the float32 field on the same bf16-valued
+# weights and latents (two roundings of one function, each that far from
+# it, are at most twice that apart), and the kernel is held to that field
+# too.  The backward against the plain autograd by relative L2
+# (check_resnetfc_bwd: bf16 8e-2, float32 1e-2, ReLU masks flipping between
+# two correct roundings), and K1 on the case's map (check_gather_bwd: dfeat
+# 2 bf16 ulps, dcoords 1e-4 of the largest value)
+OPTION_FWD_REL = 2.0 ** -7
+OPTION_BWD_L2 = {torch.bfloat16: 8e-2, torch.float32: 1e-2}
+
+
+def option_kernel_check(case):
+    """Phase 9's kernels against their plain versions on the card, same
+    weights and inputs: the bf16 field query (coarse, and fine where the
+    case has a fine decoder), the gradients of a loss of it (the decoder's
+    parameters and the latents; float32 where the bf16 backward refuses the
+    width), and K1 forward and backward on the case's own latent map."""
+    rng = np.random.default_rng(11)
+    xyz = torch.from_numpy(rng.normal(scale=0.3, size=(1, OPTION_POINTS, 3)).astype(np.float32))
+    vd = torch.nn.functional.normalize(torch.from_numpy(
+        rng.normal(size=(1, OPTION_POINTS, 3)).astype(np.float32)), dim=-1)
+    g = torch.from_numpy(rng.normal(size=(1, OPTION_POINTS, 4)).astype(np.float32) + 0.5)
+    xyz, vd, g = xyz.to(DEV), vd.to(DEV), g.to(DEV)
+    counted = dict(_build.launches)
+    cases, bwd_dtype = [], torch.bfloat16
+    models = {torch.bfloat16: option_model(case, torch.bfloat16, DEV)}
+    # the float32 field on the bf16 model's weights rounded to bf16, fed the
+    # bf16 latents: what both bf16 roundings of the query approximate
+    exact = option_model(case, torch.float32, DEV)
+    with torch.no_grad():
+        cond = encode_scene(models[torch.bfloat16], scene_batch(3), DEV)
+        for k, p in exact.net.named_parameters():
+            if k.startswith("mlp_"):
+                p.copy_(p.bfloat16().float())
+    cond32 = dataclasses.replace(cond, **{k: getattr(cond, k).float() for k in
+                                          ("latent", "global_latent")
+                                          if getattr(cond, k) is not None})
+    heads = (True,) if models[torch.bfloat16].net.mlp_fine is None else (True, False)
+    for coarse in heads:
+        label = f"options {case} {'coarse' if coarse else 'fine'}"
+        net = models[torch.bfloat16].net
+        with torch.no_grad():
+            got = net(cond, xyz, vd, coarse)
+            with plain_kernels():
+                want = net(cond, xyz, vd, coarse)
+                ref = exact.net(cond32, xyz, vd, coarse)
+        plain_err, kernel_err = max_err(want, ref), max_err(got, ref)
+        tol = max(OPTION_FWD_REL * max(1.0, float(want.abs().max())), 2 * plain_err)
+        if not (max_err(got, want) <= tol and kernel_err <= tol):
+            raise AssertionError(f"{label} bf16 field: kernels against plain versions "
+                                 f"{max_err(got, want)}, kernels against the float32 field "
+                                 f"{kernel_err}, plain against it {plain_err}; tolerance {tol}")
+        cases.append(dict(check(f"{label} bf16 field", max_err(got, want), tol),
+                          plain_vs_float32=plain_err, kernel_vs_float32=kernel_err))
+        cases.append(check(f"{label} bf16 field vs float32 (bf16 weights)", kernel_err, tol,
+                           against="float32"))
+
+        def grads(dtype, plain):
+            if dtype not in models:
+                models[dtype] = option_model(case, dtype, DEV)
+            model = models[dtype]
+            with torch.no_grad():
+                c = cond if dtype == torch.bfloat16 else encode_scene(model, scene_batch(3), DEV)
+            leaves = {k: getattr(c, k).detach().clone().requires_grad_()
+                      for k in ("latent", "global_latent") if getattr(c, k) is not None}
+            c = dataclasses.replace(c, **leaves)
+            mlp = model.net.mlp_coarse if coarse else model.net.mlp_fine
+            named = {**dict(mlp.named_parameters()), **leaves}
+            with plain_kernels() if plain else contextlib.nullcontext():
+                out = model.net(c, xyz, vd, coarse)
+                gr = torch.autograd.grad((out * g).sum(), list(named.values()),
+                                         allow_unused=True)
+            return {k: v for k, v in zip(named, gr) if v is not None}
+
+        try:
+            got = grads(bwd_dtype, False)
+        except ValueError as e:
+            if "Queue 3" not in str(e):
+                raise
+            bwd_dtype = torch.float32  # the bf16 backward's width envelope
+            got = grads(bwd_dtype, False)
+        want = grads(bwd_dtype, True)
+        if set(got) != set(want):
+            raise AssertionError(f"{label}: gradients {sorted(got)} against {sorted(want)}")
+        kind = str(bwd_dtype)[6:]
+        cases += [check_l2(f"{label} {kind} d{k}", got[k], want[k], OPTION_BWD_L2[bwd_dtype])
+                  for k in want]
+    del exact
+    if cond.latent is not None:
+        feat = cond.latent.detach().clone()
+        gen = torch.Generator(DEV).manual_seed(11)
+        coords = (torch.rand(1, OPTION_POINTS, 2, generator=gen, device=DEV) * 2.2
+                  - 1.1).contiguous()
+        gl = randn(gen, 1, OPTION_POINTS, feat.shape[-1], dtype=feat.dtype)
+        got, want = gather_bilinear(feat, coords), gather_bilinear_plain(feat, coords)
+        shape = "x".join(map(str, feat.shape))
+        cases.append(check(f"options {case} K1 forward {shape}", max_err(got, want),
+                           2.0 ** -7 * max(1.0, float(want.float().abs().max()))))
+        got = grads_of(gather_bilinear, (feat, coords), gl)
+        want = grads_of(gather_bilinear_plain, (feat, coords), gl)
+        cases.append(check_rel(f"options {case} K1 dfeat {shape}", got[0], want[0], 2.0 ** -7))
+        cases.append(check_rel(f"options {case} K1 dcoords {shape}", got[1], want[1], 1e-4))
+    _build.launches.clear()  # the comparisons' launches are not counted
+    _build.launches.update(counted)
+    return cases, str(bwd_dtype)[6:]
+
+
+def run_options():
+    """Phase 9: each option group (OPTION_CASES) at full width, the launch
+    counters reset before and read after its cases: one bf16 train step (SB
+    4 x 4,096 rays; float32 where the bf16 backward refuses the width, the
+    refusal recorded) and one served 128x128 bf16 frame; the float32 field
+    held to its CPU run.  K2 launches where JAX fuses and never where JAX
+    runs XLA; K1 on the custom encoder's 128x128x128 map.  Returns the
+    report and each case's launches."""
+    t0 = time.perf_counter()
+    launches, res = {}, {}
+    batch, tb = scene_batch(), train_batch(DEV)
+    intr = torch.as_tensor(batch["intrinsics"][:, 0])
+    c2w = orbit_cam2world(1, 1.3)[:1]
+    for case, (_, kw, fused) in OPTION_CASES.items():
+        r = res[case] = dict(fused=fused, field_f32_err=option_field_check(case))
+        r["vs_plain"], r["vs_plain_bwd_dtype"] = option_kernel_check(case)
+        counts = {}
+
+        def step_once(dtype):
+            model = option_model(case, dtype, DEV)
+            opt = make_optimizer(1e-4)
+            state = create_train_state(model, opt)
+            step = make_train_step(model, opt, LossParams(loss_mode="both"))
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t = time.perf_counter()
+            state, m = step(state, *tb, (0, 1))
+            loss = float(m["loss"])
+            ms = (time.perf_counter() - t) * 1e3
+            counts.update({f"train_{k}": v for k, v in _build.launches.items()})
+            params = [p for p in state.params.values()]
+            if not np.isfinite(loss) or not all(torch.isfinite(p).all() for p in params):
+                raise AssertionError(f"options {case}: {dtype} step loss {loss}, parameters "
+                                     f"finite: {all(torch.isfinite(p).all() for p in params)}")
+            res = dict(dtype=str(dtype).split(".")[-1], loss=loss, ms=ms,
+                       skipped=int(m["notfinite"]))
+            if res["skipped"]:
+                # phase 4's protocol: the plain versions on the same weights,
+                # batch and key must skip too, or the first non-finite value
+                # must appear outside a kernel; else a kernel made it (raises)
+                res["skip"] = diagnose_skip(model, state.params, LossParams(loss_mode="both"),
+                                            tb, (0, 1), loss, f"options {case} {dtype}")
+            return res
+
+        try:
+            r["train"] = step_once(torch.bfloat16)
+        except ValueError as e:
+            if "Queue 3" not in str(e):
+                raise
+            # the bf16 backward's width envelope: train in float32 (the JAX
+            # CLI's default dtype), saying so
+            r["bf16_train_refused"] = str(e)
+            r["train"] = step_once(torch.float32)
+        model = option_model(case, torch.bfloat16, DEV)
+        with torch.inference_mode():
+            cond = encode_scene(model, batch, DEV)
+            render_full_image(model, cond, intr, c2w, SIDE, threefry.PRNGKey(0), CHUNK, DEV)
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t = time.perf_counter()
+            out = render_full_image(model, cond, intr, c2w, SIDE, threefry.PRNGKey(1), CHUNK,
+                                    DEV)
+            torch.cuda.synchronize()
+            r["frame_ms"] = (time.perf_counter() - t) * 1e3
+        counts.update({f"serve_{k}": v for k, v in _build.launches.items()})
+        rgb = (out.rgb_coarse if out.rgb_fine is None else out.rgb_fine).float()
+        # [0, 1] to 1e-6: the white background adds 1 - acc, and acc's float32
+        # sum reaches 1 + 2.4e-7
+        if not torch.isfinite(rgb).all() or rgb.min() < -1e-6 or rgb.max() > 1 + 1e-6:
+            bad = {k: (int((~torch.isfinite(v)).sum()), float(v.float().nan_to_num().min()),
+                       float(v.float().nan_to_num().max()))
+                   for k, v in out._asdict().items() if v is not None}
+            raise AssertionError(f"options {case}: served rgb not finite in [0, 1]: "
+                                 f"(non-finite, min, max) {bad}")
+        r["rgb_mean"] = float(rgb.mean())
+        if cond.latent is not None:
+            r["latent_shape"] = list(cond.latent.shape)
+        launches[case] = counts
+        k2 = {k: v for k, v in counts.items() if k.split("_", 1)[1] in K2_NAMES}
+        if fused != bool(k2) or (fused and not (counts.get(f"train_{K2.NAME_DGRAD}")
+                                                or counts.get(f"train_{K2.NAME_DGRAD_F32}")
+                                                or counts.get(f"train_{K2.NAME_RECOMPUTE}"))):
+            raise AssertionError(f"options {case}: JAX {'fuses' if fused else 'runs XLA'}, K2 "
+                                 f"launches {k2}")
+        if case == "custom_encoder" and (r["latent_shape"] != [1, SIDE, SIDE, 128]
+                                         or not counts.get("serve_gather_bilinear")
+                                         or not counts.get("train_gather_bilinear_bwd")):
+            raise AssertionError(f"options custom_encoder: latent {r['latent_shape']}, "
+                                 f"launches {counts}")
+        r["k2_routes"] = {k: v for k, v in k2.items()}
+        del model, cond, out
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    return res, launches
+
+
+def print_options(res, launches, smi):
+    for case in OPTION_CASES:
+        r = res[case]
+        refused = (f"; bf16 backward refused ({r['bf16_train_refused'][:60]}...), trained in "
+                   f"float32" if "bf16_train_refused" in r else "")
+        skip = r["train"].get("skip", {})
+        skipped = (f", update skipped (the plain versions: {skip['plain_nonfinite']} non-finite "
+                   f"gradients {skip['plain_nonfinite_grads'][:4]}"
+                   + (f", first at {skip['first_nonfinite_node']['node']}"
+                      if "first_nonfinite_node" in skip else "") + ")"
+                   if r["train"]["skipped"] else "")
+        print(f"options {case} ({smi}): JAX {'fuses' if r['fused'] else 'runs XLA'}; train "
+              f"{r['train']['dtype']} loss {r['train']['loss']:.5f} in {r['train']['ms']:.1f} ms"
+              f"{skipped}{refused}; frame {r['frame_ms']:.1f} ms, rgb mean {r['rgb_mean']:.4f}; float32 "
+              f"field against the CPU {r['field_f32_err']}; K2 {r['k2_routes']}")
+        worst = {}
+        for c in r["vs_plain"]:
+            kind = ("K1" if " K1 " in c["case"] else "field" if c["case"].endswith(" field")
+                    else "field_vs_float32" if c["against"] == "float32" else "grads")
+            err = c.get("rel_l2", c["max_abs_err"])
+            worst[kind] = max(worst.get(kind, (0.0, "")), (err, c["case"]))
+        print(f"options {case} kernels against the plain versions on the card: "
+              f"{len(r['vs_plain'])} cases within tolerance (backward in "
+              f"{r['vs_plain_bwd_dtype']}); worst (field max abs, against the float32 field "
+              f"on bf16 weights, gradient relative L2, K1 max abs) {worst}; plain against the "
+              f"float32 field {[c['plain_vs_float32'] for c in r['vs_plain'] if 'plain_vs_float32' in c]}")
+    print(f"options launches: {launches}; phase {res['seconds']:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the quality script
+# ---------------------------------------------------------------------------
+
+# a few steps of both arms at 64x64 (8 instances, 2 epochs of 2 steps a
+# call), cut at epoch 2 and resumed to 4 in a second call
+QUALITY_ARGS = ["--steps", "8", "--side", "64", "--instances", "8", "--train_views", "4",
+                "--ray_batch_size", "1024", "--device_data", "--steps_val", "4",
+                "--renderers", "AVR_smoke,VR_smoke", "--depth_consistency", "0.5",
+                "--eps_scales", "1.5"]
+QUALITY_REQUIRED = ("gather_bilinear", "gather_bilinear_bwd", K2.NAME_WGMMA, K2.NAME_DGRAD,
+                    K3.NAME_TILES, K3.NAME_BWD_TILES, K7.NAME)
+
+
+def run_quality():
+    """Phase 10: ``python -m avr_tpu_torch.scripts.quality_ab`` for a few steps
+    of an adaptive and a VR arm, stopped at epoch 2 and resumed to 4, each
+    call's launch counters reset before and read after."""
+    import shutil
+    import tempfile
+
+    from avr_tpu_torch.scripts import quality_ab
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="quality_")
+    launches, res = {}, {}
+    for stop in (2, 4):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t = time.perf_counter()
+        summary = quality_ab.main(["--workdir", root, *QUALITY_ARGS, "--stop_epoch", str(stop)],
+                                  device=DEV)
+        torch.cuda.synchronize()
+        launches[f"stop{stop}"] = dict(_build.launches)
+        missing = [k for k in QUALITY_REQUIRED if not launches[f"stop{stop}"].get(k)]
+        for arm, e in summary.items():
+            vals = [e[k]["psnr"] for k in ("final_raw", "final_ema", "best_raw", "best_ema")]
+            if (e["steps"] != stop * 2 or e["resumed_from_epoch"] != stop - 2
+                    or not all(np.isfinite(vals))):
+                raise AssertionError(f"quality stop {stop} {arm}: {e}")
+        if missing:
+            raise AssertionError(f"quality stop {stop}: no launch of {missing}")
+        res[f"stop{stop}"] = dict(seconds=time.perf_counter() - t, summary=summary)
+    shutil.rmtree(root, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t0
+    return res, launches
+
+
+def print_quality(res, launches, smi):
+    for stop in (2, 4):
+        r = res[f"stop{stop}"]
+        arms = "; ".join(f"{a} step {e['steps']} (from epoch {e['resumed_from_epoch']}), "
+                         f"{e['ms_per_step']:.1f} ms a step, {e['skipped_updates']} skipped "
+                         f"updates, final EMA PSNR "
+                         f"{e['final_ema']['psnr']:.3f}" for a, e in r["summary"].items())
+        print(f"quality --stop_epoch {stop} ({smi}): {r['seconds']:.1f} s; {arms}")
+    print(f"quality launches: {launches}; phase {res['seconds']:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4274,6 +4685,19 @@ def main() -> int:
         res, launches = run_parallel(smi)
         print_parallel(res, launches)
         print(json.dumps({"parallel": res, "launches": launches, "card": smi}))
+        print(smi)
+        return 0
+    if "--options" in sys.argv[1:] or "--quality" in sys.argv[1:]:
+        out = {"card": smi}
+        if "--options" in sys.argv[1:]:
+            res, launches = run_options()
+            print_options(res, launches, smi)
+            out.update(options=res, options_launches=launches)
+        if "--quality" in sys.argv[1:]:
+            res, launches = run_quality()
+            print_quality(res, launches, smi)
+            out.update(quality=res, quality_launches=launches)
+        print(json.dumps(out))
         print(smi)
         return 0
     profile = "--profile" in sys.argv[1:]
@@ -4347,9 +4771,15 @@ def main() -> int:
     print_cli(cli_res, cli_launches)
     par_res, par_launches = run_parallel(smi)
     print_parallel(par_res, par_launches)
+    opt_res, opt_launches = run_options()
+    print_options(opt_res, opt_launches, smi)
+    q_res, q_launches = run_quality()
+    print_quality(q_res, q_launches, smi)
     results = {"serve": serve, "train": train, "float32": float32, "fit": fit_res,
                "cli": dict(cli_res, launches=cli_launches),
                "parallel": dict(par_res, launches=par_launches),
+               "options": dict(opt_res, launches=opt_launches),
+               "quality": dict(q_res, launches=q_launches),
                "vr_one_vs_8_chunks": check_vr_chunks(),
                "adaptive_rerun": check_adaptive_rerun() + check_adaptive_rerun(torch.float32),
                "reference": check_small_reference() + check_small_train()
@@ -4392,10 +4822,17 @@ def main() -> int:
         # phase 8's cases (the sharded steps, each rank's own)
         par_counts = {case: sum(counts.get(n, 0) for n in names)
                       for case, counts in par_launches.items()}
+        # phase 9's cases (train step and served frame), phase 10's calls
+        opt_counts = {case: sum(v for key, v in counts.items() if key.split("_", 1)[1] in names)
+                      for case, counts in opt_launches.items()}
+        q_counts = {case: sum(counts.get(n, 0) for n in names)
+                    for case, counts in q_launches.items()}
         k.update(route="cuda", launches=sum(by_path.values()), launches_by_path=by_path,
                  max_abs_err=err, max_err=err, tol=max(c["tol"] for c in plain),
                  kernel_ms=k["ms"], cli=sum(cli_counts.values()), cli_by_case=cli_counts,
-                 parallel=sum(par_counts.values()), parallel_by_case=par_counts)
+                 parallel=sum(par_counts.values()), parallel_by_case=par_counts,
+                 options=sum(opt_counts.values()), options_by_case=opt_counts,
+                 quality=sum(q_counts.values()), quality_by_case=q_counts)
     # every case in full to a file; the printed line keeps one worst case each
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke_report.json"), "w") as f:

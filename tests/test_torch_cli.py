@@ -6,9 +6,11 @@ against ``avr_tpu/cli``.
   the test and video CLIs' parsers (built inside JAX's ``main``, read here by
   catching the parser at ``parse_args``) too, and each CLI's ``--help`` lists
   the same options.
-* Refusals: every flag value the port cannot run raises, naming the ROADMAP
-  item that brings it (``--bn``, ``--fused_mlp never``, ``--fused_march
-  never``, ``--gather_impl xla``: P10); ``main()`` of each CLI without a
+* Refusals: the three values that select JAX's XLA path beside a kernel
+  (``--fused_mlp never``, ``--fused_march never``, ``--gather_impl xla``)
+  raise from one table (``models/pixelnerf.py XLA_ONLY``) before anything
+  is written; ``--bn`` trains the decoders' BatchNorm (its parity with Flax
+  is ``test_torch_model_options.py``'s); ``main()`` of each CLI without a
   CUDA device raises instead of running on the CPU.
 * The parallel flags: ``--mesh 1,1``, ``--step_impl gspmd``, both, and
   ``--multihost`` without a launcher run one process, bit for bit the run
@@ -160,19 +162,34 @@ def test_train_defaults_are_jax_defaults():
 # ---------------------------------------------------------------------------
 
 REFUSED = {
-    "bn": (["--bn"], "P10"),
-    "fused_mlp_never": (["--fused_mlp", "never"], "P10"),
-    "fused_march_never": (["--fused_march", "never"], "P10"),
-    "gather_impl_xla": (["--gather_impl", "xla"], "P10"),
+    "fused_mlp_never": ["--fused_mlp", "never"],
+    "fused_march_never": ["--fused_march", "never"],
+    "gather_impl_xla": ["--gather_impl", "xla"],
 }
 
 
 @pytest.mark.parametrize("case", REFUSED)
 def test_refused_flags_raise(case, tmp_path, conf_path, sets):
-    extra, item = REFUSED[case]
-    with pytest.raises(NotImplementedError, match=item):
-        run_train(train_args(tmp_path, conf_path, *extra), sets)
+    with pytest.raises(NotImplementedError, match="one implementation on the card"):
+        run_train(train_args(tmp_path, conf_path, *REFUSED[case]), sets)
     assert not (tmp_path / "checkpoints").exists() and not (tmp_path / "logs").exists()
+
+
+def test_bn_flag_trains_the_decoder_batchnorm(tmp_path, conf_path, sets):
+    """``--bn``, refused until the decoders' BatchNorm was ported: it reaches
+    both decoders, whose statistics train with the run and are saved with
+    the encoder's."""
+    from avr_tpu_torch.models.mlp import PointBatchNorm
+
+    state = run_train(train_args(tmp_path, conf_path, "--bn", epochs=1), sets)
+    stats = {k: v for k, v in state.batch_stats.items() if ".bn_0." in k}
+    assert {k.split(".")[1] for k in stats} == {"mlp_coarse", "mlp_fine"}
+    assert all(not torch.equal(v, torch.zeros_like(v) if k.endswith("mean")
+                               else torch.ones_like(v)) for k, v in stats.items())
+    saved = torch.load(tmp_path / "checkpoints" / "experiments" / f"{NAME}_epoch1",
+                       weights_only=True)["batch_stats"]
+    assert all(torch.equal(saved[k], v.cpu()) for k, v in stats.items())
+    assert PointBatchNorm.over == "points"
 
 
 @pytest.mark.parametrize("name", ["train", "test", "video"])

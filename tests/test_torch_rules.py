@@ -1,11 +1,12 @@
 """Rules of the port that hold on any machine.
 
-* No module of ``avr_tpu_torch`` and no part of ``chip_smoke.py``,
+* No module of ``avr_tpu_torch`` (``scripts/`` and the model options'
+  modules included) and no part of ``chip_smoke.py``,
   ``train_skip_probe.py``, ``march_turns.py``, ``gather_turns.py``,
   ``integral_turns.py``, ``f32_turns.py`` or ``march_f32_turns.py`` imports
-  JAX, Flax, Optax or the JAX package (AST scan, the turns scripts' ``_TURN``
-  and ``_PROBE`` snippets included: they run as ``python -c`` in each
-  checkout).
+  JAX, Flax, Optax, the JAX package or its ``scripts`` (AST scan, the turns
+  scripts' ``_TURN`` and ``_PROBE`` snippets included: they run as ``python
+  -c`` in each checkout).
 * Entry points default to the card: with no CUDA device and no explicit
   ``device``, they raise instead of running on the CPU.
 * CPU tensors take the plain versions and never touch the kernel library,
@@ -15,7 +16,11 @@
   paths, validation and checkpoints included).
 * ``fit`` (device-data path and host path), ``test_approximate``,
   ``LPIPS`` and the step-input assembly default to the card too, as do the
-  CLIs' ``main`` (train, test, video) and the demo's.
+  CLIs' ``main`` (train, test, video), the demo's and the quality script's.
+* The model options (the global and custom encoders, ``feature_scale``,
+  ``type = mlp``, SPADE, ``beta``, ``max``, the decoder BatchNorm, the
+  encoding variants) render and train on CPU tensors without touching the
+  kernel library.
 """
 
 import ast
@@ -37,7 +42,7 @@ from avr_tpu_torch.ops.threefry import PRNGKey
 torch.set_num_threads(2)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "avr_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "avr_tpu", "scripts")
 # the turns scripts' sources run as python -c
 SNIPPETS = ("_TURN", "_PROBE", "_STAMPED", "_CAPTURE", "_COMMON")
 TINY = """
@@ -129,6 +134,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
     from avr_tpu_torch.cli import train as cli_train
     from avr_tpu_torch.cli import video as cli_video
     from avr_tpu_torch.examples import train_synthetic
+    from avr_tpu_torch.scripts import quality_ab
 
     mains = {cli_train.main: ["--root_dir", "r", "--loss_mode", "both", "--renderer", "AVR",
                               "--starting_epoch", "0"],
@@ -136,7 +142,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
                              "--data", "d.h5"],
              cli_video.main: ["--root_dir", "r", "--renderer", "AVR", "--epoch", "1",
                               "--data", "d.h5"],
-             train_synthetic.main: ["--workdir", "w"]}
+             train_synthetic.main: ["--workdir", "w"],
+             quality_ab.main: ["--workdir", "w"]}
     for main, argv in mains.items():
         with pytest.raises(RuntimeError, match="CUDA"):
             main(argv)
@@ -190,6 +197,70 @@ def test_the_scan_covers_the_clis_and_tools():
                 "examples/train_synthetic", "profiling/analyze", "data/native",
                 "models/torch_import", "utils/debug", "utils/viz", "utils/device"):
         assert f"avr_tpu_torch/{mod}.py" in names
+
+
+def test_the_scan_covers_the_model_options_and_scripts():
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for mod in ("models/implicit", "models/encoder", "models/mlp", "models/pixelnerf",
+                "ops/resize", "scripts/__init__", "scripts/quality_ab"):
+        assert f"avr_tpu_torch/{mod}.py" in names
+
+
+# the model options on TINY's width: (conf edits, make_model keywords)
+OPTIONS = {
+    "global_custom_mlp": ([("encoder { num_layers = 2 }",
+                            "encoder { backbone = custom }\n    use_global_encoder = True\n"
+                            "    global_encoder { backbone = resnet18\n latent_size = 64 }"),
+                           ("mlp_fine { d_hidden = 64", "mlp_fine { type = mlp\n d_hidden = 32")],
+                          {}),
+    "spade_beta_max_bn": ([("mlp_coarse { d_hidden = 64", "mlp_coarse { use_spade = True\n"
+                            " beta = 2.0\n combine_type = max\n d_hidden = 64"),
+                           ("encoder { num_layers = 2 }",
+                            "encoder { num_layers = 2\n feature_scale = 0.5 }\n"
+                            "    use_xyz = False\n    use_code_viewdirs = True")],
+                          dict(bn=True)),
+    "code_off_coarse_only": ([("mlp_fine { d_hidden = 64", "mlp_fine { type = empty\n d_hidden = 64"),
+                              ("encoder { num_layers = 2 }",
+                               "encoder { num_layers = 2 }\n    use_code = False")], {}),
+}
+
+
+@pytest.mark.parametrize("case", OPTIONS)
+def test_cpu_option_models_never_touch_the_kernel_library(case):
+    from avr_tpu_torch.training import (LossParams, create_train_state, make_optimizer,
+                                        make_train_step)
+
+    text = TINY
+    for old, new in OPTIONS[case][0]:
+        assert old in text, old
+        text = text.replace(old, new)
+    model = make_model(parse_conf_string(text, base_dir=str(ROOT / "conf")),
+                       dtype=torch.float32, seed=4, device="cpu", **OPTIONS[case][1])
+    rng = np.random.default_rng(2)
+    SB, R, S = 2, 8, 32
+    c2w = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
+    c2w[2, 3] = 1.3
+    K = np.asarray([[1.09375, 0, 0.5], [0, 1.09375, 0.5], [0, 0, 1]], np.float32)
+    t = lambda a: torch.from_numpy(np.array(a, np.float32))
+    batch = (t(rng.uniform(-1, 1, (SB, 1, S, S, 3))), t(np.broadcast_to(c2w, (SB, 1, 4, 4))),
+             35.0, t([16.0, 16.0]),
+             dict(x_pix=t(rng.uniform(0.05, 0.95, (SB, R, 2))),
+                  cam2world=t(np.broadcast_to(c2w, (SB, R, 4, 4))),
+                  intrinsics=t(np.broadcast_to(K, (SB, 3, 3)))),
+             t(rng.uniform(size=(SB, R, 3))))
+    _build.reset_launches()
+    opt = make_optimizer(1e-3)
+    state = create_train_state(model, opt)
+    state, metrics = make_train_step(model, opt, LossParams())(state, *batch, (0, 2))
+    assert int(metrics["notfinite"]) == 0 and np.isfinite(float(metrics["loss"]))
+    frames = evaluation.generate_video(model, dict(
+        images=rng.uniform(-1, 1, (1, 1, S * S, 3)).astype(np.float32),
+        cam2world=c2w[None, None], focal=np.full((1, 1), 35.0, np.float32),
+        c=np.full((1, 1, 2), 16.0, np.float32), intrinsics=K[None, None]),
+        1, 1.3, render_chunk=256, device="cpu")
+    assert frames[0].shape == (S, S, 3)
+    assert not _build.launches
+    assert _build._lib is None, "the CPU option model loaded the CUDA kernel library"
 
 
 def test_the_scan_covers_the_parallel_package():
