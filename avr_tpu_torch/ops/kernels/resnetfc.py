@@ -61,6 +61,17 @@ float32 rule: at least ``WGRAD_WAVES_F32`` waves of CTAs a job) and whose
 splits' partial tiles the bf16 wgrad's reduction adds in split order, so
 float32 too is the same run to run.
 
+Every kernel above keeps its trunk or trunk cotangent in registers, full at
+``d_hidden`` 512, and the bf16 dgrad's tail takes at most 512 latent and
+128 encoded input lanes.  Past those envelopes (:func:`forward_route` and
+:func:`backward_route` say ``"wide"``) the forward and the dgrad are
+``csrc/resnetfc_wide.cu``'s, one kernel each templated on the operand type
+(bf16 ``mma.sync``, float32 FMA): a CTA a tile of 32 (bf16) or 16 (float32)
+points, the float32 trunk in shared memory, the weights read from L2; the
+wgrads above take their jobs at any width.  A latent of any width is
+zero-padded to a multiple of 64 lanes (:func:`pad_latent`), as lin_in's
+input is, and its gradient sliced back.
+
 ``stash`` picks the backward as JAX does: ``True`` the stash backward,
 ``False`` the recompute backward, ``"auto"`` the stash while the call's
 stash (``stash_slots * N * d_hidden`` compute-dtype values) is at most
@@ -87,8 +98,9 @@ import torch
 
 from avr_tpu_torch.ops.kernels import _build
 
-__all__ = ["CodeSpec", "DecoderWeights", "f32_dgrad_plan", "f32_forward_plan", "forward_route",
-           "fused_resnetfc", "resnetfc_plain", "use_stash", "encode_tables", "wgrad_plan"]
+__all__ = ["CodeSpec", "DecoderWeights", "backward_route", "check_wide_bound", "f32_dgrad_plan",
+           "f32_forward_plan", "forward_route", "fused_resnetfc", "pad_latent", "resnetfc_plain",
+           "use_stash", "encode_tables", "wgrad_plan", "wide_smem"]
 
 NAME = "fused_resnetfc"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -266,10 +278,25 @@ def d_enc_padded(d_enc: int) -> int:
     return (d_enc + 63) // 64 * 64
 
 
+def pad_latent(z: torch.Tensor, wz: torch.Tensor):
+    """``z (NS, N, d_latent)`` and ``wz (n_lin_z, d_hidden, d_latent)`` with
+    zero latent lanes appended up to a multiple of 64, as the kernels take
+    them (lin_in's input lanes are padded the same way): each injection's
+    product only gains zero terms.  A width already a multiple of 64 is
+    returned as it is."""
+    dl = z.shape[-1]
+    pad = d_enc_padded(dl) - dl
+    if not pad:
+        return z, wz
+    return (torch.nn.functional.pad(z.detach(), (0, pad)),
+            torch.nn.functional.pad(wz.detach(), (0, pad)))
+
+
 def _prepare(x, z, w: DecoderWeights, code, compute_dtype):
     """The kernels' operands: detached, contiguous, in the compute dtype
-    (biases rounded to it and held in float32), lin_in zero-padded to a
-    multiple of 64 input lanes, and the encoding tables."""
+    (biases rounded to it and held in float32), lin_in and the latent
+    zero-padded to a multiple of 64 input lanes (:func:`pad_latent`), and
+    the encoding tables."""
     ns, N, d_in = x.shape
     d_hidden, d_enc = w.wi.shape
     dev = x.device
@@ -278,9 +305,10 @@ def _prepare(x, z, w: DecoderWeights, code, compute_dtype):
     cd = lambda t: t.detach().to(compute_dtype).contiguous()
     wi = torch.zeros((d_hidden, k_in), dtype=compute_dtype, device=dev)
     wi[:, :d_enc] = w.wi.detach()
+    z, wz = pad_latent(cd(z), cd(w.wz))
     biases = [t.detach().to(compute_dtype).float().contiguous()
               for t in (w.bi, w.bz, w.b0, w.b1, w.bo)]
-    a = dict(x=x.detach().float().contiguous(), z=cd(z), wi=wi, wz=cd(w.wz), w0=cd(w.w0),
+    a = dict(x=x.detach().float().contiguous(), z=z, wi=wi, wz=wz, w0=cd(w.w0),
              w1=cd(w.w1), wo=cd(w.wo), bi=biases[0], bz=biases[1], b0=biases[2],
              b1=biases[3], bo=biases[4],
              tables=torch.from_numpy(np.stack([mode, src]).astype(np.int32)).to(dev),
@@ -324,21 +352,69 @@ def _dims(a, n_blocks, n_lin_z, activate_out):
 # its operand tile holds at most 512 encoded input lanes, latent lanes and
 # trunk columns; its points come in tiles of FWD_TILE.
 FWD_K_MAX, FWD_TILE = 512, 64
+# Every kernel but the wide ones keeps its trunk (or trunk cotangent) in
+# registers, full at REG_DH_MAX columns; the bf16 dgrad's tail holds at most
+# TAIL_DL_MAX latent lanes and TAIL_KIN_MAX encoded input lanes
+# (csrc/resnetfc_hopper.cu TL_KIN_MAX).
+REG_DH_MAX, TAIL_DL_MAX, TAIL_KIN_MAX = 512, 512, 128
 
 
-def forward_route(compute_dtype: torch.dtype, d_latent: int, k_in: int) -> str:
+def forward_route(compute_dtype: torch.dtype, d_latent: int, k_in: int,
+                  d_hidden: int = REG_DH_MAX) -> str:
     """The forward kernel that a call with these operands launches on the
-    card, for every shape :func:`fused_resnetfc` takes (``d_latent`` a
-    multiple of 64, ``k_in`` encoded input lanes padded to a multiple of 64;
-    every ``d_hidden`` it takes, 64..512, and every number of views take the
-    same route): ``"wgmma"`` (bf16 with ``d_latent`` and ``k_in`` at most
-    512, ``csrc/resnetfc_hopper.cu``), ``"mma_sync"`` (other bf16) or
-    ``"fma"`` (float32: ``resnetfc_fwd_f32_kernel``), both
+    card, for every shape :func:`fused_resnetfc` takes (``d_latent`` and
+    ``k_in`` padded to multiples of 64, ``d_hidden`` a multiple of 64; every
+    number of views takes the same route): ``"wide"`` for ``d_hidden`` above
+    512 in either dtype (``csrc/resnetfc_wide.cu resnetfc_wide_fwd_kernel``,
+    the trunk in shared memory); else ``"wgmma"`` (bf16 with ``d_latent``
+    and ``k_in`` at most 512, ``csrc/resnetfc_hopper.cu``), ``"mma_sync"``
+    (other bf16) or ``"fma"`` (float32: ``resnetfc_fwd_f32_kernel``), both
     ``csrc/resnetfc.cu``.  A route's build or launch failure raises: no call
     changes kernel."""
+    if d_hidden > REG_DH_MAX:
+        return "wide"
     if compute_dtype == torch.float32:
         return "fma"
     return "wgmma" if d_latent <= FWD_K_MAX and k_in <= FWD_K_MAX else "mma_sync"
+
+
+def backward_route(compute_dtype: torch.dtype, d_hidden: int, d_latent: int, k_in: int) -> str:
+    """The dgrad that a call's backward launches on the card (the wgrads
+    take jobs of any width): ``"wgmma"`` (bf16 with ``d_hidden`` and
+    ``d_latent`` at most 512 and at most 128 encoded input lanes: the walk
+    and tail of ``csrc/resnetfc_hopper.cu``), ``"fma"`` (float32 with
+    ``d_hidden`` at most 512: ``csrc/resnetfc.cu resnetfc_dgrad_f32_kernel``)
+    or ``"wide"`` (every other shape: ``csrc/resnetfc_wide.cu
+    resnetfc_wide_dgrad_kernel``).  ``d_latent`` and ``k_in`` as padded."""
+    if compute_dtype == torch.float32:
+        return "fma" if d_hidden <= REG_DH_MAX else "wide"
+    inside = d_hidden <= REG_DH_MAX and d_latent <= TAIL_DL_MAX and k_in <= TAIL_KIN_MAX
+    return "wgmma" if inside else "wide"
+
+
+# The wide kernels (csrc/resnetfc_wide.cu): a CTA a tile of WIDE_TM points
+# (bf16 32, float32 16), the float32 trunk (WIDE_TM x (d_hidden + 4)) and one
+# operand tile in shared memory, which a block holds up to SMEM_MAX bytes.
+WIDE_TM = {torch.bfloat16: 32, torch.float32: 16}
+SMEM_MAX = 232_448
+
+
+def wide_lda(compute_dtype: torch.dtype, k: int) -> int:
+    """The wide kernels' operand tile row stride, in elements, for rows of
+    ``k`` lanes (``csrc/resnetfc_wide.cu wide_lda``)."""
+    return -(-k // 64) * 64 + 32 if compute_dtype == torch.bfloat16 else k + 4
+
+
+def wide_smem(compute_dtype: torch.dtype, d_hidden: int, d_latent: int, k_in: int,
+              backward: bool = False) -> int:
+    """Shared bytes of a wide forward (or, ``backward``, dgrad) CTA
+    (``csrc/resnetfc_wide.cu wide_fwd_smem``, ``wide_dgrad_smem``): the
+    trunk, the operand tile (the forward's as wide as its widest operand,
+    the dgrad's ``d_hidden``), and the dgrad's output cotangent tile."""
+    tm, item = WIDE_TM[compute_dtype], (2 if compute_dtype == torch.bfloat16 else 4)
+    k = d_hidden if backward else max(d_hidden, d_latent, k_in)
+    return tm * (d_hidden + 4) * 4 + tm * wide_lda(compute_dtype, k) * item + \
+        (tm * GOUT_W * 4 if backward else 0)
 
 
 # The float32 forward (csrc/resnetfc.cu resnetfc_fwd_f32_kernel): a CTA a
@@ -466,14 +542,20 @@ def f32_dgrad_plan(N: int, ns: int, d_hidden: int, d_latent: int, k_in: int, n_b
 # the stream
 FWD_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 FWD_WGMMA_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+FWD_WIDE_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 NAME_F32 = "fused_resnetfc_f32"  # forwards (stash or not) on the float32 kernel
+# forwards (stash or not) and dgrads (stash and recompute) on the wide
+# kernels, by dtype
+NAME_WIDE = {torch.bfloat16: "fused_resnetfc_wide", torch.float32: "fused_resnetfc_wide_f32"}
+NAME_DGRAD_WIDE = {torch.bfloat16: "resnetfc_dgrad_wide", torch.float32: "resnetfc_dgrad_wide_f32"}
 
 
 def _forward(a, d, compute_dtype, stash: bool, st=None):
     """Launch the forward on :func:`forward_route`'s kernel; with ``stash``
     also return the activations (written into ``st`` where given).  Counted
     under ``NAME`` or ``NAME_STASH``, and the wgmma route also under
-    ``NAME_WGMMA``, the float32 one under ``NAME_F32``."""
+    ``NAME_WGMMA``, the float32 one under ``NAME_F32``, the wide one under
+    ``NAME_WIDE[compute_dtype]``."""
     dev = a["x"].device
     N, ns, dh = d["N"], d["ns"], d["d_hidden"]
     out = torch.empty((N, d["d_out"]), dtype=torch.float32, device=dev)
@@ -482,7 +564,7 @@ def _forward(a, d, compute_dtype, stash: bool, st=None):
                          dtype=compute_dtype, device=dev)
     if N == 0:
         return out, st
-    route = forward_route(compute_dtype, d["d_latent"], d["k_in"])
+    route = forward_route(compute_dtype, d["d_latent"], d["k_in"], dh)
     ptrs = [_build.ptr(a[k]) for k in _FWD_ORDER] + [_build.ptr(out),
                                                      _build.ptr(st) if stash else None]
     dims = [d[k] for k in _DIM_ORDER]
@@ -504,12 +586,23 @@ def _forward(a, d, compute_dtype, stash: bool, st=None):
                 if ns > 1 else None)
         fn = _build.kernel_fn("avr_resnetfc_fwd_f32", FWD_WGMMA_ARGTYPES)  # the same signature
         err = fn(*ptrs, _build.ptr(pool) if ns > 1 else None, *dims, stream)
+    elif route == "wide":
+        # float32 reads the transposed weights; the view sums of NS > 1: a
+        # tile's WIDE_TM x d_hidden floats
+        ptrs = [_build.ptr(a.get(k + "T", a[k])) for k in _FWD_ORDER] + ptrs[len(_FWD_ORDER):]
+        tm = WIDE_TM[compute_dtype]
+        pool = (torch.empty((-(-N // tm) * tm, dh), dtype=torch.float32, device=dev)
+                if ns > 1 else None)
+        fn = _build.kernel_fn("avr_resnetfc_fwd_wide", FWD_WIDE_ARGTYPES)
+        err = fn(*ptrs, _build.ptr(pool) if ns > 1 else None, *dims, _DTYPES[compute_dtype],
+                 stream)
     else:
         fn = _build.kernel_fn("avr_resnetfc", FWD_ARGTYPES)
         err = fn(*ptrs, *dims, _DTYPES[compute_dtype], stream)
     _build.check(NAME_STASH if stash else NAME, err)
     if route != "mma_sync":
-        _build.launches[NAME_WGMMA if route == "wgmma" else NAME_F32] += 1
+        _build.launches[{"wgmma": NAME_WGMMA, "fma": NAME_F32,
+                         "wide": NAME_WIDE[compute_dtype]}[route]] += 1
     return out, st
 
 
@@ -537,11 +630,21 @@ def _grads_tuple(dx, dz, grads):
             grads["b0"], grads["w1"], grads["b1"], grads["wo"], grads["bo"])
 
 
-def dgrad_tile(compute_dtype) -> int:
-    """Points a dgrad CTA walks: 64 on the bf16 wgmma walk
-    (``csrc/resnetfc_hopper.cu``), :func:`f32_dgrad_plan`'s tile (32) on the
-    float32 one."""
-    return 64 if compute_dtype == torch.bfloat16 else F32_FWD_TILE
+def _dgrad_route(d, compute_dtype) -> str:
+    return backward_route(compute_dtype, d["d_hidden"], d["d_latent"], d["k_in"])
+
+
+def dgrad_tile(compute_dtype, route: Optional[str] = None) -> int:
+    """Points a dgrad CTA walks on ``route`` (:func:`backward_route`; by
+    default the dtype's route at the shipped widths): 64 on the bf16 wgmma
+    walk (``csrc/resnetfc_hopper.cu``), :func:`f32_dgrad_plan`'s tile (32) on
+    the float32 one, ``WIDE_TM`` on the wide one."""
+    route = route or ("wgmma" if compute_dtype == torch.bfloat16 else "fma")
+    return {"wgmma": 64, "fma": F32_FWD_TILE, "wide": WIDE_TM[compute_dtype]}[route]
+
+
+_DGRAD_ENTRY = {"wgmma": "avr_resnetfc_dgrad_bf16", "fma": "avr_resnetfc_dgrad",
+                "wide": "avr_resnetfc_dgrad_wide"}
 
 
 def _dgrad(a, d, st, g, wd, compute_dtype, out=None, pool=None, name=NAME_DGRAD):
@@ -549,12 +652,14 @@ def _dgrad(a, d, st, g, wd, compute_dtype, out=None, pool=None, name=NAME_DGRAD)
     :func:`_bwd_operands` returns): ``dx``, ``dz``, and what the wgrad
     reads: the rounded product cotangents ``cot``, the rounded output
     cotangent ``gout`` and the encoded input ``enc``; into ``out`` (those
-    five, by name) where given, with ``pool`` the NS > 1 scratch.  float32
-    takes ``resnetfc_dgrad_f32_kernel``, counted also under
-    ``NAME_DGRAD_F32``."""
+    five, by name) where given, with ``pool`` the NS > 1 scratch.  The
+    kernel is :func:`backward_route`'s: float32's register-tiled dgrad is
+    counted also under ``NAME_DGRAD_F32``, the wide one under
+    ``NAME_DGRAD_WIDE[compute_dtype]``."""
     ns, N, dh = d["ns"], d["N"], d["d_hidden"]
     cd = compute_dtype
     dev = g.device
+    route = _dgrad_route(d, cd)
     if out is None:
         out = dict(dx=torch.zeros((ns, N, d["d_in"]), dtype=torch.float32, device=dev),
                    dz=torch.zeros((ns, N, d["d_latent"]), dtype=cd, device=dev),
@@ -562,13 +667,9 @@ def _dgrad(a, d, st, g, wd, compute_dtype, out=None, pool=None, name=NAME_DGRAD)
                                    dtype=cd, device=dev),
                    gout=torch.empty((N, GOUT_W), dtype=cd, device=dev),
                    enc=torch.empty((ns, N, d["k_in"]), dtype=cd, device=dev))
-    # the pooled trunk cotangent of NS > 1: a tile of rows a CTA (float32:
-    # f32_dgrad_plan's CTAs)
-    if cd == torch.float32:
-        plan = f32_dgrad_plan(N, ns, dh, d["d_latent"], d["k_in"], d["n_blocks"], d["n_lin_z"])
-        rows = plan.blocks * plan.tile
-    else:
-        rows = -(-N // dgrad_tile(cd)) * dgrad_tile(cd)
+    # the pooled trunk cotangent of NS > 1: a tile of rows a CTA
+    tile = dgrad_tile(cd, route)
+    rows = -(-N // tile) * tile
     if ns > 1 and pool is None:
         pool = torch.empty((rows, dh), dtype=torch.float32, device=dev)
     if ns > 1 and (pool.dtype != torch.float32 or pool.numel() < rows * dh):
@@ -581,17 +682,17 @@ def _dgrad(a, d, st, g, wd, compute_dtype, out=None, pool=None, name=NAME_DGRAD)
         ptrs.append(_build.ptr(pool) if ns > 1 else None)
         dims = [d[k] for k in _DIM_ORDER]
         stream = ctypes.c_void_p(_build.stream_ptr(dev))
-        if cd == torch.bfloat16:
-            fn = _build.kernel_fn("avr_resnetfc_dgrad_bf16", [ctypes.c_void_p] * 17
+        if route == "wgmma":
+            fn = _build.kernel_fn(_DGRAD_ENTRY[route], [ctypes.c_void_p] * 17
                                   + [ctypes.c_int] * 10 + [ctypes.c_void_p])
             err = fn(*ptrs, *dims, stream)
         else:
-            fn = _build.kernel_fn("avr_resnetfc_dgrad", [ctypes.c_void_p] * 17
+            fn = _build.kernel_fn(_DGRAD_ENTRY[route], [ctypes.c_void_p] * 17
                                   + [ctypes.c_int] * 11 + [ctypes.c_void_p])
             err = fn(*ptrs, *dims, _DTYPES[cd], stream)
         _build.check(name, err)
-        if cd == torch.float32:
-            _build.launches[NAME_DGRAD_F32] += 1
+        if route != "wgmma":
+            _build.launches[NAME_DGRAD_F32 if route == "fma" else NAME_DGRAD_WIDE[cd]] += 1
     return out["dx"], out["dz"], out["cot"], out["gout"], out["enc"]
 
 
@@ -619,7 +720,7 @@ def _recompute_workspace(d, p, compute_dtype, device):
     pooled trunk cotangent."""
     bufs = [torch.empty(k * p * w, dtype=compute_dtype, device=device)
             for k, w in _recompute_layout(d)]
-    tile = dgrad_tile(compute_dtype)
+    tile = dgrad_tile(compute_dtype, _dgrad_route(d, compute_dtype))
     pool = (torch.empty(((p + tile - 1) // tile * tile, d["d_hidden"]), dtype=torch.float32,
                         device=device) if d["ns"] > 1 else None)
     return bufs, pool
@@ -819,6 +920,8 @@ class _Decoder(torch.autograd.Function):
         else:
             grads = list(_backward(ctx.a, ctx.d, ctx.st, g, ctx.cd))
         grads[2] = grads[2][:, :ctx.like[2][1][1]]  # lin_in's zero-padded input lanes
+        dl = ctx.like[1][1][-1]  # the latent's zero-padded lanes (pad_latent)
+        grads[1], grads[4] = grads[1][..., :dl], grads[4][..., :dl]
         return tuple(gr.to(dt).reshape(sh) for gr, (dt, sh) in zip(grads, ctx.like)) + (None,) * 4
 
 
@@ -850,22 +953,37 @@ def fused_resnetfc(x: torch.Tensor, z: torch.Tensor, w: DecoderWeights, *,
     d_latent, d_out = z.shape[-1], w.wo.shape[0]
     if code is not None and code.d_raw != d_in:
         raise ValueError(f"{NAME}: x width {d_in} != code.d_raw {code.d_raw}")
-    # d_hidden <= 512: every forward kernel keeps its trunk in registers (and
-    # so does the bf16 dgrad walk); which kernel runs is forward_route's choice
-    if d_hidden % 64 or not 64 <= d_hidden <= 512 or d_latent % 64 or d_out > GOUT_W:
-        raise ValueError(f"{NAME}: kernel needs d_hidden in 64..512, d_latent a multiple "
-                         f"of 64 and d_out <= {GOUT_W}, got {d_hidden}, {d_latent}, {d_out}")
+    if d_hidden % 64 or d_hidden < 64 or d_latent < 1 or d_out > GOUT_W:
+        raise ValueError(f"{NAME}: kernel needs d_hidden a multiple of 64, d_latent > 0 and "
+                         f"d_out <= {GOUT_W}, got {d_hidden}, {d_latent}, {d_out}")
     if z.shape[:2] != (ns, N) or w.wz.shape != (n_lin_z, d_hidden, d_latent):
         raise ValueError(f"{NAME}: z {tuple(z.shape)} / wz {tuple(w.wz.shape)} mismatch")
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (x, z, *w))
+    check_wide_bound(compute_dtype, d_hidden, d_enc_padded(d_latent),
+                     d_enc_padded(w.wi.shape[1]), grad)
     a = _prepare(x, z, w, code, compute_dtype)
     _build.check_cuda_inputs(NAME, a, x.device)
     d = _dims(a, n_blocks, n_lin_z, activate_out)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, z, *w)):
-        # the bf16 backward's tail holds d_latent <= 512 and k_in <= 128
-        if compute_dtype == torch.bfloat16 and (d_latent > 512 or d["k_in"] > 128):
-            raise ValueError(f"{NAME}: the bf16 backward needs d_latent <= 512 and at most 128 "
-                             f"encoded input lanes, got {d_latent}, {w.wi.shape[1]} (ROADMAP "
-                             f"Queue 3: the bf16 backward's latent envelope; the global "
-                             f"encoder's 640 latent lanes train in float32)")
+    if grad:
         return _Decoder.apply(x, z, *w, a, d, compute_dtype, keep)
     return _forward(a, d, compute_dtype, stash=False)[0]
+
+
+def check_wide_bound(compute_dtype: torch.dtype, d_hidden: int, d_latent: int, k_in: int,
+                     backward: bool) -> None:
+    """Raise for a shape whose route is a wide kernel (:func:`forward_route`,
+    and under autograd :func:`backward_route`) that does not fit that
+    kernel's shared memory (:func:`wide_smem`; ``d_latent`` and ``k_in`` as
+    padded).  The wide forward holds d_hidden up to 1,152 in bf16 and 1,792
+    in float32 where the latent and the input are at most d_hidden lanes
+    (wider ones take more of its operand tile), the wide dgrad the same
+    d_hidden at any latent and input."""
+    checks = [("forward", forward_route(compute_dtype, d_latent, k_in, d_hidden), False)]
+    if backward:
+        checks.append(("dgrad", backward_route(compute_dtype, d_hidden, d_latent, k_in), True))
+    for kind, route, bwd in checks:
+        need = wide_smem(compute_dtype, d_hidden, d_latent, k_in, bwd) if route == "wide" else 0
+        if need > SMEM_MAX:
+            raise ValueError(f"{NAME}: the wide {kind} kernel holds {SMEM_MAX} bytes of shared "
+                             f"memory a CTA; d_hidden {d_hidden}, d_latent {d_latent}, {k_in} "
+                             f"encoded lanes in {str(compute_dtype)[6:]} need {need}")

@@ -203,15 +203,14 @@ Phases (any failure raises and exits non-zero):
    directions; ``use_encoder = False`` with the global latent, on the VR) at
    full ``conf/default_mv.conf`` width on ``bench_weights``, each case's
    launch counters reset before and read after: one bf16 train step (SB 4 x
-   4,096 rays; the global latent's 640 lanes are past the bf16 backward's
-   envelope, so that case records the refusal and trains in float32) and
-   one served 128x128 bf16 frame; the float32 field (one encoded view, 4,096
+   4,096 rays; the global latent's 640 lanes take the wide dgrad) and one
+   served 128x128 bf16 frame; the float32 field (one encoded view, 4,096
    points, coarse and fine) held to the CPU's on the same weights (1e-3 of
    max(1, |output|)); the bf16 field through the kernels held to the same
    field through their plain versions on the card (``option_kernel_check``:
    the query at K2's bf16 forward tolerance, the gradients of a loss of it
-   by relative L2 at K2's backward tolerance, float32 where the bf16
-   backward refuses, and K1 forward and backward on the case's own map).  A
+   by relative L2 at K2's backward tolerance, and K1 forward and backward
+   on the case's own map).  A
    skipped update goes through phase 4's protocol (``diagnose_skip``): it
    fails unless the plain versions skip too or the first non-finite value
    appears outside a kernel.  K2 launches where JAX fuses (``supports``) and
@@ -226,6 +225,35 @@ Phases (any failure raises and exits non-zero):
     and K7 launch; every evaluation (final and best, raw and EMA, the
     band-widening sweep) finite.  The long quality runs are runs of their
     own (``python -m avr_tpu_torch.scripts.quality_ab``, README).
+
+11. K2 at JAX's widths (``csrc/resnetfc_wide.cu``: the wide forward and
+    dgrad, bf16 and float32, which ``forward_route`` and ``backward_route``
+    choose past the other kernels' envelopes): each held to its plain
+    version at d_hidden 1,024 with a latent of 1,152 (NS 1; 576 encoded
+    lanes at NS 2), d_hidden 640 with a latent of 612 (zero-padded to 640),
+    and in bf16 d_hidden 512 with the global encoder's 640 lanes (the wide
+    dgrad only), off both tiles: the forward (bf16 2 ulps of the largest
+    output or twice the plain version's distance from the float32 function
+    on the bf16-valued weights, whichever is larger, as phase 9 holds its
+    fields; float32 1e-3) and its stash slot by slot; the 12 gradients
+    against the plain autograd (relative L2, bf16 8e-2, float32 1e-2) and
+    against the matched reference fed the kernel's own stash (bf16 3e-3,
+    float32 1e-3); every gradient bit for bit on a rerun; the recompute
+    backward bit for bit the stash backward (one chunk), and cut to
+    1,000-point chunks its point cotangents bit for bit; the wgrads' jobs at
+    1,024 x 1,024 and 1,024 x 1,152 against ``torch.matmul``.  Each kernel
+    timed at the band chunk (81,920 points) beside its plain version, the
+    cuBLAS chain of its products and its bound.  K1, K5 and K3 at 1,024
+    latent channels against their plain versions.  Then the full-width
+    slice: the adaptive model ``make_model`` builds from a conf string
+    (``WIDE_CONF``: conf/default_mv.conf's model with d_hidden 1,024 in
+    both decoders, the spatial encoder at 5 stages and the global encoder: a
+    latent of 1,024 + 128 lanes) serves a 128x128 frame (bf16 and float32)
+    and takes train steps (SB 4 x 4,096 rays) in bf16 and float32, on the
+    stash and on the recompute backward, the counters reset before each
+    and read after: every K2 forward and dgrad on the wide kernels, no
+    skipped update.  The kernels line carries the four wide rows, their
+    launches on that slice (``wide``, ``wide_by_case``).
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``; every case in full
@@ -254,6 +282,10 @@ runs only phase 8 and prints its report as one JSON line.
 
 runs only phase 9 (and with ``--quality`` phase 10; ``--quality`` alone
 runs only phase 10) and prints the report as one JSON line.
+
+    python3 chip_smoke.py --wide
+
+runs only phase 11 and prints its report as one JSON line.
 """
 
 from __future__ import annotations
@@ -612,7 +644,8 @@ def check_resnetfc_stash(gen):
     return cases
 
 
-def march_inputs(gen, ns, dtype=torch.bfloat16, sb=1, w_out_scale=0.05, hidden=HIDDEN):
+def march_inputs(gen, ns, dtype=torch.bfloat16, sb=1, w_out_scale=0.05, hidden=HIDDEN,
+                 channels=C):
     """Rays of a 128x128 camera at z = 1.3 looking at the origin (the same
     4,096 rays in each of ``sb`` scenes); the source views are that camera,
     rotated about its axis.  The rays are jittered off the pixel centres and
@@ -622,7 +655,7 @@ def march_inputs(gen, ns, dtype=torch.bfloat16, sb=1, w_out_scale=0.05, hidden=H
     different sides of that edge.  ``w_out_scale`` sets the step head's
     size, and with it how far a step moves with the latent it reads;
     ``hidden`` the LSTM's width (the step head scaled by 1/sqrt(hidden / 16)
-    so the step keeps its size)."""
+    so the step keeps its size); ``channels`` the latent's."""
     c2w = torch.diag(torch.tensor([1.0, -1.0, -1.0, 1.0]))
     c2w[2, 3] = 1.3
     K = torch.tensor([[1.09375, 0, 0.5], [0, 1.09375, 0.5], [0, 0, 1]])
@@ -646,8 +679,8 @@ def march_inputs(gen, ns, dtype=torch.bfloat16, sb=1, w_out_scale=0.05, hidden=H
     H4 = 4 * hidden
     rep = lambda t: t.expand(sb, *t.shape[1:]).to(DEV).contiguous()
     return dict(proj=rep(proj), coords0=rep(ros + rds * d0), rds=rep(rds),
-                feat=randn(gen, sb, ns, LATENT, LATENT, C, dtype=dtype),
-                w_ih=randn(gen, C, H4, scale=C ** -0.5),
+                feat=randn(gen, sb, ns, LATENT, LATENT, channels, dtype=dtype),
+                w_ih=randn(gen, channels, H4, scale=channels ** -0.5),
                 w_hh=randn(gen, hidden, H4, scale=0.25 * (16 / hidden) ** 0.5),
                 bias=randn(gen, H4, scale=0.1),
                 w_out=randn(gen, hidden, 1, scale=w_out_scale * (16 / hidden) ** 0.5),
@@ -2291,21 +2324,21 @@ def check_integral_bwd(gen):
                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
-def proj_inputs(gen, sb, ns, dtype, n):
+def proj_inputs(gen, sb, ns, dtype, n, channels=C):
     """K5's inputs at a field query of ``sb`` scenes and ``ns`` views: the
     latent, the points broadcast over the views, and each view's packed
     projection.  The points lie on ``march_inputs``' rays, which are
     jittered off the pixel centres and seen by source views that are not
     the ray camera: at the band query (``n = BAND``) ``N_BAND`` a ray over
     +-0.15 about the marched point, at the coarse query (``n = CHUNK``) the
-    marched point itself, one a ray."""
-    inp = march_inputs(gen, ns, dtype=dtype, sb=sb)
+    marched point itself, one a ray.  ``channels``: the latent's."""
+    inp = march_inputs(gen, ns, dtype=dtype, sb=sb, channels=channels)
     pts = inp["coords0"]
     if n == BAND:
         off = (torch.rand(sb, CHUNK, N_BAND, 1, generator=gen, device=DEV) - 0.5) * 0.3
         pts = pts[:, :, None] + inp["rds"][:, :, None] * off
     pts = pts.reshape(sb, 1, n, 3).expand(sb, ns, n, 3).reshape(sb * ns, n, 3)
-    return (inp["feat"].reshape(sb * ns, LATENT, LATENT, C), pts.contiguous(),
+    return (inp["feat"].reshape(sb * ns, LATENT, LATENT, channels), pts.contiguous(),
             inp["proj"].reshape(sb * ns, 16).contiguous())
 
 
@@ -4284,7 +4317,8 @@ def print_parallel(res, launches):
 
 # K2's counters (its float32 wgrad's counter is shared with K3's: left out)
 K2_NAMES = (K2.NAME, K2.NAME_STASH, K2.NAME_WGMMA, K2.NAME_DGRAD, K2.NAME_WGRAD,
-            K2.NAME_RECOMPUTE, K2.NAME_F32, K2.NAME_DGRAD_F32)
+            K2.NAME_RECOMPUTE, K2.NAME_F32, K2.NAME_DGRAD_F32, *K2.NAME_WIDE.values(),
+            *K2.NAME_DGRAD_WIDE.values())
 # each option group of the model conf's ``model`` subtree (added to
 # conf/default_mv.conf at full width): (model block, make_model keywords,
 # JAX fuses the decoders); the adaptive renderer unless the keywords say
@@ -4310,16 +4344,23 @@ OPTION_POINTS = 4096  # the float32 field query held against the CPU
 OPTION_TOL = 1e-3  # of max(1, |CPU output|): float32, cuDNN's and the K2 kernels' sums
 
 
-def option_model(case, dtype, dev):
+def conf_model(block, dtype, dev, **kw):
+    """``make_model`` from conf/default_mv.conf with ``block`` added to its
+    ``model`` subtree (a conf string JAX's reader takes too), on
+    ``bench_weights``."""
     from avr_tpu_torch.config import parse_conf_string
 
-    block, kw, _ = OPTION_CASES[case]
     conf = parse_conf_string(f'include required("default_mv.conf")\nmodel {{\n{block}\n}}\n',
                              base_dir=os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                                    "conf"))
     model = make_model(conf, dtype=dtype, seed=0, device=dev, **kw)
     bench_weights(model, 0)
     return model
+
+
+def option_model(case, dtype, dev):
+    block, kw, _ = OPTION_CASES[case]
+    return conf_model(block, dtype, dev, **kw)
 
 
 def option_field_check(case):
@@ -4358,19 +4399,19 @@ def option_field_check(case):
 # weights and latents (two roundings of one function, each that far from
 # it, are at most twice that apart), and the kernel is held to that field
 # too.  The backward against the plain autograd by relative L2
-# (check_resnetfc_bwd: bf16 8e-2, float32 1e-2, ReLU masks flipping between
-# two correct roundings), and K1 on the case's map (check_gather_bwd: dfeat
-# 2 bf16 ulps, dcoords 1e-4 of the largest value)
+# (check_resnetfc_bwd: bf16 8e-2, ReLU masks flipping between two correct
+# roundings), and K1 on the case's map (check_gather_bwd: dfeat 2 bf16 ulps,
+# dcoords 1e-4 of the largest value)
 OPTION_FWD_REL = 2.0 ** -7
-OPTION_BWD_L2 = {torch.bfloat16: 8e-2, torch.float32: 1e-2}
+OPTION_BWD_L2 = 8e-2
 
 
 def option_kernel_check(case):
     """Phase 9's kernels against their plain versions on the card, same
     weights and inputs: the bf16 field query (coarse, and fine where the
     case has a fine decoder), the gradients of a loss of it (the decoder's
-    parameters and the latents; float32 where the bf16 backward refuses the
-    width), and K1 forward and backward on the case's own latent map."""
+    parameters and the latents), and K1 forward and backward on the case's
+    own latent map."""
     rng = np.random.default_rng(11)
     xyz = torch.from_numpy(rng.normal(scale=0.3, size=(1, OPTION_POINTS, 3)).astype(np.float32))
     vd = torch.nn.functional.normalize(torch.from_numpy(
@@ -4378,23 +4419,23 @@ def option_kernel_check(case):
     g = torch.from_numpy(rng.normal(size=(1, OPTION_POINTS, 4)).astype(np.float32) + 0.5)
     xyz, vd, g = xyz.to(DEV), vd.to(DEV), g.to(DEV)
     counted = dict(_build.launches)
-    cases, bwd_dtype = [], torch.bfloat16
-    models = {torch.bfloat16: option_model(case, torch.bfloat16, DEV)}
+    cases = []
+    model = option_model(case, torch.bfloat16, DEV)
     # the float32 field on the bf16 model's weights rounded to bf16, fed the
     # bf16 latents: what both bf16 roundings of the query approximate
     exact = option_model(case, torch.float32, DEV)
     with torch.no_grad():
-        cond = encode_scene(models[torch.bfloat16], scene_batch(3), DEV)
+        cond = encode_scene(model, scene_batch(3), DEV)
         for k, p in exact.net.named_parameters():
             if k.startswith("mlp_"):
                 p.copy_(p.bfloat16().float())
     cond32 = dataclasses.replace(cond, **{k: getattr(cond, k).float() for k in
                                           ("latent", "global_latent")
                                           if getattr(cond, k) is not None})
-    heads = (True,) if models[torch.bfloat16].net.mlp_fine is None else (True, False)
+    heads = (True,) if model.net.mlp_fine is None else (True, False)
     for coarse in heads:
         label = f"options {case} {'coarse' if coarse else 'fine'}"
-        net = models[torch.bfloat16].net
+        net = model.net
         with torch.no_grad():
             got = net(cond, xyz, vd, coarse)
             with plain_kernels():
@@ -4411,36 +4452,22 @@ def option_kernel_check(case):
         cases.append(check(f"{label} bf16 field vs float32 (bf16 weights)", kernel_err, tol,
                            against="float32"))
 
-        def grads(dtype, plain):
-            if dtype not in models:
-                models[dtype] = option_model(case, dtype, DEV)
-            model = models[dtype]
-            with torch.no_grad():
-                c = cond if dtype == torch.bfloat16 else encode_scene(model, scene_batch(3), DEV)
-            leaves = {k: getattr(c, k).detach().clone().requires_grad_()
-                      for k in ("latent", "global_latent") if getattr(c, k) is not None}
-            c = dataclasses.replace(c, **leaves)
-            mlp = model.net.mlp_coarse if coarse else model.net.mlp_fine
+        def grads(plain):
+            leaves = {k: getattr(cond, k).detach().clone().requires_grad_()
+                      for k in ("latent", "global_latent") if getattr(cond, k) is not None}
+            c = dataclasses.replace(cond, **leaves)
+            mlp = net.mlp_coarse if coarse else net.mlp_fine
             named = {**dict(mlp.named_parameters()), **leaves}
             with plain_kernels() if plain else contextlib.nullcontext():
-                out = model.net(c, xyz, vd, coarse)
+                out = net(c, xyz, vd, coarse)
                 gr = torch.autograd.grad((out * g).sum(), list(named.values()),
                                          allow_unused=True)
             return {k: v for k, v in zip(named, gr) if v is not None}
 
-        try:
-            got = grads(bwd_dtype, False)
-        except ValueError as e:
-            if "Queue 3" not in str(e):
-                raise
-            bwd_dtype = torch.float32  # the bf16 backward's width envelope
-            got = grads(bwd_dtype, False)
-        want = grads(bwd_dtype, True)
+        got, want = grads(False), grads(True)
         if set(got) != set(want):
             raise AssertionError(f"{label}: gradients {sorted(got)} against {sorted(want)}")
-        kind = str(bwd_dtype)[6:]
-        cases += [check_l2(f"{label} {kind} d{k}", got[k], want[k], OPTION_BWD_L2[bwd_dtype])
-                  for k in want]
+        cases += [check_l2(f"{label} bf16 d{k}", got[k], want[k], OPTION_BWD_L2) for k in want]
     del exact
     if cond.latent is not None:
         feat = cond.latent.detach().clone()
@@ -4458,14 +4485,13 @@ def option_kernel_check(case):
         cases.append(check_rel(f"options {case} K1 dcoords {shape}", got[1], want[1], 1e-4))
     _build.launches.clear()  # the comparisons' launches are not counted
     _build.launches.update(counted)
-    return cases, str(bwd_dtype)[6:]
+    return cases
 
 
 def run_options():
     """Phase 9: each option group (OPTION_CASES) at full width, the launch
     counters reset before and read after its cases: one bf16 train step (SB
-    4 x 4,096 rays; float32 where the bf16 backward refuses the width, the
-    refusal recorded) and one served 128x128 bf16 frame; the float32 field
+    4 x 4,096 rays) and one served 128x128 bf16 frame; the float32 field
     held to its CPU run.  K2 launches where JAX fuses and never where JAX
     runs XLA; K1 on the custom encoder's 128x128x128 map.  Returns the
     report and each case's launches."""
@@ -4476,7 +4502,7 @@ def run_options():
     c2w = orbit_cam2world(1, 1.3)[:1]
     for case, (_, kw, fused) in OPTION_CASES.items():
         r = res[case] = dict(fused=fused, field_f32_err=option_field_check(case))
-        r["vs_plain"], r["vs_plain_bwd_dtype"] = option_kernel_check(case)
+        r["vs_plain"] = option_kernel_check(case)
         counts = {}
 
         def step_once(dtype):
@@ -4505,15 +4531,7 @@ def run_options():
                                             tb, (0, 1), loss, f"options {case} {dtype}")
             return res
 
-        try:
-            r["train"] = step_once(torch.bfloat16)
-        except ValueError as e:
-            if "Queue 3" not in str(e):
-                raise
-            # the bf16 backward's width envelope: train in float32 (the JAX
-            # CLI's default dtype), saying so
-            r["bf16_train_refused"] = str(e)
-            r["train"] = step_once(torch.float32)
+        r["train"] = step_once(torch.bfloat16)
         model = option_model(case, torch.bfloat16, DEV)
         with torch.inference_mode():
             cond = encode_scene(model, batch, DEV)
@@ -4560,8 +4578,6 @@ def run_options():
 def print_options(res, launches, smi):
     for case in OPTION_CASES:
         r = res[case]
-        refused = (f"; bf16 backward refused ({r['bf16_train_refused'][:60]}...), trained in "
-                   f"float32" if "bf16_train_refused" in r else "")
         skip = r["train"].get("skip", {})
         skipped = (f", update skipped (the plain versions: {skip['plain_nonfinite']} non-finite "
                    f"gradients {skip['plain_nonfinite_grads'][:4]}"
@@ -4570,7 +4586,7 @@ def print_options(res, launches, smi):
                    if r["train"]["skipped"] else "")
         print(f"options {case} ({smi}): JAX {'fuses' if r['fused'] else 'runs XLA'}; train "
               f"{r['train']['dtype']} loss {r['train']['loss']:.5f} in {r['train']['ms']:.1f} ms"
-              f"{skipped}{refused}; frame {r['frame_ms']:.1f} ms, rgb mean {r['rgb_mean']:.4f}; float32 "
+              f"{skipped}; frame {r['frame_ms']:.1f} ms, rgb mean {r['rgb_mean']:.4f}; float32 "
               f"field against the CPU {r['field_f32_err']}; K2 {r['k2_routes']}")
         worst = {}
         for c in r["vs_plain"]:
@@ -4579,8 +4595,8 @@ def print_options(res, launches, smi):
             err = c.get("rel_l2", c["max_abs_err"])
             worst[kind] = max(worst.get(kind, (0.0, "")), (err, c["case"]))
         print(f"options {case} kernels against the plain versions on the card: "
-              f"{len(r['vs_plain'])} cases within tolerance (backward in "
-              f"{r['vs_plain_bwd_dtype']}); worst (field max abs, against the float32 field "
+              f"{len(r['vs_plain'])} cases within tolerance (backward in bf16); worst "
+              f"(field max abs, against the float32 field "
               f"on bf16 weights, gradient relative L2, K1 max abs) {worst}; plain against the "
               f"float32 field {[c['plain_vs_float32'] for c in r['vs_plain'] if 'plain_vs_float32' in c]}")
     print(f"options launches: {launches}; phase {res['seconds']:.1f} s")
@@ -4645,6 +4661,409 @@ def print_quality(res, launches, smi):
     print(f"quality launches: {launches}; phase {res['seconds']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: K2 at JAX's widths (csrc/resnetfc_wide.cu)
+# ---------------------------------------------------------------------------
+
+# d_hidden 1,024, and the latent of a 5-stage spatial encoder (64 + 64 + 128
+# + 256 + 512 = 1,024 lanes) beside the global encoder's 128
+WIDE_DH, WIDE_DL = 1024, 1152
+# the wide forward's and dgrad's cases (d_hidden, d_latent, code, views):
+# the slice's decoder, 576 encoded lanes at two views (WIDE_CODE: 8
+# frequencies of 32 coded lanes; 85 frequencies of 3 lanes would reach the
+# same width, but their top frequency, 1.5 * 2^84, makes dx overflow
+# float32), d_hidden 640 with a
+# latent of 612 lanes (zero-padded to 640: a global latent_size of 100), and
+# bf16 d_hidden 512 with the global encoder's 640 lanes (the wgmma forward
+# or mma.sync forward, then the wide dgrad: past the bf16 tail's 512).  N is
+# off both tiles (32 and 16 points).
+WIDE_CASES = ((WIDE_DH, WIDE_DL, CODE, 1), (WIDE_DH, WIDE_DL, WIDE_CODE, 2),
+              (640, 612, CODE, 2), (512, 640, CODE, 1))
+WIDE_N = CHUNK + 37
+# float32 (no TF32) against cuBLAS in float32 over 13 chained products of
+# up to 1,152 terms: 1e-3 of max(1, |output|) forward, and by relative L2
+# against the matched reference (the same masks and rounding points) for
+# the gradients
+WIDE_F32_TOL = 1e-3
+# the model conf's model block of the full-width slice: conf/default_mv.conf
+# with both decoders at d_hidden 1,024, the spatial encoder at 5 stages and
+# the global encoder (its 128 lanes after the spatial 1,024)
+WIDE_CONF = ("mlp_coarse { d_hidden = 1024 }\nmlp_fine { d_hidden = 1024 }\n"
+             "encoder { num_layers = 5 }\nuse_global_encoder = True\n"
+             "global_encoder { backbone = resnet34\n latent_size = 128 }")
+
+
+def wide_flops(n, ns, dh, dl, d_enc, nb=5, nlz=3):
+    """The decoder's products a call of ``n`` points, forward (the dgrad's
+    products are the same shapes transposed)."""
+    return 2 * n * (ns * (d_enc * dh + nlz * dl * dh + 2 * nlz * dh * dh)
+                    + 2 * (nb - nlz) * dh * dh + dh * 4)
+
+
+def product_chain(gen, n, dh, dl, k_in, cd, backward, nb=5, nlz=3):
+    """The cuBLAS chain of the same products in the compute dtype (TF32
+    off): the forward's (lin_in, the injections, the blocks, lin_out) or
+    the dgrad's (the blocks, the injections' latent cotangents, lin_in's
+    input cotangent), one ``torch.matmul`` each; the library yardstick."""
+    a = {k: randn(gen, n, k, dtype=cd) for k in {dh, dl, k_in}}
+    w = {(i, o): randn(gen, i, o, dtype=cd) for i, o in
+         ({(dh, dh), (dh, dl), (dh, k_in)} if backward else {(k_in, dh), (dl, dh), (dh, dh)})}
+    if backward:
+        pairs = [(dh, dh)] * (2 * nb) + [(dh, dl)] * nlz + [(dh, k_in)]
+    else:
+        pairs = [(k_in, dh)] + [(dl, dh)] * nlz + [(dh, dh)] * (2 * nb)
+    return lambda: [torch.matmul(a[i], w[(i, o)]) for i, o in pairs]
+
+
+def wide_inputs(gen, n, ns, dl, code, cd):
+    x = (torch.rand(ns, n, code.d_raw, generator=gen, device=DEV) * 2 - 1).contiguous()
+    return x, randn(gen, ns, n, dl, dtype=cd), randn(gen, n, 4) + 0.5
+
+
+def check_wide(gen):
+    """The wide kernels (``forward_route``/``backward_route`` = "wide") held
+    to their plain versions on the card at WIDE_CASES in bf16 and float32:
+    the forward (bf16 2 ulps of the largest output or twice the plain
+    version's distance from the float32 function on the same bf16-valued
+    weights, whichever is larger, and held to that function too, as phase
+    9 holds its fields; float32 1e-3 of the largest output) and its stash
+    slot by slot by the same rules; the stash backward's 12 gradients (the
+    dgrad with the wgrads) against the plain autograd (bf16 8e-2, float32
+    1e-2 by relative L2: ReLU masks flipping between two correct roundings)
+    and against the matched
+    reference fed the kernel's own stash (bf16 MATCHED_BF16_TOL, float32
+    1e-3); a rerun bit for bit; the recompute backward bit for bit the
+    stash backward in one chunk, and cut to 1,000-point chunks its point
+    cotangents bit for bit, its weight gradients to summation order; the
+    wgrads per job at 1,024 x 1,024 and 1,024 x 1,152 against torch.matmul.
+    Then each kernel timed at the band chunk (81,920 points, d_hidden
+    1,024, latent 1,152) beside its plain version, the cuBLAS chain of its
+    products and its bound.  Returns the four kernel rows."""
+    kw = dict(n_blocks=5, n_lin_z=3, activate_out=True)
+    rows = {}
+    for cd in (torch.bfloat16, torch.float32):
+        fwd, bwd = [], []
+        rows[cd] = (fwd, bwd)
+        f32 = cd == torch.float32
+        for dh, dl, code, ns in WIDE_CASES:
+            if f32 and dh <= 512:
+                continue  # float32 at 512 is the register kernels' (check_float32)
+            label = f"d_hidden {dh} d_latent {dl} k_in {K2.d_enc_padded(code.d_enc)} NS={ns} " \
+                    f"{str(cd)[6:]}"
+            w = decoder_weights(gen, code=code, dl=dl, dh=dh)
+            x, z, g = wide_inputs(gen, WIDE_N, ns, dl, code, cd)
+            before = dict(_build.launches)
+            got = fused_resnetfc(x, z, w, compute_dtype=cd, code=code, **kw)
+            want = resnetfc_plain(x, z, w, compute_dtype=cd, code=code, **kw)
+            ran = f32_ran(before, (K2.NAME, K2.NAME_WIDE[cd]))
+            route = K2.forward_route(cd, K2.d_enc_padded(dl), K2.d_enc_padded(code.d_enc), dh)
+            if (route == "wide") != (ran == {K2.NAME: 1, K2.NAME_WIDE[cd]: 1}):
+                raise AssertionError(f"K2 {label}: route {route}, launches {ran}")
+            mkw = dict(n_blocks=5, n_lin_z=3, code=code, compute_dtype=cd)
+            # bf16: the float32 function on the bf16-valued weights and
+            # latents, which both bf16 roundings approximate (phase 9's rule)
+            exact = DecoderWeights(*(t.to(cd).float() for t in w))
+            ref = None if f32 else resnetfc_plain(x, z.float(), exact, compute_dtype=torch.float32,
+                                                  code=code, **kw)
+            fwd_err = max_err(got, want)
+            tol = (WIDE_F32_TOL if f32 else 2.0 ** -7) * max(1.0, float(want.abs().max()))
+            if not f32:
+                tol = max(tol, 2 * max_err(want, ref))
+                fwd.append(check(f"wide forward {label} N={WIDE_N} vs float32 (bf16 weights)",
+                                 max_err(got, ref), tol, against="float32"))
+            if route == "wide":
+                fwd.append(check(f"wide forward {label} N={WIDE_N}", fwd_err, tol))
+            args = K2._prepare(x, z, w, code, cd)
+            dims = K2._dims(args, 5, 3, True)
+            kst = K2._forward(args, dims, cd, True)[1]
+            if route == "wide":
+                pst = decoder_plain_stash(x, z, w, **mkw)
+                rst = None if f32 else decoder_plain_stash(
+                    x, z.float(), exact, **dict(mkw, compute_dtype=torch.float32))
+                for i in range(len(pst)):
+                    stol = (WIDE_F32_TOL if f32 else STASH_REL) * max(float(pst[i].abs().max()),
+                                                                      1e-30)
+                    if not f32:
+                        stol = max(stol, 2 * max_err(pst[i], rst[i]))
+                    fwd.append(check(f"wide stash slot {i} {label}", max_err(kst[i], pst[i]),
+                                     stol, against="plain stash"))
+                flips = float(((kst > 0) != (pst > 0)).float().mean())
+                if not flips <= STASH_FLIPS:
+                    raise AssertionError(f"K2 wide stash {label}: {flips} of the ReLU masks "
+                                         f"flipped > {STASH_FLIPS}")
+                del pst, rst
+            # the backward: its dgrad is the wide one here
+            if K2.backward_route(cd, dh, dims["d_latent"], dims["k_in"]) != "wide":
+                raise AssertionError(f"K2 {label}: backward route is not wide")
+            kern = lambda stash: (lambda x, z, *ws: fused_resnetfc(
+                x, z, DecoderWeights(*ws), compute_dtype=cd, code=code, stash=stash, **kw))
+            plain = lambda x, z, *ws: resnetfc_plain(x, z, DecoderWeights(*ws),
+                                                     compute_dtype=cd, code=code, **kw)
+            before = dict(_build.launches)
+            got = grads_of(kern(True), (x, z, *w), g)
+            ran = f32_ran(before, (K2.NAME_DGRAD, K2.NAME_DGRAD_WIDE[cd]))
+            if ran != {K2.NAME_DGRAD: 1, K2.NAME_DGRAD_WIDE[cd]: 1}:
+                raise AssertionError(f"K2 {label}: dgrad launches {ran}")
+            want = grads_of(plain, (x, z, *w), g)
+            matched = decoder_bwd_matched(x, z, w, kst, g, **mkw)
+            bl = f"{label} N={WIDE_N}"
+            bwd += [check_l2(f"wide {nm} {bl}", a, b, 1e-2 if f32 else 8e-2)
+                    for nm, a, b in zip(DECODER_GRADS, got, want)]
+            bwd += [check_l2(f"wide {nm} {bl} vs matched rounding", a, m,
+                             WIDE_F32_TOL if f32 else MATCHED_BF16_TOL, against="matched")
+                    for nm, a, m in zip(DECODER_GRADS, got, matched)]
+            bwd.append(check_rerun(f"wide rerun every gradient {bl}", got,
+                                   grads_of(kern(True), (x, z, *w), g)))
+            rec = grads_of(kern(False), (x, z, *w), g)  # one chunk: the same launches
+            bwd.append(check_rerun(f"wide recompute bit for bit the stash backward {bl}", got,
+                                   rec))
+            saved = K2.RECOMPUTE_CHUNK
+            K2.RECOMPUTE_CHUNK = 1_000
+            try:
+                cut = grads_of(kern(False), (x, z, *w), g)
+            finally:
+                K2.RECOMPUTE_CHUNK = saved
+            bwd.append(check_rerun(f"wide recompute in 1,000-point chunks: dx, dz bit for bit "
+                                   f"{bl}", got[:2], cut[:2]))
+            bwd += [check_rel(f"wide {nm} {bl} recompute in 1,000-point chunks vs stash", a, b,
+                              SUM_ORDER_TOL, "stash kernels")
+                    for nm, a, b in zip(DECODER_GRADS[2:], cut[2:], got[2:])]
+            worst = max((c["rel_l2"], c["case"].split()[1]) for c in bwd
+                        if c["against"] == "plain" and bl in c["case"])
+            print(f"K2 wide {bl}: forward on the {route} route {fwd_err:.3e} (tolerance "
+                  f"{tol:.3e}); backward worst relative L2 against the plain autograd {worst}")
+            del kst, got, want, matched, rec, cut, args
+        # the wgrads at width: K2's 15 jobs at 1,024 x 1,024 and 1,024 x
+        # 1,152 (and lin_in, lin_out) against torch.matmul, a coarse query's
+        # 16,384 points
+        w = decoder_weights(gen, dl=WIDE_DL, dh=WIDE_DH)
+        x, z, g = wide_inputs(gen, SB_TRAIN * CHUNK, 1, WIDE_DL, CODE, cd)
+        args = K2._prepare(x, z, w, CODE, cd)
+        dims = K2._dims(args, 5, 3, True)
+        kst = K2._forward(args, dims, cd, True)[1]
+        gs, wd, _ = K2._bwd_operands(args, dims, g, K2.NAME_DGRAD)
+        _, _, cot, gout, enc = K2._dgrad(args, dims, kst, gs, wd, cd)
+        jobs = wgrad_matmul_jobs(kst, cot, gout, enc, args["z"], 5, 3)
+        bwd += check_wgrad_jobs(kst, cot, gout, enc, args, dims, jobs, cd)
+        del kst, cot, gout, enc, jobs, args
+        torch.cuda.empty_cache()
+
+    # timed at the band chunk: the forward (no stash, as served) and the
+    # dgrad on the stash forward's activations
+    out = []
+    w = decoder_weights(gen, dl=WIDE_DL, dh=WIDE_DH)
+    for cd in (torch.bfloat16, torch.float32):
+        fwd, bwd = rows[cd]
+        item = 2 if cd == torch.bfloat16 else 4
+        peak = BF16_FLOPS if cd == torch.bfloat16 else F32_FLOPS
+        x, z, g = wide_inputs(gen, BAND, 1, WIDE_DL, CODE, cd)
+        args = K2._prepare(x, z, w, CODE, cd)
+        dims = K2._dims(args, 5, 3, True)
+        k_in = dims["k_in"]
+        iters = 5 if cd == torch.bfloat16 else 2
+        ms = time_ms(lambda: K2._forward(args, dims, cd, False), iters=iters, warmup=1)
+        plain_ms = time_ms(lambda: resnetfc_plain(x, z, w, compute_dtype=cd, code=CODE, **kw),
+                           iters=iters, warmup=1)
+        lib_ms = time_ms(product_chain(gen, BAND, WIDE_DH, WIDE_DL, k_in, cd, False),
+                         iters=iters, warmup=1)
+        wbytes = sum(t.numel() for t in w) * item
+        flops = wide_flops(BAND, 1, WIDE_DH, WIDE_DL, CODE.d_enc)
+        b_ms, b_by = bound(x.numel() * 4 + z.numel() * item + wbytes + BAND * 4 * 4, flops, peak)
+        out.append(dict(name=K2.NAME_WIDE[cd], source="avr_tpu_torch/csrc/resnetfc_wide.cu",
+                        replaces="avr_tpu/ops/pallas/resnetfc.py:896", tpu_kernel="fused_resnetfc",
+                        shape=f"N={BAND}, NS=1, d_hidden {WIDE_DH}, d_latent {WIDE_DL}, 5 blocks, "
+                              f"{str(cd)[6:]}", cases=fwd, ms=ms, plain_ms=plain_ms,
+                        library_ms=lib_ms, library="the cuBLAS chain of the forward's products",
+                        bound_ms=b_ms, bound_by=b_by))
+        st = K2._forward(args, dims, cd, True)[1]
+        gs, wd, _ = K2._bwd_operands(args, dims, g, K2.NAME_DGRAD)
+        ms = time_ms(lambda: K2._dgrad(args, dims, st, gs, wd, cd), iters=iters, warmup=1)
+        plain_ms = time_ms(lambda: decoder_bwd_matched(x, z, w, st, g, n_blocks=5, n_lin_z=3,
+                                                       code=CODE, compute_dtype=cd,
+                                                       wgrads=False), iters=iters, warmup=1)
+        lib_ms = time_ms(product_chain(gen, BAND, WIDE_DH, WIDE_DL, k_in, cd, True),
+                         iters=iters, warmup=1)
+        slots = K2.stash_slots(1, 5, 3)
+        io = BAND * (CODE.d_raw * 4 * 2 + WIDE_DL * item * 2 + 4 * 4)  # x, dx, z, dz, g
+        b_ms, b_by = bound(2 * slots * BAND * WIDE_DH * item + io + wbytes, flops, peak)
+        out.append(dict(name=K2.NAME_DGRAD_WIDE[cd], source="avr_tpu_torch/csrc/resnetfc_wide.cu",
+                        replaces="avr_tpu/ops/pallas/resnetfc.py:823", tpu_kernel="_bwd_stash_impl",
+                        shape=f"N={BAND}, NS=1, d_hidden {WIDE_DH}, d_latent {WIDE_DL}, 5 blocks, "
+                              f"{str(cd)[6:]}", cases=bwd, ms=ms, plain_ms=plain_ms,
+                        library_ms=lib_ms, library="the cuBLAS chain of the dgrad's products",
+                        bound_ms=b_ms, bound_by=b_by))
+        for r in out[-2:]:
+            print(f"kernel {r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, cuBLAS chain "
+                  f"{r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}) "
+                  f"{len(r['cases'])} cases, all within tolerance")
+        del st, gs, wd, args, x, z, g
+        torch.cuda.empty_cache()
+    return out
+
+
+WIDE_C = 1024  # the latent channels of a 5-stage encoder's map
+
+
+def check_wide_channels(gen):
+    """K1, K5 and K3 at the wide slice's 1,024 latent channels, bf16 and
+    float32, against their plain versions at the tolerances of
+    check_gather_proj, check_gather_proj_bwd, check_march, check_march_f32
+    and check_march_bwd: K1 and K5 forward and backward at the band (81,920
+    points of a 64 x 64 x 1,024 map; the backward also bit for bit on a
+    rerun), K3's forward and backward over 2 steps (float32's W_ih, 1,024 x
+    64, is past WIH_SMEM_MAX and is read through L2)."""
+    cases = []
+    for cd in (torch.bfloat16, torch.float32):
+        bf, kind = cd == torch.bfloat16, f"C={WIDE_C} {str(cd)[6:]}"
+        feat, pts, proj = proj_inputs(gen, 1, 1, cd, BAND, channels=WIDE_C)
+        coords = (torch.rand(1, BAND, 2, generator=gen, device=DEV) * 2.2 - 1.1).contiguous()
+        g = randn(gen, 1, BAND, WIDE_C, dtype=cd)
+        k5 = lambda f, p: gather_bilinear_projected(f, p, proj)
+        p5 = lambda f, p: gather_bilinear_projected_plain(f, p, proj)
+        for name, fk, fp, inputs, dname in (
+                ("K1", gather_bilinear, gather_bilinear_plain, (feat, coords), "dcoords"),
+                ("K5", k5, p5, (feat, pts), "dpoints")):
+            cases.append(check(f"{name} forward {kind} N={BAND}", max_err(fk(*inputs), fp(*inputs)),
+                               2e-2 if bf else 1e-5))
+            got, want = grads_of(fk, inputs, g), grads_of(fp, inputs, g)
+            cases += [check_l2(f"{name} dfeat {kind} N={BAND}", got[0], want[0],
+                               2.0 ** -7 if bf else 1e-5),
+                      check_l2(f"{name} {dname} {kind} N={BAND}", got[1], want[1], 1e-4),
+                      check_rerun(f"{name} rerun {kind} N={BAND}", got, grads_of(fk, inputs, g))]
+        inp = march_inputs(gen, 1, dtype=cd, channels=WIDE_C)
+        kw = dict(steps=2, compute_dtype=cd)
+        with march_routed(cd):
+            got = fused_lstm_march(**inp, **kw)
+        cases.append(check(f"K3 forward {kind} steps=2",
+                           max_err(got, lstm_march_plain(**inp, **kw)), 1e-3 if bf else 1e-4))
+        gm = randn(gen, 1, CHUNK, 3)
+        f = lambda fn: (lambda *t: fn(inp["proj"], *t, **kw))
+        with march_routed(cd, backward=True):
+            got = grads_of(f(fused_lstm_march), tuple(inp[k] for k in MARCH_KEYS), gm)
+        want = grads_of(f(lstm_march_plain), tuple(inp[k] for k in MARCH_KEYS), gm)
+        cases += [check_l2(f"K3 {nm} {kind} steps=2", a, b, 2e-2 if bf else 1e-3)
+                  for nm, a, b in zip(MARCH_GRADS, got, want)]
+        del feat, pts, proj, coords, g, inp, got, want
+    worst = max((c for c in cases if c["tol"]),
+                key=lambda c: c.get("rel_l2", c["max_abs_err"]) / c["tol"])
+    print(f"K1, K5 and K3 at {WIDE_C} channels: {len(cases)} cases within tolerance; worst "
+          f"against its tolerance {worst['case']}")
+    return cases
+
+
+def run_wide_slice():
+    """The full-width slice through the entry points a user calls: the
+    adaptive model of ``make_model`` from the WIDE_CONF conf string
+    (d_hidden 1,024, a latent of 1,024 + 128 lanes), a served 128x128
+    frame (``render_full_image``, bf16 and float32) and train steps
+    (``make_train_step``, SB 4 x 4,096 rays) in bf16 and float32, each on
+    the stash and on the recompute backward; the launch counters reset
+    just before each and read just after.  Every K2 forward and dgrad of
+    these runs is on the wide kernels; the frames are finite in [0, 1], the
+    losses finite, the updates not skipped, the parameters moved.  Returns
+    the report and the launches by case."""
+    t0 = time.perf_counter()
+    res, launches = {}, {}
+    batch, tb = scene_batch(), train_batch(DEV)
+    intr = torch.as_tensor(batch["intrinsics"][:, 0])
+    c2w = orbit_cam2world(1, 1.3)[:1]
+
+    def wide_only(case, counts, cd):
+        fwd = counts.get(K2.NAME, 0) + counts.get(K2.NAME_STASH, 0)
+        other = {k: counts.get(k, 0) for k in (K2.NAME_WGMMA, K2.NAME_F32, K2.NAME_DGRAD_F32)}
+        if not fwd or counts.get(K2.NAME_WIDE[cd], 0) != fwd or any(other.values()):
+            raise AssertionError(f"wide {case}: K2 forwards {fwd}, on the wide kernel "
+                                 f"{counts.get(K2.NAME_WIDE[cd], 0)}, elsewhere {other}")
+
+    for cd in (torch.bfloat16, torch.float32):
+        kind = str(cd)[6:]
+        model = conf_model(WIDE_CONF, cd, DEV)
+        with torch.inference_mode():
+            cond = encode_scene(model, batch, DEV)
+            render_full_image(model, cond, intr, c2w, SIDE, threefry.PRNGKey(0), CHUNK, DEV)
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t = time.perf_counter()
+            out = render_full_image(model, cond, intr, c2w, SIDE, threefry.PRNGKey(1), CHUNK, DEV)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+        counts = launches[f"serve_{kind}"] = dict(_build.launches)
+        wide_only(f"serve {kind}", counts, cd)
+        rgb = (out.rgb_coarse if out.rgb_fine is None else out.rgb_fine).float()
+        if not torch.isfinite(rgb).all() or rgb.min() < -1e-6 or rgb.max() > 1 + 1e-6:
+            raise AssertionError(f"wide serve {kind}: rgb not finite in [0, 1]")
+        res[f"serve_{kind}"] = dict(frame_ms=ms, rgb_mean=float(rgb.mean()),
+                                    latent_shape=list(cond.latent.shape),
+                                    global_latent_shape=list(cond.global_latent.shape))
+        if cond.latent.shape[-1] + cond.global_latent.shape[-1] != WIDE_DL:
+            raise AssertionError(f"wide: latents {cond.latent.shape}, {cond.global_latent.shape}")
+        del model, cond, out
+        for fused_mlp, bwd in (("stash", "stash"), ("always", "recompute")):
+            case = f"train_{kind}_{bwd}"
+            model = conf_model(WIDE_CONF, cd, DEV, fused_mlp=fused_mlp)
+            opt = make_optimizer(1e-4)
+            state = create_train_state(model, opt)
+            loss_params = LossParams(loss_mode="both")
+            step = make_train_step(model, opt, loss_params)
+            initial = {k: v.detach().clone() for k, v in state.params.items()}
+            state, m = step(state, *tb, (0, 0))  # warm-up
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            state, m = step(state, *tb, (0, 1))
+            loss, skipped = float(m["loss"]), int(m["notfinite"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            counts = launches[case] = dict(_build.launches)
+            wide_only(case, counts, cd)
+            name = K2.NAME_DGRAD if bwd == "stash" else K2.NAME_RECOMPUTE
+            if not counts.get(K2.NAME_DGRAD_WIDE[cd]) or \
+                    counts.get(K2.NAME_DGRAD_WIDE[cd]) != counts.get(name, 0) or \
+                    not counts.get(K2.NAME_WGRAD):
+                raise AssertionError(f"wide {case}: dgrads {counts}")
+            if not np.isfinite(loss) or skipped:
+                raise AssertionError(f"wide {case}: loss {loss}, skipped updates {skipped}")
+            same = [k for k, v in state.params.items()
+                    if k.startswith(("mlp_", "net.mlp_")) and torch.equal(v, initial[k])]
+            if same:
+                raise AssertionError(f"wide {case}: decoder parameters unchanged: {same[:4]}")
+            res[case] = dict(ms=ms, loss=loss, skipped=skipped,
+                             max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+            print(f"wide {case}: loss {loss:.5f}, {ms:.1f} ms a step, peak "
+                  f"{res[case]['max_memory_gb']:.1f} GB; launches {counts}")
+            del model, opt, state, step, initial
+            torch.cuda.empty_cache()
+        print(f"wide serve {kind}: {res[f'serve_{kind}']}; launches {launches[f'serve_{kind}']}")
+    res["seconds"] = time.perf_counter() - t0
+    return res, launches
+
+
+# the wide rows of the kernels line: the four kernels' names
+WIDE_NAMES = (*K2.NAME_WIDE.values(), *K2.NAME_DGRAD_WIDE.values())
+
+
+def run_wide():
+    """Phase 11: the wide kernels against their plain versions, timed, K1,
+    K5 and K3 at 1,024 channels, then the full-width slice.  Returns the
+    kernel rows, the slice's report and its launches; each row carries its
+    launches on the slice."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(12)
+    kernels = check_wide(gen)
+    channels = check_wide_channels(gen)
+    res, launches = run_wide_slice()
+    res["channels"] = channels
+    for k in kernels:
+        by_case = {case: counts.get(k["name"], 0) for case, counts in launches.items()}
+        if not sum(by_case.values()):
+            raise AssertionError(f"{k['name']} was never launched on the wide slice")
+        k.update(wide=sum(by_case.values()), wide_by_case=by_case)
+    res["seconds_phase"] = time.perf_counter() - t0
+    print(f"wide launches: {launches}; phase {res['seconds_phase']:.1f} s")
+    return kernels, res, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4685,6 +5104,13 @@ def main() -> int:
         res, launches = run_parallel(smi)
         print_parallel(res, launches)
         print(json.dumps({"parallel": res, "launches": launches, "card": smi}))
+        print(smi)
+        return 0
+    if "--wide" in sys.argv[1:]:
+        kernels, res, launches = run_wide()
+        print(json.dumps({"wide": res, "kernels": [{k: v for k, v in r.items() if k != "cases"}
+                                                    for r in kernels],
+                          "launches": launches, "card": smi}))
         print(smi)
         return 0
     if "--options" in sys.argv[1:] or "--quality" in sys.argv[1:]:
@@ -4775,11 +5201,14 @@ def main() -> int:
     print_options(opt_res, opt_launches, smi)
     q_res, q_launches = run_quality()
     print_quality(q_res, q_launches, smi)
+    wide_kernels, wide_res, wide_launches = run_wide()
+    kernels += wide_kernels
     results = {"serve": serve, "train": train, "float32": float32, "fit": fit_res,
                "cli": dict(cli_res, launches=cli_launches),
                "parallel": dict(par_res, launches=par_launches),
                "options": dict(opt_res, launches=opt_launches),
                "quality": dict(q_res, launches=q_launches),
+               "wide": dict(wide_res, launches=wide_launches),
                "vr_one_vs_8_chunks": check_vr_chunks(),
                "adaptive_rerun": check_adaptive_rerun() + check_adaptive_rerun(torch.float32),
                "reference": check_small_reference() + check_small_train()
@@ -4812,7 +5241,7 @@ def main() -> int:
         # under two (the uniform draw and its raw bits)
         names = [k["name"]] + {K2.NAME: [K2.NAME_STASH], K7.NAME: [K7.NAME_BITS]}.get(k["name"], [])
         paths = (launches_f32 if k["name"] in (K2.NAME_F32, K2.NAME_DGRAD_F32, K2.NAME_WGRAD_F32)
-                 else launches)
+                 else wide_launches if k["name"] in WIDE_NAMES else launches)
         by_path = {path: sum(counts.get(n, 0) for n in names) for path, counts in paths.items()}
         if not sum(by_path.values()):
             raise AssertionError(f"{k['name']} was never launched on a main path")

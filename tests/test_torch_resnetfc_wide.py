@@ -1,0 +1,295 @@
+"""K2 at JAX's widths: the port's decoder against ``avr_tpu``'s Pallas kernel.
+
+JAX's fused decoder takes any ``d_hidden % 128 == 0`` and any latent and
+input width (``avr_tpu/ops/pallas/resnetfc.py supports``); on the card the
+port sends the shapes past its register-resident kernels to the wide
+kernels (``csrc/resnetfc_wide.cu``), chosen by ``forward_route`` and
+``backward_route``, and pads a latent of any width to a multiple of 64
+lanes (``pad_latent``).  Here, on the CPU:
+
+* Flax ``ResnetFC`` initialised and perturbed (every block live), its
+  weights carried by ``load_flax_variables``; the same numpy inputs through
+  JAX's ``fused_resnetfc`` (interpret mode, the stash backward's VJP) and the
+  port's ``fused_resnetfc`` on CPU tensors (the plain version and autograd):
+  d_hidden 640 and 1,024, latents of 612, 640 and 1,152 lanes, 24
+  frequencies (150 encoded lanes, past the bf16 tail's 128), NS 1 and 2.
+  Forward 1e-4 absolute; gradients 1e-4 of each array's largest value
+  (float32 on both sides, sums in another order).
+* The routes: every shipped shape keeps its kernel; everything JAX fuses up
+  to d_hidden 1,024 and a latent of 1,152 has a kernel that fits, in both
+  dtypes, forward and backward; past the wide kernels' shared memory the
+  wrapper raises, naming the bound.
+* The wide kernels' shared-memory budget, its constants read from the
+  source, and the latent padding: the padded operands give the unpadded
+  function (its forward bit for bit where the injections' sums are exact).
+"""
+
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from avr_tpu.models.mlp import ResnetFC as FlaxResnetFC
+from avr_tpu.ops.pallas.resnetfc import supports as jax_supports
+from avr_tpu.ops.pallas.resnetfc import CodeSpec as FlaxCodeSpec
+from avr_tpu.ops.pallas.resnetfc import fused_resnetfc as pallas_resnetfc
+from avr_tpu_torch.models.flax_import import load_flax_variables, to_flax_tree
+from avr_tpu_torch.models.mlp import ResnetFC
+from avr_tpu_torch.ops.kernels import resnetfc as K2
+
+torch.set_num_threads(2)
+
+CSRC = Path(K2.__file__).resolve().parents[2] / "csrc"
+N_BLOCKS, N_LIN_Z, N = 3, 2, 29
+
+
+def _spec(num_freqs):
+    return dict(num_freqs=num_freqs, freq_factor=1.5, include_input=True, d_coded=3, d_pass=3)
+
+
+def _close(got, want, rel, name=""):
+    """Within ``rel`` of the reference's largest magnitude."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    scale = max(np.abs(want).max(), 1e-12)
+    np.testing.assert_allclose(got, want, rtol=0, atol=rel * scale, err_msg=name)
+
+
+def _decoder(d_hidden, d_latent, num_freqs, seed):
+    """Flax ResnetFC with its weights perturbed at 0.05 of a 128-lane fan-in
+    (so the zero-initialised fc_1 is live and the trunk keeps its scale at
+    any width), and the port's module carrying them."""
+    rng = np.random.default_rng(seed)
+    spec = FlaxCodeSpec(**_spec(num_freqs))
+    mod = FlaxResnetFC(d_in=spec.d_enc, d_out=4, n_blocks=N_BLOCKS, d_latent=d_latent,
+                       d_hidden=d_hidden, combine_layer=N_LIN_Z, fused="never",
+                       code_spec=spec, activate_out=True)
+    variables = mod.init(jax.random.PRNGKey(0), jnp.zeros((1, 1, 2, spec.d_raw)),
+                         jnp.zeros((1, 1, 2, d_latent)))
+    variables = jax.tree.map(
+        lambda a: np.asarray(a) + 0.05 * (128 / a.shape[-2] if a.ndim > 1 else 1.0) ** 0.5
+        * rng.normal(size=a.shape).astype(np.float32), variables)
+    port = ResnetFC(spec.d_enc, 4, N_BLOCKS, d_latent, d_hidden, N_LIN_Z,
+                    code_spec=K2.CodeSpec(**_spec(num_freqs)), activate_out=True)
+    load_flax_variables(port, variables)
+    return variables, port
+
+
+# (d_hidden, d_latent, frequencies, views): d_hidden 640 and 1,024; a latent
+# of 612 (a global latent_size of 100 beside the spatial 512), 640 (the
+# global encoder's 128) and 1,152 (a 5-stage encoder's 1,024 and the
+# global 128); 24 frequencies: 150 encoded lanes, 192 as padded
+WIDE = [(640, 612, 24, 1), (640, 1152, 6, 2), (1024, 1152, 24, 2), (1024, 640, 24, 1),
+        (1024, 612, 6, 2)]
+
+
+@pytest.mark.parametrize("d_hidden,d_latent,num_freqs,ns", WIDE)
+def test_wide_decoder_matches_pallas(d_hidden, d_latent, num_freqs, ns):
+    variables, port = _decoder(d_hidden, d_latent, num_freqs, d_hidden + d_latent + ns)
+    assert port.fuses(ns, True)  # JAX's supports: the port takes K2
+    rng = np.random.default_rng(num_freqs + ns)
+    x = rng.uniform(-1.2, 1.2, size=(ns, N, 6)).astype(np.float32)
+    if num_freqs > 6:
+        # 24 frequencies multiply a coordinate by up to 1.5 * 2^23: a sin
+        # argument of ~1e7, where one float32 ulp of the coordinate moves the
+        # sin by O(1), and JAX's interpret-mode one-hot select does not keep
+        # every bit of an arbitrary coordinate (its result moves by 0.26 at
+        # the output with uniform draws).  Coordinates on a 1/64 grid are
+        # exact in every precision, so both sides encode the same values
+        x = np.round(x * 64) / 64
+    z = rng.normal(size=(ns, N, d_latent)).astype(np.float32)
+    g = (rng.normal(size=(N, 4)) + 0.5).astype(np.float32)
+    spec = FlaxCodeSpec(**_spec(num_freqs))
+    fn = lambda x, z, p: pallas_resnetfc(x, z, p, n_blocks=N_BLOCKS, n_lin_z=N_LIN_Z,
+                                         compute_dtype=jnp.float32, interpret=True, code=spec,
+                                         activate_out=True, stash=True)
+    params = jax.tree.map(jnp.asarray, variables["params"])
+    want_out, vjp = jax.vjp(fn, jnp.asarray(x), jnp.asarray(z), params)
+    want_x, want_z, want_p = vjp(jnp.asarray(g))
+
+    xt, zt = (torch.from_numpy(a).requires_grad_(True) for a in (x, z))
+    out = K2.fused_resnetfc(xt, zt, port.weights(), n_blocks=N_BLOCKS, n_lin_z=N_LIN_Z,
+                            compute_dtype=torch.float32, code=K2.CodeSpec(**_spec(num_freqs)),
+                            activate_out=True)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out), rtol=0, atol=1e-4)
+    names = [n for n, _ in port.named_parameters()]
+    grads = torch.autograd.grad(out, [xt, zt, *port.parameters()], torch.from_numpy(g))
+    _close(grads[0].numpy(), want_x, 1e-4, "dx")
+    _close(grads[1].numpy(), want_z, 1e-4, "dz")
+    got_p = to_flax_tree(dict(zip(names, grads[2:])))["params"]
+    flat_want = jax.tree_util.tree_flatten_with_path(want_p)[0]
+    assert len(flat_want) == len(names)
+    for path, want in flat_want:
+        keys = [p.key for p in path]
+        got = got_p
+        for k in keys:
+            got = got[k]
+        _close(got, want, 1e-4, "/".join(keys))
+
+
+# ---------------------------------------------------------------------------
+# the routes
+# ---------------------------------------------------------------------------
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("cd,want_fwd,want_bwd", [(BF16, "wgmma", "wgmma"), (F32, "fma", "fma")])
+def test_shipped_shapes_keep_their_kernels(cd, want_fwd, want_bwd):
+    """conf/default_mv.conf's decoders: d_hidden 512, latent 512, 6
+    frequencies (64 lanes as padded), the route they took before the wide
+    kernels."""
+    assert K2.forward_route(cd, 512, 64, 512) == K2.forward_route(cd, 512, 64) == want_fwd
+    assert K2.backward_route(cd, 512, 512, 64) == want_bwd
+    # narrower trunks and latents too
+    for dh, dl, k_in in ((64, 64, 64), (256, 512, 128), (512, 128, 64)):
+        assert K2.forward_route(cd, dl, k_in, dh) == want_fwd
+        assert K2.backward_route(cd, dh, dl, k_in) == want_bwd
+
+
+def test_wide_routes():
+    # d_hidden past 512: the wide forward and dgrad in both dtypes
+    for cd in (BF16, F32):
+        for dh in (576, 640, 1024):
+            assert K2.forward_route(cd, 512, 64, dh) == "wide"
+            assert K2.backward_route(cd, dh, 512, 64) == "wide"
+    # bf16 at 512 past the tail's latent or input lanes: the forward keeps
+    # its kernel, the dgrad is the wide one; float32 keeps both
+    assert K2.forward_route(BF16, 640, 64, 512) == "mma_sync"
+    assert K2.backward_route(BF16, 512, 640, 64) == "wide"
+    assert K2.backward_route(BF16, 512, 512, 192) == "wide"
+    assert K2.forward_route(BF16, 512, 192, 512) == "wgmma"
+    assert K2.backward_route(F32, 512, 1152, 576) == "fma"
+
+
+@pytest.mark.parametrize("cd", [BF16, F32])
+def test_everything_jax_fuses_has_a_kernel(cd):
+    """Every decoder JAX's ``supports`` takes with d_hidden up to 1,024, a
+    latent up to 1,152 lanes and up to 576 encoded lanes (85 frequencies)
+    fits its route's kernel, forward and backward: the wrapper's bound
+    check passes."""
+    for dh in range(128, 1025, 128):
+        for dl in (1, 63, 100, 612, 640, 1024, 1152):
+            for d_enc in (42, 150, 516):
+                assert jax_supports(n_blocks=5, n_lin_z=3, d_hidden=dh, d_latent=dl,
+                                    d_in=d_enc, bn=False, beta=0.0)
+                dlp, k_in = K2.d_enc_padded(dl), K2.d_enc_padded(d_enc)
+                assert K2.forward_route(cd, dlp, k_in, dh) in ("wgmma", "mma_sync", "fma", "wide")
+                assert K2.backward_route(cd, dh, dlp, k_in) in ("wgmma", "fma", "wide")
+                K2.check_wide_bound(cd, dh, dlp, k_in, backward=True)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_past_the_bound_the_wrapper_raises(backward):
+    for cd, dh in ((BF16, 1216), (F32, 1856)):
+        with pytest.raises(ValueError, match="holds 232448 bytes of shared memory"):
+            K2.check_wide_bound(cd, dh, 512, 64, backward=backward)
+    # the widest that fit: bf16 1,152, float32 1,792 (latent and input at most d_hidden)
+    K2.check_wide_bound(BF16, 1152, 1152, 1152, backward=backward)
+    K2.check_wide_bound(F32, 1792, 1792, 1792, backward=backward)
+    # a latent wider than the trunk takes more of the forward's operand tile
+    with pytest.raises(ValueError, match="the wide forward kernel"):
+        K2.check_wide_bound(BF16, 1152, 1408, 64, backward=backward)
+
+
+# ---------------------------------------------------------------------------
+# the wide kernels' layout, read from csrc/resnetfc_wide.cu
+# ---------------------------------------------------------------------------
+
+
+def _source():
+    return (CSRC / "resnetfc_wide.cu").read_text()
+
+
+def _tile(type_name):
+    m = re.search(r"template <> struct Wide<" + type_name + r"> \{\s*static constexpr int "
+                  r"TM = (\d+), WARPS = (\d+), NACC = (\d+);", _source())
+    return tuple(int(v) for v in m.groups())
+
+
+@pytest.mark.parametrize("type_name,cd", [("bf16", BF16), ("float", F32)])
+def test_wide_tile_matches_the_source(type_name, cd):
+    """The tile the wrapper sizes its view-sum scratch by is the kernel's,
+    and a warp's 64-column group of TM points is NACC accumulators a lane."""
+    tm, warps, nacc = _tile(type_name)
+    assert K2.WIDE_TM[cd] == tm == K2.dgrad_tile(cd, "wide")
+    assert nacc * 32 == tm * 64
+    assert warps * 32 <= 1024
+
+
+def test_wide_smem_matches_the_source():
+    """``wide_smem`` mirrors ``wide_fwd_smem``/``wide_dgrad_smem`` with the
+    source's ``wide_lda`` and ``SMEM_MAX``; bf16 rows of the operand tile lie
+    64 bytes apart modulo 128 (8 lanes' 16-byte fragment loads meet 8 bank
+    groups), float32 rows 16 bytes apart."""
+    src = _source()
+    assert int(re.search(r"constexpr int SMEM_MAX = (\d+);", src).group(1)) == K2.SMEM_MAX
+    lda = {t: re.search(r"inline int wide_lda<" + t + r">\(int k\) \{ return ([^;]+); \}",
+                        src).group(1).replace("/", "//") for t in ("bf16", "float")}
+    for k in range(64, 2049, 64):
+        assert eval(lda["bf16"], {}, {"k": k}) == K2.wide_lda(BF16, k)  # noqa: S307
+        assert eval(lda["float"], {}, {"k": k}) == K2.wide_lda(F32, k)  # noqa: S307
+        assert K2.wide_lda(BF16, k) * 2 % 128 == 64
+        assert K2.wide_lda(F32, k) * 4 % 128 == 16
+    for cd, t in ((BF16, "bf16"), (F32, "float")):
+        tm, item = _tile(t)[0], 2 if cd == BF16 else 4
+        for dh, dl, k_in in ((1024, 1152, 576), (640, 640, 64), (64, 1152, 64)):
+            fwd = tm * (dh + 4) * 4 + tm * K2.wide_lda(cd, max(dh, dl, k_in)) * item
+            assert K2.wide_smem(cd, dh, dl, k_in) == fwd
+            bwd = tm * (dh + 4) * 4 + tm * K2.wide_lda(cd, dh) * item + tm * K2.GOUT_W * 4
+            assert K2.wide_smem(cd, dh, dl, k_in, backward=True) == bwd
+    # the issue's shapes on the card, in bytes
+    assert K2.wide_smem(BF16, 1024, 1152, 576) == 207_360
+    assert K2.wide_smem(F32, 1024, 1152, 576) == 139_776
+
+
+# ---------------------------------------------------------------------------
+# the latent padding
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("d_latent", [612, 100])
+def test_padded_latent_is_the_same_function(d_latent):
+    """``pad_latent`` appends zero lanes to ``z`` and ``wz``'s columns up to a
+    multiple of 64: the plain version on the padded operands is the same
+    function.  The latents and latent weights are eighths in [-2, 2], so
+    each injection's sum is exact in any order and the padded call's
+    forward equals the unpadded one's bit for bit (every other product has
+    the same shape in both); the gradients of the real lanes agree to the
+    float32 sum order of the padded products' shapes, and the padded lanes'
+    gradients, which the wrapper slices away, are exactly zero."""
+    rng = np.random.default_rng(d_latent)
+    _, port = _decoder(128, d_latent, 6, 3)
+    w = [t.detach() for t in port.weights()]
+    eighths = lambda *shape: torch.from_numpy(rng.integers(-16, 17, size=shape) / 8.0).float()
+    w[2] = eighths(*w[2].shape)
+    x = torch.from_numpy(rng.uniform(-1, 1, size=(2, N, 6)).astype(np.float32))
+    z = eighths(2, N, d_latent)
+    zp, wzp = K2.pad_latent(z, w[2])
+    assert zp.shape[-1] == wzp.shape[-1] == K2.d_enc_padded(d_latent)
+    assert torch.equal(zp[..., :d_latent], z) and not zp[..., d_latent:].any()
+    assert torch.equal(wzp[..., :d_latent], w[2]) and not wzp[..., d_latent:].any()
+    kw = dict(n_blocks=N_BLOCKS, n_lin_z=N_LIN_Z, code=K2.CodeSpec(**_spec(6)),
+              activate_out=True)
+    g = torch.from_numpy((rng.normal(size=(N, 4)) + 0.5).astype(np.float32))
+    for cd in (F32, BF16):
+        leaves = [t.clone().requires_grad_(True) for t in (z, w[2], zp, wzp)]
+        want = K2.resnetfc_plain(x, leaves[0], K2.DecoderWeights(*w[:2], leaves[1], *w[3:]),
+                                 compute_dtype=cd, **kw)
+        got = K2.resnetfc_plain(x, leaves[2], K2.DecoderWeights(*w[:2], leaves[3], *w[3:]),
+                                compute_dtype=cd, **kw)
+        assert torch.equal(got, want)
+        dz, dwz = torch.autograd.grad(want, leaves[:2], g)
+        dzp, dwzp = torch.autograd.grad(got, leaves[2:], g)
+        _close(dzp[..., :d_latent].numpy(), dz.numpy(), 1e-6, "dz")
+        _close(dwzp[..., :d_latent].numpy(), dwz.numpy(), 1e-6, "dwz")
+        assert not dzp[..., d_latent:].any() and not dwzp[..., d_latent:].any()
+
+
+def test_pad_latent_keeps_a_multiple_of_64():
+    z, wz = torch.zeros(1, 3, 640), torch.zeros(2, 8, 640)
+    zp, wzp = K2.pad_latent(z, wz)
+    assert zp is z and wzp is wz
