@@ -46,18 +46,19 @@ static PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
 
 // A bf16 tensor map of rank 2 or 3: dims innermost first, strides in bytes
 // of dims 1.. (multiples of 16), box innermost first (box[0] = 64: one
-// 128-byte swizzle row).  Elements outside dims read as zero; a store
-// skips them.  Returns 0 or a cudaError_t.
+// 128-byte swizzle row; with a 64-byte swizzle, 32).  Elements outside dims
+// read as zero; a store skips them.  Returns 0 or a cudaError_t.
 static int make_tensor_map(CUtensorMap* m, const void* base, int rank, const uint64_t* dims,
-                           const uint64_t* strides, const uint32_t* box) {
+                           const uint64_t* strides, const uint32_t* box,
+                           CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   PFN_cuTensorMapEncodeTiled_v12000 enc = tensor_map_encoder();
   if (!enc) return (int)cudaErrorNotSupported;
   const uint32_t ones[3] = {1, 1, 1};
   const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
                          const_cast<void*>(base), (const cuuint64_t*)dims,
                          (const cuuint64_t*)strides, (const cuuint32_t*)box,
-                         (const cuuint32_t*)ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         (const cuuint32_t*)ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
@@ -116,6 +117,26 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// The cluster's CTAs (a launch with a cluster dimension): this CTA's rank,
+// a barrier over every thread of the cluster, and an arrival on the
+// barrier at the same shared offset in another CTA (the default release
+// semantics, as CUTLASS's cluster barriers arrive).
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n"
+               ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote)
+               : "r"(smem_u32(bar)), "r"(rank));
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" :: "r"(remote) : "memory");
+}
+
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1) {
   asm volatile(
@@ -131,6 +152,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5}], [%2];\n"
       :: "r"(smem_u32(dst)), "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+// The same box into the same shared offset of every CTA of the cluster in
+// `mask`, completing on each one's barrier at the offset of `bar`.
+__device__ __forceinline__ void tma_load_3d_multicast(void* dst, const CUtensorMap* map,
+                                                      uint64_t* bar, int c0, int c1, int c2,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;\n"
+      :: "r"(smem_u32(dst)), "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+         "h"(mask) : "memory");
 }
 // bytes (a multiple of 16, both addresses 16-byte aligned) from global to
 // shared memory by one bulk copy, completing on the barrier's tx count.

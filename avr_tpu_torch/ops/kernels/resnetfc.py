@@ -63,12 +63,17 @@ float32 too is the same run to run.
 
 Every kernel above keeps its trunk or trunk cotangent in registers, full at
 ``d_hidden`` 512, and the bf16 dgrad's tail takes at most 512 latent and
-128 encoded input lanes.  Past those envelopes (:func:`forward_route` and
-:func:`backward_route` say ``"wide"``) the forward and the dgrad are
-``csrc/resnetfc_wide.cu``'s, one kernel each templated on the operand type
-(bf16 ``mma.sync``, float32 FMA): a CTA a tile of 32 (bf16) or 16 (float32)
-points, the float32 trunk in shared memory, the weights read from L2; the
-wgrads above take their jobs at any width.  A latent of any width is
+128 encoded input lanes.  Past those envelopes the forward and the dgrad are
+``csrc/resnetfc_wide.cu``'s.  bf16 with ``d_hidden`` from 256 to 1,024
+(:func:`forward_route` and :func:`backward_route` say ``"wide_tma"``, the
+rule :func:`wide_tma_fits`) takes its Hopper kernels: a CTA a tile of 32
+points, the float32 trunk in registers, the weights streamed through a
+shared ring by TMA, each stage multicast to a cluster of 4 CTAs, products
+by ``mma.sync`` from shared memory.  Every other wide shape (``"wide"``:
+float32, wider bf16) takes the first version, one kernel each templated on
+the operand type (bf16 ``mma.sync``, float32 FMA): a CTA a tile of 32
+(bf16) or 16 (float32) points, the float32 trunk in shared memory, the
+weights read from L2.  The wgrads above take their jobs at any width.  A latent of any width is
 zero-padded to a multiple of 64 lanes (:func:`pad_latent`), as lin_in's
 input is, and its gradient sliced back.
 
@@ -100,7 +105,8 @@ from avr_tpu_torch.ops.kernels import _build
 
 __all__ = ["CodeSpec", "DecoderWeights", "backward_route", "check_wide_bound", "f32_dgrad_plan",
            "f32_forward_plan", "forward_route", "fused_resnetfc", "pad_latent", "resnetfc_plain",
-           "use_stash", "encode_tables", "wgrad_plan", "wide_smem"]
+           "use_stash", "encode_tables", "wgrad_plan", "wide_smem", "wide_tma_fits",
+           "wide_tma_smem"]
 
 NAME = "fused_resnetfc"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -364,15 +370,16 @@ def forward_route(compute_dtype: torch.dtype, d_latent: int, k_in: int,
     """The forward kernel that a call with these operands launches on the
     card, for every shape :func:`fused_resnetfc` takes (``d_latent`` and
     ``k_in`` padded to multiples of 64, ``d_hidden`` a multiple of 64; every
-    number of views takes the same route): ``"wide"`` for ``d_hidden`` above
-    512 in either dtype (``csrc/resnetfc_wide.cu resnetfc_wide_fwd_kernel``,
-    the trunk in shared memory); else ``"wgmma"`` (bf16 with ``d_latent``
-    and ``k_in`` at most 512, ``csrc/resnetfc_hopper.cu``), ``"mma_sync"``
-    (other bf16) or ``"fma"`` (float32: ``resnetfc_fwd_f32_kernel``), both
-    ``csrc/resnetfc.cu``.  A route's build or launch failure raises: no call
-    changes kernel."""
+    number of views takes the same route): for ``d_hidden`` above 512,
+    ``"wide_tma"`` where :func:`wide_tma_fits` (bf16:
+    ``csrc/resnetfc_wide.cu resnetfc_wide_tma_fwd_kernel``), else ``"wide"``
+    (``resnetfc_wide_fwd_kernel``, the trunk in shared memory); else
+    ``"wgmma"`` (bf16 with ``d_latent`` and ``k_in`` at most 512,
+    ``csrc/resnetfc_hopper.cu``), ``"mma_sync"`` (other bf16) or ``"fma"``
+    (float32: ``resnetfc_fwd_f32_kernel``), both ``csrc/resnetfc.cu``.  A
+    route's build or launch failure raises: no call changes kernel."""
     if d_hidden > REG_DH_MAX:
-        return "wide"
+        return "wide_tma" if wide_tma_fits(compute_dtype, d_hidden, d_latent, k_in) else "wide"
     if compute_dtype == torch.float32:
         return "fma"
     return "wgmma" if d_latent <= FWD_K_MAX and k_in <= FWD_K_MAX else "mma_sync"
@@ -384,12 +391,16 @@ def backward_route(compute_dtype: torch.dtype, d_hidden: int, d_latent: int, k_i
     ``d_latent`` at most 512 and at most 128 encoded input lanes: the walk
     and tail of ``csrc/resnetfc_hopper.cu``), ``"fma"`` (float32 with
     ``d_hidden`` at most 512: ``csrc/resnetfc.cu resnetfc_dgrad_f32_kernel``)
-    or ``"wide"`` (every other shape: ``csrc/resnetfc_wide.cu
-    resnetfc_wide_dgrad_kernel``).  ``d_latent`` and ``k_in`` as padded."""
+    or, for every other shape, ``"wide_tma"`` where :func:`wide_tma_fits`
+    (``csrc/resnetfc_wide.cu resnetfc_wide_tma_dgrad_kernel``), else
+    ``"wide"`` (``resnetfc_wide_dgrad_kernel``).  ``d_latent`` and ``k_in``
+    as padded."""
     if compute_dtype == torch.float32:
         return "fma" if d_hidden <= REG_DH_MAX else "wide"
     inside = d_hidden <= REG_DH_MAX and d_latent <= TAIL_DL_MAX and k_in <= TAIL_KIN_MAX
-    return "wgmma" if inside else "wide"
+    if inside:
+        return "wgmma"
+    return "wide_tma" if wide_tma_fits(compute_dtype, d_hidden, d_latent, k_in, True) else "wide"
 
 
 # The wide kernels (csrc/resnetfc_wide.cu): a CTA a tile of WIDE_TM points
@@ -403,6 +414,40 @@ def wide_lda(compute_dtype: torch.dtype, k: int) -> int:
     """The wide kernels' operand tile row stride, in elements, for rows of
     ``k`` lanes (``csrc/resnetfc_wide.cu wide_lda``)."""
     return -(-k // 64) * 64 + 32 if compute_dtype == torch.bfloat16 else k + 4
+
+
+# The bf16 TMA cluster kernels (csrc/resnetfc_wide.cu resnetfc_wide_tma_*):
+# a CTA a tile of WIDE_TMA_TM points, WIDE_TMA_CLUSTER CTAs a cluster (the
+# grid rounded up to whole clusters), a ring of WIDE_TMA_STAGES weight
+# stages of WIDE_TMA_STAGE bytes (WIDE_TMA_PASS rows of 32 k), and the A
+# region of two d_hidden tiles (the forward's as wide as its widest operand);
+# the trunk in registers, two 64-column groups a warp at most; the source's
+# WT_* constants.
+WIDE_TMA_TM, WIDE_TMA_CLUSTER, WIDE_TMA_STAGES = 32, 2, 3
+WIDE_TMA_PASS, WIDE_TMA_KS = 512, 32
+WIDE_TMA_STAGE = WIDE_TMA_PASS * WIDE_TMA_KS * 2
+WIDE_TMA_DH = (256, 1024)
+
+
+def wide_tma_smem(d_hidden: int, d_latent: int, k_in: int, backward: bool = False) -> int:
+    """Shared bytes of a bf16 TMA cluster forward (or, ``backward``, dgrad)
+    CTA (``csrc/resnetfc_wide.cu wt_smem``): the ring, the A region, the
+    output cotangent tile and the ring's three barriers a stage."""
+    ka = 2 * d_hidden if backward else max(2 * d_hidden, d_latent, k_in)
+    return WIDE_TMA_STAGES * WIDE_TMA_STAGE + WIDE_TMA_TM * ka * 2 + WIDE_TMA_TM * GOUT_W * 4 \
+        + 3 * WIDE_TMA_STAGES * 8
+
+
+def wide_tma_fits(compute_dtype: torch.dtype, d_hidden: int, d_latent: int, k_in: int,
+                  backward: bool = False) -> bool:
+    """The route rule between the wide kernels, one function of the shape:
+    the bf16 TMA cluster kernel takes ``d_hidden`` from 256 to 1,024 (a
+    warp's trunk is at most two 64-column groups; the dgrad's d-encoding
+    chunk needs 256) where its shared memory fits; the first version every
+    other wide shape (float32, bf16 past 1,024 or past that memory)."""
+    lo, hi = WIDE_TMA_DH
+    return (compute_dtype == torch.bfloat16 and lo <= d_hidden <= hi
+            and wide_tma_smem(d_hidden, d_latent, k_in, backward) <= SMEM_MAX)
 
 
 def wide_smem(compute_dtype: torch.dtype, d_hidden: int, d_latent: int, k_in: int,
@@ -548,6 +593,9 @@ NAME_F32 = "fused_resnetfc_f32"  # forwards (stash or not) on the float32 kernel
 # kernels, by dtype
 NAME_WIDE = {torch.bfloat16: "fused_resnetfc_wide", torch.float32: "fused_resnetfc_wide_f32"}
 NAME_DGRAD_WIDE = {torch.bfloat16: "resnetfc_dgrad_wide", torch.float32: "resnetfc_dgrad_wide_f32"}
+# the bf16 TMA cluster kernels, counted also under NAME_WIDE / NAME_DGRAD_WIDE
+NAME_WIDE_TMA = "fused_resnetfc_wide_tma"
+NAME_DGRAD_WIDE_TMA = "resnetfc_dgrad_wide_tma"
 
 
 def _forward(a, d, compute_dtype, stash: bool, st=None):
@@ -586,6 +634,14 @@ def _forward(a, d, compute_dtype, stash: bool, st=None):
                 if ns > 1 else None)
         fn = _build.kernel_fn("avr_resnetfc_fwd_f32", FWD_WGMMA_ARGTYPES)  # the same signature
         err = fn(*ptrs, _build.ptr(pool) if ns > 1 else None, *dims, stream)
+    elif route == "wide_tma":
+        # the view sums of NS > 1: WIDE_TMA_TM x d_hidden floats a CTA of
+        # the grid (whole clusters)
+        tile = WIDE_TMA_TM * WIDE_TMA_CLUSTER
+        pool = (torch.empty((-(-N // tile) * tile, dh), dtype=torch.float32, device=dev)
+                if ns > 1 else None)
+        fn = _build.kernel_fn("avr_resnetfc_fwd_wide_tma", FWD_WGMMA_ARGTYPES)
+        err = fn(*ptrs, _build.ptr(pool) if ns > 1 else None, *dims, stream)
     elif route == "wide":
         # float32 reads the transposed weights; the view sums of NS > 1: a
         # tile's WIDE_TM x d_hidden floats
@@ -601,8 +657,10 @@ def _forward(a, d, compute_dtype, stash: bool, st=None):
         err = fn(*ptrs, *dims, _DTYPES[compute_dtype], stream)
     _build.check(NAME_STASH if stash else NAME, err)
     if route != "mma_sync":
-        _build.launches[{"wgmma": NAME_WGMMA, "fma": NAME_F32,
-                         "wide": NAME_WIDE[compute_dtype]}[route]] += 1
+        _build.launches[{"wgmma": NAME_WGMMA, "fma": NAME_F32, "wide": NAME_WIDE[compute_dtype],
+                         "wide_tma": NAME_WIDE[compute_dtype]}[route]] += 1
+    if route == "wide_tma":
+        _build.launches[NAME_WIDE_TMA] += 1
     return out, st
 
 
@@ -638,13 +696,16 @@ def dgrad_tile(compute_dtype, route: Optional[str] = None) -> int:
     """Points a dgrad CTA walks on ``route`` (:func:`backward_route`; by
     default the dtype's route at the shipped widths): 64 on the bf16 wgmma
     walk (``csrc/resnetfc_hopper.cu``), :func:`f32_dgrad_plan`'s tile (32) on
-    the float32 one, ``WIDE_TM`` on the wide one."""
+    the float32 one, ``WIDE_TM`` on the wide one; on the TMA cluster kernel
+    a cluster's points (its grid is whole clusters, a CTA ``WIDE_TMA_TM``
+    of them)."""
     route = route or ("wgmma" if compute_dtype == torch.bfloat16 else "fma")
-    return {"wgmma": 64, "fma": F32_FWD_TILE, "wide": WIDE_TM[compute_dtype]}[route]
+    return {"wgmma": 64, "fma": F32_FWD_TILE, "wide": WIDE_TM[compute_dtype],
+            "wide_tma": WIDE_TMA_TM * WIDE_TMA_CLUSTER}[route]
 
 
 _DGRAD_ENTRY = {"wgmma": "avr_resnetfc_dgrad_bf16", "fma": "avr_resnetfc_dgrad",
-                "wide": "avr_resnetfc_dgrad_wide"}
+                "wide": "avr_resnetfc_dgrad_wide", "wide_tma": "avr_resnetfc_dgrad_wide_tma"}
 
 
 def _dgrad(a, d, st, g, wd, compute_dtype, out=None, pool=None, name=NAME_DGRAD):
@@ -654,8 +715,9 @@ def _dgrad(a, d, st, g, wd, compute_dtype, out=None, pool=None, name=NAME_DGRAD)
     cotangent ``gout`` and the encoded input ``enc``; into ``out`` (those
     five, by name) where given, with ``pool`` the NS > 1 scratch.  The
     kernel is :func:`backward_route`'s: float32's register-tiled dgrad is
-    counted also under ``NAME_DGRAD_F32``, the wide one under
-    ``NAME_DGRAD_WIDE[compute_dtype]``."""
+    counted also under ``NAME_DGRAD_F32``, either wide one under
+    ``NAME_DGRAD_WIDE[compute_dtype]`` and the TMA cluster one also under
+    ``NAME_DGRAD_WIDE_TMA``."""
     ns, N, dh = d["ns"], d["N"], d["d_hidden"]
     cd = compute_dtype
     dev = g.device
@@ -682,7 +744,7 @@ def _dgrad(a, d, st, g, wd, compute_dtype, out=None, pool=None, name=NAME_DGRAD)
         ptrs.append(_build.ptr(pool) if ns > 1 else None)
         dims = [d[k] for k in _DIM_ORDER]
         stream = ctypes.c_void_p(_build.stream_ptr(dev))
-        if route == "wgmma":
+        if route in ("wgmma", "wide_tma"):
             fn = _build.kernel_fn(_DGRAD_ENTRY[route], [ctypes.c_void_p] * 17
                                   + [ctypes.c_int] * 10 + [ctypes.c_void_p])
             err = fn(*ptrs, *dims, stream)
@@ -693,6 +755,8 @@ def _dgrad(a, d, st, g, wd, compute_dtype, out=None, pool=None, name=NAME_DGRAD)
         _build.check(name, err)
         if route != "wgmma":
             _build.launches[NAME_DGRAD_F32 if route == "fma" else NAME_DGRAD_WIDE[cd]] += 1
+        if route == "wide_tma":
+            _build.launches[NAME_DGRAD_WIDE_TMA] += 1
     return out["dx"], out["dz"], out["cot"], out["gout"], out["enc"]
 
 
@@ -971,12 +1035,13 @@ def fused_resnetfc(x: torch.Tensor, z: torch.Tensor, w: DecoderWeights, *,
 
 def check_wide_bound(compute_dtype: torch.dtype, d_hidden: int, d_latent: int, k_in: int,
                      backward: bool) -> None:
-    """Raise for a shape whose route is a wide kernel (:func:`forward_route`,
-    and under autograd :func:`backward_route`) that does not fit that
-    kernel's shared memory (:func:`wide_smem`; ``d_latent`` and ``k_in`` as
-    padded).  The wide forward holds d_hidden up to 1,152 in bf16 and 1,792
-    in float32 where the latent and the input are at most d_hidden lanes
-    (wider ones take more of its operand tile), the wide dgrad the same
+    """Raise for a shape whose route is the first wide kernel
+    (:func:`forward_route`, and under autograd :func:`backward_route`) that
+    does not fit that kernel's shared memory (:func:`wide_smem`; ``d_latent``
+    and ``k_in`` as padded; the TMA cluster kernels take only shapes that
+    fit theirs).  The wide forward holds d_hidden up to 1,152 in bf16 and
+    1,792 in float32 where the latent and the input are at most d_hidden
+    lanes (wider ones take more of its operand tile), the wide dgrad the same
     d_hidden at any latent and input."""
     checks = [("forward", forward_route(compute_dtype, d_latent, k_in, d_hidden), False)]
     if backward:

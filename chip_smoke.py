@@ -4318,7 +4318,7 @@ def print_parallel(res, launches):
 # K2's counters (its float32 wgrad's counter is shared with K3's: left out)
 K2_NAMES = (K2.NAME, K2.NAME_STASH, K2.NAME_WGMMA, K2.NAME_DGRAD, K2.NAME_WGRAD,
             K2.NAME_RECOMPUTE, K2.NAME_F32, K2.NAME_DGRAD_F32, *K2.NAME_WIDE.values(),
-            *K2.NAME_DGRAD_WIDE.values())
+            *K2.NAME_DGRAD_WIDE.values(), K2.NAME_WIDE_TMA, K2.NAME_DGRAD_WIDE_TMA)
 # each option group of the model conf's ``model`` subtree (added to
 # conf/default_mv.conf at full width): (model block, make_model keywords,
 # JAX fuses the decoders); the adaptive renderer unless the keywords say
@@ -4563,6 +4563,13 @@ def run_options():
                                                 or counts.get(f"train_{K2.NAME_RECOMPUTE}"))):
             raise AssertionError(f"options {case}: JAX {'fuses' if fused else 'runs XLA'}, K2 "
                                  f"launches {k2}")
+        # the global latent's 640 lanes (d_hidden 512): the bf16 dgrad on the
+        # wide TMA cluster kernel, every one of them
+        if case == "global_coarse_only" and (
+                not counts.get(f"train_{K2.NAME_DGRAD_WIDE_TMA}")
+                or counts.get(f"train_{K2.NAME_DGRAD_WIDE_TMA}")
+                != counts.get(f"train_{K2.NAME_DGRAD_WIDE[torch.bfloat16]}")):
+            raise AssertionError(f"options global_coarse_only: dgrad launches {k2}")
         if case == "custom_encoder" and (r["latent_shape"] != [1, SIDE, SIDE, 128]
                                          or not counts.get("serve_gather_bilinear")
                                          or not counts.get("train_gather_bilinear_bwd")):
@@ -4675,10 +4682,12 @@ WIDE_DH, WIDE_DL = 1024, 1152
 # float32), d_hidden 640 with a
 # latent of 612 lanes (zero-padded to 640: a global latent_size of 100), and
 # bf16 d_hidden 512 with the global encoder's 640 lanes (the wgmma forward
-# or mma.sync forward, then the wide dgrad: past the bf16 tail's 512).  N is
-# off both tiles (32 and 16 points).
+# or mma.sync forward, then the wide dgrad: past the bf16 tail's 512), and
+# d_hidden 1,152 with a latent of 1,152 (past the bf16 TMA cluster kernels'
+# two trunk groups a warp: the first version, by ``wide_tma_fits``).  N is
+# off every tile (32 and 16 points, a cluster's 128).
 WIDE_CASES = ((WIDE_DH, WIDE_DL, CODE, 1), (WIDE_DH, WIDE_DL, WIDE_CODE, 2),
-              (640, 612, CODE, 2), (512, 640, CODE, 1))
+              (640, 612, CODE, 2), (512, 640, CODE, 1), (1152, 1152, CODE, 1))
 WIDE_N = CHUNK + 37
 # float32 (no TF32) against cuBLAS in float32 over 13 chained products of
 # up to 1,152 terms: 1e-3 of max(1, |output|) forward, and by relative L2
@@ -4715,13 +4724,98 @@ def product_chain(gen, n, dh, dl, k_in, cd, backward, nb=5, nlz=3):
     return lambda: [torch.matmul(a[i], w[(i, o)]) for i, o in pairs]
 
 
+def fill_k2_chains(kernels):
+    """The library column of K2's rows at the shipped width: the cuBLAS
+    chain of each kernel's products (``product_chain``, TF32 off) at the
+    row's shape, d_hidden 512, the latent's 512 lanes and 64 encoded lanes:
+    the bf16 forward at the band (81,920 points), the bf16 dgrad at the
+    train step's band call (327,680), the float32 forward at the band, and
+    the recompute backward (the forward's and the dgrad's products) at the
+    VR fine pass (1,572,864).  Inputs from a generator of their own."""
+    gen = torch.Generator(device=DEV).manual_seed(31)
+    k_in, bf, f32 = K2.d_enc_padded(CODE.d_enc), torch.bfloat16, torch.float32
+    chains = {K2.NAME: [(BAND, bf, False)], K2.NAME_DGRAD: [(BAND_TRAIN, bf, True)],
+              K2.NAME_F32: [(BAND, f32, False)],
+              K2.NAME_RECOMPUTE: [(FINE_VR, bf, False), (FINE_VR, bf, True)]}
+    for k in kernels:
+        if k["name"] not in chains:
+            continue
+        calls = [product_chain(gen, n, 512, C, k_in, cd, bwd) for n, cd, bwd in chains[k["name"]]]
+        k["library_ms"] = time_ms(lambda: [c() for c in calls], iters=3, warmup=1)
+        k["library"] = "the cuBLAS chain of its products (product_chain)"
+        del calls
+        torch.cuda.empty_cache()
+        print(f"kernel {k['name']}: the cuBLAS chain of its products {k['library_ms']:.3f} ms")
+
+
 def wide_inputs(gen, n, ns, dl, code, cd):
     x = (torch.rand(ns, n, code.d_raw, generator=gen, device=DEV) * 2 - 1).contiguous()
     return x, randn(gen, ns, n, dl, dtype=cd), randn(gen, n, 4) + 0.5
 
 
+@contextlib.contextmanager
+def first_wide_version():
+    """Every wide shape on the first wide kernels (the routes patched to
+    "wide"), for timing them beside the TMA cluster kernels in one run."""
+    fwd, bwd = K2.forward_route, K2.backward_route
+    K2.forward_route = lambda *a, **k: "wide" if fwd(*a, **k).startswith("wide") else fwd(*a, **k)
+    K2.backward_route = lambda *a, **k: "wide" if bwd(*a, **k).startswith("wide") else bwd(*a, **k)
+    try:
+        yield
+    finally:
+        K2.forward_route, K2.backward_route = fwd, bwd
+
+
+def wide_ran(before, cd, route, names):
+    """The launches since ``before`` of the wide counters: ``names`` (K2's
+    forward or dgrad counter, the dtype's wide one, the TMA cluster one)
+    against what ``route`` must have launched (one call)."""
+    ran = f32_ran(before, names)
+    want = {names[0]: 1, names[1]: int(route.startswith("wide")),
+            names[2]: int(route == "wide_tma")}
+    return ran, ran == want
+
+
+def check_wide_refusal():
+    """A TMA cluster launch its kernel refuses raises, and nothing falls
+    back: the bf16 forward and dgrad at d_hidden 1,152 (past the kernels'
+    two trunk groups a warp) forced onto the "wide_tma" route return
+    cudaErrorInvalidValue from the C entry, which the wrapper raises; the
+    launch counters do not move.  Its inputs draw from a generator of their
+    own."""
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    bf = torch.bfloat16
+    w = decoder_weights(gen, dl=1152, dh=1152)
+    x, z, g = wide_inputs(gen, 256, 1, 1152, CODE, bf)
+    args = K2._prepare(x, z, w, CODE, bf)
+    dims = K2._dims(args, 5, 3, True)
+    st = K2._forward(args, dims, bf, True)[1]
+    gs, wd, _ = K2._bwd_operands(args, dims, g, K2.NAME_DGRAD)
+    fwd, bwd = K2.forward_route, K2.backward_route
+    K2.forward_route = K2.backward_route = lambda *a, **k: "wide_tma"
+    raised, before = [], dict(_build.launches)
+    try:
+        for call in (lambda: K2._forward(args, dims, bf, False),
+                     lambda: K2._dgrad(args, dims, st, gs, wd, bf)):
+            try:
+                call()
+            except RuntimeError as e:
+                raised.append(str(e))
+    finally:
+        K2.forward_route, K2.backward_route = fwd, bwd
+    torch.cuda.synchronize()
+    if len(raised) != 2 or dict(_build.launches) != before:
+        raise AssertionError(f"K2 wide_tma refusal: raised {raised}, launches moved "
+                             f"{dict(_build.launches) != before}")
+    print(f"K2 wide_tma at d_hidden 1,152 refused and raised: {raised}")
+    return dict(case="wide_tma launch refused at d_hidden 1,152 raises", max_abs_err=0.0,
+                tol=0.0, against="refusal")
+
+
 def check_wide(gen):
-    """The wide kernels (``forward_route``/``backward_route`` = "wide") held
+    """The wide kernels (``forward_route``/``backward_route`` = "wide_tma"
+    for bf16 d_hidden 256..1,024, the TMA cluster kernels; "wide", the first
+    version, for float32 and bf16 past them) held
     to their plain versions on the card at WIDE_CASES in bf16 and float32:
     the forward (bf16 2 ulps of the largest output or twice the plain
     version's distance from the float32 function on the same bf16-valued
@@ -4736,9 +4830,12 @@ def check_wide(gen):
     stash backward in one chunk, and cut to 1,000-point chunks its point
     cotangents bit for bit, its weight gradients to summation order; the
     wgrads per job at 1,024 x 1,024 and 1,024 x 1,152 against torch.matmul.
-    Then each kernel timed at the band chunk (81,920 points, d_hidden
-    1,024, latent 1,152) beside its plain version, the cuBLAS chain of its
-    products and its bound.  Returns the four kernel rows."""
+    The launch counters show which kernel each case took.  Then each kernel
+    timed at the band chunk (81,920 points, d_hidden 1,024, latent 1,152)
+    beside its plain version, the cuBLAS chain of its products and its
+    bound, the bf16 TMA cluster kernels also beside the first version in
+    turns (TMA, first, first, TMA).  Returns the four kernel rows (bf16: the
+    TMA cluster kernels; float32: the first version)."""
     kw = dict(n_blocks=5, n_lin_z=3, activate_out=True)
     rows = {}
     for cd in (torch.bfloat16, torch.float32):
@@ -4755,10 +4852,11 @@ def check_wide(gen):
             before = dict(_build.launches)
             got = fused_resnetfc(x, z, w, compute_dtype=cd, code=code, **kw)
             want = resnetfc_plain(x, z, w, compute_dtype=cd, code=code, **kw)
-            ran = f32_ran(before, (K2.NAME, K2.NAME_WIDE[cd]))
             route = K2.forward_route(cd, K2.d_enc_padded(dl), K2.d_enc_padded(code.d_enc), dh)
-            if (route == "wide") != (ran == {K2.NAME: 1, K2.NAME_WIDE[cd]: 1}):
+            ran, ok = wide_ran(before, cd, route, (K2.NAME, K2.NAME_WIDE[cd], K2.NAME_WIDE_TMA))
+            if not ok:
                 raise AssertionError(f"K2 {label}: route {route}, launches {ran}")
+            wide = route.startswith("wide")
             mkw = dict(n_blocks=5, n_lin_z=3, code=code, compute_dtype=cd)
             # bf16: the float32 function on the bf16-valued weights and
             # latents, which both bf16 roundings approximate (phase 9's rule)
@@ -4771,12 +4869,12 @@ def check_wide(gen):
                 tol = max(tol, 2 * max_err(want, ref))
                 fwd.append(check(f"wide forward {label} N={WIDE_N} vs float32 (bf16 weights)",
                                  max_err(got, ref), tol, against="float32"))
-            if route == "wide":
-                fwd.append(check(f"wide forward {label} N={WIDE_N}", fwd_err, tol))
+            if wide:
+                fwd.append(check(f"wide forward ({route}) {label} N={WIDE_N}", fwd_err, tol))
             args = K2._prepare(x, z, w, code, cd)
             dims = K2._dims(args, 5, 3, True)
             kst = K2._forward(args, dims, cd, True)[1]
-            if route == "wide":
+            if wide:
                 pst = decoder_plain_stash(x, z, w, **mkw)
                 rst = None if f32 else decoder_plain_stash(
                     x, z.float(), exact, **dict(mkw, compute_dtype=torch.float32))
@@ -4792,18 +4890,20 @@ def check_wide(gen):
                     raise AssertionError(f"K2 wide stash {label}: {flips} of the ReLU masks "
                                          f"flipped > {STASH_FLIPS}")
                 del pst, rst
-            # the backward: its dgrad is the wide one here
-            if K2.backward_route(cd, dh, dims["d_latent"], dims["k_in"]) != "wide":
-                raise AssertionError(f"K2 {label}: backward route is not wide")
+            # the backward: its dgrad is a wide one here
+            broute = K2.backward_route(cd, dh, dims["d_latent"], dims["k_in"])
+            if not broute.startswith("wide"):
+                raise AssertionError(f"K2 {label}: backward route {broute} is not wide")
             kern = lambda stash: (lambda x, z, *ws: fused_resnetfc(
                 x, z, DecoderWeights(*ws), compute_dtype=cd, code=code, stash=stash, **kw))
             plain = lambda x, z, *ws: resnetfc_plain(x, z, DecoderWeights(*ws),
                                                      compute_dtype=cd, code=code, **kw)
             before = dict(_build.launches)
             got = grads_of(kern(True), (x, z, *w), g)
-            ran = f32_ran(before, (K2.NAME_DGRAD, K2.NAME_DGRAD_WIDE[cd]))
-            if ran != {K2.NAME_DGRAD: 1, K2.NAME_DGRAD_WIDE[cd]: 1}:
-                raise AssertionError(f"K2 {label}: dgrad launches {ran}")
+            ran, ok = wide_ran(before, cd, broute, (K2.NAME_DGRAD, K2.NAME_DGRAD_WIDE[cd],
+                                                    K2.NAME_DGRAD_WIDE_TMA))
+            if not ok:
+                raise AssertionError(f"K2 {label}: dgrad route {broute}, launches {ran}")
             want = grads_of(plain, (x, z, *w), g)
             matched = decoder_bwd_matched(x, z, w, kst, g, **mkw)
             bl = f"{label} N={WIDE_N}"
@@ -4831,8 +4931,11 @@ def check_wide(gen):
             worst = max((c["rel_l2"], c["case"].split()[1]) for c in bwd
                         if c["against"] == "plain" and bl in c["case"])
             print(f"K2 wide {bl}: forward on the {route} route {fwd_err:.3e} (tolerance "
-                  f"{tol:.3e}); backward worst relative L2 against the plain autograd {worst}")
+                  f"{tol:.3e}); backward on the {broute} route, worst relative L2 against the "
+                  f"plain autograd {worst}")
             del kst, got, want, matched, rec, cut, args
+        if not f32:
+            bwd.append(check_wide_refusal())
         # the wgrads at width: K2's 15 jobs at 1,024 x 1,024 and 1,024 x
         # 1,152 (and lin_in, lin_out) against torch.matmul, a coarse query's
         # 16,384 points
@@ -4861,7 +4964,14 @@ def check_wide(gen):
         dims = K2._dims(args, 5, 3, True)
         k_in = dims["k_in"]
         iters = 5 if cd == torch.bfloat16 else 2
-        ms = time_ms(lambda: K2._forward(args, dims, cd, False), iters=iters, warmup=1)
+        bf = cd == torch.bfloat16
+        fwd_call = lambda: K2._forward(args, dims, cd, False)
+        ms = time_ms(fwd_call, iters=iters, warmup=1)
+        first_fwd = []
+        if bf:  # the first version in turns: TMA (above), first, first, TMA
+            with first_wide_version():
+                first_fwd = [time_ms(fwd_call, iters=iters, warmup=1) for _ in range(2)]
+            ms = [ms, time_ms(fwd_call, iters=iters, warmup=1)]
         plain_ms = time_ms(lambda: resnetfc_plain(x, z, w, compute_dtype=cd, code=CODE, **kw),
                            iters=iters, warmup=1)
         lib_ms = time_ms(product_chain(gen, BAND, WIDE_DH, WIDE_DL, k_in, cd, False),
@@ -4869,15 +4979,24 @@ def check_wide(gen):
         wbytes = sum(t.numel() for t in w) * item
         flops = wide_flops(BAND, 1, WIDE_DH, WIDE_DL, CODE.d_enc)
         b_ms, b_by = bound(x.numel() * 4 + z.numel() * item + wbytes + BAND * 4 * 4, flops, peak)
-        out.append(dict(name=K2.NAME_WIDE[cd], source="avr_tpu_torch/csrc/resnetfc_wide.cu",
+        turns = dict(ms_turns=ms, first_version_ms=first_fwd) if bf else {}
+        out.append(dict(name=K2.NAME_WIDE_TMA if bf else K2.NAME_WIDE[cd],
+                        source="avr_tpu_torch/csrc/resnetfc_wide.cu",
                         replaces="avr_tpu/ops/pallas/resnetfc.py:896", tpu_kernel="fused_resnetfc",
                         shape=f"N={BAND}, NS=1, d_hidden {WIDE_DH}, d_latent {WIDE_DL}, 5 blocks, "
-                              f"{str(cd)[6:]}", cases=fwd, ms=ms, plain_ms=plain_ms,
-                        library_ms=lib_ms, library="the cuBLAS chain of the forward's products",
-                        bound_ms=b_ms, bound_by=b_by))
+                              f"{str(cd)[6:]}", cases=fwd, ms=min(ms) if bf else ms,
+                        plain_ms=plain_ms, library_ms=lib_ms,
+                        library="the cuBLAS chain of the forward's products", bound_ms=b_ms,
+                        bound_by=b_by, **turns))
         st = K2._forward(args, dims, cd, True)[1]
         gs, wd, _ = K2._bwd_operands(args, dims, g, K2.NAME_DGRAD)
-        ms = time_ms(lambda: K2._dgrad(args, dims, st, gs, wd, cd), iters=iters, warmup=1)
+        dgrad_call = lambda: K2._dgrad(args, dims, st, gs, wd, cd)
+        ms = time_ms(dgrad_call, iters=iters, warmup=1)
+        first_dgrad = []
+        if bf:
+            with first_wide_version():
+                first_dgrad = [time_ms(dgrad_call, iters=iters, warmup=1) for _ in range(2)]
+            ms = [ms, time_ms(dgrad_call, iters=iters, warmup=1)]
         plain_ms = time_ms(lambda: decoder_bwd_matched(x, z, w, st, g, n_blocks=5, n_lin_z=3,
                                                        code=CODE, compute_dtype=cd,
                                                        wgrads=False), iters=iters, warmup=1)
@@ -4886,15 +5005,20 @@ def check_wide(gen):
         slots = K2.stash_slots(1, 5, 3)
         io = BAND * (CODE.d_raw * 4 * 2 + WIDE_DL * item * 2 + 4 * 4)  # x, dx, z, dz, g
         b_ms, b_by = bound(2 * slots * BAND * WIDE_DH * item + io + wbytes, flops, peak)
-        out.append(dict(name=K2.NAME_DGRAD_WIDE[cd], source="avr_tpu_torch/csrc/resnetfc_wide.cu",
+        turns = dict(ms_turns=ms, first_version_ms=first_dgrad) if bf else {}
+        out.append(dict(name=K2.NAME_DGRAD_WIDE_TMA if bf else K2.NAME_DGRAD_WIDE[cd],
+                        source="avr_tpu_torch/csrc/resnetfc_wide.cu",
                         replaces="avr_tpu/ops/pallas/resnetfc.py:823", tpu_kernel="_bwd_stash_impl",
                         shape=f"N={BAND}, NS=1, d_hidden {WIDE_DH}, d_latent {WIDE_DL}, 5 blocks, "
-                              f"{str(cd)[6:]}", cases=bwd, ms=ms, plain_ms=plain_ms,
-                        library_ms=lib_ms, library="the cuBLAS chain of the dgrad's products",
-                        bound_ms=b_ms, bound_by=b_by))
+                              f"{str(cd)[6:]}", cases=bwd, ms=min(ms) if bf else ms,
+                        plain_ms=plain_ms, library_ms=lib_ms,
+                        library="the cuBLAS chain of the dgrad's products", bound_ms=b_ms,
+                        bound_by=b_by, **turns))
         for r in out[-2:]:
+            first = (f", the first version in turns {[round(v, 3) for v in r['first_version_ms']]}"
+                     f" against {[round(v, 3) for v in r['ms_turns']]}" if bf else "")
             print(f"kernel {r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, cuBLAS chain "
-                  f"{r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}) "
+                  f"{r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}{first}) "
                   f"{len(r['cases'])} cases, all within tolerance")
         del st, gs, wd, args, x, z, g
         torch.cuda.empty_cache()
@@ -4969,11 +5093,15 @@ def run_wide_slice():
     c2w = orbit_cam2world(1, 1.3)[:1]
 
     def wide_only(case, counts, cd):
+        # bf16 on the TMA cluster kernels, float32 on the first version
         fwd = counts.get(K2.NAME, 0) + counts.get(K2.NAME_STASH, 0)
         other = {k: counts.get(k, 0) for k in (K2.NAME_WGMMA, K2.NAME_F32, K2.NAME_DGRAD_F32)}
-        if not fwd or counts.get(K2.NAME_WIDE[cd], 0) != fwd or any(other.values()):
-            raise AssertionError(f"wide {case}: K2 forwards {fwd}, on the wide kernel "
-                                 f"{counts.get(K2.NAME_WIDE[cd], 0)}, elsewhere {other}")
+        tma = counts.get(K2.NAME_WIDE_TMA, 0)
+        if not fwd or counts.get(K2.NAME_WIDE[cd], 0) != fwd or any(other.values()) or \
+                tma != (fwd if cd == torch.bfloat16 else 0):
+            raise AssertionError(f"wide {case}: K2 forwards {fwd}, on the wide kernels "
+                                 f"{counts.get(K2.NAME_WIDE[cd], 0)} (TMA cluster {tma}), "
+                                 f"elsewhere {other}")
 
     for cd in (torch.bfloat16, torch.float32):
         kind = str(cd)[6:]
@@ -5018,8 +5146,10 @@ def run_wide_slice():
             counts = launches[case] = dict(_build.launches)
             wide_only(case, counts, cd)
             name = K2.NAME_DGRAD if bwd == "stash" else K2.NAME_RECOMPUTE
+            tma = counts.get(K2.NAME_DGRAD_WIDE_TMA, 0)
             if not counts.get(K2.NAME_DGRAD_WIDE[cd]) or \
                     counts.get(K2.NAME_DGRAD_WIDE[cd]) != counts.get(name, 0) or \
+                    tma != (counts.get(name, 0) if cd == torch.bfloat16 else 0) or \
                     not counts.get(K2.NAME_WGRAD):
                 raise AssertionError(f"wide {case}: dgrads {counts}")
             if not np.isfinite(loss) or skipped:
@@ -5039,8 +5169,10 @@ def run_wide_slice():
     return res, launches
 
 
-# the wide rows of the kernels line: the four kernels' names
-WIDE_NAMES = (*K2.NAME_WIDE.values(), *K2.NAME_DGRAD_WIDE.values())
+# the wide rows of the kernels line: the four kernels' names (bf16 the TMA
+# cluster kernels, float32 the first version)
+WIDE_NAMES = (K2.NAME_WIDE_TMA, K2.NAME_DGRAD_WIDE_TMA, K2.NAME_WIDE[torch.float32],
+              K2.NAME_DGRAD_WIDE[torch.float32])
 
 
 def run_wide():
@@ -5112,6 +5244,9 @@ def main() -> int:
                                                     for r in kernels],
                           "launches": launches, "card": smi}))
         print(smi)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
         return 0
     if "--options" in sys.argv[1:] or "--quality" in sys.argv[1:]:
         out = {"card": smi}
@@ -5203,6 +5338,7 @@ def main() -> int:
     print_quality(q_res, q_launches, smi)
     wide_kernels, wide_res, wide_launches = run_wide()
     kernels += wide_kernels
+    fill_k2_chains(kernels)
     results = {"serve": serve, "train": train, "float32": float32, "fit": fit_res,
                "cli": dict(cli_res, launches=cli_launches),
                "parallel": dict(par_res, launches=par_launches),

@@ -17,9 +17,12 @@ lanes (``pad_latent``).  Here, on the CPU:
   (float32 on both sides, sums in another order).
 * The routes: every shipped shape keeps its kernel; everything JAX fuses up
   to d_hidden 1,024 and a latent of 1,152 has a kernel that fits, in both
-  dtypes, forward and backward; past the wide kernels' shared memory the
-  wrapper raises, naming the bound.
-* The wide kernels' shared-memory budget, its constants read from the
+  dtypes, forward and backward; bf16 d_hidden 256..1,024 takes the TMA
+  cluster kernels where their shared memory fits (``wide_tma_fits``), every
+  other wide shape the first version, and no bf16 shape the first version
+  took is refused; past the wide kernels' shared memory the wrapper raises,
+  naming the bound.
+* The wide kernels' shared-memory budgets, their constants read from the
   source, and the latent padding: the padded operands give the unpadded
   function (its forward bit for bit where the injections' sums are exact).
 """
@@ -151,18 +154,24 @@ def test_shipped_shapes_keep_their_kernels(cd, want_fwd, want_bwd):
 
 
 def test_wide_routes():
-    # d_hidden past 512: the wide forward and dgrad in both dtypes
-    for cd in (BF16, F32):
+    # d_hidden past 512: the wide forward and dgrad in both dtypes, bf16 on
+    # the TMA cluster kernels up to 1,024, float32 on the first version
+    for cd, want in ((BF16, "wide_tma"), (F32, "wide")):
         for dh in (576, 640, 1024):
-            assert K2.forward_route(cd, 512, 64, dh) == "wide"
-            assert K2.backward_route(cd, dh, 512, 64) == "wide"
+            assert K2.forward_route(cd, 512, 64, dh) == want
+            assert K2.backward_route(cd, dh, 512, 64) == want
     # bf16 at 512 past the tail's latent or input lanes: the forward keeps
-    # its kernel, the dgrad is the wide one; float32 keeps both
+    # its kernel, the dgrad is the TMA cluster one; float32 keeps both
     assert K2.forward_route(BF16, 640, 64, 512) == "mma_sync"
-    assert K2.backward_route(BF16, 512, 640, 64) == "wide"
-    assert K2.backward_route(BF16, 512, 512, 192) == "wide"
+    assert K2.backward_route(BF16, 512, 640, 64) == "wide_tma"
+    assert K2.backward_route(BF16, 512, 512, 192) == "wide_tma"
     assert K2.forward_route(BF16, 512, 192, 512) == "wgmma"
     assert K2.backward_route(F32, 512, 1152, 576) == "fma"
+    # bf16 past the TMA cluster kernels' two trunk groups a warp, or below
+    # the dgrad tail's chunk: the first version
+    assert K2.forward_route(BF16, 1152, 64, 1152) == "wide"
+    assert K2.backward_route(BF16, 1152, 1152, 64) == "wide"
+    assert K2.backward_route(BF16, 128, 640, 64) == "wide"
 
 
 @pytest.mark.parametrize("cd", [BF16, F32])
@@ -177,8 +186,9 @@ def test_everything_jax_fuses_has_a_kernel(cd):
                 assert jax_supports(n_blocks=5, n_lin_z=3, d_hidden=dh, d_latent=dl,
                                     d_in=d_enc, bn=False, beta=0.0)
                 dlp, k_in = K2.d_enc_padded(dl), K2.d_enc_padded(d_enc)
-                assert K2.forward_route(cd, dlp, k_in, dh) in ("wgmma", "mma_sync", "fma", "wide")
-                assert K2.backward_route(cd, dh, dlp, k_in) in ("wgmma", "fma", "wide")
+                assert K2.forward_route(cd, dlp, k_in, dh) in ("wgmma", "mma_sync", "fma", "wide",
+                                                               "wide_tma")
+                assert K2.backward_route(cd, dh, dlp, k_in) in ("wgmma", "fma", "wide", "wide_tma")
                 K2.check_wide_bound(cd, dh, dlp, k_in, backward=True)
 
 
@@ -210,10 +220,42 @@ def _tile(type_name):
     return tuple(int(v) for v in m.groups())
 
 
-@pytest.mark.parametrize("type_name,cd", [("bf16", BF16), ("float", F32)])
+def _wt():
+    """The TMA cluster kernels' WT_* constants, evaluated in source order."""
+    env = {"GOUT_W": K2.GOUT_W}
+    for name, expr in re.findall(r"^constexpr (?:int|uint32_t) (WT_\w+) = ([^;]+);", _source(),
+                                 re.M):
+        if "," not in expr:  # WT_DH_MIN and WT_DH_MAX share a line: read below
+            env[name] = eval(expr, {}, dict(env))  # noqa: S307 - the repo's own constants
+    m = re.search(r"constexpr int WT_DH_MIN = (\d+), WT_DH_MAX = (\d+);", _source())
+    env["WT_DH_MIN"], env["WT_DH_MAX"] = int(m.group(1)), int(m.group(2))
+    return env
+
+
+@pytest.mark.parametrize("type_name,cd", [("bf16", BF16), ("float", F32), ("tma", BF16)])
 def test_wide_tile_matches_the_source(type_name, cd):
     """The tile the wrapper sizes its view-sum scratch by is the kernel's,
-    and a warp's 64-column group of TM points is NACC accumulators a lane."""
+    and a warp's 64-column group of TM points is NACC accumulators a lane.
+    The TMA cluster kernels: 32 points a CTA, the grid whole clusters (the
+    view-sum scratch and the dgrad's pool by a cluster's points), a stage a
+    pass of 8 consumer warps' 64 columns of 32 k (4 TMA boxes of 128 rows,
+    shared equally by the cluster's CTAs), a producer warp beside eight consumer
+    warps, and a warp's trunk two 64-column groups at most (d_hidden up to
+    1,024)."""
+    if type_name == "tma":
+        wt = _wt()
+        assert (wt["WT_TM"], wt["WT_CLUSTER"], wt["WT_STAGES"]) == (
+            K2.WIDE_TMA_TM, K2.WIDE_TMA_CLUSTER, K2.WIDE_TMA_STAGES)
+        assert (wt["WT_PASS"], wt["WT_KS"], wt["WT_STAGE"]) == (
+            K2.WIDE_TMA_PASS, K2.WIDE_TMA_KS, K2.WIDE_TMA_STAGE)
+        assert K2.dgrad_tile(cd, "wide_tma") == wt["WT_TM"] * wt["WT_CLUSTER"]
+        assert wt["WT_PASS"] == (wt["WT_CONSUMERS"] // 32) * 64
+        pieces = wt["WT_PASS"] // wt["WT_PIECE"]
+        assert wt["WT_STAGE"] == pieces * wt["WT_PIECE_BYTES"] and pieces % wt["WT_CLUSTER"] == 0
+        assert 2 <= wt["WT_CLUSTER"] <= 4 and wt["WT_THREADS"] == wt["WT_CONSUMERS"] + 32
+        assert (wt["WT_DH_MIN"], wt["WT_DH_MAX"]) == K2.WIDE_TMA_DH
+        assert wt["WT_DH_MAX"] == 2 * wt["WT_PASS"]
+        return
     tm, warps, nacc = _tile(type_name)
     assert K2.WIDE_TM[cd] == tm == K2.dgrad_tile(cd, "wide")
     assert nacc * 32 == tm * 64
@@ -241,9 +283,70 @@ def test_wide_smem_matches_the_source():
             assert K2.wide_smem(cd, dh, dl, k_in) == fwd
             bwd = tm * (dh + 4) * 4 + tm * K2.wide_lda(cd, dh) * item + tm * K2.GOUT_W * 4
             assert K2.wide_smem(cd, dh, dl, k_in, backward=True) == bwd
-    # the issue's shapes on the card, in bytes
+    # the phase-11 shapes on the card, in bytes
     assert K2.wide_smem(BF16, 1024, 1152, 576) == 207_360
     assert K2.wide_smem(F32, 1024, 1152, 576) == 139_776
+
+
+def test_wide_tma_smem_matches_the_source():
+    """``wide_tma_smem`` mirrors ``wt_smem`` (the ring, the A region of two
+    d_hidden tiles, the forward's as wide as its widest operand, the output
+    cotangent tile, the barriers) with the source's constants; the dgrad
+    tail's d-encoding chunk (``wt_cw``) fits the second tile as float32 rows
+    ``cw + 4`` apart; stages and A boxes are 1,024-byte aligned."""
+    wt, src = _wt(), _source()
+    body = re.search(r"inline size_t wt_smem\(int dh, int dl, int k_in, bool bwd\) \{\s*"
+                     r"return ([^;]+);", src).group(1)
+    ka = re.search(r"inline int wt_ka\(int dh, int dl, int k_in, bool bwd\) \{(.+?)\n\}",
+                   src, re.S).group(1)
+    assert "2 * dh" in ka and "!bwd && dl > k" in ka and "!bwd && k_in > k" in ka
+    cw = re.search(r"inline int wt_cw\(int dh\) \{ return ([^;]+); \}", src).group(1)
+    for dh in range(wt["WT_DH_MIN"], wt["WT_DH_MAX"] + 1, 64):
+        for dl, k_in in ((64, 64), (1152, 576), (640, 64), (2048, 1216)):
+            for bwd in (False, True):
+                k = 2 * dh if bwd else max(2 * dh, dl, k_in)
+                env = dict(wt, dh=dh, dl=dl, k_in=k_in, bwd=bwd,
+                           wt_ka=lambda *_: k)
+                expr = " ".join(body.replace("(size_t)", "").split()).replace(
+                    "wt_ka(dh, dl, k_in, bwd)", "wt_ka()")
+                assert eval(expr, {}, env) == K2.wide_tma_smem(dh, dl, k_in, bwd)  # noqa: S307
+        c = eval(cw.replace("/", "//"), {}, {"dh": dh})  # noqa: S307
+        assert c >= 64 and c % 64 == 0 and (c + 4) * 4 <= dh * 2
+    assert wt["WT_STAGE"] % 1024 == 0 and wt["WT_BOX"] % 1024 == 0
+    # phase 11's decoder fits: d_hidden 1,024, a latent of 1,152, 576 lanes
+    assert K2.wide_tma_smem(1024, 1152, 576) == 230_472 <= K2.SMEM_MAX
+    assert K2.wide_tma_smem(1024, 1152, 576, backward=True) == 230_472
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_wide_tma_route_rule(backward):
+    """The rule between the wide kernels is one function of the shape, and
+    the envelope does not narrow: every bf16 shape the first version took
+    (d_hidden 576..1,152, and for the dgrad 512 with a latent past 512 or
+    more than 128 lanes; latents and inputs to 2,048 lanes) still has a
+    kernel, the TMA cluster one exactly where ``wide_tma_fits``, and the
+    wrapper raises for none of them."""
+    route = (lambda dh, dl, k_in: K2.backward_route(BF16, dh, dl, k_in)) if backward else \
+        (lambda dh, dl, k_in: K2.forward_route(BF16, dl, k_in, dh))
+    dhs = range(512 if backward else 576, 1153, 64)
+    for dh in dhs:
+        for dl in range(64, 2049, 64):
+            for k_in in (64, 128, 192, 576, 1216, 2048):
+                r = route(dh, dl, k_in)
+                if dh == 512 and dl <= 512 and k_in <= 128:
+                    assert r == "wgmma"
+                    continue
+                assert r == ("wide_tma" if K2.wide_tma_fits(BF16, dh, dl, k_in, backward)
+                             else "wide")
+                # the first version took the call (its forward past d_hidden
+                # 512 and, under autograd, its dgrad fit): it still runs,
+                # nothing raises
+                first = (dh <= 512 or K2.wide_smem(BF16, dh, dl, k_in) <= K2.SMEM_MAX) and (
+                    not backward or K2.wide_smem(BF16, dh, dl, k_in, True) <= K2.SMEM_MAX)
+                if first:
+                    K2.check_wide_bound(BF16, dh, dl, k_in, backward=backward)
+                if r == "wide_tma":
+                    assert dh <= 1024 and K2.wide_tma_smem(dh, dl, k_in, backward) <= K2.SMEM_MAX
 
 
 # ---------------------------------------------------------------------------
