@@ -172,6 +172,15 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
 }
+// The same copy into the same shared offset of every CTA of the cluster in
+// `mask`, completing on each one's barrier at the offset of `bar`.
+__device__ __forceinline__ void bulk_load_multicast(void* dst, const void* src, uint32_t bytes,
+                                                    uint64_t* bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
+      " [%0], [%1], %2, [%3], %4;\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)), "h"(mask) : "memory");
+}
 // bytes (a multiple of 16, 16-byte aligned) of global memory into L2 by
 // one bulk prefetch, waited on by nothing.
 __device__ __forceinline__ void bulk_prefetch_l2(const void* src, uint32_t bytes) {

@@ -1,7 +1,9 @@
 // K2's wide kernels: the forward and the dgrad for decoder shapes past the
 // register-resident kernels' envelopes.  bf16 with d_hidden 256 to 1,024
 // takes the TMA cluster kernels (resnetfc_wide_tma_fwd_kernel,
-// resnetfc_wide_tma_dgrad_kernel; design below); every other wide shape the
+// resnetfc_wide_tma_dgrad_kernel), float32 with d_hidden 576 to 1,024 the
+// float32 cluster kernels (resnetfc_wide_f32_fwd_kernel,
+// resnetfc_wide_f32_dgrad_kernel; designs below); every other wide shape the
 // first version, each kernel templated on the operand type T (bf16 on
 // mma.sync.m16n8k16; float32 on FMA, no TF32).
 //
@@ -115,6 +117,68 @@
 // (2.33 ms at the band in bf16); chip_smoke.py phase 11 times both kernels
 // beside the first version, and PERF.md records the readings with the card's
 // name and power limit.
+//
+// The float32 cluster kernels (a redesign of the first version's float32
+// instantiations for Hopper).  wide_turns.py --probe-f32 on the first
+// version at the band chunk found both bound by their weight stream: each
+// 16-point tile reads all 56.4 MB of float32 weights from L2 (289 GB a
+// forward; the weights exceed the 50 MB L2, though the same stream over 40
+// MB ran no faster), a tile's warps waited on those loads for 58% (forward)
+// and 51% (dgrad) of their cycles, and the bare stream once a 16-point tile
+// takes 39.4 ms by __ldg, 51.6-55.4 by bulk copies, 20.3-22.2 multicast
+// over 2- or 4-CTA clusters: under the 34.4 ms FMA bound only with the
+// multicast.  So:
+//   - a CTA of WF_TM = 16 points keeps the float32 trunk (gh in the dgrad)
+//     and one operand tile in shared memory (16 x (d_hidden + 4) floats
+//     each, 65.8 KB at 1,024), and the rest of shared memory is a ring of
+//     full-width weight slabs: WF_KS = 8 k rows of the product's (up to)
+//     d_hidden output columns, 3 stages at 1,024, more at narrower widths;
+//   - one producer thread walks the tile's products in the consumers' order
+//     (wf_fwd_prod / wf_dgrad_prod) and fills each stage by bulk copies
+//     multicast to the 2-CTA cluster (a slab of whole rows in one 16 KB
+//     piece a CTA; a window's rows one a copy); each consumer warp releases
+//     a stage with one CTA-scope arrival on every CTA's barrier, so the
+//     producer refills the slot as soon as the cluster has read it (a trial
+//     that relayed the releases through the producer, as the bf16 kernels
+//     do, fed the ring more slowly);
+//   - the forward's latent rows (1,152 lanes) are read into the operand
+//     tile in chunks of d_hidden lanes, eight 16-byte loads a thread in
+//     flight, as the dgrad's dz reads back its G_j (a first version copied
+//     each tile's latent rows into every stage beside the weight slab: 16
+//     small bulk copies a stage throttled the feed and the forward ran
+//     slower);
+//   - four consumer warps, a thread 16 points x 8 columns of a product
+//     (1,024 columns): per 4 k eight 16-byte weight loads from the stage (a
+//     warp's 32 column threads read 512 contiguous bytes of a row) and
+//     sixteen 16-byte point-row loads of the operand tile (the same for
+//     every lane) for 512 FMAs, up to 255 registers a thread (a trial at 8
+//     points x 8 columns on eight warps, capped at 168 registers by the
+//     producer warp, ran slower);
+//   - relu(h) is copied into the operand tile once a block and fc_0's
+//     output is written there when every warp has read it; in the dgrad
+//     c1 = gh is read from the trunk and the masked c0 goes to the operand
+//     tile; lin_in's and the latent's dgrad products (past d_hidden columns)
+//     run in windows of d_hidden columns, the last at fewer points a thread
+//     (wf_pt), dz summing the injections' products window by window with
+//     each G_j read back into the operand tile.
+// What holds them (wide_turns.py --probe-f32's stamps of these kernels, a
+// consumer warp's cycles): the FMA loop 72% (forward) and 60% (dgrad),
+// below the FMA pipe's rate, waiting for a stage 11% / 14%, and in the
+// dgrad its tail and lin_out's backward.  The loop comes back to the
+// 16-point tile, the most points whose float32 trunk and operand tile fit
+// beside a ring: its operand rows are loads every lane of a warp makes
+// alike, and the stage copies' writes share the shared memory's bandwidth
+// with the loads (trials that halved either load or gave the ring a fourth
+// stage, the trunk moved to device memory, gained little or lost).  Both beat the first version at every width they take,
+// d_hidden 576 to 1,024 (wide_turns.py --sweep), so ops/kernels/resnetfc.py
+// wide_f32_fits routes every such float32 shape to them.
+// Numerics are the first version's bit for bit: one FMA chain per output in
+// k order, the same rounding points and additions into the trunk (h = (h +
+// acc) + b; gh += acc where the mask is on), the windows of the first
+// version's chunks, dz over the injections in order, one writer per output,
+// no atomics (chip_smoke.py phase 11 holds them to the first version's bits).
+// Bound: operations (28.2 MFLOP a point at d_hidden 1,024, a latent of
+// 1,152: 34.4 ms at the band at 67 TFLOP/s).
 
 #include "hopper.cuh"
 #include "resnetfc.cuh"
@@ -1475,6 +1539,743 @@ bool wt_shape_ok(int N, int ns, int k_in, int d_latent, int d_hidden, int d_out,
          wt_smem(d_hidden, d_latent, k_in, bwd) <= (size_t)SMEM_MAX;
 }
 
+// ---------------------------------------------------------------------------
+// float32 on Hopper: full-width weight slabs by bulk copies, multicast over a
+// cluster; 16 x 8 register-tiled FMA from shared memory
+// ---------------------------------------------------------------------------
+
+constexpr int WF_TM = 16;          // points a CTA
+constexpr int WF_KS = 8;           // weight rows (k) of a stage
+constexpr int WF_CLUSTER = 2;      // CTAs a cluster: a stage crosses L2 once a cluster
+constexpr int WF_STAGES_MIN = 3, WF_STAGES_MAX = 8;
+constexpr int WF_CONSUMERS = 128;  // four consumer warps: 16 points x 8 columns a thread
+constexpr int WF_THREADS = 160;    // and a producer warp (one thread)
+constexpr int WF_DH_MAX = 1024;    // a product's 1,024 columns: 8 a consumer thread
+constexpr int WF_BAR = 1;          // the consumers' named barrier
+
+// Shared memory: the ring (a stage: WF_KS weight rows of at most d_hidden
+// columns), the trunk Hs (WF_TM
+// rows of d_hidden + 4 floats), the operand tile As (WF_TM rows of wf_lda),
+// g_epi (WF_TM x GOUT_W) and the ring's two barriers a stage.
+__host__ __device__ inline int wf_lda(int dh, int k_in) { return (dh > k_in ? dh : k_in) + 4; }
+__host__ __device__ inline int wf_stage_floats(int dh) { return WF_KS * dh; }
+__host__ __device__ inline size_t wf_fixed(int dh, int k_in) {
+  return 4 * ((size_t)WF_TM * (dh + 4) + (size_t)WF_TM * wf_lda(dh, k_in) + WF_TM * GOUT_W) +
+         2 * WF_STAGES_MAX * 8;
+}
+// stages of the ring: as many as fit, at most WF_STAGES_MAX
+__host__ __device__ inline int wf_stages(int dh, int k_in) {
+  const long long room = (long long)SMEM_MAX - (long long)wf_fixed(dh, k_in);
+  const long long s = room / (4ll * wf_stage_floats(dh));
+  return s > WF_STAGES_MAX ? WF_STAGES_MAX : (s < 0 ? 0 : (int)s);
+}
+__host__ __device__ inline size_t wf_smem(int dh, int k_in) {
+  return (size_t)wf_stages(dh, k_in) * 4 * wf_stage_floats(dh) + wf_fixed(dh, k_in);
+}
+// points a thread in a product `cw` columns wide: the fewest (1, 2, 4, 8,
+// 16) whose 16 / PT point sets of 8 PT threads x 8 columns cover it
+__host__ __device__ inline int wf_pt(int cw) {
+  int pt = 1;
+  while (pt < 16 && 64 * pt < cw) pt *= 2;
+  return pt;
+}
+
+// A product's weights in the walk: K rows (ldw apart) of matrix w, its
+// columns [cb, cb + cw).
+struct WfProd {
+  const float* w;
+  int ldw, K, cb, cw;
+};
+
+struct WfRing {
+  float* ring;        // stage s at ring + s * stage
+  int stage, stages;  // floats a stage, stages
+  float* Hs;
+  float* As;
+  float* gs;
+  uint64_t* full;     // this CTA's producer armed it and every row landed
+  uint64_t* empty;    // every consumer warp of the cluster released it
+};
+
+__device__ __forceinline__ WfRing wf_ring(unsigned char* smem, int dh, int k_in, int stages) {
+  WfRing r;
+  r.ring = reinterpret_cast<float*>(smem);
+  r.stage = wf_stage_floats(dh);
+  r.stages = stages;
+  r.Hs = r.ring + (size_t)stages * r.stage;
+  r.As = r.Hs + WF_TM * (dh + 4);
+  r.gs = r.As + WF_TM * wf_lda(dh, k_in);
+  r.full = reinterpret_cast<uint64_t*>(r.gs + WF_TM * GOUT_W);
+  r.empty = r.full + WF_STAGES_MAX;
+  return r;
+}
+
+// The barriers' start; the cluster meets before any remote arrival or
+// multicast.
+__device__ __forceinline__ void wf_start(const WfRing& r) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < r.stages; ++s) {
+      mbar_init(&r.full[s], 1);
+      mbar_init(&r.empty[s], WF_CONSUMERS / 32 * WF_CLUSTER);
+    }
+    mbar_fence_init();
+  }
+  cluster_sync();
+}
+
+// The producer (one thread): every slab of the walk's `prods` products
+// (sched(p), in the consumers' order), slab j into slot j % stages once
+// every consumer warp of the cluster released the slot; its weight rows
+// multicast to the cluster (a slab of whole rows, contiguous, in one piece
+// a CTA; a window's rows one a copy, row q from the CTA of rank q %
+// WF_CLUSTER).
+template <class Sched>
+__device__ __forceinline__ void wf_produce(const WfRing& r, const Sched& sched, int prods) {
+  const uint32_t rank = cluster_rank();
+  const uint16_t mask = (uint16_t)((1 << WF_CLUSTER) - 1);
+  uint32_t j = 0;
+  for (int p = 0; p < prods; ++p) {
+    const WfProd d = sched(p);
+    for (int k0 = 0; k0 < d.K; k0 += WF_KS, ++j) {
+      const int s = (int)(j % (uint32_t)r.stages);
+      if (j >= (uint32_t)r.stages) mbar_wait(&r.empty[s], (j / r.stages - 1) & 1);
+      mbar_expect_tx(&r.full[s], (uint32_t)(WF_KS * d.cw * 4));
+      float* st = r.ring + (size_t)s * r.stage;
+      if (d.cw == d.ldw) {  // whole rows: the slab is contiguous, a piece a CTA
+        constexpr int RQ = WF_KS / WF_CLUSTER;
+        bulk_load_multicast(st + rank * RQ * d.cw, d.w + (size_t)(k0 + rank * RQ) * d.ldw,
+                            (uint32_t)(RQ * d.cw * 4), &r.full[s], mask);
+      } else {
+        for (int q = (int)rank; q < WF_KS; q += WF_CLUSTER)
+          bulk_load_multicast(st + q * d.cw, d.w + (size_t)(k0 + q) * d.ldw + d.cb,
+                              (uint32_t)(d.cw * 4), &r.full[s], mask);
+      }
+    }
+  }
+}
+
+// A consumer thread's outputs in a product cw columns wide, PT points a
+// thread: T = 8 PT threads a point set, tp = thread / T its set (points tp
+// + (16 / PT) i, i < PT), tc = thread % T its 8 columns c0 .. c0 + 3 and c1
+// .. c1 + 3 (c0 = 4 tc, c1 = cw / 2 + 4 tc); `on` where they lie inside
+// the product.  At PT 16 (every product d_hidden wide) a warp's B loads read
+// 32 contiguous 16-byte groups of a weight row and its A loads one point
+// row, the same for every lane.
+struct WfMap {
+  int tp, c0, c1;
+  bool on;
+};
+template <int PT>
+__device__ __forceinline__ WfMap wf_map(int cw) {
+  constexpr int T = 8 * PT;
+  const int tc = threadIdx.x % T;
+  return WfMap{(int)threadIdx.x / T, 4 * tc, cw / 2 + 4 * tc, tc < cw / 8};
+}
+
+// acc += A (the thread's PT points x WF_KS k, rows lda floats apart) W (WF_KS
+// x its 8 columns, rows cw floats apart): per 4 k, eight 16-byte weight
+// loads and PT 16-byte point-row loads (8 points at a time) for 32 PT FMAs.
+// Each output one FMA chain in k order.
+template <int PT>
+__device__ __forceinline__ void wf_fma(const float* A, int lda, const float* W, int cw,
+                                       const WfMap& m, float (&acc)[PT][8]) {
+  constexpr int S = 16 / PT, H = PT > 8 ? 8 : PT;
+#pragma unroll
+  for (int k4 = 0; k4 < WF_KS; k4 += 4) {
+    float4 b[8];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      b[2 * kk] = *reinterpret_cast<const float4*>(W + (k4 + kk) * cw + m.c0);
+      b[2 * kk + 1] = *reinterpret_cast<const float4*>(W + (k4 + kk) * cw + m.c1);
+    }
+#pragma unroll
+    for (int h0 = 0; h0 < PT; h0 += H) {
+      float4 a[H];
+#pragma unroll
+      for (int i = 0; i < H; ++i)
+        a[i] = *reinterpret_cast<const float4*>(A + (m.tp + S * (h0 + i)) * lda + k4);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 b0 = b[2 * kk], b1 = b[2 * kk + 1];
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < H; ++i) {
+          const float av = kk == 0 ? a[i].x : kk == 1 ? a[i].y : kk == 2 ? a[i].z : a[i].w;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[h0 + i][j] = fmaf(av, bv[j], acc[h0 + i][j]);
+        }
+      }
+    }
+  }
+}
+
+template <int PT>
+__device__ __forceinline__ void wf_zero(float (&acc)[PT][8]) {
+#pragma unroll
+  for (int i = 0; i < PT; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+}
+
+// The consumers' product: acc += A B over the next K / WF_KS slabs of the
+// ring, A the shared tile A (its columns from 0).  Every warp waits on
+// every slab and releases it to every CTA of the cluster (one CTA-scope
+// arrival each).
+template <int PT>
+__device__ __forceinline__ void wf_run(const WfRing& r, uint32_t& it, int K, int cw,
+                                       const float* A, int lda, const WfMap& m,
+                                       float (&acc)[PT][8]) {
+  for (int k0 = 0; k0 < K; k0 += WF_KS, ++it) {
+    const int s = (int)(it % (uint32_t)r.stages);
+    mbar_wait(&r.full[s], (it / r.stages) & 1);
+    const float* st = r.ring + (size_t)s * r.stage;
+    if (m.on) wf_fma<PT>(A + k0, lda, st, cw, m, acc);
+    __syncwarp();
+    if ((threadIdx.x & 31) < WF_CLUSTER) mbar_arrive_cluster(&r.empty[s], threadIdx.x & 31);
+  }
+}
+
+// float4 of row `row`, column col of a float tile / bias
+__device__ __forceinline__ float4& f4(float* p, int row, int ld, int col) {
+  return *reinterpret_cast<float4*>(p + row * ld + col);
+}
+__device__ __forceinline__ float4 relu4(float4 v) {
+  return make_float4(relu(v.x), relu(v.y), relu(v.z), relu(v.w));
+}
+// a thread's outputs (PT 16 in a dh-wide product): f(row, column, acc of
+// its 4 columns (acc + q .. q + 3 of point i)) for each point i and each
+// half q
+#define WF_OWN(body)                                                        \
+  {                                                                        \
+    _Pragma("unroll") for (int i = 0; i < 16; ++i)                         \
+    _Pragma("unroll") for (int q = 0; q < 8; q += 4) {                     \
+      const int row = i, col = q ? m.c1 : m.c0;                            \
+      const float* ac = acc[i] + q;                                        \
+      body                                                                 \
+    }                                                                      \
+  }
+
+// device rows [0, nv) of src (row stride lds), w columns -> the tile dst
+// (row stride ld), rows past nv zero; eight 16-byte loads a thread in
+// flight.  By the consumers.
+__device__ __forceinline__ void wf_rows_in(const float* src, size_t lds, float* dst, int ld,
+                                           int nv, int w, int nc) {
+  const int nvec = w / 4, total = WF_TM * nvec;
+  for (int base = threadIdx.x; base < total; base += 8 * nc) {
+    float4 v[8];
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+      const int idx = base + b * nc, rr = idx / nvec, c = 4 * (idx - rr * nvec);
+      v[b] = idx < total && rr < nv ? *reinterpret_cast<const float4*>(src + rr * lds + c)
+                                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+      const int idx = base + b * nc, rr = idx / nvec, c = 4 * (idx - rr * nvec);
+      if (idx < total) *reinterpret_cast<float4*>(dst + rr * ld + c) = v[b];
+    }
+  }
+}
+
+// tile rows [0, WF_TM) of src (row stride lds, w columns) -> device rows
+// r0.. of dst (row stride w) below nv, relu'd when RELU; into the tile
+// dst2 (row stride ld2) too where given, all rows.  By the consumers.
+template <bool RELU>
+__device__ __forceinline__ void wf_rows(const float* src, int lds, float* dst, int r0, int nv,
+                                        int w, float* dst2, int ld2, int nc) {
+  const int nvec = w / 4;
+  for (int idx = threadIdx.x; idx < WF_TM * nvec; idx += nc) {
+    const int rr = idx / nvec, c = 4 * (idx - rr * nvec);
+    float4 v = *reinterpret_cast<const float4*>(src + rr * lds + c);
+    if (RELU) v = relu4(v);
+    if (dst2) *reinterpret_cast<float4*>(dst2 + rr * ld2 + c) = v;
+    if (dst && rr < nv) *reinterpret_cast<float4*>(dst + (size_t)(r0 + rr) * w + c) = v;
+  }
+}
+
+// The walks, in the order the consumers take the products.  Forward: per
+// view lin_in, then per injection k its latent product and block k's fc_0
+// and fc_1; then the pooled blocks' fc_0 and fc_1; every product dh wide.
+__device__ __forceinline__ int wf_fwd_prods(const FcArgs& a) {
+  return a.ns * (1 + 3 * a.n_lin_z) + 2 * (a.n_blocks - a.n_lin_z);
+}
+__device__ __forceinline__ WfProd wf_fwd_prod(const FcArgs& a, int p) {
+  const int dh = a.d_hidden, dl = a.d_latent, per_view = 1 + 3 * a.n_lin_z;
+  WfProd d{nullptr, dh, dh, 0, dh};
+  const float* w0 = static_cast<const float*>(a.w0);
+  const float* w1 = static_cast<const float*>(a.w1);
+  if (p < a.ns * per_view) {
+    const int v = p / per_view, q = p - v * per_view;
+    if (q == 0) {
+      d.w = static_cast<const float*>(a.wi);
+      d.K = a.k_in;
+    } else {
+      const int k = (q - 1) / 3, s = (q - 1) % 3;
+      if (s == 0) {
+        d.w = static_cast<const float*>(a.wz) + (size_t)k * dl * dh;
+        d.K = dl;
+      } else {
+        d.w = (s == 1 ? w0 : w1) + (size_t)k * dh * dh;
+      }
+    }
+  } else {
+    const int t = p - a.ns * per_view;
+    d.w = ((t & 1) ? w1 : w0) + (size_t)(a.n_lin_z + t / 2) * dh * dh;
+  }
+  return d;
+}
+// Dgrad: the pooled blocks from the last down (W1, then W0), then per view
+// its blocks from n_lin_z - 1 down, lin_in's windows of d_hidden columns
+// (Wi's), and dz's windows of d_hidden columns, each over the injections j.
+__device__ __forceinline__ void wf_dgrad_shape(const FcBwdArgs& a, int& post, int& nce, int& nzw,
+                                               int& per_view) {
+  const int dh = a.d_hidden;
+  post = 2 * (a.n_blocks - a.n_lin_z);
+  nce = (a.k_in + dh - 1) / dh;
+  nzw = (a.d_latent + dh - 1) / dh;
+  per_view = 2 * a.n_lin_z + nce + nzw * a.n_lin_z;
+}
+__device__ __forceinline__ int wf_dgrad_prods(const FcBwdArgs& a) {
+  int post, nce, nzw, per_view;
+  wf_dgrad_shape(a, post, nce, nzw, per_view);
+  return post + a.ns * per_view;
+}
+__device__ __forceinline__ WfProd wf_dgrad_prod(const FcBwdArgs& a, int p) {
+  const int dh = a.d_hidden, nlz = a.n_lin_z;
+  int post, nce, nzw, per_view;
+  wf_dgrad_shape(a, post, nce, nzw, per_view);
+  WfProd d{nullptr, dh, dh, 0, dh};
+  const float* w0 = static_cast<const float*>(a.w0);
+  const float* w1 = static_cast<const float*>(a.w1);
+  if (p < post) {
+    d.w = ((p & 1) ? w0 : w1) + (size_t)(a.n_blocks - 1 - p / 2) * dh * dh;
+    return d;
+  }
+  int e = (p - post) % per_view;
+  if (e < 2 * nlz) {
+    d.w = ((e & 1) ? w0 : w1) + (size_t)(nlz - 1 - e / 2) * dh * dh;
+    return d;
+  }
+  e -= 2 * nlz;
+  if (e < nce) {
+    d.w = static_cast<const float*>(a.wi);
+    d.ldw = a.k_in;
+    d.cb = e * dh;
+    d.cw = min(dh, a.k_in - d.cb);
+    return d;
+  }
+  e -= nce;
+  d.w = static_cast<const float*>(a.wz) + (size_t)(e % nlz) * dh * a.d_latent;
+  d.ldw = a.d_latent;
+  d.cb = e / nlz * dh;
+  d.cw = min(dh, a.d_latent - d.cb);
+  return d;
+}
+
+// forward: a.wi, wz, w0, w1 float32 transposed, (k_in, dh), (n_lin_z, dl,
+// dh), (n_blocks, dh, dh) twice; a.pool for NS > 1, WF_TM x dh floats a CTA
+// of the grid.  Four consumer warps and a producer warp.
+__global__ void __launch_bounds__(WF_THREADS, 1)
+resnetfc_wide_f32_fwd_kernel(const __grid_constant__ FcArgs a, int stages) {
+  extern __shared__ __align__(128) unsigned char wf_shared[];
+  const int dh = a.d_hidden, k_in = a.k_in, N = a.N, ns = a.ns, nb = a.n_blocks;
+  const int nlz = a.n_lin_z, ldh = dh + 4, lda = wf_lda(dh, k_in);
+  const WfRing r = wf_ring(wf_shared, dh, k_in, stages);
+  const int tid = threadIdx.x, nc = WF_CONSUMERS;
+  const int r0 = blockIdx.x * WF_TM, nv = max(0, min(WF_TM, N - r0));
+  wf_start(r);
+  if (tid >= nc) {
+    if (tid == nc)
+      wf_produce(r, [&](int p) { return wf_fwd_prod(a, p); }, wf_fwd_prods(a));
+    __syncwarp();
+  } else {
+    float* Hs = r.Hs;
+    float* As = r.As;
+    uint32_t it = 0;  // the slab the consumers take next
+    const WfMap m = wf_map<16>(dh);
+    float acc[16][8];
+    float* stash = static_cast<float*>(a.stash);
+    const size_t slot = (size_t)N * dh;
+    auto st = [&](int k, int j, int v) -> float* {
+      return stash ? stash + stash_slot(k, j, v, ns, nlz) * slot : nullptr;
+    };
+    float* pool = a.pool + (size_t)blockIdx.x * WF_TM * dh;
+    auto product = [&](int K) {
+      wf_zero<16>(acc);
+      wf_run<16>(r, it, K, dh, As, lda, m, acc);
+    };
+    // h = h + relu(relu(h) @ W0 + b0) @ W1 + b1: relu(h) into As (and the
+    // stash), fc_0's output into As once every warp is done reading it
+    auto block = [&](int k, int v) {
+      named_sync(WF_BAR, nc);  // h is complete and every warp is done reading As
+      wf_rows<true>(Hs, ldh, st(k, 0, v), r0, nv, dh, As, lda, nc);
+      named_sync(WF_BAR, nc);
+      product(dh);
+      named_sync(WF_BAR, nc);
+      const float* b0 = a.b0 + (size_t)k * dh;
+      if (m.on) WF_OWN({
+        const float4 b = __ldg(reinterpret_cast<const float4*>(b0 + col));
+        f4(As, row, lda, col) = make_float4(relu(ac[0] + b.x), relu(ac[1] + b.y),
+                                            relu(ac[2] + b.z), relu(ac[3] + b.w));
+      })
+      named_sync(WF_BAR, nc);
+      if (stash) wf_rows<false>(As, lda, st(k, 1, v), r0, nv, dh, nullptr, 0, nc);
+      product(dh);
+      const float* b1 = a.b1 + (size_t)k * dh;
+      if (m.on) WF_OWN({
+        const float4 b = __ldg(reinterpret_cast<const float4*>(b1 + col));
+        float4& h = f4(Hs, row, ldh, col);
+        h = make_float4((h.x + ac[0]) + b.x, (h.y + ac[1]) + b.y, (h.z + ac[2]) + b.z,
+                        (h.w + ac[3]) + b.w);
+      })
+    };
+
+    for (int v = 0; v < ns; ++v) {
+      named_sync(WF_BAR, nc);  // the previous view is done with As
+      for (int idx = tid; idx < WF_TM * k_in; idx += nc) {
+        const int rr = idx / k_in, j = idx - rr * k_in, row = r0 + rr;
+        const int mode = a.tables[j];
+        float val = 0.f;
+        if (row < N && mode != 2) {
+          const float p = a.x[((size_t)v * N + row) * a.d_in + a.tables[k_in + j]];
+          val = mode == 0 ? p : sinf(__fadd_rn(__fmul_rn(p, a.fph[j]), a.fph[k_in + j]));
+        }
+        As[rr * lda + j] = val;
+      }
+      named_sync(WF_BAR, nc);
+      product(k_in);
+      if (m.on) WF_OWN({
+        const float4 b = __ldg(reinterpret_cast<const float4*>(a.bi + col));
+        f4(Hs, row, ldh, col) = make_float4(ac[0] + b.x, ac[1] + b.y, ac[2] + b.z, ac[3] + b.w);
+      })
+      for (int k = 0; k < nlz; ++k) {
+        // the latent product over the tile's latent rows, read into As in
+        // chunks of at most dh lanes
+        wf_zero<16>(acc);
+        const float* zg = static_cast<const float*>(a.z) + ((size_t)v * N + r0) * a.d_latent;
+        for (int kc = 0; kc < a.d_latent; kc += dh) {
+          const int cw = min(dh, a.d_latent - kc);
+          named_sync(WF_BAR, nc);  // every warp is done reading As
+          wf_rows_in(zg + kc, a.d_latent, As, lda, nv, cw, nc);
+          named_sync(WF_BAR, nc);
+          wf_run<16>(r, it, cw, dh, As, lda, m, acc);
+        }
+        const float* bz = a.bz + (size_t)k * dh;
+        if (m.on) WF_OWN({
+          const float4 b = __ldg(reinterpret_cast<const float4*>(bz + col));
+          float4& h = f4(Hs, row, ldh, col);
+          h = make_float4((h.x + ac[0]) + b.x, (h.y + ac[1]) + b.y, (h.z + ac[2]) + b.z,
+                          (h.w + ac[3]) + b.w);
+        })
+        block(k, v);
+      }
+      if (ns > 1 && m.on) WF_OWN({  // each thread its own pool entries
+        float4& p = f4(pool, row, dh, col);
+        const float4 h = f4(Hs, row, ldh, col);
+        p = v == 0 ? h : make_float4(p.x + h.x, p.y + h.y, p.z + h.z, p.w + h.w);
+      })
+    }
+    if (ns > 1 && m.on) {
+      const float inv = 1.f / (float)ns;
+      WF_OWN({
+        const float4 p = f4(pool, row, dh, col);
+        f4(Hs, row, ldh, col) = make_float4(p.x * inv, p.y * inv, p.z * inv, p.w * inv);
+      })
+    }
+    for (int k = nlz; k < nb; ++k) block(k, 0);
+
+    // relu -> lin_out (one thread a (point, output), as the first version)
+    named_sync(WF_BAR, nc);
+    wf_rows<true>(Hs, ldh,
+                  stash ? stash + (size_t)(stash_slots(ns, nb, nlz) - 1) * slot : nullptr, r0,
+                  nv, dh, As, lda, nc);
+    named_sync(WF_BAR, nc);
+    const float* wo = static_cast<const float*>(a.wo);
+    for (int idx = tid; idx < WF_TM * a.d_out; idx += nc) {
+      const int rr = idx / a.d_out, o = idx - rr * a.d_out;
+      if (rr >= nv) continue;
+      const float* arow = As + rr * lda;
+      const float* wrow = wo + (size_t)o * dh;
+      float s = 0.f;
+      for (int k = 0; k < dh; ++k) s = fmaf(arow[k], wrow[k], s);
+      s = s + a.bo[o];
+      if (a.activate) s = o < 3 ? sigmoidf_(s) : fmaxf(s, 0.f);
+      a.out[(size_t)(r0 + rr) * a.d_out + o] = s;
+    }
+  }
+  cluster_sync();  // no CTA leaves while the cluster's copies and arrivals may still reach it
+}
+
+// dgrad: a.wi, wz, w0, w1 float32 as nn.Linear keeps them, (dh, k_in),
+// (n_lin_z, dh, dl), (n_blocks, dh, dh) twice; a.pool for NS > 1, WF_TM x
+// dh floats a CTA of the grid.
+__global__ void __launch_bounds__(WF_THREADS, 1)
+resnetfc_wide_f32_dgrad_kernel(const __grid_constant__ FcBwdArgs a, int stages) {
+  extern __shared__ __align__(128) unsigned char wf_shared[];
+  const int dh = a.d_hidden, dl = a.d_latent, k_in = a.k_in, N = a.N, ns = a.ns;
+  const int nb = a.n_blocks, nlz = a.n_lin_z, ldh = dh + 4, lda = wf_lda(dh, k_in);
+  const WfRing r = wf_ring(wf_shared, dh, k_in, stages);
+  const int tid = threadIdx.x, nc = WF_CONSUMERS;
+  const int r0 = blockIdx.x * WF_TM, nv = max(0, min(WF_TM, N - r0));
+  wf_start(r);
+  if (tid >= nc) {
+    if (tid == nc)
+      wf_produce(r, [&](int p) { return wf_dgrad_prod(a, p); }, wf_dgrad_prods(a));
+    __syncwarp();
+  } else {
+    float* Hs = r.Hs;  // gh; in a view's tail the d-encoding window
+    float* As = r.As;
+    float* gs = r.gs;  // g_epi, WF_TM x GOUT_W
+    uint32_t it = 0;
+    const WfMap m = wf_map<16>(dh);
+    float acc[16][8];
+    const float* stash = static_cast<const float*>(a.stash);
+    float* cot = static_cast<float*>(a.cot);
+    const size_t slot = (size_t)N * dh;
+    const float* aout = stash + (size_t)(stash_slots(ns, nb, nlz) - 1) * slot;
+    const float* wo = static_cast<const float*>(a.wo);
+
+    // lin_out: g_epi = g * act'(out_pre) (0 past d_out), to gout
+    for (int idx = tid; idx < WF_TM * GOUT_W; idx += nc) {
+      const int rr = idx / GOUT_W, o = idx - rr * GOUT_W, row = r0 + rr;
+      float gv = 0.f;
+      if (row < N && o < a.d_out) {
+        gv = a.g[(size_t)row * a.d_out + o];
+        if (a.activate) {
+          const float* arow = aout + (size_t)row * dh;
+          const float* wrow = wo + (size_t)o * dh;
+          float sum = 0.f;
+          for (int k = 0; k < dh; ++k) sum = fmaf(arow[k], wrow[k], sum);
+          const float pre = sum + a.bo[o];
+          if (o < 3) {
+            const float sg = sigmoidf_(pre);
+            gv = gv * sg * (1.f - sg);
+          } else if (!(pre > 0.f)) {
+            gv = 0.f;
+          }
+        }
+      }
+      gs[idx] = gv;
+      if (row < N) static_cast<float*>(a.gout)[(size_t)row * GOUT_W + o] = gv;
+    }
+    named_sync(WF_BAR, nc);
+    // gh = mask(relu(h_final)) * (g_epi @ Wo)
+    for (int idx = tid; idx < WF_TM * dh; idx += nc) {
+      const int rr = idx / dh, c = idx - rr * dh, row = r0 + rr;
+      float v = 0.f;
+      if (row < N) {
+        float sum = 0.f;
+        for (int o = 0; o < a.d_out; ++o) sum = fmaf(gs[rr * GOUT_W + o], wo[(size_t)o * dh + c], sum);
+        v = aout[(size_t)row * dh + c] > 0.f ? sum : 0.f;
+      }
+      Hs[rr * ldh + c] = v;
+    }
+
+    auto product = [&](const float* A, int lda_) {
+      wf_zero<16>(acc);
+      wf_run<16>(r, it, dh, dh, A, lda_, m, acc);
+    };
+    // the mask of stash rows mk (the tile's, row stride dh) at (row, col .. col + 3)
+    auto mask4 = [&](const float* mk, int row, int col) -> float4 {
+      return row < nv ? __ldg(reinterpret_cast<const float4*>(mk + (size_t)row * dh + col))
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+    };
+    // block k of view v, backward: c1 = gh (its cotangent slot); c0 =
+    // mask(relu(fc_0)) * (c1 @ W1) into As (its slot); gh += mask(relu(h)) *
+    // (c0 @ W0)
+    auto block = [&](int k, int v) {
+      const float* m1 = stash + stash_slot(k, 1, v, ns, nlz) * slot + (size_t)r0 * dh;
+      const float* m0 = stash + stash_slot(k, 0, v, ns, nlz) * slot + (size_t)r0 * dh;
+      if (tid == 0 && nv > 0) {  // the block's two masks, read in its products' epilogues
+        bulk_prefetch_l2(m1, (uint32_t)(nv * dh * 4));
+        bulk_prefetch_l2(m0, (uint32_t)(nv * dh * 4));
+      }
+      named_sync(WF_BAR, nc);  // gh is complete and every warp is done reading As
+      wf_rows<false>(Hs, ldh, cot + stash_slot(k, 1, v, ns, nlz) * slot, r0, nv, dh, nullptr, 0,
+                     nc);
+      product(Hs, ldh);
+      if (m.on) WF_OWN({
+        const float4 mk = mask4(m1, row, col);
+        f4(As, row, lda, col) = make_float4(mk.x > 0.f ? ac[0] : 0.f, mk.y > 0.f ? ac[1] : 0.f,
+                                            mk.z > 0.f ? ac[2] : 0.f, mk.w > 0.f ? ac[3] : 0.f);
+      })
+      named_sync(WF_BAR, nc);
+      wf_rows<false>(As, lda, cot + stash_slot(k, 0, v, ns, nlz) * slot, r0, nv, dh, nullptr, 0,
+                     nc);
+      product(As, lda);
+      if (m.on) WF_OWN({
+        const float4 mk = mask4(m0, row, col);
+        float4& h = f4(Hs, row, ldh, col);
+        if (mk.x > 0.f) h.x += ac[0];
+        if (mk.y > 0.f) h.y += ac[1];
+        if (mk.z > 0.f) h.z += ac[2];
+        if (mk.w > 0.f) h.w += ac[3];
+      })
+    };
+
+    // the view's tail: cot_in, dx and enc through lin_in's backward, dz
+    auto tail = [&](int v) {
+      named_sync(WF_BAR, nc);
+      wf_rows<false>(Hs, ldh, cot + cot_in_slot(v, ns, nb, nlz) * slot, r0, nv, dh, As, lda, nc);
+      named_sync(WF_BAR, nc);
+      // d encoding = cot_in @ Wi in windows of at most dh columns into Hs
+      // (gh is no longer needed), each summed onto dx
+      for (int cb = 0; cb < k_in; cb += dh) {
+        const int cw = min(dh, k_in - cb);
+        auto dwin = [&](auto ptc) {
+          constexpr int PT = decltype(ptc)::value;
+          constexpr int S = 16 / PT;
+          const WfMap w = wf_map<PT>(cw);
+          float wacc[PT][8];
+          wf_zero<PT>(wacc);
+          wf_run<PT>(r, it, dh, cw, As, lda, w, wacc);
+          if (w.on) {
+#pragma unroll
+            for (int i = 0; i < PT; ++i) {
+              f4(Hs, w.tp + S * i, ldh, w.c0) =
+                  make_float4(wacc[i][0], wacc[i][1], wacc[i][2], wacc[i][3]);
+              f4(Hs, w.tp + S * i, ldh, w.c1) =
+                  make_float4(wacc[i][4], wacc[i][5], wacc[i][6], wacc[i][7]);
+            }
+          }
+        };
+        switch (wf_pt(cw)) {
+          case 1: dwin(std::integral_constant<int, 1>{}); break;
+          case 2: dwin(std::integral_constant<int, 2>{}); break;
+          case 4: dwin(std::integral_constant<int, 4>{}); break;
+          case 8: dwin(std::integral_constant<int, 8>{}); break;
+          default: dwin(std::integral_constant<int, 16>{}); break;
+        }
+        named_sync(WF_BAR, nc);
+        for (int idx = tid; idx < WF_TM * a.d_in; idx += nc) {
+          const int rr = idx / a.d_in, lane = idx - rr * a.d_in, row = r0 + rr;
+          if (row >= N) continue;
+          const size_t at = ((size_t)v * N + row) * a.d_in + lane;
+          const float p = a.x[at];
+          float sum = cb == 0 ? 0.f : a.dx[at];
+          for (int jj = 0; jj < cw; ++jj) {
+            const int j = cb + jj, mode = a.tables[j];
+            if (mode == 2 || a.tables[k_in + j] != lane) continue;
+            float d = Hs[rr * ldh + jj];
+            if (mode == 1)
+              d = d * (cosf(__fadd_rn(__fmul_rn(p, a.fph[j]), a.fph[k_in + j])) * a.fph[j]);
+            sum += d;
+          }
+          a.dx[at] = sum;
+        }
+        named_sync(WF_BAR, nc);  // the window is read before the next one is written
+      }
+      float* enc = static_cast<float*>(a.enc) + (size_t)v * N * k_in;
+      for (int idx = tid; idx < WF_TM * k_in; idx += nc) {
+        const int rr = idx / k_in, j = idx - rr * k_in, row = r0 + rr;
+        if (row >= N) continue;
+        const int mode = a.tables[j];
+        float val = 0.f;
+        if (mode != 2) {
+          const float p = a.x[((size_t)v * N + row) * a.d_in + a.tables[k_in + j]];
+          val = mode == 0 ? p : sinf(__fadd_rn(__fmul_rn(p, a.fph[j]), a.fph[k_in + j]));
+        }
+        enc[(size_t)row * k_in + j] = val;
+      }
+      // dz = sum over j of G_j @ Wz_j in windows of at most dh columns, one
+      // float32 sum; G_j (cot_in, then block j - 1's c1) the rows this CTA
+      // stored, read back into As
+      float* dz = static_cast<float*>(a.dz) + (size_t)v * N * dl;
+      for (int cb = 0; cb < dl; cb += dh) {
+        const int cw = min(dh, dl - cb);
+        auto zwin = [&](auto ptc) {
+          constexpr int PT = decltype(ptc)::value;
+          constexpr int S = 16 / PT;
+          const WfMap w = wf_map<PT>(cw);
+          float wacc[PT][8];
+          wf_zero<PT>(wacc);
+          for (int j = 0; j < nlz; ++j) {
+            const int sj = j == 0 ? cot_in_slot(v, ns, nb, nlz) : stash_slot(j - 1, 1, v, ns, nlz);
+            named_sync(WF_BAR, nc);  // every warp is done reading As
+            wf_rows_in(cot + sj * slot + (size_t)r0 * dh, dh, As, lda, nv, dh, nc);
+            named_sync(WF_BAR, nc);
+            wf_run<PT>(r, it, dh, cw, As, lda, w, wacc);
+          }
+          if (w.on) {
+#pragma unroll
+            for (int i = 0; i < PT; ++i) {
+              const int row = w.tp + S * i;
+              if (row >= nv) continue;
+              float* o = dz + (size_t)(r0 + row) * dl + cb;
+              *reinterpret_cast<float4*>(o + w.c0) =
+                  make_float4(wacc[i][0], wacc[i][1], wacc[i][2], wacc[i][3]);
+              *reinterpret_cast<float4*>(o + w.c1) =
+                  make_float4(wacc[i][4], wacc[i][5], wacc[i][6], wacc[i][7]);
+            }
+          }
+        };
+        switch (wf_pt(cw)) {
+          case 1: zwin(std::integral_constant<int, 1>{}); break;
+          case 2: zwin(std::integral_constant<int, 2>{}); break;
+          case 4: zwin(std::integral_constant<int, 4>{}); break;
+          case 8: zwin(std::integral_constant<int, 8>{}); break;
+          default: zwin(std::integral_constant<int, 16>{}); break;
+        }
+      }
+    };
+
+    // the pooled blocks (all of them at NS 1), then per view its blocks from
+    // gh = the pooled cotangent / NS
+    float* pool = a.pool + (size_t)blockIdx.x * WF_TM * dh;
+    for (int k = nb - 1; k >= nlz; --k) block(k, 0);
+    if (ns > 1 && m.on) WF_OWN({ f4(pool, row, dh, col) = f4(Hs, row, ldh, col); })
+    const float inv_ns = 1.f / (float)ns;
+    for (int v = 0; v < ns; ++v) {
+      if (ns > 1) {
+        named_sync(WF_BAR, nc);  // the previous view's tail is done with Hs
+        if (m.on) WF_OWN({
+          const float4 p = f4(pool, row, dh, col);
+          f4(Hs, row, ldh, col) = make_float4(p.x * inv_ns, p.y * inv_ns, p.z * inv_ns,
+                                              p.w * inv_ns);
+        })
+      }
+      for (int k = nlz - 1; k >= 0; --k) block(k, v);
+      tail(v);
+    }
+  }
+  cluster_sync();
+}
+
+#undef WF_OWN
+
+// A cluster launch of WF_CLUSTER CTAs a cluster over every WF_TM-point tile
+// (the grid rounded up to whole clusters), WF_THREADS threads a CTA;
+// returns cudaLaunchKernelEx's error, or the launch's.
+template <typename Args>
+int wf_launch(void (*kernel)(Args, int), const Args& a, cudaStream_t s) {
+  const int stages = wf_stages(a.d_hidden, a.k_in);
+  const size_t smem = wf_smem(a.d_hidden, a.k_in);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = (a.N + WF_TM - 1) / WF_TM;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((tiles + WF_CLUSTER - 1) / WF_CLUSTER * WF_CLUSTER));
+  cfg.blockDim = dim3(WF_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = WF_CLUSTER;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, a, stages);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+bool wf_shape_ok(int N, int ns, int k_in, int d_latent, int d_hidden, int d_out, int n_blocks,
+                 int n_lin_z) {
+  return shape_ok(N, ns, k_in, d_latent, d_hidden, d_out, n_blocks, n_lin_z, 0) &&
+         d_hidden <= WF_DH_MAX && wf_stages(d_hidden, k_in) >= WF_STAGES_MIN;
+}
+
 }  // namespace
 
 // The forward, dtype 0 float32 (wi, wz, w0, w1 transposed), 1 bf16 (as
@@ -1599,4 +2400,59 @@ extern "C" int avr_resnetfc_dgrad_wide_tma(const void* x, const void* g, const v
     return e;
   return wt_launch(resnetfc_wide_tma_dgrad_kernel, a, m, wt_smem(d_hidden, d_latent, k_in, true),
                    (cudaStream_t)stream);
+}
+
+// The float32 forward on the cluster kernel (wi, wz, w0, w1 transposed), for
+// ops/kernels/resnetfc.py forward_route's "wide_f32" shapes.  Returns
+// cudaLaunchKernelEx's or the launch's cudaError_t.
+extern "C" int avr_resnetfc_fwd_wide_f32(const void* x, const void* z, const void* wi,
+                                         const void* bi, const void* wz, const void* bz,
+                                         const void* w0, const void* b0, const void* w1,
+                                         const void* b1, const void* wo, const void* bo,
+                                         const void* tables, const void* fph, void* out,
+                                         void* stash, void* pool, int N, int ns, int d_in,
+                                         int k_in, int d_latent, int d_hidden, int d_out,
+                                         int n_blocks, int n_lin_z, int activate, void* stream) {
+  const uintptr_t aligned = (uintptr_t)z | (uintptr_t)wi | (uintptr_t)wz | (uintptr_t)w0 |
+                            (uintptr_t)w1 | (uintptr_t)stash | (uintptr_t)pool | (uintptr_t)bi |
+                            (uintptr_t)bz | (uintptr_t)b0 | (uintptr_t)b1;
+  if (!wf_shape_ok(N, ns, k_in, d_latent, d_hidden, d_out, n_blocks, n_lin_z) ||
+      (ns > 1 && !pool) || (aligned & 15))
+    return (int)cudaErrorInvalidValue;
+  FcArgs a;
+  a.x = (const float*)x; a.z = z; a.wi = wi; a.bi = (const float*)bi;
+  a.wz = wz; a.bz = (const float*)bz; a.w0 = w0; a.b0 = (const float*)b0;
+  a.w1 = w1; a.b1 = (const float*)b1; a.wo = wo; a.bo = (const float*)bo;
+  a.tables = (const int*)tables; a.fph = (const float*)fph; a.out = (float*)out;
+  a.stash = stash; a.pool = (float*)pool;
+  a.N = N; a.ns = ns; a.d_in = d_in; a.k_in = k_in; a.d_latent = d_latent;
+  a.d_hidden = d_hidden; a.d_out = d_out; a.n_blocks = n_blocks; a.n_lin_z = n_lin_z;
+  a.activate = activate;
+  return wf_launch(resnetfc_wide_f32_fwd_kernel, a, (cudaStream_t)stream);
+}
+
+// The float32 dgrad on the cluster kernel (wi, wz, w0, w1 as nn.Linear keeps
+// them), for backward_route's "wide_f32" shapes.  Returns
+// cudaLaunchKernelEx's or the launch's cudaError_t.
+extern "C" int avr_resnetfc_dgrad_wide_f32(const void* x, const void* g, const void* stash,
+                                           const void* wi, const void* wz, const void* w0,
+                                           const void* w1, const void* wo, const void* bo,
+                                           const void* tables, const void* fph, void* dx,
+                                           void* dz, void* cot, void* gout, void* enc, void* pool,
+                                           int N, int ns, int d_in, int k_in, int d_latent,
+                                           int d_hidden, int d_out, int n_blocks, int n_lin_z,
+                                           int activate, void* stream) {
+  const uintptr_t aligned = (uintptr_t)stash | (uintptr_t)wi | (uintptr_t)wz | (uintptr_t)w0 |
+                            (uintptr_t)w1 | (uintptr_t)cot | (uintptr_t)dz | (uintptr_t)pool;
+  if (!wf_shape_ok(N, ns, k_in, d_latent, d_hidden, d_out, n_blocks, n_lin_z) ||
+      (ns > 1 && !pool) || (aligned & 15))
+    return (int)cudaErrorInvalidValue;
+  FcBwdArgs a;
+  a.x = (const float*)x; a.g = (const float*)g; a.stash = stash; a.wi = wi; a.wz = wz;
+  a.w0 = w0; a.w1 = w1; a.wo = wo; a.bo = (const float*)bo; a.tables = (const int*)tables;
+  a.fph = (const float*)fph; a.dx = (float*)dx; a.dz = dz; a.cot = cot; a.gout = gout;
+  a.enc = enc; a.pool = (float*)pool; a.N = N; a.ns = ns; a.d_in = d_in; a.k_in = k_in;
+  a.d_latent = d_latent; a.d_hidden = d_hidden; a.d_out = d_out; a.n_blocks = n_blocks;
+  a.n_lin_z = n_lin_z; a.activate = activate;
+  return wf_launch(resnetfc_wide_f32_dgrad_kernel, a, (cudaStream_t)stream);
 }

@@ -69,8 +69,17 @@ Every kernel above keeps its trunk or trunk cotangent in registers, full at
 rule :func:`wide_tma_fits`) takes its Hopper kernels: a CTA a tile of 32
 points, the float32 trunk in registers, the weights streamed through a
 shared ring by TMA, each stage multicast to a cluster of 4 CTAs, products
-by ``mma.sync`` from shared memory.  Every other wide shape (``"wide"``:
-float32, wider bf16) takes the first version, one kernel each templated on
+by ``mma.sync`` from shared memory.  float32 with ``d_hidden`` from 576 to
+1,024 (``"wide_f32"``, the rule :func:`wide_f32_fits`) takes its cluster
+kernels: a CTA
+a tile of 16 points, the float32 trunk and one operand tile in shared
+memory, full-width weight slabs of 8 rows streamed through a 3-stage (at
+1,024) shared ring by bulk copies, each multicast to a cluster of 2 CTAs (the
+forward's latent rows read into the operand tile a chunk at a time),
+register-tiled FMA (16
+points x 8 columns a thread), one FMA chain per output in k order as the
+first version's.  Every other wide shape (``"wide"``: float32 past 1,024,
+wider bf16) takes the first version, one kernel each templated on
 the operand type (bf16 ``mma.sync``, float32 FMA): a CTA a tile of 32
 (bf16) or 16 (float32) points, the float32 trunk in shared memory, the
 weights read from L2.  The wgrads above take their jobs at any width.  A latent of any width is
@@ -105,8 +114,8 @@ from avr_tpu_torch.ops.kernels import _build
 
 __all__ = ["CodeSpec", "DecoderWeights", "backward_route", "check_wide_bound", "f32_dgrad_plan",
            "f32_forward_plan", "forward_route", "fused_resnetfc", "pad_latent", "resnetfc_plain",
-           "use_stash", "encode_tables", "wgrad_plan", "wide_smem", "wide_tma_fits",
-           "wide_tma_smem"]
+           "use_stash", "encode_tables", "wgrad_plan", "wide_f32_fits", "wide_f32_smem",
+           "wide_f32_stages", "wide_smem", "wide_tma_fits", "wide_tma_smem"]
 
 NAME = "fused_resnetfc"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -372,13 +381,17 @@ def forward_route(compute_dtype: torch.dtype, d_latent: int, k_in: int,
     ``k_in`` padded to multiples of 64, ``d_hidden`` a multiple of 64; every
     number of views takes the same route): for ``d_hidden`` above 512,
     ``"wide_tma"`` where :func:`wide_tma_fits` (bf16:
-    ``csrc/resnetfc_wide.cu resnetfc_wide_tma_fwd_kernel``), else ``"wide"``
-    (``resnetfc_wide_fwd_kernel``, the trunk in shared memory); else
+    ``csrc/resnetfc_wide.cu resnetfc_wide_tma_fwd_kernel``), ``"wide_f32"``
+    where :func:`wide_f32_fits` (float32: ``resnetfc_wide_f32_fwd_kernel``),
+    else ``"wide"`` (``resnetfc_wide_fwd_kernel``, the trunk in shared
+    memory); else
     ``"wgmma"`` (bf16 with ``d_latent`` and ``k_in`` at most 512,
     ``csrc/resnetfc_hopper.cu``), ``"mma_sync"`` (other bf16) or ``"fma"``
     (float32: ``resnetfc_fwd_f32_kernel``), both ``csrc/resnetfc.cu``.  A
     route's build or launch failure raises: no call changes kernel."""
     if d_hidden > REG_DH_MAX:
+        if wide_f32_fits(compute_dtype, d_hidden, k_in):
+            return "wide_f32"
         return "wide_tma" if wide_tma_fits(compute_dtype, d_hidden, d_latent, k_in) else "wide"
     if compute_dtype == torch.float32:
         return "fma"
@@ -392,11 +405,15 @@ def backward_route(compute_dtype: torch.dtype, d_hidden: int, d_latent: int, k_i
     and tail of ``csrc/resnetfc_hopper.cu``), ``"fma"`` (float32 with
     ``d_hidden`` at most 512: ``csrc/resnetfc.cu resnetfc_dgrad_f32_kernel``)
     or, for every other shape, ``"wide_tma"`` where :func:`wide_tma_fits`
-    (``csrc/resnetfc_wide.cu resnetfc_wide_tma_dgrad_kernel``), else
-    ``"wide"`` (``resnetfc_wide_dgrad_kernel``).  ``d_latent`` and ``k_in``
-    as padded."""
+    (``csrc/resnetfc_wide.cu resnetfc_wide_tma_dgrad_kernel``),
+    ``"wide_f32"`` where :func:`wide_f32_fits`
+    (``resnetfc_wide_f32_dgrad_kernel``), else ``"wide"``
+    (``resnetfc_wide_dgrad_kernel``).  ``d_latent`` and ``k_in`` as
+    padded."""
     if compute_dtype == torch.float32:
-        return "fma" if d_hidden <= REG_DH_MAX else "wide"
+        if d_hidden <= REG_DH_MAX:
+            return "fma"
+        return "wide_f32" if wide_f32_fits(compute_dtype, d_hidden, k_in) else "wide"
     inside = d_hidden <= REG_DH_MAX and d_latent <= TAIL_DL_MAX and k_in <= TAIL_KIN_MAX
     if inside:
         return "wgmma"
@@ -448,6 +465,52 @@ def wide_tma_fits(compute_dtype: torch.dtype, d_hidden: int, d_latent: int, k_in
     lo, hi = WIDE_TMA_DH
     return (compute_dtype == torch.bfloat16 and lo <= d_hidden <= hi
             and wide_tma_smem(d_hidden, d_latent, k_in, backward) <= SMEM_MAX)
+
+
+# The float32 cluster kernels (csrc/resnetfc_wide.cu resnetfc_wide_f32_*): a
+# CTA a tile of WIDE_F32_TM points, WIDE_F32_CLUSTER CTAs a cluster (the
+# grid rounded up to whole clusters), a ring of weight stages of
+# WIDE_F32_KS rows of at most d_hidden columns, as many as fit up to
+# WIDE_F32_STAGES_MAX and at least WIDE_F32_STAGES_MIN, beside the trunk,
+# the operand tile and g_epi; d_hidden up to WIDE_F32_DH_MAX (128 consumer
+# threads of 8 columns); the source's WF_* constants.
+WIDE_F32_TM, WIDE_F32_KS, WIDE_F32_CLUSTER = 16, 8, 2
+WIDE_F32_STAGES_MIN, WIDE_F32_STAGES_MAX, WIDE_F32_DH_MAX = 3, 8, 1024
+
+
+def _wide_f32_fixed(d_hidden: int, k_in: int) -> int:
+    """A float32 cluster CTA's shared bytes beside its ring: the trunk
+    (WIDE_F32_TM rows of ``d_hidden + 4`` floats), the operand tile (rows of
+    ``max(d_hidden, k_in) + 4``), g_epi and the ring's two barriers a stage
+    (``csrc/resnetfc_wide.cu wf_fixed``)."""
+    return 4 * (WIDE_F32_TM * (d_hidden + 4) + WIDE_F32_TM * (max(d_hidden, k_in) + 4)
+                + WIDE_F32_TM * GOUT_W) + 2 * WIDE_F32_STAGES_MAX * 8
+
+
+def wide_f32_stages(d_hidden: int, k_in: int) -> int:
+    """Stages of a float32 cluster CTA's ring (``csrc/resnetfc_wide.cu
+    wf_stages``): as many as fit beside :func:`_wide_f32_fixed`, at most
+    WIDE_F32_STAGES_MAX."""
+    stage = 4 * WIDE_F32_KS * d_hidden
+    return max(0, min(WIDE_F32_STAGES_MAX, (SMEM_MAX - _wide_f32_fixed(d_hidden, k_in)) // stage))
+
+
+def wide_f32_smem(d_hidden: int, k_in: int) -> int:
+    """Shared bytes of a float32 cluster forward or dgrad CTA
+    (``csrc/resnetfc_wide.cu wf_smem``)."""
+    return wide_f32_stages(d_hidden, k_in) * 4 * WIDE_F32_KS * d_hidden \
+        + _wide_f32_fixed(d_hidden, k_in)
+
+
+def wide_f32_fits(compute_dtype: torch.dtype, d_hidden: int, k_in: int) -> bool:
+    """The route rule for float32 wide shapes, one function of the shape:
+    the float32 cluster kernels take ``d_hidden`` above 512 up to 1,024
+    where at least WIDE_F32_STAGES_MIN stages fit (the card measured both
+    faster than the first version at every such width: PERF.md section 6);
+    the first version every other float32 wide shape (past 1,024 or past
+    that memory)."""
+    return (compute_dtype == torch.float32 and REG_DH_MAX < d_hidden <= WIDE_F32_DH_MAX
+            and wide_f32_stages(d_hidden, k_in) >= WIDE_F32_STAGES_MIN)
 
 
 def wide_smem(compute_dtype: torch.dtype, d_hidden: int, d_latent: int, k_in: int,
@@ -593,17 +656,25 @@ NAME_F32 = "fused_resnetfc_f32"  # forwards (stash or not) on the float32 kernel
 # kernels, by dtype
 NAME_WIDE = {torch.bfloat16: "fused_resnetfc_wide", torch.float32: "fused_resnetfc_wide_f32"}
 NAME_DGRAD_WIDE = {torch.bfloat16: "resnetfc_dgrad_wide", torch.float32: "resnetfc_dgrad_wide_f32"}
-# the bf16 TMA cluster kernels, counted also under NAME_WIDE / NAME_DGRAD_WIDE
+# the bf16 TMA cluster kernels and the float32 cluster kernels, counted also
+# under NAME_WIDE / NAME_DGRAD_WIDE
 NAME_WIDE_TMA = "fused_resnetfc_wide_tma"
 NAME_DGRAD_WIDE_TMA = "resnetfc_dgrad_wide_tma"
+NAME_WIDE_F32_RING = "fused_resnetfc_wide_f32_ring"
+NAME_DGRAD_WIDE_F32_RING = "resnetfc_dgrad_wide_f32_ring"
+# (forward, dgrad) counters of the cluster routes
+_CLUSTER_NAMES = {"wide_tma": (NAME_WIDE_TMA, NAME_DGRAD_WIDE_TMA),
+                  "wide_f32": (NAME_WIDE_F32_RING, NAME_DGRAD_WIDE_F32_RING)}
 
 
 def _forward(a, d, compute_dtype, stash: bool, st=None):
     """Launch the forward on :func:`forward_route`'s kernel; with ``stash``
     also return the activations (written into ``st`` where given).  Counted
     under ``NAME`` or ``NAME_STASH``, and the wgmma route also under
-    ``NAME_WGMMA``, the float32 one under ``NAME_F32``, the wide one under
-    ``NAME_WIDE[compute_dtype]``."""
+    ``NAME_WGMMA``, the float32 one under ``NAME_F32``, the wide ones under
+    ``NAME_WIDE[compute_dtype]`` (the bf16 TMA cluster one also under
+    ``NAME_WIDE_TMA``, the float32 cluster one under
+    ``NAME_WIDE_F32_RING``)."""
     dev = a["x"].device
     N, ns, dh = d["N"], d["ns"], d["d_hidden"]
     out = torch.empty((N, d["d_out"]), dtype=torch.float32, device=dev)
@@ -634,13 +705,16 @@ def _forward(a, d, compute_dtype, stash: bool, st=None):
                 if ns > 1 else None)
         fn = _build.kernel_fn("avr_resnetfc_fwd_f32", FWD_WGMMA_ARGTYPES)  # the same signature
         err = fn(*ptrs, _build.ptr(pool) if ns > 1 else None, *dims, stream)
-    elif route == "wide_tma":
-        # the view sums of NS > 1: WIDE_TMA_TM x d_hidden floats a CTA of
-        # the grid (whole clusters)
-        tile = WIDE_TMA_TM * WIDE_TMA_CLUSTER
+    elif route in _CLUSTER_NAMES:
+        # the cluster kernels (float32 reads the transposed weights); the view
+        # sums of NS > 1: a CTA's points x d_hidden floats over the grid
+        # (whole clusters)
+        if route == "wide_f32":
+            ptrs = [_build.ptr(a.get(k + "T", a[k])) for k in _FWD_ORDER] + ptrs[len(_FWD_ORDER):]
+        tile = dgrad_tile(compute_dtype, route)
         pool = (torch.empty((-(-N // tile) * tile, dh), dtype=torch.float32, device=dev)
                 if ns > 1 else None)
-        fn = _build.kernel_fn("avr_resnetfc_fwd_wide_tma", FWD_WGMMA_ARGTYPES)
+        fn = _build.kernel_fn(f"avr_resnetfc_fwd_{route}", FWD_WGMMA_ARGTYPES)
         err = fn(*ptrs, _build.ptr(pool) if ns > 1 else None, *dims, stream)
     elif route == "wide":
         # float32 reads the transposed weights; the view sums of NS > 1: a
@@ -657,10 +731,10 @@ def _forward(a, d, compute_dtype, stash: bool, st=None):
         err = fn(*ptrs, *dims, _DTYPES[compute_dtype], stream)
     _build.check(NAME_STASH if stash else NAME, err)
     if route != "mma_sync":
-        _build.launches[{"wgmma": NAME_WGMMA, "fma": NAME_F32, "wide": NAME_WIDE[compute_dtype],
-                         "wide_tma": NAME_WIDE[compute_dtype]}[route]] += 1
-    if route == "wide_tma":
-        _build.launches[NAME_WIDE_TMA] += 1
+        _build.launches[{"wgmma": NAME_WGMMA, "fma": NAME_F32}.get(
+            route, NAME_WIDE[compute_dtype])] += 1
+    if route in _CLUSTER_NAMES:
+        _build.launches[_CLUSTER_NAMES[route][0]] += 1
     return out, st
 
 
@@ -696,16 +770,18 @@ def dgrad_tile(compute_dtype, route: Optional[str] = None) -> int:
     """Points a dgrad CTA walks on ``route`` (:func:`backward_route`; by
     default the dtype's route at the shipped widths): 64 on the bf16 wgmma
     walk (``csrc/resnetfc_hopper.cu``), :func:`f32_dgrad_plan`'s tile (32) on
-    the float32 one, ``WIDE_TM`` on the wide one; on the TMA cluster kernel
-    a cluster's points (its grid is whole clusters, a CTA ``WIDE_TMA_TM``
-    of them)."""
+    the float32 one, ``WIDE_TM`` on the wide one; on the cluster kernels a
+    cluster's points (their grid is whole clusters, a CTA ``WIDE_TMA_TM``
+    or ``WIDE_F32_TM`` of them)."""
     route = route or ("wgmma" if compute_dtype == torch.bfloat16 else "fma")
     return {"wgmma": 64, "fma": F32_FWD_TILE, "wide": WIDE_TM[compute_dtype],
-            "wide_tma": WIDE_TMA_TM * WIDE_TMA_CLUSTER}[route]
+            "wide_tma": WIDE_TMA_TM * WIDE_TMA_CLUSTER,
+            "wide_f32": WIDE_F32_TM * WIDE_F32_CLUSTER}[route]
 
 
 _DGRAD_ENTRY = {"wgmma": "avr_resnetfc_dgrad_bf16", "fma": "avr_resnetfc_dgrad",
-                "wide": "avr_resnetfc_dgrad_wide", "wide_tma": "avr_resnetfc_dgrad_wide_tma"}
+                "wide": "avr_resnetfc_dgrad_wide", "wide_tma": "avr_resnetfc_dgrad_wide_tma",
+                "wide_f32": "avr_resnetfc_dgrad_wide_f32"}
 
 
 def _dgrad(a, d, st, g, wd, compute_dtype, out=None, pool=None, name=NAME_DGRAD):
@@ -717,7 +793,8 @@ def _dgrad(a, d, st, g, wd, compute_dtype, out=None, pool=None, name=NAME_DGRAD)
     kernel is :func:`backward_route`'s: float32's register-tiled dgrad is
     counted also under ``NAME_DGRAD_F32``, either wide one under
     ``NAME_DGRAD_WIDE[compute_dtype]`` and the TMA cluster one also under
-    ``NAME_DGRAD_WIDE_TMA``."""
+    ``NAME_DGRAD_WIDE_TMA``, the float32 cluster one also under
+    ``NAME_DGRAD_WIDE_F32_RING``."""
     ns, N, dh = d["ns"], d["N"], d["d_hidden"]
     cd = compute_dtype
     dev = g.device
@@ -744,7 +821,7 @@ def _dgrad(a, d, st, g, wd, compute_dtype, out=None, pool=None, name=NAME_DGRAD)
         ptrs.append(_build.ptr(pool) if ns > 1 else None)
         dims = [d[k] for k in _DIM_ORDER]
         stream = ctypes.c_void_p(_build.stream_ptr(dev))
-        if route in ("wgmma", "wide_tma"):
+        if route == "wgmma" or route in _CLUSTER_NAMES:
             fn = _build.kernel_fn(_DGRAD_ENTRY[route], [ctypes.c_void_p] * 17
                                   + [ctypes.c_int] * 10 + [ctypes.c_void_p])
             err = fn(*ptrs, *dims, stream)
@@ -755,8 +832,8 @@ def _dgrad(a, d, st, g, wd, compute_dtype, out=None, pool=None, name=NAME_DGRAD)
         _build.check(name, err)
         if route != "wgmma":
             _build.launches[NAME_DGRAD_F32 if route == "fma" else NAME_DGRAD_WIDE[cd]] += 1
-        if route == "wide_tma":
-            _build.launches[NAME_DGRAD_WIDE_TMA] += 1
+        if route in _CLUSTER_NAMES:
+            _build.launches[_CLUSTER_NAMES[route][1]] += 1
     return out["dx"], out["dz"], out["cot"], out["gout"], out["enc"]
 
 

@@ -4729,13 +4729,15 @@ def fill_k2_chains(kernels):
     chain of each kernel's products (``product_chain``, TF32 off) at the
     row's shape, d_hidden 512, the latent's 512 lanes and 64 encoded lanes:
     the bf16 forward at the band (81,920 points), the bf16 dgrad at the
-    train step's band call (327,680), the float32 forward at the band, and
-    the recompute backward (the forward's and the dgrad's products) at the
-    VR fine pass (1,572,864).  Inputs from a generator of their own."""
+    train step's band call (327,680), the float32 forward at the band, the
+    float32 dgrad at the band call (its plain version is the matched
+    reference, ``decoder_bwd_matched``), and the recompute backward (the
+    forward's and the dgrad's products) at the VR fine pass (1,572,864).
+    Inputs from a generator of their own."""
     gen = torch.Generator(device=DEV).manual_seed(31)
     k_in, bf, f32 = K2.d_enc_padded(CODE.d_enc), torch.bfloat16, torch.float32
     chains = {K2.NAME: [(BAND, bf, False)], K2.NAME_DGRAD: [(BAND_TRAIN, bf, True)],
-              K2.NAME_F32: [(BAND, f32, False)],
+              K2.NAME_F32: [(BAND, f32, False)], K2.NAME_DGRAD_F32: [(BAND_TRAIN, f32, True)],
               K2.NAME_RECOMPUTE: [(FINE_VR, bf, False), (FINE_VR, bf, True)]}
     for k in kernels:
         if k["name"] not in chains:
@@ -4756,7 +4758,8 @@ def wide_inputs(gen, n, ns, dl, code, cd):
 @contextlib.contextmanager
 def first_wide_version():
     """Every wide shape on the first wide kernels (the routes patched to
-    "wide"), for timing them beside the TMA cluster kernels in one run."""
+    "wide"), for timing them beside the cluster kernels (bf16 TMA, float32)
+    in one run."""
     fwd, bwd = K2.forward_route, K2.backward_route
     K2.forward_route = lambda *a, **k: "wide" if fwd(*a, **k).startswith("wide") else fwd(*a, **k)
     K2.backward_route = lambda *a, **k: "wide" if bwd(*a, **k).startswith("wide") else bwd(*a, **k)
@@ -4768,23 +4771,52 @@ def first_wide_version():
 
 def wide_ran(before, cd, route, names):
     """The launches since ``before`` of the wide counters: ``names`` (K2's
-    forward or dgrad counter, the dtype's wide one, the TMA cluster one)
+    forward or dgrad counter, the dtype's wide one, the dtype's cluster one)
     against what ``route`` must have launched (one call)."""
     ran = f32_ran(before, names)
     want = {names[0]: 1, names[1]: int(route.startswith("wide")),
-            names[2]: int(route == "wide_tma")}
+            names[2]: int(route in ("wide_tma", "wide_f32"))}
     return ran, ran == want
 
 
-def check_wide_refusal():
-    """A TMA cluster launch its kernel refuses raises, and nothing falls
-    back: the bf16 forward and dgrad at d_hidden 1,152 (past the kernels'
-    two trunk groups a warp) forced onto the "wide_tma" route return
+# the cluster kernels' counters by dtype: (forward, dgrad)
+WIDE_CLUSTER = {torch.bfloat16: (K2.NAME_WIDE_TMA, K2.NAME_DGRAD_WIDE_TMA),
+                torch.float32: (K2.NAME_WIDE_F32_RING, K2.NAME_DGRAD_WIDE_F32_RING)}
+
+
+def check_wide_first_bits(label, args, dims, cd, g):
+    """The float32 cluster kernels keep the first version's k order and
+    rounding points: the forward (output and stash) and, on that stash, the
+    dgrad (dx, dz, the cotangents, gout, enc) on their routes are the first
+    version's bits (where the forward's route is the first version, its
+    check is trivially met)."""
+    out, st = K2._forward(args, dims, cd, True)
+    gs, wd, _ = K2._bwd_operands(args, dims, g, K2.NAME_DGRAD)
+    got = K2._dgrad(args, dims, st, gs, wd, cd)
+    with first_wide_version():
+        fout, fst = K2._forward(args, dims, cd, True)
+        want = K2._dgrad(args, dims, st, gs, wd, cd)
+    pairs = [("forward", out, fout), ("stash", st, fst)] + list(
+        zip(("dx", "dz", "cot", "gout", "enc"), got, want))
+    for nm, a, b in pairs:
+        if not same_bits(a, b):
+            raise AssertionError(f"K2 wide_f32 {label}: {nm} differs from the first version's "
+                                 f"(max abs {max_err(a, b)})")
+    return {"case": f"wide_f32 {label} N={WIDE_N}: forward, stash and dgrad bit for bit the "
+                    f"first version's", "against": "first version", "max_abs_err": 0.0,
+            "tol": 0.0}
+
+
+def check_wide_refusal(bf=torch.bfloat16):
+    """A cluster launch its kernel refuses raises, and nothing falls back:
+    the forward and dgrad at d_hidden 1,152 (past the bf16 TMA kernels' two
+    trunk groups a warp, past the float32 kernels' 1,024 columns) forced
+    onto the dtype's cluster route ("wide_tma", "wide_f32") return
     cudaErrorInvalidValue from the C entry, which the wrapper raises; the
     launch counters do not move.  Its inputs draw from a generator of their
     own."""
     gen = torch.Generator(device=DEV).manual_seed(13)
-    bf = torch.bfloat16
+    forced = "wide_tma" if bf == torch.bfloat16 else "wide_f32"
     w = decoder_weights(gen, dl=1152, dh=1152)
     x, z, g = wide_inputs(gen, 256, 1, 1152, CODE, bf)
     args = K2._prepare(x, z, w, CODE, bf)
@@ -4792,7 +4824,7 @@ def check_wide_refusal():
     st = K2._forward(args, dims, bf, True)[1]
     gs, wd, _ = K2._bwd_operands(args, dims, g, K2.NAME_DGRAD)
     fwd, bwd = K2.forward_route, K2.backward_route
-    K2.forward_route = K2.backward_route = lambda *a, **k: "wide_tma"
+    K2.forward_route = K2.backward_route = lambda *a, **k: forced
     raised, before = [], dict(_build.launches)
     try:
         for call in (lambda: K2._forward(args, dims, bf, False),
@@ -4805,17 +4837,18 @@ def check_wide_refusal():
         K2.forward_route, K2.backward_route = fwd, bwd
     torch.cuda.synchronize()
     if len(raised) != 2 or dict(_build.launches) != before:
-        raise AssertionError(f"K2 wide_tma refusal: raised {raised}, launches moved "
+        raise AssertionError(f"K2 {forced} refusal: raised {raised}, launches moved "
                              f"{dict(_build.launches) != before}")
-    print(f"K2 wide_tma at d_hidden 1,152 refused and raised: {raised}")
-    return dict(case="wide_tma launch refused at d_hidden 1,152 raises", max_abs_err=0.0,
+    print(f"K2 {forced} at d_hidden 1,152 refused and raised: {raised}")
+    return dict(case=f"{forced} launch refused at d_hidden 1,152 raises", max_abs_err=0.0,
                 tol=0.0, against="refusal")
 
 
 def check_wide(gen):
     """The wide kernels (``forward_route``/``backward_route`` = "wide_tma"
-    for bf16 d_hidden 256..1,024, the TMA cluster kernels; "wide", the first
-    version, for float32 and bf16 past them) held
+    for bf16 d_hidden 256..1,024, the TMA cluster kernels; "wide_f32" for
+    float32 d_hidden 576..1,024, the float32 cluster kernels, held bit for
+    bit the first version too; "wide", the first version, past them) held
     to their plain versions on the card at WIDE_CASES in bf16 and float32:
     the forward (bf16 2 ulps of the largest output or twice the plain
     version's distance from the float32 function on the same bf16-valued
@@ -4833,9 +4866,9 @@ def check_wide(gen):
     The launch counters show which kernel each case took.  Then each kernel
     timed at the band chunk (81,920 points, d_hidden 1,024, latent 1,152)
     beside its plain version, the cuBLAS chain of its products and its
-    bound, the bf16 TMA cluster kernels also beside the first version in
-    turns (TMA, first, first, TMA).  Returns the four kernel rows (bf16: the
-    TMA cluster kernels; float32: the first version)."""
+    bound, and beside the first version in turns (cluster, first, first,
+    cluster).  Returns the four kernel rows (the cluster kernels: bf16 TMA,
+    float32)."""
     kw = dict(n_blocks=5, n_lin_z=3, activate_out=True)
     rows = {}
     for cd in (torch.bfloat16, torch.float32):
@@ -4853,7 +4886,7 @@ def check_wide(gen):
             got = fused_resnetfc(x, z, w, compute_dtype=cd, code=code, **kw)
             want = resnetfc_plain(x, z, w, compute_dtype=cd, code=code, **kw)
             route = K2.forward_route(cd, K2.d_enc_padded(dl), K2.d_enc_padded(code.d_enc), dh)
-            ran, ok = wide_ran(before, cd, route, (K2.NAME, K2.NAME_WIDE[cd], K2.NAME_WIDE_TMA))
+            ran, ok = wide_ran(before, cd, route, (K2.NAME, K2.NAME_WIDE[cd], WIDE_CLUSTER[cd][0]))
             if not ok:
                 raise AssertionError(f"K2 {label}: route {route}, launches {ran}")
             wide = route.startswith("wide")
@@ -4874,6 +4907,9 @@ def check_wide(gen):
             args = K2._prepare(x, z, w, code, cd)
             dims = K2._dims(args, 5, 3, True)
             kst = K2._forward(args, dims, cd, True)[1]
+            broute = K2.backward_route(cd, dh, dims["d_latent"], dims["k_in"])
+            if "wide_f32" in (route, broute):
+                fwd.append(check_wide_first_bits(label, args, dims, cd, g))
             if wide:
                 pst = decoder_plain_stash(x, z, w, **mkw)
                 rst = None if f32 else decoder_plain_stash(
@@ -4891,7 +4927,6 @@ def check_wide(gen):
                                          f"flipped > {STASH_FLIPS}")
                 del pst, rst
             # the backward: its dgrad is a wide one here
-            broute = K2.backward_route(cd, dh, dims["d_latent"], dims["k_in"])
             if not broute.startswith("wide"):
                 raise AssertionError(f"K2 {label}: backward route {broute} is not wide")
             kern = lambda stash: (lambda x, z, *ws: fused_resnetfc(
@@ -4901,7 +4936,7 @@ def check_wide(gen):
             before = dict(_build.launches)
             got = grads_of(kern(True), (x, z, *w), g)
             ran, ok = wide_ran(before, cd, broute, (K2.NAME_DGRAD, K2.NAME_DGRAD_WIDE[cd],
-                                                    K2.NAME_DGRAD_WIDE_TMA))
+                                                    WIDE_CLUSTER[cd][1]))
             if not ok:
                 raise AssertionError(f"K2 {label}: dgrad route {broute}, launches {ran}")
             want = grads_of(plain, (x, z, *w), g)
@@ -4934,8 +4969,7 @@ def check_wide(gen):
                   f"{tol:.3e}); backward on the {broute} route, worst relative L2 against the "
                   f"plain autograd {worst}")
             del kst, got, want, matched, rec, cut, args
-        if not f32:
-            bwd.append(check_wide_refusal())
+        bwd.append(check_wide_refusal(cd))
         # the wgrads at width: K2's 15 jobs at 1,024 x 1,024 and 1,024 x
         # 1,152 (and lin_in, lin_out) against torch.matmul, a coarse query's
         # 16,384 points
@@ -4964,14 +4998,12 @@ def check_wide(gen):
         dims = K2._dims(args, 5, 3, True)
         k_in = dims["k_in"]
         iters = 5 if cd == torch.bfloat16 else 2
-        bf = cd == torch.bfloat16
         fwd_call = lambda: K2._forward(args, dims, cd, False)
         ms = time_ms(fwd_call, iters=iters, warmup=1)
-        first_fwd = []
-        if bf:  # the first version in turns: TMA (above), first, first, TMA
-            with first_wide_version():
-                first_fwd = [time_ms(fwd_call, iters=iters, warmup=1) for _ in range(2)]
-            ms = [ms, time_ms(fwd_call, iters=iters, warmup=1)]
+        # the first version in turns: cluster kernel (above), first, first, cluster
+        with first_wide_version():
+            first_fwd = [time_ms(fwd_call, iters=iters, warmup=1) for _ in range(2)]
+        ms = [ms, time_ms(fwd_call, iters=iters, warmup=1)]
         plain_ms = time_ms(lambda: resnetfc_plain(x, z, w, compute_dtype=cd, code=CODE, **kw),
                            iters=iters, warmup=1)
         lib_ms = time_ms(product_chain(gen, BAND, WIDE_DH, WIDE_DL, k_in, cd, False),
@@ -4979,24 +5011,21 @@ def check_wide(gen):
         wbytes = sum(t.numel() for t in w) * item
         flops = wide_flops(BAND, 1, WIDE_DH, WIDE_DL, CODE.d_enc)
         b_ms, b_by = bound(x.numel() * 4 + z.numel() * item + wbytes + BAND * 4 * 4, flops, peak)
-        turns = dict(ms_turns=ms, first_version_ms=first_fwd) if bf else {}
-        out.append(dict(name=K2.NAME_WIDE_TMA if bf else K2.NAME_WIDE[cd],
+        out.append(dict(name=WIDE_CLUSTER[cd][0],
                         source="avr_tpu_torch/csrc/resnetfc_wide.cu",
                         replaces="avr_tpu/ops/pallas/resnetfc.py:896", tpu_kernel="fused_resnetfc",
                         shape=f"N={BAND}, NS=1, d_hidden {WIDE_DH}, d_latent {WIDE_DL}, 5 blocks, "
-                              f"{str(cd)[6:]}", cases=fwd, ms=min(ms) if bf else ms,
+                              f"{str(cd)[6:]}", cases=fwd, ms=min(ms),
                         plain_ms=plain_ms, library_ms=lib_ms,
                         library="the cuBLAS chain of the forward's products", bound_ms=b_ms,
-                        bound_by=b_by, **turns))
+                        bound_by=b_by, ms_turns=ms, first_version_ms=first_fwd))
         st = K2._forward(args, dims, cd, True)[1]
         gs, wd, _ = K2._bwd_operands(args, dims, g, K2.NAME_DGRAD)
         dgrad_call = lambda: K2._dgrad(args, dims, st, gs, wd, cd)
         ms = time_ms(dgrad_call, iters=iters, warmup=1)
-        first_dgrad = []
-        if bf:
-            with first_wide_version():
-                first_dgrad = [time_ms(dgrad_call, iters=iters, warmup=1) for _ in range(2)]
-            ms = [ms, time_ms(dgrad_call, iters=iters, warmup=1)]
+        with first_wide_version():
+            first_dgrad = [time_ms(dgrad_call, iters=iters, warmup=1) for _ in range(2)]
+        ms = [ms, time_ms(dgrad_call, iters=iters, warmup=1)]
         plain_ms = time_ms(lambda: decoder_bwd_matched(x, z, w, st, g, n_blocks=5, n_lin_z=3,
                                                        code=CODE, compute_dtype=cd,
                                                        wgrads=False), iters=iters, warmup=1)
@@ -5005,24 +5034,67 @@ def check_wide(gen):
         slots = K2.stash_slots(1, 5, 3)
         io = BAND * (CODE.d_raw * 4 * 2 + WIDE_DL * item * 2 + 4 * 4)  # x, dx, z, dz, g
         b_ms, b_by = bound(2 * slots * BAND * WIDE_DH * item + io + wbytes, flops, peak)
-        turns = dict(ms_turns=ms, first_version_ms=first_dgrad) if bf else {}
-        out.append(dict(name=K2.NAME_DGRAD_WIDE_TMA if bf else K2.NAME_DGRAD_WIDE[cd],
+        out.append(dict(name=WIDE_CLUSTER[cd][1],
                         source="avr_tpu_torch/csrc/resnetfc_wide.cu",
                         replaces="avr_tpu/ops/pallas/resnetfc.py:823", tpu_kernel="_bwd_stash_impl",
                         shape=f"N={BAND}, NS=1, d_hidden {WIDE_DH}, d_latent {WIDE_DL}, 5 blocks, "
-                              f"{str(cd)[6:]}", cases=bwd, ms=min(ms) if bf else ms,
+                              f"{str(cd)[6:]}", cases=bwd, ms=min(ms),
                         plain_ms=plain_ms, library_ms=lib_ms,
                         library="the cuBLAS chain of the dgrad's products", bound_ms=b_ms,
-                        bound_by=b_by, **turns))
+                        bound_by=b_by, ms_turns=ms, first_version_ms=first_dgrad))
         for r in out[-2:]:
             first = (f", the first version in turns {[round(v, 3) for v in r['first_version_ms']]}"
-                     f" against {[round(v, 3) for v in r['ms_turns']]}" if bf else "")
+                     f" against {[round(v, 3) for v in r['ms_turns']]}")
             print(f"kernel {r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, cuBLAS chain "
                   f"{r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}{first}) "
                   f"{len(r['cases'])} cases, all within tolerance")
         del st, gs, wd, args, x, z, g
         torch.cuda.empty_cache()
     return out
+
+
+# resnetfc_kernel's route (csrc/resnetfc.cu, the bf16 mma.sync forward that
+# forward_route keeps past the wgmma forward's 512 latent lanes): phase 9's
+# global encoder (640 lanes) at the shipped d_hidden 512, the band chunk
+MMA_SYNC_DL = 640
+
+
+def time_mma_sync_forward(gen):
+    """The bf16 forward on resnetfc_kernel (a latent of 640 lanes) at the
+    band chunk, timed (CUDA events) beside the plain version, the cuBLAS
+    chain of its products and its bound; its route and its output against
+    the plain version (2^-7 of the largest output, as check_resnetfc_mma_sync)
+    held.  Returns its row for the report."""
+    bf = torch.bfloat16
+    kw = dict(n_blocks=5, n_lin_z=3, activate_out=True)
+    w = decoder_weights(gen, dl=MMA_SYNC_DL)
+    x, z, _ = wide_inputs(gen, BAND, 1, MMA_SYNC_DL, CODE, bf)
+    args = K2._prepare(x, z, w, CODE, bf)
+    dims = K2._dims(args, 5, 3, True)
+    route = K2.forward_route(bf, dims["d_latent"], dims["k_in"], 512)
+    if route != "mma_sync":
+        raise AssertionError(f"K2 d_latent {MMA_SYNC_DL}: routed to {route}")
+    call = lambda: K2._forward(args, dims, bf, False)
+    want = resnetfc_plain(x, z, w, compute_dtype=bf, code=CODE, **kw)
+    err, tol = max_err(call()[0], want), 2.0 ** -7 * max(1.0, float(want.abs().max()))
+    case = check(f"mma.sync route timed N={BAND} d_latent {MMA_SYNC_DL} NS=1 bf16", err, tol)
+    ms = time_ms(call, iters=5, warmup=1)
+    plain_ms = time_ms(lambda: resnetfc_plain(x, z, w, compute_dtype=bf, code=CODE, **kw),
+                       iters=3, warmup=1)
+    lib_ms = time_ms(product_chain(gen, BAND, 512, MMA_SYNC_DL, dims["k_in"], bf, False),
+                     iters=5, warmup=1)
+    wbytes = sum(t.numel() for t in w) * 2
+    b_ms, b_by = bound(x.numel() * 4 + z.numel() * 2 + wbytes + BAND * 4 * 4,
+                       wide_flops(BAND, 1, 512, MMA_SYNC_DL, CODE.d_enc), BF16_FLOPS)
+    row = dict(kernel="resnetfc_kernel", source="avr_tpu_torch/csrc/resnetfc.cu",
+               shape=f"N={BAND}, NS=1, d_hidden 512, d_latent {MMA_SYNC_DL}, bf16", ms=ms,
+               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, case=case)
+    print(f"K2 mma.sync forward (resnetfc_kernel) {row['shape']}: {ms:.3f} ms (plain "
+          f"{plain_ms:.3f}, cuBLAS chain {lib_ms:.3f}, bound {b_ms:.3f} by {b_by}); "
+          f"{err:.3e} from the plain version (tolerance {tol:.3e})")
+    del args, x, z, want
+    torch.cuda.empty_cache()
+    return row
 
 
 WIDE_C = 1024  # the latent channels of a 5-stage encoder's map
@@ -5093,14 +5165,13 @@ def run_wide_slice():
     c2w = orbit_cam2world(1, 1.3)[:1]
 
     def wide_only(case, counts, cd):
-        # bf16 on the TMA cluster kernels, float32 on the first version
+        # every forward on the dtype's cluster kernel (bf16 TMA, float32)
         fwd = counts.get(K2.NAME, 0) + counts.get(K2.NAME_STASH, 0)
         other = {k: counts.get(k, 0) for k in (K2.NAME_WGMMA, K2.NAME_F32, K2.NAME_DGRAD_F32)}
-        tma = counts.get(K2.NAME_WIDE_TMA, 0)
-        if not fwd or counts.get(K2.NAME_WIDE[cd], 0) != fwd or any(other.values()) or \
-                tma != (fwd if cd == torch.bfloat16 else 0):
+        cl = counts.get(WIDE_CLUSTER[cd][0], 0)
+        if not fwd or counts.get(K2.NAME_WIDE[cd], 0) != fwd or any(other.values()) or cl != fwd:
             raise AssertionError(f"wide {case}: K2 forwards {fwd}, on the wide kernels "
-                                 f"{counts.get(K2.NAME_WIDE[cd], 0)} (TMA cluster {tma}), "
+                                 f"{counts.get(K2.NAME_WIDE[cd], 0)} (cluster {cl}), "
                                  f"elsewhere {other}")
 
     for cd in (torch.bfloat16, torch.float32):
@@ -5146,11 +5217,10 @@ def run_wide_slice():
             counts = launches[case] = dict(_build.launches)
             wide_only(case, counts, cd)
             name = K2.NAME_DGRAD if bwd == "stash" else K2.NAME_RECOMPUTE
-            tma = counts.get(K2.NAME_DGRAD_WIDE_TMA, 0)
+            cl = counts.get(WIDE_CLUSTER[cd][1], 0)
             if not counts.get(K2.NAME_DGRAD_WIDE[cd]) or \
                     counts.get(K2.NAME_DGRAD_WIDE[cd]) != counts.get(name, 0) or \
-                    tma != (counts.get(name, 0) if cd == torch.bfloat16 else 0) or \
-                    not counts.get(K2.NAME_WGRAD):
+                    cl != counts.get(name, 0) or not counts.get(K2.NAME_WGRAD):
                 raise AssertionError(f"wide {case}: dgrads {counts}")
             if not np.isfinite(loss) or skipped:
                 raise AssertionError(f"wide {case}: loss {loss}, skipped updates {skipped}")
@@ -5169,10 +5239,9 @@ def run_wide_slice():
     return res, launches
 
 
-# the wide rows of the kernels line: the four kernels' names (bf16 the TMA
-# cluster kernels, float32 the first version)
-WIDE_NAMES = (K2.NAME_WIDE_TMA, K2.NAME_DGRAD_WIDE_TMA, K2.NAME_WIDE[torch.float32],
-              K2.NAME_DGRAD_WIDE[torch.float32])
+# the wide rows of the kernels line: the four kernels' names (the cluster
+# kernels: bf16 TMA, float32)
+WIDE_NAMES = (*WIDE_CLUSTER[torch.bfloat16], *WIDE_CLUSTER[torch.float32])
 
 
 def run_wide():
@@ -5184,8 +5253,10 @@ def run_wide():
     gen = torch.Generator(device=DEV).manual_seed(12)
     kernels = check_wide(gen)
     channels = check_wide_channels(gen)
+    mma_sync = time_mma_sync_forward(torch.Generator(device=DEV).manual_seed(14))
     res, launches = run_wide_slice()
     res["channels"] = channels
+    res["mma_sync_forward"] = mma_sync
     for k in kernels:
         by_case = {case: counts.get(k["name"], 0) for case, counts in launches.items()}
         if not sum(by_case.values()):

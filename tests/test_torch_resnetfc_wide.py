@@ -155,11 +155,16 @@ def test_shipped_shapes_keep_their_kernels(cd, want_fwd, want_bwd):
 
 def test_wide_routes():
     # d_hidden past 512: the wide forward and dgrad in both dtypes, bf16 on
-    # the TMA cluster kernels up to 1,024, float32 on the first version
-    for cd, want in ((BF16, "wide_tma"), (F32, "wide")):
+    # the TMA cluster kernels up to 1,024, float32 on its cluster kernels up
+    # to 1,024, on the first version past them
+    for cd, want in ((BF16, "wide_tma"), (F32, "wide_f32")):
         for dh in (576, 640, 1024):
             assert K2.forward_route(cd, 512, 64, dh) == want
             assert K2.backward_route(cd, dh, 512, 64) == want
+    assert K2.forward_route(F32, 1152, 64, 1024) == "wide_f32"
+    for dh in (1088, 1152, 1792):
+        assert K2.forward_route(F32, 512, 64, dh) == "wide"
+        assert K2.backward_route(F32, dh, 512, 64) == "wide"
     # bf16 at 512 past the tail's latent or input lanes: the forward keeps
     # its kernel, the dgrad is the TMA cluster one; float32 keeps both
     assert K2.forward_route(BF16, 640, 64, 512) == "mma_sync"
@@ -187,8 +192,9 @@ def test_everything_jax_fuses_has_a_kernel(cd):
                                     d_in=d_enc, bn=False, beta=0.0)
                 dlp, k_in = K2.d_enc_padded(dl), K2.d_enc_padded(d_enc)
                 assert K2.forward_route(cd, dlp, k_in, dh) in ("wgmma", "mma_sync", "fma", "wide",
-                                                               "wide_tma")
-                assert K2.backward_route(cd, dh, dlp, k_in) in ("wgmma", "fma", "wide", "wide_tma")
+                                                               "wide_tma", "wide_f32")
+                assert K2.backward_route(cd, dh, dlp, k_in) in ("wgmma", "fma", "wide", "wide_tma",
+                                                                "wide_f32")
                 K2.check_wide_bound(cd, dh, dlp, k_in, backward=True)
 
 
@@ -347,6 +353,144 @@ def test_wide_tma_route_rule(backward):
                     K2.check_wide_bound(BF16, dh, dl, k_in, backward=backward)
                 if r == "wide_tma":
                     assert dh <= 1024 and K2.wide_tma_smem(dh, dl, k_in, backward) <= K2.SMEM_MAX
+
+
+def _wf():
+    """The float32 cluster kernels' WF_* constants."""
+    env = {}
+    for line in re.findall(r"^constexpr int (WF_\w+ = [^;]+);", _source(), re.M):
+        for part in line.split(", "):
+            name, expr = part.split(" = ")
+            env[name] = eval(expr, {}, dict(env))  # noqa: S307 - the repo's own constants
+    return env
+
+
+def _wf_fn(name):
+    """The source text of the body of one of the float32 cluster kernels'
+    host-and-device helpers."""
+    return re.search(r"inline \w+ " + name + r"\(([^)]*)\) \{(.+?)\n?\}\n", _source(),
+                     re.S).group(2)
+
+
+def test_wide_f32_tile_matches_the_source():
+    """The float32 cluster kernels' constants are the wrapper's: 16 points a
+    CTA, 8 weight rows a stage, clusters of 2 (the grid, the view-sum scratch
+    and the dgrad's pool by a cluster's points), 3 to 8 stages, d_hidden up
+    to 1,024: four consumer warps of 16 points x 8 columns a thread (1,024
+    columns) beside a producer warp, one launch bound for both kernels."""
+    wf = _wf()
+    assert (wf["WF_TM"], wf["WF_KS"], wf["WF_CLUSTER"]) == (
+        K2.WIDE_F32_TM, K2.WIDE_F32_KS, K2.WIDE_F32_CLUSTER)
+    assert (wf["WF_STAGES_MIN"], wf["WF_STAGES_MAX"], wf["WF_DH_MAX"]) == (
+        K2.WIDE_F32_STAGES_MIN, K2.WIDE_F32_STAGES_MAX, K2.WIDE_F32_DH_MAX)
+    assert K2.dgrad_tile(F32, "wide_f32") == wf["WF_TM"] * wf["WF_CLUSTER"]
+    assert wf["WF_KS"] % 4 == 0 and wf["WF_TM"] == 16
+    assert wf["WF_CONSUMERS"] * 8 == wf["WF_DH_MAX"] and wf["WF_CONSUMERS"] % 32 == 0
+    assert wf["WF_THREADS"] == wf["WF_CONSUMERS"] + 32
+    assert _source().count("__launch_bounds__(WF_THREADS, 1)") == 2
+
+
+def _wf_cover(cw, pt, threads):
+    """A numpy mirror of ``wf_map<PT>``: the (point, column) outputs the
+    active consumer threads own in a product ``cw`` columns wide, each
+    thread PT points x 8 columns (8 PT threads a point set)."""
+    seen = np.zeros((16, cw), np.int64)
+    s, per_set = 16 // pt, 8 * pt
+    for t in range(threads):
+        tp, tc = t // per_set, t % per_set
+        if not tc < cw // 8:
+            continue
+        for i in range(pt):
+            for c in (4 * tc, cw // 2 + 4 * tc):
+                seen[tp + s * i, c:c + 4] += 1
+    return seen
+
+
+@pytest.mark.parametrize("dh", [576, 640, 768, 1024])
+def test_wide_f32_threads_cover_each_output_once(dh):
+    """Every product's outputs have one owner: a d_hidden-wide product at 16
+    points a thread, and the dgrad's windows (lin_in and the latent in
+    windows of d_hidden columns, the last narrower) at ``wf_pt``'s points a
+    thread (the source's rule mirrored), every (point, column) once on the
+    128 consumer threads; at 16 points a warp's 32 column threads read 512
+    contiguous bytes of a weight row."""
+    threads = _wf()["WF_CONSUMERS"]
+    pt_rule = _wf_fn("wf_pt")
+    assert "while (pt < 16 && 64 * pt < cw) pt *= 2;" in pt_rule
+    assert "const int tc = threadIdx.x % T;" in _source()
+
+    def wf_pt(cw):
+        pt = 1
+        while pt < 16 and 64 * pt < cw:
+            pt *= 2
+        return pt
+
+    assert wf_pt(dh) == 16
+    assert (_wf_cover(dh, 16, threads) == 1).all()
+    for n in (64, 576, 612 // 64 * 64 + 64, 1152, 2048):
+        for cb in range(0, n, dh):
+            cw = min(dh, n - cb)
+            pt = wf_pt(cw)
+            assert (16 // pt) * 8 * pt == threads
+            assert (_wf_cover(cw, pt, threads) == 1).all(), (n, cb, cw)
+
+
+def test_wide_f32_smem_matches_the_source():
+    """``wide_f32_stages`` / ``wide_f32_smem`` mirror ``wf_stages`` /
+    ``wf_smem`` (the ring of 8-row weight stages, the trunk, the operand
+    tile as wide as d_hidden or the encoded input,
+    g_epi and the barriers); every shape the route rule sends there fits the
+    card's 232,448 bytes with at least 3 stages."""
+    wf, src = _wf(), _source()
+    assert "return (dh > k_in ? dh : k_in) + 4;" in _wf_fn("wf_lda")
+    assert "return WF_KS * dh;" in _wf_fn("wf_stage_floats")
+    fixed = " ".join(_wf_fn("wf_fixed").split())
+    assert fixed == ("return 4 * ((size_t)WF_TM * (dh + 4) + (size_t)WF_TM * wf_lda(dh, k_in) + "
+                     "WF_TM * GOUT_W) + 2 * WF_STAGES_MAX * 8;")
+    assert "room / (4ll * wf_stage_floats(dh))" in _wf_fn("wf_stages")
+    assert "wf_stages(dh, k_in) * 4 * wf_stage_floats(dh) + wf_fixed(dh, k_in)" in \
+        " ".join(_wf_fn("wf_smem").replace("(size_t)", "").split())
+    assert "wf_stages(d_hidden, k_in) >= WF_STAGES_MIN" in src
+    for dh in range(64, 1793, 64):
+        for k_in in (64, 128, 576, 1216, 2048):
+            lda = max(dh, k_in) + 4
+            fix = 4 * (wf["WF_TM"] * (dh + 4) + wf["WF_TM"] * lda + wf["WF_TM"] * K2.GOUT_W) \
+                + 2 * wf["WF_STAGES_MAX"] * 8
+            stage = 4 * wf["WF_KS"] * dh
+            stages = max(0, min(wf["WF_STAGES_MAX"], (K2.SMEM_MAX - fix) // stage))
+            assert K2.wide_f32_stages(dh, k_in) == stages
+            assert K2.wide_f32_smem(dh, k_in) == stages * stage + fix
+            if K2.wide_f32_fits(F32, dh, k_in):
+                assert K2.wide_f32_smem(dh, k_in) <= K2.SMEM_MAX and stages >= 3
+    # phase 11's decoder: d_hidden 1,024 and 576 encoded lanes, three stages
+    assert K2.wide_f32_stages(1024, 576) == 3
+    assert K2.wide_f32_smem(1024, 576) == 230_528 <= K2.SMEM_MAX
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_wide_f32_route_rule(backward):
+    """The float32 rule is one function of the shape, and the envelope does
+    not narrow: every float32 shape the first version took (d_hidden 576 to
+    1,792; latents and inputs to 2,048 lanes) still has a kernel, the cluster
+    one exactly where ``wide_f32_fits`` (d_hidden up to 1,024 with three
+    stages), the first version everywhere else; the wrapper raises for none
+    of them."""
+    route = (lambda dh, dl, k_in: K2.backward_route(F32, dh, dl, k_in)) if backward else \
+        (lambda dh, dl, k_in: K2.forward_route(F32, dl, k_in, dh))
+    for dh in range(576, 1793, 64):
+        for dl in range(64, 2049, 128):
+            for k_in in (64, 128, 576, 1216, 2048):
+                r = route(dh, dl, k_in)
+                fits = K2.wide_f32_fits(F32, dh, k_in)
+                assert r == ("wide_f32" if fits else "wide")
+                assert fits == (dh <= 1024 and K2.wide_f32_stages(dh, k_in) >= 3)
+                first = K2.wide_smem(F32, dh, dl, k_in) <= K2.SMEM_MAX and (
+                    not backward or K2.wide_smem(F32, dh, dl, k_in, True) <= K2.SMEM_MAX)
+                if first:
+                    K2.check_wide_bound(F32, dh, dl, k_in, backward=backward)
+    # the narrow float32 kernels keep d_hidden 512 and below
+    assert route(512, 1152, 576) == "fma" and not K2.wide_f32_fits(F32, 512, 64)
+    assert not K2.wide_f32_fits(BF16, 1024, 64)
 
 
 # ---------------------------------------------------------------------------

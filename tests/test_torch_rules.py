@@ -45,7 +45,7 @@ torch.set_num_threads(2)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "avr_tpu", "scripts")
 # the turns scripts' sources run as python -c
-SNIPPETS = ("_TURN", "_PROBE", "_STAMPED", "_CAPTURE", "_COMMON")
+SNIPPETS = ("_TURN", "_PROBE", "_STAMPED", "_CAPTURE", "_COMMON", "_SLICE", "_SWEEP")
 TINY = """
 include required("default_mv.conf")
 model {

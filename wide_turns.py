@@ -1,8 +1,13 @@
-"""K2's wide bf16 kernels (the forward and the dgrad past d_hidden 512), in
-checkouts of the repo, in turns, and with ``--probe`` what bounds them.
+"""K2's wide kernels (the forward and the dgrad past d_hidden 512), in
+checkouts of the repo, in turns, and with ``--probe`` (the bf16 pair) or
+``--probe-f32`` (the float32 pair) what bounds them; with ``--slice`` the
+float32 slice of ``chip_smoke.py --wide`` profiled.
 
     python3 wide_turns.py CHECKOUT [CHECKOUT ...]
     python3 wide_turns.py --probe CHECKOUT [CHECKOUT ...]
+    python3 wide_turns.py --probe-f32 CHECKOUT [CHECKOUT ...]
+    python3 wide_turns.py --slice CHECKOUT [CHECKOUT ...]
+    python3 wide_turns.py --sweep CHECKOUT
 
 Each CHECKOUT is a tree of the repo (a ``git archive`` of a commit) with its
 own ``chip_smoke.py``.  In each, in the order given and then in reverse, a
@@ -18,10 +23,11 @@ the band chunk of ``chip_smoke.py --wide`` (81,920 points, NS 1, d_hidden
   their bits, taken on the card), the largest difference of the forward
   from the plain version, the launch counters the calls moved, and for each
   a loop of about a second with the SM clock and power ``nvidia-smi`` read;
-- times the float32 wide forward and dgrad the same way (a redesign of the
-  bf16 kernels leaves them as they are: their times should not move), and
-  the narrow bf16 K2 forward and dgrad at d_hidden 512 (the band's 81,920
-  points, the shipped decoder): device ms and digests.
+- times the float32 wide forward and dgrad the same way (on a tree that
+  has them, the float32 cluster kernels: their digests equal the first
+  version's), and the narrow bf16 K2 forward and dgrad at d_hidden 512 (the
+  band's 81,920 points, the shipped decoder, which must not move): device
+  ms and digests.
 
 ``--probe`` runs once in each checkout, not in turns: the tree's bf16 wide
 forward and dgrad at the band beside probe kernels compiled from this file
@@ -51,6 +57,29 @@ epilogue is a fourth; the stamps serialise the three phases of a step and
 cost part of the kernel's time (its stamped time is printed beside).  A
 tree whose kernel lacks a stamp site (a redesigned one) prints
 ``{"stamps": "source does not match"}`` and is not run.
+
+``--probe-f32`` does the same for the float32 pair: the tree's float32 wide
+forward and dgrad at the band, then the 56.4 MB of float32 weights
+streamed once a 16-point tile (5,120 CTAs, one an SM) by ``__ldg`` in
+``kloop<float>``'s pattern (16 warps, a lane's two 16-byte loads of each of
+four k rows in flight), by bulk copies through 3 x 30 KB (the room beside
+the first version's trunk and tile) and 3 x 32 KB rings, the same
+multicast over 2- and 4-CTA clusters, and the first 40 MB alone (inside
+L2), each with its L2 read rate (above HBM's 3.35 TB/s the reads cannot all
+come from HBM); then the first version's float32 cycles by phase
+(``STAMPS_F32``: its 16 warps) and, where the tree has them, the float32
+cluster kernels' (``STAMPS_WF``: their four consumer warps).
+
+``--sweep`` runs once in a checkout that has the float32 cluster kernels:
+their forward and dgrad against the first version (the routes forced to
+each, in turns: cluster, first, first, cluster; CUDA events) at the band
+chunk with the slice's latent of 1,152 lanes, d_hidden 576 to 1,024: what
+``ops/kernels/resnetfc.py wide_f32_fits`` routes by.
+
+``--slice`` runs in each checkout in turns: the d_hidden 1,024 model of
+``chip_smoke.py`` WIDE_CONF in float32, a served frame and a train step on
+the stash backward, each once under ``torch.profiler`` after a warm-up call
+(wall ms, device busy ms and share, the largest kernels, the wide launches).
 
 Every tree gets the same inputs (the generators are seeded here).  The SM
 clock moves under the card's power cap between runs, so trees compare only
@@ -155,6 +184,111 @@ gs, wd, _ = K2._bwd_operands(args, dims, g, K2.NAME_DGRAD)
 dgrad = lambda: K2._dgrad(args, dims, st, gs, wd, torch.bfloat16)
 res["narrow dgrad bf16"] = dict(device_ms=device_ms(dgrad, NARROW_DGRAD, 10),
                                 digest=digest_dev(list(dgrad())), launches=moved(dgrad))
+print(json.dumps(res), flush=True)
+"""
+
+# --slice, run in a checkout: phase 11's float32 slice (chip_smoke.py
+# WIDE_CONF: conf/default_mv.conf's model at d_hidden 1,024 with the 5-stage
+# and global encoders) profiled: a served 128x128 frame and a train step on
+# the stash backward, each once under torch.profiler after a warm-up call:
+# wall ms, device busy ms and share, the largest kernels, the wide launches
+_SLICE = r"""
+import json, sys, time
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from torch.profiler import ProfilerActivity, profile
+from avr_tpu_torch.evaluation import render_full_image
+from avr_tpu_torch.ops import threefry
+from avr_tpu_torch.ops.kernels import _build
+from avr_tpu_torch.training import LossParams, create_train_state, make_optimizer, make_train_step
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+_build.load_library()
+f32 = torch.float32
+batch, tb = cs.scene_batch(), cs.train_batch(cs.DEV)
+intr = torch.as_tensor(batch["intrinsics"][:, 0])
+c2w = cs.orbit_cam2world(1, 1.3)[:1]
+res = {"checkout": sys.argv[1]}
+
+
+def profiled(name, call):
+    call(0)
+    torch.cuda.synchronize()
+    before = dict(_build.launches)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        call(1)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    res[name] = dict(wall_ms=wall, device_busy_ms=busy, busy_share=busy / wall,
+                     top=[[k[:90], ms, c] for k, ms, c in rows[:6]],
+                     wide_launches={k: v - before.get(k, 0) for k, v in _build.launches.items()
+                                    if "wide" in k and v != before.get(k, 0)})
+
+
+model = cs.conf_model(cs.WIDE_CONF, f32, cs.DEV)
+with torch.inference_mode():
+    cond = cs.encode_scene(model, batch, cs.DEV)
+    profiled("frame", lambda i: render_full_image(model, cond, intr, c2w, cs.SIDE,
+                                                  threefry.PRNGKey(i), cs.CHUNK, cs.DEV))
+del model, cond
+model = cs.conf_model(cs.WIDE_CONF, f32, cs.DEV, fused_mlp="stash")
+opt = make_optimizer(1e-4)
+state = [create_train_state(model, opt)]
+step = make_train_step(model, opt, LossParams(loss_mode="both"))
+
+
+def train(i):
+    state[0], m = step(state[0], *tb, (0, i))
+
+
+profiled("stash step", train)
+print(json.dumps(res), flush=True)
+"""
+
+# --sweep, run once in a checkout: the float32 cluster kernels against the
+# first version over d_hidden, the routes forced to each in turns
+_SWEEP = r"""
+import json, sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from avr_tpu_torch.ops.kernels import _build
+from avr_tpu_torch.ops.kernels import resnetfc as K2
+
+torch.backends.cuda.matmul.allow_tf32 = False
+_build.load_library()
+f32 = torch.float32
+gen = torch.Generator(device=cs.DEV).manual_seed(3)
+res = {"checkout": sys.argv[1], "rows": []}
+saved = K2.forward_route, K2.backward_route
+for dh in range(576, 1025, 64):
+    w = cs.decoder_weights(gen, dl=cs.WIDE_DL, dh=dh)
+    x, z, g = cs.wide_inputs(gen, cs.BAND, 1, cs.WIDE_DL, cs.CODE, f32)
+    args = K2._prepare(x, z, w, cs.CODE, f32)
+    dims = K2._dims(args, 5, 3, True)
+    fwd = lambda: K2._forward(args, dims, f32, False)
+    st = K2._forward(args, dims, f32, True)[1]
+    gs, wd, _ = K2._bwd_operands(args, dims, g, K2.NAME_DGRAD)
+    dgrad = lambda: K2._dgrad(args, dims, st, gs, wd, f32)
+    row = {"d_hidden": dh}
+    for name, fn in (("forward", fwd), ("dgrad", dgrad)):
+        t = {"wide_f32": [], "wide": []}
+        for route in ("wide_f32", "wide", "wide", "wide_f32"):
+            K2.forward_route = K2.backward_route = lambda *a, **k: route
+            try:
+                t[route].append(cs.time_ms(fn, iters=2, warmup=1))
+            finally:
+                K2.forward_route, K2.backward_route = saved
+        row[name] = dict(cluster_ms=t["wide_f32"], first_version_ms=t["wide"])
+    res["rows"].append(row)
+    del args, st, gs, wd
+    torch.cuda.empty_cache()
 print(json.dumps(res), flush=True)
 """
 
@@ -300,6 +434,40 @@ __global__ void __launch_bounds__(288, 1) probe_bulk_kernel(const unsigned char*
   if (acc == 0x12345678u) sink[blockIdx.x] = acc;
 }
 
+// (a) float32: krows k rows of `width` floats once a CTA in kloop<float>'s
+// pattern: 16 warps take 64-column groups in turn; a lane (tc = lane % 8)
+// loads 16 bytes at columns col0 + 4 tc and col0 + 32 + 4 tc of each k row,
+// four k rows (8 loads) in flight
+__global__ void __launch_bounds__(512, 1) probe_ldg_f32_kernel(const float* w, int krows,
+                                                             int width, uint32_t* sink) {
+  const int lane = threadIdx.x & 31, tc = lane & 7, warp = threadIdx.x >> 5;
+  uint32_t acc = 0;
+  for (int col0 = 64 * warp; col0 < width; col0 += 64 * 16) {
+    const int c0 = col0 + 4 * tc, c1 = col0 + 32 + 4 * tc;
+    for (int k4 = 0; k4 < krows; k4 += 4) {
+      float4 b[8];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        b[2 * kk] = __ldg(reinterpret_cast<const float4*>(w + (size_t)(k4 + kk) * width + c0));
+        b[2 * kk + 1] = __ldg(reinterpret_cast<const float4*>(w + (size_t)(k4 + kk) * width + c1));
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        acc ^= __float_as_uint(b[q].x) ^ __float_as_uint(b[q].y) ^ __float_as_uint(b[q].z) ^
+               __float_as_uint(b[q].w);
+    }
+  }
+  if (acc == 0x12345678u) sink[blockIdx.x] = acc;
+}
+
+extern "C" int probe_ldg_f32(const void* w, int krows, int width, int blocks, int smem,
+                             void* sink, void* stream) {
+  cudaFuncSetAttribute(probe_ldg_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  probe_ldg_f32_kernel<<<blocks, 512, smem, (cudaStream_t)stream>>>((const float*)w, krows, width,
+                                                                    (uint32_t*)sink);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int probe_ldg(const void* w, int rows, int kvec, int blocks, int smem, void* sink,
                          void* stream) {
   cudaFuncSetAttribute(probe_ldg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -353,6 +521,7 @@ lib = ctypes.CDLL(so)
 V, I = ctypes.c_void_p, ctypes.c_int
 lib.probe_ldg.argtypes = [V, I, I, I, I, V, V]
 lib.probe_bulk.argtypes = [V, I, I, I, I, I, I, I, V, V]
+lib.probe_ldg_f32.argtypes = [V, I, I, I, I, V, V]
 stream = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 sink = torch.zeros(1 << 16, dtype=torch.int32, device=cs.DEV)
 
@@ -369,6 +538,53 @@ def call(fn, *a):
 
 _build.load_library()
 res = {"checkout": sys.argv[1]}
+if sys.argv[2:] == ["float32"]:
+    f32 = torch.float32
+    gen = torch.Generator(device=cs.DEV).manual_seed(21)
+    w = cs.decoder_weights(gen, dl=cs.WIDE_DL, dh=cs.WIDE_DH)
+    x, z, g = cs.wide_inputs(gen, cs.BAND, 1, cs.WIDE_DL, cs.CODE, f32)
+    args = K2._prepare(x, z, w, cs.CODE, f32)
+    dims = K2._dims(args, 5, 3, True)
+    fwd = lambda: K2._forward(args, dims, f32, False)
+    st = K2._forward(args, dims, f32, True)[1]
+    gs, wd, _ = K2._bwd_operands(args, dims, g, K2.NAME_DGRAD)
+    dgrad = lambda: K2._dgrad(args, dims, st, gs, wd, f32)
+    res["forward f32"] = dict(device_ms=dev(fwd, ("resnetfc_wide",), 2))
+    res["dgrad f32"] = dict(device_ms=dev(dgrad, ("resnetfc_wide",), 2))
+    # the float32 weights the products stream once a tile: wi, wz, w0, w1
+    wbytes = sum(args[k].numel() * 4 for k in ("wi", "wz", "w0", "w1"))
+    WIDTH = 1024
+    krows = -(-wbytes // (4 * WIDTH)) // 4 * 4 + 4
+    buf = torch.randn(krows * WIDTH, device=cs.DEV)
+    tiles = -(-cs.BAND // 16)  # the first version's 16-point tiles
+    res["weights f32"] = dict(bytes=wbytes, streamed=krows * WIDTH * 4, tiles=tiles)
+    FIRST_SMEM = 139_776  # the first version's float32 trunk and operand tile: one CTA an SM
+    floors = {"ldg f32, first version's pattern": (lambda: call(
+        lib.probe_ldg_f32, buf.data_ptr(), krows, WIDTH, tiles, FIRST_SMEM), 1, krows * WIDTH * 4)}
+    MODES = ("cluster-scope arrivals", "CTA-scope arrivals", "one CTA-scope arrival a CTA")
+    # 3 x 30 KB: the ring that fits beside the first version's 140 KB; 3 x
+    # 32 KB; and the first 40 MB alone (inside L2) for contrast
+    for stage, stages, total in ((30720, 3, wbytes), (32768, 3, wbytes), (32768, 3, 40 << 20)):
+        n = -(-total // stage)
+        for cl, mode in ((1, 0), (2, 1), (2, 2), (4, 1), (4, 2)):
+            if total != wbytes and mode == 1:
+                continue
+            name = (f"bulk f32 {stages} x {stage // 1024} KB stages, cluster {cl}"
+                    + (f", {MODES[mode]}" if cl > 1 else "")
+                    + ("" if total == wbytes else f", {total >> 20} MB"))
+            floors[name] = (lambda n=n, stage=stage, stages=stages, cl=cl, mode=mode: call(
+                lib.probe_bulk, buf.data_ptr(), n, stage, stages, cl, mode, tiles, 227 * 1024),
+                cl, n * stage)
+    for name, (fn, cl, nbytes) in floors.items():
+        ms = dev(fn, ("probe_",), 3)
+        delivered = tiles * nbytes / ms / 1e9
+        # L2 reads each byte once a cluster; above 3.35 TB/s (HBM) the
+        # reads cannot all come from HBM
+        res["floor " + name] = dict(device_ms=ms, l2_to_sm_tb_s=delivered,
+                                    l2_read_tb_s=delivered / cl)
+    shutil.rmtree(tmp)
+    print(json.dumps(res), flush=True)
+    sys.exit(0)
 bf = torch.bfloat16
 gen = torch.Generator(device=cs.DEV).manual_seed(21)
 w = cs.decoder_weights(gen, dl=cs.WIDE_DL, dh=cs.WIDE_DH)
@@ -581,6 +797,260 @@ constexpr int WT_TM = 32;""", 1),
 ]
 STAMP_PHASES_TMA = ("stage wait", "products (mma.sync)", "epilogues", "named barriers")
 
+# (d) float32: exact edits of csrc/resnetfc_wide.cu that stamp the first
+# version's float32 kloop (a warp's 4-wide k step of a 64-column group: the
+# A rows' shared (or, for dz, global) loads, the wait for the eight 16-byte
+# weight loads from L2, the 128 FMAs), its products' epilogues (the dgrad's
+# ReLU masks read there), the dgrad's cotangent stores, its tail's dx sums
+# and encoded input, and its lin_out backward (g_epi and the first gh);
+# (old, new) each once
+STAMPS_F32 = [
+    ("template <typename T> struct Wide;", """__shared__ unsigned long long wf_t[16][8];
+__device__ long long wf_stamps[2 * 16 * 8];
+#define WF_T(k, t0) if ((threadIdx.x & 31) == 0) wf_t[threadIdx.x >> 5][k] += clock64() - (t0)
+#define WF_DUMP(kind) if (std::is_same<T, float>::value && blockIdx.x == 1000 && \\
+    (threadIdx.x & 31) == 0) { long long* o = wf_stamps + ((kind) * 16 + (threadIdx.x >> 5)) * 8; \\
+    o[0] = clock64() - wf_start; for (int q = 0; q < 7; ++q) o[q + 1] = wf_t[threadIdx.x >> 5][q]; }
+template <typename T> struct Wide;"""),
+    ("""  for (int k4 = 0; k4 < K; k4 += 4) {
+    float4 a[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = a_f32<AM>(A, lda, tp + 4 * i, k4, nv);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 b0 = __ldg(reinterpret_cast<const float4*>(W + (size_t)(k4 + kk) * ldw + c0));
+      const float4 b1 = __ldg(reinterpret_cast<const float4*>(W + (size_t)(k4 + kk) * ldw + c1));
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};""",
+     """  for (int k4 = 0; k4 < K; k4 += 4) {
+    float4 a[4];
+    long long t0 = clock64();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = a_f32<AM>(A, lda, tp + 4 * i, k4, nv);
+    float dep = a[0].x + a[1].y + a[2].z + a[3].w;
+    asm volatile("mov.b32 %0, %0;" : "+f"(dep));
+    WF_T(0, t0);
+    t0 = clock64();
+    float4 bq[8];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      bq[2 * kk] = __ldg(reinterpret_cast<const float4*>(W + (size_t)(k4 + kk) * ldw + c0));
+      bq[2 * kk + 1] = __ldg(reinterpret_cast<const float4*>(W + (size_t)(k4 + kk) * ldw + c1));
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) dep += bq[q].x + bq[q].w;
+    asm volatile("mov.b32 %0, %0;" : "+f"(dep));
+    WF_T(1, t0);
+    t0 = clock64();
+    if (dep == 1234.5f) acc[0] += 1.f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 b0 = bq[2 * kk], b1 = bq[2 * kk + 1];
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};"""),
+    ("""        for (int j = 0; j < 8; ++j) acc[8 * i + j] = fmaf(av, bv[j], acc[8 * i + j]);
+      }
+    }
+  }
+}""", """        for (int j = 0; j < 8; ++j) acc[8 * i + j] = fmaf(av, bv[j], acc[8 * i + j]);
+      }
+    }
+    float fdep = acc[31] + acc[0];
+    asm volatile("mov.b32 %0, %0;" : "+f"(fdep));
+    WF_T(2, t0);
+    if (fdep == 1234.5f) acc[1] += 1.f;
+  }
+}"""),
+    ("""    kloop<AM>(acc, A, lda, nv, W, ldw, K, col0);
+    epi(acc, col0);""", """    kloop<AM>(acc, A, lda, nv, W, ldw, K, col0);
+    const long long te = clock64();
+    epi(acc, col0);
+    __syncwarp();
+    WF_T(3, te);"""),
+    ("""    trunk_out<T, false>(Hs, ldh, cot + stash_slot(k, 1, v, ns, nlz) * slot, r0, nv, dh);""",
+     """    { const long long ts = clock64();
+    trunk_out<T, false>(Hs, ldh, cot + stash_slot(k, 1, v, ns, nlz) * slot, r0, nv, dh);
+    __syncwarp(); WF_T(4, ts); }"""),
+    ("""    rows_out(As, lda, cot + stash_slot(k, 0, v, ns, nlz) * slot, r0, nv, dh);""",
+     """    { const long long ts = clock64();
+    rows_out(As, lda, cot + stash_slot(k, 0, v, ns, nlz) * slot, r0, nv, dh);
+    __syncwarp(); WF_T(4, ts); }"""),
+    ("""    rows_out(As, lda, ci, r0, nv, dh);""", """    { const long long ts = clock64();
+    rows_out(As, lda, ci, r0, nv, dh);
+    __syncwarp(); WF_T(4, ts); }"""),
+    ("""      __syncthreads();
+      for (int idx = tid; idx < TM * a.d_in; idx += nt) {""", """      __syncthreads();
+      const long long tx = clock64();
+      for (int idx = tid; idx < TM * a.d_in; idx += nt) {"""),
+    ("""        a.dx[at] = sum;
+      }
+      __syncthreads();  // the chunk is read before the next one is written""",
+     """        a.dx[at] = sum;
+      }
+      __syncwarp();
+      WF_T(5, tx);
+      __syncthreads();  // the chunk is read before the next one is written"""),
+    ("""    T* enc = static_cast<T*>(a.enc) + (size_t)v * N * k_in;""",
+     """    const long long t5 = clock64();
+    T* enc = static_cast<T*>(a.enc) + (size_t)v * N * k_in;"""),
+    ("""      enc[(size_t)row * k_in + j] = from_f<T>(val);
+    }
+""", """      enc[(size_t)row * k_in + j] = from_f<T>(val);
+    }
+    __syncwarp();
+    WF_T(5, t5);
+"""),
+    ("""    Hs[r * ldh + c] = v;
+  }
+
+  // block k of view v, backward""", """    Hs[r * ldh + c] = v;
+  }
+  __syncwarp();
+  WF_T(6, wf_start);
+
+  // block k of view v, backward"""),
+    ("""  const int r0 = blockIdx.x * TM, nv = min(TM, N - r0), tid = threadIdx.x, nt = blockDim.x;
+  const T* wi = static_cast<const T*>(a.wi);
+  const T* wz = static_cast<const T*>(a.wz);
+  const T* w0 = static_cast<const T*>(a.w0);
+  const T* w1 = static_cast<const T*>(a.w1);
+  T* stash = static_cast<T*>(a.stash);""", """  const int r0 = blockIdx.x * TM, nv = min(TM, N - r0), tid = threadIdx.x, nt = blockDim.x;
+  if (tid < 128) (&wf_t[0][0])[tid] = 0;
+  __syncthreads();
+  const long long wf_start = clock64();
+  const T* wi = static_cast<const T*>(a.wi);
+  const T* wz = static_cast<const T*>(a.wz);
+  const T* w0 = static_cast<const T*>(a.w0);
+  const T* w1 = static_cast<const T*>(a.w1);
+  T* stash = static_cast<T*>(a.stash);"""),
+    ("""    a.out[(size_t)(r0 + r) * a.d_out + o] = s;
+  }
+}""", """    a.out[(size_t)(r0 + r) * a.d_out + o] = s;
+  }
+  WF_DUMP(0);
+}"""),
+    ("""  const int r0 = blockIdx.x * TM, nv = min(TM, N - r0), tid = threadIdx.x, nt = blockDim.x;
+  const T* wi = static_cast<const T*>(a.wi);
+  const T* wz = static_cast<const T*>(a.wz);
+  const T* w0 = static_cast<const T*>(a.w0);
+  const T* w1 = static_cast<const T*>(a.w1);
+  const T* stash = static_cast<const T*>(a.stash);""", """  const int r0 = blockIdx.x * TM, nv = min(TM, N - r0), tid = threadIdx.x, nt = blockDim.x;
+  if (tid < 128) (&wf_t[0][0])[tid] = 0;
+  __syncthreads();
+  const long long wf_start = clock64();
+  const T* wi = static_cast<const T*>(a.wi);
+  const T* wz = static_cast<const T*>(a.wz);
+  const T* w0 = static_cast<const T*>(a.w0);
+  const T* w1 = static_cast<const T*>(a.w1);
+  const T* stash = static_cast<const T*>(a.stash);"""),
+    ("""    tail(0);
+    return;""", """    tail(0);
+    WF_DUMP(1);
+    return;"""),
+    ("""// The forward, dtype 0 float32""", """extern "C" int avr_wd_stamps(void* out) {
+  return (int)cudaMemcpyFromSymbol(out, wf_stamps, sizeof(wf_stamps));
+}
+
+// The forward, dtype 0 float32"""),
+]
+STAMP_PHASES_F32 = ("A loads", "B wait (L2)", "FMA", "epilogues (the dgrad's masks)",
+                    "cotangent stores", "tail: dx and enc", "lin_out backward")
+
+# exact edits of csrc/resnetfc_wide.cu that stamp the float32 cluster
+# kernels (resnetfc_wide_f32_*): each of the four consumer warps' cycles
+# waiting for a slab,
+# in its FMAs (a slab's, forced complete), in the products' epilogues (the
+# dgrad's masks read there), at the consumers' named barriers and in the
+# tile's row copies (the stash, the cotangents, relu(h) into the operand
+# tile), summed in device memory by CTA 1,000 alone (the kernels' shared
+# memory is full); (old, new, occurrences, None for any)
+STAMPS_WF = [
+    ("constexpr int WF_TM = 16;", """__device__ long long wfs_t[8][8];
+__device__ long long wfs_out[2 * 4 * 8];
+#define WFS(k, t0) if (blockIdx.x == 1000 && (threadIdx.x & 31) == 0 && threadIdx.x < 128) \\
+    wfs_t[threadIdx.x >> 5][k] += clock64() - (t0)
+constexpr int WF_TM = 16;""", 1),
+    ("""    mbar_wait(&r.full[s], (it / r.stages) & 1);
+    const float* st = r.ring + (size_t)s * r.stage;
+    if (m.on) wf_fma<PT>(A + k0, lda, st, cw, m, acc);""",
+     """    long long t0 = clock64();
+    mbar_wait(&r.full[s], (it / r.stages) & 1);
+    WFS(0, t0);
+    t0 = clock64();
+    const float* st = r.ring + (size_t)s * r.stage;
+    if (m.on) wf_fma<PT>(A + k0, lda, st, cw, m, acc);
+    float dep = acc[0][0] + acc[PT - 1][7];
+    asm volatile("mov.b32 %0, %0;" : "+f"(dep));
+    if (dep == 1234.5f) acc[0][1] += 1.f;
+    WFS(1, t0);""", 1),
+    ("""#define WF_OWN(body)                                                        \\
+  {                                                                        \\""",
+     """#define WF_OWN(body)                                                        \\
+  { const long long te = clock64();                                        \\""", 1),
+    ("""      const float* ac = acc[i] + q;                                        \\
+      body                                                                 \\
+    }                                                                      \\
+  }""", """      const float* ac = acc[i] + q;                                        \\
+      body                                                                 \\
+    }                                                                      \\
+    WFS(2, te);                                                            \\
+  }""", 1),
+    ("named_sync(WF_BAR, nc);", "{ const long long tn = clock64(); named_sync(WF_BAR, nc); WFS(3, tn); }",
+     None),
+    ("""  const int nvec = w / 4;
+  for (int idx = threadIdx.x; idx < WF_TM * nvec; idx += nc) {
+    const int rr = idx / nvec, c = 4 * (idx - rr * nvec);
+    float4 v = *reinterpret_cast<const float4*>(src + rr * lds + c);
+    if (RELU) v = relu4(v);
+    if (dst2) *reinterpret_cast<float4*>(dst2 + rr * ld2 + c) = v;
+    if (dst && rr < nv) *reinterpret_cast<float4*>(dst + (size_t)(r0 + rr) * w + c) = v;
+  }""", """  const int nvec = w / 4;
+  const long long tr = clock64();
+  for (int idx = threadIdx.x; idx < WF_TM * nvec; idx += nc) {
+    const int rr = idx / nvec, c = 4 * (idx - rr * nvec);
+    float4 v = *reinterpret_cast<const float4*>(src + rr * lds + c);
+    if (RELU) v = relu4(v);
+    if (dst2) *reinterpret_cast<float4*>(dst2 + rr * ld2 + c) = v;
+    if (dst && rr < nv) *reinterpret_cast<float4*>(dst + (size_t)(r0 + rr) * w + c) = v;
+  }
+  __syncwarp();
+  WFS(4, tr);""", 1),
+    ("""  wf_start(r);
+  if (tid >= nc) {""", """  wf_start(r);
+  const long long wfs0 = clock64();
+  if (tid >= nc) {""", 2),
+    ("""  cluster_sync();  // no CTA leaves while the cluster's copies and arrivals may still reach it
+}""", """  if (blockIdx.x == 1000 && (tid & 31) == 0 && tid < nc) {
+    long long* o = wfs_out + (tid >> 5) * 8;
+    o[0] = clock64() - wfs0;
+    for (int q = 0; q < 5; ++q) {
+      o[q + 1] = wfs_t[tid >> 5][q];
+      wfs_t[tid >> 5][q] = 0;
+    }
+  }
+  cluster_sync();  // no CTA leaves while the cluster's copies and arrivals may still reach it
+}""", 1),
+    ("""  cluster_sync();
+}
+
+#undef WF_OWN""", """  if (blockIdx.x == 1000 && (tid & 31) == 0 && tid < nc) {
+    long long* o = wfs_out + (4 + (tid >> 5)) * 8;
+    o[0] = clock64() - wfs0;
+    for (int q = 0; q < 5; ++q) {
+      o[q + 1] = wfs_t[tid >> 5][q];
+      wfs_t[tid >> 5][q] = 0;
+    }
+  }
+  cluster_sync();
+}
+
+#undef WF_OWN""", 1),
+    ("""// The forward, dtype 0 float32""", """extern "C" int avr_wd_stamps(void* out) {
+  return (int)cudaMemcpyFromSymbol(out, wfs_out, sizeof(wfs_out));
+}
+
+// The forward, dtype 0 float32""", 1),
+]
+STAMP_PHASES_WF = ("slab wait", "FMA", "epilogues", "named barriers", "row copies")
+
 # run in a stamped copy: the band's forward and dgrad, their cycles by phase;
 # argv[1] "first": the routes patched to the first version (a redesigned
 # tree keeps it for other shapes), "tma": the tree's own
@@ -591,14 +1061,16 @@ import torch
 import chip_smoke as cs
 from avr_tpu_torch.ops.kernels import _build
 from avr_tpu_torch.ops.kernels import resnetfc as K2
-if sys.argv[1] == "first":
+if sys.argv[1] in ("first", "first_f32"):
     K2.forward_route = lambda *a, **k: "wide"
     K2.backward_route = lambda *a, **k: "wide"
+WARPS = {"first_f32": 16, "new_f32": 4}.get(sys.argv[1], 8)
+F32 = sys.argv[1] in ("first_f32", "new_f32")
 info = _build.load_library()
 log = str(info.get("log", "")).splitlines()
 build = [" ".join(log[i:i + 3]) for i, l in enumerate(log)
          if "resnetfc_wide" in l and "Function properties" in l]
-bf = torch.bfloat16
+bf = torch.float32 if F32 else torch.bfloat16
 gen = torch.Generator(device=cs.DEV).manual_seed(21)
 w = cs.decoder_weights(gen, dl=cs.WIDE_DL, dh=cs.WIDE_DH)
 x, z, g = cs.wide_inputs(gen, cs.BAND, 1, cs.WIDE_DL, cs.CODE, bf)
@@ -608,15 +1080,15 @@ fwd = lambda: K2._forward(args, dims, bf, False)
 st = K2._forward(args, dims, bf, True)[1]
 gs, wd, _ = K2._bwd_operands(args, dims, g, K2.NAME_DGRAD)
 dgrad = lambda: K2._dgrad(args, dims, st, gs, wd, bf)
-ms = {k: sum(cs.kernel_device_ms(f, ("resnetfc_wide",), 3).values())
+ms = {k: sum(cs.kernel_device_ms(f, ("resnetfc_wide",), 1 if F32 else 3).values())
       for k, f in (("forward", fwd), ("dgrad", dgrad))}
 fwd()
 dgrad()
 torch.cuda.synchronize()
-buf = (ctypes.c_longlong * 128)()
+buf = (ctypes.c_longlong * (16 * WARPS))()
 err = _build.kernel_fn("avr_wd_stamps", [ctypes.c_void_p])(ctypes.cast(buf, ctypes.c_void_p))
 print(json.dumps(dict(stamped_device_ms=ms, build=build, err=err,
-                      warps=[list(buf[8 * k:8 * k + 5]) for k in range(16)])), flush=True)
+                      warps=[list(buf[8 * k:8 * k + 8]) for k in range(2 * WARPS)])), flush=True)
 """
 
 
@@ -634,7 +1106,8 @@ def stamped(checkout, kernels="first"):
 
     src = os.path.join(checkout, "avr_tpu_torch", "csrc", "resnetfc_wide.cu")
     text = open(src).read()
-    edits = STAMPS_TMA if kernels == "tma" else [(o, n, 1) for o, n in STAMPS]
+    edits = {"tma": STAMPS_TMA, "new_f32": STAMPS_WF}.get(kernels) or \
+        [(o, n, 1) for o, n in (STAMPS_F32 if kernels == "first_f32" else STAMPS)]
     for old, new, count in edits:
         if text.count(old) != count if count else not text.count(old):
             return {"stamps": "source does not match"}
@@ -653,8 +1126,10 @@ def stamped(checkout, kernels="first"):
     finally:
         shutil.rmtree(tmp)
     warps = out.pop("warps")
-    phases = STAMP_PHASES_TMA if kernels == "tma" else STAMP_PHASES
-    for kind, rows in (("forward", warps[:8]), ("dgrad", warps[8:])):
+    phases = {"tma": STAMP_PHASES_TMA, "first_f32": STAMP_PHASES_F32,
+              "new_f32": STAMP_PHASES_WF}.get(kernels, STAMP_PHASES)
+    nw = len(warps) // 2
+    for kind, rows in (("forward", warps[:nw]), ("dgrad", warps[nw:])):
         total = sum(w[0] for w in rows) / len(rows)
         share = {name: sum(w[k + 1] for w in rows) / len(rows) / total
                  for k, name in enumerate(phases)}
@@ -664,10 +1139,16 @@ def stamped(checkout, kernels="first"):
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--probe"]:
-        rc = march_turns.run(_PROBE, sys.argv[2:], both_orders=False)
+    if sys.argv[1:2] == ["--slice"]:
+        sys.exit(march_turns.run(_SLICE, sys.argv[2:]))
+    if sys.argv[1:2] == ["--sweep"]:
+        sys.exit(march_turns.run(_SWEEP, sys.argv[2:], both_orders=False))
+    if sys.argv[1:2] in (["--probe"], ["--probe-f32"]):
+        f32 = sys.argv[1] == "--probe-f32"
+        rc = march_turns.run(_PROBE, sys.argv[2:], both_orders=False,
+                             extra=("float32",) if f32 else ())
         for c in sys.argv[2:]:
-            for kernels in ("first", "tma"):
+            for kernels in (("first_f32", "new_f32") if f32 else ("first", "tma")):
                 print(json.dumps({"checkout": c, "kernels": kernels,
                                   "stamps": stamped(os.path.abspath(c), kernels)}), flush=True)
         sys.exit(rc)
