@@ -12,8 +12,9 @@
 // Two forward kernels.  resnetfc_kernel<bf16> serves bf16 shapes outside
 // the wgmma forward's envelope (csrc/resnetfc_hopper.cu
 // resnetfc_fwd_wgmma_kernel: d_latent or the encoded input lanes above
-// 512), as ops/kernels/resnetfc.py forward_route decides; it is also the
-// in-run timing reference of that kernel.  Bound on H100: operations (~6.9
+// FWD_OPERAND_MAX = 1,152; up to it the wgmma forward takes them in
+// 512-lane pieces), as ops/kernels/resnetfc.py forward_route decides; it is
+// also the in-run timing reference of that kernel.  Bound on H100: operations (~6.9
 // MFLOP per point; ~0.57 ms per 81,920-point band chunk at the bf16
 // tensor-core peak, against ~28 us of compulsory bytes).  Design (first
 // version, simple): one CTA per TM = 32 points, d_hidden / 64 warps, each

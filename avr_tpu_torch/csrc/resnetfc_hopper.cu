@@ -22,7 +22,10 @@
 // mma.sync design read them from L2 with synchronous loads).  Each product's
 // rounded activation is written once into the A tile, and the ones the
 // stash keeps are stored from there by TMA (rows past N clipped by the
-// tensor map).  Details at the kernel.
+// tensor map).  An encoded input or latent wider than the A tile's 512
+// lanes (the global encoder's 640, a 5-stage encoder's 1,024) runs in
+// pieces of up to 768 lanes through the A tile and the park tiles beside
+// it.  Details at the kernel.
 //
 // Dgrad walk (resnetfc_dgrad_walk_kernel).  Bound on H100: operations and
 // the stash/cotangent bytes (2 x 512 x 512 products a block a point; 11
@@ -237,18 +240,20 @@ __device__ __forceinline__ void walk_write_gh(const WalkCtx& c, const float (&gh
       }
 }
 // acc = A @ W for the next half of this warpgroup's columns: the next kch
-// stages of an S-stage ring (A's first kch boxes), one wgmma group in
-// flight.  The ring's barriers: full[S] then empty[S].
-template <int S = DG_WSTAGES>
+// stages of an S-stage ring (A's first kch boxes; with JUMP, boxes from the
+// ninth on lie JUMP bytes further), one wgmma group in flight.  The ring's
+// barriers: full[S] then empty[S].
+template <int S = DG_WSTAGES, uint32_t JUMP = 0>
 __device__ __forceinline__ void walk_kloop(WalkCtx& c, float (&acc)[64], int kch) {
   for (int kc = 0; kc < kch; ++kc) {
     const int st = c.ws % S;
     mbar_wait(walk_bar(st), (c.ws / S) & 1);
     const unsigned char* wb = walk_W() + st * 2 * DG_SLAB + c.wg * DG_SLAB;
+    const unsigned char* ab = walk_A() + kc * DG_BOX + (JUMP && kc >= 8 ? JUMP : 0);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_m64n128k16<0, 0>(acc, gmma_desc(walk_A() + kc * DG_BOX + kk * 32, 16, 1024),
+      wgmma_m64n128k16<0, 0>(acc, gmma_desc(ab + kk * 32, 16, 1024),
                              gmma_desc(wb + kk * 32, 16, 1024), kc > 0 || kk > 0);
     wgmma_commit();
     if (kc > 0) {
@@ -554,16 +559,28 @@ struct __align__(64) FwdMaps {
   CUtensorMap z;       // (ns, N, dl), boxes {64, 64, 1}
   CUtensorMap stash;   // (stash_slots, N, dh), boxes {64, 64, 1}
 };
-// The forward's envelope: the A tile holds every operand (k_in, d_latent
-// and d_hidden at most its 8 boxes); d_hidden <= 512 keeps the trunk in
-// the two consumer warpgroups' registers.
+// The forward's envelope: the A tile holds an operand of at most its 8
+// boxes (FWD_K_MAX lanes); d_hidden <= 512 keeps the trunk in the two
+// consumer warpgroups' registers, so relu(h) and relu(fc_0) fit it; the
+// encoded input and the latent go past it in pieces (FWD_K_EXT, below) up
+// to FWD_OPERAND_MAX lanes each (the C entry refuses wider ones).
 constexpr int FWD_K_MAX = 8 * 64;
+constexpr int FWD_OPERAND_MAX = 18 * 64;
 // Its shared memory: the walk's A tile and barrier offsets, a 4-stage
 // weight ring from DG_W, then one park tile (64 x 128 bf16) per consumer
 // warpgroup.  Barriers: full[4], empty[4], then the latent tile's.
 constexpr int FW_STAGES = 4;
 constexpr uint32_t FW_PARK = DG_W + FW_STAGES * 2 * DG_SLAB;
 static_assert(FW_PARK + 2 * 2 * DG_BOX <= DG_BAR, "the forward's park tiles overlap its barriers");
+// Past FWD_K_MAX lanes the two park tiles (4 boxes, free outside fc_0)
+// extend the A tile for lin_in's and the injections' operands: a piece of
+// up to FWD_K_EXT lanes, box b at fwd_box(b), the ninth box FW_JUMP bytes
+// past where A's ninth would be.
+constexpr int FWD_K_EXT = FWD_K_MAX + 2 * 2 * 64;
+constexpr uint32_t FW_JUMP = FW_PARK - (DG_A + 8 * DG_BOX);
+__device__ __forceinline__ uint32_t fwd_box(int b) {
+  return DG_A + (uint32_t)b * DG_BOX + (b >= 8 ? FW_JUMP : 0u);
+}
 
 // b at the columns of accumulator registers 4 j .. 4 j + 3 of half h (two
 // columns, 2 (t % 4) and + 1 past 8 j), zeros past the warpgroup's columns
@@ -608,17 +625,20 @@ __device__ __forceinline__ void fwd_write_relu(const WalkCtx& c, const float (&h
       }
 }
 // The trunk's products: h = A @ W^T + b (lin_in, add = false) or h = (h +
-// A @ W^T) + b (an injection, fc_1), over kch k-chunks of A.
-template <int H>
+// A @ W^T) + b (an injection, fc_1), over kch k-chunks of A.  EXT: A
+// extended by the park tiles (fwd_box), b null for a piece of an operand
+// before its last (h = A @ W^T or h + A @ W^T alone).
+template <int H, bool EXT = false>
 __device__ __forceinline__ void fwd_trunk(WalkCtx& c, float (&acc)[64], float (&h)[H][64],
                                           int kch, const float* b, bool add) {
 #pragma unroll
   for (int hh = 0; hh < H; ++hh) {
-    walk_kloop<FW_STAGES>(c, acc, kch);
+    walk_kloop<FW_STAGES, EXT ? FW_JUMP : 0>(c, acc, kch);
     // (h + acc) + b in two passes: the accumulator is free before the
     // biases load
 #pragma unroll
     for (int i = 0; i < 64; ++i) h[hh][i] = add ? h[hh][i] + acc[i] : acc[i];
+    if (EXT && b == nullptr) continue;
 #pragma unroll
     for (int g = 0; g < 4; ++g) {
       fwd_bias_fence();
@@ -692,13 +712,34 @@ __device__ __forceinline__ void fwd_block(WalkCtx& c, float (&acc)[64], float (&
 }
 
 // The forward of one 64-point tile per CTA (bf16 operands, float32 trunk),
-// with exactly csrc/resnetfc.cu resnetfc_tile's rounding points and order:
-// h = acc + bi; per injection h = (h + acc) + bz; a block's activations
-// round(relu(h)) and round(relu(acc + b0)), then h = (h + acc) + b1; the
-// view sum s = s + h, times 1 / ns; lin_out by sequential FMAs.  Each row's
-// arithmetic is independent of its place in the tile, so a call over any
-// range of points writes the same bits for them (the recompute backward's
-// chunks equal the stash backward's forward).
+// with csrc/resnetfc.cu resnetfc_tile's rounding points and order up to 512
+// encoded input and latent lanes: h = acc + bi; per injection h = (h + acc)
+// + bz; a block's activations round(relu(h)) and round(relu(acc + b0)),
+// then h = (h + acc) + b1; the view sum s = s + h, times 1 / ns; lin_out by
+// sequential FMAs.  Each row's arithmetic is independent of its place in
+// the tile, so a call over any range of points writes the same bits for
+// them (the recompute backward's chunks equal the stash backward's forward).
+//
+// Wider operands (P, an instantiation of its own; up to FWD_OPERAND_MAX
+// lanes) run in pieces of up to FWD_K_EXT = 768 lanes: the A tile's 8 boxes
+// and the 4 of the park tiles, which fc_0 alone uses, so an operand of up
+// to 768 lanes (the global encoder's 640, 576 encoded lanes) is one product
+// over one tile load, as a resident operand would be.  Wider ones (a
+// 5-stage encoder's 1,024) take a second piece, brought in when both
+// warpgroups have read the first (walk_begin_write): the encoded input
+// written by the consumers, the latent loaded by TMA.  The producer streams
+// a product's weight k-slabs piece by piece, each half by half.  The trunk
+// takes each piece's sum as it comes, h = acc_0 (lin_in) or h + acc_0 (an
+// injection), then h = h + acc_p, the bias after the last piece: past 768
+// lanes another rounding order than resnetfc_kernel's one float32 sum, and
+// at every width past 512 another sum order inside the products, so its
+// bits differ from that kernel's; both are held to the plain version at the
+// bf16 forward's 2^-7 of the largest output (chip_smoke.py
+// check_resnetfc_mma_sync).  Each row's arithmetic stays independent of its
+// place in the tile.  At 512 lanes and below the other instantiation runs
+// the code without the pieces: their loops, compiled into it, cost the
+// 512-lane forward 16% (2.04 against 1.77 ms at the band chunk on an H100,
+// the same bits).
 //
 // Budget: the walk's DG_SMEM (224 KB): the A tile (8 boxes), a 4-stage
 // weight ring (128 KB), and a park tile per warpgroup (16 KB each), where
@@ -711,8 +752,9 @@ __device__ __forceinline__ void fwd_block(WalkCtx& c, float (&acc)[64], float (&
 // contiguous, so one base address serves them): no atomics, no
 // synchronisation.
 // H: the halves (128-column slabs) of a warpgroup's d_hidden / 2 columns,
-// a compile-time count so that the trunk's registers are all live or absent.
-template <int H>
+// a compile-time count so that the trunk's registers are all live or absent;
+// P: an encoded input or latent past FWD_K_MAX lanes, in pieces.
+template <int H, bool P>
 __global__ void __launch_bounds__(DG_THREADS, 1)
 resnetfc_fwd_wgmma_kernel(const __grid_constant__ FwdMaps maps, const FcArgs a) {
   unsigned char* smem = g_smem;
@@ -741,34 +783,38 @@ resnetfc_fwd_wgmma_kernel(const __grid_constant__ FwdMaps maps, const FcArgs a) 
     setmaxnreg_dec<40>();
     if (tid != 256) return;
     int ws = 0;
-    auto stream = [&](const CUtensorMap* m, int blk, int kch) {  // blk < 0: the 2-d map
-      for (int h = 0; h < H; ++h)
-        for (int kc = 0; kc < kch; ++kc) {
-          const int st = ws % FW_STAGES;
-          if (ws >= FW_STAGES) mbar_wait(&wempty[st], (ws / FW_STAGES - 1) & 1);
-          unsigned char* dst = W + st * 2 * DG_SLAB;
-          mbar_expect_tx(&wfull[st], 2 * DG_SLAB);
-          for (int g = 0; g < 2; ++g) {  // each consumer warpgroup's 128 columns
-            const int n0 = g * HW + h * 128;
-            if (blk < 0)
-              tma_load_2d(dst + g * DG_SLAB, m, &wfull[st], kc * 64, n0);
-            else
-              tma_load_3d(dst + g * DG_SLAB, m, &wfull[st], kc * 64, n0, blk);
+    // a product over K input lanes: per piece of at most FWD_K_EXT lanes
+    // (one piece up to FWD_K_MAX), per half, its k-chunks (the consumers'
+    // order)
+    auto stream = [&](const CUtensorMap* m, int blk, int K) {  // blk < 0: the 2-d map
+      for (int k0 = 0; k0 < K; k0 += FWD_K_EXT)
+        for (int h = 0; h < H; ++h)
+          for (int kc = k0; kc < min(K, k0 + FWD_K_EXT); kc += 64) {
+            const int st = ws % FW_STAGES;
+            if (ws >= FW_STAGES) mbar_wait(&wempty[st], (ws / FW_STAGES - 1) & 1);
+            unsigned char* dst = W + st * 2 * DG_SLAB;
+            mbar_expect_tx(&wfull[st], 2 * DG_SLAB);
+            for (int g = 0; g < 2; ++g) {  // each consumer warpgroup's 128 columns
+              const int n0 = g * HW + h * 128;
+              if (blk < 0)
+                tma_load_2d(dst + g * DG_SLAB, m, &wfull[st], kc, n0);
+              else
+                tma_load_3d(dst + g * DG_SLAB, m, &wfull[st], kc, n0, blk);
+            }
+            ++ws;
           }
-          ++ws;
-        }
     };
     for (int v = 0; v < ns; ++v) {
-      stream(&maps.wi, -1, a.k_in / 64);
+      stream(&maps.wi, -1, a.k_in);
       for (int k = 0; k < nlz; ++k) {
-        stream(&maps.wz, k, dl / 64);
-        stream(&maps.w0, k, kdh);
-        stream(&maps.w1, k, kdh);
+        stream(&maps.wz, k, dl);
+        stream(&maps.w0, k, dh);
+        stream(&maps.w1, k, dh);
       }
     }
     for (int k = nlz; k < nb; ++k) {
-      stream(&maps.w0, k, kdh);
-      stream(&maps.w1, k, kdh);
+      stream(&maps.w0, k, dh);
+      stream(&maps.w1, k, dh);
     }
     return;
   }
@@ -784,31 +830,80 @@ resnetfc_fwd_wgmma_kernel(const __grid_constant__ FwdMaps maps, const FcArgs a) 
                                ((size_t)blockIdx.x * 256 + tid) * 16 * H
                          : nullptr;
   const float inv_ns = 1.f / (float)ns;
+  int zloads = 0;  // P: the latent pieces loaded so far, zfull's phase
   for (int v = 0; v < ns; ++v) {
-    // the encoded input into A: one thread an element, a compact loop
-    walk_begin_write(c);
-    for (int idx = tid; idx < DG_M * a.k_in; idx += 256) {
-      const int r = idx / a.k_in, j = idx - r * a.k_in, row = r0 + r;
-      const int mode = a.tables[j];
-      float val = 0.f;
-      if (row < a.N && mode != 2) {
-        const float p = a.x[((size_t)v * a.N + row) * a.d_in + a.tables[a.k_in + j]];
-        val = mode == 0 ? p : sinf(__fadd_rn(__fmul_rn(p, a.fph[j]), a.fph[a.k_in + j]));
-      }
-      *reinterpret_cast<bf16*>(A + swz_off(r, j, DG_BOX)) = from_f<bf16>(val);
-    }
-    fwd_end_write(c, -1);
-    fwd_trunk(c, acc, h, a.k_in / 64, a.bi, false);
-    for (int k = 0; k < nlz; ++k) {
-      // the latent tile into A by TMA (rows past N read as zeros)
+    if constexpr (!P) {
+      // the encoded input into A: one thread an element, a compact loop
       walk_begin_write(c);
-      if (tid == 0) {
-        mbar_expect_tx(zfull, dl / 64 * DG_BOX);
-        for (int b = 0; b < dl / 64; ++b)
-          tma_load_3d(A + b * DG_BOX, &maps.z, zfull, b * 64, r0, v);
+      for (int idx = tid; idx < DG_M * a.k_in; idx += 256) {
+        const int r = idx / a.k_in, j = idx - r * a.k_in, row = r0 + r;
+        const int mode = a.tables[j];
+        float val = 0.f;
+        if (row < a.N && mode != 2) {
+          const float p = a.x[((size_t)v * a.N + row) * a.d_in + a.tables[a.k_in + j]];
+          val = mode == 0 ? p : sinf(__fadd_rn(__fmul_rn(p, a.fph[j]), a.fph[a.k_in + j]));
+        }
+        *reinterpret_cast<bf16*>(A + swz_off(r, j, DG_BOX)) = from_f<bf16>(val);
       }
-      mbar_wait(zfull, (v * nlz + k) & 1);
-      fwd_trunk(c, acc, h, dl / 64, a.bz + (size_t)k * dh, true);
+      fwd_end_write(c, -1);
+      fwd_trunk(c, acc, h, a.k_in / 64, a.bi, false);
+    } else {
+      // the same in pieces of at most FWD_K_EXT lanes (A and the park
+      // tiles): the first h = A @ Wi^T, each later h = h + A @ Wi^T, the
+      // bias after the last; the first piece peeled, so that h is dead
+      // while it is written
+      auto encode = [&](int j0, int kw) {
+        walk_begin_write(c);
+        for (int idx = tid; idx < DG_M * kw; idx += 256) {
+          const int r = idx / kw, jj = idx - r * kw, j = j0 + jj, row = r0 + r;
+          const int mode = a.tables[j];
+          float val = 0.f;
+          if (row < a.N && mode != 2) {
+            const float p = a.x[((size_t)v * a.N + row) * a.d_in + a.tables[a.k_in + j]];
+            val = mode == 0 ? p : sinf(__fadd_rn(__fmul_rn(p, a.fph[j]), a.fph[a.k_in + j]));
+          }
+          *reinterpret_cast<bf16*>(g_smem + fwd_box(jj >> 6) + swz_off(r, jj & 63, DG_BOX)) =
+              from_f<bf16>(val);
+        }
+        fwd_end_write(c, -1);
+      };
+      const int kw0 = min(FWD_K_EXT, a.k_in);
+      encode(0, kw0);
+      fwd_trunk<H, true>(c, acc, h, kw0 / 64, kw0 == a.k_in ? a.bi : nullptr, false);
+      for (int j0 = kw0; j0 < a.k_in; j0 += FWD_K_EXT) {
+        const int kw = min(FWD_K_EXT, a.k_in - j0);
+        encode(j0, kw);
+        fwd_trunk<H, true>(c, acc, h, kw / 64, j0 + kw == a.k_in ? a.bi : nullptr, true);
+      }
+    }
+    for (int k = 0; k < nlz; ++k) {
+      if constexpr (!P) {
+        // the latent tile into A by TMA (rows past N read as zeros)
+        walk_begin_write(c);
+        if (tid == 0) {
+          mbar_expect_tx(zfull, dl / 64 * DG_BOX);
+          for (int b = 0; b < dl / 64; ++b)
+            tma_load_3d(A + b * DG_BOX, &maps.z, zfull, b * 64, r0, v);
+        }
+        mbar_wait(zfull, (v * nlz + k) & 1);
+        fwd_trunk(c, acc, h, dl / 64, a.bz + (size_t)k * dh, true);
+      } else {
+        // in pieces of at most FWD_K_EXT lanes, each load waiting until
+        // both warpgroups have read the last; h = h + A @ Wz^T a piece,
+        // the bias after the last
+        for (int l0 = 0; l0 < dl; l0 += FWD_K_EXT) {
+          const int kch = min(FWD_K_EXT, dl - l0) / 64;
+          walk_begin_write(c);
+          if (tid == 0) {
+            mbar_expect_tx(zfull, kch * DG_BOX);
+            for (int b = 0; b < kch; ++b)
+              tma_load_3d(g_smem + fwd_box(b), &maps.z, zfull, l0 + b * 64, r0, v);
+          }
+          mbar_wait(zfull, zloads++ & 1);
+          fwd_trunk<H, true>(c, acc, h, kch,
+                             l0 + kch * 64 == dl ? a.bz + (size_t)k * dh : nullptr, true);
+        }
+      }
       fwd_block(c, acc, h, a, k, v);
     }
     if (ns > 1) {  // the view sum s = s + h, then s / ns
@@ -868,8 +963,9 @@ extern "C" int avr_resnetfc_fwd_bf16(const void* x, const void* z, const void* w
                                      int d_out, int n_blocks, int n_lin_z, int activate,
                                      void* stream) {
   if (N < 1 || ns < 1 || d_hidden % 64 || d_hidden < 64 || d_hidden > 512 || d_latent % 64 ||
-      d_latent < 64 || d_latent > FWD_K_MAX || k_in % 64 || k_in < 64 || k_in > FWD_K_MAX ||
-      d_out > GOUT_W || n_lin_z < 1 || n_lin_z > n_blocks || (ns > 1 && !pool))
+      d_latent < 64 || d_latent > FWD_OPERAND_MAX || k_in % 64 || k_in < 64 ||
+      k_in > FWD_OPERAND_MAX || d_out > GOUT_W || n_lin_z < 1 || n_lin_z > n_blocks ||
+      (ns > 1 && !pool))
     return (int)cudaErrorInvalidValue;
   FcArgs a;
   a.x = (const float*)x; a.z = z; a.wi = wi; a.bi = (const float*)bi;
@@ -890,7 +986,11 @@ extern "C" int avr_resnetfc_fwd_bf16(const void* x, const void* z, const void* w
       (e = map_3d(&m.z, z, ns, N, dl, 64)) ||
       (stash && (e = map_3d(&m.stash, stash, stash_slots(ns, n_blocks, n_lin_z), N, dh, 64))))
     return e;
-  auto kernel = d_hidden > 256 ? resnetfc_fwd_wgmma_kernel<2> : resnetfc_fwd_wgmma_kernel<1>;
+  const bool pieces = dl > FWD_K_MAX || k_in > FWD_K_MAX;
+  auto kernel = d_hidden > 256 ? (pieces ? resnetfc_fwd_wgmma_kernel<2, true>
+                                         : resnetfc_fwd_wgmma_kernel<2, false>)
+                               : (pieces ? resnetfc_fwd_wgmma_kernel<1, true>
+                                         : resnetfc_fwd_wgmma_kernel<1, false>);
   cudaError_t c = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)DG_SMEM);
   if (c != cudaSuccess) return (int)c;

@@ -363,10 +363,13 @@ def _dims(a, n_blocks, n_lin_z, activate_out):
                 activate=int(activate_out))
 
 
-# The bf16 wgmma forward's envelope (csrc/resnetfc_hopper.cu FWD_K_MAX):
-# its operand tile holds at most 512 encoded input lanes, latent lanes and
-# trunk columns; its points come in tiles of FWD_TILE.
-FWD_K_MAX, FWD_TILE = 512, 64
+# The bf16 wgmma forward's envelope (csrc/resnetfc_hopper.cu FWD_K_MAX,
+# FWD_K_EXT, FWD_OPERAND_MAX): its operand tile holds 512 lanes, the trunk's
+# columns in one; the encoded input and the latent past 512 lanes take
+# pieces of up to FWD_K_EXT lanes (the tile and its park tiles), up to
+# FWD_OPERAND_MAX lanes each (the C entry refuses wider ones); its points
+# come in tiles of FWD_TILE.
+FWD_K_MAX, FWD_K_EXT, FWD_OPERAND_MAX, FWD_TILE = 512, 768, 1152, 64
 # Every kernel but the wide ones keeps its trunk (or trunk cotangent) in
 # registers, full at REG_DH_MAX columns; the bf16 dgrad's tail holds at most
 # TAIL_DL_MAX latent lanes and TAIL_KIN_MAX encoded input lanes
@@ -385,8 +388,9 @@ def forward_route(compute_dtype: torch.dtype, d_latent: int, k_in: int,
     where :func:`wide_f32_fits` (float32: ``resnetfc_wide_f32_fwd_kernel``),
     else ``"wide"`` (``resnetfc_wide_fwd_kernel``, the trunk in shared
     memory); else
-    ``"wgmma"`` (bf16 with ``d_latent`` and ``k_in`` at most 512,
-    ``csrc/resnetfc_hopper.cu``), ``"mma_sync"`` (other bf16) or ``"fma"``
+    ``"wgmma"`` (bf16 with ``d_latent`` and ``k_in`` at most
+    ``FWD_OPERAND_MAX``, past 512 lanes in pieces of up to ``FWD_K_EXT``:
+    ``csrc/resnetfc_hopper.cu``), ``"mma_sync"`` (wider bf16) or ``"fma"``
     (float32: ``resnetfc_fwd_f32_kernel``), both ``csrc/resnetfc.cu``.  A
     route's build or launch failure raises: no call changes kernel."""
     if d_hidden > REG_DH_MAX:
@@ -395,7 +399,7 @@ def forward_route(compute_dtype: torch.dtype, d_latent: int, k_in: int,
         return "wide_tma" if wide_tma_fits(compute_dtype, d_hidden, d_latent, k_in) else "wide"
     if compute_dtype == torch.float32:
         return "fma"
-    return "wgmma" if d_latent <= FWD_K_MAX and k_in <= FWD_K_MAX else "mma_sync"
+    return "wgmma" if max(d_latent, k_in) <= FWD_OPERAND_MAX else "mma_sync"
 
 
 def backward_route(compute_dtype: torch.dtype, d_hidden: int, d_latent: int, k_in: int) -> str:

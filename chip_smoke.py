@@ -15,10 +15,11 @@ Phases (any failure raises and exits non-zero):
    fine pass's shapes (96 x 4,096 points a scene); K2's bf16 forward (the
    wgmma kernel, ``csrc/resnetfc_hopper.cu``) also at a point count off its
    64-point tile, its stash slot by slot against the plain forward's
-   activations (NS 1 and 2), the ``mma.sync`` forward that
-   ``forward_route`` keeps for bf16 beyond 512 latent or encoded lanes at
-   a latent of 1,024 and at 576 encoded lanes, and the wgmma forward timed
-   in turns against the parent's
+   activations (NS 1 and 2), its pieces past 512 latent or encoded lanes
+   (a latent of 640 and 1,024, 576 encoded lanes, d_hidden 256 with a
+   latent of 1,024: output, stash, reruns, and the stash and recompute
+   backward bit for bit; ``resnetfc_kernel`` held beside), and
+   the wgmma forward timed in turns against the parent's
    ``mma.sync`` forward (``csrc/resnetfc.cu``, its C entry point called
    directly) at the band chunk (serving) and at the train step's band call
    with the stash, each loop beside the SM clock and power that
@@ -203,7 +204,8 @@ Phases (any failure raises and exits non-zero):
    directions; ``use_encoder = False`` with the global latent, on the VR) at
    full ``conf/default_mv.conf`` width on ``bench_weights``, each case's
    launch counters reset before and read after: one bf16 train step (SB 4 x
-   4,096 rays; the global latent's 640 lanes take the wide dgrad) and one
+   4,096 rays; the global latent's 640 lanes take the wgmma forward in
+   pieces and the wide dgrad, every forward on the wgmma counter) and one
    served 128x128 bf16 frame; the float32 field (one encoded view, 4,096
    points, coarse and fine) held to the CPU's on the same weights (1e-3 of
    max(1, |output|)); the bf16 field through the kernels held to the same
@@ -243,7 +245,9 @@ Phases (any failure raises and exits non-zero):
     1,000-point chunks its point cotangents bit for bit; the wgrads' jobs at
     1,024 x 1,024 and 1,024 x 1,152 against ``torch.matmul``.  Each kernel
     timed at the band chunk (81,920 points) beside its plain version, the
-    cuBLAS chain of its products and its bound.  K1, K5 and K3 at 1,024
+    cuBLAS chain of its products and its bound; the wgmma forward's pieces
+    at d_hidden 512 with latents of 640 and 1,024 timed in turns with
+    ``resnetfc_kernel`` beside the same.  K1, K5 and K3 at 1,024
     latent channels against their plain versions.  Then the full-width
     slice: the adaptive model ``make_model`` builds from a conf string
     (``WIDE_CONF``: conf/default_mv.conf's model with d_hidden 1,024 in
@@ -570,38 +574,134 @@ def check_resnetfc(gen, gen_new):
                 vs_mma_sync=vs_parent)
 
 
-# bf16 beyond the wgmma forward's 512 latent or encoded input lanes:
-# forward_route keeps these on csrc/resnetfc.cu's mma.sync kernel.  A latent
-# of 1,024 (an encoder of 5 stages: 64 + 64 + 128 + 256 + 512), and 547
-# encoded lanes (8 frequencies of 32 coded lanes with the input, 3 passed
-# through: padded to 576).
+# bf16 beyond the wgmma forward's 512-lane A tile (d_hidden <= 512):
+# forward_route sends these to the wgmma forward, which takes the encoded
+# input and the latent in pieces of up to 768 lanes (its A tile and park
+# tiles), up to FWD_OPERAND_MAX; the C entry of csrc/resnetfc.cu's mma.sync
+# kernel (resnetfc_kernel) stays callable as its in-run reference.  A
+# latent of 1,024 (an encoder of 5
+# stages: 64 + 64 + 128 + 256 + 512), 547 encoded lanes (8 frequencies of 32
+# coded lanes with the input, 3 passed through: padded to 576), the global
+# encoder's 640 lanes beside the spatial 512, and d_hidden 256 with a
+# latent of 1,024: (d_hidden, code, latent, views).
 WIDE_CODE = CodeSpec(num_freqs=8, freq_factor=1.5, include_input=True, d_coded=32, d_pass=3)
-MMA_SYNC_CASES = ((CODE, 1024, 2), (WIDE_CODE, C, 1))
+MMA_SYNC_CASES = ((512, CODE, 1024, 2), (512, WIDE_CODE, C, 1), (512, CODE, 640, 1),
+                  (256, CODE, 1024, 1))
+
+
+@contextlib.contextmanager
+def forward_route_forced(route):
+    """Every bf16 forward at d_hidden <= 512 on ``route`` ("wgmma": the
+    wgmma forward, in pieces past 512 lanes; "mma_sync": resnetfc_kernel),
+    whatever ``forward_route`` decides: for holding and timing the kernel
+    the rule does not take at a shape beside the one it does."""
+    fwd = K2.forward_route
+
+    def forced(cd, dl, k_in, dh=K2.REG_DH_MAX):
+        return route if cd == torch.bfloat16 and dh <= K2.REG_DH_MAX else fwd(cd, dl, k_in, dh)
+
+    K2.forward_route = forced
+    try:
+        yield
+    finally:
+        K2.forward_route = fwd
+
+
+def forward_on(route, args, dims, stash=False):
+    """K2's bf16 forward (``K2._forward``) on ``route``."""
+    with forward_route_forced(route):
+        return K2._forward(args, dims, torch.bfloat16, stash)
 
 
 def check_resnetfc_mma_sync(gen):
-    """K2's bf16 mma.sync forward through fused_resnetfc at the shapes
-    forward_route sends it, against the plain version at the bf16 cases'
-    2^-7 of the largest output; the wgmma forward must not have run."""
+    """K2's bf16 forward past 512 latent or encoded lanes at MMA_SYNC_CASES
+    (N off the 64-point tile): the wgmma forward's pieces through
+    fused_resnetfc where forward_route sends the shape there (the counters:
+    the wgmma forward once, no mma.sync launch), launched on its route
+    directly where the rule keeps resnetfc_kernel; its output against the
+    plain version at the bf16 cases' 2^-7 of the largest output, its stash
+    slot by slot (STASH_REL, STASH_FLIPS), both bit for bit on a rerun;
+    resnetfc_kernel (its C entry) against the plain version at the same
+    rule; and the backward on the pieces (their route forced where the rule
+    keeps resnetfc_kernel): the stash backward bit for bit on a rerun, the
+    recompute backward bit for bit the stash backward in one chunk, and its
+    point cotangents bit for bit in 1,000-point chunks (every forward of
+    them on the wgmma route)."""
     bf, kw, cases = torch.bfloat16, dict(n_blocks=5, n_lin_z=3, activate_out=True), []
-    for code, dl, ns in MMA_SYNC_CASES:
+    n = CHUNK + 37
+    for dh, code, dl, ns in MMA_SYNC_CASES:
         k_in = K2.d_enc_padded(code.d_enc)
-        route = K2.forward_route(bf, dl, k_in)
-        if route != "mma_sync":
-            raise AssertionError(f"K2 d_latent {dl}, {k_in} encoded lanes: routed to {route}")
-        w = decoder_weights(gen, code=code, dl=dl)
-        x = (torch.rand(ns, CHUNK + 37, code.d_raw, generator=gen, device=DEV) * 2 - 1)
-        z = randn(gen, ns, CHUNK + 37, dl, dtype=bf)
-        before = dict(_build.launches)
-        got = fused_resnetfc(x.contiguous(), z, w, compute_dtype=bf, code=code, **kw)
-        ran = {k: _build.launches[k] - before.get(k, 0) for k in (K2.NAME, K2.NAME_WGMMA)}
-        if ran != {K2.NAME: 1, K2.NAME_WGMMA: 0}:
-            raise AssertionError(f"K2 d_latent {dl}, {k_in} encoded lanes: launches {ran}, "
-                                 f"not the mma.sync forward once")
+        route = K2.forward_route(bf, dl, k_in, dh)
+        label = f"d_hidden {dh} d_latent {dl} k_in {k_in} N={n} NS={ns} bf16"
+        w = decoder_weights(gen, code=code, dl=dl, dh=dh)
+        x = (torch.rand(ns, n, code.d_raw, generator=gen, device=DEV) * 2 - 1).contiguous()
+        z = randn(gen, ns, n, dl, dtype=bf)
         want = resnetfc_plain(x, z, w, compute_dtype=bf, code=code, **kw)
         tol = 2.0 ** -7 * max(1.0, float(want.abs().max()))
-        cases.append(check(f"mma.sync route d_latent {dl} k_in {k_in} N={CHUNK + 37} NS={ns} "
-                           f"bf16", max_err(got, want), tol))
+        args = K2._prepare(x, z, w, code, bf)
+        dims = K2._dims(args, 5, 3, True)
+        if route == "wgmma":
+            before = dict(_build.launches)
+            got = fused_resnetfc(x, z, w, compute_dtype=bf, code=code, **kw)
+            ran = {k: v - before.get(k, 0) for k, v in _build.launches.items()
+                   if v != before.get(k, 0)}
+            if ran != {K2.NAME: 1, K2.NAME_WGMMA: 1}:
+                raise AssertionError(f"K2 {label}: launches {ran}, not the wgmma forward once")
+        else:
+            got = forward_on("wgmma", args, dims)[0]
+        held = check(f"wgmma pieces ({route} route) {label}", max_err(got, want), tol)
+        cases.append(held)
+        out, st = forward_on("wgmma", args, dims, stash=True)
+        again = forward_on("wgmma", args, dims, stash=True)
+        cases.append(check_rerun(f"wgmma pieces rerun: output and stash {label}", (got, out, st),
+                                 (again[0], again[0], again[1])))
+        pst = decoder_plain_stash(x, z, w, n_blocks=5, n_lin_z=3, code=code, compute_dtype=bf)
+        for i in range(len(pst)):
+            cases.append(check(f"wgmma pieces stash slot {i} {label}", max_err(st[i], pst[i]),
+                               STASH_REL * max(float(pst[i].abs().max()), 1e-30),
+                               against="plain stash"))
+        flips = float(((st > 0) != (pst > 0)).float().mean())
+        if not flips <= STASH_FLIPS:
+            raise AssertionError(f"K2 wgmma pieces stash {label}: {flips} of the ReLU masks "
+                                 f"flipped > {STASH_FLIPS}")
+        cases.append({"case": f"wgmma pieces stash ReLU mask flips {label}",
+                      "against": "plain forward", "flip_fraction": flips, "bound": STASH_FLIPS})
+        ref = check(f"mma.sync forward (resnetfc_kernel) {label}",
+                    max_err(mma_sync_forward(args, dims, False)[0], want), tol)
+        cases.append(ref)
+        print(f"K2 {label}: {route} route; wgmma pieces {held['max_abs_err']:.3e}, "
+              f"resnetfc_kernel {ref['max_abs_err']:.3e} (tolerance {tol:.3e}); stash mask flips "
+              f"{flips:.2e}")
+        # the backward on the pieces' stash and on the recompute's forwards
+        g = randn(gen, n, 4) + 0.5
+        kern = lambda stash: (lambda x, z, *ws: fused_resnetfc(
+            x, z, DecoderWeights(*ws), compute_dtype=bf, code=code, stash=stash, **kw))
+        before = dict(_build.launches)
+        with forward_route_forced("wgmma"):
+            stash_grads = grads_of(kern(True), (x, z, *w), g)
+            cases.append(check_rerun(f"wgmma pieces: stash backward rerun {label}", stash_grads,
+                                     grads_of(kern(True), (x, z, *w), g)))
+            rec = grads_of(kern(False), (x, z, *w), g)
+            cases.append(check_rerun(f"wgmma pieces: recompute bit for bit the stash backward "
+                                     f"{label}", stash_grads, rec))
+            saved = K2.RECOMPUTE_CHUNK
+            K2.RECOMPUTE_CHUNK = 1_000
+            try:
+                cut = grads_of(kern(False), (x, z, *w), g)
+            finally:
+                K2.RECOMPUTE_CHUNK = saved
+        cases.append(check_rerun(f"wgmma pieces: recompute in 1,000-point chunks, dx and dz bit "
+                                 f"for bit {label}", stash_grads[:2], cut[:2]))
+        cases += [check_rel(f"{nm} {label} recompute in 1,000-point chunks vs stash", a, b,
+                            SUM_ORDER_TOL, "stash kernels")
+                  for nm, a, b in zip(DECODER_GRADS[2:], cut[2:], stash_grads[2:])]
+        ran = {k: v - before.get(k, 0) for k, v in _build.launches.items()}
+        fwds = ran.get(K2.NAME, 0) + ran.get(K2.NAME_STASH, 0)
+        if not fwds or ran.get(K2.NAME_WGMMA, 0) != fwds:
+            raise AssertionError(f"K2 {label} backward: {fwds} forwards, "
+                                 f"{ran.get(K2.NAME_WGMMA, 0)} on the wgmma route")
+        del stash_grads, rec, cut
+        del args, st, pst, out, again, got, want
     return cases
 
 
@@ -2382,13 +2482,22 @@ def check_gather_proj(gen):
     b_ms, b_by = proj_bound(1, BAND, torch.bfloat16, False)
     bits = [c["bitwise"] for c in cases]
     print(f"K5 forward: bitwise equal to the plain version in {sum(bits)} of {len(bits)} cases")
+    # the library call K1's row times, F.grid_sample, at K5's projected
+    # coordinates: the projection (project_packed) is left out of its time
+    nchw, grid = feat.permute(0, 3, 1, 2).float(), project_packed(proj, pts)[:, None]
+    lib = lambda: F.grid_sample(nchw, grid, mode="bilinear", padding_mode="border",
+                                align_corners=True)
+    cases.append(check("F.grid_sample at the projected coordinates agrees",
+                       max_err(lib()[:, :, 0].transpose(1, 2), run()), 2e-2, against="library"))
     return dict(name="gather_bilinear_projected", source="avr_tpu_torch/csrc/gather.cu",
                 replaces="avr_tpu/ops/pallas/gather.py:642",
                 tpu_kernel="gather_bilinear_projected",
                 shape=f"latent 1x{LATENT}x{LATENT}x{C} bf16, N={BAND}", cases=cases, ms=ms,
                 call_ms=time_ms(run, iters=20),
                 plain_ms=time_ms(lambda: gather_bilinear_projected_plain(feat, pts, proj)),
-                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+                library_ms=time_ms(lib), library="F.grid_sample at the projected coordinates "
+                                                 "(the projection left out)",
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def check_gather_proj_bwd(gen):
@@ -2418,6 +2527,14 @@ def check_gather_proj_bwd(gen):
                       keep=True)
     _, run_plain = grads_of(lambda f, p: gather_bilinear_projected_plain(f, p, proj),
                             (feat, pts), g, keep=True)
+    # the library call K1's backward row times, F.grid_sample's backward (the
+    # map's and the coordinates' cotangents), at K5's projected coordinates:
+    # the projection and its chain rule are left out of its time
+    nchw = feat.permute(0, 3, 1, 2).float()
+    _, run_lib = grads_of(lambda f, c: F.grid_sample(f, c[:, None], mode="bilinear",
+                                                     padding_mode="border", align_corners=True),
+                          (nchw, project_packed(proj, pts)), g.float().permute(0, 2, 1)[:, :, None],
+                          keep=True)
     ms, by_kernel = bwd_device_ms(run, K5_BWD_KERNELS)
     smi = sustained(run, 1.0, SMI_FIELDS)
     no_host_sync(run)
@@ -2427,8 +2544,9 @@ def check_gather_proj_bwd(gen):
                 shape=f"latent {SB_TRAIN}x{LATENT}x{LATENT}x{C} bf16, N={BAND} per scene",
                 cases=cases, ms=ms, device_ms_by_kernel=by_kernel, sustained=smi,
                 call_ms=time_ms(run),
-                plain_ms=time_ms(run_plain, iters=3), library_ms=None, bound_ms=b_ms,
-                bound_by=b_by)
+                plain_ms=time_ms(run_plain, iters=3), library_ms=time_ms(run_lib),
+                library="F.grid_sample's backward at the projected coordinates (the projection "
+                        "left out)", bound_ms=b_ms, bound_by=b_by)
 
 
 def unproject(proj, grid, depth):
@@ -4570,6 +4688,14 @@ def run_options():
                 or counts.get(f"train_{K2.NAME_DGRAD_WIDE_TMA}")
                 != counts.get(f"train_{K2.NAME_DGRAD_WIDE[torch.bfloat16]}")):
             raise AssertionError(f"options global_coarse_only: dgrad launches {k2}")
+        # ... and every forward (served, and the step's stash forward) on the
+        # wgmma forward, the latent's 640 lanes in one piece (A and the park
+        # tiles)
+        if case == "global_coarse_only" and any(
+                not counts.get(f"{p}_{K2.NAME_WGMMA}") or counts.get(f"{p}_{K2.NAME_WGMMA}")
+                != counts.get(f"{p}_{K2.NAME}", 0) + counts.get(f"{p}_{K2.NAME_STASH}", 0)
+                for p in ("serve", "train")):
+            raise AssertionError(f"options global_coarse_only: forward launches {k2}")
         if case == "custom_encoder" and (r["latent_shape"] != [1, SIDE, SIDE, 128]
                                          or not counts.get("serve_gather_bilinear")
                                          or not counts.get("train_gather_bilinear_bwd")):
@@ -5053,48 +5179,62 @@ def check_wide(gen):
     return out
 
 
-# resnetfc_kernel's route (csrc/resnetfc.cu, the bf16 mma.sync forward that
-# forward_route keeps past the wgmma forward's 512 latent lanes): phase 9's
-# global encoder (640 lanes) at the shipped d_hidden 512, the band chunk
-MMA_SYNC_DL = 640
+# the bf16 forward past the wgmma forward's 512-lane A tile at the shipped
+# d_hidden 512, timed at the band chunk: phase 9's global encoder (640
+# lanes) and a 5-stage encoder (1,024)
+MMA_SYNC_DLS = (640, 1024)
 
 
 def time_mma_sync_forward(gen):
-    """The bf16 forward on resnetfc_kernel (a latent of 640 lanes) at the
-    band chunk, timed (CUDA events) beside the plain version, the cuBLAS
-    chain of its products and its bound; its route and its output against
-    the plain version (2^-7 of the largest output, as check_resnetfc_mma_sync)
-    held.  Returns its row for the report."""
+    """The bf16 forward at latents of MMA_SYNC_DLS lanes at the band chunk:
+    the wgmma forward's pieces (its route by forward_route) and
+    resnetfc_kernel (csrc/resnetfc.cu, its C entry) timed in turns (CUDA
+    events: pieces, resnetfc_kernel, resnetfc_kernel, pieces) beside the
+    plain version, the cuBLAS chain of its products and its bound; each
+    held to the plain version (2^-7 of the largest output, as
+    check_resnetfc_mma_sync).  Returns a row a latent for the report."""
     bf = torch.bfloat16
     kw = dict(n_blocks=5, n_lin_z=3, activate_out=True)
-    w = decoder_weights(gen, dl=MMA_SYNC_DL)
-    x, z, _ = wide_inputs(gen, BAND, 1, MMA_SYNC_DL, CODE, bf)
-    args = K2._prepare(x, z, w, CODE, bf)
-    dims = K2._dims(args, 5, 3, True)
-    route = K2.forward_route(bf, dims["d_latent"], dims["k_in"], 512)
-    if route != "mma_sync":
-        raise AssertionError(f"K2 d_latent {MMA_SYNC_DL}: routed to {route}")
-    call = lambda: K2._forward(args, dims, bf, False)
-    want = resnetfc_plain(x, z, w, compute_dtype=bf, code=CODE, **kw)
-    err, tol = max_err(call()[0], want), 2.0 ** -7 * max(1.0, float(want.abs().max()))
-    case = check(f"mma.sync route timed N={BAND} d_latent {MMA_SYNC_DL} NS=1 bf16", err, tol)
-    ms = time_ms(call, iters=5, warmup=1)
-    plain_ms = time_ms(lambda: resnetfc_plain(x, z, w, compute_dtype=bf, code=CODE, **kw),
-                       iters=3, warmup=1)
-    lib_ms = time_ms(product_chain(gen, BAND, 512, MMA_SYNC_DL, dims["k_in"], bf, False),
-                     iters=5, warmup=1)
-    wbytes = sum(t.numel() for t in w) * 2
-    b_ms, b_by = bound(x.numel() * 4 + z.numel() * 2 + wbytes + BAND * 4 * 4,
-                       wide_flops(BAND, 1, 512, MMA_SYNC_DL, CODE.d_enc), BF16_FLOPS)
-    row = dict(kernel="resnetfc_kernel", source="avr_tpu_torch/csrc/resnetfc.cu",
-               shape=f"N={BAND}, NS=1, d_hidden 512, d_latent {MMA_SYNC_DL}, bf16", ms=ms,
-               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, case=case)
-    print(f"K2 mma.sync forward (resnetfc_kernel) {row['shape']}: {ms:.3f} ms (plain "
-          f"{plain_ms:.3f}, cuBLAS chain {lib_ms:.3f}, bound {b_ms:.3f} by {b_by}); "
-          f"{err:.3e} from the plain version (tolerance {tol:.3e})")
-    del args, x, z, want
-    torch.cuda.empty_cache()
-    return row
+    rows = {}
+    for dl in MMA_SYNC_DLS:
+        w = decoder_weights(gen, dl=dl)
+        x, z, _ = wide_inputs(gen, BAND, 1, dl, CODE, bf)
+        args = K2._prepare(x, z, w, CODE, bf)
+        dims = K2._dims(args, 5, 3, True)
+        route = K2.forward_route(bf, dims["d_latent"], dims["k_in"], 512)
+        if route != "wgmma":
+            raise AssertionError(f"K2 d_latent {dl}: routed to {route}")
+        calls = {"pieces": lambda: K2._forward(args, dims, bf, False),
+                 "resnetfc_kernel": lambda: mma_sync_forward(args, dims, False)}
+        want = resnetfc_plain(x, z, w, compute_dtype=bf, code=CODE, **kw)
+        tol = 2.0 ** -7 * max(1.0, float(want.abs().max()))
+        cases = [check(f"{name} timed N={BAND} d_latent {dl} NS=1 bf16",
+                       max_err(call()[0], want), tol) for name, call in calls.items()]
+        turns = {name: [] for name in calls}
+        for name in ("pieces", "resnetfc_kernel", "resnetfc_kernel", "pieces"):
+            turns[name].append(time_ms(calls[name], iters=5, warmup=1))
+        plain_ms = time_ms(lambda: resnetfc_plain(x, z, w, compute_dtype=bf, code=CODE, **kw),
+                           iters=3, warmup=1)
+        lib_ms = time_ms(product_chain(gen, BAND, 512, dl, dims["k_in"], bf, False),
+                         iters=5, warmup=1)
+        wbytes = sum(t.numel() for t in w) * 2
+        b_ms, b_by = bound(x.numel() * 4 + z.numel() * 2 + wbytes + BAND * 4 * 4,
+                           wide_flops(BAND, 1, 512, dl, CODE.d_enc), BF16_FLOPS)
+        row = rows[str(dl)] = dict(
+            kernel="resnetfc_fwd_wgmma_kernel (pieces)",
+            source="avr_tpu_torch/csrc/resnetfc_hopper.cu",
+            shape=f"N={BAND}, NS=1, d_hidden 512, d_latent {dl}, bf16",
+            ms=min(turns["pieces"]), ms_turns=turns["pieces"],
+            resnetfc_kernel_ms_turns=turns["resnetfc_kernel"], plain_ms=plain_ms,
+            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, cases=cases)
+        print(f"K2 wgmma pieces {row['shape']}: {[round(v, 3) for v in turns['pieces']]} ms in "
+              f"turns with resnetfc_kernel {[round(v, 3) for v in turns['resnetfc_kernel']]} "
+              f"(plain {plain_ms:.3f}, cuBLAS chain {lib_ms:.3f}, bound {b_ms:.3f} by {b_by}); "
+              f"{cases[0]['max_abs_err']:.3e} and {cases[1]['max_abs_err']:.3e} from the plain "
+              f"version (tolerance {tol:.3e})")
+        del args, x, z, want
+        torch.cuda.empty_cache()
+    return rows
 
 
 WIDE_C = 1024  # the latent channels of a 5-stage encoder's map

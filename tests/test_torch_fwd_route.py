@@ -3,8 +3,10 @@
 ``forward_route`` (``ops/kernels/resnetfc.py``) decides which forward kernel
 a call launches on the card: the main path's shapes (bf16, ``d_latent`` 512,
 64 encoded input lanes) go to the wgmma kernel (``csrc/resnetfc_hopper.cu
-resnetfc_fwd_wgmma_kernel``), other bf16 shapes to ``csrc/resnetfc.cu``'s
-``mma.sync`` kernel, float32 to its FMA kernel, never to a refusal.  The
+resnetfc_fwd_wgmma_kernel``), and so do bf16 latents and encoded inputs up
+to ``FWD_OPERAND_MAX`` lanes (in pieces of up to 768); wider bf16 shapes go to
+``csrc/resnetfc.cu``'s ``mma.sync`` kernel, float32 to its FMA kernel, never
+to a refusal.  The
 wgmma kernel's shared-memory layout, read from its source's constants
 (``csrc/resnetfc_hopper.cu``: ``DG_M``..``DG_SMEM`` at :102-111 by the
 walk's names, ``FWD_K_MAX``, ``FW_STAGES`` and ``FW_PARK`` at :559-564),
@@ -57,11 +59,15 @@ def test_the_shipped_decoder_is_inside_the_envelope():
     assert K2.forward_route(torch.bfloat16, 512, k_in) == "wgmma"
 
 
-@pytest.mark.parametrize("d_latent,k_in", [(1024, 64), (576, 64), (512, 576), (1024, 1024)])
+@pytest.mark.parametrize("d_latent,k_in", [(1024, 64), (576, 64), (512, 576), (1024, 1024),
+                                           (1216, 64), (512, 1216)])
 def test_every_accepted_shape_has_a_kernel(d_latent, k_in):
-    """bf16 beyond the wgmma kernel's 512 lanes stays on the mma.sync kernel,
-    as at the parent; nothing the wrapper takes is refused on the card."""
-    assert K2.forward_route(torch.bfloat16, d_latent, k_in) == "mma_sync"
+    """bf16 beyond the wgmma kernel's 512-lane A tile takes its pieces up to
+    FWD_OPERAND_MAX lanes and the mma.sync kernel past them, as before;
+    nothing the wrapper takes is refused on the card."""
+    pieced = max(d_latent, k_in) <= K2.FWD_OPERAND_MAX
+    assert K2.forward_route(torch.bfloat16, d_latent, k_in) == ("wgmma" if pieced else
+                                                                "mma_sync")
     for cd, dl, kin in itertools.product((torch.bfloat16, torch.float32),
                                          range(64, 1089, 64), range(64, 1089, 64)):
         assert K2.forward_route(cd, dl, kin) in ROUTES

@@ -84,9 +84,11 @@ def _decoder(d_hidden, d_latent, num_freqs, seed):
 # (d_hidden, d_latent, frequencies, views): d_hidden 640 and 1,024; a latent
 # of 612 (a global latent_size of 100 beside the spatial 512), 640 (the
 # global encoder's 128) and 1,152 (a 5-stage encoder's 1,024 and the
-# global 128); 24 frequencies: 150 encoded lanes, 192 as padded
+# global 128); 24 frequencies: 150 encoded lanes, 192 as padded; and at
+# the shipped d_hidden 512 the latents the bf16 wgmma forward takes in
+# pieces (the global encoder's 640, a 5-stage encoder's 1,024)
 WIDE = [(640, 612, 24, 1), (640, 1152, 6, 2), (1024, 1152, 24, 2), (1024, 640, 24, 1),
-        (1024, 612, 6, 2)]
+        (1024, 612, 6, 2), (512, 640, 6, 1), (512, 1024, 6, 2)]
 
 
 @pytest.mark.parametrize("d_hidden,d_latent,num_freqs,ns", WIDE)
@@ -165,9 +167,10 @@ def test_wide_routes():
     for dh in (1088, 1152, 1792):
         assert K2.forward_route(F32, 512, 64, dh) == "wide"
         assert K2.backward_route(F32, dh, 512, 64) == "wide"
-    # bf16 at 512 past the tail's latent or input lanes: the forward keeps
-    # its kernel, the dgrad is the TMA cluster one; float32 keeps both
-    assert K2.forward_route(BF16, 640, 64, 512) == "mma_sync"
+    # bf16 at 512 past the tail's latent or input lanes: the forward is the
+    # wgmma one (its operands in pieces), the dgrad the TMA cluster
+    # one; float32 keeps both
+    assert K2.forward_route(BF16, 640, 64, 512) == "wgmma"
     assert K2.backward_route(BF16, 512, 640, 64) == "wide_tma"
     assert K2.backward_route(BF16, 512, 512, 192) == "wide_tma"
     assert K2.forward_route(BF16, 512, 192, 512) == "wgmma"
@@ -177,6 +180,67 @@ def test_wide_routes():
     assert K2.forward_route(BF16, 1152, 64, 1152) == "wide"
     assert K2.backward_route(BF16, 1152, 1152, 64) == "wide"
     assert K2.backward_route(BF16, 128, 640, 64) == "wide"
+
+
+# bf16 at d_hidden 512 and 256 past the wgmma forward's 512-lane A tile (in
+# pieces of up to 768 lanes):
+# (d_hidden, d_latent, k_in as padded); every one was measured faster on the
+# wgmma forward's pieces than on resnetfc_kernel (PERF.md, the sweep in
+# turns at the band chunk), so each takes "wgmma"
+PIECED = [(dh, dl, 64) for dh in (512, 256) for dl in (640, 1024, 1152)] + [
+    (512, 512, 576), (256, 512, 576)]
+
+
+@pytest.mark.parametrize("d_hidden,d_latent,k_in", PIECED)
+def test_pieced_shapes_take_the_wgmma_forward(d_hidden, d_latent, k_in):
+    assert K2.forward_route(BF16, d_latent, k_in, d_hidden) == "wgmma"
+    # the dgrad is unchanged: the TMA cluster one past the tail's lanes
+    assert K2.backward_route(BF16, d_hidden, d_latent, k_in) == (
+        "wide_tma" if d_hidden >= 256 else "wide")
+
+
+@pytest.mark.parametrize("d_latent,k_in", [(1216, 64), (64, 1216), (2048, 576), (1152, 1216)])
+def test_past_the_pieces_limit_resnetfc_kernel_stays(d_latent, k_in):
+    """Past the C entry's FWD_OPERAND_MAX lanes the rule keeps
+    resnetfc_kernel, which took these shapes before: nothing is refused."""
+    for dh in (64, 256, 512):
+        assert K2.forward_route(BF16, d_latent, k_in, dh) == "mma_sync"
+    assert K2.forward_route(F32, d_latent, k_in, 512) == "fma"
+
+
+def test_pieces_match_the_source():
+    """The wgmma forward's A tile, its pieces past it and the C entry's limit
+    are the wrapper's (csrc/resnetfc_hopper.cu FWD_K_MAX, FWD_K_EXT,
+    FWD_OPERAND_MAX); a piece is the A tile's 8 boxes and the park tiles' 4
+    (fwd_box: the ninth box starts the park tiles, 1,024-byte aligned); the
+    C entry refuses past the limit and takes the pieced instantiation past
+    512 lanes; the producer streams a product's weight k-slabs in the
+    consumers' order: piece, half, k-chunk.  Every operand width up to the
+    limit splits into pieces that cover its lanes once, each whole 64-lane
+    boxes, at most two."""
+    src = (CSRC / "resnetfc_hopper.cu").read_text()
+    env = {"GOUT_W": K2.GOUT_W}
+    for n, e in re.findall(r"^constexpr (?:int|uint32_t) ((?:DG|FW|FWD)_\w+) = ([^;]+);", src,
+                           re.M):
+        env[n] = eval(e, {}, dict(env))  # noqa: S307 - the repo's own constants
+    assert (env["FWD_K_MAX"], env["FWD_K_EXT"], env["FWD_OPERAND_MAX"]) == (
+        K2.FWD_K_MAX, K2.FWD_K_EXT, K2.FWD_OPERAND_MAX)
+    # the park tiles: 4 boxes after the ring, the A tile's boxes 9-12
+    assert env["FWD_K_EXT"] == env["FWD_K_MAX"] + 4 * 64
+    assert env["FW_JUMP"] == env["FW_PARK"] - (env["DG_A"] + 8 * env["DG_BOX"])
+    assert env["FW_PARK"] % 1024 == 0 and env["FW_PARK"] + 4 * env["DG_BOX"] <= env["DG_BAR"]
+    assert "d_latent > FWD_OPERAND_MAX" in src and "k_in > FWD_OPERAND_MAX" in src
+    assert "const bool pieces = dl > FWD_K_MAX || k_in > FWD_K_MAX;" in src
+    producer = " ".join(src.split("auto stream = [&]")[1].split("++ws;")[0].split())
+    assert producer.index("k0 += FWD_K_EXT") < producer.index("++h") < producer.index("kc += 64")
+    consumer = src.split("resnetfc_fwd_wgmma_kernel(const __grid_constant__")[1]
+    assert "j0 += FWD_K_EXT" in consumer and "l0 += FWD_K_EXT" in consumer
+    for k in range(64, K2.FWD_OPERAND_MAX + 1, 64):
+        pieces = [(k0, min(K2.FWD_K_EXT, k - k0)) for k0 in range(0, k, K2.FWD_K_EXT)]
+        lanes = [lane for k0, width in pieces for lane in range(k0, k0 + width)]
+        assert lanes == list(range(k)) and all(w % 64 == 0 for _, w in pieces)
+        assert len(pieces) == -(-k // K2.FWD_K_EXT) <= 2
+        assert len(pieces) == 1 or k > K2.FWD_K_EXT
 
 
 @pytest.mark.parametrize("cd", [BF16, F32])
