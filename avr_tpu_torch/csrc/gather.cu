@@ -66,13 +66,16 @@
 //   2. a stable counting sort of (point, tile) entries into bins, one bin a
 //      (view, tile); a point is listed in every tile its four taps touch
 //      (one, or two or four at a tile edge):
-//      count   (one thread a point, SEG points a CTA): each CTA's histogram
-//              over the view's tiles;
+//      count   (one thread a point, SEG points a CTA): each CTA's count in
+//              each tile its points touch, by integer atomics into a zeroed
+//              (bin, CTA) histogram in device memory;
 //      scan    (one CTA a bin): each CTA's offset within the bin, and the
 //              bin's size;
 //      plan    (one CTA): bin starts, and each bin's chunks (below);
 //      scatter (as count): each entry's place, ranked by point within its
-//              CTA, so every bin lists its points in ascending order.
+//              CTA by a bitonic sort of the CTA's at most 4 SEG tile keys in
+//              shared memory (whatever the map's tile count), so every bin
+//              lists its points in ascending order.
 //   3. accumulate (one CTA a (bin chunk, channel slice of SLICE channels)):
 //      the chunk's entries in bin order, each adding round(w) * g to those
 //      of its taps that lie in the tile; the tile's sums stay on the chip
@@ -98,8 +101,13 @@
 // mma kernel's 128, or the float32 kernel's shared tile).  The mma kernel
 // stages 128 entries at once (their g rows by cp.async, 8 products: the
 // latency of the loads is paid once per 128 entries).  SEG 256 points a
-// sort CTA: the in-CTA rank is a 32-step shuffle loop per warp plus a walk
-// over the CTA's 8 warps.  Chunks: a bin of more than CHUNK_MIN entries
+// sort CTA: its at most 1,024 keys (8 KB of shared memory; ~325 at uniform
+// points, sorted as 512) sort in at most 55 compare-and-swap steps, and a
+// key's rank is a binary search; no shared array grows with the map (a
+// per-warp count of every tile of the view, as a first version kept, held
+// 1,024 tiles in 48 KB).
+// The entries are int32: 4 B N < 2^31 (ops/kernels/gather.py checks it).
+// Chunks: a bin of more than CHUNK_MIN entries
 // wants ceil(n / CHUNK_MIN) chunks; the chunks of all split bins share a
 // budget of PARTIAL_CHUNKS partial tiles (16.8 MB of float32 scratch at
 // C = 512), cut pro rata when exceeded (then many bins are long and the
@@ -183,13 +191,6 @@ __device__ __forceinline__ int code_tile(int code, int k, int TX) {
   }
 }
 
-// Whether a point of `code` (-1: none) has an entry in tile x.
-__device__ __forceinline__ bool code_has(int code, int x, int TX) {
-  if (code < 0) return false;
-  const int d = x - (code >> 2), sx = code & 1, sy = (code >> 1) & 1;
-  return d == 0 || (sx && d == 1) || (sy && d == TX) || (sx && sy && d == TX + 1);
-}
-
 // Exclusive prefix sum of v over the block (blockDim.x a multiple of 32);
 // *total gets the block's sum.  `sh` holds 32 ints.
 __device__ __forceinline__ int block_exclusive_scan(int v, int* sh, int* total) {
@@ -237,31 +238,92 @@ template <bool SHARED> __device__ __forceinline__ size_t point_set(int b, int vi
   return (size_t)(SHARED ? b / views : b);
 }
 
-// count: block (seg, view) histograms its SEG points' entries over the
-// view's tiles.  Integer shared-memory atomics: a count has no order.
+// A sort block's entries ranked by tile, independent of the map's tile
+// count: each of its SEG points' (at most 4) entries gets the key (tile <<
+// 10) | (4 * local point + slot); the block's keys are compacted (a block
+// scan of each thread's count, in thread order) into the first `total`
+// places and sorted by a bitonic network over the least power of two that
+// holds them (the rest ~0), so by tile and, within a tile, by point (a point
+// has at most one entry a tile, and the low bits make every key unique: the
+// order is total, the same on every run).  After it, keys[i]'s rank in its
+// tile is i less the tile's first position.  Returns `total`.
+constexpr int SORT_KEYS = 4 * SEG;
+static_assert(SORT_KEYS <= 1024, "a key's low 10 bits hold its entry");
+
+template <bool PROJ, bool SHARED>
+__device__ __forceinline__ int sort_block_entries(unsigned long long* keys, int* sh,
+                                                  const float* __restrict__ src, const float* p_s,
+                                                  int b, int seg, int H, int W, int N, int TX,
+                                                  int views) {
+  const int tid = threadIdx.x, n = seg * SEG + tid;
+  const int code =
+      n < N ? tile_code(point_taps<PROJ>(src, p_s, point_set<SHARED>(b, views) * N + n, H, W),
+                        W, TX)
+            : -1;
+  int tile[4], mine = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    tile[k] = code < 0 ? -1 : code_tile(code, k, TX);
+    mine += tile[k] >= 0;
+  }
+  int total;
+  int at = block_exclusive_scan(mine, sh, &total);
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (tile[k] >= 0) keys[at++] = ((unsigned long long)tile[k] << 10) | (unsigned)(4 * tid + k);
+  int size_max = 1;
+  while (size_max < total) size_max <<= 1;
+  for (int i = total + tid; i < size_max; i += SEG) keys[i] = ~0ull;
+  for (int size = 2; size <= size_max; size <<= 1)
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      __syncthreads();
+      for (int p = tid; p < size_max / 2; p += SEG) {
+        const int i = 2 * p - (p & (stride - 1)), j = i + stride;
+        const unsigned long long a = keys[i], c = keys[j];
+        if ((a > c) == ((i & size) == 0)) {
+          keys[i] = c;
+          keys[j] = a;
+        }
+      }
+    }
+  __syncthreads();
+  return total;
+}
+
+// The first position of tile `tile`'s keys among the `total` sorted keys.
+__device__ __forceinline__ int tile_first(const unsigned long long* keys, int total,
+                                          unsigned long long tile) {
+  int lo = 0, hi = total;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if ((keys[mid] >> 10) < tile) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// count: block (seg, view) adds its SEG points' entries to their tiles'
+// counts for the block in hist, zeroed first, by integer atomics (a count
+// has no order; the array is the bins' counts by sort block, not a shared
+// array sized by the map).
 template <bool PROJ, bool SHARED>
 __global__ void __launch_bounds__(SEG)
 gather_bin_count_kernel(const float* __restrict__ src, const float* __restrict__ proj,
                         int* __restrict__ hist, int H, int W, int N, int TX, int T, int nseg,
                         int views) {
-  extern __shared__ int cnt[];  // [T]
   __shared__ float p_s[16];
   const int b = blockIdx.y, seg = blockIdx.x, tid = threadIdx.x;
   if (PROJ && tid < 16) p_s[tid] = proj[(size_t)b * 16 + tid];
-  for (int t = tid; t < T; t += SEG) cnt[t] = 0;
   __syncthreads();
   const int n = seg * SEG + tid;
-  if (n < N) {
-    const int code =
-        tile_code(point_taps<PROJ>(src, p_s, point_set<SHARED>(b, views) * N + n, H, W), W, TX);
+  if (n >= N) return;
+  const int code =
+      tile_code(point_taps<PROJ>(src, p_s, point_set<SHARED>(b, views) * N + n, H, W), W, TX);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int x = code_tile(code, k, TX);
-      if (x >= 0) atomicAdd(&cnt[x], 1);
-    }
+  for (int k = 0; k < 4; ++k) {
+    const int x = code_tile(code, k, TX);
+    if (x >= 0) atomicAdd(&hist[((size_t)b * T + x) * nseg + seg], 1);
   }
-  __syncthreads();
-  for (int t = tid; t < T; t += SEG) hist[((size_t)b * T + t) * nseg + seg] = cnt[t];
 }
 
 // scan: block `bin` turns its nseg counts into offsets within the bin, and
@@ -330,54 +392,29 @@ gather_bin_plan_kernel(const int* __restrict__ totals, int* __restrict__ plan, i
   if (threadIdx.x == 0) wstart[NB] = witems;
 }
 
-// scatter: block (seg, view) places its SEG points' entries.  A point's
-// rank in a bin counts the earlier points of its block with an entry there:
-// those of its warp by a shuffle loop over the warp's codes, those of the
-// earlier warps from each warp's per-tile counts in shared memory.
+// scatter: block (seg, view) places its SEG points' entries: an entry's
+// rank in its bin counts the block's earlier points with an entry there,
+// its position among the sorted keys less its tile's first.
 template <bool PROJ, bool SHARED>
 __global__ void __launch_bounds__(SEG)
 gather_bin_scatter_kernel(const float* __restrict__ src, const float* __restrict__ proj,
                           const int* __restrict__ hist, const int* __restrict__ plan,
                           int* __restrict__ entries, int H, int W, int N, int TX, int T, int nseg,
                           int NB, int views) {
-  extern __shared__ int wcount[];  // [SEG / 32][T]
+  __shared__ unsigned long long keys[SORT_KEYS];
+  __shared__ int sh[32];
   __shared__ float p_s[16];
   const int b = blockIdx.y, seg = blockIdx.x, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
   if (PROJ && tid < 16) p_s[tid] = proj[(size_t)b * 16 + tid];
-  for (int i = tid; i < (SEG / 32) * T; i += SEG) wcount[i] = 0;
   __syncthreads();
-  const int n = seg * SEG + tid;
-  const int code =
-      n < N ? tile_code(point_taps<PROJ>(src, p_s, point_set<SHARED>(b, views) * N + n, H, W),
-                        W, TX)
-            : -1;
-  int tile[4], lower[4] = {0, 0, 0, 0}, upper[4] = {0, 0, 0, 0};
-#pragma unroll
-  for (int k = 0; k < 4; ++k) tile[k] = code < 0 ? -1 : code_tile(code, k, TX);
-  for (int s = 0; s < 32; ++s) {
-    const int cs = __shfl_sync(FULL, code, s);
-    if (s == lane) continue;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (tile[k] >= 0 && code_has(cs, tile[k], TX)) {
-        if (s < lane) ++lower[k];
-        else ++upper[k];
-      }
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    if (tile[k] >= 0 && upper[k] == 0) wcount[warp * T + tile[k]] = lower[k] + 1;
-  __syncthreads();
+  const int total = sort_block_entries<PROJ, SHARED>(keys, sh, src, p_s, b, seg, H, W, N, TX,
+                                                     views);
   const BinPlan pl(plan, NB);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    if (tile[k] < 0) continue;
-    int r = lower[k];
-    for (int w = 0; w < warp; ++w) r += wcount[w * T + tile[k]];
-    const int bin = b * T + tile[k];
-    entries[pl.start[bin] + hist[(size_t)bin * nseg + seg] + r] = n;
+  for (int i = tid; i < total; i += SEG) {
+    const unsigned long long key = keys[i], tile = key >> 10;
+    const size_t bin = (size_t)b * T + tile;
+    const int n = seg * SEG + (int)(key & 1023) / 4;
+    entries[pl.start[bin] + hist[bin * nseg + seg] + i - tile_first(keys, total, tile)] = n;
   }
 }
 
@@ -669,11 +706,12 @@ static void launch_bins(const void* src, const void* proj, const void* g, void* 
   int* plan = totals + NB;
   int* entries = plan + 4 * NB + 1;
   const dim3 sort_grid((unsigned)nseg, (unsigned)B);
-  gather_bin_count_kernel<PROJ, SHARED><<<sort_grid, SEG, T_ * sizeof(int), s>>>(
+  cudaMemsetAsync(hist, 0, (size_t)NB * nseg * sizeof(int), s);
+  gather_bin_count_kernel<PROJ, SHARED><<<sort_grid, SEG, 0, s>>>(
       (const float*)src, (const float*)proj, hist, H, W, N, TX, T_, nseg, views);
   gather_bin_scan_kernel<<<NB, THREADS, 0, s>>>(hist, totals, nseg);
   gather_bin_plan_kernel<<<1, 1024, 0, s>>>(totals, plan, NB);
-  gather_bin_scatter_kernel<PROJ, SHARED><<<sort_grid, SEG, (SEG / 32) * T_ * sizeof(int), s>>>(
+  gather_bin_scatter_kernel<PROJ, SHARED><<<sort_grid, SEG, 0, s>>>(
       (const float*)src, (const float*)proj, hist, plan, entries, H, W, N, TX, T_, nseg, NB,
       views);
   const dim3 acc_grid((unsigned)(NB + PARTIAL_CHUNKS), (unsigned)slices);

@@ -31,8 +31,8 @@ from avr_tpu_torch._paths import BUILD_DIR, CSRC
 __all__ = ["launches", "reset_launches", "load_library", "kernel_fn", "check",
            "check_cuda_inputs", "ptr", "stream_ptr", "build_info"]
 
-SOURCES = ("gather.cu", "resnetfc.cu", "resnetfc_hopper.cu", "resnetfc_wide.cu", "march.cu",
-           "integrate.cu", "rng.cu")
+SOURCES = ("gather.cu", "resnetfc.cu", "resnetfc_hopper.cu", "resnetfc_wide.cu",
+           "resnetfc_chain.cu", "march.cu", "integrate.cu", "rng.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -75,10 +75,9 @@ NAME_PROJ = "gather_bilinear_projected"
 NAME_PROJ_BWD = "gather_bilinear_projected_bwd"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the binned backward's constants (csrc/gather.cu): map tile side, points a
-# sort block, partial tiles of split bins; the sort keeps a per-warp count
-# of every tile of a view in 48 KB of shared memory, hence MAX_TILES
+# sort block, partial tiles of split bins (the sort takes a map of any tile
+# count: a sort block ranks its own entries)
 TILE, SEG, PARTIAL_CHUNKS = 8, 256, 128
-MAX_TILES = 1024
 # the forward's constants (csrc/gather.cu): threads a CTA, points of a tile
 # at most (one a thread); a tile aims at FWD_TILE_ITEMS 16-byte channel
 # groups (16 a thread), and has FWD_MIN_POINTS points at least
@@ -217,10 +216,9 @@ def bin_workspace(B: int, H: int, W: int, C: int, N: int) -> tuple:
 
 def _bin_scratch(name: str, features: torch.Tensor, N: int):
     B, H, W, C = features.shape
-    if -(-H // TILE) * -(-W // TILE) > MAX_TILES or 4 * B * N >= 2 ** 31:
-        raise ValueError(f"{name}: the binned backward takes at most {MAX_TILES} "
-                         f"{TILE}x{TILE} tiles a map and 4 * B * N < 2^31, got map "
-                         f"{H}x{W}, B * N = {B * N}")
+    if 4 * B * N >= 2 ** 31:  # the sort's entries (at most 4 a point) are int32
+        raise ValueError(f"{name}: the binned backward takes 4 * B * N < 2^31, got B * N = "
+                         f"{B * N}")
     ints, floats = bin_workspace(B, H, W, C, N)
     return (torch.empty(ints, dtype=torch.int32, device=features.device),
             torch.empty(floats, dtype=torch.float32, device=features.device))

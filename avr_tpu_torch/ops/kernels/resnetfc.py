@@ -28,8 +28,9 @@ producer thread streaming every product's weight k-slabs through a
 shared-memory ring by TMA, ``wgmma`` on the swizzled operand tile, the
 stash stored from that tile by TMA.  bf16 outside that envelope
 takes ``csrc/resnetfc.cu``'s 32-point ``mma.sync`` kernel, whose ~6.8 MB of
-weights stream from L2 for every tile.  float32 takes
-``csrc/resnetfc.cu``'s ``resnetfc_fwd_f32_kernel`` (:func:`f32_forward_plan`):
+weights stream from L2 for every tile, where its shared memory
+(:func:`mma_sync_smem`) holds the call, and the chain (below) past it.
+float32 takes ``csrc/resnetfc.cu``'s ``resnetfc_fwd_f32_kernel`` (:func:`f32_forward_plan`):
 a CTA a 32-point tile, register-tiled FMA products (8 points x 8 columns a
 thread, the trunk in registers), the transposed weights' 16-row slabs
 streamed through a shared-memory ring by copies the warps take turns to
@@ -78,11 +79,19 @@ memory, full-width weight slabs of 8 rows streamed through a 3-stage (at
 forward's latent rows read into the operand tile a chunk at a time),
 register-tiled FMA (16
 points x 8 columns a thread), one FMA chain per output in k order as the
-first version's.  Every other wide shape (``"wide"``: float32 past 1,024,
-wider bf16) takes the first version, one kernel each templated on
-the operand type (bf16 ``mma.sync``, float32 FMA): a CTA a tile of 32
-(bf16) or 16 (float32) points, the float32 trunk in shared memory, the
-weights read from L2.  The wgrads above take their jobs at any width.  A latent of any width is
+first version's.  The wide shapes neither takes up to ``d_hidden`` 1,024
+(``"wide"``: bf16 below 256, or operands past the cluster kernels' shared
+memory) take the first version where its CTA fits, one kernel each
+templated on the operand type (bf16 ``mma.sync``, float32 FMA): a CTA a
+tile of 32 (bf16) or 16 (float32) points, the float32 trunk in shared
+memory, the weights read from L2.  Past 1,024 and past that shared memory
+(``"chain"``, the rule :func:`chain_takes`: ``d_hidden`` past 1,024 in
+either dtype, narrower trunks with latents too wide for the tile) the
+forward and the dgrad are ``csrc/resnetfc_chain.cu``'s chain: each product one
+launch over a chunk of up to ``CHAIN_CHUNK`` points (:func:`chain_plan`),
+a tiled product whose epilogue adds into the float32 trunk in device
+memory and writes the next product's operand into its stash slot.  The
+wgrads above take their jobs at any width.  A latent of any width is
 zero-padded to a multiple of 64 lanes (:func:`pad_latent`), as lin_in's
 input is, and its gradient sliced back.
 
@@ -112,10 +121,11 @@ import torch
 
 from avr_tpu_torch.ops.kernels import _build
 
-__all__ = ["CodeSpec", "DecoderWeights", "backward_route", "check_wide_bound", "f32_dgrad_plan",
-           "f32_forward_plan", "forward_route", "fused_resnetfc", "pad_latent", "resnetfc_plain",
-           "use_stash", "encode_tables", "wgrad_plan", "wide_f32_fits", "wide_f32_smem",
-           "wide_f32_stages", "wide_smem", "wide_tma_fits", "wide_tma_smem"]
+__all__ = ["CodeSpec", "DecoderWeights", "backward_route", "chain_plan", "chain_takes",
+           "chain_workspace", "f32_dgrad_plan", "f32_forward_plan", "forward_route",
+           "fused_resnetfc", "mma_sync_smem", "pad_latent", "resnetfc_plain", "use_stash",
+           "encode_tables", "wgrad_plan", "wide_f32_fits", "wide_f32_smem", "wide_f32_stages",
+           "wide_smem", "wide_tma_fits", "wide_tma_smem"]
 
 NAME = "fused_resnetfc"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -386,20 +396,28 @@ def forward_route(compute_dtype: torch.dtype, d_latent: int, k_in: int,
     ``"wide_tma"`` where :func:`wide_tma_fits` (bf16:
     ``csrc/resnetfc_wide.cu resnetfc_wide_tma_fwd_kernel``), ``"wide_f32"``
     where :func:`wide_f32_fits` (float32: ``resnetfc_wide_f32_fwd_kernel``),
-    else ``"wide"`` (``resnetfc_wide_fwd_kernel``, the trunk in shared
-    memory); else
+    else ``"chain"`` where :func:`chain_takes` (``csrc/resnetfc_chain.cu``,
+    a launch a product over all points) and ``"wide"``
+    (``resnetfc_wide_fwd_kernel``, the trunk in shared memory) for the
+    rest; else
     ``"wgmma"`` (bf16 with ``d_latent`` and ``k_in`` at most
     ``FWD_OPERAND_MAX``, past 512 lanes in pieces of up to ``FWD_K_EXT``:
-    ``csrc/resnetfc_hopper.cu``), ``"mma_sync"`` (wider bf16) or ``"fma"``
-    (float32: ``resnetfc_fwd_f32_kernel``), both ``csrc/resnetfc.cu``.  A
-    route's build or launch failure raises: no call changes kernel."""
+    ``csrc/resnetfc_hopper.cu``), ``"mma_sync"`` (wider bf16 where
+    :func:`mma_sync_smem` fits, ``csrc/resnetfc.cu resnetfc_kernel``), the
+    chain past that, or ``"fma"`` (float32: ``csrc/resnetfc.cu
+    resnetfc_fwd_f32_kernel``).  A route's build or launch failure raises:
+    no call changes kernel."""
     if d_hidden > REG_DH_MAX:
         if wide_f32_fits(compute_dtype, d_hidden, k_in):
             return "wide_f32"
-        return "wide_tma" if wide_tma_fits(compute_dtype, d_hidden, d_latent, k_in) else "wide"
+        if wide_tma_fits(compute_dtype, d_hidden, d_latent, k_in):
+            return "wide_tma"
+        return "chain" if chain_takes(compute_dtype, d_hidden, d_latent, k_in) else "wide"
     if compute_dtype == torch.float32:
         return "fma"
-    return "wgmma" if max(d_latent, k_in) <= FWD_OPERAND_MAX else "mma_sync"
+    if max(d_latent, k_in) <= FWD_OPERAND_MAX:
+        return "wgmma"
+    return "mma_sync" if mma_sync_smem(d_hidden, d_latent, k_in) <= SMEM_MAX else "chain"
 
 
 def backward_route(compute_dtype: torch.dtype, d_hidden: int, d_latent: int, k_in: int) -> str:
@@ -411,17 +429,30 @@ def backward_route(compute_dtype: torch.dtype, d_hidden: int, d_latent: int, k_i
     or, for every other shape, ``"wide_tma"`` where :func:`wide_tma_fits`
     (``csrc/resnetfc_wide.cu resnetfc_wide_tma_dgrad_kernel``),
     ``"wide_f32"`` where :func:`wide_f32_fits`
-    (``resnetfc_wide_f32_dgrad_kernel``), else ``"wide"``
-    (``resnetfc_wide_dgrad_kernel``).  ``d_latent`` and ``k_in`` as
-    padded."""
+    (``resnetfc_wide_f32_dgrad_kernel``), else ``"chain"`` where
+    :func:`chain_takes` (``csrc/resnetfc_chain.cu``) and ``"wide"``
+    (``resnetfc_wide_dgrad_kernel``) for the rest.  ``d_latent`` and
+    ``k_in`` as padded."""
     if compute_dtype == torch.float32:
         if d_hidden <= REG_DH_MAX:
             return "fma"
-        return "wide_f32" if wide_f32_fits(compute_dtype, d_hidden, k_in) else "wide"
-    inside = d_hidden <= REG_DH_MAX and d_latent <= TAIL_DL_MAX and k_in <= TAIL_KIN_MAX
-    if inside:
+        if wide_f32_fits(compute_dtype, d_hidden, k_in):
+            return "wide_f32"
+    elif d_hidden <= REG_DH_MAX and d_latent <= TAIL_DL_MAX and k_in <= TAIL_KIN_MAX:
         return "wgmma"
-    return "wide_tma" if wide_tma_fits(compute_dtype, d_hidden, d_latent, k_in, True) else "wide"
+    elif wide_tma_fits(compute_dtype, d_hidden, d_latent, k_in, True):
+        return "wide_tma"
+    return "chain" if chain_takes(compute_dtype, d_hidden, d_latent, k_in, True) else "wide"
+
+
+def mma_sync_smem(d_hidden: int, d_latent: int, k_in: int) -> int:
+    """Shared bytes of a ``resnetfc_kernel`` CTA (``csrc/resnetfc.cu
+    fwd_smem_bytes``) at NS > 1, the most any number of views takes: a
+    32-point tile of the widest of lin_in's operand and the trunk's
+    activations, the latent tile (bf16 rows of ``ceil(k / 64) * 64 + 32``),
+    and the view sum (32 x ``d_hidden`` floats)."""
+    rows = lambda k: -(-k // 64) * 64 + 32
+    return 32 * (rows(max(k_in, d_hidden)) + rows(d_latent)) * 2 + 32 * d_hidden * 4
 
 
 # The wide kernels (csrc/resnetfc_wide.cu): a CTA a tile of WIDE_TM points
@@ -527,6 +558,301 @@ def wide_smem(compute_dtype: torch.dtype, d_hidden: int, d_latent: int, k_in: in
     k = d_hidden if backward else max(d_hidden, d_latent, k_in)
     return tm * (d_hidden + 4) * 4 + tm * wide_lda(compute_dtype, k) * item + \
         (tm * GOUT_W * 4 if backward else 0)
+
+
+# d_hidden above which the chain takes every wide shape no cluster kernel
+# takes: measured faster than the first version there (bf16 1,152, float32
+# 1,152 to 1,792, forward and dgrad, at the band chunk in two calls;
+# PERF.md section 6, chip_smoke.py --chain-sweep)
+CHAIN_DH_MIN = 1024
+
+
+def chain_takes(compute_dtype: torch.dtype, d_hidden: int, d_latent: int, k_in: int,
+                backward: bool = False) -> bool:
+    """The route rule between the first wide version and the chain
+    (``csrc/resnetfc_chain.cu``), one function of the shape, for a wide
+    shape that no cluster kernel takes: the chain takes it past
+    ``CHAIN_DH_MIN`` (where it was measured faster) and wherever the first
+    version's CTA (:func:`wide_smem`: the trunk and the widest operand of a
+    tile) does not fit ``SMEM_MAX`` bytes of shared memory."""
+    return (d_hidden > CHAIN_DH_MIN
+            or wide_smem(compute_dtype, d_hidden, d_latent, k_in, backward) > SMEM_MAX)
+
+
+# The chain (csrc/resnetfc_chain.cu): each product one launch over a chunk
+# of at most CHAIN_CHUNK points, whose float32 trunk (and view sums, and
+# without the stash two operand buffers; the dgrad's gh, pooled cotangent and
+# lin_in's input cotangent) is the workspace.
+CHAIN_CHUNK = 131_072
+# forwards (stash or not) and dgrads (stash and recompute) on the chain, by dtype
+NAME_CHAIN = {torch.bfloat16: "fused_resnetfc_chain", torch.float32: "fused_resnetfc_chain_f32"}
+NAME_DGRAD_CHAIN = {torch.bfloat16: "resnetfc_dgrad_chain",
+                    torch.float32: "resnetfc_dgrad_chain_f32"}
+
+
+def chain_workspace(N: int, ns: int, d_hidden: int, k_in: int, compute_dtype: torch.dtype,
+                    stash: bool, backward: bool) -> dict:
+    """Byte offsets of the chain's workspace for calls of up to ``N``
+    points (its chunks at most ``CHAIN_CHUNK``): ``H`` (the trunk, or gh),
+    ``pool`` (NS > 1: the view sums, or the pooled cotangent), the forward's
+    ``act`` buffers without the stash (relu(h) and relu(fc_0), rounded), the
+    dgrad's ``denc`` (lin_in's input cotangent, float32), and ``bytes``."""
+    c = min(N, CHAIN_CHUNK)
+    item = torch.empty((), dtype=compute_dtype).element_size()
+    f32 = 4 * c * d_hidden
+    off = dict(H=0, pool=f32)
+    at = f32 * (2 if ns > 1 else 1)
+    if backward:
+        off["denc"] = at
+        at += 4 * c * k_in
+    elif not stash:
+        off["act"] = (at, at + item * c * d_hidden)
+        at += 2 * item * c * d_hidden
+    off["bytes"] = at
+    return off
+
+
+class ChainStep(NamedTuple):
+    """One record of the chain, symbolic (bound to pointers chunk by chunk
+    by :func:`_chain_records`).  ``kind``: ``"gemm"`` (a product), ``"linout"``
+    (lin_out, a warp a point), ``"head"`` (the dgrad's lin_out backward),
+    ``"enc"`` (the encoding's backward and the encoded input).  Operands:
+    ``("x", v)`` view v's raw inputs (encoded as lin_in's A tiles are
+    staged), ``("z", v)`` its latents, ``("stash", slot)``, ``("cot",
+    slot)``, ``("act", i)`` (the forward's operand buffers without the
+    stash), ``("dz", v)``, ``("denc",)``; weights ``("wi",)``, ``("wz",
+    k)``, ``("w0", k)``, ``("w1", k)`` (a product's bias is its weight's)."""
+
+    kind: str
+    epi: str = ""                 # a product's epilogue: CHAIN_EPI's keys
+    a: Optional[tuple] = None     # A operand (segment 0)
+    w: Optional[tuple] = None     # B operand (segment 0)
+    kdim: str = ""                # K a segment: "k_in", "d_latent" or "d_hidden"
+    ndim: str = ""                # output columns
+    out: Optional[tuple] = None   # what the epilogue writes (the next A operand)
+    mask: Optional[tuple] = None  # the stash slot whose ReLU mask the epilogue reads
+    pool: str = ""                # fc1: "first", "add", "last"; gh and head: "use", "boundary"
+    view: int = 0                 # enc: the view
+    nseg: int = 1                 # dz: the injections' segments
+    a1: Optional[tuple] = None    # segment 1's A; segment j at a1 + (j - 1) * a_seg slots
+    a_seg: int = 0
+
+
+CHAIN_KINDS = {"gemm": 0, "linout": 1, "head": 2, "enc": 3}
+CHAIN_EPI = {"in": 0, "z": 1, "fc0": 2, "fc1": 3, "c0": 4, "gh": 5, "f32": 6, "t": 7}
+CHAIN_FLAGS = {"encode": 1, "use": 2, "boundary": 4, "first": 8, "add": 16, "last": 32}
+
+
+def chain_plan(ns: int, n_blocks: int, n_lin_z: int, backward: bool = False,
+               stash: bool = True) -> list:
+    """The chain's records for one chunk, in launch order.
+
+    Forward: per view lin_in (h = acc + b, the encoding its prologue), then
+    per injection k its product (h = (h + acc) + b, relu(h) out as block k's
+    fc_0 input), fc_0 (relu(acc + b) out as fc_1's input) and fc_1 (h = (h
+    + acc) + b; the combine layer's last block sums the views into the pool,
+    the last view forming the mean, and writes relu(h) for the next
+    product); then the pooled blocks, each fc_1 writing the next fc_0's
+    input, the last one lin_out's; then lin_out.  Those operands are the
+    stash slots (:func:`stash_slot`, the last slot lin_out's), or without
+    the stash the two ``act`` buffers.
+
+    dgrad (on the stash): the head (gout, gh, round(gh) to the last
+    block's c1 slot); per block c0 = round(mask(relu(fc_0)) * (c1 @ W1)) to
+    its cotangent slot and gh += mask(relu(h)) * (c0 @ W0), which writes
+    round(gh) to the next block's c1 slot (cot_in after a view's block 0);
+    over NS > 1 the pooled blocks once (view 0's slots), whose last product
+    (or the head, when every block is a view's) writes the pooled cotangent
+    and every view's first c1, round(gh / NS), and each view's first block
+    reads gh = pool / NS; per view lin_in's input cotangent (float32), the
+    encoding's backward (dx, enc) and dz, one product over the injections'
+    segments G_0 = cot_in, G_j = block j - 1's c1."""
+    nb, nlz = n_blocks, n_lin_z
+    last = ("stash", stash_slots(ns, nb, nlz) - 1)
+    if backward:
+        C = lambda k, j, v: ("cot", stash_slot(k, j, v, ns, nlz))
+        M = lambda k, j, v: ("stash", stash_slot(k, j, v, ns, nlz))
+        cin = lambda v: ("cot", cot_slots(ns, nb, nlz) - ns + v)
+        steps = [ChainStep("head", a=last, out=C(nb - 1, 1, 0),
+                           pool="boundary" if ns > 1 and nb == nlz else "")]
+
+        def block(k, v, out, pool):
+            steps.append(ChainStep("gemm", "c0", C(k, 1, v), ("w1", k), "d_hidden", "d_hidden",
+                                   out=C(k, 0, v), mask=M(k, 1, v)))
+            steps.append(ChainStep("gemm", "gh", C(k, 0, v), ("w0", k), "d_hidden", "d_hidden",
+                                   out=out, mask=M(k, 0, v), pool=pool))
+
+        lo = 0 if ns == 1 else nlz  # the blocks walked once, on view 0's slots
+        for k in range(nb - 1, lo - 1, -1):
+            if k > lo:
+                block(k, 0, C(k - 1, 1, 0), "")
+            elif ns == 1:
+                block(k, 0, cin(0), "")
+            else:
+                block(k, 0, C(nlz - 1, 1, 0), "boundary")
+        for v in range(ns):
+            if ns > 1:
+                for k in range(nlz - 1, -1, -1):
+                    block(k, v, C(k - 1, 1, v) if k else cin(v), "use" if k == nlz - 1 else "")
+            steps += [ChainStep("gemm", "f32", cin(v), ("wi",), "d_hidden", "k_in", out=("denc",)),
+                      ChainStep("enc", view=v),
+                      ChainStep("gemm", "t", cin(v), ("wz", 0), "d_hidden", "d_latent",
+                                out=("dz", v), nseg=nlz, a1=C(0, 1, v), a_seg=2 * ns)]
+        return steps
+    S = ((lambda k, j, v: ("stash", stash_slot(k, j, v, ns, nlz))) if stash else
+         (lambda k, j, v: ("act", j)))
+    if not stash:
+        last = ("act", 0)
+    nxt = lambda k: S(k, 0, 0) if k < nb else last  # relu(h) entering block k (or lin_out)
+    steps = []
+    for v in range(ns):
+        steps.append(ChainStep("gemm", "in", ("x", v), ("wi",), "k_in", "d_hidden"))
+        for k in range(nlz):
+            pool = ("" if ns == 1 or k < nlz - 1 else
+                    "first" if v == 0 else "last" if v == ns - 1 else "add")
+            steps += [ChainStep("gemm", "z", ("z", v), ("wz", k), "d_latent", "d_hidden",
+                                out=S(k, 0, v)),
+                      ChainStep("gemm", "fc0", S(k, 0, v), ("w0", k), "d_hidden", "d_hidden",
+                                out=S(k, 1, v)),
+                      ChainStep("gemm", "fc1", S(k, 1, v), ("w1", k), "d_hidden", "d_hidden",
+                                out=nxt(nlz) if k == nlz - 1 and pool in ("", "last") else None,
+                                pool=pool)]
+    for k in range(nlz, nb):
+        steps += [ChainStep("gemm", "fc0", S(k, 0, 0), ("w0", k), "d_hidden", "d_hidden",
+                            out=S(k, 1, 0)),
+                  ChainStep("gemm", "fc1", S(k, 1, 0), ("w1", k), "d_hidden", "d_hidden",
+                            out=nxt(k + 1))]
+    steps.append(ChainStep("linout", a=last))
+    return steps
+
+
+class ChainOp(ctypes.Structure):
+    """One launch of the chain (``csrc/resnetfc_chain.cu`` ``ChainOp``, field
+    for field)."""
+
+    _fields_ = ([(k, ctypes.c_void_p) for k in (
+        "A", "A1", "B", "bias", "H", "pool", "out", "mask", "x", "tables", "fph", "g", "gout",
+        "wo", "bo", "outf", "dx", "enc")]
+        + [(k, ctypes.c_longlong) for k in ("a_seg", "b_seg", "out_view")]
+        + [(k, ctypes.c_int) for k in (
+            "kind", "epi", "flags", "M", "Ncols", "K", "nseg", "lda", "ldb", "ldh", "ldo", "ldm",
+            "d_in", "k_tab", "d_out", "activate", "views")]
+        + [("scale", ctypes.c_float)])
+
+
+_BIAS = {"wi": "bi", "wz": "bz", "w0": "b0", "w1": "b1"}
+
+
+def _chain_records(steps, t, d, s, n, work, cd, backward):
+    """The records of ``steps`` for the chunk of points ``[s, s + n)``:
+    ``t`` the call's tensors by name (``x``, ``z``, ``stash``, the weights
+    the products read as ``wi``, ``wz``, ``w0``, ``w1``, the biases, ``wo``,
+    ``bo``, ``tables``, ``fph``, ``out``; the dgrad's ``g``, ``cot``,
+    ``gout``, ``dx``, ``dz``, ``enc``), ``work`` the workspace's base
+    address and offsets (:func:`chain_workspace`).  Weights: bf16 as
+    ``[columns][K]`` rows, float32 as ``[K][columns]``."""
+    N, ns, dh = d["N"], d["ns"], d["d_hidden"]
+    dims = dict(k_in=d["k_in"], d_latent=d["d_latent"], d_hidden=dh)
+    item = 2 if cd == torch.bfloat16 else 4
+    base, off = work
+    rows = lambda key, v, width, size: t[key].data_ptr() + ((v * N + s) * width) * size
+
+    def operand(ref):
+        kind = ref[0]
+        if kind in ("stash", "cot"):
+            return rows(kind, ref[1], dh, item)
+        if kind == "act":
+            return base + off["act"][ref[1]]
+        if kind == "z":
+            return rows("z", ref[1], d["d_latent"], item)
+        if kind == "dz":
+            return rows("dz", ref[1], d["d_latent"], item)
+        if kind == "denc":
+            return base + off["denc"]
+        raise ValueError(ref)
+
+    def weight(ref):
+        name = ref[0]
+        per = {"wi": 0, "wz": dh * d["d_latent"], "w0": dh * dh, "w1": dh * dh}[name]
+        k = ref[1] if len(ref) > 1 else 0
+        return t[name].data_ptr() + k * per * item, per
+
+    recs = []
+    for st in steps:
+        r = ChainOp(kind=CHAIN_KINDS[st.kind], M=n, scale=1.0 / ns, views=ns,
+                    out_view=N * dh, H=base + off["H"], pool=base + off["pool"], ldh=dh, ldo=dh,
+                    ldm=dh, d_in=d["d_in"], k_tab=d["k_in"], d_out=d["d_out"],
+                    activate=d["activate"], x=t["x"].data_ptr() + (st.view * N + s) * d["d_in"] * 4,
+                    tables=t["tables"].data_ptr(), fph=t["fph"].data_ptr(),
+                    flags=CHAIN_FLAGS.get(st.pool, 0))
+        if st.kind in ("linout", "head"):
+            r.A, r.lda, r.K = operand(st.a), dh, dh
+            r.wo, r.bo = t["wo"].data_ptr(), t["bo"].data_ptr()
+            if st.kind == "linout":
+                r.outf = t["out"].data_ptr() + s * d["d_out"] * 4
+            else:
+                r.g = t["g"].data_ptr() + s * d["d_out"] * 4
+                r.gout = t["gout"].data_ptr() + s * GOUT_W * item
+                r.out = operand(st.out)
+        elif st.kind == "enc":
+            r.H, r.ldh = base + off["denc"], d["k_in"]
+            r.dx = rows("dx", st.view, d["d_in"], 4)
+            r.enc = rows("enc", st.view, d["k_in"], item)
+        else:
+            K, cols = dims[st.kdim], dims[st.ndim]
+            r.epi, r.K, r.Ncols, r.nseg, r.lda = CHAIN_EPI[st.epi], K, cols, st.nseg, K
+            r.ldb = K if cd == torch.bfloat16 else cols
+            r.B, r.b_seg = weight(st.w)
+            if st.a[0] == "x":
+                r.flags |= CHAIN_FLAGS["encode"]
+                r.x = t["x"].data_ptr() + (st.a[1] * N + s) * d["d_in"] * 4
+            else:
+                r.A = operand(st.a)
+            if st.a1 is not None:
+                r.A1, r.a_seg = operand(st.a1), st.a_seg * N * dh
+            if not backward:
+                bias = t[_BIAS[st.w[0]]]
+                r.bias = bias.data_ptr() + (st.w[1] * dh * 4 if len(st.w) > 1 else 0)
+            if st.out is not None:
+                r.out = operand(st.out)
+                if st.out[0] == "dz":
+                    r.ldo = d["d_latent"]
+                elif st.out[0] == "denc":
+                    r.H, r.ldh = operand(st.out), d["k_in"]
+            if st.mask is not None:
+                r.mask = operand(st.mask)
+        recs.append(r)
+    return recs
+
+
+def _chain_run(name, steps, t, d, cd, stash, backward, work=None):
+    """Launch ``steps`` chunk by chunk (``CHAIN_CHUNK`` points) on the
+    current stream; counted once under ``name`` and the chain's own
+    counter (:data:`NAME_CHAIN` or :data:`NAME_DGRAD_CHAIN` by dtype).
+    ``work``: a workspace at least :func:`chain_workspace`'s
+    bytes (allocated when not given)."""
+    N = d["N"]
+    dev = t["x"].device
+    off = chain_workspace(N, d["ns"], d["d_hidden"], d["k_in"], cd, stash, backward)
+    if work is None or work.numel() * work.element_size() < off["bytes"]:
+        work = torch.empty((off["bytes"],), dtype=torch.uint8, device=dev)
+    size = _build.kernel_fn("avr_resnetfc_chain_op_bytes", [])()
+    if size != ctypes.sizeof(ChainOp):
+        raise RuntimeError(f"{name}: ChainOp is {ctypes.sizeof(ChainOp)} bytes here, {size} in "
+                           f"csrc/resnetfc_chain.cu")
+    fn = _build.kernel_fn("avr_resnetfc_chain", [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                                  ctypes.c_void_p])
+    stream = ctypes.c_void_p(_build.stream_ptr(dev))
+    err = 0
+    for s in range(0, N, CHAIN_CHUNK):
+        recs = _chain_records(steps, t, d, s, min(CHAIN_CHUNK, N - s), (work.data_ptr(), off),
+                              cd, backward)
+        arr = (ChainOp * len(recs))(*recs)
+        err = fn(ctypes.cast(arr, ctypes.c_void_p), len(recs), _DTYPES[cd], stream)
+        if err:
+            break
+    _build.check(name, err)
+    _build.launches[(NAME_DGRAD_CHAIN if backward else NAME_CHAIN)[cd]] += 1
 
 
 # The float32 forward (csrc/resnetfc.cu resnetfc_fwd_f32_kernel): a CTA a
@@ -688,6 +1014,15 @@ def _forward(a, d, compute_dtype, stash: bool, st=None):
     if N == 0:
         return out, st
     route = forward_route(compute_dtype, d["d_latent"], d["k_in"], dh)
+    if route == "chain":
+        f32 = compute_dtype == torch.float32
+        # float32 products read the transposed weights ([K][columns])
+        t = dict(a, out=out, stash=st,
+                 **{k: a[k + "T"] if f32 else a[k] for k in ("wi", "wz", "w0", "w1")})
+        _chain_run(NAME_STASH if stash else NAME,
+                   chain_plan(ns, d["n_blocks"], d["n_lin_z"], False, stash), t, d,
+                   compute_dtype, stash, False)
+        return out, st
     ptrs = [_build.ptr(a[k]) for k in _FWD_ORDER] + [_build.ptr(out),
                                                      _build.ptr(st) if stash else None]
     dims = [d[k] for k in _DIM_ORDER]
@@ -810,6 +1145,13 @@ def _dgrad(a, d, st, g, wd, compute_dtype, out=None, pool=None, name=NAME_DGRAD)
                                    dtype=cd, device=dev),
                    gout=torch.empty((N, GOUT_W), dtype=cd, device=dev),
                    enc=torch.empty((ns, N, d["k_in"]), dtype=cd, device=dev))
+    if route == "chain":
+        if N:
+            t = dict(x=a["x"], g=g, stash=st, wo=a["wo"], bo=a["bo"], tables=a["tables"],
+                     fph=a["fph"], **dict(zip(("wi", "wz", "w0", "w1"), wd)), **out)
+            _chain_run(name, chain_plan(ns, d["n_blocks"], d["n_lin_z"], True), t, d, cd, True,
+                       True, work=pool)
+        return out["dx"], out["dz"], out["cot"], out["gout"], out["enc"]
     # the pooled trunk cotangent of NS > 1: a tile of rows a CTA
     tile = dgrad_tile(cd, route)
     rows = -(-N // tile) * tile
@@ -865,7 +1207,12 @@ def _recompute_workspace(d, p, compute_dtype, device):
     pooled trunk cotangent."""
     bufs = [torch.empty(k * p * w, dtype=compute_dtype, device=device)
             for k, w in _recompute_layout(d)]
-    tile = dgrad_tile(compute_dtype, _dgrad_route(d, compute_dtype))
+    route = _dgrad_route(d, compute_dtype)
+    if route == "chain":  # the chain's dgrad workspace in place of the pool
+        return bufs, torch.empty((chain_workspace(p, d["ns"], d["d_hidden"], d["k_in"],
+                                                  compute_dtype, True, True)["bytes"],),
+                                 dtype=torch.uint8, device=device)
+    tile = dgrad_tile(compute_dtype, route)
     pool = (torch.empty(((p + tile - 1) // tile * tile, d["d_hidden"]), dtype=torch.float32,
                         device=device) if d["ns"] > 1 else None)
     return bufs, pool
@@ -1104,32 +1451,9 @@ def fused_resnetfc(x: torch.Tensor, z: torch.Tensor, w: DecoderWeights, *,
     if z.shape[:2] != (ns, N) or w.wz.shape != (n_lin_z, d_hidden, d_latent):
         raise ValueError(f"{NAME}: z {tuple(z.shape)} / wz {tuple(w.wz.shape)} mismatch")
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in (x, z, *w))
-    check_wide_bound(compute_dtype, d_hidden, d_enc_padded(d_latent),
-                     d_enc_padded(w.wi.shape[1]), grad)
     a = _prepare(x, z, w, code, compute_dtype)
     _build.check_cuda_inputs(NAME, a, x.device)
     d = _dims(a, n_blocks, n_lin_z, activate_out)
     if grad:
         return _Decoder.apply(x, z, *w, a, d, compute_dtype, keep)
     return _forward(a, d, compute_dtype, stash=False)[0]
-
-
-def check_wide_bound(compute_dtype: torch.dtype, d_hidden: int, d_latent: int, k_in: int,
-                     backward: bool) -> None:
-    """Raise for a shape whose route is the first wide kernel
-    (:func:`forward_route`, and under autograd :func:`backward_route`) that
-    does not fit that kernel's shared memory (:func:`wide_smem`; ``d_latent``
-    and ``k_in`` as padded; the TMA cluster kernels take only shapes that
-    fit theirs).  The wide forward holds d_hidden up to 1,152 in bf16 and
-    1,792 in float32 where the latent and the input are at most d_hidden
-    lanes (wider ones take more of its operand tile), the wide dgrad the same
-    d_hidden at any latent and input."""
-    checks = [("forward", forward_route(compute_dtype, d_latent, k_in, d_hidden), False)]
-    if backward:
-        checks.append(("dgrad", backward_route(compute_dtype, d_hidden, d_latent, k_in), True))
-    for kind, route, bwd in checks:
-        need = wide_smem(compute_dtype, d_hidden, d_latent, k_in, bwd) if route == "wide" else 0
-        if need > SMEM_MAX:
-            raise ValueError(f"{NAME}: the wide {kind} kernel holds {SMEM_MAX} bytes of shared "
-                             f"memory a CTA; d_hidden {d_hidden}, d_latent {d_latent}, {k_in} "
-                             f"encoded lanes in {str(compute_dtype)[6:]} need {need}")

@@ -4810,8 +4810,10 @@ WIDE_DH, WIDE_DL = 1024, 1152
 # bf16 d_hidden 512 with the global encoder's 640 lanes (the wgmma forward
 # or mma.sync forward, then the wide dgrad: past the bf16 tail's 512), and
 # d_hidden 1,152 with a latent of 1,152 (past the bf16 TMA cluster kernels'
-# two trunk groups a warp: the first version, by ``wide_tma_fits``).  N is
-# off every tile (32 and 16 points, a cluster's 128).
+# two trunk groups a warp: the first version, held there by
+# ``first_wide_version``, since ``chain_takes`` sends d_hidden past 1,024 to
+# the chain, measured faster).  N is off every tile (32 and 16 points, a
+# cluster's 128).
 WIDE_CASES = ((WIDE_DH, WIDE_DL, CODE, 1), (WIDE_DH, WIDE_DL, WIDE_CODE, 2),
               (640, 612, CODE, 2), (512, 640, CODE, 1), (1152, 1152, CODE, 1))
 WIDE_N = CHUNK + 37
@@ -4884,11 +4886,13 @@ def wide_inputs(gen, n, ns, dl, code, cd):
 @contextlib.contextmanager
 def first_wide_version():
     """Every wide shape on the first wide kernels (the routes patched to
-    "wide"), for timing them beside the cluster kernels (bf16 TMA, float32)
-    in one run."""
+    "wide", the chain's too), for timing them beside the cluster kernels
+    (bf16 TMA, float32) in one run, and for holding the first version at
+    d_hidden 1,152, which the rule sends to the chain."""
     fwd, bwd = K2.forward_route, K2.backward_route
-    K2.forward_route = lambda *a, **k: "wide" if fwd(*a, **k).startswith("wide") else fwd(*a, **k)
-    K2.backward_route = lambda *a, **k: "wide" if bwd(*a, **k).startswith("wide") else bwd(*a, **k)
+    first = lambda r: "wide" if r.startswith("wide") or r == "chain" else r
+    K2.forward_route = lambda *a, **k: first(fwd(*a, **k))
+    K2.backward_route = lambda *a, **k: first(bwd(*a, **k))
     try:
         yield
     finally:
@@ -5002,99 +5006,104 @@ def check_wide(gen):
         rows[cd] = (fwd, bwd)
         f32 = cd == torch.float32
         for dh, dl, code, ns in WIDE_CASES:
-            if f32 and dh <= 512:
-                continue  # float32 at 512 is the register kernels' (check_float32)
-            label = f"d_hidden {dh} d_latent {dl} k_in {K2.d_enc_padded(code.d_enc)} NS={ns} " \
-                    f"{str(cd)[6:]}"
-            w = decoder_weights(gen, code=code, dl=dl, dh=dh)
-            x, z, g = wide_inputs(gen, WIDE_N, ns, dl, code, cd)
-            before = dict(_build.launches)
-            got = fused_resnetfc(x, z, w, compute_dtype=cd, code=code, **kw)
-            want = resnetfc_plain(x, z, w, compute_dtype=cd, code=code, **kw)
-            route = K2.forward_route(cd, K2.d_enc_padded(dl), K2.d_enc_padded(code.d_enc), dh)
-            ran, ok = wide_ran(before, cd, route, (K2.NAME, K2.NAME_WIDE[cd], WIDE_CLUSTER[cd][0]))
-            if not ok:
-                raise AssertionError(f"K2 {label}: route {route}, launches {ran}")
-            wide = route.startswith("wide")
-            mkw = dict(n_blocks=5, n_lin_z=3, code=code, compute_dtype=cd)
-            # bf16: the float32 function on the bf16-valued weights and
-            # latents, which both bf16 roundings approximate (phase 9's rule)
-            exact = DecoderWeights(*(t.to(cd).float() for t in w))
-            ref = None if f32 else resnetfc_plain(x, z.float(), exact, compute_dtype=torch.float32,
-                                                  code=code, **kw)
-            fwd_err = max_err(got, want)
-            tol = (WIDE_F32_TOL if f32 else 2.0 ** -7) * max(1.0, float(want.abs().max()))
-            if not f32:
-                tol = max(tol, 2 * max_err(want, ref))
-                fwd.append(check(f"wide forward {label} N={WIDE_N} vs float32 (bf16 weights)",
-                                 max_err(got, ref), tol, against="float32"))
-            if wide:
-                fwd.append(check(f"wide forward ({route}) {label} N={WIDE_N}", fwd_err, tol))
-            args = K2._prepare(x, z, w, code, cd)
-            dims = K2._dims(args, 5, 3, True)
-            kst = K2._forward(args, dims, cd, True)[1]
-            broute = K2.backward_route(cd, dh, dims["d_latent"], dims["k_in"])
-            if "wide_f32" in (route, broute):
-                fwd.append(check_wide_first_bits(label, args, dims, cd, g))
-            if wide:
-                pst = decoder_plain_stash(x, z, w, **mkw)
-                rst = None if f32 else decoder_plain_stash(
-                    x, z.float(), exact, **dict(mkw, compute_dtype=torch.float32))
-                for i in range(len(pst)):
-                    stol = (WIDE_F32_TOL if f32 else STASH_REL) * max(float(pst[i].abs().max()),
-                                                                      1e-30)
-                    if not f32:
-                        stol = max(stol, 2 * max_err(pst[i], rst[i]))
-                    fwd.append(check(f"wide stash slot {i} {label}", max_err(kst[i], pst[i]),
-                                     stol, against="plain stash"))
-                flips = float(((kst > 0) != (pst > 0)).float().mean())
-                if not flips <= STASH_FLIPS:
-                    raise AssertionError(f"K2 wide stash {label}: {flips} of the ReLU masks "
-                                         f"flipped > {STASH_FLIPS}")
-                del pst, rst
-            # the backward: its dgrad is a wide one here
-            if not broute.startswith("wide"):
-                raise AssertionError(f"K2 {label}: backward route {broute} is not wide")
-            kern = lambda stash: (lambda x, z, *ws: fused_resnetfc(
-                x, z, DecoderWeights(*ws), compute_dtype=cd, code=code, stash=stash, **kw))
-            plain = lambda x, z, *ws: resnetfc_plain(x, z, DecoderWeights(*ws),
-                                                     compute_dtype=cd, code=code, **kw)
-            before = dict(_build.launches)
-            got = grads_of(kern(True), (x, z, *w), g)
-            ran, ok = wide_ran(before, cd, broute, (K2.NAME_DGRAD, K2.NAME_DGRAD_WIDE[cd],
-                                                    WIDE_CLUSTER[cd][1]))
-            if not ok:
-                raise AssertionError(f"K2 {label}: dgrad route {broute}, launches {ran}")
-            want = grads_of(plain, (x, z, *w), g)
-            matched = decoder_bwd_matched(x, z, w, kst, g, **mkw)
-            bl = f"{label} N={WIDE_N}"
-            bwd += [check_l2(f"wide {nm} {bl}", a, b, 1e-2 if f32 else 8e-2)
-                    for nm, a, b in zip(DECODER_GRADS, got, want)]
-            bwd += [check_l2(f"wide {nm} {bl} vs matched rounding", a, m,
-                             WIDE_F32_TOL if f32 else MATCHED_BF16_TOL, against="matched")
-                    for nm, a, m in zip(DECODER_GRADS, got, matched)]
-            bwd.append(check_rerun(f"wide rerun every gradient {bl}", got,
-                                   grads_of(kern(True), (x, z, *w), g)))
-            rec = grads_of(kern(False), (x, z, *w), g)  # one chunk: the same launches
-            bwd.append(check_rerun(f"wide recompute bit for bit the stash backward {bl}", got,
-                                   rec))
-            saved = K2.RECOMPUTE_CHUNK
-            K2.RECOMPUTE_CHUNK = 1_000
-            try:
-                cut = grads_of(kern(False), (x, z, *w), g)
-            finally:
-                K2.RECOMPUTE_CHUNK = saved
-            bwd.append(check_rerun(f"wide recompute in 1,000-point chunks: dx, dz bit for bit "
-                                   f"{bl}", got[:2], cut[:2]))
-            bwd += [check_rel(f"wide {nm} {bl} recompute in 1,000-point chunks vs stash", a, b,
-                              SUM_ORDER_TOL, "stash kernels")
-                    for nm, a, b in zip(DECODER_GRADS[2:], cut[2:], got[2:])]
-            worst = max((c["rel_l2"], c["case"].split()[1]) for c in bwd
-                        if c["against"] == "plain" and bl in c["case"])
-            print(f"K2 wide {bl}: forward on the {route} route {fwd_err:.3e} (tolerance "
-                  f"{tol:.3e}); backward on the {broute} route, worst relative L2 against the "
-                  f"plain autograd {worst}")
-            del kst, got, want, matched, rec, cut, args
+            with contextlib.ExitStack() as held:
+                if dh > K2.CHAIN_DH_MIN:  # the chain's by the rule: held on the first version
+                    held.enter_context(first_wide_version())
+                if f32 and dh <= 512:
+                    continue  # float32 at 512 is the register kernels' (check_float32)
+                label = f"d_hidden {dh} d_latent {dl} k_in {K2.d_enc_padded(code.d_enc)} NS={ns} " \
+                        f"{str(cd)[6:]}"
+                w = decoder_weights(gen, code=code, dl=dl, dh=dh)
+                x, z, g = wide_inputs(gen, WIDE_N, ns, dl, code, cd)
+                before = dict(_build.launches)
+                got = fused_resnetfc(x, z, w, compute_dtype=cd, code=code, **kw)
+                want = resnetfc_plain(x, z, w, compute_dtype=cd, code=code, **kw)
+                route = K2.forward_route(cd, K2.d_enc_padded(dl), K2.d_enc_padded(code.d_enc), dh)
+                ran, ok = wide_ran(before, cd, route,
+                                   (K2.NAME, K2.NAME_WIDE[cd], WIDE_CLUSTER[cd][0]))
+                if not ok:
+                    raise AssertionError(f"K2 {label}: route {route}, launches {ran}")
+                wide = route.startswith("wide")
+                mkw = dict(n_blocks=5, n_lin_z=3, code=code, compute_dtype=cd)
+                # bf16: the float32 function on the bf16-valued weights and
+                # latents, which both bf16 roundings approximate (phase 9's rule)
+                exact = DecoderWeights(*(t.to(cd).float() for t in w))
+                ref = None if f32 else resnetfc_plain(x, z.float(), exact,
+                                                      compute_dtype=torch.float32, code=code,
+                                                      **kw)
+                fwd_err = max_err(got, want)
+                tol = (WIDE_F32_TOL if f32 else 2.0 ** -7) * max(1.0, float(want.abs().max()))
+                if not f32:
+                    tol = max(tol, 2 * max_err(want, ref))
+                    fwd.append(check(f"wide forward {label} N={WIDE_N} vs float32 (bf16 weights)",
+                                     max_err(got, ref), tol, against="float32"))
+                if wide:
+                    fwd.append(check(f"wide forward ({route}) {label} N={WIDE_N}", fwd_err, tol))
+                args = K2._prepare(x, z, w, code, cd)
+                dims = K2._dims(args, 5, 3, True)
+                kst = K2._forward(args, dims, cd, True)[1]
+                broute = K2.backward_route(cd, dh, dims["d_latent"], dims["k_in"])
+                if "wide_f32" in (route, broute):
+                    fwd.append(check_wide_first_bits(label, args, dims, cd, g))
+                if wide:
+                    pst = decoder_plain_stash(x, z, w, **mkw)
+                    rst = None if f32 else decoder_plain_stash(
+                        x, z.float(), exact, **dict(mkw, compute_dtype=torch.float32))
+                    for i in range(len(pst)):
+                        stol = (WIDE_F32_TOL if f32 else STASH_REL) * max(float(pst[i].abs().max()),
+                                                                          1e-30)
+                        if not f32:
+                            stol = max(stol, 2 * max_err(pst[i], rst[i]))
+                        fwd.append(check(f"wide stash slot {i} {label}", max_err(kst[i], pst[i]),
+                                         stol, against="plain stash"))
+                    flips = float(((kst > 0) != (pst > 0)).float().mean())
+                    if not flips <= STASH_FLIPS:
+                        raise AssertionError(f"K2 wide stash {label}: {flips} of the ReLU masks "
+                                             f"flipped > {STASH_FLIPS}")
+                    del pst, rst
+                # the backward: its dgrad is a wide one here
+                if not broute.startswith("wide"):
+                    raise AssertionError(f"K2 {label}: backward route {broute} is not wide")
+                kern = lambda stash: (lambda x, z, *ws: fused_resnetfc(
+                    x, z, DecoderWeights(*ws), compute_dtype=cd, code=code, stash=stash, **kw))
+                plain = lambda x, z, *ws: resnetfc_plain(x, z, DecoderWeights(*ws),
+                                                         compute_dtype=cd, code=code, **kw)
+                before = dict(_build.launches)
+                got = grads_of(kern(True), (x, z, *w), g)
+                ran, ok = wide_ran(before, cd, broute, (K2.NAME_DGRAD, K2.NAME_DGRAD_WIDE[cd],
+                                                        WIDE_CLUSTER[cd][1]))
+                if not ok:
+                    raise AssertionError(f"K2 {label}: dgrad route {broute}, launches {ran}")
+                want = grads_of(plain, (x, z, *w), g)
+                matched = decoder_bwd_matched(x, z, w, kst, g, **mkw)
+                bl = f"{label} N={WIDE_N}"
+                bwd += [check_l2(f"wide {nm} {bl}", a, b, 1e-2 if f32 else 8e-2)
+                        for nm, a, b in zip(DECODER_GRADS, got, want)]
+                bwd += [check_l2(f"wide {nm} {bl} vs matched rounding", a, m,
+                                 WIDE_F32_TOL if f32 else MATCHED_BF16_TOL, against="matched")
+                        for nm, a, m in zip(DECODER_GRADS, got, matched)]
+                bwd.append(check_rerun(f"wide rerun every gradient {bl}", got,
+                                       grads_of(kern(True), (x, z, *w), g)))
+                rec = grads_of(kern(False), (x, z, *w), g)  # one chunk: the same launches
+                bwd.append(check_rerun(f"wide recompute bit for bit the stash backward {bl}", got,
+                                       rec))
+                saved = K2.RECOMPUTE_CHUNK
+                K2.RECOMPUTE_CHUNK = 1_000
+                try:
+                    cut = grads_of(kern(False), (x, z, *w), g)
+                finally:
+                    K2.RECOMPUTE_CHUNK = saved
+                bwd.append(check_rerun(f"wide recompute in 1,000-point chunks: dx, dz bit for bit "
+                                       f"{bl}", got[:2], cut[:2]))
+                bwd += [check_rel(f"wide {nm} {bl} recompute in 1,000-point chunks vs stash", a, b,
+                                  SUM_ORDER_TOL, "stash kernels")
+                        for nm, a, b in zip(DECODER_GRADS[2:], cut[2:], got[2:])]
+                worst = max((c["rel_l2"], c["case"].split()[1]) for c in bwd
+                            if c["against"] == "plain" and bl in c["case"])
+                print(f"K2 wide {bl}: forward on the {route} route {fwd_err:.3e} (tolerance "
+                      f"{tol:.3e}); backward on the {broute} route, worst relative L2 against the "
+                      f"plain autograd {worst}")
+                del kst, got, want, matched, rec, cut, args
         bwd.append(check_wide_refusal(cd))
         # the wgrads at width: K2's 15 jobs at 1,024 x 1,024 and 1,024 x
         # 1,152 (and lin_in, lin_out) against torch.matmul, a coarse query's
@@ -5287,7 +5296,7 @@ def check_wide_channels(gen):
     return cases
 
 
-def run_wide_slice():
+def run_wide_slice(chain=False):
     """The full-width slice through the entry points a user calls: the
     adaptive model of ``make_model`` from the WIDE_CONF conf string
     (d_hidden 1,024, a latent of 1,024 + 128 lanes), a served 128x128
@@ -5296,8 +5305,11 @@ def run_wide_slice():
     the stash and on the recompute backward; the launch counters reset
     just before each and read just after.  Every K2 forward and dgrad of
     these runs is on the wide kernels; the frames are finite in [0, 1], the
-    losses finite, the updates not skipped, the parameters moved.  Returns
-    the report and the launches by case."""
+    losses finite, the updates not skipped, the parameters moved.  With
+    ``chain``, phase 12's slice: the same model at CHAIN_DH (bf16 d_hidden
+    1,280: the frame and both steps; float32 1,920: the frame and the
+    recompute step), every K2 forward and dgrad on the chain.  Returns the
+    report and the launches by case."""
     t0 = time.perf_counter()
     res, launches = {}, {}
     batch, tb = scene_batch(), train_batch(DEV)
@@ -5305,9 +5317,16 @@ def run_wide_slice():
     c2w = orbit_cam2world(1, 1.3)[:1]
 
     def wide_only(case, counts, cd):
-        # every forward on the dtype's cluster kernel (bf16 TMA, float32)
+        # every forward on the dtype's cluster kernel (bf16 TMA, float32),
+        # or with ``chain`` on the chain
         fwd = counts.get(K2.NAME, 0) + counts.get(K2.NAME_STASH, 0)
         other = {k: counts.get(k, 0) for k in (K2.NAME_WGMMA, K2.NAME_F32, K2.NAME_DGRAD_F32)}
+        if chain:
+            other[K2.NAME_WIDE[cd]] = counts.get(K2.NAME_WIDE[cd], 0)
+            if not fwd or counts.get(K2.NAME_CHAIN[cd], 0) != fwd or any(other.values()):
+                raise AssertionError(f"chain {case}: K2 forwards {fwd}, on the chain "
+                                     f"{counts.get(K2.NAME_CHAIN[cd], 0)}, elsewhere {other}")
+            return
         cl = counts.get(WIDE_CLUSTER[cd][0], 0)
         if not fwd or counts.get(K2.NAME_WIDE[cd], 0) != fwd or any(other.values()) or cl != fwd:
             raise AssertionError(f"wide {case}: K2 forwards {fwd}, on the wide kernels "
@@ -5316,7 +5335,8 @@ def run_wide_slice():
 
     for cd in (torch.bfloat16, torch.float32):
         kind = str(cd)[6:]
-        model = conf_model(WIDE_CONF, cd, DEV)
+        conf = chain_conf(CHAIN_DH[cd]) if chain else WIDE_CONF
+        model = conf_model(conf, cd, DEV)
         with torch.inference_mode():
             cond = encode_scene(model, batch, DEV)
             render_full_image(model, cond, intr, c2w, SIDE, threefry.PRNGKey(0), CHUNK, DEV)
@@ -5337,9 +5357,10 @@ def run_wide_slice():
         if cond.latent.shape[-1] + cond.global_latent.shape[-1] != WIDE_DL:
             raise AssertionError(f"wide: latents {cond.latent.shape}, {cond.global_latent.shape}")
         del model, cond, out
-        for fused_mlp, bwd in (("stash", "stash"), ("always", "recompute")):
+        trains = (("stash", "stash"), ("always", "recompute"))
+        for fused_mlp, bwd in trains[1:] if chain and cd == torch.float32 else trains:
             case = f"train_{kind}_{bwd}"
-            model = conf_model(WIDE_CONF, cd, DEV, fused_mlp=fused_mlp)
+            model = conf_model(conf, cd, DEV, fused_mlp=fused_mlp)
             opt = make_optimizer(1e-4)
             state = create_train_state(model, opt)
             loss_params = LossParams(loss_mode="both")
@@ -5357,10 +5378,14 @@ def run_wide_slice():
             counts = launches[case] = dict(_build.launches)
             wide_only(case, counts, cd)
             name = K2.NAME_DGRAD if bwd == "stash" else K2.NAME_RECOMPUTE
+            dgrads = counts.get(K2.NAME_DGRAD, 0) + counts.get(K2.NAME_RECOMPUTE, 0)
+            if chain and (not counts.get(name) or counts.get(K2.NAME_DGRAD_CHAIN[cd], 0) != dgrads
+                          or counts.get(K2.NAME_DGRAD_WIDE[cd]) or not counts.get(K2.NAME_WGRAD)):
+                raise AssertionError(f"chain {case}: dgrads {counts}")
             cl = counts.get(WIDE_CLUSTER[cd][1], 0)
-            if not counts.get(K2.NAME_DGRAD_WIDE[cd]) or \
-                    counts.get(K2.NAME_DGRAD_WIDE[cd]) != counts.get(name, 0) or \
-                    cl != counts.get(name, 0) or not counts.get(K2.NAME_WGRAD):
+            if not chain and (not counts.get(K2.NAME_DGRAD_WIDE[cd]) or
+                              counts.get(K2.NAME_DGRAD_WIDE[cd]) != counts.get(name, 0) or
+                              cl != counts.get(name, 0) or not counts.get(K2.NAME_WGRAD)):
                 raise AssertionError(f"wide {case}: dgrads {counts}")
             if not np.isfinite(loss) or skipped:
                 raise AssertionError(f"wide {case}: loss {loss}, skipped updates {skipped}")
@@ -5370,11 +5395,13 @@ def run_wide_slice():
                 raise AssertionError(f"wide {case}: decoder parameters unchanged: {same[:4]}")
             res[case] = dict(ms=ms, loss=loss, skipped=skipped,
                              max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
-            print(f"wide {case}: loss {loss:.5f}, {ms:.1f} ms a step, peak "
+            print(f"{'chain' if chain else 'wide'} {case}: loss {loss:.5f}, {ms:.1f} ms a step, "
+                  f"peak "
                   f"{res[case]['max_memory_gb']:.1f} GB; launches {counts}")
             del model, opt, state, step, initial
             torch.cuda.empty_cache()
-        print(f"wide serve {kind}: {res[f'serve_{kind}']}; launches {launches[f'serve_{kind}']}")
+        print(f"{'chain' if chain else 'wide'} serve {kind}: {res[f'serve_{kind}']}; launches "
+              f"{launches[f'serve_{kind}']}")
     res["seconds"] = time.perf_counter() - t0
     return res, launches
 
@@ -5404,6 +5431,408 @@ def run_wide():
         k.update(wide=sum(by_case.values()), wide_by_case=by_case)
     res["seconds_phase"] = time.perf_counter() - t0
     print(f"wide launches: {launches}; phase {res['seconds_phase']:.1f} s")
+    return kernels, res, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 12: K2's chain past the wide kernels' shared memory; the binned
+# backward on maps past 1,024 tiles
+# ---------------------------------------------------------------------------
+
+# the chain's slice: conf/default_mv.conf's model as WIDE_CONF, both
+# decoders at these widths (bf16 past the first wide version's shared
+# memory, float32 past the first version's 1,792)
+CHAIN_DH = {torch.bfloat16: 1280, torch.float32: 1920}
+# (dtype, d_hidden, d_latent): the chain's shapes held on the card; bf16
+# d_hidden 1,024 with a latent of 4,096 takes the chain's forward and the
+# TMA cluster dgrad (which holds no latent tile), as does bf16 d_hidden 512
+# with a latent of 4,096 (past resnetfc_kernel's shared memory)
+CHAIN_CASES = ((torch.bfloat16, 1280, WIDE_DL), (torch.bfloat16, 2048, WIDE_DL),
+               (torch.bfloat16, 1024, 4096), (torch.float32, 1920, WIDE_DL),
+               (torch.bfloat16, 512, 4096))
+CHAIN_N = (BAND, CHUNK + 37)  # the band chunk, and off every tile
+# (dtype, d_hidden, d_latent, the other route, forward only): the shapes the
+# first wide version took before the chain (bf16 1,152, float32 1,152 to
+# 1,792), and that resnetfc_kernel takes (bf16 at 512 past 1,152 lanes),
+# timed against the chain in turns (--chain-sweep); and at d_hidden 1,024
+# the cluster kernels beside the chain (a reading, no route moved by it)
+CHAIN_SWEEP = ((torch.bfloat16, 1152, WIDE_DL, "wide", False),
+               (torch.float32, 1152, WIDE_DL, "wide", False),
+               (torch.float32, 1408, WIDE_DL, "wide", False),
+               (torch.float32, 1792, WIDE_DL, "wide", False),
+               (torch.bfloat16, 512, 1280, "mma_sync", True),
+               (torch.bfloat16, 512, 2048, "mma_sync", True),
+               (torch.bfloat16, 256, 2048, "mma_sync", True),
+               (torch.bfloat16, 128, 1280, "mma_sync", True),
+               (torch.bfloat16, 1024, WIDE_DL, "wide_tma", False),
+               (torch.float32, 1024, WIDE_DL, "wide_f32", False))
+BIG_MAPS = (288, 512)  # 1,296 and 4,096 8 x 8 tiles a map
+
+
+def chain_conf(dh):
+    """WIDE_CONF with both decoders at ``dh``."""
+    return WIDE_CONF.replace("d_hidden = 1024", f"d_hidden = {dh}")
+
+
+def launched(before):
+    return {k: v - before.get(k, 0) for k, v in _build.launches.items() if v != before.get(k, 0)}
+
+
+@contextlib.contextmanager
+def routes_forced(route):
+    """Every K2 forward and dgrad on ``route`` (the sweep's turns)."""
+    fwd, bwd = K2.forward_route, K2.backward_route
+    K2.forward_route = K2.backward_route = lambda *a, **k: route
+    try:
+        yield
+    finally:
+        K2.forward_route, K2.backward_route = fwd, bwd
+
+
+def check_chain(gen):
+    """The chain (``forward_route`` / ``backward_route`` = "chain",
+    ``csrc/resnetfc_chain.cu``) at CHAIN_CASES, N in CHAIN_N, NS 1 and 2:
+    the forward against its plain version by phase 9's bf16 rule (the larger
+    of 2 bf16 ulps of the largest output and twice the plain version's
+    distance from the float32 function on the same bf16-valued weights, and
+    held to that function too) or float32 at WIDE_F32_TOL, its stash slot by
+    slot by the same rules; the stash backward's dgrad against
+    ``decoder_bwd_matched`` on the kernel's own stash (bf16
+    MATCHED_BF16_TOL, float32 WIDE_F32_TOL, by relative L2) and, off the
+    tile, the 12 gradients against the plain autograd (bf16 8e-2, float32
+    1e-2 by relative L2, as check_wide); each backward bit for bit on a
+    rerun; the recompute backward bit for bit the stash backward; off the
+    tile, the chain cut into 384-point chunks (the recompute into
+    1,000-point ones): the forward bit for bit, dx and dz bit for bit, the
+    weight gradients to summation order.  The launch counters show every
+    call on its route.  Returns the cases by dtype: (forward, dgrad)."""
+    kw = dict(n_blocks=5, n_lin_z=3, activate_out=True)
+    rows = {cd: ([], []) for cd in (torch.bfloat16, torch.float32)}
+    k_in = K2.d_enc_padded(CODE.d_enc)
+    for cd, dh, dl in CHAIN_CASES:
+        f32 = cd == torch.float32
+        fwd, bwd = rows[cd]
+        route = K2.forward_route(cd, K2.d_enc_padded(dl), k_in, dh)
+        broute = K2.backward_route(cd, dh, K2.d_enc_padded(dl), k_in)
+        if route != "chain":
+            raise AssertionError(f"K2 chain d_hidden {dh} d_latent {dl}: routed to {route}")
+        w = decoder_weights(gen, dh=dh, dl=dl)
+        exact = DecoderWeights(*(t.to(cd).float() for t in w))
+        mkw = dict(n_blocks=5, n_lin_z=3, code=CODE, compute_dtype=cd)
+        kern = lambda stash: (lambda x, z, *ws: fused_resnetfc(
+            x, z, DecoderWeights(*ws), compute_dtype=cd, code=CODE, stash=stash, **kw))
+        for n in CHAIN_N:
+            for ns in (1, 2):
+                label = f"d_hidden {dh} d_latent {dl} NS={ns} N={n} {str(cd)[6:]}"
+                x, z, g = wide_inputs(gen, n, ns, dl, CODE, cd)
+                before = dict(_build.launches)
+                kout = fused_resnetfc(x, z, w, compute_dtype=cd, code=CODE, **kw)
+                ran = launched(before)
+                if ran != {K2.NAME: 1, K2.NAME_CHAIN[cd]: 1}:
+                    raise AssertionError(f"K2 chain {label}: forward launches {ran}")
+                want = resnetfc_plain(x, z, w, compute_dtype=cd, code=CODE, **kw)
+                fwd_err = max_err(kout, want)
+                tol = (WIDE_F32_TOL if f32 else 2.0 ** -7) * max(1.0, float(want.abs().max()))
+                if not f32:
+                    ref = resnetfc_plain(x, z.float(), exact, compute_dtype=torch.float32,
+                                         code=CODE, **kw)
+                    tol = max(tol, 2 * max_err(want, ref))
+                    fwd.append(check(f"chain forward {label} vs float32 (bf16 weights)",
+                                     max_err(kout, ref), tol, against="float32"))
+                    del ref
+                fwd.append(check(f"chain forward {label}", fwd_err, tol))
+                args = K2._prepare(x, z, w, CODE, cd)
+                dims = K2._dims(args, 5, 3, True)
+                kst = K2._forward(args, dims, cd, True)[1]
+                pst = decoder_plain_stash(x, z, w, **mkw)
+                rst = None if f32 else decoder_plain_stash(
+                    x, z.float(), exact, **dict(mkw, compute_dtype=torch.float32))
+                for i in range(len(pst)):
+                    stol = (WIDE_F32_TOL if f32 else STASH_REL) * max(float(pst[i].abs().max()),
+                                                                      1e-30)
+                    if not f32:
+                        stol = max(stol, 2 * max_err(pst[i], rst[i]))
+                    fwd.append(check(f"chain stash slot {i} {label}", max_err(kst[i], pst[i]),
+                                     stol, against="plain stash"))
+                flips = float(((kst > 0) != (pst > 0)).float().mean())
+                if not flips <= STASH_FLIPS:
+                    raise AssertionError(f"K2 chain stash {label}: {flips} of the ReLU masks "
+                                         f"flipped > {STASH_FLIPS}")
+                del pst, rst, args
+                before = dict(_build.launches)
+                got = grads_of(kern(True), (x, z, *w), g)
+                ran = launched(before)
+                want_ran = {K2.NAME_STASH: 1, K2.NAME_DGRAD: 1, K2.NAME_CHAIN[cd]: 1,
+                            K2.NAME_WGRAD: 1, **({K2.NAME_WGRAD_F32: 1} if f32 else {})}
+                want_ran.update({K2.NAME_DGRAD_CHAIN[cd]: 1} if broute == "chain" else
+                                {K2.NAME_DGRAD_WIDE[cd]: 1, WIDE_CLUSTER[cd][1]: 1})
+                if ran != want_ran:
+                    raise AssertionError(f"K2 chain {label}: backward launches {ran}, "
+                                         f"expected {want_ran}")
+                matched = decoder_bwd_matched(x, z, w, kst, g, **mkw)
+                bwd += [check_l2(f"chain {nm} {label} vs matched rounding ({broute} dgrad)", a, m,
+                                 WIDE_F32_TOL if f32 else MATCHED_BF16_TOL, against="matched")
+                        for nm, a, m in zip(DECODER_GRADS, got, matched)]
+                del matched, kst
+                bwd.append(check_rerun(f"chain rerun every gradient {label}", got,
+                                       grads_of(kern(True), (x, z, *w), g)))
+                bwd.append(check_rerun(f"chain recompute bit for bit the stash backward {label}",
+                                       got, grads_of(kern(False), (x, z, *w), g)))
+                if n != BAND:
+                    plain = lambda x, z, *ws: resnetfc_plain(x, z, DecoderWeights(*ws),
+                                                             compute_dtype=cd, code=CODE, **kw)
+                    bwd += [check_l2(f"chain {nm} {label}", a, b, 1e-2 if f32 else 8e-2)
+                            for nm, a, b in zip(DECODER_GRADS, got,
+                                                grads_of(plain, (x, z, *w), g))]
+                    saved = K2.CHAIN_CHUNK, K2.RECOMPUTE_CHUNK
+                    K2.CHAIN_CHUNK, K2.RECOMPUTE_CHUNK = 384, 1_000
+                    try:
+                        cut_out = fused_resnetfc(x, z, w, compute_dtype=cd, code=CODE, **kw)
+                        cut = grads_of(kern(False), (x, z, *w), g)
+                    finally:
+                        K2.CHAIN_CHUNK, K2.RECOMPUTE_CHUNK = saved
+                    fwd.append(check_rerun(f"chain forward in 384-point chunks bit for bit "
+                                           f"{label}", [kout], [cut_out]))
+                    bwd.append(check_rerun(f"chain recompute in 1,000-point chunks: dx, dz bit "
+                                           f"for bit {label}", got[:2], cut[:2]))
+                    bwd += [check_rel(f"chain {nm} {label} in 1,000-point chunks vs stash", a, b,
+                                      SUM_ORDER_TOL, "stash kernels")
+                            for nm, a, b in zip(DECODER_GRADS[2:], cut[2:], got[2:])]
+                worst = max((c.get("rel_l2", 0.0), c["case"].split()[1]) for c in bwd
+                            if c["against"] == "matched" and label in c["case"])
+                print(f"K2 chain {label}: forward {fwd_err:.3e} (tolerance {tol:.3e}); {broute} "
+                      f"dgrad, worst relative L2 against the matched reference {worst}")
+                del got, kout, want, x, z, g
+                torch.cuda.empty_cache()
+    return rows
+
+
+def chain_bound(cd, dh, dl, k_in, backward):
+    """The least time of a chain call at the band chunk (NS 1): its
+    operations (``wide_flops``, the dgrad the same products) at the dtype's
+    peak, or its bytes (the forward's inputs, weights and output; the
+    dgrad's stash read, cotangents written, its inputs and outputs)."""
+    item, peak = (2, BF16_FLOPS) if cd == torch.bfloat16 else (4, F32_FLOPS)
+    wbytes = item * (dh * k_in + 3 * dh * dl + 10 * dh * dh + 4 * dh)
+    if backward:
+        slots = K2.stash_slots(1, 5, 3)
+        io = BAND * (CODE.d_raw * 4 * 2 + dl * item * 2 + 4 * 4)
+        nbytes = 2 * slots * BAND * dh * item + io + wbytes
+    else:
+        nbytes = BAND * (CODE.d_raw * 4 + dl * item + 4 * 4) + wbytes
+    return bound(nbytes, wide_flops(BAND, 1, dh, dl, k_in), peak)
+
+
+def time_chain(gen, rows):
+    """The chain at the band chunk (81,920 points, NS 1, a latent of 1,152,
+    64 encoded lanes): bf16 d_hidden 1,280 and 2,048, float32 1,920; the
+    forward (no stash, as served) and the dgrad on the stash forward's
+    activations, each beside its plain version, the cuBLAS chain of its
+    products (``product_chain``) and its bound.  Returns the four kernel
+    rows (bf16 at 1,280 with the 2,048 readings beside, float32 at
+    1,920)."""
+    kw = dict(n_blocks=5, n_lin_z=3, activate_out=True)
+    out = []
+    for cd, dhs in ((torch.bfloat16, (1280, 2048)), (torch.float32, (1920,))):
+        fwd_cases, bwd_cases = rows[cd]
+        fr = dict(name=K2.NAME_CHAIN[cd], source="avr_tpu_torch/csrc/resnetfc_chain.cu",
+                  replaces="avr_tpu/ops/pallas/resnetfc.py:896", tpu_kernel="fused_resnetfc",
+                  cases=fwd_cases, library="the cuBLAS chain of the forward's products")
+        br = dict(name=K2.NAME_DGRAD_CHAIN[cd], source="avr_tpu_torch/csrc/resnetfc_chain.cu",
+                  replaces="avr_tpu/ops/pallas/resnetfc.py:823", tpu_kernel="_bwd_stash_impl",
+                  cases=bwd_cases, library="the cuBLAS chain of the dgrad's products")
+        iters = 3 if cd == torch.bfloat16 else 1
+        for dh in dhs:
+            w = decoder_weights(gen, dh=dh, dl=WIDE_DL)
+            x, z, g = wide_inputs(gen, BAND, 1, WIDE_DL, CODE, cd)
+            args = K2._prepare(x, z, w, CODE, cd)
+            dims = K2._dims(args, 5, 3, True)
+            k_in = dims["k_in"]
+            fwd_ms = time_ms(lambda: K2._forward(args, dims, cd, False), iters=iters, warmup=1)
+            st = K2._forward(args, dims, cd, True)[1]
+            gs, wd, _ = K2._bwd_operands(args, dims, g, K2.NAME_DGRAD)
+            dgrad_ms = time_ms(lambda: K2._dgrad(args, dims, st, gs, wd, cd), iters=iters,
+                               warmup=1)
+            fplain = time_ms(lambda: resnetfc_plain(x, z, w, compute_dtype=cd, code=CODE, **kw),
+                             iters=iters, warmup=1)
+            bplain = time_ms(lambda: decoder_bwd_matched(x, z, w, st, g, n_blocks=5, n_lin_z=3,
+                                                         code=CODE, compute_dtype=cd,
+                                                         wgrads=False), iters=iters, warmup=1)
+            del st, gs, wd
+            torch.cuda.empty_cache()
+            flib = time_ms(product_chain(gen, BAND, dh, WIDE_DL, k_in, cd, False), iters=iters,
+                           warmup=1)
+            blib = time_ms(product_chain(gen, BAND, dh, WIDE_DL, k_in, cd, True), iters=iters,
+                           warmup=1)
+            shape = f"N={BAND}, NS=1, d_hidden {dh}, d_latent {WIDE_DL}, k_in {k_in}, 5 blocks, " \
+                    f"{str(cd)[6:]}"
+            for r, ms, pl, lib, bwd in ((fr, fwd_ms, fplain, flib, False),
+                                        (br, dgrad_ms, bplain, blib, True)):
+                b_ms, b_by = chain_bound(cd, dh, WIDE_DL, k_in, bwd)
+                vals = dict(ms=ms, plain_ms=pl, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                            shape=shape)
+                if dh == dhs[0]:
+                    r.update(vals)
+                else:
+                    r[f"at_d_hidden_{dh}"] = vals
+                print(f"kernel {r['name']} {shape}: {ms:.3f} ms (plain {pl:.3f}, cuBLAS chain "
+                      f"{lib:.3f}, bound {b_ms:.3f} by {b_by})")
+            del args, x, z, g
+            torch.cuda.empty_cache()
+        out += [fr, br]
+    return out
+
+
+def sweep_chain(gen):
+    """CHAIN_SWEEP's shapes, each timed at the band chunk on the chain and
+    on the other route, both forced, in turns (chain, other, other, chain;
+    CUDA events): the forward and (where the other route has a dgrad) the
+    dgrad, after each forward is held to the plain version.  The evidence
+    for ``chain_takes``' range; returns a row a shape."""
+    kw = dict(n_blocks=5, n_lin_z=3, activate_out=True)
+    rows = []
+    for cd, dh, dl, other, fwd_only in CHAIN_SWEEP:
+        w = decoder_weights(gen, dh=dh, dl=dl)
+        x, z, g = wide_inputs(gen, BAND, 1, dl, CODE, cd)
+        args = K2._prepare(x, z, w, CODE, cd)
+        dims = K2._dims(args, 5, 3, True)
+        want = resnetfc_plain(x, z, w, compute_dtype=cd, code=CODE, **kw)
+        tol = (WIDE_F32_TOL if cd == torch.float32 else 2.0 ** -7) * max(1.0, float(
+            want.abs().max()))
+        with routes_forced("chain"):
+            st = K2._forward(args, dims, cd, True)[1]
+        gs, wd, _ = K2._bwd_operands(args, dims, g, K2.NAME_DGRAD)
+        calls = {"forward": lambda: K2._forward(args, dims, cd, False)}
+        if not fwd_only:
+            calls["dgrad"] = lambda: K2._dgrad(args, dims, st, gs, wd, cd)
+        row = dict(shape=f"{str(cd)[6:]} d_hidden {dh} d_latent {dl} N={BAND}", other=other,
+                   route=K2.forward_route(cd, dims["d_latent"], dims["k_in"], dh),
+                   dgrad_route=K2.backward_route(cd, dh, dims["d_latent"], dims["k_in"]))
+        iters = 3 if cd == torch.bfloat16 else 1
+        for name, call in calls.items():
+            errs = {}
+            for r in ("chain", other):
+                with routes_forced(r):
+                    res = call()
+                    if name == "forward":
+                        errs[r] = check(f"sweep {r} forward {row['shape']}",
+                                        max_err(res[0], want), tol)["max_abs_err"]
+            turns = {"chain": [], other: []}
+            for r in ("chain", other, other, "chain"):
+                with routes_forced(r):
+                    turns[r].append(time_ms(call, iters=iters, warmup=1))
+            row[name] = dict(chain_ms=turns["chain"], other_ms=turns[other], errs=errs,
+                             chain_faster=max(turns["chain"]) < min(turns[other]))
+        rows.append(row)
+        print(f"chain sweep {json.dumps(row)}")
+        del args, st, gs, wd, x, z, g, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_bins_large(gen):
+    """The binned backward on maps past 1,024 8 x 8 tiles (BIG_MAPS, C 512,
+    bf16 and float32): K1's and K5's backward at the band (81,920 points)
+    and K3's over 2 steps, against their plain versions at the tolerances
+    of check_wide_channels, each bit for bit on a rerun."""
+    cases = []
+    for cd in (torch.bfloat16, torch.float32):
+        bf = cd == torch.bfloat16
+        for side in BIG_MAPS:
+            kind = f"{side}x{side} ({(side // 8) ** 2} tiles) C={C} {str(cd)[6:]}"
+            feat0, pts, proj = proj_inputs(gen, 1, 1, cd, BAND)
+            feat = randn(gen, 1, side, side, C, dtype=cd)
+            coords = (torch.rand(1, BAND, 2, generator=gen, device=DEV) * 2.2 - 1.1).contiguous()
+            g = randn(gen, 1, BAND, C, dtype=cd)
+            k5 = lambda f, p: gather_bilinear_projected(f, p, proj)
+            p5 = lambda f, p: gather_bilinear_projected_plain(f, p, proj)
+            for name, fk, fp, inputs, dname in (
+                    ("K1", gather_bilinear, gather_bilinear_plain, (feat, coords), "dcoords"),
+                    ("K5", k5, p5, (feat, pts), "dpoints")):
+                got, want = grads_of(fk, inputs, g), grads_of(fp, inputs, g)
+                cases += [check_l2(f"{name} dfeat {kind} N={BAND}", got[0], want[0],
+                                   2.0 ** -7 if bf else 1e-5),
+                          check_l2(f"{name} {dname} {kind} N={BAND}", got[1], want[1], 1e-4),
+                          check_rerun(f"{name} rerun {kind} N={BAND}", got,
+                                      grads_of(fk, inputs, g))]
+            inp = march_inputs(gen, 1, dtype=cd)
+            inp["feat"] = randn(gen, 1, 1, side, side, C, dtype=cd)
+            kw = dict(steps=2, compute_dtype=cd)
+            gm = randn(gen, 1, CHUNK, 3)
+            f = lambda fn: (lambda *t: fn(inp["proj"], *t, **kw))
+            with march_routed(cd, backward=True):
+                got = grads_of(f(fused_lstm_march), tuple(inp[k] for k in MARCH_KEYS), gm)
+            want = grads_of(f(lstm_march_plain), tuple(inp[k] for k in MARCH_KEYS), gm)
+            cases += [check_l2(f"K3 {nm} {kind} steps=2", a, b, 2e-2 if bf else 1e-3)
+                      for nm, a, b in zip(MARCH_GRADS, got, want)]
+            with march_routed(cd, backward=True):
+                again = grads_of(f(fused_lstm_march), tuple(inp[k] for k in MARCH_KEYS), gm)
+            cases.append(check_rerun(f"K3 rerun {kind} steps=2", got, again))
+            del feat0, feat, pts, proj, coords, g, inp, got, want, again
+            torch.cuda.empty_cache()
+    worst = max((c for c in cases if c["tol"]),
+                key=lambda c: c.get("rel_l2", c["max_abs_err"]) / c["tol"])
+    print(f"bins past 1,024 tiles: K1, K5 and K3 backward on {BIG_MAPS} maps, {len(cases)} cases "
+          f"within tolerance; worst against its tolerance {worst['case']}")
+    return cases
+
+
+CUSTOM_SIDE = 320  # the custom encoder's full-resolution map: 40 x 40 = 1,600 tiles
+
+
+def check_custom_encoder_large():
+    """Phase 9's custom-encoder case (``OPTION_CASES["custom_encoder"]``, its
+    latent map the view's full resolution) for one bf16 train step on a
+    synthetic CUSTOM_SIDE^2 view: K1's backward bins a 320 x 320 map.  The
+    loss finite, the parameters finite, K1's backward launched."""
+    model = option_model("custom_encoder", torch.bfloat16, DEV)
+    opt = make_optimizer(1e-4)
+    state = create_train_state(model, opt)
+    step = make_train_step(model, opt, LossParams(loss_mode="both"))
+    tb = train_batch(DEV, side=CUSTOM_SIDE)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t = time.perf_counter()
+    state, m = step(state, *tb, (0, 1))
+    loss = float(m["loss"])
+    ms = (time.perf_counter() - t) * 1e3
+    counts = dict(_build.launches)
+    finite = all(torch.isfinite(p).all() for p in state.params.values())
+    if not np.isfinite(loss) or not finite or not counts.get("gather_bilinear_bwd"):
+        raise AssertionError(f"custom encoder at {CUSTOM_SIDE}^2: loss {loss}, parameters finite "
+                             f"{finite}, launches {counts}")
+    res = dict(side=CUSTOM_SIDE, tiles=(CUSTOM_SIDE // 8) ** 2, loss=loss, ms=ms,
+               skipped=int(m["notfinite"]), launches=counts)
+    print(f"custom encoder at {CUSTOM_SIDE}^2 ({res['tiles']} tiles): {res}")
+    del model, opt, state, step
+    torch.cuda.empty_cache()
+    return res
+
+
+# the chain's rows of the kernels line: forward and dgrad counters by dtype
+CHAIN_NAMES = (*K2.NAME_CHAIN.values(), *K2.NAME_DGRAD_CHAIN.values())
+
+
+def run_chain():
+    """Phase 12: the chain against its plain versions and timed, the bins
+    past 1,024 tiles, a custom-encoder step on a 320^2 view, then the
+    chain's slice (``run_wide_slice(chain=True)``).  Returns the kernel
+    rows (each with its launches on the slice), the report and the
+    launches."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(15)
+    kernels = time_chain(gen, check_chain(gen))
+    bins = check_bins_large(gen)
+    custom = check_custom_encoder_large()
+    res, launches = run_wide_slice(chain=True)
+    res.update(bins=bins, custom_encoder=custom)
+    for k in kernels:
+        by_case = {case: counts.get(k["name"], 0) for case, counts in launches.items()}
+        if not sum(by_case.values()):
+            raise AssertionError(f"{k['name']} was never launched on the chain's slice")
+        k.update(chain=sum(by_case.values()), chain_by_case=by_case)
+    res["seconds_phase"] = time.perf_counter() - t0
+    print(f"chain launches: {launches}; phase {res['seconds_phase']:.1f} s")
     return kernels, res, launches
 
 
@@ -5454,6 +5883,20 @@ def main() -> int:
         print(json.dumps({"wide": res, "kernels": [{k: v for k, v in r.items() if k != "cases"}
                                                     for r in kernels],
                           "launches": launches, "card": smi}))
+        print(smi)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
+    if "--chain" in sys.argv[1:] or "--chain-sweep" in sys.argv[1:]:
+        out = {"card": smi}
+        if "--chain-sweep" in sys.argv[1:]:
+            out["sweep"] = sweep_chain(torch.Generator(device=DEV).manual_seed(16))
+        if "--chain" in sys.argv[1:]:
+            kernels, res, launches = run_chain()
+            out.update(chain=res, launches=launches,
+                       kernels=[{k: v for k, v in r.items() if k != "cases"} for r in kernels])
+        print(json.dumps(out))
         print(smi)
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
@@ -5549,6 +5992,8 @@ def main() -> int:
     print_quality(q_res, q_launches, smi)
     wide_kernels, wide_res, wide_launches = run_wide()
     kernels += wide_kernels
+    chain_kernels, chain_res, chain_launches = run_chain()
+    kernels += chain_kernels
     fill_k2_chains(kernels)
     results = {"serve": serve, "train": train, "float32": float32, "fit": fit_res,
                "cli": dict(cli_res, launches=cli_launches),
@@ -5556,6 +6001,7 @@ def main() -> int:
                "options": dict(opt_res, launches=opt_launches),
                "quality": dict(q_res, launches=q_launches),
                "wide": dict(wide_res, launches=wide_launches),
+               "chain": dict(chain_res, launches=chain_launches),
                "vr_one_vs_8_chunks": check_vr_chunks(),
                "adaptive_rerun": check_adaptive_rerun() + check_adaptive_rerun(torch.float32),
                "reference": check_small_reference() + check_small_train()
@@ -5588,7 +6034,8 @@ def main() -> int:
         # under two (the uniform draw and its raw bits)
         names = [k["name"]] + {K2.NAME: [K2.NAME_STASH], K7.NAME: [K7.NAME_BITS]}.get(k["name"], [])
         paths = (launches_f32 if k["name"] in (K2.NAME_F32, K2.NAME_DGRAD_F32, K2.NAME_WGRAD_F32)
-                 else wide_launches if k["name"] in WIDE_NAMES else launches)
+                 else wide_launches if k["name"] in WIDE_NAMES
+                 else chain_launches if k["name"] in CHAIN_NAMES else launches)
         by_path = {path: sum(counts.get(n, 0) for n in names) for path, counts in paths.items()}
         if not sum(by_path.values()):
             raise AssertionError(f"{k['name']} was never launched on a main path")

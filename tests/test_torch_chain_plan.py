@@ -1,0 +1,434 @@
+"""K2's chain (``avr_tpu_torch/csrc/resnetfc_chain.cu``): its host plan.
+
+The chain runs the decoder product by product over a chunk of points, each
+epilogue writing the next product's A operand (a stash slot), and its dgrad
+the same products in reverse (``ops/kernels/resnetfc.py chain_plan``).  The
+kernels run only on the card; here, on the CPU:
+
+* the plan run record by record in plain PyTorch, each epilogue as the
+  kernel's ``epi_pair`` / ``gh_store`` / head / encoding kernels define it:
+  the forward equals ``resnetfc_plain`` bit for bit (bf16 and float32, NS 1
+  to 3, with and without the stash, every block a view's or some pooled),
+  its stash slots are the plain forward's activations, and the dgrad's
+  outputs (dx, dz, the cotangent slots, gout, enc) fed to plain wgrads give
+  the plain autograd's 12 gradients (float32, 1e-5 of each array's scale);
+* the records against the source: ``ChainOp``'s fields, the kinds,
+  epilogues and flags, the tiles and shared memory; the workspace's
+  layout; the records of a call cut into chunks write every row of every
+  output once.
+"""
+
+import ctypes
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from avr_tpu_torch.ops.kernels import resnetfc as K2
+
+torch.set_num_threads(2)
+
+SRC = (Path(K2.__file__).resolve().parents[2] / "csrc" / "resnetfc_chain.cu").read_text()
+CODE = K2.CodeSpec(num_freqs=6, freq_factor=1.5, include_input=True, d_coded=3, d_pass=3)
+N, DH, DL = 37, 64, 64
+BF16, F32 = torch.bfloat16, torch.float32
+
+# (views, blocks, injections): one view, views pooled after some blocks,
+# every block a view's (no pooled block), a single block
+SHAPES = [(1, 3, 2), (2, 3, 2), (3, 3, 1), (2, 2, 2), (1, 1, 1), (3, 4, 3)]
+
+
+def _weights(seed, nb, nlz, dh=DH, dl=DL, d_out=4):
+    gen = torch.Generator().manual_seed(seed)
+    r = lambda *s, fan: torch.randn(*s, generator=gen) * fan ** -0.5
+    d_enc = CODE.d_enc
+    return K2.DecoderWeights(r(dh, d_enc, fan=d_enc), r(dh, fan=4), r(nlz, dh, dl, fan=dl),
+                             r(nlz, dh, fan=4), r(nb, dh, dh, fan=dh), r(nb, dh, fan=4),
+                             r(nb, dh, dh, fan=dh), r(nb, dh, fan=4), r(d_out, dh, fan=dh),
+                             r(d_out, fan=4))
+
+
+def _inputs(seed, ns):
+    gen = torch.Generator().manual_seed(seed + 1)
+    x = torch.rand(ns, N, CODE.d_raw, generator=gen) * 2 - 1
+    return x, torch.randn(ns, N, DL, generator=gen), torch.randn(N, 4, generator=gen) + 0.5
+
+
+def _emulate(steps, x, z, w, cd, nb, nlz, stash=True, st=None, g=None, activate=True):
+    """Run the records of ``chain_plan`` in plain PyTorch, as the kernels
+    define each record (forward: returns out and the stash or the operand
+    buffers; dgrad on ``st``: dx, dz, cot, gout, enc)."""
+    c = lambda t: t.to(cd).float()
+    ns, n = x.shape[:2]
+    dh = w.wi.shape[0]
+    W = dict(wi=c(w.wi), wz=c(w.wz), w0=c(w.w0), w1=c(w.w1))
+    B = dict(wi=c(w.bi), wz=c(w.bz), w0=c(w.b0), w1=c(w.b1))
+    wo, bo = c(w.wo), c(w.bo)
+    inv = 1.0 / ns
+    H, pool = torch.zeros(n, dh), torch.zeros(n, dh)
+    slots = K2.stash_slots(ns, nb, nlz)
+    bufs = dict(stash=torch.zeros(slots, n, dh) if st is None else st.float(),
+                act=torch.zeros(2, n, dh), cot=torch.zeros(K2.cot_slots(ns, nb, nlz), n, dh),
+                dz=torch.zeros(ns, n, DL))
+    denc = None
+    dx, enc = torch.zeros(ns, n, CODE.d_raw), torch.zeros(ns, n, CODE.d_enc)
+    gout = torch.zeros(n, K2.GOUT_W)
+    out = None
+
+    def get(ref):
+        if ref[0] == "x":
+            return c(K2.encode_features(x[ref[1]], CODE))
+        if ref[0] == "z":
+            return c(z[ref[1]])
+        return bufs[ref[0]][ref[1]]
+
+    def put(ref, v):
+        bufs[ref[0]][ref[1]] = c(v)
+
+    def linout_pre(a):
+        return a @ wo.T + bo
+
+    for s in steps:
+        if s.kind == "linout":
+            o = linout_pre(get(s.a))
+            if activate:
+                o = torch.cat([torch.sigmoid(o[:, :3]), torch.relu(o[:, 3:])], -1)
+            out = o
+            continue
+        if s.kind == "head":
+            aout = get(s.a)
+            ge = g.clone()
+            if activate:
+                pre = linout_pre(aout)
+                sg = torch.sigmoid(pre[:, :3])
+                ge = torch.cat([ge[:, :3] * sg * (1 - sg),
+                                torch.where(pre[:, 3:] > 0, ge[:, 3:], 0.0)], -1)
+            ge = c(ge)
+            gout[:, :ge.shape[1]] = ge
+            H = _gh_store(s, torch.where(aout > 0, ge @ wo, 0.0), bufs, ns, inv, c)
+            if s.pool == "boundary":
+                pool = H
+            continue
+        if s.kind == "enc":
+            v = s.view
+            enc[v] = c(K2.encode_features(x[v], CODE))
+            xe = x[v].clone().requires_grad_(True)
+            e = K2.encode_features(xe, CODE)
+            dx[v] = torch.autograd.grad(e, xe, denc)[0]
+            continue
+        name = s.w[0]
+        k = s.w[1] if len(s.w) > 1 else 0
+        if s.nseg > 1:  # dz: one sum over the injections' segments
+            acc = sum(get(s.a if j == 0 else (s.a1[0], s.a1[1] + (j - 1) * s.a_seg)) @ W[name][j]
+                      for j in range(s.nseg))
+        elif s.epi in ("c0", "gh", "f32", "t"):
+            acc = get(s.a) @ (W[name][k] if name != "wi" else W[name])
+        else:
+            acc = get(s.a) @ (W[name][k] if name != "wi" else W[name]).T
+        b = None
+        if s.epi in ("in", "z", "fc0", "fc1"):
+            b = B[name][k] if name != "wi" else B[name]
+        if s.epi == "in":
+            H = acc + b
+        elif s.epi == "z":
+            H = (H + acc) + b
+            put(s.out, torch.relu(H))
+        elif s.epi == "fc0":
+            put(s.out, torch.relu(acc + b))
+        elif s.epi == "fc1":
+            h = (H + acc) + b
+            if s.pool == "first":
+                pool = h
+            elif s.pool == "add":
+                pool = pool + h
+            else:
+                if s.pool == "last":
+                    h = (pool + h) * inv
+                H = h
+            if s.out is not None:
+                put(s.out, torch.relu(h))
+        elif s.epi == "c0":
+            put(s.out, torch.where(get(s.mask) > 0, acc, 0.0))
+        elif s.epi == "gh":
+            base = pool * inv if s.pool == "use" else H
+            H = _gh_store(s, torch.where(get(s.mask) > 0, base + acc, base), bufs, ns, inv, c)
+            if s.pool == "boundary":
+                pool = H
+        elif s.epi == "f32":
+            denc = acc[:, :CODE.d_enc]
+        else:
+            put(s.out, acc)
+    if g is None:
+        return out, bufs["stash"] if stash else bufs["act"]
+    return dx, bufs["dz"], bufs["cot"], gout, enc
+
+
+def _gh_store(s, gh, bufs, ns, inv, c):
+    """``gh_store``: the trunk cotangent and round(gh) to the next c1 (or
+    cot_in); at the boundary the pooled cotangent and every view's first c1.
+    Returns the new H (the pooled cotangent at the boundary)."""
+    if s.pool == "boundary":
+        for v in range(ns):
+            bufs[s.out[0]][s.out[1] + v] = c(gh * inv)
+        return gh
+    bufs[s.out[0]][s.out[1]] = c(gh)
+    return gh
+
+
+def _plain_stash(x, z, w, nb, nlz, cd):
+    """The plain forward's post-ReLU activations in stash-slot order."""
+    c = lambda t: t.to(cd).float()
+    wi, bi, wz, bz, w0, b0, w1, b1, wo, bo = (c(t) for t in w)
+    ns = x.shape[0]
+    st = torch.zeros(K2.stash_slots(ns, nb, nlz), x.shape[1], wi.shape[0])
+
+    def block(h, k, v):
+        a1 = c(torch.relu(h))
+        st[K2.stash_slot(k, 0, v, ns, nlz)] = a1
+        a2 = c(torch.relu(a1 @ w0[k].T + b0[k]))
+        st[K2.stash_slot(k, 1, v, ns, nlz)] = a2
+        return h + a2 @ w1[k].T + b1[k]
+
+    hs = None
+    for v in range(ns):
+        h = c(K2.encode_features(x[v], CODE)) @ wi.T + bi
+        for k in range(nlz):
+            h = block(h + c(z[v]) @ wz[k].T + bz[k], k, v)
+        hs = h if hs is None else hs + h
+    h = hs if ns == 1 else hs * (1.0 / ns)
+    for k in range(nlz, nb):
+        h = block(h, k, 0)
+    st[-1] = c(torch.relu(h))
+    return st
+
+
+@pytest.mark.parametrize("cd", [BF16, F32])
+@pytest.mark.parametrize("stash", [True, False])
+@pytest.mark.parametrize("ns,nb,nlz", SHAPES)
+def test_chain_forward_is_the_plain_function(ns, nb, nlz, stash, cd):
+    w = _weights(ns * 10 + nb + nlz, nb, nlz)
+    x, z, _ = _inputs(nb, ns)
+    steps = K2.chain_plan(ns, nb, nlz, backward=False, stash=stash)
+    got, st = _emulate(steps, x, z, w, cd, nb, nlz, stash=stash)
+    want = K2.resnetfc_plain(x, z, w, n_blocks=nb, n_lin_z=nlz, compute_dtype=cd, code=CODE,
+                             activate_out=True)
+    assert torch.equal(got, want)
+    if stash:
+        assert torch.equal(st, _plain_stash(x, z, w, nb, nlz, cd))
+    # every product is a gemm record but lin_out; the stash slots each
+    # written once, by the product that makes them
+    outs = [s.out for s in steps if s.kind == "gemm" and s.out is not None]
+    if stash:
+        assert sorted(o[1] for o in outs) == list(range(K2.stash_slots(ns, nb, nlz)))
+    assert sum(s.kind == "gemm" for s in steps) == ns * (1 + 3 * nlz) + 2 * (nb - nlz)
+
+
+def _wgrads(st, cot, gout, enc, z, ns, nb, nlz):
+    """The wgrads' jobs (``_wgrad``) as plain products: dW = G^T A, db =
+    sum G, in float32."""
+    n = z.shape[1]
+    rows = lambda t, i, count: t[i:i + count].reshape(-1, t.shape[-1])
+    g = {}
+    for k in range(nb):
+        count = ns if k < nlz else 1
+        for j, (wk, bk) in enumerate((("w0", "b0"), ("w1", "b1"))):
+            s = K2.stash_slot(k, j, 0, ns, nlz)
+            G, A = rows(cot, s, count), rows(st, s, count)
+            g.setdefault(wk, []).append(G.T @ A)
+            g.setdefault(bk, []).append(G.sum(0))
+    cin = K2.cot_slots(ns, nb, nlz) - ns
+    for k in range(nlz):
+        G = rows(cot, cin if k == 0 else K2.stash_slot(k - 1, 1, 0, ns, nlz), ns)
+        g.setdefault("wz", []).append(G.T @ z.reshape(-1, z.shape[-1]))
+        g.setdefault("bz", []).append(G.sum(0))
+    G = rows(cot, cin, ns)
+    g["wi"], g["bi"] = G.T @ enc.reshape(-1, enc.shape[-1]), G.sum(0)
+    g["wo"], g["bo"] = gout[:, :4].T @ st[-1], gout[:, :4].sum(0)
+    return {k: torch.stack(v) if isinstance(v, list) else v for k, v in g.items()}
+
+
+@pytest.mark.parametrize("activate", [True, False])
+@pytest.mark.parametrize("ns,nb,nlz", SHAPES)
+def test_chain_dgrad_gives_the_plain_gradients(ns, nb, nlz, activate):
+    """float32: the dgrad's records on the plain stash, then plain wgrads on
+    its outputs, against autograd through ``resnetfc_plain``."""
+    w = _weights(ns * 7 + nb, nb, nlz)
+    x, z, g = _inputs(nlz, ns)
+    st = _plain_stash(x, z, w, nb, nlz, F32)
+    steps = K2.chain_plan(ns, nb, nlz, backward=True)
+    dx, dz, cot, gout, enc = _emulate(steps, x, z, w, F32, nb, nlz, st=st, g=g,
+                                      activate=activate)
+    got = _wgrads(st, cot, gout, enc, z, ns, nb, nlz)
+    leaves = [t.clone().requires_grad_(True) for t in (x, z, *w)]
+    out = K2.resnetfc_plain(leaves[0], leaves[1], K2.DecoderWeights(*leaves[2:]), n_blocks=nb,
+                            n_lin_z=nlz, compute_dtype=F32, code=CODE, activate_out=activate)
+    want = torch.autograd.grad(out, leaves, g)
+    names = ("wi", "bi", "wz", "bz", "w0", "b0", "w1", "b1", "wo", "bo")
+    for name, a, b in zip(("dx", "dz") + names, (dx, dz, *(got[k] for k in names)), want):
+        scale = max(float(b.abs().max()), 1e-12)
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-5 * scale, err_msg=name)
+
+
+def test_chain_records_match_the_source():
+    """``ChainOp`` is the source's record field for field (names, order,
+    types), and the kinds, epilogues and flags are the source's enums."""
+    body = re.search(r"struct ChainOp \{(.+?)\n\};", SRC, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    types = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+             "const float*": ctypes.c_void_p, "float*": ctypes.c_void_p,
+             "const int*": ctypes.c_void_p, "long long": ctypes.c_longlong, "int": ctypes.c_int,
+             "float": ctypes.c_float}
+    fields = []
+    for decl in body.split(";"):
+        decl = " ".join(decl.split())
+        if not decl:
+            continue
+        m = re.match(r"(const void\*|void\*|const float\*|float\*|const int\*|long long|int|"
+                     r"float) (.+)", decl)
+        fields += [(name.strip(), types[m.group(1)]) for name in m.group(2).split(",")]
+    assert fields == [(n, t) for n, t in K2.ChainOp._fields_]
+    assert ctypes.sizeof(K2.ChainOp) == 240
+
+    def enum(first):
+        block = re.search(r"enum \{\s*" + first + r"[^}]*\}", SRC).group(0)
+        return {m[0]: int(m[1]) for m in re.findall(r"(\w+) = (\d+)", block)}
+
+    assert enum("OP_GEMM") == {"OP_" + k.upper(): v for k, v in K2.CHAIN_KINDS.items()}
+    epi = {"in": "IN", "z": "Z", "fc0": "FC0", "fc1": "FC1", "c0": "C0", "gh": "GH", "f32": "F32",
+           "t": "T"}
+    assert enum("EPI_IN") == {"EPI_" + epi[k]: v for k, v in K2.CHAIN_EPI.items()}
+    flag = {"encode": "ENCODE", "use": "USE_POOL", "boundary": "BOUNDARY", "first": "POOL_FIRST",
+            "add": "POOL_ADD", "last": "POOL_LAST"}
+    assert enum("F_ENCODE") == {"F_" + flag[k]: v for k, v in K2.CHAIN_FLAGS.items()}
+
+
+def _constants():
+    env = {"sizeof(bf16)": 2, "sizeof(float)": 4}
+    for line in re.findall(r"^constexpr int (C[HF]_\w+ = [^;]+);", SRC, re.M):
+        for part in " ".join(line.split()).split(", "):
+            name, expr = part.split(" = ", 1)
+            expr = expr.replace("(int)sizeof(bf16)", "2").replace("(int)sizeof(float)", "4")
+            env[name] = eval(expr, {}, dict(env))  # noqa: S307 - the repo's own constants
+    return env
+
+
+def test_chain_tiles_fit_the_card():
+    """Two CTAs of either product kernel fit an SM's 227 KB; a stage's k is
+    a divisor of every K the chain takes (multiples of 64); the bf16 rows
+    are 144 bytes apart (an ldmatrix's 8 rows on 8 distinct 16-byte bank
+    groups) and every shared row 16-byte aligned; a chunk fits the grid; a
+    bf16 warp's 64 x 32 and a float32 thread's 8 x 8 outputs tile the
+    CTA's."""
+    e = _constants()
+    assert e["CH_SMEM"] == 110_592 and e["CF_SMEM"] == 105_984
+    assert 2 * max(e["CH_SMEM"], e["CF_SMEM"]) <= K2.SMEM_MAX
+    assert (e["CH_BM"] // 64) * (e["CH_BN"] // 32) * 32 == e["CH_THREADS"]
+    assert (e["CH_BM"] // 8) * (e["CH_BN"] // 8) == e["CH_THREADS"]
+    assert 64 % e["CH_BK"] == 0 and 64 % e["CF_BK"] == 0
+    lds = e["CH_LDS"] * 2
+    assert lds % 16 == 0 and len({(r * lds // 16) % 8 for r in range(8)}) == 8
+    assert (e["CF_LDA"] * 4) % 16 == 0 and (e["CF_LDB"] * 4) % 16 == 0
+    assert K2.CHAIN_CHUNK <= e["CH_ROWS_MAX"] == 65535 * e["CH_BM"]
+    assert "__launch_bounds__(CH_THREADS, 2)\nchain_gemm_bf16_kernel" in SRC
+    assert "__launch_bounds__(CH_THREADS, 2)\nchain_gemm_f32_kernel" in SRC
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("stash", [True, False])
+def test_chain_workspace_layout(backward, stash):
+    """The workspace: the float32 trunk (or gh), the view sums (NS > 1), the
+    forward's two operand buffers without the stash, the dgrad's lin_in
+    input cotangent; sized by the chunk, not by N."""
+    for ns in (1, 2):
+        for cd, item in ((BF16, 2), (F32, 4)):
+            for n in (1_000, K2.CHAIN_CHUNK, 10 * K2.CHAIN_CHUNK):
+                c = min(n, K2.CHAIN_CHUNK)
+                off = K2.chain_workspace(n, ns, 2048, 192, cd, stash, backward)
+                want = 4 * c * 2048 * (2 if ns > 1 else 1)
+                if backward:
+                    assert off["denc"] == want
+                    want += 4 * c * 192
+                elif not stash:
+                    assert off["act"] == (want, want + item * c * 2048)
+                    want += 2 * item * c * 2048
+                assert off["bytes"] == want and off["H"] == 0 and off["pool"] == 4 * c * 2048
+                assert all(v % 16 == 0 for v in off.values() if isinstance(v, int))
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("ns", [1, 2])
+def test_chunked_records_cover_every_row_once(monkeypatch, backward, ns):
+    """A call cut into chunks (the chunk made 16 points): the records'
+    outputs in device memory (stash or cotangent slots, dz, dx, enc, gout,
+    out) cover each row of each output once, each chunk's rows at its own
+    offset, and every A operand and mask lies inside its tensor."""
+    monkeypatch.setattr(K2, "CHAIN_CHUNK", 16)
+    nb, nlz, n, dh, cd = 3, 2, 37, 64, BF16
+    item = 2
+    d = dict(N=n, ns=ns, d_in=CODE.d_raw, k_in=64, d_latent=DL, d_hidden=dh, d_out=4,
+             n_blocks=nb, n_lin_z=nlz, activate=1)
+    t = dict(x=torch.zeros(ns, n, CODE.d_raw), z=torch.zeros(ns, n, DL, dtype=cd),
+             stash=torch.zeros(K2.stash_slots(ns, nb, nlz), n, dh, dtype=cd),
+             cot=torch.zeros(K2.cot_slots(ns, nb, nlz), n, dh, dtype=cd),
+             wi=torch.zeros(dh, 64, dtype=cd), wz=torch.zeros(nlz, dh, DL, dtype=cd),
+             w0=torch.zeros(nb, dh, dh, dtype=cd), w1=torch.zeros(nb, dh, dh, dtype=cd),
+             bi=torch.zeros(dh), bz=torch.zeros(nlz, dh), b0=torch.zeros(nb, dh),
+             b1=torch.zeros(nb, dh), wo=torch.zeros(4, dh, dtype=cd), bo=torch.zeros(4),
+             tables=torch.zeros(2, 64, dtype=torch.int32), fph=torch.zeros(2, 64),
+             out=torch.zeros(n, 4), g=torch.zeros(n, 4), gout=torch.zeros(n, 8, dtype=cd),
+             dx=torch.zeros(ns, n, CODE.d_raw), dz=torch.zeros(ns, n, DL, dtype=cd),
+             enc=torch.zeros(ns, n, 64, dtype=cd))
+    off = K2.chain_workspace(n, ns, dh, 64, cd, True, backward)
+    assert off["bytes"] == 4 * 16 * dh * (2 if ns > 1 else 1) + (4 * 16 * 64 if backward else 0)
+    steps = K2.chain_plan(ns, nb, nlz, backward=backward)
+    rows = {}  # (tensor, row byte offset) -> writes
+
+    def mark(name, ptr, m, width, size, views=1, view_step=0):
+        base = t[name].data_ptr()
+        for v in range(views):
+            start = ptr + v * view_step * size - base
+            assert start % (width * size) == 0
+            r0 = start // (width * size)
+            assert 0 <= r0 and r0 + m <= t[name].numel() // width
+            for r in range(r0, r0 + m):
+                rows[(name, r)] = rows.get((name, r), 0) + 1
+
+    def inside(name, ptr, m, width, size):
+        base = t[name].data_ptr()
+        assert base <= ptr and ptr + m * width * size <= base + t[name].numel() * size
+
+    chunks = 0
+    for s in range(0, n, 16):
+        m = min(16, n - s)
+        chunks += 1
+        recs = K2._chain_records(steps, t, d, s, m, (1 << 40, off), cd, backward)
+        assert len(recs) == len(steps)
+        for st, r in zip(steps, recs):
+            assert r.M == m
+            if st.kind == "linout":
+                mark("out", r.outf, m, 4, 4)
+            elif st.kind == "head":
+                mark("gout", r.gout, m, 8, item)
+            elif st.kind == "enc":
+                mark("dx", r.dx, m, CODE.d_raw, 4)
+                mark("enc", r.enc, m, 64, item)
+            if st.out is not None and st.out[0] in ("stash", "cot", "dz"):
+                name = st.out[0]
+                width = DL if name == "dz" else dh
+                views = ns if st.pool == "boundary" else 1
+                mark(name, r.out, m, width, item, views, r.out_view)
+            if st.a is not None and st.a[0] in ("stash", "cot", "z"):
+                inside(st.a[0], r.A, m, DL if st.a[0] == "z" else dh, item)
+            if st.mask is not None:
+                inside("stash", r.mask, m, dh, item)
+    assert chunks == 3
+    if backward:
+        want = {"cot": K2.cot_slots(ns, nb, nlz) * n, "dz": ns * n, "dx": ns * n, "enc": ns * n,
+                "gout": n}
+    else:
+        want = {"stash": K2.stash_slots(ns, nb, nlz) * n, "out": n}
+    for name, count in want.items():
+        got = {r: k for (nm, r), k in rows.items() if nm == name}
+        assert len(got) == count and set(got.values()) == {1}, name

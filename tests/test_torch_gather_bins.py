@@ -8,11 +8,12 @@ the lines of ``gather.cu`` each step mirrors:
 
 * ``_taps``: ``bilinear_taps`` (``csrc/common.cuh``), each operation
   rounded to float32 on its own;
-* ``_codes`` / ``_member``: ``tile_code`` and ``code_tile``;
-* ``_sort``: ``gather_bin_count_kernel`` (histograms per sort block),
-  ``gather_bin_scan_kernel`` (offsets within the bin, sizes),
-  ``gather_bin_scatter_kernel`` (rank within the block: earlier lanes of
-  the warp, then earlier warps' counts);
+* ``_codes``: ``tile_code`` (``_sort`` lists ``code_tile``'s slots);
+* ``_sort``: ``gather_bin_count_kernel`` (a block's count in each tile it
+  touches), ``gather_bin_scan_kernel`` (offsets within the bin, sizes),
+  ``sort_block_entries`` (a sort block's entries keyed by tile and point,
+  its bitonic network) and ``gather_bin_scatter_kernel`` (rank within the
+  block: position less the tile's first);
 * ``_plan``: ``gather_bin_plan_kernel`` (starts, chunks under the
   ``PARTIAL_CHUNKS`` budget, work items, partial slots);
 * ``_accumulate``: ``AccItem`` (item to bin, chunk bounds), then
@@ -24,7 +25,7 @@ the lines of ``gather.cu`` each step mirrors:
 
 On the mirror: every (point, tap) of nonzero weight is added exactly once,
 in the tile holding its pixel, each pixel's points in ascending order, at
-tile edges and the map border too; a bin longer than ``CHUNK_MIN`` is
+tile edges and the map border too, on a map past 1,024 tiles; a bin longer than ``CHUNK_MIN`` is
 split, and the split bins' chunks stay within the budget; summing ``dfeat``
 bin by bin in that order matches JAX's ``gather_bilinear_windowed`` VJP
 (``_wbwd``) and ``gather_bilinear_projected``'s (``_pbwd``), Pallas in
@@ -54,7 +55,6 @@ CONST = {m[1]: int(m[2]) for m in
          re.finditer(r"constexpr int (\w+) = (\d+);", SRC.read_text())}
 TILE, SEG, CHUNK_MIN, PARTIAL = (CONST[k] for k in ("TILE", "SEG", "CHUNK_MIN",
                                                     "PARTIAL_CHUNKS"))
-WARP = 32
 F32 = np.float32
 
 
@@ -88,16 +88,6 @@ def _codes(idx, W, TX):
     return (ty0 * TX + tx0) << 2 | sy.astype(np.int64) << 1 | sx.astype(np.int64)
 
 
-def _member(code, TX, T):
-    """``code_tile`` over the four slots: (..., T) bool, a point's tiles."""
-    t, sx, sy = code >> 2, (code & 1).astype(bool), (code >> 1 & 1).astype(bool)
-    m = np.zeros((code.size, T), bool)
-    for tile, on in ((t, np.ones_like(sx)), (t + 1, sx), (t + TX, sy), (t + TX + 1, sx & sy)):
-        rows = np.nonzero(on.reshape(-1))[0]
-        m[rows, tile.reshape(-1)[rows]] = True
-    return m.reshape(code.shape + (T,))
-
-
 def _plan(totals):
     """``gather_bin_plan_kernel``: starts, chunks, first work items (and
     their count last), partial slots."""
@@ -112,29 +102,75 @@ def _plan(totals):
     return start, k, wstart, pslot
 
 
+def _bitonic(keys):
+    """``sort_block_entries``'s network: the source's compare-and-swap steps
+    over the last axis (a power of two)."""
+    keys = keys.copy()
+    n = keys.shape[-1]
+    p = np.arange(n // 2)
+    size = 2
+    while size <= n:
+        stride = size >> 1
+        while stride > 0:
+            i = 2 * p - (p & (stride - 1))
+            j = i + stride
+            a, c = keys[..., i], keys[..., j]
+            swap = (a > c) == ((i & size) == 0)
+            keys[..., i], keys[..., j] = np.where(swap, c, a), np.where(swap, a, c)
+            stride >>= 1
+        size <<= 1
+    return keys
+
+
 def _sort(idx, H, W):
     """count, scan and scatter: the sorted entries (a point index within
-    its view per entry), the bin sizes and the plan.  ``idx`` is (B, N, 4)."""
+    its view per entry), the bin sizes and the plan.  ``idx`` is (B, N, 4).
+    count adds a sort block's entries to its (bin, block) counts; scatter
+    keys them (tile << 10) | (4 * local point + slot), compacted in thread
+    order, padded with ~0 to the least power of two that holds them and
+    sorted by the block's bitonic network; a key's rank is its position less
+    its tile's first."""
     B, N = idx.shape[:2]
     TX, T = -(-W // TILE), -(-W // TILE) * -(-H // TILE)
     nseg = -(-N // SEG)
-    member = np.zeros((B, nseg * SEG, T), bool)  # points past N have no tile
-    member[:, :N] = _member(_codes(idx, W, TX), TX, T)
-    blocks = member.reshape(B, nseg, SEG // WARP, WARP, T)
-    # count: per (view, tile, sort block); scan: offsets within the bin
-    hist = blocks.sum((2, 3)).transpose(0, 2, 1).reshape(B * T, nseg)
+    code = np.full((B, nseg * SEG), -1, np.int64)  # points past N have no tile
+    code[:, :N] = _codes(idx, W, TX)
+    t, sx, sy = code >> 2, code & 1, code >> 1 & 1
+    tiles = np.stack([t, np.where(sx, t + 1, -1), np.where(sy, t + TX, -1),
+                      np.where(sx & sy, t + TX + 1, -1)], -1)  # code_tile's slots
+    tiles[code < 0] = -1
+    none = np.uint64(2 ** 64 - 1)
+    local = np.arange(4 * SEG, dtype=np.uint64)
+    tiles = tiles.reshape(B, nseg, 4 * SEG)  # thread-major, slot-minor: the compaction's order
+    hist = np.zeros((B * T, nseg), np.int64)
+    placed = []  # (view, block, tile, rank, point)
+    for b in range(B):
+        for s in range(nseg):
+            on = tiles[b, s] >= 0
+            k = tiles[b, s][on].astype(np.uint64) << np.uint64(10) | local[on]
+            total = len(k)
+            size = 1
+            while size < total:
+                size *= 2
+            k = _bitonic(np.concatenate([k, np.full(size - total, none)]))
+            assert (k == np.sort(k)).all() and (k[total:] == none).all()  # the network sorts
+            k = k[:total]
+            tile = (k >> np.uint64(10)).astype(np.int64)
+            first = np.searchsorted(tile, tile, "left")
+            rank = np.arange(len(tile)) - first
+            np.add.at(hist[:, s], b * T + tile, 1)  # count: integer adds per (bin, block)
+            last = np.append(tile[1:] != tile[:-1], True)  # a tile's last key: rank count - 1
+            assert (rank[last] + 1 == hist[b * T + tile[last], s]).all()
+            pts = s * SEG + (k & np.uint64(1023)).astype(np.int64) // 4
+            placed += [(b, s, tt, r, p) for tt, r, p in zip(tile, rank, pts)]
+    # scan: offsets within the bin; plan
     offsets = np.cumsum(hist, 1) - hist
     totals = hist.sum(1)
     start, k, wstart, pslot = _plan(totals)
-    # scatter: earlier lanes of the warp, then the earlier warps' counts
-    lower = np.cumsum(blocks, 3) - blocks
-    warp_counts = blocks.sum(3, keepdims=True)
-    rank = lower + (np.cumsum(warp_counts, 2) - warp_counts)
+    # scatter: an entry's place, its rank after the bin's earlier blocks
     entries = np.full(int(totals.sum()), -1, np.int64)
-    b, s, w, l, t = np.nonzero(blocks)
-    bins = b * T + t
-    pos = start[bins] + offsets[bins, s] + rank[b, s, w, l, t]
-    entries[pos] = (s * SEG + w * WARP + l)
+    pos = [start[b * T + tt] + offsets[b * T + tt, s] + r for b, s, tt, r, _ in placed]
+    entries[pos] = [p for *_, p in placed]
     assert (entries >= 0).all() and len(np.unique(pos)) == len(pos)
     return entries, totals, (start, k, wstart, pslot), (TX, T)
 
@@ -200,7 +236,9 @@ def _skewed_coords(rng, B, N, H, W):
 
 CASES = {"edges": (_edge_coords, dict(B=2, H=20, W=28, C=16, N=700)),
          "skewed": (_skewed_coords, dict(B=1, H=16, W=16, C=8, N=CHUNK_MIN + 500)),
-         "ragged": (_edge_coords, dict(B=3, H=9, W=13, C=8, N=SEG + 37))}
+         "ragged": (_edge_coords, dict(B=3, H=9, W=13, C=8, N=SEG + 37)),
+         # past the 1,024 tiles a view that a first sort held: 33 x 33 tiles
+         "past_1024_tiles": (_edge_coords, dict(B=2, H=264, W=260, C=8, N=SEG + 300))}
 
 
 def _case(name, seed=0):

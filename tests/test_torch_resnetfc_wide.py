@@ -15,13 +15,14 @@ lanes (``pad_latent``).  Here, on the CPU:
   frequencies (150 encoded lanes, past the bf16 tail's 128), NS 1 and 2.
   Forward 1e-4 absolute; gradients 1e-4 of each array's largest value
   (float32 on both sides, sums in another order).
-* The routes: every shipped shape keeps its kernel; everything JAX fuses up
-  to d_hidden 1,024 and a latent of 1,152 has a kernel that fits, in both
-  dtypes, forward and backward; bf16 d_hidden 256..1,024 takes the TMA
-  cluster kernels where their shared memory fits (``wide_tma_fits``), every
-  other wide shape the first version, and no bf16 shape the first version
-  took is refused; past the wide kernels' shared memory the wrapper raises,
-  naming the bound.
+* The routes: every shipped shape keeps its kernel; everything JAX fuses
+  (d_hidden up to 4,096, latents up to 4,096 lanes) has a kernel that
+  takes it, in both dtypes, forward and backward; bf16 d_hidden 256..1,024
+  takes the TMA cluster kernels where their shared memory fits
+  (``wide_tma_fits``), every other wide shape up to d_hidden 1,024 the
+  first version where its shared memory fits, and the chain
+  (``csrc/resnetfc_chain.cu``) past it and past 1,024: the shapes the
+  wrapper refused before it and the range where it was measured faster.
 * The wide kernels' shared-memory budgets, their constants read from the
   source, and the latent padding: the padded operands give the unpadded
   function (its forward bit for bit where the injections' sums are exact).
@@ -86,9 +87,10 @@ def _decoder(d_hidden, d_latent, num_freqs, seed):
 # global encoder's 128) and 1,152 (a 5-stage encoder's 1,024 and the
 # global 128); 24 frequencies: 150 encoded lanes, 192 as padded; and at
 # the shipped d_hidden 512 the latents the bf16 wgmma forward takes in
-# pieces (the global encoder's 640, a 5-stage encoder's 1,024)
+# pieces (the global encoder's 640, a 5-stage encoder's 1,024); d_hidden
+# 1,280 (the chain's on the card)
 WIDE = [(640, 612, 24, 1), (640, 1152, 6, 2), (1024, 1152, 24, 2), (1024, 640, 24, 1),
-        (1024, 612, 6, 2), (512, 640, 6, 1), (512, 1024, 6, 2)]
+        (1024, 612, 6, 2), (512, 640, 6, 1), (512, 1024, 6, 2), (1280, 1152, 6, 2)]
 
 
 @pytest.mark.parametrize("d_hidden,d_latent,num_freqs,ns", WIDE)
@@ -164,9 +166,10 @@ def test_wide_routes():
             assert K2.forward_route(cd, 512, 64, dh) == want
             assert K2.backward_route(cd, dh, 512, 64) == want
     assert K2.forward_route(F32, 1152, 64, 1024) == "wide_f32"
+    # past 1,024 the chain, measured faster than the first version there
     for dh in (1088, 1152, 1792):
-        assert K2.forward_route(F32, 512, 64, dh) == "wide"
-        assert K2.backward_route(F32, dh, 512, 64) == "wide"
+        assert K2.forward_route(F32, 512, 64, dh) == "chain"
+        assert K2.backward_route(F32, dh, 512, 64) == "chain"
     # bf16 at 512 past the tail's latent or input lanes: the forward is the
     # wgmma one (its operands in pieces), the dgrad the TMA cluster
     # one; float32 keeps both
@@ -175,11 +178,20 @@ def test_wide_routes():
     assert K2.backward_route(BF16, 512, 512, 192) == "wide_tma"
     assert K2.forward_route(BF16, 512, 192, 512) == "wgmma"
     assert K2.backward_route(F32, 512, 1152, 576) == "fma"
-    # bf16 past the TMA cluster kernels' two trunk groups a warp, or below
-    # the dgrad tail's chunk: the first version
-    assert K2.forward_route(BF16, 1152, 64, 1152) == "wide"
-    assert K2.backward_route(BF16, 1152, 1152, 64) == "wide"
+    # bf16 past the TMA cluster kernels' two trunk groups a warp: the chain
+    # (measured faster than the first version); below the dgrad tail's
+    # chunk: the first version
+    assert K2.forward_route(BF16, 1152, 64, 1152) == "chain"
+    assert K2.backward_route(BF16, 1152, 1152, 64) == "chain"
     assert K2.backward_route(BF16, 128, 640, 64) == "wide"
+    # past the first version's shared memory: the chain
+    for dh in (1280, 2048):
+        assert K2.forward_route(BF16, 1152, 64, dh) == "chain"
+        assert K2.backward_route(BF16, dh, 1152, 64) == "chain"
+    assert K2.forward_route(BF16, 4096, 64, 1024) == "chain"
+    assert K2.backward_route(BF16, 1024, 4096, 64) == "wide_tma"
+    assert K2.forward_route(F32, 1152, 64, 1920) == "chain"
+    assert K2.backward_route(F32, 1920, 1152, 64) == "chain"
 
 
 # bf16 at d_hidden 512 and 256 past the wgmma forward's 512-lane A tile (in
@@ -202,10 +214,29 @@ def test_pieced_shapes_take_the_wgmma_forward(d_hidden, d_latent, k_in):
 @pytest.mark.parametrize("d_latent,k_in", [(1216, 64), (64, 1216), (2048, 576), (1152, 1216)])
 def test_past_the_pieces_limit_resnetfc_kernel_stays(d_latent, k_in):
     """Past the C entry's FWD_OPERAND_MAX lanes the rule keeps
-    resnetfc_kernel, which took these shapes before: nothing is refused."""
+    resnetfc_kernel where its shared memory (``mma_sync_smem``, at NS > 1)
+    holds the call, and sends the rest to the chain: nothing is refused."""
     for dh in (64, 256, 512):
-        assert K2.forward_route(BF16, d_latent, k_in, dh) == "mma_sync"
+        fits = K2.mma_sync_smem(dh, d_latent, k_in) <= K2.SMEM_MAX
+        assert K2.forward_route(BF16, d_latent, k_in, dh) == ("mma_sync" if fits else "chain")
+        assert fits or (dh, d_latent, k_in) == (512, 2048, 576)
     assert K2.forward_route(F32, d_latent, k_in, 512) == "fma"
+
+
+def test_resnetfc_kernel_smem_matches_the_source():
+    """``mma_sync_smem`` mirrors ``fwd_smem_bytes<bf16>`` at NS > 1 (the row
+    stride ``row_stride<bf16>``), and a 4,096-lane latent at d_hidden 512
+    passes 227 KB: the chain takes it."""
+    src = (CSRC / "resnetfc.cu").read_text()
+    assert "inline int row_stride<bf16>(int k) { return (k + 63) / 64 * 64 + 32; }" in src
+    body = " ".join(re.search(r"inline size_t fwd_smem_bytes\(int k_in, int dh, int dl, int ns\) "
+                              r"\{(.+?)\n\}", src, re.S).group(1).split())
+    assert body == ("return (size_t)TM * (row_stride<T>(k_in > dh ? k_in : dh) + "
+                    "row_stride<T>(dl)) * sizeof(T) + (ns > 1 ? (size_t)TM * dh * sizeof(float) "
+                    ": 0);")
+    assert re.search(r"constexpr int TM = 32;", src)
+    assert K2.mma_sync_smem(512, 4096, 64) == 32 * (544 + 4128) * 2 + 32 * 512 * 4
+    assert K2.forward_route(BF16, 4096, 64, 512) == "chain"
 
 
 def test_pieces_match_the_source():
@@ -243,36 +274,87 @@ def test_pieces_match_the_source():
         assert len(pieces) == 1 or k > K2.FWD_K_EXT
 
 
+def _fits(cd, route, dh, dl, k_in, backward):
+    """Whether ``route``'s kernel takes the shape: the cluster kernels and the
+    first version within their shared memory; the chain and the register
+    kernels take what the rule sends them."""
+    if route == "wide":
+        return K2.wide_smem(cd, dh, dl, k_in, backward) <= K2.SMEM_MAX
+    if route == "wide_tma":
+        return K2.wide_tma_smem(dh, dl, k_in, backward) <= K2.SMEM_MAX
+    if route == "wide_f32":
+        return K2.wide_f32_smem(dh, k_in) <= K2.SMEM_MAX
+    return True
+
+
 @pytest.mark.parametrize("cd", [BF16, F32])
 def test_everything_jax_fuses_has_a_kernel(cd):
-    """Every decoder JAX's ``supports`` takes with d_hidden up to 1,024, a
-    latent up to 1,152 lanes and up to 576 encoded lanes (85 frequencies)
-    fits its route's kernel, forward and backward: the wrapper's bound
-    check passes."""
-    for dh in range(128, 1025, 128):
-        for dl in (1, 63, 100, 612, 640, 1024, 1152):
+    """Every decoder JAX's ``supports`` takes with d_hidden up to 4,096, a
+    latent up to 4,096 lanes and up to 576 encoded lanes (85 frequencies)
+    has a route whose kernel takes it, forward and backward: no shape is
+    refused."""
+    for dh in range(128, 4097, 128):
+        for dl in (1, 63, 100, 612, 640, 1024, 1152, 2048, 4096):
             for d_enc in (42, 150, 516):
                 assert jax_supports(n_blocks=5, n_lin_z=3, d_hidden=dh, d_latent=dl,
                                     d_in=d_enc, bn=False, beta=0.0)
                 dlp, k_in = K2.d_enc_padded(dl), K2.d_enc_padded(d_enc)
-                assert K2.forward_route(cd, dlp, k_in, dh) in ("wgmma", "mma_sync", "fma", "wide",
-                                                               "wide_tma", "wide_f32")
-                assert K2.backward_route(cd, dh, dlp, k_in) in ("wgmma", "fma", "wide", "wide_tma",
-                                                                "wide_f32")
-                K2.check_wide_bound(cd, dh, dlp, k_in, backward=True)
+                fwd = K2.forward_route(cd, dlp, k_in, dh)
+                bwd = K2.backward_route(cd, dh, dlp, k_in)
+                assert fwd in ("wgmma", "mma_sync", "fma", "wide", "wide_tma", "wide_f32",
+                               "chain")
+                assert bwd in ("wgmma", "fma", "wide", "wide_tma", "wide_f32", "chain")
+                assert _fits(cd, fwd, dh, dlp, k_in, False)
+                assert _fits(cd, bwd, dh, dlp, k_in, True)
+
+
+def _route_before_the_chain(cd, dh, dl, k_in, backward):
+    """The rule before the chain (the wide kernels' routes as they were), and
+    whether the shape was refused: its route was the first version and the
+    wrapper raised (that kernel's shared memory did not fit), or its route
+    was ``resnetfc_kernel`` and the card refused the launch at NS > 1 (its
+    shared memory, ``mma_sync_smem``, did not fit)."""
+    if backward:
+        if cd == F32 and dh <= K2.REG_DH_MAX:
+            r = "fma"
+        elif cd == F32:
+            r = "wide_f32" if K2.wide_f32_fits(cd, dh, k_in) else "wide"
+        elif dh <= K2.REG_DH_MAX and dl <= K2.TAIL_DL_MAX and k_in <= K2.TAIL_KIN_MAX:
+            r = "wgmma"
+        else:
+            r = "wide_tma" if K2.wide_tma_fits(cd, dh, dl, k_in, True) else "wide"
+    elif dh > K2.REG_DH_MAX:
+        r = ("wide_f32" if K2.wide_f32_fits(cd, dh, k_in) else
+             "wide_tma" if K2.wide_tma_fits(cd, dh, dl, k_in) else "wide")
+    else:
+        r = "fma" if cd == F32 else "wgmma" if max(dl, k_in) <= K2.FWD_OPERAND_MAX else "mma_sync"
+    return r, ((r == "wide" and K2.wide_smem(cd, dh, dl, k_in, backward) > K2.SMEM_MAX)
+               or (r == "mma_sync" and K2.mma_sync_smem(dh, dl, k_in) > K2.SMEM_MAX))
 
 
 @pytest.mark.parametrize("backward", [False, True])
-def test_past_the_bound_the_wrapper_raises(backward):
-    for cd, dh in ((BF16, 1216), (F32, 1856)):
-        with pytest.raises(ValueError, match="holds 232448 bytes of shared memory"):
-            K2.check_wide_bound(cd, dh, 512, 64, backward=backward)
-    # the widest that fit: bf16 1,152, float32 1,792 (latent and input at most d_hidden)
-    K2.check_wide_bound(BF16, 1152, 1152, 1152, backward=backward)
-    K2.check_wide_bound(F32, 1792, 1792, 1792, backward=backward)
-    # a latent wider than the trunk takes more of the forward's operand tile
-    with pytest.raises(ValueError, match="the wide forward kernel"):
-        K2.check_wide_bound(BF16, 1152, 1408, 64, backward=backward)
+@pytest.mark.parametrize("cd", [BF16, F32])
+def test_the_chain_takes_what_was_refused_and_the_measured_range(cd, backward):
+    """The chain's rule (``chain_takes``) is one function of the shape: a
+    shape goes to the chain exactly where the wrapper refused it before
+    (the first version's shared memory past ``SMEM_MAX``) and where the
+    first version took it past ``CHAIN_DH_MIN`` (the chain measured faster
+    there); every shipped and cluster shape, and every first-version shape
+    up to ``CHAIN_DH_MIN``, keeps its route."""
+    route = (lambda dh, dl, k_in: K2.backward_route(cd, dh, dl, k_in)) if backward else \
+        (lambda dh, dl, k_in: K2.forward_route(cd, dl, k_in, dh))
+    chained = 0
+    for dh in range(64, 4097, 64):
+        for dl in (64, 512, 640, 1152, 1216, 2048, 4096):
+            for k_in in (64, 192, 576, 1216):
+                before, refused = _route_before_the_chain(cd, dh, dl, k_in, backward)
+                r = route(dh, dl, k_in)
+                measured = before == "wide" and dh > K2.CHAIN_DH_MIN
+                assert r == ("chain" if refused or measured else before), (dh, dl, k_in)
+                assert (r == "chain") == (refused or before == "wide" and K2.chain_takes(
+                    cd, dh, dl, k_in, backward))
+                chained += r == "chain"
+    assert chained
 
 
 # ---------------------------------------------------------------------------
@@ -395,7 +477,8 @@ def test_wide_tma_route_rule(backward):
     (d_hidden 576..1,152, and for the dgrad 512 with a latent past 512 or
     more than 128 lanes; latents and inputs to 2,048 lanes) still has a
     kernel, the TMA cluster one exactly where ``wide_tma_fits``, and the
-    wrapper raises for none of them."""
+    wrapper refuses none of them (past d_hidden 1,024 and past the first
+    version's shared memory the chain takes a shape)."""
     route = (lambda dh, dl, k_in: K2.backward_route(BF16, dh, dl, k_in)) if backward else \
         (lambda dh, dl, k_in: K2.forward_route(BF16, dl, k_in, dh))
     dhs = range(512 if backward else 576, 1153, 64)
@@ -407,14 +490,16 @@ def test_wide_tma_route_rule(backward):
                     assert r == "wgmma"
                     continue
                 assert r == ("wide_tma" if K2.wide_tma_fits(BF16, dh, dl, k_in, backward)
+                             else "chain" if K2.chain_takes(BF16, dh, dl, k_in, backward)
                              else "wide")
                 # the first version took the call (its forward past d_hidden
-                # 512 and, under autograd, its dgrad fit): it still runs,
-                # nothing raises
+                # 512 and, under autograd, its dgrad fit): up to 1,024 it
+                # still runs on a kernel of the wide file, past it on the
+                # chain (measured faster)
                 first = (dh <= 512 or K2.wide_smem(BF16, dh, dl, k_in) <= K2.SMEM_MAX) and (
                     not backward or K2.wide_smem(BF16, dh, dl, k_in, True) <= K2.SMEM_MAX)
                 if first:
-                    K2.check_wide_bound(BF16, dh, dl, k_in, backward=backward)
+                    assert r in (("chain",) if dh > K2.CHAIN_DH_MIN else ("wide_tma", "wide"))
                 if r == "wide_tma":
                     assert dh <= 1024 and K2.wide_tma_smem(dh, dl, k_in, backward) <= K2.SMEM_MAX
 
@@ -537,8 +622,9 @@ def test_wide_f32_route_rule(backward):
     not narrow: every float32 shape the first version took (d_hidden 576 to
     1,792; latents and inputs to 2,048 lanes) still has a kernel, the cluster
     one exactly where ``wide_f32_fits`` (d_hidden up to 1,024 with three
-    stages), the first version everywhere else; the wrapper raises for none
-    of them."""
+    stages), the first version elsewhere up to 1,024 where its shared
+    memory fits, the chain past 1,024 and past that memory; none is
+    refused."""
     route = (lambda dh, dl, k_in: K2.backward_route(F32, dh, dl, k_in)) if backward else \
         (lambda dh, dl, k_in: K2.forward_route(F32, dl, k_in, dh))
     for dh in range(576, 1793, 64):
@@ -546,12 +632,13 @@ def test_wide_f32_route_rule(backward):
             for k_in in (64, 128, 576, 1216, 2048):
                 r = route(dh, dl, k_in)
                 fits = K2.wide_f32_fits(F32, dh, k_in)
-                assert r == ("wide_f32" if fits else "wide")
+                assert r == ("wide_f32" if fits else "chain" if K2.chain_takes(
+                    F32, dh, dl, k_in, backward) else "wide")
                 assert fits == (dh <= 1024 and K2.wide_f32_stages(dh, k_in) >= 3)
                 first = K2.wide_smem(F32, dh, dl, k_in) <= K2.SMEM_MAX and (
                     not backward or K2.wide_smem(F32, dh, dl, k_in, True) <= K2.SMEM_MAX)
                 if first:
-                    K2.check_wide_bound(F32, dh, dl, k_in, backward=backward)
+                    assert r in (("chain",) if dh > K2.CHAIN_DH_MIN else ("wide_f32", "wide"))
     # the narrow float32 kernels keep d_hidden 512 and below
     assert route(512, 1152, 576) == "fma" and not K2.wide_f32_fits(F32, 512, 64)
     assert not K2.wide_f32_fits(BF16, 1024, 64)

@@ -3,8 +3,8 @@
 * No module of ``avr_tpu_torch`` (``scripts/`` and the model options'
   modules included) and no part of ``chip_smoke.py``,
   ``train_skip_probe.py``, ``march_turns.py``, ``gather_turns.py``,
-  ``integral_turns.py``, ``f32_turns.py``, ``march_f32_turns.py`` or
-  ``wide_turns.py`` imports
+  ``integral_turns.py``, ``f32_turns.py``, ``march_f32_turns.py``,
+  ``wide_turns.py`` or ``chain_turns.py`` imports
   JAX, Flax, Optax, the JAX package or its ``scripts`` (AST scan, the turns
   scripts' ``_TURN`` and ``_PROBE`` snippets included: they run as ``python
   -c`` in each checkout).
@@ -46,7 +46,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "avr_tpu", "scripts")
 # the turns scripts' sources run as python -c
 SNIPPETS = ("_TURN", "_PROBE", "_STAMPED", "_CAPTURE", "_COMMON", "_SLICE", "_SWEEP",
-            "_STAMPED_MMA", "_SWEEP_PIECES")
+            "_STAMPED_MMA", "_SWEEP_PIECES", "_BINS")
 TINY = """
 include required("default_mv.conf")
 model {
@@ -79,12 +79,12 @@ def _port_files():
     return sorted((ROOT / "avr_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "train_skip_probe.py", ROOT / "march_turns.py",
         ROOT / "gather_turns.py", ROOT / "integral_turns.py", ROOT / "f32_turns.py",
-        ROOT / "march_f32_turns.py", ROOT / "wide_turns.py"]
+        ROOT / "march_f32_turns.py", ROOT / "wide_turns.py", ROOT / "chain_turns.py"]
 
 
 def test_the_scan_reads_the_turns_snippets():
     for name in ("march_turns.py", "gather_turns.py", "integral_turns.py", "f32_turns.py",
-                 "march_f32_turns.py", "wide_turns.py"):
+                 "march_f32_turns.py", "wide_turns.py", "chain_turns.py"):
         assert "chip_smoke" in set(_imports(ROOT / name)), name
     for name in ("integral_turns.py", "f32_turns.py", "march_f32_turns.py",
                  "wide_turns.py"):  # their _PROBE snippets
