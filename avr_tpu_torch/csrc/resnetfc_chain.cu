@@ -25,10 +25,9 @@
 // every tile reads all the weights again (28 MB at d_hidden 1,024, 105 MB at
 // 2,048 in bf16, more than L2).  Here no shared-memory wall grows with
 // d_hidden or the operand width:
-//   - each product is a tiled matrix product over all of a chunk's points
-//     (a CTA a 128 x 128 output tile), so a weight tile is read once per
-//     128 points and a product's weights (8 MB at 2,048 in bf16) stay in L2
-//     while its CTAs run;
+//   - each product is a tiled matrix product over all of a chunk's points,
+//     so a weight tile is read once per tile of points and a product's
+//     weights (8 MB at 2,048 in bf16) stay in L2 while its CTAs run;
 //   - the float32 trunk h (the dgrad's gh) lives in device memory, chunk x
 //     d_hidden floats (ops/kernels/resnetfc.py chain_workspace), and the
 //     product's epilogue adds into it: the bias, the residual add, the view
@@ -37,14 +36,25 @@
 //     to the compute dtype, straight into its stash slot (or, without the
 //     stash, into one of two chunk-sized operand buffers): the A operands of
 //     the chain are exactly the stash slots the wgrads read;
-//   - the positional encoding is lin_in's prologue: its A tiles are computed
-//     from the raw inputs as they are staged;
-//   - bf16 products run on the tensor cores, mma.sync.m16n8k16 from a
-//     3-stage cp.async ring of shared tiles of 64 k (8 warps, a warp 64 x 32
-//     of the output); float32 products run on register-tiled FMA (no TF32:
-//     8 x 8 outputs a thread, A rows and B rows from a 3-stage cp.async ring
-//     of 32 k, one FMA chain per output in k order);
+//   - the positional encoding is a pass of its own before lin_in
+//     (chain_enc_kernel, the encoded input rounded into the workspace), so
+//     lin_in is an ordinary product;
+//   - bf16 products run on wgmma from a TMA ring (chain_gemm_wgmma_kernel,
+//     below); float32 products run on register-tiled FMA (no TF32: 8 x 8
+//     outputs a thread, A rows and B rows from a 3-stage cp.async ring of
+//     32 k, one FMA chain per output in k order);
 //   - lin_out (d_out <= 8 columns) is a warp a point.
+// The bf16 products' own bytes: the epilogues move 10 bytes an output
+// element at an injection and at fc_1 (the float32 trunk read and written,
+// the bf16 next operand), 2 at fc_0, 4 at lin_in, 4 at the dgrad's fc_1 (the
+// mask read, c0 written) and 12 at its fc_0 (gh read and written, the mask
+// read, round(gh) written); at d_hidden 1,280 and the band chunk that is
+// 9.9 GB for the forward and 2.7 GB of A reads, 3.8 ms at 3.35 TB/s, beside
+// 3.46 ms of products at the bf16 peak.  A CTA's epilogue runs after its
+// tile's products; what overlaps it is the producer warp, which prefetches
+// a tile's float32 epilogue rows into L2 while the tile's last stages run
+// and fills the ring with the next tile's stages while the epilogue runs
+// (PERF.md section 6 measures the epilogues' share and the designs tried).
 // The dgrad is the same chain in reverse with the ReLU masks read from the
 // stash in the epilogues: a head (a warp a point: lin_out's cotangent g_epi
 // = g * act'(out_pre), rounded, to gout; gh = mask(relu(h_final)) * (g_epi @
@@ -67,6 +77,7 @@
 // ChainOp records, chunk by chunk, and avr_resnetfc_chain launches them in
 // order on the caller's stream.
 
+#include "hopper.cuh"
 #include "resnetfc.cuh"
 
 namespace {
@@ -107,7 +118,6 @@ enum { OP_GEMM = 0, OP_LINOUT = 1, OP_HEAD = 2, OP_ENC = 3 };
 enum { EPI_IN = 0, EPI_Z = 1, EPI_FC0 = 2, EPI_FC1 = 3, EPI_C0 = 4, EPI_GH = 5, EPI_F32 = 6,
        EPI_T = 7 };
 enum {
-  F_ENCODE = 1,      // A is the positional encoding of x, computed as it is staged
   F_USE_POOL = 2,    // gh's base is pool * scale (a view's first block)
   F_BOUNDARY = 4,    // gh goes to pool, round(gh * scale) to every view's slot
   F_POOL_FIRST = 8,  // fc_1: pool = h (the first view)
@@ -115,20 +125,26 @@ enum {
   F_POOL_LAST = 32   // fc_1: h = (pool + h) * scale (the last view)
 };
 
-// bf16 products: 128 x 128 output tiles, k stages of 64, 3 stages, 8 warps
-// (2 x 4: a warp 64 rows x 32 columns); shared rows 72 bf16 (144 bytes)
-// apart, so the 8 rows of an ldmatrix hit 8 distinct bank groups.
-constexpr int CH_BM = 128, CH_BN = 128, CH_BK = 64, CH_STAGES = 3, CH_THREADS = 256;
-constexpr int CH_LDS = CH_BK + 8;
-constexpr int CH_STAGE = (CH_BM + CH_BN) * CH_LDS;                 // bf16 a stage
-constexpr int CH_SMEM = CH_STAGES * CH_STAGE * (int)sizeof(bf16);  // 110,592 bytes
-// float32 products: the same tiles, k stages of 32, 3 stages; A rows of 36
-// floats, B rows of 132 (a thread rows ty + 16 i, columns 4 tx + j and 64 +
-// 4 tx + j)
+// bf16 products (chain_gemm_wgmma_kernel): 128 x 256 output tiles, k
+// stages of 64 in a ring of CW_STAGES, a stage an A box {64 k, 128 rows}
+// (16 KB) and a B box {64 k, 256 columns} (32 KB), both 128-byte swizzled
+// and 1024-byte aligned; two consumer warpgroups (a warpgroup 64 rows x 256
+// columns, wgmma.m64n256k16, 128 float32 accumulators a thread) and a
+// producer warp; the ring's full and empty barriers after the stages.
+constexpr int CW_BM = 128, CW_BN = 256, CW_BK = 64, CW_STAGES = 4, CW_THREADS = 384;
+constexpr int CW_A = CW_BM * CW_BK * 2;                 // 16,384 bytes
+constexpr int CW_STAGE = CW_A + CW_BN * CW_BK * 2;      // 49,152 bytes
+constexpr int CW_BAR = CW_STAGES * CW_STAGE;            // 196,608
+constexpr int CW_SMEM = CW_BAR + 2 * CW_STAGES * 8;     // 196,672 bytes
+constexpr int CW_EPI_GROUPS = 4;  // the epilogue's 8-column groups a thread loads before storing
+// float32 products: 128 x 128 output tiles, k stages of 32, 3 stages; A
+// rows of 36 floats, B rows of 132 (a thread rows ty + 16 i, columns 4 tx +
+// j and 64 + 4 tx + j)
+constexpr int CH_BM = 128, CH_BN = 128, CH_THREADS = 256;
 constexpr int CF_BK = 32, CF_STAGES = 3, CF_LDA = CF_BK + 4, CF_LDB = CH_BN + 4;
 constexpr int CF_STAGE = CH_BM * CF_LDA + CF_BK * CF_LDB;            // floats a stage
 constexpr int CF_SMEM = CF_STAGES * CF_STAGE * (int)sizeof(float);   // 105,984 bytes
-constexpr int CH_ROWS_MAX = 65535 * CH_BM;  // a chunk's points: the grid's y
+constexpr int CH_ROWS_MAX = 65535 * CH_BM;  // a chunk's points: the float32 grid's y
 
 __device__ __forceinline__ void cp16(void* smem, const void* gmem, bool on) {
   const uint32_t d = (uint32_t)__cvta_generic_to_shared(smem);
@@ -144,11 +160,11 @@ template <int N> __device__ __forceinline__ void cp_wait() {
 
 __device__ __forceinline__ float relu(float v) { return fmaxf(v, 0.f); }
 
-// Column j of the positional encoding of x's row r (0 past M, or for a zero
-// column), as every K2 kernel computes it.
+// Column j of the positional encoding of x's row r (0 for a zero column),
+// as every K2 kernel computes it.
 __device__ __forceinline__ float encode_val(const ChainOp& op, int r, int j) {
   const int mode = op.tables[j];
-  if (r >= op.M || mode == 2) return 0.f;
+  if (mode == 2) return 0.f;
   const float p = op.x[(size_t)r * op.d_in + op.tables[op.k_tab + j]];
   return mode == 0 ? p : sinf(__fadd_rn(__fmul_rn(p, op.fph[j]), op.fph[op.k_tab + j]));
 }
@@ -166,189 +182,306 @@ __device__ __forceinline__ void st2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// gh of row r, columns c, c + 1 to where the next product reads it: the
+// Where the epilogue of output row r, from column c on, reads and writes:
+// the bias, the float32 trunk (or gh), the view sums (or the pooled
+// cotangent), the next operand (or cotangent slot, or dz) and the ReLU
+// mask's stash row; columns c + j at offset j.
+template <typename T>
+struct EpiRow {
+  const float* bias;
+  float *H, *pool;
+  T* out;
+  const T* mask;
+};
+
+template <typename T>
+__device__ __forceinline__ EpiRow<T> epi_row(const ChainOp& op, int r, int c) {
+  const size_t hi = (size_t)r * op.ldh + c;
+  EpiRow<T> w;
+  w.bias = op.bias ? op.bias + c : nullptr;
+  w.H = op.H ? op.H + hi : nullptr;
+  w.pool = op.pool ? op.pool + hi : nullptr;
+  w.out = op.out ? static_cast<T*>(op.out) + (size_t)r * op.ldo + c : nullptr;
+  w.mask = op.mask ? static_cast<const T*>(op.mask) + (size_t)r * op.ldm + c : nullptr;
+  return w;
+}
+
+// gh of columns j, j + 1 of row w to where the next product reads it: the
 // trunk cotangent and its rounding (the next block's c1, or cot_in); or, at
 // the end of the pooled blocks (F_BOUNDARY), the pooled cotangent and every
 // view's first c1, round(gh / NS).
 template <typename T>
-__device__ __forceinline__ void gh_store(const ChainOp& op, int r, int c, float g0, float g1) {
-  T* out = static_cast<T*>(op.out) + (size_t)r * op.ldo + c;
+__device__ __forceinline__ void gh_store(const ChainOp& op, const EpiRow<T>& w, int j, float g0,
+                                         float g1) {
   if (op.flags & F_BOUNDARY) {
-    st2(op.pool + (size_t)r * op.ldh + c, g0, g1);
-    for (int v = 0; v < op.views; ++v) st2(out + v * op.out_view, g0 * op.scale, g1 * op.scale);
+    st2(w.pool + j, g0, g1);
+    for (int v = 0; v < op.views; ++v)
+      st2(w.out + j + v * op.out_view, g0 * op.scale, g1 * op.scale);
   } else {
-    st2(op.H + (size_t)r * op.ldh + c, g0, g1);
-    st2(out, g0, g1);
+    st2(w.H + j, g0, g1);
+    st2(w.out + j, g0, g1);
   }
 }
 
-// The epilogue of columns c, c + 1 (c even) of output row r.
-template <typename T>
-__device__ __forceinline__ void epi_pair(const ChainOp& op, int r, int c, float a0, float a1) {
-  if (r >= op.M || c >= op.Ncols) return;
-  const size_t hi = (size_t)r * op.ldh + c;
-  T* out = op.out ? static_cast<T*>(op.out) + (size_t)r * op.ldo + c : nullptr;
-  switch (op.epi) {
-    case EPI_IN: {
-      const float2 b = ld2(op.bias + c);
-      st2(op.H + hi, a0 + b.x, a1 + b.y);
+// What the epilogue of columns j, j + 1 of row w reads: the bias, the trunk
+// (or gh), the view sums (or the pooled cotangent) and the mask, each where
+// epilogue e (op.epi, or E where the caller knows it, E >= 0) reads it.
+// Loaded apart from the epilogue's stores, so that a caller can issue many
+// pairs' loads before any store.
+struct EpiIn {
+  float2 b, h, p, m;
+};
+
+template <typename T, int E = -1>
+__device__ __forceinline__ EpiIn epi_load(const ChainOp& op, const EpiRow<T>& w, int j) {
+  EpiIn in;
+  const int e = E >= 0 ? E : op.epi;
+  if (e == EPI_IN || e == EPI_Z || e == EPI_FC0 || e == EPI_FC1) in.b = ld2(w.bias + j);
+  if (e == EPI_Z || e == EPI_FC1 || (e == EPI_GH && !(op.flags & F_USE_POOL))) in.h = ld2(w.H + j);
+  if ((e == EPI_FC1 && (op.flags & (F_POOL_ADD | F_POOL_LAST))) ||
+      (e == EPI_GH && (op.flags & F_USE_POOL)))
+    in.p = ld2(w.pool + j);
+  if (e == EPI_C0 || e == EPI_GH) in.m = ld2(w.mask + j);
+  return in;
+}
+
+// The epilogue of columns j, j + 1 (even) of row w on the products' sums
+// a0, a1 and what epi_load read for them.
+template <typename T, int E = -1>
+__device__ __forceinline__ void epi_store(const ChainOp& op, const EpiRow<T>& w, int j, float a0,
+                                          float a1, const EpiIn& in) {
+  const float2 b = in.b, h = in.h, p = in.p, m = in.m;
+  switch (E >= 0 ? E : op.epi) {
+    case EPI_IN:
+      st2(w.H + j, a0 + b.x, a1 + b.y);
       break;
-    }
     case EPI_Z: {
-      const float2 b = ld2(op.bias + c), h = ld2(op.H + hi);
       const float h0 = (h.x + a0) + b.x, h1 = (h.y + a1) + b.y;
-      st2(op.H + hi, h0, h1);
-      st2(out, relu(h0), relu(h1));
+      st2(w.H + j, h0, h1);
+      st2(w.out + j, relu(h0), relu(h1));
       break;
     }
-    case EPI_FC0: {
-      const float2 b = ld2(op.bias + c);
-      st2(out, relu(a0 + b.x), relu(a1 + b.y));
+    case EPI_FC0:
+      st2(w.out + j, relu(a0 + b.x), relu(a1 + b.y));
       break;
-    }
     case EPI_FC1: {
-      const float2 b = ld2(op.bias + c), h = ld2(op.H + hi);
       float h0 = (h.x + a0) + b.x, h1 = (h.y + a1) + b.y;
       if (op.flags & F_POOL_FIRST) {
-        st2(op.pool + hi, h0, h1);
+        st2(w.pool + j, h0, h1);
       } else if (op.flags & F_POOL_ADD) {
-        const float2 p = ld2(op.pool + hi);
-        st2(op.pool + hi, p.x + h0, p.y + h1);
+        st2(w.pool + j, p.x + h0, p.y + h1);
       } else {
         if (op.flags & F_POOL_LAST) {
-          const float2 p = ld2(op.pool + hi);
           h0 = (p.x + h0) * op.scale;
           h1 = (p.y + h1) * op.scale;
         }
-        st2(op.H + hi, h0, h1);
+        st2(w.H + j, h0, h1);
       }
-      if (out) st2(out, relu(h0), relu(h1));
+      if (w.out) st2(w.out + j, relu(h0), relu(h1));
       break;
     }
-    case EPI_C0: {
-      const float2 m = ld2(static_cast<const T*>(op.mask) + (size_t)r * op.ldm + c);
-      st2(out, m.x > 0.f ? a0 : 0.f, m.y > 0.f ? a1 : 0.f);
+    case EPI_C0:
+      st2(w.out + j, m.x > 0.f ? a0 : 0.f, m.y > 0.f ? a1 : 0.f);
       break;
-    }
     case EPI_GH: {
-      float2 base;
-      if (op.flags & F_USE_POOL) {
-        const float2 p = ld2(op.pool + hi);
-        base = make_float2(__fmul_rn(p.x, op.scale), __fmul_rn(p.y, op.scale));
-      } else {
-        base = ld2(op.H + hi);
-      }
-      const float2 m = ld2(static_cast<const T*>(op.mask) + (size_t)r * op.ldm + c);
-      gh_store<T>(op, r, c, m.x > 0.f ? __fadd_rn(base.x, a0) : base.x,
+      const float2 base = (op.flags & F_USE_POOL)
+                              ? make_float2(__fmul_rn(p.x, op.scale), __fmul_rn(p.y, op.scale))
+                              : h;
+      gh_store<T>(op, w, j, m.x > 0.f ? __fadd_rn(base.x, a0) : base.x,
                   m.y > 0.f ? __fadd_rn(base.y, a1) : base.y);
       break;
     }
     case EPI_F32:
-      st2(op.H + hi, a0, a1);
+      st2(w.H + j, a0, a1);
       break;
     default:  // EPI_T
-      st2(out, a0, a1);
+      st2(w.out + j, a0, a1);
   }
 }
 
-// A stage's A rows from segment seg: the encoding of x, or rows of T.
+// A stage's A rows from segment seg.
 template <typename T>
 __device__ __forceinline__ const T* seg_a(const ChainOp& op, int seg) {
   return seg == 0 ? static_cast<const T*>(op.A)
                   : static_cast<const T*>(op.A1) + (size_t)(seg - 1) * op.a_seg;
 }
 
-// acc = A B over the segments for the 128 x 128 tile (blockIdx.y, blockIdx.x),
-// then the epilogue.  bf16: mma.sync.m16n8k16 from a 4-stage cp.async ring.
-__global__ void __launch_bounds__(CH_THREADS, 2)
-chain_gemm_bf16_kernel(const __grid_constant__ ChainOp op) {
-  extern __shared__ __align__(128) unsigned char chain_smem[];
-  bf16* sm = reinterpret_cast<bf16*>(chain_smem);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 1, wn = warp >> 1;
-  const int n0 = blockIdx.x * CH_BN, m0 = blockIdx.y * CH_BM;
-  const int KT = op.nseg * op.K / CH_BK;
+// The bf16 products' operands as TMA tensor maps, encoded on the host from
+// the record: A segment 0 (K x M, lda apart), segments 1.. (K x M x nseg -
+// 1, a_seg apart), the weights' segments (K x Ncols x nseg, b_seg apart).
+// Rows past M or Ncols read as zero.
+struct __align__(64) ChainMaps {
+  CUtensorMap a, a1, b;
+};
 
-  auto load = [&](int kt, int s) {
-    const int kg = kt * CH_BK, seg = kg / op.K, kk = kg - seg * op.K;
-    bf16* a = sm + s * CH_STAGE;
-    bf16* b = a + CH_BM * CH_LDS;
-    if (op.flags & F_ENCODE) {
-      for (int i = tid; i < CH_BM * CH_BK; i += CH_THREADS) {
-        const int r = i / CH_BK, k = i - r * CH_BK;
-        a[r * CH_LDS + k] = __float2bfloat16_rn(encode_val(op, m0 + r, kk + k));
-      }
-    } else {
-      const bf16* A = seg_a<bf16>(op, seg);
-      for (int i = tid; i < CH_BM * (CH_BK / 8); i += CH_THREADS) {
-        const int r = i / (CH_BK / 8), kc = i % (CH_BK / 8) * 8;
-        const bool on = m0 + r < op.M;
-        cp16(a + r * CH_LDS + kc, on ? A + (size_t)(m0 + r) * op.lda + kk + kc : A, on);
-      }
-    }
-    const bf16* B = static_cast<const bf16*>(op.B) + (size_t)seg * op.b_seg;
-    for (int i = tid; i < CH_BN * (CH_BK / 8); i += CH_THREADS) {
-      const int n = i / (CH_BK / 8), kc = i % (CH_BK / 8) * 8;
-      const bool on = n0 + n < op.Ncols;
-      cp16(b + n * CH_LDS + kc, on ? B + (size_t)(n0 + n) * op.ldb + kk + kc : B, on);
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < CH_STAGES - 1; ++s) {
-    if (s < KT) load(s, s);
-    cp_commit();
+// L2 prefetches of the float32 rows the epilogue of the tile at (m0, n0)
+// will read, the trunk (or gh) or the view sums, a lane every 32 rows (the
+// masks' rows as well measured slower, PERF.md section 6).
+__device__ __forceinline__ void epi_prefetch(const ChainOp& op, int m0, int n0, int lane) {
+  const int e = op.epi;
+  const bool pool = (e == EPI_FC1 && (op.flags & (F_POOL_ADD | F_POOL_LAST))) ||
+                    (e == EPI_GH && (op.flags & F_USE_POOL));
+  const bool h = e == EPI_Z || e == EPI_FC1 || (e == EPI_GH && !(op.flags & F_USE_POOL));
+  if (!pool && !h) return;
+  const int cols = min(CW_BN, op.Ncols - n0), rows = min(CW_BM, op.M - m0);
+  for (int i = lane; i < rows; i += 32) {
+    const size_t hi = (size_t)(m0 + i) * op.ldh + n0;
+    if (h && !((uintptr_t)(op.H + hi) & 15)) bulk_prefetch_l2(op.H + hi, cols * 4);
+    if (pool && !((uintptr_t)(op.pool + hi) & 15)) bulk_prefetch_l2(op.pool + hi, cols * 4);
   }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_wait<CH_STAGES - 2>();
-    __syncthreads();  // stage kt landed; every warp is done with stage kt - 1
-    if (kt + CH_STAGES - 1 < KT) load(kt + CH_STAGES - 1, (kt + CH_STAGES - 1) % CH_STAGES);
-    cp_commit();
-    const bf16* a = sm + (kt % CH_STAGES) * CH_STAGE;
-    const bf16* b = a + CH_BM * CH_LDS;
+}
+
+// A consumer warpgroup's 64 x 256 accumulator fragment through epilogue E
+// (t the thread in the warpgroup, r0 and n0 the fragment's first row and
+// column): a thread's registers 4q .. 4q + 3 are columns 8q, 8q + 1 of two
+// rows 8 apart, addressed from two row bases.  In groups of CW_EPI_GROUPS
+// such 8-column groups, each group's loads issued before its stores (a
+// load after a store waits for it: the compiler cannot tell the trunk's
+// rows apart), so a group costs one round trip to L2.
+template <int E>
+__device__ __forceinline__ void epi_tile(const ChainOp& op, const float* acc, int r0, int n0,
+                                         int t) {
+  const int ra = r0 + acc_row(t, 0), cb = n0 + acc_col(t, 0);
+  const EpiRow<bf16> w0 = epi_row<bf16>(op, ra, cb), w1 = epi_row<bf16>(op, ra + 8, cb);
+  const bool on0 = ra < op.M, on1 = ra + 8 < op.M;
+  const int nq = min(CW_BN / 8, (op.Ncols - n0) >> 3);  // 8-column groups in range
+  constexpr int Q = CW_EPI_GROUPS;
 #pragma unroll
-    for (int k16 = 0; k16 < CH_BK; k16 += 16) {
-      uint32_t af[4][4], bf[4][2];
+  for (int q0 = 0; q0 < CW_BN / 8; q0 += Q) {
+    EpiIn in[2 * Q];
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        ldsm_x4(af[mt], a + (wm * 64 + mt * 16 + (lane & 15)) * CH_LDS + k16 + (lane >> 4) * 8,
-                false);
+    for (int q = 0; q < Q; ++q) {
+      if (q0 + q < nq && on0) in[2 * q] = epi_load<bf16, E>(op, w0, 8 * (q0 + q));
+      if (q0 + q < nq && on1) in[2 * q + 1] = epi_load<bf16, E>(op, w1, 8 * (q0 + q));
+    }
 #pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t t[4];
-        const int q = lane >> 3;
-        ldsm_x4(t, b + (wn * 32 + np * 16 + (q >> 1) * 8 + (lane & 7)) * CH_LDS + k16 +
-                       (q & 1) * 8, false);
-        bf[2 * np][0] = t[0];
-        bf[2 * np][1] = t[1];
-        bf[2 * np + 1][0] = t[2];
-        bf[2 * np + 1][1] = t[3];
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_m16n8k16(acc[mt][nt], af[mt], bf[nt][0], bf[nt][1]);
+    for (int q = 0; q < Q; ++q) {
+      const int i = 4 * (q0 + q);
+      if (q0 + q < nq && on0)
+        epi_store<bf16, E>(op, w0, 8 * (q0 + q), acc[i], acc[i + 1], in[2 * q]);
+      if (q0 + q < nq && on1)
+        epi_store<bf16, E>(op, w1, 8 * (q0 + q), acc[i + 2], acc[i + 3], in[2 * q + 1]);
     }
   }
-  cp_wait<0>();
+}
 
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int r = m0 + wm * 64 + mt * 16 + g, c = n0 + wn * 32 + nt * 8 + 2 * t;
-      epi_pair<bf16>(op, r, c, acc[mt][nt][0], acc[mt][nt][1]);
-      epi_pair<bf16>(op, r + 8, c, acc[mt][nt][2], acc[mt][nt][3]);
+// acc = A B over the segments, then the epilogue, for every 128 x 256 tile,
+// bf16.  A persistent grid of one CTA an SM walks the tiles in order (tile
+// = M block x the N tiles + N tile, a CTA every gridDim.x-th), so the CTAs
+// running at once share their A blocks through L2.  Warpgroup 2's first
+// warp is the producer: its lane 0 keeps CW_STAGES stages of TMA loads in
+// flight across tile boundaries (the k stages run over the segments in
+// order: k stage kt is segment kt * 64 / K), and at a tile's last stage the
+// warp prefetches the tile's float32 epilogue rows into L2.  Warpgroups 0
+// and 1 each take 64 rows of the tile: four wgmma.m64n256k16 a stage, one
+// wgmma group in flight (a stage is released when the next one's products
+// are issued and its own have completed), then the epilogue from the
+// accumulators straight to device memory while the producer fills the ring
+// with the next tile's stages.  Every output has one writer and one order of additions
+// (the stages in k order, fixed by the tile), with no float atomics.
+__global__ void __launch_bounds__(CW_THREADS, 1)
+chain_gemm_wgmma_kernel(const __grid_constant__ ChainOp op,
+                        const __grid_constant__ ChainMaps maps) {
+  extern __shared__ __align__(1024) unsigned char cw_smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(cw_smem + CW_BAR);
+  uint64_t* empty = full + CW_STAGES;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int n_tiles = (op.Ncols + CW_BN - 1) / CW_BN;
+  const int tiles = n_tiles * ((op.M + CW_BM - 1) / CW_BM);
+  const int KT = op.nseg * op.K / CW_BK;
+  if (tid == 0) {
+    if (smem_u32(cw_smem) & 1023) __trap();
+    for (int s = 0; s < CW_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
     }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    setmaxnreg_dec<40>();
+    if (tid >= 288) return;
+    const int lane = tid & 31;
+    uint32_t g = 0;  // stages issued
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = tile / n_tiles * CW_BM, n0 = tile % n_tiles * CW_BN;
+      for (int kt = 0; kt < KT; ++kt, ++g) {
+        if (lane == 0) {
+          const int st = g % CW_STAGES;
+          if (g >= CW_STAGES) mbar_wait(&empty[st], (g / CW_STAGES - 1) & 1);
+          const int kg = kt * CW_BK, seg = kg / op.K, kk = kg - seg * op.K;
+          unsigned char* buf = cw_smem + st * CW_STAGE;
+          mbar_expect_tx(&full[st], CW_STAGE);
+          if (seg == 0)
+            tma_load_2d(buf, &maps.a, &full[st], kk, m0);
+          else
+            tma_load_3d(buf, &maps.a1, &full[st], kk, m0, seg - 1);
+          tma_load_3d(buf + CW_A, &maps.b, &full[st], kk, n0, seg);
+        }
+        __syncwarp();
+        if (kt == KT - 1) epi_prefetch(op, m0, n0, lane);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  const int t = tid & 127;
+  uint32_t g = 0;  // stages consumed
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = tile / n_tiles * CW_BM, n0 = tile % n_tiles * CW_BN;
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < KT; ++kt, ++g) {
+      const int st = g % CW_STAGES;
+      mbar_wait(&full[st], (g / CW_STAGES) & 1);
+      const unsigned char* buf = cw_smem + st * CW_STAGE;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < CW_BK / 16; ++kk)
+        wgmma_m64n256k16<0, 0>(acc, gmma_desc(buf + wg * (CW_A / 2) + kk * 32, 16, 1024),
+                               gmma_desc(buf + CW_A + kk * 32, 16, 1024), 1);
+      wgmma_commit();
+      if (kt > 0) {
+        wgmma_wait<1>();
+        mbar_arrive(&empty[(g - 1) % CW_STAGES]);
+      }
+    }
+    wgmma_wait<0>();
+    mbar_arrive(&empty[(g - 1) % CW_STAGES]);
+    const int r0 = m0 + wg * 64;
+    switch (op.epi) {
+      case EPI_IN: epi_tile<EPI_IN>(op, acc, r0, n0, t); break;
+      case EPI_Z: epi_tile<EPI_Z>(op, acc, r0, n0, t); break;
+      case EPI_FC0: epi_tile<EPI_FC0>(op, acc, r0, n0, t); break;
+      case EPI_FC1: epi_tile<EPI_FC1>(op, acc, r0, n0, t); break;
+      case EPI_C0: epi_tile<EPI_C0>(op, acc, r0, n0, t); break;
+      case EPI_GH: epi_tile<EPI_GH>(op, acc, r0, n0, t); break;
+      case EPI_F32: epi_tile<EPI_F32>(op, acc, r0, n0, t); break;
+      default: epi_tile<EPI_T>(op, acc, r0, n0, t);
+    }
+  }
+}
+
+// The bf16 products' tensor maps of a record: 0 or a cudaError_t.
+int chain_maps(const ChainOp& op, ChainMaps* m) {
+  const uint32_t box_a[3] = {CW_BK, CW_BM, 1}, box_b[3] = {CW_BK, CW_BN, 1};
+  const uint64_t K = (uint64_t)op.K, M = (uint64_t)op.M, lda = 2 * (uint64_t)op.lda,
+                 ldb = 2 * (uint64_t)op.ldb;
+  const uint64_t dims_a[2] = {K, M}, str_a[1] = {lda};
+  int e = make_tensor_map(&m->a, op.A, 2, dims_a, str_a, box_a);
+  if (!e && op.nseg > 1) {
+    const uint64_t dims[3] = {K, M, (uint64_t)op.nseg - 1}, str[2] = {lda, 2 * (uint64_t)op.a_seg};
+    e = make_tensor_map(&m->a1, op.A1, 3, dims, str, box_a);
+  }
+  if (!e) {
+    const uint64_t seg = op.nseg > 1 ? 2 * (uint64_t)op.b_seg : ldb * (uint64_t)op.Ncols;
+    const uint64_t dims[3] = {K, (uint64_t)op.Ncols, (uint64_t)op.nseg}, str[2] = {ldb, seg};
+    e = make_tensor_map(&m->b, op.B, 3, dims, str, box_b);
+  }
+  return e;
 }
 
 // The same in float32: register-tiled FMA, a thread rows ty + 16 i (i < 8)
@@ -366,18 +499,11 @@ chain_gemm_f32_kernel(const __grid_constant__ ChainOp op) {
     const int kg = kt * CF_BK, seg = kg / op.K, kk = kg - seg * op.K;
     float* a = sm + s * CF_STAGE;
     float* b = a + CH_BM * CF_LDA;
-    if (op.flags & F_ENCODE) {
-      for (int i = tid; i < CH_BM * CF_BK; i += CH_THREADS) {
-        const int r = i / CF_BK, k = i - r * CF_BK;
-        a[r * CF_LDA + k] = encode_val(op, m0 + r, kk + k);
-      }
-    } else {
-      const float* A = seg_a<float>(op, seg);
-      for (int i = tid; i < CH_BM * (CF_BK / 4); i += CH_THREADS) {
-        const int r = i / (CF_BK / 4), kc = i % (CF_BK / 4) * 4;
-        const bool on = m0 + r < op.M;
-        cp16(a + r * CF_LDA + kc, on ? A + (size_t)(m0 + r) * op.lda + kk + kc : A, on);
-      }
+    const float* A = seg_a<float>(op, seg);
+    for (int i = tid; i < CH_BM * (CF_BK / 4); i += CH_THREADS) {
+      const int r = i / (CF_BK / 4), kc = i % (CF_BK / 4) * 4;
+      const bool on = m0 + r < op.M;
+      cp16(a + r * CF_LDA + kc, on ? A + (size_t)(m0 + r) * op.lda + kk + kc : A, on);
     }
     const float* B = static_cast<const float*>(op.B) + (size_t)seg * op.b_seg;
     for (int i = tid; i < CF_BK * (CH_BN / 4); i += CH_THREADS) {
@@ -431,8 +557,12 @@ chain_gemm_f32_kernel(const __grid_constant__ ChainOp op) {
   for (int i = 0; i < 8; ++i) {
     const int r = m0 + ty + 16 * i;
 #pragma unroll
-    for (int j = 0; j < 8; j += 2)
-      epi_pair<float>(op, r, n0 + (j < 4 ? 0 : 64) + 4 * tx + (j & 3), acc[i][j], acc[i][j + 1]);
+    for (int j = 0; j < 8; j += 2) {
+      const int c = n0 + (j < 4 ? 0 : 64) + 4 * tx + (j & 3);
+      if (r >= op.M || c >= op.Ncols) continue;
+      const EpiRow<float> w = epi_row<float>(op, r, c);
+      epi_store<float>(op, w, 0, acc[i][j], acc[i][j + 1], epi_load<float>(op, w, 0));
+    }
   }
 }
 
@@ -495,6 +625,7 @@ __global__ void __launch_bounds__(256) chain_head_kernel(const __grid_constant__
     ge[o] = gv;
     if (lane == o) static_cast<T*>(op.gout)[(size_t)r * GOUT_W + o] = from_f<T>(gv);
   }
+  const EpiRow<T> w = epi_row<T>(op, r, 0);
   for (int c = 2 * lane; c < dh; c += 64) {
     float s0 = 0.f, s1 = 0.f;
 #pragma unroll
@@ -505,18 +636,20 @@ __global__ void __launch_bounds__(256) chain_head_kernel(const __grid_constant__
       s1 = fmaf(ge[o], w.y, s1);
     }
     const float2 m = ld2(aout + c);
-    gh_store<T>(op, r, c, m.x > 0.f ? s0 : 0.f, m.y > 0.f ? s1 : 0.f);
+    gh_store<T>(op, w, c, m.x > 0.f ? s0 : 0.f, m.y > 0.f ? s1 : 0.f);
   }
 }
 
-// The encoding's backward and the encoded input: dx (a thread a raw lane)
-// sums lin_in's input cotangent (H, k_tab floats a row) over the encoded
-// columns of that lane in column order, a sin column through its cos; enc
-// (a thread a column) is the rounded encoding, lin_in's wgrad operand.
+// The encoded input and, in the dgrad, the encoding's backward: enc (a
+// thread a column) is the rounded encoding, lin_in's A operand in the
+// forward and its wgrad operand in the dgrad; dx (where the record has
+// one; a thread a raw lane) sums lin_in's input cotangent (H, k_tab floats
+// a row) over the encoded columns of that lane in column order, a sin
+// column through its cos.
 template <typename T>
-__global__ void __launch_bounds__(256) chain_enc_bwd_kernel(const __grid_constant__ ChainOp op) {
+__global__ void __launch_bounds__(256) chain_enc_kernel(const __grid_constant__ ChainOp op) {
   const int kt = op.k_tab;
-  const long long ndx = (long long)op.M * op.d_in, total = ndx + (long long)op.M * kt;
+  const long long ndx = op.dx ? (long long)op.M * op.d_in : 0, total = ndx + (long long)op.M * kt;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
        i += (long long)gridDim.x * blockDim.x) {
     if (i < ndx) {
@@ -551,17 +684,26 @@ int launch_op(const ChainOp& op, cudaStream_t s) {
       if (op.K < 1 || op.K % 64 || op.Ncols < 1 || op.Ncols % 64 || op.nseg < 1 || op.lda % 8 ||
           op.ldb % 8 || op.ldh % 2 || op.ldo % 2 || op.ldm % 2 || (al & 15))
         return (int)cudaErrorInvalidValue;
-      const dim3 grid((unsigned)((op.Ncols + CH_BN - 1) / CH_BN),
-                      (unsigned)((op.M + CH_BM - 1) / CH_BM));
       if constexpr (BF) {
+        // the tensor maps' strides: multiples of 16 bytes
+        if (op.nseg > 1 && (op.a_seg % 8 || op.b_seg % 8)) return (int)cudaErrorInvalidValue;
         static bool set = false;  // the dynamic shared memory above 48 KB, once
         if (!set) {
           const cudaError_t e = cudaFuncSetAttribute(
-              chain_gemm_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, CH_SMEM);
+              chain_gemm_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, CW_SMEM);
           if (e != cudaSuccess) return (int)e;
           set = true;
         }
-        chain_gemm_bf16_kernel<<<grid, CH_THREADS, CH_SMEM, s>>>(op);
+        ChainMaps maps;
+        int e = chain_maps(op, &maps), dev = 0, sms = 0;
+        if (e) return e;
+        cudaError_t c;  // the persistent grid: a CTA an SM, at most a tile each
+        if ((c = cudaGetDevice(&dev)) != cudaSuccess ||
+            (c = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+          return (int)c;
+        const int tiles = ((op.Ncols + CW_BN - 1) / CW_BN) * ((op.M + CW_BM - 1) / CW_BM);
+        const int grid = tiles < sms ? tiles : sms;
+        chain_gemm_wgmma_kernel<<<grid, CW_THREADS, CW_SMEM, s>>>(op, maps);
       } else {
         static bool set = false;
         if (!set) {
@@ -570,6 +712,8 @@ int launch_op(const ChainOp& op, cudaStream_t s) {
           if (e != cudaSuccess) return (int)e;
           set = true;
         }
+        const dim3 grid((unsigned)((op.Ncols + CH_BN - 1) / CH_BN),
+                        (unsigned)((op.M + CH_BM - 1) / CH_BM));
         chain_gemm_f32_kernel<<<grid, CH_THREADS, CF_SMEM, s>>>(op);
       }
       break;
@@ -583,9 +727,9 @@ int launch_op(const ChainOp& op, cudaStream_t s) {
       chain_head_kernel<T><<<warp_blocks, 256, 0, s>>>(op);
       break;
     case OP_ENC: {
-      const long long total = (long long)op.M * (op.d_in + op.k_tab);
+      const long long total = (long long)op.M * ((op.dx ? op.d_in : 0) + op.k_tab);
       const long long want = (total + 255) / 256;
-      chain_enc_bwd_kernel<T><<<(unsigned)(want < 4096 ? want : 4096), 256, 0, s>>>(op);
+      chain_enc_kernel<T><<<(unsigned)(want < 4096 ? want : 4096), 256, 0, s>>>(op);
       break;
     }
     default:

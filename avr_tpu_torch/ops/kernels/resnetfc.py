@@ -89,8 +89,9 @@ memory, the weights read from L2.  Past 1,024 and past that shared memory
 either dtype, narrower trunks with latents too wide for the tile) the
 forward and the dgrad are ``csrc/resnetfc_chain.cu``'s chain: each product one
 launch over a chunk of up to ``CHAIN_CHUNK`` points (:func:`chain_plan`),
-a tiled product whose epilogue adds into the float32 trunk in device
-memory and writes the next product's operand into its stash slot.  The
+a tiled product (bf16 on ``wgmma`` from a TMA ring, a persistent CTA an SM)
+whose epilogue adds into the float32 trunk in device memory and writes the
+next product's operand into its stash slot.  The
 wgrads above take their jobs at any width.  A latent of any width is
 zero-padded to a multiple of 64 lanes (:func:`pad_latent`), as lin_in's
 input is, and its gradient sliced back.
@@ -595,8 +596,10 @@ def chain_workspace(N: int, ns: int, d_hidden: int, k_in: int, compute_dtype: to
     """Byte offsets of the chain's workspace for calls of up to ``N``
     points (its chunks at most ``CHAIN_CHUNK``): ``H`` (the trunk, or gh),
     ``pool`` (NS > 1: the view sums, or the pooled cotangent), the forward's
-    ``act`` buffers without the stash (relu(h) and relu(fc_0), rounded), the
-    dgrad's ``denc`` (lin_in's input cotangent, float32), and ``bytes``."""
+    ``encoded`` input (a view's encoding, rounded: lin_in's A operand) and
+    without the stash its ``act`` buffers (relu(h) and relu(fc_0), rounded),
+    the dgrad's ``denc`` (lin_in's input cotangent, float32), and
+    ``bytes``."""
     c = min(N, CHAIN_CHUNK)
     item = torch.empty((), dtype=compute_dtype).element_size()
     f32 = 4 * c * d_hidden
@@ -605,9 +608,12 @@ def chain_workspace(N: int, ns: int, d_hidden: int, k_in: int, compute_dtype: to
     if backward:
         off["denc"] = at
         at += 4 * c * k_in
-    elif not stash:
-        off["act"] = (at, at + item * c * d_hidden)
-        at += 2 * item * c * d_hidden
+    else:
+        off["encoded"] = at
+        at += item * c * k_in
+        if not stash:
+            off["act"] = (at, at + item * c * d_hidden)
+            at += 2 * item * c * d_hidden
     off["bytes"] = at
     return off
 
@@ -616,12 +622,13 @@ class ChainStep(NamedTuple):
     """One record of the chain, symbolic (bound to pointers chunk by chunk
     by :func:`_chain_records`).  ``kind``: ``"gemm"`` (a product), ``"linout"``
     (lin_out, a warp a point), ``"head"`` (the dgrad's lin_out backward),
-    ``"enc"`` (the encoding's backward and the encoded input).  Operands:
-    ``("x", v)`` view v's raw inputs (encoded as lin_in's A tiles are
-    staged), ``("z", v)`` its latents, ``("stash", slot)``, ``("cot",
-    slot)``, ``("act", i)`` (the forward's operand buffers without the
-    stash), ``("dz", v)``, ``("denc",)``; weights ``("wi",)``, ``("wz",
-    k)``, ``("w0", k)``, ``("w1", k)`` (a product's bias is its weight's)."""
+    ``"enc"`` (view ``view``'s encoded input, rounded: in the forward into
+    ``("encoded",)``, in the dgrad beside the encoding's backward).
+    Operands: ``("encoded",)`` the forward's encoded input, ``("z", v)``
+    view v's latents, ``("stash", slot)``, ``("cot", slot)``, ``("act", i)``
+    (the forward's operand buffers without the stash), ``("dz", v)``,
+    ``("denc",)``; weights ``("wi",)``, ``("wz", k)``, ``("w0", k)``,
+    ``("w1", k)`` (a product's bias is its weight's)."""
 
     kind: str
     epi: str = ""                 # a product's epilogue: CHAIN_EPI's keys
@@ -640,14 +647,15 @@ class ChainStep(NamedTuple):
 
 CHAIN_KINDS = {"gemm": 0, "linout": 1, "head": 2, "enc": 3}
 CHAIN_EPI = {"in": 0, "z": 1, "fc0": 2, "fc1": 3, "c0": 4, "gh": 5, "f32": 6, "t": 7}
-CHAIN_FLAGS = {"encode": 1, "use": 2, "boundary": 4, "first": 8, "add": 16, "last": 32}
+CHAIN_FLAGS = {"use": 2, "boundary": 4, "first": 8, "add": 16, "last": 32}
 
 
 def chain_plan(ns: int, n_blocks: int, n_lin_z: int, backward: bool = False,
                stash: bool = True) -> list:
     """The chain's records for one chunk, in launch order.
 
-    Forward: per view lin_in (h = acc + b, the encoding its prologue), then
+    Forward: per view the encoding pass (the rounded encoded input into the
+    workspace) and lin_in (h = acc + b), then
     per injection k its product (h = (h + acc) + b, relu(h) out as block k's
     fc_0 input), fc_0 (relu(acc + b) out as fc_1's input) and fc_1 (h = (h
     + acc) + b; the combine layer's last block sums the views into the pool,
@@ -706,7 +714,8 @@ def chain_plan(ns: int, n_blocks: int, n_lin_z: int, backward: bool = False,
     nxt = lambda k: S(k, 0, 0) if k < nb else last  # relu(h) entering block k (or lin_out)
     steps = []
     for v in range(ns):
-        steps.append(ChainStep("gemm", "in", ("x", v), ("wi",), "k_in", "d_hidden"))
+        steps += [ChainStep("enc", view=v, out=("encoded",)),
+                  ChainStep("gemm", "in", ("encoded",), ("wi",), "k_in", "d_hidden")]
         for k in range(nlz):
             pool = ("" if ns == 1 or k < nlz - 1 else
                     "first" if v == 0 else "last" if v == ns - 1 else "add")
@@ -767,8 +776,8 @@ def _chain_records(steps, t, d, s, n, work, cd, backward):
             return rows("z", ref[1], d["d_latent"], item)
         if kind == "dz":
             return rows("dz", ref[1], d["d_latent"], item)
-        if kind == "denc":
-            return base + off["denc"]
+        if kind in ("denc", "encoded"):
+            return base + off[kind]
         raise ValueError(ref)
 
     def weight(ref):
@@ -794,6 +803,8 @@ def _chain_records(steps, t, d, s, n, work, cd, backward):
                 r.g = t["g"].data_ptr() + s * d["d_out"] * 4
                 r.gout = t["gout"].data_ptr() + s * GOUT_W * item
                 r.out = operand(st.out)
+        elif st.kind == "enc" and not backward:
+            r.enc = operand(st.out)
         elif st.kind == "enc":
             r.H, r.ldh = base + off["denc"], d["k_in"]
             r.dx = rows("dx", st.view, d["d_in"], 4)
@@ -803,11 +814,7 @@ def _chain_records(steps, t, d, s, n, work, cd, backward):
             r.epi, r.K, r.Ncols, r.nseg, r.lda = CHAIN_EPI[st.epi], K, cols, st.nseg, K
             r.ldb = K if cd == torch.bfloat16 else cols
             r.B, r.b_seg = weight(st.w)
-            if st.a[0] == "x":
-                r.flags |= CHAIN_FLAGS["encode"]
-                r.x = t["x"].data_ptr() + (st.a[1] * N + s) * d["d_in"] * 4
-            else:
-                r.A = operand(st.a)
+            r.A = operand(st.a)
             if st.a1 is not None:
                 r.A1, r.a_seg = operand(st.a1), st.a_seg * N * dh
             if not backward:

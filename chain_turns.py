@@ -11,7 +11,8 @@ points, NS 1, a latent of 1,152, 64 encoded lanes): the forward (no stash,
 as served) and the dgrad on the stash forward's activations, bf16 at
 d_hidden 1,280 and 2,048 and float32 at 1,920, by CUDA events, each
 forward held to the plain version first (its error relative to the largest
-output).  Trees compare only within one call.  Prints the card's name and
+output; a digest of its bits beside: equal digests, equal bits).  Trees
+compare only within one call.  Prints the card's name and
 power limit, then one JSON object a reading.
 
     python3 chain_turns.py --bins CHECKOUT [CHECKOUT ...]
@@ -20,6 +21,16 @@ times instead K1's and K5's binned backward (``chip_smoke.check_gather_bwd``
 and ``check_gather_proj_bwd``: 4 x 81,920 points of a 64 x 64 x 512 bf16
 map, their checks run first): call ms and device ms by kernel, the bins'
 sort among them.
+
+    python3 chain_turns.py --records CHECKOUT [CHECKOUT ...]
+
+times instead one chain call record by record (CUDA events around each
+record's launch, in ``chain_plan``'s order), the bf16 forward (no stash) and
+dgrad at d_hidden 1,280 and 2,048 at the band chunk, grouped by kind and
+epilogue (``gemm/in``, ``gemm/z``, ``gemm/fc0``, ``gemm/fc1``, ``gemm/c0``,
+``gemm/gh``, ``gemm/f32``, ``gemm/dz``, ``head``, ``linout``, ``enc``): ms a
+call, records, the products' TFLOP/s and the epilogue's bytes a call by
+group, beside the whole call's ms without the events between records.
 """
 
 from __future__ import annotations
@@ -29,7 +40,7 @@ import sys
 from march_turns import main, run
 
 _TURN = """
-import json, sys
+import hashlib, json, sys
 sys.path.insert(0, ".")
 import torch
 import chip_smoke as cs
@@ -52,7 +63,8 @@ for cd, dh in ((torch.bfloat16, 1280), (torch.bfloat16, 2048), (torch.float32, 1
     st = K2._forward(a, d, cd, True)[1]
     gs, wd, _ = K2._bwd_operands(a, d, g, K2.NAME_DGRAD)
     b = cs.time_ms(lambda: K2._dgrad(a, d, st, gs, wd, cd), iters=it, warmup=1)
-    res[f"{str(cd)[6:]} {dh}"] = dict(fwd_ms=f, dgrad_ms=b, rel_err=err)
+    digest = hashlib.sha256(o.float().cpu().numpy().tobytes()).hexdigest()[:16]
+    res[f"{str(cd)[6:]} {dh}"] = dict(fwd_ms=f, dgrad_ms=b, rel_err=err, fwd_digest=digest)
     del a, st, gs, wd, x, z, g, want
     torch.cuda.empty_cache()
 print(json.dumps(res), flush=True)
@@ -73,7 +85,97 @@ for name, check in (("K1", cs.check_gather_bwd), ("K5", cs.check_gather_proj_bwd
 print(json.dumps(res), flush=True)
 """
 
+# one chain call launched record by record (the library's entry point
+# wrapped), CUDA events around each record
+_RECORDS = """
+import collections, ctypes, json, sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from avr_tpu_torch.ops.kernels import _build, resnetfc as K2
+torch.backends.cuda.matmul.allow_tf32 = False
+_build.load_library()
+real_fn = _build.kernel_fn
+real = real_fn("avr_resnetfc_chain", [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+EPI = {v: k for k, v in K2.CHAIN_EPI.items()}
+KIND = {v: k for k, v in K2.CHAIN_KINDS.items()}
+# epilogue bytes an output element (bf16): reads and writes of H, pool, the
+# operand written, the mask read
+EPI_BYTES = {"in": 4, "z": 10, "fc0": 2, "fc1": 10, "c0": 4, "gh": 12, "f32": 4, "t": 2, "dz": 2}
+SIZE = ctypes.sizeof(K2.ChainOp)
+timed = []
+
+
+def label(r):
+    if KIND[r.kind] != "gemm":
+        return KIND[r.kind]
+    e = EPI[r.epi]
+    return "gemm/" + ("dz" if e == "t" and r.nseg > 1 else e)
+
+
+def by_record(ops, n, dtype, stream):
+    base = ops.value
+    for i in range(n):
+        r = K2.ChainOp.from_address(base + i * SIZE)
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        err = real(ctypes.c_void_p(base + i * SIZE), 1, dtype, stream)
+        ev[1].record()
+        if err:
+            return err
+        lb = label(r)
+        flop = 2.0 * r.M * r.Ncols * r.K * r.nseg if lb.startswith("gemm") else 0.0
+        nbytes = EPI_BYTES[lb[5:]] * r.M * r.Ncols if lb.startswith("gemm") else 0
+        timed.append((lb, ev, flop, nbytes))
+    return 0
+
+
+def split(call, iters=3):
+    call()
+    torch.cuda.synchronize()
+    whole = cs.time_ms(call, iters=iters, warmup=0)
+    _build.kernel_fn = lambda name, argtypes: by_record if name == "avr_resnetfc_chain" else \\
+        real_fn(name, argtypes)
+    try:
+        timed.clear()
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    finally:
+        _build.kernel_fn = real_fn
+    g = collections.defaultdict(lambda: dict(ms=0.0, records=0, flop=0.0, epi_bytes=0))
+    for lb, ev, flop, nbytes in timed:
+        row = g[lb]
+        row["ms"] += ev[0].elapsed_time(ev[1]) / iters
+        row["records"] += 1
+        row["flop"] += flop / iters
+        row["epi_bytes"] += nbytes // iters
+    for row in g.values():
+        row["records"] //= iters
+        row["tflops"] = row["flop"] / row["ms"] / 1e9 if row["flop"] else None
+    return dict(call_ms=whole, records_ms=sum(r["ms"] for r in g.values()), by=dict(g))
+
+
+gen = torch.Generator(device="cuda").manual_seed(3)
+res = {"checkout": sys.argv[1]}
+cd = torch.bfloat16
+for dh in (1280, 2048):
+    w = cs.decoder_weights(gen, dh=dh, dl=1152)
+    x, z, g = cs.wide_inputs(gen, cs.BAND, 1, 1152, cs.CODE, cd)
+    a = K2._prepare(x, z, w, cs.CODE, cd)
+    d = K2._dims(a, 5, 3, True)
+    st = K2._forward(a, d, cd, True)[1]
+    gs, wd, _ = K2._bwd_operands(a, d, g, K2.NAME_DGRAD)
+    res[f"bfloat16 {dh}"] = dict(fwd=split(lambda: K2._forward(a, d, cd, False)),
+                                 dgrad=split(lambda: K2._dgrad(a, d, st, gs, wd, cd)))
+    del a, st, gs, wd, x, z, g
+    torch.cuda.empty_cache()
+print(json.dumps(res), flush=True)
+"""
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--bins"]:
         sys.exit(run(_BINS, sys.argv[2:]) if sys.argv[2:] else 2)
+    if sys.argv[1:2] == ["--records"]:
+        sys.exit(run(_RECORDS, sys.argv[2:]) if sys.argv[2:] else 2)
     sys.exit(main(_TURN, __doc__))

@@ -13,9 +13,10 @@ kernels run only on the card; here, on the CPU:
   outputs (dx, dz, the cotangent slots, gout, enc) fed to plain wgrads give
   the plain autograd's 12 gradients (float32, 1e-5 of each array's scale);
 * the records against the source: ``ChainOp``'s fields, the kinds,
-  epilogues and flags, the tiles and shared memory; the workspace's
-  layout; the records of a call cut into chunks write every row of every
-  output once.
+  epilogues and flags, the tiles and shared memory; what the bf16
+  products' tensor maps cover (aligned bases, 16-byte strides, K in whole
+  boxes) at the shapes the card runs; the workspace's layout; the records
+  of a call cut into chunks write every row of every output once.
 """
 
 import ctypes
@@ -78,8 +79,8 @@ def _emulate(steps, x, z, w, cd, nb, nlz, stash=True, st=None, g=None, activate=
     out = None
 
     def get(ref):
-        if ref[0] == "x":
-            return c(K2.encode_features(x[ref[1]], CODE))
+        if ref[0] == "encoded":
+            return bufs["encoded"]
         if ref[0] == "z":
             return c(z[ref[1]])
         return bufs[ref[0]][ref[1]]
@@ -110,6 +111,9 @@ def _emulate(steps, x, z, w, cd, nb, nlz, stash=True, st=None, g=None, activate=
             H = _gh_store(s, torch.where(aout > 0, ge @ wo, 0.0), bufs, ns, inv, c)
             if s.pool == "boundary":
                 pool = H
+            continue
+        if s.kind == "enc" and s.out is not None:  # the forward's encoding pass
+            bufs["encoded"] = c(K2.encode_features(x[s.view], CODE))
             continue
         if s.kind == "enc":
             v = s.view
@@ -299,14 +303,14 @@ def test_chain_records_match_the_source():
     epi = {"in": "IN", "z": "Z", "fc0": "FC0", "fc1": "FC1", "c0": "C0", "gh": "GH", "f32": "F32",
            "t": "T"}
     assert enum("EPI_IN") == {"EPI_" + epi[k]: v for k, v in K2.CHAIN_EPI.items()}
-    flag = {"encode": "ENCODE", "use": "USE_POOL", "boundary": "BOUNDARY", "first": "POOL_FIRST",
-            "add": "POOL_ADD", "last": "POOL_LAST"}
-    assert enum("F_ENCODE") == {"F_" + flag[k]: v for k, v in K2.CHAIN_FLAGS.items()}
+    flag = {"use": "USE_POOL", "boundary": "BOUNDARY", "first": "POOL_FIRST", "add": "POOL_ADD",
+            "last": "POOL_LAST"}
+    assert enum("F_USE_POOL") == {"F_" + flag[k]: v for k, v in K2.CHAIN_FLAGS.items()}
 
 
 def _constants():
     env = {"sizeof(bf16)": 2, "sizeof(float)": 4}
-    for line in re.findall(r"^constexpr int (C[HF]_\w+ = [^;]+);", SRC, re.M):
+    for line in re.findall(r"^constexpr int (C[HFW]_\w+ = [^;]+);", SRC, re.M):
         for part in " ".join(line.split()).split(", "):
             name, expr = part.split(" = ", 1)
             expr = expr.replace("(int)sizeof(bf16)", "2").replace("(int)sizeof(float)", "4")
@@ -315,32 +319,98 @@ def _constants():
 
 
 def test_chain_tiles_fit_the_card():
-    """Two CTAs of either product kernel fit an SM's 227 KB; a stage's k is
-    a divisor of every K the chain takes (multiples of 64); the bf16 rows
-    are 144 bytes apart (an ldmatrix's 8 rows on 8 distinct 16-byte bank
-    groups) and every shared row 16-byte aligned; a chunk fits the grid; a
-    bf16 warp's 64 x 32 and a float32 thread's 8 x 8 outputs tile the
-    CTA's."""
+    """The bf16 products' kernel: its ring of stages (an A box and a B box
+    each) and its barriers within an SM's 227 KB, every box 1024-byte
+    aligned (the 128-byte swizzle's period; warpgroup 1's rows too), a box
+    row one 128-byte swizzle row, the expected bytes of a stage its two
+    boxes, a TMA box at most 256 rows; its tile two warpgroups of
+    ``m64n256k16`` (64 rows each, 256 columns, k steps of 16) and a producer
+    warpgroup; the epilogue's load groups whole 8-column groups of the
+    fragment.  Two CTAs of the float32 kernel fit an SM; a stage's k divides
+    every K the chain takes (multiples of 64); every float32 shared row
+    16-byte aligned; a chunk fits the float32 grid; a float32 thread's 8 x 8
+    outputs tile the CTA's."""
     e = _constants()
-    assert e["CH_SMEM"] == 110_592 and e["CF_SMEM"] == 105_984
-    assert 2 * max(e["CH_SMEM"], e["CF_SMEM"]) <= K2.SMEM_MAX
-    assert (e["CH_BM"] // 64) * (e["CH_BN"] // 32) * 32 == e["CH_THREADS"]
+    assert e["CW_SMEM"] == 196_672 and e["CF_SMEM"] == 105_984
+    assert e["CW_SMEM"] == e["CW_STAGES"] * e["CW_STAGE"] + 2 * e["CW_STAGES"] * 8 <= K2.SMEM_MAX
+    assert e["CW_STAGES"] >= 3 and 2 * e["CF_SMEM"] <= K2.SMEM_MAX
+    assert e["CW_A"] == e["CW_BM"] * e["CW_BK"] * 2
+    assert e["CW_STAGE"] == (e["CW_BM"] + e["CW_BN"]) * e["CW_BK"] * 2
+    assert e["CW_A"] % 1024 == 0 and (e["CW_A"] // 2) % 1024 == 0 and e["CW_STAGE"] % 1024 == 0
+    assert e["CW_BAR"] == e["CW_STAGES"] * e["CW_STAGE"] and e["CW_BAR"] % 8 == 0
+    assert e["CW_BK"] * 2 == 128 and e["CW_BK"] % 16 == 0 and max(e["CW_BM"], e["CW_BN"]) <= 256
+    assert e["CW_BM"] == 2 * 64 and e["CW_BN"] == 256 and e["CW_THREADS"] == 3 * 128
+    assert (e["CW_BN"] // 8) % e["CW_EPI_GROUPS"] == 0
+    assert "wgmma_m64n256k16<0, 0>" in SRC and "mbar_init(&empty[s], 256)" in SRC
     assert (e["CH_BM"] // 8) * (e["CH_BN"] // 8) == e["CH_THREADS"]
-    assert 64 % e["CH_BK"] == 0 and 64 % e["CF_BK"] == 0
-    lds = e["CH_LDS"] * 2
-    assert lds % 16 == 0 and len({(r * lds // 16) % 8 for r in range(8)}) == 8
+    assert 64 % e["CW_BK"] == 0 and 64 % e["CF_BK"] == 0
     assert (e["CF_LDA"] * 4) % 16 == 0 and (e["CF_LDB"] * 4) % 16 == 0
     assert K2.CHAIN_CHUNK <= e["CH_ROWS_MAX"] == 65535 * e["CH_BM"]
-    assert "__launch_bounds__(CH_THREADS, 2)\nchain_gemm_bf16_kernel" in SRC
+    assert "__launch_bounds__(CW_THREADS, 1)\nchain_gemm_wgmma_kernel" in SRC
     assert "__launch_bounds__(CH_THREADS, 2)\nchain_gemm_f32_kernel" in SRC
+
+
+class _At:
+    """A tensor's stand-in for ``_chain_records``: a base address."""
+
+    def __init__(self, ptr):
+        self.ptr = ptr
+
+    def data_ptr(self):
+        return self.ptr
+
+
+# (dtype, d_hidden, d_latent): chip_smoke.py CHAIN_CASES, the shapes the card
+# runs on the chain
+CARD_CASES = [(BF16, 1280, 1152), (BF16, 2048, 1152), (BF16, 1024, 4096), (F32, 1920, 1152),
+              (BF16, 512, 4096)]
+
+
+@pytest.mark.parametrize("pass_", ["forward", "forward_no_stash", "dgrad"])
+@pytest.mark.parametrize("ns", [1, 2])
+@pytest.mark.parametrize("cd,dh,dl", CARD_CASES)
+def test_tensor_maps_cover_whole_aligned_boxes(monkeypatch, cd, dh, dl, ns, pass_):
+    """Every product record at the card's shapes, the call cut into
+    384-point chunks (N off every tile): what the bf16 kernel's tensor maps
+    cover has a 16-byte-aligned base (each segment's, ``a_seg`` and
+    ``b_seg`` apart), 16-byte row and segment strides, and K and the output
+    columns in whole 64-wide boxes; the float32 kernel's 16-byte copies the
+    same bases and K."""
+    monkeypatch.setattr(K2, "CHAIN_CHUNK", 384)
+    n, nb, nlz, k_in = 81_920 + 37, 5, 3, 64
+    backward, stash = pass_ == "dgrad", pass_ != "forward_no_stash"
+    item = 2 if cd == BF16 else 4
+    d = dict(N=n, ns=ns, d_in=CODE.d_raw, k_in=k_in, d_latent=dl, d_hidden=dh, d_out=4,
+             n_blocks=nb, n_lin_z=nlz, activate=1)
+    names = ("x", "z", "stash", "cot", "wi", "wz", "w0", "w1", "bi", "bz", "b0", "b1", "wo", "bo",
+             "tables", "fph", "out", "g", "gout", "dx", "dz", "enc")
+    t = {k: _At((i + 1) << 36) for i, k in enumerate(names)}
+    off = K2.chain_workspace(n, ns, dh, k_in, cd, stash, backward)
+    assert all(v % 16 == 0 for v in off.values() if isinstance(v, int))
+    steps = K2.chain_plan(ns, nb, nlz, backward=backward, stash=stash)
+    gemms = 0
+    for s in range(0, n, K2.CHAIN_CHUNK):
+        m = min(K2.CHAIN_CHUNK, n - s)
+        for r in K2._chain_records(steps, t, d, s, m, (1 << 40, off), cd, backward):
+            if r.kind != K2.CHAIN_KINDS["gemm"]:
+                continue
+            gemms += 1
+            assert r.M == m and r.K % 64 == 0 and r.Ncols % 64 == 0 and r.nseg >= 1
+            assert (r.lda * item) % 16 == 0 and (r.ldb * item) % 16 == 0
+            bases = [r.A] + [r.A1 + j * r.a_seg * item for j in range(r.nseg - 1)]
+            bases += [r.B + j * r.b_seg * item for j in range(r.nseg)]
+            assert all(b and b % 16 == 0 for b in bases), (r.epi, bases)
+            if r.nseg > 1:
+                assert (r.a_seg * item) % 16 == 0 and (r.b_seg * item) % 16 == 0
+    assert gemms == len([st for st in steps if st.kind == "gemm"]) * -(-n // 384)
 
 
 @pytest.mark.parametrize("backward", [False, True])
 @pytest.mark.parametrize("stash", [True, False])
 def test_chain_workspace_layout(backward, stash):
     """The workspace: the float32 trunk (or gh), the view sums (NS > 1), the
-    forward's two operand buffers without the stash, the dgrad's lin_in
-    input cotangent; sized by the chunk, not by N."""
+    forward's encoded input and its two operand buffers without the stash,
+    the dgrad's lin_in input cotangent; sized by the chunk, not by N."""
     for ns in (1, 2):
         for cd, item in ((BF16, 2), (F32, 4)):
             for n in (1_000, K2.CHAIN_CHUNK, 10 * K2.CHAIN_CHUNK):
@@ -348,9 +418,12 @@ def test_chain_workspace_layout(backward, stash):
                 off = K2.chain_workspace(n, ns, 2048, 192, cd, stash, backward)
                 want = 4 * c * 2048 * (2 if ns > 1 else 1)
                 if backward:
-                    assert off["denc"] == want
+                    assert off["denc"] == want and "encoded" not in off
                     want += 4 * c * 192
-                elif not stash:
+                else:
+                    assert off["encoded"] == want
+                    want += item * c * 192
+                if not stash and not backward:
                     assert off["act"] == (want, want + item * c * 2048)
                     want += 2 * item * c * 2048
                 assert off["bytes"] == want and off["H"] == 0 and off["pool"] == 4 * c * 2048
@@ -381,7 +454,7 @@ def test_chunked_records_cover_every_row_once(monkeypatch, backward, ns):
              dx=torch.zeros(ns, n, CODE.d_raw), dz=torch.zeros(ns, n, DL, dtype=cd),
              enc=torch.zeros(ns, n, 64, dtype=cd))
     off = K2.chain_workspace(n, ns, dh, 64, cd, True, backward)
-    assert off["bytes"] == 4 * 16 * dh * (2 if ns > 1 else 1) + (4 * 16 * 64 if backward else 0)
+    assert off["bytes"] == 4 * 16 * dh * (2 if ns > 1 else 1) + (4 if backward else item) * 16 * 64
     steps = K2.chain_plan(ns, nb, nlz, backward=backward)
     rows = {}  # (tensor, row byte offset) -> writes
 
@@ -411,6 +484,8 @@ def test_chunked_records_cover_every_row_once(monkeypatch, backward, ns):
                 mark("out", r.outf, m, 4, 4)
             elif st.kind == "head":
                 mark("gout", r.gout, m, 8, item)
+            elif st.kind == "enc" and not backward:  # the encoding pass: the workspace
+                assert not r.dx and r.enc == (1 << 40) + off["encoded"]
             elif st.kind == "enc":
                 mark("dx", r.dx, m, CODE.d_raw, 4)
                 mark("enc", r.enc, m, 64, item)
