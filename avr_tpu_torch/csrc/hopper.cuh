@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the redesigned K2 kernels (the
-// bf16 forward and backward, the chain's bf16 products; the float32
-// forward's bulk copies): TMA tensor
+// bf16 forward and backward, the chain's products; the float32 forward's
+// bulk copies): TMA tensor
 // maps (encoded on the host by cuTensorMapEncodeTiled, whose address the
 // CUDA runtime hands out, so the library needs no -lcuda), mbarrier rings,
 // TMA loads and stores, and the warpgroup matrix multiply (wgmma) with
@@ -45,17 +45,19 @@ static PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
-// A bf16 tensor map of rank 2 or 3: dims innermost first, strides in bytes
-// of dims 1.. (multiples of 16), box innermost first (box[0] = 64: one
-// 128-byte swizzle row; with a 64-byte swizzle, 32).  Elements outside dims
-// read as zero; a store skips them.  Returns 0 or a cudaError_t.
+// A bf16 (or `dtype`) tensor map of rank 2 or 3: dims innermost first,
+// strides in bytes of dims 1.. (multiples of 16), box innermost first (a
+// swizzled box's inner dim one swizzle row: 128 bytes, 64 bf16; with a
+// 64-byte swizzle, 32).  Elements outside dims read as zero; a store skips
+// them.  Returns 0 or a cudaError_t.
 static int make_tensor_map(CUtensorMap* m, const void* base, int rank, const uint64_t* dims,
                            const uint64_t* strides, const uint32_t* box,
-                           CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+                           CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B,
+                           CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   PFN_cuTensorMapEncodeTiled_v12000 enc = tensor_map_encoder();
   if (!enc) return (int)cudaErrorNotSupported;
   const uint32_t ones[3] = {1, 1, 1};
-  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+  const CUresult r = enc(m, dtype, (cuuint32_t)rank,
                          const_cast<void*>(base), (const cuuint64_t*)dims,
                          (const cuuint64_t*)strides, (const cuuint32_t*)box,
                          (const cuuint32_t*)ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,

@@ -40,9 +40,9 @@
 //     (chain_enc_kernel, the encoded input rounded into the workspace), so
 //     lin_in is an ordinary product;
 //   - bf16 products run on wgmma from a TMA ring (chain_gemm_wgmma_kernel,
-//     below); float32 products run on register-tiled FMA (no TF32: 8 x 8
-//     outputs a thread, A rows and B rows from a 3-stage cp.async ring of
-//     32 k, one FMA chain per output in k order);
+//     below); float32 products run on register-tiled FMA from a TMA ring,
+//     A transposed to k-major in shared memory (chain_gemm_f32_kernel: no
+//     TF32, one FMA chain per output in k order);
 //   - lin_out (d_out <= 8 columns) is a warp a point.
 // The bf16 products' own bytes: the epilogues move 10 bytes an output
 // element at an injection and at fc_1 (the float32 trunk read and written,
@@ -137,26 +137,26 @@ constexpr int CW_STAGE = CW_A + CW_BN * CW_BK * 2;      // 49,152 bytes
 constexpr int CW_BAR = CW_STAGES * CW_STAGE;            // 196,608
 constexpr int CW_SMEM = CW_BAR + 2 * CW_STAGES * 8;     // 196,672 bytes
 constexpr int CW_EPI_GROUPS = 4;  // the epilogue's 8-column groups a thread loads before storing
-// float32 products: 128 x 128 output tiles, k stages of 32, 3 stages; A
-// rows of 36 floats, B rows of 132 (a thread rows ty + 16 i, columns 4 tx +
-// j and 64 + 4 tx + j)
-constexpr int CH_BM = 128, CH_BN = 128, CH_THREADS = 256;
-constexpr int CF_BK = 32, CF_STAGES = 3, CF_LDA = CF_BK + 4, CF_LDB = CH_BN + 4;
-constexpr int CF_STAGE = CH_BM * CF_LDA + CF_BK * CF_LDB;            // floats a stage
-constexpr int CF_SMEM = CF_STAGES * CF_STAGE * (int)sizeof(float);   // 105,984 bytes
-constexpr int CH_ROWS_MAX = 65535 * CH_BM;  // a chunk's points: the float32 grid's y
-
-__device__ __forceinline__ void cp16(void* smem, const void* gmem, bool on) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(gmem),
-               "r"(on ? 16 : 0));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+// float32 products (chain_gemm_f32_kernel): 256 x 128 output tiles, k
+// stages of 16.  An A box {16 k, 256 rows} lands row-major in a raw ring of
+// CF_RAW slots; the producer warpgroup's other three warps transpose it into
+// the stage's k-major A tile (16 rows of 256 floats, row k's 16-byte group g
+// stored at group g ^ cf_swz(k)) beside the stage's B box {128 columns, 16
+// k}, in a ring of CF_STAGES stages.  Eight consumer warps in 4 x 2 (a warp
+// 64 x 64 outputs; a thread its warp's rows 4 r + 0..3 and 32 + 4 r + 0..3,
+// r = lane / 4, and columns 4 c + 16 j + 0..3, c = lane % 4, j < 4) in two
+// warpgroups and the producer warpgroup; after the rings the barriers, then
+// each consumer warp's epilogue buffer (8 rows of its 64 columns, rows
+// CF_EPI_LD floats apart).
+constexpr int CF_BM = 256, CF_BN = 128, CF_BK = 16, CF_STAGES = 4, CF_RAW = 3, CF_THREADS = 384;
+constexpr int CF_TM = 8, CF_TN = 16, CF_EPI_LD = 80;
+constexpr int CF_A = CF_BM * CF_BK * (int)sizeof(float);            // 16,384 bytes: an A tile
+constexpr int CF_STAGE = CF_A + CF_BK * CF_BN * (int)sizeof(float);  // 24,576 bytes
+constexpr int CF_BAR = CF_STAGES * CF_STAGE + CF_RAW * CF_A;        // 147,456
+constexpr int CF_EPI = CF_BAR + 2 * (CF_STAGES + CF_RAW) * 8;       // 147,568
+constexpr int CF_EPI_WARP = 8 * CF_EPI_LD * (int)sizeof(float);     // 2,560 bytes
+constexpr int CF_SMEM = CF_EPI + 8 * CF_EPI_WARP;                   // 168,048 bytes
+constexpr int CH_ROWS_MAX = 1 << 24;  // a record's points: every grid and tile index an int
 
 __device__ __forceinline__ float relu(float v) { return fmaxf(v, 0.f); }
 
@@ -180,6 +180,37 @@ __device__ __forceinline__ float2 ld2(const bf16* p) {
 }
 __device__ __forceinline__ void st2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// V consecutive values of T at p (V 2, or 4 for float: one 8- or 16-byte
+// access, aligned) to floats and back.
+template <int V>
+__device__ __forceinline__ void ldv(const float* p, float* v) {
+  if constexpr (V == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  } else {
+    const float2 q = ld2(p);
+    v[0] = q.x, v[1] = q.y;
+  }
+}
+template <int V>
+__device__ __forceinline__ void ldv(const bf16* p, float* v) {
+  static_assert(V == 2, "bf16 pairs");
+  const float2 q = ld2(p);
+  v[0] = q.x, v[1] = q.y;
+}
+template <int V>
+__device__ __forceinline__ void stv(float* p, const float* v) {
+  if constexpr (V == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    st2(p, v[0], v[1]);
+}
+template <int V>
+__device__ __forceinline__ void stv(bf16* p, const float* v) {
+  static_assert(V == 2, "bf16 pairs");
+  st2(p, v[0], v[1]);
 }
 
 // Where the epilogue of output row r, from column c on, reads and writes:
@@ -206,104 +237,118 @@ __device__ __forceinline__ EpiRow<T> epi_row(const ChainOp& op, int r, int c) {
   return w;
 }
 
-// gh of columns j, j + 1 of row w to where the next product reads it: the
-// trunk cotangent and its rounding (the next block's c1, or cot_in); or, at
-// the end of the pooled blocks (F_BOUNDARY), the pooled cotangent and every
-// view's first c1, round(gh / NS).
-template <typename T>
-__device__ __forceinline__ void gh_store(const ChainOp& op, const EpiRow<T>& w, int j, float g0,
-                                         float g1) {
+// gh of columns j .. j + V - 1 of row w to where the next product reads it:
+// the trunk cotangent and its rounding (the next block's c1, or cot_in); or,
+// at the end of the pooled blocks (F_BOUNDARY), the pooled cotangent and
+// every view's first c1, round(gh / NS).
+template <typename T, int V>
+__device__ __forceinline__ void gh_store(const ChainOp& op, const EpiRow<T>& w, int j,
+                                         const float* g) {
   if (op.flags & F_BOUNDARY) {
-    st2(w.pool + j, g0, g1);
-    for (int v = 0; v < op.views; ++v)
-      st2(w.out + j + v * op.out_view, g0 * op.scale, g1 * op.scale);
+    stv<V>(w.pool + j, g);
+    float s[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) s[e] = g[e] * op.scale;
+    for (int v = 0; v < op.views; ++v) stv<V>(w.out + j + v * op.out_view, s);
   } else {
-    st2(w.H + j, g0, g1);
-    st2(w.out + j, g0, g1);
+    stv<V>(w.H + j, g);
+    stv<V>(w.out + j, g);
   }
 }
 
-// What the epilogue of columns j, j + 1 of row w reads: the bias, the trunk
-// (or gh), the view sums (or the pooled cotangent) and the mask, each where
-// epilogue e (op.epi, or E where the caller knows it, E >= 0) reads it.
-// Loaded apart from the epilogue's stores, so that a caller can issue many
-// pairs' loads before any store.
+// What the epilogue of columns j .. j + V - 1 of row w reads: the bias, the
+// trunk (or gh), the view sums (or the pooled cotangent) and the mask, each
+// where epilogue e (op.epi, or E where the caller knows it, E >= 0) reads
+// it.  Loaded apart from the epilogue's stores, so that a caller can issue
+// many groups' loads before any store.
+template <int V>
 struct EpiIn {
-  float2 b, h, p, m;
+  float b[V], h[V], p[V], m[V];
 };
 
-template <typename T, int E = -1>
-__device__ __forceinline__ EpiIn epi_load(const ChainOp& op, const EpiRow<T>& w, int j) {
-  EpiIn in;
+template <typename T, int E = -1, int V = 2>
+__device__ __forceinline__ EpiIn<V> epi_load(const ChainOp& op, const EpiRow<T>& w, int j) {
+  EpiIn<V> in;
   const int e = E >= 0 ? E : op.epi;
-  if (e == EPI_IN || e == EPI_Z || e == EPI_FC0 || e == EPI_FC1) in.b = ld2(w.bias + j);
-  if (e == EPI_Z || e == EPI_FC1 || (e == EPI_GH && !(op.flags & F_USE_POOL))) in.h = ld2(w.H + j);
+  if (e == EPI_IN || e == EPI_Z || e == EPI_FC0 || e == EPI_FC1) ldv<V>(w.bias + j, in.b);
+  if (e == EPI_Z || e == EPI_FC1 || (e == EPI_GH && !(op.flags & F_USE_POOL)))
+    ldv<V>(w.H + j, in.h);
   if ((e == EPI_FC1 && (op.flags & (F_POOL_ADD | F_POOL_LAST))) ||
       (e == EPI_GH && (op.flags & F_USE_POOL)))
-    in.p = ld2(w.pool + j);
-  if (e == EPI_C0 || e == EPI_GH) in.m = ld2(w.mask + j);
+    ldv<V>(w.pool + j, in.p);
+  if (e == EPI_C0 || e == EPI_GH) ldv<V>(w.mask + j, in.m);
   return in;
 }
 
-// The epilogue of columns j, j + 1 (even) of row w on the products' sums
-// a0, a1 and what epi_load read for them.
-template <typename T, int E = -1>
-__device__ __forceinline__ void epi_store(const ChainOp& op, const EpiRow<T>& w, int j, float a0,
-                                          float a1, const EpiIn& in) {
-  const float2 b = in.b, h = in.h, p = in.p, m = in.m;
+// The epilogue of columns j .. j + V - 1 (j a multiple of V) of row w on
+// the products' sums a[0 .. V - 1] and what epi_load read for them; each
+// value computed alone, the same way at every V.
+template <typename T, int E = -1, int V = 2>
+__device__ __forceinline__ void epi_store(const ChainOp& op, const EpiRow<T>& w, int j,
+                                          const float* a, const EpiIn<V>& in) {
+  float o[V], r[V];
   switch (E >= 0 ? E : op.epi) {
     case EPI_IN:
-      st2(w.H + j, a0 + b.x, a1 + b.y);
+#pragma unroll
+      for (int e = 0; e < V; ++e) o[e] = a[e] + in.b[e];
+      stv<V>(w.H + j, o);
       break;
-    case EPI_Z: {
-      const float h0 = (h.x + a0) + b.x, h1 = (h.y + a1) + b.y;
-      st2(w.H + j, h0, h1);
-      st2(w.out + j, relu(h0), relu(h1));
+    case EPI_Z:
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        o[e] = (in.h[e] + a[e]) + in.b[e];
+        r[e] = relu(o[e]);
+      }
+      stv<V>(w.H + j, o);
+      stv<V>(w.out + j, r);
       break;
-    }
     case EPI_FC0:
-      st2(w.out + j, relu(a0 + b.x), relu(a1 + b.y));
+#pragma unroll
+      for (int e = 0; e < V; ++e) o[e] = relu(a[e] + in.b[e]);
+      stv<V>(w.out + j, o);
       break;
     case EPI_FC1: {
-      float h0 = (h.x + a0) + b.x, h1 = (h.y + a1) + b.y;
+#pragma unroll
+      for (int e = 0; e < V; ++e) o[e] = (in.h[e] + a[e]) + in.b[e];
       if (op.flags & F_POOL_FIRST) {
-        st2(w.pool + j, h0, h1);
+        stv<V>(w.pool + j, o);
       } else if (op.flags & F_POOL_ADD) {
-        st2(w.pool + j, p.x + h0, p.y + h1);
+#pragma unroll
+        for (int e = 0; e < V; ++e) r[e] = in.p[e] + o[e];
+        stv<V>(w.pool + j, r);
       } else {
         if (op.flags & F_POOL_LAST) {
-          h0 = (p.x + h0) * op.scale;
-          h1 = (p.y + h1) * op.scale;
+#pragma unroll
+          for (int e = 0; e < V; ++e) o[e] = (in.p[e] + o[e]) * op.scale;
         }
-        st2(w.H + j, h0, h1);
+        stv<V>(w.H + j, o);
       }
-      if (w.out) st2(w.out + j, relu(h0), relu(h1));
+      if (w.out) {
+#pragma unroll
+        for (int e = 0; e < V; ++e) r[e] = relu(o[e]);
+        stv<V>(w.out + j, r);
+      }
       break;
     }
     case EPI_C0:
-      st2(w.out + j, m.x > 0.f ? a0 : 0.f, m.y > 0.f ? a1 : 0.f);
+#pragma unroll
+      for (int e = 0; e < V; ++e) o[e] = in.m[e] > 0.f ? a[e] : 0.f;
+      stv<V>(w.out + j, o);
       break;
-    case EPI_GH: {
-      const float2 base = (op.flags & F_USE_POOL)
-                              ? make_float2(__fmul_rn(p.x, op.scale), __fmul_rn(p.y, op.scale))
-                              : h;
-      gh_store<T>(op, w, j, m.x > 0.f ? __fadd_rn(base.x, a0) : base.x,
-                  m.y > 0.f ? __fadd_rn(base.y, a1) : base.y);
+    case EPI_GH:
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float base = (op.flags & F_USE_POOL) ? __fmul_rn(in.p[e], op.scale) : in.h[e];
+        o[e] = in.m[e] > 0.f ? __fadd_rn(base, a[e]) : base;
+      }
+      gh_store<T, V>(op, w, j, o);
       break;
-    }
     case EPI_F32:
-      st2(w.H + j, a0, a1);
+      stv<V>(w.H + j, a);
       break;
     default:  // EPI_T
-      st2(w.out + j, a0, a1);
+      stv<V>(w.out + j, a);
   }
-}
-
-// A stage's A rows from segment seg.
-template <typename T>
-__device__ __forceinline__ const T* seg_a(const ChainOp& op, int seg) {
-  return seg == 0 ? static_cast<const T*>(op.A)
-                  : static_cast<const T*>(op.A1) + (size_t)(seg - 1) * op.a_seg;
 }
 
 // The bf16 products' operands as TMA tensor maps, encoded on the host from
@@ -348,7 +393,7 @@ __device__ __forceinline__ void epi_tile(const ChainOp& op, const float* acc, in
   constexpr int Q = CW_EPI_GROUPS;
 #pragma unroll
   for (int q0 = 0; q0 < CW_BN / 8; q0 += Q) {
-    EpiIn in[2 * Q];
+    EpiIn<2> in[2 * Q];
 #pragma unroll
     for (int q = 0; q < Q; ++q) {
       if (q0 + q < nq && on0) in[2 * q] = epi_load<bf16, E>(op, w0, 8 * (q0 + q));
@@ -357,10 +402,9 @@ __device__ __forceinline__ void epi_tile(const ChainOp& op, const float* acc, in
 #pragma unroll
     for (int q = 0; q < Q; ++q) {
       const int i = 4 * (q0 + q);
-      if (q0 + q < nq && on0)
-        epi_store<bf16, E>(op, w0, 8 * (q0 + q), acc[i], acc[i + 1], in[2 * q]);
+      if (q0 + q < nq && on0) epi_store<bf16, E>(op, w0, 8 * (q0 + q), acc + i, in[2 * q]);
       if (q0 + q < nq && on1)
-        epi_store<bf16, E>(op, w1, 8 * (q0 + q), acc[i + 2], acc[i + 3], in[2 * q + 1]);
+        epi_store<bf16, E>(op, w1, 8 * (q0 + q), acc + i + 2, in[2 * q + 1]);
     }
   }
 }
@@ -484,84 +528,249 @@ int chain_maps(const ChainOp& op, ChainMaps* m) {
   return e;
 }
 
-// The same in float32: register-tiled FMA, a thread rows ty + 16 i (i < 8)
-// and columns 4 tx + j, 64 + 4 tx + j (j < 4); one FMA chain per output in
-// k order.
-__global__ void __launch_bounds__(CH_THREADS, 2)
-chain_gemm_f32_kernel(const __grid_constant__ ChainOp op) {
-  extern __shared__ __align__(128) unsigned char chain_smem[];
-  float* sm = reinterpret_cast<float*>(chain_smem);
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int n0 = blockIdx.x * CH_BN, m0 = blockIdx.y * CH_BM;
-  const int KT = op.nseg * op.K / CF_BK;
-
-  auto load = [&](int kt, int s) {
-    const int kg = kt * CF_BK, seg = kg / op.K, kk = kg - seg * op.K;
-    float* a = sm + s * CF_STAGE;
-    float* b = a + CH_BM * CF_LDA;
-    const float* A = seg_a<float>(op, seg);
-    for (int i = tid; i < CH_BM * (CF_BK / 4); i += CH_THREADS) {
-      const int r = i / (CF_BK / 4), kc = i % (CF_BK / 4) * 4;
-      const bool on = m0 + r < op.M;
-      cp16(a + r * CF_LDA + kc, on ? A + (size_t)(m0 + r) * op.lda + kk + kc : A, on);
-    }
-    const float* B = static_cast<const float*>(op.B) + (size_t)seg * op.b_seg;
-    for (int i = tid; i < CF_BK * (CH_BN / 4); i += CH_THREADS) {
-      const int k = i >> 5, nc = (i & 31) * 4;
-      const bool on = n0 + nc < op.Ncols;
-      cp16(b + k * CF_LDB + nc, on ? B + (size_t)(kk + k) * op.ldb + n0 + nc : B, on);
-    }
-  };
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < CF_STAGES - 1; ++s) {
-    if (s < KT) load(s, s);
-    cp_commit();
+// The float32 products' operands as TMA tensor maps, encoded on the host
+// from the record as chain_maps does for bf16, unswizzled: A's boxes {16 k,
+// 256 rows} (segment 0 K x M, lda apart; segments 1.. K x M x nseg - 1, a_seg
+// apart); the weights' boxes {128 columns, 16 k} (Ncols x K x nseg, ldb and
+// b_seg apart).  Rows past M and columns past Ncols read as zero.
+int chain_maps_f32(const ChainOp& op, ChainMaps* m) {
+  const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const CUtensorMapSwizzle none = CU_TENSOR_MAP_SWIZZLE_NONE;
+  const uint32_t box_a[3] = {CF_BK, CF_BM, 1}, box_b[3] = {CF_BN, CF_BK, 1};
+  const uint64_t K = (uint64_t)op.K, M = (uint64_t)op.M, lda = 4 * (uint64_t)op.lda,
+                 ldb = 4 * (uint64_t)op.ldb;
+  const uint64_t dims_a[2] = {K, M}, str_a[1] = {lda};
+  int e = make_tensor_map(&m->a, op.A, 2, dims_a, str_a, box_a, none, f32);
+  if (!e && op.nseg > 1) {
+    const uint64_t dims[3] = {K, M, (uint64_t)op.nseg - 1}, str[2] = {lda, 4 * (uint64_t)op.a_seg};
+    e = make_tensor_map(&m->a1, op.A1, 3, dims, str, box_a, none, f32);
   }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_wait<CF_STAGES - 2>();
-    __syncthreads();
-    if (kt + CF_STAGES - 1 < KT) load(kt + CF_STAGES - 1, (kt + CF_STAGES - 1) % CF_STAGES);
-    cp_commit();
-    const float* a = sm + (kt % CF_STAGES) * CF_STAGE;
-    const float* b = a + CH_BM * CF_LDA;
+  if (!e) {
+    const uint64_t seg = op.nseg > 1 ? 4 * (uint64_t)op.b_seg : ldb * K;
+    const uint64_t dims[3] = {(uint64_t)op.Ncols, K, (uint64_t)op.nseg}, str[2] = {ldb, seg};
+    e = make_tensor_map(&m->b, op.B, 3, dims, str, box_b, none, f32);
+  }
+  return e;
+}
+
+// Where row k of a k-major A tile stores 16-byte group g: g ^ cf_swz(k), so
+// that the transposing warps' stores (8 lanes: 2 row quads x the 4 k groups
+// of a 16-k stage) and the consumers' loads are each conflict-free.
+static_assert(CF_BK == 16, "cf_swz spreads a stage's 4 k groups");
+__device__ __forceinline__ int cf_swz(int k) { return ((k >> 2) & 3) << 1; }
+
+// A thread's row i of its warp's 64 (i < 4: 4 r + i, else 32 + 4 r + i - 4).
+__device__ __forceinline__ int cf_row(int r, int i) { return (i < 4 ? 0 : 28) + 4 * r + i; }
+
+// The float32 epilogue E of a consumer warp's 64 x 64 outputs (rows from
+// row0, columns from col0), a thread's row i at a time for every thread
+// through the warp's buffer ep: each thread's row i (acc[i]) into buffer row
+// r, each 4-column group stored pair-swapped (the group's columns 1, 0, 3,
+// 2; see the kernel), then each lane takes 4 columns of 4 of the 8 rows, two
+// rows' loads before their stores, so a warp's access is 2 rows x 256
+// contiguous bytes.
+template <int E>
+__device__ __forceinline__ void epi_f32(const ChainOp& op, const float (&acc)[CF_TM][CF_TN],
+                                        float* ep, int row0, int col0, int lane) {
+  const int r = lane >> 2, c = lane & 3, half = lane >> 4, col = col0 + 4 * (lane & 15);
 #pragma unroll
-    for (int k4 = 0; k4 < CF_BK; k4 += 4) {
-      float4 av[8];
+  for (int i = 0; i < CF_TM; ++i) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        av[i] = *reinterpret_cast<const float4*>(a + (ty + 16 * i) * CF_LDA + k4);
+    for (int j = 0; j < CF_TN / 4; ++j)
+      *reinterpret_cast<float4*>(ep + r * CF_EPI_LD + 16 * j + 4 * c) =
+          make_float4(acc[i][4 * j + 1], acc[i][4 * j], acc[i][4 * j + 3], acc[i][4 * j + 2]);
+    __syncwarp();
+    if (col < op.Ncols) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const float4 b0 = *reinterpret_cast<const float4*>(b + (k4 + kk) * CF_LDB + 4 * tx);
-        const float4 b1 = *reinterpret_cast<const float4*>(b + (k4 + kk) * CF_LDB + 64 + 4 * tx);
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      for (int q = 0; q < 4; q += 2) {
+        EpiIn<4> in[2];
+        int rows[2];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float x = kk == 0 ? av[i].x : kk == 1 ? av[i].y : kk == 2 ? av[i].z : av[i].w;
+        for (int u = 0; u < 2; ++u) {
+          rows[u] = row0 + cf_row(2 * (q + u) + half, i);
+          if (rows[u] < op.M)
+            in[u] = epi_load<float, E, 4>(op, epi_row<float>(op, rows[u], col), 0);
+        }
 #pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(x, bv[j], acc[i][j]);
+        for (int u = 0; u < 2; ++u) {
+          if (rows[u] >= op.M) continue;
+          const float4 v = *reinterpret_cast<const float4*>(ep + (2 * (q + u) + half) * CF_EPI_LD +
+                                                            4 * (lane & 15));
+          const float a[4] = {v.y, v.x, v.w, v.z};
+          epi_store<float, E, 4>(op, epi_row<float>(op, rows[u], col), 0, a, in[u]);
         }
       }
     }
+    __syncwarp();
   }
-  cp_wait<0>();
+}
 
+// acc = A B over the segments, then the epilogue, for every 256 x 128 tile,
+// float32 by FMA on the CUDA cores (no TF32, no tensor-core instruction).
+//
+// Replaces chain_gemm_f32_kernel's first version (PR 24: 128 x 128 tiles,
+// two CTAs an SM at 128 registers a thread, 8 x 8 outputs a thread, a
+// 3-stage cp.async ring that every thread filled, A read row by row), which
+// ran at ~41 TFLOP/s against the cuBLAS chain's ~50.  What bounds it: the
+// FMA pipe (67 TFLOP/s at 1.98 GHz; 7.15 TFLOP a call at the band chunk and
+// d_hidden 1,920, 107 ms), which issues one warp instruction a cycle in each
+// of an SM's four schedulers, so every instruction other than an FFMA, and
+// every cycle a warp waits on a load, costs a product's slot.  What the
+// design does about it:
+//   - one CTA an SM, its consumer warpgroups raised to 232 registers a
+//     thread (setmaxnreg; the producer warpgroup lowered to 40): 8 x 16
+//     outputs a thread (128 accumulators); each k costs 128 FFMA against 2
+//     LDS.128 of A and 4 of B, 24 registers, so the next k's fragments load
+//     while this k's products run;
+//   - A k-major in shared memory without touching device memory's layout:
+//     a TMA box lands row-major, and three warps of the producer warpgroup
+//     transpose it, 4 x 4 blocks from 4 LDS.128 to 4 STS.128, into the
+//     stage's swizzled k-major tile; a warp's A loads then read 8 distinct
+//     16-byte groups, its B loads 64 contiguous bytes: conflict-free;
+//   - the copies off the consumer warps: one thread of the producer
+//     warpgroup keeps the raw ring and the B boxes in flight by TMA on full
+//     / empty mbarriers, across tile boundaries, so the consumers issue FFMA
+//     and LDS only and the next tile's stages land during this tile's
+//     epilogue;
+//   - a persistent grid walking the tiles in order (an M block across all
+//     its N tiles), so an M block of A and the weights stay in L2 (no
+//     prefetch of the epilogue's rows, unlike the bf16 kernel: here it
+//     measured slower, PERF.md section 6);
+//   - register banks: an FFMA whose unreused sources share a bank waits,
+//     and B lands in aligned quads; each accumulator quad is stored to the
+//     epilogue buffer pair-swapped (a 16-byte store reads an aligned quad),
+//     so that the allocator may keep column c's accumulator at quad
+//     position c ^ 1, opposite its B value's parity (ptxas does so only in
+//     part);
+//   - the epilogue through that per-warp buffer, then in 16-byte groups
+//     along 256 contiguous bytes of a row (epi_load / epi_store at V = 4:
+//     each value computed as at V = 2).
+// Measured (PERF.md section 6): 43-45 TFLOP/s by product at d_hidden 1,920,
+// 1.06x the first version; the k-loop runs at ~70% of the pipe's rate with
+// no spills, and the A path (its copy and transpose) costs ~5%.
+// Every output is one fmaf chain from 0 over k in ascending order across
+// the segments in order, as the first version computed it: the same bits.
+__global__ void __launch_bounds__(CF_THREADS, 1)
+chain_gemm_f32_kernel(const __grid_constant__ ChainOp op, const __grid_constant__ ChainMaps maps) {
+  extern __shared__ __align__(128) unsigned char cf_smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(cf_smem + CF_BAR);
+  uint64_t* empty = full + CF_STAGES;
+  uint64_t* raw_full = empty + CF_STAGES;
+  uint64_t* raw_empty = raw_full + CF_RAW;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n_tiles = (op.Ncols + CF_BN - 1) / CF_BN;
+  const int tiles = n_tiles * ((op.M + CF_BM - 1) / CF_BM);
+  const int KT = op.nseg * op.K / CF_BK;
+  if (tid == 0) {
+    if (smem_u32(cf_smem) & 127) __trap();  // the TMA boxes' 128-byte alignment
+    for (int s = 0; s < CF_STAGES; ++s) {
+      mbar_init(&full[s], 1 + 96);  // the B box's bytes and the three transposing warps
+      mbar_init(&empty[s], 256);
+    }
+    for (int s = 0; s < CF_RAW; ++s) {
+      mbar_init(&raw_full[s], 1);
+      mbar_init(&raw_empty[s], 96);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // the producer warpgroup
+    setmaxnreg_dec<40>();
+    if (warp == 8 && lane > 0) return;
+    uint32_t g = 0;  // stages issued
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = tile / n_tiles * CF_BM, n0 = tile % n_tiles * CF_BN;
+      for (int kt = 0; kt < KT; ++kt, ++g) {
+        const int st = g % CF_STAGES, rs = g % CF_RAW;
+        unsigned char* raw = cf_smem + CF_STAGES * CF_STAGE + rs * CF_A;
+        if (warp == 8) {  // the copies, by TMA from one thread
+          const int kg = kt * CF_BK, seg = kg / op.K, kk = kg - seg * op.K;
+          if (g >= CF_RAW) mbar_wait(&raw_empty[rs], (g / CF_RAW - 1) & 1);
+          mbar_expect_tx(&raw_full[rs], CF_A);
+          if (seg == 0)
+            tma_load_2d(raw, &maps.a, &raw_full[rs], kk, m0);
+          else
+            tma_load_3d(raw, &maps.a1, &raw_full[rs], kk, m0, seg - 1);
+          if (g >= CF_STAGES) mbar_wait(&empty[st], (g / CF_STAGES - 1) & 1);
+          mbar_expect_tx(&full[st], CF_STAGE - CF_A);
+          tma_load_3d(cf_smem + st * CF_STAGE + CF_A, &maps.b, &full[st], n0, kk, seg);
+          continue;
+        }
+        // the transpose: 4 x 4 blocks (rows 4 b / 4 .. + 3, k 4 (b % 4) .. + 3)
+        const int t = tid - 288;
+        const float* ra = reinterpret_cast<const float*>(raw);
+        float* at = reinterpret_cast<float*>(cf_smem + st * CF_STAGE);
+        mbar_wait(&raw_full[rs], (g / CF_RAW) & 1);
+        if (g >= CF_STAGES) mbar_wait(&empty[st], (g / CF_STAGES - 1) & 1);
+        for (int b = t; b < CF_BM / 4 * (CF_BK / 4); b += 96) {
+          const int rq = b / (CF_BK / 4), c = b % (CF_BK / 4);
+          float4 v[4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = m0 + ty + 16 * i;
+          for (int u = 0; u < 4; ++u)
+            v[u] = *reinterpret_cast<const float4*>(ra + (4 * rq + u) * CF_BK + 4 * c);
+          float4* o = reinterpret_cast<float4*>(at + 4 * c * CF_BM + ((rq ^ cf_swz(4 * c)) << 2));
+          o[0] = make_float4(v[0].x, v[1].x, v[2].x, v[3].x);
+          o[CF_BM / 4] = make_float4(v[0].y, v[1].y, v[2].y, v[3].y);
+          o[CF_BM / 2] = make_float4(v[0].z, v[1].z, v[2].z, v[3].z);
+          o[3 * CF_BM / 4] = make_float4(v[0].w, v[1].w, v[2].w, v[3].w);
+        }
+        mbar_arrive(&raw_empty[rs]);
+        mbar_arrive(&full[st]);
+      }
+    }
+    return;
+  }
+
+  // a consumer: rows r (4 r + 0..3, 32 + 4 r + 0..3), column group c (4
+  // groups of 4 columns 16 apart) of warp (wm, wn)'s 64 x 64 outputs
+  setmaxnreg_inc<232>();
+  const int r = lane >> 2, c = lane & 3, wm = warp >> 1, wn = warp & 1;
+  const int g0 = wm * 16 + r, g1 = g0 + 8;  // the thread's two 16-byte A groups a k row
+  uint32_t g = 0;  // stages consumed
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = tile / n_tiles * CF_BM, n0 = tile % n_tiles * CF_BN;
+    float acc[CF_TM][CF_TN];
 #pragma unroll
-    for (int j = 0; j < 8; j += 2) {
-      const int c = n0 + (j < 4 ? 0 : 64) + 4 * tx + (j & 3);
-      if (r >= op.M || c >= op.Ncols) continue;
-      const EpiRow<float> w = epi_row<float>(op, r, c);
-      epi_store<float>(op, w, 0, acc[i][j], acc[i][j + 1], epi_load<float>(op, w, 0));
+    for (int i = 0; i < CF_TM; ++i)
+#pragma unroll
+      for (int j = 0; j < CF_TN; ++j) acc[i][j] = 0.f;
+    for (int kt = 0; kt < KT; ++kt, ++g) {
+      const int st = g % CF_STAGES;
+      mbar_wait(&full[st], (g / CF_STAGES) & 1);
+      const float* at = reinterpret_cast<const float*>(cf_smem + st * CF_STAGE);
+      const float* bs = reinterpret_cast<const float*>(cf_smem + st * CF_STAGE + CF_A) +
+                        wn * 64 + 4 * c;
+#pragma unroll 8
+      for (int k = 0; k < CF_BK; ++k) {
+        const int sw = cf_swz(k);
+        const float4 a0 = *reinterpret_cast<const float4*>(at + k * CF_BM + ((g0 ^ sw) << 2));
+        const float4 a1 = *reinterpret_cast<const float4*>(at + k * CF_BM + ((g1 ^ sw) << 2));
+        const float av[CF_TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        float bv[CF_TN];
+#pragma unroll
+        for (int j = 0; j < CF_TN / 4; ++j) {
+          const float4 v = *reinterpret_cast<const float4*>(bs + k * CF_BN + 16 * j);
+          bv[4 * j] = v.x, bv[4 * j + 1] = v.y, bv[4 * j + 2] = v.z, bv[4 * j + 3] = v.w;
+        }
+#pragma unroll
+        for (int i = 0; i < CF_TM; ++i)
+#pragma unroll
+          for (int j = 0; j < CF_TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+      mbar_arrive(&empty[st]);
+    }
+    const int row0 = m0 + wm * 64, col0 = n0 + wn * 64;
+    float* ep = reinterpret_cast<float*>(cf_smem + CF_EPI + warp * CF_EPI_WARP);
+    switch (op.epi) {
+      case EPI_IN: epi_f32<EPI_IN>(op, acc, ep, row0, col0, lane); break;
+      case EPI_Z: epi_f32<EPI_Z>(op, acc, ep, row0, col0, lane); break;
+      case EPI_FC0: epi_f32<EPI_FC0>(op, acc, ep, row0, col0, lane); break;
+      case EPI_FC1: epi_f32<EPI_FC1>(op, acc, ep, row0, col0, lane); break;
+      case EPI_C0: epi_f32<EPI_C0>(op, acc, ep, row0, col0, lane); break;
+      case EPI_GH: epi_f32<EPI_GH>(op, acc, ep, row0, col0, lane); break;
+      case EPI_F32: epi_f32<EPI_F32>(op, acc, ep, row0, col0, lane); break;
+      default: epi_f32<EPI_T>(op, acc, ep, row0, col0, lane);
     }
   }
 }
@@ -636,7 +845,8 @@ __global__ void __launch_bounds__(256) chain_head_kernel(const __grid_constant__
       s1 = fmaf(ge[o], w.y, s1);
     }
     const float2 m = ld2(aout + c);
-    gh_store<T>(op, w, c, m.x > 0.f ? s0 : 0.f, m.y > 0.f ? s1 : 0.f);
+    const float gv[2] = {m.x > 0.f ? s0 : 0.f, m.y > 0.f ? s1 : 0.f};
+    gh_store<T, 2>(op, w, c, gv);
   }
 }
 
@@ -673,6 +883,19 @@ __global__ void __launch_bounds__(256) chain_enc_kernel(const __grid_constant__ 
   }
 }
 
+// The persistent grid of a product's bm x bn tiles: a CTA an SM, at most a
+// tile each.  0 or a cudaError_t.
+int persistent_grid(const ChainOp& op, int bm, int bn, int* grid) {
+  int dev = 0, sms = 0;
+  cudaError_t c;
+  if ((c = cudaGetDevice(&dev)) != cudaSuccess ||
+      (c = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)c;
+  const int tiles = ((op.Ncols + bn - 1) / bn) * ((op.M + bm - 1) / bm);
+  *grid = tiles < sms ? tiles : sms;
+  return 0;
+}
+
 template <typename T>
 int launch_op(const ChainOp& op, cudaStream_t s) {
   constexpr bool BF = sizeof(T) == 2;
@@ -695,16 +918,16 @@ int launch_op(const ChainOp& op, cudaStream_t s) {
           set = true;
         }
         ChainMaps maps;
-        int e = chain_maps(op, &maps), dev = 0, sms = 0;
-        if (e) return e;
-        cudaError_t c;  // the persistent grid: a CTA an SM, at most a tile each
-        if ((c = cudaGetDevice(&dev)) != cudaSuccess ||
-            (c = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-          return (int)c;
-        const int tiles = ((op.Ncols + CW_BN - 1) / CW_BN) * ((op.M + CW_BM - 1) / CW_BM);
-        const int grid = tiles < sms ? tiles : sms;
+        int grid = 0, e = chain_maps(op, &maps);
+        if (e || (e = persistent_grid(op, CW_BM, CW_BN, &grid))) return e;
         chain_gemm_wgmma_kernel<<<grid, CW_THREADS, CW_SMEM, s>>>(op, maps);
       } else {
+        // the epilogue's 16-byte groups, the tensor maps' segment strides
+        const uintptr_t ep = (uintptr_t)op.bias | (uintptr_t)op.H | (uintptr_t)op.pool |
+                             (uintptr_t)op.out | (uintptr_t)op.mask;
+        if ((ep & 15) || op.ldh % 4 || op.ldo % 4 || op.ldm % 4 || op.out_view % 4 ||
+            (op.nseg > 1 && (op.a_seg % 4 || op.b_seg % 4)))
+          return (int)cudaErrorInvalidValue;
         static bool set = false;
         if (!set) {
           const cudaError_t e = cudaFuncSetAttribute(
@@ -712,9 +935,10 @@ int launch_op(const ChainOp& op, cudaStream_t s) {
           if (e != cudaSuccess) return (int)e;
           set = true;
         }
-        const dim3 grid((unsigned)((op.Ncols + CH_BN - 1) / CH_BN),
-                        (unsigned)((op.M + CH_BM - 1) / CH_BM));
-        chain_gemm_f32_kernel<<<grid, CH_THREADS, CF_SMEM, s>>>(op);
+        ChainMaps maps;
+        int grid = 0, e = chain_maps_f32(op, &maps);
+        if (e || (e = persistent_grid(op, CF_BM, CF_BN, &grid))) return e;
+        chain_gemm_f32_kernel<<<grid, CF_THREADS, CF_SMEM, s>>>(op, maps);
       }
       break;
     }

@@ -89,8 +89,8 @@ memory, the weights read from L2.  Past 1,024 and past that shared memory
 either dtype, narrower trunks with latents too wide for the tile) the
 forward and the dgrad are ``csrc/resnetfc_chain.cu``'s chain: each product one
 launch over a chunk of up to ``CHAIN_CHUNK`` points (:func:`chain_plan`),
-a tiled product (bf16 on ``wgmma`` from a TMA ring, a persistent CTA an SM)
-whose epilogue adds into the float32 trunk in device memory and writes the
+a tiled product (bf16 on ``wgmma``, float32 by register-tiled FMA, each
+from a TMA ring in a persistent CTA an SM) whose epilogue adds into the float32 trunk in device memory and writes the
 next product's operand into its stash slot.  The
 wgrads above take their jobs at any width.  A latent of any width is
 zero-padded to a multiple of 64 lanes (:func:`pad_latent`), as lin_in's

@@ -11,8 +11,9 @@ points, NS 1, a latent of 1,152, 64 encoded lanes): the forward (no stash,
 as served) and the dgrad on the stash forward's activations, bf16 at
 d_hidden 1,280 and 2,048 and float32 at 1,920, by CUDA events, each
 forward held to the plain version first (its error relative to the largest
-output; a digest of its bits beside: equal digests, equal bits).  Trees
-compare only within one call.  Prints the card's name and
+output; a digest of its bits beside: equal digests, equal bits), and a
+digest of the dgrad's outputs (dx, dz, the cotangent slots, gout and enc,
+in that order) beside its time.  Trees compare only within one call.  Prints the card's name and
 power limit, then one JSON object a reading.
 
     python3 chain_turns.py --bins CHECKOUT [CHECKOUT ...]
@@ -25,12 +26,18 @@ sort among them.
     python3 chain_turns.py --records CHECKOUT [CHECKOUT ...]
 
 times instead one chain call record by record (CUDA events around each
-record's launch, in ``chain_plan``'s order), the bf16 forward (no stash) and
-dgrad at d_hidden 1,280 and 2,048 at the band chunk, grouped by kind and
-epilogue (``gemm/in``, ``gemm/z``, ``gemm/fc0``, ``gemm/fc1``, ``gemm/c0``,
-``gemm/gh``, ``gemm/f32``, ``gemm/dz``, ``head``, ``linout``, ``enc``): ms a
-call, records, the products' TFLOP/s and the epilogue's bytes a call by
-group, beside the whole call's ms without the events between records.
+record's launch, in ``chain_plan``'s order), the forward (no stash) and
+dgrad at the band chunk, bf16 at d_hidden 1,280 and 2,048 and float32 at
+1,920, grouped by kind and epilogue (``gemm/in``, ``gemm/z``,
+``gemm/fc0``, ``gemm/fc1``, ``gemm/c0``, ``gemm/gh``, ``gemm/f32``,
+``gemm/dz``, ``head``, ``linout``, ``enc``): ms a call, records, the
+products' TFLOP/s and the epilogue's bytes a call by group (``EPI_BYTES``,
+by dtype), beside the whole call's ms without the events between records.
+For float32 it also runs each call in a loop of about three seconds with
+the card's SM clock and power draw sampled by ``nvidia-smi``
+(``avr_tpu_torch.profiling.wgrad_timing.sustained``), and it prints the
+chain kernels' registers, spills and shared memory from the tree's build
+log (``ptxas -v``, ``avr_tpu_torch/_build/*.log``).
 """
 
 from __future__ import annotations
@@ -64,7 +71,14 @@ for cd, dh in ((torch.bfloat16, 1280), (torch.bfloat16, 2048), (torch.float32, 1
     gs, wd, _ = K2._bwd_operands(a, d, g, K2.NAME_DGRAD)
     b = cs.time_ms(lambda: K2._dgrad(a, d, st, gs, wd, cd), iters=it, warmup=1)
     digest = hashlib.sha256(o.float().cpu().numpy().tobytes()).hexdigest()[:16]
-    res[f"{str(cd)[6:]} {dh}"] = dict(fwd_ms=f, dgrad_ms=b, rel_err=err, fwd_digest=digest)
+    # the dgrad's outputs, in 256 MB pieces through the host
+    h = hashlib.sha256()
+    for t in K2._dgrad(a, d, st, gs, wd, cd):
+        flat = t.contiguous().view(-1).view(torch.uint8)
+        for i in range(0, flat.numel(), 1 << 28):
+            h.update(flat[i:i + (1 << 28)].cpu().numpy().tobytes())
+    res[f"{str(cd)[6:]} {dh}"] = dict(fwd_ms=f, dgrad_ms=b, rel_err=err, fwd_digest=digest,
+                                      dgrad_digest=h.hexdigest()[:16])
     del a, st, gs, wd, x, z, g, want
     torch.cuda.empty_cache()
 print(json.dumps(res), flush=True)
@@ -88,22 +102,41 @@ print(json.dumps(res), flush=True)
 # one chain call launched record by record (the library's entry point
 # wrapped), CUDA events around each record
 _RECORDS = """
-import collections, ctypes, json, sys
+import collections, ctypes, json, re, sys
+from pathlib import Path
 sys.path.insert(0, ".")
 import torch
 import chip_smoke as cs
 from avr_tpu_torch.ops.kernels import _build, resnetfc as K2
+from avr_tpu_torch.profiling.wgrad_timing import sustained
 torch.backends.cuda.matmul.allow_tf32 = False
-_build.load_library()
+info = _build.load_library()
 real_fn = _build.kernel_fn
 real = real_fn("avr_resnetfc_chain", [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 EPI = {v: k for k, v in K2.CHAIN_EPI.items()}
 KIND = {v: k for k, v in K2.CHAIN_KINDS.items()}
-# epilogue bytes an output element (bf16): reads and writes of H, pool, the
-# operand written, the mask read
-EPI_BYTES = {"in": 4, "z": 10, "fc0": 2, "fc1": 10, "c0": 4, "gh": 12, "f32": 4, "t": 2, "dz": 2}
+# epilogue bytes an output element by dtype: reads and writes of H, pool,
+# the operand written, the mask read
+EPI_BYTES = {
+    torch.bfloat16: {"in": 4, "z": 10, "fc0": 2, "fc1": 10, "c0": 4, "gh": 12, "f32": 4, "t": 2,
+                     "dz": 2},
+    torch.float32: {"in": 4, "z": 12, "fc0": 4, "fc1": 12, "c0": 8, "gh": 16, "f32": 4, "t": 4,
+                    "dz": 4}}
 SIZE = ctypes.sizeof(K2.ChainOp)
 timed = []
+epi_bytes = EPI_BYTES[torch.bfloat16]
+
+
+# the chain kernels' ptxas lines: registers, spills, shared memory
+def ptxas(log):
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\\w+)", line)
+        if m:
+            name = m.group(1) if "chain_" in m.group(1) else None
+        elif name and ("spill" in line or "Used" in line):
+            out.setdefault(name, []).append(" ".join(line.split()))
+    return out
 
 
 def label(r):
@@ -125,7 +158,7 @@ def by_record(ops, n, dtype, stream):
             return err
         lb = label(r)
         flop = 2.0 * r.M * r.Ncols * r.K * r.nseg if lb.startswith("gemm") else 0.0
-        nbytes = EPI_BYTES[lb[5:]] * r.M * r.Ncols if lb.startswith("gemm") else 0
+        nbytes = epi_bytes[lb[5:]] * r.M * r.Ncols if lb.startswith("gemm") else 0
         timed.append((lb, ev, flop, nbytes))
     return 0
 
@@ -158,16 +191,23 @@ def split(call, iters=3):
 
 gen = torch.Generator(device="cuda").manual_seed(3)
 res = {"checkout": sys.argv[1]}
-cd = torch.bfloat16
-for dh in (1280, 2048):
+log = Path(info["path"]).with_suffix(".log")
+res["ptxas"] = ptxas(log.read_text()) if log.exists() else "no build log"
+for cd, dh in ((torch.bfloat16, 1280), (torch.bfloat16, 2048), (torch.float32, 1920)):
+    epi_bytes = EPI_BYTES[cd]
     w = cs.decoder_weights(gen, dh=dh, dl=1152)
     x, z, g = cs.wide_inputs(gen, cs.BAND, 1, 1152, cs.CODE, cd)
     a = K2._prepare(x, z, w, cs.CODE, cd)
     d = K2._dims(a, 5, 3, True)
     st = K2._forward(a, d, cd, True)[1]
     gs, wd, _ = K2._bwd_operands(a, d, g, K2.NAME_DGRAD)
-    res[f"bfloat16 {dh}"] = dict(fwd=split(lambda: K2._forward(a, d, cd, False)),
-                                 dgrad=split(lambda: K2._dgrad(a, d, st, gs, wd, cd)))
+    fwd, dgrad = lambda: K2._forward(a, d, cd, False), lambda: K2._dgrad(a, d, st, gs, wd, cd)
+    row = dict(fwd=split(fwd), dgrad=split(dgrad))
+    if cd == torch.float32:
+        fields = "clocks.sm,clocks.mem,power.draw,temperature.gpu"
+        row["fwd_sustained"] = sustained(fwd, 3.0, fields)
+        row["dgrad_sustained"] = sustained(dgrad, 3.0, fields)
+    res[f"{str(cd)[6:]} {dh}"] = row
     del a, st, gs, wd, x, z, g
     torch.cuda.empty_cache()
 print(json.dumps(res), flush=True)

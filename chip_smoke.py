@@ -5629,6 +5629,62 @@ def chain_bound(cd, dh, dl, k_in, backward):
 CHAIN_KERNELS = ("chain_gemm_wgmma_kernel", "chain_gemm_f32_kernel", "chain_linout_kernel",
                  "chain_head_kernel", "chain_enc_kernel")
 CHAIN_DEVICE_FLOOR = 0.9
+# the widths time_chain times the chain at, by dtype
+CHAIN_TIMED = ((torch.bfloat16, (1280, 2048)), (torch.float32, (1920,)))
+
+
+def chain_calls(gen, cd, dh):
+    """time_chain's band call at ``dh``: its inputs and its forward (no
+    stash) and dgrad (on the stash forward's activations) as closures."""
+    w = decoder_weights(gen, dh=dh, dl=WIDE_DL)
+    x, z, g = wide_inputs(gen, BAND, 1, WIDE_DL, CODE, cd)
+    args = K2._prepare(x, z, w, CODE, cd)
+    dims = K2._dims(args, 5, 3, True)
+    st = K2._forward(args, dims, cd, True)[1]
+    gs, wd, _ = K2._bwd_operands(args, dims, g, K2.NAME_DGRAD)
+    return (dict(w=w, x=x, z=z, g=g, args=args, dims=dims, st=st),
+            lambda: K2._forward(args, dims, cd, False),
+            lambda: K2._dgrad(args, dims, st, gs, wd, cd))
+
+
+def chain_device_ms():
+    """Device ms a call by kernel (CHAIN_KERNELS, ``torch.profiler``) of
+    time_chain's calls, keyed ``"<dtype> <d_hidden> fwd"`` / ``"... dgrad"``.
+    Run in a process of its own (:func:`chain_device_child`)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.load_library()
+    gen = torch.Generator(device=DEV).manual_seed(15)
+    out = {}
+    for cd, dhs in CHAIN_TIMED:
+        iters = 3 if cd == torch.bfloat16 else 1
+        for dh in dhs:
+            _, fcall, bcall = chain_calls(gen, cd, dh)
+            out[f"{str(cd)[6:]} {dh} fwd"] = kernel_device_ms(fcall, CHAIN_KERNELS, iters=iters)
+            out[f"{str(cd)[6:]} {dh} dgrad"] = kernel_device_ms(bcall, CHAIN_KERNELS, iters=iters)
+            del fcall, bcall
+            torch.cuda.empty_cache()
+    return out
+
+
+_CHAIN_DEVICE = """
+import json, sys
+sys.path.insert(0, ".")
+import chip_smoke
+print(json.dumps(chip_smoke.chain_device_ms()), flush=True)
+"""
+
+
+def chain_device_child():
+    """:func:`chain_device_ms` in a child process, waited for: a profiler of
+    its own (in the default run, after the other phases' profiles, this
+    process's profiler returned none or part of the chain's kernels)."""
+    torch.cuda.empty_cache()
+    r = subprocess.run([sys.executable, "-c", _CHAIN_DEVICE],
+                       cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                       text=True, timeout=600)
+    if r.returncode:
+        raise AssertionError(f"the chain's device times: exit {r.returncode}\n{r.stderr[-3000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
 
 
 def time_chain(gen, rows):
@@ -5636,13 +5692,15 @@ def time_chain(gen, rows):
     64 encoded lanes): bf16 d_hidden 1,280 and 2,048, float32 1,920; the
     forward (no stash, as served) and the dgrad on the stash forward's
     activations, each by CUDA events beside its device ms by kernel
-    (``torch.profiler``, CHAIN_KERNELS), its plain version, the cuBLAS chain
-    of its products (``product_chain``) and its bound.  Returns the four
-    kernel rows (bf16 at 1,280 with the 2,048 readings beside, float32 at
+    (``torch.profiler``, CHAIN_KERNELS, in a process of its own:
+    :func:`chain_device_child`), its plain version, the cuBLAS chain of its
+    products (``product_chain``) and its bound.  Returns the four kernel
+    rows (bf16 at 1,280 with the 2,048 readings beside, float32 at
     1,920)."""
     kw = dict(n_blocks=5, n_lin_z=3, activate_out=True)
     out = []
-    for cd, dhs in ((torch.bfloat16, (1280, 2048)), (torch.float32, (1920,))):
+    devs = chain_device_child()
+    for cd, dhs in CHAIN_TIMED:
         fwd_cases, bwd_cases = rows[cd]
         fr = dict(name=K2.NAME_CHAIN[cd], source="avr_tpu_torch/csrc/resnetfc_chain.cu",
                   replaces="avr_tpu/ops/pallas/resnetfc.py:896", tpu_kernel="fused_resnetfc",
@@ -5652,25 +5710,19 @@ def time_chain(gen, rows):
                   cases=bwd_cases, library="the cuBLAS chain of the dgrad's products")
         iters = 3 if cd == torch.bfloat16 else 1
         for dh in dhs:
-            w = decoder_weights(gen, dh=dh, dl=WIDE_DL)
-            x, z, g = wide_inputs(gen, BAND, 1, WIDE_DL, CODE, cd)
-            args = K2._prepare(x, z, w, CODE, cd)
-            dims = K2._dims(args, 5, 3, True)
-            k_in = dims["k_in"]
-            fcall = lambda: K2._forward(args, dims, cd, False)
+            t, fcall, bcall = chain_calls(gen, cd, dh)
+            w, x, z, g, st = t["w"], t["x"], t["z"], t["g"], t["st"]
+            k_in = t["dims"]["k_in"]
             fwd_ms = time_ms(fcall, iters=iters, warmup=1)
-            fdev = kernel_device_ms(fcall, CHAIN_KERNELS, iters=iters)
-            st = K2._forward(args, dims, cd, True)[1]
-            gs, wd, _ = K2._bwd_operands(args, dims, g, K2.NAME_DGRAD)
-            bcall = lambda: K2._dgrad(args, dims, st, gs, wd, cd)
+            fdev = devs[f"{str(cd)[6:]} {dh} fwd"]
             dgrad_ms = time_ms(bcall, iters=iters, warmup=1)
-            bdev = kernel_device_ms(bcall, CHAIN_KERNELS, iters=iters)
+            bdev = devs[f"{str(cd)[6:]} {dh} dgrad"]
             fplain = time_ms(lambda: resnetfc_plain(x, z, w, compute_dtype=cd, code=CODE, **kw),
                              iters=iters, warmup=1)
             bplain = time_ms(lambda: decoder_bwd_matched(x, z, w, st, g, n_blocks=5, n_lin_z=3,
                                                          code=CODE, compute_dtype=cd,
                                                          wgrads=False), iters=iters, warmup=1)
-            del st, gs, wd
+            del t, st, fcall, bcall
             torch.cuda.empty_cache()
             flib = time_ms(product_chain(gen, BAND, dh, WIDE_DL, k_in, cd, False), iters=iters,
                            warmup=1)
@@ -5699,7 +5751,7 @@ def time_chain(gen, rows):
                       f"{CHAIN_DEVICE_FLOOR:.0%} of the call")
                 print(f"kernel {r['name']} {shape}: {ms:.3f} ms ({by}; plain {pl:.3f}, "
                       f"cuBLAS chain {lib:.3f}, bound {b_ms:.3f} by {b_by})")
-            del args, x, z, g
+            del x, z, g
             torch.cuda.empty_cache()
         out += [fr, br]
     return out

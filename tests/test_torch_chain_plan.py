@@ -326,14 +326,27 @@ def test_chain_tiles_fit_the_card():
     boxes, a TMA box at most 256 rows; its tile two warpgroups of
     ``m64n256k16`` (64 rows each, 256 columns, k steps of 16) and a producer
     warpgroup; the epilogue's load groups whole 8-column groups of the
-    fragment.  Two CTAs of the float32 kernel fit an SM; a stage's k divides
-    every K the chain takes (multiples of 64); every float32 shared row
-    16-byte aligned; a chunk fits the float32 grid; a float32 thread's 8 x 8
-    outputs tile the CTA's."""
+    fragment.  The float32 kernel: its ring (an A box and a B box a stage)
+    and barriers within an SM's 227 KB at one CTA an SM, the launch bound
+    of two consumer warpgroups and a producer warpgroup at one CTA an SM,
+    their registers within the SM's (``setmaxnreg``); a
+    thread's CF_TM x CF_TN outputs tile a warp's 64 x 64 and the warps the
+    CTA's (4 x 2); a stage's k divides every K the chain takes (multiples of
+    64); its raw A ring and k-major stages (an A tile and a B box each)
+    whole 128-byte units, every box's rows 16-byte aligned, every box at
+    most 256 rows, the three transposing warps counted on the barriers;
+    each consumer warp's epilogue buffer (8 rows of 64 columns) after the
+    barriers, its rows 16-byte aligned;
+    a chunk fits the grid (every tile and warp block an int)."""
     e = _constants()
-    assert e["CW_SMEM"] == 196_672 and e["CF_SMEM"] == 105_984
+    assert e["CW_SMEM"] == 196_672 and e["CF_SMEM"] == 168_048
     assert e["CW_SMEM"] == e["CW_STAGES"] * e["CW_STAGE"] + 2 * e["CW_STAGES"] * 8 <= K2.SMEM_MAX
-    assert e["CW_STAGES"] >= 3 and 2 * e["CF_SMEM"] <= K2.SMEM_MAX
+    assert e["CF_BAR"] == e["CF_STAGES"] * e["CF_STAGE"] + e["CF_RAW"] * e["CF_A"]
+    assert e["CF_EPI"] == e["CF_BAR"] + 2 * (e["CF_STAGES"] + e["CF_RAW"]) * 8
+    assert e["CF_SMEM"] == e["CF_EPI"] + 8 * e["CF_EPI_WARP"] <= K2.SMEM_MAX
+    assert e["CF_EPI_WARP"] == 8 * e["CF_EPI_LD"] * 4 and e["CF_EPI_LD"] >= 64
+    assert e["CF_EPI"] % 16 == 0 and (e["CF_EPI_LD"] * 4) % 16 == 0
+    assert e["CW_STAGES"] >= 3 and e["CF_STAGES"] >= 3 and e["CF_RAW"] >= 2
     assert e["CW_A"] == e["CW_BM"] * e["CW_BK"] * 2
     assert e["CW_STAGE"] == (e["CW_BM"] + e["CW_BN"]) * e["CW_BK"] * 2
     assert e["CW_A"] % 1024 == 0 and (e["CW_A"] // 2) % 1024 == 0 and e["CW_STAGE"] % 1024 == 0
@@ -342,12 +355,25 @@ def test_chain_tiles_fit_the_card():
     assert e["CW_BM"] == 2 * 64 and e["CW_BN"] == 256 and e["CW_THREADS"] == 3 * 128
     assert (e["CW_BN"] // 8) % e["CW_EPI_GROUPS"] == 0
     assert "wgmma_m64n256k16<0, 0>" in SRC and "mbar_init(&empty[s], 256)" in SRC
-    assert (e["CH_BM"] // 8) * (e["CH_BN"] // 8) == e["CH_THREADS"]
-    assert 64 % e["CW_BK"] == 0 and 64 % e["CF_BK"] == 0
-    assert (e["CF_LDA"] * 4) % 16 == 0 and (e["CF_LDB"] * 4) % 16 == 0
-    assert K2.CHAIN_CHUNK <= e["CH_ROWS_MAX"] == 65535 * e["CH_BM"]
+    assert e["CF_THREADS"] == 3 * 128 and 128 * 40 + 256 * 232 <= 65_536
+    assert "setmaxnreg_dec<40>" in SRC and "setmaxnreg_inc<232>" in SRC
+    assert (e["CF_THREADS"] - 128) * e["CF_TM"] * e["CF_TN"] == e["CF_BM"] * e["CF_BN"]
+    assert 8 * e["CF_TM"] == 64 and 4 * e["CF_TN"] == 64  # a warp's 8 x 4 lanes
+    assert e["CF_BM"] == 4 * 64 and e["CF_BN"] == 2 * 64 and e["CF_TN"] % 4 == 0
+    assert 64 % e["CW_BK"] == 0 and 64 % e["CF_BK"] == 0 and e["CF_BK"] % 4 == 0
+    assert e["CF_A"] == e["CF_BM"] * e["CF_BK"] * 4 and (e["CF_BK"] * 4) % 16 == 0
+    assert e["CF_STAGE"] == e["CF_A"] + e["CF_BK"] * e["CF_BN"] * 4
+    assert e["CF_A"] % 128 == 0 and e["CF_STAGE"] % 128 == 0 and (e["CF_BN"] * 4) % 16 == 0
+    assert e["CF_BAR"] % 8 == 0 and max(e["CF_BM"], e["CF_BN"], e["CF_BK"]) <= 256
+    # the transposing warps: the producer warpgroup's three after its first,
+    # each stage's 4 x 4 blocks among them; the full barrier counts them
+    assert "mbar_init(&full[s], 1 + 96)" in SRC and "mbar_init(&raw_empty[s], 96)" in SRC
+    assert "mbar_init(&empty[s], 256)" in SRC
+    rows = e["CH_ROWS_MAX"]
+    assert K2.CHAIN_CHUNK <= rows and -(-rows // e["CF_BM"]) * -(-4096 // e["CF_BN"]) < 2 ** 31
+    assert -(-rows // e["CW_BM"]) * -(-4096 // e["CW_BN"]) < 2 ** 31 and (rows + 7) // 8 < 2 ** 31
     assert "__launch_bounds__(CW_THREADS, 1)\nchain_gemm_wgmma_kernel" in SRC
-    assert "__launch_bounds__(CH_THREADS, 2)\nchain_gemm_f32_kernel" in SRC
+    assert "__launch_bounds__(CF_THREADS, 1)\nchain_gemm_f32_kernel" in SRC
 
 
 class _At:
@@ -374,8 +400,11 @@ def test_tensor_maps_cover_whole_aligned_boxes(monkeypatch, cd, dh, dl, ns, pass
     384-point chunks (N off every tile): what the bf16 kernel's tensor maps
     cover has a 16-byte-aligned base (each segment's, ``a_seg`` and
     ``b_seg`` apart), 16-byte row and segment strides, and K and the output
-    columns in whole 64-wide boxes; the float32 kernel's 16-byte copies the
-    same bases and K."""
+    columns in whole 64-wide boxes; the float32 kernel's tensor maps the
+    same bases and strides, K in whole 32-k boxes, and its epilogue's
+    16-byte groups whole: the bias, trunk, view-sum, output and mask bases
+    16-byte aligned, their row strides and the views' output stride
+    multiples of 4 floats, as ``launch_op`` requires."""
     monkeypatch.setattr(K2, "CHAIN_CHUNK", 384)
     n, nb, nlz, k_in = 81_920 + 37, 5, 3, 64
     backward, stash = pass_ == "dgrad", pass_ != "forward_no_stash"
@@ -402,6 +431,12 @@ def test_tensor_maps_cover_whole_aligned_boxes(monkeypatch, cd, dh, dl, ns, pass
             assert all(b and b % 16 == 0 for b in bases), (r.epi, bases)
             if r.nseg > 1:
                 assert (r.a_seg * item) % 16 == 0 and (r.b_seg * item) % 16 == 0
+            if cd == F32:
+                assert r.K % _constants()["CF_BK"] == 0 and r.Ncols % 4 == 0
+                assert all(p % 16 == 0 for p in (r.bias or 0, r.H, r.pool, r.out or 0,
+                                                 r.mask or 0)), r.epi
+                assert r.ldh % 4 == 0 and r.ldo % 4 == 0 and r.ldm % 4 == 0
+                assert r.out_view % 4 == 0
     assert gemms == len([st for st in steps if st.kind == "gemm"]) * -(-n // 384)
 
 

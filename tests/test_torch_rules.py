@@ -46,7 +46,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "avr_tpu", "scripts")
 # the turns scripts' sources run as python -c
 SNIPPETS = ("_TURN", "_PROBE", "_STAMPED", "_CAPTURE", "_COMMON", "_SLICE", "_SWEEP",
-            "_STAMPED_MMA", "_SWEEP_PIECES", "_BINS", "_RECORDS")
+            "_STAMPED_MMA", "_SWEEP_PIECES", "_BINS", "_RECORDS", "_CHAIN_DEVICE")
 TINY = """
 include required("default_mv.conf")
 model {
