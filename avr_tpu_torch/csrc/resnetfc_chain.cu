@@ -1,12 +1,14 @@
 // K2's chain: the decoder's forward and dgrad as a chain of products, each
-// one launch over all of a chunk's points, for the shapes whose float32
-// trunk and widest operand do not fit one CTA's shared memory beside the
-// other kernels' tiles, and for every wide shape past d_hidden 1,024 that
-// no cluster kernel takes (ops/kernels/resnetfc.py forward_route and
-// backward_route say "chain", the rule chain_takes: bf16 and float32
-// d_hidden past 1,024, where the chain ran faster than the first wide
-// version of csrc/resnetfc_wide.cu, and narrower d_hidden with latents too
-// wide for that version's tile).
+// one launch over all of a chunk's points, for every shape that no register
+// or cluster kernel takes (ops/kernels/resnetfc.py forward_route and
+// backward_route say "chain", the rule chain_takes): d_hidden past 1,024 in
+// either dtype, bf16 forwards past the wgmma forward's FWD_OPERAND_MAX
+// lanes, bf16 dgrads below d_hidden 256 past the dgrad tail's envelope, and
+// shapes past the cluster kernels' shared memory.  The chain ran faster
+// than the first versions that took some of these shapes before
+// (csrc/resnetfc.cu's resnetfc_kernel, csrc/resnetfc_wide.cu's first
+// version) at every corner chip_smoke.py --chain-sweep timed, and they were
+// retired.
 //
 // Replaces, for those shapes, avr_tpu/ops/pallas/resnetfc.py:896
 // fused_resnetfc (the forward, kernel call :726, stash outputs :637-653)

@@ -731,11 +731,9 @@ __device__ __forceinline__ void fwd_block(WalkCtx& c, float (&acc)[64], float (&
 // a product's weight k-slabs piece by piece, each half by half.  The trunk
 // takes each piece's sum as it comes, h = acc_0 (lin_in) or h + acc_0 (an
 // injection), then h = h + acc_p, the bias after the last piece: past 768
-// lanes another rounding order than resnetfc_kernel's one float32 sum, and
-// at every width past 512 another sum order inside the products, so its
-// bits differ from that kernel's; both are held to the plain version at the
-// bf16 forward's 2^-7 of the largest output (chip_smoke.py
-// check_resnetfc_mma_sync).  Each row's arithmetic stays independent of its
+// lanes another rounding order than one float32 sum, held to the plain
+// version at the bf16 forward's 2^-7 of the largest output (chip_smoke.py
+// check_resnetfc_pieces).  Each row's arithmetic stays independent of its
 // place in the tile.  At 512 lanes and below the other instantiation runs
 // the code without the pieces: their loops, compiled into it, cost the
 // 512-lane forward 16% (2.04 against 1.77 ms at the band chunk on an H100,

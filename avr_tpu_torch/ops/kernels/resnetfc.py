@@ -26,13 +26,12 @@ encoded input lanes at most 512: every shipped config) takes
 64-point tile, the float32 trunk in two consumer warpgroups' registers, a
 producer thread streaming every product's weight k-slabs through a
 shared-memory ring by TMA, ``wgmma`` on the swizzled operand tile, the
-stash stored from that tile by TMA.  bf16 outside that envelope
-takes ``csrc/resnetfc.cu``'s 32-point ``mma.sync`` kernel, whose ~6.8 MB of
-weights stream from L2 for every tile, where its shared memory
-(:func:`mma_sync_smem`) holds the call, and the chain (below) past it.
-float32 takes ``csrc/resnetfc.cu``'s ``resnetfc_fwd_f32_kernel`` (:func:`f32_forward_plan`):
-a CTA a 32-point tile, register-tiled FMA products (8 points x 8 columns a
-thread, the trunk in registers), the transposed weights' 16-row slabs
+stash stored from that tile by TMA; the encoded input and the latent past
+512 lanes it takes in pieces, up to ``FWD_OPERAND_MAX`` lanes each.  bf16
+past that takes the chain (below).  float32 takes ``csrc/resnetfc.cu``'s
+``resnetfc_fwd_f32_kernel`` (:func:`f32_forward_plan`): a CTA a 32-point
+tile, register-tiled FMA products (8 points x 8 columns a thread, the trunk
+in registers), the transposed weights' 16-row slabs
 streamed through a shared-memory ring by copies the warps take turns to
 issue.
 Under autograd the forward also writes the 2 * n_blocks + 1 post-ReLU
@@ -65,29 +64,24 @@ float32 too is the same run to run.
 Every kernel above keeps its trunk or trunk cotangent in registers, full at
 ``d_hidden`` 512, and the bf16 dgrad's tail takes at most 512 latent and
 128 encoded input lanes.  Past those envelopes the forward and the dgrad are
-``csrc/resnetfc_wide.cu``'s.  bf16 with ``d_hidden`` from 256 to 1,024
-(:func:`forward_route` and :func:`backward_route` say ``"wide_tma"``, the
-rule :func:`wide_tma_fits`) takes its Hopper kernels: a CTA a tile of 32
+``csrc/resnetfc_wide.cu``'s cluster kernels where they fit.  bf16 with
+``d_hidden`` from 256 to 1,024 (:func:`forward_route` and
+:func:`backward_route` say ``"wide_tma"``, the rule :func:`wide_tma_fits`;
+the forward only past 512) takes its TMA kernels: a CTA a tile of 32
 points, the float32 trunk in registers, the weights streamed through a
-shared ring by TMA, each stage multicast to a cluster of 4 CTAs, products
+shared ring by TMA, each stage multicast to a cluster of 2 CTAs, products
 by ``mma.sync`` from shared memory.  float32 with ``d_hidden`` from 576 to
-1,024 (``"wide_f32"``, the rule :func:`wide_f32_fits`) takes its cluster
-kernels: a CTA
-a tile of 16 points, the float32 trunk and one operand tile in shared
-memory, full-width weight slabs of 8 rows streamed through a 3-stage (at
-1,024) shared ring by bulk copies, each multicast to a cluster of 2 CTAs (the
-forward's latent rows read into the operand tile a chunk at a time),
-register-tiled FMA (16
-points x 8 columns a thread), one FMA chain per output in k order as the
-first version's.  The wide shapes neither takes up to ``d_hidden`` 1,024
-(``"wide"``: bf16 below 256, or operands past the cluster kernels' shared
-memory) take the first version where its CTA fits, one kernel each
-templated on the operand type (bf16 ``mma.sync``, float32 FMA): a CTA a
-tile of 32 (bf16) or 16 (float32) points, the float32 trunk in shared
-memory, the weights read from L2.  Past 1,024 and past that shared memory
-(``"chain"``, the rule :func:`chain_takes`: ``d_hidden`` past 1,024 in
-either dtype, narrower trunks with latents too wide for the tile) the
-forward and the dgrad are ``csrc/resnetfc_chain.cu``'s chain: each product one
+1,024 (``"wide_f32"``, the rule :func:`wide_f32_fits`) takes its float32
+kernels: a CTA a tile of 16 points, the float32 trunk and one operand tile
+in shared memory, full-width weight slabs of 8 rows streamed through a
+3-stage (at 1,024) shared ring by bulk copies, each multicast to a cluster
+of 2 CTAs (the forward's latent rows read into the operand tile a chunk at
+a time), register-tiled FMA (16 points x 8 columns a thread), one FMA chain
+per output in k order.  Every other shape (``"chain"``, the rule
+:func:`chain_takes`: ``d_hidden`` past 1,024 in either dtype, bf16 forwards
+past ``FWD_OPERAND_MAX`` lanes, bf16 dgrads below ``d_hidden`` 256 past the
+tail, operands past the cluster kernels' shared memory) takes
+``csrc/resnetfc_chain.cu``'s chain: each product one
 launch over a chunk of up to ``CHAIN_CHUNK`` points (:func:`chain_plan`),
 a tiled product (bf16 on ``wgmma``, float32 by register-tiled FMA, each
 from a TMA ring in a persistent CTA an SM) whose epilogue adds into the float32 trunk in device memory and writes the
@@ -124,9 +118,9 @@ from avr_tpu_torch.ops.kernels import _build
 
 __all__ = ["CodeSpec", "DecoderWeights", "backward_route", "chain_plan", "chain_takes",
            "chain_workspace", "f32_dgrad_plan", "f32_forward_plan", "forward_route",
-           "fused_resnetfc", "mma_sync_smem", "pad_latent", "resnetfc_plain", "use_stash",
-           "encode_tables", "wgrad_plan", "wide_f32_fits", "wide_f32_smem", "wide_f32_stages",
-           "wide_smem", "wide_tma_fits", "wide_tma_smem"]
+           "fused_resnetfc", "pad_latent", "resnetfc_plain", "use_stash", "encode_tables",
+           "wgrad_plan", "wide_f32_fits", "wide_f32_smem", "wide_f32_stages", "wide_tma_fits",
+           "wide_tma_smem"]
 
 NAME = "fused_resnetfc"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -393,80 +387,74 @@ def forward_route(compute_dtype: torch.dtype, d_latent: int, k_in: int,
     """The forward kernel that a call with these operands launches on the
     card, for every shape :func:`fused_resnetfc` takes (``d_latent`` and
     ``k_in`` padded to multiples of 64, ``d_hidden`` a multiple of 64; every
-    number of views takes the same route): for ``d_hidden`` above 512,
-    ``"wide_tma"`` where :func:`wide_tma_fits` (bf16:
-    ``csrc/resnetfc_wide.cu resnetfc_wide_tma_fwd_kernel``), ``"wide_f32"``
-    where :func:`wide_f32_fits` (float32: ``resnetfc_wide_f32_fwd_kernel``),
-    else ``"chain"`` where :func:`chain_takes` (``csrc/resnetfc_chain.cu``,
-    a launch a product over all points) and ``"wide"``
-    (``resnetfc_wide_fwd_kernel``, the trunk in shared memory) for the
-    rest; else
+    number of views takes the same route): ``"chain"`` where
+    :func:`chain_takes` (``csrc/resnetfc_chain.cu``, a launch a product over
+    all points); else for ``d_hidden`` above 512 ``"wide_f32"`` (float32,
+    :func:`wide_f32_fits`: ``csrc/resnetfc_wide.cu
+    resnetfc_wide_f32_fwd_kernel``) or ``"wide_tma"`` (bf16,
+    :func:`wide_tma_fits`: ``resnetfc_wide_tma_fwd_kernel``); else
     ``"wgmma"`` (bf16 with ``d_latent`` and ``k_in`` at most
     ``FWD_OPERAND_MAX``, past 512 lanes in pieces of up to ``FWD_K_EXT``:
-    ``csrc/resnetfc_hopper.cu``), ``"mma_sync"`` (wider bf16 where
-    :func:`mma_sync_smem` fits, ``csrc/resnetfc.cu resnetfc_kernel``), the
-    chain past that, or ``"fma"`` (float32: ``csrc/resnetfc.cu
+    ``csrc/resnetfc_hopper.cu``) or ``"fma"`` (float32: ``csrc/resnetfc.cu
     resnetfc_fwd_f32_kernel``).  A route's build or launch failure raises:
     no call changes kernel."""
+    if chain_takes(compute_dtype, d_hidden, d_latent, k_in):
+        return "chain"
     if d_hidden > REG_DH_MAX:
-        if wide_f32_fits(compute_dtype, d_hidden, k_in):
-            return "wide_f32"
-        if wide_tma_fits(compute_dtype, d_hidden, d_latent, k_in):
-            return "wide_tma"
-        return "chain" if chain_takes(compute_dtype, d_hidden, d_latent, k_in) else "wide"
-    if compute_dtype == torch.float32:
-        return "fma"
-    if max(d_latent, k_in) <= FWD_OPERAND_MAX:
-        return "wgmma"
-    return "mma_sync" if mma_sync_smem(d_hidden, d_latent, k_in) <= SMEM_MAX else "chain"
+        return "wide_f32" if compute_dtype == torch.float32 else "wide_tma"
+    return "fma" if compute_dtype == torch.float32 else "wgmma"
 
 
 def backward_route(compute_dtype: torch.dtype, d_hidden: int, d_latent: int, k_in: int) -> str:
     """The dgrad that a call's backward launches on the card (the wgrads
-    take jobs of any width): ``"wgmma"`` (bf16 with ``d_hidden`` and
-    ``d_latent`` at most 512 and at most 128 encoded input lanes: the walk
-    and tail of ``csrc/resnetfc_hopper.cu``), ``"fma"`` (float32 with
-    ``d_hidden`` at most 512: ``csrc/resnetfc.cu resnetfc_dgrad_f32_kernel``)
-    or, for every other shape, ``"wide_tma"`` where :func:`wide_tma_fits`
-    (``csrc/resnetfc_wide.cu resnetfc_wide_tma_dgrad_kernel``),
-    ``"wide_f32"`` where :func:`wide_f32_fits`
-    (``resnetfc_wide_f32_dgrad_kernel``), else ``"chain"`` where
-    :func:`chain_takes` (``csrc/resnetfc_chain.cu``) and ``"wide"``
-    (``resnetfc_wide_dgrad_kernel``) for the rest.  ``d_latent`` and
-    ``k_in`` as padded."""
+    take jobs of any width): ``"chain"`` where :func:`chain_takes`
+    (``csrc/resnetfc_chain.cu``); else ``"wgmma"`` (bf16 with ``d_hidden``
+    and ``d_latent`` at most 512 and at most 128 encoded input lanes: the
+    walk and tail of ``csrc/resnetfc_hopper.cu``), ``"fma"`` (float32 with
+    ``d_hidden`` at most 512: ``csrc/resnetfc.cu
+    resnetfc_dgrad_f32_kernel``), ``"wide_f32"`` (float32,
+    :func:`wide_f32_fits`: ``csrc/resnetfc_wide.cu
+    resnetfc_wide_f32_dgrad_kernel``) or ``"wide_tma"`` (bf16,
+    :func:`wide_tma_fits`: ``resnetfc_wide_tma_dgrad_kernel``).
+    ``d_latent`` and ``k_in`` as padded."""
+    if chain_takes(compute_dtype, d_hidden, d_latent, k_in, True):
+        return "chain"
     if compute_dtype == torch.float32:
-        if d_hidden <= REG_DH_MAX:
-            return "fma"
-        if wide_f32_fits(compute_dtype, d_hidden, k_in):
-            return "wide_f32"
-    elif d_hidden <= REG_DH_MAX and d_latent <= TAIL_DL_MAX and k_in <= TAIL_KIN_MAX:
+        return "fma" if d_hidden <= REG_DH_MAX else "wide_f32"
+    if d_hidden <= REG_DH_MAX and d_latent <= TAIL_DL_MAX and k_in <= TAIL_KIN_MAX:
         return "wgmma"
-    elif wide_tma_fits(compute_dtype, d_hidden, d_latent, k_in, True):
-        return "wide_tma"
-    return "chain" if chain_takes(compute_dtype, d_hidden, d_latent, k_in, True) else "wide"
+    return "wide_tma"
 
 
-def mma_sync_smem(d_hidden: int, d_latent: int, k_in: int) -> int:
-    """Shared bytes of a ``resnetfc_kernel`` CTA (``csrc/resnetfc.cu
-    fwd_smem_bytes``) at NS > 1, the most any number of views takes: a
-    32-point tile of the widest of lin_in's operand and the trunk's
-    activations, the latent tile (bf16 rows of ``ceil(k / 64) * 64 + 32``),
-    and the view sum (32 x ``d_hidden`` floats)."""
-    rows = lambda k: -(-k // 64) * 64 + 32
-    return 32 * (rows(max(k_in, d_hidden)) + rows(d_latent)) * 2 + 32 * d_hidden * 4
+# The chain takes every shape no register or cluster kernel holds: at every
+# corner of the four families of such shapes that other kernels took before
+# it, the chain was the faster (chip_smoke.py --chain-sweep, CHAIN_SWEEP
+# A1-D4, in turns at the band chunk on an H100 80GB HBM3 at 700 W; PERF.md
+# section 6).
 
 
-# The wide kernels (csrc/resnetfc_wide.cu): a CTA a tile of WIDE_TM points
-# (bf16 32, float32 16), the float32 trunk (WIDE_TM x (d_hidden + 4)) and one
-# operand tile in shared memory, which a block holds up to SMEM_MAX bytes.
-WIDE_TM = {torch.bfloat16: 32, torch.float32: 16}
+def chain_takes(compute_dtype: torch.dtype, d_hidden: int, d_latent: int, k_in: int,
+                backward: bool = False) -> bool:
+    """The chain's rule (``csrc/resnetfc_chain.cu``), one function of the
+    shape: past ``REG_DH_MAX`` every shape that neither cluster kernel
+    takes (:func:`wide_f32_fits`, :func:`wide_tma_fits`); up to it bf16
+    forwards past ``FWD_OPERAND_MAX`` lanes and bf16 dgrads past the tail's
+    ``TAIL_DL_MAX`` / ``TAIL_KIN_MAX`` that the TMA cluster dgrad does not
+    take (``d_hidden`` below ``WIDE_TMA_DH[0]``).  ``d_latent`` and ``k_in``
+    as padded."""
+    if d_hidden > REG_DH_MAX:
+        return not (wide_f32_fits(compute_dtype, d_hidden, k_in)
+                    or wide_tma_fits(compute_dtype, d_hidden, d_latent, k_in, backward))
+    if compute_dtype == torch.float32:
+        return False
+    if not backward:
+        return max(d_latent, k_in) > FWD_OPERAND_MAX
+    return ((d_latent > TAIL_DL_MAX or k_in > TAIL_KIN_MAX)
+            and not wide_tma_fits(compute_dtype, d_hidden, d_latent, k_in, True))
+
+
+# The shared memory a Hopper block can use (csrc/resnetfc_wide.cu SMEM_MAX).
 SMEM_MAX = 232_448
-
-
-def wide_lda(compute_dtype: torch.dtype, k: int) -> int:
-    """The wide kernels' operand tile row stride, in elements, for rows of
-    ``k`` lanes (``csrc/resnetfc_wide.cu wide_lda``)."""
-    return -(-k // 64) * 64 + 32 if compute_dtype == torch.bfloat16 else k + 4
 
 
 # The bf16 TMA cluster kernels (csrc/resnetfc_wide.cu resnetfc_wide_tma_*):
@@ -493,11 +481,11 @@ def wide_tma_smem(d_hidden: int, d_latent: int, k_in: int, backward: bool = Fals
 
 def wide_tma_fits(compute_dtype: torch.dtype, d_hidden: int, d_latent: int, k_in: int,
                   backward: bool = False) -> bool:
-    """The route rule between the wide kernels, one function of the shape:
-    the bf16 TMA cluster kernel takes ``d_hidden`` from 256 to 1,024 (a
-    warp's trunk is at most two 64-column groups; the dgrad's d-encoding
-    chunk needs 256) where its shared memory fits; the first version every
-    other wide shape (float32, bf16 past 1,024 or past that memory)."""
+    """The bf16 TMA cluster kernels' envelope, one function of the shape:
+    ``d_hidden`` from 256 to 1,024 (a warp's trunk is at most two 64-column
+    groups; the dgrad's d-encoding chunk needs 256) where their shared
+    memory fits; the chain takes every other bf16 shape past the register
+    kernels (:func:`chain_takes`)."""
     lo, hi = WIDE_TMA_DH
     return (compute_dtype == torch.bfloat16 and lo <= d_hidden <= hi
             and wide_tma_smem(d_hidden, d_latent, k_in, backward) <= SMEM_MAX)
@@ -539,45 +527,13 @@ def wide_f32_smem(d_hidden: int, k_in: int) -> int:
 
 
 def wide_f32_fits(compute_dtype: torch.dtype, d_hidden: int, k_in: int) -> bool:
-    """The route rule for float32 wide shapes, one function of the shape:
-    the float32 cluster kernels take ``d_hidden`` above 512 up to 1,024
-    where at least WIDE_F32_STAGES_MIN stages fit (the card measured both
-    faster than the first version at every such width: PERF.md section 6);
-    the first version every other float32 wide shape (past 1,024 or past
-    that memory)."""
+    """The float32 cluster kernels' envelope, one function of the shape:
+    ``d_hidden`` above 512 up to 1,024 where at least WIDE_F32_STAGES_MIN
+    stages fit (the card measured both faster than the first wide version at
+    every such width: PERF.md section 6); the chain takes every other
+    float32 shape past 512 (:func:`chain_takes`)."""
     return (compute_dtype == torch.float32 and REG_DH_MAX < d_hidden <= WIDE_F32_DH_MAX
             and wide_f32_stages(d_hidden, k_in) >= WIDE_F32_STAGES_MIN)
-
-
-def wide_smem(compute_dtype: torch.dtype, d_hidden: int, d_latent: int, k_in: int,
-              backward: bool = False) -> int:
-    """Shared bytes of a wide forward (or, ``backward``, dgrad) CTA
-    (``csrc/resnetfc_wide.cu wide_fwd_smem``, ``wide_dgrad_smem``): the
-    trunk, the operand tile (the forward's as wide as its widest operand,
-    the dgrad's ``d_hidden``), and the dgrad's output cotangent tile."""
-    tm, item = WIDE_TM[compute_dtype], (2 if compute_dtype == torch.bfloat16 else 4)
-    k = d_hidden if backward else max(d_hidden, d_latent, k_in)
-    return tm * (d_hidden + 4) * 4 + tm * wide_lda(compute_dtype, k) * item + \
-        (tm * GOUT_W * 4 if backward else 0)
-
-
-# d_hidden above which the chain takes every wide shape no cluster kernel
-# takes: measured faster than the first version there (bf16 1,152, float32
-# 1,152 to 1,792, forward and dgrad, at the band chunk in two calls;
-# PERF.md section 6, chip_smoke.py --chain-sweep)
-CHAIN_DH_MIN = 1024
-
-
-def chain_takes(compute_dtype: torch.dtype, d_hidden: int, d_latent: int, k_in: int,
-                backward: bool = False) -> bool:
-    """The route rule between the first wide version and the chain
-    (``csrc/resnetfc_chain.cu``), one function of the shape, for a wide
-    shape that no cluster kernel takes: the chain takes it past
-    ``CHAIN_DH_MIN`` (where it was measured faster) and wherever the first
-    version's CTA (:func:`wide_smem`: the trunk and the widest operand of a
-    tile) does not fit ``SMEM_MAX`` bytes of shared memory."""
-    return (d_hidden > CHAIN_DH_MIN
-            or wide_smem(compute_dtype, d_hidden, d_latent, k_in, backward) > SMEM_MAX)
 
 
 # The chain (csrc/resnetfc_chain.cu): each product one launch over a chunk
@@ -982,19 +938,18 @@ def f32_dgrad_plan(N: int, ns: int, d_hidden: int, d_latent: int, k_in: int, n_b
                         sum(p[6] for p in products), tuple(products))
 
 
-# the forward's C entry points: the operands in _FWD_ORDER, out, stash (and
-# the wgmma and float32 kernels' view-sum scratch), the dims in _DIM_ORDER,
-# the stream
-FWD_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-FWD_WGMMA_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-FWD_WIDE_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+# the forward's C entry points by route: the operands in _FWD_ORDER, out,
+# stash, the view-sum scratch, the dims in _DIM_ORDER, the stream
+FWD_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_FWD_ENTRY = {"wgmma": "avr_resnetfc_fwd_bf16", "fma": "avr_resnetfc_fwd_f32",
+              "wide_tma": "avr_resnetfc_fwd_wide_tma", "wide_f32": "avr_resnetfc_fwd_wide_f32"}
 NAME_F32 = "fused_resnetfc_f32"  # forwards (stash or not) on the float32 kernel
-# forwards (stash or not) and dgrads (stash and recompute) on the wide
+# forwards (stash or not) and dgrads (stash and recompute) on the cluster
 # kernels, by dtype
 NAME_WIDE = {torch.bfloat16: "fused_resnetfc_wide", torch.float32: "fused_resnetfc_wide_f32"}
 NAME_DGRAD_WIDE = {torch.bfloat16: "resnetfc_dgrad_wide", torch.float32: "resnetfc_dgrad_wide_f32"}
-# the bf16 TMA cluster kernels and the float32 cluster kernels, counted also
-# under NAME_WIDE / NAME_DGRAD_WIDE
+# the bf16 TMA cluster kernels and the float32 cluster kernels, each counted
+# also under its own name
 NAME_WIDE_TMA = "fused_resnetfc_wide_tma"
 NAME_DGRAD_WIDE_TMA = "resnetfc_dgrad_wide_tma"
 NAME_WIDE_F32_RING = "fused_resnetfc_wide_f32_ring"
@@ -1008,10 +963,10 @@ def _forward(a, d, compute_dtype, stash: bool, st=None):
     """Launch the forward on :func:`forward_route`'s kernel; with ``stash``
     also return the activations (written into ``st`` where given).  Counted
     under ``NAME`` or ``NAME_STASH``, and the wgmma route also under
-    ``NAME_WGMMA``, the float32 one under ``NAME_F32``, the wide ones under
-    ``NAME_WIDE[compute_dtype]`` (the bf16 TMA cluster one also under
+    ``NAME_WGMMA``, the float32 one under ``NAME_F32``, the cluster ones
+    under ``NAME_WIDE[compute_dtype]`` (the bf16 TMA cluster one also under
     ``NAME_WIDE_TMA``, the float32 cluster one under
-    ``NAME_WIDE_F32_RING``)."""
+    ``NAME_WIDE_F32_RING``), the chain under ``NAME_CHAIN[compute_dtype]``."""
     dev = a["x"].device
     N, ns, dh = d["N"], d["ns"], d["d_hidden"]
     out = torch.empty((N, d["d_out"]), dtype=torch.float32, device=dev)
@@ -1034,51 +989,30 @@ def _forward(a, d, compute_dtype, stash: bool, st=None):
                                                      _build.ptr(st) if stash else None]
     dims = [d[k] for k in _DIM_ORDER]
     stream = ctypes.c_void_p(_build.stream_ptr(dev))
-    if route == "wgmma":
-        # the view sums of NS > 1: per 64-point tile, 64 x 128 floats for each
-        # 128-column half of each consumer warpgroup's d_hidden / 2 columns
-        halves = 2 if dh > 256 else 1
-        pool = (torch.empty(((N + FWD_TILE - 1) // FWD_TILE * FWD_TILE, 256 * halves),
-                            dtype=torch.float32, device=dev) if ns > 1 else None)
-        fn = _build.kernel_fn("avr_resnetfc_fwd_bf16", FWD_WGMMA_ARGTYPES)
-        err = fn(*ptrs, _build.ptr(pool) if ns > 1 else None, *dims, stream)
+    if compute_dtype == torch.float32:
+        # the float32 kernels read the transposed weights
+        ptrs = [_build.ptr(a.get(k + "T", a[k])) for k in _FWD_ORDER] + ptrs[len(_FWD_ORDER):]
+    # the view sums of NS > 1, by route: the wgmma forward's per 64-point
+    # tile 64 x 128 floats for each 128-column half of each consumer
+    # warpgroup's d_hidden / 2 columns; the float32 forward's 32 x d_hidden
+    # floats a tile; the cluster kernels' a CTA's points x d_hidden floats
+    # over the grid (whole clusters)
+    if ns == 1:
+        pool = None
+    elif route == "wgmma":
+        pool = torch.empty((-(-N // FWD_TILE) * FWD_TILE, 256 * (2 if dh > 256 else 1)),
+                           dtype=torch.float32, device=dev)
     elif route == "fma":
-        # the transposed weights in place of wi, wz, w0, w1; the view sums of
-        # NS > 1: 32 x d_hidden floats a tile
-        ptrs = [_build.ptr(a.get(k + "T", a[k])) for k in _FWD_ORDER] + ptrs[len(_FWD_ORDER):]
         plan = f32_forward_plan(N, ns, dh, d["d_latent"], d["k_in"], d["n_blocks"], d["n_lin_z"])
-        pool = (torch.empty((plan.blocks * plan.tile, dh), dtype=torch.float32, device=dev)
-                if ns > 1 else None)
-        fn = _build.kernel_fn("avr_resnetfc_fwd_f32", FWD_WGMMA_ARGTYPES)  # the same signature
-        err = fn(*ptrs, _build.ptr(pool) if ns > 1 else None, *dims, stream)
-    elif route in _CLUSTER_NAMES:
-        # the cluster kernels (float32 reads the transposed weights); the view
-        # sums of NS > 1: a CTA's points x d_hidden floats over the grid
-        # (whole clusters)
-        if route == "wide_f32":
-            ptrs = [_build.ptr(a.get(k + "T", a[k])) for k in _FWD_ORDER] + ptrs[len(_FWD_ORDER):]
-        tile = dgrad_tile(compute_dtype, route)
-        pool = (torch.empty((-(-N // tile) * tile, dh), dtype=torch.float32, device=dev)
-                if ns > 1 else None)
-        fn = _build.kernel_fn(f"avr_resnetfc_fwd_{route}", FWD_WGMMA_ARGTYPES)
-        err = fn(*ptrs, _build.ptr(pool) if ns > 1 else None, *dims, stream)
-    elif route == "wide":
-        # float32 reads the transposed weights; the view sums of NS > 1: a
-        # tile's WIDE_TM x d_hidden floats
-        ptrs = [_build.ptr(a.get(k + "T", a[k])) for k in _FWD_ORDER] + ptrs[len(_FWD_ORDER):]
-        tm = WIDE_TM[compute_dtype]
-        pool = (torch.empty((-(-N // tm) * tm, dh), dtype=torch.float32, device=dev)
-                if ns > 1 else None)
-        fn = _build.kernel_fn("avr_resnetfc_fwd_wide", FWD_WIDE_ARGTYPES)
-        err = fn(*ptrs, _build.ptr(pool) if ns > 1 else None, *dims, _DTYPES[compute_dtype],
-                 stream)
+        pool = torch.empty((plan.blocks * plan.tile, dh), dtype=torch.float32, device=dev)
     else:
-        fn = _build.kernel_fn("avr_resnetfc", FWD_ARGTYPES)
-        err = fn(*ptrs, *dims, _DTYPES[compute_dtype], stream)
+        tile = dgrad_tile(compute_dtype, route)
+        pool = torch.empty((-(-N // tile) * tile, dh), dtype=torch.float32, device=dev)
+    fn = _build.kernel_fn(_FWD_ENTRY[route], FWD_ARGTYPES)
+    err = fn(*ptrs, _build.ptr(pool) if ns > 1 else None, *dims, stream)
     _build.check(NAME_STASH if stash else NAME, err)
-    if route != "mma_sync":
-        _build.launches[{"wgmma": NAME_WGMMA, "fma": NAME_F32}.get(
-            route, NAME_WIDE[compute_dtype])] += 1
+    _build.launches[{"wgmma": NAME_WGMMA, "fma": NAME_F32}.get(route,
+                                                               NAME_WIDE[compute_dtype])] += 1
     if route in _CLUSTER_NAMES:
         _build.launches[_CLUSTER_NAMES[route][0]] += 1
     return out, st
@@ -1116,17 +1050,15 @@ def dgrad_tile(compute_dtype, route: Optional[str] = None) -> int:
     """Points a dgrad CTA walks on ``route`` (:func:`backward_route`; by
     default the dtype's route at the shipped widths): 64 on the bf16 wgmma
     walk (``csrc/resnetfc_hopper.cu``), :func:`f32_dgrad_plan`'s tile (32) on
-    the float32 one, ``WIDE_TM`` on the wide one; on the cluster kernels a
-    cluster's points (their grid is whole clusters, a CTA ``WIDE_TMA_TM``
-    or ``WIDE_F32_TM`` of them)."""
+    the float32 one; on the cluster kernels a cluster's points (their grid
+    is whole clusters, a CTA ``WIDE_TMA_TM`` or ``WIDE_F32_TM`` of them)."""
     route = route or ("wgmma" if compute_dtype == torch.bfloat16 else "fma")
-    return {"wgmma": 64, "fma": F32_FWD_TILE, "wide": WIDE_TM[compute_dtype],
-            "wide_tma": WIDE_TMA_TM * WIDE_TMA_CLUSTER,
+    return {"wgmma": 64, "fma": F32_FWD_TILE, "wide_tma": WIDE_TMA_TM * WIDE_TMA_CLUSTER,
             "wide_f32": WIDE_F32_TM * WIDE_F32_CLUSTER}[route]
 
 
 _DGRAD_ENTRY = {"wgmma": "avr_resnetfc_dgrad_bf16", "fma": "avr_resnetfc_dgrad",
-                "wide": "avr_resnetfc_dgrad_wide", "wide_tma": "avr_resnetfc_dgrad_wide_tma",
+                "wide_tma": "avr_resnetfc_dgrad_wide_tma",
                 "wide_f32": "avr_resnetfc_dgrad_wide_f32"}
 
 
@@ -1137,10 +1069,11 @@ def _dgrad(a, d, st, g, wd, compute_dtype, out=None, pool=None, name=NAME_DGRAD)
     cotangent ``gout`` and the encoded input ``enc``; into ``out`` (those
     five, by name) where given, with ``pool`` the NS > 1 scratch.  The
     kernel is :func:`backward_route`'s: float32's register-tiled dgrad is
-    counted also under ``NAME_DGRAD_F32``, either wide one under
+    counted also under ``NAME_DGRAD_F32``, either cluster one under
     ``NAME_DGRAD_WIDE[compute_dtype]`` and the TMA cluster one also under
     ``NAME_DGRAD_WIDE_TMA``, the float32 cluster one also under
-    ``NAME_DGRAD_WIDE_F32_RING``."""
+    ``NAME_DGRAD_WIDE_F32_RING``, the chain under
+    ``NAME_DGRAD_CHAIN[compute_dtype]``."""
     ns, N, dh = d["ns"], d["N"], d["d_hidden"]
     cd = compute_dtype
     dev = g.device
@@ -1174,14 +1107,11 @@ def _dgrad(a, d, st, g, wd, compute_dtype, out=None, pool=None, name=NAME_DGRAD)
         ptrs.append(_build.ptr(pool) if ns > 1 else None)
         dims = [d[k] for k in _DIM_ORDER]
         stream = ctypes.c_void_p(_build.stream_ptr(dev))
-        if route == "wgmma" or route in _CLUSTER_NAMES:
-            fn = _build.kernel_fn(_DGRAD_ENTRY[route], [ctypes.c_void_p] * 17
-                                  + [ctypes.c_int] * 10 + [ctypes.c_void_p])
-            err = fn(*ptrs, *dims, stream)
-        else:
-            fn = _build.kernel_fn(_DGRAD_ENTRY[route], [ctypes.c_void_p] * 17
-                                  + [ctypes.c_int] * 11 + [ctypes.c_void_p])
-            err = fn(*ptrs, *dims, _DTYPES[cd], stream)
+        # the float32 dgrad's entry also takes the dtype
+        dtype = [_DTYPES[cd]] if route == "fma" else []
+        fn = _build.kernel_fn(_DGRAD_ENTRY[route], [ctypes.c_void_p] * 17
+                              + [ctypes.c_int] * (10 + len(dtype)) + [ctypes.c_void_p])
+        err = fn(*ptrs, *dims, *dtype, stream)
         _build.check(name, err)
         if route != "wgmma":
             _build.launches[NAME_DGRAD_F32 if route == "fma" else NAME_DGRAD_WIDE[cd]] += 1

@@ -18,12 +18,11 @@ Phases (any failure raises and exits non-zero):
    activations (NS 1 and 2), its pieces past 512 latent or encoded lanes
    (a latent of 640 and 1,024, 576 encoded lanes, d_hidden 256 with a
    latent of 1,024: output, stash, reruns, and the stash and recompute
-   backward bit for bit; ``resnetfc_kernel`` held beside), and
-   the wgmma forward timed in turns against the parent's
-   ``mma.sync`` forward (``csrc/resnetfc.cu``, its C entry point called
-   directly) at the band chunk (serving) and at the train step's band call
-   with the stash, each loop beside the SM clock and power that
-   ``nvidia-smi`` read; K2's bf16 wgrad (the
+   backward bit for bit), and
+   the wgmma forward timed in turns with the cuBLAS chain of its products
+   at the band chunk (serving) and at the train step's band call with the
+   stash, each loop beside the SM clock and power that ``nvidia-smi``
+   read; K2's bf16 wgrad (the
    wgmma kernel and its reduction) per job against torch.matmul and a
    column sum on the same rounded operands; K2's recompute backward
    also against the stash backward kernels (bit for bit where the
@@ -246,8 +245,8 @@ Phases (any failure raises and exits non-zero):
     1,024 x 1,024 and 1,024 x 1,152 against ``torch.matmul``.  Each kernel
     timed at the band chunk (81,920 points) beside its plain version, the
     cuBLAS chain of its products and its bound; the wgmma forward's pieces
-    at d_hidden 512 with latents of 640 and 1,024 timed in turns with
-    ``resnetfc_kernel`` beside the same.  K1, K5 and K3 at 1,024
+    at d_hidden 512 with latents of 640 and 1,024 timed beside the same.
+    K1, K5 and K3 at 1,024
     latent channels against their plain versions.  Then the full-width
     slice: the adaptive model ``make_model`` builds from a conf string
     (``WIDE_CONF``: conf/default_mv.conf's model with d_hidden 1,024 in
@@ -290,6 +289,21 @@ runs only phase 10) and prints the report as one JSON line.
     python3 chip_smoke.py --wide
 
 runs only phase 11 and prints its report as one JSON line.
+
+    python3 chip_smoke.py --chain
+    python3 chip_smoke.py --chain-sweep [--retired=DIR]
+
+``--chain`` runs only phase 12 (K2's chain, ``csrc/resnetfc_chain.cu``, held
+at CHAIN_CASES and timed; the binned backward on large maps; the chain's
+slice).  ``--chain-sweep`` times the chain at the band chunk in turns
+against the route that took each of CHAIN_SWEEP's shapes before it
+(``sweep_row``: chain, other, other, chain, each held to its plain version
+first), beside the cuBLAS chain of its products and its bound: the
+evidence for the chain's range (``ops/kernels/resnetfc.py chain_takes``).
+The routes this tree retired (RETIRED: ``resnetfc_kernel``, the first wide
+version) run in DIR, a checkout of a commit that still has them, in a
+process of its own on the same inputs; without ``--retired`` their turns
+are not measured.
 """
 
 from __future__ import annotations
@@ -302,6 +316,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -464,24 +479,6 @@ def decoder_flops(n, ns, dh=512, nb=5, nlz=3):
                     + 2 * (nb - nlz) * dh * dh + dh * 4)
 
 
-def mma_sync_forward(args, dims, stash):
-    """The parent's bf16 forward (``csrc/resnetfc.cu``'s 32-point
-    ``mma.sync`` kernel, which forward_route keeps for bf16 shapes outside
-    the wgmma kernel's envelope) through its C entry point: the wgmma
-    forward's in-run timing reference, not counted as a launch."""
-    n = dims["N"]
-    out = torch.empty((n, dims["d_out"]), dtype=torch.float32, device=DEV)
-    st = (torch.empty((K2.stash_slots(dims["ns"], dims["n_blocks"], dims["n_lin_z"]), n,
-                       dims["d_hidden"]), dtype=torch.bfloat16, device=DEV) if stash else None)
-    fn = _build.kernel_fn("avr_resnetfc", K2.FWD_ARGTYPES)
-    err = fn(*(_build.ptr(args[k]) for k in K2._FWD_ORDER), _build.ptr(out),
-             _build.ptr(st) if stash else None, *(dims[k] for k in K2._DIM_ORDER), 1,
-             _build.stream_ptr(DEV))
-    if err:
-        raise RuntimeError(f"avr_resnetfc (mma.sync reference): cudaError {err}")
-    return out, st
-
-
 def alternate(calls, seconds=1.0):
     """Each of ``calls`` (label -> function) in loops of about ``seconds``,
     in turns (a b b a a b): per reading ms a call (CUDA events) with the SM
@@ -530,7 +527,7 @@ def check_resnetfc(gen, gen_new):
         want = resnetfc_plain(x, z, w, compute_dtype=cd, **kw)
         tol = rel * max(1.0, float(want.abs().max()))
         cases.append(check(f"N={n} NS={ns} {str(cd)[6:]}", max_err(got, want), tol))
-    cases += check_resnetfc_mma_sync(gen_new)
+    cases += check_resnetfc_pieces(gen_new)
     bf = torch.bfloat16
     x = (torch.rand(1, BAND, CODE.d_raw, generator=gen, device=DEV) * 2 - 1).contiguous()
     z = randn(gen, 1, BAND, C, dtype=bf)
@@ -539,20 +536,22 @@ def check_resnetfc(gen, gen_new):
     wbytes = sum(t.numel() for t in w) * 2
     b_ms, b_by = bound(x.numel() * 4 + z.numel() * 2 + wbytes + BAND * 4 * 4,
                        decoder_flops(BAND, 1), BF16_FLOPS)
-    # the wgmma forward against the parent's mma.sync forward, in turns in
+    # the wgmma forward beside the cuBLAS chain of its products, in turns in
     # this run: serving at the band chunk, and the stash forward at the band
-    # call of a train step
+    # call of a train step (the chain's inputs from a generator of their own)
     args = K2._prepare(x, z, w, CODE, bf)
     dims = K2._dims(args, 5, 3, True)
-    vs_parent = {"serve N=81920": alternate({
+    gen_lib = torch.Generator(device=DEV).manual_seed(32)
+    k_in = dims["k_in"]
+    vs_chain = {"serve N=81920": alternate({
         "wgmma": lambda: K2._forward(args, dims, bf, False),
-        "mma_sync": lambda: mma_sync_forward(args, dims, False)})}
+        "cublas_chain": product_chain(gen_lib, BAND, 512, C, k_in, bf, False)})}
     xs = torch.rand(1, BAND_TRAIN, CODE.d_raw, generator=gen_new, device=DEV) * 2 - 1
     sargs = K2._prepare(xs, randn(gen_new, 1, BAND_TRAIN, C, dtype=bf), w, CODE, bf)
     sdims = K2._dims(sargs, 5, 3, True)
-    vs_parent["stash N=327680"] = alternate({
+    vs_chain["stash N=327680"] = alternate({
         "wgmma": lambda: K2._forward(sargs, sdims, bf, True),
-        "mma_sync": lambda: mma_sync_forward(sargs, sdims, True)})
+        "cublas_chain": product_chain(gen_lib, BAND_TRAIN, 512, C, k_in, bf, False)})
     stash_ms = kernel_device_ms(lambda: K2._forward(sargs, sdims, bf, True), (FWD_KERNEL,))
     del sargs
     # the stash forward's least time: its products, or its 11 stash rows of
@@ -560,79 +559,51 @@ def check_resnetfc(gen, gen_new):
     act = BAND_TRAIN * 512 * 2
     sb_ms, sb_by = bound(xs.numel() * 4 + BAND_TRAIN * C * 2 + wbytes + BAND_TRAIN * 4 * 4
                          + K2.stash_slots(1, 5, 3) * act, decoder_flops(BAND_TRAIN, 1), BF16_FLOPS)
-    for label, r in vs_parent.items():
+    for label, r in vs_chain.items():
         m = r["median"]
-        print(f"K2 forward {label}: wgmma {m['wgmma']['ms']:.4f} ms, mma.sync "
-              f"{m['mma_sync']['ms']:.4f} ms (medians of 3 loops each, in turns; SM clock "
-              f"{m['wgmma']['clocks.sm']:.0f} / {m['mma_sync']['clocks.sm']:.0f} MHz, power "
-              f"{m['wgmma']['power.draw']:.0f} / {m['mma_sync']['power.draw']:.0f} W)")
+        print(f"K2 forward {label}: wgmma {m['wgmma']['ms']:.4f} ms, the cuBLAS chain of its "
+              f"products {m['cublas_chain']['ms']:.4f} ms (medians of 3 loops each, in turns; SM "
+              f"clock {m['wgmma']['clocks.sm']:.0f} / {m['cublas_chain']['clocks.sm']:.0f} MHz, "
+              f"power {m['wgmma']['power.draw']:.0f} / {m['cublas_chain']['power.draw']:.0f} W)")
     return dict(name="fused_resnetfc", source="avr_tpu_torch/csrc/resnetfc_hopper.cu",
                 replaces="avr_tpu/ops/pallas/resnetfc.py:896", tpu_kernel="fused_resnetfc",
                 shape=f"N={BAND}, NS=1, d_hidden 512, 5 blocks, bf16", cases=cases,
                 ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
                 stash_ms=stash_ms[FWD_KERNEL], stash_bound_ms=sb_ms, stash_bound_by=sb_by,
-                vs_mma_sync=vs_parent)
+                vs_cublas_chain=vs_chain)
 
 
 # bf16 beyond the wgmma forward's 512-lane A tile (d_hidden <= 512):
 # forward_route sends these to the wgmma forward, which takes the encoded
 # input and the latent in pieces of up to 768 lanes (its A tile and park
-# tiles), up to FWD_OPERAND_MAX; the C entry of csrc/resnetfc.cu's mma.sync
-# kernel (resnetfc_kernel) stays callable as its in-run reference.  A
-# latent of 1,024 (an encoder of 5
+# tiles), up to FWD_OPERAND_MAX.  A latent of 1,024 (an encoder of 5
 # stages: 64 + 64 + 128 + 256 + 512), 547 encoded lanes (8 frequencies of 32
 # coded lanes with the input, 3 passed through: padded to 576), the global
 # encoder's 640 lanes beside the spatial 512, and d_hidden 256 with a
 # latent of 1,024: (d_hidden, code, latent, views).
 WIDE_CODE = CodeSpec(num_freqs=8, freq_factor=1.5, include_input=True, d_coded=32, d_pass=3)
-MMA_SYNC_CASES = ((512, CODE, 1024, 2), (512, WIDE_CODE, C, 1), (512, CODE, 640, 1),
+PIECES_CASES = ((512, CODE, 1024, 2), (512, WIDE_CODE, C, 1), (512, CODE, 640, 1),
                   (256, CODE, 1024, 1))
 
 
-@contextlib.contextmanager
-def forward_route_forced(route):
-    """Every bf16 forward at d_hidden <= 512 on ``route`` ("wgmma": the
-    wgmma forward, in pieces past 512 lanes; "mma_sync": resnetfc_kernel),
-    whatever ``forward_route`` decides: for holding and timing the kernel
-    the rule does not take at a shape beside the one it does."""
-    fwd = K2.forward_route
-
-    def forced(cd, dl, k_in, dh=K2.REG_DH_MAX):
-        return route if cd == torch.bfloat16 and dh <= K2.REG_DH_MAX else fwd(cd, dl, k_in, dh)
-
-    K2.forward_route = forced
-    try:
-        yield
-    finally:
-        K2.forward_route = fwd
-
-
-def forward_on(route, args, dims, stash=False):
-    """K2's bf16 forward (``K2._forward``) on ``route``."""
-    with forward_route_forced(route):
-        return K2._forward(args, dims, torch.bfloat16, stash)
-
-
-def check_resnetfc_mma_sync(gen):
-    """K2's bf16 forward past 512 latent or encoded lanes at MMA_SYNC_CASES
+def check_resnetfc_pieces(gen):
+    """K2's bf16 forward past 512 latent or encoded lanes at PIECES_CASES
     (N off the 64-point tile): the wgmma forward's pieces through
-    fused_resnetfc where forward_route sends the shape there (the counters:
-    the wgmma forward once, no mma.sync launch), launched on its route
-    directly where the rule keeps resnetfc_kernel; its output against the
-    plain version at the bf16 cases' 2^-7 of the largest output, its stash
-    slot by slot (STASH_REL, STASH_FLIPS), both bit for bit on a rerun;
-    resnetfc_kernel (its C entry) against the plain version at the same
-    rule; and the backward on the pieces (their route forced where the rule
-    keeps resnetfc_kernel): the stash backward bit for bit on a rerun, the
-    recompute backward bit for bit the stash backward in one chunk, and its
-    point cotangents bit for bit in 1,000-point chunks (every forward of
-    them on the wgmma route)."""
+    fused_resnetfc (the counters: the wgmma forward once); its output
+    against the plain version at the bf16 cases' 2^-7 of the largest
+    output, its stash slot by slot (STASH_REL, STASH_FLIPS), both bit for
+    bit on a rerun; and the backward on the pieces: the stash backward bit
+    for bit on a rerun, the recompute backward bit for bit the stash
+    backward in one chunk, and its point cotangents bit for bit in
+    1,000-point chunks (every forward of them on the wgmma route)."""
     bf, kw, cases = torch.bfloat16, dict(n_blocks=5, n_lin_z=3, activate_out=True), []
     n = CHUNK + 37
-    for dh, code, dl, ns in MMA_SYNC_CASES:
+    for dh, code, dl, ns in PIECES_CASES:
         k_in = K2.d_enc_padded(code.d_enc)
         route = K2.forward_route(bf, dl, k_in, dh)
         label = f"d_hidden {dh} d_latent {dl} k_in {k_in} N={n} NS={ns} bf16"
+        if route != "wgmma":
+            raise AssertionError(f"K2 {label}: routed to {route}")
         w = decoder_weights(gen, code=code, dl=dl, dh=dh)
         x = (torch.rand(ns, n, code.d_raw, generator=gen, device=DEV) * 2 - 1).contiguous()
         z = randn(gen, ns, n, dl, dtype=bf)
@@ -640,19 +611,16 @@ def check_resnetfc_mma_sync(gen):
         tol = 2.0 ** -7 * max(1.0, float(want.abs().max()))
         args = K2._prepare(x, z, w, code, bf)
         dims = K2._dims(args, 5, 3, True)
-        if route == "wgmma":
-            before = dict(_build.launches)
-            got = fused_resnetfc(x, z, w, compute_dtype=bf, code=code, **kw)
-            ran = {k: v - before.get(k, 0) for k, v in _build.launches.items()
-                   if v != before.get(k, 0)}
-            if ran != {K2.NAME: 1, K2.NAME_WGMMA: 1}:
-                raise AssertionError(f"K2 {label}: launches {ran}, not the wgmma forward once")
-        else:
-            got = forward_on("wgmma", args, dims)[0]
-        held = check(f"wgmma pieces ({route} route) {label}", max_err(got, want), tol)
+        before = dict(_build.launches)
+        got = fused_resnetfc(x, z, w, compute_dtype=bf, code=code, **kw)
+        ran = {k: v - before.get(k, 0) for k, v in _build.launches.items()
+               if v != before.get(k, 0)}
+        if ran != {K2.NAME: 1, K2.NAME_WGMMA: 1}:
+            raise AssertionError(f"K2 {label}: launches {ran}, not the wgmma forward once")
+        held = check(f"wgmma pieces {label}", max_err(got, want), tol)
         cases.append(held)
-        out, st = forward_on("wgmma", args, dims, stash=True)
-        again = forward_on("wgmma", args, dims, stash=True)
+        out, st = K2._forward(args, dims, bf, True)
+        again = K2._forward(args, dims, bf, True)
         cases.append(check_rerun(f"wgmma pieces rerun: output and stash {label}", (got, out, st),
                                  (again[0], again[0], again[1])))
         pst = decoder_plain_stash(x, z, w, n_blocks=5, n_lin_z=3, code=code, compute_dtype=bf)
@@ -666,30 +634,25 @@ def check_resnetfc_mma_sync(gen):
                                  f"flipped > {STASH_FLIPS}")
         cases.append({"case": f"wgmma pieces stash ReLU mask flips {label}",
                       "against": "plain forward", "flip_fraction": flips, "bound": STASH_FLIPS})
-        ref = check(f"mma.sync forward (resnetfc_kernel) {label}",
-                    max_err(mma_sync_forward(args, dims, False)[0], want), tol)
-        cases.append(ref)
-        print(f"K2 {label}: {route} route; wgmma pieces {held['max_abs_err']:.3e}, "
-              f"resnetfc_kernel {ref['max_abs_err']:.3e} (tolerance {tol:.3e}); stash mask flips "
-              f"{flips:.2e}")
+        print(f"K2 {label}: wgmma pieces {held['max_abs_err']:.3e} (tolerance {tol:.3e}); stash "
+              f"mask flips {flips:.2e}")
         # the backward on the pieces' stash and on the recompute's forwards
         g = randn(gen, n, 4) + 0.5
         kern = lambda stash: (lambda x, z, *ws: fused_resnetfc(
             x, z, DecoderWeights(*ws), compute_dtype=bf, code=code, stash=stash, **kw))
         before = dict(_build.launches)
-        with forward_route_forced("wgmma"):
-            stash_grads = grads_of(kern(True), (x, z, *w), g)
-            cases.append(check_rerun(f"wgmma pieces: stash backward rerun {label}", stash_grads,
-                                     grads_of(kern(True), (x, z, *w), g)))
-            rec = grads_of(kern(False), (x, z, *w), g)
-            cases.append(check_rerun(f"wgmma pieces: recompute bit for bit the stash backward "
-                                     f"{label}", stash_grads, rec))
-            saved = K2.RECOMPUTE_CHUNK
-            K2.RECOMPUTE_CHUNK = 1_000
-            try:
-                cut = grads_of(kern(False), (x, z, *w), g)
-            finally:
-                K2.RECOMPUTE_CHUNK = saved
+        stash_grads = grads_of(kern(True), (x, z, *w), g)
+        cases.append(check_rerun(f"wgmma pieces: stash backward rerun {label}", stash_grads,
+                                 grads_of(kern(True), (x, z, *w), g)))
+        rec = grads_of(kern(False), (x, z, *w), g)
+        cases.append(check_rerun(f"wgmma pieces: recompute bit for bit the stash backward "
+                                 f"{label}", stash_grads, rec))
+        saved = K2.RECOMPUTE_CHUNK
+        K2.RECOMPUTE_CHUNK = 1_000
+        try:
+            cut = grads_of(kern(False), (x, z, *w), g)
+        finally:
+            K2.RECOMPUTE_CHUNK = saved
         cases.append(check_rerun(f"wgmma pieces: recompute in 1,000-point chunks, dx and dz bit "
                                  f"for bit {label}", stash_grads[:2], cut[:2]))
         cases += [check_rel(f"{nm} {label} recompute in 1,000-point chunks vs stash", a, b,
@@ -2883,7 +2846,7 @@ def profile_frame(render, label="frame", out_dir="traces"):
             if e.device_type == cuda]
     rows.sort(key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
-    ours = (GATHER_FWD_KERNEL, "gather_bilinear_bwd_kernel", "resnetfc_kernel",
+    ours = (GATHER_FWD_KERNEL, "gather_bilinear_bwd_kernel",
             FWD_KERNEL, *K2_BWD_KERNELS, F32_FWD_KERNEL, F32_DGRAD_KERNEL, *WGRAD_F32_KERNELS,
             *K3_FWD_KERNELS, *K3_BWD_KERNELS, *K3_F32_KERNELS,
             "gather_projected_bwd_kernel", *GATHER_BIN_KERNELS, "volume_integral_kernel",
@@ -4807,15 +4770,11 @@ WIDE_DH, WIDE_DL = 1024, 1152
 # same width, but their top frequency, 1.5 * 2^84, makes dx overflow
 # float32), d_hidden 640 with a
 # latent of 612 lanes (zero-padded to 640: a global latent_size of 100), and
-# bf16 d_hidden 512 with the global encoder's 640 lanes (the wgmma forward
-# or mma.sync forward, then the wide dgrad: past the bf16 tail's 512), and
-# d_hidden 1,152 with a latent of 1,152 (past the bf16 TMA cluster kernels'
-# two trunk groups a warp: the first version, held there by
-# ``first_wide_version``, since ``chain_takes`` sends d_hidden past 1,024 to
-# the chain, measured faster).  N is off every tile (32 and 16 points, a
-# cluster's 128).
+# bf16 d_hidden 512 with the global encoder's 640 lanes (the wgmma forward's
+# pieces, then the TMA cluster dgrad: past the bf16 tail's 512).  N is off
+# every tile (32 and 16 points, a cluster's 64 and 32).
 WIDE_CASES = ((WIDE_DH, WIDE_DL, CODE, 1), (WIDE_DH, WIDE_DL, WIDE_CODE, 2),
-              (640, 612, CODE, 2), (512, 640, CODE, 1), (1152, 1152, CODE, 1))
+              (640, 612, CODE, 2), (512, 640, CODE, 1))
 WIDE_N = CHUNK + 37
 # float32 (no TF32) against cuBLAS in float32 over 13 chained products of
 # up to 1,152 terms: 1e-3 of max(1, |output|) forward, and by relative L2
@@ -4837,18 +4796,21 @@ def wide_flops(n, ns, dh, dl, d_enc, nb=5, nlz=3):
                     + 2 * (nb - nlz) * dh * dh + dh * 4)
 
 
-def product_chain(gen, n, dh, dl, k_in, cd, backward, nb=5, nlz=3):
+def product_chain(gen, n, dh, dl, k_in, cd, backward, nb=5, nlz=3, ns=1):
     """The cuBLAS chain of the same products in the compute dtype (TF32
-    off): the forward's (lin_in, the injections, the blocks, lin_out) or
-    the dgrad's (the blocks, the injections' latent cotangents, lin_in's
-    input cotangent), one ``torch.matmul`` each; the library yardstick."""
+    off): the forward's (per view lin_in, the injections and their blocks,
+    then the pooled blocks, lin_out) or the dgrad's (the blocks, the
+    injections' latent cotangents, lin_in's input cotangent), one
+    ``torch.matmul`` each; the library yardstick."""
     a = {k: randn(gen, n, k, dtype=cd) for k in {dh, dl, k_in}}
     w = {(i, o): randn(gen, i, o, dtype=cd) for i, o in
          ({(dh, dh), (dh, dl), (dh, k_in)} if backward else {(k_in, dh), (dl, dh), (dh, dh)})}
     if backward:
-        pairs = [(dh, dh)] * (2 * nb) + [(dh, dl)] * nlz + [(dh, k_in)]
+        pairs = ([(dh, dh)] * (2 * (nb - nlz)) + ns * ([(dh, dh)] * (2 * nlz) + [(dh, dl)] * nlz
+                                                      + [(dh, k_in)]))
     else:
-        pairs = [(k_in, dh)] + [(dl, dh)] * nlz + [(dh, dh)] * (2 * nb)
+        pairs = ns * ([(k_in, dh)] + [(dl, dh)] * nlz + [(dh, dh)] * (2 * nlz)) \
+            + [(dh, dh)] * (2 * (nb - nlz))
     return lambda: [torch.matmul(a[i], w[(i, o)]) for i, o in pairs]
 
 
@@ -4883,22 +4845,6 @@ def wide_inputs(gen, n, ns, dl, code, cd):
     return x, randn(gen, ns, n, dl, dtype=cd), randn(gen, n, 4) + 0.5
 
 
-@contextlib.contextmanager
-def first_wide_version():
-    """Every wide shape on the first wide kernels (the routes patched to
-    "wide", the chain's too), for timing them beside the cluster kernels
-    (bf16 TMA, float32) in one run, and for holding the first version at
-    d_hidden 1,152, which the rule sends to the chain."""
-    fwd, bwd = K2.forward_route, K2.backward_route
-    first = lambda r: "wide" if r.startswith("wide") or r == "chain" else r
-    K2.forward_route = lambda *a, **k: first(fwd(*a, **k))
-    K2.backward_route = lambda *a, **k: first(bwd(*a, **k))
-    try:
-        yield
-    finally:
-        K2.forward_route, K2.backward_route = fwd, bwd
-
-
 def wide_ran(before, cd, route, names):
     """The launches since ``before`` of the wide counters: ``names`` (K2's
     forward or dgrad counter, the dtype's wide one, the dtype's cluster one)
@@ -4914,27 +4860,23 @@ WIDE_CLUSTER = {torch.bfloat16: (K2.NAME_WIDE_TMA, K2.NAME_DGRAD_WIDE_TMA),
                 torch.float32: (K2.NAME_WIDE_F32_RING, K2.NAME_DGRAD_WIDE_F32_RING)}
 
 
-def check_wide_first_bits(label, args, dims, cd, g):
-    """The float32 cluster kernels keep the first version's k order and
-    rounding points: the forward (output and stash) and, on that stash, the
-    dgrad (dx, dz, the cotangents, gout, enc) on their routes are the first
-    version's bits (where the forward's route is the first version, its
-    check is trivially met)."""
+def check_wide_rerun_bits(label, args, dims, cd, g):
+    """The float32 cluster kernels' forward (output and stash) and, on that
+    stash, their dgrad (dx, dz, the cotangents, gout, enc) the same bits on
+    a rerun: one FMA chain per output in k order, one writer per output."""
     out, st = K2._forward(args, dims, cd, True)
     gs, wd, _ = K2._bwd_operands(args, dims, g, K2.NAME_DGRAD)
     got = K2._dgrad(args, dims, st, gs, wd, cd)
-    with first_wide_version():
-        fout, fst = K2._forward(args, dims, cd, True)
-        want = K2._dgrad(args, dims, st, gs, wd, cd)
-    pairs = [("forward", out, fout), ("stash", st, fst)] + list(
-        zip(("dx", "dz", "cot", "gout", "enc"), got, want))
+    again_out, again_st = K2._forward(args, dims, cd, True)
+    again = K2._dgrad(args, dims, st, gs, wd, cd)
+    pairs = [("forward", out, again_out), ("stash", st, again_st)] + list(
+        zip(("dx", "dz", "cot", "gout", "enc"), got, again))
     for nm, a, b in pairs:
         if not same_bits(a, b):
-            raise AssertionError(f"K2 wide_f32 {label}: {nm} differs from the first version's "
+            raise AssertionError(f"K2 wide_f32 {label}: {nm} differs on a rerun "
                                  f"(max abs {max_err(a, b)})")
-    return {"case": f"wide_f32 {label} N={WIDE_N}: forward, stash and dgrad bit for bit the "
-                    f"first version's", "against": "first version", "max_abs_err": 0.0,
-            "tol": 0.0}
+    return {"case": f"wide_f32 {label} N={WIDE_N}: forward, stash and dgrad bit for bit on a "
+                    f"rerun", "against": "rerun", "max_abs_err": 0.0, "tol": 0.0}
 
 
 def check_wide_refusal(bf=torch.bfloat16):
@@ -4977,9 +4919,9 @@ def check_wide_refusal(bf=torch.bfloat16):
 def check_wide(gen):
     """The wide kernels (``forward_route``/``backward_route`` = "wide_tma"
     for bf16 d_hidden 256..1,024, the TMA cluster kernels; "wide_f32" for
-    float32 d_hidden 576..1,024, the float32 cluster kernels, held bit for
-    bit the first version too; "wide", the first version, past them) held
-    to their plain versions on the card at WIDE_CASES in bf16 and float32:
+    float32 d_hidden 576..1,024, the float32 cluster kernels, also bit for
+    bit on a rerun) held to their plain versions on the card at WIDE_CASES
+    in bf16 and float32:
     the forward (bf16 2 ulps of the largest output or twice the plain
     version's distance from the float32 function on the same bf16-valued
     weights, whichever is larger, and held to that function too, as phase
@@ -4994,11 +4936,10 @@ def check_wide(gen):
     cotangents bit for bit, its weight gradients to summation order; the
     wgrads per job at 1,024 x 1,024 and 1,024 x 1,152 against torch.matmul.
     The launch counters show which kernel each case took.  Then each kernel
-    timed at the band chunk (81,920 points, d_hidden 1,024, latent 1,152)
-    beside its plain version, the cuBLAS chain of its products and its
-    bound, and beside the first version in turns (cluster, first, first,
-    cluster).  Returns the four kernel rows (the cluster kernels: bf16 TMA,
-    float32)."""
+    timed twice at the band chunk (81,920 points, d_hidden 1,024, latent
+    1,152) beside its plain version, the cuBLAS chain of its products and
+    its bound.  Returns the four kernel rows (the cluster kernels: bf16
+    TMA, float32)."""
     kw = dict(n_blocks=5, n_lin_z=3, activate_out=True)
     rows = {}
     for cd in (torch.bfloat16, torch.float32):
@@ -5006,104 +4947,101 @@ def check_wide(gen):
         rows[cd] = (fwd, bwd)
         f32 = cd == torch.float32
         for dh, dl, code, ns in WIDE_CASES:
-            with contextlib.ExitStack() as held:
-                if dh > K2.CHAIN_DH_MIN:  # the chain's by the rule: held on the first version
-                    held.enter_context(first_wide_version())
-                if f32 and dh <= 512:
-                    continue  # float32 at 512 is the register kernels' (check_float32)
-                label = f"d_hidden {dh} d_latent {dl} k_in {K2.d_enc_padded(code.d_enc)} NS={ns} " \
-                        f"{str(cd)[6:]}"
-                w = decoder_weights(gen, code=code, dl=dl, dh=dh)
-                x, z, g = wide_inputs(gen, WIDE_N, ns, dl, code, cd)
-                before = dict(_build.launches)
-                got = fused_resnetfc(x, z, w, compute_dtype=cd, code=code, **kw)
-                want = resnetfc_plain(x, z, w, compute_dtype=cd, code=code, **kw)
-                route = K2.forward_route(cd, K2.d_enc_padded(dl), K2.d_enc_padded(code.d_enc), dh)
-                ran, ok = wide_ran(before, cd, route,
-                                   (K2.NAME, K2.NAME_WIDE[cd], WIDE_CLUSTER[cd][0]))
-                if not ok:
-                    raise AssertionError(f"K2 {label}: route {route}, launches {ran}")
-                wide = route.startswith("wide")
-                mkw = dict(n_blocks=5, n_lin_z=3, code=code, compute_dtype=cd)
-                # bf16: the float32 function on the bf16-valued weights and
-                # latents, which both bf16 roundings approximate (phase 9's rule)
-                exact = DecoderWeights(*(t.to(cd).float() for t in w))
-                ref = None if f32 else resnetfc_plain(x, z.float(), exact,
-                                                      compute_dtype=torch.float32, code=code,
-                                                      **kw)
-                fwd_err = max_err(got, want)
-                tol = (WIDE_F32_TOL if f32 else 2.0 ** -7) * max(1.0, float(want.abs().max()))
-                if not f32:
-                    tol = max(tol, 2 * max_err(want, ref))
-                    fwd.append(check(f"wide forward {label} N={WIDE_N} vs float32 (bf16 weights)",
-                                     max_err(got, ref), tol, against="float32"))
-                if wide:
-                    fwd.append(check(f"wide forward ({route}) {label} N={WIDE_N}", fwd_err, tol))
-                args = K2._prepare(x, z, w, code, cd)
-                dims = K2._dims(args, 5, 3, True)
-                kst = K2._forward(args, dims, cd, True)[1]
-                broute = K2.backward_route(cd, dh, dims["d_latent"], dims["k_in"])
-                if "wide_f32" in (route, broute):
-                    fwd.append(check_wide_first_bits(label, args, dims, cd, g))
-                if wide:
-                    pst = decoder_plain_stash(x, z, w, **mkw)
-                    rst = None if f32 else decoder_plain_stash(
-                        x, z.float(), exact, **dict(mkw, compute_dtype=torch.float32))
-                    for i in range(len(pst)):
-                        stol = (WIDE_F32_TOL if f32 else STASH_REL) * max(float(pst[i].abs().max()),
-                                                                          1e-30)
-                        if not f32:
-                            stol = max(stol, 2 * max_err(pst[i], rst[i]))
-                        fwd.append(check(f"wide stash slot {i} {label}", max_err(kst[i], pst[i]),
-                                         stol, against="plain stash"))
-                    flips = float(((kst > 0) != (pst > 0)).float().mean())
-                    if not flips <= STASH_FLIPS:
-                        raise AssertionError(f"K2 wide stash {label}: {flips} of the ReLU masks "
-                                             f"flipped > {STASH_FLIPS}")
-                    del pst, rst
-                # the backward: its dgrad is a wide one here
-                if not broute.startswith("wide"):
-                    raise AssertionError(f"K2 {label}: backward route {broute} is not wide")
-                kern = lambda stash: (lambda x, z, *ws: fused_resnetfc(
-                    x, z, DecoderWeights(*ws), compute_dtype=cd, code=code, stash=stash, **kw))
-                plain = lambda x, z, *ws: resnetfc_plain(x, z, DecoderWeights(*ws),
-                                                         compute_dtype=cd, code=code, **kw)
-                before = dict(_build.launches)
-                got = grads_of(kern(True), (x, z, *w), g)
-                ran, ok = wide_ran(before, cd, broute, (K2.NAME_DGRAD, K2.NAME_DGRAD_WIDE[cd],
-                                                        WIDE_CLUSTER[cd][1]))
-                if not ok:
-                    raise AssertionError(f"K2 {label}: dgrad route {broute}, launches {ran}")
-                want = grads_of(plain, (x, z, *w), g)
-                matched = decoder_bwd_matched(x, z, w, kst, g, **mkw)
-                bl = f"{label} N={WIDE_N}"
-                bwd += [check_l2(f"wide {nm} {bl}", a, b, 1e-2 if f32 else 8e-2)
-                        for nm, a, b in zip(DECODER_GRADS, got, want)]
-                bwd += [check_l2(f"wide {nm} {bl} vs matched rounding", a, m,
-                                 WIDE_F32_TOL if f32 else MATCHED_BF16_TOL, against="matched")
-                        for nm, a, m in zip(DECODER_GRADS, got, matched)]
-                bwd.append(check_rerun(f"wide rerun every gradient {bl}", got,
-                                       grads_of(kern(True), (x, z, *w), g)))
-                rec = grads_of(kern(False), (x, z, *w), g)  # one chunk: the same launches
-                bwd.append(check_rerun(f"wide recompute bit for bit the stash backward {bl}", got,
-                                       rec))
-                saved = K2.RECOMPUTE_CHUNK
-                K2.RECOMPUTE_CHUNK = 1_000
-                try:
-                    cut = grads_of(kern(False), (x, z, *w), g)
-                finally:
-                    K2.RECOMPUTE_CHUNK = saved
-                bwd.append(check_rerun(f"wide recompute in 1,000-point chunks: dx, dz bit for bit "
-                                       f"{bl}", got[:2], cut[:2]))
-                bwd += [check_rel(f"wide {nm} {bl} recompute in 1,000-point chunks vs stash", a, b,
-                                  SUM_ORDER_TOL, "stash kernels")
-                        for nm, a, b in zip(DECODER_GRADS[2:], cut[2:], got[2:])]
-                worst = max((c["rel_l2"], c["case"].split()[1]) for c in bwd
-                            if c["against"] == "plain" and bl in c["case"])
-                print(f"K2 wide {bl}: forward on the {route} route {fwd_err:.3e} (tolerance "
-                      f"{tol:.3e}); backward on the {broute} route, worst relative L2 against the "
-                      f"plain autograd {worst}")
-                del kst, got, want, matched, rec, cut, args
+            if f32 and dh <= 512:
+                continue  # float32 at 512 is the register kernels' (check_float32)
+            label = f"d_hidden {dh} d_latent {dl} k_in {K2.d_enc_padded(code.d_enc)} NS={ns} " \
+                    f"{str(cd)[6:]}"
+            w = decoder_weights(gen, code=code, dl=dl, dh=dh)
+            x, z, g = wide_inputs(gen, WIDE_N, ns, dl, code, cd)
+            before = dict(_build.launches)
+            got = fused_resnetfc(x, z, w, compute_dtype=cd, code=code, **kw)
+            want = resnetfc_plain(x, z, w, compute_dtype=cd, code=code, **kw)
+            route = K2.forward_route(cd, K2.d_enc_padded(dl), K2.d_enc_padded(code.d_enc), dh)
+            ran, ok = wide_ran(before, cd, route,
+                               (K2.NAME, K2.NAME_WIDE[cd], WIDE_CLUSTER[cd][0]))
+            if not ok:
+                raise AssertionError(f"K2 {label}: route {route}, launches {ran}")
+            wide = route.startswith("wide")
+            mkw = dict(n_blocks=5, n_lin_z=3, code=code, compute_dtype=cd)
+            # bf16: the float32 function on the bf16-valued weights and
+            # latents, which both bf16 roundings approximate (phase 9's rule)
+            exact = DecoderWeights(*(t.to(cd).float() for t in w))
+            ref = None if f32 else resnetfc_plain(x, z.float(), exact,
+                                                  compute_dtype=torch.float32, code=code,
+                                                  **kw)
+            fwd_err = max_err(got, want)
+            tol = (WIDE_F32_TOL if f32 else 2.0 ** -7) * max(1.0, float(want.abs().max()))
+            if not f32:
+                tol = max(tol, 2 * max_err(want, ref))
+                fwd.append(check(f"wide forward {label} N={WIDE_N} vs float32 (bf16 weights)",
+                                 max_err(got, ref), tol, against="float32"))
+            if wide:
+                fwd.append(check(f"wide forward ({route}) {label} N={WIDE_N}", fwd_err, tol))
+            args = K2._prepare(x, z, w, code, cd)
+            dims = K2._dims(args, 5, 3, True)
+            kst = K2._forward(args, dims, cd, True)[1]
+            broute = K2.backward_route(cd, dh, dims["d_latent"], dims["k_in"])
+            if "wide_f32" in (route, broute):
+                fwd.append(check_wide_rerun_bits(label, args, dims, cd, g))
+            if wide:
+                pst = decoder_plain_stash(x, z, w, **mkw)
+                rst = None if f32 else decoder_plain_stash(
+                    x, z.float(), exact, **dict(mkw, compute_dtype=torch.float32))
+                for i in range(len(pst)):
+                    stol = (WIDE_F32_TOL if f32 else STASH_REL) * max(float(pst[i].abs().max()),
+                                                                      1e-30)
+                    if not f32:
+                        stol = max(stol, 2 * max_err(pst[i], rst[i]))
+                    fwd.append(check(f"wide stash slot {i} {label}", max_err(kst[i], pst[i]),
+                                     stol, against="plain stash"))
+                flips = float(((kst > 0) != (pst > 0)).float().mean())
+                if not flips <= STASH_FLIPS:
+                    raise AssertionError(f"K2 wide stash {label}: {flips} of the ReLU masks "
+                                         f"flipped > {STASH_FLIPS}")
+                del pst, rst
+            # the backward: its dgrad is a wide one here
+            if not broute.startswith("wide"):
+                raise AssertionError(f"K2 {label}: backward route {broute} is not wide")
+            kern = lambda stash: (lambda x, z, *ws: fused_resnetfc(
+                x, z, DecoderWeights(*ws), compute_dtype=cd, code=code, stash=stash, **kw))
+            plain = lambda x, z, *ws: resnetfc_plain(x, z, DecoderWeights(*ws),
+                                                     compute_dtype=cd, code=code, **kw)
+            before = dict(_build.launches)
+            got = grads_of(kern(True), (x, z, *w), g)
+            ran, ok = wide_ran(before, cd, broute, (K2.NAME_DGRAD, K2.NAME_DGRAD_WIDE[cd],
+                                                    WIDE_CLUSTER[cd][1]))
+            if not ok:
+                raise AssertionError(f"K2 {label}: dgrad route {broute}, launches {ran}")
+            want = grads_of(plain, (x, z, *w), g)
+            matched = decoder_bwd_matched(x, z, w, kst, g, **mkw)
+            bl = f"{label} N={WIDE_N}"
+            bwd += [check_l2(f"wide {nm} {bl}", a, b, 1e-2 if f32 else 8e-2)
+                    for nm, a, b in zip(DECODER_GRADS, got, want)]
+            bwd += [check_l2(f"wide {nm} {bl} vs matched rounding", a, m,
+                             WIDE_F32_TOL if f32 else MATCHED_BF16_TOL, against="matched")
+                    for nm, a, m in zip(DECODER_GRADS, got, matched)]
+            bwd.append(check_rerun(f"wide rerun every gradient {bl}", got,
+                                   grads_of(kern(True), (x, z, *w), g)))
+            rec = grads_of(kern(False), (x, z, *w), g)  # one chunk: the same launches
+            bwd.append(check_rerun(f"wide recompute bit for bit the stash backward {bl}", got,
+                                   rec))
+            saved = K2.RECOMPUTE_CHUNK
+            K2.RECOMPUTE_CHUNK = 1_000
+            try:
+                cut = grads_of(kern(False), (x, z, *w), g)
+            finally:
+                K2.RECOMPUTE_CHUNK = saved
+            bwd.append(check_rerun(f"wide recompute in 1,000-point chunks: dx, dz bit for bit "
+                                   f"{bl}", got[:2], cut[:2]))
+            bwd += [check_rel(f"wide {nm} {bl} recompute in 1,000-point chunks vs stash", a, b,
+                              SUM_ORDER_TOL, "stash kernels")
+                    for nm, a, b in zip(DECODER_GRADS[2:], cut[2:], got[2:])]
+            worst = max((c["rel_l2"], c["case"].split()[1]) for c in bwd
+                        if c["against"] == "plain" and bl in c["case"])
+            print(f"K2 wide {bl}: forward on the {route} route {fwd_err:.3e} (tolerance "
+                  f"{tol:.3e}); backward on the {broute} route, worst relative L2 against the "
+                  f"plain autograd {worst}")
+            del kst, got, want, matched, rec, cut, args
         bwd.append(check_wide_refusal(cd))
         # the wgrads at width: K2's 15 jobs at 1,024 x 1,024 and 1,024 x
         # 1,152 (and lin_in, lin_out) against torch.matmul, a coarse query's
@@ -5134,11 +5072,7 @@ def check_wide(gen):
         k_in = dims["k_in"]
         iters = 5 if cd == torch.bfloat16 else 2
         fwd_call = lambda: K2._forward(args, dims, cd, False)
-        ms = time_ms(fwd_call, iters=iters, warmup=1)
-        # the first version in turns: cluster kernel (above), first, first, cluster
-        with first_wide_version():
-            first_fwd = [time_ms(fwd_call, iters=iters, warmup=1) for _ in range(2)]
-        ms = [ms, time_ms(fwd_call, iters=iters, warmup=1)]
+        ms = [time_ms(fwd_call, iters=iters, warmup=1) for _ in range(2)]
         plain_ms = time_ms(lambda: resnetfc_plain(x, z, w, compute_dtype=cd, code=CODE, **kw),
                            iters=iters, warmup=1)
         lib_ms = time_ms(product_chain(gen, BAND, WIDE_DH, WIDE_DL, k_in, cd, False),
@@ -5153,14 +5087,11 @@ def check_wide(gen):
                               f"{str(cd)[6:]}", cases=fwd, ms=min(ms),
                         plain_ms=plain_ms, library_ms=lib_ms,
                         library="the cuBLAS chain of the forward's products", bound_ms=b_ms,
-                        bound_by=b_by, ms_turns=ms, first_version_ms=first_fwd))
+                        bound_by=b_by, ms_turns=ms))
         st = K2._forward(args, dims, cd, True)[1]
         gs, wd, _ = K2._bwd_operands(args, dims, g, K2.NAME_DGRAD)
         dgrad_call = lambda: K2._dgrad(args, dims, st, gs, wd, cd)
-        ms = time_ms(dgrad_call, iters=iters, warmup=1)
-        with first_wide_version():
-            first_dgrad = [time_ms(dgrad_call, iters=iters, warmup=1) for _ in range(2)]
-        ms = [ms, time_ms(dgrad_call, iters=iters, warmup=1)]
+        ms = [time_ms(dgrad_call, iters=iters, warmup=1) for _ in range(2)]
         plain_ms = time_ms(lambda: decoder_bwd_matched(x, z, w, st, g, n_blocks=5, n_lin_z=3,
                                                        code=CODE, compute_dtype=cd,
                                                        wgrads=False), iters=iters, warmup=1)
@@ -5176,13 +5107,12 @@ def check_wide(gen):
                               f"{str(cd)[6:]}", cases=bwd, ms=min(ms),
                         plain_ms=plain_ms, library_ms=lib_ms,
                         library="the cuBLAS chain of the dgrad's products", bound_ms=b_ms,
-                        bound_by=b_by, ms_turns=ms, first_version_ms=first_dgrad))
+                        bound_by=b_by, ms_turns=ms))
         for r in out[-2:]:
-            first = (f", the first version in turns {[round(v, 3) for v in r['first_version_ms']]}"
-                     f" against {[round(v, 3) for v in r['ms_turns']]}")
-            print(f"kernel {r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, cuBLAS chain "
-                  f"{r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']}{first}) "
-                  f"{len(r['cases'])} cases, all within tolerance")
+            print(f"kernel {r['name']}: {r['ms']:.3f} ms ({[round(v, 3) for v in r['ms_turns']]}; "
+                  f"plain {r['plain_ms']:.3f}, cuBLAS chain {r['library_ms']:.3f}, bound "
+                  f"{r['bound_ms']:.3f} by {r['bound_by']}) {len(r['cases'])} cases, all within "
+                  f"tolerance")
         del st, gs, wd, args, x, z, g
         torch.cuda.empty_cache()
     return out
@@ -5191,21 +5121,20 @@ def check_wide(gen):
 # the bf16 forward past the wgmma forward's 512-lane A tile at the shipped
 # d_hidden 512, timed at the band chunk: phase 9's global encoder (640
 # lanes) and a 5-stage encoder (1,024)
-MMA_SYNC_DLS = (640, 1024)
+PIECES_DLS = (640, 1024)
 
 
-def time_mma_sync_forward(gen):
-    """The bf16 forward at latents of MMA_SYNC_DLS lanes at the band chunk:
-    the wgmma forward's pieces (its route by forward_route) and
-    resnetfc_kernel (csrc/resnetfc.cu, its C entry) timed in turns (CUDA
-    events: pieces, resnetfc_kernel, resnetfc_kernel, pieces) beside the
-    plain version, the cuBLAS chain of its products and its bound; each
-    held to the plain version (2^-7 of the largest output, as
-    check_resnetfc_mma_sync).  Returns a row a latent for the report."""
+def time_pieces_forward(gen):
+    """The bf16 forward at latents of PIECES_DLS lanes at the band chunk:
+    the wgmma forward's pieces (its route by forward_route) timed twice
+    (CUDA events) beside the plain version, the cuBLAS chain of its
+    products and its bound, held to the plain version (2^-7 of the largest
+    output, as check_resnetfc_pieces).  Returns a row a latent for the
+    report."""
     bf = torch.bfloat16
     kw = dict(n_blocks=5, n_lin_z=3, activate_out=True)
     rows = {}
-    for dl in MMA_SYNC_DLS:
+    for dl in PIECES_DLS:
         w = decoder_weights(gen, dl=dl)
         x, z, _ = wide_inputs(gen, BAND, 1, dl, CODE, bf)
         args = K2._prepare(x, z, w, CODE, bf)
@@ -5213,15 +5142,12 @@ def time_mma_sync_forward(gen):
         route = K2.forward_route(bf, dims["d_latent"], dims["k_in"], 512)
         if route != "wgmma":
             raise AssertionError(f"K2 d_latent {dl}: routed to {route}")
-        calls = {"pieces": lambda: K2._forward(args, dims, bf, False),
-                 "resnetfc_kernel": lambda: mma_sync_forward(args, dims, False)}
+        call = lambda: K2._forward(args, dims, bf, False)
         want = resnetfc_plain(x, z, w, compute_dtype=bf, code=CODE, **kw)
         tol = 2.0 ** -7 * max(1.0, float(want.abs().max()))
-        cases = [check(f"{name} timed N={BAND} d_latent {dl} NS=1 bf16",
-                       max_err(call()[0], want), tol) for name, call in calls.items()]
-        turns = {name: [] for name in calls}
-        for name in ("pieces", "resnetfc_kernel", "resnetfc_kernel", "pieces"):
-            turns[name].append(time_ms(calls[name], iters=5, warmup=1))
+        cases = [check(f"pieces timed N={BAND} d_latent {dl} NS=1 bf16", max_err(call()[0], want),
+                       tol)]
+        ms = [time_ms(call, iters=5, warmup=1) for _ in range(2)]
         plain_ms = time_ms(lambda: resnetfc_plain(x, z, w, compute_dtype=bf, code=CODE, **kw),
                            iters=3, warmup=1)
         lib_ms = time_ms(product_chain(gen, BAND, 512, dl, dims["k_in"], bf, False),
@@ -5233,14 +5159,11 @@ def time_mma_sync_forward(gen):
             kernel="resnetfc_fwd_wgmma_kernel (pieces)",
             source="avr_tpu_torch/csrc/resnetfc_hopper.cu",
             shape=f"N={BAND}, NS=1, d_hidden 512, d_latent {dl}, bf16",
-            ms=min(turns["pieces"]), ms_turns=turns["pieces"],
-            resnetfc_kernel_ms_turns=turns["resnetfc_kernel"], plain_ms=plain_ms,
-            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, cases=cases)
-        print(f"K2 wgmma pieces {row['shape']}: {[round(v, 3) for v in turns['pieces']]} ms in "
-              f"turns with resnetfc_kernel {[round(v, 3) for v in turns['resnetfc_kernel']]} "
-              f"(plain {plain_ms:.3f}, cuBLAS chain {lib_ms:.3f}, bound {b_ms:.3f} by {b_by}); "
-              f"{cases[0]['max_abs_err']:.3e} and {cases[1]['max_abs_err']:.3e} from the plain "
-              f"version (tolerance {tol:.3e})")
+            ms=min(ms), ms_turns=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+            bound_by=b_by, cases=cases)
+        print(f"K2 wgmma pieces {row['shape']}: {[round(v, 3) for v in ms]} ms (plain "
+              f"{plain_ms:.3f}, cuBLAS chain {lib_ms:.3f}, bound {b_ms:.3f} by {b_by}); "
+              f"{cases[0]['max_abs_err']:.3e} from the plain version (tolerance {tol:.3e})")
         del args, x, z, want
         torch.cuda.empty_cache()
     return rows
@@ -5420,10 +5343,10 @@ def run_wide():
     gen = torch.Generator(device=DEV).manual_seed(12)
     kernels = check_wide(gen)
     channels = check_wide_channels(gen)
-    mma_sync = time_mma_sync_forward(torch.Generator(device=DEV).manual_seed(14))
+    pieces = time_pieces_forward(torch.Generator(device=DEV).manual_seed(14))
     res, launches = run_wide_slice()
     res["channels"] = channels
-    res["mma_sync_forward"] = mma_sync
+    res["pieces_forward"] = pieces
     for k in kernels:
         by_case = {case: counts.get(k["name"], 0) for case, counts in launches.items()}
         if not sum(by_case.values()):
@@ -5440,32 +5363,84 @@ def run_wide():
 # ---------------------------------------------------------------------------
 
 # the chain's slice: conf/default_mv.conf's model as WIDE_CONF, both
-# decoders at these widths (bf16 past the first wide version's shared
-# memory, float32 past the first version's 1,792)
+# decoders at these widths (past the cluster kernels' 1,024 columns)
 CHAIN_DH = {torch.bfloat16: 1280, torch.float32: 1920}
-# (dtype, d_hidden, d_latent): the chain's shapes held on the card; bf16
-# d_hidden 1,024 with a latent of 4,096 takes the chain's forward and the
-# TMA cluster dgrad (which holds no latent tile), as does bf16 d_hidden 512
-# with a latent of 4,096 (past resnetfc_kernel's shared memory)
-CHAIN_CASES = ((torch.bfloat16, 1280, WIDE_DL), (torch.bfloat16, 2048, WIDE_DL),
-               (torch.bfloat16, 1024, 4096), (torch.float32, 1920, WIDE_DL),
-               (torch.bfloat16, 512, 4096))
+# encodings past 64 lanes for the sweep and the chain's checks (18
+# frequencies or fewer: more make dx's norm overflow float32), by their
+# padded lanes
+SWEEP_CODES = {192: CodeSpec(2, 1.5, True, 32, 3), 1088: CodeSpec(16, 1.5, True, 32, 3),
+               1216: CodeSpec(18, 1.5, True, 32, 3), 2048: CodeSpec(15, 1.5, True, 64, 3),
+               2176: CodeSpec(16, 1.5, True, 64, 3), 3072: CodeSpec(16, 1.5, True, 64, 900)}
+# (dtype, d_hidden, d_latent, code): the chain's shapes held on the card;
+# bf16 d_hidden 1,024 with a latent of 4,096 takes the chain's forward and
+# the TMA cluster dgrad (which holds no latent tile), as does bf16 d_hidden
+# 512 with a latent of 4,096; and a corner of each family the sweep moved
+# to the chain (CHAIN_SWEEP): A1 (bf16 d_hidden 64, a latent of 1,216: the
+# forward, and its dgrad too), B1 (bf16 d_hidden 576, a latent of 2,112:
+# the forward, the TMA cluster dgrad), C4 (bf16 d_hidden 192, a latent of
+# 4,096: the dgrad, its forward the chain's already), D1 (float32 d_hidden
+# 1,024, 1,088 encoded lanes: both)
+CHAIN_CASES = ((torch.bfloat16, 1280, WIDE_DL, CODE), (torch.bfloat16, 2048, WIDE_DL, CODE),
+               (torch.bfloat16, 1024, 4096, CODE), (torch.float32, 1920, WIDE_DL, CODE),
+               (torch.bfloat16, 512, 4096, CODE), (torch.bfloat16, 64, 1216, CODE),
+               (torch.bfloat16, 576, 2112, CODE), (torch.bfloat16, 192, 4096, CODE),
+               (torch.float32, 1024, WIDE_DL, SWEEP_CODES[1088]))
 CHAIN_N = (BAND, CHUNK + 37)  # the band chunk, and off every tile
-# (dtype, d_hidden, d_latent, the other route, forward only): the shapes the
-# first wide version took before the chain (bf16 1,152, float32 1,152 to
-# 1,792), and that resnetfc_kernel takes (bf16 at 512 past 1,152 lanes),
-# timed against the chain in turns (--chain-sweep); and at d_hidden 1,024
-# the cluster kernels beside the chain (a reading, no route moved by it)
-CHAIN_SWEEP = ((torch.bfloat16, 1152, WIDE_DL, "wide", False),
-               (torch.float32, 1152, WIDE_DL, "wide", False),
-               (torch.float32, 1408, WIDE_DL, "wide", False),
-               (torch.float32, 1792, WIDE_DL, "wide", False),
-               (torch.bfloat16, 512, 1280, "mma_sync", True),
-               (torch.bfloat16, 512, 2048, "mma_sync", True),
-               (torch.bfloat16, 256, 2048, "mma_sync", True),
-               (torch.bfloat16, 128, 1280, "mma_sync", True),
-               (torch.bfloat16, 1024, WIDE_DL, "wide_tma", False),
-               (torch.float32, 1024, WIDE_DL, "wide_f32", False))
+class SweepRow(NamedTuple):
+    """A shape of ``--chain-sweep``: the chain against ``other`` (both forced)
+    at the band chunk, timing ``times`` ("forward", "dgrad" or both)."""
+
+    corner: str
+    cd: torch.dtype
+    dh: int
+    dl: int
+    other: str
+    times: tuple = ("forward", "dgrad")
+    code: CodeSpec = CODE
+    ns: int = 1
+
+FWD, DGRAD = ("forward",), ("dgrad",)
+# the chain timed in turns against the routes that took these shapes
+# before it (the RETIRED ones run from a tree that has them): the first
+# wide version at bf16 1,152 and float32 1,152 to 1,792 (where the chain
+# first took d_hidden past 1,024), resnetfc_kernel at d_hidden 128 to 512
+# past 1,152 lanes and the corners of the four families the chain then
+# took whole: A1-A6 resnetfc_kernel's bf16 forwards at d_hidden 64 to 512
+# past 1,152 lanes (A6 at NS 2), B1-B2 the first wide version's bf16
+# forwards at d_hidden 576 to 704 past the TMA cluster kernel's shared
+# memory, C1-C5 its bf16 dgrads at d_hidden 64 to 192 past the tail's
+# envelope, D1-D4 its float32 forwards and dgrads where fewer than 3 ring
+# stages of the float32 cluster kernels fit (D4's forward the chain's
+# already); and at d_hidden 1,024 the cluster kernels beside the chain (a
+# reading, no route moved by it)
+CHAIN_SWEEP = (SweepRow("", torch.bfloat16, 1152, WIDE_DL, "wide"),
+               SweepRow("", torch.float32, 1152, WIDE_DL, "wide"),
+               SweepRow("", torch.float32, 1408, WIDE_DL, "wide"),
+               SweepRow("", torch.float32, 1792, WIDE_DL, "wide"),
+               SweepRow("", torch.bfloat16, 512, 1280, "mma_sync", FWD),
+               SweepRow("", torch.bfloat16, 512, 2048, "mma_sync", FWD),
+               SweepRow("", torch.bfloat16, 256, 2048, "mma_sync", FWD),
+               SweepRow("", torch.bfloat16, 128, 1280, "mma_sync", FWD),
+               SweepRow("", torch.bfloat16, 1024, WIDE_DL, "wide_tma"),
+               SweepRow("", torch.float32, 1024, WIDE_DL, "wide_f32"),
+               SweepRow("A1", torch.bfloat16, 64, 1216, "mma_sync", FWD),
+               SweepRow("A2", torch.bfloat16, 64, 3328, "mma_sync", FWD),
+               SweepRow("A3", torch.bfloat16, 512, 1216, "mma_sync", FWD),
+               SweepRow("A4", torch.bfloat16, 512, 1984, "mma_sync", FWD),
+               SweepRow("A5", torch.bfloat16, 512, 512, "mma_sync", FWD, SWEEP_CODES[1216]),
+               SweepRow("A6", torch.bfloat16, 512, 1280, "mma_sync", FWD, ns=2),
+               SweepRow("B1", torch.bfloat16, 576, 2112, "wide", FWD),
+               SweepRow("B2", torch.bfloat16, 704, 2176, "wide", FWD),
+               SweepRow("C1", torch.bfloat16, 64, 576, "wide", DGRAD),
+               SweepRow("C2", torch.bfloat16, 64, 4096, "wide", DGRAD),
+               SweepRow("C3", torch.bfloat16, 192, 576, "wide", DGRAD),
+               SweepRow("C4", torch.bfloat16, 192, 4096, "wide", DGRAD),
+               SweepRow("C5", torch.bfloat16, 128, 512, "wide", DGRAD, SWEEP_CODES[192]),
+               SweepRow("D1", torch.float32, 1024, WIDE_DL, "wide", code=SWEEP_CODES[1088]),
+               SweepRow("D2", torch.float32, 576, WIDE_DL, "wide", code=SWEEP_CODES[2176]),
+               SweepRow("D3", torch.float32, 768, WIDE_DL, "wide", code=SWEEP_CODES[2048]),
+               SweepRow("D4", torch.float32, 1024, WIDE_DL, "wide", DGRAD, SWEEP_CODES[3072]))
+
 BIG_MAPS = (288, 512)  # 1,296 and 4,096 8 x 8 tiles a map
 
 
@@ -5508,40 +5483,41 @@ def check_chain(gen):
     call on its route.  Returns the cases by dtype: (forward, dgrad)."""
     kw = dict(n_blocks=5, n_lin_z=3, activate_out=True)
     rows = {cd: ([], []) for cd in (torch.bfloat16, torch.float32)}
-    k_in = K2.d_enc_padded(CODE.d_enc)
-    for cd, dh, dl in CHAIN_CASES:
+    for cd, dh, dl, code in CHAIN_CASES:
         f32 = cd == torch.float32
         fwd, bwd = rows[cd]
+        k_in = K2.d_enc_padded(code.d_enc)
         route = K2.forward_route(cd, K2.d_enc_padded(dl), k_in, dh)
         broute = K2.backward_route(cd, dh, K2.d_enc_padded(dl), k_in)
         if route != "chain":
             raise AssertionError(f"K2 chain d_hidden {dh} d_latent {dl}: routed to {route}")
-        w = decoder_weights(gen, dh=dh, dl=dl)
+        w = decoder_weights(gen, dh=dh, dl=dl, code=code)
         exact = DecoderWeights(*(t.to(cd).float() for t in w))
-        mkw = dict(n_blocks=5, n_lin_z=3, code=CODE, compute_dtype=cd)
+        mkw = dict(n_blocks=5, n_lin_z=3, code=code, compute_dtype=cd)
         kern = lambda stash: (lambda x, z, *ws: fused_resnetfc(
-            x, z, DecoderWeights(*ws), compute_dtype=cd, code=CODE, stash=stash, **kw))
+            x, z, DecoderWeights(*ws), compute_dtype=cd, code=code, stash=stash, **kw))
         for n in CHAIN_N:
             for ns in (1, 2):
-                label = f"d_hidden {dh} d_latent {dl} NS={ns} N={n} {str(cd)[6:]}"
-                x, z, g = wide_inputs(gen, n, ns, dl, CODE, cd)
+                label = (f"d_hidden {dh} d_latent {dl} k_in {k_in} NS={ns} N={n} "
+                         f"{str(cd)[6:]}")
+                x, z, g = wide_inputs(gen, n, ns, dl, code, cd)
                 before = dict(_build.launches)
-                kout = fused_resnetfc(x, z, w, compute_dtype=cd, code=CODE, **kw)
+                kout = fused_resnetfc(x, z, w, compute_dtype=cd, code=code, **kw)
                 ran = launched(before)
                 if ran != {K2.NAME: 1, K2.NAME_CHAIN[cd]: 1}:
                     raise AssertionError(f"K2 chain {label}: forward launches {ran}")
-                want = resnetfc_plain(x, z, w, compute_dtype=cd, code=CODE, **kw)
+                want = resnetfc_plain(x, z, w, compute_dtype=cd, code=code, **kw)
                 fwd_err = max_err(kout, want)
                 tol = (WIDE_F32_TOL if f32 else 2.0 ** -7) * max(1.0, float(want.abs().max()))
                 if not f32:
                     ref = resnetfc_plain(x, z.float(), exact, compute_dtype=torch.float32,
-                                         code=CODE, **kw)
+                                         code=code, **kw)
                     tol = max(tol, 2 * max_err(want, ref))
                     fwd.append(check(f"chain forward {label} vs float32 (bf16 weights)",
                                      max_err(kout, ref), tol, against="float32"))
                     del ref
                 fwd.append(check(f"chain forward {label}", fwd_err, tol))
-                args = K2._prepare(x, z, w, CODE, cd)
+                args = K2._prepare(x, z, w, code, cd)
                 dims = K2._dims(args, 5, 3, True)
                 kst = K2._forward(args, dims, cd, True)[1]
                 pst = decoder_plain_stash(x, z, w, **mkw)
@@ -5580,14 +5556,14 @@ def check_chain(gen):
                                        got, grads_of(kern(False), (x, z, *w), g)))
                 if n != BAND:
                     plain = lambda x, z, *ws: resnetfc_plain(x, z, DecoderWeights(*ws),
-                                                             compute_dtype=cd, code=CODE, **kw)
+                                                             compute_dtype=cd, code=code, **kw)
                     bwd += [check_l2(f"chain {nm} {label}", a, b, 1e-2 if f32 else 8e-2)
                             for nm, a, b in zip(DECODER_GRADS, got,
                                                 grads_of(plain, (x, z, *w), g))]
                     saved = K2.CHAIN_CHUNK, K2.RECOMPUTE_CHUNK
                     K2.CHAIN_CHUNK, K2.RECOMPUTE_CHUNK = 384, 1_000
                     try:
-                        cut_out = fused_resnetfc(x, z, w, compute_dtype=cd, code=CODE, **kw)
+                        cut_out = fused_resnetfc(x, z, w, compute_dtype=cd, code=code, **kw)
                         cut = grads_of(kern(False), (x, z, *w), g)
                     finally:
                         K2.CHAIN_CHUNK, K2.RECOMPUTE_CHUNK = saved
@@ -5607,20 +5583,20 @@ def check_chain(gen):
     return rows
 
 
-def chain_bound(cd, dh, dl, k_in, backward):
-    """The least time of a chain call at the band chunk (NS 1): its
+def chain_bound(cd, dh, dl, d_enc, backward, d_raw=CODE.d_raw, ns=1, n=BAND):
+    """The least time of a K2 call of ``n`` points (the band chunk): its
     operations (``wide_flops``, the dgrad the same products) at the dtype's
     peak, or its bytes (the forward's inputs, weights and output; the
     dgrad's stash read, cotangents written, its inputs and outputs)."""
     item, peak = (2, BF16_FLOPS) if cd == torch.bfloat16 else (4, F32_FLOPS)
-    wbytes = item * (dh * k_in + 3 * dh * dl + 10 * dh * dh + 4 * dh)
+    wbytes = item * (dh * d_enc + 3 * dh * dl + 10 * dh * dh + 4 * dh)
     if backward:
-        slots = K2.stash_slots(1, 5, 3)
-        io = BAND * (CODE.d_raw * 4 * 2 + dl * item * 2 + 4 * 4)
-        nbytes = 2 * slots * BAND * dh * item + io + wbytes
+        slots = K2.stash_slots(ns, 5, 3)
+        io = n * (ns * (d_raw * 4 * 2 + dl * item * 2) + 4 * 4)
+        nbytes = 2 * slots * n * dh * item + io + wbytes
     else:
-        nbytes = BAND * (CODE.d_raw * 4 + dl * item + 4 * 4) + wbytes
-    return bound(nbytes, wide_flops(BAND, 1, dh, dl, k_in), peak)
+        nbytes = n * (ns * (d_raw * 4 + dl * item) + 4 * 4) + wbytes
+    return bound(nbytes, wide_flops(n, ns, dh, dl, d_enc), peak)
 
 
 # csrc/resnetfc_chain.cu's kernels, as the profiler names them, and the least
@@ -5757,51 +5733,183 @@ def time_chain(gen, rows):
     return out
 
 
-def sweep_chain(gen):
-    """CHAIN_SWEEP's shapes, each timed at the band chunk on the chain and
-    on the other route, both forced, in turns (chain, other, other, chain;
-    CUDA events): the forward and (where the other route has a dgrad) the
-    dgrad, after each forward is held to the plain version.  The evidence
-    for ``chain_takes``' range; returns a row a shape."""
+def sweep_setup(row, seed):
+    """A SweepRow's inputs at the band chunk, drawn from ``seed`` (the same
+    bits in any process), its calls by kind (the forward without the stash;
+    the dgrad on the chain forward's stash) and each kind's hold: a route's
+    forward against the plain version (phase 9's bf16 rule, float32
+    WIDE_F32_TOL), its dgrad's dx and dz against ``decoder_bwd_matched`` on
+    that stash by relative L2 (bf16 MATCHED_BF16_TOL, float32
+    WIDE_F32_TOL)."""
     kw = dict(n_blocks=5, n_lin_z=3, activate_out=True)
-    rows = []
-    for cd, dh, dl, other, fwd_only in CHAIN_SWEEP:
-        w = decoder_weights(gen, dh=dh, dl=dl)
-        x, z, g = wide_inputs(gen, BAND, 1, dl, CODE, cd)
-        args = K2._prepare(x, z, w, CODE, cd)
-        dims = K2._dims(args, 5, 3, True)
-        want = resnetfc_plain(x, z, w, compute_dtype=cd, code=CODE, **kw)
-        tol = (WIDE_F32_TOL if cd == torch.float32 else 2.0 ** -7) * max(1.0, float(
-            want.abs().max()))
+    cd, dh, dl, code, ns = row.cd, row.dh, row.dl, row.code, row.ns
+    f32 = cd == torch.float32
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    w = decoder_weights(gen, dh=dh, dl=dl, code=code)
+    x, z, g = wide_inputs(gen, BAND, ns, dl, code, cd)
+    args = K2._prepare(x, z, w, code, cd)
+    dims = K2._dims(args, 5, 3, True)
+    shape = f"{str(cd)[6:]} d_hidden {dh} d_latent {dl} k_in {dims['k_in']} NS={ns} N={BAND}"
+    calls, held = {}, {}
+    if "forward" in row.times:
+        want = resnetfc_plain(x, z, w, compute_dtype=cd, code=code, **kw)
+        tol = (WIDE_F32_TOL if f32 else 2.0 ** -7) * max(1.0, float(want.abs().max()))
+        if not f32:
+            exact = DecoderWeights(*(t.to(cd).float() for t in w))
+            ref = resnetfc_plain(x, z.float(), exact, compute_dtype=torch.float32, code=code, **kw)
+            tol = max(tol, 2 * max_err(want, ref))
+            del ref
+        calls["forward"] = lambda: K2._forward(args, dims, cd, False)
+        held["forward"] = lambda r, res: {r: check(f"sweep {r} forward {shape}",
+                                                   max_err(res[0], want), tol)["max_abs_err"]}
+    if "dgrad" in row.times:
         with routes_forced("chain"):
             st = K2._forward(args, dims, cd, True)[1]
         gs, wd, _ = K2._bwd_operands(args, dims, g, K2.NAME_DGRAD)
-        calls = {"forward": lambda: K2._forward(args, dims, cd, False)}
-        if not fwd_only:
-            calls["dgrad"] = lambda: K2._dgrad(args, dims, st, gs, wd, cd)
-        row = dict(shape=f"{str(cd)[6:]} d_hidden {dh} d_latent {dl} N={BAND}", other=other,
-                   route=K2.forward_route(cd, dims["d_latent"], dims["k_in"], dh),
-                   dgrad_route=K2.backward_route(cd, dh, dims["d_latent"], dims["k_in"]))
-        iters = 3 if cd == torch.bfloat16 else 1
-        for name, call in calls.items():
-            errs = {}
-            for r in ("chain", other):
-                with routes_forced(r):
-                    res = call()
-                    if name == "forward":
-                        errs[r] = check(f"sweep {r} forward {row['shape']}",
-                                        max_err(res[0], want), tol)["max_abs_err"]
-            turns = {"chain": [], other: []}
-            for r in ("chain", other, other, "chain"):
-                with routes_forced(r):
-                    turns[r].append(time_ms(call, iters=iters, warmup=1))
-            row[name] = dict(chain_ms=turns["chain"], other_ms=turns[other], errs=errs,
-                             chain_faster=max(turns["chain"]) < min(turns[other]))
-        rows.append(row)
-        print(f"chain sweep {json.dumps(row)}")
-        del args, st, gs, wd, x, z, g, want
-        torch.cuda.empty_cache()
-    return rows
+        matched = decoder_bwd_matched(x, z, w, st, g, n_blocks=5, n_lin_z=3, code=code,
+                                      compute_dtype=cd, wgrads=False)[:2]
+        calls["dgrad"] = lambda: K2._dgrad(args, dims, st, gs, wd, cd)
+        held["dgrad"] = lambda r, res: {
+            f"{r} {nm}": check_l2(f"sweep {r} dgrad {nm} {shape}", a, m,
+                                  WIDE_F32_TOL if f32 else MATCHED_BF16_TOL,
+                                  against="matched")["rel_l2"]
+            for nm, a, m in zip(("dx", "dz"), res, matched)}
+    return dict(shape=shape, dims=dims, calls=calls, held=held)
+
+
+def sweep_hold_time(setup, route, name, iters, count, hold=True):
+    """``setup``'s ``name`` call on ``route`` (forced): held (with
+    ``hold``), then timed ``count`` times back to back; (errors, ms a call
+    each time)."""
+    with routes_forced(route):
+        errs = setup["held"][name](route, setup["calls"][name]()) if hold else {}
+        return errs, [time_ms(setup["calls"][name], iters=iters, warmup=1) for _ in range(count)]
+
+
+# the routes this tree no longer has (resnetfc_kernel and the first wide
+# version, retired by this sweep): --chain-sweep --retired=DIR times them in
+# DIR, a checkout of a commit that still has them, in a child process
+RETIRED = ("mma_sync", "wide")
+_RETIRED_CHILD = """
+import importlib.util, json, sys
+sys.path.insert(0, sys.argv[1])  # the retired tree's avr_tpu_torch
+spec = importlib.util.spec_from_file_location("chip_smoke_here", sys.argv[2])
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+torch = cs.torch
+torch.backends.cuda.matmul.allow_tf32 = False
+print("SWEEP " + json.dumps({"library": str(cs._build.load_library()["path"])}), flush=True)
+setup = None
+for line in sys.stdin:
+    req = json.loads(line)
+    if req["op"] == "setup":
+        row = cs.SweepRow(**dict(req["row"], cd=getattr(torch, req["row"]["cd"]),
+                                 code=cs.CodeSpec(**req["row"]["code"])))
+        setup = cs.sweep_setup(row, req["seed"])
+        reply = {"shape": setup["shape"]}
+    else:
+        errs, ms = cs.sweep_hold_time(setup, req["route"], req["name"], req["iters"], 2)
+        reply = {"errs": errs, "ms": ms}
+        if req.get("last"):
+            setup = None
+            torch.cuda.empty_cache()
+    print("SWEEP " + json.dumps(reply), flush=True)
+"""
+
+
+class RetiredRoutes:
+    """A child process in a checkout of a tree that still has the RETIRED
+    routes, running this file's ``sweep_setup`` / ``sweep_hold_time`` on that
+    tree's kernels: the other route's turns of a SweepRow."""
+
+    def __init__(self, tree):
+        here = os.path.abspath(__file__)
+        self.proc = subprocess.Popen([sys.executable, "-c", _RETIRED_CHILD,
+                                      os.path.abspath(tree), here],
+                                     cwd=os.path.abspath(tree), stdin=subprocess.PIPE,
+                                     stdout=subprocess.PIPE, text=True)
+        self.library = self._reply()["library"]
+
+    def _reply(self):
+        for line in self.proc.stdout:
+            if line.startswith("SWEEP "):
+                return json.loads(line[6:])
+        raise AssertionError(f"the retired routes' process ended: {self.proc.wait()}")
+
+    def ask(self, **req):
+        self.proc.stdin.write(json.dumps(req) + "\n")
+        self.proc.stdin.flush()
+        return self._reply()
+
+    def setup(self, row, seed):
+        spec = dict(row._asdict(), cd=str(row.cd)[6:], code=dataclasses.asdict(row.code))
+        return self.ask(op="setup", row=spec, seed=seed)
+
+    def close(self):
+        self.proc.stdin.close()
+        self.proc.wait(timeout=120)
+
+
+def sweep_row(row, seed, retired=None):
+    """One SweepRow at the band chunk on the chain and on the other route,
+    both forced, each held (``sweep_setup``) and timed in turns (chain,
+    other, other, chain; CUDA events), beside the cuBLAS chain of its
+    products (``product_chain``) and its bound (``chain_bound``).  A RETIRED
+    other route runs in ``retired`` (a RetiredRoutes) on the same inputs;
+    without one it is not measured.  ``chain_faster``: the chain's slower
+    call beat the other route's faster one."""
+    cd, dh, dl, other = row.cd, row.dh, row.dl, row.other
+    setup = sweep_setup(row, seed)
+    k_in = setup["dims"]["k_in"]
+    out = dict(corner=row.corner, shape=setup["shape"], other=other,
+               route=K2.forward_route(cd, setup["dims"]["d_latent"], k_in, dh),
+               dgrad_route=K2.backward_route(cd, dh, setup["dims"]["d_latent"], k_in))
+    away = other in RETIRED
+    if away and retired is not None:
+        out["other_tree"] = retired.library
+        if retired.setup(row, seed)["shape"] != setup["shape"]:
+            raise AssertionError(f"sweep {setup['shape']}: the retired tree drew another shape")
+    iters = 3 if cd == torch.bfloat16 else 1
+    names = list(setup["calls"])
+    for name in names:
+        errs, first = sweep_hold_time(setup, "chain", name, iters, 1)
+        if not away:
+            e, mid = sweep_hold_time(setup, other, name, iters, 2)
+        elif retired is not None:
+            r = retired.ask(op="hold_time", route=other, name=name, iters=iters,
+                            last=name == names[-1])
+            e, mid = r["errs"], r["ms"]
+        else:
+            e, mid = {}, None
+        errs.update(e)
+        last = sweep_hold_time(setup, "chain", name, iters, 1, hold=False)[1]
+        chain_ms = first + last
+        lib = time_ms(product_chain(torch.Generator(device=DEV).manual_seed(seed), BAND, dh, dl,
+                                    k_in, cd, name == "dgrad", ns=row.ns), iters=iters, warmup=1)
+        b_ms, b_by = chain_bound(cd, dh, dl, row.code.d_enc, name == "dgrad", row.code.d_raw,
+                                 row.ns)
+        out[name] = dict(chain_ms=chain_ms, other_ms=mid, errs=errs,
+                         chain_faster=None if mid is None else max(chain_ms) < min(mid),
+                         library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+    print(f"chain sweep {json.dumps(out)}", flush=True)
+    return out
+
+
+def sweep_chain(retired_tree=None, rows=CHAIN_SWEEP, seed=16):
+    """``rows`` (CHAIN_SWEEP) by ``sweep_row``, row i's inputs from seed
+    ``seed + i``; the RETIRED routes in a checkout ``retired_tree`` (not
+    measured without one).  The evidence for the chain's range
+    (``forward_route``, ``backward_route``); returns a row a shape."""
+    retired = RetiredRoutes(retired_tree) if retired_tree else None
+    out = []
+    try:
+        for i, row in enumerate(rows):
+            out.append(sweep_row(row, seed + i, retired))
+            torch.cuda.empty_cache()
+    finally:
+        if retired is not None:
+            retired.close()
+    return out
 
 
 def check_bins_large(gen):
@@ -5965,7 +6073,8 @@ def main() -> int:
     if "--chain" in sys.argv[1:] or "--chain-sweep" in sys.argv[1:]:
         out = {"card": smi}
         if "--chain-sweep" in sys.argv[1:]:
-            out["sweep"] = sweep_chain(torch.Generator(device=DEV).manual_seed(16))
+            out["sweep"] = sweep_chain(next((a.split("=", 1)[1] for a in sys.argv[1:]
+                                             if a.startswith("--retired=")), None))
         if "--chain" in sys.argv[1:]:
             kernels, res, launches = run_chain()
             out.update(chain=res, launches=launches,

@@ -387,9 +387,12 @@ class _At:
 
 
 # (dtype, d_hidden, d_latent): chip_smoke.py CHAIN_CASES, the shapes the card
-# runs on the chain
+# runs on the chain, with the sweep's moved corners A1, B1, C4 and D1 (its
+# 1,088 encoded lanes in CARD_K_IN; the others take 64)
 CARD_CASES = [(BF16, 1280, 1152), (BF16, 2048, 1152), (BF16, 1024, 4096), (F32, 1920, 1152),
-              (BF16, 512, 4096)]
+              (BF16, 512, 4096), (BF16, 64, 1216), (BF16, 576, 2112), (BF16, 192, 4096),
+              (F32, 1024, 1152)]
+CARD_K_IN = {(F32, 1024, 1152): 1088}
 
 
 @pytest.mark.parametrize("pass_", ["forward", "forward_no_stash", "dgrad"])
@@ -406,7 +409,7 @@ def test_tensor_maps_cover_whole_aligned_boxes(monkeypatch, cd, dh, dl, ns, pass
     16-byte aligned, their row strides and the views' output stride
     multiples of 4 floats, as ``launch_op`` requires."""
     monkeypatch.setattr(K2, "CHAIN_CHUNK", 384)
-    n, nb, nlz, k_in = 81_920 + 37, 5, 3, 64
+    n, nb, nlz, k_in = 81_920 + 37, 5, 3, CARD_K_IN.get((cd, dh, dl), 64)
     backward, stash = pass_ == "dgrad", pass_ != "forward_no_stash"
     item = 2 if cd == BF16 else 4
     d = dict(N=n, ns=ns, d_in=CODE.d_raw, k_in=k_in, d_latent=dl, d_hidden=dh, d_out=4,

@@ -5,8 +5,8 @@ a call launches on the card: the main path's shapes (bf16, ``d_latent`` 512,
 64 encoded input lanes) go to the wgmma kernel (``csrc/resnetfc_hopper.cu
 resnetfc_fwd_wgmma_kernel``), and so do bf16 latents and encoded inputs up
 to ``FWD_OPERAND_MAX`` lanes (in pieces of up to 768); wider bf16 shapes go to
-``csrc/resnetfc.cu``'s ``mma.sync`` kernel, float32 to its FMA kernel, never
-to a refusal.  The
+the chain (``csrc/resnetfc_chain.cu``), float32 to ``csrc/resnetfc.cu``'s
+FMA kernel, never to a refusal.  The
 wgmma kernel's shared-memory layout, read from its source's constants
 (``csrc/resnetfc_hopper.cu``: ``DG_M``..``DG_SMEM`` at :102-111 by the
 walk's names, ``FWD_K_MAX``, ``FW_STAGES`` and ``FW_PARK`` at :559-564),
@@ -27,7 +27,7 @@ from avr_tpu_torch.ops.kernels import resnetfc as K2
 
 CSRC = Path(K2.__file__).resolve().parents[2] / "csrc"
 SMEM_LIMIT = 232_448  # bytes of shared memory a Hopper block can use (227 KB)
-ROUTES = ("wgmma", "mma_sync", "fma")
+ROUTES = ("wgmma", "chain", "fma")
 
 
 def _constants():
@@ -63,21 +63,28 @@ def test_the_shipped_decoder_is_inside_the_envelope():
                                            (1216, 64), (512, 1216)])
 def test_every_accepted_shape_has_a_kernel(d_latent, k_in):
     """bf16 beyond the wgmma kernel's 512-lane A tile takes its pieces up to
-    FWD_OPERAND_MAX lanes and the mma.sync kernel past them, as before;
-    nothing the wrapper takes is refused on the card."""
+    FWD_OPERAND_MAX lanes and the chain past them (measured faster than the
+    retired ``mma.sync`` kernel that took them before: chip_smoke.py
+    --chain-sweep, family A); nothing the wrapper takes is refused on the
+    card."""
     pieced = max(d_latent, k_in) <= K2.FWD_OPERAND_MAX
-    assert K2.forward_route(torch.bfloat16, d_latent, k_in) == ("wgmma" if pieced else
-                                                                "mma_sync")
+    assert K2.forward_route(torch.bfloat16, d_latent, k_in) == ("wgmma" if pieced else "chain")
     for cd, dl, kin in itertools.product((torch.bfloat16, torch.float32),
-                                         range(64, 1089, 64), range(64, 1089, 64)):
+                                         range(64, 1217, 64), range(64, 1217, 64)):
         assert K2.forward_route(cd, dl, kin) in ROUTES
 
 
 def test_the_envelope_matches_the_kernel():
     """The wrapper's envelope and tile are the kernel's, and its A tile holds
-    FWD_K_MAX lanes of 64 points."""
+    FWD_K_MAX lanes of 64 points; the chain takes the bf16 forward exactly
+    past the C entry's FWD_OPERAND_MAX lanes."""
     c = _constants()
     assert K2.FWD_K_MAX == c["FWD_K_MAX"]
+    assert K2.FWD_OPERAND_MAX == c["FWD_OPERAND_MAX"]
+    for dh in (64, 256, 512):
+        assert not K2.chain_takes(torch.bfloat16, dh, K2.FWD_OPERAND_MAX, K2.FWD_OPERAND_MAX)
+        assert K2.chain_takes(torch.bfloat16, dh, K2.FWD_OPERAND_MAX + 64, 64)
+        assert K2.chain_takes(torch.bfloat16, dh, 64, K2.FWD_OPERAND_MAX + 64)
     assert K2.FWD_TILE == c["DG_M"]
     assert (c["DG_W"] - c["DG_A"]) // c["DG_BOX"] * 64 >= c["FWD_K_MAX"]
     assert c["DG_BOX"] == c["DG_M"] * 64 * 2  # a box: 64 points x 64 bf16 lanes

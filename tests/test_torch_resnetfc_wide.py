@@ -28,6 +28,7 @@ lanes (``pad_latent``).  Here, on the CPU:
   function (its forward bit for bit where the injections' sums are exact).
 """
 
+import itertools
 import re
 from pathlib import Path
 
@@ -160,13 +161,14 @@ def test_shipped_shapes_keep_their_kernels(cd, want_fwd, want_bwd):
 def test_wide_routes():
     # d_hidden past 512: the wide forward and dgrad in both dtypes, bf16 on
     # the TMA cluster kernels up to 1,024, float32 on its cluster kernels up
-    # to 1,024, on the first version past them
+    # to 1,024, on the chain past them
     for cd, want in ((BF16, "wide_tma"), (F32, "wide_f32")):
         for dh in (576, 640, 1024):
             assert K2.forward_route(cd, 512, 64, dh) == want
             assert K2.backward_route(cd, dh, 512, 64) == want
     assert K2.forward_route(F32, 1152, 64, 1024) == "wide_f32"
-    # past 1,024 the chain, measured faster than the first version there
+    # past 1,024 the chain, measured faster than the retired first wide
+    # version there
     for dh in (1088, 1152, 1792):
         assert K2.forward_route(F32, 512, 64, dh) == "chain"
         assert K2.backward_route(F32, dh, 512, 64) == "chain"
@@ -178,13 +180,13 @@ def test_wide_routes():
     assert K2.backward_route(BF16, 512, 512, 192) == "wide_tma"
     assert K2.forward_route(BF16, 512, 192, 512) == "wgmma"
     assert K2.backward_route(F32, 512, 1152, 576) == "fma"
-    # bf16 past the TMA cluster kernels' two trunk groups a warp: the chain
-    # (measured faster than the first version); below the dgrad tail's
-    # chunk: the first version
+    # bf16 past the TMA cluster kernels' two trunk groups a warp, and below
+    # the dgrad tail's d-encoding chunk: the chain (measured faster than the
+    # retired first wide version, chip_smoke.py --chain-sweep family C)
     assert K2.forward_route(BF16, 1152, 64, 1152) == "chain"
     assert K2.backward_route(BF16, 1152, 1152, 64) == "chain"
-    assert K2.backward_route(BF16, 128, 640, 64) == "wide"
-    # past the first version's shared memory: the chain
+    assert K2.backward_route(BF16, 128, 640, 64) == "chain"
+    # past the cluster kernels' shared memory: the chain
     for dh in (1280, 2048):
         assert K2.forward_route(BF16, 1152, 64, dh) == "chain"
         assert K2.backward_route(BF16, dh, 1152, 64) == "chain"
@@ -208,35 +210,20 @@ def test_pieced_shapes_take_the_wgmma_forward(d_hidden, d_latent, k_in):
     assert K2.forward_route(BF16, d_latent, k_in, d_hidden) == "wgmma"
     # the dgrad is unchanged: the TMA cluster one past the tail's lanes
     assert K2.backward_route(BF16, d_hidden, d_latent, k_in) == (
-        "wide_tma" if d_hidden >= 256 else "wide")
+        "wide_tma" if d_hidden >= 256 else "chain")
 
 
 @pytest.mark.parametrize("d_latent,k_in", [(1216, 64), (64, 1216), (2048, 576), (1152, 1216)])
-def test_past_the_pieces_limit_resnetfc_kernel_stays(d_latent, k_in):
-    """Past the C entry's FWD_OPERAND_MAX lanes the rule keeps
-    resnetfc_kernel where its shared memory (``mma_sync_smem``, at NS > 1)
-    holds the call, and sends the rest to the chain: nothing is refused."""
+def test_past_the_pieces_limit_the_chain_takes_the_forward(d_latent, k_in):
+    """Past the C entry's FWD_OPERAND_MAX lanes the chain takes every bf16
+    forward at d_hidden up to 512 (it was measured faster than the retired
+    ``resnetfc_kernel`` at every corner of that family: chip_smoke.py
+    --chain-sweep A1-A6): nothing is refused; float32 keeps its FMA
+    kernel."""
     for dh in (64, 256, 512):
-        fits = K2.mma_sync_smem(dh, d_latent, k_in) <= K2.SMEM_MAX
-        assert K2.forward_route(BF16, d_latent, k_in, dh) == ("mma_sync" if fits else "chain")
-        assert fits or (dh, d_latent, k_in) == (512, 2048, 576)
+        assert K2.forward_route(BF16, d_latent, k_in, dh) == "chain"
+        assert K2.chain_takes(BF16, dh, d_latent, k_in)
     assert K2.forward_route(F32, d_latent, k_in, 512) == "fma"
-
-
-def test_resnetfc_kernel_smem_matches_the_source():
-    """``mma_sync_smem`` mirrors ``fwd_smem_bytes<bf16>`` at NS > 1 (the row
-    stride ``row_stride<bf16>``), and a 4,096-lane latent at d_hidden 512
-    passes 227 KB: the chain takes it."""
-    src = (CSRC / "resnetfc.cu").read_text()
-    assert "inline int row_stride<bf16>(int k) { return (k + 63) / 64 * 64 + 32; }" in src
-    body = " ".join(re.search(r"inline size_t fwd_smem_bytes\(int k_in, int dh, int dl, int ns\) "
-                              r"\{(.+?)\n\}", src, re.S).group(1).split())
-    assert body == ("return (size_t)TM * (row_stride<T>(k_in > dh ? k_in : dh) + "
-                    "row_stride<T>(dl)) * sizeof(T) + (ns > 1 ? (size_t)TM * dh * sizeof(float) "
-                    ": 0);")
-    assert re.search(r"constexpr int TM = 32;", src)
-    assert K2.mma_sync_smem(512, 4096, 64) == 32 * (544 + 4128) * 2 + 32 * 512 * 4
-    assert K2.forward_route(BF16, 4096, 64, 512) == "chain"
 
 
 def test_pieces_match_the_source():
@@ -275,11 +262,9 @@ def test_pieces_match_the_source():
 
 
 def _fits(cd, route, dh, dl, k_in, backward):
-    """Whether ``route``'s kernel takes the shape: the cluster kernels and the
-    first version within their shared memory; the chain and the register
-    kernels take what the rule sends them."""
-    if route == "wide":
-        return K2.wide_smem(cd, dh, dl, k_in, backward) <= K2.SMEM_MAX
+    """Whether ``route``'s kernel takes the shape: the cluster kernels within
+    their shared memory; the chain and the register kernels take what the
+    rule sends them."""
     if route == "wide_tma":
         return K2.wide_tma_smem(dh, dl, k_in, backward) <= K2.SMEM_MAX
     if route == "wide_f32":
@@ -301,60 +286,136 @@ def test_everything_jax_fuses_has_a_kernel(cd):
                 dlp, k_in = K2.d_enc_padded(dl), K2.d_enc_padded(d_enc)
                 fwd = K2.forward_route(cd, dlp, k_in, dh)
                 bwd = K2.backward_route(cd, dh, dlp, k_in)
-                assert fwd in ("wgmma", "mma_sync", "fma", "wide", "wide_tma", "wide_f32",
-                               "chain")
-                assert bwd in ("wgmma", "fma", "wide", "wide_tma", "wide_f32", "chain")
+                assert fwd in ("wgmma", "fma", "wide_tma", "wide_f32", "chain")
+                assert bwd in ("wgmma", "fma", "wide_tma", "wide_f32", "chain")
                 assert _fits(cd, fwd, dh, dlp, k_in, False)
                 assert _fits(cd, bwd, dh, dlp, k_in, True)
 
 
-def _route_before_the_chain(cd, dh, dl, k_in, backward):
-    """The rule before the chain (the wide kernels' routes as they were), and
-    whether the shape was refused: its route was the first version and the
-    wrapper raised (that kernel's shared memory did not fit), or its route
-    was ``resnetfc_kernel`` and the card refused the launch at NS > 1 (its
-    shared memory, ``mma_sync_smem``, did not fit)."""
+# The retired first versions' shared memory, as their sources had it (the
+# rule before the chain took their shapes): resnetfc_kernel's at NS > 1
+# (csrc/resnetfc.cu fwd_smem_bytes<bf16>), the first wide version's forward
+# and dgrad (csrc/resnetfc_wide.cu wide_fwd_smem, wide_dgrad_smem: a tile of
+# 32 bf16 or 16 float32 points).
+def _resnetfc_kernel_smem(dh, dl, k_in):
+    rows = lambda k: -(-k // 64) * 64 + 32
+    return 32 * (rows(max(k_in, dh)) + rows(dl)) * 2 + 32 * dh * 4
+
+
+def _first_wide_smem(cd, dh, dl, k_in, backward):
+    tm, item = (32, 2) if cd == BF16 else (16, 4)
+    lda = (lambda k: -(-k // 64) * 64 + 32) if cd == BF16 else (lambda k: k + 4)
+    k = dh if backward else max(dh, dl, k_in)
+    return tm * (dh + 4) * 4 + tm * lda(k) * item + (tm * K2.GOUT_W * 4 if backward else 0)
+
+
+def _route_before(cd, dh, dl, k_in, backward):
+    """The rule before the chain took the first versions' shapes: the
+    register kernels, the cluster kernels, ``resnetfc_kernel`` ("mma_sync")
+    for bf16 forwards at d_hidden up to 512 past FWD_OPERAND_MAX lanes where
+    its shared memory fit, the first wide version ("wide") for the other
+    shapes up to d_hidden 1,024 where its shared memory fit, the chain past
+    1,024 and past those memories."""
     if backward:
         if cd == F32 and dh <= K2.REG_DH_MAX:
-            r = "fma"
-        elif cd == F32:
-            r = "wide_f32" if K2.wide_f32_fits(cd, dh, k_in) else "wide"
-        elif dh <= K2.REG_DH_MAX and dl <= K2.TAIL_DL_MAX and k_in <= K2.TAIL_KIN_MAX:
-            r = "wgmma"
-        else:
-            r = "wide_tma" if K2.wide_tma_fits(cd, dh, dl, k_in, True) else "wide"
+            return "fma"
+        if cd == F32 and K2.wide_f32_fits(cd, dh, k_in):
+            return "wide_f32"
+        if cd == BF16 and dh <= K2.REG_DH_MAX and dl <= K2.TAIL_DL_MAX and \
+                k_in <= K2.TAIL_KIN_MAX:
+            return "wgmma"
+        if cd == BF16 and K2.wide_tma_fits(cd, dh, dl, k_in, True):
+            return "wide_tma"
     elif dh > K2.REG_DH_MAX:
-        r = ("wide_f32" if K2.wide_f32_fits(cd, dh, k_in) else
-             "wide_tma" if K2.wide_tma_fits(cd, dh, dl, k_in) else "wide")
+        if K2.wide_f32_fits(cd, dh, k_in):
+            return "wide_f32"
+        if K2.wide_tma_fits(cd, dh, dl, k_in):
+            return "wide_tma"
+    elif cd == F32:
+        return "fma"
+    elif max(dl, k_in) <= K2.FWD_OPERAND_MAX:
+        return "wgmma"
     else:
-        r = "fma" if cd == F32 else "wgmma" if max(dl, k_in) <= K2.FWD_OPERAND_MAX else "mma_sync"
-    return r, ((r == "wide" and K2.wide_smem(cd, dh, dl, k_in, backward) > K2.SMEM_MAX)
-               or (r == "mma_sync" and K2.mma_sync_smem(dh, dl, k_in) > K2.SMEM_MAX))
+        return "mma_sync" if _resnetfc_kernel_smem(dh, dl, k_in) <= K2.SMEM_MAX else "chain"
+    first = dh <= 1024 and _first_wide_smem(cd, dh, dl, k_in, backward) <= K2.SMEM_MAX
+    return "wide" if first else "chain"
 
 
 @pytest.mark.parametrize("backward", [False, True])
 @pytest.mark.parametrize("cd", [BF16, F32])
 def test_the_chain_takes_what_was_refused_and_the_measured_range(cd, backward):
     """The chain's rule (``chain_takes``) is one function of the shape: a
-    shape goes to the chain exactly where the wrapper refused it before
-    (the first version's shared memory past ``SMEM_MAX``) and where the
-    first version took it past ``CHAIN_DH_MIN`` (the chain measured faster
-    there); every shipped and cluster shape, and every first-version shape
-    up to ``CHAIN_DH_MIN``, keeps its route."""
+    shape goes to the chain exactly where it went before, where the wrapper
+    refused it before that (past the first versions' shared memory), and
+    where the retired first versions took it (the chain measured faster at
+    every corner of their four families: chip_smoke.py --chain-sweep);
+    every shipped, pieced and cluster shape keeps its route."""
     route = (lambda dh, dl, k_in: K2.backward_route(cd, dh, dl, k_in)) if backward else \
         (lambda dh, dl, k_in: K2.forward_route(cd, dl, k_in, dh))
-    chained = 0
+    chained = moved = 0
     for dh in range(64, 4097, 64):
         for dl in (64, 512, 640, 1152, 1216, 2048, 4096):
             for k_in in (64, 192, 576, 1216):
-                before, refused = _route_before_the_chain(cd, dh, dl, k_in, backward)
+                before = _route_before(cd, dh, dl, k_in, backward)
                 r = route(dh, dl, k_in)
-                measured = before == "wide" and dh > K2.CHAIN_DH_MIN
-                assert r == ("chain" if refused or measured else before), (dh, dl, k_in)
-                assert (r == "chain") == (refused or before == "wide" and K2.chain_takes(
-                    cd, dh, dl, k_in, backward))
+                assert r == ("chain" if before in ("chain", "mma_sync", "wide") else before), \
+                    (dh, dl, k_in)
+                assert (r == "chain") == K2.chain_takes(cd, dh, dl, k_in, backward)
                 chained += r == "chain"
-    assert chained
+                moved += before in ("mma_sync", "wide")
+    assert chained and moved
+
+
+# The four families of shapes the retired first versions took, with the
+# corners chip_smoke.py --chain-sweep timed (CHAIN_SWEEP, in turns at the band
+# chunk on an H100 80GB HBM3 at 700 W: the chain faster at every one):
+# (dtype, the retired route, the passes it took, corners as (d_hidden,
+# latent, encoded lanes as padded) by name)
+FAMILIES = {
+    "A": (BF16, "mma_sync", ("forward",), {
+        "A1": (64, 1216, 64), "A2": (64, 3328, 64), "A3": (512, 1216, 64),
+        "A4": (512, 1984, 64), "A5": (512, 512, 1216), "A6": (512, 1280, 64)}),
+    "B": (BF16, "wide", ("forward",), {"B1": (576, 2112, 64), "B2": (704, 2176, 64)}),
+    "C": (BF16, "wide", ("dgrad",), {
+        "C1": (64, 576, 64), "C2": (64, 4096, 64), "C3": (192, 576, 64),
+        "C4": (192, 4096, 64), "C5": (128, 512, 192)}),
+    "D": (F32, "wide", ("forward", "dgrad"), {
+        "D1": (1024, 1152, 1088), "D2": (576, 1152, 2176), "D3": (768, 1152, 2048),
+        "D4": (1024, 1152, 3072)}),
+}
+GRID_K_IN = (64, 128, 192, 256, 512, 1024, 2048, 4096)
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_no_shape_takes_a_retired_route_and_each_family_moved(family):
+    """Over d_hidden and latents in multiples of 64 up to 4,096 and the
+    encoded widths of GRID_K_IN, no shape of the family's dtype routes to a
+    retired kernel (``"mma_sync"``: csrc/resnetfc.cu resnetfc_kernel;
+    ``"wide"``: the first wide version), every shape the family's retired
+    route took goes to the chain, and every corner the sweep timed took
+    that route before and takes the chain now."""
+    cd, retired, passes, corners = FAMILIES[family]
+    live = ("wgmma", "fma", "wide_tma", "wide_f32", "chain")
+    moved = 0
+    for backward in (False, True):
+        for dh, dl, k_in in itertools.product(range(64, 4097, 64), range(64, 4097, 64),
+                                              GRID_K_IN):
+            r = (K2.backward_route(cd, dh, dl, k_in) if backward else
+                 K2.forward_route(cd, dl, k_in, dh))
+            assert r in live
+            if ("dgrad" if backward else "forward") in passes and \
+                    _route_before(cd, dh, dl, k_in, backward) == retired:
+                assert r == "chain", (dh, dl, k_in)
+                moved += 1
+    assert moved
+    for name, (dh, dl, k_in) in corners.items():
+        for kind in passes:
+            backward = kind == "dgrad"
+            if name == "D4" and not backward:
+                continue  # its forward was the chain's already
+            assert _route_before(cd, dh, dl, k_in, backward) == retired, name
+            assert (K2.backward_route(cd, dh, dl, k_in) if backward else
+                    K2.forward_route(cd, dl, k_in, dh)) == "chain", name
 
 
 # ---------------------------------------------------------------------------
@@ -364,12 +425,6 @@ def test_the_chain_takes_what_was_refused_and_the_measured_range(cd, backward):
 
 def _source():
     return (CSRC / "resnetfc_wide.cu").read_text()
-
-
-def _tile(type_name):
-    m = re.search(r"template <> struct Wide<" + type_name + r"> \{\s*static constexpr int "
-                  r"TM = (\d+), WARPS = (\d+), NACC = (\d+);", _source())
-    return tuple(int(v) for v in m.groups())
 
 
 def _wt():
@@ -384,60 +439,34 @@ def _wt():
     return env
 
 
-@pytest.mark.parametrize("type_name,cd", [("bf16", BF16), ("float", F32), ("tma", BF16)])
+@pytest.mark.parametrize("type_name,cd", [("tma", BF16)])
 def test_wide_tile_matches_the_source(type_name, cd):
-    """The tile the wrapper sizes its view-sum scratch by is the kernel's,
-    and a warp's 64-column group of TM points is NACC accumulators a lane.
+    """The tile the wrapper sizes its view-sum scratch by is the kernel's.
     The TMA cluster kernels: 32 points a CTA, the grid whole clusters (the
     view-sum scratch and the dgrad's pool by a cluster's points), a stage a
     pass of 8 consumer warps' 64 columns of 32 k (4 TMA boxes of 128 rows,
     shared equally by the cluster's CTAs), a producer warp beside eight consumer
     warps, and a warp's trunk two 64-column groups at most (d_hidden up to
     1,024)."""
-    if type_name == "tma":
-        wt = _wt()
-        assert (wt["WT_TM"], wt["WT_CLUSTER"], wt["WT_STAGES"]) == (
-            K2.WIDE_TMA_TM, K2.WIDE_TMA_CLUSTER, K2.WIDE_TMA_STAGES)
-        assert (wt["WT_PASS"], wt["WT_KS"], wt["WT_STAGE"]) == (
-            K2.WIDE_TMA_PASS, K2.WIDE_TMA_KS, K2.WIDE_TMA_STAGE)
-        assert K2.dgrad_tile(cd, "wide_tma") == wt["WT_TM"] * wt["WT_CLUSTER"]
-        assert wt["WT_PASS"] == (wt["WT_CONSUMERS"] // 32) * 64
-        pieces = wt["WT_PASS"] // wt["WT_PIECE"]
-        assert wt["WT_STAGE"] == pieces * wt["WT_PIECE_BYTES"] and pieces % wt["WT_CLUSTER"] == 0
-        assert 2 <= wt["WT_CLUSTER"] <= 4 and wt["WT_THREADS"] == wt["WT_CONSUMERS"] + 32
-        assert (wt["WT_DH_MIN"], wt["WT_DH_MAX"]) == K2.WIDE_TMA_DH
-        assert wt["WT_DH_MAX"] == 2 * wt["WT_PASS"]
-        return
-    tm, warps, nacc = _tile(type_name)
-    assert K2.WIDE_TM[cd] == tm == K2.dgrad_tile(cd, "wide")
-    assert nacc * 32 == tm * 64
-    assert warps * 32 <= 1024
+    assert type_name == "tma"
+    wt = _wt()
+    assert (wt["WT_TM"], wt["WT_CLUSTER"], wt["WT_STAGES"]) == (
+        K2.WIDE_TMA_TM, K2.WIDE_TMA_CLUSTER, K2.WIDE_TMA_STAGES)
+    assert (wt["WT_PASS"], wt["WT_KS"], wt["WT_STAGE"]) == (
+        K2.WIDE_TMA_PASS, K2.WIDE_TMA_KS, K2.WIDE_TMA_STAGE)
+    assert K2.dgrad_tile(cd, "wide_tma") == wt["WT_TM"] * wt["WT_CLUSTER"]
+    assert wt["WT_PASS"] == (wt["WT_CONSUMERS"] // 32) * 64
+    pieces = wt["WT_PASS"] // wt["WT_PIECE"]
+    assert wt["WT_STAGE"] == pieces * wt["WT_PIECE_BYTES"] and pieces % wt["WT_CLUSTER"] == 0
+    assert 2 <= wt["WT_CLUSTER"] <= 4 and wt["WT_THREADS"] == wt["WT_CONSUMERS"] + 32
+    assert (wt["WT_DH_MIN"], wt["WT_DH_MAX"]) == K2.WIDE_TMA_DH
+    assert wt["WT_DH_MAX"] == 2 * wt["WT_PASS"]
 
 
-def test_wide_smem_matches_the_source():
-    """``wide_smem`` mirrors ``wide_fwd_smem``/``wide_dgrad_smem`` with the
-    source's ``wide_lda`` and ``SMEM_MAX``; bf16 rows of the operand tile lie
-    64 bytes apart modulo 128 (8 lanes' 16-byte fragment loads meet 8 bank
-    groups), float32 rows 16 bytes apart."""
-    src = _source()
-    assert int(re.search(r"constexpr int SMEM_MAX = (\d+);", src).group(1)) == K2.SMEM_MAX
-    lda = {t: re.search(r"inline int wide_lda<" + t + r">\(int k\) \{ return ([^;]+); \}",
-                        src).group(1).replace("/", "//") for t in ("bf16", "float")}
-    for k in range(64, 2049, 64):
-        assert eval(lda["bf16"], {}, {"k": k}) == K2.wide_lda(BF16, k)  # noqa: S307
-        assert eval(lda["float"], {}, {"k": k}) == K2.wide_lda(F32, k)  # noqa: S307
-        assert K2.wide_lda(BF16, k) * 2 % 128 == 64
-        assert K2.wide_lda(F32, k) * 4 % 128 == 16
-    for cd, t in ((BF16, "bf16"), (F32, "float")):
-        tm, item = _tile(t)[0], 2 if cd == BF16 else 4
-        for dh, dl, k_in in ((1024, 1152, 576), (640, 640, 64), (64, 1152, 64)):
-            fwd = tm * (dh + 4) * 4 + tm * K2.wide_lda(cd, max(dh, dl, k_in)) * item
-            assert K2.wide_smem(cd, dh, dl, k_in) == fwd
-            bwd = tm * (dh + 4) * 4 + tm * K2.wide_lda(cd, dh) * item + tm * K2.GOUT_W * 4
-            assert K2.wide_smem(cd, dh, dl, k_in, backward=True) == bwd
-    # the phase-11 shapes on the card, in bytes
-    assert K2.wide_smem(BF16, 1024, 1152, 576) == 207_360
-    assert K2.wide_smem(F32, 1024, 1152, 576) == 139_776
+def test_smem_max_matches_the_source():
+    """The shared memory a block can use, which both cluster kernels' rules
+    size by, is the source's ``SMEM_MAX``."""
+    assert int(re.search(r"constexpr int SMEM_MAX = (\d+);", _source()).group(1)) == K2.SMEM_MAX
 
 
 def test_wide_tma_smem_matches_the_source():
@@ -472,36 +501,30 @@ def test_wide_tma_smem_matches_the_source():
 
 @pytest.mark.parametrize("backward", [False, True])
 def test_wide_tma_route_rule(backward):
-    """The rule between the wide kernels is one function of the shape, and
-    the envelope does not narrow: every bf16 shape the first version took
-    (d_hidden 576..1,152, and for the dgrad 512 with a latent past 512 or
-    more than 128 lanes; latents and inputs to 2,048 lanes) still has a
-    kernel, the TMA cluster one exactly where ``wide_tma_fits``, and the
-    wrapper refuses none of them (past d_hidden 1,024 and past the first
-    version's shared memory the chain takes a shape)."""
+    """The rule between the bf16 kernels past the register kernels is one
+    function of the shape, and the envelope does not narrow: every bf16
+    shape the first wide version took (d_hidden 576..1,152, and for the
+    dgrad 64 to 512 with a latent past 512 or more than 128 lanes; latents
+    and inputs to 2,048 lanes) still has a kernel, the TMA cluster one
+    exactly where ``wide_tma_fits``, the chain everywhere else (measured
+    faster than the retired first version: chip_smoke.py --chain-sweep), and
+    the wrapper refuses none of them."""
     route = (lambda dh, dl, k_in: K2.backward_route(BF16, dh, dl, k_in)) if backward else \
         (lambda dh, dl, k_in: K2.forward_route(BF16, dl, k_in, dh))
-    dhs = range(512 if backward else 576, 1153, 64)
+    dhs = range(64 if backward else 576, 1153, 64)
     for dh in dhs:
         for dl in range(64, 2049, 64):
             for k_in in (64, 128, 192, 576, 1216, 2048):
                 r = route(dh, dl, k_in)
-                if dh == 512 and dl <= 512 and k_in <= 128:
+                if dh <= 512 and dl <= 512 and k_in <= 128:
                     assert r == "wgmma"
                     continue
-                assert r == ("wide_tma" if K2.wide_tma_fits(BF16, dh, dl, k_in, backward)
-                             else "chain" if K2.chain_takes(BF16, dh, dl, k_in, backward)
-                             else "wide")
-                # the first version took the call (its forward past d_hidden
-                # 512 and, under autograd, its dgrad fit): up to 1,024 it
-                # still runs on a kernel of the wide file, past it on the
-                # chain (measured faster)
-                first = (dh <= 512 or K2.wide_smem(BF16, dh, dl, k_in) <= K2.SMEM_MAX) and (
-                    not backward or K2.wide_smem(BF16, dh, dl, k_in, True) <= K2.SMEM_MAX)
-                if first:
-                    assert r in (("chain",) if dh > K2.CHAIN_DH_MIN else ("wide_tma", "wide"))
+                fits = K2.wide_tma_fits(BF16, dh, dl, k_in, backward)
+                assert r == ("wide_tma" if fits else "chain")
+                assert fits != K2.chain_takes(BF16, dh, dl, k_in, backward)
                 if r == "wide_tma":
-                    assert dh <= 1024 and K2.wide_tma_smem(dh, dl, k_in, backward) <= K2.SMEM_MAX
+                    assert 256 <= dh <= 1024
+                    assert K2.wide_tma_smem(dh, dl, k_in, backward) <= K2.SMEM_MAX
 
 
 def _wf():
@@ -619,11 +642,11 @@ def test_wide_f32_smem_matches_the_source():
 @pytest.mark.parametrize("backward", [False, True])
 def test_wide_f32_route_rule(backward):
     """The float32 rule is one function of the shape, and the envelope does
-    not narrow: every float32 shape the first version took (d_hidden 576 to
-    1,792; latents and inputs to 2,048 lanes) still has a kernel, the cluster
-    one exactly where ``wide_f32_fits`` (d_hidden up to 1,024 with three
-    stages), the first version elsewhere up to 1,024 where its shared
-    memory fits, the chain past 1,024 and past that memory; none is
+    not narrow: every float32 shape the first wide version took (d_hidden
+    576 to 1,792; latents and inputs to 2,048 lanes) still has a kernel,
+    the cluster one exactly where ``wide_f32_fits`` (d_hidden up to 1,024
+    with three stages), the chain everywhere else (measured faster than the
+    retired first version: chip_smoke.py --chain-sweep family D); none is
     refused."""
     route = (lambda dh, dl, k_in: K2.backward_route(F32, dh, dl, k_in)) if backward else \
         (lambda dh, dl, k_in: K2.forward_route(F32, dl, k_in, dh))
@@ -632,13 +655,9 @@ def test_wide_f32_route_rule(backward):
             for k_in in (64, 128, 576, 1216, 2048):
                 r = route(dh, dl, k_in)
                 fits = K2.wide_f32_fits(F32, dh, k_in)
-                assert r == ("wide_f32" if fits else "chain" if K2.chain_takes(
-                    F32, dh, dl, k_in, backward) else "wide")
+                assert r == ("wide_f32" if fits else "chain")
+                assert fits != K2.chain_takes(F32, dh, dl, k_in, backward)
                 assert fits == (dh <= 1024 and K2.wide_f32_stages(dh, k_in) >= 3)
-                first = K2.wide_smem(F32, dh, dl, k_in) <= K2.SMEM_MAX and (
-                    not backward or K2.wide_smem(F32, dh, dl, k_in, True) <= K2.SMEM_MAX)
-                if first:
-                    assert r in (("chain",) if dh > K2.CHAIN_DH_MIN else ("wide_f32", "wide"))
     # the narrow float32 kernels keep d_hidden 512 and below
     assert route(512, 1152, 576) == "fma" and not K2.wide_f32_fits(F32, 512, 64)
     assert not K2.wide_f32_fits(BF16, 1024, 64)

@@ -45,8 +45,8 @@ torch.set_num_threads(2)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "avr_tpu", "scripts")
 # the turns scripts' sources run as python -c
-SNIPPETS = ("_TURN", "_PROBE", "_STAMPED", "_CAPTURE", "_COMMON", "_SLICE", "_SWEEP",
-            "_STAMPED_MMA", "_SWEEP_PIECES", "_BINS", "_RECORDS", "_CHAIN_DEVICE")
+SNIPPETS = ("_TURN", "_PROBE", "_STAMPED", "_CAPTURE", "_COMMON", "_SLICE", "_BINS",
+            "_RECORDS", "_CHAIN_DEVICE", "_RETIRED_CHILD")
 TINY = """
 include required("default_mv.conf")
 model {
